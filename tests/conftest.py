@@ -25,6 +25,8 @@ _hypothesis_compat.install()
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: soak tests (traffic etc.) — opt-in via --runslow")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (skips without them)")
     if config.getoption("--lock-check"):
         # Instrument every repro.* Lock/RLock allocated from here on and
         # hook the engine's device-dispatch point, so the whole suite
