@@ -26,7 +26,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. each kernel's time over the calls of one full-width forward at bucket 8,
    beside its plain version's time, one PyTorch library call's time (the
    yardstick; the port never calls it) and the bound from bytes and
-   operations at the H100 data-sheet peaks.
+   operations at the H100 data-sheet peaks;
+
+the LM slice (deepseek-moe-16b at full width):
+
+8. K3 expert_matmul against its plain version: E 64 and 32, d 2048,
+   expert widths 1408/1056/704 read as strided views of the full weight,
+   up and down products, ragged counts (0, a partial tile, the full C) at
+   prefill's C = 240 and decode's C = 4, fp32 and bf16, exact zeros past
+   each count;
+9. K2 at head dim 128 against its plain version: causal prefill
+   S = T = 512, and decode S = 1 against T = 1, 300 and 528 taken as
+   strided slices of a 528-slot cache;
+10. full-width LM logits (depth cut to 2: the dense layer and one MoE
+    layer), kernel path against plain path, at the five operating points
+    of ``repro_torch.launch.elastic_moe``: fp32 within a stated tolerance;
+    bf16 once as it runs and once with the plain path's routing replayed
+    in the kernel path, which must then agree within a stated tolerance
+    (bf16 rounding alone), with the tokens routed differently counted;
+11. the LM main path at full width and full depth (28 layers, bf16,
+    initialised on the card): ``lm_prefill`` of 4 x 512 seed tokens at
+    each operating point (latency, tokens/s, the model-FLOPs bound), then
+    16 teacher-forced ``lm_decode`` steps against a 528-slot cache at the
+    points the reference can decode; every output finite, all three
+    kernels' launch counters rising in prefill and in decode, one decode
+    step's logits of the kernel path against the plain path (as it runs
+    and with the plain path's routing replayed), peak device memory;
+12. K1, K2 and K3 against their plain versions at the main path's own
+    calls: every distinct call (shapes, strides, widths) of a prefill and
+    one decode step at each operating point, on its recorded inputs in
+    bf16 (fp32 for the routers) and again cast to fp32, exact zeros past
+    each K3 count; and the capacity drops of each point (kept slots of
+    the routed ones, rows per live expert);
+13. phase 7 for the LM slice: K1 and K3 over the calls of one prefill
+    forward and of one decode step (their inputs recorded from the main
+    path's own calls), K2 at D = 128 in prefill and decode, each beside
+    its plain version, its library yardstick (``torch.matmul`` on the
+    sliced weight; ``torch.bmm`` over the same slabs;
+    ``F.scaled_dot_product_attention``) and its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -35,8 +72,10 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -45,12 +84,21 @@ import time
 
 # H100 SXM data sheet: bf16 dense tensor-core peak and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12     # outside the tensor cores (the MoE router)
 HBM_BYTES_PER_S = 3.35e12
 BUCKET = 8           # the serve launcher's max batch: the largest bucket
 N_REQUESTS = 64
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}         # K1, as the ref tests
 ATTN_TOL = {"float32": 3e-3, "bfloat16": 3e-2}    # K2, as the ref tests
 LOGITS_FP32_TOL = 1e-3   # 12 fp32 layers, logits of order one
+EXPERT_TOL = {"float32": 3e-4, "bfloat16": 3e-2}  # K3, as the ref tests
+# 2 fp32 layers at d 2048 and a 102400-way head, logits of order one; a
+# routing flip between the paths (a near-tie in the top-6) would exceed it
+LM_LOGITS_FP32_TOL = 1e-3
+# the same in bf16 with the plain path's routing replayed in the kernel
+# path: what is left is bf16 rounding (a few ulps of logits below ~6)
+LM_LOGITS_BF16_PINNED_TOL = 0.125
+LM_BATCH, PREFILL_LEN, DECODE_STEPS = 4, 512, 16
 
 
 def log(msg: str) -> None:
@@ -95,6 +143,508 @@ def close(a, b, tol: float) -> float:
     return err
 
 
+def kernel_bound_ms(n_bytes: float, n_ops: float,
+                    peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """(bound in ms, "bytes" | "operations") at the data-sheet peaks."""
+    b = n_bytes / HBM_BYTES_PER_S * 1e3
+    f = n_ops / peak * 1e3
+    return max(b, f), ("bytes" if b >= f else "operations")
+
+
+@contextlib.contextmanager
+def recording(targets, sink):
+    """Route each ``(module, attr, key)`` of ``targets`` through a wrapper
+    that calls ``sink(key, args, kw)`` and then the original function."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+    for (mod, attr, key), (_, _, fn) in zip(targets, saved):
+        def call(*args, _fn=fn, _key=key, **kw):
+            sink(_key, args, kw)
+            return _fn(*args, **kw)
+        setattr(mod, attr, call)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def router_tape(moe_mod, tape: list, replay: bool = False):
+    """Record each MoE router output (probs, gates, experts) of a run into
+    ``tape``, or with ``replay`` hand them back in order instead of
+    routing, so that a second run takes the first run's routing (and so
+    its capacity drops) exactly."""
+    orig, it = moe_mod._router, iter(list(tape))
+
+    def router(*args, **kw):
+        if replay:
+            return next(it)
+        out = orig(*args, **kw)
+        tape.append(out)
+        return out
+    moe_mod._router = router
+    try:
+        yield
+    finally:
+        moe_mod._router = orig
+    if replay and next(it, None) is not None:
+        raise AssertionError("the replayed run routed fewer layers")
+
+
+def rerouted(tape_a: list, tape_b: list) -> tuple:
+    """(tokens whose expert set differs between two router tapes, tokens),
+    summed over the MoE layers."""
+    n = total = 0
+    for (_, _, ia), (_, _, ib) in zip(tape_a, tape_b, strict=True):
+        ia, ib = ia.sort(-1).values, ib.sort(-1).values
+        n += int((ia != ib).any(-1).sum())
+        total += ia[..., 0].numel()
+    return n, total
+
+
+def call_signature(key: str, args, kw) -> tuple:
+    """What a kernel's launch depends on: shapes, strides, dtypes and the
+    plain arguments (widths, causal), not the values."""
+    import torch
+
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return (tuple(a.shape), a.stride(), str(a.dtype))
+        return a
+    return (key, tuple(one(a) for a in args),
+            tuple((k, one(v)) for k, v in sorted(kw.items())))
+
+
+def lm_phases(dev) -> dict:
+    """Phases 8-12: the LM slice.  Returns what the kernels' record needs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.core.layers import cast_params
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic_moe
+    from repro_torch.launch.flops import lm_model_flops
+    from repro_torch.launch.steps import lm_decode, lm_prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import lm_apply, lm_init
+
+    cfg = get_arch("deepseek-moe-16b").make_config()
+    d, Fe, E = cfg.d_model, cfg.moe.d_ff, cfg.moe.n_experts
+    H, Dh = cfg.n_heads, cfg.d_head
+    points = elastic_moe.operating_points(cfg)
+    out = {}
+    dgen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        # drawn on the card: the expert weights are 184 M values each
+        return (torch.randn(shape, generator=dgen, device=dev)
+                * scale).to(dtype)
+
+    t0 = phase("8. K3 expert_matmul vs plain (d 2048, expert widths "
+               "1408/1056/704, E 64/32)")
+    k3_err = 0.0
+    cnt_gen = torch.Generator().manual_seed(8)
+    # the slab rows the dispatch gives K3: G groups x C' capacity slots
+    T_pre = LM_BATCH * PREFILL_LEN
+    g = min(cfg.moe.group_size, T_pre)
+    slots = lambda g_: max(4, math.ceil(g_ * cfg.moe.top_k
+                                        * cfg.moe.capacity_factor / E))
+    C_pre, C_dec = T_pre // g * slots(g), slots(LM_BATCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = EXPERT_TOL[str(dtype).split(".")[1]]
+        wi = randn(E, d, Fe, scale=d ** -0.5, dtype=dtype)
+        wo = randn(E, Fe, d, scale=Fe ** -0.5, dtype=dtype)
+        for C, kind in ((C_pre, "prefill"), (C_dec, "decode")):
+            x = randn(E, C, d, dtype=dtype)
+            if kind == "prefill":   # 0, partial tiles, the full C, ragged
+                pattern = [0, 1, 37, 64, 65, 128, C - 40, C - 1, C, C]
+                base = torch.tensor(pattern * E, dtype=torch.int32)[:E]
+                base = base.clamp(0, C)
+            else:   # top-k slots of each sequence, <= C per expert
+                base = torch.zeros(E, dtype=torch.int32)
+                n_live = LM_BATCH * cfg.moe.top_k
+                live = torch.randperm(E, generator=cnt_gen)[:n_live // 2]
+                base[live] = 2
+            for n_exp in (E, E // 2):
+                counts = base[:n_exp].to(dev)
+                for a_ff in (Fe, 3 * Fe // 4, Fe // 2):
+                    up = ops.expert_matmul_op(x[:n_exp], wi[:n_exp, :, :a_ff],
+                                              counts)
+                    hid = randn(n_exp, C, a_ff, dtype=dtype)
+                    down = ops.expert_matmul_op(hid, wo[:n_exp, :a_ff],
+                                                counts)
+                    with ops.plain_kernels():
+                        up_p = ops.expert_matmul_op(
+                            x[:n_exp], wi[:n_exp, :, :a_ff], counts)
+                        down_p = ops.expert_matmul_op(
+                            hid, wo[:n_exp, :a_ff], counts)
+                    torch.cuda.synchronize()
+                    err = max(close(up, up_p, tol), close(down, down_p, tol))
+                    rows = torch.arange(C, device=dev)[None, :] \
+                        >= counts[:, None]
+                    for y in (up, down):
+                        if not bool((y[rows] == 0).all()):
+                            raise AssertionError("K3: non-zero past counts")
+                    k3_err = max(k3_err, err)
+                    log(f"  {str(dtype):15s} {kind:7s} C={C:3d} E={n_exp} "
+                        f"F={a_ff:4d} live rows {int(counts.sum()):5d}  "
+                        f"max abs err {err:.3g} (tol {tol})")
+        del wi, wo
+    out["k3_err"] = k3_err
+    log(f"  K3 max abs err {k3_err:.3g}; exact zeros past every count "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("9. K2 flash_attention at D = 128 vs plain (causal prefill "
+               "S = T = 512; decode S = 1 over a strided 528-slot cache)")
+    k2_err = 0.0
+    T_cache = PREFILL_LEN + DECODE_STEPS
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        qkv = randn(LM_BATCH, PREFILL_LEN, 3 * H, Dh, scale=0.3, dtype=dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+        ck = randn(LM_BATCH, T_cache, H, Dh, scale=0.3, dtype=dtype)
+        cv = randn(LM_BATCH, T_cache, H, Dh, dtype=dtype)
+        cases = [("prefill", q, k, v, True, PREFILL_LEN)] + [
+            ("decode", q[:, :1], ck[:, :T], cv[:, :T], False, T)
+            for T in (1, 300, T_cache)]
+        for kind, qq, kk, vv, causal, T in cases:
+            o = ops.flash_attention_op(qq, kk, vv, causal=causal)
+            with ops.plain_kernels():
+                o_p = ops.flash_attention_op(qq, kk, vv, causal=causal)
+            torch.cuda.synchronize()
+            err = close(o, o_p, tol)
+            k2_err = max(k2_err, err)
+            log(f"  {str(dtype):15s} {kind:7s} BH={LM_BATCH * H} "
+                f"S={qq.shape[1]:3d} T={T:3d} D={Dh} causal={causal!s:5s} "
+                f"max abs err {err:.3g} (tol {tol})")
+    out["k2_err"] = k2_err
+    log(f"  K2 (D 128) max abs err {k2_err:.3g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("10. full-width LM logits (depth 2: dense + 1 MoE layer), "
+               "kernel path vs plain path")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    p32 = lm_init(torch.Generator(device=dev).manual_seed(10), cfg2,
+                  device=dev, dtype=torch.float32)
+    p16 = cast_params(p32, torch.bfloat16)
+    cfg16 = dataclasses.replace(cfg2, compute_dtype="bfloat16")
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(11))
+    with torch.inference_mode():
+        for name, E_, _ in points:
+            yk = lm_apply(p32, toks, cfg2, E=E_)[0]
+            with ops.plain_kernels():
+                yp = lm_apply(p32, toks, cfg2, E=E_)[0]
+            err32 = close(yk, yp, LM_LOGITS_FP32_TOL)
+            tape_k, tape_p = [], []
+            with router_tape(moe_mod, tape_k):
+                yk16 = lm_apply(p16, toks, cfg16, E=E_)[0]
+            with ops.plain_kernels(), router_tape(moe_mod, tape_p):
+                yp16 = lm_apply(p16, toks, cfg16, E=E_)[0]
+            # the kernel path again, on the plain path's routing
+            with router_tape(moe_mod, tape_p, replay=True):
+                yq16 = lm_apply(p16, toks, cfg16, E=E_)[0]
+            if not (torch.isfinite(yk16).all() and torch.isfinite(yq16).all()):
+                raise AssertionError("non-finite bf16 LM logits")
+            err16 = float((yk16.float() - yp16.float()).abs().max())
+            top1 = float((yk16.argmax(-1) == yp16.argmax(-1)).float().mean())
+            pin = float((yq16.float() - yp16.float()).abs().max())
+            top1_pin = float((yq16.argmax(-1) == yp16.argmax(-1))
+                             .float().mean())
+            n_re, n_tok = rerouted(tape_k, tape_p)
+            if pin > LM_LOGITS_BF16_PINNED_TOL:
+                raise AssertionError(
+                    f"{name}: bf16 logits on the same routing differ by "
+                    f"{pin} > {LM_LOGITS_BF16_PINNED_TOL}")
+            log(f"  {name:24s} fp32 max abs err {err32:.3g} (tol "
+                f"{LM_LOGITS_FP32_TOL}); bf16 max abs err {err16:.3g}, "
+                f"top-1 {top1:.3f}, {n_re}/{n_tok} tokens routed "
+                f"differently; same routing: {pin:.3g} (tol "
+                f"{LM_LOGITS_BF16_PINNED_TOL}), top-1 {top1_pin:.3f}")
+    del p32, p16, yk, yp, yk16, yp16, yq16, tape_k, tape_p
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("11. LM main path: deepseek-moe-16b, full width and depth, "
+               "bf16 on the card; prefill 4 x 512, 16 decode steps")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_init = time.perf_counter()
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev, dtype=cfg.cdtype())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"  {n_params / 1e9:.2f} B parameters initialised on the card in "
+        f"{time.perf_counter() - t_init:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, T_cache),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    prompt = tokens[:, :PREFILL_LEN]
+    for m in (em, fa, xm):
+        m.launches = 0
+    rows = elastic_moe.run(params, cfg, tokens, PREFILL_LEN, iters=2)
+    out["launches"] = ops.launch_counts()
+    full_flops = lm_model_flops(cfg, "prefill", LM_BATCH, PREFILL_LEN)
+    for r in rows:
+        if r["logits"].shape != (LM_BATCH, cfg.vocab_size) or \
+                not torch.isfinite(r["logits"]).all() or \
+                not torch.isfinite(r.get("decode_logits", r["logits"])).all():
+            raise AssertionError(f"{r['name']}: bad logits")
+        if min(r["prefill_launches"].values()) <= 0 or (
+                "decode_launches" in r
+                and min(r["decode_launches"].values()) <= 0):
+            raise AssertionError(f"{r['name']}: a kernel was not launched: "
+                                 f"prefill {r['prefill_launches']}, decode "
+                                 f"{r.get('decode_launches')}")
+        bound = r["rel_flops"] * full_flops / PEAK_BF16_FLOPS * 1e3
+        line = (f"  {r['name']:24s} prefill {r['prefill_ms']:8.1f} ms "
+                f"{r['prefill_tok_s']:8.0f} tok/s  rel flops "
+                f"{r['rel_flops']:.2f} (model-FLOPs bound {bound:.1f} ms, "
+                f"{bound / r['prefill_ms']:.1%} of the bf16 peak)")
+        line += (f"; decode {r['decode_ms']:7.2f} ms/step "
+                 f"{r['decode_tok_s']:7.1f} tok/s" if "decode_ms" in r
+                 else "; decode n/a (sliced depth: fault F4)")
+        log(line)
+    if not any("decode_ms" in r for r in rows):
+        raise AssertionError("no operating point decoded")
+    log(f"  launches on the LM main path: {out['launches']}; at "
+        f"{rows[0]['name']}: prefill {rows[0]['prefill_launches']} (3 "
+        f"forwards), decode {rows[0]['decode_launches']} "
+        f"({DECODE_STEPS} steps)")
+    # one decode step, kernel path against plain path, from one state; then
+    # the kernel path again on the plain path's routing
+    step = tokens[:, PREFILL_LEN:PREFILL_LEN + 1]
+    with torch.inference_mode():
+        _, caches = lm_prefill(params, prompt, cfg, max_len=T_cache)
+        twin, pinned = ({k: [{"k": c["k"].clone(), "v": c["v"].clone(),
+                              "len": c["len"]} for c in v]
+                         for k, v in caches.items()} for _ in range(2))
+        tape_k, tape_p = [], []
+        with router_tape(moe_mod, tape_k):
+            lk, _ = lm_decode(params, caches, step, cfg)
+        with ops.plain_kernels(), router_tape(moe_mod, tape_p):
+            lp, _ = lm_decode(params, twin, step, cfg)
+        with router_tape(moe_mod, tape_p, replay=True):
+            lq, _ = lm_decode(params, pinned, step, cfg)
+        err16 = float((lk.float() - lp.float()).abs().max())
+        top1 = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+        pin = float((lq.float() - lp.float()).abs().max())
+        top1_pin = float((lq.argmax(-1) == lp.argmax(-1)).float().mean())
+        n_re, n_tok = rerouted(tape_k, tape_p)
+    if not torch.isfinite(lq).all():
+        raise AssertionError("non-finite decode logits")
+    del caches, twin, pinned, tape_k, tape_p
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  one decode step (full), kernel vs plain path, bf16: max abs err "
+        f"{err16:.3g}, top-1 agreement {top1:.2f}, {n_re}/{n_tok} "
+        f"(token, layer) pairs routed differently; on the plain path's "
+        f"routing: max abs err {pin:.3g}, top-1 agreement {top1_pin:.2f}")
+    out["decode_step"] = {"max_abs_err": err16, "top1": top1,
+                          "rerouted": [n_re, n_tok], "pinned_err": pin,
+                          "pinned_top1": top1_pin}
+    log(f"  peak device memory {peak / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("12. K1, K2 and K3 vs plain at the main path's own calls "
+               "(a prefill and one decode step at each point; recorded "
+               "dtype and fp32); capacity drops")
+    targets = [(layers_mod, "elastic_matmul_op", "k1"),
+               (layers_mod, "flash_attention_op", "k2"),
+               (moe_mod, "expert_matmul_op", "k3")]
+    kernel_fn = {key: getattr(mod, attr) for mod, attr, key in targets}
+    distinct, k3_counts, stage = {}, {}, [None]
+
+    def keep(key, args, kw):
+        distinct.setdefault(call_signature(key, args, kw), (key, args, kw))
+        if key == "k3":      # one counts tensor per MoE layer (3 calls)
+            k3_counts.setdefault(stage[0], {})[id(args[2])] = \
+                (args[2], args[0].shape[1])
+
+    with torch.inference_mode(), recording(targets, keep):
+        for name, E_, decodable in points:
+            stage[0] = (name, "prefill")
+            if not decodable:
+                lm_prefill(params, prompt, cfg, E=E_)
+                continue
+            _, caches = lm_prefill(params, prompt, cfg, E=E_,
+                                   max_len=T_cache)
+            stage[0] = (name, "decode")
+            lm_decode(params, caches, step, cfg, E=E_)
+            del caches
+    tols = {"k1": TOL, "k2": ATTN_TOL, "k3": EXPERT_TOL}
+    worst = {}
+    for key, args, kw in distinct.values():
+        errs = []
+        for dt in dict.fromkeys((args[0].dtype, torch.float32)):
+            a = [t.to(dt) if torch.is_tensor(t) and t.is_floating_point()
+                 else t for t in args]
+            y = kernel_fn[key](*a, **kw)
+            with ops.plain_kernels():
+                yp = kernel_fn[key](*a, **kw)
+            err = close(y, yp, tols[key][str(dt).split(".")[1]])
+            if key == "k3" and not bool(
+                    (y[torch.arange(y.shape[1], device=dev)[None, :]
+                       >= a[2][:, None]] == 0).all()):
+                raise AssertionError("K3: non-zero past counts")
+            worst[key, dt] = max(worst.get((key, dt), 0.0), err)
+            errs.append(f"{str(dt).split('.')[1]} {err:.3g}")
+        x, w = args[0], args[1]
+        if key == "k1":
+            what = (f"M={x.numel() // x.shape[-1]:4d} k={args[2]:5d} "
+                    f"n={args[3]:6d} w={tuple(w.shape)}")
+        elif key == "k2":
+            what = (f"B={x.shape[0]} S={x.shape[1]} T={w.shape[1]} "
+                    f"H={x.shape[2]} D={x.shape[3]} causal={kw['causal']}")
+        else:
+            what = (f"E={x.shape[0]} C={x.shape[1]} K={x.shape[2]} "
+                    f"F={w.shape[2]} live rows {int(args[2].sum())}")
+        log(f"  {key.upper()} {what}: {', '.join(errs)}")
+    log("  max abs err: " + ", ".join(
+        f"{k.upper()} {str(dt).split('.')[1]} {e:.3g} (tol "
+        f"{tols[k][str(dt).split('.')[1]]})"
+        for (k, dt), e in sorted(worst.items(), key=str)))
+    out["main_path_calls"] = {
+        "distinct": len(distinct),
+        "max_abs_err": {f"{k}_{str(dt).split('.')[1]}": e
+                        for (k, dt), e in worst.items()}}
+    del distinct
+    # capacity drops: kept slots of the T * top_k routed ones, per layer
+    out["kept"] = {}
+    knobs = {name: E_ for name, E_, _ in points}
+    for (name, st), per_layer in k3_counts.items():
+        E_ = knobs[name]
+        cs = torch.stack([c.long() for c, _ in per_layer.values()])
+        C = next(iter(per_layer.values()))[1]
+        routed = LM_BATCH * (PREFILL_LEN if st == "prefill" else 1) \
+            * E_.get("top_k", cfg.moe.top_k)
+        share = cs.sum(1).double() / routed
+        live = cs[cs > 0].double()
+        out["kept"][f"{name} {st}"] = float(share.mean())
+        log(f"  {name:24s} {st:7s} kept {float(share.mean()):.1%} of "
+            f"{routed} routed slots a layer (layers "
+            f"{float(share.min()):.1%}-{float(share.max()):.1%}); rows per "
+            f"live expert mean {float(live.mean()):.1f}, max "
+            f"{int(cs.max())} of C {C}; experts live "
+            f"{float((cs > 0).double().mean()):.1%}")
+    del k3_counts
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("13. LM kernel times (bf16): K1 and K3 over one prefill "
+               "forward and one decode step, K2 at D = 128")
+    calls = {"k1": [], "k3": []}
+    with torch.inference_mode(), recording(
+            targets[::2], lambda key, args, kw: calls[key].append((args, kw))):
+        _, caches = lm_prefill(params, prompt, cfg, max_len=T_cache)
+        n_pre = {k: len(v) for k, v in calls.items()}
+        lm_decode(params, caches, step, cfg)
+    del caches
+
+    def k1_work(args, kw):
+        x, w, k_act, n_act = args
+        M = x.numel() // x.shape[-1]
+        n_out = kw.get("n_out", w.shape[-1])
+        peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 \
+            else PEAK_FP32_FLOPS
+        return (x.element_size() * (M * k_act + k_act * n_act + M * n_out),
+                2 * M * k_act * n_act, peak)
+
+    def k3_work(args, kw):
+        x, w, c = args
+        Ee, C, K = x.shape
+        live = c.clamp(max=C).long()
+        rows, experts = int(live.sum()), int((live > 0).sum())
+        F_ = w.shape[2]
+        return (2 * (rows * K + experts * K * F_ + Ee * C * F_),
+                2 * rows * K * F_, PEAK_BF16_FLOPS)
+
+    def k1_plain(x, w, k_act, n_act, n_out=None):
+        n_out = w.shape[-1] if n_out is None else n_out
+        return em.elastic_matmul_plain(x.reshape(-1, x.shape[-1]), w, k_act,
+                                       n_act, n_out)
+
+    kinds = {
+        "k1": (k1_work, kernel_fn["k1"], k1_plain,
+               lambda x, w, k_act, n_act, n_out=None: torch.matmul(
+                   x[..., :k_act], w[:k_act, :n_act]), "torch.matmul"),
+        "k3": (k3_work, xm.expert_matmul, xm.expert_matmul_plain,
+               lambda x, w, c: torch.bmm(x, w), "torch.bmm"),
+    }
+    for key, (work, kern, plain, lib, lib_name) in kinds.items():
+        for label, batch in (("prefill", calls[key][:n_pre[key]]),
+                             ("decode", calls[key][n_pre[key]:])):
+            bound, b_sum, o_sum = 0.0, 0.0, 0.0
+            for args, kw in batch:
+                nb, no, peak = work(args, kw)
+                bound += kernel_bound_ms(nb, no, peak)[0]
+                b_sum, o_sum = b_sum + nb, o_sum + no
+
+            def run(fn, batch=batch):
+                for args, kw in batch:
+                    fn(*args, **kw)
+
+            t_k = cuda_time_ms(lambda: run(kern), iters=5, warmup=1)
+            t_p = cuda_time_ms(lambda: run(plain), iters=5, warmup=1)
+            t_l = cuda_time_ms(lambda: run(lib), iters=5, warmup=1)
+            by = kernel_bound_ms(b_sum, o_sum)[1]
+            out[f"{key}_{label}"] = {
+                "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                "bound_ms": bound, "bound_by": by, "calls": len(batch)}
+            log(f"  {key.upper()} {label:7s} x{len(batch):3d} calls: kernel "
+                f"{t_k:.3f} ms, plain {t_p:.3f} ms, {lib_name} {t_l:.3f} ms, "
+                f"bound {bound:.4f} ms ({by}; {b_sum / 1e9:.2f} GB, "
+                f"{o_sum / 1e12:.3f} TFLOP)")
+    del calls
+    bf = torch.bfloat16
+    n_layers = cfg.n_layers
+    qkv = randn(LM_BATCH, PREFILL_LEN, 3 * H, Dh, scale=0.3, dtype=bf)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
+    ck = randn(LM_BATCH, T_cache, H, Dh, scale=0.3, dtype=bf)
+    cv = randn(LM_BATCH, T_cache, H, Dh, dtype=bf)
+    for label, qq, kk, vv, causal in (
+            ("prefill", q, k, v, True),
+            ("decode", q[:, :1], ck, cv, False)):
+        S, T = qq.shape[1], kk.shape[1]
+        qt, kt, vt = (a.transpose(1, 2) for a in (qq, kk, vv))
+        t_k = cuda_time_ms(lambda: ops.flash_attention_op(qq, kk, vv,
+                                                          causal=causal))
+        t_p = cuda_time_ms(lambda: fa.flash_attention_plain(qq, kk, vv,
+                                                            causal=causal))
+        t_l = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        pairs = S * (S + 1) / 2 if causal else S * T
+        bound, by = kernel_bound_ms(
+            2 * LM_BATCH * H * Dh * (2 * S + 2 * T),
+            4 * LM_BATCH * H * Dh * pairs)
+        out[f"k2_{label}"] = {"ms": n_layers * t_k,
+                              "plain_ms": n_layers * t_p,
+                              "library_ms": n_layers * t_l,
+                              "bound_ms": n_layers * bound, "bound_by": by,
+                              "calls": n_layers}
+        log(f"  K2 {label:7s} x{n_layers} BH={LM_BATCH * H} S={S} T={T} "
+            f"D={Dh}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
+            f"{t_l:.4f} ms, bound {bound:.4f} ms ({by}) per call")
+    del params
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -111,7 +661,8 @@ def main() -> int:
     from repro_torch.kernels import elastic_matmul as em
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
-    from repro_torch.models.vit import cast_params, vit_apply, vit_init
+    from repro_torch.core.layers import cast_params
+    from repro_torch.models.vit import vit_apply, vit_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -132,9 +683,14 @@ def main() -> int:
     logs = build.build(verbose=True)
     log(f"built {sorted(logs)} in {build.build_seconds:.1f} s (parallel nvcc)")
     for name, text in logs.items():
+        entry = name
         for line in text.splitlines():
-            if re.search(r"Used \d+ registers|spill", line):
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '_ZN\d+_GLOBAL__N_\w+?"
+                          r"_cu_[0-9a-f]{8}\d+(\w+?)E[vP]", line)
+            if m:     # the kernel (and template arguments), still mangled
+                entry = m.group(1)
+            elif re.search(r"Used \d+ registers|spill", line):
+                log(f"  {entry}: {line.strip()}")
 
     arch = get_arch("dynamic-ofa-supernet")
     cfg = arch.make_config()
@@ -322,22 +878,40 @@ def main() -> int:
         f"({'bytes' if b >= f else 'operations'})")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
+    lm = lm_phases(dev)
+
     record = {"kernels": [
         {"name": "elastic_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/elastic_matmul.cu",
          "replaces": "src/repro/kernels/elastic_matmul.py:68",
-         "launches": launches["elastic_matmul"], "max_abs_err": k1_err,
+         "launches": launches["elastic_matmul"]
+         + lm["launches"]["elastic_matmul"],
+         "launches_by_path": {"vit_serve": launches["elastic_matmul"],
+                              "lm": lm["launches"]["elastic_matmul"]},
+         "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"],
          "bound_by": "bytes" if k1["bytes_s"] >= k1["ops_s"] else "operations",
-         "library_ms": k1["library_ms"]},
+         "library_ms": k1["library_ms"],
+         "lm_prefill": lm["k1_prefill"], "lm_decode": lm["k1_decode"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:71",
-         "launches": launches["flash_attention"], "max_abs_err": k2_err,
+         "launches": launches["flash_attention"]
+         + lm["launches"]["flash_attention"],
+         "launches_by_path": {"vit_serve": launches["flash_attention"],
+                              "lm": lm["launches"]["flash_attention"]},
+         "max_abs_err": max(k2_err, lm["k2_err"]),
          "ms": n * t_k, "plain_ms": n * t_p, "bound_ms": n * max(b, f),
          "bound_by": "bytes" if b >= f else "operations",
-         "library_ms": n * t_l},
+         "library_ms": n * t_l,
+         "lm_prefill": lm["k2_prefill"], "lm_decode": lm["k2_decode"]},
+        dict({"name": "expert_matmul", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
+              "replaces": "src/repro/kernels/expert_matmul.py:48",
+              "launches": lm["launches"]["expert_matmul"],
+              "max_abs_err": lm["k3_err"]}, **lm["k3_prefill"],
+             decode=lm["k3_decode"], kept_share=lm["kept"]),
     ]}
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))

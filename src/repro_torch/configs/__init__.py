@@ -1,3 +1,4 @@
-"""Architecture configs of the port: the vision transformers it serves."""
+"""Architecture configs of the port: the vision transformers it serves and
+the MoE LM it prefills and decodes."""
 from repro_torch.configs.registry import (ArchDef, ShapeSpec, get_arch,
                                           list_archs, load_all)

@@ -3,7 +3,8 @@
 Each architecture module registers an :class:`ArchDef` with its FULL
 (paper-table) config, a reduced smoke config of the same family, its
 assigned input-shape set, and its optimizer/precision policy.  Same
-surface as the reference registry, for the vision transformers.
+surface as the reference registry, for the vision transformers and the
+MoE LM the port runs.
 """
 from __future__ import annotations
 
@@ -40,9 +41,9 @@ class ArchDef:
 
 _REGISTRY: Dict[str, ArchDef] = {}
 
-# the vision transformers of the serving slice; the other families come
-# with their slices of the port
-_MODULES = ("deit_b", "vit_l16", "dynamic_ofa_supernet")
+# the vision transformers of the serving slice and the MoE LM of the LM
+# slice; the other architectures come with their slices of the port
+_MODULES = ("deit_b", "vit_l16", "dynamic_ofa_supernet", "deepseek_moe_16b")
 
 
 def register(arch: ArchDef) -> ArchDef:
@@ -72,6 +73,18 @@ def load_all():
 # ---------------------------------------------------------------------------
 # shared shape sets (assigned per family)
 # ---------------------------------------------------------------------------
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768,
+                             global_batch=32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768,
+                            global_batch=128),
+    "long_500k": ShapeSpec(
+        "long_500k", "decode", seq_len=524288, global_batch=1,
+        note="decode vs a 512k KV cache is O(S); run for all LM archs "
+             "(full-attention only at prefill, which is out of scope here)"),
+}
 
 VIS_SHAPES = {
     "cls_224": ShapeSpec("cls_224", "vis_train", img_res=224, global_batch=256),

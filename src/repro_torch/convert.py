@@ -2,10 +2,11 @@
 port's parameters.
 
 The tests hold the port against the reference on the same weights, so they
-initialise with the reference's ``vit_init``, map its leaves to numpy and
-convert here.  Layouts are kept (dense kernels ``(d_in, d_out)``, the patch
-embed HWIO); the layer stack that ``jax.vmap`` builds along a leading axis
-becomes the port's list of per-layer dicts.
+initialise with the reference's ``vit_init`` or ``lm_init``, map its leaves
+to numpy and convert here.  Layouts are kept (dense kernels ``(d_in,
+d_out)``, the patch embed HWIO, expert weights ``(E, d, f)``); each layer
+stack that ``jax.vmap`` builds along a leading axis becomes the port's list
+of per-layer dicts.
 """
 from __future__ import annotations
 
@@ -42,6 +43,34 @@ def vit_params(jax_params: dict, device: Optional[torch.device] = None
     n = len(next(iter(_leaves(layers))))
     params["layers"] = unstack(layers, n)
     return params
+
+
+def lm_params(jax_params: dict, device: Optional[torch.device] = None
+              ) -> dict:
+    """Reference ``lm_init`` params (numpy leaves) -> ``repro_torch``'s.
+
+    Only the leading layer axis of ``dense_layers`` and ``moe_layers`` (the
+    axis ``jax.vmap`` adds) is unstacked; the expert axis of ``wi``/``wg``/
+    ``wo`` stays."""
+    params = to_torch(jax_params, device)
+    for name in ("dense_layers", "moe_layers"):
+        if name in params:
+            n = len(next(iter(_leaves(params[name]))))
+            params[name] = unstack(params[name], n)
+    return params
+
+
+def lm_caches(jax_caches: dict, device: Optional[torch.device] = None
+              ) -> dict:
+    """Reference stacked decode caches {"dense"|"moe": {"k": (L, B, T, KH,
+    D), "v": ..., "len": (L,)}} (numpy leaves) -> the port's per-layer
+    lists with a host-int ``len``."""
+    out = {}
+    for name, c in jax_caches.items():
+        k, v = to_torch(c["k"], device), to_torch(c["v"], device)
+        out[name] = [{"k": k[i], "v": v[i], "len": int(np.asarray(
+            c["len"]).reshape(-1)[i])} for i in range(k.shape[0])]
+    return out
 
 
 def _leaves(tree):

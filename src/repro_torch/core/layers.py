@@ -9,8 +9,8 @@ comes with the training slice; passing a tensor width raises.
 Every matrix product goes through ``kernels.ops``: the dense layers (and
 the patch embed, written as an unfold followed by a dense product) through
 the elastic matmul, the attention core through flash attention.  The
-products read the FULL resident weights at their active widths; bias adds
-and activations stay plain torch ops.
+products read the FULL resident weights at their active widths; bias adds,
+norms, rotary embeddings and activations stay plain torch ops.
 """
 from __future__ import annotations
 
@@ -29,6 +29,22 @@ def _cast(p: torch.Tensor, dtype) -> torch.Tensor:
     return p.to(dtype) if p.dtype != dtype else p
 
 
+def cast_params(params, dtype: torch.dtype):
+    """Every floating tensor of a param tree in ``dtype``, except the MoE
+    routers, which stay fp32 as the reference initialises and applies them.
+
+    The models cast each weight to the compute dtype where it is used, so
+    resident weights kept in the compute dtype give the same numbers
+    without a copy per call.
+    """
+    if isinstance(params, dict):
+        return {k: v if k == "router" else cast_params(v, dtype)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_params(v, dtype) for v in params]
+    return params.to(dtype) if params.is_floating_point() else params
+
+
 def _static(a, name: str):
     if not is_static(a):
         raise NotImplementedError(
@@ -38,7 +54,11 @@ def _static(a, name: str):
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
-    t = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    """N(0, scale^2) drawn in fp32 on the generator's device, then placed
+    on ``device`` in ``dtype`` (a CPU generator gives the same weights on
+    every device; a CUDA generator draws a large model on the card)."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device).mul_(scale)
     return t.to(dtype=dtype, device=device)
 
 
@@ -101,6 +121,55 @@ def layernorm_apply(p: dict, x: torch.Tensor, *, a=None,
     return y * _cast(scale, x.dtype) + _cast(bias, x.dtype)
 
 
+def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p: dict, x: torch.Tensor, *, a=None,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim (sliced mode: x is already (..., a))."""
+    scale = p["scale"]
+    a = _static(a, "rmsnorm_apply")
+    if a is not None:
+        scale = take_dim(scale, a, 0)
+    ms = torch.mean(torch.square(x), -1, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * _cast(scale, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device=None) -> dict:
+    return {"embedding": _normal(gen, (vocab, d), 0.02, dtype, device)}
+
+
+def embedding_apply(p: dict, ids: torch.Tensor, *, a=None,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """Rows of the (vocab, d) table at ``ids``, first ``a`` columns, in
+    ``dtype``.  The reference casts the whole table and then gathers; the
+    port gathers and then casts the rows (the same values, no table copy)."""
+    tbl = p["embedding"]
+    a = _static(a, "embedding_apply")
+    if a is not None:
+        tbl = take_dim(tbl, a, 1)
+    return _cast(tbl[ids], dtype)
+
+
+def embedding_attend(p: dict, x: torch.Tensor, *, a=None) -> torch.Tensor:
+    """Tied-embedding logits: x (..., d) @ embedding.T -> (..., vocab).
+
+    The transposed table has no unit inner stride, which the elastic
+    matmul needs, so this product is a plain ``torch.matmul``.  No ported
+    config ties its embeddings (deepseek-moe-16b has an ``lm_head``)."""
+    tbl = p["embedding"]
+    a = _static(a, "embedding_attend")
+    if a is not None:
+        tbl = take_dim(tbl, a, 1)
+    return x @ _cast(tbl, x.dtype).T
+
+
 # ---------------------------------------------------------------------------
 # MLP blocks (dense FFN)
 # ---------------------------------------------------------------------------
@@ -140,6 +209,32 @@ def mlp_apply(p: dict, x: torch.Tensor, *, a_model=None, a_ff=None,
 
 
 # ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, ..., D) with D even; positions: (B, S) or (S,).
+
+    Half-split rotation (not interleaved) with fp32 angles; the result is
+    cast back to x's dtype, as the reference does."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(-math.log(theta)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freq     # (B, S, half)
+    extra = x.ndim - 3
+    ang = ang.reshape(ang.shape[:2] + (1,) * extra + (half,))
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    y = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Attention (MHA/GQA, elastic query heads)
 # ---------------------------------------------------------------------------
 #
@@ -162,15 +257,24 @@ def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
 def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     d_head: int, causal: bool = True,
                     rope_theta: Optional[float] = None,
-                    a_model=None, a_heads=None) -> tuple:
-    """Returns (out (B, S, d_model_active), None).
+                    a_model=None, a_heads=None,
+                    kv_cache: Optional[dict] = None,
+                    return_kv: bool = False) -> tuple:
+    """Returns (out (B, S, d_model_active), new_kv_cache | None).
 
-    The reference's ``impl="ref"`` prefill path with static head slicing.
-    Rotary embeddings and the KV cache come with the LM slice of the port,
-    so ``rope_theta`` defaults to None here and any other value raises.
+    The reference's prefill (``impl="ref"``; its blocked XLA variants
+    compute the same function) and KV-cache decode, with static head
+    slicing.  ``rope_theta=None`` (the ViT) applies no rotary embedding.
+
+    kv_cache: {"k": (B, T, KH, D), "v": (B, T, KH, D), "len": int}.  Decode
+    writes this step's k and v at position ``len`` IN PLACE (the reference
+    returns updated copies; the port saves the memory) and attends,
+    non-causally as the reference does, over ``cache[:, :len + S]``, a
+    strided view of the cache that the attention kernel reads without a
+    copy.  ``len`` is a host int, so a step never syncs to read it.  The
+    returned cache holds the same tensors and ``len + S``.
+    ``return_kv`` returns this call's (roped) k and v as the new cache.
     """
-    if rope_theta is not None:
-        raise NotImplementedError("rope comes with the LM slice of the port")
     B, S, _ = x.shape
     H = n_heads
     mha = n_kv == n_heads
@@ -192,11 +296,34 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     a_kv = None if (sliced_heads is None or not mha) else kv_active * d_head
     k = dense_apply(p["k"], x, a_in=a_model, a_out=a_kv)
     v = dense_apply(p["v"], x, a_in=a_model, a_out=a_kv)
+    q = q.reshape(B, S, H, d_head)
     k = k.reshape(B, S, kv_active, d_head)
     v = v.reshape(B, S, kv_active, d_head)
+
+    if rope_theta is not None:
+        start = 0 if kv_cache is None else int(kv_cache["len"])
+        positions = torch.arange(start, start + S, device=x.device)
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+
+    new_cache = None
+    if return_kv:
+        new_cache = {"k": k, "v": v, "len": S}
+    if kv_cache is not None:
+        idx = int(kv_cache["len"])
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if ck.shape[2] != kv_active or idx + S > ck.shape[1]:
+            raise ValueError(
+                f"kv cache {tuple(ck.shape)} at len {idx} cannot take {S} "
+                f"more positions of {kv_active} kv heads")
+        ck[:, idx:idx + S] = k.to(ck.dtype)
+        cv[:, idx:idx + S] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv, "len": idx + S}
+        k = _cast(ck[:, :idx + S], q.dtype)
+        v = _cast(cv[:, :idx + S], q.dtype)
+        causal = False
     if R == 1:
-        out = flash_attention_op(q.reshape(B, S, H, d_head), k, v,
-                                 causal=causal)
+        out = flash_attention_op(q, k, v, causal=causal)
     else:
         # the kernel groups query heads by kv head (h // R): reorder the
         # reference's (R, K) head layout to (K, R) and back
@@ -207,7 +334,7 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     out = out.reshape(B, S, H * d_head)
     a_in_o = None if sliced_heads is None else sliced_heads * d_head
     y = dense_apply(p["o"], out, a_in=a_in_o, a_out=a_model)
-    return y, None
+    return y, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exports a plain C launcher; it is compiled for
 Hopper (``sm_90a``) into its own shared library under ``build/kernels/``
 at the repository root, at first use.  All sources that need a build are
 compiled at once, one ``nvcc`` process each.  A library's file name carries
-a hash of its source, so an edited source is rebuilt and a stale build is
-never loaded.  Nothing here runs at import time: the CPU tests import this
+a hash of its source and of the shared ``csrc/*.cuh`` headers, so an edited
+source or header is rebuilt and a stale build is never loaded.  Nothing here runs at import time: the CPU tests import this
 module on hosts with no ``nvcc``.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("elastic_matmul", "flash_attention")
+SOURCES = ("elastic_matmul", "flash_attention", "expert_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +42,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

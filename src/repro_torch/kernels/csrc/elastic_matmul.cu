@@ -21,44 +21,15 @@
 // bytes, and at small buckets the launch itself dominates.  This
 // first version stages 64x64 output tiles through shared memory and runs
 // the bf16 product on the tensor cores with WMMA (mma.sync, fp32
-// accumulators); fp32 inputs use an FMA micro-tile.  Dead tiles (n0 >=
-// n_act) write zeros and exit without loading; the K loop stops at
-// cdiv(k_act, BK) and masks its last tile.  wgmma/TMA pipelining is later
-// work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+// accumulators); fp32 inputs use an FMA micro-tile (the tile loop lives in
+// tile_matmul.cuh, shared with K3).  Dead tiles (n0 >= n_act) write zeros
+// and exit without loading; the K loop stops at cdiv(k_act, BK) and masks
+// its last tile.  wgmma/TMA pipelining is later work.
+#include "tile_matmul.cuh"
 
-#include <cstddef>
+using namespace repro_tile;
 
 namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 128;        // 4 warps, 2x2 over the 64x64 tile
-constexpr int A_LD = BK + 8;        // bf16 elements (wmma: multiple of 8)
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;        // floats (wmma: multiple of 4)
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// A tile past n_act: exact zeros, no loads, no math.
-template <typename T>
-__device__ __forceinline__ void store_zero_tile(T* y, int m0, int n0, int M,
-                                                int ldy, int n_out) {
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = m0 + i / BN, c = n0 + i % BN;
-    if (r < M && c < n_out) y[(size_t)r * ldy + c] = from_float<T>(0.f);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 elastic_matmul_bf16(const __nv_bfloat16* __restrict__ x,
@@ -66,7 +37,6 @@ elastic_matmul_bf16(const __nv_bfloat16* __restrict__ x,
                     __nv_bfloat16* __restrict__ y,
                     const int* __restrict__ widths, int M, int ldx, int ldw,
                     int ldy, int n_out) {
-  using namespace nvcuda;
   const int k_act = widths[0];
   const int n_act = widths[1];
   const int m0 = blockIdx.y * BM;
@@ -75,76 +45,8 @@ elastic_matmul_bf16(const __nv_bfloat16* __restrict__ x,
     store_zero_tile(y, m0, n0, M, ldy, n_out);
     return;
   }
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[BM * C_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;   // this warp's 32x32 quadrant
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int n_k = (k_act + BK - 1) / BK;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[r * A_LD + c] =
-          (gm < M && gk < k_act) ? x[(size_t)gm * ldx + gk] : zero;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bs[r * B_LD + c] =
-          (gk < k_act && gn < n_act) ? w[(size_t)gk * ldw + gn] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * A_LD + kk,
-                               A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < n_out)
-      y[(size_t)gm * ldy + gn] =
-          __float2bfloat16(gn < n_act ? Cs[r * C_LD + c] : 0.f);
-  }
+  tile_bf16(x, ldx, w, ldw, y, ldy, m0, n0, M, M, k_act, n_act, n_out);
 }
-
-// fp32: 256 threads, each owns a 4x4 micro-tile of the 64x64 output tile.
-constexpr int F_THREADS = 256;
-constexpr int F_BK = 16;
 
 __global__ void __launch_bounds__(F_THREADS)
 elastic_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
@@ -158,54 +60,7 @@ elastic_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
     store_zero_tile(y, m0, n0, M, ldy, n_out);
     return;
   }
-  __shared__ float As[F_BK][BM + 4];   // transposed: As[k][m]
-  __shared__ float Bs[F_BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int n_k = (k_act + F_BK - 1) / F_BK;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * F_BK;
-    for (int i = tid; i < BM * F_BK; i += F_THREADS) {
-      const int r = i / F_BK, c = i % F_BK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < k_act) ? x[(size_t)gm * ldx + gk] : 0.f;
-    }
-    for (int i = tid; i < F_BK * BN; i += F_THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < k_act && gn < n_act) ? w[(size_t)gk * ldw + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < F_BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gm < M && gn < n_out)
-        y[(size_t)gm * ldy + gn] = gn < n_act ? acc[i][j] : 0.f;
-    }
-  }
+  tile_f32(x, ldx, w, ldw, y, ldy, m0, n0, M, M, k_act, n_act, n_out);
 }
 
 }  // namespace

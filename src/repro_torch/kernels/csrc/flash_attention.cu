@@ -18,18 +18,32 @@
 //    without a transpose.
 //
 // Layout: one block per (q tile of 64 rows, batch*head); 128 threads, two
-// per query row.  Each thread keeps its row of q in registers, scores half
-// of each 64-key tile (keys interleaved so the two halves hit different
-// shared-memory banks) and accumulates half of the output dims.  K and V
-// tiles are staged in shared memory as fp32.  Causally dead KV tiles (all
-// keys after the tile's last query) are skipped.  Head dims: 64 (every
+// per query row.  Each thread scores half of each 64-key tile (keys
+// interleaved so the two halves hit different shared-memory banks) and
+// accumulates half of the output dims.  K and V tiles are staged in
+// shared memory as fp32.  Causally dead KV tiles (all keys after the
+// tile's last query) are skipped.  Head dims: 128 (the LMs), 64 (every
 // full-size ViT config) and 8 and 16 (their smoke configs).
+//
+// Head dim 128.  Keeping each thread's q row in registers (as for D <= 64)
+// next to its half of the accumulator takes 128 + 64 floats a thread and
+// spills at the 255-register cap, and fp32 K and V tiles of 64 x 129 take
+// 66 KB, above the 48 KB of static shared memory.  So at D = 128 the q
+// tile is staged in shared memory beside K and V (three 64 x 129 fp32
+// tiles, 99 KB), all shared memory is dynamic, and the launcher raises the
+// kernel's dynamic shared-memory limit with cudaFuncSetAttribute.  Each
+// thread then holds only its 64 accumulators and 32 scores; the q . k loop
+// is unrolled by 8, not fully, or the compiler hoists the q row back into
+// registers.  Decode calls
+// it with S = 1: one live row of a 64-row tile, right but wasteful.
 //
 // What bounds it on the H100: at the ViT's shapes (S = T = 197, D = 64) the
 // work is 4*S*T*D operations per head on 4*S*D elements, an intensity
 // near the bf16 ridge point, so on tensor cores both bounds are close.
-// This first version computes with fp32 FMAs (no tensor cores), so it is
-// bound by its arithmetic; moving QK^T and PV onto wgmma is later work.
+// At the LM's causal prefill (S = T = 512, D = 128) it is the operations;
+// at decode (S = 1) the bytes of the K/V cache.  This first version
+// computes with fp32 FMAs (no tensor cores), so it is bound by its
+// arithmetic; moving QK^T and PV onto wgmma is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -39,7 +53,15 @@ namespace {
 
 constexpr int BQ = 64;
 constexpr int THREADS = 2 * BQ;
-constexpr int BKV = 64;   // keys per tile; fp32 K and V tiles: 33 KB at D 64
+constexpr int BKV = 64;   // keys per tile
+
+// q staged in shared memory (not registers) above this head dim
+constexpr int Q_REG_MAX_D = 64;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (D + 1) * (2 * BKV + (D > Q_REG_MAX_D ? BQ : 0));
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -71,9 +93,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int causal) {
   constexpr int HALF = BKV / 2;
   constexpr int DH = D / 2;
+  constexpr int LD = D + 1;
+  constexpr bool Q_SMEM = D > Q_REG_MAX_D;
   const float NEG_INF = -__int_as_float(0x7f800000);
-  __shared__ float Ks[BKV][D + 1];
-  __shared__ float Vs[BKV][D + 1];
+  extern __shared__ float smem[];
+  float* Ks = smem;              // [BKV][LD]
+  float* Vs = Ks + BKV * LD;     // [BKV][LD]
+  float* Qs = Vs + BKV * LD;     // [BQ][LD], only when Q_SMEM
 
   const int tid = threadIdx.x;
   const int row = tid >> 1, half = tid & 1;   // partner lane = tid ^ 1
@@ -84,10 +110,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + row;
   const bool valid_q = qi < S;
 
-  float qr[D];
-  const T* qp = q + b * q_sb + (long long)qi * q_ss + h * q_sh;
+  float qr[Q_SMEM ? 1 : D];
+  if constexpr (Q_SMEM) {
+    // read by every thread only after the first tile's __syncthreads
+    for (int i = tid; i < BQ * D; i += THREADS) {
+      const int r = i / D, d = i % D;
+      const int qr_i = q0 + r;
+      Qs[r * LD + d] =
+          qr_i < S ? to_float(q[b * q_sb + (long long)qr_i * q_ss + h * q_sh + d])
+                   : 0.f;
+    }
+  } else {
+    const T* qp = q + b * q_sb + (long long)qi * q_ss + h * q_sh;
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = valid_q ? to_float(qp[d]) : 0.f;
+    for (int d = 0; d < D; ++d) qr[d] = valid_q ? to_float(qp[d]) : 0.f;
+  }
 
   float acc[DH];
 #pragma unroll
@@ -105,8 +142,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = i / D, d = i % D;
       const int kj = k0 + j;
       const bool ok = kj < T_len;
-      Ks[j][d] = ok ? to_float(kb[(long long)kj * k_ss + d]) : 0.f;
-      Vs[j][d] = ok ? to_float(vb[(long long)kj * v_ss + d]) : 0.f;
+      Ks[j * LD + d] = ok ? to_float(kb[(long long)kj * k_ss + d]) : 0.f;
+      Vs[j * LD + d] = ok ? to_float(vb[(long long)kj * v_ss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -116,9 +153,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < HALF; ++jj) {
       const int j = 2 * jj + half;
       const int kj = k0 + j;
+      const float* kr = Ks + j * LD;
       float dot = 0.f;
+      if constexpr (Q_SMEM) {
+        // not fully unrolled: the compiler would hoist the whole q row out
+        // of the key loop into registers again (255 registers and spills)
+        const float* qs = Qs + row * LD;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) dot = fmaf(qs[d], kr[d], dot);
+      } else {
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+      }
       const bool ok = kj < T_len && (!causal || kj <= qi);
       s[jj] = ok ? dot * scale : NEG_INF;
       m_loc = fmaxf(m_loc, s[jj]);
@@ -147,7 +193,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < DH; ++i) {
         const int d = 2 * i + half;
-        acc[i] = fmaf(pa, Vs[ja][d], fmaf(pb, Vs[jb][d], acc[i]));
+        acc[i] = fmaf(pa, Vs[ja * LD + d], fmaf(pb, Vs[jb * LD + d], acc[i]));
       }
     }
     __syncthreads();
@@ -167,15 +213,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int causal, cudaStream_t s) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
 #define REPRO_FA_LAUNCH(DIM)                                                 \
-  flash_attention_kernel<T, DIM><<<grid, THREADS, 0, s>>>(                   \
-      static_cast<const T*>(q), static_cast<const T*>(k),                    \
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, T_len, st[0],  \
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], \
-      st[11], scale, causal)
+  do {                                                                       \
+    constexpr size_t bytes = smem_bytes<DIM>();                              \
+    if (bytes > 48 * 1024) {                                                 \
+      /* once per instantiation and process (the port drives one card) */    \
+      static const cudaError_t err = cudaFuncSetAttribute(                   \
+          flash_attention_kernel<T, DIM>,                                    \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);          \
+      if (err != cudaSuccess) return static_cast<int>(err);                  \
+    }                                                                        \
+    flash_attention_kernel<T, DIM><<<grid, THREADS, bytes, s>>>(             \
+        static_cast<const T*>(q), static_cast<const T*>(k),                  \
+        static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, T_len,       \
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],       \
+        st[9], st[10], st[11], scale, causal);                               \
+  } while (0)
   switch (D) {
     case 8: REPRO_FA_LAUNCH(8); break;
     case 16: REPRO_FA_LAUNCH(16); break;
     case 64: REPRO_FA_LAUNCH(64); break;
+    case 128: REPRO_FA_LAUNCH(128); break;
     default: return -1;
   }
 #undef REPRO_FA_LAUNCH

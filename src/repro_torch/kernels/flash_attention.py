@@ -27,7 +27,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 64)   # the ViT configs (64) and their smoke configs
+HEAD_DIMS = (8, 16, 64, 128)  # ViTs (64), their smoke configs, LMs (128)
 
 
 def _launcher():

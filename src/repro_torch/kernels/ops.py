@@ -1,9 +1,10 @@
 """Public wrappers around the kernels (reshaping, width tensors, routing).
 
 Counterparts of the reference ``kernels/ops.py:elastic_matmul_op`` and
-``flash_attention_op``.  A CUDA tensor goes to the hand-written kernel (or
-the call raises: there is no fallback); a CPU tensor goes to the kernel's
-plain PyTorch version.  The kernels mask their ragged edges themselves, so
+``flash_attention_op``, and ``expert_matmul_op`` for the reference's
+``kernels/expert_matmul.py:expert_matmul``.  A CUDA tensor goes to the
+hand-written kernel (or the call raises: there is no fallback); a CPU
+tensor goes to the kernel's plain PyTorch version.  The kernels mask their ragged edges themselves, so
 unlike the TPU wrappers these pad nothing: they only reshape.
 
 :func:`plain_kernels` routes CUDA tensors to the plain versions for the
@@ -19,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import elastic_matmul as _em
+from repro_torch.kernels import expert_matmul as _xm
 from repro_torch.kernels import flash_attention as _fa
 
 _state = threading.local()
@@ -43,6 +45,12 @@ def _use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, by kernel (each wrapper counts its own)."""
+    return {"elastic_matmul": _em.launches, "flash_attention": _fa.launches,
+            "expert_matmul": _xm.launches}
 
 
 def widths_tensor(device: torch.device, k_act: int, n_act: int
@@ -86,3 +94,13 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _use_kernel(q):
         return _fa.flash_attention(q, k, v, causal=causal)
     return _fa.flash_attention_plain(q, k, v, causal=causal)
+
+
+def expert_matmul_op(x: torch.Tensor, w: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """x (E, C, K) @ w (E, K, F) per expert -> (E, C, F); rows
+    ``c >= counts[e]`` (an int32 (E,) tensor on x's device) are exact
+    zeros.  ``w`` may be a strided view of a larger resident weight."""
+    if _use_kernel(x):
+        return _xm.expert_matmul(x, w, counts)
+    return _xm.expert_matmul_plain(x, w, counts)

@@ -34,3 +34,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bst,btd->bsd", p.to(q.dtype), v)
+
+
+def expert_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                      counts: torch.Tensor) -> torch.Tensor:
+    """out[e, c] = x[e, c] @ w[e] for c < counts[e], else 0."""
+    C = x.shape[1]
+    mask = (torch.arange(C, device=x.device)[None, :]
+            < counts[:, None]).to(x.dtype)
+    return torch.einsum("ecd,edf->ecf", x * mask[..., None], w.to(x.dtype))

@@ -57,7 +57,8 @@ def build_server(arch, cfg, *, max_batch=8, batch_buckets=True,
     if not arch.arch_id.startswith(("deit", "vit", "dynamic-ofa")):
         raise SystemExit("serve launcher: vision transformer archs only "
                          "(the paper serves image classification)")
-    from repro_torch.models.vit import cast_params, vit_apply, vit_init
+    from repro_torch.core.layers import cast_params
+    from repro_torch.models.vit import vit_apply, vit_init
     gen = torch.Generator().manual_seed(seed)
     # resident weights in the compute dtype: vit_apply casts each weight to
     # it at use, so this gives the same numbers with no copy per call

@@ -1,0 +1,222 @@
+"""Mixture-of-Experts layer: the dense oracle and the GShard dispatch.
+
+Counterpart of the reference ``models/moe.py`` in sliced mode (static
+knobs).  Every routed expert product goes through the expert-gated
+grouped matmul (kernel K3, ``kernels.ops.expert_matmul_op``); the router
+and the shared experts run on the elastic matmul (K1).
+
+* ``einsum`` — the reference's GShard dispatch (``_moe_einsum``): tokens
+  grouped, a capacity of C slots per (group, expert) computed from the FULL
+  expert count, slots counted per expert in (token, k) order and dropped
+  past C.  The port keeps that assignment exactly, so the same tokens are
+  dropped, but packs each expert's kept slots into one slab: x (E, G*C, d)
+  with ``counts[e] = sum_g min(load[g, e], C)`` live rows, built on the
+  device with index ops (no host sync, no one-hot dispatch product).  K3
+  skips the rows past each count; the outputs are gathered back and
+  weighted by the gates in the compute dtype, as the reference combine.
+* ``dense`` — every expert on every token, combined by gate weight: the
+  numerics oracle, as in the reference.
+* ``a2a`` — the reference's shard_map all-to-all.  With no mesh the
+  reference takes the einsum path, and so does the port; with a mesh the
+  port raises (multi-device is queue 1, item 11 of ROADMAP.md).
+
+Elastic knobs: ``a_experts`` routes to the first n experts only (K3 reads
+the first n expert weights in place), ``top_k`` and ``a_ff`` (per-expert
+hidden width, a strided view of the full weights) shrink compute.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import layers as L
+from repro_torch.kernels.ops import expert_matmul_op
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                     # per-expert hidden
+    n_shared: int = 0             # shared (always-on) experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    group_size: int = 256         # einsum dispatch group
+    dispatch: str = "einsum"      # einsum | a2a | dense
+    expert_axis: str = "model"    # the reference's mesh axis; unused here
+
+
+def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
+             dtype=torch.float32, device=None) -> dict:
+    """The reference's distributions; the router is fp32 whatever
+    ``dtype`` is, as the reference keeps it."""
+    E, f = cfg.n_experts, cfg.d_ff
+    s = 1.0 / math.sqrt(d_model)
+    p = {
+        "router": L.dense_init(gen, d_model, E, bias=False,
+                               dtype=torch.float32, device=device),
+        "wi": L._normal(gen, (E, d_model, f), s, dtype, device),
+        "wg": L._normal(gen, (E, d_model, f), s, dtype, device),
+        "wo": L._normal(gen, (E, f, d_model), 1.0 / math.sqrt(f), dtype,
+                        device),
+    }
+    if cfg.n_shared:
+        p["shared"] = L.mlp_init(gen, d_model, cfg.d_ff * cfg.n_shared,
+                                 gated=True, dtype=dtype, device=device)
+    return p
+
+
+def _router(p, x, cfg: MoEConfig, a_experts: Optional[int], top_k: int):
+    """probs (..., E) fp32 with inactive experts masked out; top-k gates
+    (renormalised) and indices."""
+    logits = L.dense_apply(p["router"], x.to(torch.float32))
+    E = cfg.n_experts
+    if a_experts is not None and a_experts != E:
+        live = torch.arange(E, device=x.device) < a_experts
+        logits = torch.where(live, logits,
+                             torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = torch.topk(probs, top_k, dim=-1)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
+                                      min=1e-9)
+    return probs, top_vals, top_idx
+
+
+def _aux_loss(probs, top_idx, cfg: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balance loss: E * sum_e f_e * P_e."""
+    E = cfg.n_experts
+    f = F.one_hot(top_idx.reshape(-1), E).to(torch.float32).mean(0)
+    pbar = probs.reshape(-1, E).mean(0)
+    return E * torch.sum(f * pbar)
+
+
+def _expert_ffn(p, h, counts, *, a_ff=None, slice_e=None):
+    """h: (E, C, d) -> (E, C, d) SwiGLU per expert over the rows
+    ``c < counts[e]`` (exact zeros past them), through K3.  The sliced
+    expert count and width are views of the full weights."""
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    if slice_e is not None:
+        wi, wg, wo = wi[:slice_e], wg[:slice_e], wo[:slice_e]
+    if a_ff is not None:
+        wi, wg, wo = wi[..., :a_ff], wg[..., :a_ff], wo[:, :a_ff]
+    up = expert_matmul_op(h, L._cast(wi, h.dtype), counts)
+    gate = expert_matmul_op(h, L._cast(wg, h.dtype), counts)
+    hid = F.silu(gate) * up
+    return expert_matmul_op(hid, L._cast(wo, h.dtype), counts)
+
+
+# ---------------------------------------------------------------------------
+# dense dispatch (oracle)
+# ---------------------------------------------------------------------------
+
+def _moe_dense(p, x, cfg: MoEConfig, a_experts, top_k, a_ff):
+    B, S, d = x.shape
+    T = B * S
+    probs, top_vals, top_idx = _router(p, x, cfg, a_experts, top_k)
+    E = cfg.n_experts
+    toks = x.reshape(1, T, d).expand(E, T, d)     # stride 0: no copy
+    counts = torch.full((E,), T, dtype=torch.int32, device=x.device)
+    outs = _expert_ffn(p, toks, counts, a_ff=a_ff)             # (E, T, d)
+    comb = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+    comb.scatter_add_(1, top_idx.reshape(T, -1), top_vals.reshape(T, -1))
+    y = torch.einsum("te,etd->td", comb.to(x.dtype), outs)
+    return y.reshape(B, S, d), _aux_loss(probs, top_idx, cfg)
+
+
+# ---------------------------------------------------------------------------
+# GShard dispatch, packed per expert for K3
+# ---------------------------------------------------------------------------
+
+def dispatch_plan(top_idx: torch.Tensor, n_experts: int, capacity: int):
+    """Where each (token, k) slot goes in the packed per-expert slabs.
+
+    top_idx: (G, g, k), the expert of each slot.  Within each group, slots
+    are counted per expert in (token, k) order, as the reference counts
+    them, and those at position >= ``capacity`` are dropped.  An expert's
+    slab has ``G * capacity`` rows; its kept slots fill rows
+    ``0 .. counts[e] - 1``, group after group.  Returns (dest, keep,
+    counts): ``dest`` (G*g*k,) the row ``e * G * capacity + r`` of each
+    kept slot in the flattened slabs and ``n_experts * G * capacity`` (a
+    scratch row) for each dropped one; ``keep`` the kept mask; ``counts``
+    (E,) int32.  All on the device, with no host sync.
+    """
+    G, g, k = top_idx.shape
+    E, n_slab = n_experts, G * capacity
+    idx = top_idx.reshape(G, g * k)
+    oh = F.one_hot(idx, E)                                   # (G, g*k, E)
+    loc = (torch.cumsum(oh, 1) - oh).gather(2, idx[..., None])[..., 0]
+    keep = loc < capacity                                    # (G, g*k)
+    kept = oh.sum(1).clamp(max=capacity)                     # (G, E)
+    first = torch.cumsum(kept, 0) - kept                     # rows before g
+    row = first.gather(1, idx) + loc
+    dest = torch.where(keep, idx * n_slab + row, E * n_slab)
+    return dest.reshape(-1), keep.reshape(-1), \
+        kept.sum(0).to(torch.int32)
+
+
+def _moe_einsum(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e):
+    B, S, d = x.shape
+    # group over FLATTENED tokens, as the reference does: decode-style
+    # shapes (B x 1) form one group of B tokens
+    T = B * S
+    g = min(cfg.group_size, T)
+    while T % g:           # fall back to the largest divisor of T
+        g -= 1
+    G = T // g
+    probs, top_vals, top_idx = _router(p, x.reshape(G, g, d), cfg,
+                                       a_experts, top_k)
+    E = cfg.n_experts if slice_e is None else slice_e
+    if slice_e is not None:
+        top_idx = torch.clamp(top_idx, max=E - 1)  # already < E by masking
+    # capacity from the FULL expert count, so sliced and masked
+    # sub-networks drop exactly the same tokens (slice == mask)
+    C = max(4, int(math.ceil(g * top_k * cfg.capacity_factor
+                             / cfg.n_experts)))
+    dest, keep, counts = dispatch_plan(top_idx, E, C)
+    tok = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    xf = x.reshape(T, d)
+    slabs = x.new_zeros((E * G * C + 1, d))
+    slabs.index_copy_(0, dest, xf[tok])    # dropped slots: the scratch row
+    out = _expert_ffn(p, slabs[:-1].view(E, G * C, d), counts, a_ff=a_ff,
+                      slice_e=slice_e)
+    rows = out.reshape(E * G * C, d)[torch.where(keep, dest, 0)]
+    gates = (top_vals.reshape(-1) * keep).to(x.dtype)
+    y = (rows.to(torch.float32) * gates.to(torch.float32)[:, None]) \
+        .reshape(T, top_k, d).sum(1).to(x.dtype)
+    return y.reshape(B, S, d), _aux_loss(probs, top_idx, cfg)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
+              top_k: Optional[int] = None, a_ff=None, a_model=None,
+              mesh=None) -> tuple:
+    """Returns (y (B, S, d), aux_loss).  Shared experts added on top.
+
+    Static knobs only (sliced mode); tensor knobs (masked mode) come with
+    the training slice of the port and raise.
+    """
+    top_k = top_k or cfg.top_k
+    a_experts = L._static(a_experts, "moe_apply")
+    a_ff = L._static(a_ff, "moe_apply")
+    slice_e = None
+    if a_experts is not None and a_experts < cfg.n_experts:
+        slice_e = a_experts
+
+    if cfg.dispatch == "dense":
+        y, aux = _moe_dense(p, x, cfg, a_experts, top_k, a_ff)
+    elif cfg.dispatch == "einsum" or (cfg.dispatch == "a2a" and mesh is None):
+        y, aux = _moe_einsum(p, x, cfg, a_experts, top_k, a_ff, slice_e)
+    elif cfg.dispatch == "a2a":
+        raise NotImplementedError(
+            "moe_apply: the all-to-all dispatch over a device mesh comes "
+            "with the multi-device slice of the port (ROADMAP.md queue 1, "
+            "item 11)")
+    else:
+        raise ValueError(cfg.dispatch)
+
+    if "shared" in p:
+        y = y + L.mlp_apply(p["shared"], x, a_model=a_model, a_ff=None)
+    return y, aux

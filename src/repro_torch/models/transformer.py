@@ -1,0 +1,260 @@
+"""Decoder-only LM (dense and MoE) with elastic knobs, prefill and decode.
+
+Counterpart of the reference ``models/transformer.py`` in sliced mode: a
+static ``E`` slices the expert count, top-k, per-expert and dense FFN
+width, heads and depth.  Parameters are a dict in the reference layout,
+except that each layer stack (``dense_layers``, ``moe_layers``) is a list
+of per-layer dicts, and the decode caches likewise (the reference stacks
+both on a leading axis for ``jax.lax.scan``; here the scan is a Python
+loop).  Every dense product runs on the elastic matmul (K1), attention on
+flash attention (K2, head dim 128 for the LMs) and every routed expert
+product on the expert-gated matmul (K3).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import layers as L
+from repro_torch.core.types import ElasticSpace
+from repro_torch.device import resolve_device
+from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    qkv_bias: bool = False
+    gated_mlp: bool = True
+    act: str = "silu"
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    first_k_dense: int = 0
+    d_ff_dense: Optional[int] = None     # FFN width of leading dense layers
+    # the reference's attention/decode variants and remat policy; the port
+    # runs every attention through K2, so these are unused here
+    attn_impl: str = "ref"               # ref | blocked_scan | blocked_causal
+    decode_impl: str = "xla"             # xla | sharded (two-pass softmax)
+    block_q: int = 512
+    block_kv: int = 512
+    remat: str = "none"                  # none | full | dots
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    elastic: ElasticSpace = ElasticSpace()
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_k_dense if self.moe else 0
+
+    @property
+    def n_dense_layers(self) -> int:
+        return self.first_k_dense if self.moe else self.n_layers
+
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _attn_init(gen, cfg: LMConfig, dtype, device) -> dict:
+    return L.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_head, qkv_bias=cfg.qkv_bias, dtype=dtype,
+                            device=device)
+
+
+def _dense_layer_init(gen, cfg: LMConfig, dtype, device) -> dict:
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": _attn_init(gen, cfg, dtype, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
+                          gated=cfg.gated_mlp, dtype=dtype, device=device),
+    }
+
+
+def _moe_layer_init(gen, cfg: LMConfig, dtype, device) -> dict:
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": _attn_init(gen, cfg, dtype, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
+        "moe": moe_init(gen, cfg.d_model, cfg.moe, dtype=dtype,
+                        device=device),
+    }
+
+
+def lm_init(gen: torch.Generator, cfg: LMConfig, *,
+            device: Optional[torch.device] = None,
+            dtype: Optional[torch.dtype] = None) -> dict:
+    """Random parameters with the reference's distributions (normal
+    kernels scaled by 1/sqrt(fan_in), 0.02-scaled embedding, unit norms),
+    drawn from ``gen``, tensor by tensor, in ``dtype`` (default the
+    config's param dtype; the MoE routers are always fp32).
+
+    The parameters live on the card unless the caller passes ``"cpu"``;
+    with no card and no explicit request this raises.  Normals are drawn on
+    the generator's device: give a generator on the card for a full-size
+    model (16.4 B normals drawn on the CPU would take minutes and host
+    memory the size of the model in fp32).
+    """
+    device = resolve_device(device)
+    dtype = cfg.pdtype() if dtype is None else dtype
+    params = {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dtype, device),
+              "final_norm": L.rmsnorm_init(cfg.d_model, dtype, device)}
+    if cfg.n_dense_layers:
+        params["dense_layers"] = [_dense_layer_init(gen, cfg, dtype, device)
+                                  for _ in range(cfg.n_dense_layers)]
+    if cfg.n_moe_layers:
+        params["moe_layers"] = [_moe_layer_init(gen, cfg, dtype, device)
+                                for _ in range(cfg.n_moe_layers)]
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         bias=False, dtype=dtype,
+                                         device=device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _block(h, lp, cfg: LMConfig, E, *, is_moe: bool, kv_cache=None,
+           return_kv: bool):
+    """One transformer block.  Returns (h, aux_loss, new_cache)."""
+    a_model = E.get("a_model")
+    a_ff = E.get("a_ff")
+    hn = L.rmsnorm_apply(lp["ln1"], h, a=a_model, eps=cfg.norm_eps)
+    attn_out, new_cache = L.attention_apply(
+        lp["attn"], hn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        d_head=cfg.d_head, causal=True, rope_theta=cfg.rope_theta,
+        a_model=a_model, a_heads=E.get("a_heads"), kv_cache=kv_cache,
+        return_kv=return_kv)
+    h = h + attn_out
+    hn = L.rmsnorm_apply(lp["ln2"], h, a=a_model, eps=cfg.norm_eps)
+    if is_moe:
+        ff, aux = moe_apply(lp["moe"], hn, cfg.moe,
+                            a_experts=E.get("a_experts"),
+                            top_k=E.get("top_k"), a_ff=a_ff, a_model=a_model)
+    else:
+        ff = L.mlp_apply(lp["mlp"], hn, a_model=a_model,
+                         a_ff=E.get("a_ff_dense", a_ff), act=cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ff, aux, new_cache
+
+
+def _stack(h, stack, cfg: LMConfig, E, *, is_moe: bool, caches=None,
+           return_kv: bool):
+    """The layers of one homogeneous stack in order (the reference's scan)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    new_caches = []
+    for i, lp in enumerate(stack):
+        h, a, nc = _block(h, lp, cfg, E, is_moe=is_moe,
+                          kv_cache=None if caches is None else caches[i],
+                          return_kv=return_kv)
+        aux = aux + a
+        new_caches.append(nc)
+    return h, aux, (new_caches if new_caches[0] is not None else None)
+
+
+def check_decodable(cfg: LMConfig, E) -> None:
+    """Raise unless decode is defined at ``E``: not at a sliced depth or
+    head count, where the reference's decode fails too (fault F4 in
+    ROADMAP.md: its caches keep every layer and kv head)."""
+    E = E or {}
+    a_layers, a_heads = E.get("a_layers"), E.get("a_heads")
+    if (a_layers is not None and a_layers < cfg.n_layers) or \
+            (a_heads is not None and a_heads < cfg.n_heads):
+        raise NotImplementedError(
+            f"decode at a sliced depth or head count ({dict(E)}) is not "
+            f"defined: the reference's decode raises there too (fault F4)")
+
+
+def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
+             caches=None, return_kv: bool = False):
+    """tokens (B, S) int -> logits (B, S, V).
+
+    Returns (logits, aux_loss, new_caches).  ``caches`` is a dict
+    {"dense": [per-layer cache], "moe": [...]} for decode (see
+    :func:`make_decode_caches`; decode updates the cache tensors in
+    place); ``return_kv`` makes prefill also emit caches.
+
+    Decode at a sliced depth or head count raises (:func:`check_decodable`).
+    """
+    E = {k: L._static(v, "lm_apply") for k, v in (E or {}).items()}
+    a_model = E.get("a_model")
+    a_layers = E.get("a_layers")
+    if caches is not None:
+        check_decodable(cfg, E)
+    # static depth slicing: distribute active layers over the two stacks
+    dense_stack = params.get("dense_layers")
+    moe_stack = params.get("moe_layers")
+    if a_layers is not None:
+        nd = min(cfg.n_dense_layers, a_layers)
+        nm = max(0, a_layers - cfg.n_dense_layers)
+        if dense_stack is not None:
+            dense_stack = dense_stack[:nd]
+        if moe_stack is not None:
+            moe_stack = moe_stack[:nm]
+
+    h = L.embedding_apply(params["embed"], tokens, a=a_model,
+                          dtype=cfg.cdtype())
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    new_caches = {}
+    if dense_stack:
+        h, a, nc = _stack(h, dense_stack, cfg, E, is_moe=False,
+                          caches=None if caches is None else caches["dense"],
+                          return_kv=return_kv)
+        aux = aux + a
+        new_caches["dense"] = nc
+    if moe_stack:
+        h, a, nc = _stack(h, moe_stack, cfg, E, is_moe=True,
+                          caches=None if caches is None else caches["moe"],
+                          return_kv=return_kv)
+        aux = aux + a
+        new_caches["moe"] = nc
+
+    h = L.rmsnorm_apply(params["final_norm"], h, a=a_model, eps=cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = L.embedding_attend(params["embed"], h, a=a_model)
+    else:
+        logits = L.dense_apply(params["lm_head"], h, a_in=a_model)
+    weight = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    new_caches = {k: v for k, v in new_caches.items() if v is not None}
+    return logits, aux * weight, (new_caches or None)
+
+
+def make_decode_caches(cfg: LMConfig, batch: int, max_len: int, *,
+                       dtype=torch.bfloat16, filled: int = 0,
+                       device: Optional[torch.device] = None) -> dict:
+    """Zeroed KV caches for decode, one dict per layer:
+    {"k": (B, max_len, KH, Dh), "v": ..., "len": filled} (``len``, the
+    fill point, is a host int)."""
+    device = resolve_device(device)
+
+    def one():
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "len": filled}
+    out = {}
+    if cfg.n_dense_layers:
+        out["dense"] = [one() for _ in range(cfg.n_dense_layers)]
+    if cfg.n_moe_layers:
+        out["moe"] = [one() for _ in range(cfg.n_moe_layers)]
+    return out

@@ -95,20 +95,6 @@ def vit_init(gen: torch.Generator, cfg: ViTConfig, *,
     return params
 
 
-def cast_params(params, dtype: torch.dtype):
-    """Every floating tensor of a param tree in ``dtype``.
-
-    ``vit_apply`` casts each weight to the compute dtype where it is used,
-    so a server that keeps its resident weights in the compute dtype gets
-    the same numbers without a copy per call.
-    """
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
-    if isinstance(params, list):
-        return [cast_params(v, dtype) for v in params]
-    return params.to(dtype) if params.is_floating_point() else params
-
-
 def _encode(params, x, cfg: ViTConfig, E) -> tuple:
     """images (B,H,W,3) -> (tokens (B,N,a_model), per-layer hiddens|None)."""
     a_model = E.get("a_model")

@@ -46,6 +46,7 @@ def test_serve_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import repro_torch.launch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+            "import repro_torch.launch.elastic_moe, repro_torch.launch.steps\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -21,6 +21,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import elastic_matmul as em  # noqa: E402
+from repro_torch.kernels import expert_matmul as xm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
 torch.set_num_threads(2)
@@ -173,6 +174,19 @@ def test_build_command_targets_hopper():
         assert build.library_path(name).parent == build.BUILD_DIR
 
 
+def test_library_name_tracks_shared_headers(tmp_path, monkeypatch):
+    """A kernel that includes a csrc/*.cuh header is rebuilt when only the
+    header changes."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.library_path("expert_matmul")
+    (csrc / "tile_matmul.cuh").write_text(
+        (csrc / "tile_matmul.cuh").read_text() + "\n// edited\n")
+    assert build.library_path("expert_matmul") != before
+
+
 def test_plain_kernels_context_is_thread_local_and_restores():
     assert not getattr(ops._state, "plain", False)
     with ops.plain_kernels():
@@ -219,3 +233,57 @@ def test_cuda_flash_attention_matches_plain(cuda, causal, S, H, KH, D):
     torch.cuda.synchronize()
     torch.testing.assert_close(o, o_plain, rtol=3e-3, atol=3e-3)
     assert fa.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("a_ff", [1408, 704])
+def test_cuda_expert_matmul_matches_plain(cuda, dtype, a_ff):
+    """The LM's up and down products at d 2048 with ragged counts (0, a
+    partial tile, the full C), the expert width read as a strided view."""
+    g = torch.Generator().manual_seed(2)
+    dt = getattr(torch, dtype)
+    E, C, d = 8, 240, 2048
+    x = torch.randn(E, C, d, generator=g).to(cuda, dt)
+    wi = (torch.randn(E, d, 1408, generator=g) / d ** 0.5).to(cuda, dt)
+    wo = (torch.randn(E, 1408, d, generator=g) / 1408 ** 0.5).to(cuda, dt)
+    counts = torch.tensor([240, 0, 37, 64, 1, 200, 239, 128],
+                          dtype=torch.int32, device=cuda)
+    before = xm.launches
+    up = ops.expert_matmul_op(x, wi[..., :a_ff], counts)
+    down = ops.expert_matmul_op(up, wo[:, :a_ff], counts)
+    with ops.plain_kernels():
+        up_p = ops.expert_matmul_op(x, wi[..., :a_ff], counts)
+        down_p = ops.expert_matmul_op(up, wo[:, :a_ff], counts)
+    torch.cuda.synchronize()
+    tol = 3e-4 if dtype == "float32" else 3e-2
+    for y, yp in ((up, up_p), (down, down_p)):
+        torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+        for e, n in enumerate(counts.tolist()):
+            assert torch.all(y[e, n:] == 0)
+    assert xm.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_head_dim_128(cuda, dtype):
+    """The LM's causal prefill (S = T = 512) and decode (S = 1) against a
+    strided slice of a 528-slot cache, at D = 128."""
+    g = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    tol = 3e-3 if dtype == "float32" else 3e-2
+    q = (torch.randn(2, 512, 16, 128, generator=g) * 0.3).to(cuda, dt)
+    k = (torch.randn(2, 512, 16, 128, generator=g) * 0.3).to(cuda, dt)
+    v = torch.randn(2, 512, 16, 128, generator=g).to(cuda, dt)
+    cases = [(q, k, v, True)]
+    cache_k = (torch.randn(2, 528, 16, 128, generator=g) * 0.3).to(cuda, dt)
+    cache_v = torch.randn(2, 528, 16, 128, generator=g).to(cuda, dt)
+    for T in (1, 300, 528):
+        cases.append((q[:, :1], cache_k[:, :T], cache_v[:, :T], False))
+    for qq, kk, vv, causal in cases:
+        o = ops.flash_attention_op(qq, kk, vv, causal=causal)
+        with ops.plain_kernels():
+            o_plain = ops.flash_attention_op(qq, kk, vv, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o.float(), o_plain.float(), rtol=tol,
+                                   atol=tol)

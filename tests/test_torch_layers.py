@@ -105,9 +105,9 @@ def test_unported_modes_raise():
         TL.conv_apply(_params(JL.conv_init(KEY, 3, 3, 4)),
                       torch.zeros(1, 8, 8, 3), stride=1, padding="SAME")
     pa = _params(JL.attention_init(KEY, 8, 2, 2, 4))
-    with pytest.raises(NotImplementedError):     # rope: LM slice
+    with pytest.raises(NotImplementedError):     # masked heads: training
         TL.attention_apply(pa, torch.zeros(1, 3, 8), n_heads=2, n_kv=2,
-                           d_head=4, rope_theta=10000.0)
+                           d_head=4, a_heads=torch.tensor(1))
 
 
 # --- elastic helpers ----------------------------------------------------------
