@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --parent-csrc DIR   # also time a parent's kernels
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -10,10 +11,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    per source, all at once) and print the build time and ptxas report;
 3. K1 elastic_matmul against its plain version at the serving shapes of the
    full Dynamic-OFA supernet, fp32 and bf16, including widths that are not
-   multiples of the tile, with exact zeros past n_act;
+   multiples of the tile, with exact zeros past n_act; and across its
+   variants (small_m, tma, tile): M in 1..2048 around the small_m
+   boundary, k_act not a multiple of 64 in sliced mode and in the TPU
+   op's shape, a width that is not a multiple of 8 (no TMA), n_out > n_act;
 4. K2 flash_attention against its plain version: S = T = 197, D = 64,
-   BH 6 and 48, non-causal and causal, one GQA case, and the smoke
-   configs' head dims (16 and 8);
+   BH 6 and 48, non-causal and causal, one GQA case, the smoke configs'
+   head dims (16 and 8), the ragged S = T = 577, and decode (S = 1) at
+   T = 1, 63, 64, 65, 300 and 528 with GQA R = 2, D 64 and 128;
 5. full-config (224 px, 12 layers, d 384) logits of the kernel path against
    the plain path on the card for the max, min and one mid subnet: fp32
    within a stated tolerance, bf16 max-abs error and top-1 agreement;
@@ -21,12 +26,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    measured LUT over the serve launcher's subnets, the governor summaries,
    a ladder warm and 64 requests through the JointGovernor; every future
    answered, zero cold (subnet, bucket) pairs, both kernels' launch
-   counters rising while serving, served logits finite and equal to a
-   direct forward of the same subnet;
-7. each kernel's time over the calls of one full-width forward at bucket 8,
-   beside its plain version's time, one PyTorch library call's time (the
-   yardstick; the port never calls it) and the bound from bytes and
-   operations at the H100 data-sheet peaks;
+   counters rising while serving, none of the bf16 calls on the old K1
+   tile or K2 FMA kernel (per-variant counters), served logits finite and
+   equal to a direct forward of the same subnet;
+7. each kernel's device time over the recorded calls of one full-width
+   forward at bucket 8 -- each loop captured once in a CUDA graph and the
+   graph replayed between events -- beside its plain version's, one
+   PyTorch library call's (the yardstick; the port never calls it) and,
+   with ``--parent-csrc``, the parent's kernel's, timed in turns; the
+   eager loop's time (what the eager path pays, host launches included);
+   and the bound from bytes and operations at the H100 data-sheet peaks;
 
 the LM slice (deepseek-moe-16b at full width):
 
@@ -49,21 +58,21 @@ the LM slice (deepseek-moe-16b at full width):
     each operating point (latency, tokens/s, the model-FLOPs bound), then
     16 teacher-forced ``lm_decode`` steps against a 528-slot cache at the
     points the reference can decode; every output finite, all three
-    kernels' launch counters rising in prefill and in decode, one decode
-    step's logits of the kernel path against the plain path (as it runs
-    and with the plain path's routing replayed), peak device memory;
+    kernels' launch counters rising in prefill and in decode, no bf16 call
+    on the old K1 tile or K2 FMA kernel, one decode step's logits of the
+    kernel path against the plain path (as it runs and with the plain
+    path's routing replayed), peak device memory;
 12. K1, K2 and K3 against their plain versions at the main path's own
     calls: every distinct call (shapes, strides, widths) of a prefill and
     one decode step at each operating point, on its recorded inputs in
     bf16 (fp32 for the routers) and again cast to fp32, exact zeros past
     each K3 count; and the capacity drops of each point (kept slots of
     the routed ones, rows per live expert);
-13. phase 7 for the LM slice: K1 and K3 over the calls of one prefill
-    forward and of one decode step (their inputs recorded from the main
-    path's own calls), K2 at D = 128 in prefill and decode, each beside
-    its plain version, its library yardstick (``torch.matmul`` on the
-    sliced weight; ``torch.bmm`` over the same slabs;
-    ``F.scaled_dot_product_attention``) and its bound.
+13. phase 7 for the LM slice: K1, K2 and K3 over the recorded calls of
+    one prefill forward and of one decode step, each beside its plain
+    version, its library yardstick (``torch.matmul`` on the sliced
+    weight; ``F.scaled_dot_product_attention``; ``torch.bmm`` over the
+    same slabs), the parent's kernel (given) and its bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -118,6 +127,9 @@ def card_line() -> str:
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Eager time of fn(): a Python loop of calls between two CUDA events.
+    It includes the host's launch cost of every call: what the eager path
+    pays, not device time."""
     import torch
     for _ in range(warmup):
         fn()
@@ -130,6 +142,299 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiler_time_ms(fn, iters: int = 3) -> float:
+    """Device time of fn() as torch.profiler's per-kernel sums report it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0.0)
+             for e in prof.key_averages())
+    return us / 1e3 / iters
+
+
+def graph_time_ms(fn, iters: int = 10) -> tuple:
+    """(device time of one fn() call in ms, how it was taken).  fn() is
+    warmed up on a side stream (first-use builds, attributes, the widths
+    tensors, library workspaces), captured once in a CUDA graph, and the
+    graph replayed ``iters`` times between two events: device time with
+    no host gaps.  If capture fails, the profiler's device time instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn()
+    except Exception as e:  # noqa: BLE001 -- any capture failure
+        del graph
+        torch.cuda.synchronize()
+        return profiler_time_ms(fn), f"profiler ({type(e).__name__})"
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters, "graph"
+
+
+# bytes and operations of one recorded call, and the peak that bounds it:
+# inputs read once, outputs written once, this call's live rows
+
+def k1_work(args, kw) -> tuple:
+    import torch
+    x, w, k_act, n_act = args
+    M = x.numel() // x.shape[-1]
+    n_out = kw.get("n_out", w.shape[-1])
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return (x.element_size() * (M * k_act + k_act * n_act + M * n_out),
+            2 * M * k_act * n_act, peak)
+
+
+def k2_work(args, kw) -> tuple:
+    q, k, _ = args
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    if kw.get("causal", True):
+        pairs = sum(min(T, s + 1) for s in range(S))
+    else:
+        pairs = S * T
+    return (q.element_size() * (2 * B * S * H * D + 2 * B * T * KH * D),
+            4 * B * H * D * pairs, PEAK_BF16_FLOPS)
+
+
+def k3_work(args, kw) -> tuple:
+    x, w, c = args
+    Ee, C, K = x.shape
+    live = c.clamp(max=C).long()
+    rows, experts = int(live.sum()), int((live > 0).sum())
+    F_ = w.shape[2]
+    return (2 * (rows * K + experts * K * F_ + Ee * C * F_),
+            2 * rows * K * F_, PEAK_BF16_FLOPS)
+
+
+def k1_plain(x, w, k_act, n_act, n_out=None):
+    from repro_torch.kernels import elastic_matmul as em
+    n_out = w.shape[-1] if n_out is None else n_out
+    return em.elastic_matmul_plain(x.reshape(-1, x.shape[-1]), w, k_act,
+                                   n_act, n_out)
+
+
+def k1_library(x, w, k_act, n_act, n_out=None):
+    """The yardstick: one torch.matmul on the active block (the port
+    never calls it)."""
+    import torch
+    return torch.matmul(x[..., :k_act], w[:k_act, :n_act])
+
+
+def k2_plain(q, k, v, causal=True):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_plain(q, k, v, causal=causal)
+
+
+def k2_library(q, k, v, causal=True):
+    """The yardstick: scaled_dot_product_attention on (B, H, S, D) views
+    (the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=k.shape[2] != q.shape[2])
+
+
+def main_path_variants(counts: dict, need: set) -> None:
+    """Raise unless a main path's bf16 calls all went through the new
+    variants: no launch of the old K1 tile or K2 FMA kernel in bf16, and
+    every variant in ``need`` launched."""
+    flat = {v: n for per in counts.values() for v, n in per.items()}
+    old = {v: flat[v] for v in ("tile_bf16", "fma_bf16") if flat[v]}
+    if old:
+        raise AssertionError(f"bf16 main-path calls took the old kernels: "
+                             f"{old}")
+    idle = sorted(v for v in need if not flat[v])
+    if idle:
+        raise AssertionError(f"variants never launched on the main path: "
+                             f"{idle}")
+
+
+def k1_group(args, kw) -> str:
+    """A K1 call's shape and the variant it takes, for the breakdown."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    x, w, k_act, n_act = args
+    M = x.numel() // x.shape[-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    variant = em.choose_variant(
+        M, k_act, n_act, x.dtype, em._row_stride(x2), em._row_stride(w),
+        x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if variant == "tma":
+        cwg, bn = em.tma_tile(M, n_act)
+        variant += f" {64 * cwg}x{bn}"
+    dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    return f"M={M} k={k_act} n={n_act} {dt} {variant}"
+
+
+def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
+              work, parent=None, group=None) -> dict:
+    """Time one row -- the recorded calls of a forward or a step -- as
+    graph-replayed device time for the kernel, its plain version, the
+    library yardstick and (given) the parent commit's kernel, in turns
+    parent, kernel, kernel, parent; and as the eager loop the eager path
+    pays.  The bound sums each call's bound at the data-sheet peaks."""
+    import torch
+    bound, b_sum, o_sum = 0.0, 0.0, 0.0
+    for args, kw in calls:
+        nb, no, peak = work(args, kw)
+        bound += kernel_bound_ms(nb, no, peak)[0]
+        b_sum, o_sum = b_sum + nb, o_sum + no
+    by = kernel_bound_ms(b_sum, o_sum)[1]
+
+    def run(fn):
+        def go():
+            for args, kw in calls:
+                fn(*args, **kw)
+        return go
+
+    hows = set()
+
+    def timed(fn):
+        ms, how = graph_time_ms(run(fn))
+        hows.add(how)
+        return ms
+    with torch.inference_mode():
+        ts_parent, ts_kernel = [], []
+        for who in (("parent", "kernel", "kernel", "parent") if parent
+                    else ("kernel",)):
+            (ts_parent if who == "parent" else ts_kernel).append(
+                timed(parent if who == "parent" else kern))
+        t_p, t_l = timed(plain), timed(lib)
+        e_k = cuda_time_ms(run(kern), iters=3, warmup=1)
+        e_l = cuda_time_ms(run(lib), iters=3, warmup=1)
+    t_k = sum(ts_kernel) / len(ts_kernel)
+    row = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+           "bound_by": by, "calls": len(calls), "eager_ms": e_k,
+           "eager_library_ms": e_l, "timing": "/".join(sorted(hows))}
+    line = (f"  {label} x{len(calls)} calls, device time ({row['timing']}):"
+            f" kernel {t_k:.4f} ms")
+    if parent:
+        row["parent_ms"] = sum(ts_parent) / len(ts_parent)
+        line += (f" (runs {', '.join(f'{t:.4f}' for t in ts_kernel)}), "
+                 f"parent {row['parent_ms']:.4f} ms (runs "
+                 f"{', '.join(f'{t:.4f}' for t in ts_parent)})")
+    log(line + f", plain {t_p:.4f} ms, {lib_name} {t_l:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}; {b_sum / 1e9:.3f} GB, {o_sum / 1e12:.4f} "
+        f"TFLOP); eager loop (with host launch cost): kernel {e_k:.4f} ms, "
+        f"{lib_name} {e_l:.4f} ms")
+    if group is not None:     # where the row's time goes, by call shape
+        groups = {}
+        for args, kw in calls:
+            groups.setdefault(group(args, kw), []).append((args, kw))
+        row["groups"] = {}
+        with torch.inference_mode():
+            for name, sub in sorted(groups.items()):
+                gb = sum(kernel_bound_ms(*work(a, k))[0] for a, k in sub)
+                tk = graph_time_ms(lambda sub=sub: [kern(*a, **k)
+                                                    for a, k in sub])[0]
+                tl = graph_time_ms(lambda sub=sub: [lib(*a, **k)
+                                                    for a, k in sub])[0]
+                row["groups"][name] = {"calls": len(sub), "ms": tk,
+                                       "library_ms": tl, "bound_ms": gb}
+                log(f"    {name}: x{len(sub)} kernel {tk:.4f} ms, "
+                    f"{lib_name} {tl:.4f} ms, bound {gb:.4f} ms")
+    return row
+
+
+def parent_kernels(csrc: str) -> dict:
+    """The parent commit's kernels, built from its ``csrc`` directory
+    beside ours and called through their C interfaces (unchanged since:
+    K1's tile launcher, K2's FMA launcher, K3), behind the wrappers'
+    signatures.  Returns {"k1", "k2", "k3"} callables."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import flash_attention as fa
+    out = build.BUILD_DIR.parent / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build.find_nvcc()
+    procs = {n: subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
+         str(Path(csrc) / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for n in ("elastic_matmul", "flash_attention", "expert_matmul")}
+    libs = {}
+    for n, proc in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {n} failed to build:\n{text}")
+        libs[n] = ctypes.CDLL(str(out / f"lib{n}.so"))
+    f_em = libs["elastic_matmul"].repro_elastic_matmul
+    f_em.argtypes, f_em.restype = em._ARGTYPES["repro_elastic_matmul"], \
+        ctypes.c_int
+    f_fa = libs["flash_attention"].repro_flash_attention
+    f_fa.argtypes, f_fa.restype = fa._ARGTYPES["repro_flash_attention"], \
+        ctypes.c_int
+    f_xm = libs["expert_matmul"].repro_expert_matmul
+    f_xm.argtypes, f_xm.restype = xm._launcher().argtypes, ctypes.c_int
+
+    def stream(t):
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def check(rc, name):
+        if rc != 0:
+            raise RuntimeError(f"parent {name} launch failed ({rc})")
+
+    def k1(x, w, k_act, n_act, n_out=None):
+        n_out = w.shape[-1] if n_out is None else n_out
+        x2 = x.reshape(-1, x.shape[-1])
+        M = x2.shape[0]
+        y = torch.empty((M, n_out), dtype=x.dtype, device=x.device)
+        check(f_em(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
+                   ops.widths_tensor(x.device, k_act, n_act).data_ptr(), M,
+                   em._row_stride(x2), em._row_stride(w), n_out, n_out,
+                   em.DTYPE_CODES[x.dtype], stream(x)), "K1")
+        return y.reshape(*x.shape[:-1], n_out)
+
+    def k2(q, k, v, causal=True):
+        B, S, H, D = q.shape
+        o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+        st = (ctypes.c_longlong * 12)(
+            *(s for t in (q, k, v, o) for s in t.stride()[:3]))
+        check(f_fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                   H, k.shape[2], S, k.shape[1], D, st, 1.0 / math.sqrt(D),
+                   int(causal), fa.DTYPE_CODES[q.dtype], stream(q)), "K2")
+        return o
+
+    def k3(x, w, counts):
+        E, C, K = x.shape
+        y = torch.empty((E, C, w.shape[2]), dtype=x.dtype, device=x.device)
+        check(f_xm(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                   counts.data_ptr(), E, C, K, w.shape[2], xm._stride(x, 0),
+                   xm._stride(x, 1), xm._stride(w, 0), xm._stride(w, 1),
+                   xm.DTYPE_CODES[x.dtype], stream(x)), "K3")
+        return y
+    return {"k1": k1, "k2": k2, "k3": k3}
 
 
 def close(a, b, tol: float) -> float:
@@ -215,17 +520,15 @@ def call_signature(key: str, args, kw) -> tuple:
             tuple((k, one(v)) for k, v in sorted(kw.items())))
 
 
-def lm_phases(dev) -> dict:
-    """Phases 8-12: the LM slice.  Returns what the kernels' record needs."""
+def lm_phases(dev, parent) -> dict:
+    """Phases 8-13: the LM slice.  Returns what the kernels' record needs.
+    ``parent``: the parent commit's kernels to time beside ours, or None."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
     from repro_torch.core import layers as layers_mod
     from repro_torch.core.layers import cast_params
-    from repro_torch.kernels import elastic_matmul as em
     from repro_torch.kernels import expert_matmul as xm
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import elastic_moe
     from repro_torch.launch.flops import lm_model_flops
@@ -385,10 +688,10 @@ def lm_phases(dev) -> dict:
                            device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
     prompt = tokens[:, :PREFILL_LEN]
-    for m in (em, fa, xm):
-        m.launches = 0
+    ops.reset_launch_counts()
     rows = elastic_moe.run(params, cfg, tokens, PREFILL_LEN, iters=2)
     out["launches"] = ops.launch_counts()
+    out["variants"] = ops.variant_counts()
     full_flops = lm_model_flops(cfg, "prefill", LM_BATCH, PREFILL_LEN)
     for r in rows:
         if r["logits"].shape != (LM_BATCH, cfg.vocab_size) or \
@@ -416,6 +719,9 @@ def lm_phases(dev) -> dict:
         f"{rows[0]['name']}: prefill {rows[0]['prefill_launches']} (3 "
         f"forwards), decode {rows[0]['decode_launches']} "
         f"({DECODE_STEPS} steps)")
+    log(f"  by variant: {out['variants']}")
+    main_path_variants(out["variants"],
+                       need={"small_m", "tma", "mma", "decode"})
     # one decode step, kernel path against plain path, from one state; then
     # the kernel path again on the plain path's routing
     step = tokens[:, PREFILL_LEN:PREFILL_LEN + 1]
@@ -534,100 +840,31 @@ def lm_phases(dev) -> dict:
     del k3_counts
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    t0 = phase("13. LM kernel times (bf16): K1 and K3 over one prefill "
-               "forward and one decode step, K2 at D = 128")
-    calls = {"k1": [], "k3": []}
+    t0 = phase("13. LM kernel times (bf16; graph-replayed device time): "
+               "K1, K2 and K3 over the calls of one prefill forward and of "
+               "one decode step")
+    calls = {"k1": [], "k2": [], "k3": []}
     with torch.inference_mode(), recording(
-            targets[::2], lambda key, args, kw: calls[key].append((args, kw))):
+            targets, lambda key, args, kw: calls[key].append((args, kw))):
         _, caches = lm_prefill(params, prompt, cfg, max_len=T_cache)
         n_pre = {k: len(v) for k, v in calls.items()}
         lm_decode(params, caches, step, cfg)
-    del caches
-
-    def k1_work(args, kw):
-        x, w, k_act, n_act = args
-        M = x.numel() // x.shape[-1]
-        n_out = kw.get("n_out", w.shape[-1])
-        peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 \
-            else PEAK_FP32_FLOPS
-        return (x.element_size() * (M * k_act + k_act * n_act + M * n_out),
-                2 * M * k_act * n_act, peak)
-
-    def k3_work(args, kw):
-        x, w, c = args
-        Ee, C, K = x.shape
-        live = c.clamp(max=C).long()
-        rows, experts = int(live.sum()), int((live > 0).sum())
-        F_ = w.shape[2]
-        return (2 * (rows * K + experts * K * F_ + Ee * C * F_),
-                2 * rows * K * F_, PEAK_BF16_FLOPS)
-
-    def k1_plain(x, w, k_act, n_act, n_out=None):
-        n_out = w.shape[-1] if n_out is None else n_out
-        return em.elastic_matmul_plain(x.reshape(-1, x.shape[-1]), w, k_act,
-                                       n_act, n_out)
-
+    del caches     # the recorded decode calls keep their cache views
     kinds = {
-        "k1": (k1_work, kernel_fn["k1"], k1_plain,
-               lambda x, w, k_act, n_act, n_out=None: torch.matmul(
-                   x[..., :k_act], w[:k_act, :n_act]), "torch.matmul"),
-        "k3": (k3_work, xm.expert_matmul, xm.expert_matmul_plain,
-               lambda x, w, c: torch.bmm(x, w), "torch.bmm"),
+        "k1": (kernel_fn["k1"], k1_plain, k1_library, "torch.matmul",
+               k1_work),
+        "k2": (kernel_fn["k2"], k2_plain, k2_library, "sdpa", k2_work),
+        "k3": (xm.expert_matmul, xm.expert_matmul_plain,
+               lambda x, w, c: torch.bmm(x, w), "torch.bmm", k3_work),
     }
-    for key, (work, kern, plain, lib, lib_name) in kinds.items():
+    for key, (kern, plain, lib, lib_name, work) in kinds.items():
         for label, batch in (("prefill", calls[key][:n_pre[key]]),
                              ("decode", calls[key][n_pre[key]:])):
-            bound, b_sum, o_sum = 0.0, 0.0, 0.0
-            for args, kw in batch:
-                nb, no, peak = work(args, kw)
-                bound += kernel_bound_ms(nb, no, peak)[0]
-                b_sum, o_sum = b_sum + nb, o_sum + no
-
-            def run(fn, batch=batch):
-                for args, kw in batch:
-                    fn(*args, **kw)
-
-            t_k = cuda_time_ms(lambda: run(kern), iters=5, warmup=1)
-            t_p = cuda_time_ms(lambda: run(plain), iters=5, warmup=1)
-            t_l = cuda_time_ms(lambda: run(lib), iters=5, warmup=1)
-            by = kernel_bound_ms(b_sum, o_sum)[1]
-            out[f"{key}_{label}"] = {
-                "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                "bound_ms": bound, "bound_by": by, "calls": len(batch)}
-            log(f"  {key.upper()} {label:7s} x{len(batch):3d} calls: kernel "
-                f"{t_k:.3f} ms, plain {t_p:.3f} ms, {lib_name} {t_l:.3f} ms, "
-                f"bound {bound:.4f} ms ({by}; {b_sum / 1e9:.2f} GB, "
-                f"{o_sum / 1e12:.3f} TFLOP)")
+            out[f"{key}_{label}"] = time_rows(
+                f"{key.upper()} {label:7s}", batch, kern, plain, lib,
+                lib_name, work, parent and parent[key],
+                group=k1_group if key == "k1" else None)
     del calls
-    bf = torch.bfloat16
-    n_layers = cfg.n_layers
-    qkv = randn(LM_BATCH, PREFILL_LEN, 3 * H, Dh, scale=0.3, dtype=bf)
-    q, k, v = qkv[:, :, :H], qkv[:, :, H:2 * H], qkv[:, :, 2 * H:]
-    ck = randn(LM_BATCH, T_cache, H, Dh, scale=0.3, dtype=bf)
-    cv = randn(LM_BATCH, T_cache, H, Dh, dtype=bf)
-    for label, qq, kk, vv, causal in (
-            ("prefill", q, k, v, True),
-            ("decode", q[:, :1], ck, cv, False)):
-        S, T = qq.shape[1], kk.shape[1]
-        qt, kt, vt = (a.transpose(1, 2) for a in (qq, kk, vv))
-        t_k = cuda_time_ms(lambda: ops.flash_attention_op(qq, kk, vv,
-                                                          causal=causal))
-        t_p = cuda_time_ms(lambda: fa.flash_attention_plain(qq, kk, vv,
-                                                            causal=causal))
-        t_l = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-        pairs = S * (S + 1) / 2 if causal else S * T
-        bound, by = kernel_bound_ms(
-            2 * LM_BATCH * H * Dh * (2 * S + 2 * T),
-            4 * LM_BATCH * H * Dh * pairs)
-        out[f"k2_{label}"] = {"ms": n_layers * t_k,
-                              "plain_ms": n_layers * t_p,
-                              "library_ms": n_layers * t_l,
-                              "bound_ms": n_layers * bound, "bound_by": by,
-                              "calls": n_layers}
-        log(f"  K2 {label:7s} x{n_layers} BH={LM_BATCH * H} S={S} T={T} "
-            f"D={Dh}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
-            f"{t_l:.4f} ms, bound {bound:.4f} ms ({by}) per call")
     del params
     torch.cuda.empty_cache()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -646,15 +883,21 @@ def _tensors(tree):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent-csrc", default=None, help=(
+        "a parent commit's src/repro_torch/kernels/csrc: its kernels are "
+        "built too and timed beside these in phases 7 and 13"))
+    cli = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"))
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
+    from repro_torch.core import layers as layers_mod
     from repro_torch.core.elastic import spec_to_static
     from repro_torch.core.types import SubnetSpec
     from repro_torch.kernels import build, ops
@@ -691,6 +934,13 @@ def main() -> int:
                 entry = m.group(1)
             elif re.search(r"Used \d+ registers|spill", line):
                 log(f"  {entry}: {line.strip()}")
+
+    parent = None
+    if cli.parent_csrc:
+        t_b = time.perf_counter()
+        parent = parent_kernels(cli.parent_csrc)
+        log(f"parent kernels from {cli.parent_csrc} built in "
+            f"{time.perf_counter() - t_b:.1f} s")
 
     arch = get_arch("dynamic-ofa-supernet")
     cfg = arch.make_config()
@@ -733,6 +983,40 @@ def main() -> int:
             k1_err = max(k1_err, err)
             log(f"  {str(dtype):15s} {label:20s} M={rows:5d} k={ka:4d} "
                 f"n={na:4d}/{n_out:4d}  max abs err {err:.3g} (tol {tol})")
+    # across the variant boundary (small_m up to M = 16, tma above in bf16,
+    # tile in fp32 and where TMA cannot take the strides): (K, N) of the
+    # full weight, k_act, n_act, n_out, x's width
+    boundary = [
+        ("sliced k%64", (d, dff), 200, 1000, 1000, 200),
+        ("tpu-shape k%64", (d, dff), 136, 300, dff, d),
+        ("width 129 (no TMA)", (d, dff), 129, 255, 255, 129),
+        ("n_out > n_act", (d, dff), d, 1000, dff, d),
+    ]
+    variants = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        for rows in (1, 4, 8, 16, 17, 64, 197, 1576, 2048):
+            for label, (K, N), ka, na, n_out, xw in boundary:
+                w = randn(K, N, scale=K ** -0.5, dtype=dtype)
+                x = randn(rows, xw, dtype=dtype)
+                before = dict(em.variant_launches)
+                y = ops.elastic_matmul_op(x, w, ka, na, n_out=n_out)
+                ran = [v for v, c in em.variant_launches.items()
+                       if c != before[v]]
+                with ops.plain_kernels():
+                    yp = ops.elastic_matmul_op(x, w, ka, na, n_out=n_out)
+                torch.cuda.synchronize()
+                err = close(y, yp, tol)
+                if n_out > na and not bool((y[:, na:] == 0).all()):
+                    raise AssertionError(f"{label}: non-zero past n_act")
+                k1_err = max(k1_err, err)
+                key = (str(dtype).split(".")[1], ran[0])
+                variants[key] = max(variants.get(key, 0.0), err)
+    log("  M in (1, 4, 8, 16, 17, 64, 197, 1576, 2048) x " + ", ".join(
+        b[0] for b in boundary) + ": max abs err by variant " + ", ".join(
+        f"{dt} {v} {e:.3g}" for (dt, v), e in sorted(variants.items())))
+    if {v for _, v in variants} != set(em.VARIANTS):
+        raise AssertionError(f"not every K1 variant ran: {sorted(variants)}")
     # strided rows: the head reads h[:, 0] of the (B, N, d) tokens in place
     tok = randn(BUCKET, cfg.n_tokens, 192, dtype=torch.bfloat16)
     w = randn(d, 1000, scale=d ** -0.5, dtype=torch.bfloat16)
@@ -761,15 +1045,45 @@ def main() -> int:
             q = qbuf[:, :, :H_]
             k = randn(B, S_, KH, D_, scale=0.3, dtype=dtype)
             v = randn(B, S_, KH, D_, dtype=dtype)
+            before = dict(fa.variant_launches)
             o = ops.flash_attention_op(q, k, v, causal=causal)
+            ran = [n for n, c in fa.variant_launches.items()
+                   if c != before[n]]
             with ops.plain_kernels():
                 op_ = ops.flash_attention_op(q, k, v, causal=causal)
             torch.cuda.synchronize()
             err = close(o, op_, tol)
             k2_err = max(k2_err, err)
-            log(f"  {str(dtype):15s} BH={B * H_:3d} KH={KH} S={S_:3d} D={D_:2d}"
-                f" causal={causal!s:5s}  max abs err {err:.3g} (tol {tol})")
-    log(f"  K2 max abs err {k2_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+            log(f"  {str(dtype):15s} {ran[0]:8s} BH={B * H_:3d} KH={KH} "
+                f"S={S_:3d} D={D_:2d} causal={causal!s:5s}  max abs err "
+                f"{err:.3g} (tol {tol})")
+    # the ragged edge at T = 577 (ViT-L at 336 px), and decode (S = 1)
+    # against T = 1 .. 528 with GQA R = 2 at both head dims
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype).split(".")[1]]
+        cases = [(2, 577, 577, 4, 4, 64, c) for c in (False, True)] + [
+            (2, 1, T, 16, 8, D_, c) for T in (1, 63, 64, 65, 300, 528)
+            for D_ in (64, 128) for c in (False, True)]
+        for B, S_, T, H_, KH, D_, causal in cases:
+            q = randn(B, S_, H_, D_, scale=0.3, dtype=dtype)
+            k = randn(B, T, KH, D_, scale=0.3, dtype=dtype)
+            v = randn(B, T, KH, D_, dtype=dtype)
+            before = dict(fa.variant_launches)
+            o = ops.flash_attention_op(q, k, v, causal=causal)
+            ran = [n for n, c in fa.variant_launches.items()
+                   if c != before[n]]
+            with ops.plain_kernels():
+                op_ = ops.flash_attention_op(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = close(o, op_, tol)
+            k2_err = max(k2_err, err)
+            if S_ > 1 or T in (1, 528):
+                log(f"  {str(dtype):15s} {ran[0]:8s} BH={B * H_:3d} KH={KH} "
+                    f"S={S_:3d} T={T:3d} D={D_:3d} causal={causal!s:5s}  max "
+                    f"abs err {err:.3g} (tol {tol})")
+    log(f"  decode T in (1, 63, 64, 65, 300, 528) x D (64, 128) x causal "
+        f"within tolerance; K2 max abs err {k2_err:.3g} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = phase("5. full-config logits: kernel path vs plain path on the card")
     dims = {"d_model": d, "d_ff": dff, "n_heads": H,
@@ -798,11 +1112,11 @@ def main() -> int:
             log(f"  {name} {spec.name():28s} fp32 max abs err {err32:.3g} "
                 f"(tol {LOGITS_FP32_TOL}); bf16 max abs err {err16:.3g}, "
                 f"top-1 agreement {top1:.2f}")
-    del p32, p16
+    del p32          # p16 serves phase 7's recorded forward
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     t0 = phase("6. main path: full-width server, LUT, governors, 64 requests")
-    em.launches = fa.launches = 0
+    ops.reset_launch_counts()
     server = serve.build_server(arch, cfg, max_batch=BUCKET, device="cuda")
     x = torch.randn((BUCKET, cfg.img_res, cfg.img_res, 3),
                     generator=torch.Generator().manual_seed(2)).numpy()
@@ -813,6 +1127,7 @@ def main() -> int:
                                 x[0], N_REQUESTS)
     launches = {"elastic_matmul": em.launches,
                 "flash_attention": fa.launches}
+    vit_variants = ops.variant_counts()
     serving = (em.launches - before[0], fa.launches - before[1])
     answered = [o for o in outs if not o.get("cancelled")]
     if len(answered) != N_REQUESTS:
@@ -831,86 +1146,75 @@ def main() -> int:
     err_served = close(y, direct, 3e-2)
     log(f"  launches on the main path: {launches}; while serving: "
         f"elastic_matmul {serving[0]}, flash_attention {serving[1]}")
+    log(f"  by variant: {vit_variants}")
+    main_path_variants(vit_variants, need={"small_m", "tma", "mma"})
     log(f"  served logits vs direct forward of {o['subnet']}: max abs err "
         f"{err_served:.3g}; cold compiles {server.cold_compiles}")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     t0 = phase("7. kernel times over one full-width forward at bucket 8 "
-               "(bf16)")
-    bf = torch.bfloat16
-    # (label, calls per forward, rows, K, N): the 74 K1 calls of a forward
-    k1_calls = [("patch", 1, M_patch, 768, d), ("qkvo", 4 * cfg.n_layers, M,
-                                                 d, d),
-                ("wi", cfg.n_layers, M, d, dff), ("wo", cfg.n_layers, M, dff, d),
-                ("head", 1, BUCKET, d, 1000)]
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "bytes_s": 0.0, "ops_s": 0.0}
-    for label, n, rows, K, N in k1_calls:
-        xx = randn(rows, K, dtype=bf)
-        ww = randn(K, N, scale=K ** -0.5, dtype=bf)
-        wv = ww[:K, :N]
-        t_k = cuda_time_ms(lambda: ops.elastic_matmul_op(xx, ww, K, N,
-                                                         n_out=N))
-        t_p = cuda_time_ms(lambda: em.elastic_matmul_plain(xx, ww, K, N, N))
-        t_l = cuda_time_ms(lambda: torch.matmul(xx, wv))
-        b = 2 * (rows * K + K * N + rows * N) / HBM_BYTES_PER_S * 1e3
-        f = 2 * rows * K * N / PEAK_BF16_FLOPS * 1e3
-        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
-                       ("bound_ms", max(b, f)), ("bytes_s", b), ("ops_s", f)):
-            k1[key] += n * t
-        log(f"  K1 {label:5s} x{n:3d} M={rows:5d} K={K:4d} N={N:4d}: "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, torch.matmul "
-            f"{t_l:.4f} ms, bound {max(b, f):.4f} ms "
-            f"({'bytes' if b >= f else 'operations'})")
-    q = randn(BUCKET, S, H, Dh, scale=0.3, dtype=bf)
-    k = randn(BUCKET, S, H, Dh, scale=0.3, dtype=bf)
-    v = randn(BUCKET, S, H, Dh, dtype=bf)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    n = cfg.n_layers
-    t_k = cuda_time_ms(lambda: ops.flash_attention_op(q, k, v, causal=False))
-    t_p = cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                        causal=False))
-    t_l = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    b = 4 * BUCKET * S * H * Dh * 2 / HBM_BYTES_PER_S * 1e3
-    f = 4 * BUCKET * H * S * S * Dh / PEAK_BF16_FLOPS * 1e3
-    log(f"  K2 x{n} BH={BUCKET * H} S=T={S} D={Dh}: kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {max(b, f):.4f} ms "
-        f"({'bytes' if b >= f else 'operations'})")
+               "(bf16; the forward's own calls, graph-replayed device time)")
+    E_max = spec_to_static(cfg.elastic.max_spec(), dims)
+    imgs8 = randn(BUCKET, cfg.img_res, cfg.img_res, 3)
+    vcalls = {"k1": [], "k2": []}
+    with torch.inference_mode(), recording(
+            [(layers_mod, "elastic_matmul_op", "k1"),
+             (layers_mod, "flash_attention_op", "k2")],
+            lambda key, args, kw: vcalls[key].append((args, kw))):
+        vit_apply(p16, imgs8, cfg, E=E_max)
+    vit_k1 = time_rows("K1 ViT forward", vcalls["k1"], ops.elastic_matmul_op,
+                       k1_plain, k1_library, "torch.matmul", k1_work,
+                       parent and parent["k1"], group=k1_group)
+    vit_k2 = time_rows("K2 ViT forward", vcalls["k2"],
+                       ops.flash_attention_op, k2_plain, k2_library, "sdpa",
+                       k2_work, parent and parent["k2"])
+    del vcalls, p16
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
-    lm = lm_phases(dev)
+    lm = lm_phases(dev, parent)
 
+    def row_keys(vit: dict) -> dict:
+        # the contract's numbers from the ViT forward's row; the LM rows
+        # beside them carry the same keys
+        return {k: vit.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+
+    timing = ("graph-replayed device time (CUDA graph of the recorded "
+              "calls, replayed between events); eager_ms is the eager "
+              "loop with host launch cost")
     record = {"kernels": [
-        {"name": "elastic_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/elastic_matmul.cu",
-         "replaces": "src/repro/kernels/elastic_matmul.py:68",
-         "launches": launches["elastic_matmul"]
-         + lm["launches"]["elastic_matmul"],
-         "launches_by_path": {"vit_serve": launches["elastic_matmul"],
-                              "lm": lm["launches"]["elastic_matmul"]},
-         "max_abs_err": k1_err,
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"],
-         "bound_by": "bytes" if k1["bytes_s"] >= k1["ops_s"] else "operations",
-         "library_ms": k1["library_ms"],
-         "lm_prefill": lm["k1_prefill"], "lm_decode": lm["k1_decode"]},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:71",
-         "launches": launches["flash_attention"]
-         + lm["launches"]["flash_attention"],
-         "launches_by_path": {"vit_serve": launches["flash_attention"],
-                              "lm": lm["launches"]["flash_attention"]},
-         "max_abs_err": max(k2_err, lm["k2_err"]),
-         "ms": n * t_k, "plain_ms": n * t_p, "bound_ms": n * max(b, f),
-         "bound_by": "bytes" if b >= f else "operations",
-         "library_ms": n * t_l,
-         "lm_prefill": lm["k2_prefill"], "lm_decode": lm["k2_decode"]},
+        dict({"name": "elastic_matmul", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/elastic_matmul.cu",
+              "replaces": "src/repro/kernels/elastic_matmul.py:68",
+              "launches": launches["elastic_matmul"]
+              + lm["launches"]["elastic_matmul"],
+              "launches_by_path": {"vit_serve": launches["elastic_matmul"],
+                                   "lm": lm["launches"]["elastic_matmul"]},
+              "launches_by_variant": {
+                  "vit_serve": vit_variants["elastic_matmul"],
+                  "lm": lm["variants"]["elastic_matmul"]},
+              "max_abs_err": k1_err}, **row_keys(vit_k1),
+             timing=timing, vit_forward=vit_k1,
+             lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"]),
+        dict({"name": "flash_attention", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:71",
+              "launches": launches["flash_attention"]
+              + lm["launches"]["flash_attention"],
+              "launches_by_path": {"vit_serve": launches["flash_attention"],
+                                   "lm": lm["launches"]["flash_attention"]},
+              "launches_by_variant": {
+                  "vit_serve": vit_variants["flash_attention"],
+                  "lm": lm["variants"]["flash_attention"]},
+              "max_abs_err": max(k2_err, lm["k2_err"])}, **row_keys(vit_k2),
+             timing=timing, vit_forward=vit_k2,
+             lm_prefill=lm["k2_prefill"], lm_decode=lm["k2_decode"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
               "launches": lm["launches"]["expert_matmul"],
-              "max_abs_err": lm["k3_err"]}, **lm["k3_prefill"],
+              "max_abs_err": lm["k3_err"]}, **row_keys(lm["k3_prefill"]),
+             timing=timing, lm_prefill=lm["k3_prefill"],
              decode=lm["k3_decode"], kept_share=lm["kept"]),
     ]}
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")

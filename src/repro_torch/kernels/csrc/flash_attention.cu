@@ -4,50 +4,66 @@
 // flash_attention (body _kernel).  For every (batch, head) and query row
 //     o[s] = sum_t softmax_t(q[s] . k[t] / sqrt(D)) v[t]
 // over keys t < T (and t <= s when causal), with the running max,
-// denominator and accumulator in fp32 and p cast to v's dtype before the
-// PV product, as the TPU kernel does.
+// denominator and accumulator in fp32, p cast to v's dtype before the PV
+// product and the denominator summed from the fp32 p, as the TPU kernel
+// does.
 //
-// Differences from the TPU kernel, by design:
+// Differences from the TPU kernel, by design (all variants):
 //  * keys at positions >= T are MASKED (probability 0).  The reference
 //    wrapper pads keys with zeros and lets them into the softmax (fault F1
-//    in ROADMAP.md); this kernel never sees padding;
+//    in ROADMAP.md); these kernels never see padding;
 //  * GQA picks the kv head as h / (H / KH) inside the kernel -- no
 //    repeated copy of k and v;
 //  * q, k, v and o are read and written through (batch, seq, head)
 //    strides, so the (B, S, H*D) activations of the ViT go in and come out
 //    without a transpose.
 //
-// Layout: one block per (q tile of 64 rows, batch*head); 128 threads, two
-// per query row.  Each thread scores half of each 64-key tile (keys
-// interleaved so the two halves hit different shared-memory banks) and
-// accumulates half of the output dims.  K and V tiles are staged in
-// shared memory as fp32.  Causally dead KV tiles (all keys after the
-// tile's last query) are skipped.  Head dims: 128 (the LMs), 64 (every
-// full-size ViT config) and 8 and 16 (their smoke configs).
+// Three variants, chosen on the host by kernels/flash_attention.py:
+// choose_variant:
 //
-// Head dim 128.  Keeping each thread's q row in registers (as for D <= 64)
-// next to its half of the accumulator takes 128 + 64 floats a thread and
-// spills at the 255-register cap, and fp32 K and V tiles of 64 x 129 take
-// 66 KB, above the 48 KB of static shared memory.  So at D = 128 the q
-// tile is staged in shared memory beside K and V (three 64 x 129 fp32
-// tiles, 99 KB), all shared memory is dynamic, and the launcher raises the
-// kernel's dynamic shared-memory limit with cudaFuncSetAttribute.  Each
-// thread then holds only its 64 accumulators and 32 scores; the q . k loop
-// is unrolled by 8, not fully, or the compiler hoists the q row back into
-// registers.  Decode calls
-// it with S = 1: one live row of a 64-row tile, right but wasteful.
-//
-// What bounds it on the H100: at the ViT's shapes (S = T = 197, D = 64) the
-// work is 4*S*T*D operations per head on 4*S*D elements, an intensity
-// near the bf16 ridge point, so on tensor cores both bounds are close.
-// At the LM's causal prefill (S = T = 512, D = 128) it is the operations;
-// at decode (S = 1) the bytes of the K/V cache.  This first version
-// computes with fp32 FMAs (no tensor cores), so it is bound by its
-// arithmetic; moving QK^T and PV onto wgmma is later work.
+// * mma (bf16, D = 64 or 128, S > 1, 16-byte-aligned rows: the ViT at
+//   S = T = 197, D = 64 and the LM's causal prefill at S = T = 512,
+//   D = 128).  Bound: operations (4*S*T*D a head, half that causal) on
+//   the tensor cores; the old FMA kernel ran QK^T and PV on fp32 FMAs from
+//   fp32 copies of K and V.  This is the FlashAttention-2 layout on
+//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate): 4 warps, each owning 16
+//   rows of a 64-row q tile; q fragments held in registers (ldmatrix); K
+//   and V tiles of 64 keys kept in bf16 shared memory (rows padded by 16
+//   bytes, so ldmatrix is free of bank conflicts), double-buffered with
+//   16-byte cp.async whose source size zero-fills keys past T; S = QK^T
+//   and the online softmax in fp32 registers; P rounded to bf16 in
+//   registers and used directly as the A operand of PV (ldmatrix.trans
+//   reads V as the B operand).  Causally dead KV tiles are skipped and the
+//   diagonal tile masked; the grid runs (batch*head) fastest and, when
+//   causal, the q tiles that see the most keys first, so the short tiles
+//   fill the tail.  D = 128 takes 87 KB of dynamic shared memory
+//   (the attribute is set once).  FA3-style wgmma with a TMA producer
+//   warp and warp specialisation is later work.
+// * decode (bf16, D = 64 or 128, S = 1, H / KH <= 8: every LM decode
+//   step).  Bound: the bytes of the K/V cache (4*T*D bytes a kv head
+//   against 4*T*D*R operations).  The old kernel gave each (batch, head)
+//   one block with one live query row of 64 reading the whole cache
+//   serially.  Here the grid is (B*KH, n_splits): each block takes the
+//   R = H/KH query rows that share a kv head over one chunk of T (planned
+//   on the host by decode_plan for ~2 blocks per SM, which measured
+//   faster than 4), reads K and V rows with 16-byte loads (D/8 threads a
+//   row, 4 rows in flight per thread), keeps the chunk's scores in
+//   shared memory, and writes an fp32 partial (max,
+//   denominator, accumulator) to a workspace; a second kernel merges the
+//   partials in split order (deterministic, no atomics) and stores o.
+// * fma (fp32 inputs, the smoke configs' head dims 8 and 16, and rows
+//   that are not 16-byte aligned): the first port's kernel, kept as the
+//   parity and smoke path.  128 threads, two per query row; each thread
+//   scores half of each 64-key tile and accumulates half of the output
+//   dims, with K and V staged in shared memory as fp32.  At D = 128 the q
+//   tile is staged in shared memory beside K and V (99 KB, dynamic), and
+//   the q . k loop is unrolled by 8, not fully, or the compiler hoists the
+//   q row back into registers (255 registers and spills).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -239,6 +255,495 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ mma ----
+
+constexpr int M_BQ = 64;          // query rows per block (16 per warp)
+constexpr int M_BKV = 64;         // keys per tile
+constexpr int M_THREADS = 128;
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (D + 8) * (M_BQ + 4 * M_BKV);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment layouts (mma.sync m16n8k16): lane = 4g + t4; accumulator c[e]
+// sits at row g + 8*(e/2), column 2*t4 + e%2 of its 16 x 8 block.
+template <int D>
+__global__ void __launch_bounds__(M_THREADS)
+flash_attention_mma(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int H, int KH, int S,
+                    int T_len, long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_ss, long long k_sh,
+                    long long v_sb, long long v_ss, long long v_sh,
+                    long long o_sb, long long o_ss, long long o_sh,
+                    float scale, int causal) {
+  constexpr int LDS = D + 8;      // padded row: ldmatrix without conflicts
+  constexpr int CH = D / 8;       // 16-byte chunks a row
+  constexpr int KD = D / 16;      // k16 steps of QK^T
+  constexpr int ND = D / 8;       // n8 blocks of the output
+  const float NEG_INF = -__int_as_float(0x7f800000);
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fa_smem);
+  __nv_bfloat16* Ks = Qs + M_BQ * LDS;          // [2][M_BKV][LDS]
+  __nv_bfloat16* Vs = Ks + 2 * M_BKV * LDS;     // [2][M_BKV][LDS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KH);
+  // causal: the last q tiles, which see the most keys, are started first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * M_BQ;
+  int n_kv = (T_len + M_BKV - 1) / M_BKV;
+  if (causal) n_kv = min(n_kv, (q0 + M_BQ + M_BKV - 1) / M_BKV);
+
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+  for (int i = tid; i < M_BQ * CH; i += M_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = q0 + r < S;
+    cp_async16(Qs + r * LDS + c,
+               qb + (ok ? (long long)(q0 + r) * q_ss : 0LL) + c, ok);
+  }
+  auto load_kv = [&](int tile, int buf) {
+    __nv_bfloat16* kd = Ks + buf * M_BKV * LDS;
+    __nv_bfloat16* vd = Vs + buf * M_BKV * LDS;
+    for (int i = tid; i < M_BKV * CH; i += M_THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const int j = tile * M_BKV + r;
+      const bool ok = j < T_len;
+      const long long jj = ok ? j : 0;
+      cp_async16(kd + r * LDS + c, kb + jj * k_ss + c, ok);
+      cp_async16(vd + r * LDS + c, vb + jj * v_ss + c, ok);
+    }
+  };
+  if (n_kv > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;          // rows row0 and row0 + 8
+
+  for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {
+      load_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+        ldmatrix_x4(qf[kd],
+                    Qs + (warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDS
+                        + kd * 16 + (lane / 16) * 8);
+    }
+    const __nv_bfloat16* Kt = Ks + (t & 1) * M_BKV * LDS;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * M_BKV * LDS;
+
+    // S = Q K^T: 16 x 64 for this warp, 8 blocks of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {    // keys 16np .. 16np + 15
+        uint32_t bf[4];
+        ldmatrix_x4(bf, Kt + (np * 16 + (lane % 8) + (lane / 16) * 8) * LDS
+                            + kd * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * np], qf[kd], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qf[kd], bf[2], bf[3]);
+      }
+    }
+
+    // online softmax over this tile, rows row0 (e < 2) and row0 + 8
+    const int k0 = t * M_BKV;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + nb * 8 + 2 * t4 + (e & 1);
+        const int qi = row0 + 8 * (e >> 1);
+        const bool ok = j < T_len && (!causal || j <= qi);
+        s[nb][e] = ok ? s[nb][e] * scale : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+      }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_i[i], mx[i]);
+      // m_new == -inf: nothing valid seen yet for this row -> keep zeros
+      corr[i] = (m_new == NEG_INF) ? 1.f : __expf(m_i[i] - m_new);
+      m_i[i] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (s[nb][e] == NEG_INF)
+                            ? 0.f : __expf(s[nb][e] - m_i[e >> 1]);
+        s[nb][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l_i[i] = l_i[i] * corr[i] + rs[i];
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= corr[e >> 1];
+
+    // O += P V: P (bf16) from registers as the A operand, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {   // output dims 16dp .. + 15
+        uint32_t bf[4];
+        ldmatrix_x4_trans(
+            bf, Vt + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDS
+                    + dp * 16 + (lane / 16) * 8);
+        mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();   // this buffer is refilled at the next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + 8 * i;
+    if (qi >= S) continue;
+    const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
+    __nv_bfloat16* op = o + b * o_sb + (long long)qi * o_ss + h * o_sh;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(op + nd * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[nd][2 * i] * inv,
+                                acc[nd][2 * i + 1] * inv);
+  }
+}
+
+// --------------------------------------------------------------- decode ----
+
+constexpr int D_THREADS = 128;
+constexpr int D_WARPS = D_THREADS / 32;
+constexpr int D_R_MAX = 8;        // query heads per kv head
+constexpr int D_CHUNK_MAX = 256;  // keys per block
+
+constexpr int D_U = 4;            // K or V rows in flight per thread
+
+// 8 bf16 (16 bytes) as floats
+__device__ __forceinline__ void unpack8(uint4 t, float (&v)[8]) {
+  const uint32_t u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// One block: kv head (b, kvh), keys [split*chunk, min(T, (split+1)*chunk)),
+// its R query rows.  Writes ws_ml[bh][split] = (max, denominator) and
+// ws_acc[bh][split][D] (unnormalised; p rounded to bf16 before PV).
+template <int D>
+__global__ void __launch_bounds__(D_THREADS)
+flash_attention_decode(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                       int H, int KH, int T_len, long long q_sb,
+                       long long q_sh, long long k_sb, long long k_ss,
+                       long long k_sh, long long v_sb, long long v_ss,
+                       long long v_sh, float scale, int chunk) {
+  constexpr int G = D / 8;             // threads a row, 8 dims each
+  constexpr int SLOTS = 32 / G;        // rows a warp reads at once
+  constexpr int STEP = D_WARPS * SLOTS;
+  const float NEG_INF = -__int_as_float(0x7f800000);
+  __shared__ float sc[D_R_MAX][D_CHUNK_MAX];
+  __shared__ float red[D_WARPS][D_R_MAX][D];
+  __shared__ float ml[D_R_MAX][2];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gi = lane % G, slot = lane / G;
+  const int R = H / KH;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int t0 = split * chunk, t1 = min(T_len, t0 + chunk);
+  const int n = t1 - t0;
+  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh + gi * 8;
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh + gi * 8;
+
+  float qv[D_R_MAX][8];
+#pragma unroll
+  for (int r = 0; r < D_R_MAX; ++r) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) qv[r][e] = 0.f;
+    if (r < R) {
+      unpack8(*reinterpret_cast<const uint4*>(
+                  q + b * q_sb + (long long)(kvh * R + r) * q_sh + gi * 8),
+              qv[r]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qv[r][e] *= scale;
+    }
+  }
+  // scores: one row per slot, D/8 lanes a row, reduced across those
+  // lanes; D_U rows per thread in flight (the loop runs alike on every
+  // lane of a warp: it shuffles)
+  for (int jb = warp * SLOTS; jb < n; jb += D_U * STEP) {
+    uint4 kr[D_U];
+#pragma unroll
+    for (int u = 0; u < D_U; ++u) {
+      const int j = jb + u * STEP + slot;
+      kr[u] = j < n ? *reinterpret_cast<const uint4*>(
+                          kb + (long long)(t0 + j) * k_ss)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < D_U; ++u) {
+      const int j = jb + u * STEP + slot;
+      float kv[8];
+      unpack8(kr[u], kv);
+#pragma unroll
+      for (int r = 0; r < D_R_MAX; ++r) {
+        if (r < R) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) d = fmaf(qv[r][e], kv[e], d);
+#pragma unroll
+          for (int off = 1; off < G; off <<= 1)
+            d += __shfl_xor_sync(0xffffffffu, d, off);
+          if (gi == 0 && j < n) sc[r][j] = d;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // per row: max, p = exp(s - max) summed in fp32 into the denominator,
+  // then kept rounded to bf16 for PV
+  for (int r = warp; r < R; r += D_WARPS) {
+    float mx = NEG_INF;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[r][j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float l = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float p = __expf(sc[r][j] - mx);
+      l += p;
+      sc[r][j] = __bfloat162float(__float2bfloat16(p));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      ml[r][0] = mx;
+      ml[r][1] = l;
+    }
+  }
+  __syncthreads();
+  float acc[D_R_MAX][8];
+#pragma unroll
+  for (int r = 0; r < D_R_MAX; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  for (int jb = warp * SLOTS; jb < n; jb += D_U * STEP) {
+    uint4 vr[D_U];
+#pragma unroll
+    for (int u = 0; u < D_U; ++u) {
+      const int j = jb + u * STEP + slot;
+      vr[u] = j < n ? *reinterpret_cast<const uint4*>(
+                          vb + (long long)(t0 + j) * v_ss)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < D_U; ++u) {
+      const int j = jb + u * STEP + slot;
+      if (j < n) {
+        float vv[8];
+        unpack8(vr[u], vv);
+#pragma unroll
+        for (int r = 0; r < D_R_MAX; ++r) {
+          if (r < R) {
+            const float p = sc[r][j];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < D_R_MAX; ++r) {
+    if (r < R) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+#pragma unroll
+        for (int off = G; off < 32; off <<= 1)
+          acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+        if (slot == 0) red[warp][r][gi * 8 + e] = acc[r][e];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < R * D; i += D_THREADS) {
+    const int r = i / D, d = i % D;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < D_WARPS; ++w) s += red[w][r][d];
+    const long long bh = (long long)b * H + kvh * R + r;
+    ws_acc[(bh * splits + split) * D + d] = s;
+  }
+  if (tid < R) {
+    const long long bh = (long long)b * H + kvh * R + tid;
+    ws_ml[(bh * splits + split) * 2] = ml[tid][0];
+    ws_ml[(bh * splits + split) * 2 + 1] = ml[tid][1];
+  }
+}
+
+// o[b, 0, h] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, in split
+// order; one block of D threads per (batch, head)
+template <int D>
+__global__ void __launch_bounds__(D)
+flash_attention_merge(const float* __restrict__ ws_acc,
+                      const float* __restrict__ ws_ml,
+                      __nv_bfloat16* __restrict__ o, int H, int splits,
+                      long long o_sb, long long o_sh) {
+  const int bh = blockIdx.x, d = threadIdx.x;
+  const float* ml = ws_ml + (size_t)bh * splits * 2;
+  // unrolled so that the partials' loads are in flight together
+  float mx = ml[0];
+#pragma unroll 8
+  for (int s = 1; s < splits; ++s) mx = fmaxf(mx, ml[2 * s]);
+  float l = 0.f, a = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) {
+    const float f = __expf(ml[2 * s] - mx);
+    l = fmaf(ml[2 * s + 1], f, l);
+    a = fmaf(ws_acc[((size_t)bh * splits + s) * D + d], f, a);
+  }
+  o[(bh / H) * o_sb + (bh % H) * o_sh + d] =
+      __float2bfloat16(a / fmaxf(l, 1e-30f));
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int KH, int S, int T_len, const long long* st,
+               float scale, int causal, cudaStream_t s) {
+  constexpr size_t bytes = mma_smem_bytes<D>();
+  if (bytes > 48 * 1024) {
+    // once per instantiation and process (the port drives one card)
+    static const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(B * H, (S + M_BQ - 1) / M_BQ);
+  flash_attention_mma<D><<<grid, M_THREADS, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      H, KH, S, T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], st[9], st[10], st[11], scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  float* ws, int B, int H, int KH, int T_len,
+                  const long long* st, float scale, int splits, int chunk,
+                  cudaStream_t s) {
+  float* ws_acc = ws;
+  float* ws_ml = ws + (size_t)B * H * splits * D;
+  flash_attention_decode<D><<<dim3(B * KH, splits), D_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), ws_acc, ws_ml, H, KH, T_len,
+      st[0], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_merge<D><<<B * H, D, 0, s>>>(
+      ws_acc, ws_ml, static_cast<__nv_bfloat16*>(o), H, splits, st[9],
+      st[11]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
@@ -256,5 +761,46 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(q, k, v, o, B, H, KH, S, T_len, D, strides, scale,
                          causal, s);
+  return -1;
+}
+
+// The mma variant (bf16, D = 64 or 128; strides as above, 16-byte-aligned
+// rows).  Returns as above; -1 for an unsupported D.
+extern "C" int repro_flash_attention_mma(const void* q, const void* k,
+                                         const void* v, void* o, int B,
+                                         int H, int KH, int S, int T_len,
+                                         int D, const long long* strides,
+                                         float scale, int causal,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_mma<64>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
+                          causal, s);
+  if (D == 128)
+    return launch_mma<128>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
+                           causal, s);
+  return -1;
+}
+
+// The decode variant (bf16, S = 1, D = 64 or 128, H / KH <= 8): T_len
+// keys (1 <= T_len; the caller folds a causal mask into it) in `splits`
+// chunks of `chunk` <= 256 keys; `ws` an fp32 workspace of
+// B*H*splits*(D + 2).  Returns as above; -1 for an unsupported shape.
+extern "C" int repro_flash_attention_decode(const void* q, const void* k,
+                                            const void* v, void* o, void* ws,
+                                            int B, int H, int KH, int T_len,
+                                            int D, const long long* strides,
+                                            float scale, int splits,
+                                            int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk > D_CHUNK_MAX || H / KH > D_R_MAX || splits < 1 || T_len < 1)
+    return -1;
+  float* w = static_cast<float*>(ws);
+  if (D == 64)
+    return launch_decode<64>(q, k, v, o, w, B, H, KH, T_len, strides, scale,
+                             splits, chunk, s);
+  if (D == 128)
+    return launch_decode<128>(q, k, v, o, w, B, H, KH, T_len, strides, scale,
+                              splits, chunk, s);
   return -1;
 }

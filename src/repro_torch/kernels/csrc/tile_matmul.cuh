@@ -1,5 +1,7 @@
-// One 64x64 output tile of a masked matrix product, shared by K1
-// (elastic_matmul.cu) and K3 (expert_matmul.cu).
+// One 64x64 output tile of a masked matrix product: the tile loop of K3
+// (expert_matmul.cu) and of K1's tile variant (elastic_matmul.cu), which
+// takes the K1 calls that neither small_m nor the TMA GEMM takes -- fp32
+// at M > 16 and bf16 whose bases or row strides TMA cannot read.
 //
 //     y[m, n] = sum_{k < k_len} x[m, k] * w[k, n]  for m < m_valid, n < n_valid
 //     y[m, n] = 0                                  for m_valid <= m < m_out or
@@ -12,7 +14,7 @@
 // cores through WMMA (mma.sync) with fp32 accumulators: 128 threads, each
 // warp one 32x32 quadrant, K in steps of 32 staged through shared memory.
 // fp32 runs on FMAs: 256 threads, each a 4x4 micro-tile, K in steps of 16.
-// No pipelining: wgmma/TMA is later work.
+// No pipelining: a wgmma/TMA loop for K3 is the next redesign.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -3,15 +3,22 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/elastic_matmul.py:
 elastic_matmul``.  ``y[m, n] = sum_{k<k_act} x[m, k] w[k, n]`` for
 ``n < n_act`` and exact zeros for ``n_act <= n < n_out``, accumulated in
-fp32, for bf16 or fp32 inputs.  The kernel (``csrc/elastic_matmul.cu``)
-reads the widths from a device int32[2] (the counterpart of scalar
+fp32, for bf16 or fp32 inputs.  The kernels (``csrc/elastic_matmul.cu``)
+read the widths from a device int32[2] (the counterpart of scalar
 prefetch) and the active block of the FULL resident weight through its row
-stride, so no call copies ``w[:k_act, :n_act]``.  Its source note says what
-bounds it on the H100 and what the design does about that.
+stride, so no call copies ``w[:k_act, :n_act]``.
 
-``elastic_matmul`` launches the kernel on CUDA tensors and raises on
+Three variants, chosen by :func:`choose_variant` from the call's shape,
+dtype and strides: ``small_m`` (M <= 16: a weight-streaming split-K
+kernel, bf16 and fp32), ``tma`` (bf16 at larger M: a wgmma GEMM fed by
+TMA) and ``tile`` (the first port's 64x64 tile loop, counted as
+``tile_bf16`` or ``tile_f32``: fp32 at larger M, and bf16 whose bases or
+row strides TMA cannot take).  The source note says what bounds each on
+the H100 and what its design does about it.
+
+``elastic_matmul`` launches a kernel on CUDA tensors and raises on
 anything it does not take; ``elastic_matmul_plain`` is the same function in
-plain PyTorch, used for CPU tensors and to hold the kernel against.
+plain PyTorch, used for CPU tensors and to hold the kernels against.
 """
 from __future__ import annotations
 
@@ -21,19 +28,84 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches since the last reset (the wrapper adds one per launch)
+# kernel launches since the last reset (the wrapper adds one per launch),
+# in all and by variant
 launches = 0
+VARIANTS = ("small_m", "tma", "tile_bf16", "tile_f32")
+variant_launches = dict.fromkeys(VARIANTS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132               # streaming multiprocessors of an H100 SXM
+SMALL_M_MAX = 16        # rows the small_m kernel takes (its register tile)
+SMALL_M_BN = 64         # its output columns per block
+SMALL_M_KC_MAX = 512    # its rows of x staged in shared memory
+SMALL_M_KC_MIN = 256    # fewest weight rows worth a block of their own
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "repro_elastic_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    "repro_elastic_matmul_small_m": [_P] * 5 + [_I] * 10 + [_P],
+    "repro_elastic_matmul_tma": [_P] * 4 + [_I] * 9 + [_P],
+}
 
 
-def _launcher():
-    fn = build.library("elastic_matmul").repro_elastic_matmul
+def _launcher(name: str):
+    fn = getattr(build.library("elastic_matmul"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def choose_variant(M: int, k_act: int, n_act: int, dtype: torch.dtype,
+                   ldx: int, ldw: int, aligned: bool) -> str:
+    """The kernel a call goes to.  ``ldx``/``ldw`` are the row strides in
+    elements, ``aligned`` whether x's and w's bases are 16-byte aligned
+    (TMA needs both, and row strides that are multiples of 16 bytes)."""
+    if M <= SMALL_M_MAX:
+        return "small_m"
+    if dtype != torch.bfloat16:
+        return "tile_f32"
+    if aligned and ldx % 8 == 0 and ldw % 8 == 0 and k_act >= 1 \
+            and n_act >= 1:
+        return "tma"
+    return "tile_bf16"
+
+
+def tma_tile(M: int, n_act: int, sms: int = SMS) -> tuple:
+    """(consumer warpgroups, tile width) of the tma variant.  128x256 when
+    its live tiles fill at least 3/4 of the SMs' waves (a last wave that
+    is mostly idle costs a whole tile's time: N = 2816 at M = 2048 takes
+    1.33 waves of it); else 128x128 when it gives about one block per SM
+    (7/8 of the SMs or more); else 64x128, which spreads small products
+    (the ViT's N = 384 layers) over more SMs."""
+    tiles = _cdiv(M, 128) * _cdiv(n_act, 256)
+    if tiles >= sms * 7 // 8 and 4 * tiles >= 3 * sms * _cdiv(tiles, sms):
+        return 2, 256
+    if _cdiv(M, 128) * _cdiv(n_act, 128) >= sms * 7 // 8:
+        return 2, 128
+    return 1, 128
+
+
+def small_m_plan(k_act: int, n_act: int, elem_bytes: int,
+                 sms: int = SMS) -> tuple:
+    """(splits, rows per split) of the small_m kernel's K: enough blocks
+    for ~4 per SM over the ``cdiv(n_act, 64)`` column tiles, no split
+    under 256 rows, none over the 512 rows of x a block stages; rows per
+    split a multiple of the rows a block reads at once."""
+    # 256 threads, 16 bytes each, 64 columns a row
+    rows_at_once = 256 // (SMALL_M_BN // (16 // elem_bytes))
+    if k_act <= 0 or n_act <= 0:
+        return 1, rows_at_once
+    n_tiles = _cdiv(n_act, SMALL_M_BN)
+    splits = min(_cdiv(4 * sms, n_tiles), max(1, k_act // SMALL_M_KC_MIN))
+    kc = _cdiv(_cdiv(k_act, splits), rows_at_once) * rows_at_once
+    kc = min(kc, SMALL_M_KC_MAX)
+    return _cdiv(k_act, kc), kc
 
 
 def _row_stride(t: torch.Tensor) -> int:
@@ -80,13 +152,35 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
     y = torch.empty((M, n_out), dtype=x.dtype, device=dev)
     if M == 0 or n_out == 0:
         return y
-    rc = _launcher()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                     widths.data_ptr(), M, _row_stride(x), _row_stride(w),
-                     n_out, n_out, DTYPE_CODES[x.dtype],
-                     torch.cuda.current_stream(dev).cuda_stream)
+    ldx, ldw = _row_stride(x), _row_stride(w)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    variant = choose_variant(M, k_act, n_act, x.dtype, ldx, ldw, aligned)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = DTYPE_CODES[x.dtype]
+    if variant == "small_m":
+        splits, kc = small_m_plan(k_act, n_act, x.element_size())
+        ws = None if splits == 1 else torch.empty(
+            (splits, M, n_act), dtype=torch.float32, device=dev)
+        vec_ok = w.data_ptr() % 16 == 0 \
+            and ldw % (16 // x.element_size()) == 0
+        rc = _launcher("repro_elastic_matmul_small_m")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), widths.data_ptr(), M, ldx,
+            ldw, n_out, n_out, n_act, splits, kc, int(vec_ok), code, stream)
+    elif variant == "tma":
+        rc = _launcher("repro_elastic_matmul_tma")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), widths.data_ptr(), M,
+            ldx, ldw, n_out, n_out, k_act, n_act, *tma_tile(M, n_act),
+            stream)
+    else:
+        rc = _launcher("repro_elastic_matmul")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), widths.data_ptr(), M,
+            ldx, ldw, n_out, n_out, code, stream)
     if rc != 0:
-        raise RuntimeError(f"elastic_matmul launch failed (CUDA error {rc})")
+        raise RuntimeError(f"elastic_matmul ({variant}) launch failed "
+                           f"(CUDA error {rc})")
     launches += 1
+    variant_launches[variant] += 1
     return y
 
 

@@ -6,8 +6,16 @@ denominator and accumulator in fp32, causal or not.  The kernel
 (``csrc/flash_attention.cu``) masks keys at positions >= T (the reference
 wrapper's zero-padded keys enter the softmax: fault F1 in ROADMAP.md),
 picks the kv head as ``h // (H // KH)`` (no repeated k/v copy) and reads
-and writes through (batch, seq, head) strides.  Its source note says what
-bounds it on the H100 and what the design does about that.
+and writes through (batch, seq, head) strides.
+
+Three variants, chosen by :func:`choose_variant`: ``mma`` (bf16 at head
+dims 64 and 128: a tensor-core flash kernel on mma.sync), ``decode``
+(the same at S = 1: split over T, partials merged by a second kernel, the
+split planned by :func:`decode_plan`) and ``fma`` (the first port's fp32
+FMA kernel, counted as ``fma_bf16`` or ``fma_f32``: fp32 inputs, the smoke
+configs' head dims 8 and 16, and rows that are not 16-byte aligned).  The
+source note says what bounds each on the H100 and what its design does
+about it.
 
 Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
 ``flash_attention`` launches the kernel on CUDA tensors;
@@ -23,21 +31,73 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-# kernel launches since the last reset (the wrapper adds one per launch)
+# kernel launches since the last reset (the wrapper adds one per launch),
+# in all and by variant
 launches = 0
+VARIANTS = ("mma", "decode", "fma_bf16", "fma_f32")
+variant_launches = dict.fromkeys(VARIANTS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 64, 128)  # ViTs (64), their smoke configs, LMs (128)
+MMA_HEAD_DIMS = (64, 128)
+SMS = 132                     # streaming multiprocessors of an H100 SXM
+DECODE_R_MAX = 8              # query heads per kv head the decode kernel takes
+DECODE_CHUNK_MAX = 256        # keys per decode block (its shared scores)
+DECODE_CHUNK_MIN = 32         # fewest keys worth a block of their own
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_ARGTYPES = {
+    "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I, _I,
+                                                    _P],
+    "repro_flash_attention_mma": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I,
+                                                        _P],
+    "repro_flash_attention_decode": [_P] * 5 + [_I] * 5 + [_STRIDES, _F, _I,
+                                                           _I, _P],
+}
 
 
-def _launcher():
-    fn = build.library("flash_attention").repro_flash_attention
+def _launcher(name: str):
+    fn = getattr(build.library("flash_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def choose_variant(S: int, T: int, H: int, KH: int, D: int,
+                   dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel a call goes to.  ``T`` counts the keys a query may see
+    (at S = 1 and causal, at most one); ``aligned`` whether every q/k/v
+    base and (batch, seq, head) stride is a multiple of 16 bytes."""
+    if dtype != torch.bfloat16:
+        return "fma_f32"
+    if D not in MMA_HEAD_DIMS or not aligned:
+        return "fma_bf16"
+    if S == 1 and T >= 1 and H // KH <= DECODE_R_MAX:
+        return "decode"
+    return "mma"
+
+
+def decode_plan(T: int, bkh: int, sms: int = SMS) -> tuple:
+    """(splits, keys per split) of the decode kernel over ``bkh`` = B*KH
+    blocks a split: ~2 blocks per SM, no split under 32 keys, none over
+    the 256 keys whose scores a block keeps in shared memory."""
+    splits = min(_cdiv(2 * sms, bkh), _cdiv(T, DECODE_CHUNK_MIN))
+    splits = max(splits, _cdiv(T, DECODE_CHUNK_MAX), 1)
+    chunk = _cdiv(T, splits)
+    return _cdiv(T, chunk), chunk
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    # a size-1 dim may carry any stride; the kernels never step it
+    return all(t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+        for t in ts)
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -77,13 +137,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     B, H, KH, S, T, D, strides, 1.0 / math.sqrt(D),
-                     int(causal), DTYPE_CODES[q.dtype],
-                     torch.cuda.current_stream(dev).cuda_stream)
+    T_seen = min(T, 1) if causal and S == 1 else T
+    variant = choose_variant(S, T_seen, H, KH, D, q.dtype,
+                             _aligned(q, k, v))
+    scale = 1.0 / math.sqrt(D)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if variant == "decode":
+        splits, chunk = decode_plan(T_seen, B * KH)
+        ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                         device=dev)
+        rc = _launcher("repro_flash_attention_decode")(
+            *ptrs, ws.data_ptr(), B, H, KH, T_seen, D, strides, scale,
+            splits, chunk, stream)
+    elif variant == "mma":
+        rc = _launcher("repro_flash_attention_mma")(
+            *ptrs, B, H, KH, S, T, D, strides, scale, int(causal), stream)
+    else:
+        rc = _launcher("repro_flash_attention")(
+            *ptrs, B, H, KH, S, T, D, strides, scale, int(causal),
+            DTYPE_CODES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed (CUDA error {rc})")
+        raise RuntimeError(f"flash_attention ({variant}) launch failed "
+                           f"(CUDA error {rc})")
     launches += 1
+    variant_launches[variant] += 1
     return o
 
 

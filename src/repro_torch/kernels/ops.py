@@ -53,6 +53,20 @@ def launch_counts() -> Dict[str, int]:
             "expert_matmul": _xm.launches}
 
 
+def variant_counts() -> Dict[str, Dict[str, int]]:
+    """Launches so far of the kernels that have variants, by variant."""
+    return {"elastic_matmul": dict(_em.variant_launches),
+            "flash_attention": dict(_fa.variant_launches)}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count, and each variant's, to 0."""
+    for mod in (_em, _fa, _xm):
+        mod.launches = 0
+    for mod in (_em, _fa):
+        mod.variant_launches.update(dict.fromkeys(mod.variant_launches, 0))
+
+
 def widths_tensor(device: torch.device, k_act: int, n_act: int
                   ) -> torch.Tensor:
     """The device int32 [k_act, n_act] the kernel reads, cached per width

@@ -161,6 +161,99 @@ def test_flash_attention_rejects_bad_args():
         ops.flash_attention_op(q, q.double(), q.double())
 
 
+# --- variant choice and split plans (plain Python, as the wrappers run it) ---
+
+@pytest.mark.parametrize("M,k_act,n_act,dtype,ldx,ldw,aligned,want", [
+    (1, 2048, 2048, torch.bfloat16, 2048, 2048, True, "small_m"),
+    (4, 2048, 102400, torch.bfloat16, 2048, 102400, True, "small_m"),
+    (16, 129, 255, torch.bfloat16, 129, 384, False, "small_m"),
+    (4, 2048, 64, torch.float32, 2048, 64, True, "small_m"),
+    (17, 384, 384, torch.bfloat16, 384, 384, True, "tma"),
+    (1576, 288, 1152, torch.bfloat16, 288, 1536, True, "tma"),
+    (2048, 10944, 2048, torch.bfloat16, 10944, 2048, True, "tma"),
+    (2048, 129, 255, torch.bfloat16, 129, 384, True, "tile_bf16"),
+    (2048, 128, 256, torch.bfloat16, 128, 388, True, "tile_bf16"),
+    (2048, 128, 256, torch.bfloat16, 128, 384, False, "tile_bf16"),
+    (2048, 0, 256, torch.bfloat16, 128, 384, True, "tile_bf16"),
+    (2048, 2048, 64, torch.float32, 2048, 64, True, "tile_f32"),
+])
+def test_elastic_matmul_variant_choice(M, k_act, n_act, dtype, ldx, ldw,
+                                       aligned, want):
+    assert em.choose_variant(M, k_act, n_act, dtype, ldx, ldw,
+                             aligned) == want
+
+
+@pytest.mark.parametrize("M,n_act,want", [
+    (2048, 2048, (2, 256)),        # LM prefill: 128 tiles of 128 x 256
+    (2048, 102400, (2, 256)),      # lm_head
+    (2048, 10944, (2, 256)),       # 688 tiles: 87% of 6 waves
+    (2048, 2816, (2, 128)),        # 176 of 264 wave slots: too idle
+    (1576, 1536, (2, 128)),        # ViT wi at bucket 8: 156 tiles
+    (2048, 1536, (2, 128)),
+    (1576, 384, (1, 128)),         # ViT q/k/v/o: 75 tiles of 64 x 128
+    (17, 1536, (1, 128)),
+])
+def test_tma_tile(M, n_act, want):
+    assert em.tma_tile(M, n_act) == want
+
+
+@pytest.mark.parametrize("k_act,n_act,elem,want", [
+    (2048, 2048, 2, (8, 256)),        # decode q/k/v/o: 256 blocks
+    (2048, 102400, 2, (4, 512)),      # lm_head: x staging caps a split
+    (10944, 2048, 2, (22, 512)),      # dense wo
+    (2816, 2048, 2, (11, 256)),       # shared experts' down product
+    (384, 1000, 2, (1, 384)),         # ViT head: one split, no reduce
+    (2048, 64, 4, (8, 256)),          # fp32 router: 16 rows at once
+    (129, 255, 4, (1, 144)),
+    (1, 1, 2, (1, 32)),
+    (0, 5, 2, (1, 32)),
+])
+def test_small_m_plan(k_act, n_act, elem, want):
+    splits, kc = em.small_m_plan(k_act, n_act, elem)
+    assert (splits, kc) == want
+    assert kc <= em.SMALL_M_KC_MAX and splits * kc >= k_act
+    assert (splits - 1) * kc < max(k_act, 1)      # no empty split
+
+
+@pytest.mark.parametrize("S,T,H,KH,D,dtype,aligned,want", [
+    (1, 528, 16, 16, 128, torch.bfloat16, True, "decode"),
+    (1, 1, 16, 8, 64, torch.bfloat16, True, "decode"),
+    (1, 0, 16, 16, 128, torch.bfloat16, True, "mma"),    # nothing to see
+    (1, 528, 32, 2, 128, torch.bfloat16, True, "mma"),   # R = 16 > 8
+    (512, 512, 16, 16, 128, torch.bfloat16, True, "mma"),
+    (197, 197, 6, 6, 64, torch.bfloat16, True, "mma"),
+    (197, 197, 6, 6, 64, torch.bfloat16, False, "fma_bf16"),
+    (17, 17, 4, 4, 16, torch.bfloat16, True, "fma_bf16"),
+    (1, 528, 16, 16, 128, torch.float32, True, "fma_f32"),
+    (197, 197, 6, 6, 64, torch.float32, True, "fma_f32"),
+])
+def test_flash_attention_variant_choice(S, T, H, KH, D, dtype, aligned,
+                                        want):
+    assert fa.choose_variant(S, T, H, KH, D, dtype, aligned) == want
+
+
+@pytest.mark.parametrize("T,bkh,want", [
+    (528, 64, (5, 106)), (513, 64, (5, 103)), (1, 64, (1, 1)),
+    (63, 16, (2, 32)), (65, 16, (3, 22)), (300, 16, (10, 30)),
+    (4096, 1, (128, 32)), (40, 264, (1, 40)),
+])
+def test_decode_plan(T, bkh, want):
+    splits, chunk = fa.decode_plan(T, bkh)
+    assert (splits, chunk) == want
+    assert chunk <= fa.DECODE_CHUNK_MAX and (splits - 1) * chunk < T \
+        <= splits * chunk
+
+
+def test_attention_alignment_ignores_size_one_dims():
+    q = torch.zeros(2, 1, 16, 128, dtype=torch.bfloat16)
+    assert fa._aligned(q, q[:, :, :8], q.as_strided((2, 1, 4, 8),
+                                                     (2048, 3, 128, 1)))
+    rows68 = torch.zeros(2, 5, 3, 68, dtype=torch.bfloat16)[..., :64]
+    assert not fa._aligned(rows68)                 # head stride 68
+    shifted = torch.zeros(4100, dtype=torch.bfloat16)[4:].view(2, 1, 16, 128)
+    assert not fa._aligned(q, shifted)             # base off by 8 bytes
+
+
 # --- build and routing (no nvcc here) -----------------------------------------
 
 def test_build_command_targets_hopper():
@@ -172,6 +265,17 @@ def test_build_command_targets_hopper():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).parent == build.BUILD_DIR
+
+
+def test_every_launcher_is_exported_by_its_source():
+    """The C entry points the wrappers bind are defined in the sources the
+    build compiles (no nvcc here: the symbols are checked as text)."""
+    for name, mod in (("elastic_matmul", em), ("flash_attention", fa)):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for fn in mod._ARGTYPES:
+            assert f'extern "C" int {fn}(' in text, fn
+    assert '#include "tile_matmul.cuh"' in (
+        build.CSRC / "elastic_matmul.cu").read_text()
 
 
 def test_library_name_tracks_shared_headers(tmp_path, monkeypatch):
@@ -198,40 +302,55 @@ def test_plain_kernels_context_is_thread_local_and_restores():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_elastic_matmul_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 197, 1576, 2048])
+def test_cuda_elastic_matmul_matches_plain(cuda, dtype, M):
+    """Every variant (small_m to M = 16, tma above in bf16, tile in fp32
+    and for x of width 129), in the TPU op's shape and in sliced mode
+    with k_act not a multiple of 64."""
     g = torch.Generator().manual_seed(0)
     dt = getattr(torch, dtype)
-    x = torch.randn(1576, 384, generator=g).to(cuda, dt)
+    x = torch.randn(M, 384, generator=g).to(cuda, dt)
     w = (torch.randn(384, 1536, generator=g) / 384 ** 0.5).to(cuda, dt)
     before = em.launches
-    for ka, na, n_out in [(384, 1536, 1536), (288, 1152, 1536),
-                          (192, 1000, 1000), (129, 255, 1536)]:
-        y = ops.elastic_matmul_op(x, w, ka, na, n_out=n_out)
+    cases = [(x, 384, 1536, 1536), (x, 288, 1152, 1536),
+             (x, 192, 1000, 1000), (x, 129, 255, 1536),
+             (x[:, :200].contiguous(), 200, 1000, 1000),
+             (x[:, :129].contiguous(), 129, 255, 255)]
+    for xx, ka, na, n_out in cases:
+        y = ops.elastic_matmul_op(xx, w, ka, na, n_out=n_out)
         with ops.plain_kernels():
-            y_plain = ops.elastic_matmul_op(x, w, ka, na, n_out=n_out)
+            y_plain = ops.elastic_matmul_op(xx, w, ka, na, n_out=n_out)
         torch.cuda.synchronize()
         tol = TOL[dtype]
         torch.testing.assert_close(y.float(), y_plain.float(), rtol=tol,
                                    atol=tol)
         assert torch.all(y[:, na:] == 0)
-    assert em.launches == before + 4
+    assert em.launches == before + len(cases)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S,H,KH,D", [(197, 6, 6, 64), (197, 6, 3, 64),
-                                      (17, 4, 4, 16), (18, 4, 4, 8)])
-def test_cuda_flash_attention_matches_plain(cuda, causal, S, H, KH, D):
+                                      (577, 4, 4, 64), (17, 4, 4, 16),
+                                      (18, 4, 4, 8)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, S, H, KH,
+                                            D):
+    """fp32 on the fma variant; bf16 on mma at D = 64 (including the
+    ragged T = 577) and on fma at the smoke head dims."""
     g = torch.Generator().manual_seed(1)
-    q = (torch.randn(8, S, H, D, generator=g) * 0.3).to(cuda)
-    k = (torch.randn(8, S, KH, D, generator=g) * 0.3).to(cuda)
-    v = torch.randn(8, S, KH, D, generator=g).to(cuda)
+    dt = getattr(torch, dtype)
+    tol = 3e-3 if dtype == "float32" else 3e-2
+    q = (torch.randn(8, S, H, D, generator=g) * 0.3).to(cuda, dt)
+    k = (torch.randn(8, S, KH, D, generator=g) * 0.3).to(cuda, dt)
+    v = torch.randn(8, S, KH, D, generator=g).to(cuda, dt)
     before = fa.launches
     o = ops.flash_attention_op(q, k, v, causal=causal)
     with ops.plain_kernels():
         o_plain = ops.flash_attention_op(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    torch.testing.assert_close(o, o_plain, rtol=3e-3, atol=3e-3)
+    torch.testing.assert_close(o.float(), o_plain.float(), rtol=tol,
+                               atol=tol)
     assert fa.launches == before + 1
 
 
@@ -278,8 +397,11 @@ def test_cuda_flash_attention_head_dim_128(cuda, dtype):
     cases = [(q, k, v, True)]
     cache_k = (torch.randn(2, 528, 16, 128, generator=g) * 0.3).to(cuda, dt)
     cache_v = torch.randn(2, 528, 16, 128, generator=g).to(cuda, dt)
-    for T in (1, 300, 528):
+    for T in (1, 63, 64, 65, 300, 528):
         cases.append((q[:, :1], cache_k[:, :T], cache_v[:, :T], False))
+        # GQA R = 2: 16 query heads over the cache's first 8 kv heads
+        cases.append((q[:, :1], cache_k[:, :T, :8], cache_v[:, :T, :8],
+                      False))
     for qq, kk, vv, causal in cases:
         o = ops.flash_attention_op(qq, kk, vv, causal=causal)
         with ops.plain_kernels():
