@@ -43,7 +43,10 @@ the LM slice (deepseek-moe-16b at full width):
    expert widths 1408/1056/704 read as strided views of the full weight,
    up and down products, ragged counts (0, a partial tile, the full C) at
    prefill's C = 240 and decode's C = 4, fp32 and bf16, exact zeros past
-   each count;
+   each count; and across its variants (stream, tma, tile): C = 16 and
+   17 around the stream boundary, E = 1, all counts 0 and all C, NaN in
+   x past every count, and the dense oracle's stride-0 expert axis (tile
+   at C > 16);
 9. K2 at head dim 128 against its plain version: causal prefill
    S = T = 512, and decode S = 1 against T = 1, 300 and 528 taken as
    strided slices of a 528-slot cache;
@@ -59,20 +62,26 @@ the LM slice (deepseek-moe-16b at full width):
     16 teacher-forced ``lm_decode`` steps against a 528-slot cache at the
     points the reference can decode; every output finite, all three
     kernels' launch counters rising in prefill and in decode, no bf16 call
-    on the old K1 tile or K2 FMA kernel, one decode step's logits of the
-    kernel path against the plain path (as it runs and with the plain
-    path's routing replayed), peak device memory;
+    on the old K1 tile, K2 FMA or K3 tile kernel, every K3 call on tma in
+    prefill and on stream in decode (counted by stage in this run), one
+    decode step's logits of the kernel path against the plain path (as it
+    runs and with the plain path's routing replayed), peak device memory;
 12. K1, K2 and K3 against their plain versions at the main path's own
     calls: every distinct call (shapes, strides, widths) of a prefill and
     one decode step at each operating point, on its recorded inputs in
     bf16 (fp32 for the routers) and again cast to fp32, exact zeros past
-    each K3 count; and the capacity drops of each point (kept slots of
-    the routed ones, rows per live expert);
+    each K3 count; every bf16 K3 call on tma in prefill and on stream in
+    decode; and the capacity drops of each point (kept slots of the
+    routed ones, rows per live expert);
 13. phase 7 for the LM slice: K1, K2 and K3 over the recorded calls of
     one prefill forward and of one decode step, each beside its plain
     version, its library yardstick (``torch.matmul`` on the sliced
     weight; ``F.scaled_dot_product_attention``; ``torch.bmm`` over the
-    same slabs), the parent's kernel (given) and its bound.
+    same slabs), the parent's kernel (given) and its bound; the host's
+    time to issue each row's launches (kernel and parent); K1's and K3's
+    rows broken down by call shape and variant;
+14. with ``--parent-csrc`` only: the full point's prefill and decode step
+    as wall time, on this tree's kernels and on the parent's, in turns.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -87,6 +96,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -108,6 +118,7 @@ LM_LOGITS_FP32_TOL = 1e-3
 # path: what is left is bf16 rounding (a few ulps of logits below ~6)
 LM_LOGITS_BF16_PINNED_TOL = 0.125
 LM_BATCH, PREFILL_LEN, DECODE_STEPS = 4, 512, 16
+E2E_ROUNDS = 4       # phase 14: rounds of parent, kernel, kernel, parent
 
 
 def log(msg: str) -> None:
@@ -142,6 +153,22 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_time_ms(fn, iters: int = 3) -> float:
+    """Host time to issue fn()'s launches (the loop's wall time up to its
+    last launch, with no wait for the card): the launch cost the eager
+    path pays on the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / iters * 1e3
 
 
 def profiler_time_ms(fn, iters: int = 3) -> float:
@@ -258,19 +285,36 @@ def k2_library(q, k, v, causal=True):
         is_causal=causal, enable_gqa=k.shape[2] != q.shape[2])
 
 
+# the first port's kernels, which no bf16 main-path call may take
+OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
+            ("expert_matmul", "tile_bf16")}
+
+
 def main_path_variants(counts: dict, need: set) -> None:
     """Raise unless a main path's bf16 calls all went through the new
-    variants: no launch of the old K1 tile or K2 FMA kernel in bf16, and
-    every variant in ``need`` launched."""
-    flat = {v: n for per in counts.values() for v, n in per.items()}
-    old = {v: flat[v] for v in ("tile_bf16", "fma_bf16") if flat[v]}
+    variants: no launch of the old K1 tile, K2 FMA or K3 tile kernel in
+    bf16, and every (kernel, variant) in ``need`` launched.  ``counts``
+    is ``ops.variant_counts()``: variants by kernel."""
+    flat = {(k, v): n for k, per in counts.items() for v, n in per.items()}
+    old = {kv: flat[kv] for kv in sorted(OLD_BF16) if flat.get(kv)}
     if old:
         raise AssertionError(f"bf16 main-path calls took the old kernels: "
                              f"{old}")
-    idle = sorted(v for v in need if not flat[v])
+    idle = sorted(kv for kv in need if not flat.get(kv))
     if idle:
         raise AssertionError(f"variants never launched on the main path: "
                              f"{idle}")
+
+
+def k3_on_stage(by_stage: dict) -> None:
+    """Raise unless K3's bf16 main-path calls took tma in prefill and
+    stream in decode, and nothing else: ``by_stage`` is {"prefill",
+    "decode"} -> launches by variant."""
+    for kind, want in (("prefill", "tma"), ("decode", "stream")):
+        other = {v: n for v, n in by_stage[kind].items() if n and v != want}
+        if other or not by_stage[kind][want]:
+            raise AssertionError(f"K3 bf16 {kind} calls took {other} "
+                                 f"besides {want}")
 
 
 def k1_group(args, kw) -> str:
@@ -291,13 +335,33 @@ def k1_group(args, kw) -> str:
     return f"M={M} k={k_act} n={n_act} {dt} {variant}"
 
 
+def k3_group(args, kw) -> str:
+    """A K3 call's shape and the variant it takes, for the breakdown."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    x, w, _ = args
+    E, C, K = x.shape
+    variant = xm.variant_of(x, w)
+    if variant == "tma":
+        variant += " {}x{}".format(*xm.TMA_TILE)
+    elif variant == "stream":
+        variant += " {}x{}".format(*xm.stream_plan(E, C, K, w.shape[2],
+                                                   x.element_size()))
+    dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    return f"E={E} C={C} K={K} F={w.shape[2]} {dt} {variant}"
+
+
 def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
               work, parent=None, group=None) -> dict:
     """Time one row -- the recorded calls of a forward or a step -- as
     graph-replayed device time for the kernel, its plain version, the
     library yardstick and (given) the parent commit's kernel, in turns
-    parent, kernel, kernel, parent; and as the eager loop the eager path
-    pays.  The bound sums each call's bound at the data-sheet peaks."""
+    parent, kernel, kernel, parent; as the eager loop the eager path pays;
+    and as the host's time to issue the loop (kernel and parent).
+    ``parent`` is (op, libs): the parent's op, to be called inside
+    ``libs()``.  The bound sums each call's bound at the data-sheet
+    peaks."""
     import torch
     bound, b_sum, o_sum = 0.0, 0.0, 0.0
     for args, kw in calls:
@@ -313,6 +377,7 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
         return go
 
     hows = set()
+    p_fn, p_libs = parent or (None, contextlib.nullcontext)
 
     def timed(fn):
         ms, how = graph_time_ms(run(fn))
@@ -322,26 +387,42 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
         ts_parent, ts_kernel = [], []
         for who in (("parent", "kernel", "kernel", "parent") if parent
                     else ("kernel",)):
-            (ts_parent if who == "parent" else ts_kernel).append(
-                timed(parent if who == "parent" else kern))
+            if who == "parent":
+                with p_libs():
+                    ts_parent.append(timed(p_fn))
+            else:
+                ts_kernel.append(timed(kern))
         t_p, t_l = timed(plain), timed(lib)
         e_k = cuda_time_ms(run(kern), iters=3, warmup=1)
         e_l = cuda_time_ms(run(lib), iters=3, warmup=1)
+        h_k = host_time_ms(run(kern))
+        if parent:
+            with p_libs():
+                e_p = cuda_time_ms(run(p_fn), iters=3, warmup=1)
+                h_p = host_time_ms(run(p_fn))
     t_k = sum(ts_kernel) / len(ts_kernel)
     row = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
            "bound_by": by, "calls": len(calls), "eager_ms": e_k,
-           "eager_library_ms": e_l, "timing": "/".join(sorted(hows))}
+           "eager_library_ms": e_l, "host_ms": h_k,
+           "timing": "/".join(sorted(hows))}
     line = (f"  {label} x{len(calls)} calls, device time ({row['timing']}):"
             f" kernel {t_k:.4f} ms")
     if parent:
-        row["parent_ms"] = sum(ts_parent) / len(ts_parent)
+        row.update(parent_ms=sum(ts_parent) / len(ts_parent),
+                   eager_parent_ms=e_p, host_parent_ms=h_p)
         line += (f" (runs {', '.join(f'{t:.4f}' for t in ts_kernel)}), "
                  f"parent {row['parent_ms']:.4f} ms (runs "
                  f"{', '.join(f'{t:.4f}' for t in ts_parent)})")
-    log(line + f", plain {t_p:.4f} ms, {lib_name} {t_l:.4f} ms, bound "
-        f"{bound:.4f} ms ({by}; {b_sum / 1e9:.3f} GB, {o_sum / 1e12:.4f} "
-        f"TFLOP); eager loop (with host launch cost): kernel {e_k:.4f} ms, "
-        f"{lib_name} {e_l:.4f} ms")
+    line += (f", plain {t_p:.4f} ms, {lib_name} {t_l:.4f} ms, bound "
+             f"{bound:.4f} ms ({by}; {b_sum / 1e9:.3f} GB, "
+             f"{o_sum / 1e12:.4f} TFLOP); eager loop (with host launch "
+             f"cost): kernel {e_k:.4f} ms, {lib_name} {e_l:.4f} ms")
+    n = max(len(calls), 1)
+    line += f"; host issue kernel {h_k:.4f} ms ({h_k / n * 1e3:.1f} us/call)"
+    if parent:
+        line += (f", parent eager {e_p:.4f} ms, host issue {h_p:.4f} ms "
+                 f"({h_p / n * 1e3:.1f} us/call)")
+    log(line)
     if group is not None:     # where the row's time goes, by call shape
         groups = {}
         for args, kw in calls:
@@ -363,9 +444,13 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
 
 def parent_kernels(csrc: str) -> dict:
     """The parent commit's kernels, built from its ``csrc`` directory
-    beside ours and called through their C interfaces (unchanged since:
-    K1's tile launcher, K2's FMA launcher, K3), behind the wrappers'
-    signatures.  Returns {"k1", "k2", "k3"} callables."""
+    beside ours.  Returns {"k1", "k2", "k3"}: ops to call inside
+    {"libs"}(), which serves the parent's libraries in the build's place.
+    A kernel whose parent library exports every launcher this tree's
+    wrapper binds runs through that wrapper (variant choice and plans as
+    here); K3 before its tma and stream variants runs through its one C
+    interface (the tile launcher, unchanged since) behind the checks and
+    allocation of its wrapper of the time."""
     import ctypes
     from pathlib import Path
 
@@ -381,60 +466,48 @@ def parent_kernels(csrc: str) -> dict:
     procs = {n: subprocess.Popen(
         [nvcc, *build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
          str(Path(csrc) / f"{n}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-        for n in ("elastic_matmul", "flash_attention", "expert_matmul")}
+        stderr=subprocess.STDOUT, text=True) for n in build.SOURCES}
     libs = {}
     for n, proc in procs.items():
         text = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"parent {n} failed to build:\n{text}")
         libs[n] = ctypes.CDLL(str(out / f"lib{n}.so"))
-    f_em = libs["elastic_matmul"].repro_elastic_matmul
-    f_em.argtypes, f_em.restype = em._ARGTYPES["repro_elastic_matmul"], \
-        ctypes.c_int
-    f_fa = libs["flash_attention"].repro_flash_attention
-    f_fa.argtypes, f_fa.restype = fa._ARGTYPES["repro_flash_attention"], \
-        ctypes.c_int
     f_xm = libs["expert_matmul"].repro_expert_matmul
-    f_xm.argtypes, f_xm.restype = xm._launcher().argtypes, ctypes.c_int
+    f_xm.argtypes, f_xm.restype = xm._ARGTYPES["repro_expert_matmul"], \
+        ctypes.c_int
 
-    def stream(t):
-        return torch.cuda.current_stream(t.device).cuda_stream
-
-    def check(rc, name):
-        if rc != 0:
-            raise RuntimeError(f"parent {name} launch failed ({rc})")
-
-    def k1(x, w, k_act, n_act, n_out=None):
-        n_out = w.shape[-1] if n_out is None else n_out
-        x2 = x.reshape(-1, x.shape[-1])
-        M = x2.shape[0]
-        y = torch.empty((M, n_out), dtype=x.dtype, device=x.device)
-        check(f_em(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
-                   ops.widths_tensor(x.device, k_act, n_act).data_ptr(), M,
-                   em._row_stride(x2), em._row_stride(w), n_out, n_out,
-                   em.DTYPE_CODES[x.dtype], stream(x)), "K1")
-        return y.reshape(*x.shape[:-1], n_out)
-
-    def k2(q, k, v, causal=True):
-        B, S, H, D = q.shape
-        o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-        st = (ctypes.c_longlong * 12)(
-            *(s for t in (q, k, v, o) for s in t.stride()[:3]))
-        check(f_fa(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
-                   H, k.shape[2], S, k.shape[1], D, st, 1.0 / math.sqrt(D),
-                   int(causal), fa.DTYPE_CODES[q.dtype], stream(q)), "K2")
-        return o
+    def exports_all(name, mod):
+        return all(hasattr(libs[name], fn) for fn in mod._ARGTYPES)
 
     def k3(x, w, counts):
+        xm.check_cuda_args(x, w, counts)
         E, C, K = x.shape
         y = torch.empty((E, C, w.shape[2]), dtype=x.dtype, device=x.device)
-        check(f_xm(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                   counts.data_ptr(), E, C, K, w.shape[2], xm._stride(x, 0),
-                   xm._stride(x, 1), xm._stride(w, 0), xm._stride(w, 1),
-                   xm.DTYPE_CODES[x.dtype], stream(x)), "K3")
+        if y.numel() == 0:
+            return y
+        rc = f_xm(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                  counts.data_ptr(), E, C, K, w.shape[2], *xm.strides(x, w),
+                  xm.DTYPE_CODES[x.dtype],
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent K3 launch failed ({rc})")
         return y
-    return {"k1": k1, "k2": k2, "k3": k3}
+
+    @contextlib.contextmanager
+    def parent_libs():
+        with contextlib.ExitStack() as stack:
+            for n, lib in libs.items():
+                stack.enter_context(build.loaded_as(n, lib))
+            yield
+    for name, mod in (("elastic_matmul", em), ("flash_attention", fa)):
+        if not exports_all(name, mod):
+            raise RuntimeError(f"parent {name} lacks a launcher of "
+                               f"{sorted(mod._ARGTYPES)}")
+    return {"k1": ops.elastic_matmul_op, "k2": ops.flash_attention_op,
+            "k3": ops.expert_matmul_op
+            if exports_all("expert_matmul", xm) else k3,
+            "libs": parent_libs}
 
 
 def close(a, b, tol: float) -> float:
@@ -457,20 +530,31 @@ def kernel_bound_ms(n_bytes: float, n_ops: float,
 
 
 @contextlib.contextmanager
-def recording(targets, sink):
-    """Route each ``(module, attr, key)`` of ``targets`` through a wrapper
-    that calls ``sink(key, args, kw)`` and then the original function."""
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
-    for (mod, attr, key), (_, _, fn) in zip(targets, saved):
-        def call(*args, _fn=fn, _key=key, **kw):
-            sink(_key, args, kw)
-            return _fn(*args, **kw)
-        setattr(mod, attr, call)
+def routed(targets, fns: dict):
+    """Replace each ``(module, attr, key)`` of ``targets`` whose key is in
+    ``fns`` by ``fns[key]`` inside the block."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, key in targets
+             if key in fns]
+    for mod, attr, key in targets:
+        if key in fns:
+            setattr(mod, attr, fns[key])
     try:
         yield
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+def recording(targets, sink):
+    """Route each ``(module, attr, key)`` of ``targets`` through a wrapper
+    that calls ``sink(key, args, kw)`` and then the original function."""
+    def wrap(fn, key):
+        def call(*args, **kw):
+            sink(key, args, kw)
+            return fn(*args, **kw)
+        return call
+    return routed(targets, {key: wrap(getattr(mod, attr), key)
+                            for mod, attr, key in targets})
 
 
 @contextlib.contextmanager
@@ -549,8 +633,8 @@ def lm_phases(dev, parent) -> dict:
                 * scale).to(dtype)
 
     t0 = phase("8. K3 expert_matmul vs plain (d 2048, expert widths "
-               "1408/1056/704, E 64/32)")
-    k3_err = 0.0
+               "1408/1056/704, E 64/32; across its variants)")
+    k3_err, k3_variants = 0.0, {}
     cnt_gen = torch.Generator().manual_seed(8)
     # the slab rows the dispatch gives K3: G groups x C' capacity slots
     T_pre = LM_BATCH * PREFILL_LEN
@@ -558,12 +642,32 @@ def lm_phases(dev, parent) -> dict:
     slots = lambda g_: max(4, math.ceil(g_ * cfg.moe.top_k
                                         * cfg.moe.capacity_factor / E))
     C_pre, C_dec = T_pre // g * slots(g), slots(LM_BATCH)
+
+    def k3_check(x, w, counts, tol) -> tuple:
+        """(max abs err, the variant that ran) of one call against the
+        plain version; raises unless exact zeros past every count."""
+        before = dict(xm.variant_launches)
+        y = ops.expert_matmul_op(x, w, counts)
+        ran = [v for v, c in xm.variant_launches.items() if c != before[v]]
+        with ops.plain_kernels():
+            yp = ops.expert_matmul_op(x, w, counts)
+        torch.cuda.synchronize()
+        err = close(y, yp, tol)
+        rows = torch.arange(x.shape[1], device=dev)[None, :] \
+            >= counts[:, None]
+        if not bool((y[rows] == 0).all()):
+            raise AssertionError(f"K3 ({ran[0]}): non-zero past counts")
+        k3_variants[ran[0]] = max(k3_variants.get(ran[0], 0.0), err)
+        return err, ran[0]
+
     for dtype in (torch.float32, torch.bfloat16):
         tol = EXPERT_TOL[str(dtype).split(".")[1]]
+        dt = str(dtype).split(".")[1]
         wi = randn(E, d, Fe, scale=d ** -0.5, dtype=dtype)
         wo = randn(E, Fe, d, scale=Fe ** -0.5, dtype=dtype)
+        xs, bases = {}, {}
         for C, kind in ((C_pre, "prefill"), (C_dec, "decode")):
-            x = randn(E, C, d, dtype=dtype)
+            x = xs[kind] = randn(E, C, d, dtype=dtype)
             if kind == "prefill":   # 0, partial tiles, the full C, ragged
                 pattern = [0, 1, 37, 64, 65, 128, C - 40, C - 1, C, C]
                 base = torch.tensor(pattern * E, dtype=torch.int32)[:E]
@@ -573,32 +677,65 @@ def lm_phases(dev, parent) -> dict:
                 n_live = LM_BATCH * cfg.moe.top_k
                 live = torch.randperm(E, generator=cnt_gen)[:n_live // 2]
                 base[live] = 2
+            bases[kind] = base.to(dev)
             for n_exp in (E, E // 2):
                 counts = base[:n_exp].to(dev)
                 for a_ff in (Fe, 3 * Fe // 4, Fe // 2):
-                    up = ops.expert_matmul_op(x[:n_exp], wi[:n_exp, :, :a_ff],
-                                              counts)
                     hid = randn(n_exp, C, a_ff, dtype=dtype)
-                    down = ops.expert_matmul_op(hid, wo[:n_exp, :a_ff],
-                                                counts)
-                    with ops.plain_kernels():
-                        up_p = ops.expert_matmul_op(
-                            x[:n_exp], wi[:n_exp, :, :a_ff], counts)
-                        down_p = ops.expert_matmul_op(
-                            hid, wo[:n_exp, :a_ff], counts)
-                    torch.cuda.synchronize()
-                    err = max(close(up, up_p, tol), close(down, down_p, tol))
-                    rows = torch.arange(C, device=dev)[None, :] \
-                        >= counts[:, None]
-                    for y in (up, down):
-                        if not bool((y[rows] == 0).all()):
-                            raise AssertionError("K3: non-zero past counts")
+                    e_up, v_up = k3_check(x[:n_exp], wi[:n_exp, :, :a_ff],
+                                          counts, tol)
+                    e_dn, v_dn = k3_check(hid, wo[:n_exp, :a_ff], counts,
+                                          tol)
+                    err = max(e_up, e_dn)
                     k3_err = max(k3_err, err)
-                    log(f"  {str(dtype):15s} {kind:7s} C={C:3d} E={n_exp} "
+                    log(f"  {dt:8s} {kind:7s} C={C:3d} E={n_exp} "
                         f"F={a_ff:4d} live rows {int(counts.sum()):5d}  "
-                        f"max abs err {err:.3g} (tol {tol})")
-        del wi, wo
+                        f"{v_up}/{v_dn} max abs err {err:.3g} (tol {tol})")
+        # across the variants: the stream | tma boundary, one expert, no
+        # rows and all rows, the dense oracle's stride-0 expert axis, NaN
+        # in x past every count (which must not reach the output); the
+        # down product at a_ff 704 (not a multiple of 128)
+        cases = []
+        for C in (16, 17):
+            c = torch.tensor([0, 1, C - 1, C] * (E // 4),
+                             dtype=torch.int32, device=dev)
+            cases += [(f"C={C} up", randn(E, C, d, dtype=dtype), wi, c),
+                      (f"C={C} down a_ff 704",
+                       randn(E, C, Fe // 2, dtype=dtype),
+                       wo[:, :Fe // 2], c)]
+        for kind, x in xs.items():
+            C = x.shape[1]
+            cases += [
+                (f"{kind} E=1", x[:1], wi[:1],
+                 torch.tensor([C // 2 + 1], dtype=torch.int32, device=dev)),
+                (f"{kind} counts all 0", x, wi,
+                 torch.zeros(E, dtype=torch.int32, device=dev)),
+                (f"{kind} counts all C", x, wi,
+                 torch.full((E,), C, dtype=torch.int32, device=dev)),
+                (f"{kind} stride-0 experts", x[:1].expand(E, C, d), wi,
+                 torch.full((E,), C, dtype=torch.int32, device=dev)),
+                (f"{kind} NaN past counts", x.masked_fill(
+                    (torch.arange(C, device=dev)[None, :]
+                     >= bases[kind][:, None])[..., None], float("nan")), wi,
+                 bases[kind])]
+        for label, x, w, c in cases:
+            C = x.shape[1]
+            want = ("stream" if C <= xm.STREAM_C_MAX else
+                    "tile_f32" if dtype == torch.float32 else
+                    "tile_bf16" if x.stride(0) == 0 else "tma")
+            err, ran = k3_check(x, w, c, tol)
+            if ran != want:
+                raise AssertionError(f"K3 {label}: took {ran}, not {want}")
+            k3_err = max(k3_err, err)
+            log(f"  {dt:8s} {label:26s} C={C:3d} E={x.shape[0]:2d} "
+                f"F={w.shape[2]:4d} {ran:9s} max abs err {err:.3g}")
+        del wi, wo, xs, bases, cases
+    if set(k3_variants) != set(xm.VARIANTS):
+        raise AssertionError(f"not every K3 variant ran: "
+                             f"{sorted(k3_variants)}")
     out["k3_err"] = k3_err
+    log("  max abs err by variant: " + ", ".join(
+        f"{v} {e:.3g}" for v, e in sorted(k3_variants.items())))
     log(f"  K3 max abs err {k3_err:.3g}; exact zeros past every count "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -720,8 +857,20 @@ def lm_phases(dev, parent) -> dict:
         f"forwards), decode {rows[0]['decode_launches']} "
         f"({DECODE_STEPS} steps)")
     log(f"  by variant: {out['variants']}")
-    main_path_variants(out["variants"],
-                       need={"small_m", "tma", "mma", "decode"})
+    main_path_variants(out["variants"], need={
+        ("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
+        ("flash_attention", "mma"), ("flash_attention", "decode"),
+        ("expert_matmul", "tma"), ("expert_matmul", "stream")})
+    # K3's launches by variant in each stage of this run: bf16 prefill on
+    # tma, decode on stream (the prefills are all launches but the steps')
+    dec = {v: sum(r["decode_variants"]["expert_matmul"][v] for r in rows
+                  if "decode_variants" in r) for v in xm.VARIANTS}
+    out["k3_by_stage"] = {"prefill": {
+        v: n - dec[v] for v, n in out["variants"]["expert_matmul"].items()},
+        "decode": dec}
+    log(f"  K3 launches by variant: prefill {out['k3_by_stage']['prefill']}"
+        f", decode {out['k3_by_stage']['decode']}")
+    k3_on_stage(out["k3_by_stage"])
     # one decode step, kernel path against plain path, from one state; then
     # the kernel path again on the plain path's routing
     step = tokens[:, PREFILL_LEN:PREFILL_LEN + 1]
@@ -771,17 +920,33 @@ def lm_phases(dev, parent) -> dict:
             k3_counts.setdefault(stage[0], {})[id(args[2])] = \
                 (args[2], args[0].shape[1])
 
+    # K3's launches by variant in each stage of this pass (as phase 11)
+    k3_stage = {"prefill": dict.fromkeys(xm.VARIANTS, 0),
+                "decode": dict.fromkeys(xm.VARIANTS, 0)}
+
+    @contextlib.contextmanager
+    def k3_launches(kind):
+        before = dict(xm.variant_launches)
+        yield
+        for v, n in xm.variant_launches.items():
+            k3_stage[kind][v] += n - before[v]
+
     with torch.inference_mode(), recording(targets, keep):
         for name, E_, decodable in points:
             stage[0] = (name, "prefill")
-            if not decodable:
-                lm_prefill(params, prompt, cfg, E=E_)
-                continue
-            _, caches = lm_prefill(params, prompt, cfg, E=E_,
-                                   max_len=T_cache)
+            with k3_launches("prefill"):
+                if not decodable:
+                    lm_prefill(params, prompt, cfg, E=E_)
+                    continue
+                _, caches = lm_prefill(params, prompt, cfg, E=E_,
+                                       max_len=T_cache)
             stage[0] = (name, "decode")
-            lm_decode(params, caches, step, cfg, E=E_)
+            with k3_launches("decode"):
+                lm_decode(params, caches, step, cfg, E=E_)
             del caches
+    log(f"  K3 launches by variant: prefill {k3_stage['prefill']}, decode "
+        f"{k3_stage['decode']}")
+    k3_on_stage(k3_stage)
     tols = {"k1": TOL, "k2": ATTN_TOL, "k3": EXPERT_TOL}
     worst = {}
     for key, args, kw in distinct.values():
@@ -862,13 +1027,73 @@ def lm_phases(dev, parent) -> dict:
                              ("decode", calls[key][n_pre[key]:])):
             out[f"{key}_{label}"] = time_rows(
                 f"{key.upper()} {label:7s}", batch, kern, plain, lib,
-                lib_name, work, parent and parent[key],
-                group=k1_group if key == "k1" else None)
+                lib_name, work, parent and (parent[key], parent["libs"]),
+                group={"k1": k1_group, "k3": k3_group}.get(key))
     del calls
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    if parent:
+        t0 = phase("14. end to end against the parent's kernels (full "
+                   "point, bf16, wall time): prefill 4 x 512 and 16 decode "
+                   f"steps, in turns parent, kernel, kernel, parent, "
+                   f"{E2E_ROUNDS} times")
+        out["e2e"] = end_to_end(
+            params, cfg, tokens, targets,
+            {k: parent[k] for k in ("k1", "k2", "k3")}, parent["libs"])
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
     del params
     torch.cuda.empty_cache()
-    log(f"  ({time.perf_counter() - t0:.1f} s)")
     return out
+
+
+def end_to_end(params, cfg, tokens, targets, parent_ops: dict,
+               parent_libs) -> dict:
+    """Wall time of the full point's prefill (mean of 2 after a warm-up)
+    and decode step (mean of the 16 teacher-forced steps after a prefill)
+    as ``repro_torch.launch.elastic_moe.run`` times them, on this tree's
+    kernels and on the parent's (its ops routed in at ``targets``), in
+    turns parent, kernel, kernel, parent, ``E2E_ROUNDS`` times; the mean
+    and the median of each."""
+    import torch
+
+    from repro_torch.launch import elastic_moe
+    from repro_torch.launch.steps import lm_decode, lm_prefill
+    dev = tokens.device
+    prompt = tokens[:, :PREFILL_LEN]
+
+    def once():
+        pre_ms, _ = elastic_moe.timed(lambda: lm_prefill(params, prompt, cfg),
+                                      dev, 2)
+        _, caches = lm_prefill(params, prompt, cfg, max_len=tokens.shape[1])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(PREFILL_LEN, tokens.shape[1]):
+            _, caches = lm_decode(params, caches, tokens[:, t:t + 1], cfg)
+        torch.cuda.synchronize()
+        return pre_ms, (time.perf_counter() - t1) / DECODE_STEPS * 1e3
+
+    runs = {"parent": [], "kernel": []}
+    with torch.inference_mode():
+        for who in ("parent", "kernel", "kernel", "parent") * E2E_ROUNDS:
+            if who == "parent":
+                with parent_libs(), routed(targets, parent_ops):
+                    runs[who].append(once())
+            else:
+                runs[who].append(once())
+    res = {}
+    for who, rs in runs.items():
+        pre, dec = [r[0] for r in rs], [r[1] for r in rs]
+        res[who] = {"prefill_ms": sum(pre) / len(pre),
+                    "decode_ms": sum(dec) / len(dec),
+                    "prefill_median_ms": statistics.median(pre),
+                    "decode_median_ms": statistics.median(dec),
+                    "prefill_runs": pre, "decode_runs": dec}
+        log(f"  {who:6s} prefill {res[who]['prefill_ms']:.2f} ms (median "
+            f"{res[who]['prefill_median_ms']:.2f}; runs "
+            f"{', '.join(f'{t:.2f}' for t in pre)}); decode "
+            f"{res[who]['decode_ms']:.2f} ms/step (median "
+            f"{res[who]['decode_median_ms']:.2f}; runs "
+            f"{', '.join(f'{t:.2f}' for t in dec)})")
+    return res
 
 
 def _tensors(tree):
@@ -887,7 +1112,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-csrc", default=None, help=(
         "a parent commit's src/repro_torch/kernels/csrc: its kernels are "
-        "built too and timed beside these in phases 7 and 13"))
+        "built too and timed beside these in phases 7, 13 and 14"))
     cli = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1147,7 +1372,9 @@ def main() -> int:
     log(f"  launches on the main path: {launches}; while serving: "
         f"elastic_matmul {serving[0]}, flash_attention {serving[1]}")
     log(f"  by variant: {vit_variants}")
-    main_path_variants(vit_variants, need={"small_m", "tma", "mma"})
+    main_path_variants(vit_variants, need={
+        ("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
+        ("flash_attention", "mma")})
     log(f"  served logits vs direct forward of {o['subnet']}: max abs err "
         f"{err_served:.3g}; cold compiles {server.cold_compiles}")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -1164,10 +1391,11 @@ def main() -> int:
         vit_apply(p16, imgs8, cfg, E=E_max)
     vit_k1 = time_rows("K1 ViT forward", vcalls["k1"], ops.elastic_matmul_op,
                        k1_plain, k1_library, "torch.matmul", k1_work,
-                       parent and parent["k1"], group=k1_group)
+                       parent and (parent["k1"], parent["libs"]),
+                       group=k1_group)
     vit_k2 = time_rows("K2 ViT forward", vcalls["k2"],
                        ops.flash_attention_op, k2_plain, k2_library, "sdpa",
-                       k2_work, parent and parent["k2"])
+                       k2_work, parent and (parent["k2"], parent["libs"]))
     del vcalls, p16
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
@@ -1213,9 +1441,12 @@ def main() -> int:
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
               "launches": lm["launches"]["expert_matmul"],
+              "launches_by_variant": {
+                  "lm": lm["variants"]["expert_matmul"],
+                  "lm_by_stage": lm["k3_by_stage"]},
               "max_abs_err": lm["k3_err"]}, **row_keys(lm["k3_prefill"]),
              timing=timing, lm_prefill=lm["k3_prefill"],
-             decode=lm["k3_decode"], kept_share=lm["kept"]),
+             lm_decode=lm["k3_decode"], kept_share=lm["kept"]),
     ]}
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))

@@ -10,6 +10,7 @@ module on hosts with no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -101,3 +102,17 @@ def library(name: str) -> ctypes.CDLL:
                 _libs[n] = ctypes.CDLL(str(library_path(n)))
             lib = _libs[name]
         return lib
+
+
+@contextlib.contextmanager
+def loaded_as(name: str, lib: ctypes.CDLL) -> Iterator[None]:
+    """Serve ``lib`` as the library of source ``name`` inside the block
+    (another build of the same launchers, such as a parent commit's)."""
+    library(name)                  # our own build first, so it is restored
+    with _lock:
+        saved, _libs[name] = _libs[name], lib
+    try:
+        yield
+    finally:
+        with _lock:
+            _libs[name] = saved

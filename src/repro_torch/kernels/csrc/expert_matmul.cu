@@ -11,38 +11,83 @@
 // expert count (the first a_experts experts) are read in place from the
 // full resident weights.  counts is a device int32[E], the counterpart of
 // the TPU kernel's scalar prefetch: one launch configuration serves every
-// load and every elastic setting, with no host sync.
+// load and every elastic setting, with no host sync.  No variant reads a
+// weight byte of an expert with no rows, or of a tile past an expert's
+// count.  The TPU docstring promises that skip, but its w_map is a no-op
+// (fault F2 in ROADMAP.md).
 //
-// Grid (F tiles, C tiles, E).  A block whose first row is at or past
-// counts[e] writes its zero tile and returns: it reads neither x nor w.
-// The TPU docstring promises that skip for the weights, but its w_map is
-// a no-op (fault F2 in ROADMAP.md); here an expert with no tokens costs no
-// weight bytes at all.  A live block runs the shared 64x64 tile loop of
-// tile_matmul.cuh over K in steps (the TPU kernel takes all of d as one
-// block, which cannot fit a Hopper SM at d = 2048), zeroes its rows past
-// counts[e] and masks F edges that are not a multiple of 64 (a_ff = 1056
-// or 704 of 1408).
+// What bounds it on the H100 is the bytes of the live experts' weights,
+// 2*K*F bytes each, at both of the LM's shapes.  At decode (4 sequences x
+// top-6 = at most 24 live slots over 64 experts, C = 4) an expert has at
+// most 4 rows: ~1 operation per weight byte.  At prefill of 4 x 512 tokens
+// the slab has C = 240 rows per expert (8 groups x 30 capacity slots); a
+// random-weight router keeps ~48% of its routed slots, ~92 rows per expert
+// on average, and even 240 rows are 240 operations a weight byte, under
+// the bf16 ridge of ~295.  So the design's job is to read each live
+// expert's weights once, and fast.  Three variants, chosen on the host by
+// kernels/expert_matmul.py:choose_variant from (C, dtype, strides):
 //
-// What bounds it on the H100: at decode (4 sequences x top-6 = at most 24
-// live slots over 64 experts, C = 4) it is the bytes of the live experts'
-// weights, 2*K*F bytes each, against 2*count*K*F operations: intensity of
-// about one operation per byte, far below the ridge, so the design's job
-// is to read no dead expert's weights.  At prefill of 4 x 512 tokens the
-// slab has C = 240 rows per expert (8 groups x 30 capacity slots); a
-// balanced router fills 192 of them (2048 tokens x top-6 / 64 experts),
-// a skewed one fewer on most experts, since capacity drops the slots an
-// expert cannot seat (PERF.md gives the drop rate of the random-weight
-// model).  So a weight byte carries at most ~190 operations, below the
-// bf16 ridge of ~295: the bound is again the weights' bytes, and
-// operations take over only from ~300 live rows per expert (larger
-// batches).  Each C tile of a live expert reads its weights once more.  This first version
-// runs bf16 on WMMA (mma.sync, fp32 accumulators) without a load pipeline
-// and fp32 on FMAs; wgmma/TMA is later work.
+// * stream (C <= 16, bf16 and fp32: decode).  K1 small_m's weight
+//   streaming (hopper_gemm.cuh: stream_rows) once per live expert.  Grid
+//   (F / 64, K splits, E); a block reads counts[e] first and, for an
+//   expert with no rows, touches no weight byte.  Otherwise it stages
+//   x[e, :counts[e], k-chunk] in shared memory (fp32), streams w[e] with
+//   16-byte loads, 8 in flight per thread, the first issued before x is
+//   staged, and runs fp32 FMAs over the live rows only.  The K split is
+//   planned on the host from shapes alone (stream_plan; chunks of at most
+//   512 rows).  Split-K partials go to an fp32 workspace and a second
+//   kernel adds them in split order (deterministic, no atomics), casts,
+//   and writes exact zeros past each count and for dead experts.
+// * tma (C > 16, bf16, bases and strides TMA can take: prefill).  A
+//   grouped wgmma GEMM fed by TMA, on K1's tma pattern: a ring of BK = 64
+//   stages guarded by full / empty mbarriers, one producer thread issuing
+//   the loads, two consumer warpgroups running wgmma.mma_async m64n128k16
+//   with fp32 accumulators, the weight read as MN-major B (transpose bit)
+//   in 64-column boxes with the 128-byte swizzle.  Two 3-D tensor maps a
+//   call, encoded on the host over the call's extents -- x as (K, C, E)
+//   and w as (F, K, E) with their row and expert strides -- are passed by
+//   value (__grid_constant__), so there is no device array of maps and no
+//   host-to-device copy; a box's outer extent is 1, so it lands in shared
+//   memory exactly as K1's 2-D box does.  TMA's zero fill clears rows past
+//   C, the K tail and columns past F (a_ff = 1056 and 704 are not
+//   multiples of 128).  A block covers 128 rows of one expert and 128
+//   columns; each consumer warpgroup owns one 64-row sub-tile (an
+//   accumulator).  The block takes its live sub-tiles from counts[e] on
+//   the device: the producer loads x only for those, a warpgroup computes
+//   only a live one, and a block with none stores zeros and exits before
+//   any load.  Rows counts[e] <= c inside a live sub-tile are computed and
+//   stored as exact zeros by the epilogue (rows are independent, so
+//   whatever x holds there cannot leak).  The grid walks C tiles fastest,
+//   then F tiles, within an expert, so an expert's second C tile finds the
+//   weight tile in L2.  One block per (F tile, expert) looping over all
+//   its live rows, 128 x 256 tiles and two blocks per SM were slower at
+//   both of the LM's shapes (PERF.md has the sweep's readings; git
+//   history has those variants).
+// * tile (everything else: fp32 at C > 16 -- the parity paths -- and bf16
+//   whose base, row stride or expert stride TMA cannot take, such as the
+//   dense oracle's stride-0 expert axis).  The unpipelined 64x64 tile loop
+//   of tile_matmul.cuh (WMMA for bf16, FMAs for fp32), shared with K1: a
+//   block past counts[e] writes its zero tile without reading x or w.
+//   The main path never takes it in bf16 (chip_smoke.py asserts it).
+//
+// Later work: a persistent schedule for tma that balances the ragged
+// experts (0 to 240 rows) across the SMs, one tile's epilogue overlapping
+// the next tile's loads.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper_gemm.cuh"
 #include "tile_matmul.cuh"
 
+using namespace repro_hopper;
 using namespace repro_tile;
 
 namespace {
+
+// ---------------------------------------------------------------- tile ----
 
 __global__ void __launch_bounds__(THREADS)
 expert_matmul_bf16(const __nv_bfloat16* __restrict__ x,
@@ -81,12 +126,247 @@ expert_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
            F, F);
 }
 
+// -------------------------------------------------------------- stream ----
+
+// The block's product over MR >= cnt staged rows of its K chunk, stored:
+// y itself with one split (zeros past cnt), else the live rows' partials
+// at ws_e.
+template <typename T, int MR>
+__device__ __forceinline__ void stream_block(
+    const T* __restrict__ x, int x_sc, const T* __restrict__ w, int w_sk,
+    T* __restrict__ ye, float* __restrict__ ws_e, int cnt, int C, int K,
+    int F, int n0, int k0, int kc, int vec_ok, bool direct, float* buf) {
+  stream_rows<T, MR>(x, x_sc, w, w_sk, cnt, k0, kc, K, n0, F, vec_ok, buf);
+  for (int i = threadIdx.x; i < C * S_BN; i += S_THREADS) {
+    const int m = i / S_BN, col = i % S_BN, n = n0 + col;
+    if (n >= F) continue;
+    if (direct)
+      ye[(size_t)m * F + n] = T(m < cnt ? stream_sum<MR>(buf, m, col) : 0.f);
+    else if (m < cnt)
+      ws_e[(size_t)m * F + n] = stream_sum<MR>(buf, m, col);
+  }
+}
+
+// stream_block over the fewest rows, a power of two up to MT, that cover
+// cnt: the FMAs run over the live rows (most live experts at decode have
+// one), one code path per row count
+template <typename T, int MR, int MT, typename... A>
+__device__ __forceinline__ void stream_live(int cnt, A... args) {
+  if constexpr (MR < MT) {
+    if (cnt > MR) {
+      stream_live<T, 2 * MR, MT>(cnt, args...);
+      return;
+    }
+  }
+  stream_block<T, MR>(args...);
+}
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(S_THREADS, MT <= 4 ? 3 : 1)
+expert_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     T* __restrict__ y, float* __restrict__ ws,
+                     const int* __restrict__ counts, int C, int K, int F,
+                     long long x_se, int x_sc, long long w_se, int w_sk,
+                     int kc, int vec_ok) {
+  __shared__ float buf[MT * S_KC_MAX];
+  const int e = blockIdx.z;
+  const int E = gridDim.z;
+  const int cnt = min(max(counts[e], 0), C);
+  const bool direct = gridDim.y == 1;     // one split: store y here
+  const int n0 = blockIdx.x * S_BN;
+  T* ye = y + (size_t)e * C * F;
+  if (cnt == 0) {           // no rows: no weight byte; the zeros of y come
+    if (direct) {           // from here or from the reduce
+      for (int i = threadIdx.x; i < C * S_BN; i += S_THREADS) {
+        const int m = i / S_BN, n = n0 + i % S_BN;
+        if (n < F) ye[(size_t)m * F + n] = T(0.f);
+      }
+    }
+    return;
+  }
+  stream_live<T, 1, MT>(cnt, x + e * x_se, x_sc, w + e * w_se, w_sk, ye,
+                        ws + ((size_t)blockIdx.y * E + e) * C * F, cnt, C, K,
+                        F, n0, (int)blockIdx.y * kc, kc, vec_ok, direct, buf);
+}
+
+// y[e, c, n] = sum over splits of ws[split, e, c, n] in split order for
+// c < counts[e]; exact zeros past the count (dead experts included)
+template <typename T>
+__global__ void expert_stream_reduce(const float* __restrict__ ws,
+                                     T* __restrict__ y,
+                                     const int* __restrict__ counts, int E,
+                                     int C, int F, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long per_split = (long long)E * C * F;
+  if (i >= per_split) return;
+  const int e = (int)(i / ((long long)C * F));
+  const int m = (int)((i / F) % C);
+  const int cnt = min(max(counts[e], 0), C);
+  float s = 0.f;
+  if (m < cnt) {
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp) s += ws[sp * per_split + i];
+  }
+  y[i] = T(s);
+}
+
+template <typename T>
+int launch_stream(const void* x, const void* w, void* y, void* ws,
+                  const int* counts, int E, int C, int K, int F,
+                  long long x_se, int x_sc, long long w_se, int w_sk,
+                  int splits, int kc, int vec_ok, cudaStream_t s) {
+  const dim3 grid((F + S_BN - 1) / S_BN, splits, E);
+#define REPRO_STREAM(MT)                                                    \
+  expert_stream_kernel<T, MT><<<grid, S_THREADS, 0, s>>>(                   \
+      static_cast<const T*>(x), static_cast<const T*>(w),                   \
+      static_cast<T*>(y), static_cast<float*>(ws), counts, C, K, F, x_se,   \
+      x_sc, w_se, w_sk, kc, vec_ok)
+  if (C <= 1) REPRO_STREAM(1);
+  else if (C <= 2) REPRO_STREAM(2);
+  else if (C <= 4) REPRO_STREAM(4);
+  else if (C <= 8) REPRO_STREAM(8);
+  else if (C <= 16) REPRO_STREAM(16);
+  else return -1;
+#undef REPRO_STREAM
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = (long long)E * C * F;
+  expert_stream_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<T*>(y), counts, E, C, F,
+      splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------------------- tma ----
+
+constexpr int X_CWG = 2;     // consumer warpgroups of the tma variant
+constexpr int X_BN = 128;    // its columns per block
+using XTile = GemmTile<X_CWG, X_BN>;    // 128 rows: 64 per warpgroup
+
+__global__ void __launch_bounds__(XTile::THREADS, 1)
+expert_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
+                  __nv_bfloat16* __restrict__ y,
+                  const int* __restrict__ counts, int C, int K, int F) {
+  using G = XTile;
+  const int e = blockIdx.z;
+  const int cnt = min(max(counts[e], 0), C);
+  const int m0 = blockIdx.x * G::BM;      // C tiles fastest, then F tiles
+  const int n0 = blockIdx.y * X_BN;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* ye = y + (size_t)e * C * F;
+  // live 64-row sub-tiles of the block, one per consumer warpgroup
+  const int n_sub = cnt > m0 ? min((cnt - m0 + 63) / 64, X_CWG) : 0;
+  if (n_sub == 0) {         // dead tile: zeros, no loads
+    for (int i = tid; i < G::BM * X_BN; i += G::THREADS) {
+      const int r = m0 + i / X_BN, c = n0 + i % X_BN;
+      if (r < C && c < F) ye[(size_t)r * F + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES *
+                                               G::STAGE_BYTES);
+  uint64_t* empty = full + G::STAGES;
+  const int n_k = (K + G_BK - 1) / G_BK;
+  if (tid == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * n_sub);    // one arrival per live warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;               // X_CWG: the producer warp
+  if (wg == X_CWG) {                      // producer: one thread
+    if (tid == 128 * X_CWG) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % G::STAGES;
+        mbar_wait(&empty[s], ((kt / G::STAGES) & 1) ^ 1);
+        unsigned char* a = smem + s * G::STAGE_BYTES;
+        unsigned char* b = a + G::A_BYTES;
+        mbar_expect_tx(&full[s], n_sub * 8192 + G::B_BYTES);
+        for (int sub = 0; sub < n_sub; ++sub)
+          tma_load_3d(a + sub * 8192, &map_x, &full[s], kt * G_BK,
+                      m0 + 64 * sub, e);
+#pragma unroll
+        for (int h = 0; h < X_BN / 64; ++h)
+          tma_load_3d(b + h * 8192, &map_w, &full[s], n0 + 64 * h,
+                      kt * G_BK, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: sub-tile wg, computed when live, else zeros
+  float d[X_BN / 2];
+#pragma unroll
+  for (int i = 0; i < X_BN / 2; ++i) d[i] = 0.f;
+  if (wg < n_sub) {
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int s = kt % G::STAGES;
+      mbar_wait(&full[s], (kt / G::STAGES) & 1);
+      const uint32_t a = smem_u32(smem + s * G::STAGE_BYTES) + wg * 8192;
+      const uint32_t b = smem_u32(smem + s * G::STAGE_BYTES + G::A_BYTES);
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < G_BK / 16; ++ks) {
+        // as K1's tma kernel: A K-major (a 16-wide K step is 32 bytes
+        // along the swizzled row), B MN-major (LBO 8 KB between 64-column
+        // boxes, SBO 1 KB between 8-row groups, a 16-row K step is 2 KB)
+        wgmma_m64n128k16(d, gmma_desc(a + ks * 32, 16, 1024),
+                         gmma_desc(b + ks * 2048, 8192, 1024));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(d);
+      if (kt > 0 && tid % 32 == 0) mbar_arrive(&empty[(kt - 1) % G::STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(d);
+  }
+  store_acc<X_BN>(d, ye, F, tid % 128, m0 + 64 * wg, n0,
+                  wg < n_sub ? cnt : 0, C, F, F);
+}
+
+int launch_tma(const void* x, const void* w, void* y, const int* counts,
+               int E, int C, int K, int F, long long x_se, int x_sc,
+               long long w_se, int w_sk, cudaStream_t s) {
+  using G = XTile;
+  CUtensorMap map_x, map_w;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)K, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)x_sc * 2,
+                                   (cuuint64_t)x_se * 2};
+  const cuuint64_t w_dims[3] = {(cuuint64_t)F, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)w_sk * 2,
+                                   (cuuint64_t)w_se * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  if (!encode_bf16_map(&map_x, x, 3, x_dims, x_strides, box) ||
+      !encode_bf16_map(&map_w, w, 3, w_dims, w_strides, box))
+    return -2;
+  // once per process (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      expert_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)G::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((C + G::BM - 1) / G::BM, (F + X_BN - 1) / X_BN, E);
+  expert_tma_kernel<<<grid, G::THREADS, G::SMEM, s>>>(
+      map_x, map_w, static_cast<__nv_bfloat16*>(y), counts, C, K, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x (E, C, K) with strides (x_se, x_sc, 1); w (E, K, F) with strides
-// (w_se, w_sk, 1); y (E, C, F) contiguous; counts int32[E] on the device.
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); -1 for an unsupported dtype.
+// The tile variant.  x (E, C, K) with strides (x_se, x_sc, 1); w (E, K, F)
+// with strides (w_se, w_sk, 1); y (E, C, F) contiguous; counts int32[E] on
+// the device.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch (0 on success); -1 for an
+// unsupported dtype.
 extern "C" int repro_expert_matmul(const void* x, const void* w, void* y,
                                    const void* counts, int E, int C, int K,
                                    int F, long long x_se, int x_sc,
@@ -108,4 +388,38 @@ extern "C" int repro_expert_matmul(const void* x, const void* w, void* y,
     return -1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stream variant: C <= 16, K split into `splits` chunks of `kc` rows
+// (kc <= 512); `ws` an fp32 workspace of splits x E x C x F when splits > 1
+// (unused otherwise); vec_ok when w's base and its row and expert strides
+// allow 16-byte loads.  Strides and returns as above; -1 for an
+// unsupported dtype, C or kc.
+extern "C" int repro_expert_matmul_stream(
+    const void* x, const void* w, void* y, void* ws, const void* counts,
+    int E, int C, int K, int F, long long x_se, int x_sc, long long w_se,
+    int w_sk, int splits, int kc, int vec_ok, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* cn = static_cast<const int*>(counts);
+  if (kc > S_KC_MAX || kc < 1 || splits < 1) return -1;
+  if (dtype == 1)
+    return launch_stream<__nv_bfloat16>(x, w, y, ws, cn, E, C, K, F, x_se,
+                                        x_sc, w_se, w_sk, splits, kc, vec_ok,
+                                        s);
+  if (dtype == 0)
+    return launch_stream<float>(x, w, y, ws, cn, E, C, K, F, x_se, x_sc,
+                                w_se, w_sk, splits, kc, vec_ok, s);
+  return -1;
+}
+
+// The tma variant (bf16): bases 16-byte aligned, row and expert strides
+// non-zero multiples of 8 elements, K, F >= 1; 128 x 128 tiles.  Strides
+// and returns as above; -2 when the tensor maps cannot be encoded.
+extern "C" int repro_expert_matmul_tma(const void* x, const void* w, void* y,
+                                       const void* counts, int E, int C,
+                                       int K, int F, long long x_se,
+                                       int x_sc, long long w_se, int w_sk,
+                                       void* stream) {
+  return launch_tma(x, w, y, static_cast<const int*>(counts), E, C, K, F,
+                    x_se, x_sc, w_se, w_sk, static_cast<cudaStream_t>(stream));
 }

@@ -4,41 +4,107 @@ version.
 Replaces the Pallas TPU kernel ``src/repro/kernels/expert_matmul.py:
 expert_matmul``.  ``out[e, c] = x[e, c] @ w[e]`` for ``c < counts[e]`` and
 exact zeros for the rows past each expert's count, accumulated in fp32,
-for bf16 or fp32 inputs.  The kernel (``csrc/expert_matmul.cu``) reads
-``counts`` from a device int32 tensor (the counterpart of scalar prefetch),
-skips every tile past an expert's count without reading x or w, and reads
+for bf16 or fp32 inputs.  The kernels (``csrc/expert_matmul.cu``) read
+``counts`` from a device int32 tensor (the counterpart of scalar
+prefetch), read no weight byte of an expert or tile with no rows, and read
 x and w through their expert and row strides, so a sliced expert width
 (``w[..., :a_ff]``) or expert count (``w[:a_experts]``) is a view of the
-full resident weight, never a copy.  Its source note says what bounds it
-on the H100 and what the design does about that.
+full resident weight, never a copy.
 
-``expert_matmul`` launches the kernel on CUDA tensors and raises on
-anything it does not take; ``expert_matmul_plain`` is the same function in
-plain PyTorch, used for CPU tensors and to hold the kernel against.
+Three variants, chosen by :func:`choose_variant` from the call's shape,
+dtype and strides (never from ``counts``, which stays on the device):
+``stream`` (C <= 16: K1 small_m's weight streaming once per live expert,
+split-K planned by :func:`stream_plan`, bf16 and fp32), ``tma`` (bf16 at
+larger C: a grouped wgmma GEMM fed by TMA over 3-D tensor maps, in
+:data:`TMA_TILE` blocks) and ``tile`` (the first port's 64x64 tile loop,
+counted as ``tile_bf16`` or ``tile_f32``: fp32 at larger C, and bf16 whose
+base or strides TMA cannot take).  The source note says what bounds each
+on the H100 and what its design does about it.
+
+``expert_matmul`` launches a kernel on CUDA tensors and raises on anything
+it does not take; ``expert_matmul_plain`` is the same function in plain
+PyTorch, used for CPU tensors and to hold the kernels against.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 
-# kernel launches since the last reset (the wrapper adds one per launch)
+# kernel launches since the last reset (the wrapper adds one per launch),
+# in all and by variant
 launches = 0
+VARIANTS = ("stream", "tma", "tile_bf16", "tile_f32")
+variant_launches = dict.fromkeys(VARIANTS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132               # streaming multiprocessors of an H100 SXM
+STREAM_C_MAX = 16       # rows per expert the stream kernel takes
+STREAM_BN = 64          # its output columns per block
+STREAM_KC_MAX = 512     # its rows of x staged in shared memory
+STREAM_KC_MIN = 256     # fewest weight rows worth a block of their own
+# (rows, columns) of a tma block at every shape (the source's 64 * X_CWG
+# and X_BN): at the LM's prefill it beat one block per (F tile, expert)
+# over all its rows, 128 x 256 and two blocks per SM (PERF.md)
+TMA_TILE = (128, 128)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_STRIDES = [_L, _I, _L, _I]          # x_se, x_sc, w_se, w_sk
+_ARGTYPES = {
+    "repro_expert_matmul": [_P] * 4 + [_I] * 4 + _STRIDES + [_I, _P],
+    "repro_expert_matmul_stream": [_P] * 5 + [_I] * 4 + _STRIDES
+    + [_I] * 4 + [_P],
+    "repro_expert_matmul_tma": [_P] * 4 + [_I] * 4 + _STRIDES + [_P],
+}
 
 
-def _launcher():
-    fn = build.library("expert_matmul").repro_expert_matmul
+def _launcher(name: str):
+    fn = getattr(build.library("expert_matmul"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def choose_variant(C: int, dtype: torch.dtype, strides: tuple,
+                   aligned: bool) -> str:
+    """The kernel a call goes to.  ``strides`` are (x_se, x_sc, w_se,
+    w_sk) in elements as the kernel gets them (:func:`strides`),
+    ``aligned`` whether x's and w's bases are 16-byte aligned and K >= 1
+    (a tensor map has no empty dim).  TMA needs that and every stride a
+    non-zero multiple of 16 bytes."""
+    if C <= STREAM_C_MAX:
+        return "stream"
+    if dtype != torch.bfloat16:
+        return "tile_f32"
+    if aligned and all(s > 0 and s % 8 == 0 for s in strides):
+        return "tma"
+    return "tile_bf16"
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(E: int, C: int, K: int, F: int, elem_bytes: int = 2
+                ) -> tuple:
+    """(splits, rows per split) of the stream kernel's K, from shapes
+    alone (how many experts are live is on the device): enough blocks for
+    ~4 per SM over the ``E * cdiv(F, 64)`` column tiles, no split under
+    256 rows, none over the 512 rows of x a block stages, splits of even
+    length; rows per split a multiple of the rows a block reads at once."""
+    rows_at_once = 256 // (STREAM_BN // (16 // elem_bytes))
+    if K <= 0 or F <= 0:
+        return 1, rows_at_once
+    tiles = E * _cdiv(F, STREAM_BN)
+    splits = min(_cdiv(4 * SMS, tiles), max(1, K // STREAM_KC_MIN))
+    splits = max(splits, _cdiv(K, STREAM_KC_MAX))
+    kc = _cdiv(_cdiv(K, splits), rows_at_once) * rows_at_once
+    return _cdiv(K, kc), kc
 
 
 def check_args(x: torch.Tensor, w: torch.Tensor,
@@ -57,16 +123,40 @@ def check_args(x: torch.Tensor, w: torch.Tensor,
                          f"got {counts.dtype} {tuple(counts.shape)}")
 
 
-def _stride(t: torch.Tensor, dim: int) -> int:
-    # a size-1 dim may carry any stride; the kernel never steps it
-    return t.stride(dim) if t.shape[dim] > 1 else 0
+def _dim_strides(t: torch.Tensor) -> tuple:
+    """(stride of dim 0, stride of dim 1) of a 3-D tensor as the kernels
+    get them.  A size-1 dim may carry any stride and the kernels never
+    step it, but a tensor map needs a valid one there: the extent of the
+    dims inside it (in the rows' own stride)."""
+    n0, n1, n2 = t.shape
+    s0, s1, _ = t.stride()
+    if n1 <= 1:
+        s1 = n2
+    return (s0 if n0 > 1 else n1 * s1), s1
 
 
-def expert_matmul(x: torch.Tensor, w: torch.Tensor,
-                  counts: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: x (E, C, K) and w (E, K, F) with unit inner
-    strides, ``counts`` a contiguous device int32 (E,) tensor."""
-    global launches
+def strides(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(x_se, x_sc, w_se, w_sk) in elements."""
+    return _dim_strides(x) + _dim_strides(w)
+
+
+def _plan(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(variant, strides) of a call: what :func:`expert_matmul` launches,
+    and the strides it passes."""
+    st = strides(x, w)
+    aligned = x.shape[2] > 0 and x.data_ptr() % 16 == 0 \
+        and w.data_ptr() % 16 == 0
+    return choose_variant(x.shape[1], x.dtype, st, aligned), st
+
+
+def variant_of(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel :func:`expert_matmul` launches for x and w."""
+    return _plan(x, w)[0]
+
+
+def check_cuda_args(x: torch.Tensor, w: torch.Tensor,
+                    counts: torch.Tensor) -> None:
+    """Raise unless the kernels take x, w and counts as they are."""
     check_args(x, w, counts)
     dev = x.device
     if dev.type != "cuda" or w.device != dev or counts.device != dev:
@@ -80,19 +170,46 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor,
     if (x.shape[2] > 1 and x.stride(2) != 1) or \
             (w.shape[2] > 1 and w.stride(2) != 1):
         raise ValueError("x and w need a unit inner stride (row-major rows)")
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor,
+                  counts: torch.Tensor) -> torch.Tensor:
+    """Launch a CUDA kernel: x (E, C, K) and w (E, K, F) with unit inner
+    strides, ``counts`` a contiguous device int32 (E,) tensor."""
+    global launches
+    check_cuda_args(x, w, counts)
+    dev = x.device
     E, C, K = x.shape
     F = w.shape[2]
     y = torch.empty((E, C, F), dtype=x.dtype, device=dev)
     if y.numel() == 0:
         return y
-    rc = _launcher()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                     counts.data_ptr(), E, C, K, F, _stride(x, 0),
-                     _stride(x, 1), _stride(w, 0), _stride(w, 1),
-                     DTYPE_CODES[x.dtype],
-                     torch.cuda.current_stream(dev).cuda_stream)
+    variant, st = _plan(x, w)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr())
+    if variant == "stream":
+        splits, kc = stream_plan(E, C, K, F, x.element_size())
+        ws = None if splits == 1 else torch.empty(
+            (splits, E, C, F), dtype=torch.float32, device=dev)
+        vec = 16 // x.element_size()
+        vec_ok = w.data_ptr() % 16 == 0 and st[2] % vec == 0 \
+            and st[3] % vec == 0
+        rc = _launcher("repro_expert_matmul_stream")(
+            *ptrs, None if ws is None else ws.data_ptr(), counts.data_ptr(),
+            E, C, K, F, *st, splits, kc, int(vec_ok), DTYPE_CODES[x.dtype],
+            stream)
+    elif variant == "tma":
+        rc = _launcher("repro_expert_matmul_tma")(
+            *ptrs, counts.data_ptr(), E, C, K, F, *st, stream)
+    else:
+        rc = _launcher("repro_expert_matmul")(
+            *ptrs, counts.data_ptr(), E, C, K, F, *st, DTYPE_CODES[x.dtype],
+            stream)
     if rc != 0:
-        raise RuntimeError(f"expert_matmul launch failed (CUDA error {rc})")
+        raise RuntimeError(f"expert_matmul ({variant}) launch failed "
+                           f"(CUDA error {rc})")
     launches += 1
+    variant_launches[variant] += 1
     return y
 
 

@@ -56,14 +56,14 @@ def launch_counts() -> Dict[str, int]:
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches so far of the kernels that have variants, by variant."""
     return {"elastic_matmul": dict(_em.variant_launches),
-            "flash_attention": dict(_fa.variant_launches)}
+            "flash_attention": dict(_fa.variant_launches),
+            "expert_matmul": dict(_xm.variant_launches)}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count, and each variant's, to 0."""
     for mod in (_em, _fa, _xm):
         mod.launches = 0
-    for mod in (_em, _fa):
         mod.variant_launches.update(dict.fromkeys(mod.variant_launches, 0))
 
 

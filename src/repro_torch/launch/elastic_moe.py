@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.kernels.ops import launch_counts
+from repro_torch.kernels.ops import launch_counts, variant_counts
 from repro_torch.launch.flops import lm_model_flops
 from repro_torch.launch.steps import lm_decode, lm_prefill
 from repro_torch.models.transformer import LMConfig, lm_init
@@ -76,6 +76,12 @@ def _since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
 
 
+def _variants_since(before: dict) -> dict:
+    now = variant_counts()
+    return {k: {v: n - before[k][v] for v, n in per.items()}
+            for k, per in now.items()}
+
+
 def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
         *, iters: int = 3) -> list:
     """Prefill ``tokens[:, :prefill_len]`` at every operating point, then
@@ -84,8 +90,9 @@ def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
     Returns one dict per point: name, E, rel_flops, logits (last prefill
     position), prefill_ms, prefill_tok_s, prefill_launches (kernel
     launches over the 1 + ``iters`` prefills), and for decodable points
-    decode_ms (mean per step), decode_tok_s, decode_logits ((steps, B, V))
-    and decode_launches (over the steps alone)."""
+    decode_ms (mean per step), decode_tok_s, decode_logits ((steps, B, V)),
+    decode_launches and decode_variants (launches by kernel and variant;
+    both over the steps alone)."""
     device = tokens.device
     B, total = tokens.shape
     steps = total - prefill_len
@@ -105,7 +112,7 @@ def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
                                        max_len=total)
                 outs = []
                 synchronize(device)
-                c0 = launch_counts()
+                c0, v0 = launch_counts(), variant_counts()
                 t0 = time.perf_counter()
                 for t in range(prefill_len, total):
                     lg, caches = lm_decode(params, caches,
@@ -115,6 +122,7 @@ def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
                 row["decode_ms"] = (time.perf_counter() - t0) / steps * 1e3
                 row["decode_tok_s"] = B / row["decode_ms"] * 1e3
                 row["decode_launches"] = _since(c0)
+                row["decode_variants"] = _variants_since(v0)
                 row["decode_logits"] = torch.stack(outs)
             rows.append(row)
     return rows

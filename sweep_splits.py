@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Sweep the split plans of K1's small_m and K2's decode variants on the card.
+"""Sweep the split plans of K1's small_m, K2's decode and K3's stream
+variants on the card.
 
     python3 sweep_splits.py      # from the repository root, one CUDA card
 
-Times each variant's C launcher at the LM decode step's shapes under every
-split of K (K1 at M = 4: K chunks of 64-512 rows) or of the cache (K2 at
-T = 513: 3-17 splits), as graph-replayed device time per call (20 calls
-in a CUDA graph, timed as ``chip_smoke.py`` times), beside the plan the
-wrappers choose (``small_m_plan``, ``decode_plan``) and the library call;
-then torch.profiler's per-kernel device time of one default call of each
-(the main kernel and its reduce or merge kernel apart).  It checks no
-result: ``chip_smoke.py`` holds the kernels against their plain versions.
+Times each variant's C launcher at the LM's shapes under every split of K
+(K1 at M = 4: K chunks of 64-512 rows; K3 at C = 4 with 24 live experts of
+64: chunks of 128-512 rows) or of the cache (K2 at T = 513: 3-17 splits),
+as graph-replayed device time per call (20 calls in a CUDA graph, timed
+as ``chip_smoke.py`` times), beside the plan the wrappers choose
+(``small_m_plan``, ``decode_plan``, ``stream_plan``), the library call
+and, for K3, the bound from the live experts' bytes; then
+torch.profiler's per-kernel device time of one default call of each (the
+main kernel and its reduce or merge kernel apart).  It checks no result:
+``chip_smoke.py`` holds the kernels against their plain versions.
 """
 from __future__ import annotations
 
@@ -84,6 +87,41 @@ def k2_splits(cs, dev, g, B: int, H: int, T: int, D: int) -> None:
           f"{lib / REPS * 1e3:.2f} us")
 
 
+def k3_stream_splits(cs, dev, g, K: int, F: int) -> None:
+    """K3 decode: C = 4, one row on each of 24 live experts of 64."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    live = torch.randperm(64, generator=torch.Generator().manual_seed(K))
+    counts = [0] * 64
+    for e in live[:24].tolist():
+        counts[e] = 1
+    x = torch.randn(64, 4, K, device=dev, generator=g).bfloat16()
+    w = (torch.randn(64, K, F, device=dev, generator=g) / K ** 0.5
+         ).bfloat16()
+    c = torch.tensor(counts, dtype=torch.int32, device=dev)
+    bound = cs.kernel_bound_ms(*cs.k3_work((x, w, c), {}))[0]
+    y = torch.empty(64, 4, F, device=dev, dtype=torch.bfloat16)
+    fn = xm._launcher("repro_expert_matmul_stream")
+    out = []
+    for kc in (128, 256, 512):
+        splits = math.ceil(K / kc)
+        ws = torch.empty(splits, 64, 4, F, device=dev)
+
+        def go():
+            for _ in range(REPS):
+                fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                   ws.data_ptr() if splits > 1 else None, c.data_ptr(), 64,
+                   4, K, F, *xm.strides(x, w), splits, kc, 1, 1,
+                   torch.cuda.current_stream().cuda_stream)
+        ms, _ = cs.graph_time_ms(go)
+        out.append(f"kc={kc} splits={splits}: {ms / REPS * 1e3:.2f} us")
+    lib = cs.graph_time_ms(lambda: [torch.bmm(x, w) for _ in range(REPS)])[0]
+    print(f"K3 stream E=64 C=4 K={K} F={F} 24 live: " + ", ".join(out)
+          + f"; plan {xm.stream_plan(64, 4, K, F)}; bmm "
+          f"{lib / REPS * 1e3:.2f} us; bound {bound * 1e3:.2f} us")
+
+
 def profile_kernels(label: str, fn) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -119,6 +157,8 @@ def main() -> int:
         for M, K, N in ((4, 2048, 2048), (4, 2048, 2816), (4, 2816, 2048)):
             k1_splits(cs, dev, g, M, K, N)
         k2_splits(cs, dev, g, 4, 16, 513, 128)
+        for K, F in ((2048, 1408), (1408, 2048)):
+            k3_stream_splits(cs, dev, g, K, F)
         x = torch.randn(4, 2048, device=dev, generator=g).bfloat16()
         w = torch.randn(2048, 2048, device=dev, generator=g).bfloat16()
         profile_kernels("k1 2048^2", lambda: ops.elastic_matmul_op(
@@ -128,6 +168,12 @@ def main() -> int:
         kv = torch.randn(4, 513, 16, 128, device=dev, generator=g).bfloat16()
         profile_kernels("k2 decode", lambda: ops.flash_attention_op(
             q, kv, kv, causal=False))
+        xe = torch.randn(64, 4, 2048, device=dev, generator=g).bfloat16()
+        we = torch.randn(64, 2048, 1408, device=dev, generator=g).bfloat16()
+        ce = torch.zeros(64, dtype=torch.int32, device=dev)
+        ce[::3] = 1                       # 22 live experts, one row each
+        profile_kernels("k3 decode", lambda: ops.expert_matmul_op(
+            xe, we, ce))
     return 0
 
 

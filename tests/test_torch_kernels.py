@@ -9,6 +9,9 @@ CUDA kernels themselves are compared with their plain versions by the
 Tolerances: fp32 2e-4 (matmul) and 3e-3 (attention), as the reference's
 kernel tests; bf16 2e-2, the bf16 rounding of outputs of order one.
 """
+import math
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -244,6 +247,139 @@ def test_decode_plan(T, bkh, want):
         <= splits * chunk
 
 
+_BF, _F32 = torch.bfloat16, torch.float32
+_LM_UP = (491520, 2048, 2883584, 1408)      # x (64, 240, 2048), wi[..., :F]
+
+
+@pytest.mark.parametrize("C,dtype,strides,aligned,want", [
+    (4, _BF, (8192, 2048, 2883584, 1408), True, "stream"),     # LM decode
+    (16, _BF, (32768, 2048, 2883584, 1408), True, "stream"),
+    (16, _F32, (32768, 2048, 2883584, 1408), False, "stream"),
+    (4, _BF, (0, 2048, 2883584, 1408), True, "stream"),        # stride 0
+    (17, _BF, (34816, 2048, 2883584, 1408), True, "tma"),
+    (240, _BF, _LM_UP, True, "tma"),                           # LM prefill
+    (240, _BF, (337920, 1408, 2883584, 2048), True, "tma"),    # down, 1408
+    (240, _BF, (168960, 704, 2883584, 2048), True, "tma"),     # down, 704
+    (240, _BF, _LM_UP, False, "tile_bf16"),                    # base
+    (240, _BF, (0, 2048, 2883584, 1408), True, "tile_bf16"),   # stride 0
+    (240, _BF, (491520, 2048, 2883584, 1412), True, "tile_bf16"),
+    (240, _BF, (241, 2049, 2883584, 1408), True, "tile_bf16"),
+    (240, _F32, _LM_UP, True, "tile_f32"),
+    (17, _F32, (34816, 2048, 2883584, 1408), True, "tile_f32"),
+])
+def test_expert_matmul_variant_choice(C, dtype, strides, aligned, want):
+    assert xm.choose_variant(C, dtype, strides, aligned) == want
+
+
+def test_expert_matmul_variant_of_the_lm_slabs():
+    """The wrapper's strides and alignment on the LM's own tensors: the
+    dispatch slab and a width-sliced weight view go to tma at C = 240 and
+    stream at C = 4; the dense oracle's expanded tokens, to tile."""
+    slab = torch.zeros(64 * 240 + 1, 2048, dtype=_BF)[:-1].view(64, 240,
+                                                                 2048)
+    wi = torch.zeros(64, 2048, 1408, dtype=_BF)[..., :1056]
+    st = xm.strides(slab, wi)
+    assert st == (491520, 2048, 2883584, 1408)
+    assert xm.choose_variant(240, _BF, st, True) == "tma"
+    assert xm.choose_variant(4, _BF, xm.strides(slab[:, :4], wi),
+                             True) == "stream"
+    toks = torch.zeros(1, 240, 2048, dtype=_BF).expand(64, 240, 2048)
+    assert xm.strides(toks, wi)[0] == 0
+    assert xm.choose_variant(240, _BF, xm.strides(toks, wi),
+                             True) == "tile_bf16"
+
+
+@pytest.mark.parametrize("shape,strides_of,want", [
+    ((1, 240, 2048), None, (240 * 2048, 2048)),   # one expert: C * row
+    ((1, 1, 2048), None, (2048, 2048)),           # one row too
+    ((64, 1, 2048), None, (2048, 2048)),
+    ((1, 240, 704), (1408,), (240 * 1408, 1408)),  # a width-sliced view
+])
+def test_expert_strides_of_size_one_dims(shape, strides_of, want):
+    """A tensor map needs a valid stride on a size-1 dim: the extent of
+    the dims inside it, in the rows' own stride."""
+    if strides_of is None:
+        t = torch.zeros(shape)
+    else:
+        t = torch.zeros(shape[0], shape[1], strides_of[0])[..., :shape[2]]
+    assert xm._dim_strides(t) == want
+
+
+def test_expert_tma_tile_matches_source():
+    """TMA_TILE is the block the source launches: 64 rows per consumer
+    warpgroup, X_BN columns (no nvcc here: the constants are read as
+    text)."""
+    text = (build.CSRC / "expert_matmul.cu").read_text()
+    cwg = int(re.search(r"constexpr int X_CWG = (\d+);", text).group(1))
+    bn = int(re.search(r"constexpr int X_BN = (\d+);", text).group(1))
+    assert xm.TMA_TILE == (64 * cwg, bn)
+
+
+def _aligned_zeros(shape, dtype, offset=0):
+    """Zeros of ``shape`` whose base lies ``offset`` elements past a
+    16-byte boundary."""
+    n = math.prod(shape)
+    buf = torch.zeros(n + 16, dtype=dtype)
+    skip = (-buf.data_ptr() // buf.element_size()) % (16 // buf.element_size())
+    return buf[skip + offset:skip + offset + n].view(shape)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("prefill", "tma"),           # the dispatch slab, a width-sliced weight
+    ("decode", "stream"),
+    ("one_expert", "tma"),        # E = 1: the size-1 expert axis
+    ("oracle", "tile_bf16"),      # the dense oracle's stride-0 expert axis
+    ("unaligned", "tile_bf16"),   # x's base off a 16-byte boundary
+    ("empty_k", "tile_bf16"),     # K = 0: a tensor map has no empty dim
+    ("fp32", "tile_f32"),
+])
+def test_expert_matmul_variant_of(case, want):
+    """The variant the wrapper launches, from the tensors themselves."""
+    dt = _F32 if case == "fp32" else _BF
+    E, C, K = {"one_expert": (1, 240, 2048), "decode": (64, 4, 2048),
+               "empty_k": (64, 240, 0)}.get(case, (64, 240, 2048))
+    x = _aligned_zeros((E, C, K), dt, offset=1 if case == "unaligned" else 0)
+    if case == "oracle":
+        x = _aligned_zeros((1, C, K), dt).expand(E, C, K)
+    w = _aligned_zeros((E, K, 1408), dt)[..., :1056]
+    assert xm.variant_of(x, w) == want
+
+
+@pytest.mark.parametrize("E,C,K,F,elem,want", [
+    (64, 4, 2048, 1408, 2, (4, 512)),    # LM decode up/gate
+    (64, 4, 1408, 2048, 2, (3, 480)),    # LM decode down
+    (64, 4, 704, 2048, 2, (2, 352)),     # down at a_ff 704
+    (32, 4, 2048, 1056, 2, (4, 512)),
+    (1, 4, 2048, 1408, 2, (8, 256)),     # one expert: more splits
+    (8, 16, 2048, 704, 4, (6, 352)),     # fp32: 16 rows at once
+    (64, 4, 200, 2048, 2, (1, 224)),
+    (64, 4, 0, 2048, 2, (1, 32)),
+])
+def test_stream_plan(E, C, K, F, elem, want):
+    splits, kc = xm.stream_plan(E, C, K, F, elem)
+    assert (splits, kc) == want
+    assert kc <= xm.STREAM_KC_MAX and splits * kc >= K
+    assert (splits - 1) * kc < max(K, 1)           # no empty split
+
+
+def test_expert_matmul_kernel_entry_takes_only_cuda():
+    """No fallback: the kernel entry raises on CPU tensors (the op routes
+    those to the plain version before it)."""
+    x = torch.zeros(2, 4, 8, dtype=_BF)
+    with pytest.raises(ValueError):
+        xm.expert_matmul(x, torch.zeros(2, 8, 6, dtype=_BF),
+                         torch.zeros(2, dtype=torch.int32))
+
+
+def test_variant_counts_cover_every_kernel_with_variants():
+    xm.variant_launches["stream"] += 3
+    assert ops.variant_counts()["expert_matmul"]["stream"] >= 3
+    ops.reset_launch_counts()
+    for per in ops.variant_counts().values():
+        assert set(per.values()) == {0}
+    assert set(ops.variant_counts()["expert_matmul"]) == set(xm.VARIANTS)
+
+
 def test_attention_alignment_ignores_size_one_dims():
     q = torch.zeros(2, 1, 16, 128, dtype=torch.bfloat16)
     assert fa._aligned(q, q[:, :, :8], q.as_strided((2, 1, 4, 8),
@@ -270,12 +406,15 @@ def test_build_command_targets_hopper():
 def test_every_launcher_is_exported_by_its_source():
     """The C entry points the wrappers bind are defined in the sources the
     build compiles (no nvcc here: the symbols are checked as text)."""
-    for name, mod in (("elastic_matmul", em), ("flash_attention", fa)):
+    for name, mod in (("elastic_matmul", em), ("flash_attention", fa),
+                      ("expert_matmul", xm)):
         text = (build.CSRC / f"{name}.cu").read_text()
         for fn in mod._ARGTYPES:
             assert f'extern "C" int {fn}(' in text, fn
-    assert '#include "tile_matmul.cuh"' in (
-        build.CSRC / "elastic_matmul.cu").read_text()
+    for name in ("elastic_matmul", "expert_matmul"):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for header in ("tile_matmul.cuh", "hopper_gemm.cuh"):
+            assert f'#include "{header}"' in text, (name, header)
 
 
 def test_library_name_tracks_shared_headers(tmp_path, monkeypatch):
@@ -285,10 +424,27 @@ def test_library_name_tracks_shared_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    before = build.library_path("expert_matmul")
-    (csrc / "tile_matmul.cuh").write_text(
-        (csrc / "tile_matmul.cuh").read_text() + "\n// edited\n")
-    assert build.library_path("expert_matmul") != before
+    for header in ("tile_matmul.cuh", "hopper_gemm.cuh"):
+        before = {n: build.library_path(n)
+                  for n in ("elastic_matmul", "expert_matmul")}
+        (csrc / header).write_text((csrc / header).read_text()
+                                   + "\n// edited\n")
+        for name, path in before.items():
+            assert build.library_path(name) != path, (header, name)
+
+
+def test_loaded_as_serves_another_library_and_restores(monkeypatch):
+    """build.loaded_as swaps one source's library for the block only (no
+    nvcc here: stand-in objects play the libraries)."""
+    ours, other = object(), object()
+    monkeypatch.setattr(build, "_libs", {"expert_matmul": ours})
+    with build.loaded_as("expert_matmul", other):
+        assert build.library("expert_matmul") is other
+    assert build.library("expert_matmul") is ours
+    with pytest.raises(RuntimeError):
+        with build.loaded_as("expert_matmul", other):
+            raise RuntimeError
+    assert build.library("expert_matmul") is ours
 
 
 def test_plain_kernels_context_is_thread_local_and_restores():
@@ -381,6 +537,79 @@ def test_cuda_expert_matmul_matches_plain(cuda, dtype, a_ff):
         for e, n in enumerate(counts.tolist()):
             assert torch.all(y[e, n:] == 0)
     assert xm.launches == before + 2
+
+
+def _k3_case(cuda, dt, E, C, K, F, counts, seed, nan_past=False):
+    """x (E, C, K) (NaN past each count with ``nan_past``), a width-sliced
+    view of a wider weight, device counts; holds the op against its plain
+    version and returns the variants that launched."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(E, C, K, generator=g).to(cuda, dt)
+    if nan_past:
+        for e, n in enumerate(counts):
+            x[e, n:] = float("nan")
+    w = (torch.randn(E, K, F + 64, generator=g) / K ** 0.5).to(cuda, dt)
+    c = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    before = dict(xm.variant_launches)
+    y = ops.expert_matmul_op(x, w[..., :F], c)
+    ran = {v for v, n in xm.variant_launches.items() if n != before[v]}
+    with ops.plain_kernels():
+        yp = ops.expert_matmul_op(x, w[..., :F], c)
+    torch.cuda.synchronize()
+    tol = 3e-4 if dt == torch.float32 else 3e-2
+    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+    for e, n in enumerate(counts):
+        assert torch.all(y[e, n:] == 0)
+    return ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,F", [(2048, 1408), (1408, 2048)])
+def test_cuda_expert_matmul_decode_stream(cuda, dtype, K, F):
+    """Decode: C = 4 with one to four rows on 24 live experts of 64."""
+    live = torch.randperm(64, generator=torch.Generator().manual_seed(K))
+    counts = [0] * 64
+    for i, e in enumerate(live[:24].tolist()):
+        counts[e] = 1 + i % 4
+    ran = _k3_case(cuda, getattr(torch, dtype), 64, 4, K, F, counts, 4)
+    assert ran == {"stream"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,want", [("bfloat16", "tma"),
+                                        ("float32", "tile_f32")])
+@pytest.mark.parametrize("K,F", [(2048, 1408), (2048, 1056), (704, 2048)])
+def test_cuda_expert_matmul_prefill_variant(cuda, dtype, want, K, F):
+    """Prefill: C = 240 with the ragged counts above (0, partial tiles,
+    the full C); bf16 on tma, fp32 on the tile loop."""
+    counts = [240, 0, 37, 64, 1, 200, 239, 128]
+    ran = _k3_case(cuda, getattr(torch, dtype), 8, 240, K, F, counts, 5)
+    assert ran == {want}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,count", [(4, 3), (16, 16), (17, 9), (240, 100)])
+def test_cuda_expert_matmul_one_expert(cuda, dtype, C, count):
+    """E = 1: the size-1 expert axis (a tensor map needs a valid stride
+    there) on each variant."""
+    dt = getattr(torch, dtype)
+    ran = _k3_case(cuda, dt, 1, C, 2048, 1408, [count], 6)
+    want = "stream" if C <= 16 else ("tma" if dt == torch.bfloat16
+                                     else "tile_f32")
+    assert ran == {want}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [4, 240])
+def test_cuda_expert_matmul_rows_past_counts_do_not_leak(cuda, dtype, C):
+    """NaN in x past every count: each variant computes or skips those
+    rows, and its output there is exact zeros all the same."""
+    counts = [min(C, n) for n in (3, 0, 1, 2, 200, 64, 37, 128)]
+    _k3_case(cuda, getattr(torch, dtype), 8, C, 2048, 1408, counts, 7,
+             nan_past=True)
 
 
 @pytest.mark.cuda
