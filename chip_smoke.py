@@ -81,7 +81,37 @@ the LM slice (deepseek-moe-16b at full width):
     time to issue each row's launches (kernel and parent); K1's and K3's
     rows broken down by call shape and variant;
 14. with ``--parent-csrc`` only: the full point's prefill and decode step
-    as wall time, on this tree's kernels and on the parent's, in turns.
+    as wall time, on this tree's kernels and on the parent's, in turns;
+
+the training slice (sandwich-rule supernet training of the full-width
+Dynamic-OFA ViT, batch 256, bf16):
+
+15. the training main path: ``repro_torch.launch.train --arch
+    dynamic-ofa-supernet --sandwich`` for 8 steps with a checkpoint every
+    4 and a failure injected at step 6: finite losses, exactly one restart,
+    the K1 forward, dgrad and wgrad and the K2 forward and backward
+    counters all rising, no bf16 call on K1 ``tile_bf16`` or K2
+    ``fma_bf16`` (nor a backward on ``fma_f32``), the median step time
+    after the first step and the peak device memory;
+16. K1 dgrad and wgrad against their plain versions at every distinct call
+    (shapes, strides, widths) of one recorded sandwich step, full and
+    masked widths, on the recorded bf16 inputs, cast to fp32 and with dy
+    scaled to unit rms, exact zeros past k_act (dgrad) and outside the
+    active block (wgrad);
+17. K2's backward (dQ, dK, dV) and its forward's logsumexp against their
+    plain versions: the recorded step's call (S = T = 197, D = 64) and
+    random cases with T not a multiple of the 64-key tile and GQA, bf16
+    and fp32;
+18. one fp32 sandwich step of the full-width config at batch 4, kernel
+    path against plain path: the loss within 1e-4 relative, every gradient
+    leaf within 1e-3 of its largest value;
+19. phase 7 for the training slice: K1's forward, dgrad and wgrad and K2's
+    forward and backward over the recorded calls of one sandwich step as
+    graph-replayed device time, each beside its bound, its plain version
+    and a yardstick the port never calls (``torch.matmul`` on the active
+    block; SDPA, and autograd's backward of SDPA); and one whole step's
+    device time by kernel from a ``torch.profiler`` trace, beside its wall
+    time (the device's busy share).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -285,6 +315,8 @@ def k2_library(q, k, v, causal=True):
         is_causal=causal, enable_gqa=k.shape[2] != q.shape[2])
 
 
+# the forward kernels (the serving and LM paths launch no backward)
+FORWARD = ("elastic_matmul", "flash_attention", "expert_matmul")
 # the first port's kernels, which no bf16 main-path call may take
 OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
             ("expert_matmul", "tile_bf16")}
@@ -353,7 +385,7 @@ def k3_group(args, kw) -> str:
 
 
 def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
-              work, parent=None, group=None) -> dict:
+              work, parent=None, group=None, mode=None) -> dict:
     """Time one row -- the recorded calls of a forward or a step -- as
     graph-replayed device time for the kernel, its plain version, the
     library yardstick and (given) the parent commit's kernel, in turns
@@ -361,8 +393,10 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
     and as the host's time to issue the loop (kernel and parent).
     ``parent`` is (op, libs): the parent's op, to be called inside
     ``libs()``.  The bound sums each call's bound at the data-sheet
-    peaks."""
+    peaks.  ``mode`` is the grad-mode context the loops run in
+    (``torch.inference_mode`` by default)."""
     import torch
+    mode = mode or torch.inference_mode
     bound, b_sum, o_sum = 0.0, 0.0, 0.0
     for args, kw in calls:
         nb, no, peak = work(args, kw)
@@ -383,7 +417,7 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
         ms, how = graph_time_ms(run(fn))
         hows.add(how)
         return ms
-    with torch.inference_mode():
+    with mode():
         ts_parent, ts_kernel = [], []
         for who in (("parent", "kernel", "kernel", "parent") if parent
                     else ("kernel",)):
@@ -428,7 +462,7 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
         for args, kw in calls:
             groups.setdefault(group(args, kw), []).append((args, kw))
         row["groups"] = {}
-        with torch.inference_mode():
+        with mode():
             for name, sub in sorted(groups.items()):
                 gb = sum(kernel_bound_ms(*work(a, k))[0] for a, k in sub)
                 tk = graph_time_ms(lambda sub=sub: [kern(*a, **k)
@@ -835,9 +869,9 @@ def lm_phases(dev, parent) -> dict:
                 not torch.isfinite(r["logits"]).all() or \
                 not torch.isfinite(r.get("decode_logits", r["logits"])).all():
             raise AssertionError(f"{r['name']}: bad logits")
-        if min(r["prefill_launches"].values()) <= 0 or (
+        if min(r["prefill_launches"][k] for k in FORWARD) <= 0 or (
                 "decode_launches" in r
-                and min(r["decode_launches"].values()) <= 0):
+                and min(r["decode_launches"][k] for k in FORWARD) <= 0):
             raise AssertionError(f"{r['name']}: a kernel was not launched: "
                                  f"prefill {r['prefill_launches']}, decode "
                                  f"{r.get('decode_launches')}")
@@ -1096,6 +1130,521 @@ def end_to_end(params, cfg, tokens, targets, parent_ops: dict,
     return res
 
 
+# the training slice: K1's dgrad and wgrad, K2's backward (recorded calls
+# are (args, kw) of the wrappers in kernels/elastic_matmul.py and
+# kernels/flash_attention.py)
+
+def k1_dgrad_work(args, kw) -> tuple:
+    import torch
+    dy, w, _, k_act, n_act, kx = args
+    M = dy.shape[0]
+    peak = PEAK_BF16_FLOPS if dy.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return (dy.element_size() * (M * n_act + k_act * n_act + M * kx),
+            2 * M * k_act * n_act, peak)
+
+
+def k1_wgrad_work(args, kw) -> tuple:
+    import torch
+    x, dy, _, k_act, n_act, w_shape = args
+    M = x.shape[0]
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return (x.element_size() * (M * k_act + M * n_act
+                                + w_shape[0] * w_shape[1]),
+            2 * M * k_act * n_act, peak)
+
+
+def k2_bwd_work(args, kw) -> tuple:
+    """q, o, dO and k, v read, the fp32 logsumexp read, dq, dk, dv
+    written; five products of 2 S T D a head (S = QK^T recomputed, dP,
+    dV, dQ, dK)."""
+    q, k, *_ = args
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    e = q.element_size()
+    return (e * (4 * B * S * H * D + 4 * B * T * KH * D) + 4 * B * H * S,
+            10 * B * H * S * T * D, PEAK_BF16_FLOPS)
+
+
+def k1_dgrad_plain(dy, w, widths, k_act, n_act, kx):
+    from repro_torch.kernels import elastic_matmul as em
+    return em.elastic_matmul_dgrad_plain(dy, w, k_act, n_act, kx)
+
+
+def k1_dgrad_library(dy, w, widths, k_act, n_act, kx):
+    """The yardstick: one torch.matmul on the active block."""
+    import torch
+    return torch.matmul(dy[:, :n_act], w[:k_act, :n_act].T)
+
+
+def k1_wgrad_plain(x, dy, widths, k_act, n_act, w_shape):
+    from repro_torch.kernels import elastic_matmul as em
+    return em.elastic_matmul_wgrad_plain(x, dy, k_act, n_act, w_shape)
+
+
+def k1_wgrad_library(x, dy, widths, k_act, n_act, w_shape):
+    """The yardstick: one torch.matmul on the active block."""
+    import torch
+    return torch.matmul(x[:, :k_act].T, dy[:, :n_act])
+
+
+def k2_bwd_kernel(q, k, v, o, lse, do, causal=False):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+
+def k2_bwd_plain(q, k, v, o, lse, do, causal=False):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+
+
+class SdpaBackward:
+    """The yardstick for K2's backward: autograd's backward of
+    F.scaled_dot_product_attention on the same q, k, v and dO (the
+    forward run once per distinct call, outside the timing)."""
+
+    def __init__(self):
+        self.graphs = {}
+
+    def __call__(self, q, k, v, o, lse, do, causal=False):
+        import torch
+        import torch.nn.functional as F
+        key = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
+        if key not in self.graphs:
+            with torch.enable_grad():
+                ins = [t.transpose(1, 2).detach().requires_grad_()
+                       for t in (q, k, v)]
+                out = F.scaled_dot_product_attention(
+                    *ins, is_causal=causal,
+                    enable_gqa=k.shape[2] != q.shape[2])
+            self.graphs[key] = (out, ins, do.transpose(1, 2))
+        out, ins, g = self.graphs[key]
+        return torch.autograd.grad(out, ins, g, retain_graph=True)
+
+
+# kernel-name fragments -> the row of the step's device-time breakdown
+STEP_GROUPS = (("dgrad", "K1 dgrad"), ("wgrad", "K1 wgrad"),
+               ("flash_attention_bwd", "K2 backward"),
+               ("flash_attention", "K2 forward"),
+               ("gemm_tma", "K1 forward"), ("small_m", "K1 forward"),
+               ("elastic_matmul", "K1 forward"))
+
+
+class NoTrace(Exception):
+    """torch.profiler could not trace the card."""
+
+
+def step_breakdown(fn) -> dict:
+    """Device time of one call of fn() (a training step) by kernel, from a
+    torch.profiler trace: {"wall_ms", "device_ms", "groups": {row: ms},
+    "other_top": [(kernel, ms, calls)]}.  Raises NoTrace if the profiler
+    fails or its trace holds no device time; what fn() raises propagates
+    (a kernel's failed launch is a failure, not a missing trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        raise NoTrace(f"the profiler did not start: {e}") from e
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    except BaseException:
+        prof.stop()
+        raise
+    try:
+        prof.stop()
+        events = prof.events()
+    except RuntimeError as e:
+        raise NoTrace(f"the profiler gave no trace: {e}") from e
+    kernels = {}     # kernel name -> (ms, launches): the device events only
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not kernels:
+        raise NoTrace("the profiler recorded no device time")
+    groups, other = {}, []
+    for name, (ms, n) in kernels.items():
+        row = next((g for frag, g in STEP_GROUPS if frag in name), None)
+        if row is None:
+            other.append((name[:80], ms, n))
+        else:
+            groups[row] = groups.get(row, 0.0) + ms
+    groups["other kernels"] = sum(ms for _, ms, _ in other)
+    return {"wall_ms": wall * 1e3, "device_ms": sum(groups.values()),
+            "groups": groups,
+            "other_top": sorted(other, key=lambda r: -r[1])[:8]}
+
+
+def expand(distinct: dict) -> list:
+    """Recorded distinct calls {signature: [args, kw, count]} -> the step's
+    call list (each distinct call repeated as often as the step made it,
+    on its first call's inputs)."""
+    return [(a, kw) for a, kw, n in distinct.values() for _ in range(n)]
+
+
+def train_phases(dev) -> dict:
+    """Phases 15-19: the training slice (sandwich-rule supernet training of
+    the full-width Dynamic-OFA ViT).  Returns what the kernels' record
+    needs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.core.supernet import (make_sandwich_step,
+                                           sandwich_backward)
+    from repro_torch.data import synthetic_image_batches, to_device
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.vit import vit_apply, vit_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import named_leaves, pop_grads
+
+    arch = get_arch("dynamic-ofa-supernet")
+    cfg = arch.make_config()
+    B = arch.shape("cls_224").global_batch
+    dims = {"d_model": cfg.d_model, "d_ff": cfg.d_ff,
+            "n_heads": cfg.n_heads, "n_layers": cfg.n_layers}
+    out = {}
+
+    t0 = phase(f"15. training main path: repro_torch.launch.train --arch "
+               f"dynamic-ofa-supernet --sandwich, full width, batch {B}, "
+               f"bf16; 8 steps, a checkpoint every 4, a failure injected at "
+               f"step 6")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)   # earlier phases' leftovers
+    ops.reset_launch_counts()
+    res = train_mod.main(["--arch", "dynamic-ofa-supernet", "--sandwich",
+                          "--steps", "8", "--save-every", "4", "--fail-at",
+                          "6", "--ckpt-dir", ckpt, "--log-every", "1",
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["variants"] = ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if res["restarts"] != 1:
+        raise AssertionError(f"{res['restarts']} restarts, want exactly the "
+                             f"injected one")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"non-finite losses {res['losses']}")
+    for _, p in named_leaves(res["params"]):
+        if not torch.isfinite(p).all():
+            raise AssertionError("non-finite parameters after training")
+    need = ("elastic_matmul", "elastic_matmul_dgrad", "elastic_matmul_wgrad",
+            "flash_attention", "flash_attention_bwd")
+    idle = [k for k in need if out["launches"][k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched while training: {idle}")
+    main_path_variants(out["variants"], need={
+        ("elastic_matmul", "tma"), ("flash_attention", "mma"),
+        ("elastic_matmul_dgrad", "wmma_bf16"),
+        ("elastic_matmul_wgrad", "wmma_bf16"),
+        ("flash_attention_bwd", "mma")})
+    for kern in ("elastic_matmul_dgrad", "elastic_matmul_wgrad",
+                 "flash_attention_bwd"):
+        if out["variants"][kern]["fma_f32"]:
+            raise AssertionError(f"{kern}: bf16 training took fma_f32")
+    steady = res["step_ms"][1:]
+    out["step_ms"] = statistics.median(steady)
+    out["step_ms_all"] = res["step_ms"]
+    out["peak_gib"] = peak / 2**30
+    out["peak_run_gib"] = (peak - base) / 2**30
+    out["losses"] = res["losses"]
+    log(f"  {len(res['step_ms'])} steps run (one restart: "
+        f"{res['restarts']}); losses {', '.join(f'{x:.3f}' for x in res['losses'])}")
+    log(f"  step time: median {out['step_ms']:.1f} ms over the steps after "
+        f"the first (all: {', '.join(f'{x:.1f}' for x in res['step_ms'])} "
+        f"ms); peak device memory {out['peak_gib']:.2f} GiB "
+        f"({out['peak_run_gib']:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB allocated before the run)")
+    log(f"  launches on the training path: {out['launches']}")
+    log(f"  by variant: {out['variants']}")
+    del res
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase(f"16. K1 forward, dgrad and wgrad vs plain at every distinct "
+               f"call of one recorded sandwich step (batch {B}; bf16 as "
+               f"recorded, cast to fp32, and with x or dy at unit rms)")
+    params = vit_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    batch = to_device(next(synthetic_image_batches(
+        global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes)), dev)
+
+    def apply_fn(p, b, E):
+        return vit_apply(p, b["images"], cfg, E=E)[0]
+    opt_init, opt_update = make_optimizer(arch.optimizer)
+    step_fn, sample = make_sandwich_step(apply_fn, opt_update, dims)
+    E_stack = sample(cfg.elastic, np.random.default_rng(0))
+    rec = {k: {} for k in ("k1", "k2", "dgrad", "wgrad", "k2_bwd")}
+
+    def sink(key, args, kw):
+        sig = call_signature(key, args, kw)
+        if sig in rec[key]:
+            rec[key][sig][2] += 1
+        else:
+            rec[key][sig] = [tuple(a.detach() if isinstance(a, torch.Tensor)
+                                   else a for a in args), dict(kw), 1]
+    with recording([(layers_mod, "elastic_matmul_op", "k1"),
+                    (layers_mod, "flash_attention_op", "k2"),
+                    (em, "elastic_matmul_dgrad", "dgrad"),
+                    (em, "elastic_matmul_wgrad", "wgrad"),
+                    (fa, "flash_attention_bwd", "k2_bwd")], sink):
+        loss = sandwich_backward(apply_fn, params, batch, E_stack)
+        torch.cuda.synchronize()
+    pop_grads(params)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"recorded step loss {float(loss)}")
+    counts = {k: sum(n for *_, n in v.values()) for k, v in rec.items()}
+    log(f"  recorded step: loss {float(loss):.4f}; calls {counts}, distinct "
+        f"{ {k: len(v) for k, v in rec.items()} }; students "
+        f"{ {k: v.tolist() for k, v in E_stack.items()} }")
+    errs = {}
+    # key -> (kernel, plain version, the argument scaled to unit rms, the
+    # index of k_act in the arguments)
+    checks = {"k1": (ops.elastic_matmul_op, k1_plain, 0, 2),
+              "dgrad": (em.elastic_matmul_dgrad, k1_dgrad_plain, 0, 3),
+              "wgrad": (em.elastic_matmul_wgrad, k1_wgrad_plain, 1, 3)}
+    counter = {"k1": "elastic_matmul", "dgrad": "elastic_matmul_dgrad",
+               "wgrad": "elastic_matmul_wgrad"}
+    for key, (kern, plain, iu, iw) in checks.items():
+        before = ops.launch_counts()[counter[key]]
+        # as recorded, cast to fp32, and with x (forward) or dy (backward)
+        # scaled to unit rms: the gradients of a batch-mean loss are small,
+        # and so are their errors, so at unit scale the error must also be
+        # within tol of the largest value (a kernel writing zeros fails)
+        for dt, unit in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True)):
+            tol = TOL[str(dt).split(".")[1]]
+            worst = rel = 0.0
+            for args, kw, n in rec[key].values():
+                a = [t.to(dt) if isinstance(t, torch.Tensor)
+                     and t.is_floating_point() else t for t in args]
+                if unit:
+                    a[iu] = (a[iu].float() / a[iu].float().square().mean()
+                             .sqrt()).to(dt)
+                a = tuple(a)
+                want = plain(*a, **kw)
+                got = kern(*a, **kw).reshape(want.shape)
+                torch.cuda.synchronize()
+                err = close(got, want, tol)
+                worst = max(worst, err)
+                r = err / max(float(want.abs().max()), 1e-30)
+                rel = max(rel, r)
+                k_act, n_act = a[iw], a[iw + 1]
+                if unit and not r <= tol:
+                    raise AssertionError(
+                        f"{key} at {(k_act, n_act)}: max abs err {err} is "
+                        f"{r:.3g} of the largest value (tol {tol})")
+                if key == "dgrad":
+                    zero = got[:, k_act:]
+                elif key == "wgrad":
+                    zero = torch.cat([got[k_act:].flatten(),
+                                      got[:k_act, n_act:].flatten()])
+                else:
+                    zero = got[:, n_act:]
+                if zero.numel() and not bool((zero == 0).all()):
+                    raise AssertionError(f"{key}: non-zero outside the "
+                                         f"active block at {a[iw:iw + 2]}")
+            errs[(key, str(dt), unit)] = worst
+            widths = sorted({(v[0][iw], v[0][iw + 1])
+                             for v in rec[key].values()})
+            log(f"  {key:5s} {str(dt):15s}"
+                f"{' at unit rms' if unit else ''} {len(rec[key])} distinct "
+                f"calls (widths {widths}): max abs err {worst:.3g}, "
+                f"{rel:.3g} of the largest value (tol {tol} + {tol} x "
+                f"|plain|{'; and tol of the largest value' if unit else ''}"
+                f"); zeros outside the active block exact")
+        # the comparisons ran the kernel (an error of 0 is the kernel
+        # summing in the library's order, not the plain route)
+        ran = ops.launch_counts()[counter[key]] - before
+        if ran != 3 * len(rec[key]):
+            raise AssertionError(f"{key}: {ran} kernel launches in "
+                                 f"{3 * len(rec[key])} comparisons")
+    # the main path's own inputs; the unit-rms pass is logged above
+    out["k1_bwd_err"] = {k: max(e for (kk, _, unit), e in errs.items()
+                                if kk == k and not unit)
+                         for k in ("dgrad", "wgrad")}
+    out["k1_train_fwd_err"] = max(e for (kk, _, unit), e in errs.items()
+                                  if kk == "k1" and not unit)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("17. K2 backward (dQ, dK, dV), the forward's output and its "
+               "logsumexp vs plain: the recorded step's call (S = T = 197, "
+               "D = 64) as recorded and with dO at unit rms, and random "
+               "cases, T not a multiple of the 64-key tile, GQA")
+    gen = torch.Generator().manual_seed(17)
+
+    def rn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+    # (name, q, k, v, dO, unit scale): the recorded dO is the gradient of
+    # a batch-mean loss, so small, and so are its errors; at unit scale
+    # each gradient's error must also be within tol of its largest value
+    # (a kernel writing zeros fails)
+    cases = []
+    for v in rec["k2_bwd"].values():
+        q, k, v_, do = (*v[0][:3], v[0][5])
+        cases.append(("recorded", q, k, v_, do, False))
+        cases.append(("recorded, dO unit rms", q, k, v_,
+                      do.float() / do.float().square().mean().sqrt(), True))
+    for Bq, S_, T_, H_, KH in ((8, 197, 197, 6, 6), (8, 197, 100, 6, 2),
+                               (4, 65, 77, 4, 4)):
+        cases.append((f"B{Bq} S{S_} T{T_} H{H_}/{KH}",
+                      rn(Bq, S_, H_, 64, scale=0.5), rn(Bq, T_, KH, 64,
+                                                        scale=0.5),
+                      rn(Bq, T_, KH, 64), rn(Bq, S_, H_, 64), True))
+    k2_err = k2_fwd_err = 0.0
+    before = (ops.launch_counts()["flash_attention"],
+              ops.launch_counts()["flash_attention_bwd"])
+    for name, q, k, v, do, unit in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            tol = ATTN_TOL[str(dt).split(".")[1]]
+            q_, k_, v_, do_ = (t.to(dt) for t in (q, k, v, do))
+            o, lse = fa.flash_attention(q_, k_, v_, causal=False,
+                                        return_lse=True)
+            o_p, lse_p = fa.flash_attention_plain(q_, k_, v_, causal=False,
+                                                  return_lse=True)
+            got = fa.flash_attention_bwd(q_, k_, v_, o, lse, do_,
+                                         causal=False)
+            want = fa.flash_attention_bwd_plain(q_, k_, v_, o, do_,
+                                                causal=False)
+            torch.cuda.synchronize()
+            e_o = close(o, o_p, tol)
+            e_lse = close(lse, lse_p, 1e-3)
+            es = [close(a, b, tol) for a, b in zip(got, want)]
+            rels = [e / max(float(b.abs().max()), 1e-30)
+                    for e, b in zip(es, want)]
+            if unit and not max(rels) <= tol:
+                raise AssertionError(
+                    f"K2 backward {name} {dt}: errors {es} are {rels} of "
+                    f"the largest values (tol {tol})")
+            k2_err = max(k2_err, *es)
+            k2_fwd_err = max(k2_fwd_err, e_o)
+            log(f"  {str(dt):15s} {name:22s} {tuple(q.shape)}: o err "
+                f"{e_o:.3g} (tol {tol}), lse err {e_lse:.3g} (tol 1e-3); "
+                f"dq/dk/dv max abs err {'/'.join(f'{e:.3g}' for e in es)}"
+                f", {'/'.join(f'{r:.3g}' for r in rels)} of the largest "
+                f"values (tol {tol}{' each' if unit else ' + x |plain|'})")
+    ran = (ops.launch_counts()["flash_attention"] - before[0],
+           ops.launch_counts()["flash_attention_bwd"] - before[1])
+    if ran != (2 * len(cases),) * 2:
+        raise AssertionError(f"K2 forward/backward launches {ran} in "
+                             f"{2 * len(cases)} comparisons each")
+    out["k2_fwd_err"] = k2_fwd_err
+    out["k2_bwd_err"] = k2_err
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("18. one fp32 sandwich step of the full-width config (batch "
+               "4): kernel path vs plain path on the card")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = vit_init(torch.Generator().manual_seed(1), cfg32, device=dev)
+    for _, p in named_leaves(p32):
+        p.requires_grad_(True)
+    b4 = to_device(next(synthetic_image_batches(
+        global_batch=4, img_res=cfg.img_res, n_classes=cfg.n_classes,
+        seed=1)), dev)
+
+    def apply32(p, b, E):
+        return vit_apply(p, b["images"], cfg32, E=E)[0]
+    E4 = sample(cfg.elastic, np.random.default_rng(4))
+    loss_k = float(sandwich_backward(apply32, p32, b4, E4))
+    g_k = dict(named_leaves(pop_grads(p32)))
+    with ops.plain_kernels():
+        loss_p = float(sandwich_backward(apply32, p32, b4, E4))
+    g_p = dict(named_leaves(pop_grads(p32)))
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not rel <= 1e-4:
+        raise AssertionError(f"fp32 step loss {loss_k} vs plain {loss_p}")
+    worst, worst_leaf = 0.0, ""
+    g_max = max(float(g.abs().max()) for g in g_p.values() if g is not None)
+    for path, gp in g_p.items():
+        gk = g_k[path]
+        if (gp is None) != (gk is None):
+            raise AssertionError(f"{path}: gradient on one path only")
+        if gp is None:
+            continue
+        scale = float(gp.abs().max())
+        err = float((gk - gp).abs().max())
+        if path.endswith("attn/k/bias"):
+            # its true gradient is 0 (softmax ignores a shift shared by a
+            # row's scores): both paths must give round-off of zero
+            if max(scale, float(gk.abs().max())) > 1e-5 * g_max:
+                raise AssertionError(f"{path}: {scale} is not round-off "
+                                     f"of 0 (largest gradient {g_max})")
+            continue
+        if not math.isfinite(err) or err > 1e-3 * max(scale, 1e-12):
+            raise AssertionError(f"{path}: grad err {err} > 1e-3 x {scale}")
+        if scale > 0 and err / scale > worst:
+            worst, worst_leaf = err / scale, path
+    out["fp32_step"] = {"loss": loss_k, "loss_plain": loss_p,
+                        "loss_rel_err": rel, "grad_rel_err": worst}
+    log(f"  loss {loss_k:.6f} vs plain {loss_p:.6f} (rel {rel:.2g}, tol "
+        f"1e-4); {len(g_p)} gradient leaves, worst max |diff| / max |grad| "
+        f"{worst:.3g} at {worst_leaf} (tol 1e-3; the key biases, whose "
+        f"true gradient is 0, within 1e-5 of the largest gradient "
+        f"{g_max:.3g} on both paths); students "
+        f"{ {k: v.tolist() for k, v in E4.items()} }")
+    del p32, g_k, g_p, b4
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = phase("19. training kernel times over one recorded sandwich step "
+               "(bf16, batch 256; graph-replayed device time), and one whole "
+               "step's device time by kernel (torch.profiler)")
+    opt = opt_init(params)
+    try:
+        bd = step_breakdown(lambda: step_fn(params, opt, batch, E_stack, 0))
+    except NoTrace as e:
+        bd = None
+        log(f"  step breakdown not measured: {e}")
+    if bd is not None:
+        log(f"  one step: wall {bd['wall_ms']:.1f} ms (profiled), device "
+            f"time in kernels {bd['device_ms']:.1f} ms (busy "
+            f"{bd['device_ms'] / bd['wall_ms']:.0%}): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(bd["groups"].items(),
+                                                  key=lambda kv: -kv[1])))
+        log("  largest other kernels: " + "; ".join(
+            f"{n} {ms:.1f} ms x{c}" for n, ms, c in bd["other_top"]))
+    out["step_breakdown"] = bd
+    del opt, batch
+    nograd = torch.no_grad
+    out["k1_train_fwd"] = time_rows(
+        "K1 forward, sandwich step", expand(rec["k1"]),
+        ops.elastic_matmul_op, k1_plain, k1_library, "torch.matmul", k1_work)
+    out["k2_train_fwd"] = time_rows(
+        "K2 forward, sandwich step", expand(rec["k2"]),
+        ops.flash_attention_op, k2_plain, k2_library, "sdpa", k2_work)
+    out["k1_dgrad"] = time_rows(
+        "K1 dgrad, sandwich step", expand(rec["dgrad"]),
+        em.elastic_matmul_dgrad, k1_dgrad_plain, k1_dgrad_library,
+        "torch.matmul", k1_dgrad_work, mode=nograd)
+    out["k1_wgrad"] = time_rows(
+        "K1 wgrad, sandwich step", expand(rec["wgrad"]),
+        em.elastic_matmul_wgrad, k1_wgrad_plain, k1_wgrad_library,
+        "torch.matmul", k1_wgrad_work, mode=nograd)
+    out["k2_bwd"] = time_rows(
+        "K2 backward, sandwich step", expand(rec["k2_bwd"]), k2_bwd_kernel,
+        k2_bwd_plain, SdpaBackward(), "sdpa backward", k2_bwd_work,
+        mode=nograd)
+    del rec, params
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1134,6 +1683,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products accumulate in fp32, as the kernels
+    # do (cuBLAS may otherwise reduce split-K partials in bf16: wgrad sums
+    # 50,432 rows)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator().manual_seed(0)
 
@@ -1400,6 +1953,7 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     lm = lm_phases(dev, parent)
+    tr = train_phases(dev)
 
     def row_keys(vit: dict) -> dict:
         # the contract's numbers from the ViT forward's row; the LM rows
@@ -1415,28 +1969,38 @@ def main() -> int:
               "source": "src/repro_torch/kernels/csrc/elastic_matmul.cu",
               "replaces": "src/repro/kernels/elastic_matmul.py:68",
               "launches": launches["elastic_matmul"]
-              + lm["launches"]["elastic_matmul"],
+              + lm["launches"]["elastic_matmul"]
+              + tr["launches"]["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
-                                   "lm": lm["launches"]["elastic_matmul"]},
+                                   "lm": lm["launches"]["elastic_matmul"],
+                                   "train": tr["launches"]["elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
-                  "lm": lm["variants"]["elastic_matmul"]},
-              "max_abs_err": k1_err}, **row_keys(vit_k1),
+                  "lm": lm["variants"]["elastic_matmul"],
+                  "train": tr["variants"]["elastic_matmul"]},
+              "max_abs_err": max(k1_err, tr["k1_train_fwd_err"])},
+             **row_keys(vit_k1),
              timing=timing, vit_forward=vit_k1,
-             lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"]),
+             lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"],
+             train_step=tr["k1_train_fwd"]),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:71",
               "launches": launches["flash_attention"]
-              + lm["launches"]["flash_attention"],
+              + lm["launches"]["flash_attention"]
+              + tr["launches"]["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
-                                   "lm": lm["launches"]["flash_attention"]},
+                                   "lm": lm["launches"]["flash_attention"],
+                                   "train": tr["launches"]["flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
-                  "lm": lm["variants"]["flash_attention"]},
-              "max_abs_err": max(k2_err, lm["k2_err"])}, **row_keys(vit_k2),
+                  "lm": lm["variants"]["flash_attention"],
+                  "train": tr["variants"]["flash_attention"]},
+              "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"])},
+             **row_keys(vit_k2),
              timing=timing, vit_forward=vit_k2,
-             lm_prefill=lm["k2_prefill"], lm_decode=lm["k2_decode"]),
+             lm_prefill=lm["k2_prefill"], lm_decode=lm["k2_decode"],
+             train_step=tr["k2_train_fwd"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
@@ -1448,6 +2012,27 @@ def main() -> int:
              timing=timing, lm_prefill=lm["k3_prefill"],
              lm_decode=lm["k3_decode"], kept_share=lm["kept"]),
     ]}
+    for name, src, replaces, row, err in (
+            ("elastic_matmul_dgrad", "elastic_matmul.cu",
+             "elastic_matmul.py:68", tr["k1_dgrad"], tr["k1_bwd_err"]["dgrad"]),
+            ("elastic_matmul_wgrad", "elastic_matmul.cu",
+             "elastic_matmul.py:68", tr["k1_wgrad"], tr["k1_bwd_err"]["wgrad"]),
+            ("flash_attention_bwd", "flash_attention.cu",
+             "flash_attention.py:71", tr["k2_bwd"], tr["k2_bwd_err"])):
+        record["kernels"].append(dict(
+            {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{src}",
+             "replaces": f"src/repro/kernels/{replaces}",
+             "replaces_note": "its gradient: the reference has no backward "
+                              "kernel (JAX differentiates through XLA)",
+             "launches": tr["launches"][name],
+             "launches_by_path": {"train": tr["launches"][name]},
+             "launches_by_variant": {"train": tr["variants"][name]},
+             "max_abs_err": err}, **row_keys(row), timing=timing,
+            train_step=row))
+    log("train: " + json.dumps({k: tr[k] for k in (
+        "step_ms", "step_ms_all", "peak_gib", "peak_run_gib", "losses",
+        "fp32_step", "step_breakdown")}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,16 @@ Two execution modes implement the paper's dynamic DNN:
 
 The invariant that makes both modes agree exactly: every activation tensor
 carries zeros beyond its active channel count, and normalisation layers
-compute statistics over active channels only.  This slice of the port
-serves in sliced mode; the masked layers come with the training slice.
+compute statistics over active channels only.  The port's masked widths
+are 0-d int32 tensors on the CPU (what :func:`spec_to_dynamic` gives with
+``device=None``): the host samples them, so a layer reads ``int(a)``
+without a device sync.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import Active, is_static
@@ -34,10 +37,10 @@ def mask_dim(x: torch.Tensor, a: Active, axis: int = -1) -> torch.Tensor:
     """Zero channels >= a along ``axis`` (no-op for None / full static)."""
     if a is None:
         return x
-    size = x.shape[axis]
-    if is_static(a) and int(a) == size:
+    size, n = x.shape[axis], int(a)
+    if n == size:
         return x
-    m = active_mask(a, size, x.dtype, x.device)
+    m = active_mask(n, size, x.dtype, x.device)
     shape = [1] * x.ndim
     shape[axis] = size
     return x * m.reshape(shape)
@@ -51,6 +54,34 @@ def take_dim(p: torch.Tensor, a: Active, axis: int) -> torch.Tensor:
     if not is_static(a):
         raise TypeError("take_dim needs a static active size")
     return p.narrow(axis, 0, int(a))
+
+
+def resolve(a: Active, full: int):
+    """Concrete active count (static int or tensor)."""
+    if a is None:
+        return full
+    return a
+
+
+def count_or_none(a: Active, full: int):
+    """None if the dim is full/static-full, else the active count."""
+    if a is None or (is_static(a) and int(a) == full):
+        return None
+    return a
+
+
+# ---------------------------------------------------------------------------
+# Sandwich-rule sampling (Yu et al., Slimmable Networks; used by OFA-style
+# progressive shrinking).  The host samples the specs; their widths enter
+# the step as 0-d tensors (masked mode).
+# ---------------------------------------------------------------------------
+
+def sandwich_specs(space, rng: np.random.Generator, n_random: int = 2):
+    """[max, min, n_random x random] -- the sandwich rule batch of subnets."""
+    out = [space.max_spec(), space.min_spec()]
+    for _ in range(n_random):
+        out.append(space.sample(rng))
+    return out
 
 
 def spec_to_dynamic(spec, dims: dict,

@@ -2,9 +2,12 @@
 
 Counterparts of the reference ``core/layers.py`` with the same parameter
 layouts (dense kernels ``(d_in, d_out)``, conv kernels HWIO) and the same
-order of operations and dtypes.  Widths are ``None`` (full) or static
-``int`` (sliced mode: the compute shrinks).  Masked mode (tensor widths)
-comes with the training slice; passing a tensor width raises.
+order of operations and dtypes.  Widths are ``None`` (full), static
+``int`` (sliced mode: the compute shrinks) or 0-d int32 CPU tensors
+(masked mode, training: activations keep their full width with exact
+zeros past the active count, and norms take their statistics over the
+active channels).  The host samples masked widths, so a layer reads them
+with ``int()`` at no device sync and hands K1 the cached device copy.
 
 Every matrix product goes through ``kernels.ops``: the dense layers (and
 the patch embed, written as an unfold followed by a dense product) through
@@ -20,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.elastic import take_dim
+from repro_torch.core.elastic import active_mask, mask_dim, take_dim
 from repro_torch.core.types import is_static
 from repro_torch.kernels.ops import elastic_matmul_op, flash_attention_op
 
@@ -45,11 +48,15 @@ def cast_params(params, dtype: torch.dtype):
     return params.to(dtype) if params.is_floating_point() else params
 
 
+def _masked(a) -> bool:
+    return a is not None and not is_static(a)
+
+
 def _static(a, name: str):
-    if not is_static(a):
+    if _masked(a):
         raise NotImplementedError(
-            f"{name}: tensor (masked-mode) widths come with the training "
-            f"slice of the port; serve with static int widths")
+            f"{name}: no masked (tensor-width) mode; the port's training "
+            f"path does not use this layer")
     return None if a is None else int(a)
 
 
@@ -79,22 +86,29 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
 
 def dense_apply(p: dict, x: torch.Tensor, *, a_in=None,
                 a_out=None) -> torch.Tensor:
-    """x: (..., a_in). Elastic in/out channels (sliced mode).
+    """x: (..., a_in) in sliced mode, (..., d_in) zero past ``a_in`` in
+    masked mode.  Elastic in/out channels.
 
-    The product reads the active block of the full resident kernel; only
-    the active output columns are computed and written.
+    The product reads the active block of the full resident kernel.
+    Sliced mode computes and writes only the active output columns;
+    masked mode (a tensor ``a_out``) keeps the full width with exact zeros
+    past ``a_out``, which is K1's own function, and adds the bias on the
+    active columns only.
     """
     w, b = p["kernel"], p.get("bias")
-    k_act = _static(a_in, "dense_apply")
-    n_act = _static(a_out, "dense_apply")
-    k_act = w.shape[0] if k_act is None else k_act
-    n_act = w.shape[1] if n_act is None else n_act
-    if x.shape[-1] != k_act:
-        raise ValueError(f"dense_apply: x width {x.shape[-1]} != active "
-                         f"input width {k_act}")
-    y = elastic_matmul_op(x, _cast(w, x.dtype), k_act, n_act, n_out=n_act)
+    k_act = w.shape[0] if a_in is None else int(a_in)
+    n_act = w.shape[1] if a_out is None else int(a_out)
+    n_out = w.shape[1] if _masked(a_out) else n_act
+    if not (x.shape[-1] >= k_act if _masked(a_in)
+            else x.shape[-1] == k_act):
+        raise ValueError(f"dense_apply: x width {x.shape[-1]} does not fit "
+                         f"active input width {k_act} of {w.shape[0]}")
+    y = elastic_matmul_op(x, _cast(w, x.dtype), k_act, n_act, n_out=n_out)
     if b is not None:
-        y = y + _cast(take_dim(b, n_act, 0), x.dtype)
+        bias = _cast(take_dim(b, n_act, 0), x.dtype)
+        if n_out > n_act:
+            bias = F.pad(bias, (0, n_out - n_act))
+        y = y + bias
     return y
 
 
@@ -109,9 +123,17 @@ def layernorm_init(d: int, dtype=torch.float32, device=None) -> dict:
 
 def layernorm_apply(p: dict, x: torch.Tensor, *, a=None,
                     eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last dim with the reference's eps of 1e-6."""
+    """LayerNorm over the last dim with the reference's eps of 1e-6; in
+    masked mode the statistics are over the first ``a`` channels and the
+    output is zero past them."""
     scale, bias = p["scale"], p["bias"]
-    a = _static(a, "layernorm_apply")
+    if _masked(a):
+        n = int(a)
+        m = active_mask(n, x.shape[-1], x.dtype, x.device)
+        mean = torch.sum(x * m, -1, keepdim=True) / n
+        var = torch.sum(torch.square((x - mean) * m), -1, keepdim=True) / n
+        y = (x - mean) * torch.rsqrt(var + eps)
+        return (y * _cast(scale, x.dtype) + _cast(bias, x.dtype)) * m
     if a is not None:
         # sliced mode: caller already sliced x to (..., a)
         scale, bias = take_dim(scale, a, 0), take_dim(bias, a, 0)
@@ -127,9 +149,14 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
 
 def rmsnorm_apply(p: dict, x: torch.Tensor, *, a=None,
                   eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim (sliced mode: x is already (..., a))."""
+    """RMSNorm over the last dim (sliced mode: x is already (..., a);
+    masked mode: statistics over the first ``a`` channels, zeros past)."""
     scale = p["scale"]
-    a = _static(a, "rmsnorm_apply")
+    if _masked(a):
+        n = int(a)
+        m = active_mask(n, x.shape[-1], x.dtype, x.device)
+        ms = torch.sum(torch.square(x * m), -1, keepdim=True) / n
+        return x * torch.rsqrt(ms + eps) * _cast(scale, x.dtype) * m
     if a is not None:
         scale = take_dim(scale, a, 0)
     ms = torch.mean(torch.square(x), -1, keepdim=True)
@@ -205,6 +232,8 @@ def mlp_apply(p: dict, x: torch.Tensor, *, a_model=None, a_ff=None,
         h = fn(g) * h
     else:
         h = fn(h)
+    if _masked(a_ff):
+        h = mask_dim(h, a_ff, -1)   # act(0) = 0 for relu/silu, not gelu-tanh
     return dense_apply(p["wo"], h, a_in=a_ff, a_out=a_model)
 
 
@@ -280,7 +309,9 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     mha = n_kv == n_heads
     # MHA: kv heads shrink together with query heads.  GQA/MQA: kv heads stay
     # (they are cheap); query groups per kv head shrink.
-    sliced_heads = _static(a_heads, "attention_apply")
+    masked_heads = _masked(a_heads)
+    sliced_heads = None if masked_heads else _static(a_heads,
+                                                     "attention_apply")
     kv_active = n_kv
     if sliced_heads is not None:
         H = sliced_heads
@@ -289,11 +320,14 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
         elif sliced_heads % n_kv:
             raise ValueError("active heads must keep GQA groups even")
     R = H // kv_active
+    # masked heads: every head runs at full width; the inactive heads'
+    # q (and MHA's k, v) columns are exact zeros from K1 and their outputs
+    # are gated to zero below, as the reference's head mask does
+    a_q = a_heads * d_head if masked_heads else (
+        None if sliced_heads is None else sliced_heads * d_head)
 
-    q = dense_apply(p["q"], x, a_in=a_model,
-                    a_out=None if sliced_heads is None
-                    else sliced_heads * d_head)
-    a_kv = None if (sliced_heads is None or not mha) else kv_active * d_head
+    q = dense_apply(p["q"], x, a_in=a_model, a_out=a_q)
+    a_kv = a_q if mha else None
     k = dense_apply(p["k"], x, a_in=a_model, a_out=a_kv)
     v = dense_apply(p["v"], x, a_in=a_model, a_out=a_kv)
     q = q.reshape(B, S, H, d_head)
@@ -332,8 +366,9 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                                  causal=causal)
         out = out.reshape(B, S, kv_active, R, d_head).transpose(2, 3)
     out = out.reshape(B, S, H * d_head)
-    a_in_o = None if sliced_heads is None else sliced_heads * d_head
-    y = dense_apply(p["o"], out, a_in=a_in_o, a_out=a_model)
+    if masked_heads:    # flat head r*K + k is active iff it is < a_heads
+        out = mask_dim(out, a_q, -1)
+    y = dense_apply(p["o"], out, a_in=a_q, a_out=a_model)
     return y, new_cache
 
 

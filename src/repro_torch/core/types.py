@@ -110,3 +110,19 @@ class ElasticSpace:
             if limit is not None and len(out) >= limit:
                 break
         return tuple(out)
+
+    def sample(self, rng: np.random.Generator) -> SubnetSpec:
+        """Sample a random subnet (host-side; used by the sandwich rule).
+        Draws from ``rng`` exactly as the reference does, so one seed gives
+        the same specs in both packages."""
+        def pick(xs):
+            return xs[int(rng.integers(len(xs)))] if xs else None
+        return SubnetSpec(
+            width_mult=pick(self.width_mults),
+            ffn_mult=pick(self.ffn_mults),
+            heads_mult=pick(self.heads_mults),
+            depth_mult=pick(self.depth_mults),
+            num_experts=pick(self.expert_counts),
+            top_k=pick(self.top_ks),
+            kernel_size=pick(self.kernel_sizes),
+        )

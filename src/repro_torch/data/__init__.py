@@ -1,0 +1,4 @@
+"""Deterministic synthetic data streams (numpy), as the reference's."""
+from repro_torch.data.pipeline import (Prefetcher, host_shard, to_device,
+                                       synthetic_image_batches,
+                                       synthetic_lm_batches)

@@ -66,6 +66,30 @@
 // The TMA / wgmma machinery of tma and the streaming core of small_m live
 // in hopper_gemm.cuh, shared with K3 (expert_matmul.cu).
 //
+// Backward (training; the TPU kernel has none, JAX differentiates through
+// XLA).  Both read the same device widths as the forward:
+//
+// * dgrad: dx[m, k] = sum_{n < n_act} dy[m, n] w[k, n] for k < k_act,
+//   exact zeros for k_act <= k < kx (x's width).  wgrad: dw[k, n] =
+//   sum_m x[m, k] dy[m, n] on the active block, exact zeros elsewhere in
+//   the full weight's shape, fp32 accumulation.
+// * Bound: operations at the training step's shapes (M = 50,432 token
+//   rows against at most 1536 x 384 weights: ~1,000 operations a byte).
+// * Design: one 128 x 128 tile GEMM, C = A B, whose operands are read in
+//   place from the row-major tensors in whichever orientation the
+//   product needs (dgrad: dy along its rows, w along its rows as B^T --
+//   both contiguous in the reduction; wgrad: x down its columns, dy along
+//   its rows), staged 32 deep by 16-byte cp.async into a double buffer
+//   whose zero fill masks everything past the widths, and multiplied on
+//   the tensor cores with WMMA (bf16 in, fp32 accumulate): 8 warps, each
+//   64 x 32.  A dead dgrad tile (past k_act) stores zeros without loads.
+//   wgrad's few output tiles (9 for a 384 x 384 weight) cannot fill 132
+//   SMs, so M is split (wgrad_plan: ~2 blocks per SM) into an fp32
+//   workspace padded to whole tiles, and a second kernel adds the splits
+//   in order (deterministic) and writes the zeros.  fp32 runs the same
+//   schedule on FMAs (64 x 64 tiles), the parity path.  Simple and slow
+//   (PERF.md): a wgmma/TMA version is the next step.
+//
 // Later work: a persistent, cluster-multicast schedule for the tma variant
 // (one block per SM walking the output tiles, the epilogue of one tile
 // overlapping the loads of the next, TMA multicast of the x tile).
@@ -74,6 +98,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include <mma.h>
 
 #include "hopper_gemm.cuh"
 #include "tile_matmul.cuh"
@@ -313,6 +340,348 @@ int launch_tma(const void* x, const void* w, void* y, const int* widths,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ backward ----
+//
+// Both backward products are one tiled GEMM
+//     C[i, j] = sum_{r_begin <= r < r_end} A(i, r) * B(r, j)
+// whose operands are read in place from row-major tensors: A(i, r) is
+// a[i * lda + r] (A_ROW) or a[r * lda + i]; B(r, j) is b[r * ldb + j]
+// (B_ROW) or b[j * ldb + r].  dgrad is A = dy (A_ROW), B = w read along
+// its rows (col); wgrad is A = x read down its columns (col), B = dy
+// (B_ROW).  Elements at i >= I_lim, j >= J_lim or r >= r_end are staged
+// as zeros, so nothing past the active widths is read.
+
+constexpr int W_BM = 128;         // output tile (bf16)
+constexpr int W_BN = 128;
+constexpr int W_BK = 32;          // reduction step
+constexpr int W_THREADS = 256;    // 8 warps, 2 x 4 over the tile, 64 x 32 each
+constexpr int W_PAD = 8;          // bf16 elements of row padding
+constexpr int W_TILE_ELEMS = W_BM * (W_BK + W_PAD);   // >= W_BK * (W_BM + W_PAD)
+constexpr int W_STAGE_ELEMS = 2 * W_TILE_ELEMS;       // A and B
+constexpr int W_SMEM = 2 * W_STAGE_ELEMS * 2;         // two stages, bytes
+constexpr int WF_BM = 64;         // output tile (fp32, FMA)
+constexpr int WF_BK = 16;
+constexpr int WF_THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
+
+// 16 bytes global -> shared, of which the first `bytes` are read and the
+// rest zero-filled (nothing is read at bytes == 0)
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Stage ROWS x COLS of a row-major view (element (u, c) at g[u * ld + c])
+// into dst with row stride LD; (u, c) with u >= u_lim or c >= c_lim are
+// zeros.  VEC: 16-byte cp.async (g 16-byte aligned, ld and c0 multiples of
+// 8); else element by element.
+template <int ROWS, int COLS, int LD, bool VEC>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* g,
+                                           long long ld, int u0, int c0,
+                                           int u_lim, int c_lim) {
+  if constexpr (VEC) {
+    constexpr int CH = COLS / 8;
+    for (int i = threadIdx.x; i < ROWS * CH; i += W_THREADS) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const int u = u0 + r, cc = c0 + c;
+      const int n = (u < u_lim && cc < c_lim) ? min(8, c_lim - cc) : 0;
+      cp_async_n(dst + r * LD + c, n ? g + (long long)u * ld + cc : g, 2 * n);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += W_THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const int u = u0 + r, cc = c0 + c;
+      dst[r * LD + c] = (u < u_lim && cc < c_lim)
+                            ? g[(long long)u * ld + cc]
+                            : __float2bfloat16(0.f);
+    }
+  }
+}
+
+using WFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
+                                     float>;
+
+// One 128 x 128 tile of C on the tensor cores (WMMA, bf16 in, fp32
+// accumulate), the reduction in steps of 32 double-buffered with cp.async.
+// Warp w owns rows 64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31.
+template <bool A_ROW, bool B_ROW, bool VEC>
+__device__ __forceinline__ void wmma_tile(
+    const __nv_bfloat16* __restrict__ a, long long lda,
+    const __nv_bfloat16* __restrict__ b, long long ldb, int i0, int j0,
+    int r_begin, int r_end, int I_lim, int J_lim, __nv_bfloat16* sm,
+    WFrag (&acc)[4][2]) {
+  using namespace nvcuda;
+  constexpr int LD_R = W_BK + W_PAD;    // tile stored along r
+  constexpr int LD_T = W_BM + W_PAD;    // tile stored along i or j
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int fi = 0; fi < 4; ++fi)
+#pragma unroll
+    for (int fj = 0; fj < 2; ++fj) wmma::fill_fragment(acc[fi][fj], 0.f);
+  const int n_t = r_end > r_begin ? (r_end - r_begin + W_BK - 1) / W_BK : 0;
+  auto stage = [&](int t, int buf) {
+    __nv_bfloat16* As = sm + buf * W_STAGE_ELEMS;
+    __nv_bfloat16* Bs = As + W_TILE_ELEMS;
+    const int r0 = r_begin + t * W_BK;
+    if constexpr (A_ROW)
+      stage_tile<W_BM, W_BK, LD_R, VEC>(As, a, lda, i0, r0, I_lim, r_end);
+    else
+      stage_tile<W_BK, W_BM, LD_T, VEC>(As, a, lda, r0, i0, r_end, I_lim);
+    if constexpr (B_ROW)
+      stage_tile<W_BK, W_BN, LD_T, VEC>(Bs, b, ldb, r0, j0, r_end, J_lim);
+    else
+      stage_tile<W_BN, W_BK, LD_R, VEC>(Bs, b, ldb, j0, r0, J_lim, r_end);
+  };
+  if (n_t > 0) stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < n_t; ++t) {
+    if (t + 1 < n_t) {
+      stage(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* As = sm + (t & 1) * W_STAGE_ELEMS;
+    const __nv_bfloat16* Bs = As + W_TILE_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < W_BK; kk += 16) {
+      using LA = typename std::conditional<A_ROW, wmma::row_major,
+                                           wmma::col_major>::type;
+      using LB = typename std::conditional<B_ROW, wmma::row_major,
+                                           wmma::col_major>::type;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb[2];
+#pragma unroll
+      for (int fi = 0; fi < 4; ++fi) {
+        const int i = wm * 64 + fi * 16;
+        if constexpr (A_ROW)
+          wmma::load_matrix_sync(fa[fi], As + i * LD_R + kk, LD_R);
+        else
+          wmma::load_matrix_sync(fa[fi], As + kk * LD_T + i, LD_T);
+      }
+#pragma unroll
+      for (int fj = 0; fj < 2; ++fj) {
+        const int j = wn * 32 + fj * 16;
+        if constexpr (B_ROW)
+          wmma::load_matrix_sync(fb[fj], Bs + kk * LD_T + j, LD_T);
+        else
+          wmma::load_matrix_sync(fb[fj], Bs + j * LD_R + kk, LD_R);
+      }
+#pragma unroll
+      for (int fi = 0; fi < 4; ++fi)
+#pragma unroll
+        for (int fj = 0; fj < 2; ++fj)
+          wmma::mma_sync(acc[fi][fj], fa[fi], fb[fj], acc[fi][fj]);
+    }
+    __syncthreads();   // this stage is refilled two steps on
+  }
+}
+
+// dx[m, k] = sum_{n < n_act} dy[m, n] w[k, n] for k < k_act, 0 for
+// k_act <= k < kx; grid (cdiv(kx, 128), cdiv(M, 128)).
+template <bool VEC>
+__global__ void __launch_bounds__(W_THREADS)
+dgrad_wmma(const __nv_bfloat16* __restrict__ dy,
+           const __nv_bfloat16* __restrict__ w,
+           __nv_bfloat16* __restrict__ dx, const int* __restrict__ widths,
+           int M, int ldy, int ldw, int ldx, int kx) {
+  using namespace nvcuda;
+  __shared__ __align__(128) __nv_bfloat16 sm[2 * W_STAGE_ELEMS];
+  const int k_act = widths[0], n_act = widths[1];
+  const int i0 = blockIdx.y * W_BM, j0 = blockIdx.x * W_BN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (j0 >= k_act) {       // columns past k_act: zeros, no loads
+    for (int i = tid; i < W_BM * W_BN; i += W_THREADS) {
+      const int r = i0 + i / W_BN, c = j0 + i % W_BN;
+      if (r < M && c < kx) dx[(size_t)r * ldx + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  WFrag acc[4][2];
+  wmma_tile<true, false, VEC>(dy, ldy, w, ldw, i0, j0, 0, n_act, M, k_act,
+                              sm, acc);
+  __syncthreads();         // the stages become per-warp staging
+  float* stg = reinterpret_cast<float*>(sm) + warp * 16 * 20;
+  const int wm = warp / 4, wn = warp % 4;
+  const int rr = lane / 2, c0 = (lane % 2) * 8;
+#pragma unroll
+  for (int fi = 0; fi < 4; ++fi)
+#pragma unroll
+    for (int fj = 0; fj < 2; ++fj) {
+      wmma::store_matrix_sync(stg, acc[fi][fj], 20, wmma::mem_row_major);
+      __syncwarp();
+      const int gi = i0 + wm * 64 + fi * 16 + rr;
+      const int gj = j0 + wn * 32 + fj * 16 + c0;
+      if (gi < M) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (gj + e < kx)
+            dx[(size_t)gi * ldx + gj + e] = __float2bfloat16(
+                gj + e < k_act ? stg[rr * 20 + c0 + e] : 0.f);
+      }
+      __syncwarp();
+    }
+}
+
+// Partial dw over rows [split * chunk, (split + 1) * chunk) of x and dy
+// into ws[split] (fp32, ipad x jpad); grid (jpad / 128, ipad / 128,
+// splits), tiles past the active block return at once.
+template <bool VEC>
+__global__ void __launch_bounds__(W_THREADS)
+wgrad_wmma(const __nv_bfloat16* __restrict__ x,
+           const __nv_bfloat16* __restrict__ dy, float* __restrict__ ws,
+           const int* __restrict__ widths, int M, int ldx, int ldy,
+           int chunk, int ipad, int jpad) {
+  using namespace nvcuda;
+  __shared__ __align__(128) __nv_bfloat16 sm[2 * W_STAGE_ELEMS];
+  const int k_act = widths[0], n_act = widths[1];
+  const int i0 = blockIdx.y * W_BM, j0 = blockIdx.x * W_BN;
+  if (i0 >= k_act || j0 >= n_act) return;
+  const int r_begin = blockIdx.z * chunk;
+  const int r_end = min(M, r_begin + chunk);
+  WFrag acc[4][2];
+  wmma_tile<false, true, VEC>(x, ldx, dy, ldy, i0, j0, r_begin, r_end,
+                              k_act, n_act, sm, acc);
+  const int warp = threadIdx.x / 32, wm = warp / 4, wn = warp % 4;
+  float* out = ws + (size_t)blockIdx.z * ipad * jpad;
+#pragma unroll
+  for (int fi = 0; fi < 4; ++fi)
+#pragma unroll
+    for (int fj = 0; fj < 2; ++fj)
+      wmma::store_matrix_sync(
+          out + (size_t)(i0 + wm * 64 + fi * 16) * jpad + j0 + wn * 32 +
+              fj * 16,
+          acc[fi][fj], jpad, wmma::mem_row_major);
+}
+
+// The fp32 counterpart of wmma_tile on FMAs: one 64 x 64 tile, each
+// thread 4 x 4 outputs, the reduction in steps of 16 staged as As[r][i],
+// Bs[r][j] (the loads walk the operand's contiguous index fastest).
+template <bool A_ROW, bool B_ROW>
+__device__ __forceinline__ void fma_tile(const float* __restrict__ a,
+                                         long long lda,
+                                         const float* __restrict__ b,
+                                         long long ldb, int i0, int j0,
+                                         int r_begin, int r_end, int I_lim,
+                                         int J_lim, float (&acc)[4][4]) {
+  __shared__ float As[WF_BK][WF_BM + 4];
+  __shared__ float Bs[WF_BK][WF_BM + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int r0 = r_begin; r0 < r_end; r0 += WF_BK) {
+    for (int idx = tid; idx < WF_BM * WF_BK; idx += WF_THREADS) {
+      const int il = A_ROW ? idx / WF_BK : idx % WF_BM;
+      const int rl = A_ROW ? idx % WF_BK : idx / WF_BM;
+      const int gi = i0 + il, gr = r0 + rl;
+      As[rl][il] = (gi < I_lim && gr < r_end)
+                       ? (A_ROW ? a[(long long)gi * lda + gr]
+                                : a[(long long)gr * lda + gi])
+                       : 0.f;
+    }
+    for (int idx = tid; idx < WF_BM * WF_BK; idx += WF_THREADS) {
+      const int jl = B_ROW ? idx % WF_BM : idx / WF_BK;
+      const int rl = B_ROW ? idx / WF_BM : idx % WF_BK;
+      const int gj = j0 + jl, gr = r0 + rl;
+      Bs[rl][jl] = (gj < J_lim && gr < r_end)
+                       ? (B_ROW ? b[(long long)gr * ldb + gj]
+                                : b[(long long)gj * ldb + gr])
+                       : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < WF_BK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(WF_THREADS)
+dgrad_fma(const float* __restrict__ dy, const float* __restrict__ w,
+          float* __restrict__ dx, const int* __restrict__ widths, int M,
+          int ldy, int ldw, int ldx, int kx) {
+  const int k_act = widths[0], n_act = widths[1];
+  const int i0 = blockIdx.y * WF_BM, j0 = blockIdx.x * WF_BM;
+  float acc[4][4];
+  fma_tile<true, false>(dy, ldy, w, ldw, i0, j0, 0, j0 < k_act ? n_act : 0,
+                        M, k_act, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gi = i0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gj = j0 + tx * 4 + j;
+      if (gi < M && gj < kx)
+        dx[(size_t)gi * ldx + gj] = gj < k_act ? acc[i][j] : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WF_THREADS)
+wgrad_fma(const float* __restrict__ x, const float* __restrict__ dy,
+          float* __restrict__ ws, const int* __restrict__ widths, int M,
+          int ldx, int ldy, int chunk, int ipad, int jpad) {
+  const int k_act = widths[0], n_act = widths[1];
+  const int i0 = blockIdx.y * WF_BM, j0 = blockIdx.x * WF_BM;
+  if (i0 >= k_act || j0 >= n_act) return;
+  const int r_begin = blockIdx.z * chunk;
+  const int r_end = min(M, r_begin + chunk);
+  float acc[4][4];
+  fma_tile<false, true>(x, ldx, dy, ldy, i0, j0, r_begin, r_end, k_act,
+                        n_act, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float* out = ws + (size_t)blockIdx.z * ipad * jpad;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[(size_t)(i0 + ty * 4 + i) * jpad + j0 + tx * 4 + j] = acc[i][j];
+}
+
+// dw[k, n] = sum over splits of ws[split, k, n] in split order for
+// k < k_act and n < n_act, 0 elsewhere in the full (Kw, Nw) weight
+template <typename T>
+__global__ void wgrad_reduce(const float* __restrict__ ws, T* __restrict__ dw,
+                             const int* __restrict__ widths, int Kw, int Nw,
+                             int splits, int ipad, int jpad) {
+  const int k_act = widths[0], n_act = widths[1];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)Kw * Nw) return;
+  const int k = (int)(i / Nw), n = (int)(i % Nw);
+  float s = 0.f;
+  if (k < k_act && n < n_act) {
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp)
+      s += ws[((size_t)sp * ipad + k) * jpad + n];
+  }
+  dw[i] = from_float<T>(s);
+}
+
 }  // namespace
 
 // The tile variant.  dtype: 0 = float32, 1 = bfloat16.  Returns
@@ -384,4 +753,83 @@ extern "C" int repro_elastic_matmul_tma(const void* x, const void* w, void* y,
     return launch_tma<1, 128>(x, w, y, wd, M, ldx, ldw, ldy, n_out, k_act,
                               n_act, s);
   return -1;
+}
+
+// K1's data gradient: dx (M x kx, row stride ldx) from dy (M rows, ldy
+// apart) and w (rows ldw apart), at the widths in `widths`.  dtype 1
+// (bf16) runs on the tensor cores (WMMA), `vec` when dy's and w's bases
+// are 16-byte aligned and ldy, ldw multiples of 8; dtype 0 (fp32) on
+// FMAs.  Returns cudaGetLastError() after the launch; -1 for a dtype.
+extern "C" int repro_elastic_matmul_dgrad(const void* dy, const void* w,
+                                          void* dx, const void* widths,
+                                          int M, int ldy, int ldw, int ldx,
+                                          int kx, int vec, int dtype,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* wd = static_cast<const int*>(widths);
+  if (dtype == 1) {
+    const dim3 grid((kx + W_BN - 1) / W_BN, (M + W_BM - 1) / W_BM);
+    const auto* a = static_cast<const __nv_bfloat16*>(dy);
+    const auto* b = static_cast<const __nv_bfloat16*>(w);
+    auto* o = static_cast<__nv_bfloat16*>(dx);
+    if (vec)
+      dgrad_wmma<true><<<grid, W_THREADS, 0, s>>>(a, b, o, wd, M, ldy, ldw,
+                                                   ldx, kx);
+    else
+      dgrad_wmma<false><<<grid, W_THREADS, 0, s>>>(a, b, o, wd, M, ldy, ldw,
+                                                    ldx, kx);
+  } else if (dtype == 0) {
+    const dim3 grid((kx + WF_BM - 1) / WF_BM, (M + WF_BM - 1) / WF_BM);
+    dgrad_fma<<<grid, WF_THREADS, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(w),
+        static_cast<float*>(dx), wd, M, ldy, ldw, ldx, kx);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's weight gradient: dw (Kw x Nw, contiguous) from x (M rows, ldx
+// apart) and dy (M rows, ldy apart), zeros outside the active block.  M is
+// split into `splits` chunks of `chunk` rows (a multiple of 32); `ws` an
+// fp32 workspace of splits x ipad x jpad, ipad and jpad the host's
+// k_act and n_act rounded up to 128.  vec and dtype as for dgrad.
+// Returns as above.
+extern "C" int repro_elastic_matmul_wgrad(
+    const void* x, const void* dy, void* ws, void* dw, const void* widths,
+    int M, int ldx, int ldy, int Kw, int Nw, int ipad, int jpad, int splits,
+    int chunk, int vec, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* wd = static_cast<const int*>(widths);
+  float* w32 = static_cast<float*>(ws);
+  if (ipad % W_BM || jpad % W_BN || chunk % W_BK || splits < 1) return -1;
+  if (dtype == 1) {
+    const dim3 grid(jpad / W_BN, ipad / W_BM, splits);
+    const auto* a = static_cast<const __nv_bfloat16*>(x);
+    const auto* b = static_cast<const __nv_bfloat16*>(dy);
+    if (vec)
+      wgrad_wmma<true><<<grid, W_THREADS, 0, s>>>(a, b, w32, wd, M, ldx, ldy,
+                                                   chunk, ipad, jpad);
+    else
+      wgrad_wmma<false><<<grid, W_THREADS, 0, s>>>(a, b, w32, wd, M, ldx,
+                                                    ldy, chunk, ipad, jpad);
+  } else if (dtype == 0) {
+    const dim3 grid(jpad / WF_BM, ipad / WF_BM, splits);
+    wgrad_fma<<<grid, WF_THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), w32, wd,
+        M, ldx, ldy, chunk, ipad, jpad);
+  } else {
+    return -1;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = (long long)Kw * Nw;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  if (dtype == 1)
+    wgrad_reduce<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        w32, static_cast<__nv_bfloat16*>(dw), wd, Kw, Nw, splits, ipad, jpad);
+  else
+    wgrad_reduce<float><<<blocks, 256, 0, s>>>(
+        w32, static_cast<float*>(dw), wd, Kw, Nw, splits, ipad, jpad);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,10 @@
 //   shared memory, and writes an fp32 partial (max,
 //   denominator, accumulator) to a workspace; a second kernel merges the
 //   partials in split order (deterministic, no atomics) and stores o.
+// Backward (training; the TPU kernel has none): see "backward" below.
+// The mma and fma variants write each row's fp32 logsumexp when asked,
+// which is all the backward keeps of the forward's softmax.
+//
 // * fma (fp32 inputs, the smoke configs' head dims 8 and 16, and rows
 //   that are not 16-byte aligned): the first port's kernel, kept as the
 //   parity and smoke path.  128 threads, two per query row; each thread
@@ -106,7 +110,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long k_ss, long long k_sh, long long v_sb,
                        long long v_ss, long long v_sh, long long o_sb,
                        long long o_ss, long long o_sh, float scale,
-                       int causal) {
+                       int causal, float* __restrict__ lse) {
   constexpr int HALF = BKV / 2;
   constexpr int DH = D / 2;
   constexpr int LD = D + 1;
@@ -220,13 +224,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float l = fmaxf(l_i, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DH; ++i) op[2 * i + half] = from_float<T>(acc[i] / l);
+    if (lse != nullptr && half == 0)
+      lse[(long long)bh * S + qi] = l_i > 0.f ? m_i + logf(l_i) : NEG_INF;
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KH, int S, int T_len, int D, const long long* st, float scale,
-           int causal, cudaStream_t s) {
+           int causal, float* lse, cudaStream_t s) {
   const dim3 grid((S + BQ - 1) / BQ, B * H);
 #define REPRO_FA_LAUNCH(DIM)                                                 \
   do {                                                                       \
@@ -242,7 +248,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
         static_cast<const T*>(q), static_cast<const T*>(k),                  \
         static_cast<const T*>(v), static_cast<T*>(o), H, KH, S, T_len,       \
         st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],       \
-        st[9], st[10], st[11], scale, causal);                               \
+        st[9], st[10], st[11], scale, causal, lse);                          \
   } while (0)
   switch (D) {
     case 8: REPRO_FA_LAUNCH(8); break;
@@ -329,7 +335,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
                     long long o_sb, long long o_ss, long long o_sh,
-                    float scale, int causal) {
+                    float scale, int causal, float* __restrict__ lse) {
   constexpr int LDS = D + 8;      // padded row: ldmatrix without conflicts
   constexpr int CH = D / 8;       // 16-byte chunks a row
   constexpr int KD = D / 16;      // k16 steps of QK^T
@@ -491,6 +497,9 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
     const int qi = row0 + 8 * i;
     if (qi >= S) continue;
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && t4 == 0)
+      lse[(long long)bh * S + qi] =
+          l_i[i] > 0.f ? m_i[i] + logf(l_i[i]) : NEG_INF;
     __nv_bfloat16* op = o + b * o_sb + (long long)qi * o_ss + h * o_sh;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
@@ -705,7 +714,7 @@ flash_attention_merge(const float* __restrict__ ws_acc,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int H, int KH, int S, int T_len, const long long* st,
-               float scale, int causal, cudaStream_t s) {
+               float scale, int causal, float* lse, cudaStream_t s) {
   constexpr size_t bytes = mma_smem_bytes<D>();
   if (bytes > 48 * 1024) {
     // once per instantiation and process (the port drives one card)
@@ -720,7 +729,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       H, KH, S, T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11], scale, causal);
+      st[8], st[9], st[10], st[11], scale, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -744,41 +753,597 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ backward ----
+//
+// FlashAttention-2's backward, non-causal, D = 64.  With P = exp(s * scale
+// - lse) from the forward's logsumexp (fp32) and delta = rowsum(dO o O):
+//     dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
+//     dQ = scale dS K,
+// with keys at positions >= T masked as in the forward.  Bound: bytes at
+// the ViT's S = T = 197, D = 64 (five products of 2 S T D a head against
+// q, k, v, o, dO read and dq, dk, dv written).  Three kernels:
+// delta (one warp a row), dK/dV (a block per 64-key tile and (batch, kv
+// head), looping over the R query heads of that kv head and their query
+// tiles, so GQA's sum over heads stays in registers: deterministic) and
+// dQ (a block per 64-query tile and (batch, head), looping over the key
+// tiles: a separate pass, deterministic, no atomics).  Both recompute
+// S = Q K^T and dP = dO V^T on mma.sync with the forward's fragment
+// layouts (P and dS rounded to bf16 as A operands from registers, K, Q,
+// dO and V tiles in padded shared memory, double-buffered by cp.async);
+// dQ's separate pass costs the recomputation of S and dP again.
+
+struct BwdStrides {
+  long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
+};
+
+constexpr int B_BQ = 64;          // queries a tile
+constexpr int B_BKV = 64;         // keys a tile
+constexpr int B_THREADS = 128;    // 4 warps, 16 rows each
+constexpr int BF_ROWS = 32;       // fp32 kernels: rows a block (one a thread)
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  // two single tiles and two double-buffered ones of 64 rows, plus
+  // (dK/dV) two double-buffered vectors of 64 floats
+  return sizeof(__nv_bfloat16) * (D + 8) * (2 * B_BKV + 4 * B_BQ) +
+         sizeof(float) * 4 * B_BQ;
+}
+
+// delta[b, h, s] = sum_d dO[b, s, h, d] o[b, s, h, d] in fp32
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
+                          float* __restrict__ delta, int H, int S, int D,
+                          long long rows, BwdStrides st) {
+  const long long row = (long long)blockIdx.x * 4 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int s_ = (int)(row % S);
+  const long long bh = row / S;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  const T* op = o + b * st.o[0] + (long long)s_ * st.o[1] + h * st.o[2];
+  const T* gp = dO + b * st.dO[0] + (long long)s_ * st.dO[1] + h * st.dO[2];
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc += to_float(op[d]) * to_float(gp[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// A operand fragments (16 rows x D) of rows r0 .. r0 + 15 of a [.][D + 8]
+// bf16 tile, as the forward loads its q fragments
+template <int D>
+__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
+                                             const __nv_bfloat16* tile,
+                                             int r0, int lane) {
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    ldmatrix_x4(f[kd], tile + (r0 + (lane % 8) + ((lane / 8) % 2) * 8) *
+                                  (D + 8) + kd * 16 + (lane / 16) * 8);
+}
+
+// c[16 x 64] = A (16 x D, fragments) . rows^T, rows the 64 rows of a
+// [.][D + 8] bf16 tile (the forward's S = Q K^T)
+template <int D>
+__device__ __forceinline__ void mma_rows_t(float (&c)[8][4],
+                                           const uint32_t (&a)[D / 16][4],
+                                           const __nv_bfloat16* tile,
+                                           int lane) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, tile + (np * 16 + (lane % 8) + (lane / 16) * 8) * (D + 8)
+                          + kd * 16 + ((lane / 8) % 2) * 8);
+      mma_bf16(c[2 * np], a[kd], bf[0], bf[1]);
+      mma_bf16(c[2 * np + 1], a[kd], bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[16 x D] += P (16 x 64, accumulator layout, rounded to bf16) . tile,
+// tile 64 rows x D of a [.][D + 8] bf16 tile (the forward's O += P V)
+template <int D>
+__device__ __forceinline__ void mma_p_rows(float (&acc)[D / 8][4],
+                                           const float (&p)[8][4],
+                                           const __nv_bfloat16* tile,
+                                           int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(
+          bf, tile + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * (D + 8)
+                  + dp * 16 + (lane / 16) * 8);
+      mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
+// 64 rows of a (b, seq, head) strided bf16 tensor into a [64][D + 8]
+// tile; rows >= n zero-filled (nothing read)
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* base,
+                                          long long row_stride, int r0,
+                                          int n) {
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < 64 * CH; i += B_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < n;
+    cp_async16(tile + r * (D + 8) + c,
+               base + (ok ? (long long)(r0 + r) * row_stride : 0LL) + c, ok);
+  }
+}
+
+// dK and dV of keys j0 .. j0 + 63 of kv head (b, kvh); warp w owns keys
+// j0 + 16w .. + 15 and keeps its dK, dV rows in registers.
+template <int D>
+__global__ void __launch_bounds__(B_THREADS)
+flash_attention_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dO,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int KH, int S,
+                         int T_len, BwdStrides st, float scale) {
+  constexpr int LDS = D + 8, KD = D / 16, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char bw_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bw_smem);
+  __nv_bfloat16* Vs = Ks + B_BKV * LDS;
+  __nv_bfloat16* Qs = Vs + B_BKV * LDS;          // [2][B_BQ][LDS]
+  __nv_bfloat16* Gs = Qs + 2 * B_BQ * LDS;       // dO: [2][B_BQ][LDS]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * B_BQ * LDS);   // [2][B_BQ]
+  float* Dl = Ls + 2 * B_BQ;                                    // [2][B_BQ]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
+  const int R = H / KH;
+  const int j0 = blockIdx.y * B_BKV;
+  const int nq = (S + B_BQ - 1) / B_BQ;
+  const int n_it = R * nq;
+
+  load_rows<D>(Ks, k + b * st.k[0] + kvh * st.k[2] + (long long)j0 * st.k[1],
+               st.k[1], 0, T_len - j0);
+  load_rows<D>(Vs, v + b * st.v[0] + kvh * st.v[2] + (long long)j0 * st.v[1],
+               st.v[1], 0, T_len - j0);
+  auto load_q = [&](int it, int buf) {
+    const int h = kvh * R + it / nq, q0 = (it % nq) * B_BQ;
+    load_rows<D>(Qs + buf * B_BQ * LDS, q + b * st.q[0] + h * st.q[2],
+                 st.q[1], q0, S);
+    load_rows<D>(Gs + buf * B_BQ * LDS, dO + b * st.dO[0] + h * st.dO[2],
+                 st.dO[1], q0, S);
+    const long long bh = (long long)b * H + h;
+    for (int i = tid; i < B_BQ; i += B_THREADS) {
+      const bool ok = q0 + i < S;
+      Ls[buf * B_BQ + i] = ok ? lse[bh * S + q0 + i] : 0.f;
+      Dl[buf * B_BQ + i] = ok ? delta[bh * S + q0 + i] : 0.f;
+    }
+  };
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  uint32_t kf[KD][4], vf[KD][4];
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) {
+      load_q(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+      load_a_frags<D>(kf, Ks, warp * 16, lane);
+      load_a_frags<D>(vf, Vs, warp * 16, lane);
+    }
+    const int buf = it & 1, q0 = (it % nq) * B_BQ;
+    const __nv_bfloat16* Qt = Qs + buf * B_BQ * LDS;
+    const __nv_bfloat16* Gt = Gs + buf * B_BQ * LDS;
+    const float* Lt = Ls + buf * B_BQ;
+    const float* Dt = Dl + buf * B_BQ;
+
+    float p[8][4], dp[8][4];
+    mma_rows_t<D>(p, kf, Qt, lane);      // S^T: 16 keys x 64 queries
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + warp * 16 + g + 8 * (e >> 1);
+        const int c = nb * 8 + 2 * t4 + (e & 1);
+        p[nb][e] = (j < T_len && q0 + c < S)
+                       ? __expf(p[nb][e] * scale - Lt[c]) : 0.f;
+      }
+    mma_rows_t<D>(dp, vf, Gt, lane);     // dP^T = V dO^T
+    mma_p_rows<D>(dv_acc, p, Gt, lane);  // dV += P^T dO
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[nb][e] *= dp[nb][e] - Dt[nb * 8 + 2 * t4 + (e & 1)];
+    mma_p_rows<D>(dk_acc, p, Qt, lane);  // dK += dS^T Q
+    __syncthreads();   // this buffer is refilled at the next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = j0 + warp * 16 + g + 8 * i;
+    if (j >= T_len) continue;
+    __nv_bfloat16* kp = dk + b * st.dk[0] + (long long)j * st.dk[1] +
+                        kvh * st.dk[2];
+    __nv_bfloat16* vp = dv + b * st.dv[0] + (long long)j * st.dv[1] +
+                        kvh * st.dv[2];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(kp + nd * 8 + 2 * t4) =
+          __floats2bfloat162_rn(dk_acc[nd][2 * i] * scale,
+                                dk_acc[nd][2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vp + nd * 8 + 2 * t4) =
+          __floats2bfloat162_rn(dv_acc[nd][2 * i], dv_acc[nd][2 * i + 1]);
+    }
+  }
+}
+
+// dQ of queries q0 .. q0 + 63 of head (b, h); warp w owns queries
+// q0 + 16w .. + 15, K and V tiles double-buffered as in the forward.
+template <int D>
+__global__ void __launch_bounds__(B_THREADS)
+flash_attention_bwd_dq(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dO,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int H, int KH, int S,
+                       int T_len, BwdStrides st, float scale) {
+  constexpr int LDS = D + 8, KD = D / 16, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char bw_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(bw_smem);
+  __nv_bfloat16* Gs = Qs + B_BQ * LDS;           // dO
+  __nv_bfloat16* Ks = Gs + B_BQ * LDS;           // [2][B_BKV][LDS]
+  __nv_bfloat16* Vs = Ks + 2 * B_BKV * LDS;      // [2][B_BKV][LDS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KH);
+  const int q0 = blockIdx.y * B_BQ;
+  const int n_kv = (T_len + B_BKV - 1) / B_BKV;
+
+  load_rows<D>(Qs, q + b * st.q[0] + h * st.q[2], st.q[1], q0, S);
+  load_rows<D>(Gs, dO + b * st.dO[0] + h * st.dO[2], st.dO[1], q0, S);
+  const __nv_bfloat16* kb = k + b * st.k[0] + kvh * st.k[2];
+  const __nv_bfloat16* vb = v + b * st.v[0] + kvh * st.v[2];
+  auto load_kv = [&](int t, int buf) {
+    load_rows<D>(Ks + buf * B_BKV * LDS, kb, st.k[1], t * B_BKV, T_len);
+    load_rows<D>(Vs + buf * B_BKV * LDS, vb, st.v[1], t * B_BKV, T_len);
+  };
+  if (n_kv > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  float L[2], Dv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    L[i] = row < S ? lse[(long long)bh * S + row] : 0.f;
+    Dv[i] = row < S ? delta[(long long)bh * S + row] : 0.f;
+  }
+  uint32_t qf[KD][4], gf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {
+      load_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+      load_a_frags<D>(qf, Qs, warp * 16, lane);
+      load_a_frags<D>(gf, Gs, warp * 16, lane);
+    }
+    const __nv_bfloat16* Kt = Ks + (t & 1) * B_BKV * LDS;
+    const __nv_bfloat16* Vt = Vs + (t & 1) * B_BKV * LDS;
+    float p[8][4], dp[8][4];
+    mma_rows_t<D>(p, qf, Kt, lane);      // S = Q K^T
+    mma_rows_t<D>(dp, gf, Vt, lane);     // dP = dO V^T
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = t * B_BKV + nb * 8 + 2 * t4 + (e & 1);
+        const float pv = j < T_len
+                             ? __expf(p[nb][e] * scale - L[e >> 1]) : 0.f;
+        p[nb][e] = pv * (dp[nb][e] - Dv[e >> 1]);
+      }
+    mma_p_rows<D>(acc, p, Kt, lane);     // dQ += dS K
+    __syncthreads();   // this buffer is refilled at the next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    if (row >= S) continue;
+    __nv_bfloat16* qp = dq + b * st.dq[0] + (long long)row * st.dq[1] +
+                        h * st.dq[2];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(qp + nd * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[nd][2 * i] * scale,
+                                acc[nd][2 * i + 1] * scale);
+  }
+}
+
+// fp32 backward on FMAs (the parity path): one thread a row, 32 rows a
+// block, the other side's rows staged in shared memory 32 at a time.
+template <int D>
+__global__ void __launch_bounds__(BF_ROWS)
+flash_attention_bwd_dq_f32(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dO,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int H, int KH, int S,
+                           int T_len, BwdStrides st, float scale) {
+  __shared__ float Qs[BF_ROWS][D + 1], Gs[BF_ROWS][D + 1];
+  __shared__ float Ks[BF_ROWS][D + 1], Vs[BF_ROWS][D + 1];
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KH);
+  const int row = blockIdx.y * BF_ROWS + tid;
+  const bool ok = row < S;
+  for (int d = 0; d < D; ++d) {
+    Qs[tid][d] = ok ? q[b * st.q[0] + (long long)row * st.q[1] +
+                        h * st.q[2] + d] : 0.f;
+    Gs[tid][d] = ok ? dO[b * st.dO[0] + (long long)row * st.dO[1] +
+                         h * st.dO[2] + d] : 0.f;
+  }
+  const float L = ok ? lse[(long long)bh * S + row] : 0.f;
+  const float Dv = ok ? delta[(long long)bh * S + row] : 0.f;
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int t0 = 0; t0 < T_len; t0 += BF_ROWS) {
+    __syncthreads();
+    for (int i = tid; i < BF_ROWS * D; i += BF_ROWS) {
+      const int j = i / D, d = i % D;
+      const bool kok = t0 + j < T_len;
+      Ks[j][d] = kok ? k[b * st.k[0] + (long long)(t0 + j) * st.k[1] +
+                         kvh * st.k[2] + d] : 0.f;
+      Vs[j][d] = kok ? v[b * st.v[0] + (long long)(t0 + j) * st.v[1] +
+                         kvh * st.v[2] + d] : 0.f;
+    }
+    __syncthreads();
+    const int nj = min(BF_ROWS, T_len - t0);
+    for (int j = 0; j < nj; ++j) {
+      float sc = 0.f, dp = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) {
+        sc = fmaf(Qs[tid][d], Ks[j][d], sc);
+        dp = fmaf(Gs[tid][d], Vs[j][d], dp);
+      }
+      const float ds = expf(sc * scale - L) * (dp - Dv);
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, Ks[j][d], acc[d]);
+    }
+  }
+  if (ok) {
+    float* qp = dq + b * st.dq[0] + (long long)row * st.dq[1] + h * st.dq[2];
+#pragma unroll
+    for (int d = 0; d < D; ++d) qp[d] = acc[d] * scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BF_ROWS)
+flash_attention_bwd_dkdv_f32(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dO,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int H, int KH, int S, int T_len, BwdStrides st,
+                             float scale) {
+  __shared__ float Ks[BF_ROWS][D + 1], Vs[BF_ROWS][D + 1];
+  __shared__ float Qs[BF_ROWS][D + 1], Gs[BF_ROWS][D + 1];
+  __shared__ float Ls[BF_ROWS], Dl[BF_ROWS];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
+  const int R = H / KH;
+  const int j = blockIdx.y * BF_ROWS + tid;
+  const bool ok = j < T_len;
+  for (int d = 0; d < D; ++d) {
+    Ks[tid][d] = ok ? k[b * st.k[0] + (long long)j * st.k[1] +
+                        kvh * st.k[2] + d] : 0.f;
+    Vs[tid][d] = ok ? v[b * st.v[0] + (long long)j * st.v[1] +
+                        kvh * st.v[2] + d] : 0.f;
+  }
+  float dka[D], dva[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) dka[d] = dva[d] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int h = kvh * R + r;
+    const long long bh = (long long)b * H + h;
+    for (int s0 = 0; s0 < S; s0 += BF_ROWS) {
+      __syncthreads();
+      for (int i = tid; i < BF_ROWS * D; i += BF_ROWS) {
+        const int si = i / D, d = i % D;
+        const bool qok = s0 + si < S;
+        Qs[si][d] = qok ? q[b * st.q[0] + (long long)(s0 + si) * st.q[1] +
+                            h * st.q[2] + d] : 0.f;
+        Gs[si][d] = qok ? dO[b * st.dO[0] + (long long)(s0 + si) * st.dO[1] +
+                             h * st.dO[2] + d] : 0.f;
+      }
+      if (s0 + tid < S) {
+        Ls[tid] = lse[bh * S + s0 + tid];
+        Dl[tid] = delta[bh * S + s0 + tid];
+      }
+      __syncthreads();
+      const int ns = min(BF_ROWS, S - s0);
+      for (int i = 0; i < ns; ++i) {
+        float sc = 0.f, dp = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < D; ++d) {
+          sc = fmaf(Ks[tid][d], Qs[i][d], sc);
+          dp = fmaf(Vs[tid][d], Gs[i][d], dp);
+        }
+        const float p = ok ? expf(sc * scale - Ls[i]) : 0.f;
+        const float ds = p * (dp - Dl[i]);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          dva[d] = fmaf(p, Gs[i][d], dva[d]);
+          dka[d] = fmaf(ds, Qs[i][d], dka[d]);
+        }
+      }
+    }
+  }
+  if (ok) {
+    float* kp = dk + b * st.dk[0] + (long long)j * st.dk[1] + kvh * st.dk[2];
+    float* vp = dv + b * st.dv[0] + (long long)j * st.dv[1] + kvh * st.dv[2];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      kp[d] = dka[d] * scale;
+      vp[d] = dva[d];
+    }
+  }
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dO, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int H, int KH, int S, int T_len,
+               const BwdStrides& st, float scale, int dtype, cudaStream_t s) {
+  const long long rows = (long long)B * H * S;
+  const unsigned dblocks = (unsigned)((rows + 3) / 4);
+  if (dtype == 1) {
+    using bf = __nv_bfloat16;
+    flash_attention_bwd_delta<bf><<<dblocks, 128, 0, s>>>(
+        static_cast<const bf*>(o), static_cast<const bf*>(dO), delta, H, S, D,
+        rows, st);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr size_t bytes = bwd_smem_bytes<D>();
+    // once per instantiation and process (the port drives one card)
+    static const cudaError_t a1 = cudaFuncSetAttribute(
+        flash_attention_bwd_dkdv<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    static const cudaError_t a2 = cudaFuncSetAttribute(
+        flash_attention_bwd_dq<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (a1 != cudaSuccess) return static_cast<int>(a1);
+    if (a2 != cudaSuccess) return static_cast<int>(a2);
+    flash_attention_bwd_dkdv<D>
+        <<<dim3(B * KH, (T_len + B_BKV - 1) / B_BKV), B_THREADS, bytes, s>>>(
+            static_cast<const bf*>(q), static_cast<const bf*>(k),
+            static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
+            static_cast<bf*>(dk), static_cast<bf*>(dv), H, KH, S, T_len, st,
+            scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dq<D>
+        <<<dim3(B * H, (S + B_BQ - 1) / B_BQ), B_THREADS, bytes, s>>>(
+            static_cast<const bf*>(q), static_cast<const bf*>(k),
+            static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
+            static_cast<bf*>(dq), H, KH, S, T_len, st, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype == 0) {
+    flash_attention_bwd_delta<float><<<dblocks, 128, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dO), delta, H,
+        S, D, rows, st);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dkdv_f32<D>
+        <<<dim3(B * KH, (T_len + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<const float*>(dO), lse,
+            delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KH, S,
+            T_len, st, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_attention_bwd_dq_f32<D>
+        <<<dim3(B * H, (S + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), static_cast<const float*>(dO), lse,
+            delta, static_cast<float*>(dq), H, KH, S, T_len, st, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return -1;
+}
+
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
-// the head dim is contiguous.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launch; -1 for an unsupported dtype or D.
+// the head dim is contiguous.  dtype: 0 = float32, 1 = bfloat16.  lse:
+// null, or an fp32 (B, H, S) output for each row's logsumexp of the
+// scaled scores (-inf for a row that sees no key), for the backward.
+// Returns cudaGetLastError() after the launch; -1 for an unsupported
+// dtype or D.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int KH, int S, int T_len, int D,
                                      const long long* strides, float scale,
-                                     int causal, int dtype, void* stream) {
+                                     int causal, int dtype, void* lse,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, o, B, H, KH, S, T_len, D, strides,
-                                 scale, causal, s);
+                                 scale, causal, l, s);
   if (dtype == 0)
     return launch<float>(q, k, v, o, B, H, KH, S, T_len, D, strides, scale,
-                         causal, s);
+                         causal, l, s);
   return -1;
 }
 
-// The mma variant (bf16, D = 64 or 128; strides as above, 16-byte-aligned
-// rows).  Returns as above; -1 for an unsupported D.
+// The mma variant (bf16, D = 64 or 128; strides and lse as above,
+// 16-byte-aligned rows).  Returns as above; -1 for an unsupported D.
 extern "C" int repro_flash_attention_mma(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int H, int KH, int S, int T_len,
                                          int D, const long long* strides,
-                                         float scale, int causal,
+                                         float scale, int causal, void* lse,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 64)
     return launch_mma<64>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
-                          causal, s);
+                          causal, l, s);
   if (D == 128)
     return launch_mma<128>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
-                           causal, s);
+                           causal, l, s);
   return -1;
 }
 
@@ -803,4 +1368,27 @@ extern "C" int repro_flash_attention_decode(const void* q, const void* k,
     return launch_decode<128>(q, k, v, o, w, B, H, KH, T_len, strides, scale,
                               splits, chunk, s);
   return -1;
+}
+
+// The backward (non-causal, D = 64): q, k, v, o, dO and the outputs dq,
+// dk, dv read and written through (batch, seq, head) strides, 24 in all
+// (q, k, v, o, dO, dq, dk, dv in turn), the head dim contiguous, rows
+// 16-byte aligned for bf16; lse the forward's (B, H, S) fp32 logsumexp,
+// delta an fp32 (B, H, S) workspace.  dtype 1 (bf16) runs on mma.sync,
+// 0 (fp32) on FMAs.  Returns cudaGetLastError() after the last launch;
+// -1 for an unsupported dtype or D.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int KH, int S, int T_len, int D,
+    const long long* strides, float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdStrides st;
+  long long* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  if (D != 64 || T_len < 1) return -1;
+  return launch_bwd<64>(q, k, v, o, dO, static_cast<const float*>(lse),
+                        static_cast<float*>(delta), dq, dk, dv, B, H, KH, S,
+                        T_len, st, scale, dtype, s);
 }

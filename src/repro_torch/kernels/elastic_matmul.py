@@ -19,6 +19,15 @@ the H100 and what its design does about it.
 ``elastic_matmul`` launches a kernel on CUDA tensors and raises on
 anything it does not take; ``elastic_matmul_plain`` is the same function in
 plain PyTorch, used for CPU tensors and to hold the kernels against.
+
+The backward (the reference has none: JAX differentiates through XLA) is
+two more kernels that read the same device widths: ``elastic_matmul_dgrad``
+(``dx = dy[:, :n_act] @ w[:k_act, :n_act]^T``, zeros past k_act) and
+``elastic_matmul_wgrad`` (``dw = x[:, :k_act]^T @ dy[:, :n_act]`` on the
+active block, zeros elsewhere in the full weight's shape, split over M with
+a second pass that adds the partials in order), each bf16 on the tensor
+cores (``wmma_bf16``) or fp32 on FMAs (``fma_f32``), with plain versions
+beside them.
 """
 from __future__ import annotations
 
@@ -33,6 +42,14 @@ from repro_torch.kernels import build
 launches = 0
 VARIANTS = ("small_m", "tma", "tile_bf16", "tile_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
+# backward launches, by kernel and variant (one a call)
+dgrad_launches = 0
+wgrad_launches = 0
+BWD_VARIANTS = ("wmma_bf16", "fma_f32")
+dgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
+wgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
+BWD_TILE = 128          # the wgrad workspace's padding (the bf16 tile)
+WGRAD_ROWS_MIN = 256    # fewest rows of M worth a split of their own
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -46,6 +63,8 @@ _ARGTYPES = {
     "repro_elastic_matmul": [_P] * 4 + [_I] * 6 + [_P],
     "repro_elastic_matmul_small_m": [_P] * 5 + [_I] * 10 + [_P],
     "repro_elastic_matmul_tma": [_P] * 4 + [_I] * 9 + [_P],
+    "repro_elastic_matmul_dgrad": [_P] * 4 + [_I] * 7 + [_P],
+    "repro_elastic_matmul_wgrad": [_P] * 5 + [_I] * 11 + [_P],
 }
 
 
@@ -192,3 +211,128 @@ def elastic_matmul_plain(x: torch.Tensor, w: torch.Tensor, k_act: int,
     if n_out > n_act:
         y = torch.nn.functional.pad(y, (0, n_out - n_act))
     return y
+
+
+# ---------------------------------------------------------------- backward --
+
+def wgrad_plan(M: int, k_act: int, n_act: int, sms: int = SMS) -> tuple:
+    """(splits, rows per split) of the wgrad kernel's M: about two blocks
+    per SM over the ``cdiv(k_act, 128) * cdiv(n_act, 128)`` output tiles
+    (the ViT's 384 x 384 weights give 9), no split under 256 rows; rows
+    per split a multiple of the kernel's reduction step (32)."""
+    if M <= 0:
+        return 1, 32
+    tiles = max(1, _cdiv(k_act, BWD_TILE) * _cdiv(n_act, BWD_TILE))
+    splits = max(1, min(_cdiv(2 * sms, tiles), M // WGRAD_ROWS_MIN))
+    chunk = _cdiv(_cdiv(M, splits), 32) * 32
+    return _cdiv(M, chunk), chunk
+
+
+def _check_cuda(*ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"needs every tensor on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {dev} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if any(t.dtype != ts[0].dtype for t in ts) or \
+            ts[0].dtype not in DTYPE_CODES:
+        raise TypeError(f"tensors must share a dtype in float32/bfloat16, "
+                        f"got {[t.dtype for t in ts]}")
+    return dev
+
+
+def _unit_inner(t: torch.Tensor) -> torch.Tensor:
+    return t if t.shape[1] <= 1 or t.stride(1) == 1 else t.contiguous()
+
+
+def _vec_ok(*ts: torch.Tensor) -> bool:
+    """16-byte loads: bf16 rows with 16-byte-aligned bases and strides."""
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+               and _row_stride(t) % 8 == 0 for t in ts)
+
+
+def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
+                         widths: torch.Tensor, k_act: int, n_act: int,
+                         kx: int) -> torch.Tensor:
+    """Launch the dgrad kernel: dy (M, >=n_act), w (>=k_act, >=n_act) ->
+    dx (M, kx) with ``dx[:, :k_act] = dy[:, :n_act] @ w[:k_act, :n_act]^T``
+    and exact zeros past k_act."""
+    global dgrad_launches
+    dev = _check_cuda(dy, w)
+    if dy.ndim != 2 or w.ndim != 2 or not (
+            0 <= n_act <= min(dy.shape[1], w.shape[1])
+            and 0 <= k_act <= min(kx, w.shape[0])):
+        raise ValueError(f"dgrad: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
+                         f"k_act={k_act}, n_act={n_act}, kx={kx}")
+    dy, w = _unit_inner(dy), _unit_inner(w)
+    M = dy.shape[0]
+    dx = torch.empty((M, kx), dtype=dy.dtype, device=dev)
+    if M == 0 or kx == 0:
+        return dx
+    variant = "wmma_bf16" if dy.dtype == torch.bfloat16 else "fma_f32"
+    rc = _launcher("repro_elastic_matmul_dgrad")(
+        dy.data_ptr(), w.data_ptr(), dx.data_ptr(), widths.data_ptr(), M,
+        _row_stride(dy), _row_stride(w), kx, kx, int(_vec_ok(dy, w)),
+        DTYPE_CODES[dy.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"elastic_matmul dgrad ({variant}) launch failed "
+                           f"(CUDA error {rc})")
+    dgrad_launches += 1
+    dgrad_variant_launches[variant] += 1
+    return dx
+
+
+def elastic_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                         widths: torch.Tensor, k_act: int, n_act: int,
+                         w_shape: tuple) -> torch.Tensor:
+    """Launch the wgrad kernel and its reduce: x (M, >=k_act), dy (M,
+    >=n_act) -> dw of ``w_shape`` with ``dw[:k_act, :n_act] = x[:, :k_act]^T
+    @ dy[:, :n_act]`` (fp32 accumulation) and exact zeros elsewhere."""
+    global wgrad_launches
+    dev = _check_cuda(x, dy)
+    Kw, Nw = w_shape
+    if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0] or not (
+            0 <= k_act <= min(x.shape[1], Kw)
+            and 0 <= n_act <= min(dy.shape[1], Nw)):
+        raise ValueError(f"wgrad: x {tuple(x.shape)}, dy {tuple(dy.shape)}, "
+                         f"w {tuple(w_shape)}, k_act={k_act}, n_act={n_act}")
+    x, dy = _unit_inner(x), _unit_inner(dy)
+    M = x.shape[0]
+    dw = torch.empty((Kw, Nw), dtype=x.dtype, device=dev)
+    if Kw * Nw == 0:
+        return dw
+    splits, chunk = wgrad_plan(M, k_act, n_act)
+    ipad = max(1, _cdiv(k_act, BWD_TILE)) * BWD_TILE
+    jpad = max(1, _cdiv(n_act, BWD_TILE)) * BWD_TILE
+    ws = torch.empty((splits, ipad, jpad), dtype=torch.float32, device=dev)
+    variant = "wmma_bf16" if x.dtype == torch.bfloat16 else "fma_f32"
+    rc = _launcher("repro_elastic_matmul_wgrad")(
+        x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+        widths.data_ptr(), M, _row_stride(x), _row_stride(dy), Kw, Nw, ipad,
+        jpad, splits, chunk, int(_vec_ok(x, dy)), DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"elastic_matmul wgrad ({variant}) launch failed "
+                           f"(CUDA error {rc})")
+    wgrad_launches += 1
+    wgrad_variant_launches[variant] += 1
+    return dw
+
+
+def elastic_matmul_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                               k_act: int, n_act: int,
+                               kx: int) -> torch.Tensor:
+    """dgrad in plain PyTorch: one product on the active block, zero-pad."""
+    dx = dy[:, :n_act] @ w[:k_act, :n_act].T
+    return torch.nn.functional.pad(dx, (0, kx - k_act))
+
+
+def elastic_matmul_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
+                               k_act: int, n_act: int,
+                               w_shape: tuple) -> torch.Tensor:
+    """wgrad in plain PyTorch: one product on the active block, zero-pad."""
+    dw = x[:, :k_act].T @ dy[:, :n_act]
+    return torch.nn.functional.pad(dw, (0, w_shape[1] - n_act,
+                                        0, w_shape[0] - k_act))

@@ -19,7 +19,17 @@ about it.
 
 Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
 ``flash_attention`` launches the kernel on CUDA tensors;
-``flash_attention_plain`` is the same function in plain PyTorch.
+``flash_attention_plain`` is the same function in plain PyTorch.  With
+``return_lse`` both also give each row's fp32 logsumexp (B, H, S), which
+the backward reads.
+
+The backward (the reference has none: JAX differentiates through XLA)
+is ``flash_attention_bwd``, FlashAttention-2's on the card (a delta
+pre-pass, then dK/dV and dQ in two deterministic passes), non-causal at
+D = 64, bf16 on mma.sync (``mma``) and fp32 on FMAs (``fma_f32``); any
+other case raises ``NotImplementedError`` (causal and D = 128 come with
+LM training).  ``flash_attention_bwd_plain`` is the same gradient as
+explicit formulas, for CPU tensors and to hold the kernel against.
 """
 from __future__ import annotations
 
@@ -36,6 +46,11 @@ from repro_torch.kernels.ref import flash_attention_ref
 launches = 0
 VARIANTS = ("mma", "decode", "fma_bf16", "fma_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
+# backward launches (one a call: the delta, dK/dV and dQ kernels)
+bwd_launches = 0
+BWD_VARIANTS = ("mma", "fma_f32")
+bwd_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
+BWD_HEAD_DIMS = (64,)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 64, 128)  # ViTs (64), their smoke configs, LMs (128)
@@ -49,9 +64,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {
     "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I, _I,
-                                                    _P],
+                                                    _P, _P],
     "repro_flash_attention_mma": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I,
-                                                        _P],
+                                                        _P, _P],
+    "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_STRIDES, _F, _I,
+                                                         _P],
     "repro_flash_attention_decode": [_P] * 5 + [_I] * 5 + [_STRIDES, _F, _I,
                                                            _I, _P],
 }
@@ -115,8 +132,9 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool) -> torch.Tensor:
-    """Launch the CUDA kernel (inputs may be strided; head dim contiguous)."""
+                    causal: bool, return_lse: bool = False):
+    """Launch the CUDA kernel (inputs may be strided; head dim contiguous).
+    Returns o, or (o, lse) with ``return_lse`` (not at decode, S = 1)."""
     global launches
     check_args(q, k, v)
     dev = q.device
@@ -133,8 +151,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a contiguous head dim")
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if B * H * S == 0:
-        return o
+        return (o, lse) if return_lse else o
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
     T_seen = min(T, 1) if causal and S == 1 else T
@@ -143,6 +163,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if variant == "decode" and return_lse:
+        raise NotImplementedError("flash_attention: no logsumexp at decode "
+                                  "(S = 1): training runs prefill shapes")
     if variant == "decode":
         splits, chunk = decode_plan(T_seen, B * KH)
         ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
@@ -152,23 +176,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             splits, chunk, stream)
     elif variant == "mma":
         rc = _launcher("repro_flash_attention_mma")(
-            *ptrs, B, H, KH, S, T, D, strides, scale, int(causal), stream)
+            *ptrs, B, H, KH, S, T, D, strides, scale, int(causal), lse_ptr,
+            stream)
     else:
         rc = _launcher("repro_flash_attention")(
             *ptrs, B, H, KH, S, T, D, strides, scale, int(causal),
-            DTYPE_CODES[q.dtype], stream)
+            DTYPE_CODES[q.dtype], lse_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention ({variant}) launch failed "
                            f"(CUDA error {rc})")
     launches += 1
     variant_launches[variant] += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool) -> torch.Tensor:
+                          *, causal: bool, return_lse: bool = False):
     """The same function in plain PyTorch: repeat kv heads for GQA, then
-    the naive oracle over (B*H, S, D)."""
+    the naive oracle over (B*H, S, D); with ``return_lse`` also each row's
+    logsumexp of the scaled scores, fp32 (B, H, S)."""
     check_args(q, k, v)
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
@@ -179,4 +205,107 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.transpose(1, 2).reshape(B * H, T, D)
     vf = v.transpose(1, 2).reshape(B * H, T, D)
     o = flash_attention_ref(qf, kf, vf, causal=causal)
-    return o.reshape(B, H, S, D).transpose(1, 2)
+    o = o.reshape(B, H, S, D).transpose(1, 2)
+    if not return_lse:
+        return o
+    s = _scores(q, k, causal)
+    return o, torch.logsumexp(s, -1)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """fp32 scaled scores (B, H, S, T) of q and the kv heads repeated to
+    H; masked (causal) entries are -inf."""
+    S, T, D = q.shape[1], k.shape[1], q.shape[3]
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(D)
+    if causal:
+        keep = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(T, device=q.device)[None, :])
+        s = s.masked_fill(~keep, float("-inf"))
+    return s
+
+
+def check_bwd_args(q, k, v, o, do) -> None:
+    check_args(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if not (o.dtype == do.dtype == q.dtype):
+        raise TypeError(f"o and do must be {q.dtype}, got {o.dtype}, "
+                        f"{do.dtype}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool) -> tuple:
+    """Launch the backward kernels: (dq, dk, dv) in q's, k's and v's
+    shapes, from the forward's o and fp32 logsumexp ``lse`` (B, H, S) and
+    the output gradient ``do``.  Non-causal at D = 64 only."""
+    global bwd_launches
+    check_bwd_args(q, k, v, o, do)
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    if causal or D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward: causal={causal}, D={D}; the kernel "
+            f"takes non-causal D = 64 (causal and D = 128 come with LM "
+            f"training)")
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in (k, v, o, do,
+                                                           lse)):
+        raise ValueError("flash_attention_bwd needs every tensor on one "
+                         "CUDA device")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 {(B, H, S)}")
+    # the kernels read rows with 16-byte loads: copy anything else
+    q, k, v, o, do = (t if t.stride(3) == 1 and _aligned(t)
+                      else t.contiguous() for t in (q, k, v, o, do))
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, T, KH, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, T, KH, D), dtype=q.dtype, device=dev)
+    if B * H * S == 0 or T == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    variant = "mma" if q.dtype == torch.bfloat16 else "fma_f32"
+    rc = _launcher("repro_flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T, D, strides,
+        1.0 / math.sqrt(D), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward ({variant}) launch "
+                           f"failed (CUDA error {rc})")
+    bwd_launches += 1
+    bwd_variant_launches[variant] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool) -> tuple:
+    """The backward as explicit formulas in fp32 (P from the scores, not
+    from a saved logsumexp): dV = P^T dO, dS = P (dO V^T - rowsum(dO o)),
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), GQA's kv-head gradients
+    summed over the query heads that share them; cast to the inputs'
+    dtype."""
+    check_bwd_args(q, k, v, o, do)
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    R = H // KH
+    kr = k.repeat_interleave(R, dim=2) if R > 1 else k
+    vr = v.repeat_interleave(R, dim=2) if R > 1 else v
+    p = torch.softmax(_scores(q, kr, causal), -1)        # (B, H, S, T)
+    dof, vf = do.float(), vr.float()
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)    # (B, H, S)
+    ds = p * (dp - delta[..., None]) / math.sqrt(D)
+    dq = torch.einsum("bhst,bthd->bshd", ds, kr.float())
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float())
+    if R > 1:
+        dk = dk.reshape(B, T, KH, R, D).sum(3)
+        dv = dv.reshape(B, T, KH, R, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -10,6 +10,13 @@ unlike the TPU wrappers these pad nothing: they only reshape.
 :func:`plain_kernels` routes CUDA tensors to the plain versions for the
 current thread.  It exists to hold the kernels against their plain
 versions on the card; the serving path never enters it.
+
+Where a gradient is wanted (grad mode on and an input that requires it),
+K1 and K2 run inside a ``torch.autograd.Function`` whose backward is the
+kernels' backward (K1's dgrad and wgrad kernels, K2's backward kernel) or,
+on the CPU, their plain versions; the route is fixed when the forward
+runs (autograd runs the backward on its own thread).  Without a gradient
+the ops call the forward alone, as the serving path does.
 """
 from __future__ import annotations
 
@@ -47,24 +54,33 @@ def _use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+# (kernel name, module, its launch counter, its counts by variant)
+_COUNTERS = (
+    ("elastic_matmul", _em, "launches", "variant_launches"),
+    ("flash_attention", _fa, "launches", "variant_launches"),
+    ("expert_matmul", _xm, "launches", "variant_launches"),
+    ("elastic_matmul_dgrad", _em, "dgrad_launches", "dgrad_variant_launches"),
+    ("elastic_matmul_wgrad", _em, "wgrad_launches", "wgrad_variant_launches"),
+    ("flash_attention_bwd", _fa, "bwd_launches", "bwd_variant_launches"),
+)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
-    return {"elastic_matmul": _em.launches, "flash_attention": _fa.launches,
-            "expert_matmul": _xm.launches}
+    return {name: getattr(mod, n) for name, mod, n, _ in _COUNTERS}
 
 
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches so far of the kernels that have variants, by variant."""
-    return {"elastic_matmul": dict(_em.variant_launches),
-            "flash_attention": dict(_fa.variant_launches),
-            "expert_matmul": dict(_xm.variant_launches)}
+    return {name: dict(getattr(mod, v)) for name, mod, _, v in _COUNTERS}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count, and each variant's, to 0."""
-    for mod in (_em, _fa, _xm):
-        mod.launches = 0
-        mod.variant_launches.update(dict.fromkeys(mod.variant_launches, 0))
+    for _, mod, n, v in _COUNTERS:
+        setattr(mod, n, 0)
+        per = getattr(mod, v)
+        per.update(dict.fromkeys(per, 0))
 
 
 def widths_tensor(device: torch.device, k_act: int, n_act: int
@@ -80,6 +96,50 @@ def widths_tensor(device: torch.device, k_act: int, n_act: int
         return t
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _em_forward(kernel: bool, x2, w, k_act, n_act, n_out):
+    if kernel:
+        return _em.elastic_matmul(x2, w, widths_tensor(x2.device, k_act,
+                                                        n_act),
+                                  k_act, n_act, n_out)
+    return _em.elastic_matmul_plain(x2, w, k_act, n_act, n_out)
+
+
+class _ElasticMatmul(torch.autograd.Function):
+    """K1 with its backward: dgrad and wgrad at the forward's widths."""
+
+    @staticmethod
+    def forward(ctx, x2, w, k_act, n_act, n_out, kernel):
+        ctx.save_for_backward(x2, w)
+        ctx.args = (k_act, n_act, kernel)
+        return _em_forward(kernel, x2, w, k_act, n_act, n_out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        k_act, n_act, kernel = ctx.args
+        dx = dw = None
+        if kernel:
+            widths = widths_tensor(dy.device, k_act, n_act)
+            if ctx.needs_input_grad[0]:
+                dx = _em.elastic_matmul_dgrad(dy, w, widths, k_act, n_act,
+                                              x2.shape[1])
+            if ctx.needs_input_grad[1]:
+                dw = _em.elastic_matmul_wgrad(x2, dy, widths, k_act, n_act,
+                                              tuple(w.shape))
+        else:
+            if ctx.needs_input_grad[0]:
+                dx = _em.elastic_matmul_dgrad_plain(dy, w, k_act, n_act,
+                                                    x2.shape[1])
+            if ctx.needs_input_grad[1]:
+                dw = _em.elastic_matmul_wgrad_plain(x2, dy, k_act, n_act,
+                                                    tuple(w.shape))
+        return dx, dw, None, None, None, None
+
+
 def elastic_matmul_op(x: torch.Tensor, w: torch.Tensor, k_act: int,
                       n_act: int, *, n_out: Optional[int] = None
                       ) -> torch.Tensor:
@@ -88,24 +148,56 @@ def elastic_matmul_op(x: torch.Tensor, w: torch.Tensor, k_act: int,
     Only ``x[..., :k_act]`` and ``w[:k_act, :n_act]`` are read; columns
     ``n_act <= n < n_out`` are exact zeros.  ``n_out`` defaults to ``Nw``
     (the TPU op's shape); sliced-mode layers pass ``n_out=n_act`` and
-    ``x`` of width ``k_act`` against the full resident ``w``.
+    ``x`` of width ``k_act`` against the full resident ``w``.  The
+    gradient of x is zero past k_act and that of w outside the active
+    block.
     """
     k_act, n_act = int(k_act), int(n_act)
     n_out = w.shape[-1] if n_out is None else int(n_out)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if _use_kernel(x2):
-        y = _em.elastic_matmul(x2, w, widths_tensor(x2.device, k_act, n_act),
-                               k_act, n_act, n_out)
+    kernel = _use_kernel(x2)
+    if _wants_grad(x2, w):
+        y = _ElasticMatmul.apply(x2, w, k_act, n_act, n_out, kernel)
     else:
-        y = _em.elastic_matmul_plain(x2, w, k_act, n_act, n_out)
+        y = _em_forward(kernel, x2, w, k_act, n_act, n_out)
     return y.reshape(*lead, n_out)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 with its backward, from the forward's fp32 logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kernel):
+        if kernel:
+            o, lse = _fa.flash_attention(q, k, v, causal=causal,
+                                         return_lse=True)
+        else:
+            o, lse = _fa.flash_attention_plain(q, k, v, causal=causal), None
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, kernel)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, kernel = ctx.args
+        if kernel:
+            dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal)
+        else:
+            dq, dk, dv = _fa.flash_attention_bwd_plain(q, k, v, o, do,
+                                                       causal=causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D); GQA for KH < H."""
-    if _use_kernel(q):
+    kernel = _use_kernel(q)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, kernel)
+    if kernel:
         return _fa.flash_attention(q, k, v, causal=causal)
     return _fa.flash_attention_plain(q, k, v, causal=causal)
 

@@ -1,16 +1,39 @@
-"""The LM's prefill and decode steps.
+"""The LM's prefill and decode steps and the ViT's train step.
 
 Counterparts of the ``prefill`` and ``decode`` closures of the reference's
-``launch/steps.py:_lm_cell``, without mesh or sharding (one card, eager).
+``launch/steps.py:_lm_cell`` and the ``train_step`` of its ``_vis_cell``,
+without mesh or sharding (one card, eager).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.distill import ce_loss
 from repro_torch.models.transformer import (LMConfig, check_decodable,
                                             lm_apply, make_decode_caches)
+from repro_torch.models.vit import ViTConfig, vit_apply
+from repro_torch.optim.api import clip_by_global_norm, pop_grads
+
+
+def make_vit_train_step(cfg: ViTConfig, update_fn: Callable) -> Callable:
+    """The reference's ``vis_train`` step for the ViTs: cross entropy of
+    the full net on the labels, the gradient clipped to global norm 1.0,
+    one optimizer update.
+
+    ``step(params, opt, batch, step) -> (params, opt, {"loss", "gnorm"})``
+    with the parameters (leaves that require grad) and the optimizer state
+    updated in place and the metrics as device scalars."""
+    def step(params, opt, batch, step):
+        pop_grads(params)
+        logits, _ = vit_apply(params, batch["images"], cfg)
+        loss = ce_loss(logits, batch["labels"])
+        loss.backward()
+        grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
+        params, opt = update_fn(params, grads, opt, step)
+        return params, opt, {"loss": loss.detach(), "gnorm": gn}
+    return step
 
 
 def lm_prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,

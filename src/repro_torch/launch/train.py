@@ -1,0 +1,193 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
+
+Counterpart of the reference ``launch/train.py`` for the vision
+transformers on one card: config registry -> train step -> data pipeline
+-> checkpoint manager -> watchdog/straggler monitor -> restart supervisor.
+``--smoke`` runs the reduced config; ``--sandwich`` is the paper's
+supernet training (max + min + 2 random sub-networks a step with in-place
+distillation, masked mode: one graph); without it, the plain ``vis_train``
+step (cross entropy of the full net).  Parameters are fp32 and the compute
+dtype is the config's (bf16 at full size).  The run is on the card unless
+``--device cpu``; with no card and no ``--device cpu`` it raises.
+
+    python -m repro_torch.launch.train --arch dynamic-ofa-supernet \\
+        --sandwich --smoke --device cpu --steps 12
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import statistics
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_arch
+from repro_torch.configs.registry import ShapeSpec
+from repro_torch.core.supernet import make_sandwich_step
+from repro_torch.data import Prefetcher, synthetic_image_batches, to_device
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
+                                           Watchdog, run_with_restarts)
+from repro_torch.launch.steps import make_vit_train_step
+from repro_torch.models.vit import vit_apply, vit_init
+from repro_torch.optim import make_optimizer
+from repro_torch.optim.api import named_leaves
+
+# architectures of the reference whose training is not ported yet, and the
+# ROADMAP item that brings it
+UNPORTED = {
+    "resnet-152": "item 9 (conv nets)",
+    "efficientnet-b7": "item 9 (conv nets)",
+    "unet-sdxl": "item 10 (diffusion)",
+    "dit-l2": "item 10 (diffusion)",
+}
+LM_ITEM = ("queue 1: LM training (K2's causal and D = 128 backward, K3's "
+           "backward)")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default=None, help="e.g. cls_224")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--sandwich", action="store_true",
+                    help="sandwich-rule supernet training (paper technique)")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--mesh", choices=("host", "pod", "multipod"),
+                    default="host")
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a failure at this step (tests recovery)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of a multi-process job (not ported)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    return ap.parse_args(argv)
+
+
+def _shape(arch, name, cfg, smoke: bool) -> ShapeSpec:
+    name = name or next(n for n, s in arch.shapes.items() if "train" in s.kind)
+    shape = arch.shape(name)
+    if smoke:   # the reference's reduced-shape smoke variant (batch 2)
+        shape = dataclasses.replace(
+            shape, global_batch=min(shape.global_batch, 2),
+            img_res=cfg.img_res if shape.img_res else 0)
+    return shape
+
+
+def main(argv=None):
+    """Train; returns {"params", "opt", "restarts", "step_ms", "losses"}
+    (``step_ms`` and ``losses`` of every step run, restarts included)."""
+    args = parse_args(argv)
+    if args.mesh != "host" or args.coordinator:
+        raise NotImplementedError(
+            "multi-device and multi-process training (--mesh pod/multipod, "
+            "--coordinator) come with ROADMAP item 11")
+    if args.arch in UNPORTED:
+        raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
+                                  f"{UNPORTED[args.arch]}")
+    arch = get_arch(args.arch)
+    if arch.family == "lm":
+        raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
+                                  f"{LM_ITEM}")
+    if not arch.arch_id.startswith(("deit", "vit", "dynamic-ofa")):
+        raise NotImplementedError(f"{args.arch}: no ported training path")
+    device = resolve_device(args.device)
+
+    cfg = arch.make_smoke() if args.smoke else arch.make_config()
+    shape = _shape(arch, args.shape, cfg, args.smoke)
+    if shape.kind != "vis_train":
+        raise ValueError(f"--shape {shape.name} is a {shape.kind} shape")
+    if shape.img_res != cfg.img_res:
+        cfg = dataclasses.replace(cfg, img_res=shape.img_res)
+    B = shape.global_batch
+    init_fn, update_fn = make_optimizer(arch.optimizer)
+
+    if args.sandwich:
+        dims = {"d_model": cfg.d_model, "d_ff": cfg.d_ff,
+                "n_heads": cfg.n_heads, "n_layers": cfg.n_layers}
+
+        def apply_fn(p, b, E):
+            return vit_apply(p, b["images"], cfg, E=E)[0]
+        s_step, s_sample = make_sandwich_step(apply_fn, update_fn, dims)
+    else:
+        step_fn = make_vit_train_step(cfg, update_fn)
+
+    def data_at(step):
+        return Prefetcher(synthetic_image_batches(
+            global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes,
+            start_step=step))
+
+    manager = CheckpointManager(args.ckpt_dir, save_every=args.save_every,
+                                device=device)
+    straggler = StragglerMonitor()
+    watchdog = Watchdog(timeout_s=600).start()
+    step_ms, losses = [], []
+
+    def init_state():
+        params = vit_init(torch.Generator().manual_seed(0), cfg,
+                          device=device)
+        return {"params": params, "opt": init_fn(params)}
+
+    def train(start_step, state):
+        state = state or init_state()
+        params, opt = state["params"], state["opt"]
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        data = data_at(start_step)
+        rng = np.random.default_rng(start_step)
+        try:
+            for step in range(start_step, args.steps):
+                batch = to_device(next(data), device)
+                t0 = time.perf_counter()
+                if args.fail_at is not None and step == args.fail_at:
+                    args.fail_at = None  # only once
+                    raise SimulatedFailure(f"injected at step {step}")
+                if args.sandwich:
+                    E_stack = s_sample(cfg.elastic, rng)
+                    params, opt, metrics = s_step(params, opt, batch, E_stack,
+                                                  step)
+                else:
+                    params, opt, metrics = step_fn(params, opt, batch, step)
+                loss = float(metrics["loss"])       # waits for the step
+                synchronize(device)
+                dt = time.perf_counter() - t0
+                step_ms.append(dt * 1e3)
+                losses.append(loss)
+                watchdog.beat()
+                if straggler.record(step, dt):
+                    print(f"[straggler] step {step} took {dt:.2f}s")
+                manager.maybe_save(step, {"params": params, "opt": opt})
+                if step % args.log_every == 0:
+                    print(f"step {step:5d} loss {loss:.4f} gnorm "
+                          f"{float(metrics['gnorm']):.2f} {dt * 1e3:.0f}ms",
+                          flush=True)
+        finally:
+            data.close()
+        manager.wait()
+        return {"params": params, "opt": opt}
+
+    try:
+        state, restarts = run_with_restarts(train, manager=manager)
+    finally:
+        watchdog.stop()
+    steady = step_ms[1:] or step_ms
+    median = (f"; step {statistics.median(steady):.1f} ms (median after the "
+              f"first)" if steady else "")
+    print(f"done: {args.steps} steps, {restarts} restarts, straggler flags: "
+          f"{len(straggler.flags)}{median} on {device}", flush=True)
+    return dict(state, restarts=restarts, step_ms=step_ms, losses=losses)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,19 @@
 """ViT / DeiT encoder with elastic width/depth and early-exit heads.
 
 Counterpart of the reference ``models/vit.py`` (the backbone of the paper's
-Dynamic-OFA vision experiments) in sliced mode: a static ``E`` slices the
-widths, the heads and the layer stack.  Parameters are a dict in the
-reference layout, except that the layer stack is a list of per-layer dicts
-(the reference stacks them on a leading axis for ``jax.lax.scan``; here the
-scan is a Python loop).
+Dynamic-OFA vision experiments).  A static ``E`` slices the widths, the
+heads and the layer stack (serving); a masked ``E`` of 0-d tensors keeps
+full widths with zeros past the active channels and gates the layers past
+``a_layers`` (training: one graph for every subnet).  Parameters are a
+dict in the reference layout, except that the layer stack is a list of
+per-layer dicts (the reference stacks them on a leading axis for
+``jax.lax.scan``; here the scan is a Python loop).
+
+The depth gate: the reference computes every layer and adds
+``gate * f(x)`` with ``gate = (idx < a_layers)``, so a gated layer adds
+exact zeros and its parameters get zero gradients.  The port skips the
+gated layers' compute: the output is the same, and their parameters get
+no gradient, which the optimizer and the gradient clip take as zeros.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import layers as L
+from repro_torch.core.elastic import mask_dim
 from repro_torch.core.types import ElasticSpace, is_static
 from repro_torch.device import resolve_device
 
@@ -99,14 +108,9 @@ def _encode(params, x, cfg: ViTConfig, E) -> tuple:
     """images (B,H,W,3) -> (tokens (B,N,a_model), per-layer hiddens|None)."""
     a_model = E.get("a_model")
     a_layers = E.get("a_layers")
-    for name in ("a_model", "a_layers", "a_heads", "a_ff"):
-        if not is_static(E.get(name)):
-            raise NotImplementedError(
-                f"vit_apply: tensor {name} (masked mode) comes with the "
-                f"training slice of the port")
     B = x.shape[0]
-    # patch conv keeps full d_model; slicing happens after pos-embed so the
-    # position table stays uniform across sub-networks.
+    # patch conv keeps full d_model; masking/slicing happens after pos-embed
+    # so the position table stays uniform across sub-networks.
     h = L.conv_apply(params["patch_embed"], x.to(cfg.cdtype()),
                      stride=cfg.patch, padding="VALID")
     h = h.reshape(B, -1, cfg.d_model)
@@ -114,11 +118,18 @@ def _encode(params, x, cfg: ViTConfig, E) -> tuple:
     h = torch.cat([cls[None].expand(B, -1, -1), h], dim=1)
     h = h + params["pos"].to(h.dtype)[None, : h.shape[1]]
     if a_model is not None:
-        h = h[..., : int(a_model)]
+        if is_static(a_model):
+            h = h[..., : int(a_model)]
+        else:
+            h = mask_dim(h, a_model, -1)
 
     stack = params["layers"]
+    n_gated = 0                 # masked depth: layers past a_layers add 0
     if a_layers is not None:
-        stack = stack[: int(a_layers)]
+        n_run = int(a_layers)
+        if not is_static(a_layers):
+            n_gated = max(0, len(stack) - n_run)
+        stack = stack[:n_run]
     d_head = cfg.d_model // cfg.n_heads
     hiddens = [] if cfg.exit_layers else None
     for lp in stack:
@@ -133,6 +144,8 @@ def _encode(params, x, cfg: ViTConfig, E) -> tuple:
                             a_ff=E.get("a_ff"), act="gelu")
         if hiddens is not None:
             hiddens.append(h)
+    if hiddens is not None:
+        hiddens.extend([h] * n_gated)
     return h, hiddens
 
 

@@ -1,0 +1,222 @@
+"""Optimizers as plain functions over the port's parameter trees.
+
+Counterpart of the reference ``optim/api.py``: ``make_optimizer(name,
+**hp)`` returns ``(init_fn, update_fn)``::
+
+    state = init_fn(params)
+    params, state = update_fn(params, grads, state, step)
+
+Parameters and gradients are trees (dicts and lists) of tensors with the
+same structure; moments are fp32 and shaped like the parameters.  The
+port updates IN PLACE: ``update_fn`` writes the new values into the
+parameter and state tensors it was given (under ``no_grad``) and returns
+the same trees, where the reference returns new ones.  A gradient that is
+``None`` (a parameter no loss reached, such as a layer the masked depth
+gate skipped) counts as zeros, as the reference's zero gradient does.
+
+The weight-decay mask ``_wd_ok`` reads the same path strings as the
+reference's.  The port's layer stack is a list, so its paths carry a layer
+index (``layers/3/attn/q/kernel``) that the reference's stacked leaves do
+not (``layers/attn/q/kernel``); no index contains a masked substring, so
+both pick the same leaves.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+import torch
+
+
+def named_leaves(tree, path: str = "") -> List[Tuple[str, object]]:
+    """[(path, leaf)] of a tree of dicts and lists, in a fixed order; paths
+    as the reference's ``_path_str`` writes them (keys and list indices
+    joined by '/')."""
+    if isinstance(tree, dict):
+        out = []
+        for k, v in tree.items():
+            out += named_leaves(v, f"{path}/{k}" if path else str(k))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out += named_leaves(v, f"{path}/{i}" if path else str(i))
+        return out
+    return [(path, tree)]
+
+
+def pop_grads(params):
+    """The ``.grad`` accumulated on each parameter, as a tree of the
+    parameters' structure (``None`` where no loss reached one), with every
+    ``.grad`` cleared for the next step."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        g, t.grad = t.grad, None
+        return g
+    return walk(params)
+
+
+def _wd_ok(path_s: str) -> bool:
+    """No weight decay on norms/biases/BN."""
+    return not any(t in path_s for t in ("bias", "scale", "ln", "norm", "bn",
+                                         "pos", "cls"))
+
+
+def _grad_list(params, grads) -> List[torch.Tensor]:
+    """Each parameter's gradient in leaf order, zeros for a missing one."""
+    ps = [p for _, p in named_leaves(params)]
+    gs = [g for _, g in named_leaves(grads)] if grads is not None else []
+    if len(gs) != len(ps):
+        raise ValueError(f"grads have {len(gs)} leaves, params {len(ps)}")
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(ps, gs)]
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / max(norm, 1e-6)), norm), the norm
+    over every leaf in fp32 and the scale applied on the device (no host
+    sync).  ``None`` leaves stay ``None``."""
+    leaves = [g for _, g in named_leaves(grads) if g is not None]
+    if not leaves:
+        return grads, torch.zeros(())
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-6), max=1.0)
+
+    def apply(t):
+        if isinstance(t, dict):
+            return {k: apply(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [apply(v) for v in t]
+        if t is None:
+            return None
+        return (t.float() * scale).to(t.dtype)
+    return apply(grads), gn
+
+
+def _write(p: torch.Tensor, new: torch.Tensor) -> None:
+    p.copy_(new.to(p.dtype))
+
+
+# --- AdamW -------------------------------------------------------------------
+
+def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.1):
+    def init(params):
+        return {"s": _map(lambda p: {
+            "mu": torch.zeros_like(p, dtype=torch.float32),
+            "nu": torch.zeros_like(p, dtype=torch.float32)}, params)}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        t = float(step) + 1.0
+        c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        leaves = named_leaves(params)
+        gs = _grad_list(params, grads)
+        ss = _state_list(params, state["s"])
+        for (path, p), g, s in zip(leaves, gs, ss):
+            g = g.float()
+            mu, nu = s["mu"], s["nu"]
+            mu.mul_(b1).add_(g, alpha=1 - b1)
+            nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+            u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+            if weight_decay and _wd_ok(path):
+                u.add_(p.float(), alpha=weight_decay)
+            _write(p, p.float() - lr * u)
+        return params, state
+
+    return init, update
+
+
+# --- Adafactor (factored second moment; for 1T-param configs) ---------------
+
+def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0):
+    def _factored(shape) -> bool:
+        return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
+
+    def init(params):
+        def st(p):
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                          device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=torch.float32,
+                                          device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"s": _map(st, params)}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        t = float(step) + 1.0
+        beta = 1.0 - t ** (-decay)
+        leaves = named_leaves(params)
+        gs = _grad_list(params, grads)
+        ss = _state_list(params, state["s"])
+        for (_, p), g, s in zip(leaves, gs, ss):
+            g = g.float()
+            g2 = torch.square(g) + eps
+            if "vr" in s:
+                s["vr"].mul_(beta).add_(torch.mean(g2, -1), alpha=1 - beta)
+                s["vc"].mul_(beta).add_(torch.mean(g2, -2), alpha=1 - beta)
+                vr_hat = s["vr"] / torch.clamp(
+                    torch.mean(s["vr"], -1, keepdim=True), min=eps)
+                u = g * torch.rsqrt(vr_hat)[..., None] \
+                    * torch.rsqrt(torch.clamp(s["vc"], min=eps))[..., None, :]
+            else:
+                s["v"].mul_(beta).add_(g2, alpha=1 - beta)
+                u = g * torch.rsqrt(torch.clamp(s["v"], min=eps))
+            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            _write(p, p.float() - lr * u)
+        return params, state
+
+    return init, update
+
+
+# --- SGD momentum ------------------------------------------------------------
+
+def sgdm(lr: float = 0.1, momentum: float = 0.9, weight_decay: float = 1e-4):
+    def init(params):
+        return {"s": _map(lambda p: {
+            "m": torch.zeros_like(p, dtype=torch.float32)}, params)}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        leaves = named_leaves(params)
+        gs = _grad_list(params, grads)
+        ss = _state_list(params, state["s"])
+        for (path, p), g, s in zip(leaves, gs, ss):
+            g = g.float()
+            if weight_decay and _wd_ok(path):
+                g = g + weight_decay * p.float()
+            s["m"].mul_(momentum).add_(g)
+            _write(p, p.float() - lr * s["m"])
+        return params, state
+
+    return init, update
+
+
+def make_optimizer(name: str, **hp) -> Tuple[Callable, Callable]:
+    return {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}[name](**hp)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _state_list(params, state_tree) -> List[dict]:
+    """Each parameter's state dict in leaf order: ``state_tree`` has the
+    parameters' structure with a dict of moments at each leaf (the
+    reference's ``flatten_up_to``)."""
+    if isinstance(params, dict):
+        return [s for k, v in params.items()
+                for s in _state_list(v, state_tree[k])]
+    if isinstance(params, (list, tuple)):
+        return [s for v, st in zip(params, state_tree, strict=True)
+                for s in _state_list(v, st)]
+    return [state_tree]

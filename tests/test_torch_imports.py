@@ -48,6 +48,9 @@ def test_serve_imports_with_jax_blocked():
             "import repro_torch.launch.serve, repro_torch.convert\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
             "import repro_torch.launch.elastic_moe, repro_torch.launch.steps\n"
+            "import repro_torch.launch.train, repro_torch.core.supernet\n"
+            "import repro_torch.checkpoint, repro_torch.data, "
+            "repro_torch.optim, repro_torch.distributed.fault\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -51,6 +51,8 @@ def cuda():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # plain bf16 products accumulate in fp32, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -638,3 +640,198 @@ def test_cuda_flash_attention_head_dim_128(cuda, dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(o.float(), o_plain.float(), rtol=tol,
                                    atol=tol)
+
+
+# --- backward (the training path) ---------------------------------------------
+
+@pytest.mark.parametrize("M,K,N,ka,na", [(7, 48, 40, 48, 40), (7, 48, 40, 24, 17),
+                                         (5, 32, 16, 1, 16), (6, 40, 24, 33, 1)])
+def test_elastic_matmul_plain_backward_matches_jax_grad(M, K, N, ka, na):
+    """K1's plain dgrad and wgrad against jax.vjp of kernels/ref.py's
+    oracle (the TPU op's shape: x and w at full width, zeros past the
+    widths), fp32 within 1e-5."""
+    rng = np.random.default_rng(M + K + ka)
+    x, w = rng.normal(size=(M, K)), rng.normal(size=(K, N))
+    dy = rng.normal(size=(M, N))
+    _, vjp = jax.vjp(lambda a, b: jref.elastic_matmul_ref(a, b, ka, na),
+                     jnp.asarray(x, jnp.float32), jnp.asarray(w, jnp.float32))
+    jdx, jdw = vjp(jnp.asarray(dy, jnp.float32))
+    tdy = torch.tensor(dy, dtype=torch.float32)
+    dx = em.elastic_matmul_dgrad_plain(tdy, torch.tensor(w, dtype=torch.float32),
+                                       ka, na, K)
+    dw = em.elastic_matmul_wgrad_plain(torch.tensor(x, dtype=torch.float32),
+                                       tdy, ka, na, (K, N))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_elastic_matmul_op_autograd_on_cpu():
+    """elastic_matmul_op's gradient (the autograd Function on the plain
+    backward) equals autograd of the plain forward in sliced mode, and in
+    the TPU op's shape gives zeros past k_act."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(48, 40, generator=g, requires_grad=True)
+    x = torch.randn(3, 5, 48, generator=g, requires_grad=True)
+    y = ops.elastic_matmul_op(x, w, 24, 17)
+    assert y.shape == (3, 5, 40) and bool((y[..., 17:] == 0).all())
+    gy = torch.randn(y.shape, generator=g)
+    dx, dw = torch.autograd.grad(y, (x, w), gy)
+    rx, rw = torch.autograd.grad(x[..., :24] @ w[:24, :17], (x, w),
+                                 gy[..., :17])
+    torch.testing.assert_close(dx, rx, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dw, rw, rtol=1e-6, atol=1e-6)
+    assert bool((dx[..., 24:] == 0).all())
+    with torch.no_grad():     # no gradient wanted: the forward alone
+        assert ops.elastic_matmul_op(x, w, 24, 17).grad_fn is None
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,T", [(17, 17), (9, 13)])
+def test_flash_attention_plain_backward_matches_jax(causal, S, T):
+    """K2's plain backward against jax.vjp of kernels/ref.py's oracle on
+    (B*H, S, D) and the plain forward's logsumexp against the scores', fp32
+    within 1e-5."""
+    if causal and S != T:
+        pytest.skip("the causal oracle aligns query and key positions")
+    rng = np.random.default_rng(S + T)
+    B, H, D = 2, 3, 16
+    q, k, v, do = (rng.normal(size=(B, n, H, D)).astype(np.float32) * sc
+                   for n, sc in ((S, 0.5), (T, 0.5), (T, 1.0), (S, 1.0)))
+
+    def bh(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, -1, D))
+    o_j, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal), bh(q), bh(k), bh(v))
+    jdq, jdk, jdv = vjp(bh(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      return_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd_plain(tq, tk, tv, o, tdo,
+                                              causal=causal)
+
+    def back(a, n):
+        return np.asarray(a).reshape(B, H, n, D).transpose(0, 2, 1, 3)
+    for t, j, n in ((dq, jdq, S), (dk, jdk, T), (dv, jdv, T)):
+        np.testing.assert_allclose(t.numpy(), back(j, n), rtol=1e-5,
+                                   atol=1e-5)
+    s = np.einsum("bshd,bthd->bhst", q, k) / math.sqrt(D)
+    if causal:
+        s = np.where(np.arange(S)[:, None] >= np.arange(T)[None], s, -np.inf)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(
+        jax.nn.logsumexp(jnp.asarray(s), -1)), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_op_autograd_gqa_on_cpu():
+    """flash_attention_op's gradient (the autograd Function on the plain
+    backward, GQA's kv-head gradients summed over their query heads)
+    equals autograd of the plain forward."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(2, 11, 6, 16, generator=g, requires_grad=True)
+    k = torch.randn(2, 11, 2, 16, generator=g, requires_grad=True)
+    v = torch.randn(2, 11, 2, 16, generator=g, requires_grad=True)
+    do = torch.randn(2, 11, 6, 16, generator=g)
+    got = torch.autograd.grad(ops.flash_attention_op(q, k, v, causal=False),
+                              (q, k, v), do)
+    ref_ = torch.autograd.grad(fa.flash_attention_plain(q, k, v,
+                                                        causal=False),
+                               (q, k, v), do)
+    for a, b in zip(got, ref_):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_kernels_refuse_what_they_do_not_take():
+    q = torch.zeros(1, 4, 2, 64)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(NotImplementedError):        # causal: LM training
+        fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
+    q16 = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(NotImplementedError):        # D 16: smoke configs
+        fa.flash_attention_bwd(q16, q16, q16, q16, lse, q16, causal=False)
+    with pytest.raises(ValueError):                 # CPU tensors
+        fa.flash_attention_bwd(q, q, q, q, lse, q, causal=False)
+    w = torch.zeros(8, 8)
+    with pytest.raises(ValueError):
+        em.elastic_matmul_dgrad(w, w, torch.zeros(2, dtype=torch.int32), 4,
+                                4, 8)
+    with pytest.raises(ValueError):
+        em.elastic_matmul_wgrad(w, w, torch.zeros(2, dtype=torch.int32), 4,
+                                4, (8, 8))
+
+
+@pytest.mark.parametrize("M,k_act,n_act,want", [
+    (50432, 384, 384, (30, 1696)), (50432, 1536, 384, (8, 6304)),
+    (50432, 384, 1536, (8, 6304)), (256, 384, 1000, (1, 256)),
+    (100, 384, 384, (1, 128)), (50176, 768, 384, (15, 3360)),
+    (50432, 192, 192, (66, 768))])
+def test_wgrad_plan(M, k_act, n_act, want):
+    splits, chunk = em.wgrad_plan(M, k_act, n_act)
+    assert (splits, chunk) == want
+    assert chunk % 32 == 0 and (splits - 1) * chunk < M <= splits * chunk
+
+
+def test_launch_counts_cover_the_backward_kernels():
+    assert {"elastic_matmul_dgrad", "elastic_matmul_wgrad",
+            "flash_attention_bwd"} <= set(ops.launch_counts())
+    em.wgrad_variant_launches["wmma_bf16"] += 2
+    fa.bwd_launches += 1
+    assert ops.variant_counts()["elastic_matmul_wgrad"]["wmma_bf16"] >= 2
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+    assert set(ops.variant_counts()["flash_attention_bwd"]) == \
+        set(fa.BWD_VARIANTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,ka,na,kx", [
+    (2048, 384, 1536, 384, 1536, 384), (1000, 384, 1536, 288, 1152, 384),
+    (256, 384, 1000, 192, 1000, 384), (300, 200, 130, 129, 77, 200)])
+def test_cuda_elastic_matmul_backward_matches_plain(cuda, dtype, M, K, N, ka,
+                                                    na, kx):
+    """K1's dgrad and wgrad kernels against their plain versions, exact
+    zeros past k_act (dx) and outside the active block (dw)."""
+    g = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(cuda, dt)
+    dy = torch.randn(M, N, generator=g).to(cuda, dt)
+    x = torch.randn(M, kx, generator=g).to(cuda, dt)
+    wd = ops.widths_tensor(cuda, ka, na)
+    dx = em.elastic_matmul_dgrad(dy, w, wd, ka, na, kx)
+    dw = em.elastic_matmul_wgrad(x, dy, wd, ka, na, (K, N))
+    torch.cuda.synchronize()
+    tol = TOL[dtype] * (4 if dtype == "float32" else 1)   # sums over M rows
+    torch.testing.assert_close(
+        dx.float(), em.elastic_matmul_dgrad_plain(dy, w, ka, na, kx).float(),
+        rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        dw.float(),
+        em.elastic_matmul_wgrad_plain(x, dy, ka, na, (K, N)).float(),
+        rtol=tol, atol=tol)
+    assert torch.all(dx[:, ka:] == 0) and torch.all(dw[ka:] == 0) \
+        and torch.all(dw[:, na:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,KH", [(197, 6, 6), (100, 6, 2), (65, 4, 4)])
+def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, S, H, KH):
+    """K2's logsumexp and backward kernels against the plain versions at
+    D = 64, T a multiple of the tile or not, GQA."""
+    g = torch.Generator().manual_seed(6)
+    dt = getattr(torch, dtype)
+    tol = 3e-3 if dtype == "float32" else 3e-2
+    q = (torch.randn(4, S, H, 64, generator=g) * 0.5).to(cuda, dt)
+    k = (torch.randn(4, S, KH, 64, generator=g) * 0.5).to(cuda, dt)
+    v = torch.randn(4, S, KH, 64, generator=g).to(cuda, dt)
+    do = torch.randn(4, S, H, 64, generator=g).to(cuda, dt)
+    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    _, lse_p = fa.flash_attention_plain(q, k, v, causal=False,
+                                        return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, rtol=1e-3, atol=1e-3)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)

@@ -98,16 +98,104 @@ def test_patch_embed_matches_jax_conv(res, patch):
 
 
 def test_unported_modes_raise():
-    p = _params(JL.dense_init(KEY, 8, 8))
-    with pytest.raises(NotImplementedError):     # masked mode: training slice
-        TL.dense_apply(p, torch.zeros(2, 8), a_out=torch.tensor(4))
     with pytest.raises(NotImplementedError):     # only the patch embed conv
         TL.conv_apply(_params(JL.conv_init(KEY, 3, 3, 4)),
                       torch.zeros(1, 8, 8, 3), stride=1, padding="SAME")
-    pa = _params(JL.attention_init(KEY, 8, 2, 2, 4))
-    with pytest.raises(NotImplementedError):     # masked heads: training
-        TL.attention_apply(pa, torch.zeros(1, 3, 8), n_heads=2, n_kv=2,
-                           d_head=4, a_heads=torch.tensor(1))
+    pe = _params(JL.embedding_init(KEY, 16, 8))
+    with pytest.raises(NotImplementedError):     # masked LM: LM training
+        TL.embedding_apply(pe, torch.zeros(2, 3, dtype=torch.long),
+                           a=torch.tensor(4))
+    with pytest.raises(NotImplementedError):
+        TL.embedding_attend(pe, torch.zeros(2, 8), a=torch.tensor(4))
+
+
+# --- masked mode (tensor widths), as the training path runs the layers ----------
+
+def _m(a):
+    """A masked width: a 0-d int32 tensor in each framework."""
+    return (None, None) if a is None else (jnp.asarray(a, jnp.int32),
+                                           torch.tensor(a, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("a_in,a_out", [(None, 17), (24, 40), (1, 1),
+                                        (48, 7), (13, None)])
+def test_masked_dense_matches_jax(a_in, a_out):
+    pj = JL.dense_init(KEY, 48, 40)
+    pj["bias"] = jax.random.normal(KEY, (40,))
+    (ji, ti), (jo, to) = _m(a_in), _m(a_out)
+    xj, xt = _x((3, 5, 48))
+    if a_in is not None:
+        xj = JE_mask(xj, ji)
+        xt = TE.mask_dim(xt, ti, -1)
+    yt = TL.dense_apply(_params(pj), xt, a_in=ti, a_out=to)
+    _close(yt, JL.dense_apply(pj, xj, a_in=ji, a_out=jo))
+    assert yt.shape[-1] == 40
+    if a_out is not None:
+        assert bool((yt[..., a_out:] == 0).all())
+
+
+def JE_mask(x, a):
+    from repro.core.elastic import mask_dim
+    return mask_dim(x, a, -1)
+
+
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("d,a", [(64, 32), (48, 13), (16, 16)])
+def test_masked_norms_match_jax_and_slices(norm, d, a):
+    """Masked statistics over the active channels, against the reference's
+    masked norm and (mirroring tests/test_elastic_layers.py:35) the port's
+    sliced norm."""
+    init = getattr(JL, f"{norm}_init")
+    pj = {k: jax.random.normal(jax.random.fold_in(KEY, i), (d,))
+          for i, k in enumerate(init(d))}
+    ja, ta = _m(a)
+    xj, xt = _x((2, 5, d), seed=d)
+    xj, xt = JE_mask(xj, ja), TE.mask_dim(xt, ta, -1)
+    apply_t, apply_j = getattr(TL, f"{norm}_apply"), getattr(JL,
+                                                             f"{norm}_apply")
+    ym = apply_t(_params(pj), xt, a=ta)
+    _close(ym, apply_j(pj, xj, a=ja))
+    _close(ym[..., :a], apply_t(_params(pj), xt[..., :a].contiguous(), a=a)
+           .numpy())
+    assert bool((ym[..., a:] == 0).all())
+
+
+@pytest.mark.parametrize("a_model,a_ff", [(None, 64), (16, 24), (32, None)])
+def test_masked_mlp_matches_jax(a_model, a_ff):
+    pj = JL.mlp_init(KEY, 32, 128, gated=False, bias=True)
+    pj["wi"]["bias"] = jax.random.normal(KEY, (128,))
+    (jm, tm), (jf, tf) = _m(a_model), _m(a_ff)
+    xj, xt = _x((2, 7, 32), seed=3)
+    if a_model is not None:
+        xj, xt = JE_mask(xj, jm), TE.mask_dim(xt, tm, -1)
+    _close(TL.mlp_apply(_params(pj), xt, a_model=tm, a_ff=tf, act="gelu"),
+           JL.mlp_apply(pj, xj, a_model=jm, a_ff=jf, act="gelu"))
+
+
+@pytest.mark.parametrize("n_heads,n_kv,a_heads,a_model", [
+    (6, 6, 4, 24), (6, 6, 3, None), (8, 4, 4, 32), (8, 8, 2, 16),
+    (4, 1, 2, None), (6, 2, 4, 16), (6, 6, None, 16)])
+def test_masked_attention_matches_jax_and_slices(n_heads, n_kv, a_heads,
+                                                 a_model):
+    """Masked heads (and widths) against the reference's masked attention
+    and, mirroring tests/test_elastic_layers.py:51, the port's sliced
+    heads."""
+    d_model, d_head = 32, 8
+    pj = JL.attention_init(KEY, d_model, n_heads, n_kv, d_head, qkv_bias=True)
+    pj = jax.tree_util.tree_map(
+        lambda a: a + 0.1 * jax.random.normal(KEY, a.shape), pj)
+    (jh, th), (jm, tm) = _m(a_heads), _m(a_model)
+    xj, xt = _x((2, 9, d_model), seed=n_heads + n_kv)
+    if a_model is not None:
+        xj, xt = JE_mask(xj, jm), TE.mask_dim(xt, tm, -1)
+    kw = dict(n_heads=n_heads, n_kv=n_kv, d_head=d_head, causal=False)
+    ym, _ = TL.attention_apply(_params(pj), xt, a_model=tm, a_heads=th, **kw)
+    yj, _ = JL.attention_apply(pj, xj, rope_theta=None, a_model=jm,
+                               a_heads=jh, **kw)
+    _close(ym, yj)
+    if a_model is None:
+        ys, _ = TL.attention_apply(_params(pj), xt, a_heads=a_heads, **kw)
+        _close(ym, ys.numpy())
 
 
 # --- elastic helpers ----------------------------------------------------------
