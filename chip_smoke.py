@@ -46,7 +46,8 @@ the LM slice (deepseek-moe-16b at full width):
    each count; and across its variants (stream, tma, tile): C = 16 and
    17 around the stream boundary, E = 1, all counts 0 and all C, NaN in
    x past every count, and the dense oracle's stride-0 expert axis (tile
-   at C > 16);
+   at C > 16); a backward through the kernel route raises (K3 has no
+   backward kernel yet);
 9. K2 at head dim 128 against its plain version: causal prefill
    S = T = 512, and decode S = 1 against T = 1, 300 and 528 taken as
    strided slices of a 528-slot cache;
@@ -90,14 +91,20 @@ Dynamic-OFA ViT, batch 256, bf16):
     dynamic-ofa-supernet --sandwich`` for 8 steps with a checkpoint every
     4 and a failure injected at step 6: finite losses, exactly one restart,
     the K1 forward, dgrad and wgrad and the K2 forward and backward
-    counters all rising, no bf16 call on K1 ``tile_bf16`` or K2
-    ``fma_bf16`` (nor a backward on ``fma_f32``), the median step time
+    counters all rising, every bf16 K1 dgrad and wgrad call on ``tma``,
+    no bf16 call on K1 ``tile_bf16``, K2 ``fma_bf16`` or the backward's
+    ``wmma_bf16`` (nor a backward on ``fma_f32``), the median step time
     after the first step and the peak device memory;
-16. K1 dgrad and wgrad against their plain versions at every distinct call
-    (shapes, strides, widths) of one recorded sandwich step, full and
-    masked widths, on the recorded bf16 inputs, cast to fp32 and with dy
-    scaled to unit rms, exact zeros past k_act (dgrad) and outside the
-    active block (wgrad);
+16. K1 forward, dgrad and wgrad against their plain versions at every
+    distinct call (shapes, strides, widths) of one recorded sandwich step,
+    full and masked widths, on the recorded bf16 inputs, cast to fp32 and
+    with x or dy scaled to unit rms, exact zeros past k_act (dgrad) and
+    outside the active block (wgrad), each comparison one launch of the
+    variant it should take (``tma`` in bf16, ``fma_f32`` in fp32); each
+    recorded wgrad call twice, bit for bit equal (the fused split-K
+    reduce adds in split order), and once captured in a CUDA graph and
+    replayed 3 times, each equal to the plain version (its tile counters
+    reset);
 17. K2's backward (dQ, dK, dV) and its forward's logsumexp against their
     plain versions: the recorded step's call (S = T = 197, D = 64) and
     random cases with T not a multiple of the 64-key tile and GQA, bf16
@@ -107,11 +114,14 @@ Dynamic-OFA ViT, batch 256, bf16):
     leaf within 1e-3 of its largest value;
 19. phase 7 for the training slice: K1's forward, dgrad and wgrad and K2's
     forward and backward over the recorded calls of one sandwich step as
-    graph-replayed device time, each beside its bound, its plain version
-    and a yardstick the port never calls (``torch.matmul`` on the active
-    block; SDPA, and autograd's backward of SDPA); and one whole step's
-    device time by kernel from a ``torch.profiler`` trace, beside its wall
-    time (the device's busy share).
+    graph-replayed device time, each beside its bound, its plain version,
+    a yardstick the port never calls (``torch.matmul`` on the active
+    block; SDPA, and autograd's backward of SDPA) and, with
+    ``--parent-csrc``, the parent's kernel, dgrad's and wgrad's broken
+    down by call shape; one whole step's device time by kernel from a
+    ``torch.profiler`` trace, beside its wall time (the device's busy
+    share); and with ``--parent-csrc`` the whole sandwich step as wall
+    time on this tree's kernels and on the parent's, in turns.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -317,15 +327,20 @@ def k2_library(q, k, v, causal=True):
 
 # the forward kernels (the serving and LM paths launch no backward)
 FORWARD = ("elastic_matmul", "flash_attention", "expert_matmul")
-# the first port's kernels, which no bf16 main-path call may take
+# the kernels no bf16 main-path call may take: the first port's forward
+# kernels and the first backward of K1 (the serving and LM paths launch no
+# backward)
 OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
-            ("expert_matmul", "tile_bf16")}
+            ("expert_matmul", "tile_bf16"),
+            ("elastic_matmul_dgrad", "wmma_bf16"),
+            ("elastic_matmul_wgrad", "wmma_bf16")}
 
 
 def main_path_variants(counts: dict, need: set) -> None:
     """Raise unless a main path's bf16 calls all went through the new
-    variants: no launch of the old K1 tile, K2 FMA or K3 tile kernel in
-    bf16, and every (kernel, variant) in ``need`` launched.  ``counts``
+    variants: no launch of the old K1 tile, K2 FMA, K3 tile or K1 WMMA
+    backward kernel in bf16, and every (kernel, variant) in ``need``
+    launched.  ``counts``
     is ``ops.variant_counts()``: variants by kernel."""
     flat = {(k, v): n for k, per in counts.items() for v, n in per.items()}
     old = {kv: flat[kv] for kv in sorted(OLD_BF16) if flat.get(kv)}
@@ -476,15 +491,23 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
     return row
 
 
+# K1's backward launchers since its tma variants; a parent without them
+# runs its backward through the older entry points, unchanged since
+K1_BWD_TMA = ("repro_elastic_matmul_dgrad_tma",
+              "repro_elastic_matmul_wgrad_tma")
+
+
 def parent_kernels(csrc: str) -> dict:
     """The parent commit's kernels, built from its ``csrc`` directory
-    beside ours.  Returns {"k1", "k2", "k3"}: ops to call inside
-    {"libs"}(), which serves the parent's libraries in the build's place.
-    A kernel whose parent library exports every launcher this tree's
-    wrapper binds runs through that wrapper (variant choice and plans as
-    here); K3 before its tma and stream variants runs through its one C
-    interface (the tile launcher, unchanged since) behind the checks and
-    allocation of its wrapper of the time."""
+    beside ours.  Returns {"k1", "k2", "k3", "k1_dgrad", "k1_wgrad"}: ops
+    to call inside {"libs"}(), which serves the parent's libraries in the
+    build's place.  A kernel whose parent library exports every launcher
+    this tree's wrapper binds runs through that wrapper (variant choice
+    and plans as here); K3 before its tma and stream variants runs through
+    its one C interface (the tile launcher, unchanged since) behind the
+    checks and allocation of its wrapper of the time; K1's backward before
+    its tma variants through this wrapper's ``wmma_bf16`` route (in bf16),
+    which calls the parent's entry points as its wrapper did."""
     import ctypes
     from pathlib import Path
 
@@ -511,8 +534,9 @@ def parent_kernels(csrc: str) -> dict:
     f_xm.argtypes, f_xm.restype = xm._ARGTYPES["repro_expert_matmul"], \
         ctypes.c_int
 
-    def exports_all(name, mod):
-        return all(hasattr(libs[name], fn) for fn in mod._ARGTYPES)
+    def exports_all(name, mod, skip=()):
+        return all(hasattr(libs[name], fn) for fn in mod._ARGTYPES
+                   if fn not in skip)
 
     def k3(x, w, counts):
         xm.check_cuda_args(x, w, counts)
@@ -534,13 +558,24 @@ def parent_kernels(csrc: str) -> dict:
             for n, lib in libs.items():
                 stack.enter_context(build.loaded_as(n, lib))
             yield
-    for name, mod in (("elastic_matmul", em), ("flash_attention", fa)):
-        if not exports_all(name, mod):
+    def wmma_route(fn):
+        def call(a, *args):
+            return fn(a, *args, variant="wmma_bf16"
+                      if a.dtype == torch.bfloat16 else None)
+        return call
+    for name, mod, skip in (("elastic_matmul", em, K1_BWD_TMA),
+                            ("flash_attention", fa, ())):
+        if not exports_all(name, mod, skip):
             raise RuntimeError(f"parent {name} lacks a launcher of "
-                               f"{sorted(mod._ARGTYPES)}")
+                               f"{sorted(set(mod._ARGTYPES) - set(skip))}")
+    k1_tma_bwd = exports_all("elastic_matmul", em)
     return {"k1": ops.elastic_matmul_op, "k2": ops.flash_attention_op,
             "k3": ops.expert_matmul_op
             if exports_all("expert_matmul", xm) else k3,
+            "k1_dgrad": em.elastic_matmul_dgrad if k1_tma_bwd
+            else wmma_route(em.elastic_matmul_dgrad),
+            "k1_wgrad": em.elastic_matmul_wgrad if k1_tma_bwd
+            else wmma_route(em.elastic_matmul_wgrad),
             "libs": parent_libs}
 
 
@@ -770,7 +805,22 @@ def lm_phases(dev, parent) -> dict:
     out["k3_err"] = k3_err
     log("  max abs err by variant: " + ", ".join(
         f"{v} {e:.3g}" for v, e in sorted(k3_variants.items())))
-    log(f"  K3 max abs err {k3_err:.3g}; exact zeros past every count "
+    # with a gradient wanted K3 runs inside an autograd Function whose
+    # backward raises (it has no backward kernel): a loss through it can
+    # not leave x and w without a gradient silently
+    xg = randn(E, 17, d, dtype=torch.bfloat16).requires_grad_()
+    wg = randn(E, d, 64, dtype=torch.bfloat16).requires_grad_()
+    yg = ops.expert_matmul_op(xg, wg, torch.full((E,), 17, dtype=torch.int32,
+                                                 device=dev))
+    try:
+        yg.float().sum().backward()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("K3's kernel route gave a backward")
+    del xg, wg, yg
+    log(f"  K3 max abs err {k3_err:.3g}; exact zeros past every count; a "
+        f"backward through the kernel route raises NotImplementedError "
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = phase("9. K2 flash_attention at D = 128 vs plain (causal prefill "
@@ -1289,10 +1339,69 @@ def expand(distinct: dict) -> list:
     return [(a, kw) for a, kw, n in distinct.values() for _ in range(n)]
 
 
-def train_phases(dev) -> dict:
+def bwd_group(args, kw) -> str:
+    """A K1 dgrad or wgrad call's shape and the variant it takes (with its
+    tile or split plan), for the breakdown."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    a, b, _, k_act, n_act, last = args
+    M = a.shape[0]
+    variant = em._bwd_variant(a, b, k_act, n_act, None,
+                              8 if isinstance(last, tuple) else last)
+    if variant == "tma":
+        variant += " {}x{}".format(*em.BWD_TMA_TILE)
+        if isinstance(last, tuple):                           # wgrad
+            variant += " splits {}x{}".format(
+                *em.wgrad_tma_plan(M, k_act, n_act))
+    dt = "bf16" if a.dtype == torch.bfloat16 else "fp32"
+    return f"M={M} k={k_act} n={n_act} {dt} {variant}"
+
+
+def step_wall(step, parent, rounds: int = 2, steps: int = 3) -> dict:
+    """Wall time of one sandwich step (``step()`` then a synchronise), on
+    this tree's kernels and on the parent's (K1's backward routed to the
+    parent's ops, its libraries served in the build's place), in turns
+    parent, kernel, kernel, parent, ``rounds`` times; each turn one
+    warm-up step and ``steps`` timed ones.  The mean and median of each."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    targets = [(em, "elastic_matmul_dgrad", "k1_dgrad"),
+               (em, "elastic_matmul_wgrad", "k1_wgrad")]
+
+    def turn():
+        step()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return ts
+    runs = {"parent": [], "kernel": []}
+    for who in ("parent", "kernel", "kernel", "parent") * rounds:
+        if who == "parent":
+            with parent["libs"](), routed(targets, parent):
+                runs[who] += turn()
+        else:
+            runs[who] += turn()
+    res = {}
+    for who, ts in runs.items():
+        res[who] = {"step_ms": sum(ts) / len(ts),
+                    "step_median_ms": statistics.median(ts), "runs": ts}
+        log(f"  {who:6s} sandwich step {res[who]['step_ms']:.1f} ms (median "
+            f"{res[who]['step_median_ms']:.1f}; runs "
+            f"{', '.join(f'{t:.1f}' for t in ts)})")
+    return res
+
+
+def train_phases(dev, parent) -> dict:
     """Phases 15-19: the training slice (sandwich-rule supernet training of
     the full-width Dynamic-OFA ViT).  Returns what the kernels' record
-    needs."""
+    needs.  ``parent``: the parent commit's kernels to time beside ours,
+    or None."""
     import shutil
     import tempfile
 
@@ -1352,8 +1461,8 @@ def train_phases(dev) -> dict:
         raise AssertionError(f"kernels not launched while training: {idle}")
     main_path_variants(out["variants"], need={
         ("elastic_matmul", "tma"), ("flash_attention", "mma"),
-        ("elastic_matmul_dgrad", "wmma_bf16"),
-        ("elastic_matmul_wgrad", "wmma_bf16"),
+        ("elastic_matmul_dgrad", "tma"),
+        ("elastic_matmul_wgrad", "tma"),
         ("flash_attention_bwd", "mma")})
     for kern in ("elastic_matmul_dgrad", "elastic_matmul_wgrad",
                  "flash_attention_bwd"):
@@ -1439,14 +1548,23 @@ def train_phases(dev) -> dict:
                     a[iu] = (a[iu].float() / a[iu].float().square().mean()
                              .sqrt()).to(dt)
                 a = tuple(a)
+                k_act, n_act = a[iw], a[iw + 1]
                 want = plain(*a, **kw)
+                was = dict(ops.variant_counts()[counter[key]])
                 got = kern(*a, **kw).reshape(want.shape)
                 torch.cuda.synchronize()
+                took = {v: c - was[v] for v, c in
+                        ops.variant_counts()[counter[key]].items()
+                        if c != was[v]}
+                expect = "tma" if dt == torch.bfloat16 else "fma_f32"
+                if key != "k1" and took != {expect: 1}:
+                    raise AssertionError(
+                        f"{key} {dt} at {(k_act, n_act)}: launches {took}, "
+                        f"want one on {expect}")
                 err = close(got, want, tol)
                 worst = max(worst, err)
                 r = err / max(float(want.abs().max()), 1e-30)
                 rel = max(rel, r)
-                k_act, n_act = a[iw], a[iw + 1]
                 if unit and not r <= tol:
                     raise AssertionError(
                         f"{key} at {(k_act, n_act)}: max abs err {err} is "
@@ -1476,6 +1594,35 @@ def train_phases(dev) -> dict:
         if ran != 3 * len(rec[key]):
             raise AssertionError(f"{key}: {ran} kernel launches in "
                                  f"{3 * len(rec[key])} comparisons")
+    # the fused split-K reduce of wgrad's tma variant: the same call twice
+    # gives the same bits (the partials are added in split order), and a
+    # call captured in a CUDA graph gives the plain result at every replay
+    # (the last block of each tile resets its counter)
+    tol = TOL["bfloat16"]
+    worst = 0.0
+    for args, kw, _ in rec["wgrad"].values():
+        first = em.elastic_matmul_wgrad(*args, **kw)
+        again = em.elastic_matmul_wgrad(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(first, again):
+            raise AssertionError(f"wgrad at {args[3:5]}: two calls differ")
+        want = k1_wgrad_plain(*args, **kw)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = em.elastic_matmul_wgrad(*args, **kw)
+        for _ in range(3):
+            replayed.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            worst = max(worst, close(replayed, want, tol))
+            if not torch.equal(replayed, first):
+                raise AssertionError(f"wgrad at {args[3:5]}: a graph "
+                                     f"replay differs from the eager call")
+        del graph, replayed
+    log(f"  wgrad: {len(rec['wgrad'])} distinct calls each twice, bit for "
+        f"bit equal; each captured in a CUDA graph and replayed 3 times: "
+        f"equal to the eager call, max abs err {worst:.3g} against plain "
+        f"(tol {tol})")
     # the main path's own inputs; the unit-rms pass is logged above
     out["k1_bwd_err"] = {k: max(e for (kk, _, unit), e in errs.items()
                                 if kk == k and not unit)
@@ -1620,26 +1767,38 @@ def train_phases(dev) -> dict:
         log("  largest other kernels: " + "; ".join(
             f"{n} {ms:.1f} ms x{c}" for n, ms, c in bd["other_top"]))
     out["step_breakdown"] = bd
+    if parent:
+        log("  the whole step, wall time, on this tree's kernels and on the "
+            "parent's, in turns:")
+        out["step_e2e"] = step_wall(
+            lambda: step_fn(params, opt, batch, E_stack, 0), parent)
     del opt, batch
     nograd = torch.no_grad
+
+    def par(key):
+        return parent and (parent[key], parent["libs"])
     out["k1_train_fwd"] = time_rows(
         "K1 forward, sandwich step", expand(rec["k1"]),
-        ops.elastic_matmul_op, k1_plain, k1_library, "torch.matmul", k1_work)
+        ops.elastic_matmul_op, k1_plain, k1_library, "torch.matmul", k1_work,
+        par("k1"))
     out["k2_train_fwd"] = time_rows(
         "K2 forward, sandwich step", expand(rec["k2"]),
-        ops.flash_attention_op, k2_plain, k2_library, "sdpa", k2_work)
+        ops.flash_attention_op, k2_plain, k2_library, "sdpa", k2_work,
+        par("k2"))
     out["k1_dgrad"] = time_rows(
         "K1 dgrad, sandwich step", expand(rec["dgrad"]),
         em.elastic_matmul_dgrad, k1_dgrad_plain, k1_dgrad_library,
-        "torch.matmul", k1_dgrad_work, mode=nograd)
+        "torch.matmul", k1_dgrad_work, par("k1_dgrad"), group=bwd_group,
+        mode=nograd)
     out["k1_wgrad"] = time_rows(
         "K1 wgrad, sandwich step", expand(rec["wgrad"]),
         em.elastic_matmul_wgrad, k1_wgrad_plain, k1_wgrad_library,
-        "torch.matmul", k1_wgrad_work, mode=nograd)
+        "torch.matmul", k1_wgrad_work, par("k1_wgrad"), group=bwd_group,
+        mode=nograd)
     out["k2_bwd"] = time_rows(
         "K2 backward, sandwich step", expand(rec["k2_bwd"]), k2_bwd_kernel,
         k2_bwd_plain, SdpaBackward(), "sdpa backward", k2_bwd_work,
-        mode=nograd)
+        (k2_bwd_kernel, parent["libs"]) if parent else None, mode=nograd)
     del rec, params
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     return out
@@ -1661,7 +1820,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-csrc", default=None, help=(
         "a parent commit's src/repro_torch/kernels/csrc: its kernels are "
-        "built too and timed beside these in phases 7, 13 and 14"))
+        "built too and timed beside these in phases 7, 13, 14 and 19"))
     cli = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1953,7 +2112,7 @@ def main() -> int:
     log(f"  ({time.perf_counter() - t0:.1f} s)")
 
     lm = lm_phases(dev, parent)
-    tr = train_phases(dev)
+    tr = train_phases(dev, parent)
 
     def row_keys(vit: dict) -> dict:
         # the contract's numbers from the ViT forward's row; the LM rows
@@ -2030,9 +2189,9 @@ def main() -> int:
              "launches_by_variant": {"train": tr["variants"][name]},
              "max_abs_err": err}, **row_keys(row), timing=timing,
             train_step=row))
-    log("train: " + json.dumps({k: tr[k] for k in (
+    log("train: " + json.dumps({k: tr.get(k) for k in (
         "step_ms", "step_ms_all", "peak_gib", "peak_run_gib", "losses",
-        "fp32_step", "step_breakdown")}))
+        "fp32_step", "step_breakdown", "step_e2e")}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -73,22 +73,54 @@
 //   exact zeros for k_act <= k < kx (x's width).  wgrad: dw[k, n] =
 //   sum_m x[m, k] dy[m, n] on the active block, exact zeros elsewhere in
 //   the full weight's shape, fp32 accumulation.
-// * Bound: operations at the training step's shapes (M = 50,432 token
-//   rows against at most 1536 x 384 weights: ~1,000 operations a byte).
-// * Design: one 128 x 128 tile GEMM, C = A B, whose operands are read in
-//   place from the row-major tensors in whichever orientation the
-//   product needs (dgrad: dy along its rows, w along its rows as B^T --
-//   both contiguous in the reduction; wgrad: x down its columns, dy along
-//   its rows), staged 32 deep by 16-byte cp.async into a double buffer
-//   whose zero fill masks everything past the widths, and multiplied on
-//   the tensor cores with WMMA (bf16 in, fp32 accumulate): 8 warps, each
-//   64 x 32.  A dead dgrad tile (past k_act) stores zeros without loads.
-//   wgrad's few output tiles (9 for a 384 x 384 weight) cannot fill 132
-//   SMs, so M is split (wgrad_plan: ~2 blocks per SM) into an fp32
-//   workspace padded to whole tiles, and a second kernel adds the splits
-//   in order (deterministic) and writes the zeros.  fp32 runs the same
-//   schedule on FMAs (64 x 64 tiles), the parity path.  Simple and slow
-//   (PERF.md): a wgmma/TMA version is the next step.
+// * Bound: at the training step's shapes (M = 50,432 token rows against
+//   weights of 192 x 192 to 1536 x 384) each product does about
+//   k n / (k + n) operations a byte: 96 at 192 x 192, 192 at 384 x 384,
+//   307 at 1536 x 384, against the H100's ridge of ~295.  So the large
+//   layers sit at the ridge (operations and bytes both bound them) and
+//   the narrow ones are bound by the bytes of dy and x (dx): what counts
+//   is to stream M's rows at full bandwidth into the tensor cores and to
+//   read each row of dy and x from device memory once.
+// * tma (bf16, TMA-readable bases and strides: every call of the step).
+//   Both products run on the forward's ring (tma_produce / tma_consume:
+//   one producer thread's TMA loads, full / empty mbarriers, consumer
+//   warpgroups on wgmma m64n128k16, fp32 accumulators in registers), in
+//   128 x 128 tiles.
+//   dgrad is the forward with a K-major B: both its operands are read
+//   along the reduction (dy along its rows exactly as the forward reads
+//   x, w along its rows as one {64, 128} box) and the widths swap roles.
+//   Its reduction is short (384 or 1536) against M = 50,432 rows, so a
+//   block's fixed costs weigh: the kernel is persistent (one block an SM
+//   walks the tiles, its producer loading the next tile while the
+//   consumers finish the last), the tiles go column-fastest (the blocks
+//   in flight share their rows of dy in L2: M-fastest read dy once per
+//   column tile from memory), and the epilogue stages the bf16 tile in
+//   shared memory (128-byte swizzle, no bank conflicts) for one TMA store
+//   that runs behind the next tile's products, where 4-byte stores from
+//   registers left the tensor cores idle.  Tiles past k_act store zeros
+//   without loads; w's map covers all its rows, so a tile that straddles
+//   k_act reads whole boxes (TMA's partial boxes cost ~35% at k_act =
+//   288) and stores zeros past it.
+//   wgrad reads both operands down their columns (MN-major: x as the
+//   forward reads w, in {64, 64} boxes, A's transpose bit set).  Its 9 to
+//   36 output tiles cannot fill 132 SMs, so M is split: each block takes
+//   one (tile, split) pair, the tiles of a split side by side (they share
+//   its rows in L2), as many splits as fill one wave (wgrad_tma_plan: a
+//   block over a whole wave costs a wave).  Chunks are whole 64-row boxes
+//   (TMA cannot clip a box to a chunk's end, so only the last chunk may
+//   meet M's edge).  The reduce is fused: each split writes its fp32
+//   partial, takes a ticket from the tile's counter, and the last block
+//   adds the partials in split order (deterministic; each thread keeps
+//   16 loads in flight), stores dw and resets the counter (a CUDA graph
+//   replays it); further blocks zero the tiles outside the active block.
+//   The tiles and plans come from the sweep in sweep_splits.py (PERF.md).
+// * wmma_bf16 (bf16 that TMA cannot read) and fma_f32 (fp32, the parity
+//   path): the first backward, one 128 x 128 tile GEMM (64 x 64 in fp32)
+//   whose operands are read in place in whichever orientation the
+//   product needs, staged 32 deep by 16-byte cp.async into a double
+//   buffer whose zero fill masks everything past the widths, on WMMA
+//   (bf16 in, fp32 accumulate) or FMAs; wgrad splits M (wgrad_plan) into
+//   an fp32 workspace and a second kernel adds the splits in order.
 //
 // Later work: a persistent, cluster-multicast schedule for the tma variant
 // (one block per SM walking the output tiles, the epilogue of one tile
@@ -232,6 +264,171 @@ int launch_small_m(const void* x, const void* w, void* y, void* ws,
 
 // ----------------------------------------------------------------- tma ----
 
+// The three products on the tma ring, and what each reads (A is the
+// tile's rows, B its columns, both over the reduction):
+//   FWD    y  = x w      A = x, K-major: one box {64, BM};
+//                        B = w, MN-major: BN / 64 boxes {64, 64};
+//   DGRAD  dx = dy w^T   A = dy, K-major, as FWD;
+//                        B = w along its rows, K-major: one box {64, BN};
+//   WGRAD  dw = x^T dy   A = x down its columns, MN-major: CWG boxes
+//                        {64, 64}; B = dy, MN-major, as FWD.
+enum : int { FWD = 0, DGRAD = 1, WGRAD = 2 };
+
+// zeros at rows r0 .. r0 + R - 1 below r_out and columns c0 .. c0 + C - 1
+// below c_out of y (row stride ld), by all THREADS threads of the block
+template <int R, int C, int THREADS>
+__device__ __forceinline__ void zero_tile(__nv_bfloat16* __restrict__ y,
+                                          int ld, int r0, int c0, int r_out,
+                                          int c_out) {
+  for (int i = threadIdx.x; i < R * C; i += THREADS) {
+    const int r = r0 + i / C, c = c0 + i % C;
+    if (r < r_out && c < c_out) y[(size_t)r * ld + c] = __float2bfloat16(0.f);
+  }
+}
+
+// the ring of a tma block: dynamic shared memory from a 1024-byte boundary
+// (the 128-byte swizzle's atom)
+__device__ __forceinline__ unsigned char* ring_base() {
+  extern __shared__ unsigned char smem_raw[];
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+}
+
+// A tma block's ring: G::STAGES stages of A and B tiles from ring_base(),
+// then the full and empty mbarriers, initialised by thread 0
+template <class G>
+struct Ring {
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+template <class G, int CWG>
+__device__ __forceinline__ Ring<G> ring_init() {
+  Ring<G> r;
+  r.smem = ring_base();
+  r.full = reinterpret_cast<uint64_t*>(r.smem + G::STAGES * G::STAGE_BYTES);
+  r.empty = r.full + G::STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 4 * CWG);    // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The producer thread's loads of one tile: n_k steps of G_BK along the
+// reduction from k0 for the output tile at (m0, n0), into ring steps it0
+// .. it0 + n_k - 1 (a stage is refilled once the consumers release it)
+template <class G, int CWG, int BN, int OP>
+__device__ __forceinline__ void tma_produce(const Ring<G>& ring,
+                                            const CUtensorMap* map_a,
+                                            const CUtensorMap* map_b,
+                                            int m0, int n0, int k0, int n_k,
+                                            int it0) {
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int it = it0 + kt;
+    const int s = it % G::STAGES;
+    const int k = k0 + kt * G_BK;
+    mbar_wait(&ring.empty[s], ((it / G::STAGES) & 1) ^ 1);
+    unsigned char* a = ring.smem + s * G::STAGE_BYTES;
+    unsigned char* b = a + G::A_BYTES;
+    mbar_expect_tx(&ring.full[s], G::STAGE_BYTES);
+    if constexpr (OP == WGRAD) {
+#pragma unroll
+      for (int h = 0; h < CWG; ++h)
+        tma_load_2d(a + h * 8192, map_a, &ring.full[s], m0 + 64 * h, k);
+    } else {
+      tma_load_2d(a, map_a, &ring.full[s], k, m0);
+    }
+    if constexpr (OP == DGRAD) {
+      tma_load_2d(b, map_b, &ring.full[s], k, n0);
+    } else {
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h)
+        tma_load_2d(b + h * 8192, map_b, &ring.full[s], n0 + 64 * h, k);
+    }
+  }
+}
+
+// A consumer warpgroup's product over ring steps it0 .. it0 + n_k - 1:
+// wgmma on each stage as it arrives, one group in flight, each stage
+// released once its group is done (the last one too when RELEASE_LAST:
+// a persistent block refills it for its next tile).  d then holds the
+// warpgroup's 64 x BN rows of the tile (fp32).
+template <class G, int CWG, int BN, int OP, bool RELEASE_LAST>
+__device__ __forceinline__ void tma_consume(const Ring<G>& ring, int n_k,
+                                            int it0, float (&d)[BN / 2]) {
+  const int tid = threadIdx.x, wg = tid / 128;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int it = it0 + kt;
+    const int s = it % G::STAGES;
+    mbar_wait(&ring.full[s], (it / G::STAGES) & 1);
+    const uint32_t a = smem_u32(ring.smem + s * G::STAGE_BYTES) +
+                       wg * 64 * 128;
+    const uint32_t b = smem_u32(ring.smem + s * G::STAGE_BYTES + G::A_BYTES);
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < G_BK / 16; ++ks) {
+      // K-major (A of FWD and DGRAD, B of DGRAD): rows of 128 bytes,
+      //   8-row groups 1024 bytes apart, a 16-wide K step is 32 bytes
+      //   along the swizzled row;
+      // MN-major (B of FWD and WGRAD, A of WGRAD): 64-column boxes 8192
+      //   bytes apart (LBO), 8-row groups 1024 bytes apart (SBO), a
+      //   16-row K step is 2048 bytes
+      const uint64_t da = OP == WGRAD ? gmma_desc(a + ks * 2048, 8192, 1024)
+                                      : gmma_desc(a + ks * 32, 16, 1024);
+      const uint64_t db = OP == DGRAD ? gmma_desc(b + ks * 32, 16, 1024)
+                                      : gmma_desc(b + ks * 2048, 8192, 1024);
+      wgmma_step<BN, OP == WGRAD, OP != DGRAD>(d, da, db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(d);
+    if (kt > 0 && tid % 32 == 0)
+      mbar_arrive(&ring.empty[(it - 1) % G::STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(d);
+  if constexpr (RELEASE_LAST) {
+    if (n_k > 0 && tid % 32 == 0)
+      mbar_arrive(&ring.empty[(it0 + n_k - 1) % G::STAGES]);
+  }
+}
+
+// The producer / consumer loop of one tma block over one tile: n_k steps
+// of G_BK along the reduction from k0, for the output tile at (m0, n0).
+// A ring of G::STAGES stages in dynamic shared memory, fed by one
+// producer thread's TMA loads and guarded by full / empty mbarriers; CWG
+// consumer warpgroups run wgmma on it, one group in flight.  Returns
+// false on the producer warp, which has nothing left to do, and true on
+// the consumers, whose d then holds rows m0 + 64 wg .. + 63 of the tile
+// (fp32).
+template <int CWG, int BN, int OP>
+__device__ __forceinline__ bool tma_mainloop(const CUtensorMap* map_a,
+                                             const CUtensorMap* map_b,
+                                             int m0, int n0, int k0, int n_k,
+                                             float (&d)[BN / 2]) {
+  using G = GemmTile<CWG, BN>;
+  const Ring<G> ring = ring_init<G, CWG>();
+  const int tid = threadIdx.x;
+  if (tid / 128 == CWG) {                 // producer: one thread
+    if (tid == 128 * CWG)
+      tma_produce<G, CWG, BN, OP>(ring, map_a, map_b, m0, n0, k0, n_k, 0);
+    return false;
+  }
+  // consumer warpgroup tid / 128 computes rows m0 + 64 wg .. + 63
+  tma_consume<G, CWG, BN, OP, false>(ring, n_k, 0, d);
+  return true;
+}
+
 template <int CWG, int BN>
 __global__ void __launch_bounds__(GemmTile<CWG, BN>::THREADS, 1)
 gemm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -243,81 +440,17 @@ gemm_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   const int n_act = widths[1];
   const int m0 = blockIdx.x * G::BM;    // M tiles fastest: see the note
   const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
   if (n0 >= n_act) {        // dead tile: zeros, no loads
-    for (int i = tid; i < G::BM * BN; i += G::THREADS) {
-      const int r = m0 + i / BN, c = n0 + i % BN;
-      if (r < M && c < n_out)
-        y[(size_t)r * ldy + c] = __float2bfloat16(0.f);
-    }
+    zero_tile<G::BM, BN, G::THREADS>(y, ldy, m0, n0, M, n_out);
     return;
   }
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES *
-                                               G::STAGE_BYTES);
-  uint64_t* empty = full + G::STAGES;
-  const int n_k = (k_act + G_BK - 1) / G_BK;
-  if (tid == 0) {
-    for (int s = 0; s < G::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * CWG);      // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
-  __syncthreads();
-
-  const int wg = tid / 128;               // CWG: the producer warp
-  if (wg == CWG) {                        // producer: one thread
-    if (tid == 128 * CWG) {
-      for (int kt = 0; kt < n_k; ++kt) {
-        const int s = kt % G::STAGES;
-        mbar_wait(&empty[s], ((kt / G::STAGES) & 1) ^ 1);
-        unsigned char* a = smem + s * G::STAGE_BYTES;
-        unsigned char* b = a + G::A_BYTES;
-        mbar_expect_tx(&full[s], G::STAGE_BYTES);
-        tma_load_2d(a, &map_x, &full[s], kt * G_BK, m0);
-#pragma unroll
-        for (int h = 0; h < BN / 64; ++h)
-          tma_load_2d(b + h * 8192, &map_w, &full[s], n0 + 64 * h,
-                      kt * G_BK);
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup wg computes rows m0 + 64wg .. m0 + 64wg + 63
   float d[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int s = kt % G::STAGES;
-    mbar_wait(&full[s], (kt / G::STAGES) & 1);
-    const uint32_t a = smem_u32(smem + s * G::STAGE_BYTES) + wg * 64 * 128;
-    const uint32_t b = smem_u32(smem + s * G::STAGE_BYTES + G::A_BYTES);
-    fence_acc(d);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-    for (int ks = 0; ks < G_BK / 16; ++ks) {
-      // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart, a
-      //    16-wide K step is 32 bytes along the swizzled row;
-      // B: MN-major, 64-column boxes 8192 bytes apart (LBO), 8-row groups
-      //    1024 bytes apart (SBO), a 16-row K step is 2048 bytes
-      const uint64_t da = gmma_desc(a + ks * 32, 16, 1024);
-      const uint64_t db = gmma_desc(b + ks * 2048, 8192, 1024);
-      wgmma_step<BN>(d, da, db);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-    fence_acc(d);
-    if (kt > 0 && tid % 32 == 0) mbar_arrive(&empty[(kt - 1) % G::STAGES]);
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_acc(d);
-
-  store_acc<BN>(d, y, ldy, tid % 128, m0 + wg * 64, n0, M, M, n_act, n_out);
+  if (!tma_mainloop<CWG, BN, FWD>(&map_x, &map_w, m0, n0, 0,
+                                  (k_act + G_BK - 1) / G_BK, d))
+    return;
+  const int tid = threadIdx.x;
+  store_acc<BN>(d, y, ldy, tid % 128, m0 + (tid / 128) * 64, n0, M, M,
+                n_act, n_out);
 }
 
 template <int CWG, int BN>
@@ -337,6 +470,302 @@ int launch_tma(const void* x, const void* w, void* y, const int* widths,
   const dim3 grid((M + G::BM - 1) / G::BM, (n_out + BN - 1) / BN);
   gemm_tma_kernel<CWG, BN><<<grid, G::THREADS, G::SMEM, s>>>(
       map_x, map_w, static_cast<__nv_bfloat16*>(y), widths, M, ldy, n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dgrad's tiles: CWG consumer warpgroups, BN columns, a ring in what is
+// left of DG_SMEM after a staging area for the tile's bf16 store (BN / 64
+// boxes of 64 columns, each 64 CWG rows of 128 bytes in the 128-byte
+// swizzle) and one such box of zeros
+constexpr int DG_SMEM = 220 * 1024;
+template <int CWG, int BN>
+struct DgradTile {
+  static constexpr int BOX = 64 * CWG * 128;
+  static constexpr int STAGING = BOX * (BN / 64);
+  using G = GemmTile<CWG, BN, DG_SMEM - STAGING - BOX - 1024>;
+  static constexpr int STAGING_AT =      // past the ring and its barriers
+      (G::STAGES * G::STAGE_BYTES + 2 * G::STAGES * 8 + 1023) / 1024 * 1024;
+  static constexpr int ZEROS_AT = STAGING_AT + STAGING;
+  static constexpr size_t SMEM = ZEROS_AT + BOX + 1024;     // + align
+};
+
+// dx[m, k] = sum_{n < n_act} dy[m, n] w[k, n] for k < k_act, 0 for
+// k_act <= k < kx: the forward's ring with a K-major B and the widths'
+// roles swapped (the reduction runs to n_act, the live columns to k_act).
+// Persistent: one block an SM walks the live tiles, column tiles fastest
+// (the blocks in flight share their rows of dy in L2, and w stays there);
+// its producer loads the next tile's stages while the consumers store the
+// last one.  The consumers write the tile as bf16 into the staging area
+// and one thread stores it with TMA (which clips at M and kx), in the
+// background of the next tile's products; after each live tile it stores
+// the block's share of the tiles past k_act from the box of zeros.  Live
+// and dead tiles are dealt to the blocks apart: in one sequence, blocks
+// whose stride hits only dead columns would leave the products to the
+// others.
+template <int CWG, int BN>
+__global__ void __launch_bounds__(DgradTile<CWG, BN>::G::THREADS, 1)
+dgrad_tma_kernel(const __grid_constant__ CUtensorMap map_dy,
+                 const __grid_constant__ CUtensorMap map_w,
+                 const __grid_constant__ CUtensorMap map_dx,
+                 const int* __restrict__ widths, int mt, int nt) {
+  using D = DgradTile<CWG, BN>;
+  using G = typename D::G;
+  const int k_act = widths[0];
+  const int n_act = widths[1];
+  const int n_k = (n_act + G_BK - 1) / G_BK;
+  const int tid = threadIdx.x;
+  unsigned char* zeros = ring_base() + D::ZEROS_AT;
+  for (int i = tid; i < D::BOX / 16; i += G::THREADS)
+    reinterpret_cast<uint4*>(zeros)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_async_smem();
+  const Ring<G> ring = ring_init<G, CWG>();     // (its barrier orders both)
+  unsigned char* staging = ring.smem + D::STAGING_AT;
+  const int lt = min((k_act + BN - 1) / BN, nt);   // live column tiles
+  const int b = blockIdx.x, grid = gridDim.x;
+  const int live = mt * lt, dead = mt * (nt - lt);
+  const int my_live = live > b ? (live - b + grid - 1) / grid : 0;
+  const int my_dead = dead > b ? (dead - b + grid - 1) / grid : 0;
+  if (tid / 128 == CWG) {                 // producer: one thread
+    if (tid == 128 * CWG) {
+      for (int i = 0; i < my_live; ++i) {
+        const int t = b + i * grid;
+        tma_produce<G, CWG, BN, DGRAD>(ring, &map_dy, &map_w,
+                                       (t / lt) * G::BM, (t % lt) * BN, 0,
+                                       n_k, i * n_k);
+      }
+    }
+    return;
+  }
+  const int t32 = tid % 128, wg = tid / 128;
+  // this thread's accumulator rows (+ 8 i) and column pair (+ 8 j)
+  const int row = wg * 64 + (t32 / 32) * 16 + (t32 % 32) / 4;
+  const int col = 2 * (t32 % 4);
+  // thread 0 stores dead tiles j0 .. j1 - 1 of this block's share
+  auto store_dead = [&](int j0, int j1) {
+    for (int j = j0; j < j1; ++j) {
+      const int t = b + j * grid;
+      const int m0 = (t / (nt - lt)) * G::BM;
+      const int n0 = (lt + t % (nt - lt)) * BN;
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h)
+        tma_store_2d(&map_dx, zeros, n0 + 64 * h, m0);
+    }
+    bulk_commit();
+  };
+  for (int i = 0; i < my_live; ++i) {
+    const int t = b + i * grid;
+    const int m0 = (t / lt) * G::BM, n0 = (t % lt) * BN;
+    float d[BN / 2];
+    tma_consume<G, CWG, BN, DGRAD, true>(ring, n_k, i * n_k, d);
+    // the last tile's store has read the staging area
+    if (tid == 0) bulk_wait_read();
+    asm volatile("bar.sync 1, %0;" ::"n"(128 * CWG) : "memory");
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h, c = col + 8 * j;   // c % 64 = col + 8 (j % 8)
+        const float v0 = n0 + c < k_act ? d[4 * j + 2 * h] : 0.f;
+        const float v1 = n0 + c + 1 < k_act ? d[4 * j + 2 * h + 1] : 0.f;
+        // box j / 8, row r, 16-byte chunk j % 8 swizzled by r % 8
+        unsigned char* p = staging + (j / 8) * D::BOX + r * 128 +
+                           (((j % 8) ^ (r % 8)) * 16) + 2 * col;
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+      }
+    fence_async_smem();
+    asm volatile("bar.sync 1, %0;" ::"n"(128 * CWG) : "memory");
+    if (tid == 0) {
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h)
+        tma_store_2d(&map_dx, staging + h * D::BOX, n0 + 64 * h, m0);
+      bulk_commit();
+      store_dead(i * my_dead / my_live, (i + 1) * my_dead / my_live);
+    }
+  }
+  if (tid == 0) {
+    if (my_live == 0) store_dead(0, my_dead);
+    bulk_wait_read();                     // before the block's smem goes
+  }
+}
+
+template <int CWG, int BN>
+int launch_dgrad_tma(const void* dy, const void* w, void* dx,
+                     const int* widths, int M, int ldy, int ldw, int ldx,
+                     int kx, int w_rows, int n_act, cudaStream_t s) {
+  using D = DgradTile<CWG, BN>;
+  using G = typename D::G;
+  CUtensorMap map_dy, map_w, map_dx;
+  if (!encode_map(&map_dy, dy, n_act, M, ldy, G::BM) ||
+      !encode_map(&map_w, w, n_act, w_rows, ldw, BN) ||
+      !encode_map(&map_dx, dx, kx, M, ldx, G::BM))
+    return -2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dgrad_tma_kernel<CWG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)D::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const int mt = (M + G::BM - 1) / G::BM, nt = (kx + BN - 1) / BN;
+  const int grid = mt * nt < sms ? mt * nt : sms;
+  dgrad_tma_kernel<CWG, BN><<<grid, G::THREADS, D::SMEM, s>>>(
+      map_dy, map_w, map_dx, widths, mt, nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one warpgroup's 64 x BN fp32 accumulator (t = thread in the warpgroup)
+// at rows r0 .. r0 + 63 of a tile p with BN columns, row-major
+template <int BN>
+__device__ __forceinline__ void store_partial(const float (&d)[BN / 2],
+                                              float* __restrict__ p, int t,
+                                              int r0) {
+  const int r = r0 + (t / 32) * 16 + (t % 32) / 4;
+  const int c = 2 * (t % 4);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(p + (size_t)(r + 8 * i) * BN + c + 8 * j) =
+          make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
+}
+
+// dw[k, n] = sum_m x[m, k] dy[m, n] for k < k_act and n < n_act, 0
+// elsewhere in the full Kw x Nw weight.  The active block is cut into
+// tiles_i x tiles_j tiles of BM x BN and M into `splits` chunks of
+// `chunk` rows (whole 64-row TMA boxes: only the last chunk meets M's
+// edge).  Blocks 0 .. live * splits - 1 each compute one (tile, split),
+// the tiles of a split side by side (they share its rows of x and dy in
+// L2); with one split a block stores its tile itself, else it writes its
+// fp32 partial to ws[split][tile] and takes a ticket from the tile's
+// counter, and the block that draws the last one adds the partials in
+// split order (deterministic), stores dw and resets the counter for the
+// next call (a CUDA graph replays it).  No block waits on another.  The
+// blocks after those write the zeros of the tiles outside the active
+// block.
+template <int CWG, int BN>
+__global__ void __launch_bounds__(GemmTile<CWG, BN>::THREADS, 1)
+wgrad_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_dy,
+                 float* __restrict__ ws, __nv_bfloat16* __restrict__ dw,
+                 int* __restrict__ counters, const int* __restrict__ widths,
+                 int M, int Kw, int Nw, int tiles_i, int tiles_j, int splits,
+                 int chunk) {
+  using G = GemmTile<CWG, BN>;
+  constexpr int TILE = G::BM * BN;
+  const int k_act = widths[0];
+  const int n_act = widths[1];
+  const int live = tiles_i * tiles_j;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  if (b >= live * splits) {     // a tile outside the active block: zeros
+    int dead = b - live * splits;
+    const int all_j = (Nw + BN - 1) / BN;
+    const int right = tiles_i * (all_j - tiles_j);   // beside the block
+    int ti, tj;
+    if (dead < right) {
+      ti = dead / (all_j - tiles_j);
+      tj = tiles_j + dead % (all_j - tiles_j);
+    } else {                                          // below it
+      dead -= right;
+      ti = tiles_i + dead / all_j;
+      tj = dead % all_j;
+    }
+    zero_tile<G::BM, BN, G::THREADS>(dw, Nw, ti * G::BM, tj * BN, Kw, Nw);
+    return;
+  }
+  const int tile = b % live, split = b / live;
+  const int i0 = (tile / tiles_j) * G::BM, j0 = (tile % tiles_j) * BN;
+  const int r0 = split * chunk;
+  const int rows = min(chunk, M - r0);
+  float d[BN / 2];
+  if (!tma_mainloop<CWG, BN, WGRAD>(&map_x, &map_dy, i0, j0, r0,
+                                    (rows + G_BK - 1) / G_BK, d))
+    return;
+  const int t = tid % 128, wg = tid / 128;
+  if (splits == 1) {
+    store_acc<BN>(d, dw, Nw, t, i0 + 64 * wg, j0, k_act, Kw, n_act, Nw);
+    return;
+  }
+  store_partial<BN>(d, ws + ((size_t)split * live + tile) * TILE, t,
+                    64 * wg);
+  __shared__ int last;
+  __threadfence();          // the partial is visible before the ticket
+  asm volatile("bar.sync 1, %0;" ::"n"(128 * CWG) : "memory");
+  if (tid == 0) last = atomicAdd(&counters[tile], 1) == splits - 1;
+  asm volatile("bar.sync 1, %0;" ::"n"(128 * CWG) : "memory");
+  if (!last) return;
+  __threadfence();
+  // each thread sums PER runs of 4 columns over the splits, in split
+  // order, with all PER loads of a split in flight at once
+  constexpr int PER = TILE / (128 * CWG * 4);
+  static_assert(PER * 128 * CWG * 4 == TILE, "whole float4 runs a thread");
+  float4 acc[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4* part = reinterpret_cast<const float4*>(
+        ws + ((size_t)sp * live + tile) * TILE);
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const float4 v = __ldcg(part + tid + u * 128 * CWG);
+      acc[u].x += v.x; acc[u].y += v.y; acc[u].z += v.z; acc[u].w += v.w;
+    }
+  }
+  const bool vec = Nw % 4 == 0;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = 4 * (tid + u * 128 * CWG);
+    const int r = i0 + e / BN, c = j0 + e % BN;
+    if (r >= Kw) continue;
+    const bool row = r < k_act;
+    const float v[4] = {acc[u].x, acc[u].y, acc[u].z, acc[u].w};
+    __nv_bfloat16 o[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      o[h] = __float2bfloat16(row && c + h < n_act ? v[h] : 0.f);
+    __nv_bfloat16* q = dw + (size_t)r * Nw + c;
+    if (vec && c + 3 < Nw) {
+      uint2 packed;
+      memcpy(&packed, o, sizeof(packed));
+      *reinterpret_cast<uint2*>(q) = packed;
+    } else {
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        if (c + h < Nw) q[h] = o[h];
+    }
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <int CWG, int BN>
+int launch_wgrad_tma(const void* x, const void* dy, void* ws, void* dw,
+                     int* counters, const int* widths, int M, int ldx,
+                     int ldy, int Kw, int Nw, int k_act, int n_act,
+                     int x_cols, int dy_cols, int splits, int chunk,
+                     cudaStream_t s) {
+  using G = GemmTile<CWG, BN>;
+  if (chunk % G_BK || splits < 1 || (long long)(splits - 1) * chunk >= M ||
+      (long long)splits * chunk < M || (splits > 1 && ws == nullptr))
+    return -1;
+  CUtensorMap map_x, map_dy;
+  if (!encode_map(&map_x, x, x_cols, M, ldx, 64) ||
+      !encode_map(&map_dy, dy, dy_cols, M, ldy, 64))
+    return -2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_tma_kernel<CWG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)G::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int ti = (k_act + G::BM - 1) / G::BM, tj = (n_act + BN - 1) / BN;
+  const long long all = (long long)((Kw + G::BM - 1) / G::BM) *
+                        ((Nw + BN - 1) / BN);
+  const long long blocks = (long long)ti * tj * splits + all - ti * tj;
+  wgrad_tma_kernel<CWG, BN><<<(unsigned)blocks, G::THREADS, G::SMEM, s>>>(
+      map_x, map_dy, static_cast<float*>(ws),
+      static_cast<__nv_bfloat16*>(dw), counters, widths, M, Kw, Nw, ti, tj,
+      splits, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -832,4 +1261,45 @@ extern "C" int repro_elastic_matmul_wgrad(
     wgrad_reduce<float><<<blocks, 256, 0, s>>>(
         w32, static_cast<float*>(dw), wd, Kw, Nw, splits, ipad, jpad);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1's data gradient on the tma ring (bf16): dy (M rows, ldy apart) and w
+// (w_rows rows, ldw apart) with 16-byte-aligned bases and row strides, dx
+// M x kx (ldx apart, 16-byte-aligned base and row stride).  The tensor
+// maps cover dy's first n_act columns (the host's copy of the width: the
+// reduction's zero fill) and w's first n_act columns of all its w_rows >=
+// k_act rows: a tile that straddles k_act reads whole rows, and its
+// columns past k_act are stored as zeros.  Tiles of 128 x 128.  Returns
+// as above; -2 when the tensor maps cannot be encoded.
+extern "C" int repro_elastic_matmul_dgrad_tma(const void* dy, const void* w,
+                                              void* dx, const void* widths,
+                                              int M, int ldy, int ldw,
+                                              int ldx, int kx, int w_rows,
+                                              int n_act, void* stream) {
+  return launch_dgrad_tma<2, 128>(
+      dy, w, dx, static_cast<const int*>(widths), M, ldy, ldw, ldx, kx,
+      w_rows, n_act, static_cast<cudaStream_t>(stream));
+}
+
+// K1's weight gradient on the tma ring (bf16): dw (Kw x Nw, contiguous)
+// from x (M rows of x_cols, ldx apart) and dy (M rows of dy_cols, ldy
+// apart) with 16-byte-aligned bases and row strides; k_act <= x_cols and
+// n_act <= dy_cols >= 1 are the host's copy of the widths, which set the
+// active block's tiles (a tile that straddles a width reads whole rows
+// and stores zeros past it).  M is
+// split into `splits` chunks of `chunk` rows, a multiple of 64, that
+// cover it exactly once; `ws` an fp32 workspace of splits x tiles x 128
+// x 128 when splits > 1 (tiles: the active block's 128 x 128 tiles);
+// `counters` an int32 per tile, 0 before the call and left 0 after it.
+// Returns as above; -1 for a plan that does not cover M, -2 when the
+// tensor maps cannot be encoded.
+extern "C" int repro_elastic_matmul_wgrad_tma(
+    const void* x, const void* dy, void* ws, void* dw, void* counters,
+    const void* widths, int M, int ldx, int ldy, int Kw, int Nw, int k_act,
+    int n_act, int x_cols, int dy_cols, int splits, int chunk,
+    void* stream) {
+  return launch_wgrad_tma<2, 128>(
+      x, dy, ws, dw, static_cast<int*>(counters),
+      static_cast<const int*>(widths), M, ldx, ldy, Kw, Nw, k_act, n_act,
+      x_cols, dy_cols, splits, chunk, static_cast<cudaStream_t>(stream));
 }

@@ -2,10 +2,11 @@
 // (expert_matmul.cu):
 //
 // * the TMA / wgmma GEMM machinery of their tma variants: tile shapes,
-//   mbarrier helpers, 2-D and 3-D TMA loads, wgmma shared-memory
-//   descriptors and the m64n128k16 / m64n256k16 bf16 products with fp32
-//   accumulators, the accumulator store, and the host-side tensor-map
-//   encoding (cuTensorMapEncodeTiled, looked up in libcuda at run time);
+//   mbarrier helpers, 2-D and 3-D TMA loads and the 2-D TMA store, wgmma
+//   shared-memory descriptors and the m64n128k16 / m64n256k16 bf16
+//   products with fp32 accumulators (either operand K- or MN-major), the
+//   accumulator store, and the host-side tensor-map encoding
+//   (cuTensorMapEncodeTiled, looked up in libcuda at run time);
 // * the weight-streaming core of K1's small_m and K3's stream variants:
 //   a block of 256 threads reads 64 weight columns with 16-byte loads, 8 in
 //   flight per thread, against rows of x staged in shared memory, in fp32.
@@ -26,8 +27,9 @@ constexpr int G_BK = 64;
 constexpr int G_SMEM_RING = 192 * 1024;   // shared memory for the ring
 
 // Tile shapes: CWG consumer warpgroups of 64 rows each, BN columns (128 or
-// 256: one wgmma m64nBNk16 per 16-wide K step), and one producer warp.
-template <int CWG, int BN>
+// 256: one wgmma m64nBNk16 per 16-wide K step), and one producer warp;
+// the ring gets RING bytes of shared memory.
+template <int CWG, int BN, int RING = G_SMEM_RING>
 struct GemmTile {
   static constexpr int BM = 64 * CWG;
   static constexpr int THREADS = 128 * CWG + 32;
@@ -35,7 +37,7 @@ struct GemmTile {
   static constexpr int B_BYTES = G_BK * BN * 2;      // BN / 64 TMA boxes
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int STAGES =
-      G_SMEM_RING / STAGE_BYTES < 8 ? G_SMEM_RING / STAGE_BYTES : 8;
+      RING / STAGE_BYTES < 8 ? RING / STAGE_BYTES : 8;
   static constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + 1024  // align
                                  + 2 * STAGES * sizeof(uint64_t);
 };
@@ -98,6 +100,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// shared -> global through a tensor map (the box at coordinates c0, c1;
+// what falls outside the tensor is not written), in the thread's bulk
+// group; smem written by the generic proxy needs fence_async_smem first
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until the thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle (layout type 1)
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
@@ -112,7 +140,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128, fp32) += A (64 x 16, K-major) * B (16 x 128, MN-major)
+// d (64 x 128, fp32) += A (64 x 16) * B (16 x 128).  TA, TB: the
+// operands' transpose bits, 0 for K-major, 1 for MN-major (the default: A
+// K-major, B MN-major, a row-major K x N weight)
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -124,7 +155,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
+      "}, %64, %65, p, 1, 1, %67, %68;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -138,10 +169,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d (64 x 256, fp32) += A (64 x 16, K-major) * B (16 x 256, MN-major)
+// d (64 x 256, fp32) += A (64 x 16) * B (16 x 256); TA, TB as above
+template <int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db) {
   asm volatile(
@@ -158,7 +190,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
       "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n\t}"
+      "}, %128, %129, p, 1, 1, %131, %132;\n\t}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -186,15 +218,15 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d += A (64 x 16 at a, K-major) * B (16 x BN at b, MN-major), one K step
-template <int BN>
+// d += A (64 x 16 at a) * B (16 x BN at b), one K step; TA, TB as above
+template <int BN, int TA = 0, int TB = 1>
 __device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da,
                                            uint64_t db) {
-  if constexpr (BN == 256) wgmma_m64n256k16(d, da, db);
-  else wgmma_m64n128k16(d, da, db);
+  if constexpr (BN == 256) wgmma_m64n256k16<TA, TB>(d, da, db);
+  else wgmma_m64n128k16<TA, TB>(d, da, db);
 }
 
 // Store one warpgroup's 64 x BN accumulator (t = thread in the warpgroup)

@@ -24,14 +24,22 @@ The backward (the reference has none: JAX differentiates through XLA) is
 two more kernels that read the same device widths: ``elastic_matmul_dgrad``
 (``dx = dy[:, :n_act] @ w[:k_act, :n_act]^T``, zeros past k_act) and
 ``elastic_matmul_wgrad`` (``dw = x[:, :k_act]^T @ dy[:, :n_act]`` on the
-active block, zeros elsewhere in the full weight's shape, split over M with
-a second pass that adds the partials in order), each bf16 on the tensor
-cores (``wmma_bf16``) or fp32 on FMAs (``fma_f32``), with plain versions
-beside them.
+active block, zeros elsewhere in the full weight's shape, split over M),
+with plain versions beside them.  Three variants each, chosen by
+:func:`choose_bwd_variant` from dtype, bases and strides: ``tma`` (bf16
+that TMA can read: the forward's wgmma ring; dgrad persistent with a
+K-major B and a TMA store, wgrad with an MN-major A, M split by
+:func:`wgrad_tma_plan` into one wave of blocks and the split-K reduce
+fused into the kernel), ``wmma_bf16`` (bf16 that TMA cannot read: a WMMA
+tile GEMM, wgrad split by :func:`wgrad_plan` with a second pass that adds
+the partials in order) and ``fma_f32`` (fp32).  The source note says what
+bounds them and what the design does about it.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
+from typing import Dict, Optional
 
 import torch
 
@@ -45,11 +53,17 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 # backward launches, by kernel and variant (one a call)
 dgrad_launches = 0
 wgrad_launches = 0
-BWD_VARIANTS = ("wmma_bf16", "fma_f32")
+BWD_VARIANTS = ("tma", "wmma_bf16", "fma_f32")
 dgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 wgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 BWD_TILE = 128          # the wgrad workspace's padding (the bf16 tile)
 WGRAD_ROWS_MIN = 256    # fewest rows of M worth a split of their own
+# the tma backward kernels' tile (rows, columns) and wgrad's most splits
+# (wgrad_tma_plan; sweep_splits.py times the alternatives, PERF.md)
+BWD_TMA_TILE = (128, 128)
+WGRAD_TMA_SPLITS_MAX = 14
+TMA_BOX = 64            # rows of a TMA box: wgrad's chunks are whole boxes
+TILE_COUNTERS = 1 << 16  # wgrad's per-tile tickets, per device
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -65,6 +79,8 @@ _ARGTYPES = {
     "repro_elastic_matmul_tma": [_P] * 4 + [_I] * 9 + [_P],
     "repro_elastic_matmul_dgrad": [_P] * 4 + [_I] * 7 + [_P],
     "repro_elastic_matmul_wgrad": [_P] * 5 + [_I] * 11 + [_P],
+    "repro_elastic_matmul_dgrad_tma": [_P] * 4 + [_I] * 7 + [_P],
+    "repro_elastic_matmul_wgrad_tma": [_P] * 6 + [_I] * 11 + [_P],
 }
 
 
@@ -216,16 +232,71 @@ def elastic_matmul_plain(x: torch.Tensor, w: torch.Tensor, k_act: int,
 # ---------------------------------------------------------------- backward --
 
 def wgrad_plan(M: int, k_act: int, n_act: int, sms: int = SMS) -> tuple:
-    """(splits, rows per split) of the wgrad kernel's M: about two blocks
-    per SM over the ``cdiv(k_act, 128) * cdiv(n_act, 128)`` output tiles
-    (the ViT's 384 x 384 weights give 9), no split under 256 rows; rows
-    per split a multiple of the kernel's reduction step (32)."""
+    """(splits, rows per split) of the wmma_bf16 and fma_f32 wgrad
+    kernels' M: about two blocks per SM over the ``cdiv(k_act, 128) *
+    cdiv(n_act, 128)`` output tiles (the ViT's 384 x 384 weights give 9),
+    no split under 256 rows; rows per split a multiple of the kernel's
+    reduction step (32)."""
     if M <= 0:
         return 1, 32
     tiles = max(1, _cdiv(k_act, BWD_TILE) * _cdiv(n_act, BWD_TILE))
     splits = max(1, min(_cdiv(2 * sms, tiles), M // WGRAD_ROWS_MIN))
     chunk = _cdiv(_cdiv(M, splits), 32) * 32
     return _cdiv(M, chunk), chunk
+
+
+def wgrad_tma_plan(M: int, k_act: int, n_act: int, sms: int = SMS
+                   ) -> tuple:
+    """(splits, rows per split) of the tma wgrad kernel's M: as many
+    splits as fit one (tile, split) block an SM over the active block's
+    tiles -- one wave: a block over it costs a second wave -- but no
+    more than WGRAD_TMA_SPLITS_MAX (the last block of a tile reads every
+    split's 64 KB partial back alone: past ~14 that tail costs more than
+    the shorter chunks save) and no split under 256 rows.  Rows per split
+    are whole 64-row TMA boxes (a box cannot be clipped to a split's end,
+    so only the last split may meet M's edge), and the splits cover M
+    exactly once.  The sweep in ``sweep_splits.py`` times split counts at
+    the training step's shapes (PERF.md)."""
+    if M <= 0:
+        return 1, TMA_BOX
+    tiles = max(1, _cdiv(k_act, BWD_TMA_TILE[0]) *
+                _cdiv(n_act, BWD_TMA_TILE[1]))
+    splits = max(1, min(sms // tiles, WGRAD_TMA_SPLITS_MAX,
+                        M // WGRAD_ROWS_MIN))
+    chunk = _cdiv(_cdiv(M, splits), TMA_BOX) * TMA_BOX
+    return _cdiv(M, chunk), chunk
+
+
+def choose_bwd_variant(M: int, k_act: int, n_act: int, dtype: torch.dtype,
+                       lds: tuple, aligned: bool) -> str:
+    """The kernel a dgrad or wgrad call over M rows goes to.  ``lds`` are
+    the row strides in elements of the tensors TMA would read or write
+    (dgrad: dy, w and dx; wgrad: x and dy), ``aligned`` whether their
+    bases are 16-byte aligned: TMA needs that, row strides of whole 16
+    bytes, and M and both widths >= 1 (a tensor map has no empty dim)."""
+    if dtype != torch.bfloat16:
+        return "fma_f32"
+    if aligned and all(ld % 8 == 0 for ld in lds) and min(M, k_act,
+                                                           n_act) >= 1:
+        return "tma"
+    return "wmma_bf16"
+
+
+def _bwd_variant(a: torch.Tensor, b: torch.Tensor, k_act: int, n_act: int,
+                 variant: Optional[str], out_ld: int = 8) -> str:
+    """The variant of a backward call on operands a and b (and an output
+    of row stride ``out_ld`` that TMA writes): the chosen one, or
+    ``variant`` when the caller names one the call can take."""
+    lds = (_row_stride(a), _row_stride(b), out_ld)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    best = choose_bwd_variant(a.shape[0], k_act, n_act, a.dtype, lds,
+                              aligned)
+    if variant is None or variant == best:
+        return best
+    if variant == "wmma_bf16" and a.dtype == torch.bfloat16:
+        return variant
+    raise ValueError(f"backward variant {variant!r} cannot take this call "
+                     f"(it takes {best!r})")
 
 
 def _check_cuda(*ts: torch.Tensor) -> torch.device:
@@ -253,12 +324,31 @@ def _vec_ok(*ts: torch.Tensor) -> bool:
                and _row_stride(t) % 8 == 0 for t in ts)
 
 
+_counters: Dict[torch.device, torch.Tensor] = {}
+_counters_lock = threading.Lock()
+
+
+def tile_counters(device: torch.device) -> torch.Tensor:
+    """The tma wgrad kernel's per-tile tickets on ``device``: int32 zeros,
+    allocated once (the kernel leaves them at 0) and never replaced, so a
+    CUDA graph that captured a call keeps a valid pointer.  Calls that use
+    them must not overlap on two streams."""
+    with _counters_lock:
+        t = _counters.get(device)
+        if t is None:
+            t = torch.zeros(TILE_COUNTERS, dtype=torch.int32, device=device)
+            _counters[device] = t
+        return t
+
+
 def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
                          widths: torch.Tensor, k_act: int, n_act: int,
-                         kx: int) -> torch.Tensor:
+                         kx: int, *, variant: Optional[str] = None
+                         ) -> torch.Tensor:
     """Launch the dgrad kernel: dy (M, >=n_act), w (>=k_act, >=n_act) ->
     dx (M, kx) with ``dx[:, :k_act] = dy[:, :n_act] @ w[:k_act, :n_act]^T``
-    and exact zeros past k_act."""
+    and exact zeros past k_act.  ``variant`` names the kernel (by default
+    :func:`choose_bwd_variant`'s; bf16 may name ``wmma_bf16``)."""
     global dgrad_launches
     dev = _check_cuda(dy, w)
     if dy.ndim != 2 or w.ndim != 2 or not (
@@ -271,11 +361,18 @@ def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
     dx = torch.empty((M, kx), dtype=dy.dtype, device=dev)
     if M == 0 or kx == 0:
         return dx
-    variant = "wmma_bf16" if dy.dtype == torch.bfloat16 else "fma_f32"
-    rc = _launcher("repro_elastic_matmul_dgrad")(
-        dy.data_ptr(), w.data_ptr(), dx.data_ptr(), widths.data_ptr(), M,
-        _row_stride(dy), _row_stride(w), kx, kx, int(_vec_ok(dy, w)),
-        DTYPE_CODES[dy.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    variant = _bwd_variant(dy, w, k_act, n_act, variant, kx)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if variant == "tma":
+        rc = _launcher("repro_elastic_matmul_dgrad_tma")(
+            dy.data_ptr(), w.data_ptr(), dx.data_ptr(), widths.data_ptr(), M,
+            _row_stride(dy), _row_stride(w), kx, kx, w.shape[0], n_act,
+            stream)
+    else:
+        rc = _launcher("repro_elastic_matmul_dgrad")(
+            dy.data_ptr(), w.data_ptr(), dx.data_ptr(), widths.data_ptr(), M,
+            _row_stride(dy), _row_stride(w), kx, kx, int(_vec_ok(dy, w)),
+            DTYPE_CODES[dy.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"elastic_matmul dgrad ({variant}) launch failed "
                            f"(CUDA error {rc})")
@@ -286,10 +383,12 @@ def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
 
 def elastic_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
                          widths: torch.Tensor, k_act: int, n_act: int,
-                         w_shape: tuple) -> torch.Tensor:
-    """Launch the wgrad kernel and its reduce: x (M, >=k_act), dy (M,
-    >=n_act) -> dw of ``w_shape`` with ``dw[:k_act, :n_act] = x[:, :k_act]^T
-    @ dy[:, :n_act]`` (fp32 accumulation) and exact zeros elsewhere."""
+                         w_shape: tuple, *, variant: Optional[str] = None
+                         ) -> torch.Tensor:
+    """Launch the wgrad kernel: x (M, >=k_act), dy (M, >=n_act) -> dw of
+    ``w_shape`` with ``dw[:k_act, :n_act] = x[:, :k_act]^T @ dy[:, :n_act]``
+    (fp32 accumulation, the splits of M added in order) and exact zeros
+    elsewhere.  ``variant`` as for :func:`elastic_matmul_dgrad`."""
     global wgrad_launches
     dev = _check_cuda(x, dy)
     Kw, Nw = w_shape
@@ -303,16 +402,33 @@ def elastic_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty((Kw, Nw), dtype=x.dtype, device=dev)
     if Kw * Nw == 0:
         return dw
-    splits, chunk = wgrad_plan(M, k_act, n_act)
-    ipad = max(1, _cdiv(k_act, BWD_TILE)) * BWD_TILE
-    jpad = max(1, _cdiv(n_act, BWD_TILE)) * BWD_TILE
-    ws = torch.empty((splits, ipad, jpad), dtype=torch.float32, device=dev)
-    variant = "wmma_bf16" if x.dtype == torch.bfloat16 else "fma_f32"
-    rc = _launcher("repro_elastic_matmul_wgrad")(
-        x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-        widths.data_ptr(), M, _row_stride(x), _row_stride(dy), Kw, Nw, ipad,
-        jpad, splits, chunk, int(_vec_ok(x, dy)), DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    variant = _bwd_variant(x, dy, k_act, n_act, variant)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if variant == "tma":
+        splits, chunk = wgrad_tma_plan(M, k_act, n_act)
+        bm, bn = BWD_TMA_TILE
+        tiles = _cdiv(k_act, bm) * _cdiv(n_act, bn)
+        if tiles > TILE_COUNTERS:
+            raise ValueError(f"wgrad: {tiles} tiles, more than the "
+                             f"{TILE_COUNTERS} counters")
+        ws = None if splits == 1 else torch.empty(
+            (splits, tiles, bm * bn), dtype=torch.float32, device=dev)
+        rc = _launcher("repro_elastic_matmul_wgrad_tma")(
+            x.data_ptr(), dy.data_ptr(), None if ws is None else ws.data_ptr(),
+            dw.data_ptr(), tile_counters(dev).data_ptr(), widths.data_ptr(),
+            M, _row_stride(x), _row_stride(dy), Kw, Nw, k_act, n_act,
+            x.shape[1], dy.shape[1], splits, chunk, stream)
+    else:
+        splits, chunk = wgrad_plan(M, k_act, n_act)
+        ipad = max(1, _cdiv(k_act, BWD_TILE)) * BWD_TILE
+        jpad = max(1, _cdiv(n_act, BWD_TILE)) * BWD_TILE
+        ws = torch.empty((splits, ipad, jpad), dtype=torch.float32,
+                         device=dev)
+        rc = _launcher("repro_elastic_matmul_wgrad")(
+            x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+            widths.data_ptr(), M, _row_stride(x), _row_stride(dy), Kw, Nw,
+            ipad, jpad, splits, chunk, int(_vec_ok(x, dy)),
+            DTYPE_CODES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"elastic_matmul wgrad ({variant}) launch failed "
                            f"(CUDA error {rc})")

@@ -15,8 +15,11 @@ Where a gradient is wanted (grad mode on and an input that requires it),
 K1 and K2 run inside a ``torch.autograd.Function`` whose backward is the
 kernels' backward (K1's dgrad and wgrad kernels, K2's backward kernel) or,
 on the CPU, their plain versions; the route is fixed when the forward
-runs (autograd runs the backward on its own thread).  Without a gradient
-the ops call the forward alone, as the serving path does.
+runs (autograd runs the backward on its own thread).  K3 has no backward
+kernel yet: on the kernel route it runs inside a Function whose backward
+raises (a kernel's output would otherwise carry no gradient, silently),
+and its plain route is differentiable as it is.  Without a gradient the
+ops call the forward alone, as the serving path does.
 """
 from __future__ import annotations
 
@@ -202,11 +205,32 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.flash_attention_plain(q, k, v, causal=causal)
 
 
+class _ExpertMatmul(torch.autograd.Function):
+    """K3 on the kernel route where a gradient is wanted.  There is no
+    backward kernel yet, so the backward raises rather than leave x and w
+    without a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts):
+        return _xm.expert_matmul(x, w, counts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "expert_matmul backward: K3 has no backward kernel yet (it comes "
+            "with LM training, ROADMAP item 15 (c), and queue 2's K3 "
+            "backward); the plain route (CPU tensors, or plain_kernels()) "
+            "is differentiable")
+
+
 def expert_matmul_op(x: torch.Tensor, w: torch.Tensor,
                      counts: torch.Tensor) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, F) per expert -> (E, C, F); rows
     ``c >= counts[e]`` (an int32 (E,) tensor on x's device) are exact
-    zeros.  ``w`` may be a strided view of a larger resident weight."""
-    if _use_kernel(x):
-        return _xm.expert_matmul(x, w, counts)
-    return _xm.expert_matmul_plain(x, w, counts)
+    zeros.  ``w`` may be a strided view of a larger resident weight.  On
+    the kernel route a backward raises ``NotImplementedError``."""
+    if not _use_kernel(x):
+        return _xm.expert_matmul_plain(x, w, counts)
+    if _wants_grad(x, w):
+        return _ExpertMatmul.apply(x, w, counts)
+    return _xm.expert_matmul(x, w, counts)

@@ -9,7 +9,7 @@ Counterpart of the reference ``launch/flops.py:lm_param_counts`` and
 N_active counts MoE experts at top_k (+shared) of n_experts.  The
 elastic launcher's "rel flops" column and ``chip_smoke.py``'s
 model-FLOPs bound of each prefill use them.  The training count comes
-with the training slice of the port.
+with LM training (ROADMAP item 15 (c)).
 """
 from __future__ import annotations
 

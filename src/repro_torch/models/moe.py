@@ -195,8 +195,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
               mesh=None) -> tuple:
     """Returns (y (B, S, d), aux_loss).  Shared experts added on top.
 
-    Static knobs only (sliced mode); tensor knobs (masked mode) come with
-    the training slice of the port and raise.
+    Static knobs only (sliced mode); tensor knobs (masked mode) raise
+    until the LM's masked mode is ported (ROADMAP item 15 (a)).  On the
+    card a backward through the routed experts raises: K3 has no backward
+    kernel yet (item 15 (c)).
     """
     top_k = top_k or cfg.top_k
     a_experts = L._static(a_experts, "moe_apply")

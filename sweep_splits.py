@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Sweep the split plans of K1's small_m, K2's decode and K3's stream
-variants on the card.
+variants, and the tiles and split plans of K1's tma backward, on the card.
 
     python3 sweep_splits.py      # from the repository root, one CUDA card
+    python3 sweep_splits.py --backward   # K1's tma dgrad and wgrad only
 
 Times each variant's C launcher at the LM's shapes under every split of K
 (K1 at M = 4: K chunks of 64-512 rows; K3 at C = 4 with 24 live experts of
@@ -12,8 +13,13 @@ as ``chip_smoke.py`` times), beside the plan the wrappers choose
 (``small_m_plan``, ``decode_plan``, ``stream_plan``), the library call
 and, for K3, the bound from the live experts' bytes; then
 torch.profiler's per-kernel device time of one default call of each (the
-main kernel and its reduce or merge kernel apart).  It checks no result:
-``chip_smoke.py`` holds the kernels against their plain versions.
+main kernel and its reduce or merge kernel apart).  K1's backward at the
+sandwich step's shapes (M = 50,432 token rows, the supernet's full
+weights and masked widths): wgrad's tma launcher at split counts up to
+two waves of (tile, split) blocks, beside the plan ``wgrad_tma_plan``
+chooses; dgrad's tma kernel; each beside the ``wmma_bf16`` kernel
+before it, ``torch.matmul`` and the bound.  It checks no result: ``chip_smoke.py``
+holds the kernels against their plain versions.
 """
 from __future__ import annotations
 
@@ -122,6 +128,115 @@ def k3_stream_splits(cs, dev, g, K: int, F: int) -> None:
           f"{lib / REPS * 1e3:.2f} us; bound {bound * 1e3:.2f} us")
 
 
+def _wgrad_tma(cs, dev, x, dy, K, N, splits):
+    """(us per call, plan) of wgrad's tma launcher at one split count
+    (rounded to whole 64-row chunks), at widths (K, N) of x's and dy's
+    columns."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+    M = x.shape[0]
+    chunk = math.ceil(math.ceil(M / splits) / 64) * 64
+    splits = math.ceil(M / chunk)
+    bm, bn = em.BWD_TMA_TILE
+    tiles = math.ceil(K / bm) * math.ceil(N / bn)
+    ws = torch.empty(splits, tiles, bm * bn, device=dev)
+    Kw, Nw = x.shape[1], dy.shape[1]
+    dw = torch.empty(Kw, Nw, device=dev, dtype=torch.bfloat16)
+    wd = ops.widths_tensor(dev, K, N)
+    cnt = em.tile_counters(dev)
+    fn = em._launcher("repro_elastic_matmul_wgrad_tma")
+
+    def go():
+        for _ in range(REPS):
+            rc = fn(x.data_ptr(), dy.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+                    cnt.data_ptr(), wd.data_ptr(), M, Kw, Nw, Kw, Nw, K, N,
+                    Kw, Nw, splits, chunk,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"wgrad tma launch failed ({rc})")
+    return cs.graph_time_ms(go)[0] / REPS * 1e3, (splits, chunk)
+
+
+def k1_wgrad_plans(cs, dev, g, M: int, Kw: int, Nw: int, K: int,
+                   N: int) -> None:
+    """K1 wgrad, dw[:K, :N] = x[:, :K]^T dy[:, :N] for a weight (Kw, Nw):
+    x (M, Kw) and dy (M, Nw) as the masked-mode layers pass them."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+    x = torch.randn(M, Kw, device=dev, generator=g).bfloat16()
+    dy = torch.randn(M, Nw, device=dev, generator=g).bfloat16()
+    wd = ops.widths_tensor(dev, K, N)
+    out = []
+    tiles = math.ceil(K / em.BWD_TMA_TILE[0]) * \
+        math.ceil(N / em.BWD_TMA_TILE[1])
+    for splits in sorted({2, 3, 4, 6, 8, 11, 14, 18, 22, 26, 33,
+                          em.SMS // tiles, 2 * em.SMS // tiles}):
+        if 1 <= splits <= 2 * em.SMS // tiles:
+            us, plan = _wgrad_tma(cs, dev, x, dy, K, N, splits)
+            out.append(f"{plan}: {us:.1f} us")
+    chosen = cs.graph_time_ms(lambda: [em.elastic_matmul_wgrad(
+        x, dy, wd, K, N, (Kw, Nw)) for _ in range(REPS)])[0]
+    old = cs.graph_time_ms(lambda: [em.elastic_matmul_wgrad(
+        x, dy, wd, K, N, (Kw, Nw), variant="wmma_bf16")
+        for _ in range(REPS)])[0]
+    lib = cs.graph_time_ms(lambda: [torch.matmul(x[:, :K].T, dy[:, :N])
+                                    for _ in range(REPS)])[0]
+    bound = cs.kernel_bound_ms(*cs.k1_wgrad_work(
+        (x, dy, wd, K, N, (Kw, Nw)), {}))[0]
+    print(f"K1 wgrad M={M} w=({Kw}, {Nw}) k_act={K} n_act={N}: "
+          + ", ".join(out)
+          + f"; wrapper's plan {em.wgrad_tma_plan(M, K, N)} "
+          f"{chosen / REPS * 1e3:.1f} us; "
+          f"wmma_bf16 {old / REPS * 1e3:.1f} us; matmul "
+          f"{lib / REPS * 1e3:.1f} us; bound {bound * 1e3:.1f} us")
+
+
+def k1_dgrad_time(cs, dev, g, M: int, K: int, N: int, k_act: int,
+                  n_act: int) -> None:
+    """K1 dgrad, dx (M, K) = dy[:, :n_act] w[:k_act, :n_act]^T for a
+    weight (K, N), zeros past k_act."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+    dy = torch.randn(M, N, device=dev, generator=g).bfloat16()
+    w = torch.randn(K, N, device=dev, generator=g).bfloat16()
+    wd = ops.widths_tensor(dev, k_act, n_act)
+    new, old = (cs.graph_time_ms(lambda v=v: [em.elastic_matmul_dgrad(
+        dy, w, wd, k_act, n_act, K, variant=v) for _ in range(REPS)])[0]
+        for v in (None, "wmma_bf16"))
+    lib = cs.graph_time_ms(lambda: [torch.matmul(
+        dy[:, :n_act], w[:k_act, :n_act].T) for _ in range(REPS)])[0]
+    bound = cs.kernel_bound_ms(*cs.k1_dgrad_work(
+        (dy, w, wd, k_act, n_act, K), {}))[0]
+    print(f"K1 dgrad M={M} kx={K} k_act={k_act} n_act={n_act}: tma "
+          f"{new / REPS * 1e3:.1f} us; wmma_bf16 {old / REPS * 1e3:.1f} us; "
+          f"matmul {lib / REPS * 1e3:.1f} us; bound {bound * 1e3:.1f} us")
+
+
+def k1_backward(cs, dev, g) -> None:
+    """The sandwich step's K1 backward shapes: the supernet's 384 x 384
+    (q, k, v, o), 384 x 1536 (wi), 1536 x 384 (wo) and 768 x 384 (patch
+    embed) weights at M = 50,432 (50,176 for the patches), and masked
+    widths (the min subnet's among them: dgrad of wo at 384 of 1536
+    columns writes zeros past them)."""
+    M = 256 * 197
+    for Kw, Nw, K, N in ((384, 384, 384, 384), (384, 1536, 384, 1536),
+                         (1536, 384, 1536, 384), (384, 1536, 288, 1152),
+                         (384, 384, 192, 192)):
+        k1_wgrad_plans(cs, dev, g, M, Kw, Nw, K, N)
+    k1_wgrad_plans(cs, dev, g, 256 * 196, 768, 384, 768, 384)
+    for K, N, k_act, n_act in ((384, 384, 384, 384), (384, 1536, 384, 1536),
+                               (1536, 384, 1536, 384),
+                               (384, 1536, 288, 1152), (384, 384, 192, 192),
+                               (1536, 384, 384, 192)):
+        k1_dgrad_time(cs, dev, g, M, K, N, k_act, n_act)
+
+
 def profile_kernels(label: str, fn) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -154,6 +269,9 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
+        k1_backward(cs, dev, g)
+        if "--backward" in sys.argv[1:]:
+            return 0
         for M, K, N in ((4, 2048, 2048), (4, 2048, 2816), (4, 2816, 2048)):
             k1_splits(cs, dev, g, M, K, N)
         k2_splits(cs, dev, g, 4, 16, 513, 128)

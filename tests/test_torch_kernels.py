@@ -771,36 +771,138 @@ def test_wgrad_plan(M, k_act, n_act, want):
     assert chunk % 32 == 0 and (splits - 1) * chunk < M <= splits * chunk
 
 
+@pytest.mark.parametrize("M,k_act,n_act,want", [
+    (50432, 384, 384, (14, 3648)), (50432, 1536, 384, (3, 16832)),
+    (50432, 384, 1536, (3, 16832)), (50176, 768, 384, (7, 7168)),
+    (256, 384, 1000, (1, 256)), (50432, 288, 1152, (4, 12608)),
+    (50432, 192, 192, (14, 3648)), (100, 384, 384, (1, 128)),
+    (1, 8, 8, (1, 64))])
+def test_wgrad_tma_plan(M, k_act, n_act, want):
+    """The tma wgrad kernel's split of M at the training step's shapes:
+    chunks of whole 64-row TMA boxes (a box cannot be clipped to a chunk's
+    end) that cover M exactly once, no more (tile, split) blocks than one
+    wave of 132 SMs holds, and no more splits than the cap."""
+    splits, chunk = em.wgrad_tma_plan(M, k_act, n_act)
+    assert (splits, chunk) == want
+    assert chunk % em.TMA_BOX == 0
+    assert (splits - 1) * chunk < M <= splits * chunk
+    bm, bn = em.BWD_TMA_TILE
+    tiles = -(-k_act // bm) * -(-n_act // bn)
+    assert splits == 1 or tiles * splits <= em.SMS
+    assert splits <= em.WGRAD_TMA_SPLITS_MAX
+
+
+@pytest.mark.parametrize("M,dtype,lds,aligned,widths,want", [
+    (50432, _BF, (384, 384), True, (384, 384), "tma"),     # the step's calls
+    (50432, _BF, (1536, 1536), True, (288, 1152), "tma"),  # masked widths
+    (256, _BF, (1000, 1000), True, (384, 1000), "tma"),    # the head
+    (50432, _BF, (384, 384), False, (384, 384), "wmma_bf16"),  # base offset
+    (300, _BF, (77, 200), True, (129, 77), "wmma_bf16"),   # ldy = 77
+    (300, _BF, (80, 130), True, (129, 77), "wmma_bf16"),   # ldw = 130
+    (300, _BF, (80, 200, 77), True, (64, 77), "wmma_bf16"),  # dx's 77
+    (300, _BF, (80, 200), True, (0, 77), "wmma_bf16"),     # k_act = 0
+    (0, _BF, (80, 200), True, (8, 8), "wmma_bf16"),        # no rows
+    (50432, _F32, (384, 384), True, (384, 384), "fma_f32"),
+])
+def test_choose_bwd_variant(M, dtype, lds, aligned, widths, want):
+    assert em.choose_bwd_variant(M, *widths, dtype, lds, aligned) == want
+
+
+def test_backward_variant_can_be_named_only_where_it_fits():
+    """A caller may name wmma_bf16 for bf16 (the parent kernel's route);
+    a variant the call cannot take raises, nothing falls back."""
+    dy = _aligned_zeros((64, 384), _BF)
+    w = _aligned_zeros((384, 384), _BF)
+    assert em._bwd_variant(dy, w, 384, 384, None) == "tma"
+    assert em._bwd_variant(dy, w, 384, 384, None, 77) == "wmma_bf16"
+    assert em._bwd_variant(dy, w, 384, 384, "wmma_bf16") == "wmma_bf16"
+    with pytest.raises(ValueError):
+        em._bwd_variant(dy.float(), w.float(), 384, 384, "wmma_bf16")
+    with pytest.raises(ValueError):
+        em._bwd_variant(dy[:, 1:], w, 200, 383, "tma")
+
+
+def _c_params(text: str, fn: str) -> list:
+    """The parameter types of ``extern "C" int fn(...)`` in a source."""
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", text, re.S)
+    assert m, fn
+    return [" ".join(p.split()[:-1]) + ("*" if "*" in p else "")
+            for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("fn", sorted(em._ARGTYPES))
+def test_elastic_matmul_argtypes_match_the_source(fn):
+    """Each K1 launcher is bound with the argument types its C declaration
+    has: a pointer for each pointer, an int for each int (no nvcc here:
+    the declarations are read as text)."""
+    import ctypes
+    text = (build.CSRC / "elastic_matmul.cu").read_text()
+    want = [ctypes.c_void_p if "*" in t else
+            {"int": ctypes.c_int}[t.replace("const ", "")]
+            for t in _c_params(text, fn)]
+    assert em._ARGTYPES[fn] == want
+
+
 def test_launch_counts_cover_the_backward_kernels():
     assert {"elastic_matmul_dgrad", "elastic_matmul_wgrad",
             "flash_attention_bwd"} <= set(ops.launch_counts())
     em.wgrad_variant_launches["wmma_bf16"] += 2
+    em.dgrad_variant_launches["tma"] += 1
     fa.bwd_launches += 1
     assert ops.variant_counts()["elastic_matmul_wgrad"]["wmma_bf16"] >= 2
+    assert ops.variant_counts()["elastic_matmul_dgrad"]["tma"] >= 1
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.variant_counts()["flash_attention_bwd"]) == \
         set(fa.BWD_VARIANTS)
+    assert set(ops.variant_counts()["elastic_matmul_wgrad"]) == \
+        {"tma", "wmma_bf16", "fma_f32"}
+
+
+def _bwd_operands(cuda, dt, M, K, N, kx, offset, seed):
+    """w (K, N), dy (M, N) and x (M, kx) on the card; dy's and x's bases
+    ``offset`` elements past an allocation (1 puts a bf16 base off a
+    16-byte boundary, which TMA cannot read)."""
+    g = torch.Generator().manual_seed(seed)
+    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(cuda, dt)
+
+    def shifted(rows, cols):
+        buf = torch.randn(rows * cols + offset, generator=g).to(cuda, dt)
+        return buf[offset:].view(rows, cols)
+    return w, shifted(M, N), shifted(M, kx)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,K,N,ka,na,kx", [
-    (2048, 384, 1536, 384, 1536, 384), (1000, 384, 1536, 288, 1152, 384),
-    (256, 384, 1000, 192, 1000, 384), (300, 200, 130, 129, 77, 200)])
+@pytest.mark.parametrize("M,K,N,ka,na,kx,offset,want", [
+    (2048, 384, 1536, 384, 1536, 384, 0, "tma"),
+    (1000, 384, 1536, 288, 1152, 384, 0, "tma"),
+    (256, 384, 1000, 192, 1000, 384, 0, "tma"),
+    (300, 200, 130, 129, 77, 200, 0, "wmma_bf16"),   # row strides 130
+    (50432, 384, 384, 384, 384, 384, 0, "tma"),      # the step's shapes
+    (50432, 1536, 384, 1536, 384, 1536, 0, "tma"),
+    (50432, 384, 1536, 288, 1152, 384, 0, "tma"),    # masked, kx > k_act
+    (50176, 768, 384, 768, 384, 768, 0, "tma"),      # the patch embed
+    (50432, 384, 1536, 288, 1152, 384, 1, "wmma_bf16"),   # bases off 16 B
+])
 def test_cuda_elastic_matmul_backward_matches_plain(cuda, dtype, M, K, N, ka,
-                                                    na, kx):
+                                                    na, kx, offset, want):
     """K1's dgrad and wgrad kernels against their plain versions, exact
-    zeros past k_act (dx) and outside the active block (dw)."""
-    g = torch.Generator().manual_seed(5)
+    zeros past k_act (dx) and outside the active block (dw), and the
+    variant each call took (fp32 always fma_f32)."""
     dt = getattr(torch, dtype)
-    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(cuda, dt)
-    dy = torch.randn(M, N, generator=g).to(cuda, dt)
-    x = torch.randn(M, kx, generator=g).to(cuda, dt)
+    w, dy, x = _bwd_operands(cuda, dt, M, K, N, kx, offset, 5)
+    want = want if dtype == "bfloat16" else "fma_f32"
     wd = ops.widths_tensor(cuda, ka, na)
+    before = (dict(em.dgrad_variant_launches),
+              dict(em.wgrad_variant_launches))
     dx = em.elastic_matmul_dgrad(dy, w, wd, ka, na, kx)
     dw = em.elastic_matmul_wgrad(x, dy, wd, ka, na, (K, N))
     torch.cuda.synchronize()
+    for was, now in zip(before, (em.dgrad_variant_launches,
+                                 em.wgrad_variant_launches)):
+        assert {v: n - was[v] for v, n in now.items() if n != was[v]} == \
+            {want: 1}
     tol = TOL[dtype] * (4 if dtype == "float32" else 1)   # sums over M rows
     torch.testing.assert_close(
         dx.float(), em.elastic_matmul_dgrad_plain(dy, w, ka, na, kx).float(),
@@ -811,6 +913,37 @@ def test_cuda_elastic_matmul_backward_matches_plain(cuda, dtype, M, K, N, ka,
         rtol=tol, atol=tol)
     assert torch.all(dx[:, ka:] == 0) and torch.all(dw[ka:] == 0) \
         and torch.all(dw[:, na:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,ka,na", [(384, 384, 384, 384),
+                                       (384, 1536, 288, 1152)])
+def test_cuda_wgrad_tma_is_deterministic_and_replays_in_a_graph(cuda, K, N,
+                                                                 ka, na):
+    """The fused split-K reduce adds the partials in split order: two calls
+    agree bit for bit; and it resets its tile counters: a call captured in
+    a CUDA graph and replayed three times gives the plain version's result
+    each time."""
+    M = 50432
+    w, dy, x = _bwd_operands(cuda, torch.bfloat16, M, K, N, K, 0, 7)
+    wd = ops.widths_tensor(cuda, ka, na)
+    assert em.wgrad_tma_plan(M, ka, na)[0] > 1
+    before = em.wgrad_variant_launches["tma"]
+    a = em.elastic_matmul_wgrad(x, dy, wd, ka, na, (K, N))
+    b = em.elastic_matmul_wgrad(x, dy, wd, ka, na, (K, N))
+    torch.cuda.synchronize()
+    assert em.wgrad_variant_launches["tma"] - before == 2
+    assert torch.equal(a, b)
+    want = em.elastic_matmul_wgrad_plain(x, dy, ka, na, (K, N)).float()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = em.elastic_matmul_wgrad(x, dy, wd, ka, na, (K, N))
+    for _ in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+        assert torch.equal(out, a)
 
 
 @pytest.mark.cuda

@@ -142,6 +142,76 @@ def test_dispatch_plan_packs_the_reference_assignment(C):
     assert np.all(r < counts.numpy()[e])                     # packed rows
 
 
+def test_expert_matmul_op_gradients_match_jax_vjp():
+    """With a gradient wanted, the plain route (CPU) gives x and w the
+    gradients of jax.vjp of the reference's oracle, zeros past each
+    count, fp32 within 1e-5."""
+    E, C, d, F = 4, 16, 24, 40
+    counts = [16, 0, 7, 3]
+    rng = np.random.default_rng(11)
+    x, w, dy = (rng.normal(size=s).astype(np.float32)
+                for s in ((E, C, d), (E, d, F), (E, C, F)))
+    cj = jnp.asarray(counts, jnp.int32)
+    _, vjp = jax.vjp(lambda a, b: jxm.expert_matmul_ref(a, b, cj),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = ops.expert_matmul_op(xt, wt, torch.tensor(counts, dtype=torch.int32))
+    dx, dw = torch.autograd.grad(y, (xt, wt), torch.from_numpy(dy))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=1e-5,
+                               atol=1e-5)
+    for e, n in enumerate(counts):
+        assert torch.all(dx[e, n:] == 0)
+
+
+def test_expert_matmul_op_kernel_route_backward_raises(monkeypatch):
+    """On the kernel route K3 runs inside an autograd Function whose
+    backward raises until K3 has a backward kernel: a loss through it can
+    no longer leave x and w without a gradient silently.  (No card here:
+    the kernel route is forced and its forward is the plain version.)"""
+    monkeypatch.setattr(ops, "_use_kernel", lambda t: True)
+    monkeypatch.setattr(ops._xm, "expert_matmul", ops._xm.expert_matmul_plain)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 4, 8, generator=g, requires_grad=True)
+    w = torch.randn(2, 8, 6, generator=g, requires_grad=True)
+    counts = torch.tensor([4, 1], dtype=torch.int32)
+    y = ops.expert_matmul_op(x, w, counts)
+    assert y.grad_fn is not None
+    torch.testing.assert_close(y, ops._xm.expert_matmul_plain(x, w, counts))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        y.sum().backward()
+    assert x.grad is None and w.grad is None
+    with torch.no_grad():      # no gradient wanted: the forward alone
+        assert ops.expert_matmul_op(x, w, counts).grad_fn is None
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_apply_backward_raises(setup):
+    """On the card, a backward through moe_apply reaches K3's Function and
+    raises, where before it gave the routed experts no gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    _, tp, x = setup
+    p = _to(cast_params(tp, torch.bfloat16), dev)
+    for leaf in (p["wi"], p["wg"], p["wo"]):
+        leaf.requires_grad_(True)
+    xt = torch.from_numpy(x).to(dev, torch.bfloat16).requires_grad_()
+    y, _ = TM.moe_apply(p, xt, _tcfg(CFG))
+    assert y.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="expert_matmul backward"):
+        y.float().square().sum().backward()
+
+
 # --- moe_apply ------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
