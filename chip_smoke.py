@@ -12,9 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K1 elastic_matmul against its plain version at the serving shapes of the
    full Dynamic-OFA supernet, fp32 and bf16, including widths that are not
    multiples of the tile, with exact zeros past n_act; and across its
-   variants (small_m, tma, tile): M in 1..2048 around the small_m
-   boundary, k_act not a multiple of 64 in sliced mode and in the TPU
-   op's shape, a width that is not a multiple of 8 (no TMA), n_out > n_act;
+   variants (small_m, tma, f32_splitk, tile): M in 1..2048 around the
+   small_m boundary, k_act not a multiple of 64 in sliced mode and in the
+   TPU op's shape, a width that is not a multiple of 8 (no TMA), n_out >
+   n_act; and f32_splitk at the fp32 MoE router's shape (K 2048, 64
+   experts) for M from 17 to 2048 and n_act from 1 to 64, each call the
+   same bits twice and under 3 CUDA-graph replays;
 4. K2 flash_attention against its plain version: S = T = 197, D = 64,
    BH 6 and 48, non-causal and causal, one GQA case, the smoke configs'
    head dims (16 and 8), the ragged S = T = 577, and decode (S = 1) at
@@ -63,8 +66,10 @@ the LM slice (deepseek-moe-16b at full width):
     16 teacher-forced ``lm_decode`` steps against a 528-slot cache at the
     points the reference can decode; every output finite, all three
     kernels' launch counters rising in prefill and in decode, no bf16 call
-    on the old K1 tile, K2 FMA or K3 tile kernel, every K3 call on tma in
-    prefill and on stream in decode (counted by stage in this run), one
+    on the old K1 tile, K2 FMA or K3 tile kernel, no fp32 router call on
+    K1's tile (f32_splitk at prefill, small_m at decode), every K3 call on
+    tma in prefill and on stream in decode (counted by stage in this
+    run), one
     decode step's logits of the kernel path against the plain path (as it
     runs and with the plain path's routing replayed), peak device memory;
 12. K1, K2 and K3 against their plain versions at the main path's own
@@ -72,15 +77,19 @@ the LM slice (deepseek-moe-16b at full width):
     one decode step at each operating point, on its recorded inputs in
     bf16 (fp32 for the routers) and again cast to fp32, exact zeros past
     each K3 count; every bf16 K3 call on tma in prefill and on stream in
-    decode; and the capacity drops of each point (kept slots of the
-    routed ones, rows per live expert);
+    decode; each fp32 router call on the variant its M gives, the
+    f32_splitk ones the same bits twice and under 3 CUDA-graph replays;
+    and the capacity drops of each point (kept slots of the routed ones,
+    rows per live expert);
 13. phase 7 for the LM slice: K1, K2 and K3 over the recorded calls of
     one prefill forward and of one decode step, each beside its plain
     version, its library yardstick (``torch.matmul`` on the sliced
     weight; ``F.scaled_dot_product_attention``; ``torch.bmm`` over the
     same slabs), the parent's kernel (given) and its bound; the host's
     time to issue each row's launches (kernel and parent); K1's and K3's
-    rows broken down by call shape and variant;
+    rows broken down by call shape and variant; and the prefill's fp32
+    router calls as a row of their own (``torch.matmul`` in fp32, TF32
+    off);
 14. with ``--parent-csrc`` only: the full point's prefill and decode step
     as wall time, on this tree's kernels and on the parent's, in turns;
 
@@ -91,10 +100,11 @@ Dynamic-OFA ViT, batch 256, bf16):
     dynamic-ofa-supernet --sandwich`` for 8 steps with a checkpoint every
     4 and a failure injected at step 6: finite losses, exactly one restart,
     the K1 forward, dgrad and wgrad and the K2 forward and backward
-    counters all rising, every bf16 K1 dgrad and wgrad call on ``tma``,
-    no bf16 call on K1 ``tile_bf16``, K2 ``fma_bf16`` or the backward's
-    ``wmma_bf16`` (nor a backward on ``fma_f32``), the median step time
-    after the first step and the peak device memory;
+    counters all rising, every bf16 K1 dgrad and wgrad call on ``tma``
+    and every K2 backward on ``resident``, no bf16 call on K1
+    ``tile_bf16``, K2 ``fma_bf16`` or the backward's ``wmma_bf16`` (nor a
+    backward on ``fma_f32``), the median step time after the first step
+    and the peak device memory;
 16. K1 forward, dgrad and wgrad against their plain versions at every
     distinct call (shapes, strides, widths) of one recorded sandwich step,
     full and masked widths, on the recorded bf16 inputs, cast to fp32 and
@@ -107,8 +117,11 @@ Dynamic-OFA ViT, batch 256, bf16):
     reset);
 17. K2's backward (dQ, dK, dV) and its forward's logsumexp against their
     plain versions: the recorded step's call (S = T = 197, D = 64) and
-    random cases with T not a multiple of the 64-key tile and GQA, bf16
-    and fp32;
+    random cases with T not a multiple of the 64-key tile and GQA (R = 2
+    and 3), bf16 and fp32, each on the variant it
+    should take (``resident`` at S, T <= 256 in bf16, ``mma`` past it,
+    ``fma_f32``); the recorded call the same bits twice and under 3
+    CUDA-graph replays;
 18. one fp32 sandwich step of the full-width config at batch 4, kernel
     path against plain path: the loss within 1e-4 relative, every gradient
     leaf within 1e-3 of its largest value;
@@ -378,6 +391,9 @@ def k1_group(args, kw) -> str:
     if variant == "tma":
         cwg, bn = em.tma_tile(M, n_act)
         variant += f" {64 * cwg}x{bn}"
+    elif variant == "f32_splitk":
+        bm, splits, kc = em.f32_splitk_plan(M, k_act, n_act)
+        variant += f" {bm}x{em.F32_SPLITK_BN} splits {splits}x{kc}"
     dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     return f"M={M} k={k_act} n={n_act} {dt} {variant}"
 
@@ -412,12 +428,16 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
     (``torch.inference_mode`` by default)."""
     import torch
     mode = mode or torch.inference_mode
-    bound, b_sum, o_sum = 0.0, 0.0, 0.0
+    bound, b_sum, o_sum, b_ms, o_ms = 0.0, 0.0, 0.0, 0.0, 0.0
     for args, kw in calls:
         nb, no, peak = work(args, kw)
         bound += kernel_bound_ms(nb, no, peak)[0]
         b_sum, o_sum = b_sum + nb, o_sum + no
-    by = kernel_bound_ms(b_sum, o_sum)[1]
+        b_ms += kernel_bound_ms(nb, 0.0)[0]
+        o_ms += kernel_bound_ms(0.0, no, peak)[0]
+    # what bounds the row: its bytes or its operations, each at the peak
+    # of the calls' own dtype (fp32 operations outside the tensor cores)
+    by = "bytes" if b_ms >= o_ms else "operations"
 
     def run(fn):
         def go():
@@ -495,6 +515,16 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
 # runs its backward through the older entry points, unchanged since
 K1_BWD_TMA = ("repro_elastic_matmul_dgrad_tma",
               "repro_elastic_matmul_wgrad_tma")
+# launchers of later variants, by source: (launcher, module attribute of
+# the variant choice, {variant: the variant it took before}); a parent
+# without one runs those calls on the older variant, through this tree's
+# wrapper and the parent's library
+LATER_VARIANTS = {
+    "elastic_matmul": ("repro_elastic_matmul_f32_splitk", "choose_variant",
+                       {"f32_splitk": "tile_f32"}),
+    "flash_attention": ("repro_flash_attention_bwd_resident",
+                        "choose_bwd_variant", {"resident": "mma"}),
+}
 
 
 def parent_kernels(csrc: str) -> dict:
@@ -507,7 +537,9 @@ def parent_kernels(csrc: str) -> dict:
     its one C interface (the tile launcher, unchanged since) behind the
     checks and allocation of its wrapper of the time; K1's backward before
     its tma variants through this wrapper's ``wmma_bf16`` route (in bf16),
-    which calls the parent's entry points as its wrapper did."""
+    which calls the parent's entry points as its wrapper did; and a call
+    whose variant the parent lacks (``LATER_VARIANTS``: K1 ``f32_splitk``,
+    K2's ``resident`` backward) on the variant it took before."""
     import ctypes
     from pathlib import Path
 
@@ -552,11 +584,23 @@ def parent_kernels(csrc: str) -> dict:
             raise RuntimeError(f"parent K3 launch failed ({rc})")
         return y
 
+    mods = {"elastic_matmul": em, "flash_attention": fa}
+    older = []       # (module, attribute, key) of the choices to route
+    fns = {}
+    for name, (launcher, attr, before) in LATER_VARIANTS.items():
+        if not hasattr(libs[name], launcher):
+            def choose(*a, _orig=getattr(mods[name], attr), _before=before):
+                v = _orig(*a)
+                return _before.get(v, v)
+            older.append((mods[name], attr, name))
+            fns[name] = choose
+
     @contextlib.contextmanager
     def parent_libs():
         with contextlib.ExitStack() as stack:
             for n, lib in libs.items():
                 stack.enter_context(build.loaded_as(n, lib))
+            stack.enter_context(routed(older, fns))
             yield
     def wmma_route(fn):
         def call(a, *args):
@@ -565,10 +609,12 @@ def parent_kernels(csrc: str) -> dict:
         return call
     for name, mod, skip in (("elastic_matmul", em, K1_BWD_TMA),
                             ("flash_attention", fa, ())):
+        skip = (*skip, LATER_VARIANTS[name][0])
         if not exports_all(name, mod, skip):
             raise RuntimeError(f"parent {name} lacks a launcher of "
                                f"{sorted(set(mod._ARGTYPES) - set(skip))}")
-    k1_tma_bwd = exports_all("elastic_matmul", em)
+    k1_tma_bwd = all(hasattr(libs["elastic_matmul"], fn)
+                     for fn in K1_BWD_TMA)
     return {"k1": ops.elastic_matmul_op, "k2": ops.flash_attention_op,
             "k3": ops.expert_matmul_op
             if exports_all("expert_matmul", xm) else k3,
@@ -577,6 +623,35 @@ def parent_kernels(csrc: str) -> dict:
             "k1_wgrad": em.elastic_matmul_wgrad if k1_tma_bwd
             else wmma_route(em.elastic_matmul_wgrad),
             "libs": parent_libs}
+
+
+def repeatable(fn, want, tol: float, what: str) -> float:
+    """Run fn() (a kernel call: a tensor or a tuple of them) twice, and
+    once captured in a CUDA graph replayed 3 times; raise unless every
+    result equals the first call's bit for bit and that is within ``tol``
+    of ``want`` (the plain version's).  Returns the max abs err."""
+    import torch
+
+    def flat(r):
+        return tuple(r) if isinstance(r, (tuple, list)) else (r,)
+    first, again = flat(fn()), flat(fn())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{what}: two calls differ")
+    err = max(close(a, b, tol) for a, b in zip(first, flat(want)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = flat(fn())
+    for _ in range(3):
+        for r in replayed:
+            r.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(replayed, first)):
+            raise AssertionError(f"{what}: a graph replay differs from the "
+                                 f"eager call")
+    del graph
+    return err
 
 
 def close(a, b, tol: float) -> float:
@@ -681,6 +756,7 @@ def lm_phases(dev, parent) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core import layers as layers_mod
     from repro_torch.core.layers import cast_params
+    from repro_torch.kernels import elastic_matmul as em
     from repro_torch.kernels import expert_matmul as xm
     from repro_torch.kernels import ops
     from repro_torch.launch import elastic_moe
@@ -943,8 +1019,14 @@ def lm_phases(dev, parent) -> dict:
     log(f"  by variant: {out['variants']}")
     main_path_variants(out["variants"], need={
         ("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
+        ("elastic_matmul", "f32_splitk"),
         ("flash_attention", "mma"), ("flash_attention", "decode"),
         ("expert_matmul", "tma"), ("expert_matmul", "stream")})
+    # the fp32 router: f32_splitk at prefill, small_m at decode (M = 4),
+    # never the tile loop
+    if out["variants"]["elastic_matmul"]["tile_f32"]:
+        raise AssertionError(f"fp32 router calls took tile_f32: "
+                             f"{out['variants']['elastic_matmul']}")
     # K3's launches by variant in each stage of this run: bf16 prefill on
     # tma, decode on stream (the prefills are all launches but the steps')
     dec = {v: sum(r["decode_variants"]["expert_matmul"][v] for r in rows
@@ -1063,6 +1145,37 @@ def lm_phases(dev, parent) -> dict:
         f"{k.upper()} {str(dt).split('.')[1]} {e:.3g} (tol "
         f"{tols[k][str(dt).split('.')[1]]})"
         for (k, dt), e in sorted(worst.items(), key=str)))
+    # the fp32 router's calls: each on the variant its M gives (f32_splitk
+    # at prefill, small_m at decode); the f32_splitk ones the same bits
+    # twice and under 3 CUDA-graph replays
+    router, r_err = {}, 0.0
+    for key, args, kw in distinct.values():
+        if key != "k1" or args[0].dtype != torch.float32:
+            continue
+        x, w = args[0], args[1]
+        M = x.numel() // x.shape[-1]
+        n_out = kw.get("n_out", w.shape[-1])
+        want_v = "small_m" if M <= em.SMALL_M_MAX else "f32_splitk"
+        before = em.variant_launches[want_v]
+        fn = (lambda a=args, k=kw, n=n_out:
+              kernel_fn["k1"](*a, **k).reshape(-1, n))
+        if want_v == "f32_splitk":
+            r_err = max(r_err, repeatable(
+                fn, k1_plain(*args, **kw), TOL["float32"],
+                f"router M={M} n_act={args[3]}"))
+            ran = em.variant_launches[want_v] - before == 3
+        else:
+            fn()
+            ran = em.variant_launches[want_v] - before == 1
+        if not ran:
+            raise AssertionError(f"router M={M}: not on {want_v}")
+        router[(M, args[3], want_v)] = router.get((M, args[3], want_v),
+                                                  0) + 1
+    if not any(v == "f32_splitk" for _, _, v in router):
+        raise AssertionError("no fp32 router call at prefill recorded")
+    log(f"  fp32 router calls (M, n_act, variant): {sorted(router)}; the "
+        f"f32_splitk ones bit for bit twice and under 3 graph replays, max "
+        f"abs err {r_err:.3g} (tol {TOL['float32']})")
     out["main_path_calls"] = {
         "distinct": len(distinct),
         "max_abs_err": {f"{k}_{str(dt).split('.')[1]}": e
@@ -1113,6 +1226,13 @@ def lm_phases(dev, parent) -> dict:
                 f"{key.upper()} {label:7s}", batch, kern, plain, lib,
                 lib_name, work, parent and (parent[key], parent["libs"]),
                 group={"k1": k1_group, "k3": k3_group}.get(key))
+    # the fp32 MoE router's calls of the prefill on their own (f32_splitk;
+    # the parent's on the variant it had), torch.matmul in fp32, TF32 off
+    out["k1_router"] = time_rows(
+        "K1 router prefill (fp32)",
+        [c for c in calls["k1"][:n_pre["k1"]]
+         if c[0][0].dtype == torch.float32], *kinds["k1"],
+        parent and (parent["k1"], parent["libs"]), group=k1_group)
     del calls
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     if parent:
@@ -1463,7 +1583,11 @@ def train_phases(dev, parent) -> dict:
         ("elastic_matmul", "tma"), ("flash_attention", "mma"),
         ("elastic_matmul_dgrad", "tma"),
         ("elastic_matmul_wgrad", "tma"),
-        ("flash_attention_bwd", "mma")})
+        ("flash_attention_bwd", "resident")})
+    # every bf16 K2 backward of the sandwich step (S = T = 197) on resident
+    if out["variants"]["flash_attention_bwd"]["mma"]:
+        raise AssertionError(f"K2 backward calls took mma: "
+                             f"{out['variants']['flash_attention_bwd']}")
     for kern in ("elastic_matmul_dgrad", "elastic_matmul_wgrad",
                  "flash_attention_bwd"):
         if out["variants"][kern]["fma_f32"]:
@@ -1601,24 +1725,9 @@ def train_phases(dev, parent) -> dict:
     tol = TOL["bfloat16"]
     worst = 0.0
     for args, kw, _ in rec["wgrad"].values():
-        first = em.elastic_matmul_wgrad(*args, **kw)
-        again = em.elastic_matmul_wgrad(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(first, again):
-            raise AssertionError(f"wgrad at {args[3:5]}: two calls differ")
-        want = k1_wgrad_plain(*args, **kw)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            replayed = em.elastic_matmul_wgrad(*args, **kw)
-        for _ in range(3):
-            replayed.fill_(float("nan"))
-            graph.replay()
-            torch.cuda.synchronize()
-            worst = max(worst, close(replayed, want, tol))
-            if not torch.equal(replayed, first):
-                raise AssertionError(f"wgrad at {args[3:5]}: a graph "
-                                     f"replay differs from the eager call")
-        del graph, replayed
+        worst = max(worst, repeatable(
+            lambda: em.elastic_matmul_wgrad(*args, **kw),
+            k1_wgrad_plain(*args, **kw), tol, f"wgrad at {args[3:5]}"))
     log(f"  wgrad: {len(rec['wgrad'])} distinct calls each twice, bit for "
         f"bit equal; each captured in a CUDA graph and replayed 3 times: "
         f"equal to the eager call, max abs err {worst:.3g} against plain "
@@ -1634,7 +1743,9 @@ def train_phases(dev, parent) -> dict:
     t0 = phase("17. K2 backward (dQ, dK, dV), the forward's output and its "
                "logsumexp vs plain: the recorded step's call (S = T = 197, "
                "D = 64) as recorded and with dO at unit rms, and random "
-               "cases, T not a multiple of the 64-key tile, GQA")
+               "cases, T not a multiple of the 64-key tile, GQA, resident "
+               "and mma; the recorded call bit for bit twice and under "
+               "graph replay")
     gen = torch.Generator().manual_seed(17)
 
     def rn(*shape, scale=1.0, dtype=torch.float32):
@@ -1649,13 +1760,18 @@ def train_phases(dev, parent) -> dict:
         cases.append(("recorded", q, k, v_, do, False))
         cases.append(("recorded, dO unit rms", q, k, v_,
                       do.float() / do.float().square().mean().sqrt(), True))
+    # resident at each of its warpgroup counts (T <= 64, 128, 192, 256),
+    # GQA R = 3 and 2; mma past 256 queries and keys (GQA R = 2)
     for Bq, S_, T_, H_, KH in ((8, 197, 197, 6, 6), (8, 197, 100, 6, 2),
-                               (4, 65, 77, 4, 4)):
+                               (4, 65, 77, 4, 4), (4, 40, 50, 4, 4),
+                               (4, 150, 150, 4, 2), (2, 256, 230, 4, 4),
+                               (2, 300, 300, 4, 2)):
         cases.append((f"B{Bq} S{S_} T{T_} H{H_}/{KH}",
                       rn(Bq, S_, H_, 64, scale=0.5), rn(Bq, T_, KH, 64,
                                                         scale=0.5),
                       rn(Bq, T_, KH, 64), rn(Bq, S_, H_, 64), True))
     k2_err = k2_fwd_err = 0.0
+    k2_variants = {}
     before = (ops.launch_counts()["flash_attention"],
               ops.launch_counts()["flash_attention_bwd"])
     for name, q, k, v, do, unit in cases:
@@ -1666,8 +1782,17 @@ def train_phases(dev, parent) -> dict:
                                         return_lse=True)
             o_p, lse_p = fa.flash_attention_plain(q_, k_, v_, causal=False,
                                                   return_lse=True)
+            was = dict(fa.bwd_variant_launches)
             got = fa.flash_attention_bwd(q_, k_, v_, o, lse, do_,
                                          causal=False)
+            took = [n for n, c in fa.bwd_variant_launches.items()
+                    if c != was[n]]
+            want_v = ("fma_f32" if dt == torch.float32 else "resident"
+                      if max(q.shape[1], k.shape[1]) <= fa.RESIDENT_MAX
+                      else "mma")
+            if took != [want_v]:
+                raise AssertionError(f"K2 backward {name} {dt}: took "
+                                     f"{took}, not {want_v}")
             want = fa.flash_attention_bwd_plain(q_, k_, v_, o, do_,
                                                 causal=False)
             torch.cuda.synchronize()
@@ -1682,7 +1807,9 @@ def train_phases(dev, parent) -> dict:
                     f"the largest values (tol {tol})")
             k2_err = max(k2_err, *es)
             k2_fwd_err = max(k2_fwd_err, e_o)
-            log(f"  {str(dt):15s} {name:22s} {tuple(q.shape)}: o err "
+            k2_variants[took[0]] = max(k2_variants.get(took[0], 0.0), *es)
+            log(f"  {str(dt):15s} {took[0]:8s} {name:22s} {tuple(q.shape)}: "
+                f"o err "
                 f"{e_o:.3g} (tol {tol}), lse err {e_lse:.3g} (tol 1e-3); "
                 f"dq/dk/dv max abs err {'/'.join(f'{e:.3g}' for e in es)}"
                 f", {'/'.join(f'{r:.3g}' for r in rels)} of the largest "
@@ -1692,6 +1819,27 @@ def train_phases(dev, parent) -> dict:
     if ran != (2 * len(cases),) * 2:
         raise AssertionError(f"K2 forward/backward launches {ran} in "
                              f"{2 * len(cases)} comparisons each")
+    if set(k2_variants) != set(fa.BWD_VARIANTS):
+        raise AssertionError(f"not every K2 backward variant ran: "
+                             f"{sorted(k2_variants)}")
+    log("  dq/dk/dv max abs err by variant: " + ", ".join(
+        f"{v} {e:.3g}" for v, e in sorted(k2_variants.items())))
+    # the recorded call on resident: the same bits twice and under 3
+    # CUDA-graph replays (no atomics: GQA's sum over heads and every
+    # output in a fixed order)
+    rep_err = 0.0
+    for v in rec["k2_bwd"].values():
+        q, k, v_, o, lse, do = v[0][:6]
+        was = fa.bwd_variant_launches["resident"]
+        rep_err = max(rep_err, repeatable(
+            lambda: fa.flash_attention_bwd(q, k, v_, o, lse, do,
+                                           causal=False),
+            fa.flash_attention_bwd_plain(q, k, v_, o, do, causal=False),
+            ATTN_TOL["bfloat16"], "K2 backward (resident)"))
+        if fa.bwd_variant_launches["resident"] - was != 3:
+            raise AssertionError("the recorded K2 backward left resident")
+    log(f"  recorded call on resident: bit for bit twice and under 3 graph "
+        f"replays, max abs err {rep_err:.3g} (tol {ATTN_TOL['bfloat16']})")
     out["k2_fwd_err"] = k2_fwd_err
     out["k2_bwd_err"] = k2_err
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -1961,6 +2109,40 @@ def main() -> int:
     with ops.plain_kernels():
         yp = ops.elastic_matmul_op(tok[:, 0], w, 192, 1000, n_out=1000)
     k1_err = max(k1_err, close(y, yp, TOL["bfloat16"]))
+    # f32_splitk at the fp32 MoE router's prefill shape (M = 2048 tokens,
+    # K = d_model 2048, E = 64 experts, n_act 64 or 32 at the half-expert
+    # points) and around it: M from just past small_m's 16 rows to 2048,
+    # n_act from 1 to 64 (a live tile cut short, zeros past it); each call
+    # one launch of f32_splitk, zeros past n_act exact, the same bits twice
+    # and under 3 CUDA-graph replays (the fused split-K reduce adds the
+    # partials in split order and resets its tickets)
+    router_err = 0.0
+    w_r = randn(2048, 64, scale=2048 ** -0.5)
+    for rows in (17, 64, 129, 2048):
+        x_r = randn(rows, 2048)
+        for na in (64, 63, 32, 1):
+            before = em.variant_launches["f32_splitk"]
+            want = k1_plain(x_r, w_r, 2048, na, 64)
+            err = repeatable(lambda: ops.elastic_matmul_op(
+                x_r, w_r, 2048, na, n_out=64), want, TOL["float32"],
+                f"f32_splitk M={rows} n_act={na}")
+            y = ops.elastic_matmul_op(x_r, w_r, 2048, na, n_out=64)
+            torch.cuda.synchronize()
+            if not bool((y[:, na:] == 0).all()):
+                raise AssertionError(f"f32_splitk M={rows}: non-zero past "
+                                     f"n_act {na}")
+            # twice eager, once captured (3 replays), once for the zeros
+            if em.variant_launches["f32_splitk"] - before != 4:
+                raise AssertionError(f"f32_splitk M={rows} n_act={na}: "
+                                     f"took another variant")
+            router_err = max(router_err, err)
+    k1_err = max(k1_err, router_err)
+    log(f"  f32_splitk at the router's shape (K 2048, n_out 64), M in (17, "
+        f"64, 129, 2048) x n_act in (64, 63, 32, 1): max abs err "
+        f"{router_err:.3g} (tol {TOL['float32']}), zeros past n_act exact, "
+        f"bit for bit twice and under 3 graph replays (plan at M = 2048: "
+        f"tile rows, splits, rows of K "
+        f"{em.f32_splitk_plan(2048, 2048, 64)})")
     log(f"  strided head rows ok; K1 max abs err {k1_err:.3g} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -2141,6 +2323,7 @@ def main() -> int:
              **row_keys(vit_k1),
              timing=timing, vit_forward=vit_k1,
              lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"],
+             lm_router_prefill=lm["k1_router"],
              train_step=tr["k1_train_fwd"]),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -14,7 +14,7 @@
 // k_act; in the TPU op's shape it passes n_out == N, x wider than k_act,
 // and gets exact zeros past n_act.
 //
-// Three variants, chosen on the host by kernels/elastic_matmul.py:
+// Four variants, chosen on the host by kernels/elastic_matmul.py:
 // choose_variant from (M, k_act, n_act, dtype, strides):
 //
 // * small_m (M <= 16, bf16 and fp32: LM decode at M = 4, the ViT head at
@@ -57,11 +57,32 @@
 //   memory.  Tiles at or past n_act store zeros and exit before any load;
 //   the K loop runs to cdiv(k_act, BK).  The grid walks M tiles fastest so
 //   that the blocks in flight share each weight tile through L2.
-// * tile (everything else: fp32 at M > 16 -- parity paths and the fp32
-//   router at prefill -- and bf16 whose bases or row strides TMA cannot
-//   take).  The unpipelined 64x64 tile loop of tile_matmul.cuh (WMMA for
-//   bf16, FMAs for fp32), shared with K3.  The main path never takes it in
-//   bf16 (chip_smoke.py asserts the per-variant counters).
+// * f32_splitk (fp32 at M > 16 with 16-byte-aligned bases and row
+//   strides: the MoE router at prefill, M = 2048 tokens x K = 2048 ->
+//   E = 64 experts, 27 calls a prefill).  Bound: operations -- 2 M K N
+//   = 0.54 GFLOP a call against 67 TFLOP/s fp32 outside the tensor cores,
+//   8 us (its bytes take 5 us).  The products stay exact fp32 FMAs: TF32
+//   would flip near-ties in the top-6 routing.  The tile loop gave this
+//   shape 32 blocks of 64 x 64 on 132 SMs, each walking K = 2048 with no
+//   load in flight behind its FMAs.  Here a block computes a 128 x 64
+//   tile over one split of K: 128 threads, each an 8 x 8 register
+//   micro-tile (16 16-byte shared loads, free of bank conflicts, feed
+//   256 FMAs), x and w staged
+//   16 rows of K at a time through a 4-stage cp.async ring whose zero
+//   fill masks the K tail, the M edge and the columns past n_act.  K is
+//   split so that the (tile, split) blocks fill the card at two blocks an
+//   SM (f32_splitk_plan on the host: 16 splits of 128 rows at the
+//   router's shape; sweep_splits.py times the alternatives), and the
+//   reduce is fused as in the tma wgrad below: each split writes its fp32
+//   partial and draws a ticket from the tile's counter, the last block
+//   adds the partials in split order (bit-for-bit repeatable), stores y
+//   with zeros past n_act and resets the counter (graph-replayable).
+//   Column tiles past n_act store zeros without loads.
+// * tile (everything else: fp32 whose bases or row strides forbid
+//   16-byte loads, and bf16 whose bases or row strides TMA cannot take).
+//   The unpipelined 64x64 tile loop of tile_matmul.cuh (WMMA for bf16,
+//   FMAs for fp32), shared with K3.  The main path never takes it
+//   (chip_smoke.py asserts the per-variant counters).
 //
 // The TMA / wgmma machinery of tma and the streaming core of small_m live
 // in hopper_gemm.cuh, shared with K3 (expert_matmul.cu).
@@ -1111,6 +1132,226 @@ __global__ void wgrad_reduce(const float* __restrict__ ws, T* __restrict__ dw,
   dw[i] = from_float<T>(s);
 }
 
+// ---------------------------------------------------------- f32_splitk ----
+
+// output tile rows BM (64 or 128, a template argument) x SK_BN columns
+constexpr int SK_BN = 64;            // output tile columns
+constexpr int SK_BK = 16;            // rows of K a stage
+constexpr int SK_STAGES = 4;         // the cp.async ring
+constexpr int SK_THREADS = 128;      // 16 x 8 threads, BM / 16 x 8 each
+constexpr int SK_LDA = SK_BK + 4;    // x tile row stride (floats)
+template <int BM>
+struct SplitkTile {
+  static constexpr int TM = BM / 16;                       // rows a thread
+  static constexpr int STAGE = BM * SK_LDA + SK_BK * SK_BN;  // floats
+  static constexpr int SMEM = SK_STAGES * STAGE * 4;  // 57,344 at BM 128
+  static constexpr int TILE = BM * SK_BN;
+};
+
+// y (M x n_out, ldy apart) = x[:, :k_act] w[:k_act, :n_act], zeros past
+// n_act, in fp32 on FMAs.  The live tiles (tiles_m x tiles_n of BM x 64)
+// times `splits` chunks of `kc` rows of K: blocks 0 .. live * splits - 1
+// each compute one (tile, split), the tiles of a split side by side (they
+// share its rows of w in L2).  With one split a block stores its tile;
+// else it writes its fp32 partial to ws[split][tile], takes a ticket from
+// the tile's counter, and the block that draws the last one adds the
+// partials in split order (deterministic), stores y and resets the
+// counter for the next call (a CUDA graph replays it).  The blocks after
+// those store the zeros of the column tiles past n_act.
+template <int BM>
+__global__ void __launch_bounds__(SK_THREADS, 2)
+f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  float* __restrict__ y, float* __restrict__ ws,
+                  int* __restrict__ counters, const int* __restrict__ widths,
+                  int M, int ldx, int ldw, int ldy, int n_out, int tiles_m,
+                  int tiles_n, int splits, int kc) {
+  using P = SplitkTile<BM>;
+  constexpr int TM = P::TM, SK_STAGE = P::STAGE, SK_TILE = P::TILE;
+  constexpr int SK_BM = BM;
+  extern __shared__ __align__(16) float sk_smem[];
+  const int k_act = widths[0], n_act = widths[1];
+  const int tid = threadIdx.x;
+  const int live = tiles_m * tiles_n;
+  const int b = blockIdx.x;
+  if (b >= live * splits) {
+    const int dead = b - live * splits;
+    const int all_n = (n_out + SK_BN - 1) / SK_BN;
+    const int tm = dead / (all_n - tiles_n);
+    const int tn = tiles_n + dead % (all_n - tiles_n);
+    for (int i = tid; i < SK_TILE; i += SK_THREADS) {
+      const int r = tm * SK_BM + i / SK_BN, c = tn * SK_BN + i % SK_BN;
+      if (r < M && c < n_out) y[(size_t)r * ldy + c] = 0.f;
+    }
+    return;
+  }
+  const int tile = b % live, split = b / live;
+  const int m0 = (tile / tiles_n) * SK_BM, n0 = (tile % tiles_n) * SK_BN;
+  const int kb = split * kc, ke = min(kb + kc, k_act);
+  const int nk = ke > kb ? (ke - kb + SK_BK - 1) / SK_BK : 0;
+  // thread (ty, tx) owns rows ty + 16 i and columns tx * 4 .. + 3 and
+  // 32 + tx * 4 .. + 3: a warp's 16-byte shared loads of x rows hit 4
+  // distinct bank groups and its loads of w rows 128 contiguous bytes
+  const int tx = tid % 8, ty = tid / 8;
+
+  // stage t of this split into ring slot `slot`: x as [128][SK_LDA]
+  // (four 16-byte chunks a thread), w as [16][64] (two); zero fill past
+  // M, past ke and past n_act, so nothing outside them is read
+  auto load = [&](int t, int slot) {
+    float* As = sk_smem + slot * SK_STAGE;
+    float* Bs = As + SK_BM * SK_LDA;
+    const int k0 = kb + t * SK_BK;
+#pragma unroll
+    for (int u = 0; u < SK_BM * SK_BK / 4 / SK_THREADS; ++u) {
+      const int i = tid + u * SK_THREADS;
+      const int r = i / 4, c = (i % 4) * 4;
+      const int m = m0 + r, k = k0 + c;
+      const int n = m < M ? max(0, min(4, ke - k)) : 0;
+      cp_async_n(As + r * SK_LDA + c, n ? x + (size_t)m * ldx + k : x,
+                 4 * n);
+    }
+#pragma unroll
+    for (int u = 0; u < SK_BK * SK_BN / 4 / SK_THREADS; ++u) {
+      const int i = tid + u * SK_THREADS;
+      const int r = i / 16, c = (i % 16) * 4;
+      const int k = k0 + r, col = n0 + c;
+      const int n = k < ke ? max(0, min(4, n_act - col)) : 0;
+      cp_async_n(Bs + r * SK_BN + c, n ? w + (size_t)k * ldw + col : w,
+                 4 * n);
+    }
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();        // stage t landed; slot (t - 1) % STAGES free
+    const int pf = t + SK_STAGES - 1;
+    if (pf < nk) load(pf, pf % SK_STAGES);
+    cp_async_commit();
+    const float* As = sk_smem + (t % SK_STAGES) * SK_STAGE;
+    const float* Bs = As + SK_BM * SK_LDA;
+#pragma unroll
+    for (int k4 = 0; k4 < SK_BK; k4 += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * SK_LDA
+                                                + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* br = Bs + (k4 + kk) * SK_BN + tx * 4;
+        const float4 b0 = *reinterpret_cast<const float4*>(br);
+        const float4 b1 = *reinterpret_cast<const float4*>(br + 32);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
+                         : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool vec = ldy % 4 == 0;
+  // 4 consecutive outputs (r, c .. c + 3) of y, zeros past n_act
+  auto store4 = [&](int r, int c, float4 v) {
+    if (r >= M) return;
+    const float o[4] = {c < n_act ? v.x : 0.f, c + 1 < n_act ? v.y : 0.f,
+                        c + 2 < n_act ? v.z : 0.f, c + 3 < n_act ? v.w : 0.f};
+    float* p = y + (size_t)r * ldy + c;
+    if (vec && c + 3 < n_out) {
+      *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        if (c + h < n_out) p[h] = o[h];
+    }
+  };
+  if (splits == 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4(m0 + ty + 16 * i, n0 + tx * 4 + 32 * h,
+               make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                           acc[i][4 * h + 2], acc[i][4 * h + 3]));
+    return;
+  }
+  float* part = ws + ((size_t)split * live + tile) * SK_TILE;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(part + (ty + 16 * i) * SK_BN + tx * 4 +
+                                 32 * h) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
+  __shared__ int last;
+  __threadfence();          // the partial is visible before the ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each thread sums PER runs of 4 outputs over the splits, in split
+  // order, with all PER loads of a split in flight at once
+  constexpr int PER = SK_TILE / (4 * SK_THREADS);
+  float4 s[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) s[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4* p = reinterpret_cast<const float4*>(
+        ws + ((size_t)sp * live + tile) * SK_TILE);
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const float4 v = __ldcg(p + tid + u * SK_THREADS);
+      s[u].x += v.x; s[u].y += v.y; s[u].z += v.z; s[u].w += v.w;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = 4 * (tid + u * SK_THREADS);
+    store4(m0 + e / SK_BN, n0 + e % SK_BN, s[u]);
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <int BM>
+int launch_f32_splitk(const float* x, const float* w, float* y, float* ws,
+                      int* counters, const int* widths, int M, int ldx,
+                      int ldw, int ldy, int n_out, int k_act, int n_act,
+                      int splits, int kc, cudaStream_t s) {
+  using P = SplitkTile<BM>;
+  if (kc % SK_BK || splits < 1 || (long long)splits * kc < k_act ||
+      n_act > n_out || (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return -1;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      f32_splitk_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      P::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (n_act + SK_BN - 1) / SK_BN;
+  const int all_n = (n_out + SK_BN - 1) / SK_BN;
+  const long long blocks = (long long)tiles_m * tiles_n * splits +
+                           (long long)tiles_m * (all_n - tiles_n);
+  if (blocks == 0) return 0;
+  f32_splitk_kernel<BM><<<(unsigned)blocks, SK_THREADS, P::SMEM, s>>>(
+      x, w, y, ws, counters, widths, M, ldx, ldw, ldy, n_out, tiles_m,
+      tiles_n, splits, kc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The tile variant.  dtype: 0 = float32, 1 = bfloat16.  Returns
@@ -1302,4 +1543,31 @@ extern "C" int repro_elastic_matmul_wgrad_tma(
       x, dy, ws, dw, static_cast<int*>(counters),
       static_cast<const int*>(widths), M, ldx, ldy, Kw, Nw, k_act, n_act,
       x_cols, dy_cols, splits, chunk, static_cast<cudaStream_t>(stream));
+}
+
+// The f32_splitk variant (fp32, M > 16): x (M rows, ldx apart) and w (rows
+// ldw apart) with 16-byte-aligned bases and row strides (ldx, ldw
+// multiples of 4), y M x n_out (ldy apart).  k_act and n_act <= n_out are
+// the host's copy of the widths, which set the tiles and the plan; tiles
+// of bm (64 or 128) x 64; K is split into `splits` chunks of `kc` rows (a
+// multiple of 16) that cover k_act; `ws` an fp32 workspace of splits x
+// live tiles x bm x 64 and
+// `counters` an int32 per live tile (0 before the call, left 0 after it)
+// when splits > 1.  Returns cudaGetLastError() after the launch; -1 for
+// another bm or a plan that does not cover k_act.
+extern "C" int repro_elastic_matmul_f32_splitk(
+    const void* x, const void* w, void* y, void* ws, void* counters,
+    const void* widths, int M, int ldx, int ldw, int ldy, int n_out,
+    int k_act, int n_act, int bm, int splits, int kc, void* stream) {
+  auto go = [&](auto launch) {
+    return launch(static_cast<const float*>(x), static_cast<const float*>(w),
+                  static_cast<float*>(y), static_cast<float*>(ws),
+                  static_cast<int*>(counters),
+                  static_cast<const int*>(widths), M, ldx, ldw, ldy, n_out,
+                  k_act, n_act, splits, kc,
+                  static_cast<cudaStream_t>(stream));
+  };
+  if (bm == 64) return go(launch_f32_splitk<64>);
+  if (bm == 128) return go(launch_f32_splitk<128>);
+  return -1;
 }

@@ -69,6 +69,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
 constexpr int BQ = 64;
@@ -760,17 +762,56 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 //     dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
 //     dQ = scale dS K,
 // with keys at positions >= T masked as in the forward.  Bound: bytes at
-// the ViT's S = T = 197, D = 64 (five products of 2 S T D a head against
-// q, k, v, o, dO read and dq, dk, dv written).  Three kernels:
-// delta (one warp a row), dK/dV (a block per 64-key tile and (batch, kv
-// head), looping over the R query heads of that kv head and their query
-// tiles, so GQA's sum over heads stays in registers: deterministic) and
-// dQ (a block per 64-query tile and (batch, head), looping over the key
-// tiles: a separate pass, deterministic, no atomics).  Both recompute
-// S = Q K^T and dP = dO V^T on mma.sync with the forward's fragment
-// layouts (P and dS rounded to bf16 as A operands from registers, K, Q,
-// dO and V tiles in padded shared memory, double-buffered by cp.async);
-// dQ's separate pass costs the recomputation of S and dP again.
+// the ViT's S = T = 197, D = 64 (five products of 2 S T D a head, 3.8
+// GFLOP a sandwich-step call, against q, k, v, o, dO read and dq, dk, dv
+// written, 310 MB: 93 us at 3.35 TB/s against 4 us of bf16 operations).
+// Two bf16 variants, chosen on the host by kernels/flash_attention.py:
+// choose_bwd_variant from shapes and strides only:
+//
+// * resident (bf16, D = 64, S and T <= 256, 16-byte-aligned rows: every
+//   call of the sandwich step, S = T = 197).  What the two passes below
+//   cost at these shapes: 7 products where 5 do (S and dP twice), q, dO,
+//   k and v read twice, a delta launch reading o and dO again.  Here one
+//   block per (batch, kv head) holds all its keys: K and V stay in shared
+//   memory for the whole pass, and warpgroup wg (of 1 to 4, 64 keys each)
+//   keeps dK and dV of its keys in registers across the R query heads
+//   (GQA's sum in a fixed order, no atomics).  The queries stream through
+//   in chunks of 64: Q, dO and o by cp.async into two slots laid out as
+//   TMA's 128-byte swizzle, behind the current chunk, the logsumexp
+//   through a register.  A chunk: delta = rowsum(dO o) from the staged o
+//   and dO (no delta launch); then per 32 queries S^T = K Q^T and dP^T =
+//   V dO^T once on wgmma (m64n32k16, both operands from shared memory),
+//   P = exp(S scale - lse) and dS = P (dP - delta) in registers, dV +=
+//   P^T dO and dK += dS^T Q on wgmma (m64n64k16) with P and dS as register
+//   A operands; the warpgroup's rows of dS^T go to shared memory (bf16,
+//   swizzled), and after one barrier the first warpgroup computes dQ = dS
+//   K of the chunk over all keys (wgmma, dS^T and K read MN-major) and
+//   stores it once, while the others issue the next chunk's loads.  Each
+//   input is read once and each output written once; 5 products.
+//   What bounds it at S = T = 197 is neither the bytes (93 us a call at
+//   3.35 TB/s) nor the products: one block an SM (the dK and dV
+//   registers of 256 keys fill the register file), the products run in
+//   ~40% of a chunk and the scalar work between them (the softmax
+//   gradient, the delta, the loads' issue) in the rest, so the P and dS
+//   step is branch-free (masks as selects, ex2.approx.ftz, the chunk's
+//   logsumexp and delta read once) and the 32-query loop is not unrolled
+//   (an unrolled copy cost instruction-cache misses: 12%).  197 keys pad
+//   to 256 (wgmma's 64-row M).  An mma.sync version of the same pass
+//   (warps of 16 keys, chunks of 32) measured the same before that step
+//   was rewritten (PERF.md).
+// * mma (every other bf16 call at D = 64: S or T > 256, rows that are not
+//   16-byte aligned, which the wrapper copies first).  Three kernels:
+//   delta (one warp a row), dK/dV (a block per 64-key tile and (batch, kv
+//   head), looping over the R query heads of that kv head and their query
+//   tiles, so GQA's sum over heads stays in registers: deterministic) and
+//   dQ (a block per 64-query tile and (batch, head), looping over the key
+//   tiles: a separate pass, deterministic, no atomics).  Both recompute
+//   S = Q K^T and dP = dO V^T on mma.sync with the forward's fragment
+//   layouts (P and dS rounded to bf16 as A operands from registers, K, Q,
+//   dO and V tiles in padded shared memory, double-buffered by cp.async);
+//   dQ's separate pass costs the recomputation of S and dP again.
+//
+// fp32 (fma_f32) runs the same three passes on FMAs.
 
 struct BwdStrides {
   long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
@@ -1104,6 +1145,389 @@ flash_attention_bwd_dq(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ----------------------------------------------- backward: resident ----
+
+constexpr int R_QC = 64;          // queries a chunk (wgmma's M in dQ)
+constexpr int R_T_MAX = 256;      // keys a block holds, 64 a warpgroup
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// d (64 x 32, fp32) += A (64 x 16, shared, K-major) * B (16 x 32,
+// shared, K-major); descriptors as repro_hopper::gmma_desc builds them
+__device__ __forceinline__ void wgmma_ss32_kk(float (&d)[16], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %18, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers: each warp's 16 rows
+// as the mma.sync m16k16 A fragment) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs64_mn(float (&d)[32],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, shared, MN-major) * B (16 x 64,
+// shared, MN-major); descriptors as repro_hopper::gmma_desc builds them
+__device__ __forceinline__ void wgmma_ss64_mnmn(float (&d)[32], uint64_t da,
+                                      uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 2^x on the special-function unit, denormals flushed (no fix-up path)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows under
+// the 128-byte swizzle (what TMA's SWIZZLE_128B writes and wgmma's layout
+// type 1 reads; tiles 1024-byte aligned)
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Shared memory of the resident kernel with NWG warpgroups (64 keys
+// each): K and V whole, two slots of Q, dO and o chunks, the chunk's dS^T
+// (all swizzled tiles of 128-byte rows), then the chunk's logsumexp and
+// delta.
+template <int NWG>
+struct ResidentSmem {
+  static constexpr int KV = NWG * 64 * 128;
+  static constexpr int CHUNK = R_QC * 128;
+  static constexpr int K_OFF = 0, V_OFF = KV, Q_OFF = 2 * KV;
+  static constexpr int G_OFF = Q_OFF + 2 * CHUNK;
+  static constexpr int O_OFF = G_OFF + 2 * CHUNK;
+  static constexpr int DS_OFF = O_OFF + 2 * CHUNK;
+  static constexpr int L_OFF = DS_OFF + KV;
+  static constexpr int BYTES = L_OFF + 2 * R_QC * 4 + 1024;  // + alignment
+};
+
+// One block per (batch, kv head): all of its keys in one pass.
+// Warpgroup wg owns keys 64 wg .. + 63 and keeps their dK and dV (64 x 64
+// each, fp32) in registers over the R query heads and their chunks of 64
+// queries.  A chunk: its delta from o and dO in shared memory; per half
+// chunk (32 queries) S^T = K Q^T and dP^T = V dO^T once on wgmma (both
+// operands K-major in shared memory), P = exp(S scale - lse) and dS = P
+// (dP - delta) in registers, dV += P^T dO and dK += dS^T Q on wgmma with P
+// and dS as register A operands (dO and Q MN-major), and the warpgroup's
+// rows of dS^T to shared memory as bf16; then dQ = dS K of the chunk over
+// all keys on wgmma (dS^T and K MN-major), by the first warpgroup alone
+// (one accumulator, no partials to add).  The next chunk's Q, dO and o
+// load (cp.async, into the swizzled layout) and its logsumexp (a
+// register) behind the current one.
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+flash_attention_bwd_resident(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ o,
+                             const __nv_bfloat16* __restrict__ dO,
+                             const float* __restrict__ lse,
+                             __nv_bfloat16* __restrict__ dq,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int H, int KH,
+                             int S, int T_len, BwdStrides st, float scale) {
+  using L = ResidentSmem<NWG>;
+  using bf = __nv_bfloat16;
+  using repro_hopper::gmma_desc;
+  constexpr int THREADS = NWG * 128;
+  extern __shared__ unsigned char rs_raw[];
+  unsigned char* sm = rs_raw + ((1024 - (smem_u32(rs_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(sm);
+  float* Ls = reinterpret_cast<float*>(sm + L::L_OFF);     // [R_QC]
+  float* Dl = Ls + R_QC;                                   // [R_QC]
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
+  const int R = H / KH;
+  const int nch = (S + R_QC - 1) / R_QC;
+  const int n_it = R * nch;
+  const int key0 = 64 * wg + 16 * warp + lane / 4;   // keys key0, key0 + 8
+  const bool key_ok[2] = {key0 < T_len, key0 + 8 < T_len};
+  // P = exp(S scale - lse) as 2^(S scale log2e - lse log2e)
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
+  // this thread's dS^T stores: rows key0 + 8i (same swizzle, lane / 4),
+  // 4 bytes at 4 (lane % 4) of the 16-byte chunk of each 8 queries
+  const int xr = (lane / 4) & 7;
+  const uint32_t ds_row = key0 * 128 + 4 * (lane % 4);
+
+  // rows r0 .. r0 + rows - 1 of a (seq, 64) bf16 slab into a swizzled
+  // tile, by threads t0 ..; rows at or past n zero-filled (nothing read)
+  auto load_tile = [&](int off, const bf* base, long long ld, int r0,
+                       int rows, int n, int t0 = 0) {
+    for (int i = tid - t0; i < rows * 8; i += THREADS - t0) {
+      const int r = i / 8, c = i % 8;
+      const bool ok = r0 + r < n;
+      cp_async16(sm + off + swz(r, c),
+                 base + (ok ? (long long)(r0 + r) * ld : 0LL) + c * 8, ok);
+    }
+  };
+  auto load_chunk = [&](int it, int slot, int t0) {
+    const int h = kvh * R + it / nch, q0 = (it % nch) * R_QC;
+    load_tile(L::Q_OFF + slot * L::CHUNK, q + b * st.q[0] + h * st.q[2],
+              st.q[1], q0, R_QC, S, t0);
+    load_tile(L::G_OFF + slot * L::CHUNK, dO + b * st.dO[0] + h * st.dO[2],
+              st.dO[1], q0, R_QC, S, t0);
+    load_tile(L::O_OFF + slot * L::CHUNK, o + b * st.o[0] + h * st.o[2],
+              st.o[1], q0, R_QC, S, t0);
+  };
+  // thread tid < R_QC: the logsumexp of query tid of chunk `it`
+  auto lse_of = [&](int it) {
+    const int h = kvh * R + it / nch, q0 = (it % nch) * R_QC;
+    return q0 + tid < S ? lse[((long long)b * H + h) * S + q0 + tid] : 0.f;
+  };
+  float lse_next = tid < R_QC && n_it > 0 ? lse_of(0) : 0.f;
+  load_tile(L::K_OFF, k + b * st.k[0] + kvh * st.k[2], st.k[1], 0, NWG * 64,
+            T_len);
+  load_tile(L::V_OFF, v + b * st.v[0] + kvh * st.v[2], st.v[1], 0, NWG * 64,
+            T_len);
+  if (n_it > 0) load_chunk(0, 0, 0);
+  cp_async_commit();
+  if (n_it > 1) load_chunk(1, 1, 0);
+  cp_async_commit();
+  // the warps that issue a chunk's loads while the first warpgroup
+  // computes the last chunk's dQ (all of them when there is one)
+  constexpr int PF0 = NWG > 1 ? 128 : 0;
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int slot = it & 1;
+    const int h = kvh * R + it / nch, q0 = (it % nch) * R_QC;
+    cp_async_wait<1>();
+    repro_hopper::fence_async_smem();   // cp.async writes -> wgmma reads
+    __syncthreads();
+    if (tid < R_QC) {
+      Ls[tid] = lse_next;
+      if (it + 1 < n_it) lse_next = lse_of(it + 1);
+    }
+    const uint32_t qa = sb + L::Q_OFF + slot * L::CHUNK;
+    const uint32_t ga = sb + L::G_OFF + slot * L::CHUNK;
+
+    // delta = rowsum(dO o) in fp32: 8 threads a row, a 16-byte chunk each
+    // (dO and o share the swizzle, so their chunks pair up in place)
+    {
+      const unsigned char* gp = sm + L::G_OFF + slot * L::CHUNK;
+      const unsigned char* op = sm + L::O_OFF + slot * L::CHUNK;
+      for (int i = tid; i < R_QC * 8; i += THREADS) {
+        const int r = i / 8, c = i % 8;
+        float gf[8], of[8];
+        unpack8(*reinterpret_cast<const uint4*>(gp + swz(r, c)), gf);
+        unpack8(*reinterpret_cast<const uint4*>(op + swz(r, c)), of);
+        float acc = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(gf[e], of[e], acc);
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (c == 0) Dl[r] = acc;
+      }
+    }
+    __syncthreads();
+
+    const uint32_t ka = sb + L::K_OFF + wg * 64 * 128;
+    const uint32_t va = sb + L::V_OFF + wg * 64 * 128;
+    unsigned char* dsp = sm + L::DS_OFF + ds_row;
+    // one loop body for both halves: the scalar code between the products
+    // is what the kernel's issue slots go to, and an unrolled copy costs
+    // instruction-cache misses
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float s[16], dp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint32_t qb = qa + half * 32 * 128 + ks * 32;
+        const uint32_t gb = ga + half * 32 * 128 + ks * 32;
+        wgmma_ss32_kk(s, gmma_desc(ka + ks * 32, 16, 1024),
+                      gmma_desc(qb, 16, 1024));
+        wgmma_ss32_kk(dp, gmma_desc(va + ks * 32, 16, 1024),
+                      gmma_desc(gb, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      repro_hopper::fence_acc(s);
+      repro_hopper::fence_acc(dp);
+      // register 4j + 2i + e: key key0 + 8i, query c_j + e of the chunk
+      // (c_j = 32 half + 8j + 2 (lane % 4)); the logsumexp and delta of
+      // the thread's 8 queries read once, masks as selects, no branches
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = half * 32 + 8 * j + 2 * (lane % 4);
+        const float2 lv = *reinterpret_cast<const float2*>(Ls + c);
+        const float2 dl = *reinterpret_cast<const float2*>(Dl + c);
+        const float lq[2] = {lv.x * LOG2E, lv.y * LOG2E};
+        const float dq2[2] = {dl.x, dl.y};
+        const bool q_ok[2] = {q0 + c < S, q0 + c + 1 < S};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e;
+            const float ev = ex2_ftz(fmaf(s[x], sl2, -lq[e]));
+            const float pv = key_ok[i] && q_ok[e] ? ev : 0.f;
+            s[x] = pv;
+            dp[x] = pv * (dp[x] - dq2[e]);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              dsp + i * 8 * 128 + (((half * 4 + j) ^ xr) << 4)) =
+              __floats2bfloat162_rn(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1]);
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q: 16 queries a step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[8 * kk], s[8 * kk + 1]),
+            pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+            pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+            pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+        const uint32_t sa[4] = {
+            pack_bf16(dp[8 * kk], dp[8 * kk + 1]),
+            pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]),
+            pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]),
+            pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7])};
+        const uint32_t row = (half * 32 + kk * 16) * 128;
+        wgmma_rs64_mn(dv_acc, pa, gmma_desc(ga + row, 8192, 1024));
+        wgmma_rs64_mn(dk_acc, sa, gmma_desc(qa + row, 8192, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      repro_hopper::fence_acc(dv_acc);
+      repro_hopper::fence_acc(dk_acc);
+    }
+    repro_hopper::fence_async_smem();   // dS^T writes -> wgmma reads
+    __syncthreads();
+    // the slot is free (its delta and products are done): chunk it + 2
+    if (it + 2 < n_it && tid >= PF0) load_chunk(it + 2, slot, PF0);
+    cp_async_commit();
+
+    // dQ = dS K over all keys (dS^T and K MN-major), on the first
+    // warpgroup; the others go on to the next chunk's barrier
+    if (wg == 0) {
+      float dqa[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * NWG; ++ks) {
+        const uint32_t r = ks * 16 * 128;
+        wgmma_ss64_mnmn(dqa, gmma_desc(sb + L::DS_OFF + r, 8192, 1024),
+                        gmma_desc(sb + L::K_OFF + r, 8192, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      repro_hopper::fence_acc(dqa);
+      // register 4j + 2i + e: query 16 warp + lane / 4 + 8i, dim 8j +
+      // 2 (lane % 4) + e
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + 16 * warp + lane / 4 + 8 * i;
+        if (row >= S) continue;
+        bf* qp = dq + b * st.dq[0] + (long long)row * st.dq[1] +
+                 h * st.dq[2] + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(qp + 8 * j) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * i] * scale,
+                                    dqa[4 * j + 2 * i + 1] * scale);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = key0 + 8 * i;
+    if (j >= T_len) continue;
+    bf* kp = dk + b * st.dk[0] + (long long)j * st.dk[1] + kvh * st.dk[2];
+    bf* vp = dv + b * st.dv[0] + (long long)j * st.dv[1] + kvh * st.dv[2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int x = 4 * n + 2 * i, d = 8 * n + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(kp + d) = __floats2bfloat162_rn(
+          dk_acc[x] * scale, dk_acc[x + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vp + d) =
+          __floats2bfloat162_rn(dv_acc[x], dv_acc[x + 1]);
+    }
+  }
+}
+
+template <int NWG>
+int launch_bwd_resident(const void* q, const void* k, const void* v,
+                        const void* o, const void* dO, const float* lse,
+                        void* dq, void* dk, void* dv, int B, int H, int KH,
+                        int S, int T_len, const BwdStrides& st, float scale,
+                        cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  constexpr int bytes = ResidentSmem<NWG>::BYTES;
+  // once per instantiation and process (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_bwd_resident<NWG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  flash_attention_bwd_resident<NWG><<<B * KH, 128 * NWG, bytes, s>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(o),
+      static_cast<const bf*>(dO), lse, static_cast<bf*>(dq),
+      static_cast<bf*>(dk), static_cast<bf*>(dv), H, KH, S, T_len, st,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // fp32 backward on FMAs (the parity path): one thread a row, 32 rows a
 // block, the other side's rows staged in shared memory 32 at a time.
 template <int D>
@@ -1391,4 +1815,39 @@ extern "C" int repro_flash_attention_bwd(
   return launch_bwd<64>(q, k, v, o, dO, static_cast<const float*>(lse),
                         static_cast<float*>(delta), dq, dk, dv, B, H, KH, S,
                         T_len, st, scale, dtype, s);
+}
+
+// The resident backward (bf16, non-causal, D = 64, 1 <= T_len <= 256): one
+// block per (batch, kv head) holding all its keys in ceil(T_len / 64)
+// warpgroups, one pass; q, k, v, o,
+// dO, dq, dk, dv through (batch, seq, head) strides as above (24 in all),
+// rows 16-byte aligned; lse the forward's (B, H, S) fp32 logsumexp.
+// Returns cudaGetLastError() after the launch; -1 for an unsupported D or
+// T_len.
+extern "C" int repro_flash_attention_bwd_resident(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* dq, void* dk, void* dv, int B,
+    int H, int KH, int S, int T_len, int D, const long long* strides,
+    float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdStrides st;
+  long long* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  if (D != 64 || T_len < 1 || T_len > R_T_MAX || S < 1) return -1;
+  const float* l = static_cast<const float*>(lse);
+  switch ((T_len + 63) / 64) {    // warpgroups of 64 keys
+    case 1:
+      return launch_bwd_resident<1>(q, k, v, o, dO, l, dq, dk, dv, B, H, KH,
+                                    S, T_len, st, scale, s);
+    case 2:
+      return launch_bwd_resident<2>(q, k, v, o, dO, l, dq, dk, dv, B, H, KH,
+                                    S, T_len, st, scale, s);
+    case 3:
+      return launch_bwd_resident<3>(q, k, v, o, dO, l, dq, dk, dv, B, H, KH,
+                                    S, T_len, st, scale, s);
+    default:
+      return launch_bwd_resident<4>(q, k, v, o, dO, l, dq, dk, dv, B, H, KH,
+                                    S, T_len, st, scale, s);
+  }
 }

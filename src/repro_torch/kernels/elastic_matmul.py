@@ -8,13 +8,16 @@ read the widths from a device int32[2] (the counterpart of scalar
 prefetch) and the active block of the FULL resident weight through its row
 stride, so no call copies ``w[:k_act, :n_act]``.
 
-Three variants, chosen by :func:`choose_variant` from the call's shape,
+Four variants, chosen by :func:`choose_variant` from the call's shape,
 dtype and strides: ``small_m`` (M <= 16: a weight-streaming split-K
 kernel, bf16 and fp32), ``tma`` (bf16 at larger M: a wgmma GEMM fed by
-TMA) and ``tile`` (the first port's 64x64 tile loop, counted as
-``tile_bf16`` or ``tile_f32``: fp32 at larger M, and bf16 whose bases or
-row strides TMA cannot take).  The source note says what bounds each on
-the H100 and what its design does about it.
+TMA), ``f32_splitk`` (fp32 at larger M with 16-byte loads: the MoE
+router at prefill; a split-K FMA GEMM planned by :func:`f32_splitk_plan`
+to fill the card, its reduce fused by per-tile tickets) and ``tile``
+(the first port's 64x64 tile loop, counted as ``tile_bf16`` or
+``tile_f32``: fp32 rows that forbid 16-byte loads, and bf16 whose bases
+or row strides TMA cannot take).  The source note says what bounds each
+on the H100 and what its design does about it.
 
 ``elastic_matmul`` launches a kernel on CUDA tensors and raises on
 anything it does not take; ``elastic_matmul_plain`` is the same function in
@@ -48,7 +51,7 @@ from repro_torch.kernels import build
 # kernel launches since the last reset (the wrapper adds one per launch),
 # in all and by variant
 launches = 0
-VARIANTS = ("small_m", "tma", "tile_bf16", "tile_f32")
+VARIANTS = ("small_m", "tma", "f32_splitk", "tile_bf16", "tile_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
 # backward launches, by kernel and variant (one a call)
 dgrad_launches = 0
@@ -63,7 +66,17 @@ WGRAD_ROWS_MIN = 256    # fewest rows of M worth a split of their own
 BWD_TMA_TILE = (128, 128)
 WGRAD_TMA_SPLITS_MAX = 14
 TMA_BOX = 64            # rows of a TMA box: wgrad's chunks are whole boxes
-TILE_COUNTERS = 1 << 16  # wgrad's per-tile tickets, per device
+TILE_COUNTERS = 1 << 16  # tma wgrad's and f32_splitk's tickets, per device
+# the f32_splitk kernel's tile rows (it takes either) and columns, rows of
+# K a stage, fewest rows of K worth a split, most splits, and blocks an SM
+# holds at once (f32_splitk_plan; sweep_splits.py times the alternatives,
+# PERF.md)
+F32_SPLITK_BMS = (64, 128)
+F32_SPLITK_BN = 64
+F32_SPLITK_BK = 16
+F32_SPLITK_KC_MIN = 128
+F32_SPLITK_SPLITS_MAX = 16
+F32_SPLITK_BLOCKS_PER_SM = 2
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -77,6 +90,7 @@ _ARGTYPES = {
     "repro_elastic_matmul": [_P] * 4 + [_I] * 6 + [_P],
     "repro_elastic_matmul_small_m": [_P] * 5 + [_I] * 10 + [_P],
     "repro_elastic_matmul_tma": [_P] * 4 + [_I] * 9 + [_P],
+    "repro_elastic_matmul_f32_splitk": [_P] * 6 + [_I] * 10 + [_P],
     "repro_elastic_matmul_dgrad": [_P] * 4 + [_I] * 7 + [_P],
     "repro_elastic_matmul_wgrad": [_P] * 5 + [_I] * 11 + [_P],
     "repro_elastic_matmul_dgrad_tma": [_P] * 4 + [_I] * 7 + [_P],
@@ -100,10 +114,13 @@ def choose_variant(M: int, k_act: int, n_act: int, dtype: torch.dtype,
                    ldx: int, ldw: int, aligned: bool) -> str:
     """The kernel a call goes to.  ``ldx``/``ldw`` are the row strides in
     elements, ``aligned`` whether x's and w's bases are 16-byte aligned
-    (TMA needs both, and row strides that are multiples of 16 bytes)."""
+    (TMA and f32_splitk's 16-byte loads need both, and row strides that
+    are multiples of 16 bytes)."""
     if M <= SMALL_M_MAX:
         return "small_m"
     if dtype != torch.bfloat16:
+        if aligned and ldx % 4 == 0 and ldw % 4 == 0:
+            return "f32_splitk"
         return "tile_f32"
     if aligned and ldx % 8 == 0 and ldw % 8 == 0 and k_act >= 1 \
             and n_act >= 1:
@@ -141,6 +158,27 @@ def small_m_plan(k_act: int, n_act: int, elem_bytes: int,
     kc = _cdiv(_cdiv(k_act, splits), rows_at_once) * rows_at_once
     kc = min(kc, SMALL_M_KC_MAX)
     return _cdiv(k_act, kc), kc
+
+
+def f32_splitk_plan(M: int, k_act: int, n_act: int, sms: int = SMS
+                    ) -> tuple:
+    """(tile rows, splits, rows of K per split) of the f32_splitk kernel.
+    Tiles of 128 x 64 when they alone give every SM a block, else 64 x 64
+    (the router's prefill, M = 2048 x 64 experts: 32 tiles); then as many
+    splits of K as fill the SMs at two (tile, split) blocks each (the
+    router: 8 splits, 256 blocks), no split under 128 rows of K and no
+    more than 16 (the last block of a tile reads every split's partial
+    back alone); rows per split a multiple of the 16 a stage holds, the
+    splits covering k_act exactly once."""
+    tn = max(1, _cdiv(n_act, F32_SPLITK_BN))
+    bm = 128 if _cdiv(max(M, 1), 128) * tn >= sms else 64
+    if k_act <= 0:
+        return bm, 1, F32_SPLITK_BK
+    tiles = _cdiv(max(M, 1), bm) * tn
+    splits = max(1, min(F32_SPLITK_BLOCKS_PER_SM * sms // tiles,
+                        k_act // F32_SPLITK_KC_MIN, F32_SPLITK_SPLITS_MAX))
+    kc = _cdiv(_cdiv(k_act, splits), F32_SPLITK_BK) * F32_SPLITK_BK
+    return bm, _cdiv(k_act, kc), kc
 
 
 def _row_stride(t: torch.Tensor) -> int:
@@ -202,6 +240,20 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
             x.data_ptr(), w.data_ptr(), y.data_ptr(),
             None if ws is None else ws.data_ptr(), widths.data_ptr(), M, ldx,
             ldw, n_out, n_out, n_act, splits, kc, int(vec_ok), code, stream)
+    elif variant == "f32_splitk":
+        bm, splits, kc = f32_splitk_plan(M, k_act, n_act)
+        bn = F32_SPLITK_BN
+        tiles = _cdiv(M, bm) * _cdiv(n_act, bn)
+        if splits > 1 and tiles > TILE_COUNTERS:
+            raise ValueError(f"f32_splitk: {tiles} tiles, more than the "
+                             f"{TILE_COUNTERS} counters")
+        ws = None if splits == 1 else torch.empty(
+            (splits, tiles, bm * bn), dtype=torch.float32, device=dev)
+        rc = _launcher("repro_elastic_matmul_f32_splitk")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            tile_counters(dev).data_ptr(), widths.data_ptr(), M, ldx, ldw,
+            n_out, n_out, k_act, n_act, bm, splits, kc, stream)
     elif variant == "tma":
         rc = _launcher("repro_elastic_matmul_tma")(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), widths.data_ptr(), M,
@@ -329,10 +381,10 @@ _counters_lock = threading.Lock()
 
 
 def tile_counters(device: torch.device) -> torch.Tensor:
-    """The tma wgrad kernel's per-tile tickets on ``device``: int32 zeros,
-    allocated once (the kernel leaves them at 0) and never replaced, so a
-    CUDA graph that captured a call keeps a valid pointer.  Calls that use
-    them must not overlap on two streams."""
+    """The per-tile tickets of the tma wgrad and f32_splitk kernels on
+    ``device``: int32 zeros, allocated once (each kernel leaves them at 0)
+    and never replaced, so a CUDA graph that captured a call keeps a valid
+    pointer.  Calls that use them must not overlap on two streams."""
     with _counters_lock:
         t = _counters.get(device)
         if t is None:

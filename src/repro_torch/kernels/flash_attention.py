@@ -24,11 +24,16 @@ Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
 the backward reads.
 
 The backward (the reference has none: JAX differentiates through XLA)
-is ``flash_attention_bwd``, FlashAttention-2's on the card (a delta
-pre-pass, then dK/dV and dQ in two deterministic passes), non-causal at
-D = 64, bf16 on mma.sync (``mma``) and fp32 on FMAs (``fma_f32``); any
-other case raises ``NotImplementedError`` (causal and D = 128 come with
-LM training).  ``flash_attention_bwd_plain`` is the same gradient as
+is ``flash_attention_bwd``, non-causal at D = 64, in three variants
+chosen by :func:`choose_bwd_variant` from shapes and strides:
+``resident`` (bf16 with S, T <= 256 and 16-byte-aligned rows, the
+sandwich step's S = T = 197: one block per (batch, kv head) holds its
+keys and makes one pass on wgmma, each input read once, dQ from dS in
+the same block), ``mma`` (other bf16: FlashAttention-2's delta pre-pass,
+then dK/dV and dQ in two deterministic passes on mma.sync) and
+``fma_f32`` (fp32 on FMAs); any other case raises
+``NotImplementedError`` (causal and D = 128 come with LM training).
+``flash_attention_bwd_plain`` is the same gradient as
 explicit formulas, for CPU tensors and to hold the kernel against.
 """
 from __future__ import annotations
@@ -48,9 +53,10 @@ VARIANTS = ("mma", "decode", "fma_bf16", "fma_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
 # backward launches (one a call: the delta, dK/dV and dQ kernels)
 bwd_launches = 0
-BWD_VARIANTS = ("mma", "fma_f32")
+BWD_VARIANTS = ("resident", "mma", "fma_f32")
 bwd_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 BWD_HEAD_DIMS = (64,)
+RESIDENT_MAX = 256      # queries and keys of a head the resident kernel takes
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 64, 128)  # ViTs (64), their smoke configs, LMs (128)
@@ -71,6 +77,8 @@ _ARGTYPES = {
                                                          _P],
     "repro_flash_attention_decode": [_P] * 5 + [_I] * 5 + [_STRIDES, _F, _I,
                                                            _I, _P],
+    "repro_flash_attention_bwd_resident": [_P] * 9 + [_I] * 6 + [_STRIDES,
+                                                                 _F, _P],
 }
 
 
@@ -224,6 +232,27 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     return s
 
 
+def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
+                       causal: bool, aligned: bool) -> str:
+    """The backward kernel a call goes to; raises ``NotImplementedError``
+    for what no kernel takes (causal, D other than 64).  ``aligned``
+    whether every q, k, v, o, dO base and (batch, seq, head) stride is a
+    multiple of 16 bytes.  ``resident`` holds a head's keys in shared
+    memory (T <= 256) and walks its queries serially in one block per
+    (batch, kv head): past 256 queries the two-pass ``mma``, whose grid
+    also runs over query tiles, spreads the work wider."""
+    if causal or D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward: causal={causal}, D={D}; the kernel "
+            f"takes non-causal D = 64 (causal and D = 128 come with LM "
+            f"training)")
+    if dtype != torch.bfloat16:
+        return "fma_f32"
+    if aligned and 1 <= S <= RESIDENT_MAX and 1 <= T <= RESIDENT_MAX:
+        return "resident"
+    return "mma"
+
+
 def check_bwd_args(q, k, v, o, do) -> None:
     check_args(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
@@ -244,11 +273,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_bwd_args(q, k, v, o, do)
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
-    if causal or D not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention backward: causal={causal}, D={D}; the kernel "
-            f"takes non-causal D = 64 (causal and D = 128 come with LM "
-            f"training)")
+    variant = choose_bwd_variant(
+        S, T, D, q.dtype, causal,
+        all(t.stride(3) == 1 for t in (q, k, v, o, do))
+        and _aligned(q, k, v, o, do))
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, o, do,
                                                            lse)):
@@ -265,16 +293,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((B, T, KH, D), dtype=q.dtype, device=dev)
     if B * H * S == 0 or T == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
-    variant = "mma" if q.dtype == torch.bfloat16 else "fma_f32"
-    rc = _launcher("repro_flash_attention_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T, D, strides,
-        1.0 / math.sqrt(D), DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if variant == "resident":
+        rc = _launcher("repro_flash_attention_bwd_resident")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, KH, S, T, D, strides, 1.0 / math.sqrt(D),
+            stream)
+    else:
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        rc = _launcher("repro_flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T, D, strides,
+            1.0 / math.sqrt(D), DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward ({variant}) launch "
                            f"failed (CUDA error {rc})")

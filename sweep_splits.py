@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Sweep the split plans of K1's small_m, K2's decode and K3's stream
-variants, and the tiles and split plans of K1's tma backward, on the card.
+"""Sweep the split plans of K1's small_m, f32_splitk, K2's decode and K3's
+stream variants, and the tiles and split plans of K1's tma backward, on
+the card.
 
     python3 sweep_splits.py      # from the repository root, one CUDA card
     python3 sweep_splits.py --backward   # K1's tma dgrad and wgrad only
+    python3 sweep_splits.py --router     # K1's f32_splitk only
 
 Times each variant's C launcher at the LM's shapes under every split of K
 (K1 at M = 4: K chunks of 64-512 rows; K3 at C = 4 with 24 live experts of
@@ -18,8 +20,12 @@ sandwich step's shapes (M = 50,432 token rows, the supernet's full
 weights and masked widths): wgrad's tma launcher at split counts up to
 two waves of (tile, split) blocks, beside the plan ``wgrad_tma_plan``
 chooses; dgrad's tma kernel; each beside the ``wmma_bf16`` kernel
-before it, ``torch.matmul`` and the bound.  It checks no result: ``chip_smoke.py``
-holds the kernels against their plain versions.
+before it, ``torch.matmul`` and the bound.  K1's f32_splitk at the fp32
+MoE router's prefill shape (M = 2048 tokens, K = 2048, 64 experts, n_act
+64 and 32): both tile heights at 1 to 16 splits of K, beside the plan
+``f32_splitk_plan`` chooses, the tile loop it replaced, ``torch.matmul``
+in fp32 (TF32 off) and the bound.  It checks no result:
+``chip_smoke.py`` holds the kernels against their plain versions.
 """
 from __future__ import annotations
 
@@ -126,6 +132,62 @@ def k3_stream_splits(cs, dev, g, K: int, F: int) -> None:
     print(f"K3 stream E=64 C=4 K={K} F={F} 24 live: " + ", ".join(out)
           + f"; plan {xm.stream_plan(64, 4, K, F)}; bmm "
           f"{lib / REPS * 1e3:.2f} us; bound {bound * 1e3:.2f} us")
+
+
+def k1_router_splits(cs, dev, g, M: int = 2048, K: int = 2048,
+                     N: int = 64) -> None:
+    """K1 f32_splitk at the router's shape: us per call of its launcher at
+    each tile height and split count, beside the wrapper's plan, the tile
+    loop (``tile_f32``), ``torch.matmul`` and the bound (operations at
+    67 TFLOP/s fp32)."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+    x = torch.randn(M, K, device=dev, generator=g)
+    w = torch.randn(K, N, device=dev, generator=g) / K ** 0.5
+    y = torch.empty(M, N, device=dev)
+    cnt = em.tile_counters(dev)
+    fn = em._launcher("repro_elastic_matmul_f32_splitk")
+    tile = em._launcher("repro_elastic_matmul")
+
+    def stream():       # the capturing stream inside graph_time_ms
+        return torch.cuda.current_stream().cuda_stream
+
+    def per_call(go):
+        return cs.graph_time_ms(lambda: [go() for _ in range(REPS)])[0] \
+            / REPS * 1e3
+    for n_act in (N, N // 2):
+        wd = ops.widths_tensor(dev, K, n_act)
+        out = []
+        for bm in em.F32_SPLITK_BMS:
+            tiles = math.ceil(M / bm) * math.ceil(n_act / em.F32_SPLITK_BN)
+            for splits in (1, 2, 4, 6, 8, 12, 16):
+                kc = math.ceil(math.ceil(K / splits) / em.F32_SPLITK_BK) \
+                    * em.F32_SPLITK_BK
+                sp = math.ceil(K / kc)
+                ws = torch.empty(sp, tiles, bm * em.F32_SPLITK_BN,
+                                 device=dev)
+
+                def go(bm=bm, sp=sp, kc=kc, ws=ws):
+                    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                            ws.data_ptr(), cnt.data_ptr(), wd.data_ptr(), M,
+                            K, N, N, N, K, n_act, bm, sp, kc, stream())
+                    if rc != 0:
+                        raise RuntimeError(f"f32_splitk launch failed "
+                                           f"({rc})")
+                out.append(f"{bm}x{em.F32_SPLITK_BN} {sp}x{kc}: "
+                           f"{per_call(go):.2f} us")
+        old = per_call(lambda: tile(x.data_ptr(), w.data_ptr(),
+                                    y.data_ptr(), wd.data_ptr(), M, K, N, N,
+                                    N, 0, stream()))
+        plan = per_call(lambda: ops.elastic_matmul_op(x, w, K, n_act))
+        lib = per_call(lambda: torch.matmul(x, w[:, :n_act]))
+        bound = cs.kernel_bound_ms(*cs.k1_work((x, w, K, n_act), {}))[0]
+        print(f"K1 f32_splitk M={M} K={K} n_act={n_act}: " + ", ".join(out)
+              + f"; plan {em.f32_splitk_plan(M, K, n_act)} {plan:.2f} us; "
+              f"tile_f32 {old:.2f} us; matmul {lib:.2f} us; bound "
+              f"{bound * 1e3:.2f} us", flush=True)
 
 
 def _wgrad_tma(cs, dev, x, dy, K, N, splits):
@@ -268,7 +330,12 @@ def main() -> int:
     build.build()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():
+        if "--backward" not in sys.argv[1:]:
+            k1_router_splits(cs, dev, g)
+            if "--router" in sys.argv[1:]:
+                return 0
         k1_backward(cs, dev, g)
         if "--backward" in sys.argv[1:]:
             return 0

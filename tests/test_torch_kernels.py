@@ -180,7 +180,12 @@ def test_flash_attention_rejects_bad_args():
     (2048, 128, 256, torch.bfloat16, 128, 388, True, "tile_bf16"),
     (2048, 128, 256, torch.bfloat16, 128, 384, False, "tile_bf16"),
     (2048, 0, 256, torch.bfloat16, 128, 384, True, "tile_bf16"),
-    (2048, 2048, 64, torch.float32, 2048, 64, True, "tile_f32"),
+    (2048, 2048, 64, torch.float32, 2048, 64, True, "f32_splitk"),  # router
+    (2048, 2048, 32, torch.float32, 2048, 64, True, "f32_splitk"),
+    (17, 2048, 64, torch.float32, 2048, 64, True, "f32_splitk"),
+    (2048, 2048, 64, torch.float32, 2050, 64, True, "tile_f32"),   # ldx
+    (2048, 2048, 64, torch.float32, 2048, 66, True, "tile_f32"),   # ldw
+    (2048, 2048, 64, torch.float32, 2048, 64, False, "tile_f32"),  # base
 ])
 def test_elastic_matmul_variant_choice(M, k_act, n_act, dtype, ldx, ldw,
                                        aligned, want):
@@ -218,6 +223,87 @@ def test_small_m_plan(k_act, n_act, elem, want):
     assert (splits, kc) == want
     assert kc <= em.SMALL_M_KC_MAX and splits * kc >= k_act
     assert (splits - 1) * kc < max(k_act, 1)      # no empty split
+
+
+@pytest.mark.parametrize("M,k_act,n_act,want", [
+    (2048, 2048, 64, (64, 8, 256)),   # the router at prefill: 256 blocks
+    (2048, 2048, 32, (64, 8, 256)),   # at the half-expert points
+    (17, 2048, 63, (64, 16, 128)),    # one tile: 16 splits, capped
+    (4096, 2048, 64, (64, 4, 512)),   # 64 tiles
+    (1576, 384, 1536, (128, 1, 384)),  # 312 tiles: more than 2 an SM
+    (64, 17, 96, (64, 1, 32)),        # k_act under the 128 a split takes
+    (2048, 2000, 64, (64, 8, 256)),   # 8 splits of 250 -> of 256
+    (2048, 0, 64, (64, 1, 16)),
+])
+def test_f32_splitk_plan(M, k_act, n_act, want):
+    """f32_splitk's tile and split of K: rows per split a multiple of the
+    16 a stage holds, the splits covering k_act exactly once, none under
+    128 rows, at most 16, and (tile, split) blocks that fill at least one
+    wave of 132 SMs at the router's prefill shape."""
+    bm, splits, kc = em.f32_splitk_plan(M, k_act, n_act)
+    assert (bm, splits, kc) == want
+    assert bm in em.F32_SPLITK_BMS
+    assert kc % em.F32_SPLITK_BK == 0
+    assert (splits - 1) * kc < max(k_act, 1) <= splits * kc or k_act == 0
+    assert splits <= em.F32_SPLITK_SPLITS_MAX
+    assert splits == 1 or kc >= em.F32_SPLITK_KC_MIN
+    bn = em.F32_SPLITK_BN
+    tiles = -(-M // bm) * max(1, -(-n_act // bn))
+    assert tiles * splits <= em.F32_SPLITK_BLOCKS_PER_SM * em.SMS \
+        or splits == 1
+    if (M, k_act) == (2048, 2048):
+        assert tiles * splits >= em.SMS
+
+
+def test_router_shapes_take_f32_splitk_at_prefill_and_small_m_at_decode():
+    """The fp32 MoE router (d_model 2048 -> 64 experts) at prefill (4 x 512
+    tokens) goes to f32_splitk, at decode (M = 4) to small_m."""
+    for M, want in ((2048, "f32_splitk"), (4, "small_m")):
+        assert em.choose_variant(M, 2048, 64, torch.float32, 2048, 64,
+                                 True) == want
+
+
+@pytest.mark.parametrize("S,T,D,dtype,causal,aligned,want", [
+    (197, 197, 64, torch.bfloat16, False, True, "resident"),  # sandwich step
+    (1, 1, 64, torch.bfloat16, False, True, "resident"),
+    (256, 256, 64, torch.bfloat16, False, True, "resident"),
+    (65, 77, 64, torch.bfloat16, False, True, "resident"),
+    (197, 197, 64, torch.bfloat16, False, False, "mma"),  # rows off 16 B
+    (577, 577, 64, torch.bfloat16, False, True, "mma"),        # ViT at 336 px
+    (257, 100, 64, torch.bfloat16, False, True, "mma"),
+    (100, 300, 64, torch.bfloat16, False, True, "mma"),        # keys past 256
+    (197, 197, 64, torch.float32, False, True, "fma_f32"),
+    (577, 577, 64, torch.float32, False, True, "fma_f32"),
+])
+def test_flash_attention_bwd_variant_choice(S, T, D, dtype, causal, aligned,
+                                            want):
+    assert fa.choose_bwd_variant(S, T, D, dtype, causal, aligned) == want
+
+
+@pytest.mark.parametrize("S,T,D,causal", [
+    (197, 197, 64, True), (512, 512, 128, True), (197, 197, 128, False),
+    (17, 17, 16, False)])
+def test_flash_attention_bwd_variant_choice_refuses(S, T, D, causal):
+    """Causal and D other than 64 raise whatever the dtype: no variant
+    takes them (they come with LM training)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(NotImplementedError):
+            fa.choose_bwd_variant(S, T, D, dtype, causal, True)
+
+
+def test_new_kernels_match_their_source_constants():
+    """The wrappers' plans and limits agree with the constants the CUDA
+    sources were written for (no nvcc here: read as text)."""
+    k1 = (build.CSRC / "elastic_matmul.cu").read_text()
+    for decl in (f"SK_BN = {em.F32_SPLITK_BN};",
+                 f"SK_BK = {em.F32_SPLITK_BK};",
+                 f"__launch_bounds__(SK_THREADS, "
+                 f"{em.F32_SPLITK_BLOCKS_PER_SM})",
+                 *(f"if (bm == {bm}) return go(launch_f32_splitk<{bm}>);"
+                   for bm in em.F32_SPLITK_BMS)):
+        assert decl in k1, decl
+    k2 = (build.CSRC / "flash_attention.cu").read_text()
+    assert f"R_T_MAX = {fa.RESIDENT_MAX};" in k2
 
 
 @pytest.mark.parametrize("S,T,H,KH,D,dtype,aligned,want", [
@@ -375,11 +461,17 @@ def test_expert_matmul_kernel_entry_takes_only_cuda():
 
 def test_variant_counts_cover_every_kernel_with_variants():
     xm.variant_launches["stream"] += 3
+    em.variant_launches["f32_splitk"] += 2
+    fa.bwd_variant_launches["resident"] += 1
     assert ops.variant_counts()["expert_matmul"]["stream"] >= 3
+    assert ops.variant_counts()["elastic_matmul"]["f32_splitk"] >= 2
+    assert ops.variant_counts()["flash_attention_bwd"]["resident"] >= 1
     ops.reset_launch_counts()
     for per in ops.variant_counts().values():
         assert set(per.values()) == {0}
     assert set(ops.variant_counts()["expert_matmul"]) == set(xm.VARIANTS)
+    assert set(ops.variant_counts()["elastic_matmul"]) == set(em.VARIANTS) \
+        == {"small_m", "tma", "f32_splitk", "tile_bf16", "tile_f32"}
 
 
 def test_attention_alignment_ignores_size_one_dims():
@@ -854,7 +946,7 @@ def test_launch_counts_cover_the_backward_kernels():
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.variant_counts()["flash_attention_bwd"]) == \
-        set(fa.BWD_VARIANTS)
+        set(fa.BWD_VARIANTS) == {"resident", "mma", "fma_f32"}
     assert set(ops.variant_counts()["elastic_matmul_wgrad"]) == \
         {"tma", "wmma_bf16", "fma_f32"}
 
@@ -968,3 +1060,112 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, S, H, KH):
     torch.testing.assert_close(lse, lse_p, rtol=1e-3, atol=1e-3)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+# --- the fp32 router's split-K kernel and K2's resident backward ------------
+
+def _graph_replays_equal(fn, first):
+    """Capture fn() in a CUDA graph, replay it 3 times over NaN-filled
+    outputs, and check each replay equals ``first`` bit for bit."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    outs = out if isinstance(out, tuple) else (out,)
+    firsts = first if isinstance(first, tuple) else (first,)
+    for _ in range(3):
+        for t in outs:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, firsts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [17, 64, 129, 2048])
+@pytest.mark.parametrize("n_act", [64, 63, 32, 1])
+def test_cuda_f32_splitk_matches_plain(cuda, M, n_act):
+    """f32_splitk at the fp32 MoE router's shape (K = d_model 2048, 64
+    experts) against the plain version: one launch on f32_splitk, fp32
+    tolerance, exact zeros past n_act."""
+    g = torch.Generator().manual_seed(M + n_act)
+    x = torch.randn(M, 2048, generator=g).to(cuda)
+    w = (torch.randn(2048, 64, generator=g) / 2048 ** 0.5).to(cuda)
+    before = em.variant_launches["f32_splitk"]
+    y = ops.elastic_matmul_op(x, w, 2048, n_act, n_out=64)
+    torch.cuda.synchronize()
+    assert em.variant_launches["f32_splitk"] - before == 1
+    want = em.elastic_matmul_plain(x, w, 2048, n_act, 64)
+    torch.testing.assert_close(y, want, rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    assert torch.all(y[:, n_act:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,k_act", [(2048, 2048), (300, 509)])
+def test_cuda_f32_splitk_is_deterministic_and_replays_in_a_graph(cuda, M,
+                                                                 k_act):
+    """The fused split-K reduce adds the partials in split order: two
+    calls agree bit for bit; it resets its tile counters: 3 replays of a
+    captured call give the eager result."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(M, 2048, generator=g).to(cuda)
+    w = (torch.randn(2048, 64, generator=g) / 2048 ** 0.5).to(cuda)
+    assert em.f32_splitk_plan(M, k_act, 64)[1] > 1
+    a = ops.elastic_matmul_op(x, w, k_act, 64)
+    b = ops.elastic_matmul_op(x, w, k_act, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _graph_replays_equal(lambda: ops.elastic_matmul_op(x, w, k_act, 64), a)
+
+
+def _k2_bwd_case(cuda, B, S, T, H, KH, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.randn(B, S, H, 64, generator=g) * 0.5).to(cuda, _BF)
+    k = (torch.randn(B, T, KH, 64, generator=g) * 0.5).to(cuda, _BF)
+    v = torch.randn(B, T, KH, 64, generator=g).to(cuda, _BF)
+    do = torch.randn(B, S, H, 64, generator=g).to(cuda, _BF)
+    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KH,want", [
+    (8, 197, 197, 6, 6, "resident"),    # the sandwich step's heads
+    (4, 100, 77, 4, 2, "resident"),     # T off the 16 and 64 grids, GQA 2
+    (4, 40, 50, 4, 4, "resident"),      # one warpgroup of keys
+    (4, 150, 150, 6, 3, "resident"),    # GQA R = 2, three warpgroups
+    (2, 256, 230, 4, 4, "resident"),
+    (2, 300, 300, 4, 2, "mma"),         # past the resident limit
+])
+def test_cuda_flash_attention_backward_resident_matches_plain(
+        cuda, B, S, T, H, KH, want):
+    """K2's backward on the variant the shape takes against the plain
+    version, bf16 tolerance, each gradient also within tol of its
+    largest value (a kernel writing zeros fails)."""
+    q, k, v, o, lse, do = _k2_bwd_case(cuda, B, S, T, H, KH, S + T)
+    before = dict(fa.bwd_variant_launches)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    took = {n: c - before[n] for n, c in fa.bwd_variant_launches.items()
+            if c != before[n]}
+    assert took == {want: 1}
+    want_g = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=False)
+    for a, b in zip(got, want_g):
+        a, b = a.float(), b.float()
+        torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
+        assert float((a - b).abs().max()) <= 3e-2 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH", [(6, 6), (6, 2)])
+def test_cuda_resident_backward_is_deterministic_and_replays_in_a_graph(
+        cuda, H, KH):
+    """No atomics: two calls agree bit for bit, and 3 replays of a
+    captured call give the eager result."""
+    q, k, v, o, lse, do = _k2_bwd_case(cuda, 8, 197, 197, H, KH, 11)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _graph_replays_equal(lambda: fa.flash_attention_bwd(
+        q, k, v, o, lse, do, causal=False), a)
