@@ -64,15 +64,16 @@
 //   8 us (its bytes take 5 us).  The products stay exact fp32 FMAs: TF32
 //   would flip near-ties in the top-6 routing.  The tile loop gave this
 //   shape 32 blocks of 64 x 64 on 132 SMs, each walking K = 2048 with no
-//   load in flight behind its FMAs.  Here a block computes a 128 x 64
-//   tile over one split of K: 128 threads, each an 8 x 8 register
-//   micro-tile (16 16-byte shared loads, free of bank conflicts, feed
-//   256 FMAs), x and w staged
+//   load in flight behind its FMAs.  Here a block computes a 64 x 64
+//   tile over one split of K: 128 threads, each a 4 x 8 register
+//   micro-tile (12 16-byte shared loads, free of bank conflicts, feed
+//   128 FMAs), x and w staged
 //   16 rows of K at a time through a 4-stage cp.async ring whose zero
 //   fill masks the K tail, the M edge and the columns past n_act.  K is
 //   split so that the (tile, split) blocks fill the card at two blocks an
-//   SM (f32_splitk_plan on the host: 16 splits of 128 rows at the
-//   router's shape; sweep_splits.py times the alternatives), and the
+//   SM (f32_splitk_plan on the host: 8 splits of 256 rows over the 32
+//   tiles at the router's shape, 256 blocks; sweep_splits.py times the
+//   alternatives), and the
 //   reduce is fused as in the tma wgrad below: each split writes its fp32
 //   partial and draws a ticket from the tile's counter, the last block
 //   adds the partials in split order (bit-for-bit repeatable), stores y
@@ -1134,22 +1135,19 @@ __global__ void wgrad_reduce(const float* __restrict__ ws, T* __restrict__ dw,
 
 // ---------------------------------------------------------- f32_splitk ----
 
-// output tile rows BM (64 or 128, a template argument) x SK_BN columns
+constexpr int SK_BM = 64;            // output tile rows
 constexpr int SK_BN = 64;            // output tile columns
 constexpr int SK_BK = 16;            // rows of K a stage
 constexpr int SK_STAGES = 4;         // the cp.async ring
-constexpr int SK_THREADS = 128;      // 16 x 8 threads, BM / 16 x 8 each
+constexpr int SK_THREADS = 128;      // 16 x 8 threads, 4 x 8 outputs each
+constexpr int SK_TM = SK_BM / 16;    // rows a thread
 constexpr int SK_LDA = SK_BK + 4;    // x tile row stride (floats)
-template <int BM>
-struct SplitkTile {
-  static constexpr int TM = BM / 16;                       // rows a thread
-  static constexpr int STAGE = BM * SK_LDA + SK_BK * SK_BN;  // floats
-  static constexpr int SMEM = SK_STAGES * STAGE * 4;  // 57,344 at BM 128
-  static constexpr int TILE = BM * SK_BN;
-};
+constexpr int SK_STAGE = SK_BM * SK_LDA + SK_BK * SK_BN;  // floats
+constexpr int SK_SMEM = SK_STAGES * SK_STAGE * 4;         // 36,864 bytes
+constexpr int SK_TILE = SK_BM * SK_BN;
 
 // y (M x n_out, ldy apart) = x[:, :k_act] w[:k_act, :n_act], zeros past
-// n_act, in fp32 on FMAs.  The live tiles (tiles_m x tiles_n of BM x 64)
+// n_act, in fp32 on FMAs.  The live tiles (tiles_m x tiles_n of 64 x 64)
 // times `splits` chunks of `kc` rows of K: blocks 0 .. live * splits - 1
 // each compute one (tile, split), the tiles of a split side by side (they
 // share its rows of w in L2).  With one split a block stores its tile;
@@ -1158,16 +1156,12 @@ struct SplitkTile {
 // partials in split order (deterministic), stores y and resets the
 // counter for the next call (a CUDA graph replays it).  The blocks after
 // those store the zeros of the column tiles past n_act.
-template <int BM>
 __global__ void __launch_bounds__(SK_THREADS, 2)
 f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ y, float* __restrict__ ws,
                   int* __restrict__ counters, const int* __restrict__ widths,
                   int M, int ldx, int ldw, int ldy, int n_out, int tiles_m,
                   int tiles_n, int splits, int kc) {
-  using P = SplitkTile<BM>;
-  constexpr int TM = P::TM, SK_STAGE = P::STAGE, SK_TILE = P::TILE;
-  constexpr int SK_BM = BM;
   extern __shared__ __align__(16) float sk_smem[];
   const int k_act = widths[0], n_act = widths[1];
   const int tid = threadIdx.x;
@@ -1193,8 +1187,8 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // distinct bank groups and its loads of w rows 128 contiguous bytes
   const int tx = tid % 8, ty = tid / 8;
 
-  // stage t of this split into ring slot `slot`: x as [128][SK_LDA]
-  // (four 16-byte chunks a thread), w as [16][64] (two); zero fill past
+  // stage t of this split into ring slot `slot`: x as [64][SK_LDA]
+  // (two 16-byte chunks a thread), w as [16][64] (two); zero fill past
   // M, past ke and past n_act, so nothing outside them is read
   auto load = [&](int t, int slot) {
     float* As = sk_smem + slot * SK_STAGE;
@@ -1220,9 +1214,9 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   };
 
-  float acc[TM][8];
+  float acc[SK_TM][8];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < SK_TM; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 #pragma unroll
@@ -1240,9 +1234,9 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* Bs = As + SK_BM * SK_LDA;
 #pragma unroll
     for (int k4 = 0; k4 < SK_BK; k4 += 4) {
-      float4 a[TM];
+      float4 a[SK_TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < SK_TM; ++i)
         a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * SK_LDA
                                                 + k4);
 #pragma unroll
@@ -1252,7 +1246,7 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const float4 b1 = *reinterpret_cast<const float4*>(br + 32);
         const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
+        for (int i = 0; i < SK_TM; ++i) {
           const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
                          : kk == 2 ? a[i].z : a[i].w;
 #pragma unroll
@@ -1280,7 +1274,7 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
   };
   if (splits == 1) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < SK_TM; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         store4(m0 + ty + 16 * i, n0 + tx * 4 + 32 * h,
@@ -1290,7 +1284,7 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   float* part = ws + ((size_t)split * live + tile) * SK_TILE;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < SK_TM; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<float4*>(part + (ty + 16 * i) * SK_BN + tx * 4 +
@@ -1327,26 +1321,24 @@ f32_splitk_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (tid == 0) counters[tile] = 0;
 }
 
-template <int BM>
 int launch_f32_splitk(const float* x, const float* w, float* y, float* ws,
                       int* counters, const int* widths, int M, int ldx,
                       int ldw, int ldy, int n_out, int k_act, int n_act,
                       int splits, int kc, cudaStream_t s) {
-  using P = SplitkTile<BM>;
   if (kc % SK_BK || splits < 1 || (long long)splits * kc < k_act ||
       n_act > n_out || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return -1;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      f32_splitk_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::SMEM);
+      f32_splitk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SK_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_m = (M + SK_BM - 1) / SK_BM;
   const int tiles_n = (n_act + SK_BN - 1) / SK_BN;
   const int all_n = (n_out + SK_BN - 1) / SK_BN;
   const long long blocks = (long long)tiles_m * tiles_n * splits +
                            (long long)tiles_m * (all_n - tiles_n);
   if (blocks == 0) return 0;
-  f32_splitk_kernel<BM><<<(unsigned)blocks, SK_THREADS, P::SMEM, s>>>(
+  f32_splitk_kernel<<<(unsigned)blocks, SK_THREADS, SK_SMEM, s>>>(
       x, w, y, ws, counters, widths, M, ldx, ldw, ldy, n_out, tiles_m,
       tiles_n, splits, kc);
   return static_cast<int>(cudaGetLastError());
@@ -1549,25 +1541,19 @@ extern "C" int repro_elastic_matmul_wgrad_tma(
 // ldw apart) with 16-byte-aligned bases and row strides (ldx, ldw
 // multiples of 4), y M x n_out (ldy apart).  k_act and n_act <= n_out are
 // the host's copy of the widths, which set the tiles and the plan; tiles
-// of bm (64 or 128) x 64; K is split into `splits` chunks of `kc` rows (a
-// multiple of 16) that cover k_act; `ws` an fp32 workspace of splits x
-// live tiles x bm x 64 and
-// `counters` an int32 per live tile (0 before the call, left 0 after it)
-// when splits > 1.  Returns cudaGetLastError() after the launch; -1 for
-// another bm or a plan that does not cover k_act.
+// of 64 x 64; K is split into `splits` chunks of `kc` rows (a multiple of
+// 16) that cover k_act; `ws` an fp32 workspace of splits x live tiles x
+// 64 x 64 and `counters` an int32 per live tile (0 before the call, left
+// 0 after it) when splits > 1.  Returns cudaGetLastError() after the
+// launch; -1 for a plan that does not cover k_act.
 extern "C" int repro_elastic_matmul_f32_splitk(
     const void* x, const void* w, void* y, void* ws, void* counters,
     const void* widths, int M, int ldx, int ldw, int ldy, int n_out,
-    int k_act, int n_act, int bm, int splits, int kc, void* stream) {
-  auto go = [&](auto launch) {
-    return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<float*>(y), static_cast<float*>(ws),
-                  static_cast<int*>(counters),
-                  static_cast<const int*>(widths), M, ldx, ldw, ldy, n_out,
-                  k_act, n_act, splits, kc,
-                  static_cast<cudaStream_t>(stream));
-  };
-  if (bm == 64) return go(launch_f32_splitk<64>);
-  if (bm == 128) return go(launch_f32_splitk<128>);
-  return -1;
+    int k_act, int n_act, int splits, int kc, void* stream) {
+  return launch_f32_splitk(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(y), static_cast<float*>(ws),
+      static_cast<int*>(counters), static_cast<const int*>(widths), M, ldx,
+      ldw, ldy, n_out, k_act, n_act, splits, kc,
+      static_cast<cudaStream_t>(stream));
 }

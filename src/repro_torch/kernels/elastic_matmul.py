@@ -67,11 +67,10 @@ BWD_TMA_TILE = (128, 128)
 WGRAD_TMA_SPLITS_MAX = 14
 TMA_BOX = 64            # rows of a TMA box: wgrad's chunks are whole boxes
 TILE_COUNTERS = 1 << 16  # tma wgrad's and f32_splitk's tickets, per device
-# the f32_splitk kernel's tile rows (it takes either) and columns, rows of
-# K a stage, fewest rows of K worth a split, most splits, and blocks an SM
-# holds at once (f32_splitk_plan; sweep_splits.py times the alternatives,
-# PERF.md)
-F32_SPLITK_BMS = (64, 128)
+# the f32_splitk kernel's tile rows and columns, rows of K a stage, fewest
+# rows of K worth a split, most splits, and blocks an SM holds at once
+# (f32_splitk_plan; sweep_splits.py times the alternatives, PERF.md)
+F32_SPLITK_BM = 64
 F32_SPLITK_BN = 64
 F32_SPLITK_BK = 16
 F32_SPLITK_KC_MIN = 128
@@ -90,7 +89,7 @@ _ARGTYPES = {
     "repro_elastic_matmul": [_P] * 4 + [_I] * 6 + [_P],
     "repro_elastic_matmul_small_m": [_P] * 5 + [_I] * 10 + [_P],
     "repro_elastic_matmul_tma": [_P] * 4 + [_I] * 9 + [_P],
-    "repro_elastic_matmul_f32_splitk": [_P] * 6 + [_I] * 10 + [_P],
+    "repro_elastic_matmul_f32_splitk": [_P] * 6 + [_I] * 9 + [_P],
     "repro_elastic_matmul_dgrad": [_P] * 4 + [_I] * 7 + [_P],
     "repro_elastic_matmul_wgrad": [_P] * 5 + [_I] * 11 + [_P],
     "repro_elastic_matmul_dgrad_tma": [_P] * 4 + [_I] * 7 + [_P],
@@ -162,23 +161,21 @@ def small_m_plan(k_act: int, n_act: int, elem_bytes: int,
 
 def f32_splitk_plan(M: int, k_act: int, n_act: int, sms: int = SMS
                     ) -> tuple:
-    """(tile rows, splits, rows of K per split) of the f32_splitk kernel.
-    Tiles of 128 x 64 when they alone give every SM a block, else 64 x 64
-    (the router's prefill, M = 2048 x 64 experts: 32 tiles); then as many
-    splits of K as fill the SMs at two (tile, split) blocks each (the
-    router: 8 splits, 256 blocks), no split under 128 rows of K and no
-    more than 16 (the last block of a tile reads every split's partial
+    """(splits, rows of K per split) of the f32_splitk kernel over its
+    64 x 64 tiles (the router's prefill, M = 2048 x 64 experts: 32 tiles):
+    as many splits of K as fill the SMs at two (tile, split) blocks each
+    (the router: 8 splits, 256 blocks), no split under 128 rows of K and
+    no more than 16 (the last block of a tile reads every split's partial
     back alone); rows per split a multiple of the 16 a stage holds, the
     splits covering k_act exactly once."""
-    tn = max(1, _cdiv(n_act, F32_SPLITK_BN))
-    bm = 128 if _cdiv(max(M, 1), 128) * tn >= sms else 64
     if k_act <= 0:
-        return bm, 1, F32_SPLITK_BK
-    tiles = _cdiv(max(M, 1), bm) * tn
+        return 1, F32_SPLITK_BK
+    tiles = _cdiv(max(M, 1), F32_SPLITK_BM) \
+        * max(1, _cdiv(n_act, F32_SPLITK_BN))
     splits = max(1, min(F32_SPLITK_BLOCKS_PER_SM * sms // tiles,
                         k_act // F32_SPLITK_KC_MIN, F32_SPLITK_SPLITS_MAX))
     kc = _cdiv(_cdiv(k_act, splits), F32_SPLITK_BK) * F32_SPLITK_BK
-    return bm, _cdiv(k_act, kc), kc
+    return _cdiv(k_act, kc), kc
 
 
 def _row_stride(t: torch.Tensor) -> int:
@@ -241,8 +238,8 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
             None if ws is None else ws.data_ptr(), widths.data_ptr(), M, ldx,
             ldw, n_out, n_out, n_act, splits, kc, int(vec_ok), code, stream)
     elif variant == "f32_splitk":
-        bm, splits, kc = f32_splitk_plan(M, k_act, n_act)
-        bn = F32_SPLITK_BN
+        splits, kc = f32_splitk_plan(M, k_act, n_act)
+        bm, bn = F32_SPLITK_BM, F32_SPLITK_BN
         tiles = _cdiv(M, bm) * _cdiv(n_act, bn)
         if splits > 1 and tiles > TILE_COUNTERS:
             raise ValueError(f"f32_splitk: {tiles} tiles, more than the "
@@ -253,7 +250,7 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
             x.data_ptr(), w.data_ptr(), y.data_ptr(),
             None if ws is None else ws.data_ptr(),
             tile_counters(dev).data_ptr(), widths.data_ptr(), M, ldx, ldw,
-            n_out, n_out, k_act, n_act, bm, splits, kc, stream)
+            n_out, n_out, k_act, n_act, splits, kc, stream)
     elif variant == "tma":
         rc = _launcher("repro_elastic_matmul_tma")(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), widths.data_ptr(), M,

@@ -25,12 +25,12 @@ the backward reads.
 
 The backward (the reference has none: JAX differentiates through XLA)
 is ``flash_attention_bwd``, non-causal at D = 64, in three variants
-chosen by :func:`choose_bwd_variant` from shapes and strides:
-``resident`` (bf16 with S, T <= 256 and 16-byte-aligned rows, the
-sandwich step's S = T = 197: one block per (batch, kv head) holds its
-keys and makes one pass on wgmma, each input read once, dQ from dS in
-the same block), ``mma`` (other bf16: FlashAttention-2's delta pre-pass,
-then dK/dV and dQ in two deterministic passes on mma.sync) and
+chosen by :func:`choose_bwd_variant` from shapes and dtype:
+``resident`` (bf16 with S, T <= 256, the sandwich step's S = T = 197:
+one block per (batch, kv head) holds its keys and makes one pass on
+wgmma, each input read once, dQ from dS in the same block), ``mma``
+(other bf16: FlashAttention-2's delta pre-pass, then dK/dV and dQ in
+two deterministic passes on mma.sync) and
 ``fma_f32`` (fp32 on FMAs); any other case raises
 ``NotImplementedError`` (causal and D = 128 come with LM training).
 ``flash_attention_bwd_plain`` is the same gradient as
@@ -233,14 +233,18 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
 
 
 def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
-                       causal: bool, aligned: bool) -> str:
-    """The backward kernel a call goes to; raises ``NotImplementedError``
-    for what no kernel takes (causal, D other than 64).  ``aligned``
-    whether every q, k, v, o, dO base and (batch, seq, head) stride is a
-    multiple of 16 bytes.  ``resident`` holds a head's keys in shared
-    memory (T <= 256) and walks its queries serially in one block per
-    (batch, kv head): past 256 queries the two-pass ``mma``, whose grid
-    also runs over query tiles, spreads the work wider."""
+                       causal: bool) -> str:
+    """The backward kernel a call goes to, from shapes and dtype (the
+    wrapper copies rows the kernels cannot read with 16-byte loads first);
+    raises ``NotImplementedError`` for what no kernel takes (causal, D
+    other than 64).  ``resident`` holds a head's keys in shared memory
+    (T <= 256) and walks its queries serially in one block per (batch, kv
+    head): past 256 queries the two-pass ``mma``, whose grid also runs
+    over query tiles, spreads the work wider.  With few (batch, kv head)
+    blocks the serial walk costs too: at B * KH = 22 on an H100 (132 SMs)
+    ``resident`` took 34-35 us a call at S = T = 197 against 27.5 us for
+    ``mma`` (PERF.md, open questions).  No caller sends so few heads
+    today, so the choice does not look at B * KH."""
     if causal or D not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention backward: causal={causal}, D={D}; the kernel "
@@ -248,7 +252,7 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
             f"training)")
     if dtype != torch.bfloat16:
         return "fma_f32"
-    if aligned and 1 <= S <= RESIDENT_MAX and 1 <= T <= RESIDENT_MAX:
+    if 1 <= S <= RESIDENT_MAX and 1 <= T <= RESIDENT_MAX:
         return "resident"
     return "mma"
 
@@ -273,10 +277,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_bwd_args(q, k, v, o, do)
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
-    variant = choose_bwd_variant(
-        S, T, D, q.dtype, causal,
-        all(t.stride(3) == 1 for t in (q, k, v, o, do))
-        and _aligned(q, k, v, o, do))
+    variant = choose_bwd_variant(S, T, D, q.dtype, causal)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, o, do,
                                                            lse)):
@@ -285,9 +286,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {(B, H, S)}")
-    # the kernels read rows with 16-byte loads: copy anything else
+    # the kernels read rows with 16-byte loads: copy anything else into
+    # fresh storage (contiguous() keeps a contiguous view's unaligned base)
     q, k, v, o, do = (t if t.stride(3) == 1 and _aligned(t)
-                      else t.contiguous() for t in (q, k, v, o, do))
+                      else t.clone(memory_format=torch.contiguous_format)
+                      for t in (q, k, v, o, do))
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, T, KH, D), dtype=q.dtype, device=dev)
     dv = torch.empty((B, T, KH, D), dtype=q.dtype, device=dev)

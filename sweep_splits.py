@@ -22,7 +22,7 @@ two waves of (tile, split) blocks, beside the plan ``wgrad_tma_plan``
 chooses; dgrad's tma kernel; each beside the ``wmma_bf16`` kernel
 before it, ``torch.matmul`` and the bound.  K1's f32_splitk at the fp32
 MoE router's prefill shape (M = 2048 tokens, K = 2048, 64 experts, n_act
-64 and 32): both tile heights at 1 to 16 splits of K, beside the plan
+64 and 32): its 64 x 64 tiles at 1 to 16 splits of K, beside the plan
 ``f32_splitk_plan`` chooses, the tile loop it replaced, ``torch.matmul``
 in fp32 (TF32 off) and the bound.  It checks no result:
 ``chip_smoke.py`` holds the kernels against their plain versions.
@@ -137,9 +137,9 @@ def k3_stream_splits(cs, dev, g, K: int, F: int) -> None:
 def k1_router_splits(cs, dev, g, M: int = 2048, K: int = 2048,
                      N: int = 64) -> None:
     """K1 f32_splitk at the router's shape: us per call of its launcher at
-    each tile height and split count, beside the wrapper's plan, the tile
-    loop (``tile_f32``), ``torch.matmul`` and the bound (operations at
-    67 TFLOP/s fp32)."""
+    each split count, beside the wrapper's plan, the tile loop
+    (``tile_f32``), ``torch.matmul`` and the bound (operations at 67
+    TFLOP/s fp32)."""
     import torch
 
     from repro_torch.kernels import elastic_matmul as em
@@ -160,24 +160,22 @@ def k1_router_splits(cs, dev, g, M: int = 2048, K: int = 2048,
     for n_act in (N, N // 2):
         wd = ops.widths_tensor(dev, K, n_act)
         out = []
-        for bm in em.F32_SPLITK_BMS:
-            tiles = math.ceil(M / bm) * math.ceil(n_act / em.F32_SPLITK_BN)
-            for splits in (1, 2, 4, 6, 8, 12, 16):
-                kc = math.ceil(math.ceil(K / splits) / em.F32_SPLITK_BK) \
-                    * em.F32_SPLITK_BK
-                sp = math.ceil(K / kc)
-                ws = torch.empty(sp, tiles, bm * em.F32_SPLITK_BN,
-                                 device=dev)
+        tiles = math.ceil(M / em.F32_SPLITK_BM) \
+            * math.ceil(n_act / em.F32_SPLITK_BN)
+        for splits in (1, 2, 4, 6, 8, 12, 16):
+            kc = math.ceil(math.ceil(K / splits) / em.F32_SPLITK_BK) \
+                * em.F32_SPLITK_BK
+            sp = math.ceil(K / kc)
+            ws = torch.empty(sp, tiles, em.F32_SPLITK_BM * em.F32_SPLITK_BN,
+                             device=dev)
 
-                def go(bm=bm, sp=sp, kc=kc, ws=ws):
-                    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                            ws.data_ptr(), cnt.data_ptr(), wd.data_ptr(), M,
-                            K, N, N, N, K, n_act, bm, sp, kc, stream())
-                    if rc != 0:
-                        raise RuntimeError(f"f32_splitk launch failed "
-                                           f"({rc})")
-                out.append(f"{bm}x{em.F32_SPLITK_BN} {sp}x{kc}: "
-                           f"{per_call(go):.2f} us")
+            def go(sp=sp, kc=kc, ws=ws):
+                rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                        ws.data_ptr(), cnt.data_ptr(), wd.data_ptr(), M, K,
+                        N, N, N, K, n_act, sp, kc, stream())
+                if rc != 0:
+                    raise RuntimeError(f"f32_splitk launch failed ({rc})")
+            out.append(f"{sp}x{kc}: {per_call(go):.2f} us")
         old = per_call(lambda: tile(x.data_ptr(), w.data_ptr(),
                                     y.data_ptr(), wd.data_ptr(), M, K, N, N,
                                     N, 0, stream()))

@@ -226,23 +226,23 @@ def test_small_m_plan(k_act, n_act, elem, want):
 
 
 @pytest.mark.parametrize("M,k_act,n_act,want", [
-    (2048, 2048, 64, (64, 8, 256)),   # the router at prefill: 256 blocks
-    (2048, 2048, 32, (64, 8, 256)),   # at the half-expert points
-    (17, 2048, 63, (64, 16, 128)),    # one tile: 16 splits, capped
-    (4096, 2048, 64, (64, 4, 512)),   # 64 tiles
-    (1576, 384, 1536, (128, 1, 384)),  # 312 tiles: more than 2 an SM
-    (64, 17, 96, (64, 1, 32)),        # k_act under the 128 a split takes
-    (2048, 2000, 64, (64, 8, 256)),   # 8 splits of 250 -> of 256
-    (2048, 0, 64, (64, 1, 16)),
+    (2048, 2048, 64, (8, 256)),     # the router at prefill: 256 blocks
+    (2048, 2048, 32, (8, 256)),     # at the half-expert points
+    (17, 2048, 63, (16, 128)),      # one tile: 16 splits, capped
+    (4096, 2048, 64, (4, 512)),     # 64 tiles
+    (1576, 384, 1536, (1, 384)),    # 600 tiles: more than 2 an SM
+    (64, 17, 96, (1, 32)),          # k_act under the 128 a split takes
+    (2048, 2000, 64, (8, 256)),     # 8 splits of 250 -> of 256
+    (2048, 0, 64, (1, 16)),
 ])
 def test_f32_splitk_plan(M, k_act, n_act, want):
-    """f32_splitk's tile and split of K: rows per split a multiple of the
-    16 a stage holds, the splits covering k_act exactly once, none under
-    128 rows, at most 16, and (tile, split) blocks that fill at least one
-    wave of 132 SMs at the router's prefill shape."""
-    bm, splits, kc = em.f32_splitk_plan(M, k_act, n_act)
-    assert (bm, splits, kc) == want
-    assert bm in em.F32_SPLITK_BMS
+    """f32_splitk's split of K over its 64 x 64 tiles: rows per split a
+    multiple of the 16 a stage holds, the splits covering k_act exactly
+    once, none under 128 rows, at most 16, and (tile, split) blocks that
+    fill at least one wave of 132 SMs at the router's prefill shape."""
+    splits, kc = em.f32_splitk_plan(M, k_act, n_act)
+    assert (splits, kc) == want
+    bm = em.F32_SPLITK_BM
     assert kc % em.F32_SPLITK_BK == 0
     assert (splits - 1) * kc < max(k_act, 1) <= splits * kc or k_act == 0
     assert splits <= em.F32_SPLITK_SPLITS_MAX
@@ -263,21 +263,23 @@ def test_router_shapes_take_f32_splitk_at_prefill_and_small_m_at_decode():
                                  True) == want
 
 
-@pytest.mark.parametrize("S,T,D,dtype,causal,aligned,want", [
-    (197, 197, 64, torch.bfloat16, False, True, "resident"),  # sandwich step
-    (1, 1, 64, torch.bfloat16, False, True, "resident"),
-    (256, 256, 64, torch.bfloat16, False, True, "resident"),
-    (65, 77, 64, torch.bfloat16, False, True, "resident"),
-    (197, 197, 64, torch.bfloat16, False, False, "mma"),  # rows off 16 B
-    (577, 577, 64, torch.bfloat16, False, True, "mma"),        # ViT at 336 px
-    (257, 100, 64, torch.bfloat16, False, True, "mma"),
-    (100, 300, 64, torch.bfloat16, False, True, "mma"),        # keys past 256
-    (197, 197, 64, torch.float32, False, True, "fma_f32"),
-    (577, 577, 64, torch.float32, False, True, "fma_f32"),
+@pytest.mark.parametrize("S,T,D,dtype,causal,want", [
+    (197, 197, 64, torch.bfloat16, False, "resident"),  # sandwich step
+    (1, 1, 64, torch.bfloat16, False, "resident"),
+    (2, 1, 64, torch.bfloat16, False, "resident"),      # one key: dS = 0
+    (1, 197, 64, torch.bfloat16, False, "resident"),    # one query
+    (256, 256, 64, torch.bfloat16, False, "resident"),
+    (65, 77, 64, torch.bfloat16, False, "resident"),
+    (577, 577, 64, torch.bfloat16, False, "mma"),       # ViT at 336 px
+    (257, 100, 64, torch.bfloat16, False, "mma"),
+    (100, 300, 64, torch.bfloat16, False, "mma"),       # keys past 256
+    (197, 197, 64, torch.float32, False, "fma_f32"),
+    (577, 577, 64, torch.float32, False, "fma_f32"),
 ])
-def test_flash_attention_bwd_variant_choice(S, T, D, dtype, causal, aligned,
-                                            want):
-    assert fa.choose_bwd_variant(S, T, D, dtype, causal, aligned) == want
+def test_flash_attention_bwd_variant_choice(S, T, D, dtype, causal, want):
+    """From shapes and dtype only: the wrapper copies rows the kernels
+    cannot read with 16-byte loads before it launches either."""
+    assert fa.choose_bwd_variant(S, T, D, dtype, causal) == want
 
 
 @pytest.mark.parametrize("S,T,D,causal", [
@@ -288,7 +290,7 @@ def test_flash_attention_bwd_variant_choice_refuses(S, T, D, causal):
     takes them (they come with LM training)."""
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(NotImplementedError):
-            fa.choose_bwd_variant(S, T, D, dtype, causal, True)
+            fa.choose_bwd_variant(S, T, D, dtype, causal)
 
 
 def test_new_kernels_match_their_source_constants():
@@ -299,8 +301,7 @@ def test_new_kernels_match_their_source_constants():
                  f"SK_BK = {em.F32_SPLITK_BK};",
                  f"__launch_bounds__(SK_THREADS, "
                  f"{em.F32_SPLITK_BLOCKS_PER_SM})",
-                 *(f"if (bm == {bm}) return go(launch_f32_splitk<{bm}>);"
-                   for bm in em.F32_SPLITK_BMS)):
+                 f"SK_BM = {em.F32_SPLITK_BM};"):
         assert decl in k1, decl
     k2 = (build.CSRC / "flash_attention.cu").read_text()
     assert f"R_T_MAX = {fa.RESIDENT_MAX};" in k2
@@ -1118,13 +1119,21 @@ def test_cuda_f32_splitk_is_deterministic_and_replays_in_a_graph(cuda, M,
     _graph_replays_equal(lambda: ops.elastic_matmul_op(x, w, k_act, 64), a)
 
 
+# a gradient whose largest value is under this share of the largest of
+# the call's three is 0 but for fp32 round-off (as chip_smoke.py holds
+# the key biases of the fp32 training step)
+ZERO_GRAD_REL = 1e-5
+
+
 def _k2_bwd_case(cuda, B, S, T, H, KH, seed):
     g = torch.Generator().manual_seed(seed)
     q = (torch.randn(B, S, H, 64, generator=g) * 0.5).to(cuda, _BF)
     k = (torch.randn(B, T, KH, 64, generator=g) * 0.5).to(cuda, _BF)
     v = torch.randn(B, T, KH, 64, generator=g).to(cuda, _BF)
     do = torch.randn(B, S, H, 64, generator=g).to(cuda, _BF)
-    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    # the decode forward (S = 1) keeps no logsumexp: the plain one does
+    fwd = fa.flash_attention_plain if S == 1 else fa.flash_attention
+    o, lse = fwd(q, k, v, causal=False, return_lse=True)
     return q, k, v, o, lse, do
 
 
@@ -1135,13 +1144,19 @@ def _k2_bwd_case(cuda, B, S, T, H, KH, seed):
     (4, 40, 50, 4, 4, "resident"),      # one warpgroup of keys
     (4, 150, 150, 6, 3, "resident"),    # GQA R = 2, three warpgroups
     (2, 256, 230, 4, 4, "resident"),
+    (3, 2, 1, 2, 2, "resident"),        # one key: P = 1, dQ = dK = 0
+    (4, 1, 77, 4, 2, "resident"),       # one query
     (2, 300, 300, 4, 2, "mma"),         # past the resident limit
 ])
 def test_cuda_flash_attention_backward_resident_matches_plain(
         cuda, B, S, T, H, KH, want):
     """K2's backward on the variant the shape takes against the plain
     version, bf16 tolerance, each gradient also within tol of its
-    largest value (a kernel writing zeros fails)."""
+    largest value (a kernel writing zeros fails).  A gradient whose true
+    value is 0 (dQ and dK at one key, where P = 1 and dS = P (dP - delta)
+    vanishes) has a plain value of fp32 round-off, under
+    ``ZERO_GRAD_REL`` of the largest gradient: there the kernel's must be
+    round-off too."""
     q, k, v, o, lse, do = _k2_bwd_case(cuda, B, S, T, H, KH, S + T)
     before = dict(fa.bwd_variant_launches)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
@@ -1150,10 +1165,15 @@ def test_cuda_flash_attention_backward_resident_matches_plain(
             if c != before[n]}
     assert took == {want: 1}
     want_g = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=False)
+    zero = ZERO_GRAD_REL * max(float(b.abs().max()) for b in want_g)
     for a, b in zip(got, want_g):
         a, b = a.float(), b.float()
         torch.testing.assert_close(a, b, rtol=3e-2, atol=3e-2)
-        assert float((a - b).abs().max()) <= 3e-2 * float(b.abs().max())
+        if float(b.abs().max()) < zero:
+            assert float(a.abs().max()) < zero
+        else:
+            assert float((a - b).abs().max()) \
+                <= 3e-2 * float(b.abs().max())
 
 
 @pytest.mark.cuda
