@@ -134,7 +134,27 @@ Dynamic-OFA ViT, batch 256, bf16):
     down by call shape; one whole step's device time by kernel from a
     ``torch.profiler`` trace, beside its wall time (the device's busy
     share); and with ``--parent-csrc`` the whole sandwich step as wall
-    time on this tree's kernels and on the parent's, in turns.
+    time on this tree's kernels and on the parent's, in turns;
+
+the serving control plane (two full-width ViT servers behind the
+multi-tenant ResourceArbiter):
+
+20. phase 6's server and measured LUT through the serve launcher's
+    ``run_trace_mode`` with ``--trace poisson`` at the launcher's defaults
+    (64 interactive requests over 5 s, the batch class at half the rate),
+    a Tracer, a MetricsRegistry, a CalibrationStore and ``--record``: every
+    arrival accounted for against the recorded schedule, zero cold
+    (subnet, bucket) pairs on both servers, schema-valid spans whose
+    components sum to each request's latency, the Chrome trace read back,
+    ``engine_served_total`` equal to each class's completions, a
+    calibration row for every served (subnet, bucket) and the store the
+    same through save/load, K1's and K2's counters rising during the
+    traffic with no bf16 call on K1 tile or K2 FMA, served logits equal
+    to a direct forward of the subnet each payload names; it prints each
+    class's percentiles, goodput and mean batch, the arbiter summary, the
+    p50/p95 decomposition, the recorded schedule's p95 replayed through
+    ``simulate(calibration=store)`` beside the live p95, the LUT's spread
+    and the launches by variant.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1974,6 +1994,196 @@ def train_phases(dev, parent) -> dict:
     return out
 
 
+# phase 20: the serve launcher's --trace defaults (64 interactive requests
+# over 5 s: 12.8 rps, and 6.4 rps of batch)
+TRACE_REQUESTS, TRACE_SECONDS = 64, 5.0
+
+
+def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
+    """Phase 20: ``serve.run_trace_mode`` on the card at full width with a
+    Tracer, a MetricsRegistry, a CalibrationStore and --record; then the
+    checks, and the recorded schedule replayed through ``simulate``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (iter_trace_events, quantile,
+                                 to_chrome_trace, validate_schema)
+    from repro_torch.obs.analyze import check_trace
+    from repro_torch.obs.trace import (COLLECT, DEVICE, DISPATCH, QUEUE,
+                                       STACK)
+    from repro_torch.runtime import CalibrationStore, GlobalConstraints
+    from repro_torch.traffic import load_schedule, simulate
+
+    t0 = phase(f"20. serving control plane at full width: two servers "
+               f"behind the ResourceArbiter, --trace poisson, "
+               f"{TRACE_REQUESTS} requests over {TRACE_SECONDS:g} s")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, n) for k, n in (
+        ("rec", "trace_rec.json"), ("cal", "trace_cal.json"),
+        ("trace", "trace_chrome.json"), ("metrics", "trace_metrics.prom"))}
+    args = serve.parse_args([
+        "--trace", "poisson", "--requests", str(TRACE_REQUESTS),
+        "--trace-duration", str(TRACE_SECONDS), "--record", paths["rec"],
+        "--calibrate", "--calibrate-out", paths["cal"],
+        "--trace-out", paths["trace"], "--metrics-out", paths["metrics"]])
+    # the counts before and after the live traffic alone (the ladder warm
+    # of both servers runs inside run_trace_mode, before drive_live)
+    around = {}
+    real_drive_live = serve.drive_live
+
+    def drive_live(*a, **kw):
+        around["before"] = ops.variant_counts()
+        try:
+            return real_drive_live(*a, **kw)
+        finally:
+            around["after"] = ops.variant_counts()
+
+    sink = []
+    serve.drive_live = drive_live
+    ops.reset_launch_counts()
+    try:
+        run = serve.run_trace_mode(args, arch, cfg, server, lut, x, base_ms,
+                                   sink=sink)
+    finally:
+        serve.drive_live = real_drive_live
+    launches = ops.launch_counts()
+    variants = ops.variant_counts()
+    during = {k: {v: around["after"][k][v] - around["before"][k][v]
+                  for v in around["after"][k]} for k in FORWARD}
+    rep, tracer, store = run.report, run.tracer, run.store
+
+    # every arrival accounted for, against the recorded schedule
+    recorded = load_schedule(paths["rec"])
+    for name, cs in rep.classes.items():
+        if cs.submitted != cs.rejected + cs.dropped + cs.failed + \
+                cs.completed or cs.submitted != len(recorded[name]):
+            raise AssertionError(f"{name}: {cs.summary()} against "
+                                 f"{len(recorded[name])} recorded arrivals")
+    cold = {n: s.cold_compiles for n, s in run.servers.items()}
+    if any(cold.values()):
+        raise AssertionError(f"cold (subnet, bucket) pairs: {cold}")
+    # well-formed spans, each retained tree summing to its latency (5%)
+    bad = validate_schema(tracer.spans())
+    if bad:
+        raise AssertionError(f"span schema: {bad[:5]}")
+    trees = tracer.requests()
+    for t in trees:
+        check_trace(t)
+    completed = sum(cs.completed for cs in rep.classes.values())
+    if len(trees) != completed or tracer.dropped:
+        raise AssertionError(f"{len(trees)} trees retained ({tracer.dropped} "
+                             f"evicted) for {completed} completed")
+    # the exports read back
+    events = list(iter_trace_events(paths["trace"]))
+    if events != to_chrome_trace(tracer)["traceEvents"] or sum(
+            e.get("name") == DEVICE for e in events) != completed:
+        raise AssertionError("the Chrome trace did not read back")
+    for name, cs in rep.classes.items():
+        served = run.metrics.value("engine_served_total", tenant=name,
+                                   node="")
+        if served != cs.completed:
+            raise AssertionError(f"engine_served_total{{{name}}} {served} "
+                                 f"!= completed {cs.completed}")
+    # the calibration store: a latency row for every served (subnet,
+    # bucket); save then load gives the same summary (load starts a new
+    # version count)
+    pairs = {(s.attrs["subnet"], s.attrs["bucket"]) for s in tracer.spans()
+             if s.name == DEVICE}
+    rows = store.summary()["latency"]
+    missing = sorted(f"{sn}/b{b}" for sn, b in pairs
+                     if f"{sn}/b{b}" not in rows)
+    if missing:
+        raise AssertionError(f"no calibration row for {missing}")
+    again = CalibrationStore.load(paths["cal"]).summary()
+    want = dict(store.summary(), version=1)
+    if again != want:
+        raise AssertionError("calibration store changed through save/load")
+    # the kernels ran during the traffic, none of bf16 on the old kernels
+    if min(sum(during[k].values()) for k in ("elastic_matmul",
+                                             "flash_attention")) <= 0:
+        raise AssertionError(f"kernels not launched in the trace: {during}")
+    main_path_variants({k: during[k] for k in FORWARD}, need={
+        ("elastic_matmul", "tma"), ("elastic_matmul", "small_m"),
+        ("flash_attention", "mma")})
+    # a sample of served logits against a direct forward of the subnet
+    # the payload names (the same image, x[0], on the same weights)
+    by_name = {p.subnet.name(): p.subnet for p in lut.points}
+    # four answers spread over each class's run, and the first answer of
+    # every subnet served
+    sample, firsts = [], set()
+    for name in rep.classes:
+        mine = [out for n, out in sink if n == name]
+        picks = {0, len(mine) // 3, 2 * len(mine) // 3, len(mine) - 1}
+        for i, out in enumerate(mine):
+            if i in picks or out["subnet"] not in firsts:
+                firsts.add(out["subnet"])
+                sample.append((name, out))
+    err_served = 0.0
+    for name, out in sample:
+        y = torch.from_numpy(out["y"])
+        direct = run.servers[name].infer(
+            x[:1], by_name[out["subnet"]])[0].float().cpu()
+        if y.shape != (cfg.n_classes,) or not torch.isfinite(y).all():
+            raise AssertionError(f"bad served logits {tuple(y.shape)}")
+        err_served = max(err_served, close(y, direct, 3e-2))
+
+    # what it measured
+    for name, cs in rep.classes.items():
+        dev_spans = {(s.t0, s.attrs["n"]) for s in tracer.spans()
+                     if s.name == DEVICE and s.cls == name}
+        mean_batch = (sum(n for _, n in dev_spans) / len(dev_spans)
+                      if dev_spans else 0.0)
+        log(f"  {name:12s} submitted {cs.submitted}, completed "
+            f"{cs.completed}, p50/p95/p99 {cs.p(50):.3f}/{cs.p(95):.3f}/"
+            f"{cs.p(99):.3f} ms, goodput rate "
+            f"{cs.good / max(cs.submitted, 1):.4f}, mean batch "
+            f"{mean_batch:.3f} ({len(dev_spans)} batches), deadline "
+            f"{[c.deadline_ms for c in run.classes if c.name == name][0]:.2f}"
+            f" ms")
+    log(f"  arbiter: {json.dumps(rep.arbiter)}")
+    decomp, parts = {}, (QUEUE, COLLECT, STACK, DISPATCH, DEVICE)
+    for name in rep.classes:
+        mine = [t for t in trees if t.cls == name]
+        for q in (50, 95):
+            total = quantile([t.total_ms for t in mine], q)
+            t = next(t for t in mine if t.total_ms == total)
+            comp = t.component_ms()
+            decomp[f"{name} p{q}"] = {"total_ms": total, **{
+                c: comp.get(c, 0.0) for c in parts}}
+            log(f"  {name} p{q} {total:.3f} ms = " + " + ".join(
+                f"{c} {comp.get(c, 0.0):.3f}" for c in parts))
+    sim = simulate(run.classes, {c.name: lut for c in run.classes},
+                   recorded, lambda t: GlobalConstraints(total_chips=2),
+                   interval_s=0.05, calibration=store)
+    replay = {}
+    for name, cs in rep.classes.items():
+        replay[name] = {"live_p95_ms": cs.p(95),
+                        "sim_p95_ms": sim.classes[name].p(95)}
+        log(f"  {name:12s} p95 live {cs.p(95):.3f} ms, replayed through "
+            f"simulate(calibration=store) {sim.classes[name].p(95):.3f} ms")
+    at_nominal = [p for p in lut.points if p.hw_state.freq == 1.0]
+    lo = min(at_nominal, key=lambda p: p.latency_ms)
+    hi = max(at_nominal, key=lambda p: p.latency_ms)
+    log(f"  measured LUT at freq 1.0: fastest {lo.subnet.name()} "
+        f"{lo.latency_ms:.3f} ms, slowest {hi.subnet.name()} "
+        f"{hi.latency_ms:.3f} ms ({hi.latency_ms / lo.latency_ms:.3f}x)")
+    log(f"  launches by variant during the trace: "
+        f"K1 {during['elastic_matmul']}, K2 {during['flash_attention']}; "
+        f"run_trace_mode in all (warm included): {launches}")
+    log(f"  served logits vs direct forward ({len(sample)} answers, "
+        f"{len(firsts)} subnets): max abs err {err_served:.3g}; cold pairs "
+        f"{cold}; "
+        f"{len(trees)} trees, {len(events)} trace events, "
+        f"{len(rows)} calibration rows")
+    seconds = time.perf_counter() - t0
+    log(f"  ({seconds:.1f} s)")
+    return {"launches": launches, "variants": variants,
+            "trace_variants": during, "classes": {
+                n: cs.summary() for n, cs in rep.classes.items()},
+            "decomposition": decomp, "replay": replay,
+            "lut_spread_ms": [lo.latency_ms, hi.latency_ms],
+            "served_err": err_served, "seconds": seconds}
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2317,6 +2527,9 @@ def main() -> int:
 
     lm = lm_phases(dev, parent)
     tr = train_phases(dev, parent)
+    tp = trace_phase(serve, arch, cfg, server, governors["joint (paper)"].lut,
+                     x, base_ms, os.path.join(os.path.dirname(
+                         os.path.abspath(__file__)), "build", "trace"))
 
     def row_keys(vit: dict) -> dict:
         # the contract's numbers from the ViT forward's row; the LM rows
@@ -2333,14 +2546,18 @@ def main() -> int:
               "replaces": "src/repro/kernels/elastic_matmul.py:68",
               "launches": launches["elastic_matmul"]
               + lm["launches"]["elastic_matmul"]
-              + tr["launches"]["elastic_matmul"],
+              + tr["launches"]["elastic_matmul"]
+              + tp["launches"]["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
-                                   "train": tr["launches"]["elastic_matmul"]},
+                                   "train": tr["launches"]["elastic_matmul"],
+                                   "vit_trace":
+                                       tp["launches"]["elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
-                  "train": tr["variants"]["elastic_matmul"]},
+                  "train": tr["variants"]["elastic_matmul"],
+                  "vit_trace": tp["variants"]["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"])},
              **row_keys(vit_k1),
              timing=timing, vit_forward=vit_k1,
@@ -2352,14 +2569,18 @@ def main() -> int:
               "replaces": "src/repro/kernels/flash_attention.py:71",
               "launches": launches["flash_attention"]
               + lm["launches"]["flash_attention"]
-              + tr["launches"]["flash_attention"],
+              + tr["launches"]["flash_attention"]
+              + tp["launches"]["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
-                                   "train": tr["launches"]["flash_attention"]},
+                                   "train": tr["launches"]["flash_attention"],
+                                   "vit_trace":
+                                       tp["launches"]["flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
-                  "train": tr["variants"]["flash_attention"]},
+                  "train": tr["variants"]["flash_attention"],
+                  "vit_trace": tp["variants"]["flash_attention"]},
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"])},
              **row_keys(vit_k2),
              timing=timing, vit_forward=vit_k2,
@@ -2394,6 +2615,9 @@ def main() -> int:
              "launches_by_variant": {"train": tr["variants"][name]},
              "max_abs_err": err}, **row_keys(row), timing=timing,
             train_step=row))
+    log("trace: " + json.dumps({k: tp[k] for k in (
+        "classes", "trace_variants", "decomposition", "replay",
+        "lut_spread_ms", "served_err", "seconds")}))
     log("train: " + json.dumps({k: tr.get(k) for k in (
         "step_ms", "step_ms_all", "peak_gib", "peak_run_gib", "losses",
         "fp32_step", "step_breakdown", "step_e2e")}))

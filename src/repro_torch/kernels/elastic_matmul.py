@@ -48,6 +48,10 @@ import torch
 
 from repro_torch.kernels import build
 
+# the wrappers run on several threads at once (two servers' collectors
+# behind one arbiter): every count, read and reset of the counters
+# below takes this lock, so no increment is lost
+count_lock = threading.Lock()
 # kernel launches since the last reset (the wrapper adds one per launch),
 # in all and by variant
 launches = 0
@@ -263,8 +267,9 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"elastic_matmul ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    launches += 1
-    variant_launches[variant] += 1
+    with count_lock:
+        launches += 1
+        variant_launches[variant] += 1
     return y
 
 
@@ -425,8 +430,9 @@ def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"elastic_matmul dgrad ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    dgrad_launches += 1
-    dgrad_variant_launches[variant] += 1
+    with count_lock:
+        dgrad_launches += 1
+        dgrad_variant_launches[variant] += 1
     return dx
 
 
@@ -481,8 +487,9 @@ def elastic_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"elastic_matmul wgrad ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    wgrad_launches += 1
-    wgrad_variant_launches[variant] += 1
+    with count_lock:
+        wgrad_launches += 1
+        wgrad_variant_launches[variant] += 1
     return dw
 
 

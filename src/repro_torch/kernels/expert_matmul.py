@@ -29,11 +29,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import build
 
+# the wrappers run on several threads at once (two servers' collectors
+# behind one arbiter): every count, read and reset of the counters
+# below takes this lock, so no increment is lost
+count_lock = threading.Lock()
 # kernel launches since the last reset (the wrapper adds one per launch),
 # in all and by variant
 launches = 0
@@ -208,8 +213,9 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"expert_matmul ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    launches += 1
-    variant_launches[variant] += 1
+    with count_lock:
+        launches += 1
+        variant_launches[variant] += 1
     return y
 
 

@@ -40,12 +40,17 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
+# the wrappers run on several threads at once (two servers' collectors
+# behind one arbiter): every count, read and reset of the counters
+# below takes this lock, so no increment is lost
+count_lock = threading.Lock()
 # kernel launches since the last reset (the wrapper adds one per launch),
 # in all and by variant
 launches = 0
@@ -193,8 +198,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash_attention ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    launches += 1
-    variant_launches[variant] += 1
+    with count_lock:
+        launches += 1
+        variant_launches[variant] += 1
     return (o, lse) if return_lse else o
 
 
@@ -315,8 +321,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention backward ({variant}) launch "
                            f"failed (CUDA error {rc})")
-    bwd_launches += 1
-    bwd_variant_launches[variant] += 1
+    with count_lock:
+        bwd_launches += 1
+        bwd_variant_launches[variant] += 1
     return dq, dk, dv
 
 

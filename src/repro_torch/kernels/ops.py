@@ -70,20 +70,29 @@ _COUNTERS = (
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel (each wrapper counts its own)."""
-    return {name: getattr(mod, n) for name, mod, n, _ in _COUNTERS}
+    out = {}
+    for name, mod, n, _ in _COUNTERS:
+        with mod.count_lock:
+            out[name] = getattr(mod, n)
+    return out
 
 
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches so far of the kernels that have variants, by variant."""
-    return {name: dict(getattr(mod, v)) for name, mod, _, v in _COUNTERS}
+    out = {}
+    for name, mod, _, v in _COUNTERS:
+        with mod.count_lock:
+            out[name] = dict(getattr(mod, v))
+    return out
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count, and each variant's, to 0."""
     for _, mod, n, v in _COUNTERS:
-        setattr(mod, n, 0)
-        per = getattr(mod, v)
-        per.update(dict.fromkeys(per, 0))
+        with mod.count_lock:
+            setattr(mod, n, 0)
+            per = getattr(mod, v)
+            per.update(dict.fromkeys(per, 0))
 
 
 def widths_tensor(device: torch.device, k_act: int, n_act: int

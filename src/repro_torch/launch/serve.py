@@ -20,15 +20,42 @@ Serving data-path knobs (mirrored by ``DynamicServer``):
 * ``--device``        — ``cuda`` (default; raises without a card) or
   ``cpu`` (the kernels' plain versions).
 
-The SLO-traffic (``--trace``), cluster, calibration and observability
-modes of the reference launcher come with a later slice of the port; the
-launcher refuses their flags.  The governed server warms its bucket ladder
-for the profiled subnets before taking traffic, so serving meets zero cold
-(subnet, bucket) pairs (``server.cold_compiles`` stays 0).
+Trace knobs (``--trace`` mode, one node):
+
+* ``--trace poisson|bursty|diurnal|PATH`` — two SLO classes (an
+  interactive tenant and a background batch tenant), each a DynamicServer
+  of the same supernet, behind one ResourceArbiter; open-loop seeded
+  arrivals (or a recorded schedule) through ``traffic.drive_live``;
+* ``--trace-duration S`` — seconds of arrival schedule;
+* ``--record PATH``   — save the ACTUAL arrivals as a replayable
+  schedule JSON (feed it back via ``--trace PATH``);
+* ``--calibrate``     — close the measurement loop: servers record
+  per-(subnet, bucket) latency EWMAs and measured tenant energy into a
+  ``CalibrationStore`` the arbiter plans off; ``--calibrate-out PATH``
+  additionally saves the warmed store as JSON for calibrated replays.
+
+Observability (any mode):
+
+* ``--trace-out PATH``   — record request span trees + decision spans
+  through a :class:`repro_torch.obs.Tracer` and write them as Chrome
+  trace-event JSON (load in Perfetto / chrome://tracing); also prints
+  the per-class p50/p95 latency decomposition;
+* ``--metrics-out PATH`` — write the metrics registry snapshot as JSON,
+  or Prometheus text format when PATH ends in ``.prom``.
+
+The reference launcher's cluster (``--nodes``, ``--router``,
+``--health-interval``, ``--rebalance-interval``), chaos and watchtower
+(``--stream-trace``, ``--alerts-out``, ``--profile-out``) modes come with
+a later slice of the port; the launcher refuses their flags.  Every
+server warms its bucket ladder for the profiled subnets before taking
+traffic, so serving meets zero cold (subnet, bucket) pairs
+(``server.cold_compiles`` stays 0).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,21 +63,27 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.types import SubnetSpec
 from repro_torch.device import resolve_device
-from repro_torch.obs.metrics import quantile
-from repro_torch.runtime import (Constraints, DynamicServer, JointGovernor,
-                                 PerformanceGovernor, SchedutilGovernor,
-                                 StaticPrunedGovernor, measured_lut,
-                                 paper_trace, run_governor)
+from repro_torch.obs import (MetricsRegistry, Tracer, decompose_latency,
+                             format_decomposition, quantile,
+                             write_chrome_trace)
+from repro_torch.runtime import (CalibrationStore, Constraints, DynamicServer,
+                                 GlobalConstraints, JointGovernor,
+                                 PerformanceGovernor, ResourceArbiter,
+                                 SchedutilGovernor, StaticPrunedGovernor,
+                                 measured_lut, paper_trace, run_governor)
 from repro_torch.runtime import hwmodel as hm
+from repro_torch.traffic import (DEGRADE, SLOClass, TrafficReport, diurnal,
+                                 drive_live, load_schedule, onoff, poisson)
 
 # flags of the reference launcher that wait for a later slice of the port
-_LATER = ("trace", "nodes", "router", "record", "calibrate", "calibrate_out",
-          "health_interval", "rebalance_interval", "trace_out", "metrics_out",
+# (cluster, chaos and watchtower)
+_LATER = ("nodes", "router", "health_interval", "rebalance_interval",
           "stream_trace", "alerts_out", "profile_out")
 
 
 def build_server(arch, cfg, *, max_batch=8, batch_buckets=True,
-                 pipeline=True, device=None, seed=0):
+                 pipeline=True, device=None, seed=0, calibration=None,
+                 tenant=None):
     """The supernet (random weights from ``seed``) behind a DynamicServer on
     ``device`` (the card unless the caller passes ``"cpu"``)."""
     dev = resolve_device(device)
@@ -68,7 +101,7 @@ def build_server(arch, cfg, *, max_batch=8, batch_buckets=True,
     apply_fn = lambda p, x, E: vit_apply(p, x, cfg, E=E)[0]
     return DynamicServer(apply_fn, params, dims, max_batch=max_batch,
                          batch_buckets=batch_buckets, pipeline=pipeline,
-                         device=dev)
+                         calibration=calibration, tenant=tenant, device=dev)
 
 
 def serve_specs(cfg):
@@ -89,6 +122,29 @@ def parse_args(argv=None):
                     help="seed of the random weights and request images")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--trace-steps", type=int, default=200)
+    ap.add_argument("--trace", default=None,
+                    help="SLO traffic mode: poisson | bursty | diurnal | "
+                         "path to a recorded schedule JSON")
+    ap.add_argument("--trace-duration", type=float, default=5.0,
+                    help="seconds of arrival schedule in --trace mode")
+    ap.add_argument("--record", default=None, metavar="PATH",
+                    help="record the ACTUAL --trace arrivals to a "
+                         "replayable schedule JSON")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="close the measurement loop: record measured "
+                         "(subnet, bucket) latency + tenant energy and "
+                         "let the arbiter plan off it")
+    ap.add_argument("--calibrate-out", default=None, metavar="PATH",
+                    help="save the warmed CalibrationStore as JSON "
+                         "(implies nothing without --calibrate)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record request span trees + decision spans and "
+                         "write Chrome trace-event JSON (open in Perfetto "
+                         "or chrome://tracing); prints the p50/p95 "
+                         "latency decomposition")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics snapshot as JSON (Prometheus "
+                         "text format when PATH ends in .prom)")
     ap.add_argument("--max-batch", type=int, default=8,
                     help="batching ceiling (bucket ladder = powers of two)")
     ap.add_argument("--no-buckets", action="store_true",
@@ -102,8 +158,8 @@ def parse_args(argv=None):
     given = ["--" + n.replace("_", "-") for n in _LATER
              if getattr(args, n) is not None]
     if given:
-        ap.error(f"{', '.join(given)}: the trace, cluster, calibration and "
-                 f"observability modes come with a later slice of the port")
+        ap.error(f"{', '.join(given)}: the cluster, chaos and watchtower "
+                 f"modes come with a later slice of the port")
     return args
 
 
@@ -166,6 +222,129 @@ def serve_requests(server, governor, base_ms: float, x1, n_requests: int):
     return outs
 
 
+@dataclasses.dataclass
+class TraceRun:
+    """What one ``--trace`` run built and measured."""
+    report: TrafficReport
+    classes: List[SLOClass]
+    streams: Dict[str, List[float]]
+    servers: Dict[str, DynamicServer]
+    arbiter: ResourceArbiter
+    tracer: Optional[Tracer]
+    metrics: Optional[MetricsRegistry]
+    store: Optional[CalibrationStore]
+
+
+def run_trace_mode(args, arch, cfg, server, lut, x, base_ms, *,
+                   sink: Optional[list] = None) -> TraceRun:
+    """``--trace``: SLO-classed request streams through the arbiter.
+
+    Two tenants (an interactive class and a background batch class) run
+    as separate DynamicServers of the same supernet behind one
+    ResourceArbiter on two modelled 1-chip slices; the traffic layer
+    replays a seeded arrival schedule (or a recorded one from a JSON file)
+    open-loop against them and reports per-class percentile latency,
+    goodput and drops.  ``server`` (the profiling server) becomes the
+    interactive tenant.  ``sink``, when given, receives
+    ``(class, payload)`` for every answered request.
+    """
+    tracer = Tracer() if args.trace_out else None
+    metrics = MetricsRegistry() if args.metrics_out else None
+    dur = args.trace_duration
+    rate = args.requests / dur
+    a_batch = poisson(max(rate / 2, 0.5), dur, seed=1)
+    if args.trace == "poisson":
+        a_int = poisson(rate, dur, seed=0)
+    elif args.trace == "bursty":
+        a_int = onoff(2.0 * rate, dur, on_s=dur / 6, off_s=dur / 6, seed=0)
+    elif args.trace == "diurnal":
+        a_int = diurnal(2.0 * rate, dur, period_s=dur / 2, seed=0)
+    else:
+        loaded = load_schedule(args.trace)   # recorded schedule replay
+        if isinstance(loaded, dict):
+            # multi-stream recording (drive_live --record): replay every
+            # class it holds, falling back to the defaults for the rest
+            a_int = loaded.get("interactive", poisson(rate, dur, seed=0))
+            a_batch = loaded.get("batch", a_batch)
+        else:
+            a_int = loaded
+
+    classes = [
+        SLOClass("interactive", deadline_ms=base_ms * 8, priority=2),
+        SLOClass("batch", deadline_ms=base_ms * 30, priority=0,
+                 drop_policy=DEGRADE),
+    ]
+    streams = {"interactive": a_int, "batch": a_batch}
+    # warm each bucket ladder for every profiled subnet (the arbiter's
+    # governors pick from the LUT): the live trace meets no cold pair
+    warm = list(dict.fromkeys(p.subnet for p in lut.points))
+    store = CalibrationStore() if args.calibrate else None
+    batch_server = build_server(arch, cfg, max_batch=server.max_batch,
+                                batch_buckets=server.batch_buckets,
+                                pipeline=server.pipeline,
+                                device=server.device, seed=args.seed,
+                                calibration=store, tenant="batch")
+    # the profiling server becomes the interactive tenant: tag it so its
+    # measured energy lands under the right calibration row
+    server.calibration, server.tenant = store, "interactive"
+    servers = {"interactive": server, "batch": batch_server}
+    for s in servers.values():
+        s.warm(warm, example_input=x[0])
+    arbiter = ResourceArbiter(interval_s=0.05, calibration=store,
+                              tracer=tracer, metrics=metrics)
+    for c in classes:
+        # two modelled 1-chip slices: the measured LUT profiles chips=1,
+        # so a 2-chip pool lets both tenants hold a slice at once
+        arbiter.register(c.name, lut, target_latency_ms=c.service_target_ms,
+                         priority=c.priority, server=servers[c.name])
+    report = drive_live(
+        classes, servers, arbiter, streams, lambda name: x[0],
+        g_fn=lambda: GlobalConstraints(total_chips=2),
+        record_path=args.record, tracer=tracer, metrics=metrics, sink=sink)
+    print(f"\ntrace mode [{args.trace}] {len(a_int)} interactive + "
+          f"{len(a_batch)} batch arrivals over {dur:.1f}s")
+    for name, cs in report.classes.items():
+        print(f"  {name:12s} {cs.summary()}")
+    print(f"  arbiter      {report.arbiter}")
+    if args.record:
+        print(f"  recorded actual arrivals -> {args.record}")
+    _report_calibration(store, args)
+    _emit_obs(args, tracer, arbiter.metrics)
+    return TraceRun(report=report, classes=classes, streams=streams,
+                    servers=servers, arbiter=arbiter, tracer=tracer,
+                    metrics=metrics, store=store)
+
+
+def _emit_obs(args, tracer, metrics):
+    """Write --trace-out / --metrics-out artifacts and print the
+    per-class latency decomposition for the retained traces."""
+    if tracer is not None and args.trace_out:
+        n = write_chrome_trace(tracer, args.trace_out)
+        print(f"  trace: {len(tracer.requests())} request trees retained "
+              f"({tracer.dropped} evicted), {n} events -> {args.trace_out}")
+        decomp = decompose_latency(tracer)
+        if decomp:
+            print(format_decomposition(decomp))
+    if metrics is not None and args.metrics_out:
+        text = (metrics.to_prometheus()
+                if args.metrics_out.endswith(".prom")
+                else metrics.to_json())
+        with open(args.metrics_out, "w") as f:
+            f.write(text)
+        print(f"  metrics snapshot -> {args.metrics_out}")
+
+
+def _report_calibration(store, args):
+    if store is None:
+        return
+    s = store.summary()
+    print(f"  calibration: {len(s['latency'])} (subnet, bucket) latency "
+          f"columns, power rows: {s['power']}")
+    if args.calibrate_out:
+        store.save(args.calibrate_out)
+        print(f"  calibration store saved -> {args.calibrate_out}")
+
+
 def main(argv=None):
     args = parse_args(argv)
     arch = get_arch(args.arch)
@@ -182,11 +361,19 @@ def main(argv=None):
     ).astype(np.float32)
     specs, governors, base_ms = profile(server, cfg, x,
                                         trace_steps=args.trace_steps)
+    if args.trace:
+        run_trace_mode(args, arch, cfg, server,
+                       governors["joint (paper)"].lut, x, base_ms)
+        return
+    tracer = Tracer() if args.trace_out else None
+    metrics = MetricsRegistry() if args.metrics_out else None
+    server.tracer, server.metrics = tracer, metrics
     # warm the bucket ladder for every profiled subnet (anything the
     # governor may pick) so serving starts with no cold (subnet, bucket)
     server.warm(specs, example_input=x[0])
     serve_requests(server, governors["joint (paper)"], base_ms, x[0],
                    args.requests)
+    _emit_obs(args, tracer, metrics)
 
 
 if __name__ == "__main__":

@@ -23,12 +23,21 @@ It serves a supernet through its Pareto sub-networks:
 * the runtime governor in the loop: every ``govern_every`` batches it
   re-reads the performance target + hardware state and may switch the
   active sub-network and the (modelled) DVFS point;
-* wall-clock measurement (:meth:`measure`) that feeds the measured LUT.
+* wall-clock measurement hooks that feed the measured LUT, and — with a
+  :class:`repro_torch.runtime.telemetry.CalibrationStore` attached — the
+  CLOSED measurement loop: every completed batch records its
+  dispatch→ready latency under its ``(SubnetSpec, bucket)`` executable
+  key and its measured energy/busy under the server's tenant label, the
+  numbers the LUT columns and the arbiter's energy objective then plan
+  off.
 
 Served logits are float32 numpy rows (numpy has no bfloat16; the
-reference's bf16 ``y`` is an ml_dtypes array).  The request tracer,
-metrics registry and calibration store hooks come with a later slice of
-the port: passing them raises.
+reference's bf16 ``y`` is an ml_dtypes array).  The forward is eager: the
+call that issues it returns once every kernel of the forward has been
+enqueued, so on the card the request tracer's ``dispatch`` span holds the
+host's issue time and ``device`` only what the device still had to do
+after it.  The reference's chaos hooks (``wedge``/``unwedge``) come with
+the port's chaos slice.
 
 The worker blocks on the request queue and on pause/resume events (no
 polling): an idle or paused server burns no CPU and wakes immediately.
@@ -49,6 +58,7 @@ from repro_torch.analysis.guards import guarded_by
 from repro_torch.core.elastic import spec_to_static
 from repro_torch.core.types import SubnetSpec
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.obs import trace as obs
 from repro_torch.runtime import hwmodel as hm
 from repro_torch.runtime.lut import bucket_ladder
 
@@ -62,6 +72,8 @@ class Request:
     x: Any
     t_submit: float
     future: "queue.Queue"
+    trace_id: Optional[int] = None   # obs: span tree begun upstream
+    t_take: float = 0.0              # obs: collector pulled it off the queue
 
 
 @dataclasses.dataclass
@@ -75,12 +87,14 @@ class _InFlight:
     subnet: str
     buf_key: tuple             # pad-buffer pool slot to recycle when ready
     buf: Optional[torch.Tensor]  # None once returned to the pool
-    spec: SubnetSpec = SubnetSpec()   # the dispatched
+    spec: SubnetSpec = SubnetSpec()   # calibration key: the dispatched
     bucket: int = 0                   # (SubnetSpec, bucket) executable
+    t_collect: float = 0.0     # obs: batch window closed (stacking starts)
+    t_disp_ret: float = 0.0    # obs: the forward's issuing call returned
 
 
 @guarded_by("_wake_lock", "_wake_tokens")
-@guarded_by("_acct_lock", "_outstanding")
+@guarded_by("_acct_lock", "_outstanding", "_arrivals")
 class DynamicServer:
     def __init__(self, apply_fn: Callable, params, dims: Dict[str, int], *,
                  governor=None, max_batch: int = 8, timeout_ms: float = 5.0,
@@ -89,7 +103,10 @@ class DynamicServer:
                  batch_buckets: bool = True, pipeline: bool = True,
                  pipeline_depth: int = 2, example_input=None,
                  switch_log_cap: int = 1024,
-                 calibration=None, tracer=None, metrics=None, device=None):
+                 adaptive_window: bool = False,
+                 min_window_ms: float = 0.5,
+                 calibration=None, tenant: Optional[str] = None,
+                 tracer=None, metrics=None, device=None):
         """``apply_fn(params, x, E) -> output``: the model on device tensors
         (``params`` already on ``device``; ``x`` a device batch).
 
@@ -104,17 +121,28 @@ class DynamicServer:
         whole bucket ladder (one execution per bucket) instead of only
         building the closures.
 
-        ``calibration``, ``tracer`` and ``metrics`` come with a later slice
-        of the port and raise ``NotImplementedError`` when given.  The
-        reference's adaptive batching window, tenant label and arbiter,
-        cluster and chaos methods come with the slice that calls them.
+        ``adaptive_window=True`` sizes the batching window from the
+        arrival-rate EWMA the arbiter tracks: under load the collector
+        holds the window open only about one expected inter-arrival time
+        (floored at ``min_window_ms``), when traffic is sparse it keeps
+        the full ``timeout_ms``.
+
+        ``calibration`` (a :class:`repro_torch.runtime.telemetry
+        .CalibrationStore`) closes the measurement loop: every completed
+        batch records its dispatch→ready latency under its
+        ``(SubnetSpec, bucket)`` key, and — when ``tenant`` names this
+        server's workload — its measured energy/busy integral.
+
+        ``tracer`` (a :class:`repro_torch.obs.Tracer`) records each
+        request's span tree — queue / collect / stack / dispatch / device
+        / complete — into the shared buffer; upstream layers (the traffic
+        driver) begin the trace with the SLO class and pass ``trace_id``
+        to :meth:`submit`, or the engine begins its own under the tenant
+        label.  ``metrics`` (a :class:`repro_torch.obs.MetricsRegistry`)
+        gets served/cancelled counters and a request-latency histogram.
+        Both default to None = zero work on the hot path; the traffic
+        driver also sets them post-construction.
         """
-        for name, hook in (("calibration", calibration), ("tracer", tracer),
-                           ("metrics", metrics)):
-            if hook is not None:
-                raise NotImplementedError(
-                    f"DynamicServer({name}=...) comes with a later slice of "
-                    f"the port")
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.params = params
@@ -143,14 +171,25 @@ class DynamicServer:
         # reads.  Steady state: zero host allocation.
         self._pad_pool: Dict[Tuple[int, tuple, str], List[torch.Tensor]] = {}
         self._pad_lock = threading.Lock()
+        self.adaptive_window = adaptive_window
+        self.min_window_s = min_window_ms / 1e3
+        self.calibration = calibration
+        self.tenant = tenant
+        self.tracer = tracer
+        self.metrics = metrics
+        self.trace_node: Optional[str] = None   # cluster sets the node label
+        self._arrival_rate_rps = 0.0
         self._queue: "queue.Queue" = queue.Queue()
         # _WAKE entries in _queue (not real backlog); lock-protected because
-        # pause()/stop() (callers) and the worker all touch it and
-        # queue_depth() reads it
+        # pause()/stop() (arbiter clock, callers) and the worker all touch
+        # it and queue_depth() feeds the arbiter's water-filling
         self._wake_tokens = 0     # guarded-by: _wake_lock
         self._wake_lock = threading.Lock()
-        # unresolved futures; drain() waits on it
+        # unresolved futures + arrivals since the last arbiter pull; drain()
+        # waits on _outstanding and the arbiter's EWMA feeds off
+        # take_arrival_count()
         self._outstanding = 0     # guarded-by: _acct_lock
+        self._arrivals = 0        # guarded-by: _acct_lock
         self._acct_lock = threading.Lock()
         self._draining = False
         self._fail_reason: Optional[str] = None
@@ -280,19 +319,40 @@ class DynamicServer:
                       "latency_ms": (time.perf_counter() - r.t_submit) * 1e3,
                       "subnet": None})
         self.cancelled += 1
+        if self.tracer is not None and r.trace_id is not None:
+            # retain the partial tree: a retried attempt links back to this
+            # trace_id, and a link whose target was popped from the buffer
+            # can never resolve in the exported trace
+            self.tracer.abort_request(r.trace_id, retain=True)
+        if self.metrics is not None:
+            # node label: engine series from different nodes must not
+            # collide in a shared cluster registry
+            self.metrics.counter("engine_cancelled_total",
+                                 tenant=self.tenant or "default",
+                                 node=self.trace_node or "").inc()
         with self._acct_lock:
             self._outstanding = max(0, self._outstanding - 1)
 
     def _stop_reason(self) -> str:
         return self._fail_reason or "server stopped"
 
-    def submit(self, x) -> "queue.Queue":
+    def submit(self, x, trace_id: Optional[int] = None) -> "queue.Queue":
         """Queue one request (one image, host array); the returned future
         resolves to ``{"y", "latency_ms", "subnet"}`` or a cancel payload."""
         fut: "queue.Queue" = queue.Queue(maxsize=1)
-        r = Request(x=x, t_submit=time.perf_counter(), future=fut)
+        t_submit = time.perf_counter()
+        if self.tracer is not None and trace_id is None:
+            # standalone server: begin the tree here under the tenant label
+            # (an upstream layer begins it earlier, with the SLO class, and
+            # hands us its trace_id)
+            trace_id = self.tracer.begin_request(
+                self.tenant or "default", t=t_submit, node=self.trace_node)
+        # retry layers read the id back off the future to link attempts
+        fut.trace_id = trace_id
+        r = Request(x=x, t_submit=t_submit, future=fut, trace_id=trace_id)
         with self._acct_lock:
             self._outstanding += 1
+            self._arrivals += 1
         if self._stop.is_set() or self._draining:
             # stopped/draining server: resolve immediately instead of
             # queueing a request no worker will ever pick up
@@ -311,8 +371,29 @@ class DynamicServer:
         with self._acct_lock:
             return self._outstanding
 
+    def take_arrival_count(self) -> int:
+        """Arrivals since the last call — the arbiter's EWMA input."""
+        with self._acct_lock:
+            n = self._arrivals
+            self._arrivals = 0
+            return n
+
+    def note_arrival_rate(self, rps: float):
+        """The arbiter pushes its smoothed per-tenant arrival rate here;
+        the adaptive batching window is sized from it."""
+        self._arrival_rate_rps = max(0.0, float(rps))
+
+    def effective_timeout_s(self) -> float:
+        """Current batching window: the expected inter-arrival time under
+        load (floored at ``min_window_s``), the full ``timeout_s`` when
+        sparse, and always ``timeout_s`` unless ``adaptive_window``."""
+        rate = self._arrival_rate_rps
+        if not self.adaptive_window or rate <= 0.0:
+            return self.timeout_s
+        return min(self.timeout_s, max(self.min_window_s, 1.0 / rate))
+
     def queue_depth(self) -> int:
-        """Requests waiting for a batch."""
+        """Requests waiting for a batch (the arbiter's backlog signal)."""
         with self._wake_lock:
             tokens = self._wake_tokens
         return max(0, self._queue.qsize() - tokens)
@@ -355,12 +436,15 @@ class DynamicServer:
                 self._took_wake()
                 break
             if not reqs:
-                deadline = time.perf_counter() + self.timeout_s
+                deadline = time.perf_counter() + self.effective_timeout_s()
+            if self.tracer is not None:
+                r.t_take = time.perf_counter()
             reqs.append(r)
         return reqs
 
     def pause(self):
-        """Park the worker: requests queue up but no compute is consumed."""
+        """Park the worker: requests queue up but no compute is consumed
+        (the arbiter starves a workload this way — its slice is gone)."""
         if not self._paused.is_set():
             self._paused.set()
             self._resume.clear()
@@ -399,6 +483,7 @@ class DynamicServer:
 
     def _dispatch(self, reqs: List[Request]) -> _InFlight:
         """Stack + pad to the nearest bucket and enqueue the forward."""
+        t_collect = time.perf_counter() if self.tracer is not None else 0.0
         xs = [np.asarray(r.x) for r in reqs]
         n = len(xs)
         bucket = self._bucket_for(n)
@@ -418,13 +503,15 @@ class DynamicServer:
             or hm.HwState(chips=1, freq=1.0)
         t_disp = time.perf_counter()
         out = fn(self.params, self._to_device(buf))   # enqueued, not waited
+        t_ret = time.perf_counter() if self.tracer is not None else 0.0
         ready = None
         if self.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
         return _InFlight(out=out, ready=ready, reqs=reqs, t_dispatch=t_disp,
                          hw=hw, subnet=spec.name(), buf_key=buf_key, buf=buf,
-                         spec=spec, bucket=bucket)
+                         spec=spec, bucket=bucket, t_collect=t_collect,
+                         t_disp_ret=t_ret)
 
     def _complete(self, item: _InFlight):
         """Resolve one in-flight batch: wait for the device, account the
@@ -445,6 +532,18 @@ class DynamicServer:
         if dt > 0:
             self.busy_s += dt
             self.measured_energy_mj += hm.slice_power_w(item.hw) * dt * 1e3
+        if self.calibration is not None:
+            # dispatch→ready is the batch's effective service latency
+            # (under pipeline overlap, and behind another tenant's batch on
+            # the shared stream, it includes device queueing, which is
+            # exactly what the replay simulator should price)
+            self.calibration.note_latency(
+                item.spec, item.bucket,
+                (t_ready - item.t_dispatch) * 1e3,
+                max_batch=self.max_batch)
+            if self.tenant is not None and dt > 0:
+                self.calibration.note_energy(
+                    self.tenant, hm.slice_power_w(item.hw) * dt * 1e3, dt)
         for i, r in enumerate(item.reqs):
             r.future.put({"y": out[i],
                           "latency_ms": (t_ready - r.t_submit) * 1e3,
@@ -452,6 +551,37 @@ class DynamicServer:
             with self._acct_lock:
                 self._outstanding = max(0, self._outstanding - 1)
         self.served += len(item.reqs)
+        if self.tracer is not None:
+            # futures are already answered — tracing never delays callers.
+            # Components partition submit→ready exactly, so the tree sums
+            # to the measured latency; `complete` (ready→futures resolved)
+            # is post-measurement and excluded from the total.
+            t_done = time.perf_counter()
+            dev_attrs = {"bucket": item.bucket, "subnet": item.subnet,
+                         "n": len(item.reqs)}
+            for r in item.reqs:
+                if r.trace_id is None:
+                    continue
+                self.tracer.finish_request(
+                    r.trace_id, t=t_ready, node=self.trace_node, spans=[
+                        (obs.QUEUE, r.t_submit, r.t_take, None),
+                        (obs.COLLECT, r.t_take, item.t_collect, None),
+                        (obs.STACK, item.t_collect, item.t_dispatch, None),
+                        (obs.DISPATCH, item.t_dispatch, item.t_disp_ret,
+                         None),
+                        (obs.DEVICE, item.t_disp_ret, t_ready, dev_attrs),
+                        (obs.COMPLETE, t_ready, t_done, None)])
+        if self.metrics is not None:
+            tn = self.tenant or "default"
+            nd = self.trace_node or ""
+            self.metrics.counter("engine_served_total", tenant=tn,
+                                 node=nd).inc(len(item.reqs))
+            hist = self.metrics.histogram("engine_request_ms", tenant=tn,
+                                          node=nd)
+            for r in item.reqs:
+                # exemplar: a p99 bucket names a concrete retained trace
+                hist.observe((t_ready - r.t_submit) * 1e3,
+                             exemplar=r.trace_id)
 
     def _complete_safe(self, item: _InFlight):
         """_complete, never letting an exception kill the thread: a failed

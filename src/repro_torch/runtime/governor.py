@@ -30,6 +30,11 @@ class Constraints:
     power_budget_w: Optional[float] = None
     min_accuracy: Optional[float] = None
     temperature_throttle: float = 1.0   # <1 caps the frequency ladder
+    # multi-workload fields (read by the arbiter, ignored by single-model
+    # governors): arbitration priority and the fraction of the global
+    # budget this workload was granted.
+    priority: int = 0
+    share: float = 1.0
 
 
 class GovernorBase:

@@ -205,10 +205,49 @@ def test_measure_returns_wall_clock_ms():
     assert server.measure(SubnetSpec(), x, iters=2) > 0.0
 
 
-def test_later_slice_hooks_raise():
-    for hook in ("calibration", "tracer", "metrics"):
-        with pytest.raises(NotImplementedError):
-            tiny_server(**{hook: object()})
+@pytest.mark.parametrize("hook", ["calibration", "tracer", "metrics"])
+def test_hooks_record(hook):
+    """Each hook records what it should: the calibration store the
+    (subnet, bucket) latency and the tenant's energy, the tracer a
+    schema-valid span tree per request whose components sum to its
+    latency, the registry the served counter and latency histogram."""
+    from repro_torch.obs import MetricsRegistry, Tracer, validate_schema
+    from repro_torch.obs.analyze import check_trace
+    from repro_torch.runtime import CalibrationStore
+    obj = {"calibration": CalibrationStore, "tracer": Tracer,
+           "metrics": MetricsRegistry}[hook]()
+    x1 = np.zeros((16, 16, 3), "float32")
+    server = tiny_server(max_batch=4, timeout_ms=5.0, tenant="api",
+                         warm_specs=[SubnetSpec()], example_input=x1,
+                         **{hook: obj})
+    server.start()
+    try:
+        outs = [f.get(timeout=60) for f in
+                [server.submit(x1) for _ in range(6)]]
+    finally:
+        server.stop()
+    assert all(not o.get("cancelled") for o in outs)
+    if hook == "calibration":
+        lat = obj.summary()["latency"]
+        assert lat and all(k.startswith("w1-f1-h1-d1/b") for k in lat)
+        assert sum(v["n"] for v in lat.values()) >= 2
+        assert obj.busy_power_w("api") is not None
+    elif hook == "tracer":
+        trees = obj.requests()
+        assert len(trees) == 6 and {t.cls for t in trees} == {"api"}
+        assert validate_schema(obj.spans()) == []
+        for t in trees:
+            check_trace(t)
+            assert [s.name for s in t.spans] == [
+                "queue", "collect", "stack", "dispatch", "device",
+                "complete"]
+    else:
+        assert obj.value("engine_served_total", tenant="api", node="") == 6
+        h = obj.histogram("engine_request_ms", tenant="api", node="")
+        assert h.count == 6
+        server.submit(x1)          # a stopped server cancels and counts it
+        assert obj.value("engine_cancelled_total", tenant="api",
+                         node="") == 1
 
 
 def test_no_card_no_device_raises(monkeypatch):

@@ -51,6 +51,8 @@ def test_serve_imports_with_jax_blocked():
             "import repro_torch.launch.train, repro_torch.core.supernet\n"
             "import repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.optim, repro_torch.distributed.fault\n"
+            "import repro_torch.traffic, repro_torch.obs.export\n"
+            "import repro_torch.runtime.arbiter, repro_torch.runtime.telemetry\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
