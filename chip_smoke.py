@@ -26,10 +26,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the plain path on the card for the max, min and one mid subnet: fp32
    within a stated tolerance, bf16 max-abs error and top-1 agreement;
 6. the main path at full width: ``build_server`` on ``make_config()``, the
-   measured LUT over the serve launcher's subnets, the governor summaries,
-   a ladder warm and 64 requests through the JointGovernor; every future
+   measured LUT over the serve launcher's subnets (each entry a replay of
+   the subnet's CUDA graph at bucket 8), the governor summaries, a ladder
+   warm (every (subnet, bucket) captured as a CUDA graph) and 64 requests
+   through the JointGovernor, served as graph replays; every future
    answered, zero cold (subnet, bucket) pairs, both kernels' launch
-   counters rising while serving, none of the bf16 calls on the old K1
+   counters (replay-accounted: each replay adds the launches its capture
+   recorded) rising while serving, none of the bf16 calls on the old K1
    tile or K2 FMA kernel (per-variant counters), served logits finite and
    equal to a direct forward of the same subnet;
 7. each kernel's device time over the recorded calls of one full-width
@@ -61,11 +64,14 @@ the LM slice (deepseek-moe-16b at full width):
     in the kernel path, which must then agree within a stated tolerance
     (bf16 rounding alone), with the tokens routed differently counted;
 11. the LM main path at full width and full depth (28 layers, bf16,
-    initialised on the card): ``lm_prefill`` of 4 x 512 seed tokens at
-    each operating point (latency, tokens/s, the model-FLOPs bound), then
-    16 teacher-forced ``lm_decode`` steps against a 528-slot cache at the
-    points the reference can decode; every output finite, all three
-    kernels' launch counters rising in prefill and in decode, no bf16 call
+    initialised on the card): ``repro_torch.launch.elastic_moe.run``, the
+    prefill of 4 x 512 seed tokens at each operating point as a CUDA
+    graph (latency, tokens/s, the model-FLOPs bound), then 16
+    teacher-forced decode steps, each a replay of one graph per point over
+    a 528-slot cache whose fill lives on the device, at the points the
+    reference can decode; every output finite, all three kernels'
+    replay-accounted launch counters rising in prefill and in decode, no
+    bf16 call
     on the old K1 tile, K2 FMA or K3 tile kernel, no fp32 router call on
     K1's tile (f32_splitk at prefill, small_m at decode), every K3 call on
     tma in prefill and on stream in decode (counted by stage in this
@@ -91,7 +97,10 @@ the LM slice (deepseek-moe-16b at full width):
     router calls as a row of their own (``torch.matmul`` in fp32, TF32
     off);
 14. with ``--parent-csrc`` only: the full point's prefill and decode step
-    as wall time, on this tree's kernels and on the parent's, in turns;
+    as wall time, on this tree's kernels and on the parent's, in turns,
+    both eager (a parent before the device-length K2 decode reads the
+    cache's fill on the host, which no graph can capture), then this
+    tree's as graph replays;
 
 the training slice (sandwich-rule supernet training of the full-width
 Dynamic-OFA ViT, batch 256, bf16):
@@ -154,7 +163,25 @@ multi-tenant ResourceArbiter):
     class's percentiles, goodput and mean batch, the arbiter summary, the
     p50/p95 decomposition, the recorded schedule's p95 replayed through
     ``simulate(calibration=store)`` beside the live p95, the LUT's spread
-    and the launches by variant.
+    and the launches by variant (both servers serve graph replays);
+
+the compiled executables (CUDA graphs, the reference's jit executables):
+
+21. in two halves.  The LM's, at the end of the LM slice while its
+    weights are on the card: K2 decode over a whole 528-slot cache with
+    the fill on the device against its plain version at fills 1, mid and
+    capacity, eagerly and under graph replays; ``elastic_moe.run`` eager
+    beside phase 11's graph run: prefill and decode-step wall and event
+    time at every point, peak memory and the graph pool, and the 16
+    graph decode steps' logits within 2e-2 of the largest eager logit at
+    every decodable point.  The ViT's, after phase 20: at bucket 8 for
+    all 25 subnets the eager forward's wall (median of 5), the graph
+    replay's wall (``server.measure``) and its device time (events around
+    the replay); graph logits equal to the eager forward bit for bit;
+    captures equal to subnets x buckets on both servers (phase 20's batch
+    server all at warm), no cold pair; the graph LUT's full subnet slower
+    than its smallest, its spread and its rank correlation with
+    ``subnet_flops_ratio``; each server's graph-pool memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -311,10 +338,28 @@ def k1_work(args, kw) -> tuple:
             2 * M * k_act * n_act, peak)
 
 
+# the host value of each recorded decode call's device key count, read
+# once outside any capture (the library yardstick and the bound need it)
+_HOST_LEN = {}
+
+
+def host_len(kv_len) -> int:
+    """int(kv_len), read afresh outside a graph capture and remembered
+    for the capture (where a device read is illegal)."""
+    import torch
+    got = _HOST_LEN.get(id(kv_len))
+    if not torch.cuda.is_current_stream_capturing() or got is None \
+            or got[0] is not kv_len:
+        got = _HOST_LEN[id(kv_len)] = (kv_len, int(kv_len))
+    return got[1]
+
+
 def k2_work(args, kw) -> tuple:
     q, k, _ = args
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
+    if kw.get("kv_len") is not None:      # the cache's valid keys only
+        T = host_len(kw["kv_len"])
     if kw.get("causal", True):
         pairs = sum(min(T, s + 1) for s in range(S))
     else:
@@ -347,15 +392,18 @@ def k1_library(x, w, k_act, n_act, n_out=None):
     return torch.matmul(x[..., :k_act], w[:k_act, :n_act])
 
 
-def k2_plain(q, k, v, causal=True):
+def k2_plain(q, k, v, causal=True, kv_len=None):
     from repro_torch.kernels import flash_attention as fa
-    return fa.flash_attention_plain(q, k, v, causal=causal)
+    return fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
 
 
-def k2_library(q, k, v, causal=True):
+def k2_library(q, k, v, causal=True, kv_len=None):
     """The yardstick: scaled_dot_product_attention on (B, H, S, D) views
-    (the port never calls it)."""
+    (the port never calls it), over the valid keys of a decode cache."""
     import torch.nn.functional as F
+    if kv_len is not None:
+        n = host_len(kv_len)
+        k, v = k[:, :n], v[:, :n]
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=causal, enable_gqa=k.shape[2] != q.shape[2])
@@ -542,6 +590,9 @@ K1_BWD_TMA = ("repro_elastic_matmul_dgrad_tma",
 # the variant choice, {variant: the variant it took before}); a parent
 # without one runs those calls on the older variant, through this tree's
 # wrapper and the parent's library
+# K2's decode launcher since it reads the key count on the device; a
+# parent without it runs decode calls through its host-count entry point
+K2_DECODE_LEN = "repro_flash_attention_decode_len"
 LATER_VARIANTS = {
     "elastic_matmul": ("repro_elastic_matmul_f32_splitk", "choose_variant",
                        {"f32_splitk": "tile_f32"}),
@@ -631,14 +682,46 @@ def parent_kernels(csrc: str) -> dict:
                       if a.dtype == torch.bfloat16 else None)
         return call
     for name, mod, skip in (("elastic_matmul", em, K1_BWD_TMA),
-                            ("flash_attention", fa, ())):
+                            ("flash_attention", fa, (K2_DECODE_LEN,))):
         skip = (*skip, LATER_VARIANTS[name][0])
         if not exports_all(name, mod, skip):
             raise RuntimeError(f"parent {name} lacks a launcher of "
                                f"{sorted(set(mod._ARGTYPES) - set(skip))}")
     k1_tma_bwd = all(hasattr(libs["elastic_matmul"], fn)
                      for fn in K1_BWD_TMA)
-    return {"k1": ops.elastic_matmul_op, "k2": ops.flash_attention_op,
+    k2 = ops.flash_attention_op
+    if not hasattr(libs["flash_attention"], K2_DECODE_LEN):
+        f_dec = libs["flash_attention"].repro_flash_attention_decode
+        f_dec.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        f_dec.restype = ctypes.c_int
+
+        def k2(q, k, v, causal=True, kv_len=None):
+            """The parent's K2 at a host key count: its decode entry point
+            (the wrapper's decode branch of its time), anything else
+            through this tree's wrapper on the valid keys."""
+            B, S, H, D = q.shape
+            T = k.shape[1] if kv_len is None else host_len(kv_len)
+            k, v = k[:, :T], v[:, :T]
+            T_seen = min(T, 1) if causal and S == 1 else T
+            if fa.choose_variant(S, T_seen, H, k.shape[2], D, q.dtype,
+                                 fa._aligned(q, k, v)) != "decode":
+                return ops.flash_attention_op(q, k, v, causal=causal)
+            o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+            st = (ctypes.c_longlong * 12)(
+                *(x for t in (q, k, v, o) for x in t.stride()[:3]))
+            splits, chunk = fa.decode_plan(T_seen, B * k.shape[2])
+            ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                             device=q.device)
+            rc = f_dec(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       ws.data_ptr(), B, H, k.shape[2], T_seen, D, st,
+                       1.0 / math.sqrt(D), splits, chunk,
+                       torch.cuda.current_stream(q.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K2 decode launch failed ({rc})")
+            return o
+    return {"k1": ops.elastic_matmul_op, "k2": k2,
             "k3": ops.expert_matmul_op
             if exports_all("expert_matmul", xm) else k3,
             "k1_dgrad": em.elastic_matmul_dgrad if k1_tma_bwd
@@ -1009,9 +1092,13 @@ def lm_phases(dev, parent) -> dict:
                            generator=torch.Generator(device=dev).manual_seed(1))
     prompt = tokens[:, :PREFILL_LEN]
     ops.reset_launch_counts()
+    # on the card run() captures each point's prefill and decode step as
+    # CUDA graphs and times their replays
     rows = elastic_moe.run(params, cfg, tokens, PREFILL_LEN, iters=2)
     out["launches"] = ops.launch_counts()
     out["variants"] = ops.variant_counts()
+    out["graph_rows"] = rows
+    out["graph_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     full_flops = lm_model_flops(cfg, "prefill", LM_BATCH, PREFILL_LEN)
     for r in rows:
         if r["logits"].shape != (LM_BATCH, cfg.vocab_size) or \
@@ -1051,12 +1138,12 @@ def lm_phases(dev, parent) -> dict:
         raise AssertionError(f"fp32 router calls took tile_f32: "
                              f"{out['variants']['elastic_matmul']}")
     # K3's launches by variant in each stage of this run: bf16 prefill on
-    # tma, decode on stream (the prefills are all launches but the steps')
-    dec = {v: sum(r["decode_variants"]["expert_matmul"][v] for r in rows
-                  if "decode_variants" in r) for v in xm.VARIANTS}
-    out["k3_by_stage"] = {"prefill": {
-        v: n - dec[v] for v, n in out["variants"]["expert_matmul"].items()},
-        "decode": dec}
+    # tma, decode on stream (the timed replays; a capture's eager warm-up
+    # counts in the totals above, not here)
+    out["k3_by_stage"] = {
+        stage: {v: sum(r[f"{stage}_variants"]["expert_matmul"][v]
+                       for r in rows if f"{stage}_variants" in r)
+                for v in xm.VARIANTS} for stage in ("prefill", "decode")}
     log(f"  K3 launches by variant: prefill {out['k3_by_stage']['prefill']}"
         f", decode {out['k3_by_stage']['decode']}")
     k3_on_stage(out["k3_by_stage"])
@@ -1066,7 +1153,8 @@ def lm_phases(dev, parent) -> dict:
     with torch.inference_mode():
         _, caches = lm_prefill(params, prompt, cfg, max_len=T_cache)
         twin, pinned = ({k: [{"k": c["k"].clone(), "v": c["v"].clone(),
-                              "len": c["len"]} for c in v]
+                              "len": c["len"].clone(), "fill": c["fill"]}
+                             for c in v]
                          for k, v in caches.items()} for _ in range(2))
         tape_k, tape_p = [], []
         with router_tape(moe_mod, tape_k):
@@ -1160,6 +1248,8 @@ def lm_phases(dev, parent) -> dict:
         elif key == "k2":
             what = (f"B={x.shape[0]} S={x.shape[1]} T={w.shape[1]} "
                     f"H={x.shape[2]} D={x.shape[3]} causal={kw['causal']}")
+            if kw.get("kv_len") is not None:
+                what += f" valid keys {host_len(kw['kv_len'])}"
         else:
             what = (f"E={x.shape[0]} C={x.shape[1]} K={x.shape[2]} "
                     f"F={w.shape[2]} live rows {int(args[2].sum())}")
@@ -1267,8 +1357,137 @@ def lm_phases(dev, parent) -> dict:
             params, cfg, tokens, targets,
             {k: parent[k] for k in ("k1", "k2", "k3")}, parent["libs"])
         log(f"  ({time.perf_counter() - t0:.1f} s)")
+    out["compiled"] = lm_compiled(params, cfg, tokens, rows,
+                                  out["graph_peak_gib"], dev)
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+# phase 21: graph decode logits within this share of the largest eager
+# logit (the same kernels in the same order: bf16 noise at most)
+GRAPH_DECODE_REL_TOL = 2e-2
+
+
+def lm_compiled(params, cfg, tokens, graph_rows, graph_peak, dev) -> dict:
+    """Phase 21, the LM's half: K2 decode through the device length at
+    fills 1, mid and capacity (eager and under graph replays), then
+    ``elastic_moe.run`` eager beside phase 11's graph run."""
+    import torch
+
+    from repro_torch.graphs import Graph, new_pool
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic_moe
+
+    t0 = phase("21. compiled executables, the LM: K2 decode with the fill "
+               "on the device; prefill and decode step eager against CUDA "
+               "graphs at every point")
+    out = {}
+    B, total = tokens.shape
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = (torch.randn(B, 1, H, D, generator=g, device=dev) * 0.3
+         ).to(torch.bfloat16)
+    ck = (torch.randn(B, total, KH, D, generator=g, device=dev) * 0.3
+          ).to(torch.bfloat16)
+    cv = torch.randn(B, total, KH, D, generator=g, device=dev
+                     ).to(torch.bfloat16)
+    n = torch.full((), 1, dtype=torch.int32, device=dev)
+    fills = (1, total // 2, total)
+    splits, chunk = fa.decode_plan(total, B * KH)
+
+    def plain(fill):
+        with ops.plain_kernels():
+            return ops.flash_attention_op(q, ck[:, :fill], cv[:, :fill],
+                                          causal=False)
+    errs, dev_ms = {}, {}
+    with torch.inference_mode():
+        graph = Graph(lambda t: ops.flash_attention_op(
+            q, ck, cv, causal=False, kv_len=t), [n], pool=new_pool(),
+            stream=torch.cuda.Stream(dev))
+        for fill in fills:
+            n.fill_(fill)
+            before = fa.variant_launches["decode"]
+            o = ops.flash_attention_op(q, ck, cv, causal=False, kv_len=n)
+            if fa.variant_launches["decode"] != before + 1:
+                raise AssertionError("K2 with a device length left decode")
+            want = plain(fill)
+            err = close(o, want, ATTN_TOL["bfloat16"])
+            o_g = graph.run(torch.full((), fill, dtype=torch.int32,
+                                       device=dev))
+            err = max(err, close(o_g, want, ATTN_TOL["bfloat16"]))
+            errs[fill] = err
+            start, end = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            with graph.lock:
+                graph.replay()                      # warm
+                start.record()
+                for _ in range(20):
+                    graph.replay()
+                end.record()
+            torch.cuda.synchronize()
+            dev_ms[fill] = start.elapsed_time(end) / 20
+    del graph
+    log(f"  K2 decode over the whole {total}-slot cache (B {B}, H {H}, D "
+        f"{D}; plan from capacity: {splits} splits of {chunk} keys): "
+        + ", ".join(f"fill {f}: max abs err {errs[f]:.3g}, device "
+                    f"{dev_ms[f] * 1e3:.2f} us a call (graph)"
+                    for f in fills)
+        + f" (tol {ATTN_TOL['bfloat16']}; eager and graph replay)")
+    out["k2_decode"] = {"fills": list(fills), "max_abs_err": errs,
+                        "device_us": {f: dev_ms[f] * 1e3 for f in fills},
+                        "splits": splits, "chunk": chunk}
+    del q, ck, cv
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager_rows = elastic_moe.run(params, cfg, tokens, PREFILL_LEN, iters=2,
+                                 graphs=False)
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pool = graph_rows[-1].get("graph_pool_bytes")
+    rows = []
+    for eg, gr in zip(eager_rows, graph_rows, strict=True):
+        row = {"point": gr["name"]}
+        for kind in ("prefill", "decode"):
+            if f"{kind}_ms" in gr:
+                row[kind] = {"eager_ms": eg[f"{kind}_ms"],
+                             "eager_event_ms": eg[f"{kind}_event_ms"],
+                             "graph_ms": gr[f"{kind}_ms"],
+                             "graph_event_ms": gr[f"{kind}_event_ms"]}
+        if "decode_logits" in gr:
+            ref = eg["decode_logits"].float()
+            rel = float((gr["decode_logits"].float() - ref).abs().max()
+                        / ref.abs().max())
+            row["decode_rel_err"] = rel
+            if not torch.isfinite(gr["decode_logits"]).all() or \
+                    rel > GRAPH_DECODE_REL_TOL:
+                raise AssertionError(
+                    f"{gr['name']}: {DECODE_STEPS} graph decode steps "
+                    f"differ from eager by {rel:.3g} of the largest logit "
+                    f"(tol {GRAPH_DECODE_REL_TOL})")
+        rows.append(row)
+        line = f"  {gr['name']:24s}"
+        for kind in ("prefill", "decode"):
+            if kind in row:
+                r = row[kind]
+                line += (f" {kind} eager {r['eager_ms']:7.2f} ms (events "
+                         f"{r['eager_event_ms']:7.2f}), graph "
+                         f"{r['graph_ms']:7.2f} ms (device "
+                         f"{r['graph_event_ms']:7.2f});")
+        if "decode_rel_err" in row:
+            line += (f" {DECODE_STEPS} graph steps vs eager: max abs err "
+                     f"{row['decode_rel_err']:.3g} of the largest logit")
+        else:
+            line += " decode n/a (F4)"
+        log(line)
+    out.update(rows=rows, eager_peak_gib=eager_peak,
+               graph_peak_gib=graph_peak,
+               graph_pool_gib=None if pool is None else pool / 2**30)
+    log(f"  peak device memory (weights included): eager run "
+        f"{eager_peak:.2f} GiB, graph run (phase 11, captures included) "
+        f"{graph_peak:.2f} GiB; the LM's graph pool "
+        f"{'not measured' if pool is None else f'{pool / 2**30:.2f} GiB'}"
+        f" ({time.perf_counter() - t0:.1f} s)")
     return out
 
 
@@ -1276,14 +1495,15 @@ def end_to_end(params, cfg, tokens, targets, parent_ops: dict,
                parent_libs) -> dict:
     """Wall time of the full point's prefill (mean of 2 after a warm-up)
     and decode step (mean of the 16 teacher-forced steps after a prefill)
-    as ``repro_torch.launch.elastic_moe.run`` times them, on this tree's
-    kernels and on the parent's (its ops routed in at ``targets``), in
-    turns parent, kernel, kernel, parent, ``E2E_ROUNDS`` times; the mean
+    as ``repro_torch.launch.elastic_moe.run`` times them, eagerly on this
+    tree's kernels and on the parent's (its ops routed in at
+    ``targets``), in turns parent, kernel, kernel, parent, ``E2E_ROUNDS``
+    times; then twice on this tree's kernels as graph replays; the mean
     and the median of each."""
     import torch
 
     from repro_torch.launch import elastic_moe
-    from repro_torch.launch.steps import lm_decode, lm_prefill
+    from repro_torch.launch.steps import LMGraphs, lm_decode, lm_prefill
     dev = tokens.device
     prompt = tokens[:, :PREFILL_LEN]
 
@@ -1306,6 +1526,22 @@ def end_to_end(params, cfg, tokens, targets, parent_ops: dict,
                     runs[who].append(once())
             else:
                 runs[who].append(once())
+    # this tree's full point as graph replays (phase 11's way), after
+    with torch.inference_mode():
+        lm = LMGraphs(params, cfg, tokens.shape[0], PREFILL_LEN,
+                      tokens.shape[1], dev)
+        lm.capture()
+
+        def graphed():
+            pre_ms, _ = elastic_moe.timed(lambda: lm.prefill(prompt), dev, 2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t in range(PREFILL_LEN, tokens.shape[1]):
+                lm.decode(tokens[:, t:t + 1])
+            torch.cuda.synchronize()
+            return pre_ms, (time.perf_counter() - t1) / DECODE_STEPS * 1e3
+        runs["kernel, graphs"] = [graphed() for _ in range(2)]
+        del lm
     res = {}
     for who, rs in runs.items():
         pre, dec = [r[0] for r in rs], [r[1] for r in rs]
@@ -1314,7 +1550,7 @@ def end_to_end(params, cfg, tokens, targets, parent_ops: dict,
                     "prefill_median_ms": statistics.median(pre),
                     "decode_median_ms": statistics.median(dec),
                     "prefill_runs": pre, "decode_runs": dec}
-        log(f"  {who:6s} prefill {res[who]['prefill_ms']:.2f} ms (median "
+        log(f"  {who:14s} prefill {res[who]['prefill_ms']:.2f} ms (median "
             f"{res[who]['prefill_median_ms']:.2f}; runs "
             f"{', '.join(f'{t:.2f}' for t in pre)}); decode "
             f"{res[who]['decode_ms']:.2f} ms/step (median "
@@ -2177,11 +2413,137 @@ def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
     seconds = time.perf_counter() - t0
     log(f"  ({seconds:.1f} s)")
     return {"launches": launches, "variants": variants,
+            "servers": run.servers,
             "trace_variants": during, "classes": {
                 n: cs.summary() for n, cs in rep.classes.items()},
             "decomposition": decomp, "replay": replay,
             "lut_spread_ms": [lo.latency_ms, hi.latency_ms],
             "served_err": err_served, "seconds": seconds}
+
+
+def ranks(xs) -> list:
+    """Ranks of xs (ties share their mean rank)."""
+    order = sorted(range(len(xs)), key=lambda i: xs[i])
+    r = [0.0] * len(xs)
+    i = 0
+    while i < len(order):
+        j = i
+        while j + 1 < len(order) and xs[order[j + 1]] == xs[order[i]]:
+            j += 1
+        for k in range(i, j + 1):
+            r[order[k]] = (i + j) / 2
+        i = j + 1
+    return r
+
+
+def spearman(a, b) -> float:
+    """Rank correlation of two sequences."""
+    ra, rb = ranks(a), ranks(b)
+    ma, mb = statistics.fmean(ra), statistics.fmean(rb)
+    cov = sum((x - ma) * (y - mb) for x, y in zip(ra, rb))
+    va = sum((x - ma) ** 2 for x in ra)
+    vb = sum((y - mb) ** 2 for y in rb)
+    return cov / math.sqrt(va * vb) if va and vb else float("nan")
+
+
+def vit_compiled(servers: dict, specs, lut, x, cfg, dims) -> dict:
+    """Phase 21, the ViT's half: eager forward against graph replay for
+    every profiled subnet at bucket 8 on phase 6's server (the interactive
+    tenant of phase 20), the captures of both servers, the graph LUT."""
+    import torch
+
+    from repro_torch.core.elastic import spec_to_static
+    from repro_torch.runtime.lut import subnet_flops_ratio
+
+    t0 = phase("21. compiled executables, the ViT: eager forward against "
+               "CUDA-graph replay at bucket 8 for every profiled subnet")
+    server = servers["interactive"]
+    want = len(specs) * len(server.buckets)
+    captures = {}
+    for name, srv in servers.items():
+        held = sum(srv.graph(sp, b) is not None for sp in specs
+                   for b in srv.buckets)
+        captures[name] = srv.captures
+        if held != want or srv.captures != want or srv.cold_compiles:
+            raise AssertionError(
+                f"{name} server: {held} of {want} (subnet, bucket) graphs, "
+                f"{srv.captures} captures, cold {srv.cold_compiles}")
+    dev = server.device
+    xd = torch.from_numpy(x).to(dev)
+    rows = {}
+    with torch.inference_mode():
+        for spec in specs:
+            E = spec_to_static(spec, dims)
+
+            def eager():
+                return server.apply_fn(server.params, xd, E)
+            walls = []
+            y_eager = eager()
+            torch.cuda.synchronize()
+            for _ in range(5):
+                ts = time.perf_counter()
+                eager()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - ts) * 1e3)
+            y_graph = server.infer(x, spec)
+            if not torch.equal(y_graph, y_eager):
+                raise AssertionError(
+                    f"{spec.name()}: graph logits differ from the eager "
+                    f"forward by "
+                    f"{float((y_graph.float() - y_eager.float()).abs().max())}")
+            g = server.graph(spec, BUCKET)
+            dms = []
+            with g.lock:
+                for _ in range(6):
+                    a, b = torch.cuda.Event(enable_timing=True), \
+                        torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    g.replay()
+                    b.record()
+                    torch.cuda.synchronize()
+                    dms.append(a.elapsed_time(b))
+            rows[spec.name()] = {
+                "eager_ms": statistics.median(walls),
+                "graph_ms": server.measure(spec, x, iters=5),
+                "graph_device_ms": statistics.median(dms[1:]),
+                "flops_ratio": subnet_flops_ratio(spec)}
+    for name, r in rows.items():
+        log(f"  {name:28s} flops {r['flops_ratio']:.3f}: eager "
+            f"{r['eager_ms']:7.3f} ms, graph replay {r['graph_ms']:7.3f} ms "
+            f"(copy in and out included), graph device "
+            f"{r['graph_device_ms']:7.3f} ms")
+    at1 = {p.subnet.name(): p.latency_ms for p in lut.points
+           if p.hw_state.freq == 1.0}
+    full, small = cfg.elastic.max_spec().name(), cfg.elastic.min_spec().name()
+    if not at1[full] > at1[small]:
+        raise AssertionError(f"graph LUT: full {full} {at1[full]:.3f} ms not "
+                             f"above the smallest {small} {at1[small]:.3f}")
+    names = list(rows)
+    flops = [rows[n]["flops_ratio"] for n in names]
+    rho = {"lut": spearman([at1[n] for n in names], flops),
+           "eager": spearman([rows[n]["eager_ms"] for n in names], flops),
+           "graph_device": spearman([rows[n]["graph_device_ms"]
+                                     for n in names], flops)}
+    lo, hi = min(at1, key=at1.get), max(at1, key=at1.get)
+    pools = {n: srv.graph_pool_bytes() for n, srv in servers.items()}
+    fmt = lambda b: "not measured" if b is None else f"{b / 2**20:.1f} MiB"
+    log(f"  graph LUT at freq 1.0 (phase 6's measure): full {at1[full]:.3f} "
+        f"ms > smallest {at1[small]:.3f} ms; fastest {lo} {at1[lo]:.3f}, "
+        f"slowest {hi} {at1[hi]:.3f} ms ({at1[hi] / at1[lo]:.3f}x); rank "
+        f"correlation with subnet_flops_ratio: LUT {rho['lut']:.3f}, eager "
+        f"wall {rho['eager']:.3f}, graph device {rho['graph_device']:.3f}")
+    log(f"  captures {captures} (= {len(specs)} subnets x "
+        f"{len(server.buckets)} buckets each; the batch server's all at "
+        f"warm), cold (subnet, bucket) pairs 0, graph logits equal the "
+        f"eager forward bit for bit for all {len(rows)} subnets; graph "
+        f"pools " + ", ".join(f"{n} {fmt(b)}" for n, b in pools.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return {"rows": rows, "lut_ms": {"full": at1[full], "smallest":
+                                     at1[small], "fastest": [lo, at1[lo]],
+                                     "slowest": [hi, at1[hi]]},
+            "rank_corr": rho, "captures": captures,
+            "pool_mib": {n: None if b is None else b / 2**20
+                         for n, b in pools.items()}}
 
 
 def _tensors(tree):
@@ -2530,6 +2892,8 @@ def main() -> int:
     tp = trace_phase(serve, arch, cfg, server, governors["joint (paper)"].lut,
                      x, base_ms, os.path.join(os.path.dirname(
                          os.path.abspath(__file__)), "build", "trace"))
+    vc = vit_compiled(tp.pop("servers"), specs, governors["joint (paper)"].lut,
+                      x, cfg, dims)
 
     def row_keys(vit: dict) -> dict:
         # the contract's numbers from the ViT forward's row; the LM rows
@@ -2618,6 +2982,12 @@ def main() -> int:
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
         "lut_spread_ms", "served_err", "seconds")}))
+    log("compiled: " + json.dumps({
+        "vit": {k: vc[k] for k in ("lut_ms", "rank_corr", "captures",
+                                   "pool_mib")},
+        "lm": {k: lm["compiled"][k] for k in (
+            "k2_decode", "rows", "eager_peak_gib", "graph_peak_gib",
+            "graph_pool_gib")}}))
     log("train: " + json.dumps({k: tr.get(k) for k in (
         "step_ms", "step_ms_all", "peak_gib", "peak_run_gib", "losses",
         "fp32_step", "step_breakdown", "step_e2e")}))

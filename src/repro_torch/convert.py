@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.layers import kv_cache_of
+
 
 def to_torch(tree, device: Optional[torch.device] = None):
     """dicts/lists/tuples of numpy arrays -> the same tree of tensors."""
@@ -64,12 +66,13 @@ def lm_caches(jax_caches: dict, device: Optional[torch.device] = None
               ) -> dict:
     """Reference stacked decode caches {"dense"|"moe": {"k": (L, B, T, KH,
     D), "v": ..., "len": (L,)}} (numpy leaves) -> the port's per-layer
-    lists with a host-int ``len``."""
+    lists, each with its ``len`` as a 0-d device int32 and its host
+    mirror ``fill`` (:func:`repro_torch.core.layers.kv_cache_of`)."""
     out = {}
     for name, c in jax_caches.items():
         k, v = to_torch(c["k"], device), to_torch(c["v"], device)
-        out[name] = [{"k": k[i], "v": v[i], "len": int(np.asarray(
-            c["len"]).reshape(-1)[i])} for i in range(k.shape[0])]
+        out[name] = [kv_cache_of(k[i], v[i], int(np.asarray(
+            c["len"]).reshape(-1)[i])) for i in range(k.shape[0])]
     return out
 
 

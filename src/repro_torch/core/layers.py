@@ -283,6 +283,15 @@ def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
     }
 
 
+def kv_cache_of(k: torch.Tensor, v: torch.Tensor, fill: int) -> dict:
+    """A decode cache over k and v (B, T, KH, D) holding ``fill``
+    positions: ``len`` a 0-d int32 on their device (made by a kernel, so
+    legal inside a graph capture), ``fill`` its host mirror."""
+    return {"k": k, "v": v, "fill": int(fill),
+            "len": torch.full((), int(fill), dtype=torch.int32,
+                              device=k.device)}
+
+
 def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     d_head: int, causal: bool = True,
                     rope_theta: Optional[float] = None,
@@ -295,14 +304,20 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     compute the same function) and KV-cache decode, with static head
     slicing.  ``rope_theta=None`` (the ViT) applies no rotary embedding.
 
-    kv_cache: {"k": (B, T, KH, D), "v": (B, T, KH, D), "len": int}.  Decode
-    writes this step's k and v at position ``len`` IN PLACE (the reference
-    returns updated copies; the port saves the memory) and attends,
-    non-causally as the reference does, over ``cache[:, :len + S]``, a
-    strided view of the cache that the attention kernel reads without a
-    copy.  ``len`` is a host int, so a step never syncs to read it.  The
-    returned cache holds the same tensors and ``len + S``.
-    ``return_kv`` returns this call's (roped) k and v as the new cache.
+    kv_cache: {"k": (B, T, KH, D), "v": (B, T, KH, D), "len": 0-d int32 on
+    the cache's device, "fill": the same count as a host int} (see
+    :func:`kv_cache_of`).  ``len`` is the reference's traced scalar: rope
+    positions are ``len + arange(S)`` on the device, this step's k and v
+    are written at those positions IN PLACE (the reference returns updated
+    copies; the port saves the memory), ``len`` advances by S in place, and
+    attention runs, non-causally as the reference does, over the WHOLE
+    cache with the keys at or past ``len`` masked; so a CUDA graph of a
+    decode step advances its own cache and serves every step.  ``fill``
+    mirrors ``len`` on the host: the overflow check reads it, before any
+    write and with no device-to-host read, and advances it by S (code
+    that replays a graph advances it per replay).  The returned cache is
+    the same dict.
+    ``return_kv`` returns this call's (roped) k and v as a new cache.
     """
     B, S, _ = x.shape
     H = n_heads
@@ -334,36 +349,40 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     k = k.reshape(B, S, kv_active, d_head)
     v = v.reshape(B, S, kv_active, d_head)
 
+    kv_len = None
+    if kv_cache is not None:
+        ck, cv, fill = kv_cache["k"], kv_cache["v"], kv_cache["fill"]
+        if ck.shape[2] != kv_active or fill + S > ck.shape[1]:
+            raise ValueError(
+                f"kv cache {tuple(ck.shape)} at len {fill} cannot take {S} "
+                f"more positions of {kv_active} kv heads")
+        positions = kv_cache["len"] + torch.arange(S, device=x.device)
     if rope_theta is not None:
-        start = 0 if kv_cache is None else int(kv_cache["len"])
-        positions = torch.arange(start, start + S, device=x.device)
+        if kv_cache is None:
+            positions = torch.arange(S, device=x.device)
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
 
     new_cache = None
     if return_kv:
-        new_cache = {"k": k, "v": v, "len": S}
+        new_cache = kv_cache_of(k, v, S)
     if kv_cache is not None:
-        idx = int(kv_cache["len"])
-        ck, cv = kv_cache["k"], kv_cache["v"]
-        if ck.shape[2] != kv_active or idx + S > ck.shape[1]:
-            raise ValueError(
-                f"kv cache {tuple(ck.shape)} at len {idx} cannot take {S} "
-                f"more positions of {kv_active} kv heads")
-        ck[:, idx:idx + S] = k.to(ck.dtype)
-        cv[:, idx:idx + S] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv, "len": idx + S}
-        k = _cast(ck[:, :idx + S], q.dtype)
-        v = _cast(cv[:, :idx + S], q.dtype)
+        ck.index_copy_(1, positions, k.to(ck.dtype))
+        cv.index_copy_(1, positions, v.to(cv.dtype))
+        kv_len = kv_cache["len"]
+        kv_len.add_(S)
+        kv_cache["fill"] = fill + S
+        new_cache = kv_cache
+        k, v = _cast(ck, q.dtype), _cast(cv, q.dtype)
         causal = False
     if R == 1:
-        out = flash_attention_op(q, k, v, causal=causal)
+        out = flash_attention_op(q, k, v, causal=causal, kv_len=kv_len)
     else:
         # the kernel groups query heads by kv head (h // R): reorder the
         # reference's (R, K) head layout to (K, R) and back
         qg = q.reshape(B, S, R, kv_active, d_head).transpose(2, 3)
         out = flash_attention_op(qg.reshape(B, S, H, d_head), k, v,
-                                 causal=causal)
+                                 causal=causal, kv_len=kv_len)
         out = out.reshape(B, S, kv_active, R, d_head).transpose(2, 3)
     out = out.reshape(B, S, H * d_head)
     if masked_heads:    # flat head r*K + k is active iff it is < a_heads

@@ -51,6 +51,12 @@
 //   shared memory, and writes an fp32 partial (max,
 //   denominator, accumulator) to a workspace; a second kernel merges the
 //   partials in split order (deterministic, no atomics) and stores o.
+//   The count of valid keys is read from a device int32 (the cache's
+//   fill, which a CUDA graph of the decode step advances in place, as
+//   the reference's traced `len` scalar); the grid is planned from the
+//   cache's capacity, and a block whose chunk starts at or past the fill
+//   writes an empty partial (max -inf, denominator 0) and exits, so the
+//   device time follows the fill.  The merge skips empty partials.
 // Backward (training; the TPU kernel has none): see "backward" below.
 // The mma and fma variants write each row's fp32 logsumexp when asked,
 // which is all the backward keeps of the forward's softmax.
@@ -530,16 +536,18 @@ __device__ __forceinline__ void unpack8(uint4 t, float (&v)[8]) {
   }
 }
 
-// One block: kv head (b, kvh), keys [split*chunk, min(T, (split+1)*chunk)),
-// its R query rows.  Writes ws_ml[bh][split] = (max, denominator) and
-// ws_acc[bh][split][D] (unnormalised; p rounded to bf16 before PV).
+// One block: kv head (b, kvh), keys [split*chunk, min(T, (split+1)*chunk))
+// with T = min(*len, T_cap), its R query rows.  Writes ws_ml[bh][split] =
+// (max, denominator) and ws_acc[bh][split][D] (unnormalised; p rounded to
+// bf16 before PV); a chunk past T writes (-inf, 0) and zeros.
 template <int D>
 __global__ void __launch_bounds__(D_THREADS)
 flash_attention_decode(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
-                       int H, int KH, int T_len, long long q_sb,
+                       const int* __restrict__ len, int H, int KH, int T_cap,
+                       long long q_sb,
                        long long q_sh, long long k_sb, long long k_ss,
                        long long k_sh, long long v_sb, long long v_ss,
                        long long v_sh, float scale, int chunk) {
@@ -556,8 +564,21 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
   const int R = H / KH;
   const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
   const int split = blockIdx.y, splits = gridDim.y;
+  const int T_len = min(__ldg(len), T_cap);
   const int t0 = split * chunk, t1 = min(T_len, t0 + chunk);
   const int n = t1 - t0;
+  if (n <= 0) {     // past the fill: an empty partial (uniform per block)
+    for (int i = tid; i < R * D; i += D_THREADS) {
+      const long long bh = (long long)b * H + kvh * R + i / D;
+      ws_acc[(bh * splits + split) * D + i % D] = 0.f;
+    }
+    if (tid < R) {
+      const long long bh = (long long)b * H + kvh * R + tid;
+      ws_ml[(bh * splits + split) * 2] = NEG_INF;
+      ws_ml[(bh * splits + split) * 2 + 1] = 0.f;
+    }
+    return;
+  }
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh + gi * 8;
   const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh + gi * 8;
 
@@ -689,7 +710,8 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
 }
 
 // o[b, 0, h] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, in split
-// order; one block of D threads per (batch, head)
+// order, over the splits with a denominator (an empty one adds nothing,
+// and no NaN: its max is -inf); one block of D threads per (batch, head)
 template <int D>
 __global__ void __launch_bounds__(D)
 flash_attention_merge(const float* __restrict__ ws_acc,
@@ -705,7 +727,7 @@ flash_attention_merge(const float* __restrict__ ws_acc,
   float l = 0.f, a = 0.f;
 #pragma unroll 8
   for (int s = 0; s < splits; ++s) {
-    const float f = __expf(ml[2 * s] - mx);
+    const float f = ml[2 * s + 1] > 0.f ? __expf(ml[2 * s] - mx) : 0.f;
     l = fmaf(ml[2 * s + 1], f, l);
     a = fmaf(ws_acc[((size_t)bh * splits + s) * D + d], f, a);
   }
@@ -737,7 +759,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 
 template <int D>
 int launch_decode(const void* q, const void* k, const void* v, void* o,
-                  float* ws, int B, int H, int KH, int T_len,
+                  float* ws, const int* len, int B, int H, int KH, int T_cap,
                   const long long* st, float scale, int splits, int chunk,
                   cudaStream_t s) {
   float* ws_acc = ws;
@@ -745,7 +767,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
   flash_attention_decode<D><<<dim3(B * KH, splits), D_THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ws_acc, ws_ml, H, KH, T_len,
+      static_cast<const __nv_bfloat16*>(v), ws_acc, ws_ml, len, H, KH, T_cap,
       st[0], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1771,26 +1793,28 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k,
   return -1;
 }
 
-// The decode variant (bf16, S = 1, D = 64 or 128, H / KH <= 8): T_len
-// keys (1 <= T_len; the caller folds a causal mask into it) in `splits`
-// chunks of `chunk` <= 256 keys; `ws` an fp32 workspace of
-// B*H*splits*(D + 2).  Returns as above; -1 for an unsupported shape.
-extern "C" int repro_flash_attention_decode(const void* q, const void* k,
-                                            const void* v, void* o, void* ws,
-                                            int B, int H, int KH, int T_len,
-                                            int D, const long long* strides,
-                                            float scale, int splits,
-                                            int chunk, void* stream) {
+// The decode variant (bf16, S = 1, D = 64 or 128, H / KH <= 8) over a
+// cache of T_cap keys of which the first min(*len, T_cap) are valid
+// (`len` a device int32, >= 1; the caller folds a causal mask into it), in
+// `splits` chunks of `chunk` <= 256 keys planned from T_cap; `ws` an fp32
+// workspace of B*H*splits*(D + 2).  Returns as above; -1 for an
+// unsupported shape.
+extern "C" int repro_flash_attention_decode_len(
+    const void* q, const void* k, const void* v, void* o, void* ws,
+    const void* len, int B, int H, int KH, int T_cap, int D,
+    const long long* strides, float scale, int splits, int chunk,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunk > D_CHUNK_MAX || H / KH > D_R_MAX || splits < 1 || T_len < 1)
+  if (chunk > D_CHUNK_MAX || H / KH > D_R_MAX || splits < 1 || T_cap < 1)
     return -1;
   float* w = static_cast<float*>(ws);
+  const int* n = static_cast<const int*>(len);
   if (D == 64)
-    return launch_decode<64>(q, k, v, o, w, B, H, KH, T_len, strides, scale,
-                             splits, chunk, s);
+    return launch_decode<64>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
+                             scale, splits, chunk, s);
   if (D == 128)
-    return launch_decode<128>(q, k, v, o, w, B, H, KH, T_len, strides, scale,
-                              splits, chunk, s);
+    return launch_decode<128>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
+                              scale, splits, chunk, s);
   return -1;
 }
 

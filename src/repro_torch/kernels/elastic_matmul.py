@@ -41,18 +41,21 @@ bounds them and what the design does about it.
 from __future__ import annotations
 
 import ctypes
+import sys
 import threading
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counting
 
 # the wrappers run on several threads at once (two servers' collectors
 # behind one arbiter): every count, read and reset of the counters
 # below takes this lock, so no increment is lost
 count_lock = threading.Lock()
-# kernel launches since the last reset (the wrapper adds one per launch),
+_self = sys.modules[__name__]     # whose counters counting.count adds to
+# kernel launches on the device since the last reset (the wrapper adds
+# one per launch, a graph replay the launches it captured: counting.py),
 # in all and by variant
 launches = 0
 VARIANTS = ("small_m", "tma", "f32_splitk", "tile_bf16", "tile_f32")
@@ -207,7 +210,6 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
                    k_act: int, n_act: int, n_out: int) -> torch.Tensor:
     """Launch the CUDA kernel: x (M, >=k_act), w (>=k_act, >=n_act) with unit
     inner strides, ``widths`` the device int32 tensor [k_act, n_act]."""
-    global launches
     check_args(x, w, k_act, n_act, n_out)
     dev = x.device
     if dev.type != "cuda" or w.device != dev or widths.device != dev:
@@ -267,9 +269,7 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"elastic_matmul ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    with count_lock:
-        launches += 1
-        variant_launches[variant] += 1
+    counting.count(_self, variant)
     return y
 
 
@@ -403,7 +403,6 @@ def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
     dx (M, kx) with ``dx[:, :k_act] = dy[:, :n_act] @ w[:k_act, :n_act]^T``
     and exact zeros past k_act.  ``variant`` names the kernel (by default
     :func:`choose_bwd_variant`'s; bf16 may name ``wmma_bf16``)."""
-    global dgrad_launches
     dev = _check_cuda(dy, w)
     if dy.ndim != 2 or w.ndim != 2 or not (
             0 <= n_act <= min(dy.shape[1], w.shape[1])
@@ -430,9 +429,8 @@ def elastic_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"elastic_matmul dgrad ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    with count_lock:
-        dgrad_launches += 1
-        dgrad_variant_launches[variant] += 1
+    counting.count(_self, variant, "dgrad_launches",
+                   "dgrad_variant_launches")
     return dx
 
 
@@ -444,7 +442,6 @@ def elastic_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     ``w_shape`` with ``dw[:k_act, :n_act] = x[:, :k_act]^T @ dy[:, :n_act]``
     (fp32 accumulation, the splits of M added in order) and exact zeros
     elsewhere.  ``variant`` as for :func:`elastic_matmul_dgrad`."""
-    global wgrad_launches
     dev = _check_cuda(x, dy)
     Kw, Nw = w_shape
     if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0] or not (
@@ -487,9 +484,8 @@ def elastic_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"elastic_matmul wgrad ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    with count_lock:
-        wgrad_launches += 1
-        wgrad_variant_launches[variant] += 1
+    counting.count(_self, variant, "wgrad_launches",
+                   "wgrad_variant_launches")
     return dw
 
 

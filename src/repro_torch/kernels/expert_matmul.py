@@ -28,18 +28,21 @@ PyTorch, used for CPU tensors and to hold the kernels against.
 from __future__ import annotations
 
 import ctypes
+import sys
 import functools
 import threading
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counting
 
 # the wrappers run on several threads at once (two servers' collectors
 # behind one arbiter): every count, read and reset of the counters
 # below takes this lock, so no increment is lost
 count_lock = threading.Lock()
-# kernel launches since the last reset (the wrapper adds one per launch),
+_self = sys.modules[__name__]     # whose counters counting.count adds to
+# kernel launches on the device since the last reset (the wrapper adds
+# one per launch, a graph replay the launches it captured: counting.py),
 # in all and by variant
 launches = 0
 VARIANTS = ("stream", "tma", "tile_bf16", "tile_f32")
@@ -181,7 +184,6 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor,
                   counts: torch.Tensor) -> torch.Tensor:
     """Launch a CUDA kernel: x (E, C, K) and w (E, K, F) with unit inner
     strides, ``counts`` a contiguous device int32 (E,) tensor."""
-    global launches
     check_cuda_args(x, w, counts)
     dev = x.device
     E, C, K = x.shape
@@ -213,9 +215,7 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"expert_matmul ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    with count_lock:
-        launches += 1
-        variant_launches[variant] += 1
+    counting.count(_self, variant)
     return y
 
 

@@ -11,13 +11,20 @@ and writes through (batch, seq, head) strides.
 Three variants, chosen by :func:`choose_variant`: ``mma`` (bf16 at head
 dims 64 and 128: a tensor-core flash kernel on mma.sync), ``decode``
 (the same at S = 1: split over T, partials merged by a second kernel, the
-split planned by :func:`decode_plan`) and ``fma`` (the first port's fp32
+split planned by :func:`decode_plan` from the cache's capacity, the count
+of valid keys read from a device int32: ``kv_len``, the decode cache's
+fill, so one CUDA graph of a decode step serves every step) and ``fma``
+(the first port's fp32
 FMA kernel, counted as ``fma_bf16`` or ``fma_f32``: fp32 inputs, the smoke
 configs' head dims 8 and 16, and rows that are not 16-byte aligned).  The
 source note says what bounds each on the H100 and what its design does
 about it.
 
 Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
+``kv_len`` (a 0-d int32 tensor on the device, >= 1) masks the keys at or
+past it, as the reference's ``kv_len`` mask of a decode step; the other
+variants read it on the host (a device sync: eager only, never inside a
+CUDA graph capture).
 ``flash_attention`` launches the kernel on CUDA tensors;
 ``flash_attention_plain`` is the same function in plain PyTorch.  With
 ``return_lse`` both also give each row's fp32 logsumexp (B, H, S), which
@@ -39,19 +46,23 @@ explicit formulas, for CPU tensors and to hold the kernel against.
 from __future__ import annotations
 
 import ctypes
+import sys
 import math
 import threading
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counting
 from repro_torch.kernels.ref import flash_attention_ref
 
 # the wrappers run on several threads at once (two servers' collectors
 # behind one arbiter): every count, read and reset of the counters
 # below takes this lock, so no increment is lost
 count_lock = threading.Lock()
-# kernel launches since the last reset (the wrapper adds one per launch),
+_self = sys.modules[__name__]     # whose counters counting.count adds to
+# kernel launches on the device since the last reset (the wrapper adds
+# one per launch, a graph replay the launches it captured: counting.py),
 # in all and by variant
 launches = 0
 VARIANTS = ("mma", "decode", "fma_bf16", "fma_f32")
@@ -80,8 +91,8 @@ _ARGTYPES = {
                                                         _P, _P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_STRIDES, _F, _I,
                                                          _P],
-    "repro_flash_attention_decode": [_P] * 5 + [_I] * 5 + [_STRIDES, _F, _I,
-                                                           _I, _P],
+    "repro_flash_attention_decode_len": [_P] * 6 + [_I] * 5 + [_STRIDES, _F,
+                                                               _I, _I, _P],
     "repro_flash_attention_bwd_resident": [_P] * 9 + [_I] * 6 + [_STRIDES,
                                                                  _F, _P],
 }
@@ -116,11 +127,51 @@ def choose_variant(S: int, T: int, H: int, KH: int, D: int,
 def decode_plan(T: int, bkh: int, sms: int = SMS) -> tuple:
     """(splits, keys per split) of the decode kernel over ``bkh`` = B*KH
     blocks a split: ~2 blocks per SM, no split under 32 keys, none over
-    the 256 keys whose scores a block keeps in shared memory."""
+    the 256 keys whose scores a block keeps in shared memory.  ``T`` is
+    the cache's capacity: a split past the fill exits at once."""
     splits = min(_cdiv(2 * sms, bkh), _cdiv(T, DECODE_CHUNK_MIN))
     splits = max(splits, _cdiv(T, DECODE_CHUNK_MAX), 1)
     chunk = _cdiv(T, splits)
     return _cdiv(T, chunk), chunk
+
+
+_lengths: dict = {}
+_lengths_lock = threading.Lock()
+
+
+def length_tensor(device: torch.device, n: int) -> torch.Tensor:
+    """A device int32 holding ``n``, cached per (device, n): the decode
+    kernel's key count when the caller gives no ``kv_len``.  Made at a
+    call's first eager run: creating it inside a graph capture raises."""
+    key = (device, n)
+    with _lengths_lock:
+        t = _lengths.get(key)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("flash_attention: a key-count tensor "
+                                   "would be made inside a CUDA graph "
+                                   "capture: run the call eagerly first")
+            t = torch.full((), n, dtype=torch.int32, device=device)
+            _lengths[key] = t
+        return t
+
+
+def check_kv_len(kv_len: torch.Tensor, k: torch.Tensor) -> None:
+    if kv_len.dtype != torch.int32 or kv_len.numel() != 1 \
+            or kv_len.device != k.device:
+        raise ValueError(f"kv_len must be one int32 on {k.device}, got "
+                         f"{kv_len.dtype} {tuple(kv_len.shape)} on "
+                         f"{kv_len.device}")
+
+
+def _host_len(kv_len: torch.Tensor) -> int:
+    """The key count read on the host (a device sync): for the variants
+    that take it as an argument; never inside a capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("flash_attention: only the decode variant reads "
+                           "kv_len on the device; this call would read it "
+                           "on the host inside a CUDA graph capture")
+    return int(kv_len)
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
@@ -145,10 +196,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, return_lse: bool = False):
+                    causal: bool, return_lse: bool = False,
+                    kv_len: Optional[torch.Tensor] = None):
     """Launch the CUDA kernel (inputs may be strided; head dim contiguous).
-    Returns o, or (o, lse) with ``return_lse`` (not at decode, S = 1)."""
-    global launches
+    Returns o, or (o, lse) with ``return_lse`` (not at decode, S = 1).
+    ``kv_len``: the count of valid keys (see the module note)."""
     check_args(q, k, v)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -163,6 +215,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a contiguous head dim")
+    T_seen = min(T, 1) if causal and S == 1 else T
+    variant = choose_variant(S, T_seen, H, KH, D, q.dtype,
+                             _aligned(q, k, v))
+    if kv_len is not None:
+        check_kv_len(kv_len, k)
+        if variant != "decode":
+            n = _host_len(kv_len)
+            return flash_attention(q, k[:, :n], v[:, :n], causal=causal,
+                                   return_lse=return_lse)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev) \
         if return_lse else None
@@ -170,9 +231,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return (o, lse) if return_lse else o
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    T_seen = min(T, 1) if causal and S == 1 else T
-    variant = choose_variant(S, T_seen, H, KH, D, q.dtype,
-                             _aligned(q, k, v))
     scale = 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
@@ -181,12 +239,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError("flash_attention: no logsumexp at decode "
                                   "(S = 1): training runs prefill shapes")
     if variant == "decode":
+        # causal at S = 1 sees key 0 alone, whatever the fill
+        n = kv_len if kv_len is not None and T_seen == T \
+            else length_tensor(dev, T_seen)
         splits, chunk = decode_plan(T_seen, B * KH)
         ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                          device=dev)
-        rc = _launcher("repro_flash_attention_decode")(
-            *ptrs, ws.data_ptr(), B, H, KH, T_seen, D, strides, scale,
-            splits, chunk, stream)
+        rc = _launcher("repro_flash_attention_decode_len")(
+            *ptrs, ws.data_ptr(), n.data_ptr(), B, H, KH, T_seen, D,
+            strides, scale, splits, chunk, stream)
     elif variant == "mma":
         rc = _launcher("repro_flash_attention_mma")(
             *ptrs, B, H, KH, S, T, D, strides, scale, int(causal), lse_ptr,
@@ -198,18 +259,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash_attention ({variant}) launch failed "
                            f"(CUDA error {rc})")
-    with count_lock:
-        launches += 1
-        variant_launches[variant] += 1
+    counting.count(_self, variant)
     return (o, lse) if return_lse else o
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool, return_lse: bool = False):
+                          *, causal: bool, return_lse: bool = False,
+                          kv_len: Optional[torch.Tensor] = None):
     """The same function in plain PyTorch: repeat kv heads for GQA, then
-    the naive oracle over (B*H, S, D); with ``return_lse`` also each row's
-    logsumexp of the scaled scores, fp32 (B, H, S)."""
+    the naive oracle over (B*H, S, D), the keys at or past ``kv_len``
+    masked on the device (no host read); with ``return_lse`` also each
+    row's logsumexp of the scaled scores, fp32 (B, H, S)."""
     check_args(q, k, v)
+    if kv_len is not None:
+        check_kv_len(kv_len, k)
+        if return_lse:
+            raise NotImplementedError("flash_attention_plain: no logsumexp "
+                                      "with kv_len (decode keeps none)")
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     if KH != H:
@@ -218,7 +284,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.transpose(1, 2).reshape(B * H, S, D)
     kf = k.transpose(1, 2).reshape(B * H, T, D)
     vf = v.transpose(1, 2).reshape(B * H, T, D)
-    o = flash_attention_ref(qf, kf, vf, causal=causal)
+    o = flash_attention_ref(qf, kf, vf, causal=causal,
+                            kv_len=None if kv_len is None
+                            else kv_len.reshape(()))
     o = o.reshape(B, H, S, D).transpose(1, 2)
     if not return_lse:
         return o
@@ -279,7 +347,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the backward kernels: (dq, dk, dv) in q's, k's and v's
     shapes, from the forward's o and fp32 logsumexp ``lse`` (B, H, S) and
     the output gradient ``do``.  Non-causal at D = 64 only."""
-    global bwd_launches
     check_bwd_args(q, k, v, o, do)
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
@@ -321,9 +388,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention backward ({variant}) launch "
                            f"failed (CUDA error {rc})")
-    with count_lock:
-        bwd_launches += 1
-        bwd_variant_launches[variant] += 1
+    counting.count(_self, variant, "bwd_launches",
+                   "bwd_variant_launches")
     return dq, dk, dv
 
 

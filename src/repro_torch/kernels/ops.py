@@ -98,11 +98,19 @@ def reset_launch_counts() -> None:
 def widths_tensor(device: torch.device, k_act: int, n_act: int
                   ) -> torch.Tensor:
     """The device int32 [k_act, n_act] the kernel reads, cached per width
-    pair so a call pays no host-to-device copy after the first."""
+    pair so a call pays no host-to-device copy after the first.  A CUDA
+    graph captures a call's cached tensor; creating one inside a capture
+    (a host-to-device copy) raises: the capture's eager warm-up makes it."""
     key = (device, k_act, n_act)
     with _widths_lock:
         t = _widths.get(key)
         if t is None:
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"elastic_matmul: widths ({k_act}, {n_act}) would be "
+                    f"made inside a CUDA graph capture: run the call "
+                    f"eagerly first")
             t = torch.tensor([k_act, n_act], dtype=torch.int32, device=device)
             _widths[key] = t
         return t
@@ -204,14 +212,20 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool = True) -> torch.Tensor:
-    """q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D); GQA for KH < H."""
+                       causal: bool = True,
+                       kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D); GQA for KH < H.
+    ``kv_len``, a 0-d int32 on k's device, masks the keys at or past it
+    (a decode step over a whole cache; no gradient)."""
     kernel = _use_kernel(q)
     if _wants_grad(q, k, v):
+        if kv_len is not None:
+            raise NotImplementedError("flash_attention_op: no gradient "
+                                      "through a decode cache (kv_len)")
         return _FlashAttention.apply(q, k, v, causal, kernel)
     if kernel:
-        return _fa.flash_attention(q, k, v, causal=causal)
-    return _fa.flash_attention_plain(q, k, v, causal=causal)
+        return _fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
 
 
 class _ExpertMatmul(torch.autograd.Function):

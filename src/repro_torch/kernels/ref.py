@@ -22,16 +22,22 @@ def elastic_matmul_ref(x: torch.Tensor, w: torch.Tensor, k_act,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
-    """Naive attention: q/k/v (BH, S|T, D)."""
+                        causal: bool = True,
+                        kv_len=None) -> torch.Tensor:
+    """Naive attention: q/k/v (BH, S|T, D).  ``kv_len`` (an int or a 0-d
+    tensor) masks the keys at or past it, as the reference's decode
+    (``core/layers.py:_attn_core``) masks the cache past its fill."""
     D = q.shape[-1]
     s = torch.einsum("bsd,btd->bst", q, k).float()
     s = s / math.sqrt(D)
+    S, T = q.shape[1], k.shape[1]
     if causal:
-        S, T = q.shape[1], k.shape[1]
         mask = (torch.arange(S, device=q.device)[:, None]
                 >= torch.arange(T, device=q.device)[None, :])
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
+    if kv_len is not None:
+        live = torch.arange(T, device=q.device) < kv_len
+        s = torch.where(live[None, None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bst,btd->bsd", p.to(q.dtype), v)
 

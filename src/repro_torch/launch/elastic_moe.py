@@ -14,13 +14,17 @@ points the reference can decode (not at a sliced depth: fault F4).
 Weights are random from ``--seed``, drawn on the device in the compute
 dtype (the routers stay fp32).  Every dense product runs on the elastic
 matmul, attention on flash attention and every routed expert product on
-the expert-gated matmul; ``--device cpu`` runs their plain versions.
+the expert-gated matmul; ``--device cpu`` runs their plain versions.  On
+the card each point's prefill and decode step run as CUDA graphs
+(:class:`repro_torch.launch.steps.LMGraphs`, captured before the timing),
+and the times are of graph replays.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
@@ -28,7 +32,7 @@ from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.ops import launch_counts, variant_counts
 from repro_torch.launch.flops import lm_model_flops
-from repro_torch.launch.steps import lm_decode, lm_prefill
+from repro_torch.launch.steps import LMGraphs, lm_decode, lm_prefill
 from repro_torch.models.transformer import LMConfig, lm_init
 
 
@@ -62,13 +66,47 @@ def rel_flops(cfg: LMConfig, E: dict, B: int, S: int) -> float:
 def timed(fn, device: torch.device, iters: int):
     """(mean wall-clock ms over ``iters`` calls after one warm-up call,
     the last result); each call ends in a device sync."""
+    ms, _, out = timed_events(fn, device, iters)
+    return ms, out
+
+
+def _events(device: torch.device):
+    """A pair of timing events on the card, None on the CPU."""
+    if device.type != "cuda":
+        return None
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _event_ms(pairs) -> Optional[float]:
+    """Mean ms between the recorded (start, end) event pairs (after a
+    sync); None on the CPU."""
+    pairs = [p for p in pairs if p is not None]
+    if not pairs:
+        return None
+    return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
+def timed_events(fn, device: torch.device, iters: int):
+    """:func:`timed` with the mean ms between CUDA events recorded on the
+    stream around each timed call (device time for a graph replay; for an
+    eager call it also holds the device's wait for the host's launches):
+    (wall ms, event ms or None on the CPU, last result)."""
     out = fn()
     synchronize(device)
+    pairs = []
     t0 = time.perf_counter()
     for _ in range(iters):
+        ev = _events(device)
+        if ev is not None:
+            ev[0].record()
         out = fn()
+        if ev is not None:
+            ev[1].record()
+        pairs.append(ev)
         synchronize(device)
-    return (time.perf_counter() - t0) / iters * 1e3, out
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    return wall, _event_ms(pairs), out
 
 
 def _since(before: dict) -> dict:
@@ -83,48 +121,78 @@ def _variants_since(before: dict) -> dict:
 
 
 def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
-        *, iters: int = 3) -> list:
+        *, iters: int = 3, graphs: Optional[bool] = None) -> list:
     """Prefill ``tokens[:, :prefill_len]`` at every operating point, then
     decode the remaining tokens teacher-forced at the decodable ones.
 
-    Returns one dict per point: name, E, rel_flops, logits (last prefill
-    position), prefill_ms, prefill_tok_s, prefill_launches (kernel
-    launches over the 1 + ``iters`` prefills), and for decodable points
-    decode_ms (mean per step), decode_tok_s, decode_logits ((steps, B, V)),
-    decode_launches and decode_variants (launches by kernel and variant;
-    both over the steps alone)."""
+    ``graphs`` (default: on the card) runs both as CUDA graphs, captured
+    per point before anything is timed or counted; a decodable point's
+    prefill graph also fills the static decode caches, and its decode
+    steps replay one graph.  Returns one dict per point: name, E,
+    rel_flops, logits (last prefill position), prefill_ms, prefill_tok_s,
+    prefill_launches and prefill_variants (kernel launches, in all and by
+    variant, over the 1 + ``iters`` prefills), prefill_event_ms, and for
+    decodable points decode_ms (mean wall per step), decode_event_ms,
+    decode_tok_s, decode_logits ((steps, B, V)), decode_launches and
+    decode_variants (both over the steps alone).  The event times are
+    means between CUDA events around each prefill and each step (device
+    time for graph replays; None on the CPU).  With graphs, the last row
+    also carries ``graph_pool_bytes``."""
     device = tokens.device
     B, total = tokens.shape
     steps = total - prefill_len
     prompt = tokens[:, :prefill_len]
+    if graphs is None:
+        graphs = device.type == "cuda"
+    lm = LMGraphs(params, cfg, B, prefill_len, total, device) \
+        if graphs else None
     rows = []
     with torch.inference_mode():
         for name, E, decodable in operating_points(cfg):
-            c0 = launch_counts()
-            ms, last = timed(lambda: lm_prefill(params, prompt, cfg, E=E),
-                             device, iters)
+            fills = decodable and steps > 0
+            if lm is not None:
+                lm.capture(E, decodable=fills)
+                prefill = lambda: lm.prefill(prompt, E, decodable=fills)
+            else:
+                prefill = lambda: lm_prefill(params, prompt, cfg, E=E)
+            c0, v0 = launch_counts(), variant_counts()
+            ms, ev_ms, last = timed_events(prefill, device, iters)
             row = {"name": name, "E": E, "logits": last, "prefill_ms": ms,
+                   "prefill_event_ms": ev_ms,
                    "prefill_tok_s": B * prefill_len / ms * 1e3,
                    "prefill_launches": _since(c0),
+                   "prefill_variants": _variants_since(v0),
                    "rel_flops": rel_flops(cfg, E, B, prefill_len)}
-            if decodable and steps > 0:
-                _, caches = lm_prefill(params, prompt, cfg, E=E,
-                                       max_len=total)
-                outs = []
+            if fills:
+                if lm is None:
+                    _, caches = lm_prefill(params, prompt, cfg, E=E,
+                                           max_len=total)
+                    step = lambda t: lm_decode(params, caches, t, cfg,
+                                               E=E)[0]
+                else:      # the timed prefills filled the static caches
+                    step = lambda t: lm.decode(t, E)
+                outs, pairs = [], []
                 synchronize(device)
                 c0, v0 = launch_counts(), variant_counts()
                 t0 = time.perf_counter()
                 for t in range(prefill_len, total):
-                    lg, caches = lm_decode(params, caches,
-                                           tokens[:, t:t + 1], cfg, E=E)
-                    outs.append(lg)
+                    ev = _events(device)
+                    if ev is not None:
+                        ev[0].record()
+                    outs.append(step(tokens[:, t:t + 1]))
+                    if ev is not None:
+                        ev[1].record()
+                    pairs.append(ev)
                 synchronize(device)
+                row["decode_event_ms"] = _event_ms(pairs)
                 row["decode_ms"] = (time.perf_counter() - t0) / steps * 1e3
                 row["decode_tok_s"] = B / row["decode_ms"] * 1e3
                 row["decode_launches"] = _since(c0)
                 row["decode_variants"] = _variants_since(v0)
                 row["decode_logits"] = torch.stack(outs)
             rows.append(row)
+    if lm is not None:
+        rows[-1]["graph_pool_bytes"] = lm.pool_bytes()
     return rows
 
 

@@ -49,7 +49,10 @@ The reference launcher's cluster (``--nodes``, ``--router``,
 a later slice of the port; the launcher refuses their flags.  Every
 server warms its bucket ladder for the profiled subnets before taking
 traffic, so serving meets zero cold (subnet, bucket) pairs
-(``server.cold_compiles`` stays 0).
+(``server.cold_compiles`` stays 0).  On the card each (subnet, bucket)
+is a CUDA graph, captured when first measured or warmed: the measured
+LUT, ``--calibrate`` and the served requests all time graph replays, as
+the reference's time compiled executables.
 """
 from __future__ import annotations
 

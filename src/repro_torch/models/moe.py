@@ -177,7 +177,9 @@ def _moe_einsum(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e):
     C = max(4, int(math.ceil(g * top_k * cfg.capacity_factor
                              / cfg.n_experts)))
     dest, keep, counts = dispatch_plan(top_idx, E, C)
-    tok = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    # each token top_k times, in order (no host sync: graph-capturable)
+    tok = torch.div(torch.arange(T * top_k, device=x.device), top_k,
+                    rounding_mode="floor")
     xf = x.reshape(T, d)
     slabs = x.new_zeros((E * G * C + 1, d))
     slabs.index_copy_(0, dest, xf[tok])    # dropped slots: the scratch row

@@ -243,15 +243,16 @@ def make_decode_caches(cfg: LMConfig, batch: int, max_len: int, *,
                        dtype=torch.bfloat16, filled: int = 0,
                        device: Optional[torch.device] = None) -> dict:
     """Zeroed KV caches for decode, one dict per layer:
-    {"k": (B, max_len, KH, Dh), "v": ..., "len": filled} (``len``, the
-    fill point, is a host int)."""
+    {"k": (B, max_len, KH, Dh), "v": ..., "len": the fill point as a 0-d
+    int32 on the device (the reference's traced scalar), "fill": the same
+    as a host int} (:func:`repro_torch.core.layers.kv_cache_of`)."""
     device = resolve_device(device)
 
     def one():
         shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "len": filled}
+        return L.kv_cache_of(torch.zeros(shape, dtype=dtype, device=device),
+                             torch.zeros(shape, dtype=dtype, device=device),
+                             filled)
     out = {}
     if cfg.n_dense_layers:
         out["dense"] = [one() for _ in range(cfg.n_dense_layers)]

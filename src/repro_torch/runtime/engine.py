@@ -1,19 +1,25 @@
 """Dynamic serving engine: the deployed half of the paper's system.
 
-The port's counterpart of the reference ``runtime/engine.py``, running the
-port's model eagerly on one device (the CUDA card, or the CPU in tests).
-It serves a supernet through its Pareto sub-networks:
+The port's counterpart of the reference ``runtime/engine.py``, on one
+device (the CUDA card, or the CPU in tests).  It serves a supernet
+through its Pareto sub-networks:
 
-* an executable cache keyed by ``(SubnetSpec, batch bucket)`` — each
-  sub-network is a sliced-mode closure over the SAME resident parameter
-  tensors, so switching architectures costs one dictionary lookup (the
-  Dynamic-OFA trick: weights stay resident, no re-deployment);
+* an executable cache keyed by ``(SubnetSpec, batch bucket)`` — on the
+  card each entry is a CUDA graph of the sub-network's forward over a
+  static ``(bucket, ...)`` input (:class:`repro_torch.graphs.Graph`, the
+  counterpart of the reference's ``jax.jit`` executable), captured at
+  :meth:`DynamicServer.warm` or, cold, at first use; on the CPU an eager
+  sliced-mode closure.  Every sub-network reads the SAME resident
+  parameter tensors, so switching architectures costs one dictionary
+  lookup (the Dynamic-OFA trick: weights stay resident, no
+  re-deployment);
 * **bucketed continuous batching**: a batch of ``k`` requests is padded
   only up to the nearest power-of-two bucket (1, 2, 4, ..., max_batch);
   per-bucket pad buffers (pinned host memory on the card) are pooled so
   the steady state does zero host allocation, and
-  :meth:`DynamicServer.warm` runs the whole bucket ladder once so serving
-  meets no cold ``(spec, bucket)`` (``cold_compiles`` counts misses);
+  :meth:`DynamicServer.warm` captures (on the CPU: runs) the whole bucket
+  ladder so serving meets no cold ``(spec, bucket)`` (``cold_compiles``
+  counts the serve-path dispatches that had to capture);
 * **pipelined dispatch**: a *collector* thread stacks batch N+1, copies it
   to the device and enqueues its forward while a *completer* thread waits
   on batch N's CUDA event and resolves its futures.  ``pipeline_depth``
@@ -32,12 +38,17 @@ It serves a supernet through its Pareto sub-networks:
   off.
 
 Served logits are float32 numpy rows (numpy has no bfloat16; the
-reference's bf16 ``y`` is an ml_dtypes array).  The forward is eager: the
-call that issues it returns once every kernel of the forward has been
-enqueued, so on the card the request tracer's ``dispatch`` span holds the
-host's issue time and ``device`` only what the device still had to do
-after it.  The reference's chaos hooks (``wedge``/``unwedge``) come with
-the port's chaos slice.
+reference's bf16 ``y`` is an ml_dtypes array).  On the card a dispatch
+copies the pinned batch into the graph's static input, replays the graph
+and copies its logits into the batch's own tensor, all on one stream and
+before the batch's ``ready`` event, so a later replay of the same graph
+cannot overwrite logits not yet read; the request tracer's ``dispatch``
+span holds the host's time to enqueue them and ``device`` what the
+device still had to do after it.  :meth:`DynamicServer.infer` and :meth:`measure` go through
+the graph of the batch's bucket, so the measured LUT times what serving
+runs, as the reference's ``measure`` times a compiled executable.  The
+reference's chaos hooks (``wedge``/``unwedge``) come with the port's
+chaos slice.
 
 The worker blocks on the request queue and on pause/resume events (no
 polling): an idle or paused server burns no CPU and wakes immediately.
@@ -58,6 +69,7 @@ from repro_torch.analysis.guards import guarded_by
 from repro_torch.core.elastic import spec_to_static
 from repro_torch.core.types import SubnetSpec
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.graphs import Graph, new_pool, pool_bytes
 from repro_torch.obs import trace as obs
 from repro_torch.runtime import hwmodel as hm
 from repro_torch.runtime.lut import bucket_ladder
@@ -79,7 +91,7 @@ class Request:
 @dataclasses.dataclass
 class _InFlight:
     """One dispatched batch travelling from collector to completer."""
-    out: Any                   # device tensor (enqueued, maybe not ready)
+    out: Any                   # the batch's own device tensor (enqueued)
     ready: Any                 # CUDA event recorded after the forward|None
     reqs: List[Request]
     t_dispatch: float
@@ -159,11 +171,20 @@ class DynamicServer:
         self.example_input = (None if example_input is None
                               else np.asarray(example_input))
         # cache key: (spec, bucket); bucket None is the shape-polymorphic
-        # executable used by the synchronous infer()/measure() path
+        # eager closure (the synchronous path on the CPU)
         self._cache: Dict[Tuple[SubnetSpec, Optional[int]], Any] = {}
         self._specs_cached: Set[SubnetSpec] = set()
+        # (spec, bucket) pairs that have run (CPU) or been captured (card)
         self._compiled: Set[Tuple[SubnetSpec, int]] = set()
         self._cache_lock = threading.Lock()
+        # the card: one graph memory pool and one capture stream for this
+        # server's graphs, which replay on the caller's (current) stream
+        self.graphs = self.device.type == "cuda"
+        self._pool = new_pool() if self.graphs else None
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self.graphs else None)
+        self.captures = 0         # graphs captured (warm, measure, cold)
+        self._graph_of: Dict[Tuple[SubnetSpec, int], Graph] = {}
         # per-bucket pad-buffer free list (pinned host tensors on the card):
         # the completer recycles a buffer only after its batch left the
         # device, so the collector never rewrites memory an in-flight
@@ -222,34 +243,72 @@ class DynamicServer:
 
     # --- executable cache ---------------------------------------------------
 
-    def executable(self, spec: SubnetSpec, bucket: Optional[int] = None):
+    def executable(self, spec: SubnetSpec, bucket: Optional[int] = None,
+                   like: Optional[torch.Tensor] = None):
+        """``fn(params, batch) -> device output`` for ``spec`` at ``bucket``.
+
+        On the card, with a bucket, the forward's CUDA graph over a static
+        input shaped and typed as ``like`` (a ``(bucket, ...)`` host batch),
+        captured here at first use: ``fn`` copies the batch in, replays
+        and returns a copy of the logits, all enqueued.  Otherwise an
+        eager closure (the batch moved to the device first)."""
         # called from the worker thread AND synchronous infer()/measure()
         # callers
         with self._cache_lock:
             key = (spec, bucket)
-            if key not in self._cache:
-                E = spec_to_static(spec, self.dims, self.multiple_of)
-                apply_fn = self.apply_fn
+            fn = self._cache.get(key)
+            if fn is not None:
+                return fn
+            E = spec_to_static(spec, self.dims, self.multiple_of)
+            apply_fn = self.apply_fn
 
-                def fn(p, x, E=E):
-                    # inference mode is thread-local: enter it here, on
-                    # whichever thread (collector or caller) runs the forward
-                    with torch.inference_mode():
-                        return apply_fn(p, x, E)
+            def eager(p, x, E=E):
+                # inference mode is thread-local: enter it here, on
+                # whichever thread (collector or caller) runs the forward
+                with torch.inference_mode():
+                    return apply_fn(p, x, E)
 
-                self._cache[key] = fn
-                self._specs_cached.add(spec)
-            return self._cache[key]
+            if self.graphs and bucket is not None:
+                if like is None or like.shape[0] != bucket:
+                    raise ValueError(f"capturing {spec.name()} at bucket "
+                                     f"{bucket} needs a ({bucket}, ...) "
+                                     f"batch to shape its input")
+                static_in = torch.zeros(like.shape, dtype=like.dtype,
+                                        device=self.device)
+                graph = Graph(lambda x: eager(self.params, x), [static_in],
+                              pool=self._pool, stream=self._capture_stream)
+                self.captures += 1
+                self._graph_of[key] = graph
+                self._compiled.add(key)
+                fn = lambda p, x, g=graph: g.run(x)
+            else:
+                fn = lambda p, x: eager(p, self._to_device(x))
+            self._cache[key] = fn
+            self._specs_cached.add(spec)
+            return fn
+
+    def graph(self, spec: SubnetSpec, bucket: int) -> Optional[Graph]:
+        """The captured graph serving ``spec`` at ``bucket`` (None if none:
+        on the CPU, or not captured yet)."""
+        with self._cache_lock:
+            return self._graph_of.get((spec, bucket))
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Device memory held by this server's graph pool (None on the
+        CPU, or where the allocator's snapshot does not say)."""
+        return pool_bytes(self._pool) if self.graphs else None
 
     def warm(self, specs: List[SubnetSpec], example_input=None):
-        """Warm the bucket ladder for each spec.
+        """Warm the bucket ladder for each spec, in a fixed order.
 
-        Builds every (spec, bucket) executable; with an example input
-        (here or at construction) each one is also executed once, so the
-        kernels are built and every shape has run before serving — after
-        this, steady-state serving meets zero cold (spec, bucket) pairs
-        (``cold_compiles`` stays 0) and zero host allocations (pad
-        buffers are pre-pinned per bucket).
+        With an example input (here or at construction) every (spec,
+        bucket) executable is captured on the card (run once on the CPU),
+        so the kernels are built and every shape has run before serving —
+        after this, steady-state serving meets zero cold (spec, bucket)
+        pairs (``cold_compiles`` stays 0) and zero host allocations (pad
+        buffers are pre-pinned per bucket).  Without one, the CPU's
+        closures are built and the card captures nothing (a graph needs
+        its input's shape).
         """
         x1 = example_input if example_input is not None else self.example_input
         if x1 is not None:
@@ -257,12 +316,14 @@ class DynamicServer:
             self.example_input = x1
         for spec in specs:
             for b in self.buckets:
-                fn = self.executable(spec, b)
                 if x1 is None:
+                    if not self.graphs:
+                        self.executable(spec, b)
                     continue
                 key, buf = self._take_buffer(b, x1.shape, x1.dtype)
                 buf.zero_()
-                fn(self.params, self._to_device(buf))
+                fn = self.executable(spec, b, like=buf)
+                fn(self.params, buf)
                 synchronize(self.device)
                 self._give_buffer(key, buf)
                 self._compiled.add((spec, b))
@@ -286,26 +347,58 @@ class DynamicServer:
         t = torch.as_tensor(x)
         return t.to(self.device, non_blocking=t.is_pinned())
 
+    def _padded(self, x) -> Tuple[tuple, torch.Tensor, int]:
+        """(pool key, pinned (bucket, ...) buffer holding ``x`` then zeros,
+        rows of ``x``): the batch as serving pads it."""
+        x = np.asarray(x)
+        n = len(x)
+        if n > self.max_batch:
+            raise ValueError(f"batch of {n} over max_batch {self.max_batch}")
+        bucket = self._bucket_for(n)
+        key, buf = self._take_buffer(bucket, x.shape[1:], x.dtype)
+        host = buf.numpy()
+        host[:n] = x
+        host[n:] = 0
+        return key, buf, n
+
     def infer(self, x, spec: Optional[SubnetSpec] = None) -> torch.Tensor:
-        """One synchronous forward of batch ``x``; returns the device output."""
+        """One synchronous forward of batch ``x``; returns the device output
+        (on the card: the graph of ``x``'s bucket, its rows of ``x``)."""
         spec = spec or self.active_spec
-        fn = self.executable(spec)
-        out = fn(self.params, self._to_device(x))
-        synchronize(self.device)
-        return out
+        if not self.graphs:
+            out = self.executable(spec)(self.params, x)
+            synchronize(self.device)
+            return out
+        key, buf, n = self._padded(x)
+        try:
+            out = self.executable(spec, buf.shape[0], like=buf)(self.params,
+                                                                buf)
+            synchronize(self.device)
+        finally:
+            self._give_buffer(key, buf)
+        return out[:n]
 
     def measure(self, spec: SubnetSpec, x, iters: int = 5) -> float:
         """Median wall-clock ms for one batch under ``spec`` (post-warmup),
-        host-to-device copy of the batch included, as serving pays it."""
-        fn = self.executable(spec)
-        fn(self.params, self._to_device(x))
-        synchronize(self.device)
-        ts = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn(self.params, self._to_device(x))
+        host-to-device copy of the batch included, as serving pays it: on
+        the card a replay of the graph serving runs for ``x``'s bucket."""
+        if self.graphs:
+            key, buf, _ = self._padded(x)
+            fn, x = self.executable(spec, buf.shape[0], like=buf), buf
+        else:
+            key, buf, fn = None, None, self.executable(spec)
+        try:
+            fn(self.params, x)
             synchronize(self.device)
-            ts.append((time.perf_counter() - t0) * 1e3)
+            ts = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn(self.params, x)
+                synchronize(self.device)
+                ts.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            if buf is not None:
+                self._give_buffer(key, buf)
         return float(np.median(ts))
 
     # --- batched serving loop -------------------------------------------------
@@ -495,14 +588,17 @@ class DynamicServer:
             host[n:] = 0
         spec = self.active_spec
         key = (spec, bucket)
-        fn = self.executable(spec, bucket)
-        if key not in self._compiled:
+        cold = key not in self._compiled
+        fn = self.executable(spec, bucket, like=buf)   # captures if cold
+        if cold:
             self.cold_compiles += 1
             self._compiled.add(key)
         hw = getattr(self.active_point, "hw_state", None) \
             or hm.HwState(chips=1, freq=1.0)
         t_disp = time.perf_counter()
-        out = fn(self.params, self._to_device(buf))   # enqueued, not waited
+        # enqueued, not waited; on the card the graph's logits are copied
+        # into this batch's own tensor before `ready` below
+        out = fn(self.params, buf)
         t_ret = time.perf_counter() if self.tracer is not None else 0.0
         ready = None
         if self.device.type == "cuda":

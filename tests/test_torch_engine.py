@@ -254,3 +254,81 @@ def test_no_card_no_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tiny_server(device=None)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def card_server(dev, **kw):
+    params = vit_init(torch.Generator().manual_seed(0), CFG, device=dev)
+    return DynamicServer(lambda p, x, E: vit_apply(p, x, CFG, E=E)[0],
+                         params, DIMS, device=dev, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_served_batch_equals_eager(card):
+    """On the card every (spec, bucket) is a CUDA graph captured at warm:
+    a served batch is the eager forward of the same padded batch, bit for
+    bit (the same kernels in the same order), and serving meets no cold
+    pair."""
+    from repro_torch.core.elastic import spec_to_static
+    from repro_torch.kernels import ops
+    specs = [SubnetSpec(), SubnetSpec(width_mult=0.5, heads_mult=0.5)]
+    x1 = np.random.default_rng(0).normal(size=(16, 16, 3)).astype("float32")
+    server = card_server(card, max_batch=4, timeout_ms=50.0)
+    server.warm(specs, example_input=x1)
+    assert server.captures == len(specs) * len(server.buckets)
+    xs = np.stack([x1 * (i + 1) for i in range(3)])
+    ops.reset_launch_counts()
+    server.active_spec = specs[1]
+    server.start()
+    try:
+        outs = [f.get(timeout=60) for f in
+                [server.submit(xs[i]) for i in range(3)]]
+    finally:
+        server.stop()
+    assert server.cold_compiles == 0 and all(not o.get("cancelled")
+                                             for o in outs)
+    assert ops.launch_counts()["elastic_matmul"] > 0   # counted on replay
+    padded = torch.from_numpy(np.concatenate(
+        [xs, np.zeros((1, 16, 16, 3), "float32")])).to(card)
+    with torch.inference_mode():
+        eager = vit_apply(server.params, padded, CFG,
+                          E=spec_to_static(specs[1], DIMS))[0]
+    served = np.stack([o["y"] for o in outs if o["subnet"] ==
+                       specs[1].name()])
+    if len(served) == 3:                   # one batch of 3: bucket 4
+        assert np.array_equal(served, eager[:3].float().cpu().numpy())
+    direct = server.infer(xs, specs[1])
+    assert torch.equal(direct, eager[:3])
+
+
+@pytest.mark.cuda
+def test_cuda_cold_dispatch_captures_and_measure_replays(card):
+    """A (spec, bucket) that warm never captured is captured on the serve
+    path and counted in cold_compiles; measure() times replays of the
+    graph of its batch's bucket (no new capture, launches counted per
+    replay)."""
+    from repro_torch.kernels import ops
+    x1 = np.zeros((16, 16, 3), "float32")
+    server = card_server(card, max_batch=4, timeout_ms=1.0)
+    server.start()
+    try:
+        out = server.submit(x1).get(timeout=60)
+    finally:
+        server.stop()
+    assert not out.get("cancelled")
+    assert server.cold_compiles == 1 and server.captures == 1
+    ops.reset_launch_counts()
+    ms = server.measure(SubnetSpec(), np.stack([x1]), iters=3)
+    assert ms > 0 and server.captures == 1          # bucket 1: captured
+    per_forward = ops.launch_counts()["elastic_matmul"] // 4
+    assert per_forward > 0 and \
+        ops.launch_counts()["elastic_matmul"] == 4 * per_forward
+    server.measure(SubnetSpec(), np.stack([x1] * 3), iters=3)
+    assert server.captures == 2                     # bucket 4, once
+    assert server.graph_pool_bytes() > 0

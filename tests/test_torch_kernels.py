@@ -336,6 +336,130 @@ def test_decode_plan(T, bkh, want):
         <= splits * chunk
 
 
+def _split_merge(q, k, v, fill, splits, chunk):
+    """The decode kernel's algorithm in fp32: a partial (max, denominator,
+    accumulator) per chunk of keys, a chunk at or past ``fill`` empty
+    (-inf, 0, zeros), merged in split order skipping the empty ones.
+    q (BH, D), k/v (BH, T, D)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    parts = []
+    for s in range(splits):
+        t0, t1 = s * chunk, min(fill, (s + 1) * chunk)
+        if t1 <= t0:
+            parts.append((torch.full(q.shape[:1], -math.inf),
+                          torch.zeros(q.shape[:1]), torch.zeros(q.shape)))
+            continue
+        sc = torch.einsum("bd,btd->bt", q, k[:, t0:t1]) * scale
+        m = sc.max(-1).values
+        p = torch.exp(sc - m[:, None])
+        parts.append((m, p.sum(-1), torch.einsum("bt,btd->bd", p,
+                                                 v[:, t0:t1])))
+    mx = torch.stack([m for m, _, _ in parts]).max(0).values
+    num, den = torch.zeros(q.shape), torch.zeros(q.shape[:1])
+    for m, l, acc in parts:
+        f = torch.where(l > 0, torch.exp(m - mx), torch.zeros(()))
+        num, den = num + f[:, None] * acc, den + f * l
+    return num / torch.clamp(den, min=1e-30)[:, None]
+
+
+@pytest.mark.parametrize("cap,bkh", [(528, 64), (300, 16), (64, 8),
+                                     (40, 264)])
+@pytest.mark.parametrize("where", ["one", "mid", "cap"])
+def test_decode_plan_from_capacity_with_empty_splits(cap, bkh, where):
+    """The decode grid is planned from the cache's capacity alone; at a
+    fill of 1 or half the capacity the trailing splits hold no valid key,
+    and the merge of the kernel's partials (empty ones included) is the
+    oracle over the first ``fill`` keys."""
+    fill = {"one": 1, "mid": cap // 2, "cap": cap}[where]
+    splits, chunk = fa.decode_plan(cap, bkh)
+    live = -(-fill // chunk)
+    assert 1 <= live <= splits and (splits - 1) * chunk < cap
+    if where != "cap" and splits > 1:
+        assert live < splits                   # some splits are empty
+    rng = np.random.default_rng(cap + fill)
+    q = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(3, cap, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(3, cap, 16)).astype(np.float32))
+    o = _split_merge(q, k, v, fill, splits, chunk)
+    o_ref = jref.flash_attention_ref(*(jnp.asarray(a.numpy()) for a in (
+        q[:, None], k[:, :fill], v[:, :fill])), causal=False)
+    assert torch.isfinite(o).all()
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref)[:, 0],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fill", [1, 17, 31, 32])
+@pytest.mark.parametrize("H,KH", [(4, 4), (4, 2), (8, 1), (6, 3)])
+def test_flash_attention_plain_kv_len_matches_ref(fill, H, KH):
+    """A decode step over a whole 32-slot cache with the count of valid
+    keys as a 0-d int32 tensor: the plain version (and the op on the CPU)
+    is the JAX oracle over the first ``fill`` keys; large values past the
+    fill do not leak in."""
+    rng = np.random.default_rng(fill * 10 + H + KH)
+    q, k, v = _qkv(rng, 2, 1, 32, H, KH, 32)
+    k[:, fill:], v[:, fill:] = 1e4, -1e4
+    n = torch.tensor(fill, dtype=torch.int32)
+    tq, tk, tv = (torch.from_numpy(a.astype(np.float32)) for a in (q, k, v))
+    o = fa.flash_attention_plain(tq, tk, tv, causal=False, kv_len=n)
+    o_op = ops.flash_attention_op(tq, tk, tv, causal=False, kv_len=n)
+    kr, vr = (np.repeat(a[:, :fill], H // KH, 2) for a in (k, v))
+    flat = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3).reshape(
+        -1, a.shape[1], a.shape[3]), jnp.float32)
+    o_ref = jref.flash_attention_ref(flat(q), flat(kr), flat(vr),
+                                     causal=False)
+    o_ref = np.asarray(o_ref).reshape(2, H, 1, 32).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(o), o_ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, o_op)
+    assert int(n) == fill                     # read, never written
+
+
+def test_flash_attention_kv_len_rejects_bad_args():
+    q, k = torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 2, 8)
+    for bad in (torch.tensor(2), torch.tensor([1, 2], dtype=torch.int32)):
+        with pytest.raises(ValueError, match="kv_len"):
+            ops.flash_attention_op(q, k, k, causal=False, kv_len=bad)
+    with pytest.raises(NotImplementedError, match="kv_len"):
+        ops.flash_attention_op(q.requires_grad_(), k, k, causal=False,
+                               kv_len=torch.tensor(2, dtype=torch.int32))
+
+
+def test_launch_counts_survive_graph_replay():
+    """Calls made while a graph is captured launch nothing and are kept on
+    the capturing thread's tape; each replay adds the tape to the kernels'
+    counters, so launch_counts() and variant_counts() still count
+    launches on the device.  Another thread's launches during a capture
+    count at once."""
+    import threading
+
+    from repro_torch.kernels import counting
+    ops.reset_launch_counts()
+    with counting.recording() as tape:
+        counting.count(em, "tma")
+        counting.count(em, "tma")
+        counting.count(em, "small_m")
+        counting.count(fa, "decode")
+        counting.count(em, "tma", "dgrad_launches", "dgrad_variant_launches")
+        other = threading.Thread(target=counting.count, args=(xm, "stream"))
+        other.start()
+        other.join()
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0) | {
+        "expert_matmul": 1}
+    for _ in range(3):
+        counting.replayed(tape)
+    got, per = ops.launch_counts(), ops.variant_counts()
+    assert got["elastic_matmul"] == 9 and got["flash_attention"] == 3
+    assert got["elastic_matmul_dgrad"] == 3 and got["expert_matmul"] == 1
+    assert per["elastic_matmul"]["tma"] == 6
+    assert per["elastic_matmul"]["small_m"] == 3
+    assert per["flash_attention"]["decode"] == 3
+    assert per["elastic_matmul_dgrad"]["tma"] == 3
+    with counting.recording() as inner:
+        with counting.recording() as nested:
+            counting.count(fa, "mma")
+        assert nested and not inner           # the innermost tape records
+    ops.reset_launch_counts()
+
+
 _BF, _F32 = torch.bfloat16, torch.float32
 _LM_UP = (491520, 2048, 2883584, 1408)      # x (64, 240, 2048), wi[..., :F]
 
@@ -733,6 +857,44 @@ def test_cuda_flash_attention_head_dim_128(cuda, dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(o.float(), o_plain.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KH", [16, 8])
+def test_cuda_flash_attention_decode_device_length(cuda, KH):
+    """K2 decode over a whole 528-slot cache with the valid key count on
+    the device: against the plain version at fills 1, mid and capacity,
+    then captured once in a CUDA graph and replayed as the count changes
+    on the device (the grid stays planned from the capacity)."""
+    from repro_torch.graphs import Graph, new_pool
+    g = torch.Generator().manual_seed(5)
+    bf = torch.bfloat16
+    q = (torch.randn(4, 1, 16, 128, generator=g) * 0.3).to(cuda, bf)
+    ck = (torch.randn(4, 528, KH, 128, generator=g) * 0.3).to(cuda, bf)
+    cv = torch.randn(4, 528, KH, 128, generator=g).to(cuda, bf)
+    n = torch.full((), 1, dtype=torch.int32, device=cuda)
+
+    def want(fill):
+        with ops.plain_kernels():
+            return ops.flash_attention_op(q, ck[:, :fill], cv[:, :fill],
+                                          causal=False).float()
+    for fill in (1, 264, 528):
+        n.fill_(fill)
+        before = fa.variant_launches["decode"]
+        o = ops.flash_attention_op(q, ck, cv, causal=False, kv_len=n)
+        assert fa.variant_launches["decode"] == before + 1
+        torch.testing.assert_close(o.float(), want(fill), rtol=3e-2,
+                                   atol=3e-2)
+    graph = Graph(lambda t: ops.flash_attention_op(q, ck, cv, causal=False,
+                                                   kv_len=t), [n],
+                  pool=new_pool(), stream=torch.cuda.Stream())
+    for fill in (1, 100, 527, 528):
+        before = fa.variant_launches["decode"]
+        o = graph.run(torch.tensor(fill, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert fa.variant_launches["decode"] == before + 1
+        torch.testing.assert_close(o.float(), want(fill), rtol=3e-2,
+                                   atol=3e-2)
 
 
 # --- backward (the training path) ---------------------------------------------

@@ -127,15 +127,15 @@ def test_attention_rope_prefill_and_decode_match_jax(n_heads, n_kv):
     _close(yt, yj)
     _close(kvt["k"], kvj["k"])
     _close(kvt["v"], kvj["v"])
-    assert kvt["len"] == S
+    assert int(kvt["len"]) == S
     cj = _ref_cache(kvj, T)
-    ct = {"k": to_torch(np.asarray(cj["k"])),
-          "v": to_torch(np.asarray(cj["v"])), "len": S}
+    ct = TL.kv_cache_of(to_torch(np.asarray(cj["k"])),
+                        to_torch(np.asarray(cj["v"])), S)
     for t in range(S, T):                          # one token per step
         yj, cj = JL.attention_apply(pj, xj[:, t:t + 1], kv_cache=cj, **kw)
         yt, ct = TL.attention_apply(pt, xt[:, t:t + 1], kv_cache=ct, **kw)
         _close(yt, yj)
-        assert ct["len"] == int(cj["len"]) == t + 1
+        assert int(ct["len"]) == ct["fill"] == int(cj["len"]) == t + 1
     _close(ct["k"], cj["k"])
     _close(ct["v"], cj["v"])
 
@@ -154,11 +154,43 @@ def test_attention_matches_jax_blocked_causal():
 
 def test_attention_cache_overflow_raises():
     pt = _params(JL.attention_init(KEY, 16, 2, 2, 8))
-    cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8),
-             "len": 4}
+    cache = TL.kv_cache_of(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
+                           4)
     with pytest.raises(ValueError, match="cannot take"):
         TL.attention_apply(pt, torch.zeros(1, 1, 16), n_heads=2, n_kv=2,
                            d_head=8, rope_theta=1e4, kv_cache=cache)
+    # raised from the host mirror, before any write: len is unchanged
+    assert int(cache["len"]) == cache["fill"] == 4
+
+
+@pytest.mark.parametrize("fill", [1, 6, 11])
+@pytest.mark.parametrize("n_heads,n_kv", [(4, 4), (4, 2)])
+def test_attention_decode_over_whole_cache_equals_view(monkeypatch, fill,
+                                                       n_heads, n_kv):
+    """A decode step attends over the WHOLE 12-slot cache with the fill as
+    a 0-d int32 (keys past it masked): the same fp32 bits as the view of
+    the first ``fill + 1`` slots that the port attended over before, at
+    fills 1, mid and capacity - 1; ``len`` and its host mirror advance."""
+    pt = _params(JL.attention_init(KEY, 32, n_heads, n_kv, 8))
+    kw = dict(n_heads=n_heads, n_kv=n_kv, d_head=8, rope_theta=10000.0)
+    rng = np.random.default_rng(fill)
+    ck, cv = (torch.from_numpy(rng.normal(size=(2, 12, n_kv, 8))
+                               .astype(np.float32)) for _ in range(2))
+    x = torch.from_numpy(rng.normal(size=(2, 1, 32)).astype(np.float32))
+    real = TL.flash_attention_op
+
+    def view(q, k, v, *, causal, kv_len):
+        n = int(kv_len)
+        return real(q, k[:, :n], v[:, :n], causal=causal)
+    whole = TL.kv_cache_of(ck.clone(), cv.clone(), fill)
+    y, c = TL.attention_apply(pt, x, kv_cache=whole, **kw)
+    monkeypatch.setattr(TL, "flash_attention_op", view)
+    viewed = TL.kv_cache_of(ck.clone(), cv.clone(), fill)
+    y_view, _ = TL.attention_apply(pt, x, kv_cache=viewed, **kw)
+    assert torch.equal(y, y_view)
+    assert torch.equal(c["k"], viewed["k"]) and c is whole
+    assert int(c["len"]) == c["fill"] == fill + 1
+    assert c["len"].dtype == torch.int32 and c["len"].ndim == 0
 
 
 # --- the LM ---------------------------------------------------------------------
@@ -203,7 +235,7 @@ def test_prefill_caches_and_decode_match_jax(smoke, point):
     ref_caches = lm_caches(jax.tree_util.tree_map(np.asarray, cj))
     for name in ct:
         for c, r in zip(ct[name], ref_caches[name]):
-            assert c["len"] == r["len"] == S
+            assert int(c["len"]) == int(r["len"]) == c["fill"] == S
             _close(c["k"], r["k"])
             _close(c["v"], r["v"])
     ct_conv = lm_caches(jax.tree_util.tree_map(np.asarray, cj))
@@ -220,8 +252,41 @@ def test_prefill_caches_and_decode_match_jax(smoke, point):
     ref_caches = lm_caches(jax.tree_util.tree_map(np.asarray, cj))
     for name in ct:
         for c, r in zip(ct[name], ref_caches[name]):
-            assert c["len"] == r["len"] == S + 2
+            assert int(c["len"]) == int(r["len"]) == c["fill"] == S + 2
             _close(c["k"], r["k"])
+
+
+@pytest.mark.parametrize("point", [p for p in POINTS if p[2]],
+                         ids=[p[0] for p in POINTS if p[2]])
+def test_decode_over_device_len_matches_jax(smoke, point):
+    """Prefill into caches made by make_decode_caches (``len`` a 0-d int32
+    tensor, set to S by the prefill), then four decode steps over the
+    whole cache against the reference's lm_apply decode; every layer's
+    ``len`` and host ``fill`` advance by one a step."""
+    jp, tp, toks = smoke
+    _, E, _ = point
+    S, T = 6, 12
+    _, _, kvj = JT.lm_apply(jp, jnp.asarray(toks[:, :S]), SMOKE, E=E,
+                            return_kv=True)
+    cj = JT.make_decode_caches(SMOKE, 2, T, dtype=jnp.float32, filled=S)
+    for name in cj:
+        for kk in ("k", "v"):
+            cj[name][kk] = cj[name][kk].at[:, :, :S].set(kvj[name][kk])
+    ct = TT.make_decode_caches(TSMOKE, 2, T, dtype=torch.float32,
+                               device="cpu")
+    _, ct2 = lm_prefill(tp, torch.from_numpy(toks[:, :S]), TSMOKE, E=E,
+                        caches=ct)
+    assert ct2 is ct
+    for t in range(S, S + 4):
+        dj, _, cj = JT.lm_apply(jp, jnp.asarray(toks[:, t:t + 1]), SMOKE,
+                                E=E, caches=cj)
+        dt, ct = lm_decode(tp, ct, torch.from_numpy(toks[:, t:t + 1]),
+                           TSMOKE, E=E)
+        _close(dt, dj[:, -1], tol=LM_TOL)
+        for layers in ct.values():
+            for c in layers:
+                assert c["len"].dtype == torch.int32 and c["len"].ndim == 0
+                assert int(c["len"]) == c["fill"] == t + 1
 
 
 @pytest.mark.parametrize("point", [p for p in POINTS if p[2]],
@@ -259,6 +324,48 @@ def test_decode_at_sliced_depth_or_heads_raises_as_reference(smoke, E):
     with pytest.raises(NotImplementedError, match="F4"):
         lm_prefill(tp, torch.from_numpy(toks[:, :8]), TSMOKE, E=E,
                    max_len=12)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_graph_advances_len():
+    """On the card the LM's prefill and decode step run as CUDA graphs
+    (LMGraphs): each decode replay writes its k and v at ``len`` and
+    advances ``len`` on the device, the host mirror follows, the logits
+    equal the eager steps' (the same kernels in the same order), and a
+    full cache raises before the replay.  A bf16 config with head dim 64,
+    where K2 takes its decode variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode)")
+    from repro_torch.launch.steps import LMGraphs
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(TSMOKE, d_model=256, d_head=64,
+                              compute_dtype="bfloat16")
+    params = TT.lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    S, total = 8, 12
+    with torch.inference_mode():
+        eager_last, caches = lm_prefill(params, toks[:, :S], cfg,
+                                        max_len=total)
+        eager = [lm_decode(params, caches, toks[:, t:t + 1], cfg)[0]
+                 for t in range(S, total)]
+        lm = LMGraphs(params, cfg, 2, S, total, dev)
+        lm.capture()
+        assert lm.captures == 2
+        last = lm.prefill(toks[:, :S])
+        layers = [c for stack in lm.caches.values() for c in stack]
+        assert all(int(c["len"]) == c["fill"] == S for c in layers)
+        for i, t in enumerate(range(S, total)):
+            lg = lm.decode(toks[:, t:t + 1])
+            torch.cuda.synchronize()
+            assert all(int(c["len"]) == c["fill"] == t + 1 for c in layers)
+            assert torch.equal(lg, eager[i])
+        assert torch.equal(last, eager_last)
+        with pytest.raises(ValueError, match="cannot take"):
+            lm.decode(toks[:, :1])
+        assert all(int(c["len"]) == total for c in layers)
 
 
 def test_lm_init_layout_matches_reference(smoke):
@@ -380,8 +487,8 @@ def parity_report():
     rows.append(("core.layers.attention_apply rope prefill (GQA 4/2)",
                  err(yt, yj), TOL))
     cj = _ref_cache(kvj, 10)
-    ct = {"k": to_torch(np.asarray(cj["k"])),
-          "v": to_torch(np.asarray(cj["v"])), "len": 7}
+    ct = TL.kv_cache_of(to_torch(np.asarray(cj["k"])),
+                        to_torch(np.asarray(cj["v"])), 7)
     worst = 0.0
     for t in range(7, 10):
         yj, cj = JL.attention_apply(pa, xj[:, t:t + 1], kv_cache=cj, **kw)
