@@ -181,7 +181,38 @@ the compiled executables (CUDA graphs, the reference's jit executables):
     captures equal to subnets x buckets on both servers (phase 20's batch
     server all at warm), no cold pair; the graph LUT's full subnet slower
     than its smallest, its spread and its rank correlation with
-    ``subnet_flops_ratio``; each server's graph-pool memory.
+    ``subnet_flops_ratio``; each server's graph-pool memory;
+
+the conv nets (ResNet-152 and EfficientNet-B7 trained at full width,
+their 1x1 convs and classifier on K1, the other convs on cuDNN):
+
+22. (a) K1's forward, dgrad and wgrad against their plain versions at
+    the conv shapes, fp32 and bf16: M = 802,816 rows (ResNet stage 0 at
+    batch 256, EfficientNet's 112 px layers at microbatch 64) at (K, N) =
+    (64, 64), (64, 256), (256, 64) and at k_act = n_act = 16 of 64 (width
+    setting 0.25, also with zeros past 16 in the TPU op's shape), and M =
+    256 at the squeeze-excite widths 12 and 20 (row strides TMA cannot
+    take); each call one launch of the variant its shape, dtype and
+    strides choose, exact zeros outside the active block, wgrad within
+    tolerance of its largest value; (b) full-size logits, kernel path
+    against plain path at batch 8: ResNet-152 at width settings 0 and 3,
+    EfficientNet-B7 at 0 and 2 (kernel size 3), depth 0.5 and 1.0, BN in
+    eval and train mode, fp32 within a stated share of the largest
+    |logit| (cuDNN's TF32 off), bf16 max abs error and top-1 agreement;
+    (c) ``repro_torch.launch.train --arch resnet-152`` at cls_224, batch
+    256, bf16: 8 steps, a checkpoint every 4, a failure at step 6;
+    finite losses, exactly one restart, K1's forward, dgrad and wgrad
+    counters rising, no other kernel launched, no launch on a variant
+    (a) did not hold in bf16; median step, images/s, peak memory; (d) the
+    same for EfficientNet-B7, 3 steps of 256 as 4 microbatches of 64
+    (``--accum 4``: batch 256 at once does not fit), no restart; (e) one
+    profiled step of each: device time in K1, convolutions, BN,
+    elementwise and reduction kernels, and the rest, the busy share and
+    the model-FLOPs rate (``launch/flops.py``) against the bf16 dense
+    peak; and K1's forward, dgrad and wgrad over the recorded calls of a
+    ResNet-152 step and of EfficientNet-B7's squeeze-excite as
+    graph-replayed device time beside the plain version, ``torch.matmul``
+    and the bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -1662,12 +1693,14 @@ class NoTrace(Exception):
     """torch.profiler could not trace the card."""
 
 
-def step_breakdown(fn) -> dict:
+def step_breakdown(fn, groups=STEP_GROUPS) -> dict:
     """Device time of one call of fn() (a training step) by kernel, from a
     torch.profiler trace: {"wall_ms", "device_ms", "groups": {row: ms},
-    "other_top": [(kernel, ms, calls)]}.  Raises NoTrace if the profiler
-    fails or its trace holds no device time; what fn() raises propagates
-    (a kernel's failed launch is a failure, not a missing trace)."""
+    "other_top": [(kernel, ms, calls)]}, each kernel in the row of the
+    first of ``groups`` (name fragment, row) whose fragment its name
+    holds.  Raises NoTrace if the profiler fails or its trace holds no
+    device time; what fn() raises propagates (a kernel's failed launch is
+    a failure, not a missing trace)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1698,17 +1731,20 @@ def step_breakdown(fn) -> dict:
             kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     if not kernels:
         raise NoTrace("the profiler recorded no device time")
-    groups, other = {}, []
+    rows, other, top = {}, [], {}
     for name, (ms, n) in kernels.items():
-        row = next((g for frag, g in STEP_GROUPS if frag in name), None)
+        row = next((g for frag, g in groups if frag in name), None)
         if row is None:
             other.append((name[:80], ms, n))
         else:
-            groups[row] = groups.get(row, 0.0) + ms
-    groups["other kernels"] = sum(ms for _, ms, _ in other)
-    return {"wall_ms": wall * 1e3, "device_ms": sum(groups.values()),
-            "groups": groups,
-            "other_top": sorted(other, key=lambda r: -r[1])[:8]}
+            rows[row] = rows.get(row, 0.0) + ms
+            top.setdefault(row, []).append((name[:80], ms, n))
+    rows["other kernels"] = sum(ms for _, ms, _ in other)
+    return {"wall_ms": wall * 1e3, "device_ms": sum(rows.values()),
+            "groups": rows,
+            "other_top": sorted(other, key=lambda r: -r[1])[:8],
+            "group_top": {row: sorted(ks, key=lambda r: -r[1])[:4]
+                          for row, ks in top.items()}}
 
 
 def expand(distinct: dict) -> list:
@@ -2546,6 +2582,469 @@ def vit_compiled(servers: dict, specs, lut, x, cfg, dims) -> dict:
                          for n, b in pools.items()}}
 
 
+# the conv nets (phase 22): K1's kernels by name in a profiled step (the
+# backward's before the forward's: cuDNN's own kernels carry "dgrad" and
+# "wgrad" in their names too), then cuDNN's and ATen's convolutions, then
+# PyTorch's BN, elementwise and reduction kernels
+CONV_STEP_GROUPS = (
+    ("dgrad_tma_kernel", "K1 dgrad"), ("dgrad_wmma", "K1 dgrad"),
+    ("dgrad_fma", "K1 dgrad"), ("wgrad_tma_kernel", "K1 wgrad"),
+    ("wgrad_wmma", "K1 wgrad"), ("wgrad_fma", "K1 wgrad"),
+    ("wgrad_reduce", "K1 wgrad"), ("gemm_tma_kernel", "K1 forward"),
+    ("small_m_", "K1 forward"), ("f32_splitk_kernel", "K1 forward"),
+    ("elastic_matmul_", "K1 forward"),
+    ("conv", "convolutions (cuDNN, ATen)"),
+    ("xmma", "convolutions (cuDNN, ATen)"),
+    ("cudnn", "convolutions (cuDNN, ATen)"),
+    ("implicit", "convolutions (cuDNN, ATen)"),
+    ("fprop", "convolutions (cuDNN, ATen)"),
+    ("dgrad", "convolutions (cuDNN, ATen)"),
+    ("wgrad", "convolutions (cuDNN, ATen)"),
+    ("depthwise", "convolutions (cuDNN, ATen)"),
+    ("elementwise", "BN, elementwise and reductions"),
+    ("reduce", "BN, elementwise and reductions"),
+    ("Reduce", "BN, elementwise and reductions"),
+    ("max_pool", "BN, elementwise and reductions"))
+K1_KERNELS = ("elastic_matmul", "elastic_matmul_dgrad",
+              "elastic_matmul_wgrad")
+# the conv nets' logits, kernel path against plain path: fp32 within this
+# share of the largest |logit| (150 or so fp32 layers; eval mode at init
+# lets the residual stream grow, so the scale is the logits' own)
+CONV_LOGITS_FP32_TOL = 1e-3
+CONV_B = 8                   # phase 22 (b)'s batch
+EFF_ACCUM = 4                # phase 22 (d): 256 images as 4 x 64
+
+
+def close_to_largest(a, b, tol: float) -> float:
+    """Max |a - b| / max |b|; raises unless it is within ``tol`` and a is
+    finite.  For sums over long reductions (wgrad over 802,816 rows),
+    where an element near 0 carries the round-off of its large partial
+    sums."""
+    import torch
+    a, b = a.float(), b.float()
+    scale = max(float(b.abs().max()), 1e-30)
+    rel = float((a - b).abs().max()) / scale
+    if not torch.isfinite(a).all() or not rel <= tol:
+        raise AssertionError(f"max abs err {rel:.3g} of the largest value "
+                             f"{scale:.3g}, beyond tolerance {tol}")
+    return rel
+
+
+def k1_conv_checks(dev, randn) -> dict:
+    """Phase 22 (a): K1's forward, dgrad and wgrad against their plain
+    versions at the conv nets' shapes, fp32 and bf16; each call one launch
+    of the variant its shape, dtype and strides choose.  Returns {"err",
+    "held": the (kernel, variant) pairs held in bf16}."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+
+    t0 = phase("22. the conv nets: ResNet-152 and EfficientNet-B7 trained "
+               "at full width; (a) K1 forward, dgrad and wgrad vs plain at "
+               "the conv shapes")
+    M = 256 * 56 * 56          # ResNet stage 0 at batch 256 = B7's 112 px
+    # at microbatch 64
+    # (label, M, full weight (K, N), k_act, n_act, n_out, dgrad's kx)
+    cases = [
+        ("1x1 64->64", M, (64, 64), 64, 64, 64, 64),
+        ("1x1 64->256", M, (64, 256), 64, 256, 256, 64),
+        ("1x1 256->64", M, (256, 64), 256, 64, 64, 256),
+        ("width 0.25: 16 of 64->64", M, (64, 64), 16, 16, 16, 16),
+        ("width 0.25, zeros past 16", M, (64, 64), 16, 16, 64, 64),
+        ("SE reduce 288->12", 256, (288, 12), 288, 12, 12, 288),
+        ("SE expand 12->288", 256, (12, 288), 12, 288, 288, 12),
+        ("SE reduce 480->20", 256, (480, 20), 480, 20, 20, 480),
+        ("SE expand 20->480", 256, (20, 480), 20, 480, 480, 20),
+    ]
+    counters = {"elastic_matmul": "variant_launches",
+                "elastic_matmul_dgrad": "dgrad_variant_launches",
+                "elastic_matmul_wgrad": "wgrad_variant_launches"}
+
+    def took(kernel, before):
+        now = getattr(em, counters[kernel])
+        return {v: n - before[v] for v, n in now.items() if n != before[v]}
+    held, errs = set(), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[1]
+        tol = TOL[dt]
+        for label, rows, (K, N), ka, na, n_out, kx in cases:
+            w = randn(K, N, scale=K ** -0.5, dtype=dtype)
+            x = randn(rows, ka, dtype=dtype)
+            dy = randn(rows, n_out, dtype=dtype)
+            widths = ops.widths_tensor(dev, ka, na)
+            aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            want = {
+                "elastic_matmul": em.choose_variant(rows, ka, na, dtype, ka,
+                                                    N, aligned),
+                "elastic_matmul_dgrad": em.choose_bwd_variant(
+                    rows, ka, na, dtype, (n_out, N, kx), aligned),
+                "elastic_matmul_wgrad": em.choose_bwd_variant(
+                    rows, ka, na, dtype, (ka, n_out), aligned)}
+            calls = {
+                "elastic_matmul": (
+                    lambda: ops.elastic_matmul_op(x, w, ka, na, n_out=n_out),
+                    lambda: em.elastic_matmul_plain(x, w, ka, na, n_out)),
+                "elastic_matmul_dgrad": (
+                    lambda: em.elastic_matmul_dgrad(dy, w, widths, ka, na,
+                                                    kx),
+                    lambda: em.elastic_matmul_dgrad_plain(dy, w, ka, na,
+                                                          kx)),
+                "elastic_matmul_wgrad": (
+                    lambda: em.elastic_matmul_wgrad(x, dy, widths, ka, na,
+                                                    (K, N)),
+                    lambda: em.elastic_matmul_wgrad_plain(x, dy, ka, na,
+                                                          (K, N)))}
+            line = []
+            for kernel, (kern, plain) in calls.items():
+                before = dict(getattr(em, counters[kernel]))
+                with torch.inference_mode():
+                    got = kern()
+                    ran = took(kernel, before)
+                    ref = plain()
+                torch.cuda.synchronize()
+                if ran != {want[kernel]: 1}:
+                    raise AssertionError(f"{kernel} {dt} {label}: launches "
+                                         f"{ran}, want one on "
+                                         f"{want[kernel]}")
+                if kernel == "elastic_matmul_wgrad":
+                    # of the largest value: 802,816-row sums
+                    err = close_to_largest(got, ref, tol)
+                    zero = torch.cat([got[ka:].flatten(),
+                                      got[:ka, na:].flatten()])
+                else:
+                    err = close(got, ref, tol)
+                    zero = got[:, na:] if kernel == "elastic_matmul" \
+                        else got[:, ka:]
+                if zero.numel() and not bool((zero == 0).all()):
+                    raise AssertionError(f"{kernel} {dt} {label}: non-zero "
+                                         f"outside the active block")
+                errs[(kernel, dt)] = max(errs.get((kernel, dt), 0.0), err)
+                if dtype == torch.bfloat16:
+                    held.add((kernel, want[kernel]))
+                line.append(f"{kernel.replace('elastic_matmul', 'fwd')[:9]}"
+                            f" {want[kernel]} {err:.3g}")
+                del got, ref
+            log(f"  {dt:8s} {label:26s} M={rows:6d} k={ka:3d}/{K:3d} "
+                f"n={na:3d}/{n_out:3d}: " + "; ".join(line))
+            del w, x, dy
+    log(f"  max errors (forward and dgrad: abs, tol {TOL['float32']} / "
+        f"{TOL['bfloat16']} + tol x |plain|; wgrad: of the largest value): "
+        + ", ".join(f"{k.replace('elastic_matmul', 'K1')} {d} {e:.3g}"
+                    for (k, d), e in sorted(errs.items())))
+    log(f"  bf16 variants held: {sorted(held)}; zeros outside every active "
+        f"block exact ({time.perf_counter() - t0:.1f} s)")
+    return {"err": errs, "held": held}
+
+
+def conv_logits(dev, randn) -> dict:
+    """Phase 22 (b): full-size ResNet-152 and EfficientNet-B7 logits,
+    kernel path against plain path, at batch 8."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.efficientnet import effnet_apply, effnet_init
+    from repro_torch.models.resnet import resnet_apply, resnet_init
+
+    t0 = phase(f"22. (b) full-size logits, kernel path vs plain path (batch "
+               f"{CONV_B}, 224 px; fp32 with cuDNN's TF32 off, and bf16)")
+    out = {}
+    nets = (
+        ("resnet-152", resnet_init, resnet_apply,
+         [dict(setting=s, depth_mult=d) for s in (0, 3) for d in (0.5, 1.0)]),
+        ("efficientnet-b7", effnet_init, effnet_apply,
+         [dict(setting=s, depth_mult=d, kernel_size=3) for s in (0, 2)
+          for d in (0.5, 1.0)]))
+    imgs = randn(CONV_B, 224, 224, 3)
+    for arch_id, init, apply, knobs in nets:
+        cfg = dataclasses.replace(get_arch(arch_id).make_config(),
+                                  img_res=224)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params = init(torch.Generator().manual_seed(1), cfg32, device=dev)
+        worst32, worst16, top1 = 0.0, 0.0, 1.0
+        for kw in knobs:
+            for train in (False, True):
+                with torch.inference_mode():
+                    yk = apply(params, imgs, cfg32, train=train, **kw)[0]
+                    with ops.plain_kernels():
+                        yp = apply(params, imgs, cfg32, train=train, **kw)[0]
+                    e32 = close_to_largest(yk, yp, CONV_LOGITS_FP32_TOL)
+                    yk16 = apply(params, imgs, cfg, train=train, **kw)[0]
+                    with ops.plain_kernels():
+                        yp16 = apply(params, imgs, cfg, train=train, **kw)[0]
+                if not torch.isfinite(yk16).all():
+                    raise AssertionError(f"{arch_id} {kw} train={train}: "
+                                         f"non-finite bf16 logits")
+                e16 = float((yk16.float() - yp16.float()).abs().max())
+                t1 = float((yk16.argmax(-1) == yp16.argmax(-1)).float()
+                           .mean())
+                worst32, worst16 = max(worst32, e32), max(worst16, e16)
+                top1 = min(top1, t1)
+                log(f"  {arch_id:15s} {kw} train={train!s:5s}: fp32 "
+                    f"{e32:.3g} of the largest |logit| "
+                    f"{float(yp.abs().max()):.4g} (tol "
+                    f"{CONV_LOGITS_FP32_TOL}); bf16 max abs err {e16:.3g} "
+                    f"(largest |logit| {float(yp16.float().abs().max()):.4g}"
+                    f"), top-1 agreement {t1:.2f}")
+        out[arch_id] = {"fp32_rel_err": worst32, "bf16_abs_err": worst16,
+                        "bf16_top1": top1}
+        del params
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def conv_train(label: str, argv: list, held: set, restarts: int,
+               dev) -> dict:
+    """Phase 22 (c) and (d): the training launcher on the card; finite
+    losses, ``restarts`` restarts, K1's forward, dgrad and wgrad counters
+    rising and every launch on a variant that phase (a) held in bf16."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.api import named_leaves
+
+    t0 = phase(f"22. {label}: python -m repro_torch.launch.train "
+               f"{' '.join(argv)}")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ops.reset_launch_counts()
+    try:
+        res = train_mod.main(argv + ["--ckpt-dir", ckpt, "--log-every", "1",
+                                     "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches, variants = ops.launch_counts(), ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if res["restarts"] != restarts:
+        raise AssertionError(f"{res['restarts']} restarts, want {restarts}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"non-finite losses {res['losses']}")
+    for _, p in named_leaves(res["params"]):
+        if not torch.isfinite(p).all():
+            raise AssertionError("non-finite parameters after training")
+    idle = [k for k in K1_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"K1 kernels not launched: {idle}")
+    other = {k: n for k, n in launches.items() if n and k not in K1_KERNELS}
+    if other:
+        raise AssertionError(f"kernels other than K1 launched: {other}")
+    unheld = {(k, v): n for k in K1_KERNELS for v, n in variants[k].items()
+              if n and (k, v) not in held}
+    if unheld:
+        raise AssertionError(f"launches on variants phase (a) did not hold "
+                             f"in bf16: {unheld}")
+    steady = res["step_ms"][1:] or res["step_ms"]
+    B = 256
+    n_params = sum(p.numel() for _, p in named_leaves(res["params"]))
+    out = {"step_ms": statistics.median(steady), "params": n_params,
+           "step_ms_all": res["step_ms"], "losses": res["losses"],
+           "images_per_s": B / statistics.median(steady) * 1e3,
+           "peak_gib": peak / 2**30, "peak_run_gib": (peak - base) / 2**30,
+           "launches": {k: launches[k] for k in K1_KERNELS},
+           "variants": {k: variants[k] for k in K1_KERNELS}}
+    log(f"  {n_params / 1e6:.2f} M parameters (switchable BN's sets and "
+        f"running stats included); {len(res['step_ms'])} steps run, "
+        f"{res['restarts']} restarts; losses "
+        f"{', '.join(f'{x:.4f}' for x in res['losses'])}")
+    log(f"  step: median {out['step_ms']:.1f} ms after the first (all: "
+        f"{', '.join(f'{x:.1f}' for x in res['step_ms'])} ms), "
+        f"{out['images_per_s']:.1f} images/s; peak device memory "
+        f"{out['peak_gib']:.2f} GiB ({out['peak_run_gib']:.2f} GiB above "
+        f"the {base / 2**30:.2f} GiB allocated before)")
+    log(f"  K1 launches {out['launches']}; by variant {out['variants']}")
+    del res
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def conv_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
+    """Phase 22 (e) for one net: one profiled vis_train step at batch 256
+    (device time by kernel group; the busy share and the model-FLOPs rate
+    over ``step_ms``, the launcher's median step, since the profiler
+    slows the host), and K1's forward, dgrad and wgrad calls of one
+    recorded microbatch for the timing rows.  Returns {"breakdown",
+    "model_tflop", "calls"}."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.core.distill import ce_loss
+    from repro_torch.data import synthetic_image_batches, to_device
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.launch import flops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import (accum_grads, make_vis_train_step,
+                                          vis_forward)
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import named_leaves, pop_grads
+
+    arch = get_arch(arch_id)
+    shape = arch.shape("cls_224")
+    cfg = dataclasses.replace(arch.make_config(), img_res=shape.img_res)
+    B = shape.global_batch
+    t0 = phase(f"22. (e) {arch_id}: one profiled step (batch {B}, accum "
+               f"{accum}) and the K1 calls of one recorded step")
+    params = train_mod.init_params(arch, cfg, dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    init_fn, update_fn = make_optimizer(arch.optimizer)
+    opt = init_fn(params)
+    step_fn = make_vis_train_step(arch_id, cfg, update_fn, accum)
+    batch = to_device(next(synthetic_image_batches(
+        global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes)), dev)
+    model_flops = flops.model_flops(arch, cfg, shape)
+    out = {"model_tflop": model_flops / 1e12}
+    try:
+        bd = step_breakdown(lambda: step_fn(params, opt, batch, 0),
+                            CONV_STEP_GROUPS)
+    except NoTrace as e:
+        bd = None
+        log(f"  step breakdown not measured: {e}")
+    rate = model_flops / (step_ms / 1e3)
+    out.update(step_ms=step_ms, model_tflops=rate / 1e12,
+               model_flops_share=rate / PEAK_BF16_FLOPS)
+    if bd is not None:
+        bd.update(busy=bd["device_ms"] / step_ms,
+                  busy_profiled=bd["device_ms"] / bd["wall_ms"])
+        log(f"  one step: device time in kernels {bd['device_ms']:.1f} ms, "
+            f"busy {bd['busy']:.0%} of the launcher's median step "
+            f"{step_ms:.1f} ms ({bd['busy_profiled']:.0%} of the profiled "
+            f"step's wall {bd['wall_ms']:.1f} ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(
+                    bd["groups"].items(), key=lambda kv: -kv[1])))
+        for row, ks in bd["group_top"].items():
+            log(f"    {row}: " + "; ".join(f"{n} {ms:.1f} ms x{c}"
+                                          for n, ms, c in ks))
+        log("    other kernels: " + "; ".join(
+            f"{n} {ms:.1f} ms x{c}" for n, ms, c in bd["other_top"][:4]))
+    log(f"  model FLOPs {model_flops / 1e12:.2f} TFLOP a step "
+        f"(launch/flops.py): {rate / 1e12:.1f} TFLOP/s over the median "
+        f"step, {rate / PEAK_BF16_FLOPS:.1%} of the "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak")
+    out["breakdown"] = bd
+    rec = {k: {} for k in ("k1", "dgrad", "wgrad")}
+
+    def sink(key, args, kw):
+        sig = call_signature(key, args, kw)
+        if sig in rec[key]:
+            rec[key][sig][2] += 1
+        else:
+            rec[key][sig] = [tuple(a.detach() if isinstance(a, torch.Tensor)
+                                   else a for a in args), dict(kw), 1]
+    forward = vis_forward(arch_id, cfg)
+    mb = {k: v[:B // accum] for k, v in batch.items()}
+    with recording([(layers_mod, "elastic_matmul_op", "k1"),
+                    (em, "elastic_matmul_dgrad", "dgrad"),
+                    (em, "elastic_matmul_wgrad", "wgrad")], sink):
+        loss = accum_grads(lambda p, b: ce_loss(forward(p, b["images"]),
+                                                b["labels"]), params, mb, 1)
+        torch.cuda.synchronize()
+    pop_grads(params)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"recorded step loss {float(loss)}")
+    log(f"  recorded one microbatch of {B // accum}: calls "
+        f"{ {k: sum(n for *_, n in v.values()) for k, v in rec.items()} }, "
+        f"distinct { {k: len(v) for k, v in rec.items()} }")
+    out["calls"] = rec
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def se_calls(calls: dict, M: int, key: str) -> dict:
+    """The recorded squeeze-excite calls of one microbatch: the K1
+    forward, dgrad or wgrad calls (``key``) over M = batch rows but the
+    classifier's (a weight of 1000 columns)."""
+    def rows(args):
+        return args[0].numel() // args[0].shape[-1]
+
+    def n_full(args):
+        return args[5][1] if key == "wgrad" else args[1].shape[-1]
+    return {sig: v for sig, v in calls.items()
+            if rows(v[0]) == M and n_full(v[0]) != 1000}
+
+
+def conv_phases(dev, randn) -> dict:
+    """Phase 22: the conv nets at full width on the card.  Returns what
+    the kernels' record needs."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    log(f"\n(device memory allocated before phase 22: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB)")
+    out = {"k1": k1_conv_checks(dev, randn)}
+    out["logits"] = conv_logits(dev, randn)
+    held = out["k1"]["held"]
+    out["resnet"] = conv_train(
+        "(c) ResNet-152, full width and depth, cls_224 batch 256, bf16; 8 "
+        "steps, a checkpoint every 4, a failure injected at step 6",
+        ["--arch", "resnet-152", "--steps", "8", "--save-every", "4",
+         "--fail-at", "6"], held, 1, dev)
+    out["effnet"] = conv_train(
+        f"(d) EfficientNet-B7, full width and depth, cls_224 batch 256 as "
+        f"{EFF_ACCUM} microbatches of {256 // EFF_ACCUM}, bf16; 3 steps",
+        ["--arch", "efficientnet-b7", "--steps", "3", "--accum",
+         str(EFF_ACCUM), "--save-every", "100"], held, 0, dev)
+    prof_r = conv_profile("resnet-152", 1, out["resnet"]["step_ms"], dev)
+    prof_e = conv_profile("efficientnet-b7", EFF_ACCUM,
+                          out["effnet"]["step_ms"], dev)
+    out["breakdown"] = {
+        arch: dict(breakdown=p["breakdown"], **{k: p[k] for k in (
+            "model_tflop", "model_tflops", "model_flops_share")})
+        for arch, p in (("resnet-152", prof_r), ("efficientnet-b7",
+                                                 prof_e))}
+    t0 = phase("22. (e) K1 times over the recorded calls (bf16; "
+               "graph-replayed device time)")
+    nograd = torch.no_grad
+    rc, ec = prof_r["calls"], prof_e["calls"]
+    mb = 256 // EFF_ACCUM
+    out["rows"] = {
+        "resnet_fwd": time_rows(
+            "K1 forward, ResNet-152 step", expand(rc["k1"]),
+            ops.elastic_matmul_op, k1_plain, k1_library, "torch.matmul",
+            k1_work, group=k1_group),
+        "resnet_dgrad": time_rows(
+            "K1 dgrad, ResNet-152 step", expand(rc["dgrad"]),
+            em.elastic_matmul_dgrad, k1_dgrad_plain, k1_dgrad_library,
+            "torch.matmul", k1_dgrad_work, group=bwd_group, mode=nograd),
+        "resnet_wgrad": time_rows(
+            "K1 wgrad, ResNet-152 step", expand(rc["wgrad"]),
+            em.elastic_matmul_wgrad, k1_wgrad_plain, k1_wgrad_library,
+            "torch.matmul", k1_wgrad_work, group=bwd_group, mode=nograd),
+        "effnet_se_fwd": time_rows(
+            f"K1 forward, EfficientNet-B7 SE (microbatch {mb})",
+            expand(se_calls(ec["k1"], mb, "k1")), ops.elastic_matmul_op,
+            k1_plain, k1_library, "torch.matmul", k1_work, group=k1_group),
+        "effnet_se_dgrad": time_rows(
+            f"K1 dgrad, EfficientNet-B7 SE (microbatch {mb})",
+            expand(se_calls(ec["dgrad"], mb, "dgrad")),
+            em.elastic_matmul_dgrad, k1_dgrad_plain, k1_dgrad_library,
+            "torch.matmul", k1_dgrad_work, group=bwd_group, mode=nograd),
+        "effnet_se_wgrad": time_rows(
+            f"K1 wgrad, EfficientNet-B7 SE (microbatch {mb})",
+            expand(se_calls(ec["wgrad"], mb, "wgrad")),
+            em.elastic_matmul_wgrad, k1_wgrad_plain, k1_wgrad_library,
+            "torch.matmul", k1_wgrad_work, group=bwd_group, mode=nograd)}
+    del prof_r, prof_e, rc, ec
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2894,6 +3393,7 @@ def main() -> int:
                          os.path.abspath(__file__)), "build", "trace"))
     vc = vit_compiled(tp.pop("servers"), specs, governors["joint (paper)"].lut,
                       x, cfg, dims)
+    cv = conv_phases(dev, randn)
 
     def row_keys(vit: dict) -> dict:
         # the contract's numbers from the ViT forward's row; the LM rows
@@ -2911,23 +3411,35 @@ def main() -> int:
               "launches": launches["elastic_matmul"]
               + lm["launches"]["elastic_matmul"]
               + tr["launches"]["elastic_matmul"]
-              + tp["launches"]["elastic_matmul"],
+              + tp["launches"]["elastic_matmul"]
+              + cv["resnet"]["launches"]["elastic_matmul"]
+              + cv["effnet"]["launches"]["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
                                    "vit_trace":
-                                       tp["launches"]["elastic_matmul"]},
+                                       tp["launches"]["elastic_matmul"],
+                                   "resnet_train": cv["resnet"]["launches"][
+                                       "elastic_matmul"],
+                                   "effnet_train": cv["effnet"]["launches"][
+                                       "elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
                   "train": tr["variants"]["elastic_matmul"],
-                  "vit_trace": tp["variants"]["elastic_matmul"]},
-              "max_abs_err": max(k1_err, tr["k1_train_fwd_err"])},
+                  "vit_trace": tp["variants"]["elastic_matmul"],
+                  "resnet_train": cv["resnet"]["variants"]["elastic_matmul"],
+                  "effnet_train": cv["effnet"]["variants"]["elastic_matmul"]},
+              "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
+                                 cv["k1"]["err"][("elastic_matmul",
+                                                  "bfloat16")])},
              **row_keys(vit_k1),
              timing=timing, vit_forward=vit_k1,
              lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"],
              lm_router_prefill=lm["k1_router"],
-             train_step=tr["k1_train_fwd"]),
+             train_step=tr["k1_train_fwd"],
+             resnet_step=cv["rows"]["resnet_fwd"],
+             effnet_se=cv["rows"]["effnet_se_fwd"]),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:71",
@@ -2961,14 +3473,16 @@ def main() -> int:
              timing=timing, lm_prefill=lm["k3_prefill"],
              lm_decode=lm["k3_decode"], kept_share=lm["kept"]),
     ]}
-    for name, src, replaces, row, err in (
+    for name, src, replaces, row, err, conv in (
             ("elastic_matmul_dgrad", "elastic_matmul.cu",
-             "elastic_matmul.py:68", tr["k1_dgrad"], tr["k1_bwd_err"]["dgrad"]),
+             "elastic_matmul.py:68", tr["k1_dgrad"], tr["k1_bwd_err"]["dgrad"],
+             "dgrad"),
             ("elastic_matmul_wgrad", "elastic_matmul.cu",
-             "elastic_matmul.py:68", tr["k1_wgrad"], tr["k1_bwd_err"]["wgrad"]),
+             "elastic_matmul.py:68", tr["k1_wgrad"], tr["k1_bwd_err"]["wgrad"],
+             "wgrad"),
             ("flash_attention_bwd", "flash_attention.cu",
-             "flash_attention.py:71", tr["k2_bwd"], tr["k2_bwd_err"])):
-        record["kernels"].append(dict(
+             "flash_attention.py:71", tr["k2_bwd"], tr["k2_bwd_err"], None)):
+        entry = dict(
             {"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{src}",
              "replaces": f"src/repro/kernels/{replaces}",
@@ -2978,7 +3492,24 @@ def main() -> int:
              "launches_by_path": {"train": tr["launches"][name]},
              "launches_by_variant": {"train": tr["variants"][name]},
              "max_abs_err": err}, **row_keys(row), timing=timing,
-            train_step=row))
+            train_step=row)
+        if conv:
+            for path, key in (("resnet_train", "resnet"),
+                              ("effnet_train", "effnet")):
+                n = cv[key]["launches"][name]
+                entry["launches"] += n
+                entry["launches_by_path"][path] = n
+                entry["launches_by_variant"][path] = cv[key]["variants"][name]
+            # phase 22 (a) in bf16: dgrad's max abs error, wgrad's of the
+            # largest value (sums over 802,816 rows of unit inputs)
+            cerr = cv["k1"]["err"][(name, "bfloat16")]
+            if conv == "dgrad":
+                entry["max_abs_err"] = max(err, cerr)
+            else:
+                entry["conv_err_of_largest"] = cerr
+            entry["resnet_step"] = cv["rows"][f"resnet_{conv}"]
+            entry["effnet_se"] = cv["rows"][f"effnet_se_{conv}"]
+        record["kernels"].append(entry)
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
         "lut_spread_ms", "served_err", "seconds")}))
@@ -2991,6 +3522,12 @@ def main() -> int:
     log("train: " + json.dumps({k: tr.get(k) for k in (
         "step_ms", "step_ms_all", "peak_gib", "peak_run_gib", "losses",
         "fp32_step", "step_breakdown", "step_e2e")}))
+    log("conv: " + json.dumps({
+        "logits": cv["logits"], "breakdown": cv["breakdown"],
+        **{k: {kk: cv[k][kk] for kk in ("params", "step_ms", "step_ms_all",
+                                         "losses", "images_per_s",
+                                         "peak_gib", "peak_run_gib")}
+           for k in ("resnet", "effnet")}}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 Each architecture module registers an :class:`ArchDef` with its FULL
 (paper-table) config, a reduced smoke config of the same family, its
 assigned input-shape set, and its optimizer/precision policy.  Same
-surface as the reference registry, for the vision transformers and the
-MoE LM the port runs.
+surface as the reference registry, for the vision transformers, the conv
+nets and the MoE LM the port runs.
 """
 from __future__ import annotations
 
@@ -41,9 +41,11 @@ class ArchDef:
 
 _REGISTRY: Dict[str, ArchDef] = {}
 
-# the vision transformers of the serving slice and the MoE LM of the LM
-# slice; the other architectures come with their slices of the port
-_MODULES = ("deit_b", "vit_l16", "dynamic_ofa_supernet", "deepseek_moe_16b")
+# the vision transformers of the serving slice, the MoE LM of the LM
+# slice and the conv nets; the other architectures come with their slices
+# of the port
+_MODULES = ("deit_b", "vit_l16", "resnet_152", "efficientnet_b7",
+            "dynamic_ofa_supernet", "deepseek_moe_16b")
 
 
 def register(arch: ArchDef) -> ArchDef:

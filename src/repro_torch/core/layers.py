@@ -9,14 +9,17 @@ zeros past the active count, and norms take their statistics over the
 active channels).  The host samples masked widths, so a layer reads them
 with ``int()`` at no device sync and hands K1 the cached device copy.
 
-Every matrix product goes through ``kernels.ops``: the dense layers (and
-the patch embed, written as an unfold followed by a dense product) through
-the elastic matmul, the attention core through flash attention.  The
-products read the FULL resident weights at their active widths; bias adds,
-norms, rotary embeddings and activations stay plain torch ops.
+Every matrix product goes through ``kernels.ops``: the dense layers, the
+1x1 convs and the patch embed (an unfold followed by a dense product)
+through the elastic matmul, the attention core through flash attention.
+The products read the FULL resident weights at their active widths; the
+other convs (k x k, depthwise, grouped) go to ``F.conv2d`` as the
+reference leaves them to XLA; bias adds, norms, pooling, rotary
+embeddings and activations stay plain torch ops.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -392,31 +395,138 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
 
 
 # ---------------------------------------------------------------------------
-# Convolution: the patch embed (stride == kernel, VALID)
+# Convolutions (NHWC, HWIO kernels) and switchable batch norm
 # ---------------------------------------------------------------------------
+#
+# Routes: the patch embed (stride == kernel size, no padding) is an unfold
+# and one elastic matmul; a 1x1 conv is one elastic matmul over the
+# (B*H*W, C_in) rows, after x[:, ::s, ::s] at stride s (what SAME gives a
+# 1x1 kernel); k x k, depthwise and grouped convs go to
+# ``F.conv2d`` (cuDNN on the card) on the NHWC tensor viewed as a
+# channels-last NCHW one, as the reference leaves them to XLA's conv
+# outside any Pallas kernel.
 
 def conv_init(gen: torch.Generator, ksize: int, c_in: int, c_out: int, *,
-              bias: bool = False, dtype=torch.float32, device=None) -> dict:
-    fan_in = ksize * ksize * c_in
-    p = {"kernel": _normal(gen, (ksize, ksize, c_in, c_out),
+              groups: int = 1, bias: bool = False, dtype=torch.float32,
+              device=None) -> dict:
+    fan_in = ksize * ksize * c_in // groups
+    p = {"kernel": _normal(gen, (ksize, ksize, c_in // groups, c_out),
                            1.0 / math.sqrt(fan_in), dtype, device)}
     if bias:
         p["bias"] = torch.zeros((c_out,), dtype=dtype, device=device)
     return p
 
 
-def conv_apply(p: dict, x: torch.Tensor, *, stride: int,
-               padding: str = "VALID") -> torch.Tensor:
-    """NHWC conv with an HWIO kernel whose stride equals its size (VALID):
-    the ViT patch embed.  Written as a non-overlapping unfold into
-    (B*N, P*P*C) in HWIO order and one elastic matmul, which keeps cuDNN
-    (and its TF32 default) out of the path.  Other convolutions come with
-    the conv-net slice of the port."""
+def same_pads(size: int, k: int, stride: int) -> tuple:
+    """(low, high) padding of one spatial dim under JAX's ``SAME``:
+    ``total = max((ceil(size / stride) - 1) * stride + k - size, 0)``,
+    ``low = total // 2``.  Asymmetric where total is odd (the ResNet stem,
+    7x7/2 on 224, pads 2 before and 3 after), which PyTorch's symmetric
+    ``padding=`` cannot express."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, kh: int, kw: int, stride: int,
+          padding: str) -> tuple:
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding != "SAME":
+        raise ValueError(f"padding {padding!r} is not SAME or VALID")
+    return (same_pads(x.shape[1], kh, stride),
+            same_pads(x.shape[2], kw, stride))
+
+
+def _pad_high(x: torch.Tensor, ph: tuple, pw: tuple,
+              value: float = 0.0) -> torch.Tensor:
+    """Pad NHWC ``x`` by the part of the SAME pads past their symmetric
+    low part (the op pads ``low`` on both sides itself)."""
+    eh, ew = ph[1] - ph[0], pw[1] - pw[0]
+    if eh or ew:
+        x = F.pad(x, (0, 0, 0, ew, 0, eh), value=value)
+    return x
+
+
+def _exact_fp32(x: torch.Tensor):
+    """cuDNN without TF32 for an fp32 conv on the card (the reference's
+    fp32 conv is fp32), for this call only; autograd's backward of it
+    runs later, under the process's setting."""
+    if x.dtype != torch.float32 or x.device.type != "cuda":
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def conv_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
+               groups: int = 1, a_in=None, a_out=None,
+               a_kernel: Optional[int] = None,
+               padding: str = "SAME") -> torch.Tensor:
+    """NHWC conv with elastic channels and (static) elastic kernel size.
+
+    The reference's function: the kernel centre-cropped to ``a_kernel``
+    (OFA), its input channels sliced to ``a_in`` (auto-sliced to x's width
+    when x was narrowed upstream) and its output channels to ``a_out``;
+    a depthwise conv (``groups > 1``) slices the output channels and
+    takes ``a_out`` as its group count, so a depthwise kernel wider than
+    x (the reference's F5) convolves 2 output channels per group.
+    Widths are static (sliced mode); the conv nets train at static widths.
+    """
     w, b = p["kernel"], p.get("bias")
-    P, P2, C, O = w.shape
-    if padding != "VALID" or stride != P or P2 != P or x.shape[-1] != C:
-        raise NotImplementedError(
-            "only the patch embed (stride == kernel size, VALID) is ported")
+    a_in, a_out = _static(a_in, "conv_apply"), _static(a_out, "conv_apply")
+    kh = w.shape[0]
+    if a_kernel is not None and a_kernel < kh:
+        off = (kh - a_kernel) // 2
+        w = w[off:off + a_kernel, off:off + a_kernel]
+    depthwise = groups > 1
+    if not depthwise and a_in is None and x.shape[-1] < w.shape[2]:
+        a_in = x.shape[-1]   # auto-slice: input already narrowed upstream
+    if a_in is not None and not depthwise:
+        w = take_dim(w, a_in, 2)
+    if a_out is not None:
+        w = take_dim(w, a_out, 3)
+        if b is not None:
+            b = take_dim(b, a_out, 0)
+        if depthwise:
+            groups = a_out
+    kh, kw, c_in, c_out = w.shape
+    if x.shape[-1] != c_in * groups:
+        raise ValueError(f"conv_apply: x width {x.shape[-1]} does not fit "
+                         f"kernel {tuple(w.shape)} in {groups} groups")
+    ph, pw = _pads(x, kh, kw, stride, padding)
+    if groups == 1 and kh == kw == 1:
+        y = _conv1x1(w, x, stride)
+    elif groups == 1 and kh == kw == stride and ph == pw == (0, 0):
+        y = _patch_embed(w, x)
+    else:
+        xt = _pad_high(x, ph, pw).permute(0, 3, 1, 2)   # NCHW view
+        wt = _cast(w, x.dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        with _exact_fp32(x):
+            y = F.conv2d(xt, wt, stride=stride, padding=(ph[0], pw[0]),
+                         groups=groups)
+        y = y.permute(0, 2, 3, 1)
+    if b is not None:
+        y = y + _cast(b, x.dtype)
+    return y
+
+
+def _conv1x1(w: torch.Tensor, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """A 1x1 conv as K1 over the (B*H*W, C_in) rows: the (C_in, C_out)
+    product of the (possibly sliced) view of the full resident kernel."""
+    if stride > 1:
+        x = x[:, ::stride, ::stride]
+    wk = w[0, 0]
+    y = elastic_matmul_op(x.reshape(-1, x.shape[-1]), _cast(wk, x.dtype),
+                          wk.shape[0], wk.shape[1], n_out=wk.shape[1])
+    return y.reshape(*x.shape[:3], wk.shape[1])
+
+
+def _patch_embed(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The ViT patch embed (stride == kernel size, no padding) as a
+    non-overlapping unfold into (B*N, P*P*C) in HWIO order and one elastic
+    matmul, which keeps cuDNN (and its TF32 default) out of the path."""
+    P, _, C, O = w.shape
     B, Hh, Ww, _ = x.shape
     gh, gw = Hh // P, Ww // P
     x = x[:, :gh * P, :gw * P]
@@ -424,7 +534,69 @@ def conv_apply(p: dict, x: torch.Tensor, *, stride: int,
                .reshape(B * gh * gw, P * P * C))
     wk = _cast(w, x.dtype).reshape(P * P * C, O)
     y = elastic_matmul_op(patches, wk, P * P * C, O, n_out=O)
-    y = y.reshape(B, gh, gw, O)
-    if b is not None:
-        y = y + _cast(b, x.dtype)
-    return y
+    return y.reshape(B, gh, gw, O)
+
+
+def max_pool_apply(x: torch.Tensor, *, window: int = 3,
+                   stride: int = 2) -> torch.Tensor:
+    """NHWC max over ``window`` x ``window`` at ``stride`` with JAX's SAME
+    pads filled with -inf: the reference's ``reduce_window(x, -inf, max,
+    (1, k, k, 1), (1, s, s, 1), "SAME")`` (the ResNet stem's pool)."""
+    ph, pw = _pads(x, window, window, stride, "SAME")
+    xt = _pad_high(x, ph, pw, value=-math.inf).permute(0, 3, 1, 2)
+    y = F.max_pool2d(xt, window, stride, padding=(ph[0], pw[0]))
+    return y.permute(0, 2, 3, 1)
+
+
+def groupnorm_init(c: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((c,), dtype=dtype, device=device),
+            "bias": torch.zeros((c,), dtype=dtype, device=device)}
+
+
+def groupnorm_apply(p: dict, x: torch.Tensor, *, groups: int = 32,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., C) normalised per group over (spatial..., C/groups)."""
+    c = x.shape[-1]
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    xg = x.reshape(x.shape[0], -1, g, c // g)
+    mean = torch.mean(xg, (1, 3), keepdim=True)
+    var = torch.mean(torch.square(xg - mean), (1, 3), keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return y * _cast(p["scale"], x.dtype) + _cast(p["bias"], x.dtype)
+
+
+def sbn_init(c: int, n_settings: int = 1, dtype=torch.float32,
+             device=None) -> dict:
+    """Switchable BatchNorm: independent affine+stats per width setting."""
+    kw = dict(dtype=dtype, device=device)
+    return {"scale": torch.ones((n_settings, c), **kw),
+            "bias": torch.zeros((n_settings, c), **kw),
+            "mean": torch.zeros((n_settings, c), **kw),
+            "var": torch.ones((n_settings, c), **kw)}
+
+
+def sbn_apply(p: dict, x: torch.Tensor, *, setting: int = 0,
+              train: bool = False, a=None, eps: float = 1e-5):
+    """Returns (y, new_stats | None).  ``setting`` indexes the width
+    option.  In train mode the statistics are the batch's (``var =
+    mean(x^2) - mean^2``, in x's dtype as the reference computes them) and
+    are returned, never written into the running ones."""
+    a = _static(a, "sbn_apply")
+    scale, bias = p["scale"][setting], p["bias"][setting]
+    if a is not None:
+        scale, bias = take_dim(scale, a, 0), take_dim(bias, a, 0)
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean = torch.mean(x, axes)
+        var = torch.mean(torch.square(x), axes) - torch.square(mean)
+        new_stats = (mean, var)
+    else:
+        mean, var = p["mean"][setting], p["var"][setting]
+        if a is not None:
+            mean, var = take_dim(mean, a, 0), take_dim(var, a, 0)
+        new_stats = None
+    y = (x - _cast(mean, x.dtype)) * torch.rsqrt(_cast(var, x.dtype) + eps)
+    y = y * _cast(scale, x.dtype) + _cast(bias, x.dtype)
+    return y, new_stats

@@ -126,3 +126,16 @@ class ElasticSpace:
             top_k=pick(self.top_ks),
             kernel_size=pick(self.kernel_sizes),
         )
+
+
+def round_channels(dim: int, mult: float, multiple_of: int = 1) -> int:
+    """Scale ``dim`` by ``mult`` and round to a friendly multiple (>=1).
+
+    Mirrors MobileNet/OFA channel rounding but with an explicit multiple so
+    sliced dims stay divisible by (model-shards x 128) when required.
+    """
+    if mult >= 1.0:
+        return dim
+    target = dim * mult
+    n = max(multiple_of, int(target / multiple_of + 0.5) * multiple_of)
+    return min(n, dim)

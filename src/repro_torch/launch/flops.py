@@ -1,15 +1,19 @@
-"""Analytic model FLOPs of the LM (the 'useful compute' yardstick).
+"""Analytic model FLOPs (the 'useful compute' yardstick).
 
-Counterpart of the reference ``launch/flops.py:lm_param_counts`` and
-``lm_model_flops``:
+Counterpart of the reference ``launch/flops.py`` for the families the
+port runs:
 
   LM prefill  : 2·N_active·T + (4·H·Dh)·S·T·L / 2
   LM decode   : 2·N_active·B + 4·B·L·H·Dh·S_cache
+  ViT         : token-matmul params x tokens (+ attention quadratic term)
+  CNNs        : conv MAC walk over the stage geometry
 
-N_active counts MoE experts at top_k (+shared) of n_experts.  The
-elastic launcher's "rel flops" column and ``chip_smoke.py``'s
-model-FLOPs bound of each prefill use them.  The training count comes
-with LM training (ROADMAP item 15 (c)).
+N_active counts MoE experts at top_k (+shared) of n_experts; a training
+step counts 3x its forward.  The elastic launcher's "rel flops" column
+and ``chip_smoke.py``'s model-FLOPs bound of each prefill and its
+model-FLOPs rate of the conv nets' training steps use them.  The LM's
+training count comes with LM training (ROADMAP item 15 (c)), diffusion's
+with item 10.
 """
 from __future__ import annotations
 
@@ -50,3 +54,86 @@ def lm_model_flops(cfg, kind: str, B: int, S: int) -> float:
         return 2.0 * N_act * B + 4.0 * B * L * H * Dh * S
     raise ValueError(f"lm_model_flops: kind {kind!r} is not 'prefill' or "
                      f"'decode'")
+
+
+# --- ViT -----------------------------------------------------------------------
+
+def vit_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
+    tok = (img_res // cfg.patch) ** 2 + (2 if getattr(cfg, "distill_token",
+                                                      False) else 1)
+    d, L = cfg.d_model, cfg.n_layers
+    per_tok = L * (4 * d * d + 2 * d * cfg.d_ff)       # attn + (plain) mlp
+    attn_quad = L * 4 * d * tok                         # per token: 4·d·tok
+    patch = cfg.patch * cfg.patch * 3 * d
+    fwd = 2.0 * B * tok * (per_tok + patch) + 2.0 * B * tok * attn_quad
+    return fwd * (3.0 if kind == "train" else 1.0)
+
+
+# --- CNNs ----------------------------------------------------------------------
+
+def resnet_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
+    macs = 0.0
+    r = img_res // 2                       # stem stride 2
+    macs += r * r * 49 * 3 * cfg.width
+    r = r // 2                             # maxpool
+    c_in = cfg.width
+    for s, depth in enumerate(cfg.depths):
+        c_out = cfg.stage_channels(s)
+        c_mid = c_out // 4
+        for b in range(depth):
+            stride = 2 if (b == 0 and s > 0) else 1
+            r_out = r // stride
+            macs += r * r * c_in * c_mid               # 1x1
+            macs += r_out * r_out * 9 * c_mid * c_mid  # 3x3 (stride)
+            macs += r_out * r_out * c_mid * c_out      # 1x1
+            if c_in != c_out:
+                macs += r_out * r_out * c_in * c_out
+            c_in, r = c_out, r_out
+    macs += c_in * cfg.n_classes
+    fwd = 2.0 * B * macs
+    return fwd * (3.0 if kind == "train" else 1.0)
+
+
+def effnet_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
+    from repro_torch.models.efficientnet import B0_STAGES
+    macs = 0.0
+    r = img_res // 2
+    stem = cfg.round_filters(32)
+    macs += r * r * 9 * 3 * stem
+    c_in = stem
+    for (expand, c, reps, stride, k) in B0_STAGES:
+        c_out = cfg.round_filters(c)
+        for b in range(cfg.round_repeats(reps)):
+            st = stride if b == 0 else 1
+            c_mid = c_in * expand
+            r_out = r // st
+            if expand != 1:
+                macs += r * r * c_in * c_mid
+            macs += r_out * r_out * k * k * c_mid          # depthwise
+            c_se = max(1, int(c_in * 0.25))
+            macs += c_mid * c_se * 2                        # SE
+            macs += r_out * r_out * c_mid * c_out
+            c_in, r = c_out, r_out
+    head = cfg.round_filters(1280)
+    macs += r * r * c_in * head + head * cfg.n_classes
+    fwd = 2.0 * B * macs
+    return fwd * (3.0 if kind == "train" else 1.0)
+
+
+# --- dispatch -------------------------------------------------------------------
+
+def model_flops(arch, cfg, shape) -> float:
+    """The reference's dispatch by family and shape kind.  The LM's
+    training count (item 15 (c)) and diffusion (item 10) raise."""
+    fam, kind = arch.family, shape.kind
+    if fam == "lm":
+        return lm_model_flops(cfg, kind, shape.global_batch, shape.seq_len)
+    if fam == "diffusion":
+        raise NotImplementedError(f"{arch.arch_id}: diffusion's model FLOPs "
+                                  f"come with ROADMAP item 10")
+    k = "train" if kind == "vis_train" else "serve"
+    if arch.arch_id.startswith(("deit", "vit", "dynamic-ofa")):
+        return vit_model_flops(cfg, k, shape.global_batch, shape.img_res)
+    if arch.arch_id.startswith("resnet"):
+        return resnet_model_flops(cfg, k, shape.global_batch, shape.img_res)
+    return effnet_model_flops(cfg, k, shape.global_batch, shape.img_res)

@@ -1,10 +1,11 @@
-"""The LM's prefill and decode steps and the ViT's train step.
+"""The LM's prefill and decode steps and the vision nets' train step.
 
 Counterparts of the ``prefill`` and ``decode`` closures of the reference's
-``launch/steps.py:_lm_cell`` and the ``train_step`` of its ``_vis_cell``,
-without mesh or sharding (one card).  The functions run eagerly;
-:class:`LMGraphs` runs the prefill and the decode step as CUDA graphs on
-the card, the counterpart of the reference's jit-compiled closures.
+``launch/steps.py:_lm_cell``, the ``train_step`` of its ``_vis_cell`` and
+its ``_accum_grads``, without mesh or sharding (one card).  The functions
+run eagerly; :class:`LMGraphs` runs the prefill and the decode step as
+CUDA graphs on the card, the counterpart of the reference's jit-compiled
+closures.
 """
 from __future__ import annotations
 
@@ -14,28 +15,90 @@ import torch
 
 from repro_torch.core.distill import ce_loss
 from repro_torch.graphs import Graph, new_pool, pool_bytes
+from repro_torch.models.efficientnet import effnet_apply
+from repro_torch.models.resnet import resnet_apply
 from repro_torch.models.transformer import (LMConfig, check_decodable,
                                             lm_apply, make_decode_caches)
-from repro_torch.models.vit import ViTConfig, vit_apply
-from repro_torch.optim.api import clip_by_global_norm, pop_grads
+from repro_torch.models.vit import vit_apply
+from repro_torch.optim.api import (clip_by_global_norm, named_leaves,
+                                   pop_grads)
 
 
-def make_vit_train_step(cfg: ViTConfig, update_fn: Callable) -> Callable:
-    """The reference's ``vis_train`` step for the ViTs: cross entropy of
-    the full net on the labels, the gradient clipped to global norm 1.0,
-    one optimizer update.
+# Grad-accumulation defaults of the reference's ``build_cell``:
+# microbatches per step, by (arch, shape).  Neither conv net has an
+# entry, so both train at accum 1 by default, as in the reference.
+ACCUM_DEFAULTS = {
+    ("qwen1.5-110b", "train_4k"): 16,
+    ("kimi-k2-1t-a32b", "train_4k"): 16,
+    ("granite-20b", "train_4k"): 16,
+    ("deepseek-moe-16b", "train_4k"): 4,
+    ("unet-sdxl", "train_1024"): 2,
+    ("unet-sdxl", "train_256"): 2,
+    ("dit-l2", "train_1024"): 2,
+}
+
+
+def accum_grads(loss_fn: Callable, params, batch: dict,
+                accum: int) -> torch.Tensor:
+    """The reference's ``_accum_grads``: ``loss_fn(params, mb)`` and its
+    backward over ``accum`` consecutive chunks of the batch, one chunk's
+    activations alive at a time.  The gradients sum on each leaf's
+    ``.grad`` (fp32 parameters: an fp32 sum, in chunk order) and are
+    divided by ``accum`` there; returns the mean loss (detached)."""
+    if accum <= 1:
+        loss = loss_fn(params, batch)
+        loss.backward()
+        return loss.detach()
+    B = next(iter(batch.values())).shape[0]
+    if B % accum:
+        raise ValueError(f"batch {B} does not split into {accum} chunks")
+    n = B // accum
+    lsum = None
+    for i in range(accum):
+        loss = loss_fn(params, {k: v[i * n:(i + 1) * n]
+                                for k, v in batch.items()})
+        loss.backward()
+        lsum = loss.detach() if lsum is None else lsum + loss.detach()
+    with torch.no_grad():
+        for _, p in named_leaves(params):
+            if p.grad is not None:
+                p.grad.div_(accum)
+    return lsum / accum
+
+
+def vis_forward(arch_id: str, cfg) -> Callable:
+    """``forward(params, images) -> logits`` of the reference's
+    ``vis_train`` step: the ViTs as they serve, the conv nets with
+    batch-statistics BN (``train=True``)."""
+    if arch_id.startswith(("deit", "vit", "dynamic-ofa")):
+        return lambda p, x: vit_apply(p, x, cfg)[0]
+    if arch_id.startswith("resnet"):
+        return lambda p, x: resnet_apply(p, x, cfg, train=True)[0]
+    if arch_id.startswith("efficientnet"):
+        return lambda p, x: effnet_apply(p, x, cfg, train=True)[0]
+    raise NotImplementedError(f"{arch_id}: no ported vis_train forward")
+
+
+def make_vis_train_step(arch_id: str, cfg, update_fn: Callable,
+                        accum: int = 1) -> Callable:
+    """The reference's ``vis_train`` step: cross entropy of the full net
+    on the labels (the mean over ``accum`` microbatches), the gradient
+    clipped to global norm 1.0, one optimizer update.
 
     ``step(params, opt, batch, step) -> (params, opt, {"loss", "gnorm"})``
     with the parameters (leaves that require grad) and the optimizer state
     updated in place and the metrics as device scalars."""
+    forward = vis_forward(arch_id, cfg)
+
+    def loss_fn(params, mb):
+        return ce_loss(forward(params, mb["images"]), mb["labels"])
+
     def step(params, opt, batch, step):
         pop_grads(params)
-        logits, _ = vit_apply(params, batch["images"], cfg)
-        loss = ce_loss(logits, batch["labels"])
-        loss.backward()
+        loss = accum_grads(loss_fn, params, batch, accum)
         grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
         params, opt = update_fn(params, grads, opt, step)
-        return params, opt, {"loss": loss.detach(), "gnorm": gn}
+        return params, opt, {"loss": loss, "gnorm": gn}
     return step
 
 

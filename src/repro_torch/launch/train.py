@@ -1,17 +1,23 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Counterpart of the reference ``launch/train.py`` for the vision
-transformers on one card: config registry -> train step -> data pipeline
--> checkpoint manager -> watchdog/straggler monitor -> restart supervisor.
-``--smoke`` runs the reduced config; ``--sandwich`` is the paper's
-supernet training (max + min + 2 random sub-networks a step with in-place
-distillation, masked mode: one graph); without it, the plain ``vis_train``
-step (cross entropy of the full net).  Parameters are fp32 and the compute
-dtype is the config's (bf16 at full size).  The run is on the card unless
-``--device cpu``; with no card and no ``--device cpu`` it raises.
+transformers and the conv nets on one card: config registry -> train step
+-> data pipeline -> checkpoint manager -> watchdog/straggler monitor ->
+restart supervisor.  ``--smoke`` runs the reduced config; ``--sandwich``
+is the paper's supernet training of a vision transformer (max + min + 2
+random sub-networks a step with in-place distillation, masked mode: one
+graph); without it, the plain ``vis_train`` step (cross entropy of the
+full net; the conv nets with batch-statistics BN and SGD with momentum),
+over ``--accum`` microbatches (the reference's ``build_cell`` default: 1
+for the smoke configs, else ``ACCUM_DEFAULTS``).  Parameters are fp32 and
+the compute dtype is the config's (bf16 at full size).  The run is on the
+card unless ``--device cpu``; with no card and no ``--device cpu`` it
+raises.
 
     python -m repro_torch.launch.train --arch dynamic-ofa-supernet \\
         --sandwich --smoke --device cpu --steps 12
+    python -m repro_torch.launch.train --arch resnet-152 --smoke \\
+        --device cpu --steps 3
 """
 from __future__ import annotations
 
@@ -33,7 +39,9 @@ from repro_torch.data import Prefetcher, synthetic_image_batches, to_device
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
                                            Watchdog, run_with_restarts)
-from repro_torch.launch.steps import make_vit_train_step
+from repro_torch.launch.steps import ACCUM_DEFAULTS, make_vis_train_step
+from repro_torch.models.efficientnet import effnet_init
+from repro_torch.models.resnet import resnet_init
 from repro_torch.models.vit import vit_apply, vit_init
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.api import named_leaves
@@ -41,8 +49,6 @@ from repro_torch.optim.api import named_leaves
 # architectures of the reference whose training is not ported yet, and the
 # ROADMAP item that brings it
 UNPORTED = {
-    "resnet-152": "item 9 (conv nets)",
-    "efficientnet-b7": "item 9 (conv nets)",
     "unet-sdxl": "item 10 (diffusion)",
     "dit-l2": "item 10 (diffusion)",
 }
@@ -72,7 +78,24 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--accum", type=int, default=None,
+                    help="microbatches a step (default: the reference's)")
     return ap.parse_args(argv)
+
+
+VIT_FAMILY = ("deit", "vit", "dynamic-ofa")
+CONV_FAMILY = ("resnet", "efficientnet")
+
+
+def init_params(arch, cfg, device) -> dict:
+    """The reference's ``_init_params`` for the vision archs: each
+    family's init from seed 0."""
+    gen = torch.Generator().manual_seed(0)
+    if arch.arch_id.startswith(VIT_FAMILY):
+        return vit_init(gen, cfg, device=device)
+    if arch.arch_id.startswith("resnet"):
+        return resnet_init(gen, cfg, device=device)
+    return effnet_init(gen, cfg, device=device)
 
 
 def _shape(arch, name, cfg, smoke: bool) -> ShapeSpec:
@@ -100,8 +123,10 @@ def main(argv=None):
     if arch.family == "lm":
         raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
                                   f"{LM_ITEM}")
-    if not arch.arch_id.startswith(("deit", "vit", "dynamic-ofa")):
+    if not arch.arch_id.startswith(VIT_FAMILY + CONV_FAMILY):
         raise NotImplementedError(f"{args.arch}: no ported training path")
+    if args.sandwich and not arch.arch_id.startswith(VIT_FAMILY):
+        raise SystemExit("--sandwich: vision-transformer archs only")
     device = resolve_device(args.device)
 
     cfg = arch.make_smoke() if args.smoke else arch.make_config()
@@ -111,6 +136,8 @@ def main(argv=None):
     if shape.img_res != cfg.img_res:
         cfg = dataclasses.replace(cfg, img_res=shape.img_res)
     B = shape.global_batch
+    accum = args.accum or (1 if args.smoke else ACCUM_DEFAULTS.get(
+        (arch.arch_id, shape.name), 1))
     init_fn, update_fn = make_optimizer(arch.optimizer)
 
     if args.sandwich:
@@ -121,7 +148,7 @@ def main(argv=None):
             return vit_apply(p, b["images"], cfg, E=E)[0]
         s_step, s_sample = make_sandwich_step(apply_fn, update_fn, dims)
     else:
-        step_fn = make_vit_train_step(cfg, update_fn)
+        step_fn = make_vis_train_step(arch.arch_id, cfg, update_fn, accum)
 
     def data_at(step):
         return Prefetcher(synthetic_image_batches(
@@ -135,8 +162,7 @@ def main(argv=None):
     step_ms, losses = [], []
 
     def init_state():
-        params = vit_init(torch.Generator().manual_seed(0), cfg,
-                          device=device)
+        params = init_params(arch, cfg, device)
         return {"params": params, "opt": init_fn(params)}
 
     def train(start_step, state):
@@ -183,7 +209,8 @@ def main(argv=None):
         watchdog.stop()
     steady = step_ms[1:] or step_ms
     median = (f"; step {statistics.median(steady):.1f} ms (median after the "
-              f"first)" if steady else "")
+              f"first), {B / statistics.median(steady) * 1e3:.1f} images/s"
+              if steady else "")
     print(f"done: {args.steps} steps, {restarts} restarts, straggler flags: "
           f"{len(straggler.flags)}{median} on {device}", flush=True)
     return dict(state, restarts=restarts, step_ms=step_ms, losses=losses)

@@ -178,6 +178,13 @@ def test_flash_attention_rejects_bad_args():
     (2048, 10944, 2048, torch.bfloat16, 10944, 2048, True, "tma"),
     (2048, 129, 255, torch.bfloat16, 129, 384, True, "tile_bf16"),
     (2048, 128, 256, torch.bfloat16, 128, 388, True, "tile_bf16"),
+    # the conv nets: ResNet-152's stage 0 at batch 256, its width 0.25,
+    # EfficientNet-B7's squeeze-excite widths 20 and 12 (no TMA), fp32 SE
+    (802816, 64, 256, torch.bfloat16, 64, 256, True, "tma"),
+    (802816, 16, 16, torch.bfloat16, 16, 64, True, "tma"),
+    (64, 480, 20, torch.bfloat16, 480, 20, True, "tile_bf16"),
+    (64, 12, 288, torch.bfloat16, 12, 288, True, "tile_bf16"),
+    (256, 288, 12, torch.float32, 288, 12, True, "f32_splitk"),
     (2048, 128, 256, torch.bfloat16, 128, 384, False, "tile_bf16"),
     (2048, 0, 256, torch.bfloat16, 128, 384, True, "tile_bf16"),
     (2048, 2048, 64, torch.float32, 2048, 64, True, "f32_splitk"),  # router
@@ -1031,7 +1038,11 @@ def test_wgrad_plan(M, k_act, n_act, want):
     (50432, 384, 1536, (3, 16832)), (50176, 768, 384, (7, 7168)),
     (256, 384, 1000, (1, 256)), (50432, 288, 1152, (4, 12608)),
     (50432, 192, 192, (14, 3648)), (100, 384, 384, (1, 128)),
-    (1, 8, 8, (1, 64))])
+    (1, 8, 8, (1, 64)),
+    # ResNet-152's step at batch 256 and EfficientNet-B7's SE at 64
+    (802816, 64, 64, (14, 57344)), (802816, 256, 64, (14, 57344)),
+    (200704, 128, 512, (14, 14336)), (12544, 1024, 2048, (1, 12544)),
+    (12544, 2048, 512, (2, 6272)), (64, 1344, 56, (1, 64))])
 def test_wgrad_tma_plan(M, k_act, n_act, want):
     """The tma wgrad kernel's split of M at the training step's shapes:
     chunks of whole 64-row TMA boxes (a box cannot be clipped to a chunk's
@@ -1058,6 +1069,10 @@ def test_wgrad_tma_plan(M, k_act, n_act, want):
     (300, _BF, (80, 200), True, (0, 77), "wmma_bf16"),     # k_act = 0
     (0, _BF, (80, 200), True, (8, 8), "wmma_bf16"),        # no rows
     (50432, _F32, (384, 384), True, (384, 384), "fma_f32"),
+    # the conv nets: ResNet-152's stage 0 dgrad, the SE widths 20 and 12
+    (802816, _BF, (256, 256, 64), True, (64, 256), "tma"),
+    (64, _BF, (20, 20, 480), True, (480, 20), "wmma_bf16"),
+    (64, _BF, (12, 288), True, (12, 288), "wmma_bf16"),
 ])
 def test_choose_bwd_variant(M, dtype, lds, aligned, widths, want):
     assert em.choose_bwd_variant(M, *widths, dtype, lds, aligned) == want

@@ -98,9 +98,10 @@ def test_patch_embed_matches_jax_conv(res, patch):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):     # only the patch embed conv
+    with pytest.raises(NotImplementedError):     # no masked conv widths
         TL.conv_apply(_params(JL.conv_init(KEY, 3, 3, 4)),
-                      torch.zeros(1, 8, 8, 3), stride=1, padding="SAME")
+                      torch.zeros(1, 8, 8, 3), stride=1, padding="SAME",
+                      a_out=torch.tensor(2, dtype=torch.int32))
     pe = _params(JL.embedding_init(KEY, 16, 8))
     with pytest.raises(NotImplementedError):     # masked LM: LM training
         TL.embedding_apply(pe, torch.zeros(2, 3, dtype=torch.long),

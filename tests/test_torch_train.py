@@ -532,12 +532,36 @@ def test_train_cli_plain_vis_train(tmp_path):
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     from repro_torch.launch import train as T
     base = ["--smoke", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    for argv in (["--arch", "deepseek-moe-16b"], ["--arch", "resnet-152"],
-                 ["--arch", "dit-l2"],
+    for argv in (["--arch", "deepseek-moe-16b"], ["--arch", "dit-l2"],
+                 ["--arch", "unet-sdxl"],
                  ["--arch", "deit-b", "--mesh", "pod"],
                  ["--arch", "deit-b", "--coordinator", "h:1"]):
         with pytest.raises(NotImplementedError):
             T.main(argv + base)
+
+
+@pytest.mark.cuda
+def test_cuda_train_cli_resnet_smoke_through_k1(tmp_path):
+    """resnet-152's smoke config trains on the card: its 1x1 convs and
+    classifier on K1 (fp32: f32_splitk / tile_f32 at M = 128, small_m at
+    the classifier's M = 2) with K1's fp32 dgrad and wgrad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    ops.reset_launch_counts()
+    out = T.main(["--arch", "resnet-152", "--smoke", "--steps", "3",
+                  "--ckpt-dir", str(tmp_path), "--device", "cuda"])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    n, v = ops.launch_counts(), ops.variant_counts()
+    for k in ("elastic_matmul", "elastic_matmul_dgrad",
+              "elastic_matmul_wgrad"):
+        assert n[k] > 0, n
+    assert v["elastic_matmul"]["small_m"] > 0
+    assert v["elastic_matmul"]["f32_splitk"] + \
+        v["elastic_matmul"]["tile_f32"] > 0
+    for k in ("elastic_matmul_dgrad", "elastic_matmul_wgrad"):
+        assert v[k]["fma_f32"] == n[k] > 0, v
 
 
 def test_train_cli_without_a_card_raises(tmp_path):
