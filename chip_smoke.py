@@ -197,8 +197,10 @@ their 1x1 convs and classifier on K1, the other convs on cuDNN):
     tolerance of its largest value; (b) full-size logits, kernel path
     against plain path at batch 8: ResNet-152 at width settings 0 and 3,
     EfficientNet-B7 at 0 and 2 (kernel size 3), depth 0.5 and 1.0, BN in
-    eval and train mode, fp32 within a stated share of the largest
-    |logit| (cuDNN's TF32 off), bf16 max abs error and top-1 agreement;
+    eval and train mode, fp32 (cuDNN's TF32 off) within a stated share of
+    the largest |logit|, bf16 no farther from the fp32 logits than twice
+    the plain path's bf16 logits are (plus the bf16 tolerance), bf16
+    difference and top-1 agreement;
     (c) ``repro_torch.launch.train --arch resnet-152`` at cls_224, batch
     256, bf16: 8 steps, a checkpoint every 4, a failure at step 6;
     finite losses, exactly one restart, K1's forward, dgrad and wgrad
@@ -209,10 +211,15 @@ their 1x1 convs and classifier on K1, the other convs on cuDNN):
     profiled step of each: device time in K1, convolutions, BN,
     elementwise and reduction kernels, and the rest, the busy share and
     the model-FLOPs rate (``launch/flops.py``) against the bf16 dense
-    peak; and K1's forward, dgrad and wgrad over the recorded calls of a
-    ResNet-152 step and of EfficientNet-B7's squeeze-excite as
-    graph-replayed device time beside the plain version, ``torch.matmul``
-    and the bound.
+    peak; (f) K1's forward, dgrad and wgrad against their plain versions
+    at every distinct call of a recorded ResNet-152 step (batch 256) and
+    EfficientNet-B7 microbatch (64), bf16 as recorded: forward and dgrad
+    within tolerance and within tolerance of the largest value, wgrad
+    within tolerance of the largest value, exact zeros past the active
+    widths, one launch per comparison; and K1's forward, dgrad and wgrad
+    over the recorded calls of the ResNet-152 step and of EfficientNet-B7's
+    squeeze-excite as graph-replayed device time beside the plain version,
+    ``torch.matmul`` and the bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -2607,10 +2614,17 @@ CONV_STEP_GROUPS = (
     ("max_pool", "BN, elementwise and reductions"))
 K1_KERNELS = ("elastic_matmul", "elastic_matmul_dgrad",
               "elastic_matmul_wgrad")
-# the conv nets' logits, kernel path against plain path: fp32 within this
-# share of the largest |logit| (150 or so fp32 layers; eval mode at init
-# lets the residual stream grow, so the scale is the logits' own)
-CONV_LOGITS_FP32_TOL = 1e-3
+# the conv nets' logits, kernel path against plain path, as a share of the
+# largest |logit| (eval mode at init lets the residual stream grow, so the
+# scale is the logits' own): fp32 over 150 or so layers (worst reading
+# 1.42e-5, NVIDIA H100 80GB HBM3, 700.00 W).  In bf16 each layer rounds
+# its output, and EfficientNet-B7's 55 blocks with batch-statistics BN
+# over 8 images grow a rounding apart to a sixth of the largest logit
+# (the same card), so bf16 is held to the fp32 plain logits: the kernel
+# path's distance from them at most twice the plain path's bf16 distance,
+# plus the bf16 tolerance
+CONV_LOGITS_FP32_TOL = 1e-4
+CONV_BF16_FACTOR = 2.0
 CONV_B = 8                   # phase 22 (b)'s batch
 EFF_ACCUM = 4                # phase 22 (d): 256 images as 4 x 64
 
@@ -2762,7 +2776,7 @@ def conv_logits(dev, randn) -> dict:
                                   img_res=224)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         params = init(torch.Generator().manual_seed(1), cfg32, device=dev)
-        worst32, worst16, top1 = 0.0, 0.0, 1.0
+        worst32, worst16, top1, wk, wp = 0.0, 0.0, 1.0, 0.0, 0.0
         for kw in knobs:
             for train in (False, True):
                 with torch.inference_mode():
@@ -2773,22 +2787,32 @@ def conv_logits(dev, randn) -> dict:
                     yk16 = apply(params, imgs, cfg, train=train, **kw)[0]
                     with ops.plain_kernels():
                         yp16 = apply(params, imgs, cfg, train=train, **kw)[0]
-                if not torch.isfinite(yk16).all():
-                    raise AssertionError(f"{arch_id} {kw} train={train}: "
-                                         f"non-finite bf16 logits")
-                e16 = float((yk16.float() - yp16.float()).abs().max())
+                scale = max(float(yp.abs().max()), 1e-30)
+                ek, ep = (float((y.float() - yp).abs().max()) / scale
+                          for y in (yk16, yp16))
+                e16 = float((yk16.float() - yp16.float()).abs().max()) / scale
+                if not torch.isfinite(yk16).all() or \
+                        not ek <= CONV_BF16_FACTOR * ep + TOL["bfloat16"]:
+                    raise AssertionError(
+                        f"{arch_id} {kw} train={train}: the kernel path's "
+                        f"bf16 logits {ek:.3g} of the largest fp32 logit "
+                        f"from the fp32 ones, the plain path's {ep:.3g}")
                 t1 = float((yk16.argmax(-1) == yp16.argmax(-1)).float()
                            .mean())
                 worst32, worst16 = max(worst32, e32), max(worst16, e16)
+                wk, wp = max(wk, ek), max(wp, ep)
                 top1 = min(top1, t1)
                 log(f"  {arch_id:15s} {kw} train={train!s:5s}: fp32 "
                     f"{e32:.3g} of the largest |logit| "
                     f"{float(yp.abs().max()):.4g} (tol "
-                    f"{CONV_LOGITS_FP32_TOL}); bf16 max abs err {e16:.3g} "
-                    f"(largest |logit| {float(yp16.float().abs().max()):.4g}"
-                    f"), top-1 agreement {t1:.2f}")
-        out[arch_id] = {"fp32_rel_err": worst32, "bf16_abs_err": worst16,
-                        "bf16_top1": top1}
+                    f"{CONV_LOGITS_FP32_TOL}); bf16 kernel vs plain path "
+                    f"{e16:.3g} of it, top-1 agreement {t1:.2f}; from the "
+                    f"fp32 logits: kernel path {ek:.3g}, plain path "
+                    f"{ep:.3g} (kernel at most {CONV_BF16_FACTOR:g} x plain "
+                    f"+ {TOL['bfloat16']})")
+        out[arch_id] = {"fp32_rel_err": worst32, "bf16_rel_err": worst16,
+                        "bf16_top1": top1, "bf16_kernel_from_fp32": wk,
+                        "bf16_plain_from_fp32": wp}
         del params
     torch.cuda.empty_cache()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -2962,6 +2986,73 @@ def conv_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
     return out
 
 
+def k1_recorded_checks(label: str, rec: dict) -> dict:
+    """Phase 22 (f) for one recorded step: K1's forward, dgrad and wgrad
+    against their plain versions at every distinct call, bf16 as recorded.
+    Forward and dgrad within ``close``'s tolerance and within tolerance of
+    the largest value (a batch-mean loss's gradients are small, so the
+    absolute tolerance alone would pass a kernel writing zeros), wgrad
+    within tolerance of the largest value (sums over up to 802,816 rows);
+    exact zeros past the active widths; one launch per comparison.
+    Returns {kernel: {"abs": worst max abs err, "of_largest": worst share
+    of the largest value, "variants": launches by variant}}."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+
+    tol = TOL["bfloat16"]
+    # key -> (counter, kernel, plain version, the index of k_act)
+    checks = {"k1": ("elastic_matmul", ops.elastic_matmul_op, k1_plain, 2),
+              "dgrad": ("elastic_matmul_dgrad", em.elastic_matmul_dgrad,
+                        k1_dgrad_plain, 3),
+              "wgrad": ("elastic_matmul_wgrad", em.elastic_matmul_wgrad,
+                        k1_wgrad_plain, 3)}
+    out = {}
+    for key, (name, kern, plain, iw) in checks.items():
+        before = ops.launch_counts()[name]
+        was = dict(ops.variant_counts()[name])
+        worst = rel = 0.0
+        for args, kw, _ in rec[key].values():
+            k_act, n_act = args[iw], args[iw + 1]
+            with torch.no_grad():
+                want = plain(*args, **kw)
+                got = kern(*args, **kw).reshape(want.shape)
+            torch.cuda.synchronize()
+            where = f"{label} {name} {tuple(args[0].shape)} at " \
+                    f"{(k_act, n_act)}"
+            try:
+                r = close_to_largest(got, want, tol)
+                if key != "wgrad":
+                    worst = max(worst, close(got, want, tol))
+            except AssertionError as e:
+                raise AssertionError(f"{where}: {e}") from None
+            rel = max(rel, r)
+            if key == "wgrad":
+                zero = torch.cat([got[k_act:].flatten(),
+                                  got[:k_act, n_act:].flatten()])
+            else:
+                zero = got.reshape(-1, got.shape[-1])[
+                    :, (n_act if key == "k1" else k_act):]
+            if zero.numel() and not bool((zero == 0).all()):
+                raise AssertionError(f"{where}: non-zero outside the active "
+                                     f"block")
+            del want, got, zero
+        ran = ops.launch_counts()[name] - before
+        if ran != len(rec[key]):
+            raise AssertionError(f"{label} {name}: {ran} kernel launches in "
+                                 f"{len(rec[key])} comparisons")
+        took = {v: c - was[v] for v, c in ops.variant_counts()[name].items()
+                if c != was[v]}
+        out[name] = {"abs": worst, "of_largest": rel, "variants": took}
+        log(f"  {label}: {name:20s} {len(rec[key]):3d} distinct calls on "
+            f"{took}: " + (f"max abs err {worst:.3g} (tol {tol} + {tol} x "
+                           f"|plain|), " if key != "wgrad" else "")
+            + f"{rel:.3g} of the largest value (tol {tol}); zeros outside "
+            f"the active block exact")
+    return out
+
+
 def se_calls(calls: dict, M: int, key: str) -> dict:
     """The recorded squeeze-excite calls of one microbatch: the K1
     forward, dgrad or wgrad calls (``key``) over M = batch rows but the
@@ -3007,11 +3098,18 @@ def conv_phases(dev, randn) -> dict:
             "model_tflop", "model_tflops", "model_flops_share")})
         for arch, p in (("resnet-152", prof_r), ("efficientnet-b7",
                                                  prof_e))}
+    rc, ec = prof_r["calls"], prof_e["calls"]
+    mb = 256 // EFF_ACCUM
+    t0 = phase(f"22. (f) K1 forward, dgrad and wgrad vs plain at every "
+               f"distinct call of the recorded ResNet-152 step (batch 256) "
+               f"and EfficientNet-B7 microbatch ({mb}), bf16 as recorded")
+    out["recorded"] = {
+        "resnet": k1_recorded_checks("ResNet-152 step", rc),
+        "effnet": k1_recorded_checks("EfficientNet-B7 microbatch", ec)}
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = phase("22. (e) K1 times over the recorded calls (bf16; "
                "graph-replayed device time)")
     nograd = torch.no_grad
-    rc, ec = prof_r["calls"], prof_e["calls"]
-    mb = 256 // EFF_ACCUM
     out["rows"] = {
         "resnet_fwd": time_rows(
             "K1 forward, ResNet-152 step", expand(rc["k1"]),
@@ -3395,6 +3493,12 @@ def main() -> int:
                       x, cfg, dims)
     cv = conv_phases(dev, randn)
 
+    def conv_recorded(name: str) -> dict:
+        # phase 22 (f): the worst errors at the recorded steps' calls
+        return {n: {k: cv["recorded"][n][name][k] for k in ("abs",
+                                                             "of_largest")}
+                for n in ("resnet", "effnet")}
+
     def row_keys(vit: dict) -> dict:
         # the contract's numbers from the ViT forward's row; the LM rows
         # beside them carry the same keys
@@ -3432,14 +3536,17 @@ def main() -> int:
                   "effnet_train": cv["effnet"]["variants"]["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
-                                                  "bfloat16")])},
+                                                  "bfloat16")],
+                                 *(cv["recorded"][n]["elastic_matmul"]["abs"]
+                                   for n in ("resnet", "effnet")))},
              **row_keys(vit_k1),
              timing=timing, vit_forward=vit_k1,
              lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"],
              lm_router_prefill=lm["k1_router"],
              train_step=tr["k1_train_fwd"],
              resnet_step=cv["rows"]["resnet_fwd"],
-             effnet_se=cv["rows"]["effnet_se_fwd"]),
+             effnet_se=cv["rows"]["effnet_se_fwd"],
+             conv_recorded=conv_recorded("elastic_matmul")),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:71",
@@ -3501,12 +3608,17 @@ def main() -> int:
                 entry["launches_by_path"][path] = n
                 entry["launches_by_variant"][path] = cv[key]["variants"][name]
             # phase 22 (a) in bf16: dgrad's max abs error, wgrad's of the
-            # largest value (sums over 802,816 rows of unit inputs)
+            # largest value (sums over 802,816 rows of unit inputs); and
+            # phase 22 (f)'s, at the recorded steps' calls
             cerr = cv["k1"]["err"][(name, "bfloat16")]
+            rerr = conv_recorded(name)
             if conv == "dgrad":
-                entry["max_abs_err"] = max(err, cerr)
+                entry["max_abs_err"] = max(err, cerr, *(
+                    r["abs"] for r in rerr.values()))
             else:
-                entry["conv_err_of_largest"] = cerr
+                entry["conv_err_of_largest"] = max(cerr, *(
+                    r["of_largest"] for r in rerr.values()))
+            entry["conv_recorded"] = rerr
             entry["resnet_step"] = cv["rows"][f"resnet_{conv}"]
             entry["effnet_se"] = cv["rows"][f"effnet_se_{conv}"]
         record["kernels"].append(entry)

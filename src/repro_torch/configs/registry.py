@@ -48,6 +48,20 @@ _MODULES = ("deit_b", "vit_l16", "resnet_152", "efficientnet_b7",
             "dynamic_ofa_supernet", "deepseek_moe_16b")
 
 
+# the vision families the port runs, by arch-id prefix: what the init,
+# the vis_train forward and the model-FLOPs count dispatch on
+VISION_FAMILIES = (("vit", ("deit", "vit", "dynamic-ofa")),
+                   ("resnet", ("resnet",)),
+                   ("effnet", ("efficientnet",)))
+
+
+def vision_family(arch_id: str) -> Optional[str]:
+    """"vit", "resnet" or "effnet" for a vision arch the port runs, else
+    None."""
+    return next((fam for fam, prefixes in VISION_FAMILIES
+                 if arch_id.startswith(prefixes)), None)
+
+
 def register(arch: ArchDef) -> ArchDef:
     _REGISTRY[arch.arch_id] = arch
     return arch

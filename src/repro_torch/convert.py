@@ -7,7 +7,8 @@ or ``effnet_init``, map its leaves to numpy and convert here.  Layouts are
 kept (dense kernels ``(d_in, d_out)``, conv kernels HWIO, switchable BN
 arrays ``(n_settings, C)``, expert weights ``(E, d, f)``); each layer
 stack that ``jax.vmap`` builds along a leading axis becomes the port's list
-of per-layer dicts.
+of per-layer dicts.  The conv nets' trees (each stage a list of block
+dicts in the reference too) convert with ``to_torch`` as they are.
 """
 from __future__ import annotations
 
@@ -61,20 +62,6 @@ def lm_params(jax_params: dict, device: Optional[torch.device] = None
             n = len(next(iter(_leaves(params[name]))))
             params[name] = unstack(params[name], n)
     return params
-
-
-def resnet_params(jax_params: dict, device: Optional[torch.device] = None
-                  ) -> dict:
-    """Reference ``resnet_init`` params (numpy leaves) -> the port's: the
-    same tree (each stage a list of block dicts, as in the reference)."""
-    return to_torch(jax_params, device)
-
-
-def effnet_params(jax_params: dict, device: Optional[torch.device] = None
-                  ) -> dict:
-    """Reference ``effnet_init`` params (numpy leaves) -> the port's: the
-    same tree (each stage a list of MBConv block dicts)."""
-    return to_torch(jax_params, device)
 
 
 def lm_caches(jax_caches: dict, device: Optional[torch.device] = None

@@ -17,6 +17,8 @@ with item 10.
 """
 from __future__ import annotations
 
+from repro_torch.configs.registry import vision_family
+
 
 def lm_param_counts(cfg) -> dict:
     d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -132,8 +134,6 @@ def model_flops(arch, cfg, shape) -> float:
         raise NotImplementedError(f"{arch.arch_id}: diffusion's model FLOPs "
                                   f"come with ROADMAP item 10")
     k = "train" if kind == "vis_train" else "serve"
-    if arch.arch_id.startswith(("deit", "vit", "dynamic-ofa")):
-        return vit_model_flops(cfg, k, shape.global_batch, shape.img_res)
-    if arch.arch_id.startswith("resnet"):
-        return resnet_model_flops(cfg, k, shape.global_batch, shape.img_res)
-    return effnet_model_flops(cfg, k, shape.global_batch, shape.img_res)
+    count = {"vit": vit_model_flops, "resnet": resnet_model_flops,
+             "effnet": effnet_model_flops}[vision_family(arch.arch_id)]
+    return count(cfg, k, shape.global_batch, shape.img_res)

@@ -13,6 +13,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.configs.registry import vision_family
 from repro_torch.core.distill import ce_loss
 from repro_torch.graphs import Graph, new_pool, pool_bytes
 from repro_torch.models.efficientnet import effnet_apply
@@ -70,11 +71,12 @@ def vis_forward(arch_id: str, cfg) -> Callable:
     """``forward(params, images) -> logits`` of the reference's
     ``vis_train`` step: the ViTs as they serve, the conv nets with
     batch-statistics BN (``train=True``)."""
-    if arch_id.startswith(("deit", "vit", "dynamic-ofa")):
+    fam = vision_family(arch_id)
+    if fam == "vit":
         return lambda p, x: vit_apply(p, x, cfg)[0]
-    if arch_id.startswith("resnet"):
+    if fam == "resnet":
         return lambda p, x: resnet_apply(p, x, cfg, train=True)[0]
-    if arch_id.startswith("efficientnet"):
+    if fam == "effnet":
         return lambda p, x: effnet_apply(p, x, cfg, train=True)[0]
     raise NotImplementedError(f"{arch_id}: no ported vis_train forward")
 

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
-from repro_torch.configs.registry import ShapeSpec
+from repro_torch.configs.registry import ShapeSpec, vision_family
 from repro_torch.core.supernet import make_sandwich_step
 from repro_torch.data import Prefetcher, synthetic_image_batches, to_device
 from repro_torch.device import resolve_device, synchronize
@@ -83,19 +83,13 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-VIT_FAMILY = ("deit", "vit", "dynamic-ofa")
-CONV_FAMILY = ("resnet", "efficientnet")
-
-
 def init_params(arch, cfg, device) -> dict:
     """The reference's ``_init_params`` for the vision archs: each
     family's init from seed 0."""
     gen = torch.Generator().manual_seed(0)
-    if arch.arch_id.startswith(VIT_FAMILY):
-        return vit_init(gen, cfg, device=device)
-    if arch.arch_id.startswith("resnet"):
-        return resnet_init(gen, cfg, device=device)
-    return effnet_init(gen, cfg, device=device)
+    init = {"vit": vit_init, "resnet": resnet_init,
+            "effnet": effnet_init}[vision_family(arch.arch_id)]
+    return init(gen, cfg, device=device)
 
 
 def _shape(arch, name, cfg, smoke: bool) -> ShapeSpec:
@@ -123,9 +117,10 @@ def main(argv=None):
     if arch.family == "lm":
         raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
                                   f"{LM_ITEM}")
-    if not arch.arch_id.startswith(VIT_FAMILY + CONV_FAMILY):
+    fam = vision_family(arch.arch_id)
+    if fam is None:
         raise NotImplementedError(f"{args.arch}: no ported training path")
-    if args.sandwich and not arch.arch_id.startswith(VIT_FAMILY):
+    if args.sandwich and fam != "vit":
         raise SystemExit("--sandwich: vision-transformer archs only")
     device = resolve_device(args.device)
 

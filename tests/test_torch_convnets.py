@@ -6,7 +6,9 @@ F5 grouping, switchable BN, group norm, the stem's max-pool), ResNet and
 EfficientNet on their smoke configs, one ``vis_train`` step with SGD
 momentum (accum 1 and 2) and the launcher, on the CPU in fp32.
 Parameters come from the reference's init, converted; inputs from numpy
-seeds.  Each reference result is computed once per module.
+seeds.  Each reference result is computed once per module, from one
+reference init per net, and the reference's jitted functions of a
+fixture compile in parallel.
 
 Tolerances: layers 1e-5 (rtol and atol; outputs of order one); logits
 1e-4 of the largest |logit| (a dozen fp32 conv and BN layers summed in
@@ -19,6 +21,7 @@ round-off over a near-zero variance is noise, not parity.
 """
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -37,8 +40,7 @@ from repro.models import efficientnet as JEff  # noqa: E402
 from repro.models import resnet as JRes  # noqa: E402
 from repro.optim import make_optimizer as j_make_optimizer  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.convert import (effnet_params, resnet_params,  # noqa: E402
-                                 to_torch)
+from repro_torch.convert import to_torch  # noqa: E402
 from repro_torch.core import layers as TL  # noqa: E402
 from repro_torch.core.types import round_channels  # noqa: E402
 from repro_torch.launch import flops as TF  # noqa: E402
@@ -233,10 +235,25 @@ def _random_bn_stats(params, rng):
     return walk(params)
 
 
-def _init(init, cfg):
-    """The reference's init in one jitted call (eagerly, every random draw
-    of a new shape compiles on its own), as numpy leaves."""
+@functools.lru_cache(maxsize=None)
+def _ref_init(arch_id):
+    """The reference's init of the smoke config in one jitted call
+    (eagerly, every random draw of a new shape compiles on its own), as
+    numpy leaves; once per net for the module."""
+    init = {"resnet-152": JRes.resnet_init,
+            "efficientnet-b7": JEff.effnet_init}[arch_id]
+    cfg = j_get_arch(arch_id).make_smoke()
     return _np_tree(jax.jit(functools.partial(init, cfg=cfg))(KEY))
+
+
+def _run_jitted(calls):
+    """Each ``(fn, args)`` of ``calls`` jitted: traced here, compiled on
+    threads at once (XLA's compiler releases the GIL), then run in
+    order; the outputs."""
+    lowered = [jax.jit(fn).lower(*args) for fn, args in calls]
+    with ThreadPoolExecutor(4) as pool:
+        compiled = list(pool.map(lambda lo: lo.compile(), lowered))
+    return [c(*args) for c, (_, args) in zip(compiled, calls)]
 
 
 def _images(cfg, seed):
@@ -247,38 +264,36 @@ def _images(cfg, seed):
 @pytest.fixture(scope="module")
 def resnet_ref():
     cfg = j_res.make_smoke()
-    jp = _random_bn_stats(_init(JRes.resnet_init, cfg),
-                          np.random.default_rng(1))
+    jp = _random_bn_stats(_ref_init("resnet-152"), np.random.default_rng(1))
     x = _images(cfg, 2)
-    out = {}
+    calls, names = [], {}
     for s, d, t in RES_CASES:
-        names = []
-
-        def fwd(p, images, s=s, d=d, t=t, names=names):
+        def fwd(p, images, s=s, d=d, t=t, names=names.setdefault((s, d, t),
+                                                                  [])):
             y, st = JRes.resnet_apply(p, images, cfg, setting=s,
                                       depth_mult=d, train=t, collect_stats=t)
             names += [n for n, _ in st or ()]
             return y, [ms for _, ms in st or ()]
-        y, st = jax.jit(fwd)(jp, jnp.asarray(x))
+        calls.append((fwd, (jp, jnp.asarray(x))))
+    out = {}
+    for (s, d, t), (y, st) in zip(RES_CASES, _run_jitted(calls)):
         out[(s, d, t)] = (np.asarray(y), [
             (n, np.asarray(m), np.asarray(v))
-            for n, (m, v) in zip(names, st)] if t else None)
+            for n, (m, v) in zip(names[(s, d, t)], st)] if t else None)
     return jp, x, out
 
 
 @pytest.fixture(scope="module")
 def effnet_ref():
     cfg = j_eff.make_smoke()
-    jp = _random_bn_stats(_init(JEff.effnet_init, cfg),
+    jp = _random_bn_stats(_ref_init("efficientnet-b7"),
                           np.random.default_rng(3))
     x = _images(cfg, 4)
-    out = {}
-    for s, d, k, t in EFF_CASES:
-        y, _ = jax.jit(functools.partial(
-            JEff.effnet_apply, cfg=cfg, setting=s, depth_mult=d,
-            kernel_size=k, train=t))(jp, jnp.asarray(x))
-        out[(s, d, k, t)] = np.asarray(y)
-    return jp, x, out
+    ys = _run_jitted([(functools.partial(
+        JEff.effnet_apply, cfg=cfg, setting=s, depth_mult=d, kernel_size=k,
+        train=t), (jp, jnp.asarray(x))) for s, d, k, t in EFF_CASES])
+    return jp, x, {case: np.asarray(y) for case, (y, _) in zip(EFF_CASES,
+                                                             ys)}
 
 
 def _logits_close(t, j):
@@ -294,7 +309,7 @@ def test_resnet_logits_match_jax(resnet_ref, setting, depth_mult, train):
     jp, x, out = resnet_ref
     cfg = get_arch("resnet-152").make_smoke()
     want, want_stats = out[(setting, depth_mult, train)]
-    y, stats = TRes.resnet_apply(resnet_params(jp), torch.from_numpy(x), cfg,
+    y, stats = TRes.resnet_apply(to_torch(jp), torch.from_numpy(x), cfg,
                                  setting=setting, depth_mult=depth_mult,
                                  train=train, collect_stats=train)
     _logits_close(y, want)
@@ -312,7 +327,7 @@ def test_effnet_logits_match_jax(effnet_ref, setting, depth_mult,
                                  kernel_size, train):
     jp, x, out = effnet_ref
     cfg = get_arch("efficientnet-b7").make_smoke()
-    y, _ = TEff.effnet_apply(effnet_params(jp), torch.from_numpy(x), cfg,
+    y, _ = TEff.effnet_apply(to_torch(jp), torch.from_numpy(x), cfg,
                              setting=setting, depth_mult=depth_mult,
                              kernel_size=kernel_size, train=train)
     _logits_close(y, out[(setting, depth_mult, kernel_size, train)])
@@ -368,33 +383,32 @@ def step_ref():
     reference's fp32 gradient is off its own float64 one by up to 7% of
     a leaf (ROADMAP, traps in the reference), while the port's fp32
     gradient is within 1e-5 of it."""
-    out = {}
-    for arch_id, accum in STEP_CASES:
-        arch = j_get_arch(arch_id)
-        init = JRes.resnet_init if arch_id.startswith("resnet") \
-            else JEff.effnet_init
-        params = _init(init, arch.make_smoke())
-        rng = np.random.default_rng(5)
-        B = BATCH * accum      # BN over 8 images a microbatch
-        cfg = arch.make_smoke()
-        batch = {"images": rng.normal(size=(B, cfg.img_res, cfg.img_res, 3))
-                 .astype(np.float32),
-                 "labels": rng.integers(0, cfg.n_classes, B)
-                 .astype(np.int32)}
-        with jax.enable_x64(True):
+    inputs, calls = [], []
+    with jax.enable_x64(True):
+        for arch_id, accum in STEP_CASES:
+            arch = j_get_arch(arch_id)
+            params = _ref_init(arch_id)
+            rng = np.random.default_rng(5)
+            B = BATCH * accum      # BN over 8 images a microbatch
+            cfg = arch.make_smoke()
+            batch = {"images": rng.normal(
+                size=(B, cfg.img_res, cfg.img_res, 3)).astype(np.float32),
+                "labels": rng.integers(0, cfg.n_classes, B).astype(np.int32)}
             cell = JS.build_cell(arch, "cls_224", smoke=True, accum=accum,
                                  cfg_overrides={"param_dtype": "float64",
                                                 "compute_dtype": "float64"})
             p64 = jax.tree_util.tree_map(
                 lambda a: jnp.asarray(a, jnp.float64), params)
             opt = j_make_optimizer("sgdm")[0](p64)
-            new, _, metrics = jax.jit(cell.fn)(
-                p64, opt, {k: jnp.asarray(v) for k, v in batch.items()},
-                jnp.asarray(0))
-            out[(arch_id, accum)] = (params, batch, _np_tree(new),
-                                     {k: float(v) for k, v in
-                                      metrics.items()})
-    return out
+            inputs.append((params, batch))
+            calls.append((cell.fn, (p64, opt, {k: jnp.asarray(v) for k, v
+                                               in batch.items()},
+                                    jnp.asarray(0))))
+        outs = _run_jitted(calls)
+    return {case: (params, batch, _np_tree(new),
+                   {k: float(v) for k, v in metrics.items()})
+            for case, (params, batch), (new, _, metrics)
+            in zip(STEP_CASES, inputs, outs)}
 
 
 @pytest.mark.parametrize("arch_id,accum", STEP_CASES)
