@@ -221,6 +221,41 @@ their 1x1 convs and classifier on K1, the other convs on cuDNN):
     squeeze-excite as graph-replayed device time beside the plain version,
     ``torch.matmul`` and the bound.
 
+the diffusion nets (DiT-L/2 and UNet-SDXL trained at full width at
+train_256, DDIM-sampled; their products on K1 and K2, their 3x3 convs on
+cuDNN):
+
+23. (p), before the process turns TF32 off: an fp32 3x3 conv's dx and dw
+    under torch's default cuDNN flags against a float64 conv, through
+    the port's conv (within 1e-4 of the largest) and, for comparison,
+    through autograd of a plain ``F.conv2d``; (k) K2's fp32 backward at
+    the smoke head dims 8 and 16 against its plain version, on
+    ``fma_f32``; (a) K1's forward, dgrad and wgrad and K2's forward and
+    backward against their plain versions at every distinct call of one
+    recorded DiT-L/2 step (batch 256) and UNet-SDXL microbatch (32), bf16
+    as recorded, the cross-attention's K2 calls (77 keys) apart, one
+    launch per comparison; then each kernel's graph-replayed device time
+    over those calls beside its plain version, ``torch.matmul`` or SDPA
+    (and SDPA's autograd backward) and the bound; (b) both denoisers'
+    full-size outputs (batch 4), the zero-init gates drawn from a seeded
+    normal, kernel path against plain path: fp32 within a stated share of
+    the largest value, bf16 no farther from fp32 than twice the plain
+    path's bf16 output (plus the bf16 tolerance); (c)
+    ``repro_torch.launch.train --arch dit-l2`` (6 steps, a checkpoint
+    every 3, a failure at step 5) and ``--arch unet-sdxl`` (3 steps as
+    the launcher's 8 microbatches of 32, no checkpoint, a failure at step
+    1): finite losses, one restart each, the step run again after the
+    restart with the same loss as its first run, K1's and K2's five
+    counters rising, no other kernel, every bf16 call on ``tma``,
+    ``mma`` and ``resident``; median step, images/s, peak memory; one
+    profiled step of each (device time in K1, K2, cuDNN's convolutions,
+    norms and elementwise kernels; the busy share; the model-FLOPs rate
+    against the bf16 dense peak); (d) the DDIM sampler at gen_fast (512
+    px, batch 16, 4 steps) and (e) one denoiser call at gen_1024 (1024
+    px, batch 4: K2's forward at 4096 tokens) for both nets, kernel path
+    against plain path in bf16, every value finite, with the kernel
+    path's time.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -3143,6 +3178,613 @@ def conv_phases(dev, randn) -> dict:
     return out
 
 
+# the diffusion nets (phase 23): the profiled step's rows, K2's kernels by
+# name first (its backward's names hold no "dgrad"/"wgrad"), then K1's,
+# cuDNN's and ATen's convolutions and the rest as phase 22 has them
+DIFF_STEP_GROUPS = (("flash_attention_bwd", "K2 backward"),
+                    ("flash_attention", "K2 forward")) + CONV_STEP_GROUPS
+K2_KERNELS = ("flash_attention", "flash_attention_bwd")
+DIFF_ARCHS = ("dit-l2", "unet-sdxl")
+DIFF_KERNELS = K1_KERNELS + K2_KERNELS
+# every bf16 call of a diffusion step on the kernels' Hopper variants
+DIFF_VARIANTS = {("elastic_matmul", "tma"), ("elastic_matmul_dgrad", "tma"),
+                 ("elastic_matmul_wgrad", "tma"), ("flash_attention", "mma"),
+                 ("flash_attention_bwd", "resident")}
+# (b): fp32 denoiser outputs, kernel path against plain path, as a share
+# of the largest |output| (24 DiT blocks, or the UNet's 70 transformer
+# blocks and 22 res blocks, in fp32 with TF32 off); bf16 is held as phase
+# 22 holds the conv nets' logits (CONV_BF16_FACTOR)
+DIFF_FP32_TOL = 1e-3
+DIFF_B = 4                   # (b)'s batch
+# (c): UNet-SDXL's train_256 step of 256 as 8 microbatches of 32, the
+# launcher's default on one card (``launch/train.py:ONE_CARD_ACCUM``): at
+# the reference's 2 x 128, and at 4 x 64, the step does not fit in 80 GB
+# (fp32 parameters, gradients and AdamW moments alone are 41 GB)
+UNET_ACCUM = 8
+# (d), (e): the sampler's final iterate and the gen_1024 outputs in bf16,
+# kernel path against plain path, as a share of the largest value (each
+# DDIM step divides by sqrt(alphas_bar[t]): 1/157 at t = 999)
+DIFF_BF16_TOL = 5e-2
+
+
+def ungate(tree, gen) -> None:
+    """Draw the zero-init leaves (DiT's ``ada`` and ``final_ada``, the
+    UNet's ``proj_out``) in place from a seeded normal, kernels at
+    0.5/sqrt(fan_in) and biases at 0.1: at init they gate every block's
+    output to exactly 0, and a comparison would check none of them."""
+    import torch
+    if isinstance(tree, list):
+        for v in tree:
+            ungate(v, gen)
+        return
+    for k, v in tree.items():
+        if k in ("ada", "final_ada", "proj_out"):
+            ker, b = v["kernel"], v["bias"]
+            ker.copy_(torch.randn(ker.shape, generator=gen,
+                                  device=ker.device) * ker.shape[0] ** -0.5
+                      * 0.5)
+            b.copy_(torch.randn(b.shape, generator=gen, device=b.device)
+                    * 0.1)
+        elif isinstance(v, (dict, list)):
+            ungate(v, gen)
+
+
+def diff_setup(arch_id: str, img_res: int, dev, seed: int = 1):
+    """(arch, cfg at ``img_res``, fp32 parameters drawn on the card from
+    ``seed`` with the gates drawn non-zero)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.dit import dit_init
+    from repro_torch.models.unet import unet_init
+    arch = get_arch(arch_id)
+    cfg = dataclasses.replace(arch.make_config(), img_res=img_res)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = (dit_init if arch_id.startswith("dit") else unet_init)(
+        gen, cfg, device=dev)
+    with torch.no_grad():
+        ungate(params, gen)
+    return arch, cfg, params
+
+
+def diff_inputs(arch_id: str, cfg, B: int, dev, seed: int = 2) -> tuple:
+    """(latents (B, r, r, 4), t, cond) on the card from ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = cfg.latent_res
+    lat = torch.randn((B, r, r, 4), generator=gen, device=dev)
+    t = torch.randint(0, 1000, (B,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    if arch_id.startswith("dit"):
+        cond = {"y": torch.randint(0, cfg.n_classes, (B,), generator=gen,
+                                   device=dev, dtype=torch.int32)}
+    else:
+        cond = {"ctx": torch.randn((B, 77, cfg.ctx_dim), generator=gen,
+                                   device=dev),
+                "pooled": torch.randn((B, cfg.pooled_dim), generator=gen,
+                                      device=dev)}
+    return lat, t, cond
+
+
+def diff_batch(cfg, B: int, dev, step: int = 0) -> dict:
+    """The launcher's seeded batch of ``step`` (``diffusionize`` of the
+    label stream), on the card."""
+    from repro_torch.data import to_device
+    from repro_torch.launch import train as train_mod
+    return to_device(next(train_mod.diffusion_batches(cfg, B, step)), dev)
+
+
+def diff_record(label: str, arch_id: str, cfg, params, mb: dict) -> dict:
+    """Phase 23 (a)'s recording: one microbatch's loss and backward of
+    the ``diff_train`` step (no update), every K1 forward, dgrad and
+    wgrad and K2 forward and backward call kept by signature (the
+    cross-attention's K2 calls, S != T, apart)."""
+    import torch
+
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_diff_train_step
+    from repro_torch.models import unet as unet_mod
+    from repro_torch.optim.api import pop_grads
+
+    rec = {k: {} for k in ("k1", "dgrad", "wgrad", "k2", "k2_bwd", "k2x",
+                           "k2x_bwd")}
+
+    def sink(key, args, kw):
+        if key in ("k2", "k2_bwd") and args[0].shape[1] != args[1].shape[1]:
+            key = key.replace("k2", "k2x")
+        sig = call_signature(key, args, kw)
+        if sig in rec[key]:
+            rec[key][sig][2] += 1
+        else:
+            rec[key][sig] = [tuple(a.detach() if isinstance(a, torch.Tensor)
+                                   else a for a in args), dict(kw), 1]
+    step = make_diff_train_step(arch_id, cfg,
+                                lambda p, g, o, s: (p, o), accum=1)
+    with recording([(layers_mod, "elastic_matmul_op", "k1"),
+                    (ops, "elastic_matmul_op", "k1"),
+                    (em, "elastic_matmul_dgrad", "dgrad"),
+                    (em, "elastic_matmul_wgrad", "wgrad"),
+                    (layers_mod, "flash_attention_op", "k2"),
+                    (unet_mod, "flash_attention_op", "k2x"),
+                    (fa, "flash_attention_bwd", "k2_bwd")], sink):
+        _, _, m = step(params, None, mb, 0)
+        torch.cuda.synchronize()
+    pop_grads(params)
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"{label}: recorded loss {float(m['loss'])}")
+    log(f"  {label}: loss {float(m['loss']):.4f}; calls "
+        f"{ {k: sum(n for *_, n in v.values()) for k, v in rec.items()} }, "
+        f"distinct { {k: len(v) for k, v in rec.items()} }")
+    return rec
+
+
+def k2_recorded_checks(label: str, rec: dict) -> dict:
+    """Phase 23 (a) for K2: its forward and backward against their plain
+    versions at every distinct recorded call, bf16 as recorded (the
+    cross-attention's apart); the forward within tolerance, each gradient
+    within tolerance of its largest value; one launch per comparison.
+    Returns {key: worst error}."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    tol = ATTN_TOL["bfloat16"]
+    out = {}
+    for key in ("k2", "k2x", "k2_bwd", "k2x_bwd"):
+        name = "flash_attention_bwd" if key.endswith("bwd") \
+            else "flash_attention"
+        before = ops.launch_counts()[name]
+        was = dict(ops.variant_counts()[name])
+        worst = 0.0
+        for args, kw, n in rec[key].values():
+            with torch.no_grad():
+                if name == "flash_attention":
+                    want = k2_plain(*args, **kw)
+                    got = ops.flash_attention_op(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = close(got, want, tol)
+                else:
+                    q, k, v, o, lse, do = args
+                    want = fa.flash_attention_bwd_plain(q, k, v, o, do,
+                                                        causal=False)
+                    got = fa.flash_attention_bwd(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = max(close_to_largest(a, b, tol)
+                              for a, b in zip(got, want))
+            worst = max(worst, err)
+            what = ("max abs err" if name == "flash_attention"
+                    else "of the largest gradient")
+            log(f"  {label}: {key:7s} q {tuple(args[0].shape)} k "
+                f"{tuple(args[1].shape)} (x{n} in the step): {what} "
+                f"{err:.3g} (tol {tol})")
+            del want, got
+        ran = ops.launch_counts()[name] - before
+        if ran != len(rec[key]):
+            raise AssertionError(f"{label} {key}: {ran} launches in "
+                                 f"{len(rec[key])} comparisons")
+        took = {v: c - was[v] for v, c in ops.variant_counts()[name].items()
+                if c != was[v]}
+        out[key] = {"err": worst, "variants": took, "calls": len(rec[key])}
+    return out
+
+
+def p3_check(dev) -> dict:
+    """Phase 23 (p), run before the script turns TF32 off for the
+    process: an fp32 3x3 conv of the UNet-smoke config (32 -> 64
+    channels, batch 2 at 8 x 8) under torch's default cuDNN flags (TF32
+    on), its dx and dw against a float64 conv on the CPU, through
+    ``conv_apply`` (the port's fp32 conv Function) and, for comparison,
+    through autograd of a plain ``F.conv2d``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import layers as L
+    t0 = phase("23. (p) P3: an fp32 3x3 conv's backward on the card under "
+               "torch's default cuDNN flags (TF32 on)")
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN's TF32 is not at torch's default (on)")
+    g = torch.Generator().manual_seed(21)
+    w = torch.randn(3, 3, 32, 64, generator=g) / 17.0
+    x = torch.randn(2, 8, 8, 32, generator=g)
+    dy = torch.randn(2, 8, 8, 64, generator=g)
+
+    def grads(dev_, dt, plain=False):
+        ww = w.to(dev_, dt).requires_grad_()
+        xx = x.to(dev_, dt).requires_grad_()
+        if plain:
+            y = F.conv2d(xx.permute(0, 3, 1, 2), ww.permute(3, 2, 0, 1),
+                         padding=1).permute(0, 2, 3, 1)
+        else:
+            y = L.conv_apply({"kernel": ww}, xx)
+        return [a.double().cpu() for a in torch.autograd.grad(
+            y, (xx, ww), dy.to(dev_, dt))]
+    want = grads("cpu", torch.float64)
+    out = {}
+    for name, plain in (("conv_apply (the port)", False),
+                        ("autograd of F.conv2d", True)):
+        got = grads(dev, torch.float32, plain)
+        out[name] = [float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(got, want)]
+    port = max(out["conv_apply (the port)"])
+    log(f"  dx, dw of the largest value from a float64 conv: "
+        + "; ".join(f"{k} {v[0]:.3g}, {v[1]:.3g}" for k, v in out.items())
+        + f" (the port's within 1e-4: TF32's 10 mantissa bits give ~1e-3)")
+    if not port <= 1e-4:
+        raise AssertionError(f"P3: the fp32 conv's backward is {port:.3g} "
+                             f"off float64 under the default flags")
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return {"port": out["conv_apply (the port)"],
+            "plain_autograd": out["autograd of F.conv2d"]}
+
+
+def k2_small_d_checks(dev) -> float:
+    """Phase 23 (k): K2's fp32 backward at the smoke configs' head dims
+    8 and 16 (DiT-smoke, UNet-smoke self- and cross-attention) against
+    the plain backward, each one launch on fma_f32."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    t0 = phase("23. (k) K2's fp32 backward at head dims 8 and 16 vs plain")
+    g = torch.Generator().manual_seed(23)
+    worst = 0.0
+    for D, S, T, H, KH in ((8, 16, 16, 4, 4), (16, 16, 16, 4, 4),
+                           (16, 16, 77, 4, 4), (8, 100, 37, 6, 2),
+                           (16, 197, 197, 4, 4)):
+        q = (torch.randn(3, S, H, D, generator=g) * 0.5).to(dev)
+        k = (torch.randn(3, T, KH, D, generator=g) * 0.5).to(dev)
+        v = torch.randn(3, T, KH, D, generator=g).to(dev)
+        do = torch.randn(3, S, H, D, generator=g).to(dev)
+        o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+        was = fa.bwd_variant_launches["fma_f32"]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=False)
+        torch.cuda.synchronize()
+        if fa.bwd_variant_launches["fma_f32"] - was != 1:
+            raise AssertionError(f"K2 backward D {D}: not one fma_f32 "
+                                 f"launch")
+        err = max(close(a, b, ATTN_TOL["float32"]) for a, b in zip(got,
+                                                                    want))
+        worst = max(worst, err)
+        log(f"  D {D:2d} S {S:3d} T {T:3d} H {H}/{KH}: dq, dk, dv max abs "
+            f"err {err:.3g} (tol {ATTN_TOL['float32']}) on fma_f32")
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def diff_outputs(arch_id: str, cfg, params, dev) -> dict:
+    """Phase 23 (b): the full-size denoiser's output, kernel path against
+    plain path, at batch ``DIFF_B``: fp32 (TF32 off) within
+    ``DIFF_FP32_TOL`` of the largest |output|; bf16 no farther from the
+    fp32 plain output than twice the plain path's bf16 output is (plus
+    the bf16 tolerance)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import diff_denoise
+    lat, t, cond = diff_inputs(arch_id, cfg, DIFF_B, dev)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        yk = diff_denoise(arch_id, cfg32)(params, lat, t, cond)
+        with ops.plain_kernels():
+            yp = diff_denoise(arch_id, cfg32)(params, lat, t, cond)
+        e32 = close_to_largest(yk, yp, DIFF_FP32_TOL)
+        yk16 = diff_denoise(arch_id, cfg)(params, lat, t, cond)
+        with ops.plain_kernels():
+            yp16 = diff_denoise(arch_id, cfg)(params, lat, t, cond)
+    scale = max(float(yp.abs().max()), 1e-30)
+    ek, ep = (float((y.float() - yp).abs().max()) / scale
+              for y in (yk16, yp16))
+    if not torch.isfinite(yk16).all() or \
+            not ek <= CONV_BF16_FACTOR * ep + TOL["bfloat16"]:
+        raise AssertionError(f"{arch_id}: the kernel path's bf16 output "
+                             f"{ek:.3g} of the largest fp32 value from the "
+                             f"fp32 one, the plain path's {ep:.3g}")
+    e16 = float((yk16.float() - yp16.float()).abs().max()) / scale
+    log(f"  {arch_id}: output {tuple(yk.shape)}, largest |value| "
+        f"{scale:.4g}; fp32 kernel vs plain path {e32:.3g} of it (tol "
+        f"{DIFF_FP32_TOL}); bf16 kernel vs plain path {e16:.3g}; from the "
+        f"fp32 output: kernel path {ek:.3g}, plain path {ep:.3g} (kernel at "
+        f"most {CONV_BF16_FACTOR:g} x plain + {TOL['bfloat16']})")
+    return {"fp32_rel_err": e32, "bf16_rel_err": e16,
+            "bf16_kernel_from_fp32": ek, "bf16_plain_from_fp32": ep}
+
+
+def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
+               dev) -> dict:
+    """Phase 23 (c): the training launcher on the card; finite losses,
+    ``restarts`` restarts, the step run again after the restart (losses
+    ``repeat``) equal to its first run, K1's and K2's five counters
+    rising, no other kernel, every bf16 call on the Hopper variants."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.api import named_leaves
+
+    t0 = phase(f"23. {label}: python -m repro_torch.launch.train "
+               f"{' '.join(argv)}")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ops.reset_launch_counts()
+    try:
+        res = train_mod.main(argv + ["--ckpt-dir", ckpt, "--log-every", "1",
+                                     "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches, variants = ops.launch_counts(), ops.variant_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = res["losses"]
+    if res["restarts"] != restarts:
+        raise AssertionError(f"{res['restarts']} restarts, want {restarts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    first, again = losses[repeat[0]], losses[repeat[1]]
+    if not abs(first - again) <= 1e-6 * abs(first):
+        raise AssertionError(f"the step run again after the restart: loss "
+                             f"{again!r}, its first run {first!r}")
+    for _, p in named_leaves(res["params"]):
+        if not torch.isfinite(p).all():
+            raise AssertionError("non-finite parameters after training")
+    idle = [k for k in DIFF_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"kernels not launched: {idle}")
+    other = {k: n for k, n in launches.items() if n and k not in DIFF_KERNELS}
+    if other:
+        raise AssertionError(f"other kernels launched: {other}")
+    main_path_variants(variants, DIFF_VARIANTS)
+    steady = res["step_ms"][1:] or res["step_ms"]
+    B = 256
+    n_params = sum(p.numel() for _, p in named_leaves(res["params"]))
+    out = {"step_ms": statistics.median(steady), "params": n_params,
+           "step_ms_all": res["step_ms"], "losses": losses,
+           "resumed_loss_diff": again - first,
+           "images_per_s": B / statistics.median(steady) * 1e3,
+           "peak_gib": peak / 2**30, "peak_run_gib": (peak - base) / 2**30,
+           "launches": {k: launches[k] for k in DIFF_KERNELS},
+           "variants": {k: variants[k] for k in DIFF_KERNELS}}
+    log(f"  {n_params / 1e6:.2f} M parameters; {len(res['step_ms'])} steps "
+        f"run, {res['restarts']} restarts; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; the step run again "
+        f"after the restart: {again!r} against {first!r} first")
+    log(f"  step: median {out['step_ms']:.1f} ms after the first (all: "
+        f"{', '.join(f'{x:.1f}' for x in res['step_ms'])} ms), "
+        f"{out['images_per_s']:.1f} images/s; peak device memory "
+        f"{out['peak_gib']:.2f} GiB ({out['peak_run_gib']:.2f} GiB above "
+        f"the {base / 2**30:.2f} GiB allocated before)")
+    log(f"  launches {out['launches']}; by variant {out['variants']}")
+    del res
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def diff_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
+    """Phase 23 (c)'s profiled step: one ``diff_train`` step at
+    train_256 (batch 256 as ``accum`` microbatches): device time by
+    kernel group, the busy share over the launcher's median step and
+    the model-FLOPs rate against the bf16 dense peak."""
+    import torch
+
+    from repro_torch.launch import flops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_diff_train_step
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import named_leaves
+
+    arch = get_arch(arch_id)
+    shape = arch.shape("train_256")
+    cfg = dataclasses.replace(arch.make_config(), img_res=shape.img_res)
+    B = shape.global_batch
+    t0 = phase(f"23. (c) {arch_id}: one profiled step (batch {B}, accum "
+               f"{accum})")
+    params = train_mod.init_params(arch, cfg, dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    init_fn, update_fn = make_optimizer(arch.optimizer)
+    opt = init_fn(params)
+    step_fn = make_diff_train_step(arch_id, cfg, update_fn, accum)
+    batch = diff_batch(cfg, B, dev)
+    model_flops = flops.model_flops(arch, cfg, shape)
+    try:
+        bd = step_breakdown(lambda: step_fn(params, opt, batch, 0),
+                            DIFF_STEP_GROUPS)
+    except NoTrace as e:
+        bd = None
+        log(f"  step breakdown not measured: {e}")
+    rate = model_flops / (step_ms / 1e3)
+    out = {"model_tflop": model_flops / 1e12, "step_ms": step_ms,
+           "model_tflops": rate / 1e12,
+           "model_flops_share": rate / PEAK_BF16_FLOPS}
+    if bd is not None:
+        bd.update(busy=bd["device_ms"] / step_ms,
+                  busy_profiled=bd["device_ms"] / bd["wall_ms"])
+        log(f"  one step: device time in kernels {bd['device_ms']:.1f} ms, "
+            f"busy {bd['busy']:.0%} of the launcher's median step "
+            f"{step_ms:.1f} ms ({bd['busy_profiled']:.0%} of the profiled "
+            f"step's wall {bd['wall_ms']:.1f} ms): " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(
+                    bd["groups"].items(), key=lambda kv: -kv[1])))
+        for row, ks in bd["group_top"].items():
+            log(f"    {row}: " + "; ".join(f"{n} {ms:.1f} ms x{c}"
+                                          for n, ms, c in ks))
+        log("    other kernels: " + "; ".join(
+            f"{n} {ms:.1f} ms x{c}" for n, ms, c in bd["other_top"][:4]))
+    log(f"  model FLOPs {model_flops / 1e12:.2f} TFLOP a step "
+        f"(launch/flops.py): {rate / 1e12:.1f} TFLOP/s over the median "
+        f"step, {rate / PEAK_BF16_FLOPS:.1%} of the "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak")
+    out["breakdown"] = bd
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def diff_sample(arch_id: str, shape_name: str, dev) -> dict:
+    """Phase 23 (d) and (e): at ``gen_fast`` the DDIM sampler (its step
+    count, batch and resolution), at ``gen_1024`` one denoiser call, on
+    the kernels and on the plain path, bf16: every value finite, the
+    kernel path within ``DIFF_BF16_TOL`` of the plain path's largest
+    value; the kernel path's time (CUDA events) and K2's forward
+    variants."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import diff_denoise
+    from repro_torch.models import diffusion as diff
+    shape = get_arch(arch_id).shape(shape_name)
+    arch, cfg, params = diff_setup(arch_id, shape.img_res, dev)
+    B = shape.global_batch
+    lat, _, cond = diff_inputs(arch_id, cfg, B, dev, seed=3)
+    denoise = diff_denoise(arch_id, cfg)
+    sched = diff.make_schedule(device=dev)
+    steps = shape.steps if shape_name == "gen_fast" else 1
+
+    def run():
+        if shape_name == "gen_fast":
+            return diff.ddim_loop(lambda x, t: denoise(params, x, t, cond),
+                                  sched, lat, steps=steps)
+        t = torch.full((B,), 999, dtype=torch.int32, device=dev)
+        return denoise(params, lat, t, cond)
+    with torch.inference_mode():
+        was = dict(ops.variant_counts()["flash_attention"])
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        run()                                  # first use: cuDNN plans
+        torch.cuda.synchronize()
+        start.record()
+        xk = run()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        took = {v: c - was[v] for v, c in
+                ops.variant_counts()["flash_attention"].items()
+                if c != was[v]}
+        with ops.plain_kernels():
+            xp = run()
+        err = close_to_largest(xk, xp, DIFF_BF16_TOL)
+    what = (f"DDIM {steps} steps" if shape_name == "gen_fast"
+            else "one denoiser call")
+    log(f"  {arch_id} {shape_name} ({shape.img_res} px, latent "
+        f"{cfg.latent_res}, batch {B}): {what}, {ms:.1f} ms on the "
+        f"kernels (CUDA events, after one warm-up run); output "
+        f"{tuple(xk.shape)} finite, largest |value| "
+        f"{float(xp.float().abs().max()):.4g}, kernel vs plain path "
+        f"{err:.3g} of it (tol {DIFF_BF16_TOL}); K2 forward launches by "
+        f"variant {took}")
+    del params
+    torch.cuda.empty_cache()
+    return {"ms": ms, "rel_err": err, "k2_variants": took,
+            "steps": steps, "batch": B, "img_res": shape.img_res}
+
+
+def diffusion_phases(dev) -> dict:
+    """Phase 23: the diffusion nets at full width on the card.  Returns
+    what the kernels' record needs."""
+    import torch
+
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+    from repro_torch.optim.api import named_leaves
+
+    from repro_torch.launch.train import ONE_CARD_ACCUM
+    if ONE_CARD_ACCUM.get(("unet-sdxl", "train_256")) != UNET_ACCUM:
+        raise AssertionError("the launcher's UNet-SDXL accum is not "
+                             f"{UNET_ACCUM}")
+    torch.cuda.empty_cache()
+    log(f"\n(device memory allocated before phase 23: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB)")
+    out = {"k2_small_d_err": k2_small_d_checks(dev), "recorded": {},
+           "rows": {}, "outputs": {}}
+    nograd = torch.no_grad
+    for arch_id, name, mb in (("dit-l2", "DiT-L/2 step", 256),
+                              ("unet-sdxl", "UNet-SDXL microbatch",
+                               256 // UNET_ACCUM)):
+        key = arch_id.split("-")[0]
+        t0 = phase(f"23. (a) {arch_id}: K1 and K2 vs plain at every "
+                   f"distinct call of one recorded {name} ({mb} images, "
+                   f"train_256, bf16), then their times over it "
+                   f"(graph-replayed device time); (b) the full-size "
+                   f"denoiser's output, kernel path vs plain path")
+        arch, cfg, params = diff_setup(arch_id, 256, dev)
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        rec = diff_record(name, arch_id, cfg, params,
+                          diff_batch(cfg, mb, dev))
+        out["recorded"][key] = {"k1": k1_recorded_checks(name, rec),
+                                "k2": k2_recorded_checks(name, rec)}
+        rows = {
+            "fwd": time_rows(f"K1 forward, {name}", expand(rec["k1"]),
+                             ops.elastic_matmul_op, k1_plain, k1_library,
+                             "torch.matmul", k1_work, group=k1_group),
+            "dgrad": time_rows(f"K1 dgrad, {name}", expand(rec["dgrad"]),
+                               em.elastic_matmul_dgrad, k1_dgrad_plain,
+                               k1_dgrad_library, "torch.matmul",
+                               k1_dgrad_work, group=bwd_group, mode=nograd),
+            "wgrad": time_rows(f"K1 wgrad, {name}", expand(rec["wgrad"]),
+                               em.elastic_matmul_wgrad, k1_wgrad_plain,
+                               k1_wgrad_library, "torch.matmul",
+                               k1_wgrad_work, group=bwd_group, mode=nograd),
+            "k2": time_rows(f"K2 forward (self-attention), {name}",
+                            expand(rec["k2"]), ops.flash_attention_op,
+                            k2_plain, k2_library, "sdpa", k2_work),
+            "k2_bwd": time_rows(f"K2 backward (self-attention), {name}",
+                                expand(rec["k2_bwd"]), k2_bwd_kernel,
+                                k2_bwd_plain, SdpaBackward(),
+                                "sdpa backward", k2_bwd_work, mode=nograd)}
+        if rec["k2x"]:
+            rows["k2x"] = time_rows(
+                f"K2 forward (cross-attention, 77 keys), {name}",
+                expand(rec["k2x"]), ops.flash_attention_op, k2_plain,
+                k2_library, "sdpa", k2_work)
+            rows["k2x_bwd"] = time_rows(
+                f"K2 backward (cross-attention, 77 keys), {name}",
+                expand(rec["k2x_bwd"]), k2_bwd_kernel, k2_bwd_plain,
+                SdpaBackward(), "sdpa backward", k2_bwd_work, mode=nograd)
+        out["rows"][key] = rows
+        del rec
+        for _, p in named_leaves(params):
+            p.requires_grad_(False)
+        out["outputs"][arch_id] = diff_outputs(arch_id, cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+    out["dit"] = diff_train(
+        "(c) DiT-L/2, full width and depth, train_256 batch 256, bf16; 6 "
+        "steps, a checkpoint every 3, a failure injected at step 5",
+        ["--arch", "dit-l2", "--steps", "6", "--save-every", "3",
+         "--fail-at", "5"], 1, (4, 5), dev)
+    out["unet"] = diff_train(
+        f"(c) UNet-SDXL, full width and depth, train_256 batch 256 as "
+        f"{UNET_ACCUM} microbatches of {256 // UNET_ACCUM}, bf16; 3 steps, "
+        f"no checkpoint (41 GB of state), a failure injected at step 1 and "
+        f"a restart from step 0",
+        ["--arch", "unet-sdxl", "--steps", "3", "--save-every", "0",
+         "--fail-at", "1"], 1, (0, 1), dev)
+    out["breakdown"] = {
+        "dit-l2": diff_profile("dit-l2", 1, out["dit"]["step_ms"], dev),
+        "unet-sdxl": diff_profile("unet-sdxl", UNET_ACCUM,
+                                  out["unet"]["step_ms"], dev)}
+    t0 = phase("23. (d) DDIM at gen_fast (512 px, batch 16, 4 steps) and "
+               "(e) one denoiser call at gen_1024 (1024 px, batch 4: K2's "
+               "forward at 4096 tokens), kernel path vs plain path, bf16")
+    out["sample"] = {f"{a}/{s}": diff_sample(a, s, dev)
+                     for s in ("gen_fast", "gen_1024") for a in DIFF_ARCHS}
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3179,12 +3821,6 @@ def main() -> int:
     from repro_torch.core.layers import cast_params
     from repro_torch.models.vit import vit_apply, vit_init
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the plain versions' bf16 products accumulate in fp32, as the kernels
-    # do (cuBLAS may otherwise reduce split-K partials in bf16: wgrad sums
-    # 50,432 rows)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator().manual_seed(0)
 
@@ -3197,6 +3833,15 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(dev)}")
+    # phase 23's P3 check runs under torch's default flags, before the
+    # plain versions are held to fp32 for the rest of the run
+    p3 = p3_check(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products accumulate in fp32, as the kernels
+    # do (cuBLAS may otherwise reduce split-K partials in bf16: wgrad sums
+    # 50,432 rows)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     phase("2. build kernels")
     logs = build.build(verbose=True)
@@ -3492,6 +4137,7 @@ def main() -> int:
     vc = vit_compiled(tp.pop("servers"), specs, governors["joint (paper)"].lut,
                       x, cfg, dims)
     cv = conv_phases(dev, randn)
+    df = diffusion_phases(dev)
 
     def conv_recorded(name: str) -> dict:
         # phase 22 (f): the worst errors at the recorded steps' calls
@@ -3517,7 +4163,9 @@ def main() -> int:
               + tr["launches"]["elastic_matmul"]
               + tp["launches"]["elastic_matmul"]
               + cv["resnet"]["launches"]["elastic_matmul"]
-              + cv["effnet"]["launches"]["elastic_matmul"],
+              + cv["effnet"]["launches"]["elastic_matmul"]
+              + df["dit"]["launches"]["elastic_matmul"]
+              + df["unet"]["launches"]["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
@@ -3526,6 +4174,10 @@ def main() -> int:
                                    "resnet_train": cv["resnet"]["launches"][
                                        "elastic_matmul"],
                                    "effnet_train": cv["effnet"]["launches"][
+                                       "elastic_matmul"],
+                                   "dit_train": df["dit"]["launches"][
+                                       "elastic_matmul"],
+                                   "unet_train": df["unet"]["launches"][
                                        "elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
@@ -3533,12 +4185,16 @@ def main() -> int:
                   "train": tr["variants"]["elastic_matmul"],
                   "vit_trace": tp["variants"]["elastic_matmul"],
                   "resnet_train": cv["resnet"]["variants"]["elastic_matmul"],
-                  "effnet_train": cv["effnet"]["variants"]["elastic_matmul"]},
+                  "effnet_train": cv["effnet"]["variants"]["elastic_matmul"],
+                  "dit_train": df["dit"]["variants"]["elastic_matmul"],
+                  "unet_train": df["unet"]["variants"]["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
                                                   "bfloat16")],
                                  *(cv["recorded"][n]["elastic_matmul"]["abs"]
-                                   for n in ("resnet", "effnet")))},
+                                   for n in ("resnet", "effnet")),
+                                 *(df["recorded"][n]["k1"]["elastic_matmul"][
+                                     "abs"] for n in ("dit", "unet")))},
              **row_keys(vit_k1),
              timing=timing, vit_forward=vit_k1,
              lm_prefill=lm["k1_prefill"], lm_decode=lm["k1_decode"],
@@ -3546,29 +4202,47 @@ def main() -> int:
              train_step=tr["k1_train_fwd"],
              resnet_step=cv["rows"]["resnet_fwd"],
              effnet_se=cv["rows"]["effnet_se_fwd"],
-             conv_recorded=conv_recorded("elastic_matmul")),
+             conv_recorded=conv_recorded("elastic_matmul"),
+             dit_step=df["rows"]["dit"]["fwd"],
+             unet_step=df["rows"]["unet"]["fwd"]),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:71",
               "launches": launches["flash_attention"]
               + lm["launches"]["flash_attention"]
               + tr["launches"]["flash_attention"]
-              + tp["launches"]["flash_attention"],
+              + tp["launches"]["flash_attention"]
+              + df["dit"]["launches"]["flash_attention"]
+              + df["unet"]["launches"]["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
                                    "train": tr["launches"]["flash_attention"],
                                    "vit_trace":
-                                       tp["launches"]["flash_attention"]},
+                                       tp["launches"]["flash_attention"],
+                                   "dit_train": df["dit"]["launches"][
+                                       "flash_attention"],
+                                   "unet_train": df["unet"]["launches"][
+                                       "flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
                   "train": tr["variants"]["flash_attention"],
-                  "vit_trace": tp["variants"]["flash_attention"]},
-              "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"])},
+                  "vit_trace": tp["variants"]["flash_attention"],
+                  "dit_train": df["dit"]["variants"]["flash_attention"],
+                  "unet_train": df["unet"]["variants"]["flash_attention"]},
+              "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
+                                 *(df["recorded"][n]["k2"][k]["err"]
+                                   for n in ("dit", "unet")
+                                   for k in ("k2", "k2x")
+                                   if k in df["recorded"][n]["k2"]))},
              **row_keys(vit_k2),
              timing=timing, vit_forward=vit_k2,
              lm_prefill=lm["k2_prefill"], lm_decode=lm["k2_decode"],
-             train_step=tr["k2_train_fwd"]),
+             train_step=tr["k2_train_fwd"],
+             dit_step=df["rows"]["dit"]["k2"],
+             unet_step=df["rows"]["unet"]["k2"],
+             unet_cross=df["rows"]["unet"]["k2x"],
+             gen=df["sample"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
@@ -3621,6 +4295,28 @@ def main() -> int:
             entry["conv_recorded"] = rerr
             entry["resnet_step"] = cv["rows"][f"resnet_{conv}"]
             entry["effnet_se"] = cv["rows"][f"effnet_se_{conv}"]
+        # phase 23: the diffusion steps' launches, errors and rows
+        row = conv or "k2_bwd"
+        for path, key in (("dit_train", "dit"), ("unet_train", "unet")):
+            n = df[key]["launches"][name]
+            entry["launches"] += n
+            entry["launches_by_path"][path] = n
+            entry["launches_by_variant"][path] = df[key]["variants"][name]
+            entry[f"{key}_step"] = df["rows"][key][row]
+        if conv:
+            rerr = [df["recorded"][n]["k1"][name] for n in ("dit", "unet")]
+            if conv == "dgrad":
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           *(r["abs"] for r in rerr))
+            entry["diffusion_err_of_largest"] = max(r["of_largest"]
+                                                    for r in rerr)
+        else:
+            entry["unet_cross"] = df["rows"]["unet"]["k2x_bwd"]
+            entry["diffusion_err_of_largest"] = max(
+                df["recorded"][n]["k2"][k]["err"] for n in ("dit", "unet")
+                for k in ("k2_bwd", "k2x_bwd")
+                if k in df["recorded"][n]["k2"])
+            entry["max_abs_err_fp32_d8_d16"] = df["k2_small_d_err"]
         record["kernels"].append(entry)
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
@@ -3640,6 +4336,14 @@ def main() -> int:
                                          "losses", "images_per_s",
                                          "peak_gib", "peak_run_gib")}
            for k in ("resnet", "effnet")}}))
+    log("diffusion: " + json.dumps({
+        "p3": p3, "outputs": df["outputs"], "breakdown": df["breakdown"],
+        "sample": df["sample"],
+        **{k: {kk: df[k][kk] for kk in ("params", "step_ms", "step_ms_all",
+                                         "losses", "resumed_loss_diff",
+                                         "images_per_s", "peak_gib",
+                                         "peak_run_gib")}
+           for k in ("dit", "unet")}}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

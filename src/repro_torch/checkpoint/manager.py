@@ -115,7 +115,9 @@ class CheckpointManager:
         self._pending: Optional[threading.Thread] = None
 
     def maybe_save(self, step: int, state) -> bool:
-        if step % self.save_every:
+        """Save at every ``save_every``-th step (step 0 included); never
+        when ``save_every`` is 0."""
+        if self.save_every <= 0 or step % self.save_every:
             return False
         self.wait()
         self._pending = save_checkpoint(self.dir, step, state,

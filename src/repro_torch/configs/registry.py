@@ -42,10 +42,11 @@ class ArchDef:
 _REGISTRY: Dict[str, ArchDef] = {}
 
 # the vision transformers of the serving slice, the MoE LM of the LM
-# slice and the conv nets; the other architectures come with their slices
-# of the port
+# slice, the conv nets and the diffusion nets; the other architectures
+# (the dense LMs and the 1T MoE) come with their slices of the port
 _MODULES = ("deit_b", "vit_l16", "resnet_152", "efficientnet_b7",
-            "dynamic_ofa_supernet", "deepseek_moe_16b")
+            "dynamic_ofa_supernet", "deepseek_moe_16b", "dit_l2",
+            "unet_sdxl")
 
 
 # the vision families the port runs, by arch-id prefix: what the init,
@@ -100,6 +101,17 @@ LM_SHAPES = {
         "long_500k", "decode", seq_len=524288, global_batch=1,
         note="decode vs a 512k KV cache is O(S); run for all LM archs "
              "(full-attention only at prefill, which is out of scope here)"),
+}
+
+DIFF_SHAPES = {
+    "train_256": ShapeSpec("train_256", "diff_train", img_res=256,
+                           global_batch=256, steps=1000),
+    "gen_1024": ShapeSpec("gen_1024", "diff_gen", img_res=1024,
+                          global_batch=4, steps=50),
+    "gen_fast": ShapeSpec("gen_fast", "diff_gen", img_res=512,
+                          global_batch=16, steps=4),
+    "train_1024": ShapeSpec("train_1024", "diff_train", img_res=1024,
+                            global_batch=32, steps=1000),
 }
 
 VIS_SHAPES = {

@@ -2,13 +2,16 @@
 port's parameters.
 
 The tests hold the port against the reference on the same weights, so they
-initialise with the reference's ``vit_init``, ``lm_init``, ``resnet_init``
-or ``effnet_init``, map its leaves to numpy and convert here.  Layouts are
+initialise with the reference's ``vit_init``, ``lm_init``, ``resnet_init``,
+``effnet_init``, ``dit_init`` or ``unet_init``, map its leaves to numpy and
+convert here.  Layouts are
 kept (dense kernels ``(d_in, d_out)``, conv kernels HWIO, switchable BN
 arrays ``(n_settings, C)``, expert weights ``(E, d, f)``); each layer
 stack that ``jax.vmap`` builds along a leading axis becomes the port's list
-of per-layer dicts.  The conv nets' trees (each stage a list of block
-dicts in the reference too) convert with ``to_torch`` as they are.
+of per-layer dicts: :func:`vit_params` converts the ViT's and DiT's
+trees (both stack ``layers``).  The conv nets' and the UNet's trees (each
+stage a list of block dicts in the reference too) convert with
+``to_torch`` as they are.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ def unstack(tree, n: int) -> list:
 
 def vit_params(jax_params: dict, device: Optional[torch.device] = None
                ) -> dict:
-    """Reference ``vit_init`` params (numpy leaves) -> ``repro_torch``'s."""
+    """Reference ``vit_init`` or ``dit_init`` params (numpy leaves) ->
+    ``repro_torch``'s: the ``layers`` stack unstacked."""
     params = to_torch(jax_params, device)
     layers = params["layers"]
     n = len(next(iter(_leaves(layers))))

@@ -449,13 +449,39 @@ def _pad_high(x: torch.Tensor, ph: tuple, pw: tuple,
 
 def _exact_fp32(x: torch.Tensor):
     """cuDNN without TF32 for an fp32 conv on the card (the reference's
-    fp32 conv is fp32), for this call only; autograd's backward of it
-    runs later, under the process's setting."""
+    fp32 conv is fp32), inside the block only: :class:`Conv2dFp32` runs
+    both its forward and its backward in it."""
     if x.dtype != torch.float32 or x.device.type != "cuda":
         return contextlib.nullcontext()
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class Conv2dFp32(torch.autograd.Function):
+    """``F.conv2d`` of fp32 tensors whose forward, dgrad and wgrad all run
+    under :func:`_exact_fp32`: autograd runs a backward after the forward
+    has left any ``with`` block, under the process's flags (cuDNN's TF32
+    on by default), so the backward sets them again itself."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, padding, groups)
+        with _exact_fp32(x):
+            return F.conv2d(x, w, stride=stride, padding=padding,
+                            groups=groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.args
+        with _exact_fp32(x):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                dy, x, w, None, (stride, stride), padding, (1, 1), False,
+                (0, 0), groups, (ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1], False))
+        return dx, dw, None, None, None
 
 
 def conv_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
@@ -502,7 +528,9 @@ def conv_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
         xt = _pad_high(x, ph, pw).permute(0, 3, 1, 2)   # NCHW view
         wt = _cast(w, x.dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        with _exact_fp32(x):
+        if x.dtype == torch.float32:    # forward and backward exact
+            y = Conv2dFp32.apply(xt, wt, stride, (ph[0], pw[0]), groups)
+        else:
             y = F.conv2d(xt, wt, stride=stride, padding=(ph[0], pw[0]),
                          groups=groups)
         y = y.permute(0, 2, 3, 1)

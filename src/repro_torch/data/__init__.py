@@ -1,4 +1,5 @@
 """Deterministic synthetic data streams (numpy), as the reference's."""
 from repro_torch.data.pipeline import (Prefetcher, host_shard, to_device,
                                        synthetic_image_batches,
+                                       synthetic_label_batches,
                                        synthetic_lm_batches)

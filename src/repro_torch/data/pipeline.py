@@ -73,12 +73,31 @@ def synthetic_image_batches(*, global_batch: int, img_res: int,
         step += 1
 
 
+def synthetic_label_batches(*, global_batch: int, n_classes: int,
+                            seed: int = 0, start_step: int = 0
+                            ) -> Iterator[dict]:
+    """The labels of :func:`synthetic_image_batches` (its generator draws
+    them before the images), without drawing the images: the class
+    conditioning of the diffusion launcher, which makes its own latents."""
+    sl = host_shard(global_batch)
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        labels = rng.integers(0, n_classes, size=global_batch)
+        yield {"labels": labels[sl].astype(np.int32)}
+        step += 1
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
-    """numpy arrays -> tensors on ``device``; to the card through pinned
-    host memory with non-blocking copies (the step that reads them is
-    queued behind the copies on the same stream)."""
+    """numpy arrays (in a dict, or in dicts within it) -> tensors on
+    ``device``; to the card through pinned host memory with non-blocking
+    copies (the step that reads them is queued behind the copies on the
+    same stream)."""
     out = {}
     for k, v in batch.items():
+        if isinstance(v, dict):
+            out[k] = to_device(v, device)
+            continue
         t = torch.from_numpy(np.ascontiguousarray(v))
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)

@@ -1686,6 +1686,38 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q,
   }
 }
 
+// The fp32 backward on FMAs: the delta pre-pass, then dK/dV and dQ.  Its
+// arrays are D floats a thread, so it is instantiated at every head dim
+// the fp32 forward takes but 128 (8 and 16: the smoke configs; 64).
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* dO, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int H,
+                   int KH, int S, int T_len, const BwdStrides& st,
+                   float scale, cudaStream_t s) {
+  const long long rows = (long long)B * H * S;
+  const unsigned dblocks = (unsigned)((rows + 3) / 4);
+  flash_attention_bwd_delta<float><<<dblocks, 128, 0, s>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dO), delta, H,
+      S, D, rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dkdv_f32<D>
+      <<<dim3(B * KH, (T_len + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dO), lse,
+          delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KH, S,
+          T_len, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dq_f32<D>
+      <<<dim3(B * H, (S + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dO), lse,
+          delta, static_cast<float*>(dq), H, KH, S, T_len, st, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dO, const float* lse, float* delta, void* dq,
@@ -1693,6 +1725,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const BwdStrides& st, float scale, int dtype, cudaStream_t s) {
   const long long rows = (long long)B * H * S;
   const unsigned dblocks = (unsigned)((rows + 3) / 4);
+  if (dtype == 0)
+    return launch_bwd_f32<D>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H,
+                             KH, S, T_len, st, scale, s);
   if (dtype == 1) {
     using bf = __nv_bfloat16;
     flash_attention_bwd_delta<bf><<<dblocks, 128, 0, s>>>(
@@ -1723,27 +1758,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
             static_cast<const bf*>(q), static_cast<const bf*>(k),
             static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
             static_cast<bf*>(dq), H, KH, S, T_len, st, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (dtype == 0) {
-    flash_attention_bwd_delta<float><<<dblocks, 128, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dO), delta, H,
-        S, D, rows, st);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dkdv_f32<D>
-        <<<dim3(B * KH, (T_len + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<const float*>(dO), lse,
-            delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KH, S,
-            T_len, st, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dq_f32<D>
-        <<<dim3(B * H, (S + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), static_cast<const float*>(dO), lse,
-            delta, static_cast<float*>(dq), H, KH, S, T_len, st, scale);
     return static_cast<int>(cudaGetLastError());
   }
   return -1;
@@ -1818,13 +1832,13 @@ extern "C" int repro_flash_attention_decode_len(
   return -1;
 }
 
-// The backward (non-causal, D = 64): q, k, v, o, dO and the outputs dq,
-// dk, dv read and written through (batch, seq, head) strides, 24 in all
+// The backward (non-causal; D = 64, and D = 8 or 16 in fp32): q, k, v,
+// o, dO and the outputs dq, dk, dv read and written through (batch, seq, head) strides, 24 in all
 // (q, k, v, o, dO, dq, dk, dv in turn), the head dim contiguous, rows
 // 16-byte aligned for bf16; lse the forward's (B, H, S) fp32 logsumexp,
 // delta an fp32 (B, H, S) workspace.  dtype 1 (bf16) runs on mma.sync,
 // 0 (fp32) on FMAs.  Returns cudaGetLastError() after the last launch;
-// -1 for an unsupported dtype or D.
+// -1 for an unsupported dtype or D (bf16 takes only 64).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* delta, void* dq, void* dk,
@@ -1835,10 +1849,20 @@ extern "C" int repro_flash_attention_bwd(
   long long* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
-  if (D != 64 || T_len < 1) return -1;
-  return launch_bwd<64>(q, k, v, o, dO, static_cast<const float*>(lse),
-                        static_cast<float*>(delta), dq, dk, dv, B, H, KH, S,
-                        T_len, st, scale, dtype, s);
+  if (T_len < 1) return -1;
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (D == 64)
+    return launch_bwd<64>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
+                          T_len, st, scale, dtype, s);
+  if (dtype != 0) return -1;
+  if (D == 8)
+    return launch_bwd_f32<8>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
+                             T_len, st, scale, s);
+  if (D == 16)
+    return launch_bwd_f32<16>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH,
+                              S, T_len, st, scale, s);
+  return -1;
 }
 
 // The resident backward (bf16, non-causal, D = 64, 1 <= T_len <= 256): one

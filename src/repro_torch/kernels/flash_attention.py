@@ -31,7 +31,8 @@ CUDA graph capture).
 the backward reads.
 
 The backward (the reference has none: JAX differentiates through XLA)
-is ``flash_attention_bwd``, non-causal at D = 64, in three variants
+is ``flash_attention_bwd``, non-causal at D = 64 (fp32 also at the smoke
+configs' 8 and 16), in three variants
 chosen by :func:`choose_bwd_variant` from shapes and dtype:
 ``resident`` (bf16 with S, T <= 256, the sandwich step's S = T = 197:
 one block per (batch, kv head) holds its keys and makes one pass on
@@ -71,7 +72,8 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 bwd_launches = 0
 BWD_VARIANTS = ("resident", "mma", "fma_f32")
 bwd_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
-BWD_HEAD_DIMS = (64,)
+BWD_HEAD_DIMS = (64,)          # bf16
+BWD_F32_HEAD_DIMS = (8, 16, 64)  # fp32: the smoke configs' 8 and 16 too
 RESIDENT_MAX = 256      # queries and keys of a head the resident kernel takes
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -310,8 +312,8 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
                        causal: bool) -> str:
     """The backward kernel a call goes to, from shapes and dtype (the
     wrapper copies rows the kernels cannot read with 16-byte loads first);
-    raises ``NotImplementedError`` for what no kernel takes (causal, D
-    other than 64).  ``resident`` holds a head's keys in shared memory
+    raises ``NotImplementedError`` for what no kernel takes (causal; D
+    other than 64 in bf16, other than 8, 16 or 64 in fp32).  ``resident`` holds a head's keys in shared memory
     (T <= 256) and walks its queries serially in one block per (batch, kv
     head): past 256 queries the two-pass ``mma``, whose grid also runs
     over query tiles, spreads the work wider.  With few (batch, kv head)
@@ -319,11 +321,12 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
     ``resident`` took 34-35 us a call at S = T = 197 against 27.5 us for
     ``mma`` (PERF.md, open questions).  No caller sends so few heads
     today, so the choice does not look at B * KH."""
-    if causal or D not in BWD_HEAD_DIMS:
+    dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
+    if causal or D not in dims:
         raise NotImplementedError(
-            f"flash_attention backward: causal={causal}, D={D}; the kernel "
-            f"takes non-causal D = 64 (causal and D = 128 come with LM "
-            f"training)")
+            f"flash_attention backward: causal={causal}, D={D}, {dtype}; "
+            f"the kernel takes non-causal D = 64, and D = 8 or 16 in fp32 "
+            f"(causal and D = 128 come with LM training)")
     if dtype != torch.bfloat16:
         return "fma_f32"
     if 1 <= S <= RESIDENT_MAX and 1 <= T <= RESIDENT_MAX:
@@ -346,7 +349,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool) -> tuple:
     """Launch the backward kernels: (dq, dk, dv) in q's, k's and v's
     shapes, from the forward's o and fp32 logsumexp ``lse`` (B, H, S) and
-    the output gradient ``do``.  Non-causal at D = 64 only."""
+    the output gradient ``do``.  Non-causal, at D = 64 (and D = 8 or 16 in
+    fp32) only."""
     check_bwd_args(q, k, v, o, do)
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]

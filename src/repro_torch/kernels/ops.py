@@ -49,9 +49,16 @@ def plain_kernels():
         _state.plain = prev
 
 
+def plain_active() -> bool:
+    """Whether this thread runs the plain versions (inside
+    :func:`plain_kernels`): what a recompute on autograd's thread (remat)
+    must set again to take the forward's route."""
+    return getattr(_state, "plain", False)
+
+
 def _use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
-        return not getattr(_state, "plain", False)
+        return not plain_active()
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")

@@ -5,15 +5,16 @@ port runs:
 
   LM prefill  : 2·N_active·T + (4·H·Dh)·S·T·L / 2
   LM decode   : 2·N_active·B + 4·B·L·H·Dh·S_cache
-  ViT         : token-matmul params x tokens (+ attention quadratic term)
+  ViT/DiT     : token-matmul params x tokens (+ attention quadratic term)
   CNNs        : conv MAC walk over the stage geometry
+  UNet        : conv + transformer walk over the stage geometry
 
 N_active counts MoE experts at top_k (+shared) of n_experts; a training
 step counts 3x its forward.  The elastic launcher's "rel flops" column
 and ``chip_smoke.py``'s model-FLOPs bound of each prefill and its
-model-FLOPs rate of the conv nets' training steps use them.  The LM's
-training count comes with LM training (ROADMAP item 15 (c)), diffusion's
-with item 10.
+model-FLOPs rate of the conv nets' and the diffusion nets' training
+steps use them.  The LM's training count comes with LM training (ROADMAP
+item 15 (c)).
 """
 from __future__ import annotations
 
@@ -71,6 +72,15 @@ def vit_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
     return fwd * (3.0 if kind == "train" else 1.0)
 
 
+def dit_model_flops(cfg, kind: str, B: int) -> float:
+    tok = (cfg.latent_res // cfg.patch) ** 2
+    d, L = cfg.d_model, cfg.n_layers
+    per_tok = L * (4 * d * d + 2 * d * cfg.d_ff + 6 * d * d)   # + adaLN
+    attn_quad = L * 4 * d * tok
+    fwd = 2.0 * B * tok * (per_tok + attn_quad / 1.0)
+    return fwd * (3.0 if kind == "train" else 1.0)
+
+
 # --- CNNs ----------------------------------------------------------------------
 
 def resnet_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
@@ -122,17 +132,69 @@ def effnet_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
     return fwd * (3.0 if kind == "train" else 1.0)
 
 
+# --- UNet ----------------------------------------------------------------------
+
+def unet_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
+    macs = 0.0
+    r = img_res // 8
+    chs = [cfg.ch * m for m in cfg.ch_mult]
+    macs += r * r * 9 * cfg.in_channels * cfg.ch
+
+    def res_macs(r, cin, cout):
+        return r * r * (9 * cin * cout + 9 * cout * cout
+                        + (cin * cout if cin != cout else 0)) \
+            + cfg.temb_dim * cout
+
+    def tblock_macs(r, c, depth):
+        tok = r * r
+        # self-attn proj + quadratic + cross-attn q/o + geglu mlp (x4, gated)
+        per = depth * (4 * c * c + 4 * c * tok + 2 * c * c + 12 * c * c)
+        return tok * per + 2 * c * c * tok + 77 * cfg.ctx_dim * 2 * c * depth
+
+    c_prev = cfg.ch
+    skips = [cfg.ch]
+    for s, c in enumerate(chs):
+        for _ in range(cfg.n_res_blocks):
+            macs += res_macs(r, c_prev, c)
+            c_prev = c
+            if cfg.transformer_depth[s]:
+                macs += tblock_macs(r, c, cfg.transformer_depth[s])
+            skips.append(c)
+        if s < len(chs) - 1:
+            macs += r * r // 4 * 9 * c * c
+            skips.append(c)
+            r //= 2
+    macs += 2 * res_macs(r, chs[-1], chs[-1])
+    macs += tblock_macs(r, chs[-1], cfg.transformer_depth[-1])
+    for s in reversed(range(len(chs))):
+        c = chs[s]
+        for _ in range(cfg.n_res_blocks + 1):
+            c_skip = skips.pop()
+            macs += res_macs(r, c_prev + c_skip, c)
+            c_prev = c
+            if cfg.transformer_depth[s]:
+                macs += tblock_macs(r, c, cfg.transformer_depth[s])
+        if s > 0:
+            r *= 2
+            macs += r * r * 9 * c * c
+    macs += r * r * 9 * cfg.ch * cfg.in_channels
+    fwd = 2.0 * B * macs
+    return fwd * (3.0 if kind == "train" else 1.0)
+
+
 # --- dispatch -------------------------------------------------------------------
 
 def model_flops(arch, cfg, shape) -> float:
     """The reference's dispatch by family and shape kind.  The LM's
-    training count (item 15 (c)) and diffusion (item 10) raise."""
+    training count (item 15 (c)) raises."""
     fam, kind = arch.family, shape.kind
     if fam == "lm":
         return lm_model_flops(cfg, kind, shape.global_batch, shape.seq_len)
     if fam == "diffusion":
-        raise NotImplementedError(f"{arch.arch_id}: diffusion's model FLOPs "
-                                  f"come with ROADMAP item 10")
+        k = "train" if kind == "diff_train" else "gen"
+        if arch.arch_id.startswith("dit"):
+            return dit_model_flops(cfg, k, shape.global_batch)
+        return unet_model_flops(cfg, k, shape.global_batch, shape.img_res)
     k = "train" if kind == "vis_train" else "serve"
     count = {"vit": vit_model_flops, "resnet": resnet_model_flops,
              "effnet": effnet_model_flops}[vision_family(arch.arch_id)]

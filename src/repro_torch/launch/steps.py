@@ -1,8 +1,10 @@
-"""The LM's prefill and decode steps and the vision nets' train step.
+"""The LM's prefill and decode steps, the vision nets' train step and
+the diffusion nets' train step and denoiser.
 
 Counterparts of the ``prefill`` and ``decode`` closures of the reference's
-``launch/steps.py:_lm_cell``, the ``train_step`` of its ``_vis_cell`` and
-its ``_accum_grads``, without mesh or sharding (one card).  The functions
+``launch/steps.py:_lm_cell``, the ``train_step`` of its ``_vis_cell``, the
+``train_step`` and ``gen_step`` of its ``_diff_cell`` and its
+``_accum_grads``, without mesh or sharding (one card).  The functions
 run eagerly; :class:`LMGraphs` runs the prefill and the decode step as
 CUDA graphs on the card, the counterpart of the reference's jit-compiled
 closures.
@@ -16,10 +18,13 @@ import torch
 from repro_torch.configs.registry import vision_family
 from repro_torch.core.distill import ce_loss
 from repro_torch.graphs import Graph, new_pool, pool_bytes
+from repro_torch.models import diffusion as diff
+from repro_torch.models.dit import dit_apply
 from repro_torch.models.efficientnet import effnet_apply
 from repro_torch.models.resnet import resnet_apply
 from repro_torch.models.transformer import (LMConfig, check_decodable,
                                             lm_apply, make_decode_caches)
+from repro_torch.models.unet import unet_apply
 from repro_torch.models.vit import vit_apply
 from repro_torch.optim.api import (clip_by_global_norm, named_leaves,
                                    pop_grads)
@@ -27,7 +32,8 @@ from repro_torch.optim.api import (clip_by_global_norm, named_leaves,
 
 # Grad-accumulation defaults of the reference's ``build_cell``:
 # microbatches per step, by (arch, shape).  Neither conv net has an
-# entry, so both train at accum 1 by default, as in the reference.
+# entry, so both train at accum 1 by default, as in the reference;
+# UNet-SDXL's train_256 step is 2 microbatches of 128.
 ACCUM_DEFAULTS = {
     ("qwen1.5-110b", "train_4k"): 16,
     ("kimi-k2-1t-a32b", "train_4k"): 16,
@@ -39,10 +45,18 @@ ACCUM_DEFAULTS = {
 }
 
 
+def _rows(tree, lo: int, hi: int):
+    """Rows lo:hi of every tensor of a (nested) batch dict."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
 def accum_grads(loss_fn: Callable, params, batch: dict,
                 accum: int) -> torch.Tensor:
     """The reference's ``_accum_grads``: ``loss_fn(params, mb)`` and its
-    backward over ``accum`` consecutive chunks of the batch, one chunk's
+    backward over ``accum`` consecutive chunks of the batch (a dict of
+    tensors or of such dicts: the diffusion batch's ``cond``), one chunk's
     activations alive at a time.  The gradients sum on each leaf's
     ``.grad`` (fp32 parameters: an fp32 sum, in chunk order) and are
     divided by ``accum`` there; returns the mean loss (detached)."""
@@ -56,8 +70,7 @@ def accum_grads(loss_fn: Callable, params, batch: dict,
     n = B // accum
     lsum = None
     for i in range(accum):
-        loss = loss_fn(params, {k: v[i * n:(i + 1) * n]
-                                for k, v in batch.items()})
+        loss = loss_fn(params, _rows(batch, i * n, (i + 1) * n))
         loss.backward()
         lsum = loss.detach() if lsum is None else lsum + loss.detach()
     with torch.no_grad():
@@ -94,6 +107,52 @@ def make_vis_train_step(arch_id: str, cfg, update_fn: Callable,
 
     def loss_fn(params, mb):
         return ce_loss(forward(params, mb["images"]), mb["labels"])
+
+    def step(params, opt, batch, step):
+        pop_grads(params)
+        loss = accum_grads(loss_fn, params, batch, accum)
+        grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
+        params, opt = update_fn(params, grads, opt, step)
+        return params, opt, {"loss": loss, "gnorm": gn}
+    return step
+
+
+def diff_denoise(arch_id: str, cfg, E=None) -> Callable:
+    """``denoise(params, latents, t, cond) -> eps`` of the reference's
+    ``_diff_cell`` (its ``gen_step``: one evaluation of the sampler's
+    model): DiT on ``cond["y"]``, the UNet on ``cond["ctx"]`` and
+    ``cond["pooled"]``."""
+    if arch_id.startswith("dit"):
+        return lambda p, x, t, cond: dit_apply(p, x, t, cond["y"], cfg, E=E)
+    if arch_id.startswith("unet"):
+        return lambda p, x, t, cond: unet_apply(p, x, t, cond["ctx"],
+                                                cond["pooled"], cfg, E=E)
+    raise NotImplementedError(f"{arch_id}: no ported diffusion denoiser")
+
+
+def make_diff_train_step(arch_id: str, cfg, update_fn: Callable,
+                         accum: int = 1) -> Callable:
+    """The reference's ``diff_train`` step: ``q_sample`` of the latents at
+    the batch's t with its noise, the denoiser, the MSE of the first C
+    output channels against the noise (the mean over ``accum``
+    microbatches), the gradient clipped to global norm 1.0, one optimizer
+    update.  ``batch`` is {"latents", "noise", "t", "cond": {...}} as the
+    launcher's ``diffusionize`` makes it.
+
+    ``step(params, opt, batch, step) -> (params, opt, {"loss", "gnorm"})``
+    as :func:`make_vis_train_step`'s."""
+    denoise = diff_denoise(arch_id, cfg)
+    sched = diff.make_schedule()
+    on_device = {}
+
+    def loss_fn(params, mb):
+        lat, noise = mb["latents"], mb["noise"]
+        s = on_device.get(lat.device)
+        if s is None:
+            s = on_device[lat.device] = diff.schedule_on(sched, lat.device)
+        x_t = diff.q_sample(s, lat, mb["t"], noise)
+        eps = denoise(params, x_t, mb["t"], mb["cond"])[..., :lat.shape[-1]]
+        return torch.mean(torch.square(eps.float() - noise.float()))
 
     def step(params, opt, batch, step):
         pop_grads(params)

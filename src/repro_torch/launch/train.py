@@ -1,22 +1,28 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Counterpart of the reference ``launch/train.py`` for the vision
-transformers and the conv nets on one card: config registry -> train step
--> data pipeline -> checkpoint manager -> watchdog/straggler monitor ->
-restart supervisor.  ``--smoke`` runs the reduced config; ``--sandwich``
-is the paper's supernet training of a vision transformer (max + min + 2
-random sub-networks a step with in-place distillation, masked mode: one
-graph); without it, the plain ``vis_train`` step (cross entropy of the
-full net; the conv nets with batch-statistics BN and SGD with momentum),
-over ``--accum`` microbatches (the reference's ``build_cell`` default: 1
-for the smoke configs, else ``ACCUM_DEFAULTS``).  Parameters are fp32 and
-the compute dtype is the config's (bf16 at full size).  The run is on the
-card unless ``--device cpu``; with no card and no ``--device cpu`` it
-raises.
+transformers, the conv nets and the diffusion nets on one card: config
+registry -> train step -> data pipeline -> checkpoint manager ->
+watchdog/straggler monitor -> restart supervisor.  ``--smoke`` runs the
+reduced config; ``--sandwich`` is the paper's supernet training of a
+vision transformer (max + min + 2 random sub-networks a step with
+in-place distillation, masked mode: one graph); without it, the plain
+``vis_train`` step (cross entropy of the full net; the conv nets with
+batch-statistics BN and SGD with momentum) or, for DiT-L/2 and
+UNet-SDXL, the ``diff_train`` step (epsilon-prediction MSE of the
+denoiser on seeded latents, noise and timesteps: :func:`diffusionize`,
+AdamW), over ``--accum`` microbatches (the reference's ``build_cell``
+default: 1 for the smoke configs, else ``ACCUM_DEFAULTS``, raised where
+one card cannot hold the step: ``ONE_CARD_ACCUM``).  Parameters
+are fp32 and the compute dtype is the config's (bf16 at full size).  The
+run is on the card unless ``--device cpu``; with no card and no
+``--device cpu`` it raises.
 
     python -m repro_torch.launch.train --arch dynamic-ofa-supernet \\
         --sandwich --smoke --device cpu --steps 12
     python -m repro_torch.launch.train --arch resnet-152 --smoke \\
+        --device cpu --steps 3
+    python -m repro_torch.launch.train --arch dit-l2 --smoke \\
         --device cpu --steps 3
 """
 from __future__ import annotations
@@ -35,23 +41,27 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.configs.registry import ShapeSpec, vision_family
 from repro_torch.core.supernet import make_sandwich_step
-from repro_torch.data import Prefetcher, synthetic_image_batches, to_device
+from repro_torch.data import (Prefetcher, synthetic_image_batches,
+                              synthetic_label_batches, to_device)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
                                            Watchdog, run_with_restarts)
-from repro_torch.launch.steps import ACCUM_DEFAULTS, make_vis_train_step
+from repro_torch.launch.steps import (ACCUM_DEFAULTS, make_diff_train_step,
+                                      make_vis_train_step)
+from repro_torch.models.dit import dit_init
 from repro_torch.models.efficientnet import effnet_init
 from repro_torch.models.resnet import resnet_init
+from repro_torch.models.unet import unet_init
 from repro_torch.models.vit import vit_apply, vit_init
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.api import named_leaves
 
-# architectures of the reference whose training is not ported yet, and the
-# ROADMAP item that brings it
-UNPORTED = {
-    "unet-sdxl": "item 10 (diffusion)",
-    "dit-l2": "item 10 (diffusion)",
-}
+# microbatches a step where the reference's default does not fit one 80 GB
+# card (its defaults are for a sharded mesh; here fp32 parameters,
+# gradients and AdamW moments are whole, 41 GB for UNet-SDXL): UNet-SDXL's
+# train_256 step runs out of memory at 2 x 128 and at 4 x 64 (PERF.md,
+# cells)
+ONE_CARD_ACCUM = {("unet-sdxl", "train_256"): 8}
 LM_ITEM = ("queue 1: LM training (K2's causal and D = 128 backward, K3's "
            "backward)")
 
@@ -66,7 +76,9 @@ def parse_args(argv=None):
                     help="sandwich-rule supernet training (paper technique)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
-    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--save-every", type=int, default=50,
+                    help="checkpoint every N steps (step 0 too); 0: never "
+                         "(a restart then starts again from step 0)")
     ap.add_argument("--mesh", choices=("host", "pod", "multipod"),
                     default="host")
     ap.add_argument("--fail-at", type=int, default=None,
@@ -79,17 +91,59 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--accum", type=int, default=None,
-                    help="microbatches a step (default: the reference's)")
+                    help="microbatches a step (default: the reference's, "
+                         "or ONE_CARD_ACCUM's)")
     return ap.parse_args(argv)
 
 
 def init_params(arch, cfg, device) -> dict:
-    """The reference's ``_init_params`` for the vision archs: each
-    family's init from seed 0."""
+    """The reference's ``_init_params``: each family's init from seed 0,
+    drawn on the host for the vision archs and on ``device`` for the
+    diffusion nets (UNet-SDXL's 2.56 B parameters take long to draw on
+    the host)."""
+    if arch.family == "diffusion":
+        init = dit_init if arch.arch_id.startswith("dit") else unet_init
+        gen = torch.Generator(device=device).manual_seed(0)
+        return init(gen, cfg, device=device)
     gen = torch.Generator().manual_seed(0)
     init = {"vit": vit_init, "resnet": resnet_init,
             "effnet": effnet_init}[vision_family(arch.arch_id)]
     return init(gen, cfg, device=device)
+
+
+def diffusionize(batch: dict, cfg, step: int) -> dict:
+    """The reference's ``_diffusionize``: a batch with ``labels`` -> the
+    diffusion batch {"latents", "noise", "t", "cond"} as numpy arrays,
+    seeded by the step, byte for byte the reference's: latents (B, r, r,
+    4) and noise at the config's latent resolution r, t in [0, 1000),
+    and ``cond`` {"ctx" (B, 77, ctx_dim), "pooled"} for the UNet or
+    {"y": the labels} for DiT."""
+    rng = np.random.default_rng((7, step))
+    labels = batch["labels"]
+    B = labels.shape[0]
+    res = cfg.latent_res
+    lat = rng.normal(size=(B, res, res, 4)).astype(np.float32)
+    out = {"latents": lat,
+           "noise": rng.normal(size=lat.shape).astype(np.float32),
+           "t": rng.integers(0, 1000, B).astype(np.int32)}
+    if hasattr(cfg, "ctx_dim"):
+        out["cond"] = {
+            "ctx": rng.normal(size=(B, 77, cfg.ctx_dim)).astype(np.float32),
+            "pooled": rng.normal(size=(B, cfg.pooled_dim)).astype(np.float32)}
+    else:
+        out["cond"] = {"y": labels}
+    return out
+
+
+def diffusion_batches(cfg, global_batch: int, start_step: int):
+    """The diffusion launcher's stream: the reference's image stream's
+    labels (its ``n_classes``: the config's, else 10) through
+    :func:`diffusionize` at each step."""
+    labels = synthetic_label_batches(
+        global_batch=global_batch, n_classes=getattr(cfg, "n_classes", 10),
+        start_step=start_step)
+    for step, batch in enumerate(labels, start_step):
+        yield diffusionize(batch, cfg, step)
 
 
 def _shape(arch, name, cfg, smoke: bool) -> ShapeSpec:
@@ -110,14 +164,12 @@ def main(argv=None):
         raise NotImplementedError(
             "multi-device and multi-process training (--mesh pod/multipod, "
             "--coordinator) come with ROADMAP item 11")
-    if args.arch in UNPORTED:
-        raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
-                                  f"{UNPORTED[args.arch]}")
     arch = get_arch(args.arch)
     if arch.family == "lm":
         raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
                                   f"{LM_ITEM}")
-    fam = vision_family(arch.arch_id)
+    diffusion = arch.family == "diffusion"
+    fam = "diffusion" if diffusion else vision_family(arch.arch_id)
     if fam is None:
         raise NotImplementedError(f"{args.arch}: no ported training path")
     if args.sandwich and fam != "vit":
@@ -126,13 +178,15 @@ def main(argv=None):
 
     cfg = arch.make_smoke() if args.smoke else arch.make_config()
     shape = _shape(arch, args.shape, cfg, args.smoke)
-    if shape.kind != "vis_train":
+    kind = "diff_train" if diffusion else "vis_train"
+    if shape.kind != kind:
         raise ValueError(f"--shape {shape.name} is a {shape.kind} shape")
     if shape.img_res != cfg.img_res:
         cfg = dataclasses.replace(cfg, img_res=shape.img_res)
     B = shape.global_batch
-    accum = args.accum or (1 if args.smoke else ACCUM_DEFAULTS.get(
-        (arch.arch_id, shape.name), 1))
+    key = (arch.arch_id, shape.name)
+    accum = args.accum or (1 if args.smoke else ONE_CARD_ACCUM.get(
+        key, ACCUM_DEFAULTS.get(key, 1)))
     init_fn, update_fn = make_optimizer(arch.optimizer)
 
     if args.sandwich:
@@ -142,10 +196,14 @@ def main(argv=None):
         def apply_fn(p, b, E):
             return vit_apply(p, b["images"], cfg, E=E)[0]
         s_step, s_sample = make_sandwich_step(apply_fn, update_fn, dims)
+    elif diffusion:
+        step_fn = make_diff_train_step(arch.arch_id, cfg, update_fn, accum)
     else:
         step_fn = make_vis_train_step(arch.arch_id, cfg, update_fn, accum)
 
     def data_at(step):
+        if diffusion:
+            return Prefetcher(diffusion_batches(cfg, B, step))
         return Prefetcher(synthetic_image_batches(
             global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes,
             start_step=step))
@@ -206,6 +264,10 @@ def main(argv=None):
     median = (f"; step {statistics.median(steady):.1f} ms (median after the "
               f"first), {B / statistics.median(steady) * 1e3:.1f} images/s"
               if steady else "")
+    if device.type == "cuda":
+        median += (f", peak device memory "
+                   f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
+                   f"GiB")
     print(f"done: {args.steps} steps, {restarts} restarts, straggler flags: "
           f"{len(straggler.flags)}{median} on {device}", flush=True)
     return dict(state, restarts=restarts, step_ms=step_ms, losses=losses)

@@ -95,6 +95,53 @@ def test_conv_same_pads_match_jax(stride, k, size):
     _close(yt, yj)
 
 
+@pytest.mark.parametrize("stride,groups,pad", [(1, 1, (1, 1)),
+                                                (2, 1, (0, 0)),
+                                                (1, 4, (2, 1))])
+def test_conv2d_fp32_function_gradients_match_autograd(stride, groups, pad):
+    """The fp32 conv's autograd Function (forward and backward under the
+    same cuDNN flags) gives autograd's gradients through ``F.conv2d``."""
+    g = torch.Generator().manual_seed(stride + groups)
+    x = torch.randn(2, 8, 9, 9, generator=g, requires_grad=True)
+    w = torch.randn(12, 8 // groups, 3, 3, generator=g, requires_grad=True)
+    y = TL.Conv2dFp32.apply(x, w, stride, pad, groups)
+    want = torch.nn.functional.conv2d(x, w, stride=stride, padding=pad,
+                                      groups=groups)
+    dy = torch.randn(y.shape, generator=g)
+    got = (y,) + torch.autograd.grad(y, (x, w), dy)
+    for a, b in zip(got, (want,) + torch.autograd.grad(want, (x, w), dy)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_conv_backward_is_exact_under_default_tf32_flags():
+    """P3: an fp32 3x3 conv of the UNet-smoke config (32 -> 64 channels,
+    batch 2 at 8 x 8) on the card, with cuDNN's TF32 left at torch's
+    default (on): dx and dw within 1e-4 of their largest value of a
+    float64 conv on the CPU.  TF32 (10 mantissa bits) is off by ~1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                     allow_tf32=True):
+        g = torch.Generator().manual_seed(21)
+        pt = {"kernel": torch.randn(3, 3, 32, 64, generator=g) / 17.0,
+              "bias": torch.zeros(64)}
+        x = torch.randn(2, 8, 8, 32, generator=g)
+        dy = torch.randn(2, 8, 8, 64, generator=g)
+        grads = []
+        for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+            p = {k: v.to(dev, dt).requires_grad_() for k, v in pt.items()}
+            xx = x.to(dev, dt).requires_grad_()
+            y = TL.conv_apply(p, xx)
+            grads.append(torch.autograd.grad(y, (xx, p["kernel"]),
+                                             dy.to(dev, dt)))
+    for a, b in zip(*grads):
+        b = b.float()
+        err = float((a.cpu() - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-4, err
+
+
 def test_same_pads_formula():
     assert TL.same_pads(224, 7, 2) == (2, 3)      # the ResNet stem
     assert TL.same_pads(56, 3, 2) == (0, 1)

@@ -49,6 +49,8 @@ def test_serve_imports_with_jax_blocked():
             "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
             "import repro_torch.launch.elastic_moe, repro_torch.launch.steps\n"
             "import repro_torch.launch.train, repro_torch.core.supernet\n"
+            "import repro_torch.models.dit, repro_torch.models.unet\n"
+            "import repro_torch.models.diffusion, repro_torch.launch.flops\n"
             "import repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.optim, repro_torch.distributed.fault\n"
             "import repro_torch.traffic, repro_torch.obs.export\n"

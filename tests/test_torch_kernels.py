@@ -293,9 +293,14 @@ def test_flash_attention_bwd_variant_choice(S, T, D, dtype, causal, want):
     (197, 197, 64, True), (512, 512, 128, True), (197, 197, 128, False),
     (17, 17, 16, False)])
 def test_flash_attention_bwd_variant_choice_refuses(S, T, D, causal):
-    """Causal and D other than 64 raise whatever the dtype: no variant
-    takes them (they come with LM training)."""
+    """Causal and D other than 64 raise in bf16, and in fp32 but for the
+    smoke configs' non-causal head dims 8 and 16, which fma_f32 takes: no
+    variant takes the rest (causal and D 128 come with LM training)."""
     for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32 and not causal and D in (8, 16):
+            assert fa.choose_bwd_variant(S, T, D, dtype, causal) == \
+                "fma_f32"
+            continue
         with pytest.raises(NotImplementedError):
             fa.choose_bwd_variant(S, T, D, dtype, causal)
 
@@ -1008,9 +1013,13 @@ def test_backward_kernels_refuse_what_they_do_not_take():
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(NotImplementedError):        # causal: LM training
         fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
-    q16 = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError):        # D 16: smoke configs
+    q16 = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):        # D 16 in bf16
         fa.flash_attention_bwd(q16, q16, q16, q16, lse, q16, causal=False)
+    q128 = torch.zeros(1, 4, 2, 128)
+    with pytest.raises(NotImplementedError):        # D 128: LM training
+        fa.flash_attention_bwd(q128, q128, q128, q128, lse, q128,
+                               causal=False)
     with pytest.raises(ValueError):                 # CPU tensors
         fa.flash_attention_bwd(q, q, q, q, lse, q, causal=False)
     w = torch.zeros(8, 8)
@@ -1238,6 +1247,43 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, S, H, KH):
     torch.testing.assert_close(lse, lse_p, rtol=1e-3, atol=1e-3)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_fp32_backward_takes_the_smoke_head_dims():
+    """K2's fp32 backward at the smoke configs' head dims (DiT-smoke 8,
+    UNet-smoke 16) and 64 goes to fma_f32; bf16 takes 64 alone."""
+    for D in (8, 16, 64):
+        assert fa.choose_bwd_variant(16, 77, D, torch.float32,
+                                     False) == "fma_f32"
+    for D in (8, 16, 128):
+        with pytest.raises(NotImplementedError):
+            fa.choose_bwd_variant(16, 16, D, torch.bfloat16, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,S,T,H,KH", [
+    (8, 16, 16, 4, 4),        # DiT-smoke self-attention
+    (16, 16, 16, 4, 4),       # UNet-smoke self-attention
+    (16, 16, 77, 4, 4),       # UNet-smoke cross-attention
+    (8, 100, 37, 6, 2),       # ragged tiles, GQA
+    (16, 197, 197, 4, 4)])
+def test_cuda_flash_attention_fp32_backward_at_head_dims_8_and_16(
+        cuda, D, S, T, H, KH):
+    """K2's fp32 backward at the smoke configs' head dims against the
+    plain backward: one launch on fma_f32, fp32 tolerance."""
+    g = torch.Generator().manual_seed(D + S + T)
+    q = (torch.randn(3, S, H, D, generator=g) * 0.5).to(cuda)
+    k = (torch.randn(3, T, KH, D, generator=g) * 0.5).to(cuda)
+    v = torch.randn(3, T, KH, D, generator=g).to(cuda)
+    do = torch.randn(3, S, H, D, generator=g).to(cuda)
+    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    before = fa.bwd_variant_launches["fma_f32"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=False)
+    torch.cuda.synchronize()
+    assert fa.bwd_variant_launches["fma_f32"] - before == 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-3)
 
 
 # --- the fp32 router's split-K kernel and K2's resident backward ------------

@@ -532,12 +532,34 @@ def test_train_cli_plain_vis_train(tmp_path):
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     from repro_torch.launch import train as T
     base = ["--smoke", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    for argv in (["--arch", "deepseek-moe-16b"], ["--arch", "dit-l2"],
-                 ["--arch", "unet-sdxl"],
+    for argv in (["--arch", "deepseek-moe-16b"],
                  ["--arch", "deit-b", "--mesh", "pod"],
                  ["--arch", "deit-b", "--coordinator", "h:1"]):
         with pytest.raises(NotImplementedError):
             T.main(argv + base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["dit-l2", "unet-sdxl"])
+def test_cuda_train_cli_diffusion_smoke_through_k1_and_k2(tmp_path,
+                                                          arch_id):
+    """The diffusion nets' smoke configs train on the card in fp32: K1
+    forward, dgrad and wgrad, K2's forward and its fp32 backward at the
+    smoke head dims (DiT 8, UNet 16: fma_f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    ops.reset_launch_counts()
+    out = T.main(["--arch", arch_id, "--smoke", "--steps", "3",
+                  "--ckpt-dir", str(tmp_path), "--device", "cuda"])
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    n, v = ops.launch_counts(), ops.variant_counts()
+    for k in ("elastic_matmul", "elastic_matmul_dgrad",
+              "elastic_matmul_wgrad", "flash_attention",
+              "flash_attention_bwd"):
+        assert n[k] > 0, n
+    assert v["flash_attention_bwd"]["fma_f32"] == n["flash_attention_bwd"]
 
 
 @pytest.mark.cuda
