@@ -52,8 +52,8 @@ the LM slice (deepseek-moe-16b at full width):
    each count; and across its variants (stream, tma, tile): C = 16 and
    17 around the stream boundary, E = 1, all counts 0 and all C, NaN in
    x past every count, and the dense oracle's stride-0 expert axis (tile
-   at C > 16); a backward through the kernel route raises (K3 has no
-   backward kernel yet);
+   at C > 16); a backward through the kernel route launches K3's dgrad
+   and wgrad kernels once each and equals the plain route's;
 9. K2 at head dim 128 against its plain version: causal prefill
    S = T = 512, and decode S = 1 against T = 1, 300 and 528 taken as
    strided slices of a 528-slot cache;
@@ -255,6 +255,38 @@ cuDNN):
     px, batch 4: K2's forward at 4096 tokens) for both nets, kernel path
     against plain path in bf16, every value finite, with the kernel
     path's time.
+
+the LM's training (deepseek-moe-16b at train_4k, full width, cut to 4
+layers: the launcher's one-card cut; K3's and K2's causal, D = 128
+backward kernels):
+
+24. (a) K2's backward against its plain version, causal and not, bf16 at
+    D = 64 and 128, fp32 at D = 8, 16 and 64, S = T in (1, 63, 64, 65,
+    257, 4096), GQA R = 2, each comparison one launch on the variant its
+    shape and dtype choose, within a stated share of the largest gradient;
+    (b) K3's dgrad and wgrad against their plain versions, bf16 and fp32:
+    C = 480, 16 and 17, E = 1, counts all 0, all C and ragged, NaN in x
+    and dy past every count, the expert width and count as strided views,
+    the dense oracle's stride-0 expert axis; dgrad exact zeros past the
+    counts, a dead expert's dw exactly 0, one launch per comparison on
+    the variant it should take; then both at every distinct call of one
+    recorded train_4k microbatch (4 x 4096, bf16, counts as routed), K2's
+    first sequence against the plain version, each wgrad call the same
+    bits twice and under 3 CUDA-graph replays, and (e) their
+    graph-replayed device time over that microbatch beside the plain
+    versions, ``torch.bmm`` and SDPA's autograd backward and the bound;
+    (c) one AdamW step of the smoke config in fp32 on the card, kernel
+    route against plain route: loss, gradient norm and every updated
+    parameter; (d) ``repro_torch.launch.train --arch deepseek-moe-16b``:
+    train_4k (256 x 4096) as the launcher's 64 microbatches of 4, 3
+    steps, no checkpoint, a failure at step 1 and a restart from step 0:
+    finite losses, one restart, step 0's loss the same bits both times,
+    all eight training counters rising on the Hopper variants (no bf16
+    K3 backward on ``tile_bf16``); median step, tokens/s, peak memory; one
+    profiled step (device time in K1, K2 and K3 forward and backward,
+    norms and elementwise kernels, the MoE dispatch and the rest; the
+    busy share; the model-FLOPs rate) and the share of routed slots the
+    capacity keeps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -485,12 +517,14 @@ def k2_library(q, k, v, causal=True, kv_len=None):
 # the forward kernels (the serving and LM paths launch no backward)
 FORWARD = ("elastic_matmul", "flash_attention", "expert_matmul")
 # the kernels no bf16 main-path call may take: the first port's forward
-# kernels and the first backward of K1 (the serving and LM paths launch no
-# backward)
+# kernels, the first backward of K1 and K3's backward tile loop (the
+# serving and LM inference paths launch no backward)
 OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
             ("expert_matmul", "tile_bf16"),
             ("elastic_matmul_dgrad", "wmma_bf16"),
-            ("elastic_matmul_wgrad", "wmma_bf16")}
+            ("elastic_matmul_wgrad", "wmma_bf16"),
+            ("expert_matmul_dgrad", "tile_bf16"),
+            ("expert_matmul_wgrad", "tile_bf16")}
 
 
 def main_path_variants(counts: dict, need: set) -> None:
@@ -1061,21 +1095,31 @@ def lm_phases(dev, parent) -> dict:
     log("  max abs err by variant: " + ", ".join(
         f"{v} {e:.3g}" for v, e in sorted(k3_variants.items())))
     # with a gradient wanted K3 runs inside an autograd Function whose
-    # backward raises (it has no backward kernel): a loss through it can
-    # not leave x and w without a gradient silently
-    xg = randn(E, 17, d, dtype=torch.bfloat16).requires_grad_()
-    wg = randn(E, d, 64, dtype=torch.bfloat16).requires_grad_()
-    yg = ops.expert_matmul_op(xg, wg, torch.full((E,), 17, dtype=torch.int32,
-                                                 device=dev))
-    try:
-        yg.float().sum().backward()
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("K3's kernel route gave a backward")
-    del xg, wg, yg
+    # backward is K3's dgrad and wgrad kernels (phase 24 holds them at the
+    # LM step's calls): one backward through it, against the plain route's
+    c17 = torch.tensor([17, 0, 5] * (E // 3) + [17] * (E % 3),
+                       dtype=torch.int32, device=dev)
+    xw = (randn(E, 17, d, dtype=torch.bfloat16),
+          randn(E, d, 64, scale=d ** -0.5, dtype=torch.bfloat16))
+    gy = randn(E, 17, 64, dtype=torch.bfloat16)
+    grads = []
+    for plain in (False, True):
+        ins = [t.detach().requires_grad_() for t in xw]
+        before = ops.launch_counts()
+        with ops.plain_kernels() if plain else contextlib.nullcontext():
+            ops.expert_matmul_op(*ins, c17).backward(gy)
+        torch.cuda.synchronize()
+        ran = {k: ops.launch_counts()[k] - before[k]
+               for k in ("expert_matmul_dgrad", "expert_matmul_wgrad")}
+        if set(ran.values()) != {0 if plain else 1}:
+            raise AssertionError(f"K3 backward launches {ran}")
+        grads.append([t.grad for t in ins])
+    k3_bwd_err = max(close(a, b, EXPERT_TOL["bfloat16"])
+                     for a, b in zip(*grads))
+    del xw, gy, grads
     log(f"  K3 max abs err {k3_err:.3g}; exact zeros past every count; a "
-        f"backward through the kernel route raises NotImplementedError "
+        f"backward through the kernel route launches K3's dgrad and wgrad "
+        f"once each, max abs err {k3_bwd_err:.3g} from the plain route's "
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = phase("9. K2 flash_attention at D = 128 vs plain (causal prefill "
@@ -1657,14 +1701,16 @@ def k1_wgrad_work(args, kw) -> tuple:
 
 def k2_bwd_work(args, kw) -> tuple:
     """q, o, dO and k, v read, the fp32 logsumexp read, dq, dk, dv
-    written; five products of 2 S T D a head (S = QK^T recomputed, dP,
-    dV, dQ, dK)."""
+    written; five products of 2 D a (query, key) pair a head (S = QK^T
+    recomputed, dP, dV, dQ, dK), over the pairs the causal mask keeps."""
     q, k, *_ = args
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     e = q.element_size()
+    pairs = sum(min(T, s + 1) for s in range(S)) if kw.get("causal") \
+        else S * T
     return (e * (4 * B * S * H * D + 4 * B * T * KH * D) + 4 * B * H * S,
-            10 * B * H * S * T * D, PEAK_BF16_FLOPS)
+            10 * B * H * pairs * D, PEAK_BF16_FLOPS)
 
 
 def k1_dgrad_plain(dy, w, widths, k_act, n_act, kx):
@@ -1735,18 +1781,20 @@ class NoTrace(Exception):
     """torch.profiler could not trace the card."""
 
 
-def step_breakdown(fn, groups=STEP_GROUPS) -> dict:
+def step_breakdown(fn, groups=STEP_GROUPS, warmup: bool = True) -> dict:
     """Device time of one call of fn() (a training step) by kernel, from a
     torch.profiler trace: {"wall_ms", "device_ms", "groups": {row: ms},
     "other_top": [(kernel, ms, calls)]}, each kernel in the row of the
     first of ``groups`` (name fragment, row) whose fragment its name
-    holds.  Raises NoTrace if the profiler fails or its trace holds no
-    device time; what fn() raises propagates (a kernel's failed launch is
-    a failure, not a missing trace)."""
+    holds; fn() runs once before, unless ``warmup`` is False (a step the
+    process has already run).  Raises NoTrace if the profiler fails or its
+    trace holds no device time; what fn() raises propagates (a kernel's
+    failed launch is a failure, not a missing trace)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -3274,6 +3322,25 @@ def diff_batch(cfg, B: int, dev, step: int = 0) -> dict:
     return to_device(next(train_mod.diffusion_batches(cfg, B, step)), dev)
 
 
+def keep_calls(rec: dict, rename=None):
+    """A ``recording`` sink that keeps each distinct call (by
+    :func:`call_signature`) in ``rec[key]`` as [args, kw, count], the
+    first call's tensors detached; ``rename(key, args)`` may file a call
+    under another key."""
+    import torch
+
+    def sink(key, args, kw):
+        if rename is not None:
+            key = rename(key, args)
+        sig = call_signature(key, args, kw)
+        if sig in rec[key]:
+            rec[key][sig][2] += 1
+        else:
+            rec[key][sig] = [tuple(a.detach() if isinstance(a, torch.Tensor)
+                                   else a for a in args), dict(kw), 1]
+    return sink
+
+
 def diff_record(label: str, arch_id: str, cfg, params, mb: dict) -> dict:
     """Phase 23 (a)'s recording: one microbatch's loss and backward of
     the ``diff_train`` step (no update), every K1 forward, dgrad and
@@ -3292,15 +3359,11 @@ def diff_record(label: str, arch_id: str, cfg, params, mb: dict) -> dict:
     rec = {k: {} for k in ("k1", "dgrad", "wgrad", "k2", "k2_bwd", "k2x",
                            "k2x_bwd")}
 
-    def sink(key, args, kw):
+    def cross(key, args):
         if key in ("k2", "k2_bwd") and args[0].shape[1] != args[1].shape[1]:
-            key = key.replace("k2", "k2x")
-        sig = call_signature(key, args, kw)
-        if sig in rec[key]:
-            rec[key][sig][2] += 1
-        else:
-            rec[key][sig] = [tuple(a.detach() if isinstance(a, torch.Tensor)
-                                   else a for a in args), dict(kw), 1]
+            return key.replace("k2", "k2x")
+        return key
+    sink = keep_calls(rec, cross)
     step = make_diff_train_step(arch_id, cfg,
                                 lambda p, g, o, s: (p, o), accum=1)
     with recording([(layers_mod, "elastic_matmul_op", "k1"),
@@ -3492,12 +3555,15 @@ def diff_outputs(arch_id: str, cfg, params, dev) -> dict:
             "bf16_kernel_from_fp32": ek, "bf16_plain_from_fp32": ep}
 
 
-def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
-               dev) -> dict:
-    """Phase 23 (c): the training launcher on the card; finite losses,
-    ``restarts`` restarts, the step run again after the restart (losses
-    ``repeat``) equal to its first run, K1's and K2's five counters
-    rising, no other kernel, every bf16 call on the Hopper variants."""
+def train_run(title: str, argv: list, restarts: int, repeat: tuple,
+              kernels: tuple, need: set, per_step: int, unit: str, dev,
+              repeat_tol: float = 0.0) -> dict:
+    """A training launcher on the card (phases 23 (c) and 24 (d)): finite
+    losses, ``restarts`` restarts, the step run again after the restart
+    (losses ``repeat``) within ``repeat_tol`` of its first run (relative;
+    0: the same bits), every counter of ``kernels`` rising, no other
+    kernel, every bf16 call on the Hopper variants (``need``); the median
+    step, ``unit``/s at ``per_step`` a step, peak memory."""
     import shutil
     import tempfile
 
@@ -3507,7 +3573,7 @@ def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
     from repro_torch.launch import train as train_mod
     from repro_torch.optim.api import named_leaves
 
-    t0 = phase(f"23. {label}: python -m repro_torch.launch.train "
+    t0 = phase(f"{title}: python -m repro_torch.launch.train "
                f"{' '.join(argv)}")
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     torch.cuda.synchronize()
@@ -3528,36 +3594,35 @@ def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
     first, again = losses[repeat[0]], losses[repeat[1]]
-    if not abs(first - again) <= 1e-6 * abs(first):
+    if not abs(first - again) <= repeat_tol * abs(first):
         raise AssertionError(f"the step run again after the restart: loss "
                              f"{again!r}, its first run {first!r}")
     for _, p in named_leaves(res["params"]):
         if not torch.isfinite(p).all():
             raise AssertionError("non-finite parameters after training")
-    idle = [k for k in DIFF_KERNELS if launches[k] <= 0]
+    idle = [k for k in kernels if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels not launched: {idle}")
-    other = {k: n for k, n in launches.items() if n and k not in DIFF_KERNELS}
+    other = {k: n for k, n in launches.items() if n and k not in kernels}
     if other:
         raise AssertionError(f"other kernels launched: {other}")
-    main_path_variants(variants, DIFF_VARIANTS)
+    main_path_variants(variants, need)
     steady = res["step_ms"][1:] or res["step_ms"]
-    B = 256
     n_params = sum(p.numel() for _, p in named_leaves(res["params"]))
     out = {"step_ms": statistics.median(steady), "params": n_params,
            "step_ms_all": res["step_ms"], "losses": losses,
            "resumed_loss_diff": again - first,
-           "images_per_s": B / statistics.median(steady) * 1e3,
+           f"{unit}_per_s": per_step / statistics.median(steady) * 1e3,
            "peak_gib": peak / 2**30, "peak_run_gib": (peak - base) / 2**30,
-           "launches": {k: launches[k] for k in DIFF_KERNELS},
-           "variants": {k: variants[k] for k in DIFF_KERNELS}}
+           "launches": {k: launches[k] for k in kernels},
+           "variants": {k: variants[k] for k in kernels}}
     log(f"  {n_params / 1e6:.2f} M parameters; {len(res['step_ms'])} steps "
         f"run, {res['restarts']} restarts; losses "
         f"{', '.join(f'{x:.4f}' for x in losses)}; the step run again "
         f"after the restart: {again!r} against {first!r} first")
     log(f"  step: median {out['step_ms']:.1f} ms after the first (all: "
         f"{', '.join(f'{x:.1f}' for x in res['step_ms'])} ms), "
-        f"{out['images_per_s']:.1f} images/s; peak device memory "
+        f"{out[f'{unit}_per_s']:.1f} {unit}/s; peak device memory "
         f"{out['peak_gib']:.2f} GiB ({out['peak_run_gib']:.2f} GiB above "
         f"the {base / 2**30:.2f} GiB allocated before)")
     log(f"  launches {out['launches']}; by variant {out['variants']}")
@@ -3567,37 +3632,22 @@ def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
     return out
 
 
-def diff_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
-    """Phase 23 (c)'s profiled step: one ``diff_train`` step at
-    train_256 (batch 256 as ``accum`` microbatches): device time by
-    kernel group, the busy share over the launcher's median step and
-    the model-FLOPs rate against the bf16 dense peak."""
-    import torch
+def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
+               dev) -> dict:
+    """Phase 23 (c): :func:`train_run` of a diffusion net at batch 256,
+    K1's and K2's five counters, the repeated step within 1e-6."""
+    return train_run(f"23. {label}", argv, restarts, repeat, DIFF_KERNELS,
+                     DIFF_VARIANTS, 256, "images", dev, repeat_tol=1e-6)
 
-    from repro_torch.launch import flops
-    from repro_torch.launch import train as train_mod
-    from repro_torch.configs import get_arch
-    from repro_torch.launch.steps import make_diff_train_step
-    from repro_torch.optim import make_optimizer
-    from repro_torch.optim.api import named_leaves
 
-    arch = get_arch(arch_id)
-    shape = arch.shape("train_256")
-    cfg = dataclasses.replace(arch.make_config(), img_res=shape.img_res)
-    B = shape.global_batch
-    t0 = phase(f"23. (c) {arch_id}: one profiled step (batch {B}, accum "
-               f"{accum})")
-    params = train_mod.init_params(arch, cfg, dev)
-    for _, p in named_leaves(params):
-        p.requires_grad_(True)
-    init_fn, update_fn = make_optimizer(arch.optimizer)
-    opt = init_fn(params)
-    step_fn = make_diff_train_step(arch_id, cfg, update_fn, accum)
-    batch = diff_batch(cfg, B, dev)
-    model_flops = flops.model_flops(arch, cfg, shape)
+def profiled_step(fn, groups, step_ms: float, model_flops: float,
+                  warmup: bool = True) -> dict:
+    """One profiled training step, fn() (phases 23 (c) and 24 (d)):
+    device time by kernel group (:func:`step_breakdown`), the busy share
+    over the launcher's median step ``step_ms`` and the model-FLOPs rate
+    against the bf16 dense peak, logged."""
     try:
-        bd = step_breakdown(lambda: step_fn(params, opt, batch, 0),
-                            DIFF_STEP_GROUPS)
+        bd = step_breakdown(fn, groups, warmup=warmup)
     except NoTrace as e:
         bd = None
         log(f"  step breakdown not measured: {e}")
@@ -3624,6 +3674,38 @@ def diff_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
         f"step, {rate / PEAK_BF16_FLOPS:.1%} of the "
         f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak")
     out["breakdown"] = bd
+    return out
+
+
+def diff_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
+    """Phase 23 (c)'s profiled step: :func:`profiled_step` of one
+    ``diff_train`` step at train_256 (batch 256 as ``accum``
+    microbatches)."""
+    import torch
+
+    from repro_torch.launch import flops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import make_diff_train_step
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import named_leaves
+
+    arch = get_arch(arch_id)
+    shape = arch.shape("train_256")
+    cfg = dataclasses.replace(arch.make_config(), img_res=shape.img_res)
+    B = shape.global_batch
+    t0 = phase(f"23. (c) {arch_id}: one profiled step (batch {B}, accum "
+               f"{accum})")
+    params = train_mod.init_params(arch, cfg, dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    init_fn, update_fn = make_optimizer(arch.optimizer)
+    opt = init_fn(params)
+    step_fn = make_diff_train_step(arch_id, cfg, update_fn, accum)
+    batch = diff_batch(cfg, B, dev)
+    out = profiled_step(lambda: step_fn(params, opt, batch, 0),
+                        DIFF_STEP_GROUPS, step_ms,
+                        flops.model_flops(arch, cfg, shape))
     del params, opt, batch
     torch.cuda.empty_cache()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -3782,6 +3864,558 @@ def diffusion_phases(dev) -> dict:
     out["sample"] = {f"{a}/{s}": diff_sample(a, s, dev)
                      for s in ("gen_fast", "gen_1024") for a in DIFF_ARCHS}
     log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------- phase 24
+
+# the LM's train_4k step on one card: the launcher's cuts (checked against
+# launch/train.py's tables), its steps in (d), and its kernels
+LM_TRAIN_ARCH, LM_TRAIN_SHAPE = "deepseek-moe-16b", "train_4k"
+LM_TRAIN_ACCUM = 64           # 256 x 4096 as 64 microbatches of 4
+LM_TRAIN_CUT = {"n_layers": 4}     # 1 dense + 3 MoE layers, full width
+LM_TRAIN_STEPS = 3
+# K2's backward against its plain version, of the largest gradient (bf16:
+# the kernel rounds P and dS to bf16 for its products); K3's dgrad and
+# wgrad of the largest value (bf16 outputs; fp32 sums in both)
+K2_BWD_TOL = {"bfloat16": 1e-2, "float32": 3e-3}
+K3_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# (c): the smoke step in fp32, kernel route against plain route: the loss
+# relative, the gradient norm relative, and each updated parameter as the
+# CPU test holds the port to the reference (1e-3 of the learning rate
+# where AdamW's first |u| >= 0.99, else the learning rate)
+LM_SMOKE_LOSS_TOL, LM_SMOKE_GNORM_TOL, LM_LR = 1e-5, 1e-4, 1e-4
+LM_TRAIN_KERNELS = ("elastic_matmul", "flash_attention", "expert_matmul",
+                    "elastic_matmul_dgrad", "elastic_matmul_wgrad",
+                    "flash_attention_bwd", "expert_matmul_dgrad",
+                    "expert_matmul_wgrad")
+# every bf16 call of the LM step on the Hopper variants (the fp32 router's
+# forward on f32_splitk, its backward on fma_f32)
+LM_TRAIN_VARIANTS = {("elastic_matmul", "tma"),
+                     ("elastic_matmul", "f32_splitk"),
+                     ("flash_attention", "mma"), ("expert_matmul", "tma"),
+                     ("elastic_matmul_dgrad", "tma"),
+                     ("elastic_matmul_wgrad", "tma"),
+                     ("flash_attention_bwd", "mma"),
+                     ("expert_matmul_dgrad", "tma"),
+                     ("expert_matmul_wgrad", "tma")}
+LM_STEP_GROUPS = (
+    ("expert_tma_kernel<1>", "K3 dgrad"), ("expert_dgrad", "K3 dgrad"),
+    ("expert_wgrad", "K3 wgrad"), ("expert_", "K3 forward"),
+    ("flash_attention_bwd", "K2 backward"),
+    ("flash_attention", "K2 forward")) + CONV_STEP_GROUPS[:11] + tuple(
+    (frag, "MoE dispatch (index, scatter, gather, sort, top-k)")
+    for frag in ("index", "Index", "scatter", "gather", "sort", "Sort",
+                 "topk", "TopK", "scan", "Scan")) + tuple(
+    (frag, "norms, elementwise and reductions")
+    for frag in ("elementwise", "reduce", "Reduce", "softmax", "SoftMax"))
+
+
+def errs_of(got, want, tol: float) -> tuple:
+    """(max abs err, that of the largest value) of a tensor or of a tuple
+    of them (dq, dk, dv: of the largest gradient of the three, since at a
+    single key dq and dk are round-off of 0); raises unless the second is
+    within ``tol`` and every value is finite."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    scale = max(max(float(b.float().abs().max()) for b in want), 1e-30)
+    if not all(bool(torch.isfinite(a).all()) for a in got) or \
+            not err <= tol * scale:
+        raise AssertionError(f"max abs err {err:.3g}, {err / scale:.3g} of "
+                             f"the largest value {scale:.3g}, beyond "
+                             f"tolerance {tol}")
+    return err, err / scale
+
+
+def k2_bwd_cases(dev) -> dict:
+    """Phase 24 (a), random half: K2's backward against its plain version
+    (o and the logsumexp from the plain forward), causal and not, bf16 at
+    D = 64 and 128, fp32 at D = 8, 16 and 64, S = T in (1, 63, 64, 65,
+    257, 4096), GQA R = 2; each comparison one launch on the variant its
+    shape and dtype choose."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(24)
+    worst = {}
+    for dtype, dims in ((torch.bfloat16, (64, 128)),
+                        (torch.float32, (8, 16, 64))):
+        dt = str(dtype).split(".")[1]
+        tol = K2_BWD_TOL[dt]
+        for D in dims:
+            for causal in (False, True):
+                errs, took = [], []
+                for S in (1, 63, 64, 65, 257, 4096):
+                    B, H, KH = (1, 4, 2) if S == 4096 else (2, 4, 2)
+                    q, do = (torch.randn((B, S, H, D), generator=g,
+                                         device=dev).to(dtype)
+                             for _ in range(2))
+                    k, v = (torch.randn((B, S, KH, D), generator=g,
+                                        device=dev).to(dtype)
+                            for _ in range(2))
+                    o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                      return_lse=True)
+                    o = o.to(dtype).contiguous()
+                    want_v = ("fma_f32" if dtype == torch.float32 else
+                              "resident" if not causal and D == 64
+                              and S <= fa.RESIDENT_MAX else "mma")
+                    before = ops.launch_counts()["flash_attention_bwd"]
+                    was = fa.bwd_variant_launches[want_v]
+                    got = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal)
+                    want = fa.flash_attention_bwd_plain(q, k, v, o, do,
+                                                        causal=causal)
+                    torch.cuda.synchronize()
+                    if ops.launch_counts()["flash_attention_bwd"] - before \
+                            != 1 or fa.bwd_variant_launches[want_v] - was \
+                            != 1:
+                        raise AssertionError(f"K2 backward {dt} D={D} S={S} "
+                                             f"causal={causal}: not one "
+                                             f"launch of {want_v}")
+                    errs.append(errs_of(got, want, tol))
+                    took.append(want_v)
+                    del q, k, v, o, lse, do, got, want
+                worst[(dt, D, causal)] = tuple(map(max, zip(*errs)))
+                log(f"  K2 backward {dt:8s} D={D:3d} causal={causal!s:5s} "
+                    f"S = T in (1, 63, 64, 65, 257, 4096), GQA R = 2: "
+                    f"{', '.join(f'{e[1]:.3g}' for e in errs)} of the "
+                    f"largest gradient (tol {tol}) on "
+                    f"{', '.join(took)}")
+    return worst
+
+
+def k3_bwd_cases(dev) -> dict:
+    """Phase 24 (b), edge half: K3's dgrad and wgrad against their plain
+    versions, bf16 and fp32, at the LM's expert shapes (up 2048 -> 1408,
+    down 1408 -> 2048) with C = 480 (one sequence's slab), 16 and 17;
+    E = 1; counts all 0, all C and ragged; NaN in x and dy past every
+    count; the expert width (a_ff) and count (slice_e) as strided views
+    of the full weights; the dense oracle's stride-0 expert axis.  dgrad
+    exact zeros past the counts, a dead expert's dw exactly 0; each
+    comparison one launch on the variant it should take."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(25)
+    E, d, Fe = 64, 2048, 1408
+
+    def rn(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(dtype)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        tol = K3_BWD_TOL[dt]
+        wi = rn(E, d, Fe, dtype=dtype, scale=d ** -0.5)
+        wo = rn(E, Fe, d, dtype=dtype, scale=Fe ** -0.5)
+        for C in (480, 16, 17):
+            ragged = torch.tensor([0, 1, C // 3, C - 1, C, 63 % (C + 1),
+                                   65 % (C + 1), C // 2] * (E // 8),
+                                  dtype=torch.int32, device=dev)
+            cases = [("ragged", ragged, wi, None),
+                     ("all 0", torch.zeros_like(ragged), wi, None),
+                     ("all C", torch.full_like(ragged, C), wi, None),
+                     ("down", ragged, wo, None),
+                     ("a_ff 1056 view", ragged, wi[..., :1056], None),
+                     ("down a_ff 704 view", ragged, wo[:, :704], None),
+                     ("slice_e 32 view", ragged[:32], wi[:32], None),
+                     ("E=1", ragged[3:4], wi[:1], None),
+                     ("stride-0 experts", torch.full_like(ragged, C), wi,
+                      "expand")]
+            for label, counts, w, how in cases:
+                Ee, K, F_ = w.shape
+                live = (torch.arange(C, device=dev)[None, :]
+                        < counts[:, None])[..., None]
+                nan = torch.full((), float("nan"), dtype=dtype, device=dev)
+                dy = torch.where(live, rn(Ee, C, F_, dtype=dtype), nan)
+                if how == "expand":
+                    x = rn(1, C, K, dtype=dtype).expand(Ee, C, K)
+                else:
+                    x = torch.where(live, rn(Ee, C, K, dtype=dtype), nan)
+                for kind, fn, args, a in (
+                        ("dgrad", xm.expert_matmul_dgrad, (dy, w, counts),
+                         w),
+                        ("wgrad", xm.expert_matmul_wgrad, (x, dy, counts),
+                         x)):
+                    want_v = xm.bwd_variant_of(a, dy)
+                    if dtype == torch.bfloat16 and want_v != (
+                            "tile_bf16" if a.stride(0) == 0 else "tma"):
+                        raise AssertionError(f"K3 {kind} {label}: chose "
+                                             f"{want_v}")
+                    name = f"expert_matmul_{kind}"
+                    before = ops.launch_counts()[name]
+                    was = ops.variant_counts()[name][want_v]
+                    got = fn(*args)
+                    plain = getattr(xm, f"{name}_plain")(*args)
+                    torch.cuda.synchronize()
+                    if ops.launch_counts()[name] - before != 1 or \
+                            ops.variant_counts()[name][want_v] - was != 1:
+                        raise AssertionError(f"K3 {kind} {label}: not one "
+                                             f"launch of {want_v}")
+                    if not bool((plain == 0).all()):
+                        err = errs_of(got, plain, tol)
+                    elif not bool((got == 0).all()):
+                        raise AssertionError(f"K3 {kind} {label}: non-zero "
+                                             f"where nothing is live")
+                    else:
+                        err = (0.0, 0.0)
+                    if kind == "dgrad" and not bool(
+                            (got.masked_select(~live) == 0).all()):
+                        raise AssertionError(f"K3 dgrad {label}: non-zero "
+                                             f"past the counts")
+                    if kind == "wgrad" and not bool(
+                            (got[counts == 0] == 0).all()):
+                        raise AssertionError(f"K3 wgrad {label}: a dead "
+                                             f"expert's dw is not 0")
+                    key = (dt, kind, want_v)
+                    worst[key] = tuple(map(max, zip(worst.get(key, err),
+                                                    err)))
+                del x, dy
+        del wi, wo
+    for (dt, kind, v), e in sorted(worst.items()):
+        log(f"  K3 {kind} {dt:8s} on {v:9s}: C in (480, 16, 17) x (ragged, "
+            f"all 0, all C, down, a_ff and slice_e views, E = 1, stride-0 "
+            f"experts), NaN past every count: {e[1]:.3g} of the largest "
+            f"value, max abs err {e[0]:.3g} "
+            f"(tol {K3_BWD_TOL[dt]}); dgrad zeros past the counts, dead "
+            f"experts' dw 0")
+    return worst
+
+
+def k3_dgrad_work(args, kw) -> tuple:
+    """dy's live rows and the live experts' weights read, dx written;
+    2 K F a live row."""
+    import torch
+    dy, w, c = args
+    Ee, C, F_ = dy.shape
+    K = w.shape[1]
+    live = c.clamp(max=C).long()
+    rows, experts = int(live.sum()), int((live > 0).sum())
+    peak = PEAK_BF16_FLOPS if dy.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return (dy.element_size() * (rows * F_ + experts * K * F_ + Ee * C * K),
+            2 * rows * K * F_, peak)
+
+
+def k3_wgrad_work(args, kw) -> tuple:
+    """x's and dy's live rows read, dw written; 2 K F a live row."""
+    import torch
+    x, dy, c = args
+    Ee, C, K = x.shape
+    F_ = dy.shape[2]
+    rows = int(c.clamp(max=C).long().sum())
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return (x.element_size() * (rows * (K + F_) + Ee * K * F_),
+            2 * rows * K * F_, peak)
+
+
+def k3_dgrad_library(dy, w, c):
+    """The yardstick: one torch.bmm over the slabs (the port never calls
+    it; it reads every row, live or not)."""
+    import torch
+    return torch.bmm(dy, w.transpose(1, 2))
+
+
+def k3_wgrad_library(x, dy, c):
+    import torch
+    return torch.bmm(x.transpose(1, 2), dy)
+
+
+def lm_train_batch(B: int, S: int, vocab: int, dev, step: int = 0) -> dict:
+    """The launcher's step-``step`` batch of ``synthetic_lm_batches``, on
+    the card."""
+    from repro_torch.data import synthetic_lm_batches, to_device
+    it = synthetic_lm_batches(global_batch=B, seq_len=S, vocab=vocab,
+                              start_step=step)
+    return to_device(next(it), dev)
+
+
+def lm_train_setup(dev):
+    """The cut full-width config at train_4k, its parameters (the
+    launcher's init, on the card, requiring grad) and the AdamW pair."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import named_leaves
+    arch = get_arch(LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(arch.make_config(), **LM_TRAIN_CUT)
+    params = train_mod.init_params(arch, cfg, dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    return arch, cfg, params, make_optimizer(arch.optimizer)
+
+
+def lm_record(cfg, params, dev) -> dict:
+    """Phase 24's recording: one microbatch (4 x 4096) of the train_4k
+    step, its loss and backward (no update), every K3 dgrad and wgrad and
+    K2 backward call kept by signature, with the counts as routed."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.optim.api import pop_grads
+    B = 256 // LM_TRAIN_ACCUM
+    rec = {k: {} for k in ("x_dgrad", "x_wgrad", "k2_bwd")}
+    sink = keep_calls(rec)
+    step = make_lm_train_step(cfg, lambda p, g, o, s: (p, o), accum=1)
+    mb = lm_train_batch(B, 4096, cfg.vocab_size, dev)
+    with recording([(xm, "expert_matmul_dgrad", "x_dgrad"),
+                    (xm, "expert_matmul_wgrad", "x_wgrad"),
+                    (fa, "flash_attention_bwd", "k2_bwd")], sink):
+        _, _, m = step(params, None, mb, 0)
+        torch.cuda.synchronize()
+    pop_grads(params)
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"recorded loss {float(m['loss'])}")
+    log(f"  one microbatch ({B} x 4096): loss {float(m['loss']):.4f}; calls "
+        f"{ {k: sum(n for *_, n in v.values()) for k, v in rec.items()} }, "
+        f"distinct { {k: len(v) for k, v in rec.items()} }")
+    return rec
+
+
+def lm_recorded_checks(rec: dict) -> dict:
+    """Phase 24 (a) and (b) at the recorded calls, bf16 as recorded: K2's
+    backward (the kernel at the recorded shape, its first sequence held
+    against the plain version on that sequence: the plain scores of all
+    four are 4 GiB each) and K3's dgrad and wgrad (dgrad exact zeros past
+    the counts; wgrad the same bits twice and under 3 CUDA-graph
+    replays); one launch per comparison, each on tma or mma."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    out = {}
+    for key, name in (("k2_bwd", "flash_attention_bwd"),
+                      ("x_dgrad", "expert_matmul_dgrad"),
+                      ("x_wgrad", "expert_matmul_wgrad")):
+        worst = (0.0, 0.0)
+        for args, kw, n in rec[key].values():
+            before = ops.launch_counts()[name]
+            was = dict(ops.variant_counts()[name])
+            if key == "k2_bwd":
+                tol = K2_BWD_TOL["bfloat16"]
+                got = fa.flash_attention_bwd(*args, **kw)
+                q, k, v, o, lse, do = (t[:1] for t in args)
+                want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+                torch.cuda.synchronize()
+                err = errs_of([a[:1] for a in got], want, tol)
+                what = f"q {tuple(args[0].shape)} causal {kw.get('causal')}"
+            else:
+                tol = K3_BWD_TOL["bfloat16"]
+                fn = getattr(xm, name)
+                got = fn(*args)
+                want = getattr(xm, f"{name}_plain")(*args)
+                torch.cuda.synchronize()
+                err = errs_of(got, want, tol)
+                c = args[2]
+                if key == "x_dgrad":
+                    dead = torch.arange(got.shape[1], device=got.device)[
+                        None, :] >= c[:, None]
+                    if not bool((got[dead] == 0).all()):
+                        raise AssertionError("K3 dgrad: non-zero past the "
+                                             "counts")
+                else:
+                    if not bool((got[c == 0] == 0).all()):
+                        raise AssertionError("K3 wgrad: a dead expert's dw "
+                                             "is not 0")
+                what = (f"{tuple(args[0].shape)} x {tuple(args[1].shape)}, "
+                        f"{int(c.sum())} live rows, "
+                        f"{int((c == 0).sum())} dead experts")
+            ran = ops.launch_counts()[name] - before
+            took = {v: c_ - was[v] for v, c_ in
+                    ops.variant_counts()[name].items() if c_ != was[v]}
+            want_v = "mma" if key == "k2_bwd" else "tma"
+            if ran != 1 or took != {want_v: 1}:
+                raise AssertionError(f"{name} {what}: launches {took}")
+            if key == "x_wgrad":
+                repeatable(lambda args=args: xm.expert_matmul_wgrad(*args),
+                           got, 0.0, f"K3 wgrad {what}")
+            log(f"  {name} {what} (x{n} in the microbatch): {err[1]:.3g} of "
+                f"the largest (tol {tol}), max abs err {err[0]:.3g}, on "
+                f"{want_v}")
+            worst = tuple(map(max, zip(worst, err)))
+            del got, want
+        out[name] = worst
+    return out
+
+
+def lm_smoke_step(dev) -> dict:
+    """Phase 24 (c): one AdamW step of the smoke config (fp32, batch 2 x
+    64) on the card, kernel route against plain route from the same
+    parameters: loss, gradient norm and every updated parameter; K3's
+    dgrad and wgrad and K2's backward launched on the kernel route (fp32:
+    tile_f32, fma_f32), none on the plain."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import _wd_ok, named_leaves
+    arch = get_arch(LM_TRAIN_ARCH)
+    cfg = arch.make_smoke()
+    init_fn, update_fn = make_optimizer(arch.optimizer)
+    batch = lm_train_batch(2, 64, cfg.vocab_size, dev, step=3)
+    res = []
+    for plain in (False, True):
+        params = lm_init(torch.Generator(device=dev).manual_seed(3), cfg,
+                         device=dev)
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        p0 = {k: p.detach().clone() for k, p in named_leaves(params)}
+        step = make_lm_train_step(cfg, update_fn, accum=2)
+        before = ops.launch_counts()
+        with ops.plain_kernels() if plain else contextlib.nullcontext():
+            params, _, m = step(params, init_fn(params), batch, 0)
+        torch.cuda.synchronize()
+        ran = {k: ops.launch_counts()[k] - before[k]
+               for k in ("expert_matmul_dgrad", "expert_matmul_wgrad",
+                         "flash_attention_bwd")}
+        if any((n > 0) == plain for n in ran.values()):
+            raise AssertionError(f"(c) plain={plain}: backward launches "
+                                 f"{ran}")
+        res.append((float(m["loss"]), float(m["gnorm"]),
+                    dict(named_leaves(params)), p0, ran))
+    (lk, gk, pk, p0, ran), (lp, gp, pp, _, _) = res
+    if not abs(lk - lp) <= LM_SMOKE_LOSS_TOL * abs(lp):
+        raise AssertionError(f"(c) loss {lk!r} against the plain {lp!r}")
+    if not abs(gk - gp) <= LM_SMOKE_GNORM_TOL * abs(gp):
+        raise AssertionError(f"(c) gradient norm {gk!r} against {gp!r}")
+    worst = 0.0
+    for path, t in pk.items():
+        u = (p0[path] - pp[path]) / LM_LR - (0.1 * p0[path] if _wd_ok(path)
+                                             else 0.0)
+        atol = torch.where(u.abs() >= 0.99, 1e-3 * LM_LR, LM_LR)
+        err = (t.detach() - pp[path].detach()).abs()
+        if not bool((err <= atol).all()):
+            raise AssertionError(f"(c) {path}: {float(err.max())} from the "
+                                 f"plain route's update")
+        worst = max(worst, float(err.max()) / LM_LR)
+    out = {"loss": lk, "loss_plain": lp, "gnorm": gk, "gnorm_plain": gp,
+           "param_err_of_lr": worst, "launches": ran}
+    log(f"  smoke step (fp32, 2 x 64, accum 2): loss {lk:.7f} / plain "
+        f"{lp:.7f}, gradient norm {gk:.6f} / {gp:.6f}; parameters within "
+        f"{worst:.3g} of the learning rate of the plain route's; kernel "
+        f"route launches {ran}")
+    return out
+
+
+def lm_train_run(dev) -> dict:
+    """Phase 24 (d): :func:`train_run` of the LM launcher at the cut
+    full-width config, all eight training counters, step 0's loss the
+    same bits after the restart (no checkpoint: 36 GB of state)."""
+    argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+            "--save-every", "0", "--fail-at", "1"]
+    title = (f"24. (d) train_4k (256 x 4096) as {LM_TRAIN_ACCUM} "
+             f"microbatches of {256 // LM_TRAIN_ACCUM}, full width, cut to 4 "
+             f"layers; no checkpoint (36 GB of state), a failure at step 1 "
+             f"and a restart from step 0")
+    return train_run(title, argv, 1, (0, 1), LM_TRAIN_KERNELS,
+                     LM_TRAIN_VARIANTS, 256 * 4096, "tokens", dev)
+
+
+def lm_profile(step_ms: float, dev) -> dict:
+    """Phase 24 (d)'s profiled step: :func:`profiled_step` of one
+    train_4k step of the cut config (the launcher's init and batch), and
+    the share of routed slots the capacity keeps (random weights route
+    unevenly: ROADMAP §3)."""
+    import torch
+
+    from repro_torch.launch import flops
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import moe as moe_mod
+
+    t0 = phase("24. (d) one profiled train_4k step of the cut config "
+               f"({LM_TRAIN_ACCUM} microbatches)")
+    _, cfg, params, (init_fn, update_fn) = lm_train_setup(dev)
+    opt = init_fn(params)
+    step_fn = make_lm_train_step(cfg, update_fn, LM_TRAIN_ACCUM)
+    batch = lm_train_batch(256, 4096, cfg.vocab_size, dev)
+    model_flops = flops.lm_model_flops(cfg, "train", 256, 4096)
+    kept = torch.zeros(2, dtype=torch.float64, device=dev)
+    orig = moe_mod.dispatch_plan
+
+    def plan(*a, **kw):
+        dest, keep, counts = orig(*a, **kw)
+        kept[0] += keep.sum()
+        kept[1] += keep.numel()
+        return dest, keep, counts
+    moe_mod.dispatch_plan = plan
+    try:    # the launcher has run this step: no warm-up step first
+        out = profiled_step(lambda: step_fn(params, opt, batch, 0),
+                            LM_STEP_GROUPS, step_ms, model_flops,
+                            warmup=False)
+    finally:
+        moe_mod.dispatch_plan = orig
+    out["kept_share"] = float(kept[0] / kept[1])
+    log(f"  routed slots kept by the capacity: {out['kept_share']:.1%} "
+        f"(random router weights route unevenly)")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def lm_train_phases(dev) -> dict:
+    """Phase 24: the MoE LM trained at full width (cut depth) on the
+    card.  Returns what the kernels' record needs."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.launch.train import ONE_CARD_ACCUM, ONE_CARD_CUT
+    key = (LM_TRAIN_ARCH, LM_TRAIN_SHAPE)
+    if ONE_CARD_ACCUM.get(key) != LM_TRAIN_ACCUM or \
+            ONE_CARD_CUT.get(key) != LM_TRAIN_CUT:
+        raise AssertionError("the launcher's train_4k cuts are not "
+                             f"{LM_TRAIN_ACCUM} microbatches, {LM_TRAIN_CUT}")
+    torch.cuda.empty_cache()
+    log(f"\n(device memory allocated before phase 24: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB)")
+    nograd = torch.no_grad
+    t0 = phase("24. (a) K2's backward vs plain (causal and not; bf16 D 64 "
+               "and 128, fp32 D 8, 16 and 64; S = T from 1 to 4096; GQA)")
+    out = {"k2_cases": k2_bwd_cases(dev)}
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = phase("24. (b) K3's dgrad and wgrad vs plain (edge cases)")
+    out["k3_cases"] = k3_bwd_cases(dev)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = phase("24. (a), (b) at every distinct call of one recorded train_4k "
+               "microbatch (4 x 4096, bf16, the cut full-width config), "
+               "then (e) their graph-replayed device time over it")
+    _, cfg, params, _ = lm_train_setup(dev)
+    rec = lm_record(cfg, params, dev)
+    out["recorded"] = lm_recorded_checks(rec)
+    out["rows"] = {
+        "k3_dgrad": time_rows("K3 dgrad, train_4k microbatch",
+                              expand(rec["x_dgrad"]), xm.expert_matmul_dgrad,
+                              xm.expert_matmul_dgrad_plain,
+                              k3_dgrad_library, "torch.bmm", k3_dgrad_work,
+                              mode=nograd),
+        "k3_wgrad": time_rows("K3 wgrad, train_4k microbatch",
+                              expand(rec["x_wgrad"]), xm.expert_matmul_wgrad,
+                              xm.expert_matmul_wgrad_plain,
+                              k3_wgrad_library, "torch.bmm", k3_wgrad_work,
+                              mode=nograd),
+        "k2_bwd": time_rows("K2 backward (causal, D 128), train_4k "
+                            "microbatch", expand(rec["k2_bwd"]),
+                            k2_bwd_kernel, k2_bwd_plain, SdpaBackward(),
+                            "sdpa backward", k2_bwd_work, mode=nograd)}
+    del rec, params
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    t0 = phase("24. (c) the smoke LM train step (fp32) on the card, kernel "
+               "route vs plain route")
+    out["smoke"] = lm_smoke_step(dev)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    out["run"] = lm_train_run(dev)
+    out["profile"] = lm_profile(out["run"]["step_ms"], dev)
     return out
 
 
@@ -4138,6 +4772,8 @@ def main() -> int:
                       x, cfg, dims)
     cv = conv_phases(dev, randn)
     df = diffusion_phases(dev)
+    lt = lm_train_phases(dev)
+    lt_n, lt_v = lt["run"]["launches"], lt["run"]["variants"]
 
     def conv_recorded(name: str) -> dict:
         # phase 22 (f): the worst errors at the recorded steps' calls
@@ -4165,7 +4801,8 @@ def main() -> int:
               + cv["resnet"]["launches"]["elastic_matmul"]
               + cv["effnet"]["launches"]["elastic_matmul"]
               + df["dit"]["launches"]["elastic_matmul"]
-              + df["unet"]["launches"]["elastic_matmul"],
+              + df["unet"]["launches"]["elastic_matmul"]
+              + lt_n["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
@@ -4178,7 +4815,8 @@ def main() -> int:
                                    "dit_train": df["dit"]["launches"][
                                        "elastic_matmul"],
                                    "unet_train": df["unet"]["launches"][
-                                       "elastic_matmul"]},
+                                       "elastic_matmul"],
+                                   "lm_train": lt_n["elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
@@ -4187,7 +4825,8 @@ def main() -> int:
                   "resnet_train": cv["resnet"]["variants"]["elastic_matmul"],
                   "effnet_train": cv["effnet"]["variants"]["elastic_matmul"],
                   "dit_train": df["dit"]["variants"]["elastic_matmul"],
-                  "unet_train": df["unet"]["variants"]["elastic_matmul"]},
+                  "unet_train": df["unet"]["variants"]["elastic_matmul"],
+                  "lm_train": lt_v["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
                                                   "bfloat16")],
@@ -4213,7 +4852,8 @@ def main() -> int:
               + tr["launches"]["flash_attention"]
               + tp["launches"]["flash_attention"]
               + df["dit"]["launches"]["flash_attention"]
-              + df["unet"]["launches"]["flash_attention"],
+              + df["unet"]["launches"]["flash_attention"]
+              + lt_n["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
                                    "train": tr["launches"]["flash_attention"],
@@ -4222,14 +4862,16 @@ def main() -> int:
                                    "dit_train": df["dit"]["launches"][
                                        "flash_attention"],
                                    "unet_train": df["unet"]["launches"][
-                                       "flash_attention"]},
+                                       "flash_attention"],
+                                   "lm_train": lt_n["flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
                   "train": tr["variants"]["flash_attention"],
                   "vit_trace": tp["variants"]["flash_attention"],
                   "dit_train": df["dit"]["variants"]["flash_attention"],
-                  "unet_train": df["unet"]["variants"]["flash_attention"]},
+                  "unet_train": df["unet"]["variants"]["flash_attention"],
+                  "lm_train": lt_v["flash_attention"]},
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
                                  *(df["recorded"][n]["k2"][k]["err"]
                                    for n in ("dit", "unet")
@@ -4246,10 +4888,14 @@ def main() -> int:
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
-              "launches": lm["launches"]["expert_matmul"],
+              "launches": lm["launches"]["expert_matmul"]
+              + lt_n["expert_matmul"],
+              "launches_by_path": {"lm": lm["launches"]["expert_matmul"],
+                                   "lm_train": lt_n["expert_matmul"]},
               "launches_by_variant": {
                   "lm": lm["variants"]["expert_matmul"],
-                  "lm_by_stage": lm["k3_by_stage"]},
+                  "lm_by_stage": lm["k3_by_stage"],
+                  "lm_train": lt_v["expert_matmul"]},
               "max_abs_err": lm["k3_err"]}, **row_keys(lm["k3_prefill"]),
              timing=timing, lm_prefill=lm["k3_prefill"],
              lm_decode=lm["k3_decode"], kept_share=lm["kept"]),
@@ -4317,7 +4963,34 @@ def main() -> int:
                 for k in ("k2_bwd", "k2x_bwd")
                 if k in df["recorded"][n]["k2"])
             entry["max_abs_err_fp32_d8_d16"] = df["k2_small_d_err"]
+            # phase 24: causal and D = 128, random and at the LM step
+            errs = list(lt["k2_cases"].values()) + [
+                lt["recorded"]["flash_attention_bwd"]]
+            entry["lm_err_of_largest"] = max(e[1] for e in errs)
+            entry["lm_max_abs_err"] = max(e[0] for e in errs)
+            entry["lm_step"] = lt["rows"]["k2_bwd"]
+        # phase 24: the LM step's launches
+        entry["launches"] += lt_n[name]
+        entry["launches_by_path"]["lm_train"] = lt_n[name]
+        entry["launches_by_variant"]["lm_train"] = lt_v[name]
         record["kernels"].append(entry)
+    for name, kind in (("expert_matmul_dgrad", "dgrad"),
+                       ("expert_matmul_wgrad", "wgrad")):
+        row = lt["rows"][f"k3_{kind}"]
+        errs = [e for (_, k, _), e in lt["k3_cases"].items()
+                if k == kind] + [lt["recorded"][name]]
+        record["kernels"].append(dict(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
+             "replaces": "src/repro/kernels/expert_matmul.py:48",
+             "replaces_note": "its gradient: the reference has no backward "
+                              "kernel (JAX differentiates through XLA)",
+             "launches": lt_n[name],
+             "launches_by_path": {"lm_train": lt_n[name]},
+             "launches_by_variant": {"lm_train": lt_v[name]},
+             "max_abs_err": max(e[0] for e in errs),
+             "err_of_largest": max(e[1] for e in errs)},
+            **row_keys(row), timing=timing, lm_step=row))
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
         "lut_spread_ms", "served_err", "seconds")}))
@@ -4344,6 +5017,15 @@ def main() -> int:
                                          "images_per_s", "peak_gib",
                                          "peak_run_gib")}
            for k in ("dit", "unet")}}))
+    log("lm_train: " + json.dumps({
+        "smoke": lt["smoke"], "profile": lt["profile"],
+        "k2_cases": {f"{dt} D{D} causal={c}": e for (dt, D, c), e in
+                     lt["k2_cases"].items()},
+        "k3_cases": {" ".join(k): e for k, e in lt["k3_cases"].items()},
+        "recorded": lt["recorded"],
+        **{k: lt["run"][k] for k in ("params", "step_ms", "step_ms_all",
+                                     "losses", "tokens_per_s", "peak_gib",
+                                     "peak_run_gib")}}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Data pipeline: deterministic synthetic streams.
+"""Data pipeline: deterministic synthetic streams and a token-file reader.
 
 Counterpart of the reference ``data/pipeline.py`` in numpy, batch for batch
 byte-identical to it.  Restart semantics: every batch is a pure function of
@@ -103,6 +103,27 @@ def to_device(batch: dict, device: torch.device) -> dict:
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
     return out
+
+
+def memmap_token_batches(path: str, *, global_batch: int, seq_len: int,
+                         dtype=np.int32, start_step: int = 0
+                         ) -> Iterator[dict]:
+    """Production-style binary token file reader (np.memmap, zero-copy),
+    deterministic stride order, per-host sharded: step i reads the i-th
+    block of ``global_batch * (seq_len + 1)`` tokens (wrapping), tokens
+    and next-token labels of each row.  The reference's reader."""
+    data = np.memmap(path, dtype=dtype, mode="r")
+    tokens_per_step = global_batch * (seq_len + 1)
+    n_steps = len(data) // tokens_per_step
+    sl = host_shard(global_batch)
+    step = start_step
+    while True:
+        i = step % max(n_steps, 1)
+        chunk = np.asarray(data[i * tokens_per_step:(i + 1) * tokens_per_step])
+        chunk = chunk.reshape(global_batch, seq_len + 1)
+        yield {"tokens": chunk[sl, :-1].astype(np.int32),
+               "labels": chunk[sl, 1:].astype(np.int32)}
+        step += 1
 
 
 class Prefetcher:

@@ -70,6 +70,27 @@
 //   block past counts[e] writes its zero tile without reading x or w.
 //   The main path never takes it in bf16 (chip_smoke.py asserts it).
 //
+// The backward (the reference has none: JAX differentiates through XLA),
+// read from the same device counts, never from the host:
+//   dgrad  dx[e, c] = dy[e, c] w[e]^T for c < counts[e], exact zeros past;
+//   wgrad  dw[e] = x[e, :counts[e]]^T dy[e, :counts[e]] (a dead expert's
+//          dw is exactly 0; it reads no byte of x or dy).
+// What bounds them at the LM's train_4k microbatch (C = 1920 slab rows,
+// ~64% of the routed slots kept, d 2048, expert width 1408) is operations:
+// ~2 * 1230 * 2048 * 1408 flops an expert against its 5.8 MB of weights,
+// ~1230 flops a weight byte, over the bf16 ridge.  So both run on the tma
+// ring: dgrad is expert_tma_kernel<X_DGRAD> (below), the forward's
+// grouped GEMM with dy as A and w read along its rows as a K-major B, so
+// a strided a_ff or slice_e view of w is read in place through the same
+// 3-D map; wgrad (expert_wgrad_tma_kernel) gives a block one 128 x 128
+// tile of an expert's (K, F) gradient and reduces over that expert's live
+// rows, x and dy both MN-major (K1's wgrad layout), no split and so no
+// reduce: deterministic, graph-safe.  The last 64-row box of a ragged
+// count holds rows past it (TMA loads whole boxes); the consumers zero
+// them in shared memory before the product, since a NaN there would
+// reach the sum.  fp32 and strides TMA cannot take (the dense oracle's
+// stride-0 expert axis) go to a 64x64 FMA tile loop over any strides.
+//
 // Later work: a persistent schedule for tma that balances the ragged
 // experts (0 to 240 rows) across the SMs, one tile's epilogue overlapping
 // the next tile's loads.
@@ -243,11 +264,24 @@ constexpr int X_CWG = 2;     // consumer warpgroups of the tma variant
 constexpr int X_BN = 128;    // its columns per block
 using XTile = GemmTile<X_CWG, X_BN>;    // 128 rows: 64 per warpgroup
 
+// The two row-gated products on this ring (the rows are x's or dy's c):
+//   X_FWD    y  = x w     A = x (K, C, E), K-major; B = w (F, K, E) read
+//                         MN-major in 64-column boxes; reduction K;
+//   X_DGRAD  dx = dy w^T  A = dy (F, C, E), K-major; B = the same map of
+//                         w read along its rows, K-major (64-row boxes
+//                         of 64 reduction columns); reduction F.
+// Output rows c < counts[e] are live in both; wgrad (below) reduces over
+// them instead.
+enum : int { X_FWD = 0, X_DGRAD = 1 };
+
+// out[e, c, n] = sum_{r < n_red} A[e, c, r] B[e, r, n] for c < counts[e],
+// exact zeros past it; n < N (out's row stride N)
+template <int OP>
 __global__ void __launch_bounds__(XTile::THREADS, 1)
 expert_tma_kernel(const __grid_constant__ CUtensorMap map_x,
                   const __grid_constant__ CUtensorMap map_w,
                   __nv_bfloat16* __restrict__ y,
-                  const int* __restrict__ counts, int C, int K, int F) {
+                  const int* __restrict__ counts, int C, int n_red, int F) {
   using G = XTile;
   const int e = blockIdx.z;
   const int cnt = min(max(counts[e], 0), C);
@@ -270,7 +304,7 @@ expert_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES *
                                                G::STAGE_BYTES);
   uint64_t* empty = full + G::STAGES;
-  const int n_k = (K + G_BK - 1) / G_BK;
+  const int n_k = (n_red + G_BK - 1) / G_BK;
   if (tid == 0) {
     for (int s = 0; s < G::STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -294,9 +328,14 @@ expert_tma_kernel(const __grid_constant__ CUtensorMap map_x,
           tma_load_3d(a + sub * 8192, &map_x, &full[s], kt * G_BK,
                       m0 + 64 * sub, e);
 #pragma unroll
-        for (int h = 0; h < X_BN / 64; ++h)
-          tma_load_3d(b + h * 8192, &map_w, &full[s], n0 + 64 * h,
-                      kt * G_BK, e);
+        for (int h = 0; h < X_BN / 64; ++h) {
+          if constexpr (OP == X_DGRAD)      // 64 output columns' rows of w
+            tma_load_3d(b + h * 8192, &map_w, &full[s], kt * G_BK,
+                        n0 + 64 * h, e);
+          else
+            tma_load_3d(b + h * 8192, &map_w, &full[s], n0 + 64 * h,
+                        kt * G_BK, e);
+        }
       }
     }
     return;
@@ -316,11 +355,17 @@ expert_tma_kernel(const __grid_constant__ CUtensorMap map_x,
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
       for (int ks = 0; ks < G_BK / 16; ++ks) {
-        // as K1's tma kernel: A K-major (a 16-wide K step is 32 bytes
-        // along the swizzled row), B MN-major (LBO 8 KB between 64-column
-        // boxes, SBO 1 KB between 8-row groups, a 16-row K step is 2 KB)
-        wgmma_m64n128k16(d, gmma_desc(a + ks * 32, 16, 1024),
-                         gmma_desc(b + ks * 2048, 8192, 1024));
+        // as K1's tma kernels: A K-major (a 16-wide K step is 32 bytes
+        // along the swizzled row); B MN-major in the forward (LBO 8 KB
+        // between 64-column boxes, SBO 1 KB between 8-row groups, a
+        // 16-row K step is 2 KB), K-major in dgrad (as A: its 128 rows
+        // are the two boxes back to back)
+        if constexpr (OP == X_DGRAD)
+          wgmma_m64n128k16<0, 0>(d, gmma_desc(a + ks * 32, 16, 1024),
+                                 gmma_desc(b + ks * 32, 16, 1024));
+        else
+          wgmma_m64n128k16(d, gmma_desc(a + ks * 32, 16, 1024),
+                           gmma_desc(b + ks * 2048, 8192, 1024));
       }
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
@@ -332,6 +377,121 @@ expert_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
   store_acc<X_BN>(d, ye, F, tid % 128, m0 + 64 * wg, n0,
                   wg < n_sub ? cnt : 0, C, F, F);
+}
+
+// dw[e, i, j] = sum_{c < counts[e]} x[e, c, i] dy[e, c, j]: one block a
+// 128 x 128 tile of one expert's (K, F) gradient, its reduction the
+// expert's live rows, read as 64-row boxes of x (K, C, E) and dy (F, C,
+// E), both MN-major (as K1's wgrad reads x).  A dead expert's blocks store
+// zeros and load nothing.  The last box of a ragged count holds rows past
+// it, which may hold anything (a NaN times 0 is NaN): the consumers zero
+// those rows of the four boxes in shared memory before their product.
+__global__ void __launch_bounds__(XTile::THREADS, 1)
+expert_wgrad_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dy,
+                        __nv_bfloat16* __restrict__ dw,
+                        const int* __restrict__ counts, int C, int K,
+                        int F) {
+  using G = XTile;
+  const int e = blockIdx.z;
+  const int cnt = min(max(counts[e], 0), C);
+  const int i0 = blockIdx.x * G::BM;      // K tiles fastest, then F tiles
+  const int j0 = blockIdx.y * X_BN;
+  const int tid = threadIdx.x;
+  __nv_bfloat16* dwe = dw + (size_t)e * K * F;
+  if (cnt == 0) {           // dead expert: zeros, no loads
+    for (int i = tid; i < G::BM * X_BN; i += G::THREADS) {
+      const int r = i0 + i / X_BN, c = j0 + i % X_BN;
+      if (r < K && c < F) dwe[(size_t)r * F + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES *
+                                               G::STAGE_BYTES);
+  uint64_t* empty = full + G::STAGES;
+  const int n_k = (cnt + G_BK - 1) / G_BK;
+  const int tail = cnt - (n_k - 1) * G_BK;    // live rows of the last box
+  if (tid == 0) {
+    for (int s = 0; s < G::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * X_CWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == X_CWG) {                      // producer: one thread
+    if (tid == 128 * X_CWG) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % G::STAGES;
+        mbar_wait(&empty[s], ((kt / G::STAGES) & 1) ^ 1);
+        unsigned char* a = smem + s * G::STAGE_BYTES;
+        unsigned char* b = a + G::A_BYTES;
+        mbar_expect_tx(&full[s], G::STAGE_BYTES);
+#pragma unroll
+        for (int h = 0; h < X_CWG; ++h)
+          tma_load_3d(a + h * 8192, &map_x, &full[s], i0 + 64 * h,
+                      kt * G_BK, e);
+#pragma unroll
+        for (int h = 0; h < X_BN / 64; ++h)
+          tma_load_3d(b + h * 8192, &map_dy, &full[s], j0 + 64 * h,
+                      kt * G_BK, e);
+      }
+    }
+    return;
+  }
+
+  float d[X_BN / 2];
+#pragma unroll
+  for (int i = 0; i < X_BN / 2; ++i) d[i] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % G::STAGES;
+    mbar_wait(&full[s], (kt / G::STAGES) & 1);
+    if (kt == n_k - 1 && tail < G_BK) {
+      // rows tail .. 63 of each 64-row box (whole 128-byte rows: the
+      // swizzle moves 16-byte chunks within a row), by both consumer
+      // warpgroups, made visible to wgmma's async proxy
+      constexpr int BOXES = X_CWG + X_BN / 64;
+      const int per_box = (G_BK - tail) * 8;          // 16-byte chunks
+      unsigned char* st = smem + s * G::STAGE_BYTES;
+      for (int i = tid; i < BOXES * per_box; i += 128 * X_CWG) {
+        const int box = i / per_box, r = tail + (i % per_box) / 8;
+        reinterpret_cast<uint4*>(st + box * 8192 + r * 128)[i % 8] =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_async_smem();
+      asm volatile("bar.sync 1, %0;" ::"n"(128 * X_CWG) : "memory");
+    }
+    const uint32_t a = smem_u32(smem + s * G::STAGE_BYTES) + wg * 8192;
+    const uint32_t b = smem_u32(smem + s * G::STAGE_BYTES + G::A_BYTES);
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < G_BK / 16; ++ks)
+      // both MN-major: a 16-row step of the reduction is 2 KB
+      wgmma_m64n128k16<1, 1>(d, gmma_desc(a + ks * 2048, 8192, 1024),
+                             gmma_desc(b + ks * 2048, 8192, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(d);
+    if (kt > 0 && tid % 32 == 0) mbar_arrive(&empty[(kt - 1) % G::STAGES]);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(d);
+  store_acc<X_BN>(d, dwe, F, tid % 128, i0 + 64 * wg, j0, K, K, F, F);
+}
+
+// once per kernel and process (the port drives one card)
+template <typename Kern>
+cudaError_t smem_attr(Kern kern) {
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)XTile::SMEM);
 }
 
 int launch_tma(const void* x, const void* w, void* y, const int* counts,
@@ -349,15 +509,168 @@ int launch_tma(const void* x, const void* w, void* y, const int* counts,
   if (!encode_bf16_map(&map_x, x, 3, x_dims, x_strides, box) ||
       !encode_bf16_map(&map_w, w, 3, w_dims, w_strides, box))
     return -2;
-  // once per process (the port drives one card)
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      expert_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::SMEM);
+  static const cudaError_t attr = smem_attr(expert_tma_kernel<X_FWD>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((C + G::BM - 1) / G::BM, (F + X_BN - 1) / X_BN, E);
-  expert_tma_kernel<<<grid, G::THREADS, G::SMEM, s>>>(
+  expert_tma_kernel<X_FWD><<<grid, G::THREADS, G::SMEM, s>>>(
       map_x, map_w, static_cast<__nv_bfloat16*>(y), counts, C, K, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+// a contiguous (E, C, N) bf16 tensor as the 3-D map (N, C, E)
+bool encode_slab_map(CUtensorMap* map, const void* p, int E, int C, int N) {
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * 2, (cuuint64_t)C * N * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return encode_bf16_map(map, p, 3, dims, strides, box);
+}
+
+int launch_dgrad_tma(const void* dy, const void* w, void* dx,
+                     const int* counts, int E, int C, int K, int F,
+                     long long w_se, int w_sk, cudaStream_t s) {
+  using G = XTile;
+  CUtensorMap map_dy, map_w;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)F, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)w_sk * 2,
+                                   (cuuint64_t)w_se * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  if (!encode_slab_map(&map_dy, dy, E, C, F) ||
+      !encode_bf16_map(&map_w, w, 3, w_dims, w_strides, box))
+    return -2;
+  static const cudaError_t attr = smem_attr(expert_tma_kernel<X_DGRAD>);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((C + G::BM - 1) / G::BM, (K + X_BN - 1) / X_BN, E);
+  expert_tma_kernel<X_DGRAD><<<grid, G::THREADS, G::SMEM, s>>>(
+      map_dy, map_w, static_cast<__nv_bfloat16*>(dx), counts, C, F, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgrad_tma(const void* x, const void* dy, void* dw,
+                     const int* counts, int E, int C, int K, int F,
+                     long long x_se, int x_sc, cudaStream_t s) {
+  using G = XTile;
+  CUtensorMap map_x, map_dy;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)K, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)x_sc * 2,
+                                   (cuuint64_t)x_se * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  if (!encode_bf16_map(&map_x, x, 3, x_dims, x_strides, box) ||
+      !encode_slab_map(&map_dy, dy, E, C, F))
+    return -2;
+  static const cudaError_t attr = smem_attr(expert_wgrad_tma_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((K + G::BM - 1) / G::BM, (F + X_BN - 1) / X_BN, E);
+  expert_wgrad_tma_kernel<<<grid, G::THREADS, G::SMEM, s>>>(
+      map_x, map_dy, static_cast<__nv_bfloat16*>(dw), counts, C, K, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------- backward tile ----
+
+// One 64 x 64 tile of C[i, j] = sum_{r < r_len} A(i, r) B(r, j) with
+// A(i, r) = a[i * sai + r * sar] and B(r, j) = b[r * sbr + j * sbj] (any
+// strides: the transposed reads of both gradients), on FMAs in fp32 for
+// bf16 and fp32 alike: 256 threads, each 4 x 4 outputs, the reduction in
+// steps of 16.  Rows i >= m_valid and columns j >= n_valid are neither
+// read nor computed, and stored as exact zeros below m_out / n_out.
+template <typename T>
+__device__ __forceinline__ void tile_strided(
+    const T* __restrict__ a, long long sai, long long sar,
+    const T* __restrict__ b, long long sbr, long long sbj,
+    T* __restrict__ y, int ldy, int m0, int n0, int m_valid, int m_out,
+    int r_len, int n_valid, int n_out) {
+  __shared__ float As[F_BK][BM + 4];   // As[r][i]
+  __shared__ float Bs[F_BK][BN + 4];   // Bs[r][j]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // a thread's loads walk the operand's unit-stride side where it has one
+  const bool a_i_fast = sai == 1, b_j_fast = sbj == 1;
+  const int n_k = (r_len + F_BK - 1) / F_BK;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int r0 = kt * F_BK;
+    for (int t = tid; t < BM * F_BK; t += F_THREADS) {
+      const int i = a_i_fast ? t % BM : t / F_BK;
+      const int r = a_i_fast ? t / BM : t % F_BK;
+      const int gi = m0 + i, gr = r0 + r;
+      As[r][i] = (gi < m_valid && gr < r_len)
+                     ? to_f(a[gi * sai + gr * sar]) : 0.f;
+    }
+    for (int t = tid; t < F_BK * BN; t += F_THREADS) {
+      const int j = b_j_fast ? t % BN : t / F_BK;
+      const int r = b_j_fast ? t / BN : t % F_BK;
+      const int gj = n0 + j, gr = r0 + r;
+      Bs[r][j] = (gj < n_valid && gr < r_len)
+                     ? to_f(b[gr * sbr + gj * sbj]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < F_BK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gi = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gj = n0 + tx * 4 + j;
+      if (gi < m_out && gj < n_out)
+        y[(size_t)gi * ldy + gj] = from_float<T>(
+            gi < m_valid && gj < n_valid ? acc[i][j] : 0.f);
+    }
+  }
+}
+
+// dx[e, c, k] = sum_f dy[e, c, f] w[e, k, f] for c < counts[e], zeros past
+// it (no byte of dy read there); dy and dx contiguous
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS)
+expert_dgrad_tile(const T* __restrict__ dy, const T* __restrict__ w,
+                  T* __restrict__ dx, const int* __restrict__ counts, int C,
+                  int K, int F, long long w_se, int w_sk) {
+  const int e = blockIdx.z;
+  const int cnt = min(max(counts[e], 0), C);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  T* dxe = dx + (size_t)e * C * K;
+  if (m0 >= cnt) {
+    store_zero_tile(dxe, m0, n0, C, K, K);
+    return;
+  }
+  tile_strided<T>(dy + (size_t)e * C * F, F, 1, w + e * w_se, 1, w_sk, dxe,
+                  K, m0, n0, cnt, C, F, K, K);
+}
+
+// dw[e, k, f] = sum_{c < counts[e]} x[e, c, k] dy[e, c, f]; dy and dw
+// contiguous; a dead expert's tile is zeros, nothing read
+template <typename T>
+__global__ void __launch_bounds__(F_THREADS)
+expert_wgrad_tile(const T* __restrict__ x, const T* __restrict__ dy,
+                  T* __restrict__ dw, const int* __restrict__ counts, int C,
+                  int K, int F, long long x_se, int x_sc) {
+  const int e = blockIdx.z;
+  const int cnt = min(max(counts[e], 0), C);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  T* dwe = dw + (size_t)e * K * F;
+  if (cnt == 0) {
+    store_zero_tile(dwe, m0, n0, K, F, F);
+    return;
+  }
+  tile_strided<T>(x + e * x_se, 1, x_sc, dy + (size_t)e * C * F, F, 1, dwe,
+                  F, m0, n0, K, K, cnt, F, F);
 }
 
 }  // namespace
@@ -422,4 +735,65 @@ extern "C" int repro_expert_matmul_tma(const void* x, const void* w, void* y,
                                        void* stream) {
   return launch_tma(x, w, y, static_cast<const int*>(counts), E, C, K, F,
                     x_se, x_sc, w_se, w_sk, static_cast<cudaStream_t>(stream));
+}
+
+// The backward's tma kernels (bf16; bases 16-byte aligned, w's or x's row
+// and expert strides non-zero multiples of 8 elements, F a multiple of 8;
+// dy (E, C, F), dx (E, C, K) and dw (E, K, F) contiguous; K, F >= 1):
+// dgrad dx = dy w^T over the rows c < counts[e] (exact zeros past them),
+// wgrad dw[e] = x[e, :counts[e]]^T dy[e, :counts[e]] (a dead expert's dw
+// exactly 0).  Returns cudaGetLastError() after the launch; -2 when the
+// tensor maps cannot be encoded.
+extern "C" int repro_expert_matmul_dgrad_tma(const void* dy, const void* w,
+                                             void* dx, const void* counts,
+                                             int E, int C, int K, int F,
+                                             long long w_se, int w_sk,
+                                             void* stream) {
+  return launch_dgrad_tma(dy, w, dx, static_cast<const int*>(counts), E, C,
+                          K, F, w_se, w_sk, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_expert_matmul_wgrad_tma(const void* x, const void* dy,
+                                             void* dw, const void* counts,
+                                             int E, int C, int K, int F,
+                                             long long x_se, int x_sc,
+                                             void* stream) {
+  return launch_wgrad_tma(x, dy, dw, static_cast<const int*>(counts), E, C,
+                          K, F, x_se, x_sc, static_cast<cudaStream_t>(stream));
+}
+
+// The backward's tile kernels (any strides of w or x, fp32 or bf16 on FMAs
+// with fp32 sums): dgrad (op 0) and wgrad (op 1) as above; dy, dx and dw
+// contiguous.  a is w for dgrad and x for wgrad, with its expert and row
+// strides (a_se, a_sr).  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch; -1 for an unsupported op or dtype.
+extern "C" int repro_expert_matmul_bwd_tile(int op, const void* a,
+                                            const void* dy, void* out,
+                                            const void* counts, int E, int C,
+                                            int K, int F, long long a_se,
+                                            int a_sr, int dtype,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* cn = static_cast<const int*>(counts);
+  if (op != 0 && op != 1) return -1;
+  const dim3 grid = op == 0 ? dim3((K + BN - 1) / BN, (C + BM - 1) / BM, E)
+                            : dim3((F + BN - 1) / BN, (K + BM - 1) / BM, E);
+#define REPRO_BWD_TILE(T)                                                   \
+  if (op == 0)                                                              \
+    expert_dgrad_tile<T><<<grid, F_THREADS, 0, s>>>(                        \
+        static_cast<const T*>(dy), static_cast<const T*>(a),                \
+        static_cast<T*>(out), cn, C, K, F, a_se, a_sr);                     \
+  else                                                                      \
+    expert_wgrad_tile<T><<<grid, F_THREADS, 0, s>>>(                        \
+        static_cast<const T*>(a), static_cast<const T*>(dy),                \
+        static_cast<T*>(out), cn, C, K, F, a_se, a_sr)
+  if (dtype == 1) {
+    REPRO_BWD_TILE(__nv_bfloat16);
+  } else if (dtype == 0) {
+    REPRO_BWD_TILE(float);
+  } else {
+    return -1;
+  }
+#undef REPRO_BWD_TILE
+  return static_cast<int>(cudaGetLastError());
 }

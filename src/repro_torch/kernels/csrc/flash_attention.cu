@@ -779,11 +779,13 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 
 // ------------------------------------------------------------ backward ----
 //
-// FlashAttention-2's backward, non-causal, D = 64.  With P = exp(s * scale
-// - lse) from the forward's logsumexp (fp32) and delta = rowsum(dO o O):
+// FlashAttention-2's backward, causal or not, D = 64 and (mma) 128.  With
+// P = exp(s * scale - lse) from the forward's logsumexp (fp32) and delta =
+// rowsum(dO o O):
 //     dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
 //     dQ = scale dS K,
-// with keys at positions >= T masked as in the forward.  Bound: bytes at
+// with keys at positions >= T masked as in the forward, and causal keys
+// j > query i (both from 0).  Bound: bytes at
 // the ViT's S = T = 197, D = 64 (five products of 2 S T D a head, 3.8
 // GFLOP a sandwich-step call, against q, k, v, o, dO read and dq, dk, dv
 // written, 310 MB: 93 us at 3.35 TB/s against 4 us of bf16 operations).
@@ -832,8 +834,22 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 //   layouts (P and dS rounded to bf16 as A operands from registers, K, Q,
 //   dO and V tiles in padded shared memory, double-buffered by cp.async);
 //   dQ's separate pass costs the recomputation of S and dP again.
+//   Causal (the LM's training, S = T = 4096, D = 128): a key tile's dK/dV
+//   block starts at the query tile holding its first key, a query tile's
+//   dQ block stops at the key tile holding its last query, so the dead
+//   half of the tiles is never visited; the diagonal tile masks j > i.
+//   What bounds it there: operations (the gradient needs 5 products of
+//   2 S T D, halved by the mask: 10.7 GFLOP a head, ~11 us at 989
+//   TFLOP/s against ~2.5 us for its 8.4 MB; these kernels run 7).  At
+//   D = 128, dK and dV (64 registers each a thread) and the S / dP tiles
+//   leave no room for Q's or K's fragments held across the loop (the
+//   forward spilled at 255 registers fully unrolled): each 16-wide step
+//   reads its fragment from shared memory with ldmatrix instead
+//   (mma_rows_t_smem); the shared memory (105.5 KB) is set once per
+//   instantiation.
 //
-// fp32 (fma_f32) runs the same three passes on FMAs.
+// fp32 (fma_f32) runs the same three passes on FMAs, causal by the same
+// skips at its 32-row blocks.
 
 struct BwdStrides {
   long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
@@ -910,6 +926,48 @@ __device__ __forceinline__ void mma_rows_t(float (&c)[8][4],
   }
 }
 
+// the same with A's fragments read from rows r0 .. r0 + 15 of a [.][D + 8]
+// tile one 16-wide step at a time (D = 128: the registers of A's
+// fragments held across the loop would push dK/dV past 255 registers)
+template <int D>
+__device__ __forceinline__ void mma_rows_t_smem(float (&c)[8][4],
+                                                const __nv_bfloat16* a_tile,
+                                                int r0,
+                                                const __nv_bfloat16* tile,
+                                                int lane) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_tile + (r0 + (lane % 8) + ((lane / 8) % 2) * 8) *
+                                (D + 8) + kd * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, tile + (np * 16 + (lane % 8) + (lane / 16) * 8) * (D + 8)
+                          + kd * 16 + ((lane / 8) % 2) * 8);
+      mma_bf16(c[2 * np], a, bf[0], bf[1]);
+      mma_bf16(c[2 * np + 1], a, bf[2], bf[3]);
+    }
+  }
+}
+
+// c = A . rows^T with A's fragments kept in registers (D <= 64, loaded
+// once) or read from their shared tile a step at a time (D = 128)
+template <int D, int KA>
+__device__ __forceinline__ void mma_rows_t_any(float (&c)[8][4],
+                                               const uint32_t (&a)[KA][4],
+                                               const __nv_bfloat16* a_tile,
+                                               int r0,
+                                               const __nv_bfloat16* tile,
+                                               int lane) {
+  if constexpr (D <= 64) mma_rows_t<D>(c, a, tile, lane);
+  else mma_rows_t_smem<D>(c, a_tile, r0, tile, lane);
+}
+
 // acc[16 x D] += P (16 x 64, accumulator layout, rounded to bf16) . tile,
 // tile 64 rows x D of a [.][D + 8] bf16 tile (the forward's O += P V)
 template <int D>
@@ -963,8 +1021,9 @@ flash_attention_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int H, int KH, int S,
-                         int T_len, BwdStrides st, float scale) {
-  constexpr int LDS = D + 8, KD = D / 16, ND = D / 8;
+                         int T_len, BwdStrides st, float scale, int causal) {
+  constexpr int LDS = D + 8, ND = D / 8;
+  constexpr int KD = D <= 64 ? D / 16 : 1;   // fragments held (D <= 64)
   extern __shared__ __align__(128) unsigned char bw_smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bw_smem);
   __nv_bfloat16* Vs = Ks + B_BKV * LDS;
@@ -978,7 +1037,10 @@ flash_attention_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
   const int R = H / KH;
   const int j0 = blockIdx.y * B_BKV;
-  const int nq = (S + B_BQ - 1) / B_BQ;
+  const int nq_all = (S + B_BQ - 1) / B_BQ;
+  // causal: query tiles before this key tile see none of its keys
+  const int q_first = causal ? min(j0 / B_BQ, nq_all) : 0;
+  const int nq = nq_all - q_first;
   const int n_it = R * nq;
 
   load_rows<D>(Ks, k + b * st.k[0] + kvh * st.k[2] + (long long)j0 * st.k[1],
@@ -986,7 +1048,7 @@ flash_attention_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
   load_rows<D>(Vs, v + b * st.v[0] + kvh * st.v[2] + (long long)j0 * st.v[1],
                st.v[1], 0, T_len - j0);
   auto load_q = [&](int it, int buf) {
-    const int h = kvh * R + it / nq, q0 = (it % nq) * B_BQ;
+    const int h = kvh * R + it / nq, q0 = (q_first + it % nq) * B_BQ;
     load_rows<D>(Qs + buf * B_BQ * LDS, q + b * st.q[0] + h * st.q[2],
                  st.q[1], q0, S);
     load_rows<D>(Gs + buf * B_BQ * LDS, dO + b * st.dO[0] + h * st.dO[2],
@@ -1017,28 +1079,32 @@ flash_attention_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-      load_a_frags<D>(kf, Ks, warp * 16, lane);
-      load_a_frags<D>(vf, Vs, warp * 16, lane);
+    if constexpr (D <= 64) {
+      if (it == 0) {
+        load_a_frags<D>(kf, Ks, warp * 16, lane);
+        load_a_frags<D>(vf, Vs, warp * 16, lane);
+      }
     }
-    const int buf = it & 1, q0 = (it % nq) * B_BQ;
+    const int buf = it & 1, q0 = (q_first + it % nq) * B_BQ;
     const __nv_bfloat16* Qt = Qs + buf * B_BQ * LDS;
     const __nv_bfloat16* Gt = Gs + buf * B_BQ * LDS;
     const float* Lt = Ls + buf * B_BQ;
     const float* Dt = Dl + buf * B_BQ;
 
     float p[8][4], dp[8][4];
-    mma_rows_t<D>(p, kf, Qt, lane);      // S^T: 16 keys x 64 queries
+    // S^T: 16 keys x 64 queries
+    mma_rows_t_any<D>(p, kf, Ks, warp * 16, Qt, lane);
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = j0 + warp * 16 + g + 8 * (e >> 1);
         const int c = nb * 8 + 2 * t4 + (e & 1);
-        p[nb][e] = (j < T_len && q0 + c < S)
+        // causal: query q0 + c sees keys j <= q0 + c (the diagonal tile)
+        p[nb][e] = (j < T_len && q0 + c < S && (!causal || j <= q0 + c))
                        ? __expf(p[nb][e] * scale - Lt[c]) : 0.f;
       }
-    mma_rows_t<D>(dp, vf, Gt, lane);     // dP^T = V dO^T
+    mma_rows_t_any<D>(dp, vf, Vs, warp * 16, Gt, lane);   // dP^T = V dO^T
     mma_p_rows<D>(dv_acc, p, Gt, lane);  // dV += P^T dO
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
@@ -1080,8 +1146,9 @@ flash_attention_bwd_dq(const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dq, int H, int KH, int S,
-                       int T_len, BwdStrides st, float scale) {
-  constexpr int LDS = D + 8, KD = D / 16, ND = D / 8;
+                       int T_len, BwdStrides st, float scale, int causal) {
+  constexpr int LDS = D + 8, ND = D / 8;
+  constexpr int KD = D <= 64 ? D / 16 : 1;   // fragments held (D <= 64)
   extern __shared__ __align__(128) unsigned char bw_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(bw_smem);
   __nv_bfloat16* Gs = Qs + B_BQ * LDS;           // dO
@@ -1094,7 +1161,9 @@ flash_attention_bwd_dq(const __nv_bfloat16* __restrict__ q,
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KH);
   const int q0 = blockIdx.y * B_BQ;
-  const int n_kv = (T_len + B_BKV - 1) / B_BKV;
+  // causal: key tiles past this query tile's last row are dead
+  const int n_kv = causal ? min((T_len + B_BKV - 1) / B_BKV, q0 / B_BKV + 1)
+                          : (T_len + B_BKV - 1) / B_BKV;
 
   load_rows<D>(Qs, q + b * st.q[0] + h * st.q[2], st.q[1], q0, S);
   load_rows<D>(Gs, dO + b * st.dO[0] + h * st.dO[2], st.dO[1], q0, S);
@@ -1130,21 +1199,24 @@ flash_attention_bwd_dq(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
-      load_a_frags<D>(qf, Qs, warp * 16, lane);
-      load_a_frags<D>(gf, Gs, warp * 16, lane);
+    if constexpr (D <= 64) {
+      if (t == 0) {
+        load_a_frags<D>(qf, Qs, warp * 16, lane);
+        load_a_frags<D>(gf, Gs, warp * 16, lane);
+      }
     }
     const __nv_bfloat16* Kt = Ks + (t & 1) * B_BKV * LDS;
     const __nv_bfloat16* Vt = Vs + (t & 1) * B_BKV * LDS;
     float p[8][4], dp[8][4];
-    mma_rows_t<D>(p, qf, Kt, lane);      // S = Q K^T
-    mma_rows_t<D>(dp, gf, Vt, lane);     // dP = dO V^T
+    mma_rows_t_any<D>(p, qf, Qs, warp * 16, Kt, lane);    // S = Q K^T
+    mma_rows_t_any<D>(dp, gf, Gs, warp * 16, Vt, lane);   // dP = dO V^T
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = t * B_BKV + nb * 8 + 2 * t4 + (e & 1);
-        const float pv = j < T_len
+        const int row = q0 + warp * 16 + g + 8 * (e >> 1);
+        const float pv = (j < T_len && (!causal || j <= row))
                              ? __expf(p[nb][e] * scale - L[e >> 1]) : 0.f;
         p[nb][e] = pv * (dp[nb][e] - Dv[e >> 1]);
       }
@@ -1561,7 +1633,8 @@ flash_attention_bwd_dq_f32(const float* __restrict__ q,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            float* __restrict__ dq, int H, int KH, int S,
-                           int T_len, BwdStrides st, float scale) {
+                           int T_len, BwdStrides st, float scale,
+                           int causal) {
   __shared__ float Qs[BF_ROWS][D + 1], Gs[BF_ROWS][D + 1];
   __shared__ float Ks[BF_ROWS][D + 1], Vs[BF_ROWS][D + 1];
   const int tid = threadIdx.x;
@@ -1580,7 +1653,10 @@ flash_attention_bwd_dq_f32(const float* __restrict__ q,
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int t0 = 0; t0 < T_len; t0 += BF_ROWS) {
+  // causal: keys past the block's last row are dead
+  const int t_end = causal ? min(T_len, (int)blockIdx.y * BF_ROWS + BF_ROWS)
+                           : T_len;
+  for (int t0 = 0; t0 < t_end; t0 += BF_ROWS) {
     __syncthreads();
     for (int i = tid; i < BF_ROWS * D; i += BF_ROWS) {
       const int j = i / D, d = i % D;
@@ -1591,7 +1667,7 @@ flash_attention_bwd_dq_f32(const float* __restrict__ q,
                          kvh * st.v[2] + d] : 0.f;
     }
     __syncthreads();
-    const int nj = min(BF_ROWS, T_len - t0);
+    const int nj = min(BF_ROWS, (causal ? min(t_end, row + 1) : T_len) - t0);
     for (int j = 0; j < nj; ++j) {
       float sc = 0.f, dp = 0.f;
 #pragma unroll 16
@@ -1621,7 +1697,7 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q,
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int H, int KH, int S, int T_len, BwdStrides st,
-                             float scale) {
+                             float scale, int causal) {
   __shared__ float Ks[BF_ROWS][D + 1], Vs[BF_ROWS][D + 1];
   __shared__ float Qs[BF_ROWS][D + 1], Gs[BF_ROWS][D + 1];
   __shared__ float Ls[BF_ROWS], Dl[BF_ROWS];
@@ -1642,7 +1718,9 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q,
   for (int r = 0; r < R; ++r) {
     const int h = kvh * R + r;
     const long long bh = (long long)b * H + h;
-    for (int s0 = 0; s0 < S; s0 += BF_ROWS) {
+    // causal: queries before the block's first key see none of its keys
+    for (int s0 = causal ? (int)blockIdx.y * BF_ROWS : 0; s0 < S;
+         s0 += BF_ROWS) {
       __syncthreads();
       for (int i = tid; i < BF_ROWS * D; i += BF_ROWS) {
         const int si = i / D, d = i % D;
@@ -1665,7 +1743,8 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q,
           sc = fmaf(Ks[tid][d], Qs[i][d], sc);
           dp = fmaf(Vs[tid][d], Gs[i][d], dp);
         }
-        const float p = ok ? expf(sc * scale - Ls[i]) : 0.f;
+        const float p = ok && (!causal || s0 + i >= j)
+                            ? expf(sc * scale - Ls[i]) : 0.f;
         const float ds = p * (dp - Dl[i]);
 #pragma unroll
         for (int d = 0; d < D; ++d) {
@@ -1694,7 +1773,7 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dO, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int H,
                    int KH, int S, int T_len, const BwdStrides& st,
-                   float scale, cudaStream_t s) {
+                   float scale, int causal, cudaStream_t s) {
   const long long rows = (long long)B * H * S;
   const unsigned dblocks = (unsigned)((rows + 3) / 4);
   flash_attention_bwd_delta<float><<<dblocks, 128, 0, s>>>(
@@ -1707,60 +1786,58 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<const float*>(dO), lse,
           delta, static_cast<float*>(dk), static_cast<float*>(dv), H, KH, S,
-          T_len, st, scale);
+          T_len, st, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_attention_bwd_dq_f32<D>
       <<<dim3(B * H, (S + BF_ROWS - 1) / BF_ROWS), BF_ROWS, 0, s>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), static_cast<const float*>(dO), lse,
-          delta, static_cast<float*>(dq), H, KH, S, T_len, st, scale);
+          delta, static_cast<float*>(dq), H, KH, S, T_len, st, scale,
+          causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 backward on mma.sync (D = 64 or 128): the delta pre-pass,
+// then dK/dV and dQ.
 template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dO, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int B, int H, int KH, int S, int T_len,
-               const BwdStrides& st, float scale, int dtype, cudaStream_t s) {
+               const BwdStrides& st, float scale, int causal,
+               cudaStream_t s) {
   const long long rows = (long long)B * H * S;
   const unsigned dblocks = (unsigned)((rows + 3) / 4);
-  if (dtype == 0)
-    return launch_bwd_f32<D>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H,
-                             KH, S, T_len, st, scale, s);
-  if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    flash_attention_bwd_delta<bf><<<dblocks, 128, 0, s>>>(
-        static_cast<const bf*>(o), static_cast<const bf*>(dO), delta, H, S, D,
-        rows, st);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    constexpr size_t bytes = bwd_smem_bytes<D>();
-    // once per instantiation and process (the port drives one card)
-    static const cudaError_t a1 = cudaFuncSetAttribute(
-        flash_attention_bwd_dkdv<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    static const cudaError_t a2 = cudaFuncSetAttribute(
-        flash_attention_bwd_dq<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (a1 != cudaSuccess) return static_cast<int>(a1);
-    if (a2 != cudaSuccess) return static_cast<int>(a2);
-    flash_attention_bwd_dkdv<D>
-        <<<dim3(B * KH, (T_len + B_BKV - 1) / B_BKV), B_THREADS, bytes, s>>>(
-            static_cast<const bf*>(q), static_cast<const bf*>(k),
-            static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
-            static_cast<bf*>(dk), static_cast<bf*>(dv), H, KH, S, T_len, st,
-            scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_attention_bwd_dq<D>
-        <<<dim3(B * H, (S + B_BQ - 1) / B_BQ), B_THREADS, bytes, s>>>(
-            static_cast<const bf*>(q), static_cast<const bf*>(k),
-            static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
-            static_cast<bf*>(dq), H, KH, S, T_len, st, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return -1;
+  using bf = __nv_bfloat16;
+  flash_attention_bwd_delta<bf><<<dblocks, 128, 0, s>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dO), delta, H, S, D,
+      rows, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t bytes = bwd_smem_bytes<D>();
+  // once per instantiation and process (the port drives one card)
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      flash_attention_bwd_dkdv<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static const cudaError_t a2 = cudaFuncSetAttribute(
+      flash_attention_bwd_dq<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (a1 != cudaSuccess) return static_cast<int>(a1);
+  if (a2 != cudaSuccess) return static_cast<int>(a2);
+  flash_attention_bwd_dkdv<D>
+      <<<dim3(B * KH, (T_len + B_BKV - 1) / B_BKV), B_THREADS, bytes, s>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k),
+          static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
+          static_cast<bf*>(dk), static_cast<bf*>(dv), H, KH, S, T_len, st,
+          scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dq<D>
+      <<<dim3(B * H, (S + B_BQ - 1) / B_BQ), B_THREADS, bytes, s>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k),
+          static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
+          static_cast<bf*>(dq), H, KH, S, T_len, st, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1832,18 +1909,20 @@ extern "C" int repro_flash_attention_decode_len(
   return -1;
 }
 
-// The backward (non-causal; D = 64, and D = 8 or 16 in fp32): q, k, v,
+// The backward (causal or not; bf16 at D = 64 or 128, fp32 at D = 8, 16
+// or 64; causal masks key j > query i, positions from 0 in both): q, k, v,
 // o, dO and the outputs dq, dk, dv read and written through (batch, seq, head) strides, 24 in all
 // (q, k, v, o, dO, dq, dk, dv in turn), the head dim contiguous, rows
 // 16-byte aligned for bf16; lse the forward's (B, H, S) fp32 logsumexp,
 // delta an fp32 (B, H, S) workspace.  dtype 1 (bf16) runs on mma.sync,
 // 0 (fp32) on FMAs.  Returns cudaGetLastError() after the last launch;
-// -1 for an unsupported dtype or D (bf16 takes only 64).
+// -1 for an unsupported dtype or D.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int B, int H, int KH, int S, int T_len, int D,
-    const long long* strides, float scale, int dtype, void* stream) {
+    const long long* strides, float scale, int causal, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BwdStrides st;
   long long* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
@@ -1852,16 +1931,25 @@ extern "C" int repro_flash_attention_bwd(
   if (T_len < 1) return -1;
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (D == 64)
-    return launch_bwd<64>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
-                          T_len, st, scale, dtype, s);
+  if (dtype == 1) {
+    if (D == 64)
+      return launch_bwd<64>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
+                            T_len, st, scale, causal, s);
+    if (D == 128)
+      return launch_bwd<128>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
+                             T_len, st, scale, causal, s);
+    return -1;
+  }
   if (dtype != 0) return -1;
   if (D == 8)
     return launch_bwd_f32<8>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
-                             T_len, st, scale, s);
+                             T_len, st, scale, causal, s);
   if (D == 16)
     return launch_bwd_f32<16>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH,
-                              S, T_len, st, scale, s);
+                              S, T_len, st, scale, causal, s);
+  if (D == 64)
+    return launch_bwd_f32<64>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH,
+                              S, T_len, st, scale, causal, s);
   return -1;
 }
 

@@ -24,6 +24,21 @@ on the H100 and what its design does about it.
 ``expert_matmul`` launches a kernel on CUDA tensors and raises on anything
 it does not take; ``expert_matmul_plain`` is the same function in plain
 PyTorch, used for CPU tensors and to hold the kernels against.
+
+The backward (the reference has none: JAX differentiates through XLA) is
+two more kernels that read the same device ``counts``:
+``expert_matmul_dgrad`` (``dx[e, c] = dy[e, c] @ w[e]^T`` for ``c <
+counts[e]``, exact zeros past it) and ``expert_matmul_wgrad`` (``dw[e] =
+x[e, :counts[e]]^T @ dy[e, :counts[e]]`` over the live rows only, in w's
+shape; a dead expert's dw is exactly zero and reads no byte of x or dy).
+Rows of x and dy past a count never reach a live result, whatever they
+hold.  Three variants each, chosen by :func:`choose_bwd_variant` from
+dtype, bases and strides (never from ``counts``): ``tma`` (bf16 TMA can
+read: dgrad the forward's grouped wgmma GEMM with w as a K-major B,
+wgrad one 128 x 128 tile of an expert's gradient a block over its live
+rows, both operands MN-major), ``tile_bf16`` and ``tile_f32`` (any
+strides, on FMAs: the stride-0 expert axis of the dense oracle, fp32).
+Plain versions sit beside them.
 """
 from __future__ import annotations
 
@@ -47,6 +62,12 @@ _self = sys.modules[__name__]     # whose counters counting.count adds to
 launches = 0
 VARIANTS = ("stream", "tma", "tile_bf16", "tile_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
+# backward launches, by kernel and variant (one a call)
+dgrad_launches = 0
+wgrad_launches = 0
+BWD_VARIANTS = ("tma", "tile_bf16", "tile_f32")
+dgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
+wgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -66,6 +87,10 @@ _ARGTYPES = {
     "repro_expert_matmul_stream": [_P] * 5 + [_I] * 4 + _STRIDES
     + [_I] * 4 + [_P],
     "repro_expert_matmul_tma": [_P] * 4 + [_I] * 4 + _STRIDES + [_P],
+    "repro_expert_matmul_dgrad_tma": [_P] * 4 + [_I] * 4 + [_L, _I, _P],
+    "repro_expert_matmul_wgrad_tma": [_P] * 4 + [_I] * 4 + [_L, _I, _P],
+    "repro_expert_matmul_bwd_tile": [_I] + [_P] * 4 + [_I] * 4
+    + [_L, _I, _I, _P],
 }
 
 
@@ -229,3 +254,163 @@ def expert_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     xm = torch.where(live[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
     return torch.bmm(xm, w)
+
+
+# ------------------------------------------------------------------ backward
+
+
+def choose_bwd_variant(F: int, dtype: torch.dtype, strides: tuple,
+                       aligned: bool) -> str:
+    """The backward kernel a dgrad or wgrad call goes to.  ``strides`` are
+    the (expert, row) strides in elements of the operand read in place
+    (w for dgrad, x for wgrad: dy and the outputs are contiguous),
+    ``aligned`` whether every base is 16-byte aligned and K, F >= 1.
+    TMA needs that, every stride a non-zero multiple of 16 bytes and dy's
+    rows of F a multiple of 8 elements."""
+    if dtype != torch.bfloat16:
+        return "tile_f32"
+    if aligned and F % 8 == 0 and all(s > 0 and s % 8 == 0 for s in strides):
+        return "tma"
+    return "tile_bf16"
+
+
+def _bwd_plan(a: torch.Tensor, dy: torch.Tensor) -> tuple:
+    """(variant, (expert, row) strides of ``a``) of a dgrad (``a`` = w)
+    or wgrad (``a`` = x) call; its output is fresh, so 16-byte aligned."""
+    st = _dim_strides(a)
+    aligned = min(a.shape[1], a.shape[2], dy.shape[2]) > 0 and \
+        a.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    return choose_bwd_variant(dy.shape[2], a.dtype, st, aligned), st
+
+
+def bwd_variant_of(a: torch.Tensor, dy: torch.Tensor) -> str:
+    """The kernel :func:`expert_matmul_dgrad` (``a`` = w) or
+    :func:`expert_matmul_wgrad` (``a`` = x) launches for a contiguous
+    ``dy``."""
+    return _bwd_plan(a, dy)[0]
+
+
+def check_bwd_args(dy: torch.Tensor, a: torch.Tensor, counts: torch.Tensor,
+                   dim: int) -> None:
+    """dy (E, C, F) against w (E, K, F) (``dim`` 2) or x (E, C, K)
+    (``dim`` 1)."""
+    if dy.ndim != 3 or a.ndim != 3 or a.shape[0] != dy.shape[0] or \
+            a.shape[dim] != dy.shape[dim]:
+        raise ValueError(f"dy {tuple(dy.shape)} does not match "
+                         f"{'w' if dim == 2 else 'x'} {tuple(a.shape)}")
+    if dy.dtype != a.dtype or dy.dtype not in DTYPE_CODES:
+        raise TypeError(f"dy and the operand must share a dtype in "
+                        f"float32/bfloat16, got {dy.dtype} and {a.dtype}")
+    E = dy.shape[0]
+    if counts.shape != (E,) or counts.dtype != torch.int32:
+        raise ValueError(f"counts must be int32 of shape ({E},), got "
+                         f"{counts.dtype} {tuple(counts.shape)}")
+
+
+def _check_bwd_cuda(a: torch.Tensor, dy: torch.Tensor,
+                    counts: torch.Tensor) -> None:
+    dev = dy.device
+    if dev.type != "cuda" or a.device != dev or counts.device != dev:
+        raise ValueError(f"expert_matmul backward needs dy, its operand and "
+                         f"counts on one CUDA device, got {dev}, {a.device}, "
+                         f"{counts.device}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {dev} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if not counts.is_contiguous():
+        raise ValueError("counts must be contiguous")
+    if a.shape[2] > 1 and a.stride(2) != 1:
+        raise ValueError("the operand needs a unit inner stride")
+
+
+def _bwd_launch(op: int, a: torch.Tensor, dy: torch.Tensor,
+                out: torch.Tensor, counts: torch.Tensor, K: int) -> str:
+    """Launch dgrad (op 0, a = w) or wgrad (op 1, a = x) into ``out``;
+    returns the variant."""
+    variant, st = _bwd_plan(a, dy)
+    E, C, F = dy.shape
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    if variant == "tma":
+        name = ("repro_expert_matmul_dgrad_tma" if op == 0
+                else "repro_expert_matmul_wgrad_tma")
+        if op == 0:
+            rc = _launcher(name)(dy.data_ptr(), a.data_ptr(), out.data_ptr(),
+                                 counts.data_ptr(), E, C, K, F, *st, stream)
+        else:
+            rc = _launcher(name)(a.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                                 counts.data_ptr(), E, C, K, F, *st, stream)
+    else:
+        rc = _launcher("repro_expert_matmul_bwd_tile")(
+            op, a.data_ptr(), dy.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), E, C, K, F, *st, DTYPE_CODES[a.dtype], stream)
+    if rc != 0:
+        kind = "dgrad" if op == 0 else "wgrad"
+        raise RuntimeError(f"expert_matmul_{kind} ({variant}) launch failed "
+                           f"(CUDA error {rc})")
+    return variant
+
+
+def expert_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
+                        counts: torch.Tensor) -> torch.Tensor:
+    """Launch the dgrad kernel: dy (E, C, F) and w (E, K, F) -> dx (E, C,
+    K), ``dx[e, c] = dy[e, c] @ w[e]^T`` for ``c < counts[e]`` and exact
+    zeros past it.  ``w`` may be a strided view (unit inner stride); dy is
+    made contiguous."""
+    check_bwd_args(dy, w, counts, 2)
+    _check_bwd_cuda(w, dy, counts)
+    E, K, F = w.shape
+    dy = dy.contiguous()
+    C = dy.shape[1]
+    dx = torch.empty((E, C, K), dtype=dy.dtype, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    if F == 0:
+        return dx.zero_()
+    variant = _bwd_launch(0, w, dy, dx, counts, K)
+    counting.count(_self, variant, "dgrad_launches", "dgrad_variant_launches")
+    return dx
+
+
+def expert_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                        counts: torch.Tensor) -> torch.Tensor:
+    """Launch the wgrad kernel: x (E, C, K) and dy (E, C, F) -> dw (E, K,
+    F) (the shape of the forward's w), ``dw[e] = x[e, :counts[e]]^T @
+    dy[e, :counts[e]]``; a dead expert's dw is exactly zero.  ``x`` may be
+    strided (unit inner stride); dy is made contiguous."""
+    check_bwd_args(dy, x, counts, 1)
+    _check_bwd_cuda(x, dy, counts)
+    E, C, K = x.shape
+    dy = dy.contiguous()
+    F = dy.shape[2]
+    dw = torch.empty((E, K, F), dtype=dy.dtype, device=dy.device)
+    if dw.numel() == 0:
+        return dw
+    if C == 0:
+        return dw.zero_()
+    variant = _bwd_launch(1, x, dy, dw, counts, K)
+    counting.count(_self, variant, "wgrad_launches", "wgrad_variant_launches")
+    return dw
+
+
+def _live_rows(t: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """t (E, C, n) with the rows at ``c >= counts[e]`` replaced by zeros
+    (a select: whatever they held never reaches the result)."""
+    live = (torch.arange(t.shape[1], device=t.device)[None, :]
+            < counts[:, None])
+    return torch.where(live[..., None], t,
+                       torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def expert_matmul_dgrad_plain(dy: torch.Tensor, w: torch.Tensor,
+                              counts: torch.Tensor) -> torch.Tensor:
+    """The dgrad in plain PyTorch: the live rows of dy times w^T."""
+    check_bwd_args(dy, w, counts, 2)
+    return torch.bmm(_live_rows(dy, counts), w.transpose(1, 2))
+
+
+def expert_matmul_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
+                              counts: torch.Tensor) -> torch.Tensor:
+    """The wgrad in plain PyTorch: x^T times dy over the live rows."""
+    check_bwd_args(dy, x, counts, 1)
+    return torch.bmm(_live_rows(x, counts).transpose(1, 2),
+                     _live_rows(dy, counts))

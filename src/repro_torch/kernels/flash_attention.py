@@ -31,16 +31,17 @@ CUDA graph capture).
 the backward reads.
 
 The backward (the reference has none: JAX differentiates through XLA)
-is ``flash_attention_bwd``, non-causal at D = 64 (fp32 also at the smoke
-configs' 8 and 16), in three variants
-chosen by :func:`choose_bwd_variant` from shapes and dtype:
-``resident`` (bf16 with S, T <= 256, the sandwich step's S = T = 197:
-one block per (batch, kv head) holds its keys and makes one pass on
-wgmma, each input read once, dQ from dS in the same block), ``mma``
-(other bf16: FlashAttention-2's delta pre-pass, then dK/dV and dQ in
-two deterministic passes on mma.sync) and
-``fma_f32`` (fp32 on FMAs); any other case raises
-``NotImplementedError`` (causal and D = 128 come with LM training).
+is ``flash_attention_bwd``, causal or not, at D = 64 and 128 in bf16 and
+8, 16 and 64 in fp32, in three variants chosen by
+:func:`choose_bwd_variant` from shapes and dtype: ``resident`` (bf16,
+non-causal, D = 64, S, T <= 256, the sandwich step's S = T = 197: one
+block per (batch, kv head) holds its keys and makes one pass on wgmma,
+each input read once, dQ from dS in the same block), ``mma`` (other
+bf16, the LM's causal S = T = 4096 at D = 128 among them:
+FlashAttention-2's delta pre-pass, then dK/dV and dQ in two
+deterministic passes on mma.sync that skip the causal mask's dead tiles)
+and ``fma_f32`` (fp32 on FMAs); any other head dim raises
+``NotImplementedError``.
 ``flash_attention_bwd_plain`` is the same gradient as
 explicit formulas, for CPU tensors and to hold the kernel against.
 """
@@ -72,7 +73,7 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 bwd_launches = 0
 BWD_VARIANTS = ("resident", "mma", "fma_f32")
 bwd_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
-BWD_HEAD_DIMS = (64,)          # bf16
+BWD_HEAD_DIMS = (64, 128)      # bf16: the ViTs' and the LM's
 BWD_F32_HEAD_DIMS = (8, 16, 64)  # fp32: the smoke configs' 8 and 16 too
 RESIDENT_MAX = 256      # queries and keys of a head the resident kernel takes
 
@@ -92,7 +93,7 @@ _ARGTYPES = {
     "repro_flash_attention_mma": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I,
                                                         _P, _P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_STRIDES, _F, _I,
-                                                         _P],
+                                                         _I, _P],
     "repro_flash_attention_decode_len": [_P] * 6 + [_I] * 5 + [_STRIDES, _F,
                                                                _I, _I, _P],
     "repro_flash_attention_bwd_resident": [_P] * 9 + [_I] * 6 + [_STRIDES,
@@ -312,24 +313,26 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
                        causal: bool) -> str:
     """The backward kernel a call goes to, from shapes and dtype (the
     wrapper copies rows the kernels cannot read with 16-byte loads first);
-    raises ``NotImplementedError`` for what no kernel takes (causal; D
-    other than 64 in bf16, other than 8, 16 or 64 in fp32).  ``resident`` holds a head's keys in shared memory
-    (T <= 256) and walks its queries serially in one block per (batch, kv
-    head): past 256 queries the two-pass ``mma``, whose grid also runs
-    over query tiles, spreads the work wider.  With few (batch, kv head)
+    raises ``NotImplementedError`` for what no kernel takes (D other than
+    64 or 128 in bf16, other than 8, 16 or 64 in fp32).  ``resident``
+    (non-causal, D = 64) holds a head's keys in shared memory (T <= 256)
+    and walks its queries serially in one block per (batch, kv head):
+    past 256 queries the two-pass ``mma``, whose grid also runs over
+    query tiles, spreads the work wider; causal calls and D = 128 take
+    ``mma``.  With few (batch, kv head)
     blocks the serial walk costs too: at B * KH = 22 on an H100 (132 SMs)
     ``resident`` took 34-35 us a call at S = T = 197 against 27.5 us for
     ``mma`` (PERF.md, open questions).  No caller sends so few heads
     today, so the choice does not look at B * KH."""
     dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
-    if causal or D not in dims:
+    if D not in dims:
         raise NotImplementedError(
-            f"flash_attention backward: causal={causal}, D={D}, {dtype}; "
-            f"the kernel takes non-causal D = 64, and D = 8 or 16 in fp32 "
-            f"(causal and D = 128 come with LM training)")
+            f"flash_attention backward: D={D}, {dtype}; the kernels take "
+            f"D in {BWD_HEAD_DIMS} in bf16 and {BWD_F32_HEAD_DIMS} in fp32")
     if dtype != torch.bfloat16:
         return "fma_f32"
-    if 1 <= S <= RESIDENT_MAX and 1 <= T <= RESIDENT_MAX:
+    if not causal and D == 64 and 1 <= S <= RESIDENT_MAX \
+            and 1 <= T <= RESIDENT_MAX:
         return "resident"
     return "mma"
 
@@ -349,8 +352,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool) -> tuple:
     """Launch the backward kernels: (dq, dk, dv) in q's, k's and v's
     shapes, from the forward's o and fp32 logsumexp ``lse`` (B, H, S) and
-    the output gradient ``do``.  Non-causal, at D = 64 (and D = 8 or 16 in
-    fp32) only."""
+    the output gradient ``do``, causal or not, at the head dims
+    :func:`choose_bwd_variant` takes."""
     check_bwd_args(q, k, v, o, do)
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
@@ -388,7 +391,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T, D, strides,
-            1.0 / math.sqrt(D), DTYPE_CODES[q.dtype], stream)
+            1.0 / math.sqrt(D), int(causal), DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward ({variant}) launch "
                            f"failed (CUDA error {rc})")

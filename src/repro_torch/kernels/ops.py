@@ -15,11 +15,10 @@ Where a gradient is wanted (grad mode on and an input that requires it),
 K1 and K2 run inside a ``torch.autograd.Function`` whose backward is the
 kernels' backward (K1's dgrad and wgrad kernels, K2's backward kernel) or,
 on the CPU, their plain versions; the route is fixed when the forward
-runs (autograd runs the backward on its own thread).  K3 has no backward
-kernel yet: on the kernel route it runs inside a Function whose backward
-raises (a kernel's output would otherwise carry no gradient, silently),
-and its plain route is differentiable as it is.  Without a gradient the
-ops call the forward alone, as the serving path does.
+runs (autograd runs the backward on its own thread).  K3 on the kernel
+route runs inside a Function whose backward is K3's dgrad and wgrad
+kernels; its plain route is differentiable as it is.  Without a gradient
+the ops call the forward alone, as the serving path does.
 """
 from __future__ import annotations
 
@@ -56,6 +55,15 @@ def plain_active() -> bool:
     return getattr(_state, "plain", False)
 
 
+def route_contexts():
+    """``torch.utils.checkpoint``'s (forward, recompute) contexts: the
+    recompute runs on autograd's thread, where :func:`plain_kernels` is
+    not set, so it sets the forward's route again (remat)."""
+    plain = plain_active()
+    return (contextlib.nullcontext(),
+            plain_kernels() if plain else contextlib.nullcontext())
+
+
 def _use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return not plain_active()
@@ -72,6 +80,8 @@ _COUNTERS = (
     ("elastic_matmul_dgrad", _em, "dgrad_launches", "dgrad_variant_launches"),
     ("elastic_matmul_wgrad", _em, "wgrad_launches", "wgrad_variant_launches"),
     ("flash_attention_bwd", _fa, "bwd_launches", "bwd_variant_launches"),
+    ("expert_matmul_dgrad", _xm, "dgrad_launches", "dgrad_variant_launches"),
+    ("expert_matmul_wgrad", _xm, "wgrad_launches", "wgrad_variant_launches"),
 )
 
 
@@ -236,29 +246,32 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 class _ExpertMatmul(torch.autograd.Function):
-    """K3 on the kernel route where a gradient is wanted.  There is no
-    backward kernel yet, so the backward raises rather than leave x and w
-    without a gradient."""
+    """K3 on the kernel route where a gradient is wanted: its backward is
+    the dgrad and wgrad kernels, over the forward's counts (the rows past
+    them carry no gradient: the forward wrote constant zeros there)."""
 
     @staticmethod
     def forward(ctx, x, w, counts):
+        ctx.save_for_backward(x, w, counts)
         return _xm.expert_matmul(x, w, counts)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "expert_matmul backward: K3 has no backward kernel yet (it comes "
-            "with LM training, ROADMAP item 15 (c), and queue 2's K3 "
-            "backward); the plain route (CPU tensors, or plain_kernels()) "
-            "is differentiable")
+        x, w, counts = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _xm.expert_matmul_dgrad(dy, w, counts)
+        if ctx.needs_input_grad[1]:
+            dw = _xm.expert_matmul_wgrad(x, dy, counts)
+        return dx, dw, None
 
 
 def expert_matmul_op(x: torch.Tensor, w: torch.Tensor,
                      counts: torch.Tensor) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, F) per expert -> (E, C, F); rows
     ``c >= counts[e]`` (an int32 (E,) tensor on x's device) are exact
-    zeros.  ``w`` may be a strided view of a larger resident weight.  On
-    the kernel route a backward raises ``NotImplementedError``."""
+    zeros.  ``w`` may be a strided view of a larger resident weight; its
+    gradient comes in the view's shape."""
     if not _use_kernel(x):
         return _xm.expert_matmul_plain(x, w, counts)
     if _wants_grad(x, w):

@@ -3,6 +3,7 @@
 Counterpart of the reference ``launch/flops.py`` for the families the
 port runs:
 
+  LM train    : 6·N_active·T + 3·(4·H·Dh)·S·T·L / 2 (causal attention half)
   LM prefill  : 2·N_active·T + (4·H·Dh)·S·T·L / 2
   LM decode   : 2·N_active·B + 4·B·L·H·Dh·S_cache
   ViT/DiT     : token-matmul params x tokens (+ attention quadratic term)
@@ -12,9 +13,8 @@ port runs:
 N_active counts MoE experts at top_k (+shared) of n_experts; a training
 step counts 3x its forward.  The elastic launcher's "rel flops" column
 and ``chip_smoke.py``'s model-FLOPs bound of each prefill and its
-model-FLOPs rate of the conv nets' and the diffusion nets' training
-steps use them.  The LM's training count comes with LM training (ROADMAP
-item 15 (c)).
+model-FLOPs rate of the conv nets', the diffusion nets' and the LM's
+training steps use them.
 """
 from __future__ import annotations
 
@@ -50,13 +50,16 @@ def lm_model_flops(cfg, kind: str, B: int, S: int) -> float:
     n = lm_param_counts(cfg)
     N_act = n["body_active"] + n["unembed"]
     L, H, Dh = cfg.n_layers, cfg.n_heads, cfg.d_head
+    if kind == "train":
+        T = B * S
+        return 6.0 * N_act * T + 3.0 * (4 * H * Dh) * S * T * L / 2
     if kind == "prefill":
         T = B * S
         return 2.0 * N_act * T + (4 * H * Dh) * S * T * L / 2
     if kind == "decode":      # one token against an S-entry cache
         return 2.0 * N_act * B + 4.0 * B * L * H * Dh * S
-    raise ValueError(f"lm_model_flops: kind {kind!r} is not 'prefill' or "
-                     f"'decode'")
+    raise ValueError(f"lm_model_flops: kind {kind!r} is not 'train', "
+                     f"'prefill' or 'decode'")
 
 
 # --- ViT -----------------------------------------------------------------------
@@ -185,8 +188,7 @@ def unet_model_flops(cfg, kind: str, B: int, img_res: int) -> float:
 # --- dispatch -------------------------------------------------------------------
 
 def model_flops(arch, cfg, shape) -> float:
-    """The reference's dispatch by family and shape kind.  The LM's
-    training count (item 15 (c)) raises."""
+    """The reference's dispatch by family and shape kind."""
     fam, kind = arch.family, shape.kind
     if fam == "lm":
         return lm_model_flops(cfg, kind, shape.global_batch, shape.seq_len)

@@ -1,16 +1,18 @@
-"""The LM's prefill and decode steps, the vision nets' train step and
-the diffusion nets' train step and denoiser.
+"""The LM's train, prefill and decode steps, the vision nets' train step
+and the diffusion nets' train step and denoiser.
 
-Counterparts of the ``prefill`` and ``decode`` closures of the reference's
-``launch/steps.py:_lm_cell``, the ``train_step`` of its ``_vis_cell``, the
-``train_step`` and ``gen_step`` of its ``_diff_cell`` and its
-``_accum_grads``, without mesh or sharding (one card).  The functions
+Counterparts of the ``train_step``, ``prefill`` and ``decode`` closures
+of the reference's ``launch/steps.py:_lm_cell``, the ``train_step`` of
+its ``_vis_cell``, the ``train_step`` and ``gen_step`` of its
+``_diff_cell``, its ``_accum_grads`` and ``build_cell``'s
+``cfg_overrides``, without mesh or sharding (one card).  The functions
 run eagerly; :class:`LMGraphs` runs the prefill and the decode step as
 CUDA graphs on the card, the counterpart of the reference's jit-compiled
 closures.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
@@ -80,6 +82,24 @@ def accum_grads(loss_fn: Callable, params, batch: dict,
     return lsum / accum
 
 
+def clipped_step(loss_fn: Callable, update_fn: Callable,
+                 accum: int) -> Callable:
+    """The reference's train step around ``loss_fn(params, mb)``: its
+    mean over ``accum`` microbatches (:func:`accum_grads`), the gradient
+    clipped to global norm 1.0, one optimizer update.
+
+    ``step(params, opt, batch, step) -> (params, opt, {"loss", "gnorm"})``
+    with the parameters (leaves that require grad) and the optimizer state
+    updated in place and the metrics as device scalars."""
+    def step(params, opt, batch, step):
+        pop_grads(params)
+        loss = accum_grads(loss_fn, params, batch, accum)
+        grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
+        params, opt = update_fn(params, grads, opt, step)
+        return params, opt, {"loss": loss, "gnorm": gn}
+    return step
+
+
 def vis_forward(arch_id: str, cfg) -> Callable:
     """``forward(params, images) -> logits`` of the reference's
     ``vis_train`` step: the ViTs as they serve, the conv nets with
@@ -97,24 +117,12 @@ def vis_forward(arch_id: str, cfg) -> Callable:
 def make_vis_train_step(arch_id: str, cfg, update_fn: Callable,
                         accum: int = 1) -> Callable:
     """The reference's ``vis_train`` step: cross entropy of the full net
-    on the labels (the mean over ``accum`` microbatches), the gradient
-    clipped to global norm 1.0, one optimizer update.
-
-    ``step(params, opt, batch, step) -> (params, opt, {"loss", "gnorm"})``
-    with the parameters (leaves that require grad) and the optimizer state
-    updated in place and the metrics as device scalars."""
+    on the labels through :func:`clipped_step`."""
     forward = vis_forward(arch_id, cfg)
 
     def loss_fn(params, mb):
         return ce_loss(forward(params, mb["images"]), mb["labels"])
-
-    def step(params, opt, batch, step):
-        pop_grads(params)
-        loss = accum_grads(loss_fn, params, batch, accum)
-        grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
-        params, opt = update_fn(params, grads, opt, step)
-        return params, opt, {"loss": loss, "gnorm": gn}
-    return step
+    return clipped_step(loss_fn, update_fn, accum)
 
 
 def diff_denoise(arch_id: str, cfg, E=None) -> Callable:
@@ -140,7 +148,7 @@ def make_diff_train_step(arch_id: str, cfg, update_fn: Callable,
     launcher's ``diffusionize`` makes it.
 
     ``step(params, opt, batch, step) -> (params, opt, {"loss", "gnorm"})``
-    as :func:`make_vis_train_step`'s."""
+    as :func:`clipped_step`'s."""
     denoise = diff_denoise(arch_id, cfg)
     sched = diff.make_schedule()
     on_device = {}
@@ -153,13 +161,27 @@ def make_diff_train_step(arch_id: str, cfg, update_fn: Callable,
         x_t = diff.q_sample(s, lat, mb["t"], noise)
         eps = denoise(params, x_t, mb["t"], mb["cond"])[..., :lat.shape[-1]]
         return torch.mean(torch.square(eps.float() - noise.float()))
+    return clipped_step(loss_fn, update_fn, accum)
 
-    def step(params, opt, batch, step):
-        pop_grads(params)
-        loss = accum_grads(loss_fn, params, batch, accum)
-        grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
-        params, opt = update_fn(params, grads, opt, step)
-        return params, opt, {"loss": loss, "gnorm": gn}
+
+def make_lm_train_step(cfg: LMConfig, update_fn: Callable, accum: int = 1,
+                       *, E=None, cfg_overrides: Optional[dict] = None
+                       ) -> Callable:
+    """The reference's ``_lm_cell`` train step: the cross entropy of the
+    next-token logits on the labels plus the MoE aux loss (weighted by
+    ``lm_apply``), through :func:`clipped_step`.  ``batch`` is {"tokens",
+    "labels"} (B, S).  ``cfg_overrides`` replaces config fields first, as
+    the reference's ``build_cell`` does (the launcher's one-card depth
+    cut); the step's ``cfg`` attribute is the config it runs, for the
+    parameters' init."""
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+
+    def loss_fn(params, mb):
+        logits, aux, _ = lm_apply(params, mb["tokens"], cfg, E=E)
+        return ce_loss(logits, mb["labels"]) + aux
+    step = clipped_step(loss_fn, update_fn, accum)
+    step.cfg = cfg
     return step
 
 

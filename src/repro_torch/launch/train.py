@@ -1,9 +1,9 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Counterpart of the reference ``launch/train.py`` for the vision
-transformers, the conv nets and the diffusion nets on one card: config
-registry -> train step -> data pipeline -> checkpoint manager ->
-watchdog/straggler monitor -> restart supervisor.  ``--smoke`` runs the
+transformers, the conv nets, the diffusion nets and the MoE LM on one
+card: config registry -> train step -> data pipeline -> checkpoint
+manager -> watchdog/straggler monitor -> restart supervisor.  ``--smoke`` runs the
 reduced config; ``--sandwich`` is the paper's supernet training of a
 vision transformer (max + min + 2 random sub-networks a step with
 in-place distillation, masked mode: one graph); without it, the plain
@@ -11,18 +11,24 @@ in-place distillation, masked mode: one graph); without it, the plain
 batch-statistics BN and SGD with momentum) or, for DiT-L/2 and
 UNet-SDXL, the ``diff_train`` step (epsilon-prediction MSE of the
 denoiser on seeded latents, noise and timesteps: :func:`diffusionize`,
+AdamW) or, for ``deepseek-moe-16b``, the ``_lm_cell`` train step (next-
+token cross entropy plus the MoE aux loss on ``synthetic_lm_batches``,
 AdamW), over ``--accum`` microbatches (the reference's ``build_cell``
 default: 1 for the smoke configs, else ``ACCUM_DEFAULTS``, raised where
-one card cannot hold the step: ``ONE_CARD_ACCUM``).  Parameters
-are fp32 and the compute dtype is the config's (bf16 at full size).  The
-run is on the card unless ``--device cpu``; with no card and no
-``--device cpu`` it raises.
+one card cannot hold the step: ``ONE_CARD_ACCUM``).  Where one card
+cannot hold the model at all, ``ONE_CARD_CUT`` cuts its depth at full
+width (the reference's ``cfg_overrides``); the launcher prints both cuts.
+Parameters are fp32 and the compute dtype is the config's (bf16 at full
+size).  The run is on the card unless ``--device cpu``; with no card and
+no ``--device cpu`` it raises.
 
     python -m repro_torch.launch.train --arch dynamic-ofa-supernet \\
         --sandwich --smoke --device cpu --steps 12
     python -m repro_torch.launch.train --arch resnet-152 --smoke \\
         --device cpu --steps 3
     python -m repro_torch.launch.train --arch dit-l2 --smoke \\
+        --device cpu --steps 3
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \\
         --device cpu --steps 3
 """
 from __future__ import annotations
@@ -42,15 +48,17 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.registry import ShapeSpec, vision_family
 from repro_torch.core.supernet import make_sandwich_step
 from repro_torch.data import (Prefetcher, synthetic_image_batches,
-                              synthetic_label_batches, to_device)
+                              synthetic_label_batches, synthetic_lm_batches,
+                              to_device)
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
                                            Watchdog, run_with_restarts)
 from repro_torch.launch.steps import (ACCUM_DEFAULTS, make_diff_train_step,
-                                      make_vis_train_step)
+                                      make_lm_train_step, make_vis_train_step)
 from repro_torch.models.dit import dit_init
 from repro_torch.models.efficientnet import effnet_init
 from repro_torch.models.resnet import resnet_init
+from repro_torch.models.transformer import lm_init
 from repro_torch.models.unet import unet_init
 from repro_torch.models.vit import vit_apply, vit_init
 from repro_torch.optim import make_optimizer
@@ -60,10 +68,17 @@ from repro_torch.optim.api import named_leaves
 # card (its defaults are for a sharded mesh; here fp32 parameters,
 # gradients and AdamW moments are whole, 41 GB for UNet-SDXL): UNet-SDXL's
 # train_256 step runs out of memory at 2 x 128 and at 4 x 64 (PERF.md,
-# cells)
-ONE_CARD_ACCUM = {("unet-sdxl", "train_256"): 8}
-LM_ITEM = ("queue 1: LM training (K2's causal and D = 128 backward, K3's "
-           "backward)")
+# cells); deepseek-moe-16b's (cut below) holds 36 GB of state, its
+# reference 4 x 64 would need 54 GB for the bf16 logits alone, and 32 x 8
+# runs out of memory at the fp32 log-softmax's gradient (PERF.md, cells)
+ONE_CARD_ACCUM = {("unet-sdxl", "train_256"): 8,
+                  ("deepseek-moe-16b", "train_4k"): 64}
+# config fields replaced where one card cannot hold the model (the
+# reference's build_cell cfg_overrides): deepseek-moe-16b at train_4k keeps
+# its full width (d 2048, 64 experts top-6, vocab 102400) and is cut to 4
+# layers, 1 dense + 3 MoE: 2.27 B parameters, 36 GB of fp32 parameters,
+# gradients and AdamW moments (its 28 layers need 262 GB: ROADMAP item 11)
+ONE_CARD_CUT = {("deepseek-moe-16b", "train_4k"): {"n_layers": 4}}
 
 
 def parse_args(argv=None):
@@ -99,8 +114,11 @@ def parse_args(argv=None):
 def init_params(arch, cfg, device) -> dict:
     """The reference's ``_init_params``: each family's init from seed 0,
     drawn on the host for the vision archs and on ``device`` for the
-    diffusion nets (UNet-SDXL's 2.56 B parameters take long to draw on
-    the host)."""
+    diffusion nets and the LM (UNet-SDXL's 2.56 B parameters take long to
+    draw on the host)."""
+    if arch.family == "lm":
+        return lm_init(torch.Generator(device=device).manual_seed(0), cfg,
+                       device=device)
     if arch.family == "diffusion":
         init = dit_init if arch.arch_id.startswith("dit") else unet_init
         gen = torch.Generator(device=device).manual_seed(0)
@@ -152,8 +170,23 @@ def _shape(arch, name, cfg, smoke: bool) -> ShapeSpec:
     if smoke:   # the reference's reduced-shape smoke variant (batch 2)
         shape = dataclasses.replace(
             shape, global_batch=min(shape.global_batch, 2),
+            seq_len=min(shape.seq_len, 64) if shape.seq_len else 0,
             img_res=cfg.img_res if shape.img_res else 0)
     return shape
+
+
+def describe_cuts(arch_id: str, shape: ShapeSpec, cfg, cut: dict,
+                  accum: int) -> str:
+    """The launcher's line on how the run is cut to one card."""
+    B = shape.global_batch
+    out = f"{arch_id} {shape.name}: batch {B} as {accum} microbatch" \
+          f"{'es' if accum > 1 else ''} of {B // accum}"
+    if cut:
+        out += ", cut to " + ", ".join(f"{k} {v}" for k, v in cut.items())
+        if getattr(cfg, "moe", None) is not None:
+            out += (f" ({cfg.n_dense_layers} dense + {cfg.n_moe_layers} "
+                    f"MoE)")
+    return out
 
 
 def main(argv=None):
@@ -165,11 +198,9 @@ def main(argv=None):
             "multi-device and multi-process training (--mesh pod/multipod, "
             "--coordinator) come with ROADMAP item 11")
     arch = get_arch(args.arch)
-    if arch.family == "lm":
-        raise NotImplementedError(f"{args.arch}: training comes with ROADMAP "
-                                  f"{LM_ITEM}")
+    lm = arch.family == "lm"
     diffusion = arch.family == "diffusion"
-    fam = "diffusion" if diffusion else vision_family(arch.arch_id)
+    fam = arch.family if lm or diffusion else vision_family(arch.arch_id)
     if fam is None:
         raise NotImplementedError(f"{args.arch}: no ported training path")
     if args.sandwich and fam != "vit":
@@ -178,15 +209,16 @@ def main(argv=None):
 
     cfg = arch.make_smoke() if args.smoke else arch.make_config()
     shape = _shape(arch, args.shape, cfg, args.smoke)
-    kind = "diff_train" if diffusion else "vis_train"
+    kind = {"lm": "train", "diffusion": "diff_train"}.get(fam, "vis_train")
     if shape.kind != kind:
         raise ValueError(f"--shape {shape.name} is a {shape.kind} shape")
-    if shape.img_res != cfg.img_res:
+    if not lm and shape.img_res != cfg.img_res:
         cfg = dataclasses.replace(cfg, img_res=shape.img_res)
     B = shape.global_batch
     key = (arch.arch_id, shape.name)
     accum = args.accum or (1 if args.smoke else ONE_CARD_ACCUM.get(
         key, ACCUM_DEFAULTS.get(key, 1)))
+    cut = {} if args.smoke else ONE_CARD_CUT.get(key, {})
     init_fn, update_fn = make_optimizer(arch.optimizer)
 
     if args.sandwich:
@@ -196,12 +228,21 @@ def main(argv=None):
         def apply_fn(p, b, E):
             return vit_apply(p, b["images"], cfg, E=E)[0]
         s_step, s_sample = make_sandwich_step(apply_fn, update_fn, dims)
+    elif lm:
+        step_fn = make_lm_train_step(cfg, update_fn, accum,
+                                     cfg_overrides=cut)
+        cfg = step_fn.cfg
     elif diffusion:
         step_fn = make_diff_train_step(arch.arch_id, cfg, update_fn, accum)
     else:
         step_fn = make_vis_train_step(arch.arch_id, cfg, update_fn, accum)
+    print(describe_cuts(arch.arch_id, shape, cfg, cut, accum), flush=True)
 
     def data_at(step):
+        if lm:
+            return Prefetcher(synthetic_lm_batches(
+                global_batch=B, seq_len=shape.seq_len, vocab=cfg.vocab_size,
+                start_step=step))
         if diffusion:
             return Prefetcher(diffusion_batches(cfg, B, step))
         return Prefetcher(synthetic_image_batches(
@@ -261,9 +302,10 @@ def main(argv=None):
     finally:
         watchdog.stop()
     steady = step_ms[1:] or step_ms
+    per_step, unit = (B * shape.seq_len, "tokens") if lm else (B, "images")
     median = (f"; step {statistics.median(steady):.1f} ms (median after the "
-              f"first), {B / statistics.median(steady) * 1e3:.1f} images/s"
-              if steady else "")
+              f"first), {per_step / statistics.median(steady) * 1e3:.1f} "
+              f"{unit}/s" if steady else "")
     if device.type == "cuda":
         median += (f", peak device memory "
                    f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} "

@@ -18,7 +18,6 @@ forward's route (kernel or plain).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -166,14 +165,6 @@ def _block(h: torch.Tensor, lp: dict, c: torch.Tensor, cfg: DiTConfig,
     return h + ff * g2[:, None]
 
 
-def _route_contexts():
-    """``checkpoint``'s (forward, recompute) contexts: the recompute runs
-    on autograd's thread, so it sets the forward's route again."""
-    plain = ops.plain_active()
-    return (contextlib.nullcontext(),
-            ops.plain_kernels() if plain else contextlib.nullcontext())
-
-
 def dit_apply(params: dict, latents: torch.Tensor, t: torch.Tensor,
               y: torch.Tensor, cfg: DiTConfig, *, E=None) -> torch.Tensor:
     """latents (B,H,W,C), t (B,), y (B,) labels -> noise/var pred (B,H,W,2C)."""
@@ -209,7 +200,7 @@ def dit_apply(params: dict, latents: torch.Tensor, t: torch.Tensor,
     for lp in stack:
         if remat:
             x = checkpoint(_block, x, lp, c, cfg, *knobs, use_reentrant=False,
-                           context_fn=_route_contexts)
+                           context_fn=ops.route_contexts)
         else:
             x = _block(x, lp, c, cfg, *knobs)
 

@@ -185,7 +185,13 @@ def _moe_einsum(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e):
     slabs.index_copy_(0, dest, xf[tok])    # dropped slots: the scratch row
     out = _expert_ffn(p, slabs[:-1].view(E, G * C, d), counts, a_ff=a_ff,
                       slice_e=slice_e)
-    rows = out.reshape(E * G * C, d)[torch.where(keep, dest, 0)]
+    # index_select, not indexing: its backward adds each slot's gradient
+    # into its row (index_add_), where indexing's sorts the indices and
+    # accumulates the dropped slots' row 0 serially (7.1 of the train_4k
+    # step's 25.6 s of device time on an H100: PERF.md).  A dropped slot's
+    # gradient is exactly 0 (gate 0), so the sums are the same bits.
+    rows = out.reshape(E * G * C, d).index_select(
+        0, torch.where(keep, dest, 0))
     gates = (top_vals.reshape(-1) * keep).to(x.dtype)
     y = (rows.to(torch.float32) * gates.to(torch.float32)[:, None]) \
         .reshape(T, top_k, d).sum(1).to(x.dtype)
@@ -198,9 +204,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
     """Returns (y (B, S, d), aux_loss).  Shared experts added on top.
 
     Static knobs only (sliced mode); tensor knobs (masked mode) raise
-    until the LM's masked mode is ported (ROADMAP item 15 (a)).  On the
-    card a backward through the routed experts raises: K3 has no backward
-    kernel yet (item 15 (c)).
+    until the LM's masked mode is ported (ROADMAP item 15 (a)).  The
+    dispatch, the combine and the aux loss carry gradients on both
+    routes; on the card the routed experts' gradients are K3's dgrad and
+    wgrad kernels, through the casts of the fp32 weights.
     """
     top_k = top_k or cfg.top_k
     a_experts = L._static(a_experts, "moe_apply")

@@ -9,6 +9,13 @@ both on a leading axis for ``jax.lax.scan``; here the scan is a Python
 loop).  Every dense product runs on the elastic matmul (K1), attention on
 flash attention (K2, head dim 128 for the LMs) and every routed expert
 product on the expert-gated matmul (K3).
+
+``remat`` other than ``"none"`` runs each layer under
+``torch.utils.checkpoint`` when a gradient is wanted: a full recompute of
+the layer in the backward (the reference's ``dots_nb`` policy saves the
+products without batch dims and recomputes the rest; the port saves only
+the layer's input: ROADMAP §3).  The recompute takes the forward's
+kernel/plain route (it runs on autograd's thread).
 """
 from __future__ import annotations
 
@@ -16,10 +23,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import layers as L
 from repro_torch.core.types import ElasticSpace
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
 
@@ -42,13 +51,15 @@ class LMConfig:
     moe: Optional[MoEConfig] = None
     first_k_dense: int = 0
     d_ff_dense: Optional[int] = None     # FFN width of leading dense layers
-    # the reference's attention/decode variants and remat policy; the port
-    # runs every attention through K2, so these are unused here
+    # the reference's attention/decode variants; the port runs every
+    # attention through K2, so these are unused here
     attn_impl: str = "ref"               # ref | blocked_scan | blocked_causal
     decode_impl: str = "xla"             # xla | sharded (two-pass softmax)
     block_q: int = 512
     block_kv: int = 512
-    remat: str = "none"                  # none | full | dots
+    # the reference's remat policy; any but "none" recomputes each whole
+    # layer in the port's backward (module note)
+    remat: str = "none"                  # none | full | dots | dots_nb
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     elastic: ElasticSpace = ElasticSpace()
@@ -158,15 +169,29 @@ def _block(h, lp, cfg: LMConfig, E, *, is_moe: bool, kv_cache=None,
     return h + ff, aux, new_cache
 
 
+def _remat_block(h, lp, cfg: LMConfig, E, is_moe: bool):
+    return _block(h, lp, cfg, E, is_moe=is_moe, return_kv=False)[:2]
+
+
 def _stack(h, stack, cfg: LMConfig, E, *, is_moe: bool, caches=None,
            return_kv: bool):
-    """The layers of one homogeneous stack in order (the reference's scan)."""
+    """The layers of one homogeneous stack in order (the reference's scan);
+    each under ``checkpoint`` when ``cfg.remat`` asks for it and a
+    gradient is wanted (h requires one)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
+    remat = cfg.remat != "none" and torch.is_grad_enabled() \
+        and h.requires_grad and caches is None and not return_kv
     for i, lp in enumerate(stack):
-        h, a, nc = _block(h, lp, cfg, E, is_moe=is_moe,
-                          kv_cache=None if caches is None else caches[i],
-                          return_kv=return_kv)
+        if remat:
+            h, a = checkpoint(_remat_block, h, lp, cfg, E, is_moe,
+                              use_reentrant=False,
+                              context_fn=ops.route_contexts)
+            nc = None
+        else:
+            h, a, nc = _block(h, lp, cfg, E, is_moe=is_moe,
+                              kv_cache=None if caches is None else caches[i],
+                              return_kv=return_kv)
         aux = aux + a
         new_caches.append(nc)
     return h, aux, (new_caches if new_caches[0] is not None else None)

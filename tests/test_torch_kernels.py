@@ -293,13 +293,14 @@ def test_flash_attention_bwd_variant_choice(S, T, D, dtype, causal, want):
     (197, 197, 64, True), (512, 512, 128, True), (197, 197, 128, False),
     (17, 17, 16, False)])
 def test_flash_attention_bwd_variant_choice_refuses(S, T, D, causal):
-    """Causal and D other than 64 raise in bf16, and in fp32 but for the
-    smoke configs' non-causal head dims 8 and 16, which fma_f32 takes: no
-    variant takes the rest (causal and D 128 come with LM training)."""
-    for dtype in (torch.bfloat16, torch.float32):
-        if dtype == torch.float32 and not causal and D in (8, 16):
-            assert fa.choose_bwd_variant(S, T, D, dtype, causal) == \
-                "fma_f32"
+    """A head dim no kernel takes raises: bf16 takes 64 and 128 (causal
+    or not, on mma since LM training), fp32 8, 16 and 64 (fma_f32);
+    causal no longer raises anywhere."""
+    for dtype, dims in ((torch.bfloat16, (64, 128)),
+                        (torch.float32, (8, 16, 64))):
+        if D in dims:
+            want = "fma_f32" if dtype == torch.float32 else "mma"
+            assert fa.choose_bwd_variant(S, T, D, dtype, causal) == want
             continue
         with pytest.raises(NotImplementedError):
             fa.choose_bwd_variant(S, T, D, dtype, causal)
@@ -1011,15 +1012,15 @@ def test_flash_attention_op_autograd_gqa_on_cpu():
 def test_backward_kernels_refuse_what_they_do_not_take():
     q = torch.zeros(1, 4, 2, 64)
     lse = torch.zeros(1, 2, 4)
-    with pytest.raises(NotImplementedError):        # causal: LM training
-        fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True)
     q16 = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):        # D 16 in bf16
         fa.flash_attention_bwd(q16, q16, q16, q16, lse, q16, causal=False)
-    q128 = torch.zeros(1, 4, 2, 128)
-    with pytest.raises(NotImplementedError):        # D 128: LM training
-        fa.flash_attention_bwd(q128, q128, q128, q128, lse, q128,
-                               causal=False)
+    q128 = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16)
+    # causal and D = 128 have kernels since LM training: these CPU
+    # tensors are refused for their device, not their case
+    for t, causal in ((q, True), (q128, False), (q128, True)):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fa.flash_attention_bwd(t, t, t, t, lse, t, causal=causal)
     with pytest.raises(ValueError):                 # CPU tensors
         fa.flash_attention_bwd(q, q, q, q, lse, q, causal=False)
     w = torch.zeros(8, 8)
@@ -1251,13 +1252,17 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, S, H, KH):
 
 def test_fp32_backward_takes_the_smoke_head_dims():
     """K2's fp32 backward at the smoke configs' head dims (DiT-smoke 8,
-    UNet-smoke 16) and 64 goes to fma_f32; bf16 takes 64 alone."""
+    UNet-smoke 16) and 64 goes to fma_f32, causal too (the LM smoke's
+    16); bf16 takes 64 and 128 alone."""
     for D in (8, 16, 64):
-        assert fa.choose_bwd_variant(16, 77, D, torch.float32,
-                                     False) == "fma_f32"
-    for D in (8, 16, 128):
+        for causal in (False, True):
+            assert fa.choose_bwd_variant(16, 77, D, torch.float32,
+                                         causal) == "fma_f32"
+    for D in (8, 16):
         with pytest.raises(NotImplementedError):
             fa.choose_bwd_variant(16, 16, D, torch.bfloat16, False)
+    assert fa.choose_bwd_variant(16, 16, 128, torch.bfloat16,
+                                 False) == "mma"
 
 
 @pytest.mark.cuda
@@ -1284,6 +1289,79 @@ def test_cuda_flash_attention_fp32_backward_at_head_dims_8_and_16(
     assert fa.bwd_variant_launches["fma_f32"] - before == 1
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 128), ("bfloat16", 64),
+                                     ("float32", 16), ("float32", 64)])
+@pytest.mark.parametrize("S,H,KH", [(257, 4, 2), (64, 4, 4), (1, 2, 2)])
+def test_cuda_flash_attention_causal_backward_matches_plain(cuda, dtype, D,
+                                                             S, H, KH):
+    """K2's causal backward (the LM's, D = 128 in bf16, the smoke config's
+    16 in fp32) against the plain backward, ragged tiles and GQA: one
+    launch on mma or fma_f32, within tolerance of the largest gradient."""
+    g = torch.Generator().manual_seed(D + S)
+    dt = getattr(torch, dtype)
+    tol = 3e-3 if dtype == "float32" else 1e-2
+    q = torch.randn(2, S, H, D, generator=g).to(cuda, dt)
+    k = torch.randn(2, S, KH, D, generator=g).to(cuda, dt)
+    v = torch.randn(2, S, KH, D, generator=g).to(cuda, dt)
+    do = torch.randn(2, S, H, D, generator=g).to(cuda, dt)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    o = o.to(dt).contiguous()
+    want_v = "fma_f32" if dtype == "float32" else "mma"
+    before = fa.bwd_variant_launches[want_v]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=True)
+    torch.cuda.synchronize()
+    assert fa.bwd_variant_launches[want_v] - before == 1
+    # of the largest gradient: at a single key dq and dk are round-off of 0
+    scale = max(float(b.float().abs().max()) for b in want)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,F,C", [(2048, 1408, 480), (1408, 2048, 17),
+                                   (2048, 1056, 16)])
+def test_cuda_expert_matmul_backward_matches_plain(cuda, dtype, K, F, C):
+    """K3's dgrad and wgrad (the routed experts' gradients) against their
+    plain versions: ragged counts with a dead expert, NaN in x and dy past
+    every count, the expert width a strided view; dgrad exact zeros past
+    the counts, the dead expert's dw exactly 0, wgrad the same bits twice;
+    tma in bf16, tile_f32 in fp32."""
+    g = torch.Generator().manual_seed(K + F + C)
+    dt = getattr(torch, dtype)
+    E = 8
+    counts = torch.tensor([C, 0, 1, C // 2, C - 1, 5, C, 3],
+                          dtype=torch.int32, device=cuda)
+    live = (torch.arange(C, device=cuda)[None, :]
+            < counts[:, None])[..., None]
+    nan = torch.tensor(float("nan"), dtype=dt, device=cuda)
+    x = torch.where(live, torch.randn(E, C, K, generator=g).to(cuda, dt), nan)
+    dy = torch.where(live, torch.randn(E, C, F, generator=g).to(cuda, dt),
+                     nan)
+    w = (torch.randn(E, K, F + 64, generator=g) / K ** 0.5).to(cuda, dt)
+    w = w[..., :F]
+    want_v = "tile_f32" if dtype == "float32" else "tma"
+    before = (xm.dgrad_variant_launches[want_v],
+              xm.wgrad_variant_launches[want_v])
+    dx = xm.expert_matmul_dgrad(dy, w, counts)
+    dw = xm.expert_matmul_wgrad(x, dy, counts)
+    dw2 = xm.expert_matmul_wgrad(x, dy, counts)
+    torch.cuda.synchronize()
+    assert (xm.dgrad_variant_launches[want_v] - before[0],
+            xm.wgrad_variant_launches[want_v] - before[1]) == (1, 2)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for got, want in ((dx, xm.expert_matmul_dgrad_plain(dy, w, counts)),
+                      (dw, xm.expert_matmul_wgrad_plain(x, dy, counts))):
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= \
+            tol * scale
+    assert torch.all(dx.masked_select(~live) == 0)
+    assert torch.all(dw[1] == 0)
+    assert torch.equal(dw, dw2)
 
 
 # --- the fp32 router's split-K kernel and K2's resident backward ------------

@@ -401,11 +401,12 @@ def test_full_config_fields_and_flops_match_reference():
     tcfg = _torch_cfg(jcfg, smoke=False)
     n, jn = tflops.lm_param_counts(tcfg), jflops.lm_param_counts(jcfg)
     assert n == {k: jn[k] for k in n}
-    for kind, B, S in (("prefill", 4, 512), ("decode", 4, 528)):
+    for kind, B, S in (("prefill", 4, 512), ("decode", 4, 528),
+                       ("train", 2, 64), ("train", 256, 4096)):
         assert tflops.lm_model_flops(tcfg, kind, B, S) == \
             jflops.lm_model_flops(jcfg, kind, B, S)
     with pytest.raises(ValueError, match="train"):
-        tflops.lm_model_flops(tcfg, "train", 2, 64)
+        tflops.lm_model_flops(tcfg, "serve", 2, 64)
     # the embedding table is as large as the (untied) head
     assert 16.0e9 < n["body_total"] + 2 * n["unembed"] < 16.9e9
 

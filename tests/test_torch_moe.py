@@ -11,6 +11,7 @@ Tolerances: expert matmul fp32 3e-4 and bf16 3e-2 (those of
 tests/test_expert_matmul.py); moe_apply fp32 2e-4 and aux loss rtol 1e-5
 (those of tests/test_moe.py, dense oracle against einsum dispatch).
 """
+import contextlib
 import dataclasses
 
 import pytest
@@ -169,21 +170,33 @@ def test_expert_matmul_op_gradients_match_jax_vjp():
 
 def test_expert_matmul_op_kernel_route_backward_raises(monkeypatch):
     """On the kernel route K3 runs inside an autograd Function whose
-    backward raises until K3 has a backward kernel: a loss through it can
-    no longer leave x and w without a gradient silently.  (No card here:
-    the kernel route is forced and its forward is the plain version.)"""
+    backward is K3's dgrad and wgrad (it raised before they existed): x
+    and w get ``jax.vjp``'s gradients of the reference's oracle, dx exact
+    zeros past each count.  (No card here: the kernel route is forced and
+    its kernels are the plain versions.)"""
     monkeypatch.setattr(ops, "_use_kernel", lambda t: True)
-    monkeypatch.setattr(ops._xm, "expert_matmul", ops._xm.expert_matmul_plain)
+    for name in ("expert_matmul", "expert_matmul_dgrad",
+                 "expert_matmul_wgrad"):
+        monkeypatch.setattr(ops._xm, name, getattr(ops._xm, name + "_plain"))
     g = torch.Generator().manual_seed(3)
     x = torch.randn(2, 4, 8, generator=g, requires_grad=True)
     w = torch.randn(2, 8, 6, generator=g, requires_grad=True)
+    dy = torch.randn(2, 4, 6, generator=g)
     counts = torch.tensor([4, 1], dtype=torch.int32)
     y = ops.expert_matmul_op(x, w, counts)
     assert y.grad_fn is not None
     torch.testing.assert_close(y, ops._xm.expert_matmul_plain(x, w, counts))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        y.sum().backward()
-    assert x.grad is None and w.grad is None
+    y.backward(dy)
+    cj = jnp.asarray(counts.numpy())
+    _, vjp = jax.vjp(lambda a, b: jxm.expert_matmul_ref(a, b, cj),
+                     jnp.asarray(x.detach().numpy()),
+                     jnp.asarray(w.detach().numpy()))
+    jdx, jdw = vjp(jnp.asarray(dy.numpy()))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jdx), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(jdw), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.all(x.grad[1, 1:] == 0)
     with torch.no_grad():      # no gradient wanted: the forward alone
         assert ops.expert_matmul_op(x, w, counts).grad_fn is None
 
@@ -196,20 +209,30 @@ def _to(tree, dev):
 
 @pytest.mark.cuda
 def test_cuda_moe_apply_backward_raises(setup):
-    """On the card, a backward through moe_apply reaches K3's Function and
-    raises, where before it gave the routed experts no gradient."""
+    """On the card a backward through moe_apply reaches K3's dgrad and
+    wgrad kernels (it raised before they existed): in fp32, x's and the
+    routed experts' gradients equal the plain route's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     _, tp, x = setup
-    p = _to(cast_params(tp, torch.bfloat16), dev)
-    for leaf in (p["wi"], p["wg"], p["wo"]):
-        leaf.requires_grad_(True)
-    xt = torch.from_numpy(x).to(dev, torch.bfloat16).requires_grad_()
-    y, _ = TM.moe_apply(p, xt, _tcfg(CFG))
-    assert y.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="expert_matmul backward"):
-        y.float().square().sum().backward()
+    grads = []
+    for plain in (False, True):
+        p = _to(tp, dev)
+        for leaf in (p["wi"], p["wg"], p["wo"]):
+            leaf.requires_grad_(True)
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        before = ops.launch_counts()
+        with ops.plain_kernels() if plain else contextlib.nullcontext():
+            y, aux = TM.moe_apply(p, xt, _tcfg(CFG))
+            (y.square().sum() + aux).backward()
+        ran = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        assert (ran["expert_matmul_dgrad"] > 0) != plain
+        assert (ran["expert_matmul_wgrad"] > 0) != plain
+        grads.append([xt.grad, p["wi"].grad, p["wg"].grad, p["wo"].grad])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 # --- moe_apply ------------------------------------------------------------------
