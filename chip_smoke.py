@@ -128,7 +128,7 @@ Dynamic-OFA ViT, batch 256, bf16):
     plain versions: the recorded step's call (S = T = 197, D = 64) and
     random cases with T not a multiple of the 64-key tile and GQA (R = 2
     and 3), bf16 and fp32, each on the variant it
-    should take (``resident`` at S, T <= 256 in bf16, ``mma`` past it,
+    should take (``resident`` at S, T <= 256 in bf16, ``wgmma`` past it,
     ``fma_f32``); the recorded call the same bits twice and under 3
     CUDA-graph replays;
 18. one fp32 sandwich step of the full-width config at batch 4, kernel
@@ -257,24 +257,30 @@ cuDNN):
     path's time.
 
 the LM's training (deepseek-moe-16b at train_4k, full width, cut to 4
-layers: the launcher's one-card cut; K3's and K2's causal, D = 128
-backward kernels):
+layers: the launcher's one-card cut; K3's backward -- the dgrad on the
+``persistent`` kernel -- and K2's causal, D = 128 backward on ``wgmma``):
 
 24. (a) K2's backward against its plain version, causal and not, bf16 at
     D = 64 and 128, fp32 at D = 8, 16 and 64, S = T in (1, 63, 64, 65,
-    257, 4096), GQA R = 2, each comparison one launch on the variant its
-    shape and dtype choose, within a stated share of the largest gradient;
+    127, 129, 257, 4095, 4096), GQA R = 2, each comparison one launch on
+    the variant its shape and dtype choose (``wgmma`` but for the
+    non-causal D = 64 calls at S <= 256, which stay on ``resident``),
+    within a stated share of the largest gradient;
     (b) K3's dgrad and wgrad against their plain versions, bf16 and fp32:
     C = 480, 16 and 17, E = 1, counts all 0, all C and ragged, NaN in x
     and dy past every count, the expert width and count as strided views,
     the dense oracle's stride-0 expert axis; dgrad exact zeros past the
     counts, a dead expert's dw exactly 0, one launch per comparison on
-    the variant it should take; then both at every distinct call of one
-    recorded train_4k microbatch (4 x 4096, bf16, counts as routed), K2's
-    first sequence against the plain version, each wgrad call the same
-    bits twice and under 3 CUDA-graph replays, and (e) their
-    graph-replayed device time over that microbatch beside the plain
-    versions, ``torch.bmm`` and SDPA's autograd backward and the bound;
+    the variant it should take (dgrad ``persistent``, wgrad ``tma``);
+    then both at every distinct call of one recorded train_4k microbatch
+    (4 x 4096, bf16, counts as routed), K2's first sequence against the
+    plain version, every call the same bits twice and under 3 CUDA-graph
+    replays, and (e) their graph-replayed device time over that
+    microbatch, and K3's and K2's forward's, beside the plain versions,
+    ``torch.bmm``, SDPA's forward and autograd backward and the bound,
+    and with ``--parent-csrc`` the parent's kernels (a parent without
+    ``wgmma`` on its two-pass ``mma`` backward, one without
+    ``persistent`` on ``tma``) in turns;
     (c) one AdamW step of the smoke config in fp32 on the card, kernel
     route against plain route: loss, gradient norm and every updated
     parameter; (d) ``repro_torch.launch.train --arch deepseek-moe-16b``:
@@ -517,12 +523,14 @@ def k2_library(q, k, v, causal=True, kv_len=None):
 # the forward kernels (the serving and LM paths launch no backward)
 FORWARD = ("elastic_matmul", "flash_attention", "expert_matmul")
 # the kernels no bf16 main-path call may take: the first port's forward
-# kernels, the first backward of K1 and K3's backward tile loop (the
+# kernels, the first backward of K1, K3's backward tile loop, and K3's
+# tma dgrad, which the persistent one replaced where it stores dx (the
 # serving and LM inference paths launch no backward)
 OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
             ("expert_matmul", "tile_bf16"),
             ("elastic_matmul_dgrad", "wmma_bf16"),
             ("elastic_matmul_wgrad", "wmma_bf16"),
+            ("expert_matmul_dgrad", "tma"),
             ("expert_matmul_dgrad", "tile_bf16"),
             ("expert_matmul_wgrad", "tile_bf16")}
 
@@ -684,7 +692,14 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
                                                     for a, k in sub])[0]
                 row["groups"][name] = {"calls": len(sub), "ms": tk,
                                        "library_ms": tl, "bound_ms": gb}
-                log(f"    {name}: x{len(sub)} kernel {tk:.4f} ms, "
+                was = ""
+                if parent:
+                    with p_libs():
+                        tp = graph_time_ms(lambda sub=sub: [
+                            p_fn(*a, **k) for a, k in sub])[0]
+                    row["groups"][name]["parent_ms"] = tp
+                    was = f", parent {tp:.4f} ms"
+                log(f"    {name}: x{len(sub)} kernel {tk:.4f} ms{was}, "
                     f"{lib_name} {tl:.4f} ms, bound {gb:.4f} ms")
     return row
 
@@ -693,9 +708,9 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
 # runs its backward through the older entry points, unchanged since
 K1_BWD_TMA = ("repro_elastic_matmul_dgrad_tma",
               "repro_elastic_matmul_wgrad_tma")
-# launchers of later variants, by source: (launcher, module attribute of
-# the variant choice, {variant: the variant it took before}); a parent
-# without one runs those calls on the older variant, through this tree's
+# the launcher of a later variant, by source: (launcher, module attribute
+# of the variant choice, {variant: the variant it took before}); a parent
+# without it runs those calls on the older variant, through this tree's
 # wrapper and the parent's library
 # K2's decode launcher since it reads the key count on the device; a
 # parent without it runs decode calls through its host-count entry point
@@ -703,14 +718,26 @@ K2_DECODE_LEN = "repro_flash_attention_decode_len"
 LATER_VARIANTS = {
     "elastic_matmul": ("repro_elastic_matmul_f32_splitk", "choose_variant",
                        {"f32_splitk": "tile_f32"}),
-    "flash_attention": ("repro_flash_attention_bwd_resident",
-                        "choose_bwd_variant", {"resident": "mma"}),
+    "expert_matmul": ("repro_expert_matmul_dgrad_persistent",
+                      "choose_bwd_variant", {"persistent": "tma"}),
 }
+
+
+# K2's bf16 backward launchers since its two-pass mma.sync kernels, by
+# variant; a parent without one runs those calls on its two-pass entry
+# point
+K2_BWD_LATER = {"resident": "repro_flash_attention_bwd_resident",
+                "wgmma": "repro_flash_attention_bwd_wgmma"}
+
+
+def later_launchers(name: str) -> tuple:
+    return LATER_VARIANTS[name][:1] if name in LATER_VARIANTS else ()
 
 
 def parent_kernels(csrc: str) -> dict:
     """The parent commit's kernels, built from its ``csrc`` directory
-    beside ours.  Returns {"k1", "k2", "k3", "k1_dgrad", "k1_wgrad"}: ops
+    beside ours.  Returns {"k1", "k2", "k3", "k1_dgrad", "k1_wgrad",
+    "k2_bwd"}: ops
     to call inside {"libs"}(), which serves the parent's libraries in the
     build's place.  A kernel whose parent library exports every launcher
     this tree's wrapper binds runs through that wrapper (variant choice
@@ -720,7 +747,9 @@ def parent_kernels(csrc: str) -> dict:
     its tma variants through this wrapper's ``wmma_bf16`` route (in bf16),
     which calls the parent's entry points as its wrapper did; and a call
     whose variant the parent lacks (``LATER_VARIANTS``: K1 ``f32_splitk``,
-    K2's ``resident`` backward) on the variant it took before."""
+    K3's ``persistent`` dgrad) on the variant it took before; a K2
+    backward whose variant the parent lacks (``K2_BWD_LATER``) on its
+    two-pass entry point, called as its wrapper of the time called it."""
     import ctypes
     from pathlib import Path
 
@@ -765,13 +794,15 @@ def parent_kernels(csrc: str) -> dict:
             raise RuntimeError(f"parent K3 launch failed ({rc})")
         return y
 
-    mods = {"elastic_matmul": em, "flash_attention": fa}
+    mods = {"elastic_matmul": em, "flash_attention": fa,
+            "expert_matmul": xm}
     older = []       # (module, attribute, key) of the choices to route
     fns = {}
     for name, (launcher, attr, before) in LATER_VARIANTS.items():
         if not hasattr(libs[name], launcher):
-            def choose(*a, _orig=getattr(mods[name], attr), _before=before):
-                v = _orig(*a)
+            def choose(*a, _orig=getattr(mods[name], attr), _before=before,
+                       **kw):
+                v = _orig(*a, **kw)
                 return _before.get(v, v)
             older.append((mods[name], attr, name))
             fns[name] = choose
@@ -789,8 +820,9 @@ def parent_kernels(csrc: str) -> dict:
                       if a.dtype == torch.bfloat16 else None)
         return call
     for name, mod, skip in (("elastic_matmul", em, K1_BWD_TMA),
-                            ("flash_attention", fa, (K2_DECODE_LEN,))):
-        skip = (*skip, LATER_VARIANTS[name][0])
+                            ("flash_attention", fa,
+                             (K2_DECODE_LEN, *K2_BWD_LATER.values()))):
+        skip = (*skip, *later_launchers(name))
         if not exports_all(name, mod, skip):
             raise RuntimeError(f"parent {name} lacks a launcher of "
                                f"{sorted(set(mod._ARGTYPES) - set(skip))}")
@@ -828,9 +860,44 @@ def parent_kernels(csrc: str) -> dict:
             if rc != 0:
                 raise RuntimeError(f"parent K2 decode launch failed ({rc})")
             return o
-    return {"k1": ops.elastic_matmul_op, "k2": k2,
+    k2_bwd = k2_bwd_kernel
+    lacks = {v for v, fn in K2_BWD_LATER.items()
+             if not hasattr(libs["flash_attention"], fn)}
+    if lacks:
+        f_bwd = libs["flash_attention"].repro_flash_attention_bwd
+        f_bwd.argtypes = fa._ARGTYPES["repro_flash_attention_bwd"]
+        f_bwd.restype = ctypes.c_int
+
+        def k2_bwd(q, k, v, o, lse, do, causal=False):
+            """The parent's K2 backward: a call on a variant it lacks
+            on its two-pass entry point (mma.sync in bf16: a delta
+            launch, then dK/dV and dQ), anything else through this
+            tree's wrapper."""
+            B, S, H, D = q.shape
+            T, KH = k.shape[1], k.shape[2]
+            if fa.choose_bwd_variant(S, T, D, q.dtype, causal) not in lacks:
+                return k2_bwd_kernel(q, k, v, o, lse, do, causal)
+            q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty((B, H, S), dtype=torch.float32,
+                                device=q.device)
+            st = (ctypes.c_longlong * 24)(
+                *(x for t in (q, k, v, o, do, dq, dk, dv)
+                  for x in t.stride()[:3]))
+            rc = f_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), B, H, KH, S, T, D, st,
+                       1.0 / math.sqrt(D), int(causal),
+                       fa.DTYPE_CODES[q.dtype],
+                       torch.cuda.current_stream(q.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K2 backward launch failed ({rc})")
+            return dq, dk, dv
+    return {"k1": ops.elastic_matmul_op, "k2": k2, "k2_bwd": k2_bwd,
             "k3": ops.expert_matmul_op
-            if exports_all("expert_matmul", xm) else k3,
+            if exports_all("expert_matmul", xm,
+                           later_launchers("expert_matmul")) else k3,
             "k1_dgrad": em.elastic_matmul_dgrad if k1_tma_bwd
             else wmma_route(em.elastic_matmul_dgrad),
             "k1_wgrad": em.elastic_matmul_wgrad if k1_tma_bwd
@@ -1970,8 +2037,8 @@ def train_phases(dev, parent) -> dict:
         ("elastic_matmul_wgrad", "tma"),
         ("flash_attention_bwd", "resident")})
     # every bf16 K2 backward of the sandwich step (S = T = 197) on resident
-    if out["variants"]["flash_attention_bwd"]["mma"]:
-        raise AssertionError(f"K2 backward calls took mma: "
+    if out["variants"]["flash_attention_bwd"]["wgmma"]:
+        raise AssertionError(f"K2 backward calls took wgmma: "
                              f"{out['variants']['flash_attention_bwd']}")
     for kern in ("elastic_matmul_dgrad", "elastic_matmul_wgrad",
                  "flash_attention_bwd"):
@@ -2129,7 +2196,7 @@ def train_phases(dev, parent) -> dict:
                "logsumexp vs plain: the recorded step's call (S = T = 197, "
                "D = 64) as recorded and with dO at unit rms, and random "
                "cases, T not a multiple of the 64-key tile, GQA, resident "
-               "and mma; the recorded call bit for bit twice and under "
+               "and wgmma; the recorded call bit for bit twice and under "
                "graph replay")
     gen = torch.Generator().manual_seed(17)
 
@@ -2149,7 +2216,7 @@ def train_phases(dev, parent) -> dict:
     # GQA R = 3 and 2, one key (P = 1, so dQ and dK are 0: round-off of 0
     # is held below) and one query (the decode forward keeps no
     # logsumexp, training runs no S = 1: the backward reads the plain
-    # forward's o and logsumexp there); mma past 256 queries and keys
+    # forward's o and logsumexp there); wgmma past 256 queries and keys
     # (GQA R = 2)
     for Bq, S_, T_, H_, KH in ((8, 197, 197, 6, 6), (8, 197, 100, 6, 2),
                                (4, 65, 77, 4, 4), (4, 40, 50, 4, 4),
@@ -2179,7 +2246,7 @@ def train_phases(dev, parent) -> dict:
                     if c != was[n]]
             want_v = ("fma_f32" if dt == torch.float32 else "resident"
                       if max(q.shape[1], k.shape[1]) <= fa.RESIDENT_MAX
-                      else "mma")
+                      else "wgmma")
             if took != [want_v]:
                 raise AssertionError(f"K2 backward {name} {dt}: took "
                                      f"{took}, not {want_v}")
@@ -2350,7 +2417,7 @@ def train_phases(dev, parent) -> dict:
     out["k2_bwd"] = time_rows(
         "K2 backward, sandwich step", expand(rec["k2_bwd"]), k2_bwd_kernel,
         k2_bwd_plain, SdpaBackward(), "sdpa backward", k2_bwd_work,
-        (k2_bwd_kernel, parent["libs"]) if parent else None, mode=nograd)
+        par("k2_bwd"), mode=nograd)
     del rec, params
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     return out
@@ -3896,8 +3963,8 @@ LM_TRAIN_VARIANTS = {("elastic_matmul", "tma"),
                      ("flash_attention", "mma"), ("expert_matmul", "tma"),
                      ("elastic_matmul_dgrad", "tma"),
                      ("elastic_matmul_wgrad", "tma"),
-                     ("flash_attention_bwd", "mma"),
-                     ("expert_matmul_dgrad", "tma"),
+                     ("flash_attention_bwd", "wgmma"),
+                     ("expert_matmul_dgrad", "persistent"),
                      ("expert_matmul_wgrad", "tma")}
 LM_STEP_GROUPS = (
     ("expert_tma_kernel<1>", "K3 dgrad"), ("expert_dgrad", "K3 dgrad"),
@@ -3930,12 +3997,17 @@ def errs_of(got, want, tol: float) -> tuple:
     return err, err / scale
 
 
+K2_BWD_SIZES = (1, 63, 64, 65, 127, 129, 257, 4095, 4096)
+
+
 def k2_bwd_cases(dev) -> dict:
     """Phase 24 (a), random half: K2's backward against its plain version
     (o and the logsumexp from the plain forward), causal and not, bf16 at
-    D = 64 and 128, fp32 at D = 8, 16 and 64, S = T in (1, 63, 64, 65,
-    257, 4096), GQA R = 2; each comparison one launch on the variant its
-    shape and dtype choose."""
+    D = 64 and 128, fp32 at D = 8, 16 and 64, S = T in K2_BWD_SIZES
+    (ragged against wgmma's 64-query chunks and 128-key tiles), GQA R =
+    2; each comparison one launch on the variant its shape and dtype
+    choose (bf16: resident for non-causal D = 64 at S <= 256, else
+    wgmma)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -3949,8 +4021,8 @@ def k2_bwd_cases(dev) -> dict:
         for D in dims:
             for causal in (False, True):
                 errs, took = [], []
-                for S in (1, 63, 64, 65, 257, 4096):
-                    B, H, KH = (1, 4, 2) if S == 4096 else (2, 4, 2)
+                for S in K2_BWD_SIZES:
+                    B, H, KH = (1, 4, 2) if S >= 4095 else (2, 4, 2)
                     q, do = (torch.randn((B, S, H, D), generator=g,
                                          device=dev).to(dtype)
                              for _ in range(2))
@@ -3962,7 +4034,7 @@ def k2_bwd_cases(dev) -> dict:
                     o = o.to(dtype).contiguous()
                     want_v = ("fma_f32" if dtype == torch.float32 else
                               "resident" if not causal and D == 64
-                              and S <= fa.RESIDENT_MAX else "mma")
+                              and S <= fa.RESIDENT_MAX else "wgmma")
                     before = ops.launch_counts()["flash_attention_bwd"]
                     was = fa.bwd_variant_launches[want_v]
                     got = fa.flash_attention_bwd(q, k, v, o, lse, do,
@@ -3981,7 +4053,7 @@ def k2_bwd_cases(dev) -> dict:
                     del q, k, v, o, lse, do, got, want
                 worst[(dt, D, causal)] = tuple(map(max, zip(*errs)))
                 log(f"  K2 backward {dt:8s} D={D:3d} causal={causal!s:5s} "
-                    f"S = T in (1, 63, 64, 65, 257, 4096), GQA R = 2: "
+                    f"S = T in {K2_BWD_SIZES}, GQA R = 2: "
                     f"{', '.join(f'{e[1]:.3g}' for e in errs)} of the "
                     f"largest gradient (tol {tol}) on "
                     f"{', '.join(took)}")
@@ -3996,7 +4068,8 @@ def k3_bwd_cases(dev) -> dict:
     count; the expert width (a_ff) and count (slice_e) as strided views
     of the full weights; the dense oracle's stride-0 expert axis.  dgrad
     exact zeros past the counts, a dead expert's dw exactly 0; each
-    comparison one launch on the variant it should take."""
+    comparison one launch on the variant it should take (bf16: dgrad on
+    persistent, wgrad on tma, tile_bf16 for the stride-0 expert axis)."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -4042,9 +4115,10 @@ def k3_bwd_cases(dev) -> dict:
                          w),
                         ("wgrad", xm.expert_matmul_wgrad, (x, dy, counts),
                          x)):
-                    want_v = xm.bwd_variant_of(a, dy)
+                    want_v = xm.bwd_variant_of(a, dy, kind)
                     if dtype == torch.bfloat16 and want_v != (
-                            "tile_bf16" if a.stride(0) == 0 else "tma"):
+                            "tile_bf16" if a.stride(0) == 0 else
+                            "persistent" if kind == "dgrad" else "tma"):
                         raise AssertionError(f"K3 {kind} {label}: chose "
                                              f"{want_v}")
                     name = f"expert_matmul_{kind}"
@@ -4113,6 +4187,12 @@ def k3_wgrad_work(args, kw) -> tuple:
             2 * rows * K * F_, peak)
 
 
+def k3_dgrad_group(args, kw) -> str:
+    """A K3 dgrad call's dx width and dy's, for the breakdown."""
+    _, w, _ = args
+    return f"dx width {w.shape[1]}, dy width {w.shape[2]}"
+
+
 def k3_dgrad_library(dy, w, c):
     """The yardstick: one torch.bmm over the slabs (the port never calls
     it; it reads every row, live or not)."""
@@ -4151,8 +4231,9 @@ def lm_train_setup(dev):
 
 def lm_record(cfg, params, dev) -> dict:
     """Phase 24's recording: one microbatch (4 x 4096) of the train_4k
-    step, its loss and backward (no update), every K3 dgrad and wgrad and
-    K2 backward call kept by signature, with the counts as routed."""
+    step, its loss and backward (no update), every K3 forward, dgrad and
+    wgrad and K2 forward (remat's recompute included) and backward call
+    kept by signature, with the counts as routed."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -4160,13 +4241,16 @@ def lm_record(cfg, params, dev) -> dict:
     from repro_torch.launch.steps import make_lm_train_step
     from repro_torch.optim.api import pop_grads
     B = 256 // LM_TRAIN_ACCUM
-    rec = {k: {} for k in ("x_dgrad", "x_wgrad", "k2_bwd")}
+    rec = {k: {} for k in ("x_dgrad", "x_wgrad", "k2_bwd", "x_fwd",
+                           "k2_fwd")}
     sink = keep_calls(rec)
     step = make_lm_train_step(cfg, lambda p, g, o, s: (p, o), accum=1)
     mb = lm_train_batch(B, 4096, cfg.vocab_size, dev)
     with recording([(xm, "expert_matmul_dgrad", "x_dgrad"),
                     (xm, "expert_matmul_wgrad", "x_wgrad"),
-                    (fa, "flash_attention_bwd", "k2_bwd")], sink):
+                    (fa, "flash_attention_bwd", "k2_bwd"),
+                    (xm, "expert_matmul", "x_fwd"),
+                    (fa, "flash_attention", "k2_fwd")], sink):
         _, _, m = step(params, None, mb, 0)
         torch.cuda.synchronize()
     pop_grads(params)
@@ -4183,8 +4267,8 @@ def lm_recorded_checks(rec: dict) -> dict:
     backward (the kernel at the recorded shape, its first sequence held
     against the plain version on that sequence: the plain scores of all
     four are 4 GiB each) and K3's dgrad and wgrad (dgrad exact zeros past
-    the counts; wgrad the same bits twice and under 3 CUDA-graph
-    replays); one launch per comparison, each on tma or mma."""
+    the counts); each call the same bits twice and under 3 CUDA-graph
+    replays; one launch per comparison, on wgmma, persistent or tma."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -4230,15 +4314,24 @@ def lm_recorded_checks(rec: dict) -> dict:
             ran = ops.launch_counts()[name] - before
             took = {v: c_ - was[v] for v, c_ in
                     ops.variant_counts()[name].items() if c_ != was[v]}
-            want_v = "mma" if key == "k2_bwd" else "tma"
+            want_v = {"k2_bwd": "wgmma", "x_dgrad": "persistent",
+                      "x_wgrad": "tma"}[key]
             if ran != 1 or took != {want_v: 1}:
                 raise AssertionError(f"{name} {what}: launches {took}")
-            if key == "x_wgrad":
-                repeatable(lambda args=args: xm.expert_matmul_wgrad(*args),
-                           got, 0.0, f"K3 wgrad {what}")
+            was = ops.variant_counts()[name][want_v]
+            if key == "k2_bwd":
+                repeatable(lambda args=args, kw=kw: fa.flash_attention_bwd(
+                    *args, **kw), got, 0.0, f"K2 backward {what}")
+            else:
+                repeatable(lambda args=args, fn=fn: fn(*args), got, 0.0,
+                           f"K3 {key[2:]} {what}")
+            # two eager calls and one capture, each on the new variant
+            if ops.variant_counts()[name][want_v] - was != 3:
+                raise AssertionError(f"{name} {what}: the repeats left "
+                                     f"{want_v}")
             log(f"  {name} {what} (x{n} in the microbatch): {err[1]:.3g} of "
                 f"the largest (tol {tol}), max abs err {err[0]:.3g}, on "
-                f"{want_v}")
+                f"{want_v}; the same bits twice and under 3 graph replays")
             worst = tuple(map(max, zip(worst, err)))
             del got, want
         out[name] = worst
@@ -4363,9 +4456,27 @@ def lm_profile(step_ms: float, dev) -> dict:
     return out
 
 
-def lm_train_phases(dev) -> dict:
+def k2_fwd_lse(q, k, v, causal=True, return_lse=True):
+    """K2's forward with the logsumexp, as training launches it."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention(q, k, v, causal=causal, return_lse=return_lse)
+
+
+def k2_fwd_lse_plain(q, k, v, causal=True, return_lse=True):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_plain(q, k, v, causal=causal,
+                                    return_lse=return_lse)
+
+
+def k2_fwd_lse_library(q, k, v, causal=True, return_lse=True):
+    """The yardstick: SDPA's forward (it keeps its own logsumexp)."""
+    return k2_library(q, k, v, causal=causal)
+
+
+def lm_train_phases(dev, parent) -> dict:
     """Phase 24: the MoE LM trained at full width (cut depth) on the
-    card.  Returns what the kernels' record needs."""
+    card.  Returns what the kernels' record needs.  ``parent``: the parent
+    commit's kernels to time beside ours in (e), or None."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -4388,25 +4499,55 @@ def lm_train_phases(dev) -> dict:
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = phase("24. (a), (b) at every distinct call of one recorded train_4k "
                "microbatch (4 x 4096, bf16, the cut full-width config), "
-               "then (e) their graph-replayed device time over it")
+               "then (e) their graph-replayed device time over it"
+               + (", the parent's kernels in turns" if parent else ""))
     _, cfg, params, _ = lm_train_setup(dev)
     rec = lm_record(cfg, params, dev)
     out["recorded"] = lm_recorded_checks(rec)
+
+    def par(fn):        # this tree's wrapper on the parent's libraries
+        return parent and (fn, parent["libs"])
     out["rows"] = {
         "k3_dgrad": time_rows("K3 dgrad, train_4k microbatch",
                               expand(rec["x_dgrad"]), xm.expert_matmul_dgrad,
                               xm.expert_matmul_dgrad_plain,
                               k3_dgrad_library, "torch.bmm", k3_dgrad_work,
-                              mode=nograd),
+                              par(xm.expert_matmul_dgrad),
+                              group=k3_dgrad_group, mode=nograd),
         "k3_wgrad": time_rows("K3 wgrad, train_4k microbatch",
                               expand(rec["x_wgrad"]), xm.expert_matmul_wgrad,
                               xm.expert_matmul_wgrad_plain,
                               k3_wgrad_library, "torch.bmm", k3_wgrad_work,
-                              mode=nograd),
+                              par(xm.expert_matmul_wgrad), mode=nograd),
         "k2_bwd": time_rows("K2 backward (causal, D 128), train_4k "
                             "microbatch", expand(rec["k2_bwd"]),
                             k2_bwd_kernel, k2_bwd_plain, SdpaBackward(),
-                            "sdpa backward", k2_bwd_work, mode=nograd)}
+                            "sdpa backward", k2_bwd_work,
+                            parent and (parent["k2_bwd"], parent["libs"]),
+                            mode=nograd),
+        "k3_fwd": time_rows("K3 forward, train_4k microbatch",
+                            expand(rec["x_fwd"]), xm.expert_matmul,
+                            xm.expert_matmul_plain,
+                            lambda x, w, c: torch.bmm(x, w), "torch.bmm",
+                            k3_work, par(xm.expert_matmul), mode=nograd),
+        "k2_fwd": time_rows("K2 forward (causal, D 128, with the "
+                            "logsumexp), train_4k microbatch",
+                            expand(rec["k2_fwd"]), k2_fwd_lse,
+                            k2_fwd_lse_plain, k2_fwd_lse_library, "sdpa",
+                            k2_work, par(k2_fwd_lse), mode=nograd)}
+    # the dgrad at dx widths that are not a multiple of its 256-column
+    # items: the recorded down projection's calls with w cut to the a_ff
+    # slices 0.75 and 0.5 (a view, as the sliced model reads it)
+    sliced = [((dy, w[:, :round(w.shape[1] * f)], c), kw)
+              for (dy, w, c), kw in expand(rec["x_dgrad"])
+              if w.shape[1] < w.shape[2] for f in (0.75, 0.5)]
+    out["rows"]["k3_dgrad_sliced"] = time_rows(
+        "K3 dgrad, train_4k down projection at a_ff 0.75 and 0.5", sliced,
+        xm.expert_matmul_dgrad, xm.expert_matmul_dgrad_plain,
+        k3_dgrad_library, "torch.bmm", k3_dgrad_work,
+        par(xm.expert_matmul_dgrad), group=k3_dgrad_group, mode=nograd)
+    out["row_launches"] = {k: sum(n for *_, n in v.values())
+                           for k, v in rec.items()}
     del rec, params
     torch.cuda.empty_cache()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -4435,7 +4576,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-csrc", default=None, help=(
         "a parent commit's src/repro_torch/kernels/csrc: its kernels are "
-        "built too and timed beside these in phases 7, 13, 14 and 19"))
+        "built too and timed beside these in phases 7, 13, 14, 19 and 24"))
     cli = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4772,7 +4913,7 @@ def main() -> int:
                       x, cfg, dims)
     cv = conv_phases(dev, randn)
     df = diffusion_phases(dev)
-    lt = lm_train_phases(dev)
+    lt = lm_train_phases(dev, parent)
     lt_n, lt_v = lt["run"]["launches"], lt["run"]["variants"]
 
     def conv_recorded(name: str) -> dict:
@@ -4884,7 +5025,7 @@ def main() -> int:
              dit_step=df["rows"]["dit"]["k2"],
              unet_step=df["rows"]["unet"]["k2"],
              unet_cross=df["rows"]["unet"]["k2x"],
-             gen=df["sample"]),
+             gen=df["sample"], lm_step=lt["rows"]["k2_fwd"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
@@ -4898,7 +5039,8 @@ def main() -> int:
                   "lm_train": lt_v["expert_matmul"]},
               "max_abs_err": lm["k3_err"]}, **row_keys(lm["k3_prefill"]),
              timing=timing, lm_prefill=lm["k3_prefill"],
-             lm_decode=lm["k3_decode"], kept_share=lm["kept"]),
+             lm_decode=lm["k3_decode"], kept_share=lm["kept"],
+             lm_step=lt["rows"]["k3_fwd"]),
     ]}
     for name, src, replaces, row, err, conv in (
             ("elastic_matmul_dgrad", "elastic_matmul.cu",
@@ -4990,7 +5132,9 @@ def main() -> int:
              "launches_by_variant": {"lm_train": lt_v[name]},
              "max_abs_err": max(e[0] for e in errs),
              "err_of_largest": max(e[1] for e in errs)},
-            **row_keys(row), timing=timing, lm_step=row))
+            **row_keys(row), timing=timing, lm_step=row,
+            **({"lm_sliced": lt["rows"]["k3_dgrad_sliced"]}
+               if kind == "dgrad" else {})))
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
         "lut_spread_ms", "served_err", "seconds")}))
@@ -5023,6 +5167,13 @@ def main() -> int:
                      lt["k2_cases"].items()},
         "k3_cases": {" ".join(k): e for k, e in lt["k3_cases"].items()},
         "recorded": lt["recorded"],
+        "variants": {k: {v: n for v, n in lt_v[k].items() if n}
+                     for k in ("flash_attention_bwd", "expert_matmul_dgrad",
+                               "expert_matmul_wgrad")},
+        "microbatch_ms": {k: {kk: r.get(kk) for kk in (
+            "ms", "parent_ms", "library_ms", "bound_ms")}
+            for k, r in lt["rows"].items()},
+        "microbatch_calls": lt["row_launches"],
         **{k: lt["run"][k] for k in ("params", "step_ms", "step_ms_all",
                                      "losses", "tokens_per_s", "peak_gib",
                                      "peak_run_gib")}}))

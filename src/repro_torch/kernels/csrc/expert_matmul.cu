@@ -78,11 +78,21 @@
 // What bounds them at the LM's train_4k microbatch (C = 1920 slab rows,
 // ~64% of the routed slots kept, d 2048, expert width 1408) is operations:
 // ~2 * 1230 * 2048 * 1408 flops an expert against its 5.8 MB of weights,
-// ~1230 flops a weight byte, over the bf16 ridge.  So both run on the tma
-// ring: dgrad is expert_tma_kernel<X_DGRAD> (below), the forward's
-// grouped GEMM with dy as A and w read along its rows as a K-major B, so
-// a strided a_ff or slice_e view of w is read in place through the same
-// 3-D map; wgrad (expert_wgrad_tma_kernel) gives a block one 128 x 128
+// ~1230 flops a weight byte, over the bf16 ridge.  dgrad runs on the
+// persistent variant (expert_dgrad_persistent, below): one block an SM
+// walks a list of the live (expert, 128-row tile, 256-column tile) items
+// that every block scans from the device counts in its prologue (no host
+// sync), the producer keeping the ring full across items, the consumers
+// staging each tile as bf16 in shared memory for a TMA store, and the
+// producer warp writing the dead rows' zeros once its loads are issued.
+// Its predecessor, expert_tma_kernel<X_DGRAD> (the forward's grouped GEMM
+// with dy as A and w read along its rows as a K-major B; a 128 x 128 tile
+// a block, half the blocks past the counts), takes what the persistent
+// kernel does not (dx rows TMA cannot store, more than 512 experts).  Both
+// read a strided a_ff or slice_e view of w in place through the same 3-D
+// map.  The persistent kernel's 2-block clusters multicasting the w tile
+// measured slower (PERF.md); so did 128-column items.  wgrad
+// (expert_wgrad_tma_kernel) gives a block one 128 x 128
 // tile of an expert's (K, F) gradient and reduces over that expert's live
 // rows, x and dy both MN-major (K1's wgrad layout), no split and so no
 // reduce: deterministic, graph-safe.  The last 64-row box of a ragged
@@ -91,9 +101,9 @@
 // reach the sum.  fp32 and strides TMA cannot take (the dense oracle's
 // stride-0 expert axis) go to a 64x64 FMA tile loop over any strides.
 //
-// Later work: a persistent schedule for tma that balances the ragged
-// experts (0 to 240 rows) across the SMs, one tile's epilogue overlapping
-// the next tile's loads.
+// Later work: the forward's tma on the persistent schedule (ragged experts
+// of 0 to 240 rows at prefill, one tile's epilogue overlapping the next
+// tile's loads).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -486,6 +496,229 @@ expert_wgrad_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   store_acc<X_BN>(d, dwe, F, tid % 128, i0 + 64 * wg, j0, K, K, F, F);
 }
 
+// ------------------------------------------------- dgrad: persistent ----
+
+constexpr int P_BM = 128;        // rows an item: 64 a consumer warpgroup
+constexpr int P_BN = 256;        // columns an item (128 measured slower)
+constexpr int P_E_MAX = 512;     // experts the prologue's scan takes
+
+// The persistent dgrad's shared memory at BN output columns an item: the
+// ring (as many BK = 64 stages of A = dy and B = w as fit), each
+// warpgroup's 64 x BN output tile for the TMA store, the mbarriers, and
+// three int arrays of P_E_MAX + 1 (the scan: live items and dead rows
+// before each expert, the clamped counts).
+template <int BN>
+struct PersistTile {
+  static constexpr int A_BYTES = P_BM * G_BK * 2;
+  static constexpr int B_BYTES = BN * G_BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int OUT_BYTES = P_BM * BN * 2;
+  static constexpr int SCAN_BYTES = 3 * 4 * (P_E_MAX + 1);
+  static constexpr int FREE =
+      232448 - 1024 - OUT_BYTES - SCAN_BYTES - 2 * 8 * 8;
+  static constexpr int STAGES =
+      FREE / STAGE_BYTES < 8 ? FREE / STAGE_BYTES : 8;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES +
+                                 OUT_BYTES + 2 * 8 * STAGES + SCAN_BYTES;
+};
+
+// the last e in [0, E] with pre[e] <= i (pre non-decreasing, pre[0] = 0)
+__device__ __forceinline__ int scan_find(const int* pre, int E, int i) {
+  int lo = 0, hi = E;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (pre[mid] <= i) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// dx[e, c, k] = sum_f dy[e, c, f] w[e, k, f] for c < counts[e], exact
+// zeros past it, as a persistent kernel: gridDim.x blocks (at most one an
+// SM) walk one list of live items -- (expert, 128-row tile, BN-column
+// tile), the row tiles of an expert's column tile consecutive, so blocks
+// that run together share its w tile in L2 -- block b taking items b,
+// b + gridDim.x, ...  The list is the counts' scan, made by every block in
+// its prologue (no host sync: graph-safe).  The producer thread keeps the
+// ring full across items; each consumer warpgroup runs its 64 rows on
+// wgmma m64nBNk16 (both operands K-major), then stages its tile in shared
+// memory as bf16 (rows past the count as zeros) and stores it by TMA,
+// while the producer already loads the next item's stages.  Once
+// its loads are issued, the producer warp writes the dead rows -- from
+// the count rounded up to 128 to C -- of the block's share, so every row
+// of dx is written.
+template <int BN>
+__global__ void __launch_bounds__(XTile::THREADS, 1)
+expert_dgrad_persistent(const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_w,
+                        const __grid_constant__ CUtensorMap map_dx,
+                        __nv_bfloat16* __restrict__ dx,
+                        const int* __restrict__ counts, int E, int C, int K,
+                        int F) {
+  using P = PersistTile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* out = smem + P::STAGES * P::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + P::OUT_BYTES);
+  uint64_t* empty = full + P::STAGES;
+  int* items = reinterpret_cast<int*>(empty + P::STAGES);   // [E + 1]
+  int* dead = items + (P_E_MAX + 1);                         // [E + 1]
+  int* cnts = dead + (P_E_MAX + 1);                          // [E]
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int n_nt = (K + BN - 1) / BN;
+  const int n_k = (F + G_BK - 1) / G_BK;
+
+  if (tid < 32) {           // the scan, 32 experts a round
+    int carry_i = 0, carry_d = 0;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      const int cnt = e < E ? min(max(counts[e], 0), C) : 0;
+      const int mt = (cnt + P_BM - 1) / P_BM;
+      int vi = mt * n_nt, vd = e < E ? C - min(mt * P_BM, C) : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int ti = __shfl_up_sync(0xffffffffu, vi, o);
+        const int td = __shfl_up_sync(0xffffffffu, vd, o);
+        if (lane >= o) {
+          vi += ti;
+          vd += td;
+        }
+      }
+      if (e < E) {
+        cnts[e] = cnt;
+        items[e + 1] = carry_i + vi;
+        dead[e + 1] = carry_d + vd;
+      }
+      carry_i += __shfl_sync(0xffffffffu, vi, 31);
+      carry_d += __shfl_sync(0xffffffffu, vd, 31);
+    }
+    if (lane == 0) items[0] = dead[0] = 0;
+  }
+  if (tid == 32) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_async_smem();
+  }
+  __syncthreads();
+  const int n_items = items[E], n_dead = dead[E];
+
+  // item i: its expert, first row and column, and the expert's count
+  auto item = [&](int i, int& e, int& m0, int& n0, int& cnt) {
+    e = scan_find(items, E, i);
+    cnt = cnts[e];
+    const int n_mt = (cnt + P_BM - 1) / P_BM;
+    const int l = i - items[e];
+    m0 = (l % n_mt) * P_BM;
+    n0 = (l / n_mt) * BN;
+  };
+
+  const int wg = tid / 128;
+  if (wg == X_CWG) {                      // the producer warp
+    if (lane == 0) {
+      int g = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        int e, m0, n0, cnt;
+        item(i, e, m0, n0, cnt);
+        const int n_sub = min((cnt - m0 + 63) / 64, X_CWG);
+        for (int kt = 0; kt < n_k; ++kt, ++g) {
+          const int s = g % P::STAGES;
+          mbar_wait(&empty[s], ((g / P::STAGES) & 1) ^ 1);
+          unsigned char* a = smem + s * P::STAGE_BYTES;
+          unsigned char* b = a + P::A_BYTES;
+          mbar_expect_tx(&full[s], n_sub * 8192 + P::B_BYTES);
+          for (int sub = 0; sub < n_sub; ++sub)
+            tma_load_3d(a + sub * 8192, &map_dy, &full[s], kt * G_BK,
+                        m0 + 64 * sub, e);
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)    // 64 output columns' rows
+            tma_load_3d(b + h * 8192, &map_w, &full[s], kt * G_BK,
+                        n0 + 64 * h, e);
+        }
+      }
+    }
+    __syncwarp();
+    // the dead rows of this block's share, 16 bytes a lane (K % 8 == 0)
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int r = blockIdx.x; r < n_dead; r += gridDim.x) {
+      const int e = scan_find(dead, E, r);
+      const int row = min((cnts[e] + P_BM - 1) / P_BM * P_BM, C) +
+                      (r - dead[e]);
+      uint4* p = reinterpret_cast<uint4*>(dx + ((size_t)e * C + row) * K);
+      for (int c = lane; c < K / 8; c += 32) p[c] = z;
+    }
+    return;
+  }
+
+  const int t = tid % 128;
+  unsigned char* o_wg = out + wg * (64 * BN * 2);     // BN / 64 boxes
+  const int r_base = 16 * (t / 32) + (t % 32) / 4;
+  float d[BN / 2];
+  int g = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+    int e, m0, n0, cnt;
+    item(i, e, m0, n0, cnt);
+    // a warpgroup whose rows are all past the count runs the products too
+    // (on whatever its A slot holds: the epilogue stores zeros there), so
+    // no branch divides the warpgroups around wgmma
+#pragma unroll
+    for (int x = 0; x < BN / 2; ++x) d[x] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt, ++g) {
+      const int s = g % P::STAGES;
+      mbar_wait(&full[s], (g / P::STAGES) & 1);
+      const uint32_t a = smem_u32(smem + s * P::STAGE_BYTES) + wg * 8192;
+      const uint32_t b = smem_u32(smem + s * P::STAGE_BYTES + P::A_BYTES);
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < G_BK / 16; ++ks)       // both K-major
+        wgmma_step<BN, 0, 0>(d, gmma_desc(a + ks * 32, 16, 1024),
+                             gmma_desc(b + ks * 32, 16, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(d);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(g - 1) % P::STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(d);
+    if (lane == 0) mbar_arrive(&empty[(g - 1) % P::STAGES]);
+    // the epilogue: once the last item's store has read the tile, this
+    // warpgroup's rows as bf16 (zeros past the count) into its swizzled
+    // boxes, then one TMA store per box (rows past C are not written)
+    if (t == 0) bulk_wait_read();
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = r_base + 8 * ii;
+        const bool ok = m0 + 64 * wg + r < cnt;
+        const int ch = j % 8;
+        *reinterpret_cast<__nv_bfloat162*>(
+            o_wg + (j / 8) * 8192 + r * 128 + ((ch ^ (r & 7)) << 4) +
+            4 * (t % 4)) =
+            __floats2bfloat162_rn(ok ? d[4 * j + 2 * ii] : 0.f,
+                                  ok ? d[4 * j + 2 * ii + 1] : 0.f);
+      }
+    }
+    fence_async_smem();
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (t == 0 && m0 + 64 * wg < C) {
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h)
+        if (n0 + 64 * h < K)
+          tma_store_3d(&map_dx, o_wg + h * 8192, n0 + 64 * h, m0 + 64 * wg,
+                       e);
+      bulk_commit();
+    }
+    __syncwarp();
+  }
+  if (t == 0) bulk_wait();
+}
+
 // once per kernel and process (the port drives one card)
 template <typename Kern>
 cudaError_t smem_attr(Kern kern) {
@@ -542,6 +775,23 @@ int launch_dgrad_tma(const void* dy, const void* w, void* dx,
   const dim3 grid((C + G::BM - 1) / G::BM, (K + X_BN - 1) / X_BN, E);
   expert_tma_kernel<X_DGRAD><<<grid, G::THREADS, G::SMEM, s>>>(
       map_dy, map_w, static_cast<__nv_bfloat16*>(dx), counts, C, F, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int launch_dgrad_persistent(const CUtensorMap& map_dy,
+                            const CUtensorMap& map_w,
+                            const CUtensorMap& map_dx, void* dx,
+                            const int* counts, int E, int C, int K, int F,
+                            int grid, cudaStream_t s) {
+  constexpr size_t bytes = PersistTile<BN>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      expert_dgrad_persistent<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  expert_dgrad_persistent<BN><<<grid, XTile::THREADS, bytes, s>>>(
+      map_dy, map_w, map_dx, static_cast<__nv_bfloat16*>(dx), counts, E, C,
+      K, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -751,6 +1001,30 @@ extern "C" int repro_expert_matmul_dgrad_tma(const void* dy, const void* w,
                                              void* stream) {
   return launch_dgrad_tma(dy, w, dx, static_cast<const int*>(counts), E, C,
                           K, F, w_se, w_sk, static_cast<cudaStream_t>(stream));
+}
+
+// The persistent dgrad (bf16; as the tma dgrad, and K a multiple of 8
+// (dx is stored by TMA), E <= 512): `grid` blocks, at most one an SM,
+// over items of 128 rows x 256 columns.  Returns as above; -1 for an
+// unsupported shape or grid.
+extern "C" int repro_expert_matmul_dgrad_persistent(
+    const void* dy, const void* w, void* dx, const void* counts, int E,
+    int C, int K, int F, long long w_se, int w_sk, int grid, void* stream) {
+  if (E < 1 || E > P_E_MAX || C < 1 || K < 1 || F < 1 || K % 8 || grid < 1)
+    return -1;
+  CUtensorMap map_dy, map_w, map_dx;
+  const cuuint64_t w_dims[3] = {(cuuint64_t)F, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)w_sk * 2,
+                                   (cuuint64_t)w_se * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  if (!encode_slab_map(&map_dy, dy, E, C, F) ||
+      !encode_bf16_map(&map_w, w, 3, w_dims, w_strides, box) ||
+      !encode_slab_map(&map_dx, dx, E, C, K))
+    return -2;
+  const int* cn = static_cast<const int*>(counts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch_dgrad_persistent<P_BN>(map_dy, map_w, map_dx, dx, cn, E, C,
+                                       K, F, grid, s);
 }
 
 extern "C" int repro_expert_matmul_wgrad_tma(const void* x, const void* dy,

@@ -779,7 +779,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 
 // ------------------------------------------------------------ backward ----
 //
-// FlashAttention-2's backward, causal or not, D = 64 and (mma) 128.  With
+// FlashAttention's backward, causal or not, D = 64 and (wgmma) 128.  With
 // P = exp(s * scale - lse) from the forward's logsumexp (fp32) and delta =
 // rowsum(dO o O):
 //     dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
@@ -793,9 +793,11 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 // choose_bwd_variant from shapes and strides only:
 //
 // * resident (bf16, D = 64, S and T <= 256, 16-byte-aligned rows: every
-//   call of the sandwich step, S = T = 197).  What the two passes below
-//   cost at these shapes: 7 products where 5 do (S and dP twice), q, dO,
-//   k and v read twice, a delta launch reading o and dO again.  Here one
+//   call of the sandwich step, S = T = 197).  What the two-pass mma.sync
+//   backward it replaced (FlashAttention-2's: a delta launch, then dK/dV
+//   and dQ in separate kernels, each recomputing S and dP) cost at these
+//   shapes: 7 products where 5 do (S and dP twice), q, dO, k and v read
+//   twice, a delta launch reading o and dO again.  Here one
 //   block per (batch, kv head) holds all its keys: K and V stay in shared
 //   memory for the whole pass, and warpgroup wg (of 1 to 4, 64 keys each)
 //   keeps dK and dV of its keys in registers across the R query heads
@@ -823,50 +825,45 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 //   to 256 (wgmma's 64-row M).  An mma.sync version of the same pass
 //   (warps of 16 keys, chunks of 32) measured the same before that step
 //   was rewritten (PERF.md).
-// * mma (every other bf16 call at D = 64: S or T > 256, rows that are not
-//   16-byte aligned, which the wrapper copies first).  Three kernels:
-//   delta (one warp a row), dK/dV (a block per 64-key tile and (batch, kv
-//   head), looping over the R query heads of that kv head and their query
-//   tiles, so GQA's sum over heads stays in registers: deterministic) and
-//   dQ (a block per 64-query tile and (batch, head), looping over the key
-//   tiles: a separate pass, deterministic, no atomics).  Both recompute
-//   S = Q K^T and dP = dO V^T on mma.sync with the forward's fragment
-//   layouts (P and dS rounded to bf16 as A operands from registers, K, Q,
-//   dO and V tiles in padded shared memory, double-buffered by cp.async);
-//   dQ's separate pass costs the recomputation of S and dP again.
-//   Causal (the LM's training, S = T = 4096, D = 128): a key tile's dK/dV
-//   block starts at the query tile holding its first key, a query tile's
-//   dQ block stops at the key tile holding its last query, so the dead
-//   half of the tiles is never visited; the diagonal tile masks j > i.
-//   What bounds it there: operations (the gradient needs 5 products of
-//   2 S T D, halved by the mask: 10.7 GFLOP a head, ~11 us at 989
-//   TFLOP/s against ~2.5 us for its 8.4 MB; these kernels run 7).  At
-//   D = 128, dK and dV (64 registers each a thread) and the S / dP tiles
-//   leave no room for Q's or K's fragments held across the loop (the
-//   forward spilled at 255 registers fully unrolled): each 16-wide step
-//   reads its fragment from shared memory with ldmatrix instead
-//   (mma_rows_t_smem); the shared memory (105.5 KB) is set once per
-//   instantiation.
+// * wgmma (every other bf16 call: causal, D = 128, or S or T > 256; the
+//   LM's training at S = T = 4096, D = 128, causal among them).  What the
+//   two-pass mma.sync backward cost there (4.9 ms a call against a 0.70 ms
+//   bound):
+//   mma.sync at 4 warps, 7 products where 5 do, Q, dO, K and V re-read by
+//   cp.async for every 64-row tile, at D = 128 A fragments re-read from
+//   shared memory each step, and a delta launch.  This is
+//   FlashAttention-3's backward: a block per (128-key tile, batch, kv
+//   head), two consumer warpgroups of 64 keys keeping dK and dV in fp32
+//   registers, a producer warpgroup (setmaxnreg gives the consumers 232
+//   registers a thread; without it ptxas capped the 288- and 384-thread
+//   blocks at 168 and spilled the accumulators) whose warps load Q, dO
+//   and o by TMA into two stages (the logsumexp by plain loads), compute
+//   each chunk's delta from the staged o and dO, and add dQ into an fp32
+//   workspace.  Per chunk of 64 queries: 5 products on wgmma (S^T, dP^T
+//   from shared memory; dV, dK with P and dS as register A operands; dQ =
+//   dS K from dS^T staged in shared memory).  dQ stays deterministic and
+//   graph-safe: the consumers put their share in shared memory, and the
+//   writer warp adds it with one bulk reduction (cp.reduce.async.bulk) in
+//   key-tile order, each (batch, head, chunk) behind an int32 ticket that
+//   key tile n waits to read n; a second kernel casts the workspace into
+//   dq.  First built with the consumers adding dQ themselves from
+//   registers, slower than the two-pass mma.sync backward: that
+//   read-modify-write's loads waited on the stores before them.  Causal:
+//   a key tile starts at the chunk holding its first key (the dead chunks
+//   are never visited) and the blocks of key tile 0 launch first; the
+//   diagonal is masked by selects.  Ragged S and T: TMA's zero fill and
+//   the masks, no copy.  No branch separates a warpgroup's threads around
+//   a wgmma (ptxas then serializes them).
 //
-// fp32 (fma_f32) runs the same three passes on FMAs, causal by the same
-// skips at its 32-row blocks.
+// fp32 (fma_f32) runs on FMAs in three passes: delta (one warp a row),
+// dK/dV (a thread a key, GQA's R heads summed in its registers) and dQ
+// (a thread a query), causal by skipping the dead 32-row blocks.
 
 struct BwdStrides {
   long long q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
 };
 
-constexpr int B_BQ = 64;          // queries a tile
-constexpr int B_BKV = 64;         // keys a tile
-constexpr int B_THREADS = 128;    // 4 warps, 16 rows each
 constexpr int BF_ROWS = 32;       // fp32 kernels: rows a block (one a thread)
-
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  // two single tiles and two double-buffered ones of 64 rows, plus
-  // (dK/dV) two double-buffered vectors of 64 floats
-  return sizeof(__nv_bfloat16) * (D + 8) * (2 * B_BKV + 4 * B_BQ) +
-         sizeof(float) * 4 * B_BQ;
-}
 
 // delta[b, h, s] = sum_d dO[b, s, h, d] o[b, s, h, d] in fp32
 template <typename T>
@@ -888,355 +885,6 @@ flash_attention_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
-}
-
-// A operand fragments (16 rows x D) of rows r0 .. r0 + 15 of a [.][D + 8]
-// bf16 tile, as the forward loads its q fragments
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
-                                             const __nv_bfloat16* tile,
-                                             int r0, int lane) {
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd)
-    ldmatrix_x4(f[kd], tile + (r0 + (lane % 8) + ((lane / 8) % 2) * 8) *
-                                  (D + 8) + kd * 16 + (lane / 16) * 8);
-}
-
-// c[16 x 64] = A (16 x D, fragments) . rows^T, rows the 64 rows of a
-// [.][D + 8] bf16 tile (the forward's S = Q K^T)
-template <int D>
-__device__ __forceinline__ void mma_rows_t(float (&c)[8][4],
-                                           const uint32_t (&a)[D / 16][4],
-                                           const __nv_bfloat16* tile,
-                                           int lane) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, tile + (np * 16 + (lane % 8) + (lane / 16) * 8) * (D + 8)
-                          + kd * 16 + ((lane / 8) % 2) * 8);
-      mma_bf16(c[2 * np], a[kd], bf[0], bf[1]);
-      mma_bf16(c[2 * np + 1], a[kd], bf[2], bf[3]);
-    }
-  }
-}
-
-// the same with A's fragments read from rows r0 .. r0 + 15 of a [.][D + 8]
-// tile one 16-wide step at a time (D = 128: the registers of A's
-// fragments held across the loop would push dK/dV past 255 registers)
-template <int D>
-__device__ __forceinline__ void mma_rows_t_smem(float (&c)[8][4],
-                                                const __nv_bfloat16* a_tile,
-                                                int r0,
-                                                const __nv_bfloat16* tile,
-                                                int lane) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_tile + (r0 + (lane % 8) + ((lane / 8) % 2) * 8) *
-                                (D + 8) + kd * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, tile + (np * 16 + (lane % 8) + (lane / 16) * 8) * (D + 8)
-                          + kd * 16 + ((lane / 8) % 2) * 8);
-      mma_bf16(c[2 * np], a, bf[0], bf[1]);
-      mma_bf16(c[2 * np + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-// c = A . rows^T with A's fragments kept in registers (D <= 64, loaded
-// once) or read from their shared tile a step at a time (D = 128)
-template <int D, int KA>
-__device__ __forceinline__ void mma_rows_t_any(float (&c)[8][4],
-                                               const uint32_t (&a)[KA][4],
-                                               const __nv_bfloat16* a_tile,
-                                               int r0,
-                                               const __nv_bfloat16* tile,
-                                               int lane) {
-  if constexpr (D <= 64) mma_rows_t<D>(c, a, tile, lane);
-  else mma_rows_t_smem<D>(c, a_tile, r0, tile, lane);
-}
-
-// acc[16 x D] += P (16 x 64, accumulator layout, rounded to bf16) . tile,
-// tile 64 rows x D of a [.][D + 8] bf16 tile (the forward's O += P V)
-template <int D>
-__device__ __forceinline__ void mma_p_rows(float (&acc)[D / 8][4],
-                                           const float (&p)[8][4],
-                                           const __nv_bfloat16* tile,
-                                           int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(
-          bf, tile + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * (D + 8)
-                  + dp * 16 + (lane / 16) * 8);
-      mma_bf16(acc[2 * dp], pa, bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// 64 rows of a (b, seq, head) strided bf16 tensor into a [64][D + 8]
-// tile; rows >= n zero-filled (nothing read)
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int r0,
-                                          int n) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += B_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(tile + r * (D + 8) + c,
-               base + (ok ? (long long)(r0 + r) * row_stride : 0LL) + c, ok);
-  }
-}
-
-// dK and dV of keys j0 .. j0 + 63 of kv head (b, kvh); warp w owns keys
-// j0 + 16w .. + 15 and keeps its dK, dV rows in registers.
-template <int D>
-__global__ void __launch_bounds__(B_THREADS)
-flash_attention_bwd_dkdv(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dO,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int KH, int S,
-                         int T_len, BwdStrides st, float scale, int causal) {
-  constexpr int LDS = D + 8, ND = D / 8;
-  constexpr int KD = D <= 64 ? D / 16 : 1;   // fragments held (D <= 64)
-  extern __shared__ __align__(128) unsigned char bw_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(bw_smem);
-  __nv_bfloat16* Vs = Ks + B_BKV * LDS;
-  __nv_bfloat16* Qs = Vs + B_BKV * LDS;          // [2][B_BQ][LDS]
-  __nv_bfloat16* Gs = Qs + 2 * B_BQ * LDS;       // dO: [2][B_BQ][LDS]
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * B_BQ * LDS);   // [2][B_BQ]
-  float* Dl = Ls + 2 * B_BQ;                                    // [2][B_BQ]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
-  const int R = H / KH;
-  const int j0 = blockIdx.y * B_BKV;
-  const int nq_all = (S + B_BQ - 1) / B_BQ;
-  // causal: query tiles before this key tile see none of its keys
-  const int q_first = causal ? min(j0 / B_BQ, nq_all) : 0;
-  const int nq = nq_all - q_first;
-  const int n_it = R * nq;
-
-  load_rows<D>(Ks, k + b * st.k[0] + kvh * st.k[2] + (long long)j0 * st.k[1],
-               st.k[1], 0, T_len - j0);
-  load_rows<D>(Vs, v + b * st.v[0] + kvh * st.v[2] + (long long)j0 * st.v[1],
-               st.v[1], 0, T_len - j0);
-  auto load_q = [&](int it, int buf) {
-    const int h = kvh * R + it / nq, q0 = (q_first + it % nq) * B_BQ;
-    load_rows<D>(Qs + buf * B_BQ * LDS, q + b * st.q[0] + h * st.q[2],
-                 st.q[1], q0, S);
-    load_rows<D>(Gs + buf * B_BQ * LDS, dO + b * st.dO[0] + h * st.dO[2],
-                 st.dO[1], q0, S);
-    const long long bh = (long long)b * H + h;
-    for (int i = tid; i < B_BQ; i += B_THREADS) {
-      const bool ok = q0 + i < S;
-      Ls[buf * B_BQ + i] = ok ? lse[bh * S + q0 + i] : 0.f;
-      Dl[buf * B_BQ + i] = ok ? delta[bh * S + q0 + i] : 0.f;
-    }
-  };
-  if (n_it > 0) load_q(0, 0);
-  cp_async_commit();
-
-  uint32_t kf[KD][4], vf[KD][4];
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) {
-      load_q(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (D <= 64) {
-      if (it == 0) {
-        load_a_frags<D>(kf, Ks, warp * 16, lane);
-        load_a_frags<D>(vf, Vs, warp * 16, lane);
-      }
-    }
-    const int buf = it & 1, q0 = (q_first + it % nq) * B_BQ;
-    const __nv_bfloat16* Qt = Qs + buf * B_BQ * LDS;
-    const __nv_bfloat16* Gt = Gs + buf * B_BQ * LDS;
-    const float* Lt = Ls + buf * B_BQ;
-    const float* Dt = Dl + buf * B_BQ;
-
-    float p[8][4], dp[8][4];
-    // S^T: 16 keys x 64 queries
-    mma_rows_t_any<D>(p, kf, Ks, warp * 16, Qt, lane);
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + warp * 16 + g + 8 * (e >> 1);
-        const int c = nb * 8 + 2 * t4 + (e & 1);
-        // causal: query q0 + c sees keys j <= q0 + c (the diagonal tile)
-        p[nb][e] = (j < T_len && q0 + c < S && (!causal || j <= q0 + c))
-                       ? __expf(p[nb][e] * scale - Lt[c]) : 0.f;
-      }
-    mma_rows_t_any<D>(dp, vf, Vs, warp * 16, Gt, lane);   // dP^T = V dO^T
-    mma_p_rows<D>(dv_acc, p, Gt, lane);  // dV += P^T dO
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[nb][e] *= dp[nb][e] - Dt[nb * 8 + 2 * t4 + (e & 1)];
-    mma_p_rows<D>(dk_acc, p, Qt, lane);  // dK += dS^T Q
-    __syncthreads();   // this buffer is refilled at the next iteration
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int j = j0 + warp * 16 + g + 8 * i;
-    if (j >= T_len) continue;
-    __nv_bfloat16* kp = dk + b * st.dk[0] + (long long)j * st.dk[1] +
-                        kvh * st.dk[2];
-    __nv_bfloat16* vp = dv + b * st.dv[0] + (long long)j * st.dv[1] +
-                        kvh * st.dv[2];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(kp + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dk_acc[nd][2 * i] * scale,
-                                dk_acc[nd][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vp + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(dv_acc[nd][2 * i], dv_acc[nd][2 * i + 1]);
-    }
-  }
-}
-
-// dQ of queries q0 .. q0 + 63 of head (b, h); warp w owns queries
-// q0 + 16w .. + 15, K and V tiles double-buffered as in the forward.
-template <int D>
-__global__ void __launch_bounds__(B_THREADS)
-flash_attention_bwd_dq(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dO,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dq, int H, int KH, int S,
-                       int T_len, BwdStrides st, float scale, int causal) {
-  constexpr int LDS = D + 8, ND = D / 8;
-  constexpr int KD = D <= 64 ? D / 16 : 1;   // fragments held (D <= 64)
-  extern __shared__ __align__(128) unsigned char bw_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(bw_smem);
-  __nv_bfloat16* Gs = Qs + B_BQ * LDS;           // dO
-  __nv_bfloat16* Ks = Gs + B_BQ * LDS;           // [2][B_BKV][LDS]
-  __nv_bfloat16* Vs = Ks + 2 * B_BKV * LDS;      // [2][B_BKV][LDS]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KH);
-  const int q0 = blockIdx.y * B_BQ;
-  // causal: key tiles past this query tile's last row are dead
-  const int n_kv = causal ? min((T_len + B_BKV - 1) / B_BKV, q0 / B_BKV + 1)
-                          : (T_len + B_BKV - 1) / B_BKV;
-
-  load_rows<D>(Qs, q + b * st.q[0] + h * st.q[2], st.q[1], q0, S);
-  load_rows<D>(Gs, dO + b * st.dO[0] + h * st.dO[2], st.dO[1], q0, S);
-  const __nv_bfloat16* kb = k + b * st.k[0] + kvh * st.k[2];
-  const __nv_bfloat16* vb = v + b * st.v[0] + kvh * st.v[2];
-  auto load_kv = [&](int t, int buf) {
-    load_rows<D>(Ks + buf * B_BKV * LDS, kb, st.k[1], t * B_BKV, T_len);
-    load_rows<D>(Vs + buf * B_BKV * LDS, vb, st.v[1], t * B_BKV, T_len);
-  };
-  if (n_kv > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  float L[2], Dv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    L[i] = row < S ? lse[(long long)bh * S + row] : 0.f;
-    Dv[i] = row < S ? delta[(long long)bh * S + row] : 0.f;
-  }
-  uint32_t qf[KD][4], gf[KD][4];
-  float acc[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-
-  for (int t = 0; t < n_kv; ++t) {
-    if (t + 1 < n_kv) {
-      load_kv(t + 1, (t + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (D <= 64) {
-      if (t == 0) {
-        load_a_frags<D>(qf, Qs, warp * 16, lane);
-        load_a_frags<D>(gf, Gs, warp * 16, lane);
-      }
-    }
-    const __nv_bfloat16* Kt = Ks + (t & 1) * B_BKV * LDS;
-    const __nv_bfloat16* Vt = Vs + (t & 1) * B_BKV * LDS;
-    float p[8][4], dp[8][4];
-    mma_rows_t_any<D>(p, qf, Qs, warp * 16, Kt, lane);    // S = Q K^T
-    mma_rows_t_any<D>(dp, gf, Gs, warp * 16, Vt, lane);   // dP = dO V^T
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = t * B_BKV + nb * 8 + 2 * t4 + (e & 1);
-        const int row = q0 + warp * 16 + g + 8 * (e >> 1);
-        const float pv = (j < T_len && (!causal || j <= row))
-                             ? __expf(p[nb][e] * scale - L[e >> 1]) : 0.f;
-        p[nb][e] = pv * (dp[nb][e] - Dv[e >> 1]);
-      }
-    mma_p_rows<D>(acc, p, Kt, lane);     // dQ += dS K
-    __syncthreads();   // this buffer is refilled at the next iteration
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + warp * 16 + g + 8 * i;
-    if (row >= S) continue;
-    __nv_bfloat16* qp = dq + b * st.dq[0] + (long long)row * st.dq[1] +
-                        h * st.dq[2];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(qp + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[nd][2 * i] * scale,
-                                acc[nd][2 * i + 1] * scale);
-  }
 }
 
 // ----------------------------------------------- backward: resident ----
@@ -1622,6 +1270,521 @@ int launch_bwd_resident(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------- backward: wgmma ----
+
+constexpr int W_KEYS = 128;       // keys a block: 64 a consumer warpgroup
+constexpr int W_BQ = 64;          // queries a chunk (wgmma's M in dQ)
+constexpr int W_STAGES = 2;       // chunks in flight (Q, dO, o, logsumexp)
+constexpr int W_THREADS = 3 * 128;   // 2 consumer warpgroups, a producer's
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 in registers, as wgmma_rs64_mn) *
+// B (16 x 128, shared, MN-major: two 64-column boxes LBO bytes apart)
+__device__ __forceinline__ void wgmma_rs128_mn(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x D) += A (registers) * B (16 x D, shared, MN-major)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (D == 64) wgmma_rs64_mn(d, a, db);
+  else wgmma_rs128_mn(d, a, db);
+}
+
+// Shared memory of the wgmma backward at head dim D (all bf16 tiles
+// swizzled, 128-byte rows, 1024-byte aligned; a D = 128 row is two
+// 64-column boxes, each box its own run of rows): K and V of the block's
+// 128 keys, two stages of a chunk's Q, dO and o (64 rows each), its
+// logsumexp and delta, the chunk's dS^T (128 keys x 64 queries), its dQ
+// share in fp32 (64 x D, 16-byte pieces swizzled within a row), and the
+// mbarriers.
+template <int D>
+struct WgmmaSmem {
+  static constexpr int NB = D / 64;                  // 64-column boxes
+  static constexpr int KV = NB * W_KEYS * 128;
+  static constexpr int CH = NB * W_BQ * 128;
+  static constexpr int K_OFF = 0, V_OFF = KV, ST_OFF = 2 * KV;
+  static constexpr int Q_IN = 0, G_IN = CH, O_IN = 2 * CH;
+  static constexpr int L_IN = 3 * CH, DL_IN = 3 * CH + 4 * W_BQ;
+  static constexpr int STAGE = 3 * CH + 1024;
+  static constexpr int DS_OFF = ST_OFF + W_STAGES * STAGE;
+  static constexpr int DQ_OFF = DS_OFF + W_KEYS * 128;
+  static constexpr int BAR_OFF = DQ_OFF + W_BQ * D * 4;
+  static constexpr int BARS = 3 * W_STAGES + 3;
+  static constexpr int BYTES = BAR_OFF + 8 * BARS + 1024;
+};
+
+__device__ __forceinline__ void bulk_copy_s2g(void* dst, const void* src,
+                                              int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// global[dst] += shared[src], fp32, as one bulk operation (in L2)
+__device__ __forceinline__ void bulk_add_s2g(float* dst, const void* src,
+                                             int bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// raise a barrier's expected transaction bytes without arriving
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar,
+                                                    int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// One block per (key tile of 128, batch, kv head), the key tiles that see
+// the most queries first (blockIdx runs over (batch, kv head) fastest).
+// Consumer warpgroup wg owns keys 64 wg .. + 63 of the tile and keeps
+// their dK and dV (64 x D each, fp32) in registers over every chunk of 64
+// queries that sees them, for each of the R query heads in turn (GQA's
+// sum in a fixed order).  The third warpgroup (setmaxnreg gives the
+// consumers its registers) has three jobs: a warp, the producer,
+// loads K and V once and each chunk's Q, dO and o by TMA (zero rows past
+// S and T) and its logsumexp by plain loads, into two stages behind
+// mbarriers; two warps compute the chunk's delta = rowsum(dO o) from the
+// staged tiles (a row a thread; no delta launch); a warp, the dQ writer,
+// adds the consumers' dQ share into the fp32 workspace.  A chunk, per consumer
+// warpgroup: per 32 queries S^T = K Q^T and dP^T = V dO^T on wgmma, P =
+// exp(S scale - lse) and dS = P (dP - delta) in registers (masks as
+// selects: keys past T, queries past S, causal keys past the query), dS^T
+// to shared memory (once both warpgroups' dQ products of the last chunk,
+// which read all of it, are done), dV += P^T dO and dK += dS^T Q on wgmma with P and dS
+// as register A operands; then dQ = dS K of the block's keys, warpgroup
+// wg its columns 64 wg .. + 63 (at D = 64 the first alone stores its
+// product), into shared memory.  The
+// writer adds it to the workspace by one bulk reduction in L2, in
+// key-tile order: key tile n waits until the chunk's ticket reads n (tile
+// n - 1's addition is complete), tile 0 stores instead of adding, and
+// each tile advances the ticket.  So dQ's sum runs over the key tiles in
+// one order on every run; a second kernel casts the workspace into dq.
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_o,
+                          const __grid_constant__ CUtensorMap map_g,
+                          const float* __restrict__ lse,
+                          float* __restrict__ ws, int* __restrict__ tickets,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int B, int H,
+                          int KH, int S, int T_len, BwdStrides st,
+                          float scale, int causal) {
+  using L = WgmmaSmem<D>;
+  using bf = __nv_bfloat16;
+  using repro_hopper::gmma_desc;
+  extern __shared__ unsigned char wg_raw[];
+  unsigned char* sm = wg_raw + ((1024 - (smem_u32(wg_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(sm);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* empty = full + W_STAGES;
+  uint64_t* dl_ready = empty + W_STAGES;
+  uint64_t* kv_bar = dl_ready + W_STAGES;
+  uint64_t* dq_full = kv_bar + 1;
+  uint64_t* dq_empty = dq_full + 1;
+  constexpr int DQ_WARPS = 4 * (D / 64);     // consumer warps that write dQ
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int bkh = blockIdx.x % (B * KH);
+  const int n = blockIdx.x / (B * KH);                 // key tile
+  const int b = bkh / KH, kvh = bkh % KH;
+  const int R = H / KH;
+  const int nch = (S + W_BQ - 1) / W_BQ;
+  const int j0 = n * W_KEYS;
+  // causal: the chunks before 2n (their last query < j0) see none of the
+  // tile's keys
+  const int m_first = causal ? min(2 * n, nch) : 0;
+  const int n_it = (nch - m_first) * R;     // chunk-major, heads inner
+
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      repro_hopper::mbar_init(&full[s], 32);    // the producer warp's lanes
+      repro_hopper::mbar_init(&empty[s], 8);    // one per consumer warp
+      repro_hopper::mbar_init(&dl_ready[s], 2);   // the delta warps
+    }
+    repro_hopper::mbar_init(kv_bar, 1);
+    repro_hopper::mbar_init(dq_full, DQ_WARPS);
+    repro_hopper::mbar_init(dq_empty, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    repro_hopper::fence_async_smem();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // give the consumers the registers: 2 x 128 x 232 + 128 x 40 <= 64 K
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    const int warp = (tid - 256) / 32;
+    if (warp == 0) {                        // the producer
+      if (lane == 0) {
+        repro_hopper::mbar_expect_tx(kv_bar, 2 * L::KV);
+#pragma unroll
+        for (int x = 0; x < L::NB; ++x) {
+          repro_hopper::tma_load_4d(sm + L::K_OFF + x * W_KEYS * 128, &map_k,
+                                    kv_bar, 64 * x, j0, kvh, b);
+          repro_hopper::tma_load_4d(sm + L::V_OFF + x * W_KEYS * 128, &map_v,
+                                    kv_bar, 64 * x, j0, kvh, b);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % W_STAGES;
+        const int h = kvh * R + it % R, q0 = (m_first + it / R) * W_BQ;
+        unsigned char* stg = sm + L::ST_OFF + s * L::STAGE;
+        if (lane == 0) {
+          repro_hopper::mbar_wait(&empty[s], ((it / W_STAGES) & 1) ^ 1);
+          mbar_expect_tx_only(&full[s], 3 * L::CH);
+#pragma unroll
+          for (int x = 0; x < L::NB; ++x) {
+            const int o = x * W_BQ * 128;
+            repro_hopper::tma_load_4d(stg + L::Q_IN + o, &map_q, &full[s],
+                                      64 * x, q0, h, b);
+            repro_hopper::tma_load_4d(stg + L::G_IN + o, &map_g, &full[s],
+                                      64 * x, q0, h, b);
+            repro_hopper::tma_load_4d(stg + L::O_IN + o, &map_o, &full[s],
+                                      64 * x, q0, h, b);
+          }
+        }
+        __syncwarp();          // the stage is free: its logsumexp too
+        float* ls = reinterpret_cast<float*>(stg + L::L_IN);
+        const float* lp = lse + ((long long)b * H + h) * S + q0;
+        for (int i = lane; i < W_BQ; i += 32)
+          ls[i] = q0 + i < S ? lp[i] : 0.f;
+        repro_hopper::mbar_arrive(&full[s]);      // after the TMA's bytes
+      }
+    } else if (warp == 1) {                 // the dQ writer
+      if (lane == 0) {
+        for (int it = 0; it < n_it; ++it) {
+          const int m = m_first + it / R, h = kvh * R + it % R;
+          const int q0 = m * W_BQ;
+          repro_hopper::mbar_wait(dq_full, it & 1);
+          const long long bh = (long long)b * H + h;
+          float* dst = ws + (bh * S + q0) * D;
+          const int bytes = min(W_BQ, S - q0) * D * 4;
+          int* ticket = tickets + bh * nch + m;
+          if (n == 0) {
+            bulk_copy_s2g(dst, sm + L::DQ_OFF, bytes);
+          } else {
+            // tile n - 1 is an earlier block, so it runs or has run: a
+            // wait this long is a fault, and the launch fails, not hangs
+            for (long long spins = 0;
+                 repro_hopper::ld_acquire_gpu(ticket) != n; ++spins) {
+              if (spins > (1ll << 27)) __trap();
+              __nanosleep(32);
+            }
+            fence_async_global();
+            bulk_add_s2g(dst, sm + L::DQ_OFF, bytes);
+          }
+          repro_hopper::bulk_commit();
+          repro_hopper::bulk_wait();             // read, added, visible
+          repro_hopper::mbar_arrive(dq_empty);
+          fence_async_global();
+          __threadfence();
+          repro_hopper::st_release_gpu(ticket, n + 1);
+        }
+      }
+    } else {                                // delta: a row a thread
+      const int r = tid - 256 - 64;
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % W_STAGES;
+        repro_hopper::mbar_wait(&full[s], (it / W_STAGES) & 1);
+        unsigned char* stg = sm + L::ST_OFF + s * L::STAGE;
+        float acc = 0.f;
+#pragma unroll 2
+        for (int c = 0; c < D / 8; ++c) {
+          const int off = (c / 8) * W_BQ * 128 + swz(r, c % 8);
+          float gf[8], of[8];
+          unpack8(*reinterpret_cast<const uint4*>(stg + L::G_IN + off), gf);
+          unpack8(*reinterpret_cast<const uint4*>(stg + L::O_IN + off), of);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc = fmaf(gf[e], of[e], acc);
+        }
+        reinterpret_cast<float*>(stg + L::DL_IN)[r] = acc;
+        __syncwarp();
+        if (lane == 0) repro_hopper::mbar_arrive(&dl_ready[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int warp = (tid % 128) / 32;
+  const int kr = 64 * wg + 16 * warp + lane / 4;     // tile rows kr, kr + 8
+  const int jk[2] = {j0 + kr, j0 + kr + 8};
+  const bool key_ok[2] = {jk[0] < T_len, jk[1] < T_len};
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
+  const int xr = (lane / 4) & 7;
+  unsigned char* dsp = sm + L::DS_OFF + kr * 128 + 4 * (lane % 4);
+  const uint32_t ka = sb + L::K_OFF + wg * 64 * 128;
+  const uint32_t va = sb + L::V_OFF + wg * 64 * 128;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  repro_hopper::mbar_wait(kv_bar, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % W_STAGES;
+    const int q0 = (m_first + it / R) * W_BQ;
+    repro_hopper::mbar_wait(&full[s], (it / W_STAGES) & 1);
+    repro_hopper::mbar_wait(&dl_ready[s], (it / W_STAGES) & 1);
+    const unsigned char* stg = sm + L::ST_OFF + s * L::STAGE;
+    const uint32_t qa = smem_u32(stg + L::Q_IN), ga = smem_u32(stg + L::G_IN);
+    const float* Ls = reinterpret_cast<const float*>(stg + L::L_IN);
+    const float* Dl = reinterpret_cast<const float*>(stg + L::DL_IN);
+
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float s_[16], dp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s_[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t kx = (ks / 4) * W_KEYS * 128 + (ks % 4) * 32;
+        const uint32_t qx = (ks / 4) * W_BQ * 128 + half * 32 * 128 +
+                            (ks % 4) * 32;
+        wgmma_ss32_kk(s_, gmma_desc(ka + kx, 16, 1024),
+                      gmma_desc(qa + qx, 16, 1024));
+        wgmma_ss32_kk(dp, gmma_desc(va + kx, 16, 1024),
+                      gmma_desc(ga + qx, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      repro_hopper::fence_acc(s_);
+      repro_hopper::fence_acc(dp);
+      // the other warpgroup's dQ product of the last chunk reads every row
+      // of dS^T: wait until it is done before the first write over ours
+      if (half == 0) asm volatile("bar.sync 2, 256;" ::: "memory");
+      // register 4j + 2i + e: key row kr + 8i, query c_j + e of the chunk
+      // (c_j = 32 half + 8j + 2 (lane % 4))
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = half * 32 + 8 * j + 2 * (lane % 4);
+        const float2 lv = *reinterpret_cast<const float2*>(Ls + c);
+        const float2 dl = *reinterpret_cast<const float2*>(Dl + c);
+        const float lq[2] = {lv.x * LOG2E, lv.y * LOG2E};
+        const float dq2[2] = {dl.x, dl.y};
+        const int qi[2] = {q0 + c, q0 + c + 1};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * i + e;
+            const float ev = ex2_ftz(fmaf(s_[x], sl2, -lq[e]));
+            const bool ok = key_ok[i] && qi[e] < S &&
+                            (!causal || jk[i] <= qi[e]);
+            const float pv = ok ? ev : 0.f;
+            s_[x] = pv;
+            dp[x] = pv * (dp[x] - dq2[e]);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              dsp + i * 8 * 128 + (((half * 4 + j) ^ xr) << 4)) =
+              __floats2bfloat162_rn(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1]);
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q: 16 queries a step
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s_[8 * kk], s_[8 * kk + 1]),
+            pack_bf16(s_[8 * kk + 2], s_[8 * kk + 3]),
+            pack_bf16(s_[8 * kk + 4], s_[8 * kk + 5]),
+            pack_bf16(s_[8 * kk + 6], s_[8 * kk + 7])};
+        const uint32_t sa[4] = {
+            pack_bf16(dp[8 * kk], dp[8 * kk + 1]),
+            pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]),
+            pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]),
+            pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7])};
+        const uint32_t row = (half * 32 + kk * 16) * 128;
+        wgmma_rs_mn<D>(dv_acc, pa, gmma_desc(ga + row, W_BQ * 128, 1024));
+        wgmma_rs_mn<D>(dk_acc, sa, gmma_desc(qa + row, W_BQ * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      repro_hopper::fence_acc(dv_acc);
+      repro_hopper::fence_acc(dk_acc);
+    }
+    // both warpgroups' dS^T written (generic -> async proxy) and the
+    // stage read: release it to the producer
+    repro_hopper::fence_async_smem();
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (lane == 0) repro_hopper::mbar_arrive(&empty[s]);
+
+    // dQ = dS K over the tile's keys (dS^T and K MN-major) into shared
+    // memory for the writer, once it has sent the last chunk's
+    // (at D = 64 both warpgroups run the product, so that no branch
+    // divides them around wgmma, and the first stores it)
+    {
+      const int cb = D == 128 ? wg : 0;          // the column block
+      float dqa[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < W_KEYS / 16; ++ks) {
+        const uint32_t r = ks * 16 * 128;
+        wgmma_ss64_mnmn(
+            dqa, gmma_desc(sb + L::DS_OFF + r, 8192, 1024),
+            gmma_desc(sb + L::K_OFF + cb * W_KEYS * 128 + r, 8192, 1024));
+      }
+      wgmma_commit();
+      repro_hopper::mbar_wait(dq_empty, (it & 1) ^ 1);
+      wgmma_wait0();
+      repro_hopper::fence_acc(dqa);
+      if (D == 64 && wg == 1) continue;
+      // register 4j + 2i + e: query 16 warp + lane / 4 + 8i, column
+      // 64 wg + 8j + 2 (lane % 4) + e; the 16-byte piece p of a row at
+      // p ^ (row & 7) (no bank conflicts; the cast undoes it)
+      float* dqs = reinterpret_cast<float*>(sm + L::DQ_OFF);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 16 * warp + lane / 4 + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * wg + 8 * j + 2 * (lane % 4);
+          const int p = (col / 4) ^ (row & 7);
+          *reinterpret_cast<float2*>(dqs + row * D + 4 * p + col % 4) =
+              make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]);
+        }
+      }
+      repro_hopper::fence_async_smem();
+      __syncwarp();
+      if (lane == 0) repro_hopper::mbar_arrive(dq_full);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!key_ok[i]) continue;
+    bf* kp = dk + b * st.dk[0] + (long long)jk[i] * st.dk[1] + kvh * st.dk[2];
+    bf* vp = dv + b * st.dv[0] + (long long)jk[i] * st.dv[1] + kvh * st.dv[2];
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int x = 4 * c + 2 * i, d = 8 * c + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(kp + d) = __floats2bfloat162_rn(
+          dk_acc[x] * scale, dk_acc[x + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vp + d) =
+          __floats2bfloat162_rn(dv_acc[x], dv_acc[x + 1]);
+    }
+  }
+}
+
+// dq[b, s, h, :] = scale ws[(b H + h) S + s, :] in bf16, undoing the
+// writer's swizzle of 16-byte pieces (piece p of row s at p ^ (s & 7));
+// a thread 8 values
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_dq_cast(const float* __restrict__ ws,
+                            __nv_bfloat16* __restrict__ dq, int H, int S,
+                            long long rows, BwdStrides st, float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= rows * (D / 8)) return;
+  const long long row = i / (D / 8);
+  const int c = (int)(i % (D / 8));              // 8 values: pieces 2c, 2c+1
+  const int s_ = (int)(row % S);
+  const long long bh = row / S;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  const float* src = ws + row * D;
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(
+      src + 4 * ((2 * c) ^ (s_ & 7))));
+  const float4 e = __ldcs(reinterpret_cast<const float4*>(
+      src + 4 * ((2 * c + 1) ^ (s_ & 7))));
+  uint4 out;
+  out.x = pack_bf16(a.x * scale, a.y * scale);
+  out.y = pack_bf16(a.z * scale, a.w * scale);
+  out.z = pack_bf16(e.x * scale, e.y * scale);
+  out.w = pack_bf16(e.z * scale, e.w * scale);
+  *reinterpret_cast<uint4*>(dq + b * st.dq[0] + (long long)s_ * st.dq[1] +
+                            h * st.dq[2] + 8 * c) = out;
+}
+
+// the 4-D map (D, rows, heads, batch) of a (batch, seq, head) strided
+// bf16 tensor (strides in elements), boxes of 64 columns x box_rows rows
+inline bool encode_bshd(CUtensorMap* map, const void* p, int D, int rows,
+                        int heads, int B, const long long (&s)[3],
+                        int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s[1] * 2, (cuuint64_t)s[2] * 2,
+                                 (cuuint64_t)s[0] * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  return repro_hopper::encode_bf16_map4(map, p, dims, strides, box);
+}
+
+template <int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dO, const float* lse,
+                     float* ws, int* tickets, void* dq, void* dk, void* dv,
+                     int B, int H, int KH, int S, int T_len,
+                     const BwdStrides& st, float scale, int causal,
+                     cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  CUtensorMap mq, mk, mv, mo, mg;
+  if (!encode_bshd(&mq, q, D, S, H, B, st.q, W_BQ) ||
+      !encode_bshd(&mk, k, D, T_len, KH, B, st.k, W_KEYS) ||
+      !encode_bshd(&mv, v, D, T_len, KH, B, st.v, W_KEYS) ||
+      !encode_bshd(&mo, o, D, S, H, B, st.o, W_BQ) ||
+      !encode_bshd(&mg, dO, D, S, H, B, st.dO, W_BQ))
+    return -2;
+  constexpr int bytes = WgmmaSmem<D>::BYTES;
+  // once per instantiation and process (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_bwd_wgmma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int NT = (T_len + W_KEYS - 1) / W_KEYS;
+  flash_attention_bwd_wgmma<D><<<B * KH * NT, W_THREADS, bytes, s>>>(
+      mq, mk, mv, mo, mg, lse, ws, tickets, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), B, H, KH, S, T_len, st, scale, causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = (long long)B * H * S;
+  flash_attention_bwd_dq_cast<D>
+      <<<(unsigned)((rows * (D / 8) + 255) / 256), 256, 0, s>>>(
+          ws, static_cast<bf*>(dq), H, S, rows, st, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // fp32 backward on FMAs (the parity path): one thread a row, 32 rows a
 // block, the other side's rows staged in shared memory 32 at a time.
 template <int D>
@@ -1798,48 +1961,6 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 backward on mma.sync (D = 64 or 128): the delta pre-pass,
-// then dK/dV and dQ.
-template <int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dO, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int H, int KH, int S, int T_len,
-               const BwdStrides& st, float scale, int causal,
-               cudaStream_t s) {
-  const long long rows = (long long)B * H * S;
-  const unsigned dblocks = (unsigned)((rows + 3) / 4);
-  using bf = __nv_bfloat16;
-  flash_attention_bwd_delta<bf><<<dblocks, 128, 0, s>>>(
-      static_cast<const bf*>(o), static_cast<const bf*>(dO), delta, H, S, D,
-      rows, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr size_t bytes = bwd_smem_bytes<D>();
-  // once per instantiation and process (the port drives one card)
-  static const cudaError_t a1 = cudaFuncSetAttribute(
-      flash_attention_bwd_dkdv<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  static const cudaError_t a2 = cudaFuncSetAttribute(
-      flash_attention_bwd_dq<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (a1 != cudaSuccess) return static_cast<int>(a1);
-  if (a2 != cudaSuccess) return static_cast<int>(a2);
-  flash_attention_bwd_dkdv<D>
-      <<<dim3(B * KH, (T_len + B_BKV - 1) / B_BKV), B_THREADS, bytes, s>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
-          static_cast<bf*>(dk), static_cast<bf*>(dv), H, KH, S, T_len, st,
-          scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dq<D>
-      <<<dim3(B * H, (S + B_BQ - 1) / B_BQ), B_THREADS, bytes, s>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dO), lse, delta,
-          static_cast<bf*>(dq), H, KH, S, T_len, st, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
@@ -1909,14 +2030,14 @@ extern "C" int repro_flash_attention_decode_len(
   return -1;
 }
 
-// The backward (causal or not; bf16 at D = 64 or 128, fp32 at D = 8, 16
-// or 64; causal masks key j > query i, positions from 0 in both): q, k, v,
+// The fp32 backward (causal or not, D = 8, 16 or 64; causal masks key
+// j > query i, positions from 0 in both): q, k, v,
 // o, dO and the outputs dq, dk, dv read and written through (batch, seq, head) strides, 24 in all
 // (q, k, v, o, dO, dq, dk, dv in turn), the head dim contiguous, rows
-// 16-byte aligned for bf16; lse the forward's (B, H, S) fp32 logsumexp,
-// delta an fp32 (B, H, S) workspace.  dtype 1 (bf16) runs on mma.sync,
-// 0 (fp32) on FMAs.  Returns cudaGetLastError() after the last launch;
-// -1 for an unsupported dtype or D.
+// lse the forward's (B, H, S) fp32 logsumexp, delta an fp32 (B, H, S)
+// workspace.  dtype 0 (fp32) only, on FMAs: bf16 takes the resident and
+// wgmma entry points below.  Returns cudaGetLastError() after the last
+// launch; -1 for an unsupported dtype or D.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* delta, void* dq, void* dk,
@@ -1931,15 +2052,6 @@ extern "C" int repro_flash_attention_bwd(
   if (T_len < 1) return -1;
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (dtype == 1) {
-    if (D == 64)
-      return launch_bwd<64>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
-                            T_len, st, scale, causal, s);
-    if (D == 128)
-      return launch_bwd<128>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
-                             T_len, st, scale, causal, s);
-    return -1;
-  }
   if (dtype != 0) return -1;
   if (D == 8)
     return launch_bwd_f32<8>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH, S,
@@ -1950,6 +2062,39 @@ extern "C" int repro_flash_attention_bwd(
   if (D == 64)
     return launch_bwd_f32<64>(q, k, v, o, dO, l, dl, dq, dk, dv, B, H, KH,
                               S, T_len, st, scale, causal, s);
+  return -1;
+}
+
+// The wgmma backward (bf16, D = 64 or 128, causal or not, S, T_len >= 1):
+// one block per (key tile of 128, batch, kv head), one pass; q, k, v, o,
+// dO, dq, dk, dv through (batch, seq, head) strides as above (24 in all),
+// bases 16-byte aligned, strides of the dims of extent > 1 multiples of 8
+// elements (TMA reads q, k, v, o and dO); lse the forward's (B, H, S) fp32
+// logsumexp; ws an fp32 (B, H, S, D) workspace and tickets int32 zeros,
+// one per (batch, head, chunk of 64 queries), 16-byte aligned.  Two
+// launches (the pass, then dQ's cast).  Returns cudaGetLastError() after
+// the last; -1 for an unsupported D or shape, -2 when the tensor maps
+// cannot be encoded.
+extern "C" int repro_flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* ws, void* tickets, void* dq,
+    void* dk, void* dv, int B, int H, int KH, int S, int T_len, int D,
+    const long long* strides, float scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdStrides st;
+  long long* dst[8] = {st.q, st.k, st.v, st.o, st.dO, st.dq, st.dk, st.dv};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  if (T_len < 1 || S < 1 || B < 1 || KH < 1 || H % KH) return -1;
+  const float* l = static_cast<const float*>(lse);
+  float* w = static_cast<float*>(ws);
+  int* tk = static_cast<int*>(tickets);
+  if (D == 64)
+    return launch_bwd_wgmma<64>(q, k, v, o, dO, l, w, tk, dq, dk, dv, B, H,
+                                KH, S, T_len, st, scale, causal, s);
+  if (D == 128)
+    return launch_bwd_wgmma<128>(q, k, v, o, dO, l, w, tk, dq, dk, dv, B, H,
+                                 KH, S, T_len, st, scale, causal, s);
   return -1;
 }
 

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by K1 (elastic_matmul.cu) and K3
 // (expert_matmul.cu):
 //
-// * the TMA / wgmma GEMM machinery of their tma variants: tile shapes,
-//   mbarrier helpers, 2-D and 3-D TMA loads and the 2-D TMA store, wgmma
+// * the TMA / wgmma GEMM machinery of their tma variants (and of K2's
+//   wgmma backward and K3's persistent dgrad): tile shapes, mbarrier
+//   helpers, 2-, 3- and 4-D TMA loads and the 2- and 3-D TMA stores, an
+//   acquire/release flag between blocks, wgmma
 //   shared-memory descriptors and the m64n128k16 / m64n256k16 bf16
 //   products with fp32 accumulators (either operand K- or MN-major), the
 //   accumulator store, and the host-side tensor-map encoding
@@ -100,6 +102,43 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared -> global of the 3-D box at (c0, c1, c2), as tma_store_2d
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a flag another block publishes (acquire: what it wrote before the
+// release is visible after) and its release
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release_gpu(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // shared -> global through a tensor map (the box at coordinates c0, c1;
 // what falls outside the tensor is not written), in the thread's bulk
 // group; smem written by the generic proxy needs fence_async_smem first
@@ -120,6 +159,11 @@ __device__ __forceinline__ void bulk_commit() {
 // wait until the thread's bulk groups have read their shared memory
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// wait until the thread's bulk groups are complete (their writes done)
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 __device__ __forceinline__ void fence_async_smem() {
@@ -302,6 +346,23 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 4-D bf16 map, the first dim of unit stride, as encode_bf16_map; a dim of
+// extent 1 may carry any stride (it is never stepped), so it gets 16 bytes
+inline bool encode_bf16_map4(CUtensorMap* map, const void* base,
+                             const cuuint64_t (&dims)[4],
+                             const cuuint64_t (&strides)[3],
+                             const cuuint32_t (&box)[4]) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t st[3];
+  for (int i = 0; i < 3; ++i) st[i] = dims[i + 1] == 1 ? 16 : strides[i];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

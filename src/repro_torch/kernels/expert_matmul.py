@@ -32,11 +32,17 @@ counts[e]``, exact zeros past it) and ``expert_matmul_wgrad`` (``dw[e] =
 x[e, :counts[e]]^T @ dy[e, :counts[e]]`` over the live rows only, in w's
 shape; a dead expert's dw is exactly zero and reads no byte of x or dy).
 Rows of x and dy past a count never reach a live result, whatever they
-hold.  Three variants each, chosen by :func:`choose_bwd_variant` from
-dtype, bases and strides (never from ``counts``): ``tma`` (bf16 TMA can
-read: dgrad the forward's grouped wgmma GEMM with w as a K-major B,
-wgrad one 128 x 128 tile of an expert's gradient a block over its live
-rows, both operands MN-major), ``tile_bf16`` and ``tile_f32`` (any
+hold.  The variants, chosen by :func:`choose_bwd_variant` from the kind,
+dtype, shapes, bases and strides (never from ``counts``): dgrad's
+``persistent`` (bf16 TMA can read, dx rows of a multiple of 8: one block
+an SM walks a list of the live (expert, row tile, column tile) items that
+it scans from the device counts, 128 x 256 tiles on
+wgmma, each tile stored by TMA while the next one loads, the dead rows
+zeroed by the same blocks; planned by :func:`dgrad_persistent_plan`),
+``tma`` (wgrad's in bf16 TMA can read, one 128 x 128 tile of an expert's
+gradient a block over its live rows, both operands MN-major; dgrad's
+where ``persistent`` does not take the call: the forward's grouped wgmma
+GEMM with w as a K-major B), ``tile_bf16`` and ``tile_f32`` (any
 strides, on FMAs: the stride-0 expert axis of the dense oracle, fp32).
 Plain versions sit beside them.
 """
@@ -65,7 +71,7 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 # backward launches, by kernel and variant (one a call)
 dgrad_launches = 0
 wgrad_launches = 0
-BWD_VARIANTS = ("tma", "tile_bf16", "tile_f32")
+BWD_VARIANTS = ("persistent", "tma", "tile_bf16", "tile_f32")
 dgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 wgrad_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 
@@ -79,6 +85,10 @@ STREAM_KC_MIN = 256     # fewest weight rows worth a block of their own
 # and X_BN): at the LM's prefill it beat one block per (F tile, expert)
 # over all its rows, 128 x 256 and two blocks per SM (PERF.md)
 TMA_TILE = (128, 128)
+# the persistent dgrad: rows and columns of an item (128 columns measured
+# slower at every train_4k shape), and the most experts its scan takes
+PERSISTENT_TILE = (128, 256)
+PERSISTENT_E_MAX = 512
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _STRIDES = [_L, _I, _L, _I]          # x_se, x_sc, w_se, w_sk
@@ -89,6 +99,8 @@ _ARGTYPES = {
     "repro_expert_matmul_tma": [_P] * 4 + [_I] * 4 + _STRIDES + [_P],
     "repro_expert_matmul_dgrad_tma": [_P] * 4 + [_I] * 4 + [_L, _I, _P],
     "repro_expert_matmul_wgrad_tma": [_P] * 4 + [_I] * 4 + [_L, _I, _P],
+    "repro_expert_matmul_dgrad_persistent": [_P] * 4 + [_I] * 4
+    + [_L, _I, _I, _P],
     "repro_expert_matmul_bwd_tile": [_I] + [_P] * 4 + [_I] * 4
     + [_L, _I, _I, _P],
 }
@@ -260,34 +272,57 @@ def expert_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def choose_bwd_variant(F: int, dtype: torch.dtype, strides: tuple,
-                       aligned: bool) -> str:
-    """The backward kernel a dgrad or wgrad call goes to.  ``strides`` are
-    the (expert, row) strides in elements of the operand read in place
-    (w for dgrad, x for wgrad: dy and the outputs are contiguous),
-    ``aligned`` whether every base is 16-byte aligned and K, F >= 1.
-    TMA needs that, every stride a non-zero multiple of 16 bytes and dy's
-    rows of F a multiple of 8 elements."""
+                       aligned: bool, kind: str = "dgrad", K: int = 8,
+                       E: int = 1) -> str:
+    """The backward kernel a ``kind`` ("dgrad" or "wgrad") call goes to.
+    ``strides`` are the (expert, row) strides in elements of the operand
+    read in place (w for dgrad, x for wgrad: dy and the outputs are
+    contiguous), ``aligned`` whether every base is 16-byte aligned and K,
+    F >= 1.  TMA needs that, every stride a non-zero multiple of 16 bytes
+    and dy's rows of F a multiple of 8 elements.  dgrad's ``persistent``
+    also stores dx's rows of ``K`` by TMA (a multiple of 8) and scans the
+    ``E`` experts' counts in shared memory (at most
+    :data:`PERSISTENT_E_MAX`); where it cannot, dgrad takes ``tma``."""
+    if kind not in ("dgrad", "wgrad"):
+        raise ValueError(f"kind must be dgrad or wgrad, got {kind!r}")
     if dtype != torch.bfloat16:
         return "tile_f32"
     if aligned and F % 8 == 0 and all(s > 0 and s % 8 == 0 for s in strides):
+        if kind == "dgrad" and K % 8 == 0 and E <= PERSISTENT_E_MAX:
+            return "persistent"
         return "tma"
     return "tile_bf16"
 
 
-def _bwd_plan(a: torch.Tensor, dy: torch.Tensor) -> tuple:
+def dgrad_persistent_plan(E: int, C: int, K: int, sms: int = SMS) -> int:
+    """Blocks of the persistent dgrad: one an SM, never more than the
+    items all C rows of every expert would make (how many rows are live
+    is on the device)."""
+    bm, bn = PERSISTENT_TILE
+    return max(1, min(sms, E * _cdiv(C, bm) * _cdiv(K, bn)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_plan(a: torch.Tensor, dy: torch.Tensor, kind: str) -> tuple:
     """(variant, (expert, row) strides of ``a``) of a dgrad (``a`` = w)
     or wgrad (``a`` = x) call; its output is fresh, so 16-byte aligned."""
     st = _dim_strides(a)
     aligned = min(a.shape[1], a.shape[2], dy.shape[2]) > 0 and \
         a.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    return choose_bwd_variant(dy.shape[2], a.dtype, st, aligned), st
+    return choose_bwd_variant(dy.shape[2], a.dtype, st, aligned, kind,
+                              a.shape[1], a.shape[0]), st
 
 
-def bwd_variant_of(a: torch.Tensor, dy: torch.Tensor) -> str:
-    """The kernel :func:`expert_matmul_dgrad` (``a`` = w) or
-    :func:`expert_matmul_wgrad` (``a`` = x) launches for a contiguous
-    ``dy``."""
-    return _bwd_plan(a, dy)[0]
+def bwd_variant_of(a: torch.Tensor, dy: torch.Tensor,
+                   kind: str = "dgrad") -> str:
+    """The kernel :func:`expert_matmul_dgrad` (``a`` = w, ``kind``
+    "dgrad") or :func:`expert_matmul_wgrad` (``a`` = x, "wgrad")
+    launches for a contiguous ``dy``."""
+    return _bwd_plan(a, dy, kind)[0]
 
 
 def check_bwd_args(dy: torch.Tensor, a: torch.Tensor, counts: torch.Tensor,
@@ -327,10 +362,15 @@ def _bwd_launch(op: int, a: torch.Tensor, dy: torch.Tensor,
                 out: torch.Tensor, counts: torch.Tensor, K: int) -> str:
     """Launch dgrad (op 0, a = w) or wgrad (op 1, a = x) into ``out``;
     returns the variant."""
-    variant, st = _bwd_plan(a, dy)
+    variant, st = _bwd_plan(a, dy, "dgrad" if op == 0 else "wgrad")
     E, C, F = dy.shape
     stream = torch.cuda.current_stream(dy.device).cuda_stream
-    if variant == "tma":
+    if variant == "persistent":
+        grid = dgrad_persistent_plan(E, C, K, _sm_count(dy.device.index))
+        rc = _launcher("repro_expert_matmul_dgrad_persistent")(
+            dy.data_ptr(), a.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            E, C, K, F, *st, grid, stream)
+    elif variant == "tma":
         name = ("repro_expert_matmul_dgrad_tma" if op == 0
                 else "repro_expert_matmul_wgrad_tma")
         if op == 0:

@@ -36,11 +36,13 @@ is ``flash_attention_bwd``, causal or not, at D = 64 and 128 in bf16 and
 :func:`choose_bwd_variant` from shapes and dtype: ``resident`` (bf16,
 non-causal, D = 64, S, T <= 256, the sandwich step's S = T = 197: one
 block per (batch, kv head) holds its keys and makes one pass on wgmma,
-each input read once, dQ from dS in the same block), ``mma`` (other
-bf16, the LM's causal S = T = 4096 at D = 128 among them:
-FlashAttention-2's delta pre-pass, then dK/dV and dQ in two
-deterministic passes on mma.sync that skip the causal mask's dead tiles)
-and ``fma_f32`` (fp32 on FMAs); any other head dim raises
+each input read once, dQ from dS in the same block), ``wgmma`` (every
+other bf16 call, the LM's causal S = T = 4096 at D = 128 among them:
+FlashAttention-3's backward, one block per 128-key tile fed by TMA, one
+pass of five products on wgmma, dQ added into an fp32 workspace in
+key-tile order behind per-chunk tickets, so deterministic, then cast
+into dq by a second kernel) and ``fma_f32`` (fp32 on FMAs: a delta
+pre-pass, then dK/dV and dQ in two passes); any other head dim raises
 ``NotImplementedError``.
 ``flash_attention_bwd_plain`` is the same gradient as
 explicit formulas, for CPU tensors and to hold the kernel against.
@@ -69,13 +71,15 @@ _self = sys.modules[__name__]     # whose counters counting.count adds to
 launches = 0
 VARIANTS = ("mma", "decode", "fma_bf16", "fma_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
-# backward launches (one a call: the delta, dK/dV and dQ kernels)
+# backward launches (one a call, whatever kernels the variant runs)
 bwd_launches = 0
-BWD_VARIANTS = ("resident", "mma", "fma_f32")
+BWD_VARIANTS = ("wgmma", "resident", "fma_f32")
 bwd_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
 BWD_HEAD_DIMS = (64, 128)      # bf16: the ViTs' and the LM's
 BWD_F32_HEAD_DIMS = (8, 16, 64)  # fp32: the smoke configs' 8 and 16 too
 RESIDENT_MAX = 256      # queries and keys of a head the resident kernel takes
+WGMMA_KEYS = 128        # keys a block of the wgmma backward (its key tile)
+WGMMA_CHUNK = 64        # queries a chunk (one dQ ticket each)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 64, 128)  # ViTs (64), their smoke configs, LMs (128)
@@ -98,6 +102,8 @@ _ARGTYPES = {
                                                                _I, _I, _P],
     "repro_flash_attention_bwd_resident": [_P] * 9 + [_I] * 6 + [_STRIDES,
                                                                  _F, _P],
+    "repro_flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 6 + [_STRIDES, _F,
+                                                              _I, _P],
 }
 
 
@@ -312,17 +318,18 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
 def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
                        causal: bool) -> str:
     """The backward kernel a call goes to, from shapes and dtype (the
-    wrapper copies rows the kernels cannot read with 16-byte loads first);
-    raises ``NotImplementedError`` for what no kernel takes (D other than
-    64 or 128 in bf16, other than 8, 16 or 64 in fp32).  ``resident``
-    (non-causal, D = 64) holds a head's keys in shared memory (T <= 256)
-    and walks its queries serially in one block per (batch, kv head):
-    past 256 queries the two-pass ``mma``, whose grid also runs over
-    query tiles, spreads the work wider; causal calls and D = 128 take
-    ``mma``.  With few (batch, kv head)
-    blocks the serial walk costs too: at B * KH = 22 on an H100 (132 SMs)
+    wrapper copies rows the kernels cannot read with 16-byte loads or TMA
+    first); raises ``NotImplementedError`` for what no kernel takes (D
+    other than 64 or 128 in bf16, other than 8, 16 or 64 in fp32).
+    ``resident`` (non-causal, D = 64) holds a head's keys in shared memory
+    (T <= 256) and walks its queries serially in one block per (batch, kv
+    head); every other bf16 call -- causal, D = 128, or S or T past 256 --
+    takes ``wgmma``, whose grid also runs over 128-key tiles and which
+    skips the causal mask's dead chunks.  With few (batch, kv head) blocks
+    the serial walk costs too: at B * KH = 22 on an H100 (132 SMs)
     ``resident`` took 34-35 us a call at S = T = 197 against 27.5 us for
-    ``mma`` (PERF.md, open questions).  No caller sends so few heads
+    the two-pass mma.sync backward it replaced (PERF.md, open
+    questions).  No caller sends so few heads
     today, so the choice does not look at B * KH."""
     dims = BWD_HEAD_DIMS if dtype == torch.bfloat16 else BWD_F32_HEAD_DIMS
     if D not in dims:
@@ -334,7 +341,16 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
     if not causal and D == 64 and 1 <= S <= RESIDENT_MAX \
             and 1 <= T <= RESIDENT_MAX:
         return "resident"
-    return "mma"
+    return "wgmma"
+
+
+def wgmma_plan(B: int, H: int, KH: int, S: int, T: int) -> tuple:
+    """(blocks, rows of the fp32 dQ workspace, tickets) of the wgmma
+    backward: a block per (128-key tile, batch, kv head); the workspace
+    (B, H, S, D) that the key tiles add dQ into in order, one int32
+    ticket per (batch, head, chunk of 64 queries) for that order."""
+    return (B * KH * _cdiv(T, WGMMA_KEYS), B * H * S,
+            B * H * _cdiv(S, WGMMA_CHUNK))
 
 
 def check_bwd_args(q, k, v, o, do) -> None:
@@ -366,8 +382,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {(B, H, S)}")
-    # the kernels read rows with 16-byte loads: copy anything else into
-    # fresh storage (contiguous() keeps a contiguous view's unaligned base)
+    # the kernels read rows with 16-byte loads or TMA: copy anything else
+    # into fresh storage (contiguous() keeps a contiguous view's unaligned
+    # base)
     q, k, v, o, do = (t if t.stride(3) == 1 and _aligned(t)
                       else t.clone(memory_format=torch.contiguous_format)
                       for t in (q, k, v, o, do))
@@ -385,7 +402,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, KH, S, T, D, strides, 1.0 / math.sqrt(D),
             stream)
-    else:
+    elif variant == "wgmma":
+        _, ws_rows, n_tickets = wgmma_plan(B, H, KH, S, T)
+        ws = torch.empty((ws_rows, D), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+        rc = _launcher("repro_flash_attention_bwd_wgmma")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), ws.data_ptr(),
+            tickets.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T, D, strides,
+            1.0 / math.sqrt(D), int(causal), stream)
+    else:                                    # fma_f32
         delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         rc = _launcher("repro_flash_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -277,9 +277,9 @@ def test_router_shapes_take_f32_splitk_at_prefill_and_small_m_at_decode():
     (1, 197, 64, torch.bfloat16, False, "resident"),    # one query
     (256, 256, 64, torch.bfloat16, False, "resident"),
     (65, 77, 64, torch.bfloat16, False, "resident"),
-    (577, 577, 64, torch.bfloat16, False, "mma"),       # ViT at 336 px
-    (257, 100, 64, torch.bfloat16, False, "mma"),
-    (100, 300, 64, torch.bfloat16, False, "mma"),       # keys past 256
+    (577, 577, 64, torch.bfloat16, False, "wgmma"),     # ViT at 336 px
+    (257, 100, 64, torch.bfloat16, False, "wgmma"),
+    (100, 300, 64, torch.bfloat16, False, "wgmma"),     # keys past 256
     (197, 197, 64, torch.float32, False, "fma_f32"),
     (577, 577, 64, torch.float32, False, "fma_f32"),
 ])
@@ -294,12 +294,12 @@ def test_flash_attention_bwd_variant_choice(S, T, D, dtype, causal, want):
     (17, 17, 16, False)])
 def test_flash_attention_bwd_variant_choice_refuses(S, T, D, causal):
     """A head dim no kernel takes raises: bf16 takes 64 and 128 (causal
-    or not, on mma since LM training), fp32 8, 16 and 64 (fma_f32);
-    causal no longer raises anywhere."""
+    or not, on wgmma since its long-sequence redesign), fp32 8, 16 and 64
+    (fma_f32); causal no longer raises anywhere."""
     for dtype, dims in ((torch.bfloat16, (64, 128)),
                         (torch.float32, (8, 16, 64))):
         if D in dims:
-            want = "fma_f32" if dtype == torch.float32 else "mma"
+            want = "fma_f32" if dtype == torch.float32 else "wgmma"
             assert fa.choose_bwd_variant(S, T, D, dtype, causal) == want
             continue
         with pytest.raises(NotImplementedError):
@@ -318,6 +318,82 @@ def test_new_kernels_match_their_source_constants():
         assert decl in k1, decl
     k2 = (build.CSRC / "flash_attention.cu").read_text()
     assert f"R_T_MAX = {fa.RESIDENT_MAX};" in k2
+    assert f"W_KEYS = {fa.WGMMA_KEYS};" in k2
+    assert f"W_BQ = {fa.WGMMA_CHUNK};" in k2
+    k3 = (build.CSRC / "expert_matmul.cu").read_text()
+    assert "P_BM = {};".format(xm.PERSISTENT_TILE[0]) in k3
+    assert "P_BN = {};".format(xm.PERSISTENT_TILE[1]) in k3
+    assert f"P_E_MAX = {xm.PERSISTENT_E_MAX};" in k3
+
+
+# --- K2's wgmma backward and K3's persistent dgrad: choices and plans -------
+
+@pytest.mark.parametrize("S,T,D,dtype,causal,want", [
+    (256, 256, 64, torch.bfloat16, False, "resident"),   # the boundary
+    (257, 256, 64, torch.bfloat16, False, "wgmma"),
+    (256, 257, 64, torch.bfloat16, False, "wgmma"),
+    (1, 1, 64, torch.bfloat16, True, "wgmma"),           # causal, any size
+    (1, 1, 128, torch.bfloat16, False, "wgmma"),         # D = 128, any size
+    (127, 129, 128, torch.bfloat16, False, "wgmma"),
+    (4096, 4096, 128, torch.bfloat16, True, "wgmma"),    # the LM's train_4k
+    (4096, 4096, 64, torch.float32, True, "fma_f32"),    # fp32 stays
+    (300, 300, 16, torch.float32, False, "fma_f32"),
+    (129, 129, 8, torch.float32, True, "fma_f32"),
+])
+def test_flash_attention_bwd_wgmma_boundaries(S, T, D, dtype, causal, want):
+    """bf16 calls that resident does not take -- causal, D = 128, S or T
+    past 256 -- go to wgmma; fp32 keeps fma_f32 at every size."""
+    assert fa.choose_bwd_variant(S, T, D, dtype, causal) == want
+
+
+@pytest.mark.parametrize("B,H,KH,S,T,want", [
+    (4, 16, 16, 4096, 4096, (4 * 16 * 32, 4 * 16 * 4096, 4 * 16 * 64)),
+    (2, 4, 2, 129, 129, (2 * 2 * 2, 2 * 4 * 129, 2 * 4 * 3)),
+    (2, 4, 2, 127, 300, (2 * 2 * 3, 2 * 4 * 127, 2 * 4 * 2)),
+    (1, 2, 2, 1, 1, (2, 2, 2)),
+])
+def test_wgmma_backward_plan(B, H, KH, S, T, want):
+    """A block per (128-key tile, batch, kv head); the fp32 dQ workspace
+    (B, H, S, D) rows and one ticket per (batch, head, 64-query chunk)."""
+    assert fa.wgmma_plan(B, H, KH, S, T) == want
+
+
+@pytest.mark.parametrize("F,K,E,aligned,kind,dtype,want", [
+    (1408, 2048, 64, True, "dgrad", torch.bfloat16, "persistent"),
+    (2048, 1408, 64, True, "dgrad", torch.bfloat16, "persistent"),
+    (2048, 1056, 64, True, "dgrad", torch.bfloat16, "persistent"),
+    (2048, 1060, 64, True, "dgrad", torch.bfloat16, "tma"),  # dx rows
+    (2048, 1408, 513, True, "dgrad", torch.bfloat16, "tma"),  # the scan
+    (2048, 1408, 512, True, "dgrad", torch.bfloat16, "persistent"),
+    (2048, 1408, 64, True, "wgrad", torch.bfloat16, "tma"),
+    (2048, 1408, 64, False, "dgrad", torch.bfloat16, "tile_bf16"),
+    (2048, 1408, 64, True, "dgrad", torch.float32, "tile_f32"),
+])
+def test_expert_matmul_persistent_dgrad_choice(F, K, E, aligned, kind,
+                                               dtype, want):
+    """dgrad takes persistent where TMA reads dy and w and stores dx (K a
+    multiple of 8) and the scan holds the experts; else tma."""
+    st = (K * F, F)
+    assert xm.choose_bwd_variant(F, dtype, st, aligned, kind, K,
+                                 E) == want
+
+
+def test_expert_matmul_bwd_choice_refuses_an_unknown_kind():
+    with pytest.raises(ValueError):
+        xm.choose_bwd_variant(64, torch.bfloat16, (64, 64), True, "fwd")
+
+
+@pytest.mark.parametrize("E,C,K,sms,want", [
+    (64, 1920, 2048, 132, 132),      # the train_4k slab
+    (64, 1920, 704, 132, 132),
+    (1, 17, 64, 132, 1),             # one item
+    (2, 300, 512, 132, 2 * 3 * 2),   # fewer items than SMs
+    (64, 1920, 2048, 114, 114),      # another card's SM count
+])
+def test_dgrad_persistent_plan(E, C, K, sms, want):
+    """One block an SM, never more than the 128 x 256 items all C rows of
+    every expert would make."""
+    assert xm.dgrad_persistent_plan(E, C, K, sms) == want
 
 
 @pytest.mark.parametrize("S,T,H,KH,D,dtype,aligned,want", [
@@ -1134,7 +1210,7 @@ def test_launch_counts_cover_the_backward_kernels():
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert set(ops.variant_counts()["flash_attention_bwd"]) == \
-        set(fa.BWD_VARIANTS) == {"resident", "mma", "fma_f32"}
+        set(fa.BWD_VARIANTS) == {"wgmma", "resident", "fma_f32"}
     assert set(ops.variant_counts()["elastic_matmul_wgrad"]) == \
         {"tma", "wmma_bf16", "fma_f32"}
 
@@ -1262,7 +1338,7 @@ def test_fp32_backward_takes_the_smoke_head_dims():
         with pytest.raises(NotImplementedError):
             fa.choose_bwd_variant(16, 16, D, torch.bfloat16, False)
     assert fa.choose_bwd_variant(16, 16, 128, torch.bfloat16,
-                                 False) == "mma"
+                                 False) == "wgmma"
 
 
 @pytest.mark.cuda
@@ -1299,7 +1375,8 @@ def test_cuda_flash_attention_causal_backward_matches_plain(cuda, dtype, D,
                                                              S, H, KH):
     """K2's causal backward (the LM's, D = 128 in bf16, the smoke config's
     16 in fp32) against the plain backward, ragged tiles and GQA: one
-    launch on mma or fma_f32, within tolerance of the largest gradient."""
+    launch on wgmma or fma_f32, within tolerance of the largest
+    gradient."""
     g = torch.Generator().manual_seed(D + S)
     dt = getattr(torch, dtype)
     tol = 3e-3 if dtype == "float32" else 1e-2
@@ -1309,7 +1386,7 @@ def test_cuda_flash_attention_causal_backward_matches_plain(cuda, dtype, D,
     do = torch.randn(2, S, H, D, generator=g).to(cuda, dt)
     o, lse = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
     o = o.to(dt).contiguous()
-    want_v = "fma_f32" if dtype == "float32" else "mma"
+    want_v = "fma_f32" if dtype == "float32" else "wgmma"
     before = fa.bwd_variant_launches[want_v]
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=True)
@@ -1344,15 +1421,16 @@ def test_cuda_expert_matmul_backward_matches_plain(cuda, dtype, K, F, C):
                      nan)
     w = (torch.randn(E, K, F + 64, generator=g) / K ** 0.5).to(cuda, dt)
     w = w[..., :F]
-    want_v = "tile_f32" if dtype == "float32" else "tma"
-    before = (xm.dgrad_variant_launches[want_v],
-              xm.wgrad_variant_launches[want_v])
+    want_d, want_w = ("tile_f32", "tile_f32") if dtype == "float32" \
+        else ("persistent", "tma")
+    before = (xm.dgrad_variant_launches[want_d],
+              xm.wgrad_variant_launches[want_w])
     dx = xm.expert_matmul_dgrad(dy, w, counts)
     dw = xm.expert_matmul_wgrad(x, dy, counts)
     dw2 = xm.expert_matmul_wgrad(x, dy, counts)
     torch.cuda.synchronize()
-    assert (xm.dgrad_variant_launches[want_v] - before[0],
-            xm.wgrad_variant_launches[want_v] - before[1]) == (1, 2)
+    assert (xm.dgrad_variant_launches[want_d] - before[0],
+            xm.wgrad_variant_launches[want_w] - before[1]) == (1, 2)
     tol = 1e-5 if dtype == "float32" else 2e-2
     for got, want in ((dx, xm.expert_matmul_dgrad_plain(dy, w, counts)),
                       (dw, xm.expert_matmul_wgrad_plain(x, dy, counts))):
@@ -1362,6 +1440,77 @@ def test_cuda_expert_matmul_backward_matches_plain(cuda, dtype, K, F, C):
     assert torch.all(dx.masked_select(~live) == 0)
     assert torch.all(dw[1] == 0)
     assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,KH,D,causal", [
+    *((S, T, H, KH, D, causal)
+      for S, T, H, KH in ((127, 127, 4, 2), (129, 129, 4, 2),
+                          (300, 100, 4, 4), (100, 300, 2, 1), (1, 1, 2, 2))
+      for D, causal in ((64, True), (128, False), (128, True))),
+    # non-causal D = 64 past resident's 256 queries or keys
+    (300, 100, 4, 4, 64, False), (100, 300, 2, 1, 64, False),
+    (257, 257, 4, 2, 64, False), (1, 257, 2, 2, 64, False)])
+def test_cuda_flash_attention_backward_wgmma_matches_plain(cuda, S, T, H,
+                                                           KH, D, causal):
+    """K2's wgmma backward against the plain version at ragged S and T
+    (64-query chunks, 128-key tiles), causal and not, GQA, at the shapes
+    the choice sends it: one launch on wgmma, within 1e-2 of the largest
+    gradient, and dQ's ordered sum the same bits twice and under 3 graph
+    replays."""
+    g = torch.Generator().manual_seed(D + S + T)
+    q, do = (torch.randn(2, S, H, D, generator=g).to(cuda, _BF)
+             for _ in range(2))
+    k, v = (torch.randn(2, T, KH, D, generator=g).to(cuda, _BF)
+            for _ in range(2))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    o = o.to(_BF).contiguous()
+    before = fa.bwd_variant_launches["wgmma"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_variant_launches["wgmma"] - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    scale = max(float(b.float().abs().max()) for b in want)
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * scale
+    _graph_replays_equal(lambda: fa.flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,F,C", [(2048, 1408, 1920), (1408, 2048, 480),
+                                   (1056, 2048, 17), (704, 2048, 300)])
+def test_cuda_expert_matmul_dgrad_persistent_matches_plain(cuda, K, F, C):
+    """K3's persistent dgrad against the plain version: counts 0, 1, a
+    partial tile, C - 1 and C, NaN in dy past every count, a strided
+    a_ff view of w; one launch on persistent, exact zeros past the
+    counts, within bf16 tolerance, the same bits twice and under 3 graph
+    replays."""
+    g = torch.Generator().manual_seed(K + F + C)
+    E = 16
+    counts = torch.tensor([0, 1, C // 3, C - 1, C, 65 % (C + 1), 130 % (
+        C + 1), C // 2] * 2, dtype=torch.int32, device=cuda)
+    live = (torch.arange(C, device=cuda)[None, :]
+            < counts[:, None])[..., None]
+    nan = torch.tensor(float("nan"), dtype=_BF, device=cuda)
+    dy = torch.where(live, torch.randn(E, C, F, generator=g).to(cuda, _BF),
+                     nan)
+    w = (torch.randn(E, K, F + 64, generator=g) / F ** 0.5).to(cuda, _BF)
+    w = w[..., :F]
+    before = xm.dgrad_variant_launches["persistent"]
+    dx = xm.expert_matmul_dgrad(dy, w, counts)
+    dx2 = xm.expert_matmul_dgrad(dy, w, counts)
+    torch.cuda.synchronize()
+    assert xm.dgrad_variant_launches["persistent"] - before == 2
+    assert torch.equal(dx, dx2)
+    assert torch.all(dx.masked_select(~live) == 0)
+    want = xm.expert_matmul_dgrad_plain(dy, w, counts)
+    scale = float(want.float().abs().max())
+    assert float((dx.float() - want.float()).abs().max()) <= 2e-2 * scale
+    _graph_replays_equal(lambda: xm.expert_matmul_dgrad(dy, w, counts), dx)
 
 
 # --- the fp32 router's split-K kernel and K2's resident backward ------------
@@ -1447,7 +1596,7 @@ def _k2_bwd_case(cuda, B, S, T, H, KH, seed):
     (2, 256, 230, 4, 4, "resident"),
     (3, 2, 1, 2, 2, "resident"),        # one key: P = 1, dQ = dK = 0
     (4, 1, 77, 4, 2, "resident"),       # one query
-    (2, 300, 300, 4, 2, "mma"),         # past the resident limit
+    (2, 300, 300, 4, 2, "wgmma"),       # past the resident limit
 ])
 def test_cuda_flash_attention_backward_resident_matches_plain(
         cuda, B, S, T, H, KH, want):

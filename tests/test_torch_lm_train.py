@@ -59,7 +59,14 @@ def _np_tree(tree):
 @pytest.mark.parametrize("D,S,H,KH,causal", [(16, 33, 4, 4, True),
                                              (128, 17, 2, 2, True),
                                              (16, 40, 4, 2, True),
-                                             (128, 9, 2, 1, False)])
+                                             (128, 9, 2, 1, False),
+                                             # ragged: the wgmma kernel's
+                                             # 64-query chunks, 128-key
+                                             # tiles
+                                             (64, 127, 4, 2, True),
+                                             (64, 129, 4, 2, False),
+                                             (128, 127, 2, 2, False),
+                                             (128, 129, 4, 2, True)])
 def test_flash_attention_bwd_plain_matches_jax_vjp(D, S, H, KH, causal):
     """The plain backward (the formulas the kernels compute, from P) at
     the LM's head dim 128 and the smoke config's 16, causal, with GQA's
@@ -122,30 +129,38 @@ def test_expert_matmul_bwd_plain_matches_jax_vjp():
 # --- the backward kernels' variants (chosen on the host) --------------------------
 
 def test_backward_variant_choices():
-    """K3's dgrad and wgrad go to ``tma`` for bf16 TMA can read, whatever
-    the counts; ``tile_bf16`` for a stride-0 expert axis (the dense
-    oracle's tokens), an unaligned row stride or dy rows TMA cannot take;
-    ``tile_f32`` for fp32.  K2's backward takes causal and D = 128 on
-    ``mma``, keeps ``resident`` for the non-causal D = 64 sandwich step,
-    and raises for a head dim no kernel takes."""
+    """K3's dgrad goes to ``persistent`` and its wgrad to ``tma`` for
+    bf16 TMA can read, whatever the counts; ``tile_bf16`` for a stride-0
+    expert axis (the dense oracle's tokens), an unaligned row stride or
+    dy rows TMA cannot take; ``tile_f32`` for fp32.  K2's backward takes
+    causal and D = 128 on ``wgmma``, keeps ``resident`` for the
+    non-causal D = 64 sandwich step, and raises for a head dim no kernel
+    takes."""
     bf, f32 = torch.bfloat16, torch.float32
     pick = xm.choose_bwd_variant
-    assert pick(1408, bf, (2048 * 1408, 1408), True) == "tma"
-    assert pick(2048, bf, (2048 * 1408, 1408), True) == "tma"   # a_ff view
-    assert pick(1408, bf, (0, 2048), True) == "tile_bf16"
-    assert pick(1408, bf, (2048 * 1408, 1404), True) == "tile_bf16"
-    assert pick(1412, bf, (2048 * 1408, 1408), True) == "tile_bf16"
-    assert pick(1408, bf, (2048 * 1408, 1408), False) == "tile_bf16"
-    assert pick(1408, f32, (2048 * 1408, 1408), True) == "tile_f32"
+    for kind, want in (("dgrad", "persistent"), ("wgrad", "tma")):
+        assert pick(1408, bf, (2048 * 1408, 1408), True, kind) == want
+        assert pick(2048, bf, (2048 * 1408, 1408), True,
+                    kind) == want                       # a_ff view
+        assert pick(1408, bf, (0, 2048), True, kind) == "tile_bf16"
+        assert pick(1408, bf, (2048 * 1408, 1404), True, kind) == "tile_bf16"
+        assert pick(1412, bf, (2048 * 1408, 1408), True, kind) == "tile_bf16"
+        assert pick(1408, bf, (2048 * 1408, 1408), False,
+                    kind) == "tile_bf16"
+        assert pick(1408, f32, (2048 * 1408, 1408), True, kind) == "tile_f32"
     x = torch.zeros(4, 32, 64, dtype=bf)
     dy = torch.zeros(4, 32, 48, dtype=bf)
-    assert xm.bwd_variant_of(x, dy) == "tma"
-    assert xm.bwd_variant_of(x[:1].expand(4, 32, 64), dy) == "tile_bf16"
-    assert xm.bwd_variant_of(x.float(), dy.float()) == "tile_f32"
+    assert xm.bwd_variant_of(x, dy, "wgrad") == "tma"
+    assert xm.bwd_variant_of(x[:1].expand(4, 32, 64), dy,
+                             "wgrad") == "tile_bf16"
+    assert xm.bwd_variant_of(x.float(), dy.float(), "wgrad") == "tile_f32"
+    w = torch.zeros(4, 64, 48, dtype=bf)
+    assert xm.bwd_variant_of(w, dy) == "persistent"
+    assert xm.bwd_variant_of(w[:1].expand(4, 64, 48), dy) == "tile_bf16"
     choose = fa.choose_bwd_variant
-    assert choose(4096, 4096, 128, bf, True) == "mma"
-    assert choose(197, 197, 64, bf, True) == "mma"
-    assert choose(197, 197, 128, bf, False) == "mma"
+    assert choose(4096, 4096, 128, bf, True) == "wgmma"
+    assert choose(197, 197, 64, bf, True) == "wgmma"
+    assert choose(197, 197, 128, bf, False) == "wgmma"
     assert choose(197, 197, 64, bf, False) == "resident"
     assert choose(64, 64, 16, f32, True) == "fma_f32"
     for D, dt in ((16, bf), (32, f32), (128, f32)):
