@@ -257,8 +257,9 @@ cuDNN):
     path's time.
 
 the LM's training (deepseek-moe-16b at train_4k, full width, cut to 4
-layers: the launcher's one-card cut; K3's backward -- the dgrad on the
-``persistent`` kernel -- and K2's causal, D = 128 backward on ``wgmma``):
+layers: the launcher's one-card cut; K3's backward -- dgrad and wgrad on
+their ``persistent`` kernels -- and K2's causal, D = 128 backward on
+``wgmma``):
 
 24. (a) K2's backward against its plain version, causal and not, bf16 at
     D = 64 and 128, fp32 at D = 8, 16 and 64, S = T in (1, 63, 64, 65,
@@ -269,9 +270,9 @@ layers: the launcher's one-card cut; K3's backward -- the dgrad on the
     (b) K3's dgrad and wgrad against their plain versions, bf16 and fp32:
     C = 480, 16 and 17, E = 1, counts all 0, all C and ragged, NaN in x
     and dy past every count, the expert width and count as strided views,
-    the dense oracle's stride-0 expert axis; dgrad exact zeros past the
-    counts, a dead expert's dw exactly 0, one launch per comparison on
-    the variant it should take (dgrad ``persistent``, wgrad ``tma``);
+    x as a strided view, the dense oracle's stride-0 expert axis; dgrad
+    exact zeros past the counts, a dead expert's dw exactly 0, one launch
+    per comparison on the variant it should take (``persistent``);
     then both at every distinct call of one recorded train_4k microbatch
     (4 x 4096, bf16, counts as routed), K2's first sequence against the
     plain version, every call the same bits twice and under 3 CUDA-graph
@@ -279,8 +280,10 @@ layers: the launcher's one-card cut; K3's backward -- the dgrad on the
     microbatch, and K3's and K2's forward's, beside the plain versions,
     ``torch.bmm``, SDPA's forward and autograd backward and the bound,
     and with ``--parent-csrc`` the parent's kernels (a parent without
-    ``wgmma`` on its two-pass ``mma`` backward, one without
-    ``persistent`` on ``tma``) in turns;
+    ``wgmma`` on its two-pass ``mma`` backward, one without a
+    ``persistent`` dgrad or wgrad on ``tma``) in turns, the K3 dgrad and
+    wgrad rows broken down by shape, and the persistent wgrad at items
+    of 128 and 256 columns, its experts by descending count and by index;
     (c) one AdamW step of the smoke config in fp32 on the card, kernel
     route against plain route: loss, gradient norm and every updated
     parameter; (d) ``repro_torch.launch.train --arch deepseek-moe-16b``:
@@ -303,6 +306,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -524,14 +528,15 @@ def k2_library(q, k, v, causal=True, kv_len=None):
 FORWARD = ("elastic_matmul", "flash_attention", "expert_matmul")
 # the kernels no bf16 main-path call may take: the first port's forward
 # kernels, the first backward of K1, K3's backward tile loop, and K3's
-# tma dgrad, which the persistent one replaced where it stores dx (the
-# serving and LM inference paths launch no backward)
+# tma dgrad and wgrad, which the persistent ones replaced (dgrad where it
+# stores dx; the serving and LM inference paths launch no backward)
 OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
             ("expert_matmul", "tile_bf16"),
             ("elastic_matmul_dgrad", "wmma_bf16"),
             ("elastic_matmul_wgrad", "wmma_bf16"),
             ("expert_matmul_dgrad", "tma"),
             ("expert_matmul_dgrad", "tile_bf16"),
+            ("expert_matmul_wgrad", "tma"),
             ("expert_matmul_wgrad", "tile_bf16")}
 
 
@@ -708,19 +713,23 @@ def time_rows(label: str, calls: list, kern, plain, lib, lib_name: str,
 # runs its backward through the older entry points, unchanged since
 K1_BWD_TMA = ("repro_elastic_matmul_dgrad_tma",
               "repro_elastic_matmul_wgrad_tma")
-# the launcher of a later variant, by source: (launcher, module attribute
-# of the variant choice, {variant: the variant it took before}); a parent
-# without it runs those calls on the older variant, through this tree's
-# wrapper and the parent's library
 # K2's decode launcher since it reads the key count on the device; a
 # parent without it runs decode calls through its host-count entry point
 K2_DECODE_LEN = "repro_flash_attention_decode_len"
-LATER_VARIANTS = {
-    "elastic_matmul": ("repro_elastic_matmul_f32_splitk", "choose_variant",
-                       {"f32_splitk": "tile_f32"}),
-    "expert_matmul": ("repro_expert_matmul_dgrad_persistent",
-                      "choose_bwd_variant", {"persistent": "tma"}),
-}
+# the launchers of later variants: (source, launcher, module attribute of
+# the variant choice, the choice's ``kind`` it serves or None for every
+# call, {variant: the variant it took before}); a parent without one runs
+# those calls on the older variant, through this tree's wrapper and the
+# parent's library (K3's persistent wgrad came after its persistent
+# dgrad: a parent may have the one and not the other)
+LATER_VARIANTS = (
+    ("elastic_matmul", "repro_elastic_matmul_f32_splitk", "choose_variant",
+     None, {"f32_splitk": "tile_f32"}),
+    ("expert_matmul", "repro_expert_matmul_dgrad_persistent",
+     "choose_bwd_variant", "dgrad", {"persistent": "tma"}),
+    ("expert_matmul", "repro_expert_matmul_wgrad_persistent",
+     "choose_bwd_variant", "wgrad", {"persistent": "tma"}),
+)
 
 
 # K2's bf16 backward launchers since its two-pass mma.sync kernels, by
@@ -731,7 +740,8 @@ K2_BWD_LATER = {"resident": "repro_flash_attention_bwd_resident",
 
 
 def later_launchers(name: str) -> tuple:
-    return LATER_VARIANTS[name][:1] if name in LATER_VARIANTS else ()
+    return tuple(launcher for src, launcher, *_ in LATER_VARIANTS
+                 if src == name)
 
 
 def parent_kernels(csrc: str) -> dict:
@@ -747,7 +757,7 @@ def parent_kernels(csrc: str) -> dict:
     its tma variants through this wrapper's ``wmma_bf16`` route (in bf16),
     which calls the parent's entry points as its wrapper did; and a call
     whose variant the parent lacks (``LATER_VARIANTS``: K1 ``f32_splitk``,
-    K3's ``persistent`` dgrad) on the variant it took before; a K2
+    K3's ``persistent`` dgrad or wgrad) on the variant it took before; a K2
     backward whose variant the parent lacks (``K2_BWD_LATER``) on its
     two-pass entry point, called as its wrapper of the time called it."""
     import ctypes
@@ -796,16 +806,26 @@ def parent_kernels(csrc: str) -> dict:
 
     mods = {"elastic_matmul": em, "flash_attention": fa,
             "expert_matmul": xm}
+    lacking = {}     # (source, attribute): [(kind, before), ...]
+    for name, launcher, attr, kind, before in LATER_VARIANTS:
+        if not hasattr(libs[name], launcher):
+            lacking.setdefault((name, attr), []).append((kind, before))
     older = []       # (module, attribute, key) of the choices to route
     fns = {}
-    for name, (launcher, attr, before) in LATER_VARIANTS.items():
-        if not hasattr(libs[name], launcher):
-            def choose(*a, _orig=getattr(mods[name], attr), _before=before,
-                       **kw):
-                v = _orig(*a, **kw)
-                return _before.get(v, v)
-            older.append((mods[name], attr, name))
-            fns[name] = choose
+    for (name, attr), rules in lacking.items():
+        orig = getattr(mods[name], attr)
+
+        def choose(*a, _orig=orig, _sig=inspect.signature(orig),
+                   _rules=rules, **kw):
+            v = _orig(*a, **kw)
+            bound = _sig.bind(*a, **kw)
+            bound.apply_defaults()
+            for kind, before in _rules:
+                if kind in (None, bound.arguments.get("kind")):
+                    v = before.get(v, v)
+            return v
+        older.append((mods[name], attr, f"{name}.{attr}"))
+        fns[f"{name}.{attr}"] = choose
 
     @contextlib.contextmanager
     def parent_libs():
@@ -3965,7 +3985,7 @@ LM_TRAIN_VARIANTS = {("elastic_matmul", "tma"),
                      ("elastic_matmul_wgrad", "tma"),
                      ("flash_attention_bwd", "wgmma"),
                      ("expert_matmul_dgrad", "persistent"),
-                     ("expert_matmul_wgrad", "tma")}
+                     ("expert_matmul_wgrad", "persistent")}
 LM_STEP_GROUPS = (
     ("expert_tma_kernel<1>", "K3 dgrad"), ("expert_dgrad", "K3 dgrad"),
     ("expert_wgrad", "K3 wgrad"), ("expert_", "K3 forward"),
@@ -4064,12 +4084,16 @@ def k3_bwd_cases(dev) -> dict:
     """Phase 24 (b), edge half: K3's dgrad and wgrad against their plain
     versions, bf16 and fp32, at the LM's expert shapes (up 2048 -> 1408,
     down 1408 -> 2048) with C = 480 (one sequence's slab), 16 and 17;
-    E = 1; counts all 0, all C and ragged; NaN in x and dy past every
-    count; the expert width (a_ff) and count (slice_e) as strided views
-    of the full weights; the dense oracle's stride-0 expert axis.  dgrad
+    E = 1; counts all 0, all C and ragged (0, 1, a partial box, C - 1,
+    C); NaN in x and dy past every count; the expert width (a_ff) and
+    count (slice_e) as strided views of the full weights (F = 128 too:
+    half of the persistent wgrad's 256-column item), x as a strided view;
+    the dense oracle's stride-0 expert axis; in bf16 at C 16 and 17, 513
+    experts (more than the persistent kernels' prologues hold).  dgrad
     exact zeros past the counts, a dead expert's dw exactly 0; each
-    comparison one launch on the variant it should take (bf16: dgrad on
-    persistent, wgrad on tma, tile_bf16 for the stride-0 expert axis)."""
+    comparison one launch on the variant it should take (bf16: dgrad and
+    wgrad on persistent, tma past 512 experts, tile_bf16 for the stride-0
+    expert axis)."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -4086,6 +4110,10 @@ def k3_bwd_cases(dev) -> dict:
         tol = K3_BWD_TOL[dt]
         wi = rn(E, d, Fe, dtype=dtype, scale=d ** -0.5)
         wo = rn(E, Fe, d, dtype=dtype, scale=Fe ** -0.5)
+        # the only bf16 calls the tma kernels take: more than 512 experts
+        E_big = xm.PERSISTENT_E_MAX + 1
+        w_big = rn(E_big, d, Fe, dtype=dtype, scale=d ** -0.5) \
+            if dtype == torch.bfloat16 else None
         for C in (480, 16, 17):
             ragged = torch.tensor([0, 1, C // 3, C - 1, C, 63 % (C + 1),
                                    65 % (C + 1), C // 2] * (E // 8),
@@ -4096,10 +4124,15 @@ def k3_bwd_cases(dev) -> dict:
                      ("down", ragged, wo, None),
                      ("a_ff 1056 view", ragged, wi[..., :1056], None),
                      ("down a_ff 704 view", ragged, wo[:, :704], None),
+                     ("F 128 view", ragged, wi[..., :128], None),
                      ("slice_e 32 view", ragged[:32], wi[:32], None),
                      ("E=1", ragged[3:4], wi[:1], None),
+                     ("strided x", ragged, wi, "strided"),
                      ("stride-0 experts", torch.full_like(ragged, C), wi,
                       "expand")]
+            if w_big is not None and C < 480:
+                cases.append((f"E={E_big}", ragged.repeat(
+                    -(-E_big // E))[:E_big], w_big, None))
             for label, counts, w, how in cases:
                 Ee, K, F_ = w.shape
                 live = (torch.arange(C, device=dev)[None, :]
@@ -4108,6 +4141,9 @@ def k3_bwd_cases(dev) -> dict:
                 dy = torch.where(live, rn(Ee, C, F_, dtype=dtype), nan)
                 if how == "expand":
                     x = rn(1, C, K, dtype=dtype).expand(Ee, C, K)
+                elif how == "strided":      # rows of K + 64, read in place
+                    x = torch.where(live, rn(Ee, C, K + 64, dtype=dtype),
+                                    nan)[..., :K]
                 else:
                     x = torch.where(live, rn(Ee, C, K, dtype=dtype), nan)
                 for kind, fn, args, a in (
@@ -4117,8 +4153,8 @@ def k3_bwd_cases(dev) -> dict:
                          x)):
                     want_v = xm.bwd_variant_of(a, dy, kind)
                     if dtype == torch.bfloat16 and want_v != (
-                            "tile_bf16" if a.stride(0) == 0 else
-                            "persistent" if kind == "dgrad" else "tma"):
+                            "tile_bf16" if a.stride(0) == 0 else "tma"
+                            if Ee > xm.PERSISTENT_E_MAX else "persistent"):
                         raise AssertionError(f"K3 {kind} {label}: chose "
                                              f"{want_v}")
                     name = f"expert_matmul_{kind}"
@@ -4150,12 +4186,14 @@ def k3_bwd_cases(dev) -> dict:
                     worst[key] = tuple(map(max, zip(worst.get(key, err),
                                                     err)))
                 del x, dy
-        del wi, wo
+        del wi, wo, w_big
     for (dt, kind, v), e in sorted(worst.items()):
-        log(f"  K3 {kind} {dt:8s} on {v:9s}: C in (480, 16, 17) x (ragged, "
-            f"all 0, all C, down, a_ff and slice_e views, E = 1, stride-0 "
-            f"experts), NaN past every count: {e[1]:.3g} of the largest "
-            f"value, max abs err {e[0]:.3g} "
+        which = (f"E = {xm.PERSISTENT_E_MAX + 1} at C 16 and 17" if v == "tma"
+                 else "C in (480, 16, 17) x (ragged, all 0, all C, down, "
+                 "a_ff, F 128 and slice_e views, E = 1, strided x, "
+                 "stride-0 experts)")
+        log(f"  K3 {kind} {dt:8s} on {v:9s}: {which}, NaN past every count: "
+            f"{e[1]:.3g} of the largest value, max abs err {e[0]:.3g} "
             f"(tol {K3_BWD_TOL[dt]}); dgrad zeros past the counts, dead "
             f"experts' dw 0")
     return worst
@@ -4191,6 +4229,12 @@ def k3_dgrad_group(args, kw) -> str:
     """A K3 dgrad call's dx width and dy's, for the breakdown."""
     _, w, _ = args
     return f"dx width {w.shape[1]}, dy width {w.shape[2]}"
+
+
+def k3_wgrad_group(args, kw) -> str:
+    """A K3 wgrad call's dw shape, for the breakdown."""
+    x, dy, _ = args
+    return f"dw {x.shape[2]} x {dy.shape[2]}"
 
 
 def k3_dgrad_library(dy, w, c):
@@ -4268,7 +4312,7 @@ def lm_recorded_checks(rec: dict) -> dict:
     against the plain version on that sequence: the plain scores of all
     four are 4 GiB each) and K3's dgrad and wgrad (dgrad exact zeros past
     the counts); each call the same bits twice and under 3 CUDA-graph
-    replays; one launch per comparison, on wgmma, persistent or tma."""
+    replays; one launch per comparison, on wgmma or persistent."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -4315,7 +4359,7 @@ def lm_recorded_checks(rec: dict) -> dict:
             took = {v: c_ - was[v] for v, c_ in
                     ops.variant_counts()[name].items() if c_ != was[v]}
             want_v = {"k2_bwd": "wgmma", "x_dgrad": "persistent",
-                      "x_wgrad": "tma"}[key]
+                      "x_wgrad": "persistent"}[key]
             if ran != 1 or took != {want_v: 1}:
                 raise AssertionError(f"{name} {what}: launches {took}")
             was = ops.variant_counts()[name][want_v]
@@ -4518,7 +4562,8 @@ def lm_train_phases(dev, parent) -> dict:
                               expand(rec["x_wgrad"]), xm.expert_matmul_wgrad,
                               xm.expert_matmul_wgrad_plain,
                               k3_wgrad_library, "torch.bmm", k3_wgrad_work,
-                              par(xm.expert_matmul_wgrad), mode=nograd),
+                              par(xm.expert_matmul_wgrad),
+                              group=k3_wgrad_group, mode=nograd),
         "k2_bwd": time_rows("K2 backward (causal, D 128), train_4k "
                             "microbatch", expand(rec["k2_bwd"]),
                             k2_bwd_kernel, k2_bwd_plain, SdpaBackward(),
@@ -4628,7 +4673,7 @@ def main() -> int:
                           r"_cu_[0-9a-f]{8}\d+(\w+?)E[vP]", line)
             if m:     # the kernel (and template arguments), still mangled
                 entry = m.group(1)
-            elif re.search(r"Used \d+ registers|spill", line):
+            elif re.search(r"Used \d+ registers|spill|Performance Loss", line):
                 log(f"  {entry}: {line.strip()}")
 
     parent = None

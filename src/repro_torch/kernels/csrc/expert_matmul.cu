@@ -91,15 +91,22 @@
 // kernel does not (dx rows TMA cannot store, more than 512 experts).  Both
 // read a strided a_ff or slice_e view of w in place through the same 3-D
 // map.  The persistent kernel's 2-block clusters multicasting the w tile
-// measured slower (PERF.md); so did 128-column items.  wgrad
-// (expert_wgrad_tma_kernel) gives a block one 128 x 128
-// tile of an expert's (K, F) gradient and reduces over that expert's live
-// rows, x and dy both MN-major (K1's wgrad layout), no split and so no
-// reduce: deterministic, graph-safe.  The last 64-row box of a ragged
-// count holds rows past it (TMA loads whole boxes); the consumers zero
-// them in shared memory before the product, since a NaN there would
-// reach the sum.  fp32 and strides TMA cannot take (the dense oracle's
-// stride-0 expert axis) go to a 64x64 FMA tile loop over any strides.
+// measured slower (PERF.md); so did 128-column items.  wgrad runs on the
+// persistent variant too (expert_wgrad_persistent, below): one block an
+// SM walks the (live expert, 128-row K tile, 256-column F tile) items,
+// the experts by descending count so that the longest reductions start
+// first and the last wave is short, each tile reduced over its expert's
+// live rows by one block (x and dy both MN-major, K1's wgrad layout; no
+// split, so no reduce: the same bits every run, graph-safe), staged as
+// bf16 and stored by TMA while the producer loads the next item; a
+// producer warpgroup gives its registers to the consumers (setmaxnreg)
+// and writes the dead experts' zeros.  Its predecessor
+// expert_wgrad_tma_kernel (a block per 128 x 128 tile, cold ring each)
+// takes more than 512 experts.  The last 64-row box of a ragged count
+// holds rows past it (TMA loads whole boxes); the consumers zero them in
+// shared memory before the product, since a NaN there would reach the
+// sum.  fp32 and strides TMA cannot take (the dense oracle's stride-0
+// expert axis) go to a 64x64 FMA tile loop over any strides.
 //
 // Later work: the forward's tma on the persistent schedule (ragged experts
 // of 0 to 240 rows at prefill, one tile's epilogue overlapping the next
@@ -502,11 +509,13 @@ constexpr int P_BM = 128;        // rows an item: 64 a consumer warpgroup
 constexpr int P_BN = 256;        // columns an item (128 measured slower)
 constexpr int P_E_MAX = 512;     // experts the prologue's scan takes
 
-// The persistent dgrad's shared memory at BN output columns an item: the
-// ring (as many BK = 64 stages of A = dy and B = w as fit), each
+// The persistent dgrad's and wgrad's shared memory at BN output columns
+// an item: the ring (as many BK = 64 stages of A (128 rows) and B (BN
+// columns) as fit: dy and w for dgrad, x and dy for wgrad), each
 // warpgroup's 64 x BN output tile for the TMA store, the mbarriers, and
-// three int arrays of P_E_MAX + 1 (the scan: live items and dead rows
-// before each expert, the clamped counts).
+// three int arrays of P_E_MAX + 1 (dgrad's scan: live items and dead rows
+// before each expert, the clamped counts; wgrad's clamped counts and
+// order of the experts).
 template <int BN>
 struct PersistTile {
   static constexpr int A_BYTES = P_BM * G_BK * 2;
@@ -711,6 +720,216 @@ expert_dgrad_persistent(const __grid_constant__ CUtensorMap map_dy,
       for (int h = 0; h < BN / 64; ++h)
         if (n0 + 64 * h < K)
           tma_store_3d(&map_dx, o_wg + h * 8192, n0 + 64 * h, m0 + 64 * wg,
+                       e);
+      bulk_commit();
+    }
+    __syncwarp();
+  }
+  if (t == 0) bulk_wait();
+}
+
+// ------------------------------------------------- wgrad: persistent ----
+
+// dw[e, i, j] = sum_{c < counts[e]} x[e, c, i] dy[e, c, j] as a persistent
+// kernel: gridDim.x blocks (at most one an SM) walk one list of items --
+// (live expert, 128-row K tile, 256-column F tile) -- block b taking
+// items b, b + gridDim.x, ...  Every live expert has the same items, so
+// the list is an order of the live experts, made by every block in its
+// prologue from the device counts (no host sync: graph-safe): by
+// descending count (ties by index), so the longest reductions start first
+// and the last wave is short.  An F past the last tile's columns is
+// zero-filled by the loads and clipped by the stores.
+// Within an expert, an F tile's K tiles are consecutive: blocks that run
+// together share its dy boxes in L2.  The producer thread keeps the ring
+// full across items with 64-row boxes of x (K, C, E) and dy (F, C, E),
+// both MN-major; each consumer warpgroup owns 64 of the 128 K rows and
+// runs wgmma m64n256k16 over the expert's live rows, zeroing the rows of
+// the last box past the count in shared memory first (a NaN there would
+// reach the sum), then stages its tile as bf16 for a TMA store while the
+// producer loads the next item.  Each tile is summed by one block in row
+// order: the same bits on every run, no workspace, no atomics.  The
+// producer is a whole warpgroup, so that setmaxnreg can give its
+// registers to the consumers' 128 accumulators (at 288 threads ptxas caps
+// a thread at 168 registers, and BN = 256 spilled); its other three warps
+// write the dead experts' zeros of the block's share, so every element of
+// dw is written.
+constexpr int W_THREADS = 128 * X_CWG + 128;
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+expert_wgrad_persistent(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_dw,
+                        __nv_bfloat16* __restrict__ dw,
+                        const int* __restrict__ counts, int E, int C, int K,
+                        int F) {
+  constexpr int BN = P_BN;
+  using P = PersistTile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* out = smem + P::STAGES * P::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + P::OUT_BYTES);
+  uint64_t* empty = full + P::STAGES;
+  int* cnts = reinterpret_cast<int*>(empty + P::STAGES);   // [E]
+  int* order = cnts + (P_E_MAX + 1);      // [E]: live experts, then dead
+  int* n_live_s = order + P_E_MAX;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int n_it = (K + P_BM - 1) / P_BM;           // K tiles of an expert
+  const int per = n_it * ((F + BN - 1) / BN);       // items of a live one
+
+  if (tid == 0) {
+    *n_live_s = 0;
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_async_smem();
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += blockDim.x) {
+    cnts[e] = min(max(counts[e], 0), C);
+    if (cnts[e] > 0) atomicAdd(n_live_s, 1);
+  }
+  __syncthreads();
+  // each expert's place: live ones first, by descending count; dead ones
+  // after them; ties by index
+  for (int e = tid; e < E; e += blockDim.x) {
+    const int ce = cnts[e];
+    int r = 0;
+    for (int o = 0; o < E; ++o) {
+      const int co = cnts[o];
+      r += co != ce ? co > ce : o < e;
+    }
+    order[r] = e;
+  }
+  __syncthreads();
+  const int n_live = *n_live_s, n_items = n_live * per;
+
+  // item i: its expert, first K row and first F column
+  auto item = [&](int i, int& e, int& i0, int& j0) {
+    e = order[i / per];
+    const int l = i % per;
+    i0 = (l % n_it) * P_BM;
+    j0 = (l / n_it) * BN;
+  };
+
+  const int wg = tid / 128;
+  if (wg == X_CWG) {                      // the producer warpgroup
+    // 2 x 128 x 232 + 128 x 40 registers <= 64 K
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    const int warp = (tid % 128) / 32;
+    if (warp > 0) {
+      // the dead experts' rows of this block's share, a row a warp, 16
+      // bytes a lane (F % 8 == 0)
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      const int n_dead = (E - n_live) * K;
+      for (int r = blockIdx.x + gridDim.x * (warp - 1); r < n_dead;
+           r += 3 * gridDim.x) {
+        const int e = order[n_live + r / K];
+        uint4* p =
+            reinterpret_cast<uint4*>(dw + ((size_t)e * K + r % K) * F);
+        for (int c = lane; c < F / 8; c += 32) p[c] = z;
+      }
+    } else if (lane == 0) {
+      int g = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        int e, i0, j0;
+        item(i, e, i0, j0);
+        const int n_k = (cnts[e] + G_BK - 1) / G_BK;
+        for (int kt = 0; kt < n_k; ++kt, ++g) {
+          const int s = g % P::STAGES;
+          mbar_wait(&empty[s], ((g / P::STAGES) & 1) ^ 1);
+          unsigned char* a = smem + s * P::STAGE_BYTES;
+          unsigned char* b = a + P::A_BYTES;
+          mbar_expect_tx(&full[s], P::STAGE_BYTES);
+#pragma unroll
+          for (int h = 0; h < X_CWG; ++h)
+            tma_load_3d(a + h * 8192, &map_x, &full[s], i0 + 64 * h,
+                        kt * G_BK, e);
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)
+            tma_load_3d(b + h * 8192, &map_dy, &full[s], j0 + 64 * h,
+                        kt * G_BK, e);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int t = tid % 128;
+  unsigned char* o_wg = out + wg * (64 * BN * 2);     // BN / 64 boxes
+  const int r_base = 16 * (t / 32) + (t % 32) / 4;
+  float d[BN / 2];
+  int g = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+    int e, i0, j0;
+    item(i, e, i0, j0);
+    const int cnt = cnts[e];
+    const int n_k = (cnt + G_BK - 1) / G_BK;
+    const int tail = cnt - (n_k - 1) * G_BK;    // live rows of the last box
+#pragma unroll
+    for (int x = 0; x < BN / 2; ++x) d[x] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt, ++g) {
+      const int s = g % P::STAGES;
+      mbar_wait(&full[s], (g / P::STAGES) & 1);
+      unsigned char* st = smem + s * P::STAGE_BYTES;
+      if (kt == n_k - 1 && tail < G_BK) {
+        // rows tail .. 63 of each 64-row box (whole 128-byte rows: the
+        // swizzle moves 16-byte chunks within a row), by both consumer
+        // warpgroups, made visible to wgmma's async proxy
+        constexpr int BOXES = X_CWG + BN / 64;
+        const int per_box = (G_BK - tail) * 8;          // 16-byte chunks
+        for (int z = tid; z < BOXES * per_box; z += 128 * X_CWG) {
+          const int box = z / per_box, r = tail + (z % per_box) / 8;
+          reinterpret_cast<uint4*>(st + box * 8192 + r * 128)[z % 8] =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_async_smem();
+        asm volatile("bar.sync 3, %0;" ::"n"(128 * X_CWG) : "memory");
+      }
+      const uint32_t a = smem_u32(st) + wg * 8192;
+      const uint32_t b = smem_u32(st + P::A_BYTES);
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < G_BK / 16; ++ks)
+        // both MN-major: a 16-row step of the reduction is 2 KB
+        wgmma_step<BN, 1, 1>(d, gmma_desc(a + ks * 2048, 8192, 1024),
+                             gmma_desc(b + ks * 2048, 8192, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(d);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(g - 1) % P::STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(d);
+    if (lane == 0) mbar_arrive(&empty[(g - 1) % P::STAGES]);
+    // the epilogue: once the last item's store has read the tile, this
+    // warpgroup's 64 K rows as bf16 into its swizzled boxes, then one TMA
+    // store per box (rows past K and columns past F are not written)
+    if (t == 0) bulk_wait_read();
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = r_base + 8 * ii;
+        const int ch = j % 8;
+        *reinterpret_cast<__nv_bfloat162*>(
+            o_wg + (j / 8) * 8192 + r * 128 + ((ch ^ (r & 7)) << 4) +
+            4 * (t % 4)) =
+            __floats2bfloat162_rn(d[4 * j + 2 * ii], d[4 * j + 2 * ii + 1]);
+      }
+    }
+    fence_async_smem();
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (t == 0 && i0 + 64 * wg < K) {
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h)
+        if (j0 + 64 * h < F)
+          tma_store_3d(&map_dw, o_wg + h * 8192, j0 + 64 * h, i0 + 64 * wg,
                        e);
       bulk_commit();
     }
@@ -1034,6 +1253,36 @@ extern "C" int repro_expert_matmul_wgrad_tma(const void* x, const void* dy,
                                              void* stream) {
   return launch_wgrad_tma(x, dy, dw, static_cast<const int*>(counts), E, C,
                           K, F, x_se, x_sc, static_cast<cudaStream_t>(stream));
+}
+
+// The persistent wgrad (bf16; as the tma wgrad, and E <= 512): `grid`
+// blocks, at most one an SM, over items of 128 K rows x 256 F columns, the
+// experts by descending count.  Returns as above; -1 for an unsupported
+// shape or grid.
+extern "C" int repro_expert_matmul_wgrad_persistent(
+    const void* x, const void* dy, void* dw, const void* counts, int E,
+    int C, int K, int F, long long x_se, int x_sc, int grid, void* stream) {
+  if (E < 1 || E > P_E_MAX || C < 1 || K < 1 || F < 1 || F % 8 || grid < 1)
+    return -1;
+  CUtensorMap map_x, map_dy, map_dw;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)K, (cuuint64_t)C, (cuuint64_t)E};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)x_sc * 2,
+                                   (cuuint64_t)x_se * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  if (!encode_bf16_map(&map_x, x, 3, x_dims, x_strides, box) ||
+      !encode_slab_map(&map_dy, dy, E, C, F) ||
+      !encode_slab_map(&map_dw, dw, E, K, F))
+    return -2;
+  constexpr size_t bytes = PersistTile<P_BN>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      expert_wgrad_persistent, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  expert_wgrad_persistent<<<grid, W_THREADS, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_dy, map_dw, static_cast<__nv_bfloat16*>(dw),
+      static_cast<const int*>(counts), E, C, K, F);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The backward's tile kernels (any strides of w or x, fp32 or bf16 on FMAs

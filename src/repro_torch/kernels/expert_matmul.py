@@ -33,18 +33,21 @@ x[e, :counts[e]]^T @ dy[e, :counts[e]]`` over the live rows only, in w's
 shape; a dead expert's dw is exactly zero and reads no byte of x or dy).
 Rows of x and dy past a count never reach a live result, whatever they
 hold.  The variants, chosen by :func:`choose_bwd_variant` from the kind,
-dtype, shapes, bases and strides (never from ``counts``): dgrad's
-``persistent`` (bf16 TMA can read, dx rows of a multiple of 8: one block
-an SM walks a list of the live (expert, row tile, column tile) items that
-it scans from the device counts, 128 x 256 tiles on
-wgmma, each tile stored by TMA while the next one loads, the dead rows
-zeroed by the same blocks; planned by :func:`dgrad_persistent_plan`),
-``tma`` (wgrad's in bf16 TMA can read, one 128 x 128 tile of an expert's
-gradient a block over its live rows, both operands MN-major; dgrad's
-where ``persistent`` does not take the call: the forward's grouped wgmma
-GEMM with w as a K-major B), ``tile_bf16`` and ``tile_f32`` (any
-strides, on FMAs: the stride-0 expert axis of the dense oracle, fp32).
-Plain versions sit beside them.
+dtype, shapes, bases and strides (never from ``counts``): ``persistent``
+for bf16 TMA can read with at most 512 experts -- dgrad's with dx rows of
+a multiple of 8: one block an SM walks a list of the live (expert, row
+tile, column tile) items that it scans from the device counts, 128 x 256
+tiles on wgmma, each tile stored by TMA while the next one loads, the
+dead rows zeroed by the same blocks (:func:`dgrad_persistent_plan`);
+wgrad's the same schedule over (live expert, 128-row K tile, 256-column
+F tile) items, the experts by descending count (the longest reductions
+first), each tile reduced over its
+expert's live rows by one block, both operands MN-major
+(:func:`wgrad_persistent_plan`) -- ``tma`` where ``persistent`` does not
+take the call (dgrad: the forward's grouped wgmma GEMM with w as a
+K-major B; wgrad: one 128 x 128 tile a block), ``tile_bf16`` and
+``tile_f32`` (any strides, on FMAs: the stride-0 expert axis of the
+dense oracle, fp32).  Plain versions sit beside them.
 """
 from __future__ import annotations
 
@@ -85,8 +88,9 @@ STREAM_KC_MIN = 256     # fewest weight rows worth a block of their own
 # and X_BN): at the LM's prefill it beat one block per (F tile, expert)
 # over all its rows, 128 x 256 and two blocks per SM (PERF.md)
 TMA_TILE = (128, 128)
-# the persistent dgrad: rows and columns of an item (128 columns measured
-# slower at every train_4k shape), and the most experts its scan takes
+# the persistent dgrad and wgrad: an item's rows (dx's, dw's K) and
+# columns (128 measured slower at every train_4k shape, for both), and
+# the most experts their prologues take
 PERSISTENT_TILE = (128, 256)
 PERSISTENT_E_MAX = 512
 
@@ -100,6 +104,8 @@ _ARGTYPES = {
     "repro_expert_matmul_dgrad_tma": [_P] * 4 + [_I] * 4 + [_L, _I, _P],
     "repro_expert_matmul_wgrad_tma": [_P] * 4 + [_I] * 4 + [_L, _I, _P],
     "repro_expert_matmul_dgrad_persistent": [_P] * 4 + [_I] * 4
+    + [_L, _I, _I, _P],
+    "repro_expert_matmul_wgrad_persistent": [_P] * 4 + [_I] * 4
     + [_L, _I, _I, _P],
     "repro_expert_matmul_bwd_tile": [_I] + [_P] * 4 + [_I] * 4
     + [_L, _I, _I, _P],
@@ -279,16 +285,16 @@ def choose_bwd_variant(F: int, dtype: torch.dtype, strides: tuple,
     read in place (w for dgrad, x for wgrad: dy and the outputs are
     contiguous), ``aligned`` whether every base is 16-byte aligned and K,
     F >= 1.  TMA needs that, every stride a non-zero multiple of 16 bytes
-    and dy's rows of F a multiple of 8 elements.  dgrad's ``persistent``
-    also stores dx's rows of ``K`` by TMA (a multiple of 8) and scans the
-    ``E`` experts' counts in shared memory (at most
-    :data:`PERSISTENT_E_MAX`); where it cannot, dgrad takes ``tma``."""
+    and dy's rows of F a multiple of 8 elements.  Both ``persistent``
+    kernels hold the ``E`` experts' counts in shared memory (at most
+    :data:`PERSISTENT_E_MAX`), and dgrad's also stores dx's rows of ``K``
+    by TMA (a multiple of 8); where they cannot, both take ``tma``."""
     if kind not in ("dgrad", "wgrad"):
         raise ValueError(f"kind must be dgrad or wgrad, got {kind!r}")
     if dtype != torch.bfloat16:
         return "tile_f32"
     if aligned and F % 8 == 0 and all(s > 0 and s % 8 == 0 for s in strides):
-        if kind == "dgrad" and K % 8 == 0 and E <= PERSISTENT_E_MAX:
+        if E <= PERSISTENT_E_MAX and (kind == "wgrad" or K % 8 == 0):
             return "persistent"
         return "tma"
     return "tile_bf16"
@@ -300,6 +306,14 @@ def dgrad_persistent_plan(E: int, C: int, K: int, sms: int = SMS) -> int:
     is on the device)."""
     bm, bn = PERSISTENT_TILE
     return max(1, min(sms, E * _cdiv(C, bm) * _cdiv(K, bn)))
+
+
+def wgrad_persistent_plan(E: int, K: int, F: int, sms: int = SMS) -> int:
+    """Blocks of the persistent wgrad: one an SM, never more than the
+    (K tile, F tile) items every expert would make live (how many are
+    live is on the device)."""
+    bm, bn = PERSISTENT_TILE
+    return max(1, min(sms, E * _cdiv(K, bm) * _cdiv(F, bn)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,10 +379,15 @@ def _bwd_launch(op: int, a: torch.Tensor, dy: torch.Tensor,
     variant, st = _bwd_plan(a, dy, "dgrad" if op == 0 else "wgrad")
     E, C, F = dy.shape
     stream = torch.cuda.current_stream(dy.device).cuda_stream
-    if variant == "persistent":
+    if variant == "persistent" and op == 0:
         grid = dgrad_persistent_plan(E, C, K, _sm_count(dy.device.index))
         rc = _launcher("repro_expert_matmul_dgrad_persistent")(
             dy.data_ptr(), a.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            E, C, K, F, *st, grid, stream)
+    elif variant == "persistent":
+        grid = wgrad_persistent_plan(E, K, F, _sm_count(dy.device.index))
+        rc = _launcher("repro_expert_matmul_wgrad_persistent")(
+            a.data_ptr(), dy.data_ptr(), out.data_ptr(), counts.data_ptr(),
             E, C, K, F, *st, grid, stream)
     elif variant == "tma":
         name = ("repro_expert_matmul_dgrad_tma" if op == 0

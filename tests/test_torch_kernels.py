@@ -365,17 +365,62 @@ def test_wgmma_backward_plan(B, H, KH, S, T, want):
     (2048, 1060, 64, True, "dgrad", torch.bfloat16, "tma"),  # dx rows
     (2048, 1408, 513, True, "dgrad", torch.bfloat16, "tma"),  # the scan
     (2048, 1408, 512, True, "dgrad", torch.bfloat16, "persistent"),
-    (2048, 1408, 64, True, "wgrad", torch.bfloat16, "tma"),
+    (2048, 1408, 64, True, "wgrad", torch.bfloat16, "persistent"),
+    (1408, 2048, 64, True, "wgrad", torch.bfloat16, "persistent"),
+    (1408, 2048, 512, True, "wgrad", torch.bfloat16, "persistent"),
+    (1408, 2048, 513, True, "wgrad", torch.bfloat16, "tma"),  # the order
+    (1408, 1060, 64, True, "wgrad", torch.bfloat16, "persistent"),  # dw K
+    (1408, 2048, 64, True, "wgrad", torch.float32, "tile_f32"),
     (2048, 1408, 64, False, "dgrad", torch.bfloat16, "tile_bf16"),
     (2048, 1408, 64, True, "dgrad", torch.float32, "tile_f32"),
 ])
 def test_expert_matmul_persistent_dgrad_choice(F, K, E, aligned, kind,
                                                dtype, want):
     """dgrad takes persistent where TMA reads dy and w and stores dx (K a
-    multiple of 8) and the scan holds the experts; else tma."""
+    multiple of 8) and the scan holds the experts; wgrad where TMA reads
+    x and dy and its prologue orders the experts; else tma."""
     st = (K * F, F)
     assert xm.choose_bwd_variant(F, dtype, st, aligned, kind, K,
                                  E) == want
+
+
+@pytest.mark.parametrize("E,how,dtype,want", [
+    (512, "contiguous", torch.bfloat16, "persistent"),
+    (513, "contiguous", torch.bfloat16, "tma"),
+    (64, "a_ff view", torch.bfloat16, "persistent"),   # x strided in place
+    (64, "stride-0 experts", torch.bfloat16, "tile_bf16"),
+    (64, "contiguous", torch.float32, "tile_f32"),
+])
+def test_expert_matmul_wgrad_variant_of(E, how, dtype, want):
+    """The wgrad a call's tensors send it to: persistent up to 512
+    experts, tma past them, tile_bf16 for the dense oracle's stride-0
+    expert axis, tile_f32 in fp32."""
+    x = torch.zeros(E, 3, 64 if how == "a_ff view" else 48, dtype=dtype)
+    if how == "a_ff view":
+        x = x[..., :48]
+    elif how == "stride-0 experts":
+        x = x[:1].expand(E, 3, 48)
+    dy = torch.zeros(E, 3, 40, dtype=dtype)
+    assert xm.bwd_variant_of(x, dy, "wgrad") == want
+
+
+@pytest.mark.parametrize("E,K,F,sms,want", [
+    (64, 2048, 1408, 132, 132),      # the train_4k up and gate slabs
+    (64, 1408, 2048, 132, 132),      # the down projection
+    (1, 64, 8, 132, 1),              # one item
+    (2, 300, 512, 132, 2 * 3 * 2),   # fewer items than SMs
+    (64, 2048, 1408, 114, 114),      # another card's SM count
+    (1, 128, 256, 132, 1),           # one 256-column item
+    (1, 128, 264, 132, 2),           # a second, mostly past F
+    (1, 128, 128, 132, 1),           # F 128: half of one item
+    (1, 256, 8, 132, 2),             # two K tiles
+    (3, 1408, 704, 132, 3 * 11 * 3),  # the a_ff 704 slice
+    (2, 1056, 1408, 132, 2 * 9 * 6),  # a_ff 1056 as dw's K
+])
+def test_wgrad_persistent_plan(E, K, F, sms, want):
+    """One block an SM, never more than the 128-row, 256-column items
+    every expert would make live."""
+    assert xm.wgrad_persistent_plan(E, K, F, sms) == want
 
 
 def test_expert_matmul_bwd_choice_refuses_an_unknown_kind():
@@ -1407,7 +1452,7 @@ def test_cuda_expert_matmul_backward_matches_plain(cuda, dtype, K, F, C):
     plain versions: ragged counts with a dead expert, NaN in x and dy past
     every count, the expert width a strided view; dgrad exact zeros past
     the counts, the dead expert's dw exactly 0, wgrad the same bits twice;
-    tma in bf16, tile_f32 in fp32."""
+    persistent in bf16, tile_f32 in fp32."""
     g = torch.Generator().manual_seed(K + F + C)
     dt = getattr(torch, dtype)
     E = 8
@@ -1422,7 +1467,7 @@ def test_cuda_expert_matmul_backward_matches_plain(cuda, dtype, K, F, C):
     w = (torch.randn(E, K, F + 64, generator=g) / K ** 0.5).to(cuda, dt)
     w = w[..., :F]
     want_d, want_w = ("tile_f32", "tile_f32") if dtype == "float32" \
-        else ("persistent", "tma")
+        else ("persistent", "persistent")
     before = (xm.dgrad_variant_launches[want_d],
               xm.wgrad_variant_launches[want_w])
     dx = xm.expert_matmul_dgrad(dy, w, counts)
@@ -1511,6 +1556,58 @@ def test_cuda_expert_matmul_dgrad_persistent_matches_plain(cuda, K, F, C):
     scale = float(want.float().abs().max())
     assert float((dx.float() - want.float()).abs().max()) <= 2e-2 * scale
     _graph_replays_equal(lambda: xm.expert_matmul_dgrad(dy, w, counts), dx)
+
+
+def _wgrad_matches_plain(cuda, E, K, F, C, counts, want):
+    """K3's wgrad on ``want`` against the plain version: NaN in x and dy
+    past every count, x a strided view; one launch a call on ``want``, a
+    dead expert's dw exactly 0, within bf16 tolerance, the same bits twice
+    and under 3 graph replays."""
+    g = torch.Generator().manual_seed(E + K + F + C)
+    ragged = [0, 1, C // 3, C - 1, C, 65 % (C + 1), 130 % (C + 1), C // 2]
+    c = {"ragged": (ragged * E)[:E], "all dead": [0] * E, "all C": [C] * E,
+         "one": [C - 70]}[counts]
+    counts = torch.tensor(c, dtype=torch.int32, device=cuda)
+    live = (torch.arange(C, device=cuda)[None, :]
+            < counts[:, None])[..., None]
+    nan = torch.tensor(float("nan"), dtype=_BF, device=cuda)
+    x = torch.randn(E, C, K + 64, generator=g).to(cuda, _BF)
+    x = torch.where(live, x, nan)[..., :K]
+    dy = torch.where(live, torch.randn(E, C, F, generator=g).to(cuda, _BF),
+                     nan)
+    assert xm.bwd_variant_of(x, dy, "wgrad") == want
+    before = xm.wgrad_variant_launches[want]
+    dw = xm.expert_matmul_wgrad(x, dy, counts)
+    dw2 = xm.expert_matmul_wgrad(x, dy, counts)
+    torch.cuda.synchronize()
+    assert xm.wgrad_variant_launches[want] - before == 2
+    assert torch.equal(dw, dw2)
+    assert torch.all(dw[counts == 0] == 0)
+    want_dw = xm.expert_matmul_wgrad_plain(x, dy, counts)
+    scale = max(float(want_dw.float().abs().max()), 1e-30)
+    assert torch.isfinite(dw).all()
+    assert float((dw.float() - want_dw.float()).abs().max()) <= 2e-2 * scale
+    _graph_replays_equal(lambda: xm.expert_matmul_wgrad(x, dy, counts), dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K,F,C,counts", [
+    (16, 2048, 1408, 480, "ragged"), (8, 1408, 2048, 300, "all dead"),
+    (8, 1408, 2048, 300, "all C"), (1, 2048, 1408, 1920, "one"),
+    (4, 704, 2048, 17, "ragged"), (8, 704, 128, 300, "ragged")])
+def test_cuda_expert_matmul_wgrad_persistent_matches_plain(cuda, E, K, F, C,
+                                                           counts):
+    """K3's persistent wgrad: counts 0, 1, a partial box, C - 1 and C,
+    every expert dead, E = 1, F = 128 (half of a 256-column item)."""
+    _wgrad_matches_plain(cuda, E, K, F, C, counts, "persistent")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,F,C", [(2048, 1408, 16), (1408, 2048, 17)])
+def test_cuda_expert_matmul_wgrad_tma_past_512_experts(cuda, K, F, C):
+    """K3's tma wgrad, which takes the bf16 calls with more experts than
+    the persistent kernel's prologue holds: 513 experts, ragged counts."""
+    _wgrad_matches_plain(cuda, 513, K, F, C, "ragged", "tma")
 
 
 # --- the fp32 router's split-K kernel and K2's resident backward ------------

@@ -129,8 +129,8 @@ def test_expert_matmul_bwd_plain_matches_jax_vjp():
 # --- the backward kernels' variants (chosen on the host) --------------------------
 
 def test_backward_variant_choices():
-    """K3's dgrad goes to ``persistent`` and its wgrad to ``tma`` for
-    bf16 TMA can read, whatever the counts; ``tile_bf16`` for a stride-0
+    """K3's dgrad and its wgrad go to ``persistent`` for bf16 TMA can
+    read, whatever the counts; ``tile_bf16`` for a stride-0
     expert axis (the dense oracle's tokens), an unaligned row stride or
     dy rows TMA cannot take; ``tile_f32`` for fp32.  K2's backward takes
     causal and D = 128 on ``wgmma``, keeps ``resident`` for the
@@ -138,7 +138,7 @@ def test_backward_variant_choices():
     takes."""
     bf, f32 = torch.bfloat16, torch.float32
     pick = xm.choose_bwd_variant
-    for kind, want in (("dgrad", "persistent"), ("wgrad", "tma")):
+    for kind, want in (("dgrad", "persistent"), ("wgrad", "persistent")):
         assert pick(1408, bf, (2048 * 1408, 1408), True, kind) == want
         assert pick(2048, bf, (2048 * 1408, 1408), True,
                     kind) == want                       # a_ff view
@@ -150,7 +150,7 @@ def test_backward_variant_choices():
         assert pick(1408, f32, (2048 * 1408, 1408), True, kind) == "tile_f32"
     x = torch.zeros(4, 32, 64, dtype=bf)
     dy = torch.zeros(4, 32, 48, dtype=bf)
-    assert xm.bwd_variant_of(x, dy, "wgrad") == "tma"
+    assert xm.bwd_variant_of(x, dy, "wgrad") == "persistent"
     assert xm.bwd_variant_of(x[:1].expand(4, 32, 64), dy,
                              "wgrad") == "tile_bf16"
     assert xm.bwd_variant_of(x.float(), dy.float(), "wgrad") == "tile_f32"
