@@ -297,6 +297,37 @@ their ``persistent`` kernels -- and K2's causal, D = 128 backward on
     busy share; the model-FLOPs rate) and the share of routed slots the
     capacity keeps.
 
+the cluster, chaos and watchtower layers (the full-width ViT on two
+health-checked nodes sharing the card):
+
+25. one replica built and warmed as the cluster builds it, timed (its
+    captures and graph pool; the health interval is twice a capture's
+    time, floor 0.2 s); (a) the serve launcher's ``run_trace_mode`` at
+    phase 20's defaults with ``--nodes 2 --router p2c --health-interval
+    H --rebalance-interval 1.0``, ``--record``, ``--trace-out``,
+    ``--metrics-out``, ``--stream-trace``, ``--alerts-out`` and
+    ``--profile-out`` under ``build/cluster/``: every arrival accounted
+    for against the recording, zero cold pairs on the four replicas,
+    every answer equal to a direct forward of its subnet, the streamed
+    events equal to the one-shot export's, a profile row per (subnet,
+    bucket) of the DEVICE spans, no node health-failed, K1's and K2's
+    counters rising in the traffic; (b) two nodes through the Cluster
+    API, both classes at 32 rps for 8 s through ``drive_live`` with a
+    ``Reliability`` layer and a ``Watchtower``, node1 wedged at 1 s by a
+    ``ChaosController``: the health check fails it within (K + 1)
+    intervals of the wedge, no replica holds an unresolved future once
+    ``drive_live`` has stopped the cluster, the retried count is
+    positive, the batch class (on node1 alone, node0 gaining its second
+    modelled chip at 0.5 s) is readmitted on node0, whose new replica
+    then answers batch requests of the stream; answers equal to a
+    direct forward; the launch counts of the kernels' record are those
+    of (a)'s and (b)'s clusters alone; after each cluster stops
+    and is dropped, the device memory allocated is back within 64 MiB.
+    It prints per-class percentiles and goodput, routed, retried and
+    health-failed counts, the wedge-to-HEALTH_FAIL time, the alerts, the
+    replica's warm time and pool and the phase's seconds, each with the
+    card's name and power limit.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -2448,11 +2479,54 @@ def train_phases(dev, parent) -> dict:
 TRACE_REQUESTS, TRACE_SECONDS = 64, 5.0
 
 
+SERVED_TOL = 3e-2    # served logits against a direct forward
+
+
+def served_err(sink: list, servers: list, by_name: dict, x, cfg) -> tuple:
+    """Every answered payload against a direct forward of the subnet it
+    names on each replica given (every request sends x[0]; the replicas
+    share phase 6's weights).  Returns (max abs err, answers, subnets)."""
+    import torch
+    direct, err = {}, 0.0
+    for _, out in sink:
+        y = torch.from_numpy(out["y"])
+        if y.shape != (cfg.n_classes,) or not torch.isfinite(y).all():
+            raise AssertionError(f"bad served logits {tuple(y.shape)}")
+        if out["subnet"] not in direct:
+            direct[out["subnet"]] = [
+                s.infer(x[:1], by_name[out["subnet"]])[0].float().cpu()
+                for s in servers]
+        for d in direct[out["subnet"]]:
+            err = max(err, close(y, d, SERVED_TOL))
+    return err, len(sink), len(direct)
+
+
+def counting_drive_live(serve):
+    """serve.drive_live wrapped to read the kernels' counters around the
+    traffic alone; returns (wrapper, dict filled with before/after)."""
+    from repro_torch.kernels import ops
+    around, real = {}, serve.drive_live
+
+    def drive_live(*a, **kw):
+        around["before"] = ops.variant_counts()
+        around["t0"] = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            around["seconds"] = time.perf_counter() - around["t0"]
+            around["after"] = ops.variant_counts()
+    return drive_live, around
+
+
+def during(around: dict) -> dict:
+    return {k: {v: around["after"][k][v] - around["before"][k][v]
+                for v in around["after"][k]} for k in FORWARD}
+
+
 def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
     """Phase 20: ``serve.run_trace_mode`` on the card at full width with a
     Tracer, a MetricsRegistry, a CalibrationStore and --record; then the
     checks, and the recorded schedule replayed through ``simulate``."""
-    import torch
     from repro_torch.kernels import ops
     from repro_torch.obs import (iter_trace_events, quantile,
                                  to_chrome_trace, validate_schema)
@@ -2476,28 +2550,18 @@ def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
         "--trace-out", paths["trace"], "--metrics-out", paths["metrics"]])
     # the counts before and after the live traffic alone (the ladder warm
     # of both servers runs inside run_trace_mode, before drive_live)
-    around = {}
-    real_drive_live = serve.drive_live
-
-    def drive_live(*a, **kw):
-        around["before"] = ops.variant_counts()
-        try:
-            return real_drive_live(*a, **kw)
-        finally:
-            around["after"] = ops.variant_counts()
-
+    drive_live, around = counting_drive_live(serve)
     sink = []
-    serve.drive_live = drive_live
+    real, serve.drive_live = serve.drive_live, drive_live
     ops.reset_launch_counts()
     try:
         run = serve.run_trace_mode(args, arch, cfg, server, lut, x, base_ms,
                                    sink=sink)
     finally:
-        serve.drive_live = real_drive_live
+        serve.drive_live = real
     launches = ops.launch_counts()
     variants = ops.variant_counts()
-    during = {k: {v: around["after"][k][v] - around["before"][k][v]
-                  for v in around["after"][k]} for k in FORWARD}
+    ran = during(around)
     rep, tracer, store = run.report, run.tracer, run.store
 
     # every arrival accounted for, against the recorded schedule
@@ -2547,33 +2611,17 @@ def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
     if again != want:
         raise AssertionError("calibration store changed through save/load")
     # the kernels ran during the traffic, none of bf16 on the old kernels
-    if min(sum(during[k].values()) for k in ("elastic_matmul",
-                                             "flash_attention")) <= 0:
-        raise AssertionError(f"kernels not launched in the trace: {during}")
-    main_path_variants({k: during[k] for k in FORWARD}, need={
+    if min(sum(ran[k].values()) for k in ("elastic_matmul",
+                                          "flash_attention")) <= 0:
+        raise AssertionError(f"kernels not launched in the trace: {ran}")
+    main_path_variants(ran, need={
         ("elastic_matmul", "tma"), ("elastic_matmul", "small_m"),
         ("flash_attention", "mma")})
-    # a sample of served logits against a direct forward of the subnet
-    # the payload names (the same image, x[0], on the same weights)
+    # every answer against a direct forward of the subnet it names (the
+    # same image, x[0], on the same weights)
     by_name = {p.subnet.name(): p.subnet for p in lut.points}
-    # four answers spread over each class's run, and the first answer of
-    # every subnet served
-    sample, firsts = [], set()
-    for name in rep.classes:
-        mine = [out for n, out in sink if n == name]
-        picks = {0, len(mine) // 3, 2 * len(mine) // 3, len(mine) - 1}
-        for i, out in enumerate(mine):
-            if i in picks or out["subnet"] not in firsts:
-                firsts.add(out["subnet"])
-                sample.append((name, out))
-    err_served = 0.0
-    for name, out in sample:
-        y = torch.from_numpy(out["y"])
-        direct = run.servers[name].infer(
-            x[:1], by_name[out["subnet"]])[0].float().cpu()
-        if y.shape != (cfg.n_classes,) or not torch.isfinite(y).all():
-            raise AssertionError(f"bad served logits {tuple(y.shape)}")
-        err_served = max(err_served, close(y, direct, 3e-2))
+    err_served, n_ans, n_sub = served_err(sink, list(run.servers.values()),
+                                          by_name, x, cfg)
 
     # what it measured
     for name, cs in rep.classes.items():
@@ -2616,10 +2664,10 @@ def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
         f"{lo.latency_ms:.3f} ms, slowest {hi.subnet.name()} "
         f"{hi.latency_ms:.3f} ms ({hi.latency_ms / lo.latency_ms:.3f}x)")
     log(f"  launches by variant during the trace: "
-        f"K1 {during['elastic_matmul']}, K2 {during['flash_attention']}; "
+        f"K1 {ran['elastic_matmul']}, K2 {ran['flash_attention']}; "
         f"run_trace_mode in all (warm included): {launches}")
-    log(f"  served logits vs direct forward ({len(sample)} answers, "
-        f"{len(firsts)} subnets): max abs err {err_served:.3g}; cold pairs "
+    log(f"  served logits vs direct forward ({n_ans} answers, "
+        f"{n_sub} subnets): max abs err {err_served:.3g}; cold pairs "
         f"{cold}; "
         f"{len(trees)} trees, {len(events)} trace events, "
         f"{len(rows)} calibration rows")
@@ -2627,7 +2675,7 @@ def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
     log(f"  ({seconds:.1f} s)")
     return {"launches": launches, "variants": variants,
             "servers": run.servers,
-            "trace_variants": during, "classes": {
+            "trace_variants": ran, "classes": {
                 n: cs.summary() for n, cs in rep.classes.items()},
             "decomposition": decomp, "replay": replay,
             "lut_spread_ms": [lo.latency_ms, hi.latency_ms],
@@ -4605,6 +4653,438 @@ def lm_train_phases(dev, parent) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+# the cluster, chaos and watchtower layers: (a) the serve launcher's cluster
+# trace mode at its --trace defaults over 2 nodes; (b) an 8 s stream through
+# drive_live over 2 nodes with node1 wedged 1 s in.  node0 joins (b) with one
+# modelled chip and gains its second at GROW_AT: the batch class starts on
+# node1 alone, so node1's failover orphans it and readmits it on node0 (a
+# replica built and captured beside node0's live replays).  The stream
+# outlasts the failover and the readmitted replica's build and warm (ready
+# about 5.6 s in, PR 25's runs), so that replica serves inside drive_live
+CHAOS_SECONDS, WEDGE_AT, GROW_AT = 8.0, 1.0, 0.5
+# node1 alone takes the batch class until its failover: at 32 rps a request
+# reaches it within one health interval (>= 0.2 s) of the wedge but for a
+# chance of exp(-6.4), so the stall check has work to see
+CHAOS_RPS = {"interactive": 32.0, "batch": 32.0}
+H_MIN = 0.2                 # the health interval's floor, seconds
+MEM_SLACK = 64 << 20        # bytes a dropped cluster may leave allocated
+
+
+def settled_allocated() -> int:
+    """Device bytes allocated once unreachable servers are collected."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def stream_rows(events: list, ids: set) -> list:
+    """The complete events of the retained traces (and every decision),
+    keyed by node name, span, duration and args, with times relative to
+    the earliest: two exports of the same spans give the same rows even
+    where their pid/tid numbering and time base differ."""
+    names = {e["pid"]: e["args"]["name"] for e in events
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    rows = []
+    for e in events:
+        tid = e.get("args", {}).get("trace_id", -1)
+        if e["ph"] != "X" or (tid >= 0 and tid not in ids):
+            continue
+        rows.append((json.dumps([names[e["pid"]], e["name"], e["cat"],
+                                 e["dur"], e["args"]], sort_keys=True),
+                     e["ts"]))
+    t_min = min(ts for _, ts in rows)
+    return sorted((k, ts - t_min) for k, ts in rows)
+
+
+def replica_timing(serve, arch, cfg, server, warm, x) -> dict:
+    """One replica as the cluster builds it, timed: the build (random
+    weights on the card), the ladder warm (a CUDA graph per (subnet,
+    bucket)), and its graph pool; then killed with 32 requests in
+    flight."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = serve.build_server(arch, cfg, max_batch=server.max_batch,
+                           device=server.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s.warm(warm, example_input=x[0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {"build_s": t1 - t0, "warm_s": t2 - t1, "captures": s.captures,
+           "pool_bytes": s.graph_pool_bytes()}
+    # fail-stop with dispatches in flight: every future resolves, with
+    # logits once its batch is ready or with the failed payload
+    s.start()
+    futs = [s.submit(x[0]) for _ in range(32)]
+    first = futs[0].get(timeout=10)      # batches now in the pipeline
+    futs[0].put(first)
+    out["kill_outstanding"] = s.outstanding()
+    t3 = time.perf_counter()
+    s.kill("chip_smoke: kill with work in flight")
+    outs = [f.get(timeout=10) for f in futs]
+    out["kill_s"] = time.perf_counter() - t3
+    out["kill_answered"] = sum(not o.get("cancelled") for o in outs)
+    if any(o.get("cancelled") and not o.get("failed") for o in outs) or \
+            s.outstanding():
+        raise AssertionError(f"kill with work in flight: {outs[-1]}, "
+                             f"{s.outstanding()} outstanding")
+    del s
+    return out
+
+
+def cluster_trace(serve, arch, cfg, server, lut, x, base_ms: float,
+                  H: float, card: str, out_dir: str) -> dict:
+    """Phase 25 (a): ``serve.run_trace_mode`` with --nodes 2 --router p2c
+    and every observability output; then the checks."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.flops import vit_model_flops
+    from repro_torch.obs import (iter_trace_events, profile_devices,
+                                 validate_schema)
+    from repro_torch.obs.analyze import check_trace
+    from repro_torch.obs.trace import DEVICE
+    from repro_torch.runtime.lut import subnet_flops_ratio
+    from repro_torch.traffic import load_schedule
+
+    paths = {k: os.path.join(out_dir, n) for k, n in (
+        ("rec", "rec.json"), ("trace", "chrome.json"),
+        ("metrics", "metrics.prom"), ("stream", "stream.json"),
+        ("alerts", "alerts.txt"), ("profile", "profile.txt"))}
+    args = serve.parse_args([
+        "--trace", "poisson", "--requests", str(TRACE_REQUESTS),
+        "--trace-duration", str(TRACE_SECONDS), "--nodes", "2",
+        "--router", "p2c", "--health-interval", repr(H),
+        "--rebalance-interval", "1.0", "--record", paths["rec"],
+        "--trace-out", paths["trace"], "--metrics-out", paths["metrics"],
+        "--stream-trace", paths["stream"], "--alerts-out", paths["alerts"],
+        "--profile-out", paths["profile"]])
+    sink = []
+    drive_live, around = counting_drive_live(serve)
+    real, serve.drive_live = serve.drive_live, drive_live
+    # the path's counts: the cluster's build, warm and traffic alone
+    ops.reset_launch_counts()
+    try:
+        run = serve.run_trace_mode(args, arch, cfg, server, lut, x, base_ms,
+                                   sink=sink)
+    finally:
+        serve.drive_live = real
+    launches, variants = ops.launch_counts(), ops.variant_counts()
+    rep, tracer, cluster = run.report, run.tracer, run.arbiter
+    recorded = load_schedule(paths["rec"])
+    for name, cs in rep.classes.items():
+        if cs.submitted != cs.rejected + cs.dropped + cs.failed + \
+                cs.completed or cs.submitted != len(recorded[name]):
+            raise AssertionError(f"(a) {name}: {cs.summary()} against "
+                                 f"{len(recorded[name])} recorded arrivals")
+    cold = {n: s.cold_compiles for n, s in run.servers.items()}
+    if len(cold) < 4 or any(cold.values()):
+        raise AssertionError(f"(a) replicas {sorted(cold)}, cold pairs "
+                             f"{cold}")
+    bad = validate_schema(tracer.spans())
+    if bad:
+        raise AssertionError(f"(a) span schema: {bad[:5]}")
+    trees = tracer.requests()
+    for t in trees:
+        check_trace(t)
+    if rep.arbiter["health_failed"]:
+        raise AssertionError(f"(a) health-failed under healthy load: "
+                             f"{rep.arbiter['health_failed']}")
+    ran = during(around)
+    if min(sum(ran[k].values()) for k in ("elastic_matmul",
+                                          "flash_attention")) <= 0:
+        raise AssertionError(f"(a) kernels not launched in the traffic: "
+                             f"{ran}")
+    main_path_variants(ran, need={("elastic_matmul", "tma"),
+                                  ("elastic_matmul", "small_m"),
+                                  ("flash_attention", "mma")})
+    by_name = {p.subnet.name(): p.subnet for p in lut.points}
+    err, n_ans, n_sub = served_err(sink, list(run.servers.values()),
+                                   by_name, x, cfg)
+    # the stream against the one-shot export, trace by trace
+    ids = {t.trace_id for t in trees}
+    streamed = list(iter_trace_events(paths["stream"]))
+    one_shot = list(iter_trace_events(paths["trace"]))
+    a, b = stream_rows(streamed, ids), stream_rows(one_shot, ids)
+    if len(a) != len(b) or any(ka != kb or abs(ta - tb) > 0.01
+                               for (ka, ta), (kb, tb) in zip(a, b)):
+        raise AssertionError(f"(a) streamed events ({len(a)}) differ from "
+                             f"the one-shot export's ({len(b)})")
+    # the profile: a row for every (subnet, bucket) a DEVICE span names
+    keys = {(str(s.attrs["subnet"]), int(s.attrs["bucket"]))
+            for s in tracer.spans() if s.name == DEVICE}
+    prof = profile_devices(tracer, flops_of=lambda sn, b: vit_model_flops(
+        cfg, "infer", b, cfg.img_res) * subnet_flops_ratio(by_name[sn]))
+    rows = open(paths["profile"]).read().splitlines()[1:]
+    if set(prof) != keys or len(rows) != len(keys):
+        raise AssertionError(f"(a) profile rows {sorted(prof)} ({len(rows)} "
+                             f"written) for DEVICE keys {sorted(keys)}")
+    for name, cs in rep.classes.items():
+        log(f"  (a) {name:12s} submitted {cs.submitted}, completed "
+            f"{cs.completed}, p50/p95/p99 {cs.p(50):.3f}/{cs.p(95):.3f}/"
+            f"{cs.p(99):.3f} ms, goodput rate "
+            f"{cs.good / max(cs.submitted, 1):.4f} [{card}]")
+    routed = rep.arbiter["routed"]
+    log(f"  (a) routed {json.dumps(routed)}, health-failed "
+        f"{rep.arbiter['health_failed']}, migrations "
+        f"{len(rep.arbiter['migrations'])}, preempted "
+        f"{rep.arbiter['preempted']} [{card}]")
+    log(f"  (a) {len(run.watchtower.alerts)} alerts fired; "
+        f"time-in-SLO {run.watchtower.summary()['time_in_slo']} [{card}]")
+    top = sorted(prof.values(), key=lambda r: -r["batches"])[:4]
+    log("  (a) device profile (busiest rows; utilisation = model FLOPs over "
+        "the DEVICE span at 989 TFLOP/s): " + "; ".join(
+            f"{r['subnet']} b{r['bucket']} {r['batches']} batches "
+            f"{r['ms_per_batch']:.3f} ms {100 * r['mxu_util']:.2f}%"
+            for r in top) + f" [{card}]")
+    log(f"  (a) launches by variant during the traffic: K1 "
+        f"{ran['elastic_matmul']}, K2 {ran['flash_attention']}; served "
+        f"logits vs direct forward ({n_ans} answers, {n_sub} subnets): max "
+        f"abs err {err:.3g}; {len(trees)} trees, {len(a)} streamed events "
+        f"equal to the one-shot export's; {len(prof)} profile rows")
+    out = {"classes": {n: cs.summary() for n, cs in rep.classes.items()},
+           "routed": routed, "preempted": rep.arbiter["preempted"],
+           "migrations": rep.arbiter["migrations"],
+           "alerts": len(run.watchtower.alerts), "variants": ran,
+           "served_err": err, "profile_rows": len(prof),
+           "traffic_s": around["seconds"], "launches": launches,
+           "launch_variants": variants}
+    cluster.stop()
+    del run, cluster, tracer, sink, rep
+    return out
+
+
+def cluster_chaos(serve, arch, cfg, server, lut, x, H: float, warm: list,
+                  card: str) -> dict:
+    """Phase 25 (b): two nodes behind the Cluster API, both classes, an
+    8 s stream through drive_live with Reliability and a Watchtower; a
+    ChaosController wedges node1 at WEDGE_AT; then the checks."""
+    from repro_torch.chaos import (WEDGE, ChaosController, Injection,
+                                   Reliability, RetryBudget, RetryPolicy,
+                                   Scenario)
+    from repro_torch.cluster import DEAD, HEALTH_EPOCHS, Cluster, ClusterNode
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (MetricsRegistry, Tracer, Watchtower,
+                                 default_windows, format_alerts)
+    from repro_torch.obs.trace import CHAOS, HEALTH_FAIL
+    from repro_torch.runtime import GlobalConstraints
+    from repro_torch.traffic import DEGRADE, SLOClass, poisson
+
+    K = HEALTH_EPOCHS
+    # interactive: a deadline that covers one failover ((K + 1) intervals)
+    # and the backoff.  drive_live judges retries once the whole stream is
+    # sent (ROADMAP F7), so a batch request caught on the wedged node is
+    # still retried only under a deadline that outlasts the stream
+    deadline_ms = 1e3 * (K + 1) * H + 500.0
+    classes = [SLOClass("interactive", deadline_ms=deadline_ms, priority=2),
+               SLOClass("batch", deadline_ms=1e3 * CHAOS_SECONDS,
+                        priority=0, drop_policy=DEGRADE)]
+    tracer, metrics = Tracer(), MetricsRegistry()
+    nodes = [ClusterNode(name="node0", g_fn=lambda t: GlobalConstraints(
+                 total_chips=1 if t < GROW_AT else 2)),
+             ClusterNode(name="node1", g_fn=lambda t: GlobalConstraints(
+                 total_chips=2))]
+    cluster = Cluster(nodes, router="p2c", health_interval_s=H,
+                      tracer=tracer, metrics=metrics)
+    built = []
+
+    def maker(cls_name):
+        def make(node):
+            t0 = time.perf_counter()
+            s = serve.build_server(arch, cfg, max_batch=server.max_batch,
+                                   device=server.device, tenant=cls_name)
+            s.warm(warm, example_input=x[0])
+            built.append((node.name, cls_name, s,
+                          time.perf_counter() - t0, cluster._now()))
+            return s
+        return make
+
+    # the path's counts: the cluster's build, warm and traffic alone
+    ops.reset_launch_counts()
+    for c in classes:
+        cluster.register(c.name, lut, target_latency_ms=c.service_target_ms,
+                         priority=c.priority, make_server=maker(c.name))
+    placed = cluster.placements_snapshot()
+    if placed != {"interactive": ["node0", "node1"], "batch": ["node1"]}:
+        raise AssertionError(f"(b) placements {placed}")
+    streams = {n: poisson(r, CHAOS_SECONDS, seed=3 + i)
+               for i, (n, r) in enumerate(CHAOS_RPS.items())}
+    wt = Watchtower({"interactive": 0.99, "batch": 0.95},
+                    windows=default_windows(CHAOS_SECONDS / 86400.0),
+                    tracer=tracer, registry=metrics,
+                    hist_name="engine_request_ms")
+    rel = Reliability(default=RetryPolicy(max_attempts=3, backoff_s=0.05),
+                      budget=RetryBudget(burst=64, fraction=0.5),
+                      brownout=None)
+    ctl = ChaosController(cluster, Scenario(name="wedge-node1", injections=(
+        Injection(t=WEDGE_AT, kind=WEDGE, node="node1"),)))
+    sink = []
+    drive_live, around = counting_drive_live(serve)
+    ctl.start()
+    # drive_live stops the cluster once the stream has drained: its stop
+    # cancels what is still unanswered
+    report = drive_live(classes, cluster.ports(), cluster, streams,
+                        lambda name: x[0],
+                        g_fn=lambda: GlobalConstraints(total_chips=2),
+                        timeout_s=60.0, reliability=rel, watchtower=wt,
+                        sink=sink)
+    launches, variants = ops.launch_counts(), ops.variant_counts()
+    ctl.join(timeout_s=10.0)
+    if not ctl.done or [a for _, a, _ in ctl.applied] != ["wedge_on"]:
+        raise AssertionError(f"(b) chaos applied {ctl.applied}")
+    # every future resolved: no replica holds an unanswered request
+    hung = {f"{n}/{c}": s.outstanding() for n, c, s, _, _ in built
+            if s.outstanding()}
+    if hung or around["seconds"] > CHAOS_SECONDS + 60.0:
+        raise AssertionError(f"(b) unresolved futures {hung} after "
+                             f"{around['seconds']:.1f} s")
+    for name, cs in report.classes.items():
+        if cs.submitted != cs.rejected + cs.dropped + cs.failed + \
+                cs.completed or cs.submitted != len(streams[name]):
+            raise AssertionError(f"(b) {name}: {cs.summary()}")
+    # the health thread failed node1 over and recorded its HEALTH_FAIL span
+    fails = [s.t0 for s in tracer.spans()
+             if s.name == HEALTH_FAIL and s.node == "node1"]
+    if cluster.nodes["node1"].state != DEAD or not fails or \
+            cluster.summary()["health_failed"] != ["node1"]:
+        raise AssertionError(f"(b) node1 {cluster.nodes['node1'].state}, "
+                             f"health-failed {cluster.summary()['health_failed']}"
+                             f", HEALTH_FAIL spans {fails}")
+    # within K intervals (plus the one the wedge lands in) of the wedge
+    t_wedge = min(s.t0 for s in tracer.spans()
+                  if s.name == CHAOS and s.attrs.get("kind") == "wedge_on")
+    to_fail = fails[0] - t_wedge
+    if to_fail > (K + 1) * H:
+        raise AssertionError(f"(b) node1 failed {to_fail:.3f} s after the "
+                             f"wedge (bound {(K + 1) * H:.3f} s)")
+    retried = sum(cs.retried for cs in report.classes.values())
+    if retried <= 0 or report.reliability["retry_granted"] != retried:
+        raise AssertionError(f"(b) retried {retried}, "
+                             f"{report.reliability}")
+    # the orphaned batch class readmitted on node0 (its replica built and
+    # captured beside node0's replays) and served there inside the stream
+    readmit = [b for b in built if b[:2] == ("node0", "batch")]
+    if cluster.placements_snapshot()["batch"] != ["node0"] or not readmit \
+            or readmit[0][4] >= CHAOS_SECONDS or readmit[0][2].served <= 0:
+        raise AssertionError(
+            f"(b) batch not readmitted and served on node0 in the stream: "
+            f"{cluster.placements_snapshot()}, "
+            f"{[(b[4], b[2].served) for b in readmit]}")
+    readmit_served = readmit[0][2].served
+    cold = {f"{n}/{c}": s.cold_compiles for n, c, s, _, _ in built}
+    if any(cold.values()):
+        raise AssertionError(f"(b) cold pairs {cold}")
+    survivors = [s for n, _, s, _, _ in built if n == "node0"]
+    by_name = {p.subnet.name(): p.subnet for p in lut.points}
+    err, n_ans, n_sub = served_err(sink, survivors, by_name, x, cfg)
+    ran = during(around)
+    if min(sum(ran[k].values()) for k in ("elastic_matmul",
+                                          "flash_attention")) <= 0:
+        raise AssertionError(f"(b) kernels not launched: {ran}")
+    for name, cs in report.classes.items():
+        log(f"  (b) {name:12s} submitted {cs.submitted}, completed "
+            f"{cs.completed}, failed {cs.failed}, dropped {cs.dropped}, "
+            f"retried {cs.retried}, p50/p95/p99 {cs.p(50):.3f}/"
+            f"{cs.p(95):.3f}/{cs.p(99):.3f} ms, goodput rate "
+            f"{cs.good / max(cs.submitted, 1):.4f} (deadline "
+            f"{[c.deadline_ms for c in classes if c.name == name][0]:.0f} ms)"
+            f" [{card}]")
+    log(f"  (b) routed {json.dumps(report.arbiter['routed'])}, retried "
+        f"{retried} (budget granted {report.reliability['retry_granted']}, "
+        f"denied {report.reliability['retry_denied']}), health-failed "
+        f"{report.arbiter['health_failed']} [{card}]")
+    log(f"  (b) wedge at {t_wedge - around['t0']:.3f} s into the stream, "
+        f"HEALTH_FAIL {to_fail:.3f} s later (interval {H:.3f} s, K {K}, "
+        f"bound {(K + 1) * H:.3f} s); batch readmitted on node0 "
+        f"{readmit[0][4]:.3f} s into the cluster's clock, its replica built "
+        f"and warmed in {readmit[0][3]:.3f} s beside node0's replays, then "
+        f"answered {readmit_served} of the stream's batch requests "
+        f"[{card}]")
+    text = format_alerts(wt.alerts)
+    log(f"  (b) {len(wt.alerts)} alerts fired, time-in-SLO "
+        f"{wt.summary()['time_in_slo']} [{card}]" + (
+            "\n" + "\n".join("      " + ln for ln in text.splitlines())
+            if text else ""))
+    log(f"  (b) launches during the traffic: K1 {ran['elastic_matmul']}, "
+        f"K2 {ran['flash_attention']}; served logits vs direct forward on "
+        f"node0's replicas ({n_ans} answers, {n_sub} subnets): max abs err "
+        f"{err:.3g}")
+    out = {"classes": {n: cs.summary() for n, cs in report.classes.items()},
+           "retried": retried, "to_fail_s": to_fail,
+           "routed": report.arbiter["routed"],
+           "alerts": [[round(a.t, 3), a.cls, a.window, a.severity]
+                      for a in wt.alerts],
+           "readmit_build_s": readmit[0][3], "readmit_at_s": readmit[0][4],
+           "readmit_served": readmit_served, "variants": ran,
+           "served_err": err, "launches": launches,
+           "launch_variants": variants}
+    ctl.stop()
+    del built, survivors, readmit, cluster, ctl, report, sink, tracer
+    return out
+
+
+def cluster_phases(serve, arch, cfg, server, lut, x, base_ms: float,
+                   card: str, out_dir: str) -> dict:
+    """Phase 25: the cluster, chaos and watchtower layers at full width on
+    the card (see the module docstring)."""
+    import torch
+    from repro_torch.cluster import HEALTH_EPOCHS
+
+    t0 = phase("25. cluster, chaos and watchtower: (a) the launcher's "
+               "cluster trace mode, 2 nodes; (b) node1 wedged under live "
+               "traffic, health-checked failover, retries, readmission")
+    os.makedirs(out_dir, exist_ok=True)
+    warm = list(dict.fromkeys(p.subnet for p in lut.points))
+    m0 = settled_allocated()
+    rt = replica_timing(serve, arch, cfg, server, warm, x)
+    # the health interval: K intervals must outlast the longest batch a
+    # healthy node can take, a cold capture of one (subnet, bucket) (the
+    # stall check's operator contract); twice a capture's share of the
+    # measured warm, and never under H_MIN
+    per_pair = rt["warm_s"] / max(rt["captures"], 1)
+    H = round(max(H_MIN, 2.0 * per_pair), 3)
+    log(f"  a replica: build {rt['build_s']:.3f} s, warm {rt['warm_s']:.3f} "
+        f"s ({rt['captures']} captures, {1e3 * per_pair:.1f} ms each), "
+        f"graph pool {rt['pool_bytes'] / 2 ** 20:.1f} MiB; killed after "
+        f"its first answer with {rt['kill_outstanding']} of 32 requests "
+        f"outstanding: {rt['kill_answered']} answered, the rest failed, all "
+        f"resolved {rt['kill_s']:.3f} s after the kill; health interval "
+        f"{H:.3f} s x {HEALTH_EPOCHS} epochs [{card}]")
+    mem = {"before": m0}
+    a = cluster_trace(serve, arch, cfg, server, lut, x, base_ms, H, card,
+                      out_dir)
+    mem["after_a"] = settled_allocated()
+    b = cluster_chaos(serve, arch, cfg, server, lut, x, H, warm, card)
+    mem["after_b"] = settled_allocated()
+    # the path's counts: (a)'s and (b)'s clusters, each from its build to
+    # the end of its traffic (not the timing replica, nor the checks'
+    # direct forwards)
+    la, lb = a.pop("launches"), b.pop("launches")
+    launches = {k: la[k] + lb[k] for k in ("elastic_matmul",
+                                           "flash_attention")}
+    va, vb = a.pop("launch_variants"), b.pop("launch_variants")
+    variants = {k: {v: n + vb[k][v] for v, n in va[k].items()} for k in va}
+    for k, v in mem.items():
+        if abs(v - m0) > MEM_SLACK:
+            raise AssertionError(f"device memory {k} {v / 2 ** 20:.1f} MiB "
+                                 f"against {m0 / 2 ** 20:.1f} MiB before the "
+                                 f"clusters (slack {MEM_SLACK >> 20} MiB)")
+    if min(launches["elastic_matmul"], launches["flash_attention"]) <= 0:
+        raise AssertionError(f"phase 25 launched {launches}")
+    seconds = time.perf_counter() - t0
+    log(f"  device memory allocated before / after (a) / after (b): "
+        + " / ".join(f"{v / 2 ** 20:.1f}" for v in mem.values())
+        + f" MiB (peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB); launches on the cluster path {launches}")
+    log(f"  ({seconds:.1f} s) [{card}]")
+    return {"a": a, "b": b, "replica": rt, "health_interval_s": H,
+            "memory_mib": {k: v / 2 ** 20 for k, v in mem.items()},
+            "launches": launches, "variants": variants, "seconds": seconds}
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4960,6 +5440,10 @@ def main() -> int:
     df = diffusion_phases(dev)
     lt = lm_train_phases(dev, parent)
     lt_n, lt_v = lt["run"]["launches"], lt["run"]["variants"]
+    cl = cluster_phases(serve, arch, cfg, server,
+                        governors["joint (paper)"].lut, x, base_ms, card,
+                        os.path.join(os.path.dirname(os.path.abspath(
+                            __file__)), "build", "cluster"))
 
     def conv_recorded(name: str) -> dict:
         # phase 22 (f): the worst errors at the recorded steps' calls
@@ -4988,7 +5472,8 @@ def main() -> int:
               + cv["effnet"]["launches"]["elastic_matmul"]
               + df["dit"]["launches"]["elastic_matmul"]
               + df["unet"]["launches"]["elastic_matmul"]
-              + lt_n["elastic_matmul"],
+              + lt_n["elastic_matmul"]
+              + cl["launches"]["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
@@ -5002,7 +5487,9 @@ def main() -> int:
                                        "elastic_matmul"],
                                    "unet_train": df["unet"]["launches"][
                                        "elastic_matmul"],
-                                   "lm_train": lt_n["elastic_matmul"]},
+                                   "lm_train": lt_n["elastic_matmul"],
+                                   "vit_cluster":
+                                       cl["launches"]["elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
@@ -5012,7 +5499,8 @@ def main() -> int:
                   "effnet_train": cv["effnet"]["variants"]["elastic_matmul"],
                   "dit_train": df["dit"]["variants"]["elastic_matmul"],
                   "unet_train": df["unet"]["variants"]["elastic_matmul"],
-                  "lm_train": lt_v["elastic_matmul"]},
+                  "lm_train": lt_v["elastic_matmul"],
+                  "vit_cluster": cl["variants"]["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
                                                   "bfloat16")],
@@ -5039,7 +5527,8 @@ def main() -> int:
               + tp["launches"]["flash_attention"]
               + df["dit"]["launches"]["flash_attention"]
               + df["unet"]["launches"]["flash_attention"]
-              + lt_n["flash_attention"],
+              + lt_n["flash_attention"]
+              + cl["launches"]["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
                                    "train": tr["launches"]["flash_attention"],
@@ -5049,7 +5538,9 @@ def main() -> int:
                                        "flash_attention"],
                                    "unet_train": df["unet"]["launches"][
                                        "flash_attention"],
-                                   "lm_train": lt_n["flash_attention"]},
+                                   "lm_train": lt_n["flash_attention"],
+                                   "vit_cluster":
+                                       cl["launches"]["flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
@@ -5057,7 +5548,8 @@ def main() -> int:
                   "vit_trace": tp["variants"]["flash_attention"],
                   "dit_train": df["dit"]["variants"]["flash_attention"],
                   "unet_train": df["unet"]["variants"]["flash_attention"],
-                  "lm_train": lt_v["flash_attention"]},
+                  "lm_train": lt_v["flash_attention"],
+                  "vit_cluster": cl["variants"]["flash_attention"]},
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
                                  *(df["recorded"][n]["k2"][k]["err"]
                                    for n in ("dit", "unet")
@@ -5222,6 +5714,9 @@ def main() -> int:
         **{k: lt["run"][k] for k in ("params", "step_ms", "step_ms_all",
                                      "losses", "tokens_per_s", "peak_gib",
                                      "peak_run_gib")}}))
+    log("cluster: " + json.dumps({k: cl[k] for k in (
+        "a", "b", "replica", "health_interval_s", "memory_mib",
+        "seconds")}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

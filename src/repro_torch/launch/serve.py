@@ -20,13 +20,23 @@ Serving data-path knobs (mirrored by ``DynamicServer``):
 * ``--device``        — ``cuda`` (default; raises without a card) or
   ``cpu`` (the kernels' plain versions).
 
-Trace knobs (``--trace`` mode, one node):
+Cluster / trace knobs (``--trace`` mode):
 
 * ``--trace poisson|bursty|diurnal|PATH`` — two SLO classes (an
   interactive tenant and a background batch tenant), each a DynamicServer
   of the same supernet, behind one ResourceArbiter; open-loop seeded
   arrivals (or a recorded schedule) through ``traffic.drive_live``;
 * ``--trace-duration S`` — seconds of arrival schedule;
+* ``--nodes N``       — scale the SLO classes out over N arbiter-governed
+  nodes (two modelled chips each) behind the cluster front-end
+  (``repro_torch.cluster``); every replica is its own DynamicServer on
+  the same device, warmed before traffic;
+* ``--router p2c|round_robin|least_loaded`` — the routing policy;
+* ``--health-interval S`` — cluster mode: run the stall-based health
+  checker every S seconds (a node whose completions stay flat with
+  futures outstanding is failed over);
+* ``--rebalance-interval S`` — cluster mode: run the placement engine
+  every S seconds (migration-cost-priced rebalancing + preemption);
 * ``--record PATH``   — save the ACTUAL arrivals as a replayable
   schedule JSON (feed it back via ``--trace PATH``);
 * ``--calibrate``     — close the measurement loop: servers record
@@ -41,13 +51,16 @@ Observability (any mode):
   trace-event JSON (load in Perfetto / chrome://tracing); also prints
   the per-class p50/p95 latency decomposition;
 * ``--metrics-out PATH`` — write the metrics registry snapshot as JSON,
-  or Prometheus text format when PATH ends in ``.prom``.
+  or Prometheus text format when PATH ends in ``.prom``;
+* ``--stream-trace PATH`` — stream trace events to PATH as requests
+  retire (incremental Perfetto JSON, loadable mid-run);
+* ``--alerts-out PATH``  — ``--trace`` mode: run the SLO watchtower
+  (burn-rate alerts + attribution) against the live run and write the
+  alert log to PATH;
+* ``--profile-out PATH`` — write the per-(subnet, bucket) device profile
+  from the retained DEVICE spans to PATH.
 
-The reference launcher's cluster (``--nodes``, ``--router``,
-``--health-interval``, ``--rebalance-interval``), chaos and watchtower
-(``--stream-trace``, ``--alerts-out``, ``--profile-out``) modes come with
-a later slice of the port; the launcher refuses their flags.  Every
-server warms its bucket ladder for the profiled subnets before taking
+Every server warms its bucket ladder for the profiled subnets before taking
 traffic, so serving meets zero cold (subnet, bucket) pairs
 (``server.cold_compiles`` stays 0).  On the card each (subnet, bucket)
 is a CUDA graph, captured when first measured or warmed: the measured
@@ -58,16 +71,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.cluster import Cluster, ClusterNode
 from repro_torch.configs import get_arch
 from repro_torch.core.types import SubnetSpec
 from repro_torch.device import resolve_device
-from repro_torch.obs import (MetricsRegistry, Tracer, decompose_latency,
-                             format_decomposition, quantile,
+from repro_torch.obs import (MetricsRegistry, TraceStreamer, Tracer,
+                             Watchtower, decompose_latency, default_windows,
+                             format_alerts, format_decomposition,
+                             format_profile, profile_devices, quantile,
                              write_chrome_trace)
 from repro_torch.runtime import (CalibrationStore, Constraints, DynamicServer,
                                  GlobalConstraints, JointGovernor,
@@ -77,12 +93,6 @@ from repro_torch.runtime import (CalibrationStore, Constraints, DynamicServer,
 from repro_torch.runtime import hwmodel as hm
 from repro_torch.traffic import (DEGRADE, SLOClass, TrafficReport, diurnal,
                                  drive_live, load_schedule, onoff, poisson)
-
-# flags of the reference launcher that wait for a later slice of the port
-# (cluster, chaos and watchtower)
-_LATER = ("nodes", "router", "health_interval", "rebalance_interval",
-          "stream_trace", "alerts_out", "profile_out")
-
 
 def build_server(arch, cfg, *, max_batch=8, batch_buckets=True,
                  pipeline=True, device=None, seed=0, calibration=None,
@@ -130,6 +140,12 @@ def parse_args(argv=None):
                          "path to a recorded schedule JSON")
     ap.add_argument("--trace-duration", type=float, default=5.0,
                     help="seconds of arrival schedule in --trace mode")
+    ap.add_argument("--nodes", type=int, default=1,
+                    help="cluster mode: N arbiter-governed nodes behind "
+                         "the router (--trace only)")
+    ap.add_argument("--router", default="p2c",
+                    choices=["p2c", "round_robin", "least_loaded"],
+                    help="cluster routing policy for --nodes > 1")
     ap.add_argument("--record", default=None, metavar="PATH",
                     help="record the ACTUAL --trace arrivals to a "
                          "replayable schedule JSON")
@@ -140,6 +156,15 @@ def parse_args(argv=None):
     ap.add_argument("--calibrate-out", default=None, metavar="PATH",
                     help="save the warmed CalibrationStore as JSON "
                          "(implies nothing without --calibrate)")
+    ap.add_argument("--health-interval", type=float, default=None,
+                    metavar="S",
+                    help="cluster mode: stall-based health check every "
+                         "S seconds (auto-failover of wedged nodes)")
+    ap.add_argument("--rebalance-interval", type=float, default=None,
+                    metavar="S",
+                    help="cluster mode: run the global placement engine "
+                         "every S seconds (migration-cost-priced replica "
+                         "rebalancing + cross-node preemption)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="record request span trees + decision spans and "
                          "write Chrome trace-event JSON (open in Perfetto "
@@ -148,22 +173,25 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the metrics snapshot as JSON (Prometheus "
                          "text format when PATH ends in .prom)")
+    ap.add_argument("--stream-trace", default=None, metavar="PATH",
+                    help="stream trace events to PATH as requests retire "
+                         "(incremental Perfetto JSON — loadable mid-run "
+                         "or after a crash)")
+    ap.add_argument("--alerts-out", default=None, metavar="PATH",
+                    help="--trace mode: run the SLO watchtower (burn-rate "
+                         "alerts + attribution) against the live run and "
+                         "write the alert log to PATH")
+    ap.add_argument("--profile-out", default=None, metavar="PATH",
+                    help="write the per-(subnet, bucket) device profile "
+                         "(device time, share of the card's peak when "
+                         "given FLOPs) from retained DEVICE spans to PATH")
     ap.add_argument("--max-batch", type=int, default=8,
                     help="batching ceiling (bucket ladder = powers of two)")
     ap.add_argument("--no-buckets", action="store_true",
                     help="pad every batch to max_batch (baseline data path)")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="synchronous dispatch (no host/device overlap)")
-    for name in _LATER:
-        ap.add_argument("--" + name.replace("_", "-"), default=None,
-                        help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    given = ["--" + n.replace("_", "-") for n in _LATER
-             if getattr(args, n) is not None]
-    if given:
-        ap.error(f"{', '.join(given)}: the cluster, chaos and watchtower "
-                 f"modes come with a later slice of the port")
-    return args
+    return ap.parse_args(argv)
 
 
 def profile(server, cfg, x, *, trace_steps: int = 200):
@@ -227,15 +255,18 @@ def serve_requests(server, governor, base_ms: float, x1, n_requests: int):
 
 @dataclasses.dataclass
 class TraceRun:
-    """What one ``--trace`` run built and measured."""
+    """What one ``--trace`` run built and measured.  In cluster mode
+    (``--nodes`` > 1) ``arbiter`` is the :class:`Cluster` and ``servers``
+    holds every replica the run placed, keyed ``"node/class"``."""
     report: TrafficReport
     classes: List[SLOClass]
     streams: Dict[str, List[float]]
     servers: Dict[str, DynamicServer]
-    arbiter: ResourceArbiter
+    arbiter: Union[ResourceArbiter, Cluster]
     tracer: Optional[Tracer]
     metrics: Optional[MetricsRegistry]
     store: Optional[CalibrationStore]
+    watchtower: Optional[Watchtower] = None
 
 
 def run_trace_mode(args, arch, cfg, server, lut, x, base_ms, *,
@@ -248,12 +279,29 @@ def run_trace_mode(args, arch, cfg, server, lut, x, base_ms, *,
     replays a seeded arrival schedule (or a recorded one from a JSON file)
     open-loop against them and reports per-class percentile latency,
     goodput and drops.  ``server`` (the profiling server) becomes the
-    interactive tenant.  ``sink``, when given, receives
+    interactive tenant.  ``--nodes N`` scales the same classes out over N
+    arbiter-governed nodes of two modelled chips each behind a
+    ``--router`` cluster front-end: every replica is a new server of the
+    same weights on ``server``'s device, warmed before traffic (the nodes
+    share the one device).  ``sink``, when given, receives
     ``(class, payload)`` for every answered request.
     """
-    tracer = Tracer() if args.trace_out else None
-    metrics = MetricsRegistry() if args.metrics_out else None
+    need_tracer = (args.trace_out or args.stream_trace or args.profile_out
+                   or args.alerts_out)
+    tracer = Tracer() if need_tracer else None
+    metrics = (MetricsRegistry()
+               if (args.metrics_out or args.alerts_out) else None)
     dur = args.trace_duration
+    streamer = (TraceStreamer(args.stream_trace).attach(tracer)
+                if args.stream_trace else None)
+    watchtower = None
+    if args.alerts_out:
+        # burn windows scaled so the trace duration is one SLO day; the
+        # live driver feeds/evaluates it as futures resolve
+        watchtower = Watchtower(
+            {"interactive": 0.99, "batch": 0.95},
+            windows=default_windows(dur / 86400.0),
+            tracer=tracer, registry=metrics, hist_name="engine_request_ms")
     rate = args.requests / dur
     a_batch = poisson(max(rate / 2, 0.5), dur, seed=1)
     if args.trace == "poisson":
@@ -282,6 +330,12 @@ def run_trace_mode(args, arch, cfg, server, lut, x, base_ms, *,
     # governors pick from the LUT): the live trace meets no cold pair
     warm = list(dict.fromkeys(p.subnet for p in lut.points))
     store = CalibrationStore() if args.calibrate else None
+
+    if args.nodes > 1:
+        return _run_cluster(args, arch, cfg, server, lut, x, classes,
+                            streams, warm, store, tracer, metrics,
+                            watchtower, streamer, sink)
+
     batch_server = build_server(arch, cfg, max_batch=server.max_batch,
                                 batch_buckets=server.batch_buckets,
                                 pipeline=server.pipeline,
@@ -303,7 +357,8 @@ def run_trace_mode(args, arch, cfg, server, lut, x, base_ms, *,
     report = drive_live(
         classes, servers, arbiter, streams, lambda name: x[0],
         g_fn=lambda: GlobalConstraints(total_chips=2),
-        record_path=args.record, tracer=tracer, metrics=metrics, sink=sink)
+        record_path=args.record, tracer=tracer, metrics=metrics,
+        watchtower=watchtower, sink=sink)
     print(f"\ntrace mode [{args.trace}] {len(a_int)} interactive + "
           f"{len(a_batch)} batch arrivals over {dur:.1f}s")
     for name, cs in report.classes.items():
@@ -312,15 +367,81 @@ def run_trace_mode(args, arch, cfg, server, lut, x, base_ms, *,
     if args.record:
         print(f"  recorded actual arrivals -> {args.record}")
     _report_calibration(store, args)
-    _emit_obs(args, tracer, arbiter.metrics)
+    _emit_obs(args, tracer, arbiter.metrics, watchtower=watchtower,
+              streamer=streamer)
     return TraceRun(report=report, classes=classes, streams=streams,
                     servers=servers, arbiter=arbiter, tracer=tracer,
-                    metrics=metrics, store=store)
+                    metrics=metrics, store=store, watchtower=watchtower)
 
 
-def _emit_obs(args, tracer, metrics):
-    """Write --trace-out / --metrics-out artifacts and print the
-    per-class latency decomposition for the retained traces."""
+def _run_cluster(args, arch, cfg, server, lut, x, classes, streams, warm,
+                 store, tracer, metrics, watchtower, streamer,
+                 sink) -> TraceRun:
+    """``--trace`` with ``--nodes`` > 1: the classes placed on every node
+    that admits them, behind the cluster router."""
+    nodes = [ClusterNode(name=f"node{i}",
+                         g_fn=lambda t: GlobalConstraints(total_chips=2))
+             for i in range(args.nodes)]
+    cluster = Cluster(nodes, router=args.router,
+                      health_interval_s=args.health_interval,
+                      rebalance_interval_s=args.rebalance_interval,
+                      tracer=tracer, metrics=metrics)
+    if store is not None:
+        for node in nodes:
+            node.arbiter.calibration = store
+    built: Dict[str, DynamicServer] = {}
+
+    for c in classes:
+        def mk_server(node, _name=c.name):
+            s = build_server(arch, cfg, max_batch=server.max_batch,
+                             batch_buckets=server.batch_buckets,
+                             pipeline=server.pipeline, device=server.device,
+                             seed=args.seed, calibration=store,
+                             tenant=_name)
+            s.warm(warm, example_input=x[0])
+            built[f"{node.name}/{_name}"] = s
+            return s
+
+        placed = cluster.register(c.name, lut,
+                                  target_latency_ms=c.service_target_ms,
+                                  priority=c.priority,
+                                  make_server=mk_server)
+        print(f"  {c.name}: placed on {placed}")
+    report = drive_live(
+        classes, cluster.ports(), cluster, streams, lambda name: x[0],
+        g_fn=lambda: GlobalConstraints(total_chips=2),
+        record_path=args.record, watchtower=watchtower, sink=sink)
+    a_int, a_batch = streams["interactive"], streams["batch"]
+    print(f"\ncluster trace mode [{args.trace}] x{args.nodes} nodes, "
+          f"router={args.router}: {len(a_int)} interactive + "
+          f"{len(a_batch)} batch arrivals over {args.trace_duration:.1f}s")
+    for name, cs in report.classes.items():
+        print(f"  {name:12s} {cs.summary()}")
+    print(f"  routed       {report.arbiter['routed']}")
+    if args.health_interval is not None:
+        print(f"  health-failed nodes: "
+              f"{report.arbiter.get('health_failed', [])}")
+    if args.rebalance_interval is not None:
+        print(f"  migrations:   {report.arbiter.get('migrations', [])}")
+        print(f"  preempted:    {report.arbiter.get('preempted', [])}")
+    if args.record:
+        print(f"  recorded actual arrivals -> {args.record}")
+    _report_calibration(store, args)
+    _emit_obs(args, tracer, cluster.metrics, watchtower=watchtower,
+              streamer=streamer)
+    return TraceRun(report=report, classes=classes, streams=streams,
+                    servers=built, arbiter=cluster, tracer=tracer,
+                    metrics=cluster.metrics, store=store,
+                    watchtower=watchtower)
+
+
+def _emit_obs(args, tracer, metrics, watchtower=None, streamer=None):
+    """Write --trace-out / --metrics-out / --alerts-out / --profile-out
+    artifacts, close the --stream-trace stream, and print the per-class
+    latency decomposition for the retained traces."""
+    if streamer is not None:
+        n = streamer.close(tracer)
+        print(f"  streamed {n} trace events -> {streamer.path}")
     if tracer is not None and args.trace_out:
         n = write_chrome_trace(tracer, args.trace_out)
         print(f"  trace: {len(tracer.requests())} request trees retained "
@@ -328,6 +449,19 @@ def _emit_obs(args, tracer, metrics):
         decomp = decompose_latency(tracer)
         if decomp:
             print(format_decomposition(decomp))
+    if watchtower is not None and args.alerts_out:
+        with open(args.alerts_out, "w") as f:
+            text = format_alerts(watchtower.alerts)
+            f.write(text + ("\n" if text else ""))
+        print(f"  {len(watchtower.alerts)} SLO alerts "
+              f"(time-in-SLO {watchtower.summary()['time_in_slo']}) "
+              f"-> {args.alerts_out}")
+    if tracer is not None and args.profile_out:
+        prof = profile_devices(tracer)
+        with open(args.profile_out, "w") as f:
+            f.write(format_profile(prof) + "\n")
+        print(f"  device profile: {len(prof)} (subnet, bucket) rows "
+              f"-> {args.profile_out}")
     if metrics is not None and args.metrics_out:
         text = (metrics.to_prometheus()
                 if args.metrics_out.endswith(".prom")
@@ -368,15 +502,18 @@ def main(argv=None):
         run_trace_mode(args, arch, cfg, server,
                        governors["joint (paper)"].lut, x, base_ms)
         return
-    tracer = Tracer() if args.trace_out else None
+    tracer = (Tracer() if (args.trace_out or args.stream_trace
+                           or args.profile_out) else None)
     metrics = MetricsRegistry() if args.metrics_out else None
+    streamer = (TraceStreamer(args.stream_trace).attach(tracer)
+                if args.stream_trace else None)
     server.tracer, server.metrics = tracer, metrics
     # warm the bucket ladder for every profiled subnet (anything the
     # governor may pick) so serving starts with no cold (subnet, bucket)
     server.warm(specs, example_input=x[0])
     serve_requests(server, governors["joint (paper)"], base_ms, x[0],
                    args.requests)
-    _emit_obs(args, tracer, metrics)
+    _emit_obs(args, tracer, metrics, streamer=streamer)
 
 
 if __name__ == "__main__":

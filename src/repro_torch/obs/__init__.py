@@ -1,9 +1,9 @@
 """repro_torch.obs — request tracing + metrics for the port's serving stack.
 
-The port's copy of the reference ``obs`` package, as far as serving
-needs it: one span schema from the traffic driver down to the card's
-dispatch, in both time domains (the live engine on the wall clock, the
-traffic simulator on virtual time).
+The port's copy of the reference ``obs`` package: one span schema from
+the cluster router down to the card's dispatch, in both time domains (the
+live engine on the wall clock, the traffic and cluster simulators on
+virtual time).
 
 * ``trace``    — :class:`Tracer`: bounded, thread-safe, tail-biased span
   buffer (always keeps the slowest share of requests plus a seeded
@@ -17,20 +17,37 @@ traffic simulator on virtual time).
   queue / collect / stack / dispatch / device / warming, with the
   sum-to-measured-latency invariant asserted.
 * ``export``   — Chrome trace-event / Perfetto JSON
-  (:func:`to_chrome_trace`, :func:`write_chrome_trace`).
+  (:func:`to_chrome_trace`, :func:`write_chrome_trace`), incremental
+  via the shared :class:`EventBuilder`.
+* ``stream``   — :class:`TraceStreamer`: live Perfetto streaming; spans
+  append to disk as requests retire (``serve --stream-trace``).
+* ``health``   — the SLO watchtower: per-class multi-window burn-rate
+  :class:`Alert`\\ s with regression :class:`Attribution` (which
+  component regressed, ranked probable causes from chaos injections and
+  decision spans) and histogram-bucket exemplars; its
+  :meth:`Watchtower.pressure` signal closes the monitor→diagnose→actuate
+  loop through the arbiter and rebalancer.
+* ``profile``  — device profiling: retained DEVICE spans joined with the
+  analytic FLOPs/bytes model into per-(subnet, bucket) utilisation of
+  the card's peak and roofline position.
 
-The reference's streaming exporter, SLO watchtower and device profile
-(``stream``, ``health``, ``profile``) come with a later slice of the
-port.  Stdlib-only: imported by every layer, it must never cycle or pull
-in torch; ``tracer=None`` everywhere means zero work on the hot path.
+Stdlib-only: imported by every layer, it must never cycle or pull in
+torch; ``tracer=None`` everywhere means zero work on the hot path.
 """
 from repro_torch.obs.analyze import (DecompositionError, decompose_latency,
                                      format_decomposition, mean_components)
 from repro_torch.obs.export import (EventBuilder, iter_trace_events,
                                     to_chrome_trace, write_chrome_trace)
+from repro_torch.obs.health import (FAST, PAGE, SLOW, TICKET, Alert,
+                                    Attribution, BurnWindow, Cause,
+                                    SLOTarget, Watchtower, default_windows,
+                                    format_alerts)
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS_MS, Counter, Gauge,
                                      Histogram, MetricsRegistry, quantile,
                                      weighted_quantile)
+from repro_torch.obs.profile import (export_profile, format_profile,
+                                     profile_devices)
+from repro_torch.obs.stream import TraceStreamer
 from repro_torch.obs.trace import (ARBITRATE, BROWNOUT, CHAOS, COLLECT,
                                    COMPLETE, COMPONENTS, DECISION_SPANS,
                                    DEVICE, DISPATCH, HEALTH_FAIL, MIGRATE,
@@ -50,5 +67,9 @@ __all__ = [
     "decompose_latency", "format_decomposition", "mean_components",
     "DecompositionError",
     "to_chrome_trace", "write_chrome_trace", "EventBuilder",
-    "iter_trace_events",
+    "iter_trace_events", "TraceStreamer",
+    "Watchtower", "Alert", "Attribution", "Cause", "SLOTarget",
+    "BurnWindow", "default_windows", "format_alerts",
+    "FAST", "SLOW", "PAGE", "TICKET",
+    "profile_devices", "format_profile", "export_profile",
 ]

@@ -16,8 +16,8 @@ construction — the export tests assert it, and ``launch/serve.py
 
 The span→event conversion lives in :class:`EventBuilder`, which keeps
 its pid/tid naming state across calls — the streaming exporter
-(the reference's ``obs.stream.TraceStreamer``; the port's is later work) feeds it one retired request
-at a time and appends the events incrementally in the **JSON Array
+(:class:`repro_torch.obs.stream.TraceStreamer`) feeds it one retired
+request at a time and appends the events incrementally in the **JSON Array
 Format** (``[`` then one ``{event},`` per line): the trace-event spec
 allows the closing ``]`` to be absent, so a truncated or still-growing
 stream file loads in Perfetto as-is.

@@ -4,16 +4,14 @@ One :class:`Tracer` serves every layer of the stack (engine → arbiter →
 cluster) in BOTH time domains: the live path records wall-clock spans
 through the injectable ``clock``, and the virtual-time simulators
 (:func:`repro_torch.traffic.driver.simulate`,
-the reference's cluster simulator) pass explicit virtual
+:func:`repro_torch.cluster.sim.simulate_cluster`) pass explicit virtual
 timestamps — the span *schema* is identical either way, which is what
 makes a simulated tail request directly comparable to a live one (and
 what the sim-vs-live parity tests assert).
 
 The port's copy of the reference ``obs/trace.py``: :data:`SCHEMA` and every
-kind string are identical to the reference's, the cluster and chaos kinds
-included (the port's cluster and chaos layers are later work), so the
-project lint's span-schema rule holds the port's call sites to the same
-vocabulary.
+kind string are identical to the reference's, so the project lint's
+span-schema rule holds the port's call sites to the same vocabulary.
 
 **Span vocabulary** (fixed — :data:`SCHEMA` maps each name to the attr
 keys it must carry):

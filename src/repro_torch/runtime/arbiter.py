@@ -438,7 +438,7 @@ class ResourceArbiter:
         This is deliberately more conservative than admission: it
         reserves all tenants, while the admission path
         (:meth:`admission_check`, called per node by
-        the cluster layer's admission) skips lower-priority ones
+        ``repro_torch.cluster.cluster_admission``) skips lower-priority ones
         because they are preemptable.  Don't compute admission from this
         number.
         """

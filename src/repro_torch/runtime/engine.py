@@ -46,9 +46,9 @@ cannot overwrite logits not yet read; the request tracer's ``dispatch``
 span holds the host's time to enqueue them and ``device`` what the
 device still had to do after it.  :meth:`DynamicServer.infer` and :meth:`measure` go through
 the graph of the batch's bucket, so the measured LUT times what serving
-runs, as the reference's ``measure`` times a compiled executable.  The
-reference's chaos hooks (``wedge``/``unwedge``) come with the port's
-chaos slice.
+runs, as the reference's ``measure`` times a compiled executable.  The chaos
+hooks :meth:`DynamicServer.wedge`/``unwedge`` park the worker silently
+(the failure only the cluster's stall health check can see).
 
 The worker blocks on the request queue and on pause/resume events (no
 polling): an idle or paused server burns no CPU and wakes immediately.
@@ -60,7 +60,8 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Callable, Deque, Dict, List, Optional, Set, Tuple
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Set, Tuple)
 
 import numpy as np
 import torch
@@ -219,6 +220,7 @@ class DynamicServer:
         self._paused = threading.Event()
         self._resume = threading.Event()
         self._resume.set()
+        self._wedged = False   # chaos: resume() defeated until unwedge()
         self._worker: Optional[threading.Thread] = None
         self._completer: Optional[threading.Thread] = None
         self.active_spec = SubnetSpec()
@@ -429,17 +431,28 @@ class DynamicServer:
     def _stop_reason(self) -> str:
         return self._fail_reason or "server stopped"
 
-    def submit(self, x, trace_id: Optional[int] = None) -> "queue.Queue":
+    def submit(self, x, trace_id: Optional[int] = None,
+               links: Sequence[int] = (), *,
+               t_submit: Optional[float] = None) -> "queue.Queue":
         """Queue one request (one image, host array); the returned future
-        resolves to ``{"y", "latency_ms", "subnet"}`` or a cancel payload."""
+        resolves to ``{"y", "latency_ms", "subnet"}`` or a cancel payload.
+
+        ``t_submit`` (a ``time.perf_counter()`` reading) is where an
+        upstream layer handed the request over — the cluster front-end
+        passes the end of its route span, so the span tree's components
+        partition the request's latency with no gap between route and
+        queue; now when None."""
         fut: "queue.Queue" = queue.Queue(maxsize=1)
-        t_submit = time.perf_counter()
+        if t_submit is None:
+            t_submit = time.perf_counter()
         if self.tracer is not None and trace_id is None:
             # standalone server: begin the tree here under the tenant label
-            # (an upstream layer begins it earlier, with the SLO class, and
-            # hands us its trace_id)
+            # (the cluster front-end begins it earlier, with the SLO class
+            # and a route span, and hands us its trace_id).  ``links``
+            # names prior attempts' trace_ids (retry/hedge).
             trace_id = self.tracer.begin_request(
-                self.tenant or "default", t=t_submit, node=self.trace_node)
+                self.tenant or "default", t=t_submit, node=self.trace_node,
+                links=links)
         # retry layers read the id back off the future to link attempts
         fut.trace_id = trace_id
         r = Request(x=x, t_submit=t_submit, future=fut, trace_id=trace_id)
@@ -544,9 +557,23 @@ class DynamicServer:
             self._put_wake()         # wake a collector blocked on get()
 
     def resume(self):
+        if self._wedged:
+            return   # a wedged worker silently ignores the arbiter
         if self._paused.is_set():
             self._paused.clear()
             self._resume.set()
+
+    def wedge(self):
+        """Chaos: silently hang the worker.  Requests keep queueing and
+        the server stays registered/routable, but nothing completes and
+        ``resume()`` is defeated until :meth:`unwedge` — the failure
+        mode only the stall health check can see."""
+        self._wedged = True
+        self.pause()
+
+    def unwedge(self):
+        self._wedged = False
+        self.resume()
 
     def _bucket_for(self, n: int) -> int:
         # scan the precomputed ladder: no per-dispatch allocation

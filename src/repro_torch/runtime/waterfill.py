@@ -12,8 +12,7 @@ placement calls above it.  This module is the one brain: the
 water-filling core extracted out of the arbiter into pure functions over
 ``(demands, capacity, priced points)`` — no threads, no servers, no LUTs
 — so the node-level arbiter and the cluster-level placement engine
-(the reference's ``cluster.placement``; the port's is later work)
-solve the same objective.
+(:mod:`repro_torch.cluster.placement`) solve the same objective.
 
 The objective, verbatim from the arbiter (and kept bit-identical — the
 reference's waterfill parity test replays the pre-extraction

@@ -369,6 +369,127 @@ def simulate(classes: Sequence[SLOClass], luts: Dict[str, LUT],
                          arbiter=arbiter.summary())
 
 
+def _drain_reliable(pending, by_class, servers, make_input, stats,
+                    reliability, t0: float, timeout_s: float):
+    """Reliability-aware drain loop for :func:`drive_live`.
+
+    Polls outstanding futures; a FAILED attempt (error payload from a
+    fail-stopped node) is re-submitted through the cluster router after
+    its class's backoff — but only while the policy's attempt cap, the
+    cluster-wide retry budget, and the request's own deadline all still
+    allow it (a retry that could not land before the SLO deadline is
+    wasted work on a degraded cluster).  The retry's span tree links to
+    the first failed attempt's trace_id.  Returns the final
+    ``(name, future)`` list for the normal harvest loop — each arrival
+    contributes exactly one terminal future, so the accounting invariant
+    (submitted == rejected+dropped+failed+completed) is untouched.
+    """
+    budget = reliability.budget.fresh()
+    # entry: [name, fut-or-None, t_sub, attempts, retry_at, first_tid]
+    live = [[name, fut, t_sub, 1, 0.0, None]
+            for name, fut, t_sub in pending]
+    final: List = []
+    completed_seen = 0
+    deadline = time.perf_counter() + timeout_s
+    while live and time.perf_counter() < deadline:
+        nxt: List = []
+        for entry in live:
+            name, fut, t_sub, attempts, retry_at, first_tid = entry
+            now = time.perf_counter() - t0
+            if fut is None:               # parked for backoff
+                if now < retry_at:
+                    nxt.append(entry)
+                    continue
+                links = [first_tid] if first_tid is not None else []
+                nf = (servers[name].submit(make_input(name), links=links)
+                      if links else servers[name].submit(make_input(name)))
+                nxt.append([name, nf, t_sub, attempts, 0.0, first_tid])
+                continue
+            if fut.empty():
+                nxt.append(entry)
+                continue
+            out = fut.get()
+            if out.get("cancelled") and out.get("failed"):
+                pol = reliability.policy_for(name)
+                c = by_class[name]
+                t_retry = now + pol.backoff(attempts)
+                if (attempts < pol.max_attempts
+                        and t_retry <= t_sub + c.deadline_ms / 1e3
+                        and budget.allow(completed_seen)):
+                    stats[name].retried += 1
+                    tid = getattr(fut, "trace_id", None)
+                    nxt.append([name, None, t_sub, attempts + 1, t_retry,
+                                first_tid if first_tid is not None else tid])
+                    continue
+            if not out.get("cancelled"):
+                completed_seen += 1
+            fut.put(out)                  # hand back to the harvest loop
+            final.append((name, fut))
+        live = nxt
+        time.sleep(0.005)
+    for name, fut, *_ in live:            # timed out mid-flight / parked
+        if fut is None:
+            fut = _dead_live_future("retry window expired")
+        final.append((name, fut))
+    return final, budget
+
+
+def _dead_live_future(reason: str) -> "queue.Queue":
+    fut: "queue.Queue" = queue.Queue(maxsize=1)
+    fut.put({"y": None, "cancelled": True, "failed": True,
+             "error": reason, "latency_ms": 0.0, "subnet": None})
+    return fut
+
+
+class _WatchtowerFeed:
+    """Wall-clock feeder for :class:`repro_torch.obs.Watchtower` inside
+    :func:`drive_live`: periodically sweeps the outstanding futures
+    without consuming them (peek + put-back, the `_drain_reliable`
+    idiom), classifies newly-resolved ones against their class deadline,
+    feeds the watchtower one delta sample, evaluates, and forwards the
+    per-class alert pressure to the arbiter/cluster — the live mirror
+    of the simulator's per-epoch actuation hook."""
+
+    def __init__(self, wt, arbiter, by_class, t0: float):
+        self.wt = wt
+        self.arbiter = arbiter
+        self.by_class = by_class
+        self.t0 = t0
+        self.interval = max(0.05, min(w.short_s for w in wt.windows) / 2.0)
+        self._seen: set = set()
+        self._last = 0.0
+
+    def sweep(self, pending, force: bool = False):
+        now = time.perf_counter() - self.t0
+        if not force and now - self._last < self.interval:
+            return
+        self._last = now
+        delta = {cn: [0, 0] for cn in self.by_class}
+        for i, (name, fut, _t_sub) in enumerate(pending):
+            if i in self._seen or fut is None or fut.empty():
+                continue
+            try:
+                out = fut.get_nowait()
+            except Exception:   # raced with the harvest loop
+                continue
+            fut.put(out)
+            self._seen.add(i)
+            if out.get("cancelled"):
+                good = 0
+            else:
+                good = int(out["latency_ms"]
+                           <= self.by_class[name].deadline_ms)
+            delta[name][0] += good
+            delta[name][1] += 1 - good
+        for cn, (g, b) in delta.items():
+            if cn in self.wt.targets:
+                self.wt.observe(now, cn, good=g, bad=b)
+        self.wt.evaluate(now)
+        if self.wt.actuate and hasattr(self.arbiter, "set_alert_pressure"):
+            for cn in self.wt.targets:
+                self.arbiter.set_alert_pressure(cn, self.wt.pressure(cn))
+
+
 def drive_live(classes: Sequence[SLOClass],
                servers: Dict[str, DynamicServer],
                arbiter: ResourceArbiter,
@@ -388,8 +509,9 @@ def drive_live(classes: Sequence[SLOClass],
     arbiter clock runs for the duration and is stopped (draining the
     servers) before the report is built, so every future resolves.
 
-    The duck interface on ``arbiter``/``servers`` is start/stop/summary
-    and per-class ``.submit``.
+    ``arbiter``/``servers`` may equally be a
+    :class:`repro_torch.cluster.Cluster` and its class ports — the duck
+    interface is start/stop/summary and per-class ``.submit``.
 
     ``record_path`` writes the ACTUAL per-class submission times (not the
     planned schedule — sleep overshoot and submit cost shift them) as a
@@ -400,17 +522,24 @@ def drive_live(classes: Sequence[SLOClass],
     ``sink``, when given, receives ``(class, payload)`` for every answered
     request (the served outputs, for callers that check them).
 
-    ``reliability`` (the retry layer) and ``watchtower`` (the SLO burn
-    monitors) come with the port's chaos and health slices (ROADMAP item
-    14 (c) and (d)): passing either raises ``NotImplementedError`` rather
-    than running without it.
+    ``reliability`` (a :class:`repro_torch.chaos.Reliability`) turns on
+    the retry layer: failed attempts (fail-stopped replicas, chaos kills)
+    are re-routed through the cluster with per-class backoff, capped by
+    the policy's attempt limit, the cluster-wide retry budget, and the
+    request's own deadline; retries count in ``ClassStats.retried`` and
+    their span trees link to the first attempt.  (Hedging is a
+    virtual-time feature — see
+    :func:`repro_torch.cluster.sim.simulate_cluster`.)
+
+    ``watchtower`` (a :class:`repro_torch.obs.Watchtower`) runs the SLO
+    burn monitors against the live outcomes as they resolve: resolved
+    futures are classified against their class deadline, fed as delta
+    samples on the wall clock, and — when the watchtower actuates — the
+    per-class alert pressure is forwarded to
+    ``arbiter.set_alert_pressure`` (a plain arbiter or a
+    :class:`repro_torch.cluster.Cluster` alike).  The same instance fed by
+    the simulator fires the same alerts.
     """
-    for name, given in (("reliability", reliability),
-                        ("watchtower", watchtower)):
-        if given is not None:
-            raise NotImplementedError(
-                f"drive_live({name}=...) comes with a later slice of the "
-                f"port (ROADMAP item 14 (c) chaos, (d) health)")
     by_class = {c.name: c for c in classes}
     stats = {c.name: ClassStats() for c in classes}
     if tracer is not None or metrics is not None:
@@ -429,6 +558,8 @@ def drive_live(classes: Sequence[SLOClass],
     arbiter.start(g_fn)
     try:
         t0 = time.perf_counter()
+        feed = (_WatchtowerFeed(watchtower, arbiter, by_class, t0)
+                if watchtower is not None else None)
         for ta, name in events:
             wait = ta / speed - (time.perf_counter() - t0)
             if wait > 0:
@@ -437,12 +568,29 @@ def drive_live(classes: Sequence[SLOClass],
             recorded[name].append(now)
             pending.append((name, servers[name].submit(make_input(name)),
                             now))
-        # wait for the fleet to drain; a starved server's requests may
-        # never run — arbiter.stop() below cancels them so no get() hangs
-        deadline = time.perf_counter() + timeout_s
-        while (time.perf_counter() < deadline
-               and any(fut.empty() for _, fut, _ in pending)):
-            time.sleep(0.02)
+            if feed is not None:
+                feed.sweep(pending)
+        rel_info: dict = {}
+        if reliability is not None:
+            pending, budget = _drain_reliable(
+                pending, by_class, servers, make_input, stats,
+                reliability, t0, timeout_s)
+            pending = [(name, fut, 0.0) for name, fut in pending]
+            rel_info = {"retry_granted": budget.granted,
+                        "retry_denied": budget.denied}
+        else:
+            # wait for the fleet to drain; a starved server's requests may
+            # never run — arbiter.stop() below cancels them so no get()
+            # hangs
+            deadline = time.perf_counter() + timeout_s
+            while (time.perf_counter() < deadline
+                   and any(fut.empty() for _, fut, _ in pending)):
+                if feed is not None:
+                    feed.sweep(pending)
+                time.sleep(0.02)
+        if feed is not None:
+            # terminal sample: whatever resolved since the last sweep
+            feed.sweep(pending, force=True)
     finally:
         arbiter.stop()
     if record_path is not None:
@@ -473,4 +621,4 @@ def drive_live(classes: Sequence[SLOClass],
         if lat <= by_class[name].deadline_ms:
             st.good += 1
     return TrafficReport(policy="live", classes=stats,
-                         arbiter=arbiter.summary())
+                         arbiter=arbiter.summary(), reliability=rel_info)

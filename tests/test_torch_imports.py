@@ -55,6 +55,9 @@ def test_serve_imports_with_jax_blocked():
             "repro_torch.optim, repro_torch.distributed.fault\n"
             "import repro_torch.traffic, repro_torch.obs.export\n"
             "import repro_torch.runtime.arbiter, repro_torch.runtime.telemetry\n"
+            "import repro_torch.cluster, repro_torch.chaos.live\n"
+            "import repro_torch.obs.health, repro_torch.obs.stream, "
+            "repro_torch.obs.profile\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=SRC)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -38,8 +38,9 @@ def test_exports_cover_what_is_ported():
     missing = [n for n in PO.__all__ if not hasattr(PO, n)]
     assert not missing
     assert set(PO.__all__) <= set(JO.__all__)
-    for later in ("Watchtower", "TraceStreamer", "profile_devices"):
-        assert later not in PO.__all__
+    for ported in ("Watchtower", "TraceStreamer", "profile_devices"):
+        assert ported in PO.__all__
+    assert set(PO.__all__) == set(JO.__all__)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -50,10 +50,15 @@ def test_build_server_resident_weights_in_compute_dtype():
                                   "--stream-trace x", "--alerts-out x",
                                   "--profile-out x"])
 def test_later_slice_flags_refused(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.parse_args(["--smoke"] + flag.split())
-    assert e.value.code == 2
-    assert "later slice of the port" in capsys.readouterr().err
+    """The cluster, chaos and watchtower flags (once refused, now ported)
+    parse to the reference launcher's types."""
+    name, value = flag.split()
+    args = serve.parse_args(["--smoke", name, value])
+    got = getattr(args, name[2:].replace("-", "_"))
+    want = {"--nodes": 2, "--router": "p2c", "--health-interval": 1.0,
+            "--rebalance-interval": 1.0}.get(name, value)
+    assert got == want and type(got) is type(want)
+    assert capsys.readouterr().err == ""
 
 
 def test_serve_specs_match_reference_launcher():

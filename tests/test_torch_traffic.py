@@ -203,9 +203,28 @@ def test_recorded_schedule_replays_identically(tmp_path, v5e):
 
 @pytest.mark.parametrize("hook", ["reliability", "watchtower"])
 def test_drive_live_later_slice_hooks_raise(hook):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PT.drive_live([], {}, None, {}, lambda n: None,
-                      g_fn=lambda: PG(total_chips=2), **{hook: object()})
+    """``reliability=`` and ``watchtower=`` (once refused, now ported) run
+    an empty schedule to an empty report instead of raising."""
+    from repro_torch.chaos import Reliability
+    from repro_torch.obs import Watchtower
+
+    class Idle:
+        def start(self, g_fn):
+            self.started = True
+
+        def stop(self):
+            pass
+
+        def summary(self):
+            return {}
+
+    given = Reliability() if hook == "reliability" else Watchtower({})
+    idle = Idle()
+    rep = PT.drive_live([], {}, idle, {}, lambda n: None,
+                        g_fn=lambda: PG(total_chips=2), **{hook: given})
+    assert idle.started and rep.classes == {}
+    assert rep.reliability == ({"retry_granted": 0, "retry_denied": 0}
+                               if hook == "reliability" else {})
 
 
 # --- live: two port servers behind the port arbiter -------------------------
