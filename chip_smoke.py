@@ -328,6 +328,46 @@ health-checked nodes sharing the card):
     replica's warm time and pool and the phase's seconds, each with the
     card's name and power limit.
 
+the other LM configs (qwen1.5-110b, granite-20b and kimi-k2-1t-a32b at
+full width, each at the LM launcher's one-card cut: 8 of 80 layers, all
+52, 2 of 61; one config on the card at a time):
+
+26. (a) K2 against its plain version at kimi-k2's head dim 112 (causal
+    prefill 4 x 512, H 64 on KH 8, also read in place from a fused
+    buffer) and decode over the 528-slot cache at kimi's D = 112 and
+    granite's 48 query heads on one kv head (six groups of 8), each at
+    fills 1, mid and capacity eagerly and inside one captured CUDA graph
+    with the fill advanced between replays, q and k at 1.5 x randn so the
+    scores spread by about 2 and a kernel that misread the scores or a
+    group's heads would miss the tolerance by far; every call on ``mma``
+    or ``decode``, none on ``fma``, and an fp32 call and unaligned bf16
+    rows at D = 112 raising; (b) each config through
+    ``elastic_moe.run``: random bf16 weights drawn on the card from a
+    seed, a prefill of 4 x 512 at each of its five operating points and
+    16 teacher-forced decode steps at the decodable ones, all graph
+    replays (wall and device time, tokens/s, the model-FLOPs bound, the
+    launches by kernel and variant, the graph pool and peak memory); every
+    logit finite; every kernel of the point launched (K3 where the point's
+    depth reaches a MoE layer); no bf16 call on K1 tile, K2 fma or K3
+    tile, no fp32 router call on K1 tile; every decode K2 call on
+    ``decode``; kimi's K3 on ``tma`` in prefill and ``stream`` in decode
+    at E = 384, and the routed slots it keeps; the 16 graph decode steps
+    at the full point within 2e-2 of the largest eager logit; (c) the
+    kernel route against the plain route at full width and depth 2 at
+    every operating point: fp32 (qwen, granite) within the LM's fp32
+    tolerance, bf16 on the plain route's routing within its bf16
+    tolerance, and one decode step at the full point from a 528-slot
+    cache that a plain prefill filled, the kernel route (every K2 call on
+    ``decode``: granite's six head groups, kimi's D = 112) against the
+    plain route on the same caches and routing, within the bf16
+    tolerance; (d) masked widths (0-d tensors: the FFN, the heads, the
+    depth; kimi's experts) against sliced ones at depth 2, qwen and kimi,
+    bf16 (and fp32 for qwen), within the same tolerances; (e) K1, K2 and
+    K3 over the recorded calls of one prefill and one decode step at the
+    full point as graph-replayed device time beside the plain version,
+    ``torch.matmul``, SDPA or ``torch.bmm`` and the bound; after each
+    config the device memory allocated is back within 64 MiB.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -1630,7 +1670,7 @@ def lm_compiled(params, cfg, tokens, graph_rows, graph_peak, dev) -> dict:
                      ).to(torch.bfloat16)
     n = torch.full((), 1, dtype=torch.int32, device=dev)
     fills = (1, total // 2, total)
-    splits, chunk = fa.decode_plan(total, B * KH)
+    splits, chunk = fa.decode_plan(total, B * KH * fa.decode_groups(H, KH))
 
     def plain(fill):
         with ops.plain_kernels():
@@ -4572,7 +4612,8 @@ def lm_train_phases(dev, parent) -> dict:
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
-    from repro_torch.launch.train import ONE_CARD_ACCUM, ONE_CARD_CUT
+    from repro_torch.launch.steps import ONE_CARD_CUT
+    from repro_torch.launch.train import ONE_CARD_ACCUM
     key = (LM_TRAIN_ARCH, LM_TRAIN_SHAPE)
     if ONE_CARD_ACCUM.get(key) != LM_TRAIN_ACCUM or \
             ONE_CARD_CUT.get(key) != LM_TRAIN_CUT:
@@ -5085,6 +5126,556 @@ def cluster_phases(serve, arch, cfg, server, lut, x, base_ms: float,
             "launches": launches, "variants": variants, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- phase 26
+# the three LM configs of ROADMAP item 15 (b), served on the card at full
+# width through the LM launcher's path, each at its one-card cut
+# (``launch/steps.py:ONE_CARD_CUT``): qwen1.5-110b 8 of 80 layers,
+# granite-20b whole, kimi-k2-1t-a32b 2 of 61 (its dense layer and one MoE
+# layer of 384 experts); one config on the card at a time
+LM_CONFIGS = (("qwen", "qwen1.5-110b"), ("granite", "granite-20b"),
+              ("kimi", "kimi-k2-1t-a32b"))
+QK_SCALE = 1.5      # phase 26 (a)'s q and k: randn x 1.5 (scores spread ~2)
+
+
+def k2_config_cases(dev) -> dict:
+    """Phase 26 (a): K2 at kimi-k2's head dim 112 (causal prefill 4 x 512,
+    H 64 on KH 8, also with q read in place from a fused buffer) and
+    decode over the 528-slot cache at kimi's D = 112 and granite's 48
+    query heads on one kv head, each decode at three fills inside one
+    captured CUDA graph with the fill advanced between replays, against
+    the plain version; every bf16 call on mma or decode, none on fma; an
+    fp32 call and unaligned bf16 rows at D = 112 raise.  q and k are
+    ``QK_SCALE`` x randn: the scores q.k / sqrt(D) then spread by
+    ``QK_SCALE``^2 ~ 2.25, so the softmax picks a few keys, and a kernel
+    that ignored the scores (o near the mean of v, ~0.04 at fill 528) or
+    read another group's query heads would miss by about |o| ~ 0.5,
+    far past the tolerance.  The plain version runs on fp32 copies of
+    the same bf16 inputs: in bf16 it rounds the scores to bf16 before
+    the softmax, an error of its own of ~0.03 at this spread, where the
+    kernels keep them in fp32."""
+    import torch
+
+    from repro_torch.graphs import Graph, new_pool
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    tol = ATTN_TOL["bfloat16"]
+    B, S = LM_BATCH, PREFILL_LEN
+    total = PREFILL_LEN + DECODE_STEPS
+    before = dict(fa.variant_launches)
+    errs = {}
+
+    def held(label, o, want, variant, ran):
+        err = close(o, want, tol)
+        errs[label] = err
+        log(f"  {label:44s} {ran:7s} max abs err {err:.3g} (tol {tol})")
+        if ran != variant:
+            raise AssertionError(f"K2 {label}: took {ran}, not {variant}")
+
+    def one(label, q, k, v, causal, variant):
+        b0 = dict(fa.variant_launches)
+        o = ops.flash_attention_op(q, k, v, causal=causal)
+        ran = [n for n, c in fa.variant_launches.items() if c != b0[n]]
+        with ops.plain_kernels():
+            want = ops.flash_attention_op(q.float(), k.float(), v.float(),
+                                          causal=causal)
+        torch.cuda.synchronize()
+        held(label, o, want, variant, ran[0] if ran else "none")
+
+    H, KH, D = 64, 8, 112
+    sc = QK_SCALE
+    one("kimi prefill S=T=512 H64/KH8 D112 causal", randn(B, S, H, D, scale=sc),
+        randn(B, S, KH, D, scale=sc), randn(B, S, KH, D), True, "mma")
+    fused = randn(B, S, H + 2 * KH, D, scale=sc)
+    one("kimi prefill, q k v in place of a fused buffer",
+        fused[:, :, :H], fused[:, :, H:H + KH], fused[:, :, H + KH:], True,
+        "mma")
+    wide = randn(2, 64, H, D + 1)                # 226-byte rows
+    for label, args in (
+            ("an fp32 call", [randn(1, 4, 1, D).float() for _ in range(3)]),
+            ("bf16 rows not 16-byte aligned",
+             [wide[..., :D], randn(2, 64, KH, D), randn(2, 64, KH, D)])):
+        try:
+            ops.flash_attention_op(*args, causal=True)
+        except NotImplementedError as e:
+            log(f"  {label} at D = 112 raises NotImplementedError: {e}")
+        else:
+            raise AssertionError(f"K2 at D = 112 ran {label}")
+    # decode over the whole cache, the fill a device int32: eager and in
+    # one captured graph, the fill copied in before each replay
+    fills = (1, total // 2, total)
+    dev_us = {}
+    with torch.inference_mode():
+        for name, H_, KH_, D_ in (("kimi", 64, 8, 112),
+                                  ("granite", 48, 1, 128)):
+            q = randn(B, 1, H_, D_, scale=sc)
+            ck, cv = randn(B, total, KH_, D_, scale=sc), \
+                randn(B, total, KH_, D_)
+            if fa.choose_variant(1, total, H_, KH_, D_, torch.bfloat16,
+                                 fa._aligned(q, ck, cv)) != "decode":
+                raise AssertionError(f"{name}: S = 1 not on decode")
+            n = torch.full((), 1, dtype=torch.int32, device=dev)
+            b0 = fa.variant_launches["decode"]
+            graph = Graph(lambda t: ops.flash_attention_op(
+                q, ck, cv, causal=False, kv_len=t), [n], pool=new_pool(),
+                stream=torch.cuda.Stream(dev))
+            for fill in fills:
+                n.fill_(fill)
+                o = ops.flash_attention_op(q, ck, cv, causal=False, kv_len=n)
+                with ops.plain_kernels():
+                    want = ops.flash_attention_op(
+                        q.float(), ck[:, :fill].float(),
+                        cv[:, :fill].float(), causal=False)
+                o_g = graph.run(torch.full((), fill, dtype=torch.int32,
+                                           device=dev))
+                torch.cuda.synchronize()
+                label = (f"{name} decode H{H_}/KH{KH_} D{D_} fill {fill}")
+                held(label + " eager", o, want, "decode", "decode")
+                held(label + " graph", o_g, want, "decode", "decode")
+                if fill > 1:
+                    # what the check would see of a kernel that ignored
+                    # the scores, or read the next group's query heads
+                    wb = want.float()
+                    for wrong, qw in (("no scores", q * 0),
+                                      ("heads of the next group",
+                                       q.roll(fa.DECODE_R_MAX, dims=2))):
+                        with ops.plain_kernels():
+                            ow = ops.flash_attention_op(
+                                qw.float(), ck[:, :fill].float(),
+                                cv[:, :fill].float(), causal=False)
+                        if bool(((ow - wb).abs()
+                                 <= tol + tol * wb.abs()).all()):
+                            raise AssertionError(
+                                f"{label}: {wrong} would pass the check")
+                        log(f"    {wrong}: max abs diff "
+                            f"{float((ow - wb).abs().max()):.3g} from plain")
+                start, end = torch.cuda.Event(enable_timing=True), \
+                    torch.cuda.Event(enable_timing=True)
+                with graph.lock:
+                    graph.replay()
+                    start.record()
+                    for _ in range(20):
+                        graph.replay()
+                    end.record()
+                torch.cuda.synchronize()
+                dev_us[f"{name} {fill}"] = start.elapsed_time(end) / 20 * 1e3
+            # the capture's eager warm-up, then per fill an eager call and
+            # 22 replays (a capture records its launches, counts none)
+            ran = fa.variant_launches["decode"] - b0
+            if ran != 1 + len(fills) * 23:
+                raise AssertionError(f"{name}: {ran} decode launches")
+            splits, chunk = fa.decode_plan(
+                total, B * KH_ * fa.decode_groups(H_, KH_))
+            log(f"  {name} decode: {fa.decode_groups(H_, KH_)} head "
+                f"group(s) a kv head, {splits} splits of {chunk} keys; "
+                f"device time a call (graph) " + ", ".join(
+                    f"fill {f}: {dev_us[f'{name} {f}']:.2f} us"
+                    for f in fills))
+            del graph, q, ck, cv
+    ran = {v: fa.variant_launches[v] - before[v] for v in fa.VARIANTS}
+    if ran["fma_bf16"] or ran["fma_f32"] or not ran["mma"] \
+            or not ran["decode"]:
+        raise AssertionError(f"phase 26 (a) K2 variants {ran}")
+    log(f"  K2 launches by variant in (a): {ran}")
+    return {"errs": errs, "max_abs_err": max(errs.values()),
+            "decode_device_us": dev_us, "variants": ran}
+
+
+def lm_depth2(params: dict, cfg):
+    """(params, cfg) of the first two layers (views of ``params``)."""
+    import dataclasses as dc
+    if cfg.n_layers <= 2:
+        return params, cfg
+    p = dict(params)
+    nd = min(cfg.n_dense_layers, 2)
+    if "dense_layers" in p:
+        p["dense_layers"] = p["dense_layers"][:nd]
+    if "moe_layers" in p:
+        p["moe_layers"] = p["moe_layers"][:2 - nd]
+    if cfg.moe is not None:
+        return p, dc.replace(cfg, n_layers=2, first_k_dense=nd)
+    return p, dc.replace(cfg, n_layers=2)
+
+
+def lm_config_logits(key: str, params: dict, cfg, dev) -> dict:
+    """Phase 26 (c) and (d) at full width and depth 2: the kernel route
+    against the plain route at every operating point, fp32 (the dense
+    configs: kimi's fp32 depth 2 would take ~80 GB) and bf16 on the plain
+    route's routing; then masked widths against sliced ones at one point
+    with every masked knob (qwen and kimi)."""
+    import torch
+
+    from repro_torch.core.layers import cast_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic_moe
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import lm_apply
+
+    p16, cfg2 = lm_depth2(params, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(27))
+    fp32 = cfg.moe is None
+    p32 = cast_params(p16, torch.float32) if fp32 else None
+    cfg32 = dataclasses.replace(cfg2, compute_dtype="float32")
+    out = {"route": {}, "masked": {}}
+    with torch.inference_mode():
+        for name, E_, _ in elastic_moe.operating_points(cfg2):
+            row = {}
+            if fp32:
+                yk = lm_apply(p32, toks, cfg32, E=E_)[0]
+                with ops.plain_kernels():
+                    yp = lm_apply(p32, toks, cfg32, E=E_)[0]
+                row["fp32"] = close(yk, yp, LM_LOGITS_FP32_TOL)
+                del yk, yp
+            tape_p = []
+            with ops.plain_kernels(), router_tape(moe_mod, tape_p):
+                yp16 = lm_apply(p16, toks, cfg2, E=E_)[0]
+            with router_tape(moe_mod, tape_p, replay=True):
+                yq16 = lm_apply(p16, toks, cfg2, E=E_)[0]
+            if not torch.isfinite(yq16).all():
+                raise AssertionError(f"{key} {name}: non-finite bf16 logits")
+            row["bf16_pinned"] = float((yq16.float() - yp16.float()).abs()
+                                       .max())
+            row["top1"] = float((yq16.argmax(-1) == yp16.argmax(-1))
+                                .float().mean())
+            if row["bf16_pinned"] > LM_LOGITS_BF16_PINNED_TOL:
+                raise AssertionError(
+                    f"{key} {name}: bf16 logits on one routing differ by "
+                    f"{row['bf16_pinned']} > {LM_LOGITS_BF16_PINNED_TOL}")
+            out["route"][name] = row
+            log(f"  (c) {key} depth 2 {name:24s} "
+                + (f"fp32 max abs err {row['fp32']:.3g} (tol "
+                   f"{LM_LOGITS_FP32_TOL}); " if fp32 else "")
+                + f"bf16 on the plain route's routing {row['bf16_pinned']:.3g}"
+                  f" (tol {LM_LOGITS_BF16_PINNED_TOL}), top-1 "
+                  f"{row['top1']:.3f}")
+            del yp16, yq16, tape_p
+        out["decode"] = lm_config_decode_step(key, p16, cfg2, toks)
+        if key in ("qwen", "kimi"):
+            E_s = {"a_ff": (cfg.moe.d_ff if cfg.moe else cfg.d_ff) // 2,
+                   "a_heads": elastic_moe.fewest_heads(cfg),
+                   "a_layers": 1 if cfg.moe is None else 2}
+            if cfg.moe is not None:
+                E_s.update(a_experts=min(cfg.elastic.expert_counts),
+                           top_k=min(cfg.elastic.top_ks))
+            E_m = {k: v if k == "top_k" else
+                   torch.tensor(v, dtype=torch.int32) for k, v in E_s.items()}
+            # the sliced run's routing replayed in the masked one: the same
+            # products over the same active elements, zeros past them; what
+            # is left is rounding over full-width tiles or summation order
+            runs = [("bf16", p16, cfg2, LM_LOGITS_BF16_PINNED_TOL)]
+            if fp32:
+                runs.append(("fp32", p32, cfg32, LM_LOGITS_FP32_TOL))
+            for dt, p, c, tol in runs:
+                tape = []
+                with router_tape(moe_mod, tape):
+                    ys = lm_apply(p, toks, c, E=E_s)[0]
+                with router_tape(moe_mod, tape, replay=True):
+                    ym = lm_apply(p, toks, c, E=E_m)[0]
+                err = float((ym.float() - ys.float()).abs().max())
+                if not torch.isfinite(ym).all() or err > tol:
+                    raise AssertionError(f"{key} masked vs sliced {dt}: "
+                                         f"{err} > {tol}")
+                out["masked"][dt] = err
+                log(f"  (d) {key} depth 2 masked {E_s} against sliced, {dt}:"
+                    f" max abs err {err:.3g} (tol {tol})")
+    del p32
+    return out
+
+
+def lm_config_decode_step(key: str, p16: dict, cfg2, toks) -> float:
+    """Phase 26 (c): one decode step at the full point and depth 2, the
+    kernel route against the plain route, each from its own copy of one
+    528-slot cache that a plain prefill of all but the last token filled,
+    on the plain route's routing; every K2 call of the kernel route's
+    step on ``decode`` (granite's six head groups, kimi's D = 112)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import lm_decode, lm_prefill
+    from repro_torch.models import moe as moe_mod
+
+    with ops.plain_kernels():
+        _, caches = lm_prefill(p16, toks[:, :-1], cfg2,
+                               max_len=PREFILL_LEN + DECODE_STEPS)
+    copy = {st: [{k: v.clone() if isinstance(v, torch.Tensor) else v
+                  for k, v in c.items()} for c in layers]
+            for st, layers in caches.items()}
+    tape = []
+    with ops.plain_kernels(), router_tape(moe_mod, tape):
+        yp = lm_decode(p16, caches, toks[:, -1:], cfg2)[0]
+    before = dict(fa.variant_launches)
+    with router_tape(moe_mod, tape, replay=True):
+        yk = lm_decode(p16, copy, toks[:, -1:], cfg2)[0]
+    ran = {v: fa.variant_launches[v] - before[v] for v in fa.VARIANTS}
+    if ran != {v: cfg2.n_layers if v == "decode" else 0
+               for v in fa.VARIANTS}:
+        raise AssertionError(f"{key} decode step: K2 launches {ran}")
+    err = float((yk.float() - yp.float()).abs().max())
+    if not torch.isfinite(yk).all() or err > LM_LOGITS_BF16_PINNED_TOL:
+        raise AssertionError(f"{key} decode step: kernel route differs from "
+                             f"plain by {err} > {LM_LOGITS_BF16_PINNED_TOL}")
+    top1 = float((yk.argmax(-1) == yp.argmax(-1)).float().mean())
+    log(f"  (c) {key} depth 2 full: one decode step at fill "
+        f"{toks.shape[1] - 1} of {PREFILL_LEN + DECODE_STEPS}, K2 on decode "
+        f"x{ran['decode']}, bf16 on the plain route's caches and routing "
+        f"{err:.3g} (tol {LM_LOGITS_BF16_PINNED_TOL}), top-1 {top1:.3f}")
+    return err
+
+
+def kept_shares(k3_calls: list, n_pre: int, cfg) -> dict:
+    """The routed slots the capacity keeps, a share a MoE layer, from the
+    counts of the recorded K3 calls of a prefill (the first ``n_pre``)
+    and a decode step."""
+    kept = {}
+    for st, calls in (("prefill", k3_calls[:n_pre]),
+                      ("decode", k3_calls[n_pre:])):
+        counts = {id(args[2]): args[2] for args, _ in calls}
+        routed = LM_BATCH * (PREFILL_LEN if st == "prefill" else 1) \
+            * cfg.moe.top_k
+        kept[st] = [float(c.sum()) / routed for c in counts.values()]
+    return kept
+
+
+def config_times(key: str, calls: dict, n_pre: dict, kernel_fn: dict
+                 ) -> dict:
+    """Phase 26 (e): each kernel's rows over the recorded calls of one
+    prefill (the first ``n_pre[k]``) and one decode step."""
+    import torch
+
+    from repro_torch.kernels import expert_matmul as xm
+    kinds = {
+        "k1": (kernel_fn["k1"], k1_plain, k1_library, "torch.matmul",
+               k1_work),
+        "k2": (kernel_fn["k2"], k2_plain, k2_library, "sdpa", k2_work),
+        "k3": (xm.expert_matmul, xm.expert_matmul_plain,
+               lambda x, w, c: torch.bmm(x, w), "torch.bmm", k3_work)}
+    times = {}
+    for k, (kern, plain, lib, lib_name, work) in kinds.items():
+        for st, batch in (("prefill", calls[k][:n_pre[k]]),
+                          ("decode", calls[k][n_pre[k]:])):
+            if batch:
+                times[f"{k}_{st}"] = time_rows(
+                    f"{k.upper()} {key} {st:7s}", batch, kern, plain, lib,
+                    lib_name, work)
+    return times
+
+
+def lm_config_phase(key: str, arch_id: str, dev, card: str) -> dict:
+    """Phase 26 (b), (c), (d) and (e) for one config: see
+    :func:`lm_configs_phases`."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic_moe
+    from repro_torch.launch.flops import lm_model_flops
+    from repro_torch.launch.steps import lm_decode, lm_prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import lm_init
+
+    full = get_arch(arch_id).make_config()
+    cfg = elastic_moe.one_card(arch_id, full)
+    t0 = time.perf_counter()
+    torch._C._cuda_clearCublasWorkspaces()
+    m0 = settled_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm_init(torch.Generator(device=dev).manual_seed(26), cfg,
+                     device=dev, dtype=cfg.cdtype())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"  (b) {arch_id}: {cfg.n_layers} of {full.n_layers} layers at full "
+        f"width (d {cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} "
+        f"kv, head dim {cfg.d_head}"
+        + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}" if cfg.moe
+           else "") + f"), {n_params / 1e9:.2f} B parameters in bf16 drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    total = PREFILL_LEN + DECODE_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, total), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               28))
+    prompt, step = tokens[:, :PREFILL_LEN], tokens[:, PREFILL_LEN:
+                                                   PREFILL_LEN + 1]
+    ops.reset_launch_counts()
+    rows = elastic_moe.run(params, cfg, tokens, PREFILL_LEN, iters=2)
+    launches, variants = ops.launch_counts(), ops.variant_counts()
+    run_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pool = rows[-1].get("graph_pool_bytes")
+    full_flops = lm_model_flops(cfg, "prefill", LM_BATCH, PREFILL_LEN)
+    need_k3 = cfg.moe is not None
+    for r in rows:
+        if r["logits"].shape != (LM_BATCH, cfg.vocab_size) or \
+                not torch.isfinite(r["logits"]).all() or \
+                not torch.isfinite(r.get("decode_logits", r["logits"])).all():
+            raise AssertionError(f"{key} {r['name']}: bad logits")
+        # a depth point of kimi's 2-layer cut runs its dense layer alone
+        moe_runs = need_k3 and r["E"].get("a_layers", cfg.n_layers) \
+            > cfg.n_dense_layers
+        want = [k for k in FORWARD
+                if k != "expert_matmul" or moe_runs]
+        for st in ("prefill", "decode"):
+            if f"{st}_launches" in r and min(
+                    r[f"{st}_launches"][k] for k in want) <= 0:
+                raise AssertionError(f"{key} {r['name']}: a kernel was not "
+                                     f"launched in {st}: "
+                                     f"{r[f'{st}_launches']}")
+        bound = r["rel_flops"] * full_flops / PEAK_BF16_FLOPS * 1e3
+        line = (f"  {key} {r['name']:24s} prefill {r['prefill_ms']:8.2f} ms"
+                f" (device {r['prefill_event_ms']:8.2f}) "
+                f"{r['prefill_tok_s']:8.0f} tok/s, rel flops "
+                f"{r['rel_flops']:.2f} (model-FLOPs bound {bound:.2f} ms)")
+        line += (f"; decode {r['decode_ms']:7.2f} ms/step (device "
+                 f"{r['decode_event_ms']:7.2f}) {r['decode_tok_s']:7.1f} "
+                 f"tok/s" if "decode_ms" in r
+                 else "; decode n/a (sliced depth or heads: fault F4)")
+        log(line)
+    if not all("decode_ms" in r for r in rows[:2]):
+        raise AssertionError(f"{key}: the full point or the next did not "
+                             f"decode")
+    need = {("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
+            ("flash_attention", "mma"), ("flash_attention", "decode")}
+    if need_k3:
+        need |= {("elastic_matmul", "f32_splitk"), ("expert_matmul", "tma"),
+                 ("expert_matmul", "stream")}
+    main_path_variants(variants, need)
+    fa_v = variants["flash_attention"]
+    if fa_v["fma_bf16"] or fa_v["fma_f32"] or \
+            variants["elastic_matmul"]["tile_f32"]:
+        raise AssertionError(f"{key}: K2 on fma or K1 on tile_f32: "
+                             f"{variants}")
+    # every decode step's K2 calls on the decode kernel (granite's 48 heads
+    # on one kv head in six groups, kimi's D = 112)
+    for r in rows:
+        dv = r.get("decode_variants", {}).get("flash_attention", {})
+        if any(n for v, n in dv.items() if v != "decode"):
+            raise AssertionError(f"{key} {r['name']}: decode K2 calls {dv}")
+    by_stage = None
+    if need_k3:
+        by_stage = {stage: {v: sum(r[f"{stage}_variants"]["expert_matmul"][v]
+                                   for r in rows if f"{stage}_variants" in r)
+                            for v in xm.VARIANTS}
+                    for stage in ("prefill", "decode")}
+        k3_on_stage(by_stage)
+    log(f"  {key} launches on the main path (replay-accounted, captures' "
+        f"warm-ups included): {launches}")
+    log(f"  {key} by variant: " + "; ".join(
+        f"{k} {dict((v, n) for v, n in per.items() if n)}"
+        for k, per in variants.items() if any(per.values())))
+    log(f"  {key} at {rows[0]['name']}: prefill launches "
+        f"{ {k: rows[0]['prefill_launches'][k] for k in FORWARD} } "
+        f"(3 prefills), decode "
+        f"{ {k: rows[0]['decode_launches'][k] for k in FORWARD} } "
+        f"({DECODE_STEPS} steps); graph pool "
+        f"{'not measured' if pool is None else f'{pool / 2**30:.2f} GiB'}, "
+        f"peak {run_peak:.2f} GiB [{card}]")
+
+    # (e) the calls of one eager prefill and one decode step at the full
+    # point: each kernel's graph-replayed device time; K3's counts give the
+    # routed slots the capacity keeps
+    targets = [(layers_mod, "elastic_matmul_op", "k1"),
+               (layers_mod, "flash_attention_op", "k2"),
+               (moe_mod, "expert_matmul_op", "k3")]
+    kernel_fn = {k: getattr(mod, attr) for mod, attr, k in targets}
+    calls = {"k1": [], "k2": [], "k3": []}
+    with torch.inference_mode(), recording(
+            targets, lambda k, args, kw: calls[k].append((args, kw))):
+        _, caches = lm_prefill(params, prompt, cfg, max_len=total)
+        n_pre = {k: len(v) for k, v in calls.items()}
+        lm_decode(params, caches, step, cfg)
+    kept = kept_shares(calls["k3"], n_pre["k3"], cfg) if need_k3 else {}
+    if kept:
+        log(f"  {key} routed slots kept at {rows[0]['name']} (capacity "
+            f"factor {cfg.moe.capacity_factor}, random router): prefill "
+            f"{kept['prefill'][0]:.1%}, decode {kept['decode'][0]:.1%} "
+            f"a layer")
+    times = config_times(key, calls, n_pre, kernel_fn)
+    del calls, caches
+
+    # the graph decode steps against eager ones at the full point (the
+    # same kernels in the same order)
+    with torch.inference_mode():
+        t_e = time.perf_counter()
+        _, caches = lm_prefill(params, prompt, cfg, max_len=total)
+        eager = torch.stack([lm_decode(params, caches,
+                                       tokens[:, t:t + 1], cfg)[0]
+                             for t in range(PREFILL_LEN, total)])
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t_e
+        del caches
+    ref = eager.float()
+    rel = float((rows[0]["decode_logits"].float() - ref).abs().max()
+                / ref.abs().max())
+    if rel > GRAPH_DECODE_REL_TOL:
+        raise AssertionError(f"{key}: {DECODE_STEPS} graph decode steps "
+                             f"differ from eager by {rel:.3g} of the "
+                             f"largest logit (tol {GRAPH_DECODE_REL_TOL})")
+    log(f"  {key} {DECODE_STEPS} graph decode steps at {rows[0]['name']} "
+        f"against eager ones (prefill + steps {eager_s:.2f} s eager): max "
+        f"abs err {rel:.3g} of the largest logit (tol "
+        f"{GRAPH_DECODE_REL_TOL})")
+    del eager, ref
+
+    points = [{k: r[k] for k in (
+        "name", "E", "rel_flops", "prefill_ms", "prefill_event_ms",
+        "prefill_tok_s", "decode_ms", "decode_event_ms", "decode_tok_s")
+        if k in r} for r in rows]
+    for p_, r in zip(points, rows):
+        for st in ("prefill", "decode"):
+            if f"{st}_launches" in r:
+                p_[f"{st}_launches"] = {k: r[f"{st}_launches"][k]
+                                        for k in FORWARD}
+    logits = lm_config_logits(key, params, cfg, dev)
+    del params, rows, r, p_
+    # what stays allocated past the config: cuBLAS's per-stream workspaces
+    # (the yardsticks' and plain versions' streams) are the library's, and
+    # are dropped before the count
+    torch._C._cuda_clearCublasWorkspaces()
+    after = settled_allocated()
+    torch.cuda.empty_cache()
+    if abs(after - m0) > MEM_SLACK:
+        raise AssertionError(f"{key}: device memory {after / 2**20:.1f} MiB "
+                             f"after the config against {m0 / 2**20:.1f} "
+                             f"MiB before (slack {MEM_SLACK >> 20} MiB)")
+    seconds = time.perf_counter() - t0
+    log(f"  {key}: memory back to {after / 2**20:.1f} MiB (before "
+        f"{m0 / 2**20:.1f}); ({seconds:.1f} s) [{card}]")
+    return {"arch": arch_id, "layers": [cfg.n_layers, full.n_layers],
+            "params": n_params, "launches": {k: launches[k]
+                                             for k in FORWARD},
+            "variants": {k: variants[k] for k in FORWARD},
+            "k3_by_stage": by_stage, "kept": kept, "times": times,
+            "graph_decode_rel_err": rel, "peak_gib": run_peak,
+            "graph_pool_gib": None if pool is None else pool / 2**30,
+            "points": points, "logits": logits, "seconds": seconds}
+
+
+def lm_configs_phases(dev, card: str) -> dict:
+    """Phase 26: K2's new shapes (a), then each of the three LM configs
+    through ``elastic_moe.run`` on the card (b), its kernel route against
+    the plain route (c) and masked against sliced widths (d) at depth 2,
+    and its kernels' times (e)."""
+    t0 = phase("26. the LM configs at full width: qwen1.5-110b (8 of 80 "
+               "layers), granite-20b (52), kimi-k2-1t-a32b (2 of 61); K2 at "
+               "D = 112 and at 48 query heads a kv head")
+    out = {"k2": k2_config_cases(dev), "configs": {}}
+    for key, arch_id in LM_CONFIGS:
+        out["configs"][key] = lm_config_phase(key, arch_id, dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  ({out['seconds']:.1f} s) [{card}]")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5444,6 +6035,17 @@ def main() -> int:
                         governors["joint (paper)"].lut, x, base_ms, card,
                         os.path.join(os.path.dirname(os.path.abspath(
                             __file__)), "build", "cluster"))
+    lc = lm_configs_phases(dev, card)
+    lc_cfg = lc["configs"]
+
+    def lc_rows(k: str) -> dict:
+        # phase 26 (e): a kernel's rows at each config's prefill and decode
+        return {c: {st: r["times"][f"{k}_{st}"] for st in ("prefill",
+                                                            "decode")}
+                for c, r in lc_cfg.items() if f"{k}_prefill" in r["times"]}
+
+    def lc_launches(name: str) -> dict:
+        return {c: r["launches"][name] for c, r in lc_cfg.items()}
 
     def conv_recorded(name: str) -> dict:
         # phase 22 (f): the worst errors at the recorded steps' calls
@@ -5473,7 +6075,8 @@ def main() -> int:
               + df["dit"]["launches"]["elastic_matmul"]
               + df["unet"]["launches"]["elastic_matmul"]
               + lt_n["elastic_matmul"]
-              + cl["launches"]["elastic_matmul"],
+              + cl["launches"]["elastic_matmul"]
+              + sum(lc_launches("elastic_matmul").values()),
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
@@ -5489,7 +6092,9 @@ def main() -> int:
                                        "elastic_matmul"],
                                    "lm_train": lt_n["elastic_matmul"],
                                    "vit_cluster":
-                                       cl["launches"]["elastic_matmul"]},
+                                       cl["launches"]["elastic_matmul"],
+                                   "lm_configs":
+                                       lc_launches("elastic_matmul")},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
@@ -5500,7 +6105,9 @@ def main() -> int:
                   "dit_train": df["dit"]["variants"]["elastic_matmul"],
                   "unet_train": df["unet"]["variants"]["elastic_matmul"],
                   "lm_train": lt_v["elastic_matmul"],
-                  "vit_cluster": cl["variants"]["elastic_matmul"]},
+                  "vit_cluster": cl["variants"]["elastic_matmul"],
+                  "lm_configs": {c: r["variants"]["elastic_matmul"]
+                                 for c, r in lc_cfg.items()}},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
                                                   "bfloat16")],
@@ -5517,7 +6124,8 @@ def main() -> int:
              effnet_se=cv["rows"]["effnet_se_fwd"],
              conv_recorded=conv_recorded("elastic_matmul"),
              dit_step=df["rows"]["dit"]["fwd"],
-             unet_step=df["rows"]["unet"]["fwd"]),
+             unet_step=df["rows"]["unet"]["fwd"],
+             lm_configs=lc_rows("k1")),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:71",
@@ -5528,7 +6136,8 @@ def main() -> int:
               + df["dit"]["launches"]["flash_attention"]
               + df["unet"]["launches"]["flash_attention"]
               + lt_n["flash_attention"]
-              + cl["launches"]["flash_attention"],
+              + cl["launches"]["flash_attention"]
+              + sum(lc_launches("flash_attention").values()),
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
                                    "train": tr["launches"]["flash_attention"],
@@ -5540,7 +6149,9 @@ def main() -> int:
                                        "flash_attention"],
                                    "lm_train": lt_n["flash_attention"],
                                    "vit_cluster":
-                                       cl["launches"]["flash_attention"]},
+                                       cl["launches"]["flash_attention"],
+                                   "lm_configs":
+                                       lc_launches("flash_attention")},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
@@ -5549,8 +6160,11 @@ def main() -> int:
                   "dit_train": df["dit"]["variants"]["flash_attention"],
                   "unet_train": df["unet"]["variants"]["flash_attention"],
                   "lm_train": lt_v["flash_attention"],
-                  "vit_cluster": cl["variants"]["flash_attention"]},
+                  "vit_cluster": cl["variants"]["flash_attention"],
+                  "lm_configs": {c: r["variants"]["flash_attention"]
+                                 for c, r in lc_cfg.items()}},
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
+                                 lc["k2"]["max_abs_err"],
                                  *(df["recorded"][n]["k2"][k]["err"]
                                    for n in ("dit", "unet")
                                    for k in ("k2", "k2x")
@@ -5562,22 +6176,31 @@ def main() -> int:
              dit_step=df["rows"]["dit"]["k2"],
              unet_step=df["rows"]["unet"]["k2"],
              unet_cross=df["rows"]["unet"]["k2x"],
-             gen=df["sample"], lm_step=lt["rows"]["k2_fwd"]),
+             gen=df["sample"], lm_step=lt["rows"]["k2_fwd"],
+             lm_configs=lc_rows("k2")),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
               "launches": lm["launches"]["expert_matmul"]
-              + lt_n["expert_matmul"],
+              + lt_n["expert_matmul"]
+              + sum(lc_launches("expert_matmul").values()),
               "launches_by_path": {"lm": lm["launches"]["expert_matmul"],
-                                   "lm_train": lt_n["expert_matmul"]},
+                                   "lm_train": lt_n["expert_matmul"],
+                                   "lm_configs":
+                                       lc_launches("expert_matmul")},
               "launches_by_variant": {
                   "lm": lm["variants"]["expert_matmul"],
                   "lm_by_stage": lm["k3_by_stage"],
-                  "lm_train": lt_v["expert_matmul"]},
+                  "lm_train": lt_v["expert_matmul"],
+                  "lm_configs": {c: r["variants"]["expert_matmul"]
+                                 for c, r in lc_cfg.items()},
+                  "lm_configs_by_stage": {c: r["k3_by_stage"]
+                                          for c, r in lc_cfg.items()
+                                          if r["k3_by_stage"]}},
               "max_abs_err": lm["k3_err"]}, **row_keys(lm["k3_prefill"]),
              timing=timing, lm_prefill=lm["k3_prefill"],
              lm_decode=lm["k3_decode"], kept_share=lm["kept"],
-             lm_step=lt["rows"]["k3_fwd"]),
+             lm_step=lt["rows"]["k3_fwd"], lm_configs=lc_rows("k3")),
     ]}
     for name, src, replaces, row, err, conv in (
             ("elastic_matmul_dgrad", "elastic_matmul.cu",
@@ -5717,6 +6340,13 @@ def main() -> int:
     log("cluster: " + json.dumps({k: cl[k] for k in (
         "a", "b", "replica", "health_interval_s", "memory_mib",
         "seconds")}))
+    log("lm_configs: " + json.dumps({
+        "k2": lc["k2"], "seconds": lc["seconds"],
+        **{c: {k: r[k] for k in ("arch", "layers", "params", "kept",
+                                 "graph_decode_rel_err", "peak_gib",
+                                 "graph_pool_gib", "logits", "seconds",
+                                 "points")}
+           for c, r in lc_cfg.items()}}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,7 @@
 Each architecture module registers an :class:`ArchDef` with its FULL
 (paper-table) config, a reduced smoke config of the same family, its
 assigned input-shape set, and its optimizer/precision policy.  Same
-surface as the reference registry, for the vision transformers, the conv
-nets and the MoE LM the port runs.
+surface and the same architectures as the reference registry.
 """
 from __future__ import annotations
 
@@ -41,12 +40,11 @@ class ArchDef:
 
 _REGISTRY: Dict[str, ArchDef] = {}
 
-# the vision transformers of the serving slice, the MoE LM of the LM
-# slice, the conv nets and the diffusion nets; the other architectures
-# (the dense LMs and the 1T MoE) come with their slices of the port
+# every architecture of the reference: the vision transformers, the conv
+# nets, the diffusion nets, the MoE LMs and the dense LMs
 _MODULES = ("deit_b", "vit_l16", "resnet_152", "efficientnet_b7",
             "dynamic_ofa_supernet", "deepseek_moe_16b", "dit_l2",
-            "unet_sdxl")
+            "unet_sdxl", "qwen1_5_110b", "granite_20b", "kimi_k2_1t_a32b")
 
 
 # the vision families the port runs, by arch-id prefix: what the init,

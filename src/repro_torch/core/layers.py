@@ -177,26 +177,29 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 def embedding_apply(p: dict, ids: torch.Tensor, *, a=None,
                     dtype=torch.bfloat16) -> torch.Tensor:
-    """Rows of the (vocab, d) table at ``ids``, first ``a`` columns, in
+    """Rows of the (vocab, d) table at ``ids``, first ``a`` columns (sliced
+    mode) or all columns with zeros past ``a`` (masked mode), in
     ``dtype``.  The reference casts the whole table and then gathers; the
     port gathers and then casts the rows (the same values, no table copy)."""
     tbl = p["embedding"]
-    a = _static(a, "embedding_apply")
+    if _masked(a):
+        return mask_dim(_cast(tbl[ids], dtype), a, -1)
     if a is not None:
-        tbl = take_dim(tbl, a, 1)
+        tbl = take_dim(tbl, int(a), 1)
     return _cast(tbl[ids], dtype)
 
 
 def embedding_attend(p: dict, x: torch.Tensor, *, a=None) -> torch.Tensor:
-    """Tied-embedding logits: x (..., d) @ embedding.T -> (..., vocab).
+    """Tied-embedding logits: x (..., d) @ embedding.T -> (..., vocab);
+    x is (..., a) in sliced mode, (..., d) zero past ``a`` in masked mode
+    (the full table then, as the reference).
 
     The transposed table has no unit inner stride, which the elastic
     matmul needs, so this product is a plain ``torch.matmul``.  No ported
-    config ties its embeddings (deepseek-moe-16b has an ``lm_head``)."""
+    config ties its embeddings (every LM has an ``lm_head``)."""
     tbl = p["embedding"]
-    a = _static(a, "embedding_attend")
-    if a is not None:
-        tbl = take_dim(tbl, a, 1)
+    if a is not None and not _masked(a):
+        tbl = take_dim(tbl, int(a), 1)
     return x @ _cast(tbl, x.dtype).T
 
 

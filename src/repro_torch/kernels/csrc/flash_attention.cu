@@ -21,11 +21,13 @@
 // Three variants, chosen on the host by kernels/flash_attention.py:
 // choose_variant:
 //
-// * mma (bf16, D = 64 or 128, S > 1, 16-byte-aligned rows: the ViT at
-//   S = T = 197, D = 64 and the LM's causal prefill at S = T = 512,
-//   D = 128).  Bound: operations (4*S*T*D a head, half that causal) on
-//   the tensor cores; the old FMA kernel ran QK^T and PV on fp32 FMAs from
-//   fp32 copies of K and V.  This is the FlashAttention-2 layout on
+// * mma (bf16, D = 64, 112 or 128, S > 1, 16-byte-aligned rows: the ViT
+//   at S = T = 197, D = 64 and the LMs' causal prefill at S = T = 512,
+//   D = 128, and kimi-k2's at D = 112, whose 7 k16 steps and 14 n8 blocks
+//   fit mma.sync's shapes and whose 240-byte padded rows keep ldmatrix
+//   free of bank conflicts).  Bound: operations (4*S*T*D a head, half
+//   that causal) on the tensor cores; the old FMA kernel ran QK^T and PV
+//   on fp32 FMAs from fp32 copies of K and V.  This is the FlashAttention-2 layout on
 //   mma.sync.m16n8k16 (bf16 in, fp32 accumulate): 4 warps, each owning 16
 //   rows of a 64-row q tile; q fragments held in registers (ldmatrix); K
 //   and V tiles of 64 keys kept in bf16 shared memory (rows padded by 16
@@ -36,19 +38,22 @@
 //   reads V as the B operand).  Causally dead KV tiles are skipped and the
 //   diagonal tile masked; the grid runs (batch*head) fastest and, when
 //   causal, the q tiles that see the most keys first, so the short tiles
-//   fill the tail.  D = 128 takes 87 KB of dynamic shared memory
-//   (the attribute is set once).  FA3-style wgmma with a TMA producer
+//   fill the tail.  D = 128 takes 87 KB of dynamic shared memory, D = 112
+//   77 KB (the attribute is set once).  FA3-style wgmma with a TMA producer
 //   warp and warp specialisation is later work.
-// * decode (bf16, D = 64 or 128, S = 1, H / KH <= 8: every LM decode
+// * decode (bf16, D = 64, 112 or 128, S = 1, any H / KH: every LM decode
 //   step).  Bound: the bytes of the K/V cache (4*T*D bytes a kv head
 //   against 4*T*D*R operations).  The old kernel gave each (batch, head)
 //   one block with one live query row of 64 reading the whole cache
-//   serially.  Here the grid is (B*KH, n_splits): each block takes the
-//   R = H/KH query rows that share a kv head over one chunk of T (planned
-//   on the host by decode_plan for ~2 blocks per SM, which measured
-//   faster than 4), reads K and V rows with 16-byte loads (D/8 threads a
-//   row, 4 rows in flight per thread), keeps the chunk's scores in
-//   shared memory, and writes an fp32 partial (max,
+//   serially.  Here the grid is (B*KH*groups, n_splits): each block takes
+//   a group of up to 8 of the R = H/KH query rows that share a kv head
+//   (granite-20b's MQA has R = 48: 6 groups, each reading the same K/V
+//   chunk, the later ones from L2) over one chunk of T (planned on the
+//   host by decode_plan for ~2 blocks per SM, which measured faster than
+//   4), reads K and V rows with 16-byte loads (D/8 threads a row, rounded
+//   up to a power of two so that the row's shuffles stay in its lanes: 16
+//   at D = 112 with 2 idle; 4 rows in flight per thread), keeps the
+//   chunk's scores in shared memory, and writes an fp32 partial (max,
 //   denominator, accumulator) to a workspace; a second kernel merges the
 //   partials in split order (deterministic, no atomics) and stores o.
 //   The count of valid keys is read from a device int32 (the cache's
@@ -62,7 +67,9 @@
 // which is all the backward keeps of the forward's softmax.
 //
 // * fma (fp32 inputs, the smoke configs' head dims 8 and 16, and rows
-//   that are not 16-byte aligned): the first port's kernel, kept as the
+//   that are not 16-byte aligned; not at D = 112, where the wrapper
+//   refuses fp32 calls and unaligned bf16 rows): the first port's kernel,
+//   kept as the
 //   parity and smoke path.  128 threads, two per query row; each thread
 //   scores half of each 64-key tile and accumulates half of the output
 //   dims, with K and V staged in shared memory as fp32.  At D = 128 the q
@@ -521,7 +528,7 @@ flash_attention_mma(const __nv_bfloat16* __restrict__ q,
 
 constexpr int D_THREADS = 128;
 constexpr int D_WARPS = D_THREADS / 32;
-constexpr int D_R_MAX = 8;        // query heads per kv head
+constexpr int D_R_MAX = 8;        // query heads a block (a kv head's group)
 constexpr int D_CHUNK_MAX = 256;  // keys per block
 
 constexpr int D_U = 4;            // K or V rows in flight per thread
@@ -536,10 +543,20 @@ __device__ __forceinline__ void unpack8(uint4 t, float (&v)[8]) {
   }
 }
 
+// threads a row of D / 8 active ones (8 dims each): the next power of two,
+// so that the xor shuffles over a row stay inside it; the lanes past D / 8
+// (2 of 16 at D = 112) load zeros and store nothing
+__host__ __device__ constexpr int row_lanes(int active) {
+  return active <= 1 ? 1 : 2 * row_lanes((active + 1) / 2);
+}
+
 // One block: kv head (b, kvh), keys [split*chunk, min(T, (split+1)*chunk))
-// with T = min(*len, T_cap), its R query rows.  Writes ws_ml[bh][split] =
-// (max, denominator) and ws_acc[bh][split][D] (unnormalised; p rounded to
-// bf16 before PV); a chunk past T writes (-inf, 0) and zeros.
+// with T = min(*len, T_cap), and the group of query heads r0 .. r0 + Rg - 1
+// of the R = H / KH that share the kv head (Rg <= D_R_MAX; the groups of
+// one kv head read the same K/V chunk, which L2 serves to the later ones).
+// Writes ws_ml[bh][split] = (max, denominator) and ws_acc[bh][split][D]
+// (unnormalised; p rounded to bf16 before PV); a chunk past T writes
+// (-inf, 0) and zeros.
 template <int D>
 __global__ void __launch_bounds__(D_THREADS)
 flash_attention_decode(const __nv_bfloat16* __restrict__ q,
@@ -551,7 +568,8 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
                        long long q_sh, long long k_sb, long long k_ss,
                        long long k_sh, long long v_sb, long long v_ss,
                        long long v_sh, float scale, int chunk) {
-  constexpr int G = D / 8;             // threads a row, 8 dims each
+  constexpr int GA = D / 8;            // active threads a row
+  constexpr int G = row_lanes(GA);     // threads a row (a power of two)
   constexpr int SLOTS = 32 / G;        // rows a warp reads at once
   constexpr int STEP = D_WARPS * SLOTS;
   const float NEG_INF = -__int_as_float(0x7f800000);
@@ -561,19 +579,25 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gi = lane % G, slot = lane / G;
+  const bool on = gi < GA;             // holds 8 dims of the row
   const int R = H / KH;
-  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
+  const int n_groups = (R + D_R_MAX - 1) / D_R_MAX;
+  const int bkh = blockIdx.x / n_groups, r0 = (blockIdx.x % n_groups)
+                                              * D_R_MAX;
+  const int Rg = min(D_R_MAX, R - r0);
+  const int b = bkh / KH, kvh = bkh % KH;
+  const int h0 = kvh * R + r0;         // this group's first query head
   const int split = blockIdx.y, splits = gridDim.y;
   const int T_len = min(__ldg(len), T_cap);
   const int t0 = split * chunk, t1 = min(T_len, t0 + chunk);
   const int n = t1 - t0;
   if (n <= 0) {     // past the fill: an empty partial (uniform per block)
-    for (int i = tid; i < R * D; i += D_THREADS) {
-      const long long bh = (long long)b * H + kvh * R + i / D;
+    for (int i = tid; i < Rg * D; i += D_THREADS) {
+      const long long bh = (long long)b * H + h0 + i / D;
       ws_acc[(bh * splits + split) * D + i % D] = 0.f;
     }
-    if (tid < R) {
-      const long long bh = (long long)b * H + kvh * R + tid;
+    if (tid < Rg) {
+      const long long bh = (long long)b * H + h0 + tid;
       ws_ml[(bh * splits + split) * 2] = NEG_INF;
       ws_ml[(bh * splits + split) * 2 + 1] = 0.f;
     }
@@ -587,25 +611,25 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < D_R_MAX; ++r) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) qv[r][e] = 0.f;
-    if (r < R) {
+    if (r < Rg && on) {
       unpack8(*reinterpret_cast<const uint4*>(
-                  q + b * q_sb + (long long)(kvh * R + r) * q_sh + gi * 8),
+                  q + b * q_sb + (long long)(h0 + r) * q_sh + gi * 8),
               qv[r]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) qv[r][e] *= scale;
     }
   }
-  // scores: one row per slot, D/8 lanes a row, reduced across those
-  // lanes; D_U rows per thread in flight (the loop runs alike on every
-  // lane of a warp: it shuffles)
+  // scores: one row per slot, G lanes a row, reduced across those lanes;
+  // D_U rows per thread in flight (the loop runs alike on every lane of a
+  // warp: it shuffles)
   for (int jb = warp * SLOTS; jb < n; jb += D_U * STEP) {
     uint4 kr[D_U];
 #pragma unroll
     for (int u = 0; u < D_U; ++u) {
       const int j = jb + u * STEP + slot;
-      kr[u] = j < n ? *reinterpret_cast<const uint4*>(
-                          kb + (long long)(t0 + j) * k_ss)
-                    : make_uint4(0u, 0u, 0u, 0u);
+      kr[u] = j < n && on ? *reinterpret_cast<const uint4*>(
+                                kb + (long long)(t0 + j) * k_ss)
+                          : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int u = 0; u < D_U; ++u) {
@@ -614,7 +638,7 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
       unpack8(kr[u], kv);
 #pragma unroll
       for (int r = 0; r < D_R_MAX; ++r) {
-        if (r < R) {
+        if (r < Rg) {
           float d = 0.f;
 #pragma unroll
           for (int e = 0; e < 8; ++e) d = fmaf(qv[r][e], kv[e], d);
@@ -629,7 +653,7 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   // per row: max, p = exp(s - max) summed in fp32 into the denominator,
   // then kept rounded to bf16 for PV
-  for (int r = warp; r < R; r += D_WARPS) {
+  for (int r = warp; r < Rg; r += D_WARPS) {
     float mx = NEG_INF;
     for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[r][j]);
 #pragma unroll
@@ -660,9 +684,9 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < D_U; ++u) {
       const int j = jb + u * STEP + slot;
-      vr[u] = j < n ? *reinterpret_cast<const uint4*>(
-                          vb + (long long)(t0 + j) * v_ss)
-                    : make_uint4(0u, 0u, 0u, 0u);
+      vr[u] = j < n && on ? *reinterpret_cast<const uint4*>(
+                                vb + (long long)(t0 + j) * v_ss)
+                          : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int u = 0; u < D_U; ++u) {
@@ -672,7 +696,7 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
         unpack8(vr[u], vv);
 #pragma unroll
         for (int r = 0; r < D_R_MAX; ++r) {
-          if (r < R) {
+          if (r < Rg) {
             const float p = sc[r][j];
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
@@ -683,27 +707,27 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int r = 0; r < D_R_MAX; ++r) {
-    if (r < R) {
+    if (r < Rg) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
 #pragma unroll
         for (int off = G; off < 32; off <<= 1)
           acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
-        if (slot == 0) red[warp][r][gi * 8 + e] = acc[r][e];
+        if (slot == 0 && on) red[warp][r][gi * 8 + e] = acc[r][e];
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < R * D; i += D_THREADS) {
+  for (int i = tid; i < Rg * D; i += D_THREADS) {
     const int r = i / D, d = i % D;
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < D_WARPS; ++w) s += red[w][r][d];
-    const long long bh = (long long)b * H + kvh * R + r;
+    const long long bh = (long long)b * H + h0 + r;
     ws_acc[(bh * splits + split) * D + d] = s;
   }
-  if (tid < R) {
-    const long long bh = (long long)b * H + kvh * R + tid;
+  if (tid < Rg) {
+    const long long bh = (long long)b * H + h0 + tid;
     ws_ml[(bh * splits + split) * 2] = ml[tid][0];
     ws_ml[(bh * splits + split) * 2 + 1] = ml[tid][1];
   }
@@ -764,7 +788,10 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
                   cudaStream_t s) {
   float* ws_acc = ws;
   float* ws_ml = ws + (size_t)B * H * splits * D;
-  flash_attention_decode<D><<<dim3(B * KH, splits), D_THREADS, 0, s>>>(
+  // a block per (batch, kv head, group of <= D_R_MAX query heads)
+  const int groups = (H / KH + D_R_MAX - 1) / D_R_MAX;
+  flash_attention_decode<D><<<dim3(B * KH * groups, splits), D_THREADS, 0,
+                              s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), ws_acc, ws_ml, len, H, KH, T_cap,
@@ -1986,7 +2013,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   return -1;
 }
 
-// The mma variant (bf16, D = 64 or 128; strides and lse as above,
+// The mma variant (bf16, D = 64, 112 or 128; strides and lse as above,
 // 16-byte-aligned rows).  Returns as above; -1 for an unsupported D.
 extern "C" int repro_flash_attention_mma(const void* q, const void* k,
                                          const void* v, void* o, int B,
@@ -1999,14 +2026,17 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k,
   if (D == 64)
     return launch_mma<64>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
                           causal, l, s);
+  if (D == 112)
+    return launch_mma<112>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
+                           causal, l, s);
   if (D == 128)
     return launch_mma<128>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
                            causal, l, s);
   return -1;
 }
 
-// The decode variant (bf16, S = 1, D = 64 or 128, H / KH <= 8) over a
-// cache of T_cap keys of which the first min(*len, T_cap) are valid
+// The decode variant (bf16, S = 1, D = 64, 112 or 128, any H / KH) over
+// a cache of T_cap keys of which the first min(*len, T_cap) are valid
 // (`len` a device int32, >= 1; the caller folds a causal mask into it), in
 // `splits` chunks of `chunk` <= 256 keys planned from T_cap; `ws` an fp32
 // workspace of B*H*splits*(D + 2).  Returns as above; -1 for an
@@ -2017,13 +2047,16 @@ extern "C" int repro_flash_attention_decode_len(
     const long long* strides, float scale, int splits, int chunk,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunk > D_CHUNK_MAX || H / KH > D_R_MAX || splits < 1 || T_cap < 1)
+  if (chunk > D_CHUNK_MAX || KH < 1 || H % KH || splits < 1 || T_cap < 1)
     return -1;
   float* w = static_cast<float*>(ws);
   const int* n = static_cast<const int*>(len);
   if (D == 64)
     return launch_decode<64>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
                              scale, splits, chunk, s);
+  if (D == 112)
+    return launch_decode<112>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
+                              scale, splits, chunk, s);
   if (D == 128)
     return launch_decode<128>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
                               scale, splits, chunk, s);

@@ -9,16 +9,20 @@ picks the kv head as ``h // (H // KH)`` (no repeated k/v copy) and reads
 and writes through (batch, seq, head) strides.
 
 Three variants, chosen by :func:`choose_variant`: ``mma`` (bf16 at head
-dims 64 and 128: a tensor-core flash kernel on mma.sync), ``decode``
-(the same at S = 1: split over T, partials merged by a second kernel, the
+dims 64, 112 and 128: a tensor-core flash kernel on mma.sync), ``decode``
+(the same at S = 1, any number of query heads a kv head, in groups of up
+to 8 a block: split over T, partials merged by a second kernel, the
 split planned by :func:`decode_plan` from the cache's capacity, the count
 of valid keys read from a device int32: ``kv_len``, the decode cache's
 fill, so one CUDA graph of a decode step serves every step) and ``fma``
 (the first port's fp32
 FMA kernel, counted as ``fma_bf16`` or ``fma_f32``: fp32 inputs, the smoke
-configs' head dims 8 and 16, and rows that are not 16-byte aligned).  The
-source note says what bounds each on the H100 and what its design does
-about it.
+configs' head dims 8 and 16, and rows that are not 16-byte aligned).  At
+kimi-k2's head dim 112 the fma kernel has no instance: an fp32 call, or a
+bf16 call whose rows are not 16-byte aligned (kimi's q, k and v rows,
+224 bytes, are), raises ``NotImplementedError`` on the card (training
+at D = 112 is ROADMAP item 20).  The source note says what bounds each
+on the H100 and what its design does about it.
 
 Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
 ``kv_len`` (a 0-d int32 tensor on the device, >= 1) masks the keys at or
@@ -32,7 +36,8 @@ the backward reads.
 
 The backward (the reference has none: JAX differentiates through XLA)
 is ``flash_attention_bwd``, causal or not, at D = 64 and 128 in bf16 and
-8, 16 and 64 in fp32, in three variants chosen by
+8, 16 and 64 in fp32 (D = 112 raises: ROADMAP item 20), in three variants
+chosen by
 :func:`choose_bwd_variant` from shapes and dtype: ``resident`` (bf16,
 non-causal, D = 64, S, T <= 256, the sandwich step's S = T = 197: one
 block per (batch, kv head) holds its keys and makes one pass on wgmma,
@@ -82,10 +87,12 @@ WGMMA_KEYS = 128        # keys a block of the wgmma backward (its key tile)
 WGMMA_CHUNK = 64        # queries a chunk (one dQ ticket each)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (8, 16, 64, 128)  # ViTs (64), their smoke configs, LMs (128)
-MMA_HEAD_DIMS = (64, 128)
+# ViTs (64), their smoke configs, the LMs (128; kimi-k2's 112)
+HEAD_DIMS = (8, 16, 64, 112, 128)
+MMA_HEAD_DIMS = (64, 112, 128)
+FMA_HEAD_DIMS = (8, 16, 64, 128)
 SMS = 132                     # streaming multiprocessors of an H100 SXM
-DECODE_R_MAX = 8              # query heads per kv head the decode kernel takes
+DECODE_R_MAX = 8              # query heads a decode block takes (a group)
 DECODE_CHUNK_MAX = 256        # keys per decode block (its shared scores)
 DECODE_CHUNK_MIN = 32         # fewest keys worth a block of their own
 
@@ -128,16 +135,23 @@ def choose_variant(S: int, T: int, H: int, KH: int, D: int,
         return "fma_f32"
     if D not in MMA_HEAD_DIMS or not aligned:
         return "fma_bf16"
-    if S == 1 and T >= 1 and H // KH <= DECODE_R_MAX:
+    if S == 1 and T >= 1:
         return "decode"
     return "mma"
 
 
+def decode_groups(H: int, KH: int) -> int:
+    """Decode blocks a (batch, kv head) and split: one per group of up to
+    ``DECODE_R_MAX`` of its H / KH query heads (granite-20b's 48: 6)."""
+    return _cdiv(H // KH, DECODE_R_MAX)
+
+
 def decode_plan(T: int, bkh: int, sms: int = SMS) -> tuple:
-    """(splits, keys per split) of the decode kernel over ``bkh`` = B*KH
-    blocks a split: ~2 blocks per SM, no split under 32 keys, none over
-    the 256 keys whose scores a block keeps in shared memory.  ``T`` is
-    the cache's capacity: a split past the fill exits at once."""
+    """(splits, keys per split) of the decode kernel over ``bkh`` = B*KH*
+    :func:`decode_groups` blocks a split: ~2 blocks per SM, no split under
+    32 keys, none over the 256 keys whose scores a block keeps in shared
+    memory.  ``T`` is the cache's capacity: a split past the fill exits at
+    once."""
     splits = min(_cdiv(2 * sms, bkh), _cdiv(T, DECODE_CHUNK_MIN))
     splits = max(splits, _cdiv(T, DECODE_CHUNK_MAX), 1)
     chunk = _cdiv(T, splits)
@@ -227,6 +241,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     T_seen = min(T, 1) if causal and S == 1 else T
     variant = choose_variant(S, T_seen, H, KH, D, q.dtype,
                              _aligned(q, k, v))
+    if D not in FMA_HEAD_DIMS and variant.startswith("fma"):
+        raise NotImplementedError(
+            f"flash_attention: no fma kernel at head dim {D}, so no fp32 "
+            f"call and no bf16 rows that are not 16-byte aligned there "
+            f"(aligned bf16 runs on mma and decode; training at D = {D} "
+            f"is ROADMAP item 20)")
     if kv_len is not None:
         check_kv_len(kv_len, k)
         if variant != "decode":
@@ -251,7 +271,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # causal at S = 1 sees key 0 alone, whatever the fill
         n = kv_len if kv_len is not None and T_seen == T \
             else length_tensor(dev, T_seen)
-        splits, chunk = decode_plan(T_seen, B * KH)
+        splits, chunk = decode_plan(T_seen, B * KH * decode_groups(H, KH))
         ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                          device=dev)
         rc = _launcher("repro_flash_attention_decode_len")(
@@ -320,7 +340,8 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
     """The backward kernel a call goes to, from shapes and dtype (the
     wrapper copies rows the kernels cannot read with 16-byte loads or TMA
     first); raises ``NotImplementedError`` for what no kernel takes (D
-    other than 64 or 128 in bf16, other than 8, 16 or 64 in fp32).
+    other than 64 or 128 in bf16, other than 8, 16 or 64 in fp32; kimi-k2's
+    112 is ROADMAP item 20).
     ``resident`` (non-causal, D = 64) holds a head's keys in shared memory
     (T <= 256) and walks its queries serially in one block per (batch, kv
     head); every other bf16 call -- causal, D = 128, or S or T past 256 --
@@ -335,7 +356,8 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
     if D not in dims:
         raise NotImplementedError(
             f"flash_attention backward: D={D}, {dtype}; the kernels take "
-            f"D in {BWD_HEAD_DIMS} in bf16 and {BWD_F32_HEAD_DIMS} in fp32")
+            f"D in {BWD_HEAD_DIMS} in bf16 and {BWD_F32_HEAD_DIMS} in fp32 "
+            f"(training at kimi-k2's D = 112 is ROADMAP item 20)")
     if dtype != torch.bfloat16:
         return "fma_f32"
     if not causal and D == 64 and 1 <= S <= RESIDENT_MAX \

@@ -1,15 +1,25 @@
-"""Elastic MoE LM: the paper's knobs applied to a Mixture-of-Experts LM.
+"""Elastic LM serving: the paper's knobs applied to the registry's LMs.
 
-``python -m repro_torch.launch.elastic_moe [--smoke] [--device cpu]``
+``python -m repro_torch.launch.elastic_moe [--arch ID] [--smoke]
+[--device cpu]``
 
-The port's counterpart of the reference's ``examples/elastic_moe.py``:
-it runs ``deepseek-moe-16b`` (or its smoke config) at five operating
-points of the elastic space — full, half the experts, top-1 routing, half
-the expert width, and the min subnet (all three plus half the depth) —
-and prints each point's prefill latency next to its analytic FLOPs
-relative to full, the table a governor would use to serve an MoE LM under
-a latency target.  Then it decodes a few teacher-forced steps at the
-points the reference can decode (not at a sliced depth: fault F4).
+The port's counterpart of the reference's ``examples/elastic_moe.py``,
+for every LM of the registry (``--arch``: deepseek-moe-16b, the default,
+kimi-k2-1t-a32b, qwen1.5-110b or granite-20b).  An MoE LM runs at five
+operating points of the elastic space — full, half the experts, top-1
+routing, half the expert width, and the min subnet (all three plus half
+the depth); a dense LM at five points of its ``cfg.elastic`` — full, half
+the FFN, the fewest heads, half the depth and the min subnet — and each
+point's prefill latency is printed next to its analytic FLOPs relative to
+full, the table a governor would use to serve the LM under a latency
+target.  Then it decodes a few teacher-forced steps at the points the
+reference can decode (not at a sliced depth or head count: fault F4).
+
+One card cannot hold qwen1.5-110b or kimi-k2-1t-a32b in bf16, so off
+``--smoke`` they are cut in depth at full width (``steps.ONE_CARD_CUT``,
+printed): qwen to 8 of its 80 layers, kimi to 2 of its 61 (the dense
+first layer and one MoE layer); the depth points then halve the cut's
+depth.  granite-20b and deepseek-moe-16b run whole.
 
 Weights are random from ``--seed``, drawn on the device in the compute
 dtype (the routers stay fp32).  Every dense product runs on the elastic
@@ -32,15 +42,49 @@ from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.ops import launch_counts, variant_counts
 from repro_torch.launch.flops import lm_model_flops
-from repro_torch.launch.steps import LMGraphs, lm_decode, lm_prefill
+from repro_torch.launch.steps import (ONE_CARD_CUT, LMGraphs, lm_decode,
+                                      lm_prefill)
 from repro_torch.models.transformer import LMConfig, lm_init
+
+
+def one_card(arch_id: str, cfg: LMConfig) -> LMConfig:
+    """``cfg`` with the arch's one-card serving cut applied
+    (``steps.ONE_CARD_CUT[(arch_id, "serve")]``; unchanged if none)."""
+    return dataclasses.replace(cfg, **ONE_CARD_CUT.get((arch_id, "serve"),
+                                                       {}))
+
+
+def fewest_heads(cfg: LMConfig) -> int:
+    """``n_heads x min(heads_mults)``, rounded to whole GQA groups."""
+    KH = cfg.n_kv_heads
+    h = max(1, int(round(cfg.n_heads * min(cfg.elastic.heads_mults))))
+    if KH < cfg.n_heads:
+        h = max(KH, h // KH * KH)
+    return min(h, cfg.n_heads)
 
 
 def operating_points(cfg: LMConfig) -> list:
     """(name, E, decodable) for the five points of the reference example,
-    scaled to the config."""
+    scaled to the config: an MoE LM's experts, top-k and expert width; a
+    dense LM's FFN width, heads and depth from ``cfg.elastic`` (the heads
+    and depth points prefill only: fault F4)."""
     m = cfg.moe
-    half_e, half_f, half_l = m.n_experts // 2, m.d_ff // 2, cfg.n_layers // 2
+    half_l = max(1, cfg.n_layers // 2)
+    if m is None:
+        sp = cfg.elastic
+        half_f = cfg.d_ff // 2
+        min_f = max(1, int(round(cfg.d_ff * min(sp.ffn_mults))))
+        min_l = max(1, int(round(cfg.n_layers * min(sp.depth_mults))))
+        heads = fewest_heads(cfg)
+        return [
+            (f"full ({cfg.n_heads}h f{cfg.d_ff})", {}, True),
+            ("half FFN", {"a_ff": half_f}, True),
+            (f"fewest heads ({heads})", {"a_heads": heads}, False),
+            ("half depth", {"a_layers": half_l}, False),
+            ("min subnet", {"a_ff": min_f, "a_heads": heads,
+                            "a_layers": min_l}, False),
+        ]
+    half_e, half_f = m.n_experts // 2, m.d_ff // 2
     return [
         (f"full ({m.n_experts}e top{m.top_k} f{m.d_ff})", {}, True),
         ("half experts", {"a_experts": half_e}, True),
@@ -54,11 +98,18 @@ def operating_points(cfg: LMConfig) -> list:
 def rel_flops(cfg: LMConfig, E: dict, B: int, S: int) -> float:
     """Analytic prefill FLOPs at ``E`` over those of the full model."""
     m = cfg.moe
-    c2 = dataclasses.replace(
-        cfg, n_layers=E.get("a_layers", cfg.n_layers),
-        moe=dataclasses.replace(m, top_k=E.get("top_k", m.top_k),
-                                n_experts=E.get("a_experts", m.n_experts),
-                                d_ff=E.get("a_ff", m.d_ff)))
+    c2 = dataclasses.replace(cfg, n_layers=E.get("a_layers", cfg.n_layers))
+    if m is not None:
+        c2 = dataclasses.replace(c2, moe=dataclasses.replace(
+            m, top_k=E.get("top_k", m.top_k),
+            n_experts=E.get("a_experts", m.n_experts),
+            d_ff=E.get("a_ff", m.d_ff)))
+    else:
+        H = E.get("a_heads", cfg.n_heads)
+        c2 = dataclasses.replace(
+            c2, d_ff=E.get("a_ff", cfg.d_ff), n_heads=H,
+            n_kv_heads=H if cfg.n_kv_heads == cfg.n_heads
+            else cfg.n_kv_heads)
     return (lm_model_flops(c2, "prefill", B, S)
             / lm_model_flops(cfg, "prefill", B, S))
 
@@ -198,7 +249,11 @@ def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="deepseek-moe-16b")
+    ap.add_argument("--arch", default="deepseek-moe-16b",
+                    help="any LM of the registry: deepseek-moe-16b, "
+                         "kimi-k2-1t-a32b, qwen1.5-110b, granite-20b "
+                         "(off --smoke the last three but granite are cut "
+                         "in depth to fit one card: ONE_CARD_CUT)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the card) or cpu")
@@ -216,9 +271,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     arch = get_arch(args.arch)
-    if arch.family != "lm" or arch.make_config().moe is None:
-        raise SystemExit("elastic_moe: MoE LM archs only")
-    cfg = arch.make_smoke() if args.smoke else arch.make_config()
+    if arch.family != "lm":
+        raise SystemExit("elastic_moe: LM archs only")
+    full = arch.make_config()
+    cfg = arch.make_smoke() if args.smoke else one_card(arch.arch_id, full)
     device = resolve_device(args.device)
     S = args.prefill_len or (32 if args.smoke else 512)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -228,9 +284,14 @@ def main(argv=None):
                            generator=gen, device=device)
     where = str(device) + (f" ({torch.cuda.get_device_name(device)})"
                            if device.type == "cuda" else "")
-    print(f"{cfg.name}: {cfg.n_layers}L, {cfg.moe.n_experts} experts "
-          f"top-{cfg.moe.top_k} (+{cfg.moe.n_shared} shared), "
-          f"{cfg.compute_dtype}, on {where}")
+    depth = f"{cfg.n_layers}L"
+    if not args.smoke and cfg.n_layers < full.n_layers:
+        depth = (f"{cfg.n_layers} of {full.n_layers} layers (one-card cut, "
+                 f"full width)")
+    kind = (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+            f"(+{cfg.moe.n_shared} shared)" if cfg.moe else
+            f"dense, {cfg.n_heads} heads on {cfg.n_kv_heads} kv")
+    print(f"{cfg.name}: {depth}, {kind}, {cfg.compute_dtype}, on {where}")
     print(f"prefill {args.batch} x {S} tokens, then {args.decode_steps} "
           f"teacher-forced decode steps\n")
     rows = run(params, cfg, tokens, S, iters=args.iters)

@@ -45,6 +45,22 @@ ACCUM_DEFAULTS = {
     ("unet-sdxl", "train_256"): 2,
     ("dit-l2", "train_1024"): 2,
 }
+# Config fields replaced where one card cannot hold the model, by (arch,
+# shape name, or "serve" for the LM launcher's serving), printed by the
+# launcher that applies them.  Training: the reference's build_cell
+# cfg_overrides; deepseek-moe-16b at train_4k keeps its full width (d
+# 2048, 64 experts top-6, vocab 102400) and is cut to 4 layers, 1 dense +
+# 3 MoE: 2.27 B parameters, 36 GB of fp32 parameters, gradients and AdamW
+# moments (its 28 layers need 262 GB: ROADMAP item 11).  Serving in bf16
+# at full width, the first layers of the stack: qwen1.5-110b 8 x 1.36 B +
+# 2.49 B of embedding and head, 26.7 GB; kimi-k2-1t-a32b its dense layer
+# and one MoE layer of 384 experts, 19.9 B, 39.9 GB; the other LMs serve
+# whole.
+ONE_CARD_CUT = {
+    ("deepseek-moe-16b", "train_4k"): {"n_layers": 4},
+    ("qwen1.5-110b", "serve"): {"n_layers": 8},
+    ("kimi-k2-1t-a32b", "serve"): {"n_layers": 2},
+}
 
 
 def _rows(tree, lo: int, hi: int):

@@ -16,8 +16,10 @@ token cross entropy plus the MoE aux loss on ``synthetic_lm_batches``,
 AdamW), over ``--accum`` microbatches (the reference's ``build_cell``
 default: 1 for the smoke configs, else ``ACCUM_DEFAULTS``, raised where
 one card cannot hold the step: ``ONE_CARD_ACCUM``).  Where one card
-cannot hold the model at all, ``ONE_CARD_CUT`` cuts its depth at full
+cannot hold the model at all, ``steps.ONE_CARD_CUT`` cuts its depth at full
 width (the reference's ``cfg_overrides``); the launcher prints both cuts.
+qwen1.5-110b, granite-20b and kimi-k2-1t-a32b train at ``--smoke`` only:
+at full size they raise before any allocation (ROADMAP item 20).
 Parameters are fp32 and the compute dtype is the config's (bf16 at full
 size).  The run is on the card unless ``--device cpu``; with no card and
 no ``--device cpu`` it raises.
@@ -53,7 +55,8 @@ from repro_torch.data import (Prefetcher, synthetic_image_batches,
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
                                            Watchdog, run_with_restarts)
-from repro_torch.launch.steps import (ACCUM_DEFAULTS, make_diff_train_step,
+from repro_torch.launch.steps import (ACCUM_DEFAULTS, ONE_CARD_CUT,
+                                      make_diff_train_step,
                                       make_lm_train_step, make_vis_train_step)
 from repro_torch.models.dit import dit_init
 from repro_torch.models.efficientnet import effnet_init
@@ -73,12 +76,10 @@ from repro_torch.optim.api import named_leaves
 # runs out of memory at the fp32 log-softmax's gradient (PERF.md, cells)
 ONE_CARD_ACCUM = {("unet-sdxl", "train_256"): 8,
                   ("deepseek-moe-16b", "train_4k"): 64}
-# config fields replaced where one card cannot hold the model (the
-# reference's build_cell cfg_overrides): deepseek-moe-16b at train_4k keeps
-# its full width (d 2048, 64 experts top-6, vocab 102400) and is cut to 4
-# layers, 1 dense + 3 MoE: 2.27 B parameters, 36 GB of fp32 parameters,
-# gradients and AdamW moments (its 28 layers need 262 GB: ROADMAP item 11)
-ONE_CARD_CUT = {("deepseek-moe-16b", "train_4k"): {"n_layers": 4}}
+# LMs the port serves on the card but does not train there yet (ROADMAP
+# item 20: K2's backward at kimi-k2's head dim 112, their one-card cuts,
+# kimi's bf16 Adafactor step); their smoke configs train anywhere
+NOT_TRAINED_ON_CARD = ("qwen1.5-110b", "granite-20b", "kimi-k2-1t-a32b")
 
 
 def parse_args(argv=None):
@@ -198,6 +199,11 @@ def main(argv=None):
             "multi-device and multi-process training (--mesh pod/multipod, "
             "--coordinator) come with ROADMAP item 11")
     arch = get_arch(args.arch)
+    if arch.arch_id in NOT_TRAINED_ON_CARD and not args.smoke:
+        raise NotImplementedError(
+            f"{arch.arch_id}: training at full size is ROADMAP item 20 (K2's "
+            f"backward at head dim 112, a one-card cut, kimi's bf16 "
+            f"Adafactor); --smoke trains the reduced config")
     lm = arch.family == "lm"
     diffusion = arch.family == "diffusion"
     fam = arch.family if lm or diffusion else vision_family(arch.arch_id)

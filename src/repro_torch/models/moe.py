@@ -1,7 +1,8 @@
 """Mixture-of-Experts layer: the dense oracle and the GShard dispatch.
 
 Counterpart of the reference ``models/moe.py`` in sliced mode (static
-knobs).  Every routed expert product goes through the expert-gated
+knobs) and masked mode (0-d tensor knobs).  Every routed expert product
+goes through the expert-gated
 grouped matmul (kernel K3, ``kernels.ops.expert_matmul_op``); the router
 and the shared experts run on the elastic matmul (K1).
 
@@ -22,7 +23,15 @@ and the shared experts run on the elastic matmul (K1).
 
 Elastic knobs: ``a_experts`` routes to the first n experts only (K3 reads
 the first n expert weights in place), ``top_k`` and ``a_ff`` (per-expert
-hidden width, a strided view of the full weights) shrink compute.
+hidden width, a strided view of the full weights) shrink compute.  In
+masked mode (``a_experts`` or ``a_ff`` a 0-d tensor) the knobs are read
+as ints on the host and the layer takes the sliced path, which computes
+the reference's masked function: the router gives the experts at or past
+``a_experts`` the fp32 minimum in both modes, the capacity comes from the
+full expert count in both, and the hidden units past ``a_ff``, zero in
+the reference's masked mode, add nothing to an expert's output.  Only
+knobs that stayed on the device would need full-width slabs; the LM
+reads its widths on the host.
 """
 from __future__ import annotations
 
@@ -71,8 +80,8 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
 
 
 def _router(p, x, cfg: MoEConfig, a_experts: Optional[int], top_k: int):
-    """probs (..., E) fp32 with inactive experts masked out; top-k gates
-    (renormalised) and indices."""
+    """probs (..., E) fp32 with the experts at or past ``a_experts``
+    masked out; top-k gates (renormalised) and indices."""
     logits = L.dense_apply(p["router"], x.to(torch.float32))
     E = cfg.n_experts
     if a_experts is not None and a_experts != E:
@@ -203,15 +212,16 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
               mesh=None) -> tuple:
     """Returns (y (B, S, d), aux_loss).  Shared experts added on top.
 
-    Static knobs only (sliced mode); tensor knobs (masked mode) raise
-    until the LM's masked mode is ported (ROADMAP item 15 (a)).  The
-    dispatch, the combine and the aux loss carry gradients on both
-    routes; on the card the routed experts' gradients are K3's dgrad and
-    wgrad kernels, through the casts of the fp32 weights.
+    ``a_experts`` and ``a_ff`` are ints (sliced mode) or 0-d tensors
+    (masked mode, read on the host: the module note); ``top_k`` is an int
+    in both, as the reference's.  The dispatch, the combine and the aux
+    loss carry gradients on both routes; on the card the routed experts'
+    gradients are K3's dgrad and wgrad kernels, through the casts of the
+    fp32 weights.
     """
-    top_k = top_k or cfg.top_k
-    a_experts = L._static(a_experts, "moe_apply")
-    a_ff = L._static(a_ff, "moe_apply")
+    top_k = int(top_k or cfg.top_k)
+    a_experts = None if a_experts is None else int(a_experts)
+    a_ff = None if a_ff is None else int(a_ff)
     slice_e = None
     if a_experts is not None and a_experts < cfg.n_experts:
         slice_e = a_experts

@@ -1,14 +1,21 @@
 """Decoder-only LM (dense and MoE) with elastic knobs, prefill and decode.
 
-Counterpart of the reference ``models/transformer.py`` in sliced mode: a
-static ``E`` slices the expert count, top-k, per-expert and dense FFN
-width, heads and depth.  Parameters are a dict in the reference layout,
+Counterpart of the reference ``models/transformer.py``: a static ``E``
+slices the expert count, top-k, per-expert and dense FFN width, heads and
+depth (sliced mode); 0-d tensor widths (masked mode) keep the full widths
+with zeros past the active counts, as the reference does.  The masked
+depth gate runs the first ``a_layers`` layers and skips the rest, where
+the reference runs every layer and adds ``gate * f(h)`` with ``gate = 0``
+past ``a_layers``: the logits are the same, and the aux loss then counts
+the layers run, as sliced mode's does (the reference's masked aux loss
+also counts the gated layers'; ROADMAP §3).  Parameters are a dict in the
+reference layout,
 except that each layer stack (``dense_layers``, ``moe_layers``) is a list
 of per-layer dicts, and the decode caches likewise (the reference stacks
 both on a leading axis for ``jax.lax.scan``; here the scan is a Python
 loop).  Every dense product runs on the elastic matmul (K1), attention on
-flash attention (K2, head dim 128 for the LMs) and every routed expert
-product on the expert-gated matmul (K3).
+flash attention (K2, head dim 128 for the LMs, 112 for kimi-k2) and every
+routed expert product on the expert-gated matmul (K3).
 
 ``remat`` other than ``"none"`` runs each layer under
 ``torch.utils.checkpoint`` when a gradient is wanted: a full recompute of
@@ -203,8 +210,8 @@ def check_decodable(cfg: LMConfig, E) -> None:
     ROADMAP.md: its caches keep every layer and kv head)."""
     E = E or {}
     a_layers, a_heads = E.get("a_layers"), E.get("a_heads")
-    if (a_layers is not None and a_layers < cfg.n_layers) or \
-            (a_heads is not None and a_heads < cfg.n_heads):
+    if (a_layers is not None and int(a_layers) < cfg.n_layers) or \
+            (a_heads is not None and int(a_heads) < cfg.n_heads):
         raise NotImplementedError(
             f"decode at a sliced depth or head count ({dict(E)}) is not "
             f"defined: the reference's decode raises there too (fault F4)")
@@ -219,17 +226,23 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
     :func:`make_decode_caches`; decode updates the cache tensors in
     place); ``return_kv`` makes prefill also emit caches.
 
-    Decode at a sliced depth or head count raises (:func:`check_decodable`).
+    ``E``'s widths are ints (sliced mode) or 0-d int32 CPU tensors
+    (masked mode: the module note; ``top_k`` stays an int).  Decode at a
+    sliced or masked depth or head count raises
+    (:func:`check_decodable`).
     """
-    E = {k: L._static(v, "lm_apply") for k, v in (E or {}).items()}
+    E = {k: v if L._masked(v) or v is None else int(v)
+         for k, v in (E or {}).items()}
     a_model = E.get("a_model")
     a_layers = E.get("a_layers")
     if caches is not None:
         check_decodable(cfg, E)
-    # static depth slicing: distribute active layers over the two stacks
+    # depth: distribute the active layers over the two stacks; the masked
+    # depth gate runs the same layers (the module note)
     dense_stack = params.get("dense_layers")
     moe_stack = params.get("moe_layers")
     if a_layers is not None:
+        a_layers = int(a_layers)
         nd = min(cfg.n_dense_layers, a_layers)
         nm = max(0, a_layers - cfg.n_dense_layers)
         if dense_stack is not None:

@@ -445,7 +445,8 @@ def test_dgrad_persistent_plan(E, C, K, sms, want):
     (1, 528, 16, 16, 128, torch.bfloat16, True, "decode"),
     (1, 1, 16, 8, 64, torch.bfloat16, True, "decode"),
     (1, 0, 16, 16, 128, torch.bfloat16, True, "mma"),    # nothing to see
-    (1, 528, 32, 2, 128, torch.bfloat16, True, "mma"),   # R = 16 > 8
+    # R = 16: two groups of 8 query heads a kv head (any R decodes)
+    (1, 528, 32, 2, 128, torch.bfloat16, True, "decode"),
     (512, 512, 16, 16, 128, torch.bfloat16, True, "mma"),
     (197, 197, 6, 6, 64, torch.bfloat16, True, "mma"),
     (197, 197, 6, 6, 64, torch.bfloat16, False, "fma_bf16"),
@@ -1029,6 +1030,135 @@ def test_cuda_flash_attention_decode_device_length(cuda, KH):
         assert fa.variant_launches["decode"] == before + 1
         torch.testing.assert_close(o.float(), want(fill), rtol=3e-2,
                                    atol=3e-2)
+
+
+# --- K2 at the LM configs' shapes: kimi-k2's D = 112, granite-20b's R = 48 ----
+
+# (H, KH, D) of the LMs' attention: deepseek-moe-16b, qwen1.5-110b,
+# granite-20b (MQA: 48 query heads on one kv head), kimi-k2-1t-a32b; and
+# R = 12 (a last group of 4)
+LM_HEADS = [(16, 16, 128), (64, 8, 128), (48, 1, 128), (64, 8, 112),
+            (24, 2, 64)]
+
+
+@pytest.mark.parametrize("H,KH,D", LM_HEADS)
+@pytest.mark.parametrize("T", [1, 264, 528])
+def test_decode_never_leaves_the_decode_kernel(H, KH, D, T):
+    """A bf16 S = 1 call with 16-byte rows at any query heads a kv head
+    takes ``decode``, never ``mma`` (whose ``kv_len`` is read on the host:
+    no CUDA graph) nor ``fma_bf16``; prefill takes ``mma`` at D = 112."""
+    assert fa.choose_variant(1, T, H, KH, D, torch.bfloat16, True) == \
+        "decode"
+    assert fa.choose_variant(512, 512, H, KH, D, torch.bfloat16, True) == \
+        "mma"
+    assert D in fa.MMA_HEAD_DIMS and D in fa.HEAD_DIMS
+
+
+@pytest.mark.parametrize("H,KH,D", LM_HEADS)
+def test_decode_head_groups_cover_each_head_once(H, KH, D):
+    """The decode kernel's grid over (batch, kv head, group): block x =
+    (b * KH + kvh) * groups + g takes query heads kvh * R + 8 g .. + Rg - 1
+    with Rg = min(8, R - 8 g), as flash_attention.cu computes them: every
+    head of every batch once; ``decode_plan`` sees the groups' blocks."""
+    B, R = 4, H // KH
+    groups = fa.decode_groups(H, KH)
+    assert groups == -(-R // fa.DECODE_R_MAX)
+    seen = []
+    for x in range(B * KH * groups):
+        bkh, r0 = x // groups, (x % groups) * fa.DECODE_R_MAX
+        Rg = min(fa.DECODE_R_MAX, R - r0)
+        b, kvh = bkh // KH, bkh % KH
+        assert 1 <= Rg <= fa.DECODE_R_MAX
+        seen += [(b, kvh * R + r0 + r) for r in range(Rg)]
+    assert sorted(seen) == [(b, h) for b in range(B) for h in range(H)]
+    splits, chunk = fa.decode_plan(528, B * KH * groups)
+    assert splits * chunk >= 528 and chunk <= fa.DECODE_CHUNK_MAX
+
+
+def test_head_dim_112_kernel_instances_in_the_source():
+    """K2's mma and decode launchers instantiate D = 112 (the wrapper's
+    MMA_HEAD_DIMS), the decode kernel takes any R (no D_R_MAX refusal),
+    and the backward's head dims stay as the wrapper says (no nvcc here:
+    read as text)."""
+    k2 = (build.CSRC / "flash_attention.cu").read_text()
+    for D in fa.MMA_HEAD_DIMS:
+        assert f"launch_mma<{D}>(" in k2 and f"launch_decode<{D}>(" in k2
+    assert f"D_R_MAX = {fa.DECODE_R_MAX};" in k2
+    assert "H / KH > D_R_MAX" not in k2
+    assert "launch_bwd_wgmma<112>" not in k2
+    assert 112 not in fa.BWD_HEAD_DIMS and 112 not in fa.FMA_HEAD_DIMS
+    with pytest.raises(NotImplementedError, match="item 20"):
+        fa.choose_bwd_variant(512, 512, 112, torch.bfloat16, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_head_dim_112(cuda, causal):
+    """kimi-k2's D = 112: the causal prefill (S = T = 512, H 64 on KH 8)
+    on mma and decode over slices of a 528-slot cache on decode, against
+    the plain version on fp32 copies of the inputs (in bf16 it rounds the
+    scores to bf16, an error of its own at this spread), q and k at 1.5 x
+    randn (scores spread ~2, so wrong scores miss the tolerance); an fp32
+    call and bf16 rows that are not 16-byte aligned raise."""
+    g = torch.Generator().manual_seed(112)
+    bf = torch.bfloat16
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(
+        cuda, bf)
+    q, k, v = rnd(2, 512, 64, 112, scale=1.5), rnd(2, 512, 8, 112,
+                                                    scale=1.5), \
+        rnd(2, 512, 8, 112)
+    ck, cv = rnd(2, 528, 8, 112, scale=1.5), rnd(2, 528, 8, 112)
+    wide = rnd(2, 64, 64, 113)
+    cases = [(q, k, v, causal, "mma")]
+    cases += [(q[:, :1], ck[:, :T], cv[:, :T], False, "decode")
+              for T in (1, 65, 300, 528)]
+    for qq, kk, vv, c, want in cases:
+        before = dict(fa.variant_launches)
+        o = ops.flash_attention_op(qq, kk, vv, causal=c)
+        ran = [n for n, m in fa.variant_launches.items() if m != before[n]]
+        with ops.plain_kernels():     # fp32 scores, as the kernels keep
+            o_plain = ops.flash_attention_op(qq.float(), kk.float(),
+                                             vv.float(), causal=c)
+        torch.cuda.synchronize()
+        assert ran == [want]
+        torch.testing.assert_close(o.float(), o_plain.float(), rtol=3e-2,
+                                   atol=3e-2)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        ops.flash_attention_op(q.float(), k.float(), v.float(), causal=True)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        ops.flash_attention_op(wide[..., :112], k[:, :64], v[:, :64],
+                               causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH,D", [(48, 1, 128), (64, 8, 112), (24, 2, 64)])
+def test_cuda_decode_any_heads_a_kv_head_in_a_graph(cuda, H, KH, D):
+    """granite-20b's 48 query heads on one kv head (6 groups), kimi's D =
+    112 and R = 12 (a last group of 4): decode over a whole 528-slot cache
+    with the fill on the device, captured once in a CUDA graph and
+    replayed as the fill advances, against the plain version on fp32
+    copies of the inputs (q and k at 1.5 x randn: a wrong head group's
+    scores miss the tolerance)."""
+    from repro_torch.graphs import Graph, new_pool
+    g = torch.Generator().manual_seed(H + KH + D)
+    bf = torch.bfloat16
+    q = (torch.randn(4, 1, H, D, generator=g) * 1.5).to(cuda, bf)
+    ck = (torch.randn(4, 528, KH, D, generator=g) * 1.5).to(cuda, bf)
+    cv = torch.randn(4, 528, KH, D, generator=g).to(cuda, bf)
+    n = torch.full((), 1, dtype=torch.int32, device=cuda)
+    graph = Graph(lambda t: ops.flash_attention_op(q, ck, cv, causal=False,
+                                                   kv_len=t), [n],
+                  pool=new_pool(), stream=torch.cuda.Stream())
+    for fill in (1, 100, 264, 527, 528):
+        before = dict(fa.variant_launches)
+        o = graph.run(torch.tensor(fill, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert {v for v, m in fa.variant_launches.items()
+                if m != before[v]} == {"decode"}
+        with ops.plain_kernels():     # fp32 scores, as the kernel keeps
+            want = ops.flash_attention_op(q.float(), ck[:, :fill].float(),
+                                          cv[:, :fill].float(), causal=False)
+        torch.testing.assert_close(o.float(), want, rtol=3e-2, atol=3e-2)
 
 
 # --- backward (the training path) ---------------------------------------------

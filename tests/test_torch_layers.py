@@ -102,12 +102,8 @@ def test_unported_modes_raise():
         TL.conv_apply(_params(JL.conv_init(KEY, 3, 3, 4)),
                       torch.zeros(1, 8, 8, 3), stride=1, padding="SAME",
                       a_out=torch.tensor(2, dtype=torch.int32))
-    pe = _params(JL.embedding_init(KEY, 16, 8))
-    with pytest.raises(NotImplementedError):     # masked LM: LM training
-        TL.embedding_apply(pe, torch.zeros(2, 3, dtype=torch.long),
-                           a=torch.tensor(4))
-    with pytest.raises(NotImplementedError):
-        TL.embedding_attend(pe, torch.zeros(2, 8), a=torch.tensor(4))
+    # the LM's masked embedding has a port since the LM's masked mode:
+    # held against the reference in tests/test_torch_lm_configs.py
 
 
 # --- masked mode (tensor widths), as the training path runs the layers ----------

@@ -287,8 +287,16 @@ def test_moe_apply_a2a_and_masked_knobs(setup):
     torch.testing.assert_close(y_none, y_ein, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="item 11"):
         TM.moe_apply(tp, xt, a2a, mesh=object())
-    with pytest.raises(NotImplementedError):          # masked mode
-        TM.moe_apply(tp, xt, _tcfg(CFG), a_experts=torch.tensor(4))
+    # masked knobs (0-d tensors) equal the sliced ones: read on the host,
+    # they take the sliced path
+    y_s, aux_s = TM.moe_apply(tp, xt, _tcfg(CFG), a_experts=4, top_k=1,
+                              a_ff=32)
+    y_m, aux_m = TM.moe_apply(tp, xt, _tcfg(CFG),
+                              a_experts=torch.tensor(4, dtype=torch.int32),
+                              top_k=1,
+                              a_ff=torch.tensor(32, dtype=torch.int32))
+    torch.testing.assert_close(y_m, y_s, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(aux_m, aux_s, rtol=1e-5, atol=0)
 
 
 def test_moe_init_layout_and_router_stays_fp32(setup):
