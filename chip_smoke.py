@@ -339,7 +339,7 @@ full width, each at the LM launcher's one-card cut: 8 of 80 layers, all
     fills 1, mid and capacity eagerly and inside one captured CUDA graph
     with the fill advanced between replays, q and k at 1.5 x randn so the
     scores spread by about 2 and a kernel that misread the scores or a
-    group's heads would miss the tolerance by far; every call on ``mma``
+    group's heads would miss the tolerance by far; every call on ``wgmma``
     or ``decode``, none on ``fma``, and an fp32 call and unaligned bf16
     rows at D = 112 raising; (b) each config through
     ``elastic_moe.run``: random bf16 weights drawn on the card from a
@@ -365,8 +365,31 @@ full width, each at the LM launcher's one-card cut: 8 of 80 layers, all
     bf16 (and fp32 for qwen), within the same tolerances; (e) K1, K2 and
     K3 over the recorded calls of one prefill and one decode step at the
     full point as graph-replayed device time beside the plain version,
-    ``torch.matmul``, SDPA or ``torch.bmm`` and the bound; after each
+    ``torch.matmul``, SDPA or ``torch.bmm`` and the bound (with
+    ``--parent-csrc``, the parent's K2 beside the prefill's); after each
     config the device memory allocated is back within 64 MiB.
+
+K2's wgmma forward (FlashAttention-3's, on wgmma fed by TMA):
+
+27. (a) against its plain version on fp32 copies of the same bf16 inputs
+    at every call class of the port's prefill, training and serving
+    paths (train_4k's causal S = T = 4096 at D 128, DiT-L/2's 256, the
+    LMs' causal 512 prefills with GQA 64 / 8, MQA 48 / 1 and kimi-k2's
+    D = 112, the ViT's and the sandwich step's 197 read in place from a
+    fused buffer, the UNet's 256 and its cross-attention over 77 keys,
+    ragged 300, 256 queries over 4096 keys, the route's edge at S = 65),
+    o and the logsumexp, eagerly, twice bit for bit and under 3 CUDA-graph
+    replays, one ``wgmma`` launch a call; q and k at 1.5 x randn, and a
+    "no scores" answer and the next head's answer shown to fail the
+    check; (b) the route's evidence: one call of each class at its full
+    size on ``wgmma`` and on ``mma`` (each forced), and SDPA, as
+    graph-replayed device time in turns, beside the call's bound and the
+    variant ``choose_variant`` takes.  Phases 6, 11, 15, 20, 23, 24, 25
+    and 26 check that their main paths took ``wgmma`` (``mma`` only at
+    the UNet's 8 x 8 latent); with ``--parent-csrc`` every K2 forward row
+    (phases 7, 13, 19, 23, 24 and 26) times the parent's ``mma`` beside
+    it (``LATER_VARIANTS``).  Phase 24 (e) also times K1's forward, dgrad
+    and wgrad over the train_4k microbatch, by call shape.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -611,17 +634,28 @@ OLD_BF16 = {("elastic_matmul", "tile_bf16"), ("flash_attention", "fma_bf16"),
             ("expert_matmul_wgrad", "tile_bf16")}
 
 
+# K2's mma forward: kept for the call classes where it measured faster
+# than wgmma (S <= 64: the UNet's 8 x 8 latent); a path takes it only
+# where its ``need`` names it
+ONLY_WHERE_NEEDED = {("flash_attention", "mma")}
+
+
 def main_path_variants(counts: dict, need: set) -> None:
     """Raise unless a main path's bf16 calls all went through the new
     variants: no launch of the old K1 tile, K2 FMA, K3 tile or K1 WMMA
-    backward kernel in bf16, and every (kernel, variant) in ``need``
-    launched.  ``counts``
+    backward kernel in bf16, no K2 ``mma`` unless ``need`` names it, and
+    every (kernel, variant) in ``need`` launched.  ``counts``
     is ``ops.variant_counts()``: variants by kernel."""
     flat = {(k, v): n for k, per in counts.items() for v, n in per.items()}
     old = {kv: flat[kv] for kv in sorted(OLD_BF16) if flat.get(kv)}
     if old:
         raise AssertionError(f"bf16 main-path calls took the old kernels: "
                              f"{old}")
+    stray = {kv: flat[kv] for kv in sorted(ONLY_WHERE_NEEDED)
+             if flat.get(kv) and kv not in need}
+    if stray:
+        raise AssertionError(f"main-path calls took a variant this path "
+                             f"keeps only for other shapes: {stray}")
     idle = sorted(kv for kv in need if not flat.get(kv))
     if idle:
         raise AssertionError(f"variants never launched on the main path: "
@@ -658,6 +692,20 @@ def k1_group(args, kw) -> str:
         variant += f" splits {splits}x{kc}"
     dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     return f"M={M} k={k_act} n={n_act} {dt} {variant}"
+
+
+def k2_group(args, kw) -> str:
+    """A K2 forward call's shape and the variant it takes, for the
+    breakdown."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = args
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    causal = kw.get("causal", True)
+    variant = fa.choose_variant(S, min(T, 1) if causal and S == 1 else T, H,
+                                KH, D, q.dtype, fa._aligned(q, k, v))
+    return (f"B={B} S={S} T={T} H={H}/{KH} D={D}"
+            f"{' causal' if causal else ''} {variant}")
 
 
 def k3_group(args, kw) -> str:
@@ -800,6 +848,8 @@ LATER_VARIANTS = (
      "choose_bwd_variant", "dgrad", {"persistent": "tma"}),
     ("expert_matmul", "repro_expert_matmul_wgrad_persistent",
      "choose_bwd_variant", "wgrad", {"persistent": "tma"}),
+    ("flash_attention", "repro_flash_attention_wgmma", "choose_variant",
+     None, {"wgmma": "mma"}),
 )
 
 
@@ -1405,7 +1455,7 @@ def lm_phases(dev, parent) -> dict:
     main_path_variants(out["variants"], need={
         ("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
         ("elastic_matmul", "f32_splitk"),
-        ("flash_attention", "mma"), ("flash_attention", "decode"),
+        ("flash_attention", "wgmma"), ("flash_attention", "decode"),
         ("expert_matmul", "tma"), ("expert_matmul", "stream")})
     # the fp32 router: f32_splitk at prefill, small_m at decode (M = 4),
     # never the tile loop
@@ -2123,7 +2173,7 @@ def train_phases(dev, parent) -> dict:
     if idle:
         raise AssertionError(f"kernels not launched while training: {idle}")
     main_path_variants(out["variants"], need={
-        ("elastic_matmul", "tma"), ("flash_attention", "mma"),
+        ("elastic_matmul", "tma"), ("flash_attention", "wgmma"),
         ("elastic_matmul_dgrad", "tma"),
         ("elastic_matmul_wgrad", "tma"),
         ("flash_attention_bwd", "resident")})
@@ -2656,7 +2706,7 @@ def trace_phase(serve, arch, cfg, server, lut, x, base_ms, out_dir) -> dict:
         raise AssertionError(f"kernels not launched in the trace: {ran}")
     main_path_variants(ran, need={
         ("elastic_matmul", "tma"), ("elastic_matmul", "small_m"),
-        ("flash_attention", "mma")})
+        ("flash_attention", "wgmma")})
     # every answer against a direct forward of the subnet it names (the
     # same image, x[0], on the same weights)
     by_name = {p.subnet.name(): p.subnet for p in lut.points}
@@ -3409,10 +3459,13 @@ DIFF_STEP_GROUPS = (("flash_attention_bwd", "K2 backward"),
 K2_KERNELS = ("flash_attention", "flash_attention_bwd")
 DIFF_ARCHS = ("dit-l2", "unet-sdxl")
 DIFF_KERNELS = K1_KERNELS + K2_KERNELS
-# every bf16 call of a diffusion step on the kernels' Hopper variants
+# every bf16 call of a diffusion step on the kernels' Hopper variants; K2's
+# forward on wgmma, and at the UNet's 8 x 8 latent (S = 64, self and
+# cross) on mma, which measured faster there (phase 27 (b))
 DIFF_VARIANTS = {("elastic_matmul", "tma"), ("elastic_matmul_dgrad", "tma"),
-                 ("elastic_matmul_wgrad", "tma"), ("flash_attention", "mma"),
+                 ("elastic_matmul_wgrad", "tma"), ("flash_attention", "wgmma"),
                  ("flash_attention_bwd", "resident")}
+DIFF_K2_MMA = {"dit-l2": set(), "unet-sdxl": {("flash_attention", "mma")}}
 # (b): fp32 denoiser outputs, kernel path against plain path, as a share
 # of the largest |output| (24 DiT blocks, or the UNet's 70 transformer
 # blocks and 22 res blocks, in fp32 with TF32 off); bf16 is held as phase
@@ -3811,8 +3864,9 @@ def diff_train(label: str, argv: list, restarts: int, repeat: tuple,
                dev) -> dict:
     """Phase 23 (c): :func:`train_run` of a diffusion net at batch 256,
     K1's and K2's five counters, the repeated step within 1e-6."""
+    need = DIFF_VARIANTS | DIFF_K2_MMA[argv[argv.index("--arch") + 1]]
     return train_run(f"23. {label}", argv, restarts, repeat, DIFF_KERNELS,
-                     DIFF_VARIANTS, 256, "images", dev, repeat_tol=1e-6)
+                     need, 256, "images", dev, repeat_tol=1e-6)
 
 
 def profiled_step(fn, groups, step_ms: float, model_flops: float,
@@ -3946,9 +4000,10 @@ def diff_sample(arch_id: str, shape_name: str, dev) -> dict:
             "steps": steps, "batch": B, "img_res": shape.img_res}
 
 
-def diffusion_phases(dev) -> dict:
+def diffusion_phases(dev, parent) -> dict:
     """Phase 23: the diffusion nets at full width on the card.  Returns
-    what the kernels' record needs."""
+    what the kernels' record needs.  ``parent``: the parent commit's
+    kernels to time beside K2's forward, or None."""
     import torch
 
     from repro_torch.kernels import elastic_matmul as em
@@ -3995,7 +4050,9 @@ def diffusion_phases(dev) -> dict:
                                k1_wgrad_work, group=bwd_group, mode=nograd),
             "k2": time_rows(f"K2 forward (self-attention), {name}",
                             expand(rec["k2"]), ops.flash_attention_op,
-                            k2_plain, k2_library, "sdpa", k2_work),
+                            k2_plain, k2_library, "sdpa", k2_work,
+                            parent and (parent["k2"], parent["libs"]),
+                            group=k2_group),
             "k2_bwd": time_rows(f"K2 backward (self-attention), {name}",
                                 expand(rec["k2_bwd"]), k2_bwd_kernel,
                                 k2_bwd_plain, SdpaBackward(),
@@ -4004,7 +4061,8 @@ def diffusion_phases(dev) -> dict:
             rows["k2x"] = time_rows(
                 f"K2 forward (cross-attention, 77 keys), {name}",
                 expand(rec["k2x"]), ops.flash_attention_op, k2_plain,
-                k2_library, "sdpa", k2_work)
+                k2_library, "sdpa", k2_work,
+                parent and (parent["k2"], parent["libs"]), group=k2_group)
             rows["k2x_bwd"] = time_rows(
                 f"K2 backward (cross-attention, 77 keys), {name}",
                 expand(rec["k2x_bwd"]), k2_bwd_kernel, k2_bwd_plain,
@@ -4068,7 +4126,7 @@ LM_TRAIN_KERNELS = ("elastic_matmul", "flash_attention", "expert_matmul",
 # forward on f32_splitk, its backward on fma_f32)
 LM_TRAIN_VARIANTS = {("elastic_matmul", "tma"),
                      ("elastic_matmul", "f32_splitk"),
-                     ("flash_attention", "mma"), ("expert_matmul", "tma"),
+                     ("flash_attention", "wgmma"), ("expert_matmul", "tma"),
                      ("elastic_matmul_dgrad", "tma"),
                      ("elastic_matmul_wgrad", "tma"),
                      ("flash_attention_bwd", "wgmma"),
@@ -4363,18 +4421,20 @@ def lm_train_setup(dev):
 
 def lm_record(cfg, params, dev) -> dict:
     """Phase 24's recording: one microbatch (4 x 4096) of the train_4k
-    step, its loss and backward (no update), every K3 forward, dgrad and
-    wgrad and K2 forward (remat's recompute included) and backward call
+    step, its loss and backward (no update), every K1, K3 and K2 forward
+    (remat's recompute included), dgrad and wgrad (K2's backward) call
     kept by signature, with the counts as routed."""
     import torch
 
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.kernels import elastic_matmul as em
     from repro_torch.kernels import expert_matmul as xm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.steps import make_lm_train_step
     from repro_torch.optim.api import pop_grads
     B = 256 // LM_TRAIN_ACCUM
     rec = {k: {} for k in ("x_dgrad", "x_wgrad", "k2_bwd", "x_fwd",
-                           "k2_fwd")}
+                           "k2_fwd", "k1_fwd", "k1_dgrad", "k1_wgrad")}
     sink = keep_calls(rec)
     step = make_lm_train_step(cfg, lambda p, g, o, s: (p, o), accum=1)
     mb = lm_train_batch(B, 4096, cfg.vocab_size, dev)
@@ -4382,7 +4442,10 @@ def lm_record(cfg, params, dev) -> dict:
                     (xm, "expert_matmul_wgrad", "x_wgrad"),
                     (fa, "flash_attention_bwd", "k2_bwd"),
                     (xm, "expert_matmul", "x_fwd"),
-                    (fa, "flash_attention", "k2_fwd")], sink):
+                    (fa, "flash_attention", "k2_fwd"),
+                    (layers_mod, "elastic_matmul_op", "k1_fwd"),
+                    (em, "elastic_matmul_dgrad", "k1_dgrad"),
+                    (em, "elastic_matmul_wgrad", "k1_wgrad")], sink):
         _, _, m = step(params, None, mb, 0)
         torch.cuda.synchronize()
     pop_grads(params)
@@ -4611,7 +4674,9 @@ def lm_train_phases(dev, parent) -> dict:
     commit's kernels to time beside ours in (e), or None."""
     import torch
 
+    from repro_torch.kernels import elastic_matmul as em
     from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import ops
     from repro_torch.launch.steps import ONE_CARD_CUT
     from repro_torch.launch.train import ONE_CARD_ACCUM
     key = (LM_TRAIN_ARCH, LM_TRAIN_SHAPE)
@@ -4637,6 +4702,7 @@ def lm_train_phases(dev, parent) -> dict:
     _, cfg, params, _ = lm_train_setup(dev)
     rec = lm_record(cfg, params, dev)
     out["recorded"] = lm_recorded_checks(rec)
+    k1_calls = {k: rec.pop(k) for k in ("k1_fwd", "k1_dgrad", "k1_wgrad")}
 
     def par(fn):        # this tree's wrapper on the parent's libraries
         return parent and (fn, parent["libs"])
@@ -4680,9 +4746,29 @@ def lm_train_phases(dev, parent) -> dict:
         xm.expert_matmul_dgrad, xm.expert_matmul_dgrad_plain,
         k3_dgrad_library, "torch.bmm", k3_dgrad_work,
         par(xm.expert_matmul_dgrad), group=k3_dgrad_group, mode=nograd)
+    # K1 over the same microbatch (no kernel change: the rows that rank
+    # its next redesign): the attention projections, the dense and
+    # shared-expert FFNs, the fp32 router and the 102400-wide head
+    out["rows"].update({
+        "k1_fwd": time_rows("K1 forward, train_4k microbatch",
+                            expand(k1_calls["k1_fwd"]),
+                            ops.elastic_matmul_op, k1_plain, k1_library,
+                            "torch.matmul", k1_work, group=k1_group,
+                            mode=nograd),
+        "k1_dgrad": time_rows("K1 dgrad, train_4k microbatch",
+                              expand(k1_calls["k1_dgrad"]),
+                              em.elastic_matmul_dgrad, k1_dgrad_plain,
+                              k1_dgrad_library, "torch.matmul",
+                              k1_dgrad_work, group=bwd_group, mode=nograd),
+        "k1_wgrad": time_rows("K1 wgrad, train_4k microbatch",
+                              expand(k1_calls["k1_wgrad"]),
+                              em.elastic_matmul_wgrad, k1_wgrad_plain,
+                              k1_wgrad_library, "torch.matmul",
+                              k1_wgrad_work, group=bwd_group, mode=nograd)})
+    rec.update(k1_calls)
     out["row_launches"] = {k: sum(n for *_, n in v.values())
                            for k, v in rec.items()}
-    del rec, params
+    del rec, params, k1_calls
     torch.cuda.empty_cache()
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     t0 = phase("24. (c) the smoke LM train step (fp32) on the card, kernel "
@@ -4841,7 +4927,7 @@ def cluster_trace(serve, arch, cfg, server, lut, x, base_ms: float,
                              f"{ran}")
     main_path_variants(ran, need={("elastic_matmul", "tma"),
                                   ("elastic_matmul", "small_m"),
-                                  ("flash_attention", "mma")})
+                                  ("flash_attention", "wgmma")})
     by_name = {p.subnet.name(): p.subnet for p in lut.points}
     err, n_ans, n_sub = served_err(sink, list(run.servers.values()),
                                    by_name, x, cfg)
@@ -5143,7 +5229,7 @@ def k2_config_cases(dev) -> dict:
     decode over the 528-slot cache at kimi's D = 112 and granite's 48
     query heads on one kv head, each decode at three fills inside one
     captured CUDA graph with the fill advanced between replays, against
-    the plain version; every bf16 call on mma or decode, none on fma; an
+    the plain version; every bf16 call on wgmma or decode, none on fma; an
     fp32 call and unaligned bf16 rows at D = 112 raise.  q and k are
     ``QK_SCALE`` x randn: the scores q.k / sqrt(D) then spread by
     ``QK_SCALE``^2 ~ 2.25, so the softmax picks a few keys, and a kernel
@@ -5191,11 +5277,11 @@ def k2_config_cases(dev) -> dict:
     H, KH, D = 64, 8, 112
     sc = QK_SCALE
     one("kimi prefill S=T=512 H64/KH8 D112 causal", randn(B, S, H, D, scale=sc),
-        randn(B, S, KH, D, scale=sc), randn(B, S, KH, D), True, "mma")
+        randn(B, S, KH, D, scale=sc), randn(B, S, KH, D), True, "wgmma")
     fused = randn(B, S, H + 2 * KH, D, scale=sc)
     one("kimi prefill, q k v in place of a fused buffer",
         fused[:, :, :H], fused[:, :, H:H + KH], fused[:, :, H + KH:], True,
-        "mma")
+        "wgmma")
     wide = randn(2, 64, H, D + 1)                # 226-byte rows
     for label, args in (
             ("an fp32 call", [randn(1, 4, 1, D).float() for _ in range(3)]),
@@ -5279,7 +5365,7 @@ def k2_config_cases(dev) -> dict:
                     for f in fills))
             del graph, q, ck, cv
     ran = {v: fa.variant_launches[v] - before[v] for v in fa.VARIANTS}
-    if ran["fma_bf16"] or ran["fma_f32"] or not ran["mma"] \
+    if ran["fma_bf16"] or ran["fma_f32"] or not ran["wgmma"] \
             or not ran["decode"]:
         raise AssertionError(f"phase 26 (a) K2 variants {ran}")
     log(f"  K2 launches by variant in (a): {ran}")
@@ -5444,10 +5530,11 @@ def kept_shares(k3_calls: list, n_pre: int, cfg) -> dict:
     return kept
 
 
-def config_times(key: str, calls: dict, n_pre: dict, kernel_fn: dict
-                 ) -> dict:
+def config_times(key: str, calls: dict, n_pre: dict, kernel_fn: dict,
+                 parent=None) -> dict:
     """Phase 26 (e): each kernel's rows over the recorded calls of one
-    prefill (the first ``n_pre[k]``) and one decode step."""
+    prefill (the first ``n_pre[k]``) and one decode step; ``parent``'s K2
+    beside K2's prefill row."""
     import torch
 
     from repro_torch.kernels import expert_matmul as xm
@@ -5464,11 +5551,13 @@ def config_times(key: str, calls: dict, n_pre: dict, kernel_fn: dict
             if batch:
                 times[f"{k}_{st}"] = time_rows(
                     f"{k.upper()} {key} {st:7s}", batch, kern, plain, lib,
-                    lib_name, work)
+                    lib_name, work, parent and k == "k2" and st == "prefill"
+                    and (parent["k2"], parent["libs"]))
     return times
 
 
-def lm_config_phase(key: str, arch_id: str, dev, card: str) -> dict:
+def lm_config_phase(key: str, arch_id: str, dev, card: str,
+                    parent=None) -> dict:
     """Phase 26 (b), (c), (d) and (e) for one config: see
     :func:`lm_configs_phases`."""
     import torch
@@ -5544,7 +5633,7 @@ def lm_config_phase(key: str, arch_id: str, dev, card: str) -> dict:
         raise AssertionError(f"{key}: the full point or the next did not "
                              f"decode")
     need = {("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
-            ("flash_attention", "mma"), ("flash_attention", "decode")}
+            ("flash_attention", "wgmma"), ("flash_attention", "decode")}
     if need_k3:
         need |= {("elastic_matmul", "f32_splitk"), ("expert_matmul", "tma"),
                  ("expert_matmul", "stream")}
@@ -5599,7 +5688,7 @@ def lm_config_phase(key: str, arch_id: str, dev, card: str) -> dict:
             f"factor {cfg.moe.capacity_factor}, random router): prefill "
             f"{kept['prefill'][0]:.1%}, decode {kept['decode'][0]:.1%} "
             f"a layer")
-    times = config_times(key, calls, n_pre, kernel_fn)
+    times = config_times(key, calls, n_pre, kernel_fn, parent)
     del calls, caches
 
     # the graph decode steps against eager ones at the full point (the
@@ -5660,19 +5749,213 @@ def lm_config_phase(key: str, arch_id: str, dev, card: str) -> dict:
             "points": points, "logits": logits, "seconds": seconds}
 
 
-def lm_configs_phases(dev, card: str) -> dict:
+def lm_configs_phases(dev, card: str, parent=None) -> dict:
     """Phase 26: K2's new shapes (a), then each of the three LM configs
     through ``elastic_moe.run`` on the card (b), its kernel route against
     the plain route (c) and masked against sliced widths (d) at depth 2,
-    and its kernels' times (e)."""
+    and its kernels' times (e; ``parent``'s K2 beside the prefill's)."""
     t0 = phase("26. the LM configs at full width: qwen1.5-110b (8 of 80 "
                "layers), granite-20b (52), kimi-k2-1t-a32b (2 of 61); K2 at "
                "D = 112 and at 48 query heads a kv head")
     out = {"k2": k2_config_cases(dev), "configs": {}}
     for key, arch_id in LM_CONFIGS:
-        out["configs"][key] = lm_config_phase(key, arch_id, dev, card)
+        out["configs"][key] = lm_config_phase(key, arch_id, dev, card,
+                                              parent)
     out["seconds"] = time.perf_counter() - t0
     log(f"  ({out['seconds']:.1f} s) [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------- phase 27
+# K2's wgmma forward against its plain version at every call class of the
+# port's prefill, training and serving paths: (label, B, S, T, H, KH, D,
+# causal, logsumexp, q k v read in place from a fused buffer).
+# Full sequence and head shapes; batch cut so that the fp32 plain version's
+# (B H, S, T) scores stay ~1 GB.
+WGMMA_CLASSES = (
+    ("train_4k causal S=T=4096 D128 (+lse)", 1, 4096, 4096, 16, 16, 128,
+     True, True, False),
+    ("DiT-L/2 S=T=256 D64 (+lse)", 8, 256, 256, 16, 16, 64, False, True,
+     False),
+    ("deepseek prefill causal 512 D128", 4, 512, 512, 16, 16, 128, True,
+     False, False),
+    ("qwen prefill causal 512 H64/KH8", 4, 512, 512, 64, 8, 128, True,
+     False, False),
+    ("granite prefill causal 512 H48/KH1", 4, 512, 512, 48, 1, 128, True,
+     False, False),
+    ("kimi prefill causal 512 H64/KH8 D112", 4, 512, 512, 64, 8, 112, True,
+     False, False),
+    ("kimi prefill D112, q k v of a fused buffer", 2, 512, 512, 64, 8, 112,
+     True, False, True),
+    ("ViT S=T=197 D64, q k v of a fused buffer", 8, 197, 197, 6, 6, 64,
+     False, False, True),
+    ("sandwich S=T=197 D64 (+lse)", 32, 197, 197, 6, 6, 64, False, True,
+     True),
+    ("UNet self S=T=256 D64 (+lse)", 16, 256, 256, 10, 10, 64, False, True,
+     False),
+    ("the route's edge S=T=65 D128 causal (+lse)", 4, 65, 65, 8, 8, 128,
+     True, True, False),
+    ("UNet cross S=256 T=77 D64", 32, 256, 77, 10, 10, 64, False, True,
+     False),
+    ("ragged S=T=300 D128 causal (+lse)", 2, 300, 300, 16, 8, 128, True,
+     True, False),
+    ("ragged S=T=300 D64 (+lse)", 2, 300, 300, 8, 8, 64, False, True,
+     False),
+    ("S=256 T=4096 D128", 1, 256, 4096, 16, 16, 128, False, False, False),
+)
+
+
+def k2_wgmma_cases(dev) -> dict:
+    """Phase 27 (a): K2's wgmma forward against the plain version on fp32
+    copies of the same bf16 inputs at every call class of
+    ``WGMMA_CLASSES``, o and (where the training paths ask for it) the
+    logsumexp: eagerly, twice bit for bit, and under 3 replays of a CUDA
+    graph (``repeatable``), one ``wgmma`` launch a call.  q and k are
+    ``QK_SCALE`` x randn as in phase 26 (a), so the softmax picks a few
+    keys, and the script checks that a kernel that ignored the scores or
+    answered with another query head's row would miss the tolerance."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(27)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                ).to(torch.bfloat16)
+
+    tol = ATTN_TOL["bfloat16"]
+    errs, wrong = {}, {}
+    for label, B, S, T, H, KH, D, causal, lse, fused in WGMMA_CLASSES:
+        sc = QK_SCALE
+        if fused:           # (B, S, H + 2 KH, D): q, k, v strided views
+            if S != T:
+                raise AssertionError(f"{label}: a fused buffer needs S = T")
+            buf = randn(B, S, H + 2 * KH, D)
+            buf[:, :, :H + KH] *= sc
+            q, k, v = buf[:, :, :H], buf[:, :, H:H + KH], buf[:, :, H + KH:]
+        else:
+            q, k, v = randn(B, S, H, D, scale=sc), \
+                randn(B, T, KH, D, scale=sc), randn(B, T, KH, D)
+        want_v = fa.choose_variant(S, T, H, KH, D, torch.bfloat16,
+                                   fa._aligned(q, k, v))
+        if want_v != "wgmma":
+            raise AssertionError(f"{label}: routed to {want_v}")
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, return_lse=lse)
+        b0 = dict(fa.variant_launches)
+        with torch.inference_mode():
+            err = repeatable(lambda: fa.flash_attention(
+                q, k, v, causal=causal, return_lse=lse), want, tol,
+                f"K2 wgmma {label}")
+        ran = {n: c - b0[n] for n, c in fa.variant_launches.items()
+               if c != b0[n]}
+        # two eager calls and the captured one (a bare capture counts its
+        # launch once; its replays add nothing)
+        if ran != {"wgmma": 3}:
+            raise AssertionError(f"K2 {label}: launches {ran}, not 3 on "
+                                 f"wgmma")
+        errs[label] = err
+        # what the check would see of a kernel that ignored the scores, or
+        # answered each head with the next head's row
+        o_want = (want[0] if lse else want).float()
+        for name, qw in (("no scores", q * 0),
+                         ("the next head's", q.roll(1, dims=2))):
+            ow = fa.flash_attention_plain(qw.float(), k.float(), v.float(),
+                                          causal=causal)
+            d = float((ow - o_want).abs().max())
+            if bool(((ow - o_want).abs()
+                     <= tol + tol * o_want.abs()).all()):
+                raise AssertionError(f"{label}: {name} would pass the check")
+            wrong[f"{label}: {name}"] = d
+        log(f"  {label:44s} max abs err {err:.3g} (tol {tol}), eager and "
+            f"3 graph replays bit for bit; 'no scores' "
+            f"{wrong[f'{label}: no scores']:.3g}, 'the next head's' "
+            f"{wrong[f'{label}: the next head' + chr(39) + 's']:.3g} away")
+        del q, k, v, want, o_want
+    return {"errs": errs, "max_abs_err": max(errs.values()),
+            "wrong_min": min(wrong.values())}
+
+
+# phase 27 (b): the route's evidence at each call class's full size (the
+# rows of PERF.md): (label, B, S, T, H, KH, D, causal, logsumexp)
+ROUTE_CLASSES = (
+    ("train_4k microbatch", 4, 4096, 4096, 16, 16, 128, True, True),
+    ("DiT-L/2 step", 256, 256, 256, 16, 16, 64, False, True),
+    ("sandwich step", 256, 197, 197, 6, 6, 64, False, True),
+    ("ViT serving, bucket 8", 8, 197, 197, 6, 6, 64, False, False),
+    ("deepseek prefill", 4, 512, 512, 16, 16, 128, True, False),
+    ("qwen prefill", 4, 512, 512, 64, 8, 128, True, False),
+    ("granite prefill", 4, 512, 512, 48, 1, 128, True, False),
+    ("kimi prefill", 4, 512, 512, 64, 8, 112, True, False),
+    ("UNet self S=T=256", 32, 256, 256, 10, 10, 64, False, True),
+    ("UNet cross S=256 T=77", 32, 256, 77, 10, 10, 64, False, True),
+    ("UNet self S=T=64", 32, 64, 64, 20, 20, 64, False, True),
+    ("UNet cross S=64 T=77", 32, 64, 77, 20, 20, 64, False, True),
+)
+
+
+def k2_route_rows(dev) -> dict:
+    """Phase 27 (b): one call of each of ``ROUTE_CLASSES`` on the wgmma
+    forward and on mma (each forced on the same inputs), and SDPA, as
+    graph-replayed device time, beside the call's bound: the evidence for
+    ``flash_attention.choose_variant``'s rule.  Timed in turns mma,
+    wgmma, wgmma, mma."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(272)
+    rows = {}
+    target = [(fa, "choose_variant", "choose")]
+    for label, B, S, T, H, KH, D, causal, lse in ROUTE_CLASSES:
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, T, KH, D), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        nb, no, _ = k2_work((q, k, v), {"causal": causal})
+        bound, by = kernel_bound_ms(nb, no)
+
+        def call():
+            fa.flash_attention(q, k, v, causal=causal, return_lse=lse)
+        ts = {"mma": [], "wgmma": []}
+        with torch.inference_mode():
+            for v_ in ("mma", "wgmma", "wgmma", "mma"):
+                with routed(target, {"choose": lambda *a, _v=v_: _v}):
+                    b0 = fa.variant_launches[v_]
+                    call()
+                    if fa.variant_launches[v_] == b0:
+                        raise AssertionError(f"{label}: not on {v_}")
+                    ts[v_].append(graph_time_ms(call)[0])
+            sdpa = graph_time_ms(lambda: k2_library(q, k, v,
+                                                    causal=causal))[0]
+        route = fa.choose_variant(S, T, H, KH, D, torch.bfloat16,
+                                  fa._aligned(q, k, v))
+        w, m = (statistics.mean(ts[x]) for x in ("wgmma", "mma"))
+        rows[label] = {"wgmma_ms": w, "mma_ms": m, "library_ms": sdpa,
+                       "bound_ms": bound, "bound_by": by, "route": route,
+                       "runs": ts}
+        log(f"  {label:24s} B={B} S={S} T={T} H={H}/{KH} D={D}"
+            f"{' causal' if causal else ''}: wgmma {w:.4f} ms, mma "
+            f"{m:.4f} ms, sdpa {sdpa:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"wgmma / mma {w / m:.2f}, wgmma / sdpa {w / sdpa:.2f}; the "
+            f"route takes {route} (faster: {'wgmma' if w < m else 'mma'})")
+        del q, k, v
+    return rows
+
+
+def wgmma_phases(dev, card: str) -> dict:
+    """Phase 27: K2's wgmma forward (a) against the plain version at
+    every call class and (b) against mma, the route's evidence."""
+    t0 = phase("27. K2's wgmma forward: (a) vs plain at every call class "
+               "of the prefill, training and serving paths, eager and "
+               "under CUDA-graph replay; (b) wgmma, mma and SDPA at each "
+               "class's full size (graph-replayed device time)")
+    out = {"cases": k2_wgmma_cases(dev)}
+    t1 = phase("27. (b) the route's evidence")
+    out["route"] = k2_route_rows(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  (b) {time.perf_counter() - t1:.1f} s; phase 27 "
+        f"{out['seconds']:.1f} s [{card}]")
     return out
 
 
@@ -5692,7 +5975,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-csrc", default=None, help=(
         "a parent commit's src/repro_torch/kernels/csrc: its kernels are "
-        "built too and timed beside these in phases 7, 13, 14, 19 and 24"))
+        "built too and timed beside these in phases 7, 13, 14, 19 and 24, "
+        "and its K2 forward in phases 23 and 26"))
     cli = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5995,7 +6279,7 @@ def main() -> int:
     log(f"  by variant: {vit_variants}")
     main_path_variants(vit_variants, need={
         ("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
-        ("flash_attention", "mma")})
+        ("flash_attention", "wgmma")})
     log(f"  served logits vs direct forward of {o['subnet']}: max abs err "
         f"{err_served:.3g}; cold compiles {server.cold_compiles}")
     log(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -6028,14 +6312,15 @@ def main() -> int:
     vc = vit_compiled(tp.pop("servers"), specs, governors["joint (paper)"].lut,
                       x, cfg, dims)
     cv = conv_phases(dev, randn)
-    df = diffusion_phases(dev)
+    df = diffusion_phases(dev, parent)
     lt = lm_train_phases(dev, parent)
     lt_n, lt_v = lt["run"]["launches"], lt["run"]["variants"]
     cl = cluster_phases(serve, arch, cfg, server,
                         governors["joint (paper)"].lut, x, base_ms, card,
                         os.path.join(os.path.dirname(os.path.abspath(
                             __file__)), "build", "cluster"))
-    lc = lm_configs_phases(dev, card)
+    lc = lm_configs_phases(dev, card, parent)
+    wg = wgmma_phases(dev, card)
     lc_cfg = lc["configs"]
 
     def lc_rows(k: str) -> dict:
@@ -6125,6 +6410,7 @@ def main() -> int:
              conv_recorded=conv_recorded("elastic_matmul"),
              dit_step=df["rows"]["dit"]["fwd"],
              unet_step=df["rows"]["unet"]["fwd"],
+             lm_step=lt["rows"]["k1_fwd"],
              lm_configs=lc_rows("k1")),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -6163,8 +6449,10 @@ def main() -> int:
                   "vit_cluster": cl["variants"]["flash_attention"],
                   "lm_configs": {c: r["variants"]["flash_attention"]
                                  for c, r in lc_cfg.items()}},
+              "variants": list(fa.VARIANTS),
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
                                  lc["k2"]["max_abs_err"],
+                                 wg["cases"]["max_abs_err"],
                                  *(df["recorded"][n]["k2"][k]["err"]
                                    for n in ("dit", "unet")
                                    for k in ("k2", "k2x")
@@ -6177,7 +6465,8 @@ def main() -> int:
              unet_step=df["rows"]["unet"]["k2"],
              unet_cross=df["rows"]["unet"]["k2x"],
              gen=df["sample"], lm_step=lt["rows"]["k2_fwd"],
-             lm_configs=lc_rows("k2")),
+             lm_configs=lc_rows("k2"), wgmma_cases=wg["cases"]["errs"],
+             route=wg["route"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
@@ -6243,6 +6532,7 @@ def main() -> int:
             entry["conv_recorded"] = rerr
             entry["resnet_step"] = cv["rows"][f"resnet_{conv}"]
             entry["effnet_se"] = cv["rows"][f"effnet_se_{conv}"]
+            entry["lm_step"] = lt["rows"][f"k1_{conv}"]
         # phase 23: the diffusion steps' launches, errors and rows
         row = conv or "k2_bwd"
         for path, key in (("dit_train", "dit"), ("unet_train", "unet")):
@@ -6347,6 +6637,13 @@ def main() -> int:
                                  "graph_pool_gib", "logits", "seconds",
                                  "points")}
            for c, r in lc_cfg.items()}}))
+    log("wgmma: " + json.dumps({
+        "cases": wg["cases"], "seconds": wg["seconds"],
+        "route_min_s": fa.WGMMA_FWD_MIN_S,
+        "route": {k: {kk: r[kk] for kk in ("wgmma_ms", "mma_ms",
+                                            "library_ms", "bound_ms",
+                                            "route")}
+                  for k, r in wg["route"].items()}}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

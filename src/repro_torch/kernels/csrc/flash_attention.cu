@@ -18,29 +18,59 @@
 //    strides, so the (B, S, H*D) activations of the ViT go in and come out
 //    without a transpose.
 //
-// Three variants, chosen on the host by kernels/flash_attention.py:
-// choose_variant:
+// Four variants, chosen on the host by kernels/flash_attention.py:
+// choose_variant from the shapes alone:
 //
-// * mma (bf16, D = 64, 112 or 128, S > 1, 16-byte-aligned rows: the ViT
-//   at S = T = 197, D = 64 and the LMs' causal prefill at S = T = 512,
-//   D = 128, and kimi-k2's at D = 112, whose 7 k16 steps and 14 n8 blocks
-//   fit mma.sync's shapes and whose 240-byte padded rows keep ldmatrix
-//   free of bank conflicts).  Bound: operations (4*S*T*D a head, half
-//   that causal) on the tensor cores; the old FMA kernel ran QK^T and PV
-//   on fp32 FMAs from fp32 copies of K and V.  This is the FlashAttention-2 layout on
-//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate): 4 warps, each owning 16
-//   rows of a 64-row q tile; q fragments held in registers (ldmatrix); K
-//   and V tiles of 64 keys kept in bf16 shared memory (rows padded by 16
-//   bytes, so ldmatrix is free of bank conflicts), double-buffered with
-//   16-byte cp.async whose source size zero-fills keys past T; S = QK^T
-//   and the online softmax in fp32 registers; P rounded to bf16 in
-//   registers and used directly as the A operand of PV (ldmatrix.trans
-//   reads V as the B operand).  Causally dead KV tiles are skipped and the
-//   diagonal tile masked; the grid runs (batch*head) fastest and, when
-//   causal, the q tiles that see the most keys first, so the short tiles
-//   fill the tail.  D = 128 takes 87 KB of dynamic shared memory, D = 112
-//   77 KB (the attribute is set once).  FA3-style wgmma with a TMA producer
-//   warp and warp specialisation is later work.
+// * wgmma (bf16, D = 64, 112 or 128, S >= 65, T >= 1, rows TMA can read:
+//   every prefill, training and serving call of the port -- the ViT at
+//   S = T = 197, the LMs' causal prefill at 512, train_4k's at 4096,
+//   DiT-L/2 at 256, the UNet's 16 x 16 latent and its cross-attention over
+//   77 keys -- but the UNet's 8 x 8 latent).  Bound: operations (4 S T D a
+//   head, half that causal) at the long rows (train_4k: 2.2 ms of bf16
+//   tensor work a microbatch), bytes at DiT-L/2's.  What the mma.sync
+//   kernel below cost there (3.1x SDPA at train_4k, 19% of its bound):
+//   mma.sync at a fraction of the tensor cores' wgmma rate; four warps
+//   that both loaded and computed, so a load waited on the math and the
+//   math on a load; K and V staged from L2 once for every 64 queries; the
+//   softmax alone between the two products.  This is FlashAttention-3's
+//   forward.  A persistent block an SM walks the 128-row query tiles
+//   (causal: the longest first; at train_4k in groups of heads whose K
+//   and V fit in L2 together, which cut the K/V re-reads from device
+//   memory, taken from a counter so the blocks that finish first take
+//   more; where all of K and V fit, dealt in rounds that alternate
+//   direction, so the blocks' work comes out even).  A producer thread (its
+//   warpgroup gives the consumers its registers by setmaxnreg: 232 / 40)
+//   loads each tile's Q once and streams 128-key K and V tiles by TMA (4-D
+//   maps over the (batch, seq, head) strides, 128-byte swizzle, rows past
+//   T zero-filled and masked) into rings behind mbarriers, running ahead
+//   across tiles; no consumer thread issues a copy.  Two consumer
+//   warpgroups own 64 query rows each, so a K/V tile serves 128 queries:
+//   S = Q K^T on wgmma from shared memory (m64n128k16), the online softmax
+//   in fp32 registers (exp2 with the scale folded in, masks as selects on
+//   the edge tiles only), P rounded to bf16 in registers as the A operand
+//   of O += P V (m64nDk16, V MN-major; N = 112 at kimi-k2's D, whose
+//   second box holds 48 columns).  Tile j + 1's S product is issued before
+//   tile j's softmax, then tile j's PV, so the softmax runs under both;
+//   at D > 64 the two warpgroups also take turns issuing (named barriers),
+//   one's softmax under the other's products.  O is scaled by 1 / l and
+//   stored through o's strides, the logsumexp beside it.  D = 128 and 112
+//   take 193 KB of shared memory (two Q slots, two K and two V stages), D
+//   = 64 161 KB (four stages).
+// * mma (bf16, D = 64, 112 or 128, S <= 64 or T = 0, 16-byte-aligned
+//   rows: the UNet's 8 x 8 latent, S = 64, where half or more of wgmma's
+//   128-row tile would be padding and mma measured faster).  This is the
+//   FlashAttention-2 layout on mma.sync.m16n8k16 (bf16 in, fp32
+//   accumulate): 4 warps, each owning 16 rows of a 64-row q tile; q
+//   fragments held in registers (ldmatrix); K and V tiles of 64 keys kept
+//   in bf16 shared memory (rows padded by 16 bytes, so ldmatrix is free of
+//   bank conflicts), double-buffered with 16-byte cp.async whose source
+//   size zero-fills keys past T; S = QK^T and the online softmax in fp32
+//   registers; P rounded to bf16 in registers and used directly as the A
+//   operand of PV (ldmatrix.trans reads V as the B operand).  Causally
+//   dead KV tiles are skipped and the diagonal tile masked; the grid runs
+//   (batch*head) fastest and, when causal, the q tiles that see the most
+//   keys first.  D = 128 takes 87 KB of dynamic shared memory, D = 112 77
+//   KB (the attribute is set once).
 // * decode (bf16, D = 64, 112 or 128, S = 1, any H / KH: every LM decode
 //   step).  Bound: the bytes of the K/V cache (4*T*D bytes a kv head
 //   against 4*T*D*R operations).  The old kernel gave each (batch, head)
@@ -63,8 +93,8 @@
 //   writes an empty partial (max -inf, denominator 0) and exits, so the
 //   device time follows the fill.  The merge skips empty partials.
 // Backward (training; the TPU kernel has none): see "backward" below.
-// The mma and fma variants write each row's fp32 logsumexp when asked,
-// which is all the backward keeps of the forward's softmax.
+// The wgmma, mma and fma variants write each row's fp32 logsumexp when
+// asked, which is all the backward keeps of the forward's softmax.
 //
 // * fma (fp32 inputs, the smoke configs' head dims 8 and 16, and rows
 //   that are not 16-byte aligned; not at D = 112, where the wrapper
@@ -1988,6 +2018,534 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------------- forward: wgmma ----
+
+constexpr int F_BQ = 128;         // query rows a tile: 64 a consumer warpgroup
+constexpr int F_BKV = 128;        // keys a K or V tile
+constexpr int F_THREADS = 3 * 128;   // 2 consumer warpgroups, a producer's
+
+// Shared memory of the wgmma forward at head dim D (bf16 tiles swizzled,
+// 128-byte rows, 1024-byte aligned; a row of D > 64 is two 64-column
+// boxes, each box its own run of rows, the second of D = 112 48 columns
+// wide and zero-filled past them): two slots of a 128-row Q tile, STAGES
+// K tiles and STAGES V tiles of 128 keys, the mbarriers, and what the
+// producer tells the consumers of the tile in each Q slot.
+template <int D>
+struct FwdSmem {
+  static constexpr int NB = (D + 63) / 64;           // 64-column boxes
+  static constexpr int STAGES = D == 64 ? 4 : 2;     // K (and V) tiles
+  static constexpr int BOX_Q = F_BQ * 128, BOX_KV = F_BKV * 128;
+  static constexpr int Q_TILE = NB * BOX_Q, KV_TILE = NB * BOX_KV;
+  static constexpr int Q_OFF = 0, K_OFF = 2 * Q_TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr int BARS = 4 + 4 * STAGES;
+  static constexpr int TILE_OFF = BAR_OFF + 8 * BARS;  // 2 x {bh, qt, n_kv}
+  static constexpr int BYTES = TILE_OFF + 32 + 1024;   // + alignment
+};
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// mbar_wait on a barrier's shared address, but a wait past ~4 s is a
+// fault: the launch fails (trap) rather than hangs
+__device__ __forceinline__ void fwd_wait(uint32_t bar, int parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 1;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 1023) == 0) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      if (t0 == 0) t0 = t;
+      else if (t - t0 > 4000000000ull) __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void fwd_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// named barriers of the two consumer warpgroups (bar 0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (64 x 128, fp32) = (acc ? d : 0) + A (64 x 16, shared, K-major) * B
+// (16 x 128, shared, K-major); descriptors as repro_hopper::gmma_desc
+// builds them
+__device__ __forceinline__ void wgmma_ss128_kk(float (&d)[64], uint64_t da,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 112, fp32) += A (64 x 16, bf16 in registers, as wgmma_rs64_mn)
+// * B (16 x 112, shared, MN-major: a 64-column box and a 48-column share
+// of the next, LBO bytes apart)
+__device__ __forceinline__ void wgmma_rs112_mn(float (&d)[56],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %61, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = Q K^T of one K tile: the warpgroup's 64 query rows (qa) against the
+// tile's 128 keys (ka), D / 16 steps (a box every 4), issued and committed
+template <int D>
+__device__ __forceinline__ void fwd_qk(float (&s)[64], uint32_t qa,
+                                       uint32_t ka) {
+  using repro_hopper::gmma_desc;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss128_kk(
+        s, gmma_desc(qa + (ks / 4) * (F_BQ * 128) + (ks % 4) * 32, 16, 1024),
+        gmma_desc(ka + (ks / 4) * (F_BKV * 128) + (ks % 4) * 32, 16, 1024),
+        ks);
+  wgmma_commit();
+}
+
+// O += P V of one V tile (va): P (bf16) from registers, 16 keys a step
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&o)[D / 2],
+                                       uint32_t (&pa)[F_BKV / 16][4],
+                                       uint32_t va) {
+  using repro_hopper::gmma_desc;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < F_BKV / 16; ++kk) {
+    const uint64_t db = gmma_desc(va + kk * 16 * 128, F_BKV * 128, 1024);
+    if constexpr (D == 64) wgmma_rs64_mn(o, pa[kk], db);
+    else if constexpr (D == 112) wgmma_rs112_mn(o, pa[kk], db);
+    else wgmma_rs128_mn(o, pa[kk], db);
+  }
+  wgmma_commit();
+}
+
+// The online softmax over one tile's scores (register 4j + 2i + e: row
+// r_lo + 8i, key k0 + 8j + 2 (lane % 4) + e), masked first (keys >= T,
+// causal keys past the row: -inf, selects only) when the tile reaches
+// either edge.  m: each row's running max of the raw scores; l: this
+// thread's share of each row's denominator (summed from the fp32 p); corr:
+// the factor that brings o to the new max.  p = 2^(s scale log2e - m scale
+// log2e) stays in s.
+__device__ __forceinline__ void fwd_softmax(float (&s)[64], float (&m)[2],
+                                            float (&l)[2], float (&corr)[2],
+                                            bool mask, int k0, int r_lo,
+                                            int T_len, int causal,
+                                            float sl2) {
+  const float NEG_INF = -__int_as_float(0x7f800000);
+  if (mask) {
+    const int kb = k0 + 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kb + 8 * j + e;
+          const bool ok = key < T_len && (!causal || key <= r_lo + 8 * i);
+          s[4 * j + 2 * i + e] = ok ? s[4 * j + 2 * i + e] : NEG_INF;
+        }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // a row that has seen no key keeps zeros (m = -inf: corr = 0, p = 0)
+    const float ms = mx == NEG_INF ? 0.f : mx * sl2;
+    corr[i] = ex2_ftz(m[i] * sl2 - ms);
+    m[i] = mx;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2_ftz(fmaf(s[4 * j + 2 * i + e], sl2, -ms));
+        s[4 * j + 2 * i + e] = p;
+        rs += p;
+      }
+    l[i] = l[i] * corr[i] + rs;
+  }
+}
+
+// P rounded to bf16 as the A fragments of PV, 16 keys each
+__device__ __forceinline__ void fwd_pack(const float (&s)[64],
+                                         uint32_t (&pa)[F_BKV / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < F_BKV / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fwd_rescale(float (&o)[N],
+                                            const float (&corr)[2]) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) o[x] *= corr[(x / 2) % 2];
+}
+
+// Tile t of the schedule, as kernels/flash_attention.py:wgmma_fwd_tile:
+// causal, the (batch, head) pairs in groups of `group` whose K and V fit
+// in L2 together, and within a group the query tiles that see the most
+// keys first, its heads fastest; otherwise a head's query tiles one after
+// another (they share its K and V in L2).
+__device__ __forceinline__ void fwd_tile(int t, int BH, int nq, int causal,
+                                         int group, int& bh, int& qt) {
+  if (causal) {
+    const int g = t / (group * nq), i = t % (group * nq);
+    const int gh = min(group, BH - g * group);   // the last group's heads
+    bh = g * group + i % gh;
+    qt = nq - 1 - i / gh;
+  } else {
+    bh = t / nq;
+    qt = t % nq;
+  }
+}
+
+// K tiles a query tile reads: every tile of T, or causally up to the one
+// holding its last row's diagonal key
+__device__ __forceinline__ int fwd_n_kv(int qt, int nt, int causal) {
+  return causal ? min(nt, (qt * F_BQ + F_BQ + F_BKV - 1) / F_BKV) : nt;
+}
+
+// Persistent: the B * H * ceil(S / 128) query tiles in fwd_tile's order,
+// block x first tile x, then (`dynamic`) each the next tile not yet taken
+// from an int32 counter, zero at launch, so the blocks that finish first
+// take more; or (causal calls whose K and V fit in L2 at once) rounds of
+// gridDim.x tiles taken left to right and right to left in turn, which
+// evens the blocks' causal work without the counter's latency.  The
+// producer (one thread
+// of the third warpgroup, which setmaxnreg leaves 40 registers) loads each
+// tile's Q by TMA into one of two slots, then its K and V tiles into rings
+// of STAGES slots (K_0, then K_j+1 before V_j), each behind a full and an
+// empty mbarrier; it runs ahead across tiles.  Consumer warpgroup wg owns
+// the tile's rows 64 wg .. + 63: S = Q K^T on wgmma from shared memory
+// (m64n128k16, both K-major), the online softmax in fp32 registers, P in
+// bf16 registers as the A operand of O += P V (m64nDk16, V MN-major).
+// Tile j + 1's S product is issued before tile j's softmax runs, then
+// tile j's PV (intra-warpgroup overlap); and at D > 64 the two warpgroups
+// take turns issuing (named barriers 1 and 2), so that one's softmax runs
+// under the other's products; at D = 64 the second warpgroup starts one
+// softmax behind the first.  No branch divides a warpgroup around a wgmma.
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse,
+                          int* __restrict__ next_tile, int B, int H, int KH,
+                          int S, int T_len, long long o_sb, long long o_ss,
+                          long long o_sh, float scale, int causal,
+                          int group, int dynamic) {
+  using L = FwdSmem<D>;
+  constexpr int ST = L::STAGES;
+  extern __shared__ unsigned char fw_raw[];
+  unsigned char* sm = fw_raw + ((1024 - (smem_u32(fw_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(sm);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+  volatile int* tile_info = reinterpret_cast<int*>(sm + L::TILE_OFF);
+  // the consumers' barrier addresses (32-bit shared: fewer registers)
+  const uint32_t bq_full = smem_u32(q_full), bq_empty = smem_u32(q_empty);
+  const uint32_t bk_full = smem_u32(k_full), bk_empty = smem_u32(k_empty);
+  const uint32_t bv_full = smem_u32(v_full), bv_empty = smem_u32(v_empty);
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int BH = B * H, R = H / KH;
+  const int nq = (S + F_BQ - 1) / F_BQ, nt = (T_len + F_BKV - 1) / F_BKV;
+  const int n_tiles = BH * nq;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      repro_hopper::mbar_init(&q_full[i], 1);    // the producer's arrival
+      repro_hopper::mbar_init(&q_empty[i], 8);   // one per consumer warp
+    }
+    for (int s = 0; s < ST; ++s) {
+      repro_hopper::mbar_init(&k_full[s], 1);
+      repro_hopper::mbar_init(&k_empty[s], 8);
+      repro_hopper::mbar_init(&v_full[s], 1);
+      repro_hopper::mbar_init(&v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    repro_hopper::fence_async_smem();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // give the consumers the registers: 2 x 128 x 232 + 128 x 40 <= 64 K
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 256) {                  // the producer
+      int qc = 0, kc = 0, vc = 0;
+      // the next K or V tile j of (kv head kvh, batch b) into its ring
+      auto load = [&](const CUtensorMap* map, int off, uint64_t* full,
+                      uint64_t* empty, int& c, int j, int kvh, int b) {
+        const int s = c % ST;
+        fwd_wait(smem_u32(&empty[s]), ((c / ST) & 1) ^ 1);
+        repro_hopper::mbar_expect_tx(&full[s], L::KV_TILE);
+#pragma unroll
+        for (int x = 0; x < L::NB; ++x)
+          repro_hopper::tma_load_4d(sm + off + s * L::KV_TILE + x * L::BOX_KV,
+                                    map, &full[s], 64 * x, j * F_BKV, kvh, b);
+        ++c;
+      };
+      for (int t = blockIdx.x, r = 1;; ++r) {
+        const int qs = qc & 1;
+        fwd_wait(bq_empty + 8 * qs, ((qc >> 1) & 1) ^ 1);
+        volatile int* info = tile_info + 4 * qs;   // published by the arrival
+        if (t >= n_tiles) {              // the end: the consumers stop
+          info[1] = -1;
+          repro_hopper::mbar_arrive(&q_full[qs]);
+          break;
+        }
+        int bh, qt;
+        fwd_tile(t, BH, nq, causal, group, bh, qt);
+        const int b = bh / H, h = bh % H, kvh = h / R;
+        const int n_kv = fwd_n_kv(qt, nt, causal);
+        info[0] = bh;
+        info[1] = qt;
+        info[2] = n_kv;
+        repro_hopper::mbar_expect_tx(&q_full[qs], L::Q_TILE);
+#pragma unroll
+        for (int x = 0; x < L::NB; ++x)
+          repro_hopper::tma_load_4d(sm + L::Q_OFF + qs * L::Q_TILE +
+                                        x * L::BOX_Q,
+                                    &map_q, &q_full[qs], 64 * x, qt * F_BQ, h,
+                                    b);
+        ++qc;
+        if (n_kv > 0) load(&map_k, L::K_OFF, k_full, k_empty, kc, 0, kvh, b);
+        for (int j = 0; j < n_kv; ++j) {
+          if (j + 1 < n_kv)
+            load(&map_k, L::K_OFF, k_full, k_empty, kc, j + 1, kvh, b);
+          load(&map_v, L::V_OFF, v_full, v_empty, vc, j, kvh, b);
+        }
+        t = dynamic ? atomicAdd(next_tile, 1) + (int)gridDim.x
+                    : r * gridDim.x + (r % 2 == 0 ? blockIdx.x
+                                                  : gridDim.x - 1 - blockIdx.x);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int warp = (tid % 128) / 32;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
+  const float NEG_INF = -__int_as_float(0x7f800000);
+  // turns (D > 64): warpgroup wg issues its products after bar.sync 1 + wg
+  // and then lets the other go; the second warpgroup lets the first start.
+  // At D = 64 the turns cost more than they hid (DiT-L/2's and the
+  // sandwich step's short rows, PERF.md): the second warpgroup starts once
+  // the first has run its first softmax (bar 3), and then runs free.
+  constexpr bool TURNS = D > 64;
+  if (TURNS && wg == 1) bar_arrive(1, 256);
+  if (!TURNS && wg == 1) bar_sync(3, 256);
+  float s[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  uint32_t pa[F_BKV / 16][4];
+  int qc = 0, kc = 0, vc = 0;
+  // the producer's word on the tile in Q slot qc % 2 (no index math here):
+  // its query tile, or -1 at the end.  The loop tests it at the top: with
+  // the wait and a `break` opening the body instead, ptxas kept these
+  // warpgroups to the launch's 168 registers and spilled (PERF.md)
+  auto next = [&]() {
+    fwd_wait(bq_full + 8 * (qc & 1), (qc >> 1) & 1);
+    return tile_info[4 * (qc & 1) + 1];
+  };
+  bool first = true;
+  for (int qt = next(); qt >= 0; qt = next(), first = false) {
+    const int qs = qc & 1;
+    ++qc;
+    const int bh = tile_info[4 * qs], n_kv = tile_info[4 * qs + 2];
+    const int q0 = qt * F_BQ;
+    const int r_lo = q0 + 64 * wg + 16 * warp + lane / 4;   // and r_lo + 8
+    const uint32_t qa = sb + L::Q_OFF + qs * L::Q_TILE + wg * 64 * 128;
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2] = {1.f, 1.f};
+    // the tile reaches past T, or causally past the q tile's first row
+    auto edge = [&](int j) {
+      return (j + 1) * F_BKV > T_len || (causal && (j + 1) * F_BKV - 1 > q0);
+    };
+    if (n_kv > 0) {                    // uniform over the block
+      int st = kc % ST;
+      fwd_wait(bk_full + 8 * st, (kc / ST) & 1);
+      if (TURNS) bar_sync(1 + wg, 256);
+      fwd_qk<D>(s, qa, sb + L::K_OFF + st * L::KV_TILE);
+      if (TURNS) bar_arrive(2 - wg, 256);
+      wgmma_wait0();
+      repro_hopper::fence_acc(s);
+      if (lane == 0) fwd_arrive(bk_empty + 8 * st);
+      ++kc;
+      fwd_softmax(s, m, l, corr, edge(0), 0, r_lo, T_len, causal, sl2);
+      fwd_pack(s, pa);
+      if (!TURNS && first && wg == 0) bar_arrive(3, 256);
+#pragma unroll 1
+      for (int j = 1; j < n_kv; ++j) {
+        st = kc % ST;
+        const int vs = vc % ST;
+        fwd_wait(bk_full + 8 * st, (kc / ST) & 1);
+        if (TURNS) bar_sync(1 + wg, 256);
+        fwd_qk<D>(s, qa, sb + L::K_OFF + st * L::KV_TILE);
+        fwd_rescale(oacc, corr);
+        fwd_wait(bv_full + 8 * vs, (vc / ST) & 1);
+        fwd_pv<D>(oacc, pa, sb + L::V_OFF + vs * L::KV_TILE);
+        if (TURNS) bar_arrive(2 - wg, 256);
+        wgmma_wait1();                 // S of tile j (PV of j - 1 runs on)
+        repro_hopper::fence_acc(s);
+        if (lane == 0) fwd_arrive(bk_empty + 8 * st);
+        ++kc;
+        fwd_softmax(s, m, l, corr, edge(j), j * F_BKV, r_lo, T_len, causal,
+                    sl2);
+        wgmma_wait0();
+        repro_hopper::fence_acc(oacc);
+        fence_frag(pa);
+        repro_hopper::fence_acc(s);
+        if (lane == 0) fwd_arrive(bv_empty + 8 * vs);
+        ++vc;
+        fwd_pack(s, pa);
+      }
+      fwd_rescale(oacc, corr);
+      const int vs = vc % ST;
+      fwd_wait(bv_full + 8 * vs, (vc / ST) & 1);
+      fwd_pv<D>(oacc, pa, sb + L::V_OFF + vs * L::KV_TILE);
+      wgmma_wait0();
+      repro_hopper::fence_acc(oacc);
+      fence_frag(pa);
+      if (lane == 0) fwd_arrive(bv_empty + 8 * vs);
+      ++vc;
+    }
+    if (lane == 0) fwd_arrive(bq_empty + 8 * qs);
+    const int b = bh / H, h = bh % H;
+
+    // o = acc / l in bf16 through o's strides, and the logsumexp
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r_lo + 8 * i;
+      if (row >= S) continue;
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(long long)bh * S + row] =
+            l[i] > 0.f ? m[i] * scale + logf(l[i]) : NEG_INF;
+      __nv_bfloat16* op = o + b * o_sb + (long long)row * o_ss + h * o_sh +
+                          2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * i] * inv,
+                                  oacc[4 * j + 2 * i + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
+                     int B, int H, int KH, int S, int T_len,
+                     const long long* st, float scale, int causal,
+                     float* lse, int blocks, int group, int dynamic,
+                     int* next_tile, cudaStream_t s) {
+  CUtensorMap mq, mk, mv;
+  const long long sq[3] = {st[0], st[1], st[2]};
+  const long long sk[3] = {st[3], st[4], st[5]};
+  const long long sv[3] = {st[6], st[7], st[8]};
+  if (!encode_bshd(&mq, q, D, S, H, B, sq, F_BQ) ||
+      !encode_bshd(&mk, k, D, T_len, KH, B, sk, F_BKV) ||
+      !encode_bshd(&mv, v, D, T_len, KH, B, sv, F_BKV))
+    return -2;
+  constexpr int bytes = FwdSmem<D>::BYTES;
+  // once per instantiation and process (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_fwd_wgmma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  flash_attention_fwd_wgmma<D><<<blocks, F_THREADS, bytes, s>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, next_tile, B, H, KH,
+      S, T_len, st[9], st[10], st[11], scale, causal, group, dynamic);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
@@ -2032,6 +2590,44 @@ extern "C" int repro_flash_attention_mma(const void* q, const void* k,
   if (D == 128)
     return launch_mma<128>(q, k, v, o, B, H, KH, S, T_len, strides, scale,
                            causal, l, s);
+  return -1;
+}
+
+// The wgmma forward (bf16, D = 64, 112 or 128, S, T_len >= 1; strides and
+// lse as repro_flash_attention's): q, k and v read by TMA (bases 16-byte
+// aligned, strides of the dims of extent > 1 multiples of 8 elements),
+// `blocks` persistent blocks over the B * H * ceil(S / 128) query tiles
+// (at most that many), causal tiles in groups of `group` (batch, head)
+// pairs, taken from the counter next_tile (one int32 zero) when `dynamic`,
+// else dealt in alternating rounds.  Returns
+// cudaGetLastError() after the launch; -1 for an unsupported D or shape,
+// -2 when the tensor maps cannot be encoded.
+extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int H, int KH, int S, int T_len,
+                                           int D, const long long* strides,
+                                           float scale, int causal,
+                                           void* lse, int blocks, int group,
+                                           int dynamic, void* next_tile,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  int* n = static_cast<int*>(next_tile);
+  if (S < 1 || T_len < 1 || B < 1 || KH < 1 || H % KH || blocks < 1 ||
+      group < 1)
+    return -1;
+  if (D == 64)
+    return launch_fwd_wgmma<64>(q, k, v, o, B, H, KH, S, T_len, strides,
+                                scale, causal, l, blocks, group, dynamic, n,
+                                s);
+  if (D == 112)
+    return launch_fwd_wgmma<112>(q, k, v, o, B, H, KH, S, T_len, strides,
+                                 scale, causal, l, blocks, group, dynamic, n,
+                                 s);
+  if (D == 128)
+    return launch_fwd_wgmma<128>(q, k, v, o, B, H, KH, S, T_len, strides,
+                                 scale, causal, l, blocks, group, dynamic, n,
+                                 s);
   return -1;
 }
 

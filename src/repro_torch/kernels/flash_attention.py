@@ -8,8 +8,13 @@ wrapper's zero-padded keys enter the softmax: fault F1 in ROADMAP.md),
 picks the kv head as ``h // (H // KH)`` (no repeated k/v copy) and reads
 and writes through (batch, seq, head) strides.
 
-Three variants, chosen by :func:`choose_variant`: ``mma`` (bf16 at head
-dims 64, 112 and 128: a tensor-core flash kernel on mma.sync), ``decode``
+Four variants, chosen by :func:`choose_variant` from the shapes alone:
+``wgmma`` (bf16 at head dims 64, 112 and 128, S >= ``WGMMA_FWD_MIN_S``:
+FlashAttention-3's forward, a persistent block an SM planned by
+:func:`wgmma_fwd_plan`, a producer thread streaming K and V by TMA, two
+consumer warpgroups of 64 query rows on wgmma; every prefill, training
+and serving call of the port but the UNet's 8 x 8 latent), ``mma`` (the
+same dims on mma.sync, at S <= 64, where it measured faster), ``decode``
 (the same at S = 1, any number of query heads a kv head, in groups of up
 to 8 a block: split over T, partials merged by a second kernel, the
 split planned by :func:`decode_plan` from the cache's capacity, the count
@@ -74,7 +79,7 @@ _self = sys.modules[__name__]     # whose counters counting.count adds to
 # one per launch, a graph replay the launches it captured: counting.py),
 # in all and by variant
 launches = 0
-VARIANTS = ("mma", "decode", "fma_bf16", "fma_f32")
+VARIANTS = ("wgmma", "mma", "decode", "fma_bf16", "fma_f32")
 variant_launches = dict.fromkeys(VARIANTS, 0)
 # backward launches (one a call, whatever kernels the variant runs)
 bwd_launches = 0
@@ -89,7 +94,18 @@ WGMMA_CHUNK = 64        # queries a chunk (one dQ ticket each)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ViTs (64), their smoke configs, the LMs (128; kimi-k2's 112)
 HEAD_DIMS = (8, 16, 64, 112, 128)
-MMA_HEAD_DIMS = (64, 112, 128)
+MMA_HEAD_DIMS = (64, 112, 128)      # the wgmma forward's too
+WGMMA_FWD_ROWS = 128    # query rows a tile of the wgmma forward (2 x 64)
+WGMMA_FWD_KEYS = 128    # keys a K or V tile it streams
+# the fewest query rows a call takes the wgmma forward at: with fewer, half
+# or more of its 128-row tile is padding, and at the UNet's 8 x 8 latent
+# (S = 64, self- and cross-attention) mma measured faster; at every other
+# call class of the port (S = 197 to 4096) wgmma did (PERF.md, chip_smoke
+# phase 27 (b))
+WGMMA_FWD_MIN_S = 65
+# the K and V bytes of a group of (batch, head) pairs whose causal tiles the
+# wgmma forward takes together (of the H100's 50 MB of L2)
+WGMMA_FWD_L2_BYTES = 32 << 20
 FMA_HEAD_DIMS = (8, 16, 64, 128)
 SMS = 132                     # streaming multiprocessors of an H100 SXM
 DECODE_R_MAX = 8              # query heads a decode block takes (a group)
@@ -103,6 +119,9 @@ _ARGTYPES = {
                                                     _P, _P],
     "repro_flash_attention_mma": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I,
                                                         _P, _P],
+    "repro_flash_attention_wgmma": [_P] * 4 + [_I] * 6 + [_STRIDES, _F, _I,
+                                                          _P, _I, _I, _I,
+                                                          _P, _P],
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_STRIDES, _F, _I,
                                                          _I, _P],
     "repro_flash_attention_decode_len": [_P] * 6 + [_I] * 5 + [_STRIDES, _F,
@@ -137,7 +156,76 @@ def choose_variant(S: int, T: int, H: int, KH: int, D: int,
         return "fma_bf16"
     if S == 1 and T >= 1:
         return "decode"
+    if T >= 1 and S >= WGMMA_FWD_MIN_S:
+        return "wgmma"
     return "mma"
+
+
+def wgmma_fwd_plan(B: int, H: int, KH: int, S: int, T: int, D: int,
+                   causal: bool, sms: int = SMS) -> tuple:
+    """(blocks, query tiles, group, dynamic) of the wgmma forward: one
+    persistent block an SM, never more blocks than the B * H * ceil(S /
+    128) tiles.  Causal, ``group`` (batch, head) pairs whose K and V (4 T D
+    bytes a kv head, shared by H / KH query heads) fit in
+    ``WGMMA_FWD_L2_BYTES`` together are the schedule's unit (all B * H
+    otherwise).  ``dynamic``: the blocks take tiles from a counter, as
+    measured faster for non-causal calls and for causal ones whose K and
+    V outgrow that (train_4k); causal calls whose K and V fit at once
+    (the 512-token prefills) are dealt by :func:`wgmma_fwd_block_tiles`
+    instead (PERF.md)."""
+    tiles = B * H * _cdiv(S, WGMMA_FWD_ROWS)
+    group = B * H
+    if causal:
+        group = max(1, min(B * H, WGMMA_FWD_L2_BYTES * (H // KH)
+                           // max(4 * T * D, 1)))
+    return min(tiles, sms), tiles, group, not causal or group < B * H
+
+
+def wgmma_fwd_block_tiles(x: int, blocks: int, tiles: int) -> list:
+    """The tiles block ``x`` takes when the plan is not dynamic, as the
+    kernel's producer deals them: rounds of ``blocks`` tiles in schedule
+    order, taken left to right and right to left in turn (the longest
+    causal tiles first, and the block that took a round's shortest takes
+    the next round's longest, so the blocks' work comes out even)."""
+    out = []
+    for r in range(_cdiv(tiles, blocks)):
+        t = r * blocks + (x if r % 2 == 0 else blocks - 1 - x)
+        if t >= tiles:
+            break
+        out.append(t)
+    return out
+
+
+def wgmma_fwd_tile(t: int, B: int, H: int, S: int, causal: bool,
+                   group: int) -> tuple:
+    """(batch, head, query tile) of tile ``t`` of the wgmma forward's
+    schedule, as the kernel's ``fwd_tile`` computes it (the blocks take
+    its tiles from a counter, or as :func:`wgmma_fwd_block_tiles` deals
+    them: see :func:`wgmma_fwd_plan`).  Causal: the (batch, head)
+    pairs in groups of ``group``, and within a group the query tiles that
+    see the most keys first, its heads fastest (the group's K and V stay
+    in L2 while its tiles run); otherwise a head's query tiles one after
+    another, so that they share its K and V in L2."""
+    BH, nq = B * H, _cdiv(S, WGMMA_FWD_ROWS)
+    if causal:
+        g, i = divmod(t, group * nq)
+        gh = min(group, BH - g * group)
+        bh, qt = g * group + i % gh, nq - 1 - i // gh
+    else:
+        bh, qt = t // nq, t % nq
+    return bh // H, bh % H, qt
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (cached per device)."""
+    n = _sm_counts.get(device)
+    if n is None:
+        n = _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def decode_groups(H: int, KH: int) -> int:
@@ -277,6 +365,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = _launcher("repro_flash_attention_decode_len")(
             *ptrs, ws.data_ptr(), n.data_ptr(), B, H, KH, T_seen, D,
             strides, scale, splits, chunk, stream)
+    elif variant == "wgmma":
+        blocks, _, group, dynamic = wgmma_fwd_plan(B, H, KH, S, T, D,
+                                                   causal, sm_count(dev))
+        # the tile counter (read only when dynamic), held until launched
+        counter = torch.zeros(1, dtype=torch.int32, device=dev) \
+            if dynamic else None
+        rc = _launcher("repro_flash_attention_wgmma")(
+            *ptrs, B, H, KH, S, T, D, strides, scale, int(causal), lse_ptr,
+            blocks, group, int(dynamic),
+            counter.data_ptr() if dynamic else None, stream)
     elif variant == "mma":
         rc = _launcher("repro_flash_attention_mma")(
             *ptrs, B, H, KH, S, T, D, strides, scale, int(causal), lse_ptr,

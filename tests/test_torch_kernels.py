@@ -445,10 +445,23 @@ def test_dgrad_persistent_plan(E, C, K, sms, want):
     (1, 528, 16, 16, 128, torch.bfloat16, True, "decode"),
     (1, 1, 16, 8, 64, torch.bfloat16, True, "decode"),
     (1, 0, 16, 16, 128, torch.bfloat16, True, "mma"),    # nothing to see
+    (512, 0, 16, 16, 128, torch.bfloat16, True, "mma"),
     # R = 16: two groups of 8 query heads a kv head (any R decodes)
     (1, 528, 32, 2, 128, torch.bfloat16, True, "decode"),
-    (512, 512, 16, 16, 128, torch.bfloat16, True, "mma"),
-    (197, 197, 6, 6, 64, torch.bfloat16, True, "mma"),
+    (512, 512, 16, 16, 128, torch.bfloat16, True, "wgmma"),  # LM prefill
+    (197, 197, 6, 6, 64, torch.bfloat16, True, "wgmma"),     # ViT, sandwich
+    (4096, 4096, 16, 16, 128, torch.bfloat16, True, "wgmma"),   # train_4k
+    (256, 256, 16, 16, 64, torch.bfloat16, True, "wgmma"),   # DiT-L/2
+    (512, 512, 64, 8, 128, torch.bfloat16, True, "wgmma"),   # qwen
+    (512, 512, 48, 1, 128, torch.bfloat16, True, "wgmma"),   # granite MQA
+    (512, 512, 64, 8, 112, torch.bfloat16, True, "wgmma"),   # kimi D 112
+    (256, 256, 10, 10, 64, torch.bfloat16, True, "wgmma"),   # UNet 16 x 16
+    (256, 77, 10, 10, 64, torch.bfloat16, True, "wgmma"),    # its cross
+    # the UNet's 8 x 8 latent: half a 128-row tile, mma measured faster
+    (64, 64, 20, 20, 64, torch.bfloat16, True, "mma"),
+    (64, 77, 20, 20, 64, torch.bfloat16, True, "mma"),
+    (65, 65, 4, 4, 64, torch.bfloat16, True, "wgmma"),
+    (2, 2, 4, 4, 128, torch.bfloat16, True, "mma"),
     (197, 197, 6, 6, 64, torch.bfloat16, False, "fma_bf16"),
     (17, 17, 4, 4, 16, torch.bfloat16, True, "fma_bf16"),
     (1, 528, 16, 16, 128, torch.float32, True, "fma_f32"),
@@ -846,7 +859,7 @@ def test_cuda_elastic_matmul_matches_plain(cuda, dtype, M):
                                       (18, 4, 4, 8)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, S, H, KH,
                                             D):
-    """fp32 on the fma variant; bf16 on mma at D = 64 (including the
+    """fp32 on the fma variant; bf16 on wgmma at D = 64 (including the
     ragged T = 577) and on fma at the smoke head dims."""
     g = torch.Generator().manual_seed(1)
     dt = getattr(torch, dtype)
@@ -1045,11 +1058,17 @@ LM_HEADS = [(16, 16, 128), (64, 8, 128), (48, 1, 128), (64, 8, 112),
 @pytest.mark.parametrize("T", [1, 264, 528])
 def test_decode_never_leaves_the_decode_kernel(H, KH, D, T):
     """A bf16 S = 1 call with 16-byte rows at any query heads a kv head
-    takes ``decode``, never ``mma`` (whose ``kv_len`` is read on the host:
-    no CUDA graph) nor ``fma_bf16``; prefill takes ``mma`` at D = 112."""
+    takes ``decode``, never ``wgmma`` or ``mma`` (whose ``kv_len`` is read
+    on the host: no CUDA graph) nor ``fma_bf16``; prefill takes ``wgmma``
+    at every head layout, D = 112 among them, and every prefill length of
+    the port (the ViT's 197, DiT's 256, the LMs' 512, train_4k's 4096),
+    ``mma`` at the UNet's S = 64."""
     assert fa.choose_variant(1, T, H, KH, D, torch.bfloat16, True) == \
         "decode"
-    assert fa.choose_variant(512, 512, H, KH, D, torch.bfloat16, True) == \
+    for S in (197, 256, 512, 4096):
+        assert fa.choose_variant(S, S, H, KH, D, torch.bfloat16, True) == \
+            "wgmma"
+    assert fa.choose_variant(64, 64, H, KH, D, torch.bfloat16, True) == \
         "mma"
     assert D in fa.MMA_HEAD_DIMS and D in fa.HEAD_DIMS
 
@@ -1091,11 +1110,79 @@ def test_head_dim_112_kernel_instances_in_the_source():
         fa.choose_bwd_variant(512, 512, 112, torch.bfloat16, True)
 
 
+
+@pytest.mark.parametrize("B,H,KH,S,T,D,causal,sms,dynamic", [
+    (4, 16, 16, 4096, 4096, 128, True, 132, True),   # train_4k: 4 groups
+    (256, 16, 16, 256, 256, 64, False, 132, True),   # DiT-L/2
+    (4, 64, 8, 512, 512, 128, True, 132, False),     # qwen1.5-110b prefill
+    (4, 48, 1, 512, 512, 128, True, 132, False),     # granite-20b's MQA
+    (4, 64, 8, 512, 512, 112, True, 132, False),     # kimi-k2's
+    (8, 6, 6, 197, 197, 64, False, 132, True),       # the ViT: ragged tiles
+    (3, 5, 5, 300, 300, 128, True, 114, False),      # another card's SMs
+    (1, 1, 1, 1, 1, 64, True, 132, False),           # one tile
+    (2, 3, 3, 129, 77, 64, False, 4, True),          # more tiles than blocks
+    (3, 7, 7, 4096, 65536, 128, True, 132, True),    # groups of 2, then 1
+])
+def test_wgmma_fwd_tiles_cover_each_query_tile_once(B, H, KH, S, T, D,
+                                                   causal, sms, dynamic):
+    """The wgmma forward's schedule, as flash_attention.cu's fwd_tile and
+    its producer walk it: every (batch, head, 128-row query tile) once,
+    dealt in alternating rounds (causal calls whose K and V fit in L2 at
+    once) or taken from a counter; causal, the (batch, head) pairs in
+    groups whose K and V fit the L2 budget, each group's tiles together,
+    the tiles that see the most keys first within a group, and the dealt
+    blocks' keys even; otherwise a head's tiles follow each other."""
+    nq = -(-S // fa.WGMMA_FWD_ROWS)
+    blocks, tiles, group, dyn = fa.wgmma_fwd_plan(B, H, KH, S, T, D, causal,
+                                                  sms)
+    assert tiles == B * H * nq and blocks == min(tiles, sms)
+    assert dyn == dynamic and 1 <= group <= B * H
+    assert group == B * H or group * 4 * T * D // (H // KH) <= \
+        fa.WGMMA_FWD_L2_BYTES
+    order = [fa.wgmma_fwd_tile(t, B, H, S, causal, group)
+             for t in range(tiles)]
+    assert sorted(order) == [(b, h, qt) for b in range(B) for h in range(H)
+                             for qt in range(nq)]
+    dealt = [fa.wgmma_fwd_block_tiles(x, blocks, tiles)
+             for x in range(blocks)]
+    assert sorted(t for ts in dealt for t in ts) == list(range(tiles))
+    if causal:
+        for g in range(0, tiles, group * nq):
+            part = order[g:g + group * nq]
+            heads = {b * H + h for b, h, _ in part}
+            assert len(heads) * nq == len(part) and max(heads) - \
+                min(heads) < group
+            qts = [qt for _, _, qt in part]
+            assert qts == sorted(qts, reverse=True) and qts[0] == nq - 1
+        if not dynamic:
+            keys = [sum(order[t][2] + 1 for t in ts) for ts in dealt]
+            assert max(keys) <= sum(keys) / blocks + nq
+    else:
+        assert order == sorted(order)
+
+
+def test_wgmma_forward_kernel_instances_in_the_source():
+    """K2's wgmma forward: its launcher instantiates every head dim the
+    wrapper routes to it, its tile sizes are the wrapper's, its C entry
+    point is the one the wrapper binds, and its schedule is
+    ``wgmma_fwd_tile``'s (no nvcc here: read as text)."""
+    k2 = (build.CSRC / "flash_attention.cu").read_text()
+    for D in fa.MMA_HEAD_DIMS:
+        assert f"launch_fwd_wgmma<{D}>(" in k2
+    assert f"F_BQ = {fa.WGMMA_FWD_ROWS};" in k2
+    assert f"F_BKV = {fa.WGMMA_FWD_KEYS};" in k2
+    assert 'extern "C" int repro_flash_attention_wgmma(' in k2
+    assert "repro_flash_attention_wgmma" in fa._ARGTYPES
+    assert "qt = nq - 1 - i / gh;" in k2 and "qt = t % nq;" in k2
+    assert "atomicAdd(next_tile, 1) + (int)gridDim.x" in k2
+    assert "(r % 2 == 0 ? blockIdx.x" in k2
+    assert "wgmma" in fa.VARIANTS
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_head_dim_112(cuda, causal):
     """kimi-k2's D = 112: the causal prefill (S = T = 512, H 64 on KH 8)
-    on mma and decode over slices of a 528-slot cache on decode, against
+    on wgmma and decode over slices of a 528-slot cache on decode, against
     the plain version on fp32 copies of the inputs (in bf16 it rounds the
     scores to bf16, an error of its own at this spread), q and k at 1.5 x
     randn (scores spread ~2, so wrong scores miss the tolerance); an fp32
@@ -1109,7 +1196,7 @@ def test_cuda_flash_attention_head_dim_112(cuda, causal):
         rnd(2, 512, 8, 112)
     ck, cv = rnd(2, 528, 8, 112, scale=1.5), rnd(2, 528, 8, 112)
     wide = rnd(2, 64, 64, 113)
-    cases = [(q, k, v, causal, "mma")]
+    cases = [(q, k, v, causal, "wgmma")]
     cases += [(q[:, :1], ck[:, :T], cv[:, :T], False, "decode")
               for T in (1, 65, 300, 528)]
     for qq, kk, vv, c, want in cases:
@@ -1129,6 +1216,51 @@ def test_cuda_flash_attention_head_dim_112(cuda, causal):
         ops.flash_attention_op(wide[..., :112], k[:, :64], v[:, :64],
                                causal=causal)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,T,H,KH,D,lse,fused", [
+    (1, 4096, 4096, 4, 4, 128, True, False),  # train_4k's length and width
+    (2, 256, 256, 16, 16, 64, True, False),   # DiT-L/2
+    (4, 197, 197, 6, 6, 64, True, True),      # the ViT's (B, S, 3 H D) rows
+    (2, 300, 300, 16, 8, 128, True, False),   # ragged S and T, R = 2
+    (2, 256, 77, 10, 10, 64, True, False),    # the UNet's cross-attention
+    (2, 512, 512, 64, 8, 128, False, False),  # qwen1.5-110b, R = 8
+    (2, 512, 512, 48, 1, 128, False, True),   # granite-20b's MQA
+    (2, 512, 512, 64, 8, 112, True, True),    # kimi-k2's D = 112
+])
+def test_cuda_flash_attention_forward_wgmma_matches_plain(
+        cuda, causal, B, S, T, H, KH, D, lse, fused):
+    """K2's wgmma forward at the port's call classes (causal or not, D 64,
+    112 and 128, T 77 to 4096, GQA and MQA, q k v as strided views of one
+    (B, S, (H + 2 KH) D) buffer, the logsumexp) against the plain version
+    on fp32 copies of the same bf16 inputs, q and k at 1.5 x randn (scores
+    spread ~2: wrong scores miss the tolerance); one wgmma launch a
+    call."""
+    g = torch.Generator().manual_seed(S + T + H + D)
+    bf = torch.bfloat16
+    if fused:
+        buf = torch.randn(B, S, H + 2 * KH, D, generator=g)
+        buf[:, :, :H + KH] *= 1.5
+        buf = buf.to(cuda, bf)
+        q, k, v = buf[:, :, :H], buf[:, :, H:H + KH], buf[:, :, H + KH:]
+    else:
+        q = (torch.randn(B, S, H, D, generator=g) * 1.5).to(cuda, bf)
+        k = (torch.randn(B, T, KH, D, generator=g) * 1.5).to(cuda, bf)
+        v = torch.randn(B, T, KH, D, generator=g).to(cuda, bf)
+    assert fa.choose_variant(S, T, H, KH, D, bf, fa._aligned(q, k, v)) == \
+        "wgmma"
+    before = dict(fa.variant_launches)
+    got = fa.flash_attention(q, k, v, causal=causal, return_lse=lse)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.variant_launches.items()
+            if c != before[n]} == {"wgmma": 1}
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, return_lse=lse)
+    for a, b in zip(got if lse else (got,), want if lse else (want,)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=3e-2,
+                                   atol=3e-2)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,KH,D", [(48, 1, 128), (64, 8, 112), (24, 2, 64)])
