@@ -391,6 +391,42 @@ K2's wgmma forward (FlashAttention-3's, on wgmma fed by TMA):
     it (``LATER_VARIANTS``).  Phase 24 (e) also times K1's forward, dgrad
     and wgrad over the train_4k microbatch, by call shape.
 
+the LM served across a device mesh (deepseek-moe-16b at full width and
+depth on a 1 x 2 mesh: two ranks sharing the one card over gloo, so its
+times are not a multi-card speed):
+
+28. the one-process route first, in this process (einsum dispatch,
+    unsharded decode, at a capacity factor where no slot drops: prefill
+    4 x 260 and 8 decode steps, its routing recorded; its weights freed),
+    then two ranks (``spawn``; each draws the weights leaf by leaf from the
+    seed and keeps its block: 32 of the 64 experts, the other leaves
+    whole): gloo's collectives probed on CUDA tensors, values checked;
+    the main path, ``elastic_moe.run`` under the mesh at every operating
+    point (prefill 4 x 512 on the a2a dispatch, 8 decode steps against
+    the cache sharded over the sequence, K2 ``decode`` with its
+    logsumexp), the launch counters reset before it and read after,
+    every kernel launched on each rank on the variants its shapes take,
+    the kept share of routed slots beside each time; (b) at the config's
+    capacity factor 1.25, each rank's kernel route against its plain
+    route on the plain route's routing (prefill and one decode step),
+    within the bf16 pinned tolerance; (a) the 2-rank prefill and 8 decode
+    steps, the one-process run's routing pinned, 100% kept, writing
+    slots 260 .. 267 across the shard boundary at 264, within the same
+    tolerance of the one-process route; beside it the routing the ranks
+    compute themselves, by stage: each prefill block routed again at the
+    one-process call's size must give the pinned routing bit for bit and
+    its probabilities stay within round-off of it, and the share of
+    token-layer routings sent elsewhere stays under a stated limit at
+    prefill and at decode; (c) K2 ``decode`` with the logsumexp against its
+    plain version on fp32 copies over each half of a 528-slot cache, one
+    half with no key (o 0, lse -inf, no NaN), the halves merged as the
+    sharded decode merges them against the whole attention, and a merge
+    without a half's partial and one with the halves swapped shown to
+    fail; a graph-replayed row over one rank's decode step beside SDPA
+    and the bound; (d) K3 at rank 0's recorded a2a prefill calls (32
+    local experts, 2 x 120 rows, the live counts of the exchange) against
+    its plain version, and their row beside ``torch.bmm`` and the bound.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -835,6 +871,10 @@ K1_BWD_TMA = ("repro_elastic_matmul_dgrad_tma",
 # K2's decode launcher since it reads the key count on the device; a
 # parent without it runs decode calls through its host-count entry point
 K2_DECODE_LEN = "repro_flash_attention_decode_len"
+# K2's decode launcher with the logsumexp (the sharded decode's, called
+# only with ``return_lse``: a parent without it runs every other decode
+# call through ``K2_DECODE_LEN``, and phase 28 runs on this tree's build)
+K2_DECODE_LSE = "repro_flash_attention_decode_lse"
 # the launchers of later variants: (source, launcher, module attribute of
 # the variant choice, the choice's ``kind`` it serves or None for every
 # call, {variant: the variant it took before}); a parent without one runs
@@ -962,7 +1002,8 @@ def parent_kernels(csrc: str) -> dict:
         return call
     for name, mod, skip in (("elastic_matmul", em, K1_BWD_TMA),
                             ("flash_attention", fa,
-                             (K2_DECODE_LEN, *K2_BWD_LATER.values()))):
+                             (K2_DECODE_LEN, K2_DECODE_LSE,
+                              *K2_BWD_LATER.values()))):
         skip = (*skip, *later_launchers(name))
         if not exports_all(name, mod, skip):
             raise RuntimeError(f"parent {name} lacks a launcher of "
@@ -5959,6 +6000,617 @@ def wgmma_phases(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 28
+# deepseek-moe-16b served across a (1, 2) mesh, both ranks on the one card
+# over gloo: the a2a expert dispatch (32 experts a rank) and the decode
+# cache sharded over the sequence (264 of 528 slots a rank).  (a) prefills
+# 260 tokens so that the 8 decode steps write slots 260 .. 267, across the
+# boundary at 264, at a capacity factor where no routed slot drops (64
+# experts / top-6: each expert's capacity is every token of the group)
+MESH = (1, 2)
+MESH_SEED = 28
+MESH_SLOTS = 528
+MESH_A_PREFILL, MESH_A_STEPS = 260, 8
+MESH_MAIN_STEPS = 8      # the launcher's decode steps after 512 tokens
+MESH_NO_DROP_CF = 64 / 6
+# K2 decode with the logsumexp, against the plain version on fp32 copies:
+# (global fill) cases of a 528-slot cache split in two; at 264, 200 and 1
+# the second shard holds no key (o 0, lse -inf), at 400 both shards carry
+# weight, so a merge without a shard's partial, or with the shards'
+# weights swapped, lands far from the whole attention
+MESH_K2_FILLS = (400, 300, 264, 200, 1)
+MESH_WRONG_FILL = 400
+# the lse of the kernel against the plain version's (fp32 scores of the
+# same bf16 inputs: round-off only)
+LSE_TOL = 1e-3
+# (a) the ranks' own routing against the one-process routing, by stage:
+# the share of token-layer routings a rank sends to another expert set.
+# Prefill: the router sees the same rows (520 a rank, 1040 in one
+# process), and the call's size only changes K1's f32_splitk split of K:
+# on the card its probabilities stayed within 3.6e-7 and no token moved,
+# so the limits are round-off's.  Decode: the sharded merge and the
+# partial combine round the hidden states otherwise; on the card 8.2% of
+# routings moved (7-11 a step, not growing), where bf16 rounding alone
+# (the kernel route against the plain route, (b)) moved 12.0% at decode
+# and 10.0-10.7% at prefill: the limit is that share (PERF.md §6)
+MESH_PREFILL_REROUTE_MAX = 1e-3
+MESH_DECODE_REROUTE_MAX = 0.12
+MESH_ROUTER_ROUNDOFF = 1e-6
+
+
+def mesh_probe(mesh, dev) -> dict:
+    """Each collective the mesh path uses, on CUDA tensors through gloo,
+    its values checked (raises on a wrong value; a collective gloo
+    refused would raise here first)."""
+    import torch
+
+    from repro_torch.distributed import ctx
+    group = ctx.axes_group(mesh, mesh.mesh_dim_names)
+    r, n = ctx.axes_index(mesh, mesh.mesh_dim_names), mesh.size()
+    got = {}
+    t = torch.full((4,), float(r + 1), device=dev)
+    got["all_reduce sum"] = float(ctx.all_reduce(t, "sum", group)[0]) \
+        == n * (n + 1) / 2
+    t = torch.full((4,), float(r + 1), device=dev, dtype=torch.bfloat16)
+    got["all_reduce max bf16"] = float(ctx.all_reduce(t, "max", group)[0]) \
+        == n
+    g = ctx.all_gather(torch.full((2, 3), float(r), device=dev), group)
+    got["all_gather_into_tensor"] = g[:, 0, 0].tolist() == list(range(n))
+    a = ctx.all_to_all(torch.arange(n, dtype=torch.int32, device=dev)
+                       + 10 * r, group)
+    got["all_to_all_single int32"] = a.tolist() == [10 * s + r
+                                                    for s in range(n)]
+    if not all(got.values()):
+        raise AssertionError(f"gloo collectives on CUDA tensors: {got}")
+    return got
+
+
+@contextlib.contextmanager
+def pinned_router(moe_mod, tape: list, mesh, B: int, S: int):
+    """Hand each MoE router call of a rank the one-process run's routing
+    from ``tape`` (its (probs, gates, experts) over all B x S tokens),
+    cut to the tokens the call routes: a prefill's a2a block (this rank's
+    rows and sequence slice) or every token (the decode's dispatch); a
+    tape of this rank's own calls is handed back as it is.  The rank's
+    own routing is computed too, and the yielded dict keeps, by stage
+    (prefill: a call of more than B rows), the tokens whose expert set
+    differs from the tape's (at decode also per call), the largest
+    |probability| difference, and the tape's largest margin between its
+    k-th and (k+1)-th expert at such a token.  A block cut from the tape
+    is also routed at the tape call's size (its rows repeated to the
+    tape's row count: rows are computed independently, the call's size
+    picks K1's split of K), which must give the tape's routing bit for
+    bit (``same_at_full_size``: None when no block was cut)."""
+    import torch
+
+    from repro_torch.distributed import ctx
+    orig, it = moe_mod._router, iter(list(tape))
+    seen = {st: {"rerouted": 0, "tokens": 0, "calls": 0, "prob_diff": 0.0,
+                 "margin": 0.0} for st in ("prefill", "decode")}
+    seen["prefill"]["same_at_full_size"] = None
+    seen["decode"]["per_call"] = []
+    b_axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    n_b, n_s = ctx.axes_size(mesh, b_axes), ctx.axes_size(mesh, ("model",))
+    bi, si = ctx.axes_index(mesh, b_axes), ctx.axes_index(mesh, ("model",))
+
+    def router(p, x, cfg, a_experts, top_k):
+        own = orig(p, x, cfg, a_experts, top_k)
+        lead = x.shape[:-1]
+        entry = next(it)
+        rows = entry[0][..., 0].numel()
+        block = lead.numel() != rows            # an a2a block of the tape
+        out = []
+        for t in entry:
+            t = t.to(x.device)
+            if block:
+                t = t.reshape(B, S, t.shape[-1])
+                t = t[bi * B // n_b:(bi + 1) * B // n_b,
+                      si * S // n_s:(si + 1) * S // n_s]
+            out.append(t.reshape(*lead, t.shape[-1]))
+        st = seen["prefill" if lead.numel() > B else "decode"]
+        a, b = own[2].sort(-1).values, out[2].sort(-1).values
+        moved = (a != b).any(-1)
+        st["rerouted"] += int(moved.sum())
+        if "per_call" in st:
+            st["per_call"].append(int(moved.sum()))
+        st["tokens"] += a[..., 0].numel()
+        st["calls"] += 1
+        st["prob_diff"] = max(st["prob_diff"],
+                              float((own[0] - out[0]).abs().max()))
+        if bool(moved.any()):
+            top = out[0].topk(top_k + 1, dim=-1).values
+            st["margin"] = max(st["margin"], float(
+                (top[..., top_k - 1] - top[..., top_k])[moved].max()))
+        if block:
+            xf = x.reshape(-1, x.shape[-1])
+            full = orig(p, xf.repeat(rows // xf.shape[0], 1), cfg,
+                        a_experts, top_k)
+            n = xf.shape[0]
+            st["same_at_full_size"] = st["same_at_full_size"] is not False \
+                and all(torch.equal(f[:n], o.reshape(n, -1))
+                        for f, o in zip(full, out))
+        return tuple(out)
+    moe_mod._router = router
+    try:
+        yield seen
+    finally:
+        moe_mod._router = orig
+    if next(it, None) is not None:
+        raise AssertionError("the pinned run routed fewer layers")
+
+
+def mesh_rank(rank: int, world: int, init_file: str, tape_file: str) -> dict:
+    """One rank of phase 28 (its own process, on cuda:0 beside the other
+    rank): the gloo probe, the launcher's serving run at every operating
+    point (the main path: launch counters reset before, read after), (b)
+    the kernel route against the plain route on one routing at the
+    config's capacity factor, and (a) the one-process run's routing pinned
+    at a capacity factor where nothing drops.  Returns plain values."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic_moe as lm_launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import lm_decode, lm_prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import lm_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = ctx.init_ranks(rank, world, init_file, "cuda")
+    mesh = make_mesh(MESH, ("data", "model"))
+    out = {"rank": rank, "probe": mesh_probe(mesh, dev)}
+    cfg = lm_launch.mesh_config(get_arch("deepseek-moe-16b").make_config())
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    params = lm_init(gen, cfg, device=dev, dtype=cfg.cdtype(),
+                     shard=lm_launch.rank_shard(mesh))
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (LM_BATCH, PREFILL_LEN + MESH_MAIN_STEPS),
+                           generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in _tensors(params))
+    out["param_gib"] = sum(t.numel() * t.element_size()
+                           for t in _tensors(params)) / 2 ** 30
+    # the main path: the launcher's run on this rank, counters from here
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    rows = lm_launch.run(params, cfg, tokens, PREFILL_LEN, iters=1,
+                         mesh=mesh)
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["variants"] = ops.variant_counts()
+    out["main_s"] = time.perf_counter() - t0
+    out["points"] = [dict({k: r.get(k) for k in (
+        "name", "prefill_ms", "prefill_event_ms", "decode_ms",
+        "decode_event_ms", "prefill_kept", "decode_kept")},
+        finite=bool(torch.isfinite(r["logits"]).all()) and bool(
+            torch.isfinite(r.get("decode_logits", r["logits"])).all()),
+        prefill_variants=r["prefill_variants"],
+        decode_variants=r.get("decode_variants")) for r in rows]
+    del rows
+    # (b) kernel route vs plain route on the plain route's routing, at
+    # the config's own capacity factor; K3's prefill calls recorded
+    prompt, nxt = tokens[:, :PREFILL_LEN], \
+        tokens[:, PREFILL_LEN:PREFILL_LEN + 1]
+    tape, k3 = [], []
+
+    def sink(key, args, kw):
+        x, w, c = args
+        if x.shape[1] > 16:                   # the prefill's slabs
+            k3.append((tuple(x.shape), tuple(w.shape), c.cpu().numpy()))
+    with torch.inference_mode():
+        with ops.plain_kernels(), router_tape(moe_mod, tape):
+            lp, cp = lm_prefill(params, prompt, cfg, max_len=MESH_SLOTS,
+                                mesh=mesh)
+            dp = lm_decode(params, cp, nxt, cfg, mesh=mesh)[0]
+        del cp
+        # the plain route's routing handed to the kernel route, whose own
+        # routing is counted: the reroutes of bf16 rounding alone
+        with pinned_router(moe_mod, tape, mesh, LM_BATCH, PREFILL_LEN) \
+                as seen_b, recording(
+                    [(moe_mod, "expert_matmul_op", "k3")], sink):
+            lk, ck = lm_prefill(params, prompt, cfg, max_len=MESH_SLOTS,
+                                mesh=mesh)
+            dk = lm_decode(params, ck, nxt, cfg, mesh=mesh)[0]
+        del ck
+        torch.cuda.synchronize()
+        out["b_err"] = {"prefill": close(lk, lp, LM_LOGITS_BF16_PINNED_TOL),
+                        "decode": close(dk, dp, LM_LOGITS_BF16_PINNED_TOL)}
+        out["b_rerouted"] = seen_b
+        out["k3_calls"] = k3
+        # (a) the one-process run's routing, nothing dropped
+        cfg_a = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MESH_NO_DROP_CF))
+        toks = torch.randint(0, cfg.vocab_size,
+                             (LM_BATCH, MESH_A_PREFILL + MESH_A_STEPS),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(MESH_SEED + 1), device=dev)
+        tape_a = torch.load(tape_file)
+        with pinned_router(moe_mod, tape_a, mesh, LM_BATCH,
+                           MESH_A_PREFILL) as seen, \
+                moe_mod.dispatch_tally() as tally:
+            la, ca = lm_prefill(params, toks[:, :MESH_A_PREFILL], cfg_a,
+                                max_len=MESH_SLOTS, mesh=mesh)
+            outs = [lm_decode(params, ca, toks[:, t:t + 1], cfg_a,
+                              mesh=mesh)[0]
+                    for t in range(MESH_A_PREFILL,
+                                   MESH_A_PREFILL + MESH_A_STEPS)]
+        out["a_kept"] = lm_launch.kept_share(tally, mesh)
+        out["a_rerouted"] = seen
+        c0 = ca["moe"][0]
+        out["a_cache"] = {"len": int(c0["len"]), "fill": c0["fill"],
+                          "block": tuple(c0["k"].shape),
+                          "written": int((c0["k"].abs().sum((0, 2, 3)) > 0)
+                                         .sum())}
+        out["a_prefill"] = la.float().cpu().numpy()
+        out["a_decode"] = torch.stack(outs).float().cpu().numpy()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def k2_dec_lse(q, k, v, causal=False, kv_len=None):
+    from repro_torch.kernels import ops
+    return ops.flash_attention_op(q, k, v, causal=causal, kv_len=kv_len,
+                                  return_lse=True)
+
+
+def k2_dec_lse_plain(q, k, v, causal=False, kv_len=None):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                    return_lse=True)
+
+
+def merge_shards(parts, weights_of=None):
+    """The sharded decode's merge of per-shard (o, lse): sum_r
+    exp(lse_r - M) o_r / sum_r exp(lse_r - M), in fp32.  ``weights_of``
+    reorders the weights (a wrong answer)."""
+    import torch
+    os_ = [o.float() for o, _ in parts]
+    ls = [lse[..., 0] for _, lse in parts]
+    m = torch.stack(ls).max(0).values
+    w = [torch.exp(lse - m) for lse in ls]
+    if weights_of is not None:
+        w = [w[i] for i in weights_of]
+    num = sum(wi[:, None, :, None] * o for wi, o in zip(w, os_))
+    return num / sum(w).clamp(min=1e-30)[:, None, :, None]
+
+
+def k2_decode_lse_checks(dev) -> dict:
+    """Phase 28 (c): K2 ``decode`` with its logsumexp against the plain
+    version on fp32 copies, over each half of a 528-slot cache at the
+    global fills of ``MESH_K2_FILLS`` (a half with no key among them),
+    the halves merged as the sharded decode merges them against the whole
+    attention; the merge without the second half's partial, and with the
+    halves' weights swapped, shown to fail."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(MESH_SEED)
+    B, H, KH, D, T = LM_BATCH, 16, 16, 128, MESH_SLOTS
+    half = T // 2
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(s, generator=g) * scale).to(dev, torch.bfloat16)
+    q, k, v = randn(B, 1, H, D, scale=1.5), randn(B, T, KH, D, scale=1.5), \
+        randn(B, T, KH, D)
+    tol = ATTN_TOL["bfloat16"]
+    out = {"o_err": 0.0, "lse_err": 0.0, "merge_err": 0.0, "cases": {}}
+    for fill in MESH_K2_FILLS:
+        parts = []
+        for r in range(2):
+            kr, vr = k[:, r * half:(r + 1) * half], v[:, r * half:(r + 1)
+                                                        * half]
+            n = torch.tensor(min(max(fill - r * half, 0), half),
+                             dtype=torch.int32, device=dev)
+            before = fa.variant_launches["decode"]
+            o, lse = k2_dec_lse(q, kr, vr, kv_len=n)
+            if fa.variant_launches["decode"] != before + 1:
+                raise AssertionError("K2 decode with lse took another "
+                                     "variant")
+            po, pl = k2_dec_lse_plain(q.float(), kr.float(), vr.float(),
+                                      kv_len=n)
+            torch.cuda.synchronize()
+            if torch.isnan(o).any() or torch.isnan(lse).any():
+                raise AssertionError(f"NaN at fill {fill}, shard {r}")
+            oe = close(o, po, tol)
+            if int(n) == 0:
+                if not (bool((o == 0).all()) and
+                        bool(torch.isneginf(lse).all())):
+                    raise AssertionError("a shard with no key must give o "
+                                         "0 and lse -inf")
+                le = 0.0
+            else:
+                le = close(lse, pl, LSE_TOL)
+            out["o_err"] = max(out["o_err"], oe)
+            out["lse_err"] = max(out["lse_err"], le)
+            parts.append((o, lse))
+        whole = fa.flash_attention_plain(
+            q.float(), k.float(), v.float(), causal=False,
+            kv_len=torch.tensor(fill, dtype=torch.int32, device=dev))
+        me = close(merge_shards(parts), whole, tol)
+        out["merge_err"] = max(out["merge_err"], me)
+        out["cases"][fill] = me
+        if fill == MESH_WRONG_FILL:
+            wrong = {}
+            for name, got in (
+                    ("without the second shard's partial",
+                     merge_shards(parts[:1])),
+                    ("the shards' weights swapped",
+                     merge_shards(parts, weights_of=(1, 0)))):
+                far = float((got - whole).abs().max())
+                try:
+                    close(got, whole, tol)
+                except AssertionError:
+                    wrong[name] = far
+                    continue
+                raise AssertionError(f"a merge {name} passed the check")
+            out["wrong_answers"] = wrong
+    log(f"  (c) K2 decode + lse vs plain (fp32 copies) over each half of "
+        f"a {T}-slot cache at fills {MESH_K2_FILLS}: o max abs err "
+        f"{out['o_err']:.4g} (tol {tol}), lse {out['lse_err']:.4g} (tol "
+        f"{LSE_TOL}), o 0 and lse -inf where a half holds no key, no NaN; "
+        f"merged vs whole attention {out['merge_err']:.4g}; wrong answers "
+        + ", ".join(f"{k} {v:.3g} away" for k, v in
+                    out["wrong_answers"].items()))
+    return out
+
+
+def mesh_phases(dev, card: str) -> dict:
+    """Phase 28: deepseek-moe-16b served across 2 ranks sharing the card
+    (gloo): the one-process route first (einsum dispatch, unsharded
+    decode, in this process, its routing recorded and its weights freed),
+    then the ranks (:func:`mesh_rank`), then (a)'s comparison, (c) K2
+    decode with the logsumexp and (d) K3 at the a2a shape, each with a
+    graph-replayed row."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import lm_decode, lm_prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import lm_init
+    t_all = phase("28. deepseek-moe-16b served across a 1 x 2 mesh, two "
+                  "ranks sharing the card over gloo (a2a expert dispatch, "
+                  "sequence-sharded decode on K2 decode + lse); not a "
+                  "multi-card speed")
+    out = {}
+    t0 = time.perf_counter()
+    full = get_arch("deepseek-moe-16b").make_config()
+    cfg1 = dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=MESH_NO_DROP_CF))
+    m0 = settled_allocated()
+    tape = []
+    with torch.inference_mode():
+        params = lm_init(torch.Generator(device=dev).manual_seed(MESH_SEED),
+                         cfg1, device=dev, dtype=cfg1.cdtype())
+        toks = torch.randint(0, cfg1.vocab_size,
+                             (LM_BATCH, MESH_A_PREFILL + MESH_A_STEPS),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(MESH_SEED + 1), device=dev)
+        with router_tape(moe_mod, tape), moe_mod.dispatch_tally() as tally:
+            last, caches = lm_prefill(params, toks[:, :MESH_A_PREFILL], cfg1,
+                                      max_len=MESH_SLOTS)
+            steps = [lm_decode(params, caches, toks[:, t:t + 1], cfg1)[0]
+                     for t in range(MESH_A_PREFILL,
+                                    MESH_A_PREFILL + MESH_A_STEPS)]
+        one = {"prefill": last.float().cpu(),
+               "decode": torch.stack(steps).float().cpu()}
+        kept, routed = tally.counts()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tape_file = os.path.join(tmp, "tape.pt")
+        torch.save([tuple(t.cpu() for t in e) for e in tape], tape_file)
+        del params, caches, last, steps, tape, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed = settled_allocated()
+        log(f"  one-process route (einsum dispatch, unsharded decode, cf "
+            f"{MESH_NO_DROP_CF:.4g}): prefill {MESH_A_PREFILL} + "
+            f"{MESH_A_STEPS} decode steps in "
+            f"{time.perf_counter() - t0:.1f} s, kept {kept} of {routed} "
+            f"routed slots; weights freed ({freed / 2 ** 20:.0f} MiB "
+            f"allocated, {m0 / 2 ** 20:.0f} before)")
+        if kept != routed:
+            raise AssertionError("the one-process route dropped slots")
+        t1 = time.perf_counter()
+        ranks = ctx.spawn_ranks(mesh_rank, 2, (os.path.join(
+            tmp, "rendezvous"), tape_file), timeout_s=900)
+    out["ranks_s"] = time.perf_counter() - t1
+    r0 = ranks[0]
+    log(f"  ranks: {len(ranks)} on cuda:0 over gloo in {out['ranks_s']:.1f} "
+        f"s (spawn, init, every phase); gloo on CUDA tensors: "
+        f"{sorted(k for k, ok in r0['probe'].items() if ok)}")
+    for r in ranks:
+        log(f"  rank {r['rank']}: {r['params'] / 1e9:.2f} B parameters "
+            f"({r['param_gib']:.2f} GiB; drawn leaf by leaf in "
+            f"{r['init_s']:.1f} s), peak {r['peak_gib']:.2f} GiB, main path "
+            f"{r['main_s']:.1f} s")
+    # the main path's operating points, as rank 0 measured them
+    log(f"  {'operating point':24s} {'prefill':>10s} {'(events)':>10s} "
+        f"{'decode/step':>12s} {'(events)':>10s} {'kept prefill':>13s} "
+        f"{'decode':>7s} [{card}]")
+    bad = [(r["rank"], p["name"]) for r in ranks for p in r["points"]
+           if not p["finite"]]
+    if bad:
+        raise AssertionError(f"non-finite logits at {bad}")
+    for p in r0["points"]:
+        dec = (f"{p['decode_ms']:10.2f}ms {p['decode_event_ms']:8.2f}ms"
+               if p["decode_ms"] is not None else f"{'n/a (F4)':>23s}")
+        log(f"  {p['name']:24s} {p['prefill_ms']:8.2f}ms "
+            f"{p['prefill_event_ms']:8.2f}ms {dec} "
+            f"{100 * p['prefill_kept']:12.1f}% "
+            + (f"{100 * p['decode_kept']:6.1f}%" if p["decode_kept"]
+               is not None else "    n/a"))
+    # every kernel of the path launched on every rank, on the variants
+    # the shapes should take
+    for r in ranks:
+        if min(r["launches"][k] for k in FORWARD) <= 0:
+            raise AssertionError(f"rank {r['rank']}: a kernel of the mesh "
+                                 f"path never launched: {r['launches']}")
+        main_path_variants(r["variants"], need={
+            ("elastic_matmul", "small_m"), ("elastic_matmul", "tma"),
+            ("elastic_matmul", "f32_splitk"), ("flash_attention", "wgmma"),
+            ("flash_attention", "decode"), ("expert_matmul", "tma"),
+            ("expert_matmul", "stream")})
+        p = r["points"][0]
+        k3_on_stage({"prefill": p["prefill_variants"]["expert_matmul"],
+                     "decode": p["decode_variants"]["expert_matmul"]})
+        if p["decode_variants"]["flash_attention"]["decode"] == 0:
+            raise AssertionError("the sharded decode did not run K2 decode")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in FORWARD}
+    variants = {k: {v: sum(r["variants"][k][v] for r in ranks)
+                    for v in r0["variants"][k]} for k in FORWARD}
+    log(f"  launches on the mesh path (both ranks): {launches}; by variant "
+        + str({k: {v: n for v, n in per.items() if n}
+               for k, per in variants.items()}))
+    # (b) the kernel route against the plain route on one routing
+    out["b_err"] = {r["rank"]: r["b_err"] for r in ranks}
+    log(f"  (b) kernel route vs plain route at cf "
+        f"{full.moe.capacity_factor} on the plain route's routing, prefill "
+        f"{LM_BATCH} x {PREFILL_LEN} and one decode step: "
+        + ", ".join(f"rank {k}: prefill {v['prefill']:.4g}, decode "
+                    f"{v['decode']:.4g}" for k, v in out["b_err"].items())
+        + f" (tol {LM_LOGITS_BF16_PINNED_TOL})")
+    # (a) the 2-rank run against the one-process route
+    out["a_err"] = {}
+    for r in ranks:
+        if r["a_kept"] != 1.0:
+            raise AssertionError(f"rank {r['rank']} dropped slots in (a): "
+                                 f"kept {r['a_kept']}")
+        c = r["a_cache"]
+        if c["len"] != MESH_A_PREFILL + MESH_A_STEPS or c["block"][1] != \
+                MESH_SLOTS // 2:
+            raise AssertionError(f"rank {r['rank']}: cache {c}")
+        out["a_err"][r["rank"]] = {
+            "prefill": close(torch.from_numpy(r["a_prefill"]),
+                             one["prefill"], LM_LOGITS_BF16_PINNED_TOL),
+            "decode": close(torch.from_numpy(r["a_decode"]), one["decode"],
+                            LM_LOGITS_BF16_PINNED_TOL)}
+    written = [r["a_cache"]["written"] for r in ranks]
+    if written != [MESH_SLOTS // 2,
+                   MESH_A_PREFILL + MESH_A_STEPS - MESH_SLOTS // 2]:
+        raise AssertionError(f"slots written per rank {written}: the decode "
+                             f"writes did not cross the shard boundary")
+    # the ranks' own routing against the pinned one, by stage: a prefill
+    # block routed at the one-process call's size gives its routing bit
+    # for bit (so the block's rows and the router are right, and what
+    # differs is K1's split of K at the block's size); the shares of
+    # tokens routed elsewhere stay under the stated limits
+    plans = {n: em.f32_splitk_plan(n, full.d_model, full.moe.n_experts)
+             for n in (LM_BATCH * MESH_A_PREFILL,
+                       LM_BATCH * MESH_A_PREFILL // MESH[1])}
+    n_moe = full.n_moe_layers
+    for r in ranks:
+        for key, what in (("a_rerouted", "(a) 2 ranks vs the one-process "
+                           "route"), ("b_rerouted", "(b) kernel route vs "
+                           "plain route, 2 ranks (bf16 rounding alone)")):
+            for st, cap in (("prefill", MESH_PREFILL_REROUTE_MAX),
+                            ("decode", MESH_DECODE_REROUTE_MAX)):
+                a = r[key][st]
+                a["share"] = a["rerouted"] / a["tokens"]
+                pc = a.get("per_call", [])
+                steps = [sum(pc[i:i + n_moe]) for i in range(0, len(pc),
+                                                              n_moe)]
+                log(f"  {what}, rank {r['rank']} {st}: its own routing "
+                    f"differs from the pinned one at {a['rerouted']} of "
+                    f"{a['tokens']} token-layer routings "
+                    f"({100 * a['share']:.3f}%"
+                    + (f", limit {100 * cap:.3g}%" if key == "a_rerouted"
+                       else "")
+                    + f") over {a['calls']} router calls"
+                    + (f" (by step {steps})" if st == "decode" else "")
+                    + f"; largest |probability| difference "
+                    f"{a['prob_diff']:.3g}, largest pinned margin between "
+                    f"the k-th and (k+1)-th expert at a rerouted token "
+                    f"{a['margin']:.3g}"
+                    + (f"; the block routed at the one-process call's "
+                       f"size: {'the same bits' if a['same_at_full_size'] else 'DIFFERENT'}"
+                       f" (K1 f32_splitk (splits, K rows) by rows: {plans})"
+                       if a.get("same_at_full_size") is not None else ""))
+                if key == "a_rerouted" and a["share"] > cap:
+                    raise AssertionError(f"rank {r['rank']}: {st} rerouted "
+                                         f"{a['share']:.4f} > {cap}")
+        pre = r["a_rerouted"]["prefill"]
+        if not pre["same_at_full_size"]:
+            raise AssertionError(f"rank {r['rank']}: its prefill block "
+                                 f"routed at the one-process size differs "
+                                 f"from the one-process routing")
+        if pre["prob_diff"] > MESH_ROUTER_ROUNDOFF:
+            raise AssertionError(f"rank {r['rank']}: prefill router "
+                                 f"probabilities {pre['prob_diff']:.3g} "
+                                 f"from the one-process ones")
+    log(f"  (a) 2 ranks vs the one-process route at cf "
+        f"{MESH_NO_DROP_CF:.4g} (kept 100% on both ranks), its routing "
+        f"pinned, prefill 4 x 260 and 8 decode steps writing "
+        f"slots 260 .. 267 (slots written per rank {written}, cache len "
+        f"{r0['a_cache']['len']}): "
+        + ", ".join(f"rank {k}: prefill {v['prefill']:.4g}, decode "
+                    f"{v['decode']:.4g}" for k, v in out["a_err"].items())
+        + f" (tol {LM_LOGITS_BF16_PINNED_TOL})")
+    # (c) K2 decode with the logsumexp; its row over one rank's decode
+    # step (28 calls: 264 slots, all valid, as rank 0's from fill 264)
+    out["k2"] = k2_decode_lse_checks(dev)
+    g = torch.Generator().manual_seed(MESH_SEED + 2)
+    full_n = torch.tensor(MESH_SLOTS // 2, dtype=torch.int32, device=dev)
+    dec_calls = []
+    for _ in range(full.n_layers):
+        q = torch.randn((LM_BATCH, 1, full.n_heads, full.d_head),
+                        generator=g).to(dev, torch.bfloat16)
+        kv = torch.randn((2, LM_BATCH, MESH_SLOTS // 2, full.n_kv_heads,
+                          full.d_head), generator=g).to(dev, torch.bfloat16)
+        dec_calls.append(((q, kv[0], kv[1]),
+                          {"causal": False, "kv_len": full_n}))
+    out["k2_row"] = time_rows(
+        "K2 decode + lse, one rank's decode step (T_loc 264)", dec_calls,
+        k2_dec_lse, k2_dec_lse_plain, k2_library, "sdpa", k2_work)
+    del dec_calls
+    # (d) K3 at the a2a shape: rank 0's prefill calls at their live counts
+    calls, ws, k3_err = [], {}, 0.0
+    g = torch.Generator().manual_seed(MESH_SEED + 3)
+    for xs, wsh, c in r0["k3_calls"]:
+        if wsh not in ws:
+            ws[wsh] = (torch.randn(wsh, generator=g) * wsh[1] ** -0.5).to(
+                dev, torch.bfloat16)
+        x = torch.randn(xs, generator=g).to(dev, torch.bfloat16)
+        cnt = torch.from_numpy(c).to(dev)
+        calls.append(((x, ws[wsh], cnt), {}))
+    for (x, w, cnt), _ in calls[:3]:
+        y = ops.expert_matmul_op(x, w, cnt)
+        yp = xm.expert_matmul_plain(x, w, cnt)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, close(y, yp, EXPERT_TOL["bfloat16"]))
+    live = [int(c.sum()) for (_, _, c), _ in calls]
+    out["k3_err"] = k3_err
+    out["k3_row"] = time_rows(
+        f"K3 a2a prefill (E_loc {calls[0][0][0].shape[0]}, "
+        f"{MESH[1]} x {calls[0][0][0].shape[1] // MESH[1]} rows, live rows "
+        f"{min(live)}-{max(live)} of {calls[0][0][0].shape[0] * calls[0][0][0].shape[1]})",
+        calls, xm.expert_matmul, xm.expert_matmul_plain,
+        lambda x, w, c: torch.bmm(x, w), "torch.bmm", k3_work, group=k3_group)
+    log(f"  (d) K3 at the recorded a2a calls vs plain: max abs err "
+        f"{k3_err:.4g} (tol {EXPERT_TOL['bfloat16']})")
+    del calls, ws
+    out.update(launches=launches, variants=variants, ranks=[{
+        k: r[k] for k in ("rank", "params", "param_gib", "init_s", "main_s",
+                          "peak_gib", "points", "a_kept", "a_rerouted",
+                          "b_rerouted",
+                          "a_cache", "probe")} for r in ranks])
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 28 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6321,6 +6973,7 @@ def main() -> int:
                             __file__)), "build", "cluster"))
     lc = lm_configs_phases(dev, card, parent)
     wg = wgmma_phases(dev, card)
+    mh = mesh_phases(dev, card)
     lc_cfg = lc["configs"]
 
     def lc_rows(k: str) -> dict:
@@ -6361,7 +7014,8 @@ def main() -> int:
               + df["unet"]["launches"]["elastic_matmul"]
               + lt_n["elastic_matmul"]
               + cl["launches"]["elastic_matmul"]
-              + sum(lc_launches("elastic_matmul").values()),
+              + sum(lc_launches("elastic_matmul").values())
+              + mh["launches"]["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
@@ -6379,7 +7033,9 @@ def main() -> int:
                                    "vit_cluster":
                                        cl["launches"]["elastic_matmul"],
                                    "lm_configs":
-                                       lc_launches("elastic_matmul")},
+                                       lc_launches("elastic_matmul"),
+                                   "lm_mesh":
+                                       mh["launches"]["elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
@@ -6392,7 +7048,8 @@ def main() -> int:
                   "lm_train": lt_v["elastic_matmul"],
                   "vit_cluster": cl["variants"]["elastic_matmul"],
                   "lm_configs": {c: r["variants"]["elastic_matmul"]
-                                 for c, r in lc_cfg.items()}},
+                                 for c, r in lc_cfg.items()},
+                  "lm_mesh": mh["variants"]["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
                                                   "bfloat16")],
@@ -6423,7 +7080,8 @@ def main() -> int:
               + df["unet"]["launches"]["flash_attention"]
               + lt_n["flash_attention"]
               + cl["launches"]["flash_attention"]
-              + sum(lc_launches("flash_attention").values()),
+              + sum(lc_launches("flash_attention").values())
+              + mh["launches"]["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
                                    "train": tr["launches"]["flash_attention"],
@@ -6437,7 +7095,9 @@ def main() -> int:
                                    "vit_cluster":
                                        cl["launches"]["flash_attention"],
                                    "lm_configs":
-                                       lc_launches("flash_attention")},
+                                       lc_launches("flash_attention"),
+                                   "lm_mesh":
+                                       mh["launches"]["flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
@@ -6448,11 +7108,13 @@ def main() -> int:
                   "lm_train": lt_v["flash_attention"],
                   "vit_cluster": cl["variants"]["flash_attention"],
                   "lm_configs": {c: r["variants"]["flash_attention"]
-                                 for c, r in lc_cfg.items()}},
+                                 for c, r in lc_cfg.items()},
+                  "lm_mesh": mh["variants"]["flash_attention"]},
               "variants": list(fa.VARIANTS),
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
                                  lc["k2"]["max_abs_err"],
                                  wg["cases"]["max_abs_err"],
+                                 mh["k2"]["o_err"], mh["k2"]["merge_err"],
                                  *(df["recorded"][n]["k2"][k]["err"]
                                    for n in ("dit", "unet")
                                    for k in ("k2", "k2x")
@@ -6466,17 +7128,21 @@ def main() -> int:
              unet_cross=df["rows"]["unet"]["k2x"],
              gen=df["sample"], lm_step=lt["rows"]["k2_fwd"],
              lm_configs=lc_rows("k2"), wgmma_cases=wg["cases"]["errs"],
-             route=wg["route"]),
+             route=wg["route"], lm_mesh_decode=mh["k2_row"],
+             lm_mesh_decode_lse_err=mh["k2"]["lse_err"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
               "launches": lm["launches"]["expert_matmul"]
               + lt_n["expert_matmul"]
-              + sum(lc_launches("expert_matmul").values()),
+              + sum(lc_launches("expert_matmul").values())
+              + mh["launches"]["expert_matmul"],
               "launches_by_path": {"lm": lm["launches"]["expert_matmul"],
                                    "lm_train": lt_n["expert_matmul"],
                                    "lm_configs":
-                                       lc_launches("expert_matmul")},
+                                       lc_launches("expert_matmul"),
+                                   "lm_mesh":
+                                       mh["launches"]["expert_matmul"]},
               "launches_by_variant": {
                   "lm": lm["variants"]["expert_matmul"],
                   "lm_by_stage": lm["k3_by_stage"],
@@ -6485,11 +7151,14 @@ def main() -> int:
                                  for c, r in lc_cfg.items()},
                   "lm_configs_by_stage": {c: r["k3_by_stage"]
                                           for c, r in lc_cfg.items()
-                                          if r["k3_by_stage"]}},
-              "max_abs_err": lm["k3_err"]}, **row_keys(lm["k3_prefill"]),
+                                          if r["k3_by_stage"]},
+                  "lm_mesh": mh["variants"]["expert_matmul"]},
+              "max_abs_err": max(lm["k3_err"], mh["k3_err"])},
+             **row_keys(lm["k3_prefill"]),
              timing=timing, lm_prefill=lm["k3_prefill"],
              lm_decode=lm["k3_decode"], kept_share=lm["kept"],
-             lm_step=lt["rows"]["k3_fwd"], lm_configs=lc_rows("k3")),
+             lm_step=lt["rows"]["k3_fwd"], lm_configs=lc_rows("k3"),
+             lm_a2a=mh["k3_row"]),
     ]}
     for name, src, replaces, row, err, conv in (
             ("elastic_matmul_dgrad", "elastic_matmul.cu",
@@ -6644,6 +7313,9 @@ def main() -> int:
                                             "library_ms", "bound_ms",
                                             "route")}
                   for k, r in wg["route"].items()}}))
+    log("mesh: " + json.dumps({
+        k: mh[k] for k in ("a_err", "b_err", "ranks", "ranks_s", "seconds")}
+        | {"k2": mh["k2"]}))
     log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

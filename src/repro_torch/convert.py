@@ -68,6 +68,19 @@ def lm_params(jax_params: dict, device: Optional[torch.device] = None
     return params
 
 
+def lm_params_shard(jax_params: dict, mesh, coords=None,
+                    device: Optional[torch.device] = None) -> dict:
+    """Reference ``lm_init`` params (numpy leaves) -> one rank's port
+    params under ``mesh``: each leaf cut to the block the rank at mesh
+    coordinate ``coords`` (default this rank) holds by the slice's
+    placement (``distributed.sharding.serving_spec`` on the reference's
+    stacked paths: the routed experts split over ``"model"``, the rest
+    whole), then converted as :func:`lm_params`."""
+    from repro_torch.distributed.sharding import serving_spec, shard_tree
+    return lm_params(shard_tree(jax_params, mesh, coords, serving_spec),
+                     device)
+
+
 def lm_caches(jax_caches: dict, device: Optional[torch.device] = None
               ) -> dict:
     """Reference stacked decode caches {"dense"|"moe": {"k": (L, B, T, KH,

@@ -28,6 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.elastic import active_mask, mask_dim, take_dim
 from repro_torch.core.types import is_static
+from repro_torch.distributed.decode_attn import (cache_axes, is_sharded,
+                                                 sharded_decode_attention)
 from repro_torch.kernels.ops import elastic_matmul_op, flash_attention_op
 
 
@@ -298,12 +300,30 @@ def kv_cache_of(k: torch.Tensor, v: torch.Tensor, fill: int) -> dict:
                               device=k.device)}
 
 
+def _group(q: torch.Tensor, R: int, KH: int) -> torch.Tensor:
+    """q (B, S, H, D) in the reference's (R, K) head layout -> K2's, query
+    heads grouped by kv head (h // R); a view at R = 1."""
+    if R == 1:
+        return q
+    B, S, H, D = q.shape
+    return q.reshape(B, S, R, KH, D).transpose(2, 3).reshape(B, S, H, D)
+
+
+def _ungroup(o: torch.Tensor, R: int, KH: int) -> torch.Tensor:
+    """The inverse of :func:`_group`."""
+    if R == 1:
+        return o
+    B, S, H, D = o.shape
+    return o.reshape(B, S, KH, R, D).transpose(2, 3).reshape(B, S, H, D)
+
+
 def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     d_head: int, causal: bool = True,
                     rope_theta: Optional[float] = None,
                     a_model=None, a_heads=None,
                     kv_cache: Optional[dict] = None,
-                    return_kv: bool = False) -> tuple:
+                    return_kv: bool = False, decode_impl: str = "xla",
+                    mesh=None) -> tuple:
     """Returns (out (B, S, d_model_active), new_kv_cache | None).
 
     The reference's prefill (``impl="ref"``; its blocked XLA variants
@@ -324,6 +344,11 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     that replays a graph advances it per replay).  The returned cache is
     the same dict.
     ``return_kv`` returns this call's (roped) k and v as a new cache.
+    ``decode_impl="sharded"`` with a ``mesh`` that has a ``"model"`` axis
+    decodes against a sequence-sharded cache (this rank's block: see
+    :func:`repro_torch.distributed.decode_attn.sharded_decode_attention`),
+    the sequence over ``"model"`` at B >= 16 and over every axis below,
+    as the reference's rule; otherwise the one-process decode.
     """
     B, S, _ = x.shape
     H = n_heads
@@ -356,12 +381,17 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     v = v.reshape(B, S, kv_active, d_head)
 
     kv_len = None
+    sharded = kv_cache is not None and is_sharded(decode_impl, mesh)
     if kv_cache is not None:
         ck, cv, fill = kv_cache["k"], kv_cache["v"], kv_cache["fill"]
-        if ck.shape[2] != kv_active or fill + S > ck.shape[1]:
+        if ck.shape[2] != kv_active or (not sharded
+                                        and fill + S > ck.shape[1]):
             raise ValueError(
                 f"kv cache {tuple(ck.shape)} at len {fill} cannot take {S} "
                 f"more positions of {kv_active} kv heads")
+        if sharded and S != 1:
+            raise ValueError(f"the sharded decode takes one token a step, "
+                             f"got {S}")
         positions = kv_cache["len"] + torch.arange(S, device=x.device)
     if rope_theta is not None:
         if kv_cache is None:
@@ -372,24 +402,25 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     new_cache = None
     if return_kv:
         new_cache = kv_cache_of(k, v, S)
-    if kv_cache is not None:
-        ck.index_copy_(1, positions, k.to(ck.dtype))
-        cv.index_copy_(1, positions, v.to(cv.dtype))
-        kv_len = kv_cache["len"]
-        kv_len.add_(S)
-        kv_cache["fill"] = fill + S
+    if sharded:
+        seq_axes, b_axes = cache_axes(mesh, B)
+        out = _ungroup(sharded_decode_attention(
+            _group(q, R, kv_active), k, v, kv_cache, mesh=mesh,
+            seq_axes=seq_axes, batch_axes=b_axes), R, kv_active)
         new_cache = kv_cache
-        k, v = _cast(ck, q.dtype), _cast(cv, q.dtype)
-        causal = False
-    if R == 1:
-        out = flash_attention_op(q, k, v, causal=causal, kv_len=kv_len)
     else:
-        # the kernel groups query heads by kv head (h // R): reorder the
-        # reference's (R, K) head layout to (K, R) and back
-        qg = q.reshape(B, S, R, kv_active, d_head).transpose(2, 3)
-        out = flash_attention_op(qg.reshape(B, S, H, d_head), k, v,
-                                 causal=causal, kv_len=kv_len)
-        out = out.reshape(B, S, kv_active, R, d_head).transpose(2, 3)
+        if kv_cache is not None:
+            ck.index_copy_(1, positions, k.to(ck.dtype))
+            cv.index_copy_(1, positions, v.to(cv.dtype))
+            kv_len = kv_cache["len"]
+            kv_len.add_(S)
+            kv_cache["fill"] = fill + S
+            new_cache = kv_cache
+            k, v = _cast(ck, q.dtype), _cast(cv, q.dtype)
+            causal = False
+        out = _ungroup(flash_attention_op(_group(q, R, kv_active), k, v,
+                                          causal=causal, kv_len=kv_len),
+                       R, kv_active)
     out = out.reshape(B, S, H * d_head)
     if masked_heads:    # flat head r*K + k is active iff it is < a_heads
         out = mask_dim(out, a_q, -1)

@@ -1,2 +1,4 @@
-"""Fault tolerance of the port's launchers (one process; multi-device
-training comes with the multi-device slice)."""
+"""Distribution substrate: mesh context, rank bring-up, collectives,
+sharding rules, the sharded decode, and the launchers' fault tolerance."""
+from repro_torch.distributed.ctx import (batch_axes, current_mesh, use_mesh,
+                                         wsc)

@@ -765,13 +765,16 @@ flash_attention_decode(const __nv_bfloat16* __restrict__ q,
 
 // o[b, 0, h] = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, in split
 // order, over the splits with a denominator (an empty one adds nothing,
-// and no NaN: its max is -inf); one block of D threads per (batch, head)
+// and no NaN: its max is -inf); one block of D threads per (batch, head).
+// With `lse` (fp32 (B, H), may be null) also the row's logsumexp of the
+// scaled scores, M + log(l), or -inf where no key is valid (then o = 0):
+// what a sequence-sharded decode merges across shards.
 template <int D>
 __global__ void __launch_bounds__(D)
 flash_attention_merge(const float* __restrict__ ws_acc,
                       const float* __restrict__ ws_ml,
-                      __nv_bfloat16* __restrict__ o, int H, int splits,
-                      long long o_sb, long long o_sh) {
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int H, int splits, long long o_sb, long long o_sh) {
   const int bh = blockIdx.x, d = threadIdx.x;
   const float* ml = ws_ml + (size_t)bh * splits * 2;
   // unrolled so that the partials' loads are in flight together
@@ -787,6 +790,8 @@ flash_attention_merge(const float* __restrict__ ws_acc,
   }
   o[(bh / H) * o_sb + (bh % H) * o_sh + d] =
       __float2bfloat16(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[bh] = l > 0.f ? mx + logf(l) : -__int_as_float(0x7f800000);
 }
 
 template <int D>
@@ -813,9 +818,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 
 template <int D>
 int launch_decode(const void* q, const void* k, const void* v, void* o,
-                  float* ws, const int* len, int B, int H, int KH, int T_cap,
-                  const long long* st, float scale, int splits, int chunk,
-                  cudaStream_t s) {
+                  float* ws, const int* len, float* lse, int B, int H, int KH,
+                  int T_cap, const long long* st, float scale, int splits,
+                  int chunk, cudaStream_t s) {
   float* ws_acc = ws;
   float* ws_ml = ws + (size_t)B * H * splits * D;
   // a block per (batch, kv head, group of <= D_R_MAX query heads)
@@ -829,7 +834,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_attention_merge<D><<<B * H, D, 0, s>>>(
-      ws_acc, ws_ml, static_cast<__nv_bfloat16*>(o), H, splits, st[9],
+      ws_acc, ws_ml, static_cast<__nv_bfloat16*>(o), lse, H, splits, st[9],
       st[11]);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2633,13 +2638,14 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
 
 // The decode variant (bf16, S = 1, D = 64, 112 or 128, any H / KH) over
 // a cache of T_cap keys of which the first min(*len, T_cap) are valid
-// (`len` a device int32, >= 1; the caller folds a causal mask into it), in
-// `splits` chunks of `chunk` <= 256 keys planned from T_cap; `ws` an fp32
-// workspace of B*H*splits*(D + 2).  Returns as above; -1 for an
-// unsupported shape.
-extern "C" int repro_flash_attention_decode_len(
+// (`len` a device int32, >= 0: at 0 o is 0; the caller folds a causal
+// mask into it), in `splits` chunks of `chunk` <= 256 keys planned from
+// T_cap; `ws` an fp32 workspace of B*H*splits*(D + 2); `lse` null, or
+// fp32 (B, H) for each row's logsumexp (-inf where no key is valid).
+// Returns as above; -1 for an unsupported shape.
+extern "C" int repro_flash_attention_decode_lse(
     const void* q, const void* k, const void* v, void* o, void* ws,
-    const void* len, int B, int H, int KH, int T_cap, int D,
+    const void* len, void* lse, int B, int H, int KH, int T_cap, int D,
     const long long* strides, float scale, int splits, int chunk,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -2647,16 +2653,28 @@ extern "C" int repro_flash_attention_decode_len(
     return -1;
   float* w = static_cast<float*>(ws);
   const int* n = static_cast<const int*>(len);
+  float* l = static_cast<float*>(lse);
   if (D == 64)
-    return launch_decode<64>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
+    return launch_decode<64>(q, k, v, o, w, n, l, B, H, KH, T_cap, strides,
                              scale, splits, chunk, s);
   if (D == 112)
-    return launch_decode<112>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
+    return launch_decode<112>(q, k, v, o, w, n, l, B, H, KH, T_cap, strides,
                               scale, splits, chunk, s);
   if (D == 128)
-    return launch_decode<128>(q, k, v, o, w, n, B, H, KH, T_cap, strides,
+    return launch_decode<128>(q, k, v, o, w, n, l, B, H, KH, T_cap, strides,
                               scale, splits, chunk, s);
   return -1;
+}
+
+// The same without the logsumexp (the entry point before it had one).
+extern "C" int repro_flash_attention_decode_len(
+    const void* q, const void* k, const void* v, void* o, void* ws,
+    const void* len, int B, int H, int KH, int T_cap, int D,
+    const long long* strides, float scale, int splits, int chunk,
+    void* stream) {
+  return repro_flash_attention_decode_lse(q, k, v, o, ws, len, nullptr, B, H,
+                                          KH, T_cap, D, strides, scale,
+                                          splits, chunk, stream);
 }
 
 // The fp32 backward (causal or not, D = 8, 16 or 64; causal masks key

@@ -30,14 +30,17 @@ at D = 112 is ROADMAP item 20).  The source note says what bounds each
 on the H100 and what its design does about it.
 
 Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
-``kv_len`` (a 0-d int32 tensor on the device, >= 1) masks the keys at or
+``kv_len`` (a 0-d int32 tensor on the device, >= 0) masks the keys at or
 past it, as the reference's ``kv_len`` mask of a decode step; the other
 variants read it on the host (a device sync: eager only, never inside a
-CUDA graph capture).
+CUDA graph capture).  A row with no valid key (``kv_len`` 0: a shard of
+a sequence-sharded cache that holds none yet) gives o = 0.
 ``flash_attention`` launches the kernel on CUDA tensors;
 ``flash_attention_plain`` is the same function in plain PyTorch.  With
-``return_lse`` both also give each row's fp32 logsumexp (B, H, S), which
-the backward reads.
+``return_lse`` both also give each row's fp32 logsumexp (B, H, S) of the
+scaled scores (-inf for a row with no valid key), which the backward
+reads and which a sequence-sharded decode
+(``distributed/decode_attn.py``) merges across shards.
 
 The backward (the reference has none: JAX differentiates through XLA)
 is ``flash_attention_bwd``, causal or not, at D = 64 and 128 in bf16 and
@@ -125,6 +128,8 @@ _ARGTYPES = {
     "repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_STRIDES, _F, _I,
                                                          _I, _P],
     "repro_flash_attention_decode_len": [_P] * 6 + [_I] * 5 + [_STRIDES, _F,
+                                                               _I, _I, _P],
+    "repro_flash_attention_decode_lse": [_P] * 7 + [_I] * 5 + [_STRIDES, _F,
                                                                _I, _I, _P],
     "repro_flash_attention_bwd_resident": [_P] * 9 + [_I] * 6 + [_STRIDES,
                                                                  _F, _P],
@@ -310,8 +315,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, return_lse: bool = False,
                     kv_len: Optional[torch.Tensor] = None):
     """Launch the CUDA kernel (inputs may be strided; head dim contiguous).
-    Returns o, or (o, lse) with ``return_lse`` (not at decode, S = 1).
-    ``kv_len``: the count of valid keys (see the module note)."""
+    Returns o, or (o, lse) with ``return_lse`` (at decode, S = 1, written
+    by the merge kernel).  ``kv_len``: the count of valid keys (see the
+    module note)."""
     check_args(q, k, v)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -352,9 +358,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     lse_ptr = None if lse is None else lse.data_ptr()
-    if variant == "decode" and return_lse:
-        raise NotImplementedError("flash_attention: no logsumexp at decode "
-                                  "(S = 1): training runs prefill shapes")
     if variant == "decode":
         # causal at S = 1 sees key 0 alone, whatever the fill
         n = kv_len if kv_len is not None and T_seen == T \
@@ -362,9 +365,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         splits, chunk = decode_plan(T_seen, B * KH * decode_groups(H, KH))
         ws = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                          device=dev)
-        rc = _launcher("repro_flash_attention_decode_len")(
-            *ptrs, ws.data_ptr(), n.data_ptr(), B, H, KH, T_seen, D,
-            strides, scale, splits, chunk, stream)
+        # the lse entry point only when asked: a library built before it
+        # (a parent's) has the other
+        tail = (B, H, KH, T_seen, D, strides, scale, splits, chunk, stream)
+        if return_lse:
+            rc = _launcher("repro_flash_attention_decode_lse")(
+                *ptrs, ws.data_ptr(), n.data_ptr(), lse_ptr, *tail)
+        else:
+            rc = _launcher("repro_flash_attention_decode_len")(
+                *ptrs, ws.data_ptr(), n.data_ptr(), *tail)
     elif variant == "wgmma":
         blocks, _, group, dynamic = wgmma_fwd_plan(B, H, KH, S, T, D,
                                                    causal, sm_count(dev))
@@ -395,14 +404,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: Optional[torch.Tensor] = None):
     """The same function in plain PyTorch: repeat kv heads for GQA, then
     the naive oracle over (B*H, S, D), the keys at or past ``kv_len``
-    masked on the device (no host read); with ``return_lse`` also each
-    row's logsumexp of the scaled scores, fp32 (B, H, S)."""
+    masked on the device (no host read; o = 0 where none is valid); with
+    ``return_lse`` also each row's logsumexp of the scaled scores, fp32
+    (B, H, S), -inf where no key is valid."""
     check_args(q, k, v)
     if kv_len is not None:
         check_kv_len(kv_len, k)
-        if return_lse:
-            raise NotImplementedError("flash_attention_plain: no logsumexp "
-                                      "with kv_len (decode keeps none)")
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     if KH != H:
@@ -415,9 +422,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             kv_len=None if kv_len is None
                             else kv_len.reshape(()))
     o = o.reshape(B, H, S, D).transpose(1, 2)
+    if kv_len is not None:      # no valid key: 0, not the mean of v
+        o = o * (kv_len.reshape(()) > 0).to(o.dtype)
     if not return_lse:
         return o
     s = _scores(q, k, causal)
+    if kv_len is not None:
+        live = torch.arange(T, device=q.device) < kv_len.reshape(())
+        s = s.masked_fill(~live, float("-inf"))
     return o, torch.logsumexp(s, -1)
 
 

@@ -230,19 +230,21 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True,
-                       kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       kv_len: Optional[torch.Tensor] = None,
+                       return_lse: bool = False):
     """q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D); GQA for KH < H.
     ``kv_len``, a 0-d int32 on k's device, masks the keys at or past it
-    (a decode step over a whole cache; no gradient)."""
+    (a decode step over a whole cache; no gradient).  ``return_lse``
+    (no gradient) also returns each row's fp32 logsumexp (B, H, S)."""
     kernel = _use_kernel(q)
     if _wants_grad(q, k, v):
-        if kv_len is not None:
+        if kv_len is not None or return_lse:
             raise NotImplementedError("flash_attention_op: no gradient "
-                                      "through a decode cache (kv_len)")
+                                      "through a decode cache (kv_len) or "
+                                      "a returned logsumexp")
         return _FlashAttention.apply(q, k, v, causal, kernel)
-    if kernel:
-        return _fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
-    return _fa.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    fn = _fa.flash_attention if kernel else _fa.flash_attention_plain
+    return fn(q, k, v, causal=causal, kv_len=kv_len, return_lse=return_lse)
 
 
 class _ExpertMatmul(torch.autograd.Function):

@@ -28,11 +28,28 @@ the expert-gated matmul; ``--device cpu`` runs their plain versions.  On
 the card each point's prefill and decode step run as CUDA graphs
 (:class:`repro_torch.launch.steps.LMGraphs`, captured before the timing),
 and the times are of graph replays.
+
+``--mesh DATAxMODEL`` serves the LM across DATA x MODEL ranks, as the
+reference's ``dryrun --moe-dispatch a2a`` does on its mesh: the MoE
+layers on the expert-parallel ``a2a`` dispatch (the routed experts split
+over ``model``), decode against a cache sharded over the sequence
+(``decode_impl="sharded"``: the two-pass softmax, K2's ``decode`` kernel
+with its logsumexp), everything else replicated.  The kernels are built
+once here, then one process a rank is spawned (each draws the weights
+leaf by leaf from the seed and keeps its block: the one-process draws);
+NCCL when each rank has a card, gloo when they share one (or on the CPU,
+``--device cpu``).  The mesh path runs eagerly; only rank 0 prints, with
+the share of routed slots the capacity kept beside each time.  Off
+``--smoke`` deepseek-moe-16b runs whole (28 layers) on two ranks of one
+H100; the LMs cut for one card (``ONE_CARD_CUT``) keep that cut.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -40,12 +57,18 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import layer_serving_spec, shard_leaf
 from repro_torch.kernels.ops import launch_counts, variant_counts
 from repro_torch.launch.flops import lm_model_flops
+from repro_torch.launch.mesh import make_mesh, parse_mesh
 from repro_torch.launch.steps import (ONE_CARD_CUT, LMGraphs, lm_decode,
                                       lm_prefill)
+from repro_torch.models.moe import dispatch_tally
 from repro_torch.models.transformer import LMConfig, lm_init
 
+# seconds the ranks of ``--mesh`` may take in all before the run fails
+MESH_TIMEOUT_S = 3600.0
 
 def one_card(arch_id: str, cfg: LMConfig) -> LMConfig:
     """``cfg`` with the arch's one-card serving cut applied
@@ -171,8 +194,41 @@ def _variants_since(before: dict) -> dict:
             for k, per in now.items()}
 
 
+def mesh_config(cfg: LMConfig) -> LMConfig:
+    """``cfg`` as the mesh path serves it: the a2a dispatch and the
+    sequence-sharded decode (the reference's dryrun overrides)."""
+    moe = cfg.moe and dataclasses.replace(cfg.moe, dispatch="a2a")
+    return dataclasses.replace(cfg, moe=moe, decode_impl="sharded")
+
+
+def rank_shard(mesh):
+    """``lm_init``'s ``shard``: a copy of this rank's block of each leaf
+    whose placement splits it (so the whole leaf can be freed), the leaf
+    itself otherwise."""
+    def cut(path, t):
+        spec = layer_serving_spec(path, tuple(t.shape))
+        if all(e is None for e in spec):
+            return t
+        return shard_leaf(t, spec, mesh).clone()
+    return cut
+
+
+def kept_share(tally, mesh) -> Optional[float]:
+    """The share of routed slots the capacity kept in ``tally``'s
+    dispatches, summed over every rank of ``mesh`` (where each rank
+    counts every slot, as the decode's dispatch does, the share is the
+    same)."""
+    kept, routed = tally.counts()
+    if mesh is not None:
+        t = torch.tensor([float(kept), float(routed)],
+                         device=ctx.rank_device())
+        ctx.all_reduce(t, "sum", ctx.axes_group(mesh, mesh.mesh_dim_names))
+        kept, routed = float(t[0]), float(t[1])
+    return kept / routed if routed else None
+
+
 def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
-        *, iters: int = 3, graphs: Optional[bool] = None) -> list:
+        *, iters: int = 3, graphs: Optional[bool] = None, mesh=None) -> list:
     """Prefill ``tokens[:, :prefill_len]`` at every operating point, then
     decode the remaining tokens teacher-forced at the decodable ones.
 
@@ -188,13 +244,19 @@ def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
     decode_variants (both over the steps alone).  The event times are
     means between CUDA events around each prefill and each step (device
     time for graph replays; None on the CPU).  With graphs, the last row
-    also carries ``graph_pool_bytes``."""
+    also carries ``graph_pool_bytes``.  Eager runs also carry
+    ``prefill_kept`` and ``decode_kept``: the share of routed slots the
+    capacity kept (None for a dense LM).  ``mesh``: this rank's part of a
+    mesh run (eager; every rank calls ``run`` alike)."""
     device = tokens.device
     B, total = tokens.shape
     steps = total - prefill_len
     prompt = tokens[:, :prefill_len]
     if graphs is None:
-        graphs = device.type == "cuda"
+        graphs = device.type == "cuda" and mesh is None
+    if graphs and mesh is not None:
+        raise ValueError("run: a mesh run is eager (gloo's collectives "
+                         "cannot be captured in a CUDA graph)")
     lm = LMGraphs(params, cfg, B, prefill_len, total, device) \
         if graphs else None
     rows = []
@@ -205,42 +267,49 @@ def run(params: dict, cfg: LMConfig, tokens: torch.Tensor, prefill_len: int,
                 lm.capture(E, decodable=fills)
                 prefill = lambda: lm.prefill(prompt, E, decodable=fills)
             else:
-                prefill = lambda: lm_prefill(params, prompt, cfg, E=E)
+                prefill = lambda: lm_prefill(params, prompt, cfg, E=E,
+                                             mesh=mesh)
             c0, v0 = launch_counts(), variant_counts()
-            ms, ev_ms, last = timed_events(prefill, device, iters)
+            with dispatch_tally() as tally:
+                ms, ev_ms, last = timed_events(prefill, device, iters)
             row = {"name": name, "E": E, "logits": last, "prefill_ms": ms,
                    "prefill_event_ms": ev_ms,
                    "prefill_tok_s": B * prefill_len / ms * 1e3,
                    "prefill_launches": _since(c0),
                    "prefill_variants": _variants_since(v0),
                    "rel_flops": rel_flops(cfg, E, B, prefill_len)}
+            if lm is None:
+                row["prefill_kept"] = kept_share(tally, mesh)
             if fills:
                 if lm is None:
                     _, caches = lm_prefill(params, prompt, cfg, E=E,
-                                           max_len=total)
+                                           max_len=total, mesh=mesh)
                     step = lambda t: lm_decode(params, caches, t, cfg,
-                                               E=E)[0]
+                                               E=E, mesh=mesh)[0]
                 else:      # the timed prefills filled the static caches
                     step = lambda t: lm.decode(t, E)
                 outs, pairs = [], []
                 synchronize(device)
                 c0, v0 = launch_counts(), variant_counts()
                 t0 = time.perf_counter()
-                for t in range(prefill_len, total):
-                    ev = _events(device)
-                    if ev is not None:
-                        ev[0].record()
-                    outs.append(step(tokens[:, t:t + 1]))
-                    if ev is not None:
-                        ev[1].record()
-                    pairs.append(ev)
-                synchronize(device)
+                with dispatch_tally() as tally:
+                    for t in range(prefill_len, total):
+                        ev = _events(device)
+                        if ev is not None:
+                            ev[0].record()
+                        outs.append(step(tokens[:, t:t + 1]))
+                        if ev is not None:
+                            ev[1].record()
+                        pairs.append(ev)
+                    synchronize(device)
                 row["decode_event_ms"] = _event_ms(pairs)
                 row["decode_ms"] = (time.perf_counter() - t0) / steps * 1e3
                 row["decode_tok_s"] = B / row["decode_ms"] * 1e3
                 row["decode_launches"] = _since(c0)
                 row["decode_variants"] = _variants_since(v0)
                 row["decode_logits"] = torch.stack(outs)
+                if lm is None:
+                    row["decode_kept"] = kept_share(tally, mesh)
             rows.append(row)
     if lm is not None:
         rows[-1]["graph_pool_bytes"] = lm.pool_bytes()
@@ -265,25 +334,26 @@ def parse_args(argv=None):
     ap.add_argument("--decode-steps", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3,
                     help="timed prefills per point, after one warm-up")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL (e.g. 1x2): serve across that many "
+                         "ranks (a2a expert dispatch, sequence-sharded "
+                         "decode cache)")
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def serving_config(args) -> tuple:
+    """(full config, the config served, prompt length) of ``args``."""
     arch = get_arch(args.arch)
     if arch.family != "lm":
         raise SystemExit("elastic_moe: LM archs only")
     full = arch.make_config()
     cfg = arch.make_smoke() if args.smoke else one_card(arch.arch_id, full)
-    device = resolve_device(args.device)
-    S = args.prefill_len or (32 if args.smoke else 512)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm_init(gen, cfg, device=device, dtype=cfg.cdtype())
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (args.batch, S + args.decode_steps),
-                           generator=gen, device=device)
-    where = str(device) + (f" ({torch.cuda.get_device_name(device)})"
-                           if device.type == "cuda" else "")
+    if args.mesh:
+        cfg = mesh_config(cfg)
+    return full, cfg, args.prefill_len or (32 if args.smoke else 512)
+
+
+def header(args, full: LMConfig, cfg: LMConfig, S: int, where: str) -> None:
     depth = f"{cfg.n_layers}L"
     if not args.smoke and cfg.n_layers < full.n_layers:
         depth = (f"{cfg.n_layers} of {full.n_layers} layers (one-card cut, "
@@ -294,14 +364,26 @@ def main(argv=None):
     print(f"{cfg.name}: {depth}, {kind}, {cfg.compute_dtype}, on {where}")
     print(f"prefill {args.batch} x {S} tokens, then {args.decode_steps} "
           f"teacher-forced decode steps\n")
-    rows = run(params, cfg, tokens, S, iters=args.iters)
+
+
+def _share(x) -> str:
+    return "n/a" if x is None else f"{100 * x:.1f}%"
+
+
+def report(rows: list, args) -> bool:
+    """Print the table of ``rows`` (the kept shares beside the times where
+    the run counted them); returns whether every logit is finite."""
+    kept = "prefill_kept" in rows[0]
     print(f"{'operating point':24s} {'prefill':>10s} {'tok/s':>10s} "
-          f"{'rel flops':>10s} {'decode/step':>12s}")
+          f"{'rel flops':>10s} {'decode/step':>12s}"
+          + (f" {'kept (prefill, decode)':>24s}" if kept else ""))
     for r in rows:
         dec = (f"{r['decode_ms']:10.2f}ms" if "decode_ms" in r
                else f"{'n/a (F4)':>12s}")
+        ks = (f" {_share(r['prefill_kept']):>12s}"
+              f" {_share(r.get('decode_kept')):>11s}" if kept else "")
         print(f"{r['name']:24s} {r['prefill_ms']:8.2f}ms "
-              f"{r['prefill_tok_s']:10.0f} {r['rel_flops']:9.2f}x {dec}")
+              f"{r['prefill_tok_s']:10.0f} {r['rel_flops']:9.2f}x {dec}{ks}")
     full = rows[0]
     per = lambda d, n: {k: v // n for k, v in d.items()}
     print(f"\nkernel launches at {full['name']}: per prefill "
@@ -311,7 +393,74 @@ def main(argv=None):
              if "decode_launches" in full else ""))
     finite = all(bool(torch.isfinite(r["logits"]).all()) for r in rows)
     print(f"all logits finite: {finite}")
-    if not finite:
+    return finite
+
+
+def serve_rank(rank: int, world: int, init_file: str, argv) -> dict:
+    """One rank of ``--mesh``: bring the rank up, draw the weights keeping
+    its block, run every operating point; rank 0 prints.  Returns the
+    rank's summary (plain values)."""
+    args = parse_args(argv)
+    _, cfg, S = serving_config(args)
+    nd, nm = parse_mesh(args.mesh)
+    dev = ctx.init_ranks(rank, world, init_file, args.device)
+    mesh = make_mesh((nd, nm), ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = lm_init(gen, cfg, device=dev, dtype=cfg.cdtype(),
+                     shard=rank_shard(mesh))
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (args.batch, S + args.decode_steps),
+                           generator=gen, device=dev)
+    rows = run(params, cfg, tokens, S, iters=args.iters, mesh=mesh)
+    finite = report(rows, args) if rank == 0 else all(
+        bool(torch.isfinite(r["logits"]).all()) for r in rows)
+    return {"finite": finite, "points": [
+        {k: r.get(k) for k in ("name", "prefill_ms", "decode_ms",
+                               "prefill_kept", "decode_kept")}
+        for r in rows]}
+
+
+def main_mesh(args, argv) -> list:
+    """``--mesh``: build the kernels here, then spawn the ranks."""
+    full, cfg, S = serving_config(args)
+    nd, nm = parse_mesh(args.mesh)
+    world = nd * nm
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        from repro_torch.kernels import build
+        build.build()
+        n = torch.cuda.device_count()
+        where = (f"{world} ranks on {min(world, n)} x "
+                 f"{torch.cuda.get_device_name(device)}")
+    else:
+        where = f"{world} ranks on the CPU"
+    header(args, full, cfg, S, f"{where}, mesh {nd} x {nm} (data, model)")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ctx.spawn_ranks(serve_rank, world,
+                              (os.path.join(tmp, "rendezvous"), argv),
+                              timeout_s=MESH_TIMEOUT_S)
+    if not all(r["finite"] for r in out):
+        raise SystemExit(1)
+    return out
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.mesh:
+        main_mesh(args, list(sys.argv[1:] if argv is None else argv))
+        return
+    full, cfg, S = serving_config(args)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm_init(gen, cfg, device=device, dtype=cfg.cdtype())
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (args.batch, S + args.decode_steps),
+                           generator=gen, device=device)
+    where = str(device) + (f" ({torch.cuda.get_device_name(device)})"
+                           if device.type == "cuda" else "")
+    header(args, full, cfg, S, where)
+    rows = run(params, cfg, tokens, S, iters=args.iters)
+    if not report(rows, args):
         raise SystemExit(1)
 
 

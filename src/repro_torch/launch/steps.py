@@ -5,10 +5,14 @@ Counterparts of the ``train_step``, ``prefill`` and ``decode`` closures
 of the reference's ``launch/steps.py:_lm_cell``, the ``train_step`` of
 its ``_vis_cell``, the ``train_step`` and ``gen_step`` of its
 ``_diff_cell``, its ``_accum_grads`` and ``build_cell``'s
-``cfg_overrides``, without mesh or sharding (one card).  The functions
-run eagerly; :class:`LMGraphs` runs the prefill and the decode step as
-CUDA graphs on the card, the counterpart of the reference's jit-compiled
-closures.
+``cfg_overrides``.  Training runs on one card; the LM's prefill and
+decode also run under a device mesh (``mesh=``: one rank of it, the
+experts split over ``"model"``, the decode cache over the sequence as
+the reference's ``_lm_cell`` rule has it: over every axis below a batch
+of 16), eagerly (gloo's collectives cannot be captured in a CUDA graph).
+The functions run eagerly; :class:`LMGraphs` runs the one-card prefill
+and decode step as CUDA graphs on the card, the counterpart of the
+reference's jit-compiled closures.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch
 
 from repro_torch.configs.registry import vision_family
 from repro_torch.core.distill import ce_loss
+from repro_torch.distributed.decode_attn import (batch_block, is_sharded,
+                                                 seq_start)
 from repro_torch.graphs import Graph, new_pool, pool_bytes
 from repro_torch.models import diffusion as diff
 from repro_torch.models.dit import dit_apply
@@ -203,7 +209,7 @@ def make_lm_train_step(cfg: LMConfig, update_fn: Callable, accum: int = 1,
 
 def lm_prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
                E=None, max_len: Optional[int] = None,
-               caches: Optional[dict] = None):
+               caches: Optional[dict] = None, mesh=None):
     """tokens (B, S) -> last-position logits (B, V), as the reference's
     prefill returns them.  With ``max_len``, also returns decode caches of
     ``max_len`` slots holding this prefill's k and v (filled to S), ready
@@ -211,11 +217,15 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
     :func:`make_decode_caches`) it writes into those in place instead,
     their ``len`` set to S on the device (no host sync: a graph of it
     refills the same caches).  Like decode, that raises at a sliced depth
-    or head count (fault F4)."""
+    or head count (fault F4).  Under a ``mesh`` (this rank's part) the
+    caches are this rank's block of each, as :func:`make_decode_caches`
+    gives them, filled with its rows and slots of this prefill's k and
+    v."""
     want = max_len is not None or caches is not None
     if want:
         check_decodable(cfg, E)
-    logits, _, kv = lm_apply(params, tokens, cfg, E=E, return_kv=want)
+    logits, _, kv = lm_apply(params, tokens, cfg, E=E, return_kv=want,
+                             mesh=mesh)
     # a copy, not a view: a view would keep the (B, S, V) logits alive
     last = logits[:, -1, :].clone()
     if not want:
@@ -223,22 +233,30 @@ def lm_prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig, *,
     B, S = tokens.shape
     if caches is None:
         caches = make_decode_caches(cfg, B, max_len, dtype=cfg.cdtype(),
-                                    device=tokens.device)
+                                    device=tokens.device, mesh=mesh)
+    rows, start = slice(None), 0
     for name, layers in kv.items():
         for c, new in zip(caches[name], layers):
-            c["k"][:, :S] = new["k"]
-            c["v"][:, :S] = new["v"]
+            if is_sharded(cfg.decode_impl, mesh):
+                slots = c["k"].shape[1]
+                rows, start = batch_block(mesh, B), seq_start(mesh, B, slots)
+            n = min(max(S - start, 0), c["k"].shape[1])
+            c["k"][:, :n] = new["k"][rows, start:start + n]
+            c["v"][:, :n] = new["v"][rows, start:start + n]
             c["len"].fill_(S)
             c["fill"] = S
     return last, caches
 
 
 def lm_decode(params: dict, caches: dict, tokens: torch.Tensor,
-              cfg: LMConfig, *, E=None):
+              cfg: LMConfig, *, E=None, mesh=None):
     """One decode step: tokens (B, 1) against ``caches`` (updated in place)
     -> (logits (B, V), caches).  Raises NotImplementedError at a sliced
-    depth or head count, where the reference's decode fails (fault F4)."""
-    logits, _, caches = lm_apply(params, tokens, cfg, E=E, caches=caches)
+    depth or head count, where the reference's decode fails (fault F4).
+    Under a ``mesh``, this rank's step against its cache blocks (the
+    logits whole on every rank)."""
+    logits, _, caches = lm_apply(params, tokens, cfg, E=E, caches=caches,
+                                 mesh=mesh)
     return logits[:, -1, :], caches
 
 

@@ -17,9 +17,19 @@ and the shared experts run on the elastic matmul (K1).
   weighted by the gates in the compute dtype, as the reference combine.
 * ``dense`` — every expert on every token, combined by gate weight: the
   numerics oracle, as in the reference.
-* ``a2a`` — the reference's shard_map all-to-all.  With no mesh the
-  reference takes the einsum path, and so does the port; with a mesh the
-  port raises (multi-device is queue 1, item 11 of ROADMAP.md).
+* ``a2a`` — the reference's expert-parallel dispatch over a device mesh
+  (a ``DeviceMesh``; :func:`_moe_a2a`): each rank holds the routed
+  experts of its block of the ``"model"`` axis, takes its (batch,
+  sequence) block of the tokens, routes and slots them (capacity per
+  rank's token set, ``C = max(4, ceil(T_loc k cf / E))``), sends each
+  expert's rows to the rank that holds it and gets them back with
+  ``all_to_all``, runs K3 over its local experts' live rows and gathers
+  the outputs along the sequence; the aux loss is the mean over ranks.
+  At decode shapes (S not divisible by the ``"model"`` size, where the
+  reference falls back to the einsum dispatch over GSPMD-sharded
+  experts) each rank runs the GShard dispatch for its own experts and
+  one ``all_reduce`` sums the partial combines.  With no mesh the
+  reference takes the einsum path, and so does the port.
 
 Elastic knobs: ``a_experts`` routes to the first n experts only (K3 reads
 the first n expert weights in place), ``top_k`` and ``a_ff`` (per-expert
@@ -35,14 +45,17 @@ reads its widths on the host.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core import layers as L
+from repro_torch.distributed import ctx
 from repro_torch.kernels.ops import expert_matmul_op
 
 
@@ -56,23 +69,24 @@ class MoEConfig:
     router_aux_weight: float = 0.01
     group_size: int = 256         # einsum dispatch group
     dispatch: str = "einsum"      # einsum | a2a | dense
-    expert_axis: str = "model"    # the reference's mesh axis; unused here
+    expert_axis: str = "model"    # mesh axis experts are sharded over (a2a)
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
-             dtype=torch.float32, device=None) -> dict:
+             dtype=torch.float32, device=None, keep=None) -> dict:
     """The reference's distributions; the router is fp32 whatever
-    ``dtype`` is, as the reference keeps it."""
+    ``dtype`` is, as the reference keeps it.  ``keep(name, t)`` (e.g. a
+    rank's block of the expert axis) runs on each routed expert weight
+    as soon as it is drawn, before the next draw."""
     E, f = cfg.n_experts, cfg.d_ff
     s = 1.0 / math.sqrt(d_model)
-    p = {
-        "router": L.dense_init(gen, d_model, E, bias=False,
-                               dtype=torch.float32, device=device),
-        "wi": L._normal(gen, (E, d_model, f), s, dtype, device),
-        "wg": L._normal(gen, (E, d_model, f), s, dtype, device),
-        "wo": L._normal(gen, (E, f, d_model), 1.0 / math.sqrt(f), dtype,
-                        device),
-    }
+    keep = keep or (lambda name, t: t)
+    p = {"router": L.dense_init(gen, d_model, E, bias=False,
+                                dtype=torch.float32, device=device)}
+    p["wi"] = keep("wi", L._normal(gen, (E, d_model, f), s, dtype, device))
+    p["wg"] = keep("wg", L._normal(gen, (E, d_model, f), s, dtype, device))
+    p["wo"] = keep("wo", L._normal(gen, (E, f, d_model), 1.0 / math.sqrt(f),
+                                   dtype, device))
     if cfg.n_shared:
         p["shared"] = L.mlp_init(gen, d_model, cfg.d_ff * cfg.n_shared,
                                  gated=True, dtype=dtype, device=device)
@@ -167,7 +181,11 @@ def dispatch_plan(top_idx: torch.Tensor, n_experts: int, capacity: int):
         kept.sum(0).to(torch.int32)
 
 
-def _moe_einsum(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e):
+def _moe_einsum(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e,
+                own=None):
+    """The GShard dispatch.  ``own`` = (lo, hi): the a2a decode's rank,
+    whose ``p`` holds experts lo .. hi - 1 only: it computes those
+    experts' slots and returns its partial combine in fp32."""
     B, S, d = x.shape
     # group over FLATTENED tokens, as the reference does: decode-style
     # shapes (B x 1) form one group of B tokens
@@ -186,25 +204,165 @@ def _moe_einsum(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e):
     C = max(4, int(math.ceil(g * top_k * cfg.capacity_factor
                              / cfg.n_experts)))
     dest, keep, counts = dispatch_plan(top_idx, E, C)
-    # each token top_k times, in order (no host sync: graph-capturable)
+    _tally(keep)
+    n_slab, n_e = G * C, E
+    if own is not None:       # the slots of experts lo .. hi - 1 alone
+        lo, hi = min(own[0], E), min(own[1], E)
+        idx = top_idx.reshape(-1)
+        keep = keep & (idx >= lo) & (idx < hi)
+        n_e, slice_e, counts = hi - lo, hi - lo, counts[lo:hi]
+        dest = torch.where(keep, dest - lo * n_slab, n_e * n_slab)
+    if not n_e:               # a rank past the sliced expert count
+        y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    else:
+        # each token top_k times, in order (no host sync: graph-capturable)
+        tok = torch.div(torch.arange(T * top_k, device=x.device), top_k,
+                        rounding_mode="floor")
+        xf = x.reshape(T, d)
+        slabs = x.new_zeros((n_e * n_slab + 1, d))
+        slabs.index_copy_(0, dest, xf[tok])  # dropped slots: the scratch row
+        out = _expert_ffn(p, slabs[:-1].view(n_e, n_slab, d), counts,
+                          a_ff=a_ff, slice_e=slice_e)
+        # index_select, not indexing: its backward adds each slot's
+        # gradient into its row (index_add_), where indexing's sorts the
+        # indices and accumulates the dropped slots' row 0 serially (7.1
+        # of the train_4k step's 25.6 s of device time on an H100:
+        # PERF.md).  A dropped slot's gradient is exactly 0 (gate 0), so
+        # the sums are the same bits.
+        rows = out.reshape(n_e * n_slab, d).index_select(
+            0, torch.where(keep, dest, 0))
+        gates = (top_vals.reshape(-1) * keep).to(x.dtype)
+        y = (rows.to(torch.float32) * gates.to(torch.float32)[:, None]) \
+            .reshape(T, top_k, d).sum(1)
+    if own is None:
+        y = y.to(x.dtype)
+    return y.reshape(B, S, d), _aux_loss(probs, top_idx, cfg)
+
+
+# ---------------------------------------------------------------------------
+# all-to-all expert-parallel dispatch over a mesh
+# ---------------------------------------------------------------------------
+
+def _a2a_axes(mesh, cfg: MoEConfig) -> tuple:
+    """(expert axis, batch axes): the tokens' batch is split over every
+    other mesh axis, their sequence over the expert axis."""
+    ax = cfg.expert_axis
+    names = tuple(mesh.mesh_dim_names)
+    if ax not in names:
+        raise ValueError(f"a2a: mesh axes {names} lack the expert axis "
+                         f"{ax!r}")
+    return ax, tuple(a for a in names if a != ax)
+
+
+def _local_experts(p: dict, cfg: MoEConfig, n: int) -> int:
+    E_loc = p["wi"].shape[0]
+    if E_loc * n != cfg.n_experts:
+        raise ValueError(f"a2a: {E_loc} local experts x {n} ranks != "
+                         f"{cfg.n_experts} experts (want this rank's block "
+                         f"of the expert axis: distributed.sharding)")
+    return E_loc
+
+
+def _moe_a2a(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, mesh):
+    """The reference's shard_map body on this rank (``p``'s routed experts
+    are its block of the expert axis; ``x`` (B, S, d) is replicated)."""
+    B, S, d = x.shape
+    ax, b_axes = _a2a_axes(mesh, cfg)
+    n = ctx.axes_size(mesh, (ax,))
+    n_b = ctx.axes_size(mesh, b_axes)
+    if B % n_b:
+        raise ValueError(f"a2a: batch {B} does not split over {n_b} ranks")
+    E = cfg.n_experts
+    E_loc = _local_experts(p, cfg, n)
+    bi, si = ctx.axes_index(mesh, b_axes), ctx.axes_index(mesh, (ax,))
+    B_loc, S_loc = B // n_b, S // n
+    xl = x[bi * B_loc:(bi + 1) * B_loc, si * S_loc:(si + 1) * S_loc]
+    T = B_loc * S_loc
+    xf = xl.reshape(T, d)
+    probs, top_vals, top_idx = _router(p, xf, cfg, a_experts, top_k)
+    # slots counted per expert in (token, k) order: where the reference's
+    # stable sort by expert puts them; past C they drop
+    C = max(4, int(math.ceil(T * top_k * cfg.capacity_factor / E)))
+    dest, keep, counts = dispatch_plan(top_idx.reshape(1, T, top_k), E, C)
+    _tally(keep)
     tok = torch.div(torch.arange(T * top_k, device=x.device), top_k,
                     rounding_mode="floor")
-    xf = x.reshape(T, d)
-    slabs = x.new_zeros((E * G * C + 1, d))
-    slabs.index_copy_(0, dest, xf[tok])    # dropped slots: the scratch row
-    out = _expert_ffn(p, slabs[:-1].view(E, G * C, d), counts, a_ff=a_ff,
-                      slice_e=slice_e)
-    # index_select, not indexing: its backward adds each slot's gradient
-    # into its row (index_add_), where indexing's sorts the indices and
-    # accumulates the dropped slots' row 0 serially (7.1 of the train_4k
-    # step's 25.6 s of device time on an H100: PERF.md).  A dropped slot's
-    # gradient is exactly 0 (gate 0), so the sums are the same bits.
-    rows = out.reshape(E * G * C, d).index_select(
-        0, torch.where(keep, dest, 0))
-    gates = (top_vals.reshape(-1) * keep).to(x.dtype)
+    send = x.new_zeros((E * C + 1, d))
+    send.index_copy_(0, dest, xf[tok])        # dropped: the scratch row
+    group = ctx.axes_group(mesh, (ax,))
+    # rank r gets the (E_loc, C) slabs of its experts from every rank, and
+    # how many rows of each are live
+    recv = ctx.all_to_all(send[:-1], group).view(n, E_loc, C, d)
+    live = ctx.all_to_all(counts, group).view(n, E_loc)
+    # pack each local expert's live rows, source after source, into one
+    # slab for K3 (it skips the rows past each count)
+    pos = torch.arange(C, device=x.device)
+    first = torch.cumsum(live, 0) - live                 # rows before src
+    e_of = torch.arange(E_loc, device=x.device)[None, :, None]
+    alive = pos[None, None, :] < live[:, :, None]        # (n, E_loc, C)
+    slot = torch.where(alive, e_of * (n * C) + first[:, :, None] + pos,
+                       E_loc * n * C).reshape(-1)
+    slabs = x.new_zeros((E_loc * n * C + 1, d))
+    slabs.index_copy_(0, slot, recv.reshape(-1, d))
+    out = _expert_ffn(p, slabs[:-1].view(E_loc, n * C, d),
+                      live.sum(0, dtype=torch.int32), a_ff=a_ff)
+    out = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))])
+    back = ctx.all_to_all(out.index_select(0, slot), group)   # (E*C, d)
+    rows = back.index_select(0, torch.where(keep.reshape(-1), dest, 0))
+    gates = (top_vals.reshape(-1) * keep.reshape(-1)).to(x.dtype)
     y = (rows.to(torch.float32) * gates.to(torch.float32)[:, None]) \
         .reshape(T, top_k, d).sum(1).to(x.dtype)
-    return y.reshape(B, S, d), _aux_loss(probs, top_idx, cfg)
+    # put the (B_loc, S_loc) blocks back together: batch blocks over the
+    # batch axes, sequence blocks over the expert axis (row-major ranks)
+    y = ctx.gather_axes(y.reshape(B_loc, S_loc, d), mesh, (ax,), dim=1)
+    y = ctx.gather_axes(y, mesh, b_axes, dim=0)
+    aux = ctx.all_reduce(_aux_loss(probs, top_idx, cfg).reshape(1), "sum",
+                         ctx.axes_group(mesh, mesh.mesh_dim_names))
+    return y, aux[0] / mesh.size()
+
+
+def _moe_a2a_decode(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e,
+                    mesh):
+    """Decode shapes: the GShard dispatch of every token on every rank,
+    each rank computing its own experts' slots; one ``all_reduce`` over
+    the expert axis sums the partial combines."""
+    ax, _ = _a2a_axes(mesh, cfg)
+    E_loc = _local_experts(p, cfg, ctx.axes_size(mesh, (ax,)))
+    e0 = ctx.axes_index(mesh, (ax,)) * E_loc
+    y, aux = _moe_einsum(p, x, cfg, a_experts, top_k, a_ff, slice_e,
+                         own=(e0, e0 + E_loc))
+    y = ctx.all_reduce(y, "sum", ctx.axes_group(mesh, (ax,)))
+    return y.to(x.dtype), aux
+
+
+# the open tally's (kept, routed) slot counts, per thread and context
+_TALLY: contextvars.ContextVar = contextvars.ContextVar("moe_tally",
+                                                        default=None)
+
+
+def _tally(keep: torch.Tensor) -> None:
+    rows = _TALLY.get()
+    if rows is not None:
+        rows.append((keep.sum(), keep.numel()))
+
+
+class dispatch_tally:
+    """``with dispatch_tally() as t:`` collects the (kept, routed) slot
+    counts of every dispatch (einsum and a2a) in the block as device
+    tensors (no sync inside it); ``t.counts()`` reads their sums."""
+
+    def __enter__(self):
+        self.rows: list = []
+        self._token = _TALLY.set(self.rows)
+        return self
+
+    def __exit__(self, *exc):
+        _TALLY.reset(self._token)
+        return False
+
+    def counts(self) -> tuple:
+        return (sum(int(k) for k, _ in self.rows),
+                sum(n for _, n in self.rows))
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
@@ -214,7 +372,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
 
     ``a_experts`` and ``a_ff`` are ints (sliced mode) or 0-d tensors
     (masked mode, read on the host: the module note); ``top_k`` is an int
-    in both, as the reference's.  The dispatch, the combine and the aux
+    in both, as the reference's.  ``mesh`` (a ``DeviceMesh``) runs the
+    ``a2a`` dispatch on this rank, whose ``p`` holds its block of the
+    routed experts; as the reference's, the a2a router masks the experts
+    past ``a_experts`` but never slices them.  The dispatch, the combine and the aux
     loss carry gradients on both routes; on the card the routed experts'
     gradients are K3's dgrad and wgrad kernels, through the casts of the
     fp32 weights.
@@ -231,10 +392,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
     elif cfg.dispatch == "einsum" or (cfg.dispatch == "a2a" and mesh is None):
         y, aux = _moe_einsum(p, x, cfg, a_experts, top_k, a_ff, slice_e)
     elif cfg.dispatch == "a2a":
-        raise NotImplementedError(
-            "moe_apply: the all-to-all dispatch over a device mesh comes "
-            "with the multi-device slice of the port (ROADMAP.md queue 1, "
-            "item 11)")
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"moe_apply: the a2a dispatch wants a "
+                            f"torch.distributed DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+        if x.shape[1] % ctx.axes_size(mesh, (cfg.expert_axis,)):
+            y, aux = _moe_a2a_decode(p, x, cfg, a_experts, top_k, a_ff,
+                                     slice_e, mesh)
+        else:
+            y, aux = _moe_a2a(p, x, cfg, a_experts, top_k, a_ff, mesh)
     else:
         raise ValueError(cfg.dispatch)
 

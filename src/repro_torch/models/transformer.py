@@ -17,6 +17,14 @@ loop).  Every dense product runs on the elastic matmul (K1), attention on
 flash attention (K2, head dim 128 for the LMs, 112 for kimi-k2) and every
 routed expert product on the expert-gated matmul (K3).
 
+Under a device ``mesh`` (``lm_apply(..., mesh=)``, one rank of it) the
+parameters are the rank's (:func:`lm_init`'s ``shard``; the routed
+experts split over ``"model"``, the rest replicated), the MoE layers take
+``cfg.moe.dispatch`` (``"a2a"``: expert parallelism) and decode takes
+``cfg.decode_impl`` (``"sharded"``: each rank holds a block of the cache's
+sequence, :func:`make_decode_caches`); everything else runs replicated
+on every rank (ROADMAP §3).
+
 ``remat`` other than ``"none"`` runs each layer under
 ``torch.utils.checkpoint`` when a gradient is wanted: a full recompute of
 the layer in the backward (the reference's ``dots_nb`` policy saves the
@@ -27,7 +35,7 @@ kernel/plain route (it runs on autograd's thread).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import layers as L
 from repro_torch.core.types import ElasticSpace
 from repro_torch.device import resolve_device
+from repro_torch.distributed.decode_attn import is_sharded, local_cache_shape
 from repro_torch.kernels import ops
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
@@ -58,8 +67,9 @@ class LMConfig:
     moe: Optional[MoEConfig] = None
     first_k_dense: int = 0
     d_ff_dense: Optional[int] = None     # FFN width of leading dense layers
-    # the reference's attention/decode variants; the port runs every
-    # attention through K2, so these are unused here
+    # the reference's attention variants: the port runs every attention
+    # through K2, so unused here; decode_impl "sharded" decodes against a
+    # sequence-sharded cache under a mesh (two-pass softmax)
     attn_impl: str = "ref"               # ref | blocked_scan | blocked_causal
     decode_impl: str = "xla"             # xla | sharded (two-pass softmax)
     block_q: int = 512
@@ -106,19 +116,29 @@ def _dense_layer_init(gen, cfg: LMConfig, dtype, device) -> dict:
     }
 
 
-def _moe_layer_init(gen, cfg: LMConfig, dtype, device) -> dict:
+def _moe_layer_init(gen, cfg: LMConfig, dtype, device, keep=None) -> dict:
     return {
         "ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
         "attn": _attn_init(gen, cfg, dtype, device),
         "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
         "moe": moe_init(gen, cfg.d_model, cfg.moe, dtype=dtype,
-                        device=device),
+                        device=device, keep=keep),
     }
+
+
+def _map_leaves(fn, tree, path: str):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v, f"{path}/{i}") for i, v in enumerate(tree)]
+    return fn(path, tree)
 
 
 def lm_init(gen: torch.Generator, cfg: LMConfig, *,
             device: Optional[torch.device] = None,
-            dtype: Optional[torch.dtype] = None) -> dict:
+            dtype: Optional[torch.dtype] = None,
+            shard: Optional[Callable] = None) -> dict:
     """Random parameters with the reference's distributions (normal
     kernels scaled by 1/sqrt(fan_in), 0.02-scaled embedding, unit norms),
     drawn from ``gen``, tensor by tensor, in ``dtype`` (default the
@@ -129,22 +149,45 @@ def lm_init(gen: torch.Generator, cfg: LMConfig, *,
     the generator's device: give a generator on the card for a full-size
     model (16.4 B normals drawn on the CPU would take minutes and host
     memory the size of the model in fp32).
+
+    ``shard(path, t)`` (a rank's block of each leaf under a mesh:
+    ``distributed.sharding``; paths as ``moe_layers/3/moe/wi``) runs on
+    every leaf, the routed experts' as soon as each is drawn, the others
+    once their layer is: the draws are the one-process run's, and a rank
+    never holds more than one whole expert weight beside its blocks.
     """
     device = resolve_device(device)
     dtype = cfg.pdtype() if dtype is None else dtype
-    params = {"embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
-                                        dtype, device),
-              "final_norm": L.rmsnorm_init(cfg.d_model, dtype, device)}
+    cut = (lambda path, t: t) if shard is None else shard
+
+    def part(path, tree):
+        return _map_leaves(cut, tree, path) if shard is not None else tree
+
+    params = {"embed": part("embed", L.embedding_init(
+                  gen, cfg.vocab_size, cfg.d_model, dtype, device)),
+              "final_norm": part("final_norm", L.rmsnorm_init(
+                  cfg.d_model, dtype, device))}
     if cfg.n_dense_layers:
-        params["dense_layers"] = [_dense_layer_init(gen, cfg, dtype, device)
-                                  for _ in range(cfg.n_dense_layers)]
+        params["dense_layers"] = [
+            part(f"dense_layers/{i}", _dense_layer_init(gen, cfg, dtype,
+                                                        device))
+            for i in range(cfg.n_dense_layers)]
     if cfg.n_moe_layers:
-        params["moe_layers"] = [_moe_layer_init(gen, cfg, dtype, device)
-                                for _ in range(cfg.n_moe_layers)]
+        layers = []
+        for i in range(cfg.n_moe_layers):
+            at = f"moe_layers/{i}"
+            lp = _moe_layer_init(
+                gen, cfg, dtype, device,
+                keep=lambda name, t, at=at: cut(f"{at}/moe/{name}", t))
+            experts = {k: lp["moe"].pop(k) for k in ("wi", "wg", "wo")}
+            lp = part(at, lp)
+            lp["moe"].update(experts)
+            layers.append(lp)
+        params["moe_layers"] = layers
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                         bias=False, dtype=dtype,
-                                         device=device)
+        params["lm_head"] = part("lm_head", L.dense_init(
+            gen, cfg.d_model, cfg.vocab_size, bias=False, dtype=dtype,
+            device=device))
     return params
 
 
@@ -153,7 +196,7 @@ def lm_init(gen: torch.Generator, cfg: LMConfig, *,
 # ---------------------------------------------------------------------------
 
 def _block(h, lp, cfg: LMConfig, E, *, is_moe: bool, kv_cache=None,
-           return_kv: bool):
+           return_kv: bool, mesh=None):
     """One transformer block.  Returns (h, aux_loss, new_cache)."""
     a_model = E.get("a_model")
     a_ff = E.get("a_ff")
@@ -162,13 +205,14 @@ def _block(h, lp, cfg: LMConfig, E, *, is_moe: bool, kv_cache=None,
         lp["attn"], hn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         d_head=cfg.d_head, causal=True, rope_theta=cfg.rope_theta,
         a_model=a_model, a_heads=E.get("a_heads"), kv_cache=kv_cache,
-        return_kv=return_kv)
+        return_kv=return_kv, decode_impl=cfg.decode_impl, mesh=mesh)
     h = h + attn_out
     hn = L.rmsnorm_apply(lp["ln2"], h, a=a_model, eps=cfg.norm_eps)
     if is_moe:
         ff, aux = moe_apply(lp["moe"], hn, cfg.moe,
                             a_experts=E.get("a_experts"),
-                            top_k=E.get("top_k"), a_ff=a_ff, a_model=a_model)
+                            top_k=E.get("top_k"), a_ff=a_ff, a_model=a_model,
+                            mesh=mesh)
     else:
         ff = L.mlp_apply(lp["mlp"], hn, a_model=a_model,
                          a_ff=E.get("a_ff_dense", a_ff), act=cfg.act)
@@ -181,14 +225,15 @@ def _remat_block(h, lp, cfg: LMConfig, E, is_moe: bool):
 
 
 def _stack(h, stack, cfg: LMConfig, E, *, is_moe: bool, caches=None,
-           return_kv: bool):
+           return_kv: bool, mesh=None):
     """The layers of one homogeneous stack in order (the reference's scan);
     each under ``checkpoint`` when ``cfg.remat`` asks for it and a
     gradient is wanted (h requires one)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
     remat = cfg.remat != "none" and torch.is_grad_enabled() \
-        and h.requires_grad and caches is None and not return_kv
+        and h.requires_grad and caches is None and not return_kv \
+        and mesh is None
     for i, lp in enumerate(stack):
         if remat:
             h, a = checkpoint(_remat_block, h, lp, cfg, E, is_moe,
@@ -198,7 +243,7 @@ def _stack(h, stack, cfg: LMConfig, E, *, is_moe: bool, caches=None,
         else:
             h, a, nc = _block(h, lp, cfg, E, is_moe=is_moe,
                               kv_cache=None if caches is None else caches[i],
-                              return_kv=return_kv)
+                              return_kv=return_kv, mesh=mesh)
         aux = aux + a
         new_caches.append(nc)
     return h, aux, (new_caches if new_caches[0] is not None else None)
@@ -218,7 +263,7 @@ def check_decodable(cfg: LMConfig, E) -> None:
 
 
 def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
-             caches=None, return_kv: bool = False):
+             caches=None, return_kv: bool = False, mesh=None):
     """tokens (B, S) int -> logits (B, S, V).
 
     Returns (logits, aux_loss, new_caches).  ``caches`` is a dict
@@ -229,7 +274,8 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
     ``E``'s widths are ints (sliced mode) or 0-d int32 CPU tensors
     (masked mode: the module note; ``top_k`` stays an int).  Decode at a
     sliced or masked depth or head count raises
-    (:func:`check_decodable`).
+    (:func:`check_decodable`).  ``mesh``: this rank's part of a mesh run
+    (the module note); the logits come out whole on every rank.
     """
     E = {k: v if L._masked(v) or v is None else int(v)
          for k, v in (E or {}).items()}
@@ -257,13 +303,13 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
     if dense_stack:
         h, a, nc = _stack(h, dense_stack, cfg, E, is_moe=False,
                           caches=None if caches is None else caches["dense"],
-                          return_kv=return_kv)
+                          return_kv=return_kv, mesh=mesh)
         aux = aux + a
         new_caches["dense"] = nc
     if moe_stack:
         h, a, nc = _stack(h, moe_stack, cfg, E, is_moe=True,
                           caches=None if caches is None else caches["moe"],
-                          return_kv=return_kv)
+                          return_kv=return_kv, mesh=mesh)
         aux = aux + a
         new_caches["moe"] = nc
 
@@ -279,15 +325,23 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
 
 def make_decode_caches(cfg: LMConfig, batch: int, max_len: int, *,
                        dtype=torch.bfloat16, filled: int = 0,
-                       device: Optional[torch.device] = None) -> dict:
+                       device: Optional[torch.device] = None,
+                       mesh=None) -> dict:
     """Zeroed KV caches for decode, one dict per layer:
     {"k": (B, max_len, KH, Dh), "v": ..., "len": the fill point as a 0-d
     int32 on the device (the reference's traced scalar), "fill": the same
-    as a host int} (:func:`repro_torch.core.layers.kv_cache_of`)."""
+    as a host int} (:func:`repro_torch.core.layers.kv_cache_of`).  With a
+    ``mesh`` and ``cfg.decode_impl == "sharded"``, this rank's block:
+    (B_loc, T_loc, KH, Dh) by the reference's rule
+    (:func:`repro_torch.distributed.decode_attn.cache_axes`), ``len`` and
+    ``fill`` still the global fill."""
     device = resolve_device(device)
+    rows, slots = batch, max_len
+    if is_sharded(cfg.decode_impl, mesh):
+        rows, slots = local_cache_shape(mesh, batch, max_len)
 
     def one():
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+        shape = (rows, slots, cfg.n_kv_heads, cfg.d_head)
         return L.kv_cache_of(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device),
                              filled)
@@ -297,3 +351,5 @@ def make_decode_caches(cfg: LMConfig, batch: int, max_len: int, *,
     if cfg.n_moe_layers:
         out["moe"] = [one() for _ in range(cfg.n_moe_layers)]
     return out
+
+

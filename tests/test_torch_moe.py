@@ -285,7 +285,9 @@ def test_moe_apply_a2a_and_masked_knobs(setup):
     y_none, _ = TM.moe_apply(tp, xt, a2a)             # no mesh: einsum path
     y_ein, _ = TM.moe_apply(tp, xt, _tcfg(CFG))
     torch.testing.assert_close(y_none, y_ein, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a mesh runs the all-to-all dispatch (tests/test_torch_distributed.py);
+    # anything but a DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TM.moe_apply(tp, xt, a2a, mesh=object())
     # masked knobs (0-d tensors) equal the sliced ones: read on the host,
     # they take the sliced path
