@@ -427,6 +427,31 @@ times are not a multi-card speed):
     local experts, 2 x 120 rows, the live counts of the exchange) against
     its plain version, and their row beside ``torch.bmm`` and the bound.
 
+the LM trained across a 2 x 2 (data, model) mesh (four ranks sharing the
+one card over gloo, so its times are not a multi-card speed):
+
+29. deepseek-moe-16b at train_4k, full width, cut to its dense layer and
+    one MoE layer and to a global batch of 4 x 4096 as 2 microbatches:
+    (c)'s one-process step first, in this process (no slot drops, aux
+    weight 0; its gradients and routing kept), then four ranks: (a) the
+    main path, each rank the training launcher's own rank entry
+    (``--mesh 2x2``: the reference's TP and FSDP placement, the a2a
+    dispatch, remat) for 3 steps with a failure at step 1 and a restart
+    from step 0, the launch counts reset before it and read after, every
+    one of the eight kernels launched on every rank on its Hopper
+    variant, finite losses, step 0 the same bits after the restart; (b)
+    one step on the kernel route against the plain route on the plain
+    route's expert choice: the loss, the gradient norm and every
+    gradient block within stated tolerances, and AdamW's first update
+    where the gradient stands above them; (c) the mesh step against the
+    one-process step on its expert choice, within twice (b)'s
+    differences; (d) ``compressed_all_reduce`` over ``data`` on CUDA
+    tensors the same bits as on CPU copies, and fault F8's biased mean;
+    (e) rank 0's recorded calls of K1-K3 and their backward kernels,
+    timed beside the plain version, the library call and the bound.
+    Each phase's seconds end its log, and a ``phases_s`` line gathers
+    them.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -473,9 +498,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# (key, start) of every phase begun, in order: each phase's seconds run to
+# the next one's start (a phase's own sub-steps log their own)
+PHASES: list = []
+
+
 def phase(name: str):
+    now = time.perf_counter()
+    if PHASES:
+        log(f"  [phase {PHASES[-1][0]}: {now - PHASES[-1][1]:.1f} s]")
+    key = re.match(r"\d+\.(?: \([a-z]\)(?:, \([a-z]\))*)?", name)
+    PHASES.append((key.group(0) if key else name[:24], now))
     log(f"\n== {name}")
-    return time.perf_counter()
+    return now
+
+
+def phases_s(end: float) -> dict:
+    """Seconds by phase key (a key met twice sums), the last phase to
+    ``end``."""
+    out: dict = {}
+    for (k, t0), nxt in zip(PHASES, [t for _, t in PHASES[1:]] + [end]):
+        out[k] = round(out.get(k, 0.0) + nxt - t0, 1)
+    return out
 
 
 def card_line() -> str:
@@ -2060,14 +2104,17 @@ def step_breakdown(fn, groups=STEP_GROUPS, warmup: bool = True) -> dict:
         raise
     try:
         prof.stop()
-        events = prof.events()
+        # the trace's raw events: the device ones are read directly, not
+        # through torch's FunctionEvent tree over every host op (which
+        # took about a minute a step of ~100k launches)
+        events = prof.profiler.kineto_results.events()
     except RuntimeError as e:
         raise NoTrace(f"the profiler gave no trace: {e}") from e
     kernels = {}     # kernel name -> (ms, launches): the device events only
     for e in events:
-        if e.device_type == DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = kernels.get(e.name(), (0.0, 0))
+            kernels[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     if not kernels:
         raise NoTrace("the profiler recorded no device time")
     rows, other, top = {}, [], {}
@@ -4148,7 +4195,7 @@ def diffusion_phases(dev, parent) -> dict:
 LM_TRAIN_ARCH, LM_TRAIN_SHAPE = "deepseek-moe-16b", "train_4k"
 LM_TRAIN_ACCUM = 64           # 256 x 4096 as 64 microbatches of 4
 LM_TRAIN_CUT = {"n_layers": 4}     # 1 dense + 3 MoE layers, full width
-LM_TRAIN_STEPS = 3
+LM_TRAIN_STEPS = 2          # with the restart, 3 steps run
 # K2's backward against its plain version, of the largest gradient (bf16:
 # the kernel rounds P and dS to bf16 for its products); K3's dgrad and
 # wgrad of the largest value (bf16 outputs; fp32 sums in both)
@@ -6060,6 +6107,13 @@ def mesh_probe(mesh, dev) -> dict:
                        + 10 * r, group)
     got["all_to_all_single int32"] = a.tolist() == [10 * s + r
                                                     for s in range(n)]
+    # reduce_scatter_tensor on fp32 and bf16, as training's FSDP
+    # gradients and gathered activations take it
+    for dt in (torch.float32, torch.bfloat16):
+        rs = ctx.reduce_scatter(torch.arange(2 * n, dtype=dt, device=dev)
+                                + r, group)
+        got[f"reduce_scatter_tensor {str(dt)[6:]}"] = rs.float().tolist() \
+            == [float(n * (2 * r + i) + n * (n - 1) / 2) for i in range(2)]
     if not all(got.values()):
         raise AssertionError(f"gloo collectives on CUDA tensors: {got}")
     return got
@@ -6611,6 +6665,529 @@ def mesh_phases(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 29
+# deepseek-moe-16b trained across a 2 x 2 (data, model) mesh: four ranks on
+# cuda:0 over gloo (not a multi-card speed), the reference's TP and FSDP
+# placement (``param_specs``), train_4k at full width cut to its dense layer
+# and one MoE layer (``steps.SHARED_CARD_CUT``, phase 10's cut) and to a
+# global batch of 4 sequences of 4096 as 2 microbatches (a data block holds
+# 1 row of each): every FSDP block crosses gloo, through host memory, in
+# each microbatch's forward, remat's recompute and backward
+MT_MESH = (2, 2)
+MT_BATCH, MT_ACCUM, MT_STEPS = 4, 2, 3
+MT_CUT = {"n_layers": 2}
+MT_NO_DROP_CF = 64 / 6     # C >= a shard's tokens: no slot drops (phase 28)
+# (b), kernel route against plain route on the plain route's routing, bf16:
+# the loss and gradient norm (relative), each leaf's gradient (of its
+# largest value), and the share of a leaf's elements, among those whose
+# gradient stands above MT_GRAD_TOL of the leaf's largest, whose first
+# AdamW update moves by more than 1e-3 of the learning rate (the update
+# is g / (|g| + eps): below bf16's rounding its sign is noise, and a fifth
+# of a routed expert's elements flip there on the H100: PERF.md §6)
+MT_LOSS_TOL, MT_GNORM_TOL, MT_GRAD_TOL, MT_UPDATE_TOL = 5e-3, 2e-2, 5e-2, 1e-3
+# (c), the mesh step against the one-process step: (b)'s worst times this
+MT_C_FACTOR = 2.0
+
+
+def mesh_train_cfg(**moe):
+    """The cut full-width config the ranks train (a2a dispatch, no remat
+    where a routing is pinned: one router call a layer a microbatch)."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(LM_TRAIN_ARCH).make_config(),
+                              remat="none", **MT_CUT)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+
+
+def grad_step(cfg, mesh=None, specs=None):
+    """The train step whose update keeps the (reduced, clipped) gradients
+    instead of applying them: (step, kept list)."""
+    from repro_torch.launch.steps import make_lm_train_step
+    kept = []
+
+    def keep(params, grads, opt, step, layout=None):
+        kept.append(grads)
+        return params, opt
+    return make_lm_train_step(cfg, keep, MT_ACCUM, mesh=mesh,
+                              specs=specs), kept
+
+
+def flat_grads(tree) -> dict:
+    from repro_torch.optim.api import named_leaves
+    return dict(named_leaves(tree))
+
+
+def adamw_first(g):
+    """AdamW's first update direction (bias-corrected moments of one
+    gradient): g / (|g| + eps)."""
+    g = g.float()
+    return g / (g.abs() + 1e-8)
+
+
+@contextlib.contextmanager
+def pinned_experts(moe_mod, tape: list, mesh, B: int, S: int):
+    """Hand each MoE router call of a training rank the expert choice of
+    ``tape`` (a run's top-k expert indices over all B x S tokens, or this
+    rank's own calls), cut to the rank's (rows, sequence) block; the
+    gates are the rank's own probabilities at those experts,
+    renormalised, so the router still gets its gradient.  The yielded
+    dict counts the tokens whose own top-k differs from the pinned
+    one."""
+    import torch
+
+    from repro_torch.distributed import ctx
+    orig, it = moe_mod._router, iter(list(tape))
+    seen = {"rerouted": 0, "tokens": 0}
+    b_axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    n_b, n_s = ctx.axes_size(mesh, b_axes), ctx.axes_size(mesh, ("model",))
+    bi, si = ctx.axes_index(mesh, b_axes), ctx.axes_index(mesh, ("model",))
+
+    def router(p, x, cfg, a_experts, top_k):
+        probs, vals, idx = orig(p, x, cfg, a_experts, top_k)
+        pin = next(it).to(x.device)
+        if pin[..., 0].numel() != idx[..., 0].numel():     # a block of it
+            pin = pin.reshape(B, S, top_k)[
+                bi * B // n_b:(bi + 1) * B // n_b,
+                si * S // n_s:(si + 1) * S // n_s]
+        pin = pin.reshape(idx.shape)
+        seen["rerouted"] += int((idx.sort(-1).values != pin.sort(-1).values)
+                                .any(-1).sum())
+        seen["tokens"] += idx[..., 0].numel()
+        gates = torch.gather(probs, -1, pin)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return probs, gates, pin
+    moe_mod._router = router
+    try:
+        yield seen
+    finally:
+        moe_mod._router = orig
+    if next(it, None) is not None:
+        raise AssertionError("the pinned run routed fewer layers")
+
+
+def mesh_train_one(dev, path: str) -> dict:
+    """Phase 29 (c)'s one-process step, in this process before the ranks:
+    the cut config at the no-drop capacity and aux weight 0, the
+    launcher's seed-0 weights and step-0 batch; its loss, gradient norm,
+    gradients and routing saved to ``path``."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import lm_init
+    from repro_torch.optim.api import named_leaves
+    t0 = phase(f"29. (c) one process: the same step (train_4k, {MT_BATCH} x "
+               f"4096 as {MT_ACCUM} microbatches, cut to "
+               f"{MT_CUT['n_layers']} layers) at capacity factor "
+               f"{MT_NO_DROP_CF:.4g} (no slot drops) and aux weight 0, "
+               f"einsum dispatch, its gradients and routing kept")
+    cfg = mesh_train_cfg(capacity_factor=MT_NO_DROP_CF, router_aux_weight=0.0)
+    params = lm_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    step, kept = grad_step(cfg)
+    batch = lm_train_batch(MT_BATCH, 4096, cfg.vocab_size, dev)
+    tape = []
+    with router_tape(moe_mod, tape), moe_mod.dispatch_tally() as tally:
+        _, _, m = step(params, None, batch, 0)
+    n_kept, routed = tally.counts()
+    if n_kept != routed:
+        raise AssertionError(f"(c) the one-process step dropped slots: "
+                             f"{n_kept} of {routed}")
+    out = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"])}
+    torch.save({"grads": {k: g.float().cpu()
+                          for k, g in flat_grads(kept[0]).items()},
+                "tape": [e[2].cpu() for e in tape], **out},
+               path)
+    del params, kept, tape, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  loss {out['loss']:.6f}, gradient norm {out['gnorm']:.6f}, "
+        f"{routed} routed slots all kept ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, init_file: str, one_file: str,
+                    argv: list) -> dict:
+    """One rank of phase 29, on cuda:0 beside three others: (a) the main
+    path, the launcher's own rank entry (``launch.train.train_rank``, as
+    ``--mesh 2x2`` spawns it: it joins the ranks, resets the launch
+    counts and reads them after its run), then on the same ranks (b) the
+    kernel route against the plain route on the plain route's routing,
+    (c) the mesh step against the one-process step on its routing, (d)
+    ``compressed_all_reduce`` on the card against CPU copies and F8, (e)
+    rank 0's recorded calls timed while the others wait.  Plain values
+    back."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.data import (microbatch_rows, synthetic_lm_batches,
+                                  to_device)
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import shard_leaf, train_spec_fn
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import compress
+    from repro_torch.distributed.sharding import is_spec
+    from repro_torch.optim.api import named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    out = {"rank": rank, "a": train_mod.train_rank(rank, world, init_file,
+                                                   argv)}
+    out["a"]["seconds"] = time.perf_counter() - t0
+    dev = ctx.rank_device()
+    mesh = make_mesh(MT_MESH, ("data", "model"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = mesh_train_cfg(dispatch="a2a")
+    state, pspecs = train_mod.mesh_state(cfg, mesh, train_spec_fn(cfg),
+                                         lambda p: None, dev)
+    params = state["params"]
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    di = ctx.axes_index(mesh, ("data",))
+    rows = microbatch_rows(MT_BATCH, MT_ACCUM, MT_MESH[0], di)
+    batch = to_device(next(synthetic_lm_batches(
+        global_batch=MT_BATCH, seq_len=4096, vocab=cfg.vocab_size,
+        rows=rows)), dev)
+    specs = dict(named_leaves(pspecs, is_leaf=is_spec))
+
+    def run(step, kept):
+        _, _, m = step(params, None, batch, 0)
+        torch.cuda.synchronize()
+        return float(m["loss"]), float(m["gnorm"]), flat_grads(kept.pop())
+
+    # (b) the plain route, its routing recorded, then the kernel route on
+    # it (a tape of this rank's own calls is handed back as it is), every
+    # kernel call recorded for (e)
+    t0 = time.perf_counter()
+    tape = []
+    step, kept = grad_step(cfg, mesh, pspecs)
+    with ops.plain_kernels(), router_tape(moe_mod, tape):
+        lp, gp, grads_p = run(step, kept)
+    tape = [e[2].detach() for e in tape]
+    rec = {k: {} for k in ("k1_fwd", "k1_dgrad", "k1_wgrad", "k2_fwd",
+                           "k2_bwd", "x_fwd", "x_dgrad", "x_wgrad")}
+    with pinned_experts(moe_mod, tape, mesh, MT_BATCH // MT_ACCUM, 4096) \
+            as seen_b, \
+            recording([(layers_mod, "elastic_matmul_op", "k1_fwd"),
+                       (em, "elastic_matmul_dgrad", "k1_dgrad"),
+                       (em, "elastic_matmul_wgrad", "k1_wgrad"),
+                       (fa, "flash_attention", "k2_fwd"),
+                       (fa, "flash_attention_bwd", "k2_bwd"),
+                       (xm, "expert_matmul", "x_fwd"),
+                       (xm, "expert_matmul_dgrad", "x_dgrad"),
+                       (xm, "expert_matmul_wgrad", "x_wgrad")],
+                      keep_calls(rec)):
+        lk, gk, grads_k = run(step, kept)
+    worst, upd, upd_above = {}, {}, {}
+    for k, g in grads_k.items():
+        ref = grads_p[k].float()
+        worst[k] = float((g.float() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        moved = (adamw_first(g) - adamw_first(ref)).abs() > 1e-3
+        upd[k] = float(moved.float().mean())
+        above = ref.abs() > MT_GRAD_TOL * ref.abs().max()
+        upd_above[k] = float(moved[above].float().mean()) if bool(
+            above.any()) else 0.0
+    out["b"] = {"loss": lk, "loss_plain": lp, "gnorm": gk,
+                "gnorm_plain": gp, "grad_err": max(worst.values()),
+                "worst_leaf": max(worst, key=worst.get),
+                "update_share": max(upd.values()),
+                "update_leaf": max(upd, key=upd.get),
+                "update_share_above": max(upd_above.values()),
+                "rerouted": seen_b["rerouted"], "tokens": seen_b["tokens"],
+                "seconds": time.perf_counter() - t0}
+    del grads_p, tape
+    # (c) the mesh step at the no-drop capacity and aux weight 0, on the
+    # one-process step's routing (each rank's block of it)
+    t0 = time.perf_counter()
+    one = torch.load(one_file, map_location="cpu", mmap=True,
+                     weights_only=True)
+    cfg_c = mesh_train_cfg(dispatch="a2a", capacity_factor=MT_NO_DROP_CF,
+                           router_aux_weight=0.0)
+    step_c, kept_c = grad_step(cfg_c, mesh, pspecs)
+    with pinned_experts(moe_mod, one["tape"], mesh, MT_BATCH // MT_ACCUM,
+                        4096) as seen, moe_mod.dispatch_tally() as tally:
+        lc, gc_, grads_c = run(step_c, kept_c)
+    n_kept, routed = tally.counts()
+    c_err = {}
+    for k, g in grads_c.items():
+        ref = shard_leaf(one["grads"][k], specs[k], mesh).to(dev)
+        c_err[k] = float((g.float() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+    out["c"] = {"loss": lc, "gnorm": gc_, "grad_err": max(c_err.values()),
+                "worst_leaf": max(c_err, key=c_err.get),
+                "kept": [n_kept, routed],
+                "rerouted": seen["rerouted"], "tokens": seen["tokens"],
+                "seconds": time.perf_counter() - t0}
+    del grads_c, one
+    # (d) compressed_all_reduce over "data" on the kernel route's
+    # gradients, on the card and on CPU copies; F8 on 1s and 2s
+    t0 = time.perf_counter()
+    group = ctx.axes_group(mesh, ("data",))
+    same, bias, n_el = True, 0.0, 0
+    for k, g in grads_k.items():
+        err = torch.zeros_like(g, dtype=torch.float32)
+        mean, new_err = compress.compressed_all_reduce(g, err, group)
+        mean_c, err_c = compress.compressed_all_reduce(g.cpu(), err.cpu(),
+                                                       group)
+        same = same and torch.equal(mean.cpu(), mean_c) and torch.equal(
+            new_err.cpu(), err_c)
+        true = ctx.all_reduce(g.float().clone(), "sum", group) / MT_MESH[0]
+        scale = float(true.abs().max()) or 1.0
+        bias = max(bias, float((mean - true).abs().max()) / scale)
+        n_el += g.numel()
+    f8, _ = compress.compressed_all_reduce(
+        torch.full((8,), 1.0 + di, device=dev), torch.zeros(8, device=dev),
+        group)
+    out["d"] = {"same_bits": same, "elements": n_el,
+                "bias_of_largest": bias, "f8_mean": float(f8[0]),
+                "seconds": time.perf_counter() - t0}
+    del grads_k
+    # (e) rank 0 times its recorded calls while the others wait
+    nograd = torch.no_grad
+    if rank == 0:
+        t0 = time.perf_counter()
+        rows = {
+            "k1_fwd": time_rows("K1 forward, mesh step (TP blocks)",
+                                expand(rec["k1_fwd"]), ops.elastic_matmul_op,
+                                k1_plain, k1_library, "torch.matmul",
+                                k1_work, group=k1_group, mode=nograd),
+            "k1_dgrad": time_rows("K1 dgrad, mesh step",
+                                  expand(rec["k1_dgrad"]),
+                                  em.elastic_matmul_dgrad, k1_dgrad_plain,
+                                  k1_dgrad_library, "torch.matmul",
+                                  k1_dgrad_work, group=bwd_group,
+                                  mode=nograd),
+            "k1_wgrad": time_rows("K1 wgrad, mesh step",
+                                  expand(rec["k1_wgrad"]),
+                                  em.elastic_matmul_wgrad, k1_wgrad_plain,
+                                  k1_wgrad_library, "torch.matmul",
+                                  k1_wgrad_work, group=bwd_group,
+                                  mode=nograd),
+            "k2_fwd": time_rows("K2 forward (causal, 8 local heads, with the "
+                                "logsumexp), mesh step",
+                                expand(rec["k2_fwd"]), k2_fwd_lse,
+                                k2_fwd_lse_plain, k2_fwd_lse_library, "sdpa",
+                                k2_work, mode=nograd),
+            "k2_bwd": time_rows("K2 backward (causal, 8 local heads), mesh "
+                                "step", expand(rec["k2_bwd"]), k2_bwd_kernel,
+                                k2_bwd_plain, SdpaBackward(),
+                                "sdpa backward", k2_bwd_work, mode=nograd),
+            "k3_fwd": time_rows("K3 forward, mesh step (a2a-packed slabs)",
+                                expand(rec["x_fwd"]), xm.expert_matmul,
+                                xm.expert_matmul_plain,
+                                lambda x, w, c: torch.bmm(x, w), "torch.bmm",
+                                k3_work, mode=nograd),
+            "k3_dgrad": time_rows("K3 dgrad, mesh step (a2a-packed slabs)",
+                                  expand(rec["x_dgrad"]),
+                                  xm.expert_matmul_dgrad,
+                                  xm.expert_matmul_dgrad_plain,
+                                  k3_dgrad_library, "torch.bmm",
+                                  k3_dgrad_work, group=k3_dgrad_group,
+                                  mode=nograd),
+            "k3_wgrad": time_rows("K3 wgrad, mesh step (a2a-packed slabs)",
+                                  expand(rec["x_wgrad"]),
+                                  xm.expert_matmul_wgrad,
+                                  xm.expert_matmul_wgrad_plain,
+                                  k3_wgrad_library, "torch.bmm",
+                                  k3_wgrad_work, group=k3_wgrad_group,
+                                  mode=nograd)}
+        for k, r in rows.items():
+            r["launches"] = sum(n for *_, n in rec[
+                k.replace("k3_", "x_")].values())
+        out["rows"] = rows
+        out["rows_s"] = time.perf_counter() - t0
+    del rec
+    dist.barrier()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def mesh_train_phases(dev, card: str) -> dict:
+    """Phase 29: deepseek-moe-16b trained across a 2 x 2 mesh, four ranks
+    sharing the card over gloo: (c)'s one-process step in this process
+    first, then four ranks (:func:`mesh_train_rank`) for (a), the
+    launcher's rank entry for 3 steps with a failure at step 1 and a
+    restart (no checkpoint), and (b)-(e).  Returns what the kernels'
+    record needs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import ctx
+    from repro_torch.launch.steps import SHARED_CARD_CUT
+    t_all = time.perf_counter()
+    want = dict(MT_CUT, global_batch=MT_BATCH, accum=MT_ACCUM)
+    if SHARED_CARD_CUT.get((LM_TRAIN_ARCH, LM_TRAIN_SHAPE)) != want:
+        raise AssertionError(f"the launcher's shared-card cut is not "
+                             f"{want}")
+    out = {}
+    argv = ["--arch", LM_TRAIN_ARCH, "--mesh", "x".join(map(str, MT_MESH)),
+            "--steps", str(MT_STEPS), "--fail-at", "1", "--save-every", "0",
+            "--log-every", "1", "--device", "cuda"]
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        one_file = os.path.join(tmp, "one.pt")
+        one = mesh_train_one(dev, one_file)
+        argv += ["--ckpt-dir", os.path.join(tmp, "ckpt")]
+        t0 = phase(f"29. (a), (b), (d), (e) deepseek-moe-16b trained across a "
+                   f"2 x 2 (data, model) mesh, four ranks sharing the card "
+                   f"over gloo (not a multi-card speed): train_4k at full "
+                   f"width cut to {MT_CUT['n_layers']} layers (dense + 1 MoE) "
+                   f"and to {MT_BATCH} x 4096 as {MT_ACCUM} microbatches (1 "
+                   f"row of each a data block); (a) a failure at step 1 and "
+                   f"a restart from step 0 (no checkpoint), each rank the "
+                   f"launcher's own (python -m repro_torch.launch.train "
+                   f"{' '.join(argv[:-2])}); then on the same ranks (b) the "
+                   f"kernel route vs the plain route on its routing, (c) the "
+                   f"mesh step vs the one-process step, (d) "
+                   f"compressed_all_reduce on the card, (e) rank 0's kernel "
+                   f"rows")
+        res = ctx.spawn_ranks(mesh_train_rank, 4, (os.path.join(
+            tmp, "rendezvous"), one_file, argv), timeout_s=900)
+    out["ranks_s"] = time.perf_counter() - t0
+    ranks = [r["a"] for r in res]
+    for r in ranks:
+        ls = r["losses"]
+        if r["restarts"] != 1 or len(ls) != MT_STEPS + 1:
+            raise AssertionError(f"rank {r['rank']}: {r['restarts']} "
+                                 f"restarts, losses {ls}")
+        if not all(math.isfinite(x) for x in ls):
+            raise AssertionError(f"rank {r['rank']}: losses {ls}")
+        if ls[0] != ls[1]:
+            raise AssertionError(f"rank {r['rank']}: step 0 after the "
+                                 f"restart {ls[1]!r}, first {ls[0]!r}")
+        if ls != ranks[0]["losses"]:
+            raise AssertionError("the ranks' global losses differ")
+        idle = [k for k in LM_TRAIN_KERNELS if r["launches"][k] <= 0]
+        if idle:
+            raise AssertionError(f"rank {r['rank']}: kernels not launched "
+                                 f"{idle}")
+        main_path_variants(r["variants"], LM_TRAIN_VARIANTS)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in LM_TRAIN_KERNELS}
+    variants = {k: {v: sum(r["variants"][k][v] for r in ranks)
+                    for v in ranks[0]["variants"][k]}
+                for k in LM_TRAIN_KERNELS}
+    steady = ranks[0]["step_ms"][1:]
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    out["a"] = {"losses": ranks[0]["losses"],
+                "step_ms": ranks[0]["step_ms"],
+                "step_median_ms": statistics.median(steady),
+                "peak_gib": [r["peak_gib"] for r in ranks],
+                "card_gib": total, "seconds": ranks[0]["seconds"]}
+    log(f"  (a) losses {', '.join(f'{x:.6f}' for x in ranks[0]['losses'])} "
+        f"(the same on every rank; step 0 again after the restart: the same "
+        f"bits); rank 0's steps "
+        f"{', '.join(f'{x:.0f}' for x in ranks[0]['step_ms'])} ms, median "
+        f"after the first {out['a']['step_median_ms']:.1f} ms "
+        f"({MT_BATCH * 4096 / out['a']['step_median_ms'] * 1e3:.1f} "
+        f"tokens/s) [{card}]")
+    log(f"  (a) peak device memory by rank "
+        f"{', '.join(f'{x:.2f}' for x in out['a']['peak_gib'])} GiB, "
+        f"{sum(out['a']['peak_gib']):.2f} of the card's {total:.2f} GiB")
+    log(f"  (a) launches (4 ranks) {launches}; by variant "
+        + str({k: {v: n for v, n in per.items() if n}
+               for k, per in variants.items()}))
+    out.update(launches=launches, variants=variants)
+    b = [r["b"] for r in res]
+    for x in b:
+        if not abs(x["loss"] - x["loss_plain"]) <= MT_LOSS_TOL * abs(
+                x["loss_plain"]):
+            raise AssertionError(f"(b) loss {x['loss']!r} against the plain "
+                                 f"route's {x['loss_plain']!r}")
+        if not abs(x["gnorm"] - x["gnorm_plain"]) <= MT_GNORM_TOL * abs(
+                x["gnorm_plain"]):
+            raise AssertionError(f"(b) gradient norm {x['gnorm']!r} against "
+                                 f"{x['gnorm_plain']!r}")
+        if x["grad_err"] > MT_GRAD_TOL or \
+                x["update_share_above"] > MT_UPDATE_TOL:
+            raise AssertionError(f"(b) {x}")
+    b_loss = max(abs(x["loss"] - x["loss_plain"]) / abs(x["loss_plain"])
+                 for x in b)
+    b_gnorm = max(abs(x["gnorm"] - x["gnorm_plain"]) / abs(x["gnorm_plain"])
+                  for x in b)
+    b_grad = max(x["grad_err"] for x in b)
+    log(f"  (b) kernel route vs plain route (bf16, the plain route's "
+        f"routing, one step): loss {b[0]['loss']:.6f} / {b[0]['loss_plain']:.6f} "
+        f"({b_loss:.3g} relative, tol {MT_LOSS_TOL}), gradient norm "
+        f"{b[0]['gnorm']:.5f} / {b[0]['gnorm_plain']:.5f} ({b_gnorm:.3g}, tol "
+        f"{MT_GNORM_TOL}); each rank's gradient blocks within "
+        + ", ".join(f"{x['grad_err']:.3g} ({x['worst_leaf']})" for x in b)
+        + f" of a leaf's largest (tol {MT_GRAD_TOL}); AdamW's first update "
+        f"off by > 1e-3 of the learning rate at "
+        + ", ".join(f"{100 * x['update_share_above']:.3g}%" for x in b)
+        + f" of a leaf's elements whose gradient is above {MT_GRAD_TOL} of "
+        f"its largest (tol {100 * MT_UPDATE_TOL:.2g}%), at "
+        + ", ".join(f"{100 * x['update_share']:.3g}% ({x['update_leaf']})"
+                    for x in b)
+        + " of all its elements (sign noise below bf16's rounding); the "
+        "kernel route's own routing off the pinned one at "
+        + ", ".join(f"{x['rerouted']} of {x['tokens']}" for x in b)
+        + " token-layer routings")
+    c_tol = {"loss": max(MT_C_FACTOR * b_loss, 1e-4),
+             "gnorm": max(MT_C_FACTOR * b_gnorm, 1e-3),
+             "grad": max(MT_C_FACTOR * b_grad, 1e-3)}
+    for r in res:
+        c = r["c"]
+        if c["kept"][0] != c["kept"][1]:
+            raise AssertionError(f"(c) rank {r['rank']} dropped slots "
+                                 f"{c['kept']}")
+        if not abs(c["loss"] - one["loss"]) <= c_tol["loss"] * abs(
+                one["loss"]) or not abs(c["gnorm"] - one["gnorm"]) <= \
+                c_tol["gnorm"] * abs(one["gnorm"]) or \
+                c["grad_err"] > c_tol["grad"]:
+            raise AssertionError(f"(c) rank {r['rank']}: {c} against the "
+                                 f"one process's {one} (tolerances {c_tol})")
+    log(f"  (c) the mesh step (a2a, TP + FSDP, no slot dropped) vs the "
+        f"one-process step on its routing: loss {res[0]['c']['loss']:.6f} / "
+        f"{one['loss']:.6f}, gradient norm {res[0]['c']['gnorm']:.5f} / "
+        f"{one['gnorm']:.5f}; gradient blocks within "
+        + ", ".join(f"{r['c']['grad_err']:.3g} ({r['c']['worst_leaf']})"
+                    for r in res)
+        + f" of a leaf's largest; tolerances {MT_C_FACTOR:g} x (b)'s: "
+        f"{ {k: float(f'{v:.3g}') for k, v in c_tol.items()} }; the ranks' "
+        f"own routing off the pinned one at "
+        + ", ".join(f"{r['c']['rerouted']} of {r['c']['tokens']}"
+                    for r in res) + " tokens")
+    for r in res:
+        d = r["d"]
+        if not d["same_bits"] or d["f8_mean"] != 2.0:
+            raise AssertionError(f"(d) rank {r['rank']}: {d}")
+    log(f"  (d) compressed_all_reduce over data on CUDA tensors: the same "
+        f"bits as on CPU copies for {res[0]['d']['elements']} gradient "
+        f"elements a rank; its mean off the true one by up to "
+        + ", ".join(f"{r['d']['bias_of_largest']:.3g}" for r in res)
+        + " of the largest (F8: each rank's own scale, the max to "
+        f"dequantise); ranks at 1 and 2 get {res[0]['d']['f8_mean']} "
+        f"(true 1.5)")
+    for r in res:
+        log(f"  rank {r['rank']}: (a) {r['a']['seconds']:.1f} s, (b) "
+            f"{r['b']['seconds']:.1f} s, (c) {r['c']['seconds']:.1f} s, (d) "
+            f"{r['d']['seconds']:.1f} s"
+            + (f", (e) {r['rows_s']:.1f} s" if "rows" in r else "")
+            + f"; peak after (a) {r['peak_gib']:.2f} GiB")
+    rows = res[0]["rows"]
+    out.update(rows=rows, b={k: v for k, v in b[0].items()},
+               c=[r["c"] for r in res], d=[r["d"] for r in res],
+               one=one, c_tol=c_tol,
+               peak_gib=[r["peak_gib"] for r in res])
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 29 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6974,6 +7551,8 @@ def main() -> int:
     lc = lm_configs_phases(dev, card, parent)
     wg = wgmma_phases(dev, card)
     mh = mesh_phases(dev, card)
+    mt = mesh_train_phases(dev, card)
+    mt_n, mt_v = mt["launches"], mt["variants"]
     lc_cfg = lc["configs"]
 
     def lc_rows(k: str) -> dict:
@@ -7015,7 +7594,8 @@ def main() -> int:
               + lt_n["elastic_matmul"]
               + cl["launches"]["elastic_matmul"]
               + sum(lc_launches("elastic_matmul").values())
-              + mh["launches"]["elastic_matmul"],
+              + mh["launches"]["elastic_matmul"]
+              + mt_n["elastic_matmul"],
               "launches_by_path": {"vit_serve": launches["elastic_matmul"],
                                    "lm": lm["launches"]["elastic_matmul"],
                                    "train": tr["launches"]["elastic_matmul"],
@@ -7035,7 +7615,9 @@ def main() -> int:
                                    "lm_configs":
                                        lc_launches("elastic_matmul"),
                                    "lm_mesh":
-                                       mh["launches"]["elastic_matmul"]},
+                                       mh["launches"]["elastic_matmul"],
+                                   "lm_mesh_train":
+                                       mt_n["elastic_matmul"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["elastic_matmul"],
                   "lm": lm["variants"]["elastic_matmul"],
@@ -7049,7 +7631,8 @@ def main() -> int:
                   "vit_cluster": cl["variants"]["elastic_matmul"],
                   "lm_configs": {c: r["variants"]["elastic_matmul"]
                                  for c, r in lc_cfg.items()},
-                  "lm_mesh": mh["variants"]["elastic_matmul"]},
+                  "lm_mesh": mh["variants"]["elastic_matmul"],
+                  "lm_mesh_train": mt_v["elastic_matmul"]},
               "max_abs_err": max(k1_err, tr["k1_train_fwd_err"],
                                  cv["k1"]["err"][("elastic_matmul",
                                                   "bfloat16")],
@@ -7068,7 +7651,8 @@ def main() -> int:
              dit_step=df["rows"]["dit"]["fwd"],
              unet_step=df["rows"]["unet"]["fwd"],
              lm_step=lt["rows"]["k1_fwd"],
-             lm_configs=lc_rows("k1")),
+             lm_configs=lc_rows("k1"),
+             lm_mesh_train=mt["rows"]["k1_fwd"]),
         dict({"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:71",
@@ -7081,7 +7665,8 @@ def main() -> int:
               + lt_n["flash_attention"]
               + cl["launches"]["flash_attention"]
               + sum(lc_launches("flash_attention").values())
-              + mh["launches"]["flash_attention"],
+              + mh["launches"]["flash_attention"]
+              + mt_n["flash_attention"],
               "launches_by_path": {"vit_serve": launches["flash_attention"],
                                    "lm": lm["launches"]["flash_attention"],
                                    "train": tr["launches"]["flash_attention"],
@@ -7097,7 +7682,9 @@ def main() -> int:
                                    "lm_configs":
                                        lc_launches("flash_attention"),
                                    "lm_mesh":
-                                       mh["launches"]["flash_attention"]},
+                                       mh["launches"]["flash_attention"],
+                                   "lm_mesh_train":
+                                       mt_n["flash_attention"]},
               "launches_by_variant": {
                   "vit_serve": vit_variants["flash_attention"],
                   "lm": lm["variants"]["flash_attention"],
@@ -7109,7 +7696,8 @@ def main() -> int:
                   "vit_cluster": cl["variants"]["flash_attention"],
                   "lm_configs": {c: r["variants"]["flash_attention"]
                                  for c, r in lc_cfg.items()},
-                  "lm_mesh": mh["variants"]["flash_attention"]},
+                  "lm_mesh": mh["variants"]["flash_attention"],
+                  "lm_mesh_train": mt_v["flash_attention"]},
               "variants": list(fa.VARIANTS),
               "max_abs_err": max(k2_err, lm["k2_err"], tr["k2_fwd_err"],
                                  lc["k2"]["max_abs_err"],
@@ -7129,20 +7717,24 @@ def main() -> int:
              gen=df["sample"], lm_step=lt["rows"]["k2_fwd"],
              lm_configs=lc_rows("k2"), wgmma_cases=wg["cases"]["errs"],
              route=wg["route"], lm_mesh_decode=mh["k2_row"],
-             lm_mesh_decode_lse_err=mh["k2"]["lse_err"]),
+             lm_mesh_decode_lse_err=mh["k2"]["lse_err"],
+             lm_mesh_train=mt["rows"]["k2_fwd"]),
         dict({"name": "expert_matmul", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/expert_matmul.cu",
               "replaces": "src/repro/kernels/expert_matmul.py:48",
               "launches": lm["launches"]["expert_matmul"]
               + lt_n["expert_matmul"]
               + sum(lc_launches("expert_matmul").values())
-              + mh["launches"]["expert_matmul"],
+              + mh["launches"]["expert_matmul"]
+              + mt_n["expert_matmul"],
               "launches_by_path": {"lm": lm["launches"]["expert_matmul"],
                                    "lm_train": lt_n["expert_matmul"],
                                    "lm_configs":
                                        lc_launches("expert_matmul"),
                                    "lm_mesh":
-                                       mh["launches"]["expert_matmul"]},
+                                       mh["launches"]["expert_matmul"],
+                                   "lm_mesh_train":
+                                       mt_n["expert_matmul"]},
               "launches_by_variant": {
                   "lm": lm["variants"]["expert_matmul"],
                   "lm_by_stage": lm["k3_by_stage"],
@@ -7152,13 +7744,14 @@ def main() -> int:
                   "lm_configs_by_stage": {c: r["k3_by_stage"]
                                           for c, r in lc_cfg.items()
                                           if r["k3_by_stage"]},
-                  "lm_mesh": mh["variants"]["expert_matmul"]},
+                  "lm_mesh": mh["variants"]["expert_matmul"],
+                  "lm_mesh_train": mt_v["expert_matmul"]},
               "max_abs_err": max(lm["k3_err"], mh["k3_err"])},
              **row_keys(lm["k3_prefill"]),
              timing=timing, lm_prefill=lm["k3_prefill"],
              lm_decode=lm["k3_decode"], kept_share=lm["kept"],
              lm_step=lt["rows"]["k3_fwd"], lm_configs=lc_rows("k3"),
-             lm_a2a=mh["k3_row"]),
+             lm_a2a=mh["k3_row"], lm_mesh_train=mt["rows"]["k3_fwd"]),
     ]}
     for name, src, replaces, row, err, conv in (
             ("elastic_matmul_dgrad", "elastic_matmul.cu",
@@ -7230,10 +7823,14 @@ def main() -> int:
             entry["lm_err_of_largest"] = max(e[1] for e in errs)
             entry["lm_max_abs_err"] = max(e[0] for e in errs)
             entry["lm_step"] = lt["rows"]["k2_bwd"]
-        # phase 24: the LM step's launches
-        entry["launches"] += lt_n[name]
+        # phase 24: the LM step's launches; phase 29: the mesh step's
+        entry["launches"] += lt_n[name] + mt_n[name]
         entry["launches_by_path"]["lm_train"] = lt_n[name]
         entry["launches_by_variant"]["lm_train"] = lt_v[name]
+        entry["launches_by_path"]["lm_mesh_train"] = mt_n[name]
+        entry["launches_by_variant"]["lm_mesh_train"] = mt_v[name]
+        entry["lm_mesh_train"] = mt["rows"][
+            {"dgrad": "k1_dgrad", "wgrad": "k1_wgrad"}.get(conv, "k2_bwd")]
         record["kernels"].append(entry)
     for name, kind in (("expert_matmul_dgrad", "dgrad"),
                        ("expert_matmul_wgrad", "wgrad")):
@@ -7246,12 +7843,15 @@ def main() -> int:
              "replaces": "src/repro/kernels/expert_matmul.py:48",
              "replaces_note": "its gradient: the reference has no backward "
                               "kernel (JAX differentiates through XLA)",
-             "launches": lt_n[name],
-             "launches_by_path": {"lm_train": lt_n[name]},
-             "launches_by_variant": {"lm_train": lt_v[name]},
+             "launches": lt_n[name] + mt_n[name],
+             "launches_by_path": {"lm_train": lt_n[name],
+                                  "lm_mesh_train": mt_n[name]},
+             "launches_by_variant": {"lm_train": lt_v[name],
+                                     "lm_mesh_train": mt_v[name]},
              "max_abs_err": max(e[0] for e in errs),
              "err_of_largest": max(e[1] for e in errs)},
             **row_keys(row), timing=timing, lm_step=row,
+            lm_mesh_train=mt["rows"][f"k3_{kind}"],
             **({"lm_sliced": lt["rows"]["k3_dgrad_sliced"]}
                if kind == "dgrad" else {})))
     log("trace: " + json.dumps({k: tp[k] for k in (
@@ -7316,7 +7916,15 @@ def main() -> int:
     log("mesh: " + json.dumps({
         k: mh[k] for k in ("a_err", "b_err", "ranks", "ranks_s", "seconds")}
         | {"k2": mh["k2"]}))
-    log(f"\ncard: {card}; total {time.perf_counter() - t_all:.1f} s")
+    log("mesh_train: " + json.dumps({
+        k: mt[k] for k in ("a", "b", "c", "c_tol", "d", "one", "peak_gib",
+                           "ranks_s", "seconds")}
+        | {"rows": {k: {kk: r.get(kk) for kk in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "launches")} for k, r in mt["rows"].items()}}))
+    end = time.perf_counter()
+    log(f"\ncard: {card}; total {end - t_all:.1f} s")
+    log("phases_s: " + json.dumps(phases_s(end)))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,16 +69,19 @@ def lm_params(jax_params: dict, device: Optional[torch.device] = None
 
 
 def lm_params_shard(jax_params: dict, mesh, coords=None,
-                    device: Optional[torch.device] = None) -> dict:
+                    device: Optional[torch.device] = None,
+                    spec_fn=None) -> dict:
     """Reference ``lm_init`` params (numpy leaves) -> one rank's port
-    params under ``mesh``: each leaf cut to the block the rank at mesh
-    coordinate ``coords`` (default this rank) holds by the slice's
-    placement (``distributed.sharding.serving_spec`` on the reference's
-    stacked paths: the routed experts split over ``"model"``, the rest
-    whole), then converted as :func:`lm_params`."""
-    from repro_torch.distributed.sharding import serving_spec, shard_tree
-    return lm_params(shard_tree(jax_params, mesh, coords, serving_spec),
-                     device)
+    params under ``mesh``: converted as :func:`lm_params`, each leaf then
+    cut to the block the rank at mesh coordinate ``coords`` (default this
+    rank) holds by ``spec_fn(path, shape)`` on the port's paths (default
+    the serving placement, ``distributed.sharding.layer_serving_spec``:
+    the routed experts split over ``"model"``, the rest whole; training:
+    ``train_spec_fn(cfg)``), as a contiguous copy of its own."""
+    from repro_torch.distributed.sharding import (layer_serving_spec,
+                                                  shard_tree)
+    return shard_tree(lm_params(jax_params, device), mesh, coords,
+                      spec_fn or layer_serving_spec, own=True)
 
 
 def lm_caches(jax_caches: dict, device: Optional[torch.device] = None

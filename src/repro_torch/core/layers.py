@@ -16,6 +16,15 @@ The products read the FULL resident weights at their active widths; the
 other convs (k x k, depthwise, grouped) go to ``F.conv2d`` as the
 reference leaves them to XLA; bias adds, norms, pooling, rotary
 embeddings and activations stay plain torch ops.
+
+Under the training placement of a mesh (``distributed.sharding.
+train_spec_fn``) a layer first gathers its FSDP blocks
+(:func:`gather_blocks`), and the dense FFN and attention run tensor
+parallel where their kernels are split over ``"model"`` (``tp=mesh``):
+q/k/v and wi/wg on the rank's column block (its heads, its hidden
+units), o and wo on the matching row block, whose partial products one
+all-reduce sums (``ctx.all_reduce_grad``; a replicated bias is added
+after it).
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.elastic import active_mask, mask_dim, take_dim
 from repro_torch.core.types import is_static
+from repro_torch.distributed import ctx
 from repro_torch.distributed.decode_attn import (cache_axes, is_sharded,
                                                  sharded_decode_attention)
+from repro_torch.distributed.sharding import fsdp_entry, model_split
 from repro_torch.kernels.ops import elastic_matmul_op, flash_attention_op
 
 
@@ -72,6 +83,47 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
     t = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device).mul_(scale)
     return t.to(dtype=dtype, device=device)
+
+
+def gather_blocks(tree, specs, mesh, dtype):
+    """A layer's weights as its rank computes with them under the training
+    placement: each leaf whose spec splits it over batch axes alone (its
+    FSDP dim) cast to ``dtype`` and all-gathered along that dim (half the
+    bytes of the fp32 block in bf16; the backward reduce-scatters the
+    gradient in fp32), every other leaf as it is (``specs`` mirrors
+    ``tree``).  Run inside the layer, so that remat's recompute gathers
+    again rather than keep the whole weights alive."""
+    if isinstance(tree, dict):
+        return {k: gather_blocks(v, specs[k], mesh, dtype)
+                for k, v in tree.items()}
+    ent = fsdp_entry(specs, mesh)
+    if ent is None:
+        return tree
+    return ctx.all_gather_grad(tree, mesh, ent[1], ent[0], dtype)
+
+
+def _row_parallel(p: dict, x: torch.Tensor, mesh, **kw) -> torch.Tensor:
+    """The dense product of a row-split kernel (this rank's rows of the
+    input dim, ``x`` its matching columns): the partial products summed
+    over ``"model"``, then the (replicated) bias."""
+    y = dense_apply({"kernel": p["kernel"]}, x, **kw)
+    y = ctx.all_reduce_grad(y, ctx.axes_group(mesh, ("model",)))
+    if p.get("bias") is not None:
+        y = y + _cast(p["bias"], y.dtype)
+    return y
+
+
+def tp_mesh(specs: dict, first: str, last: str, mesh):
+    """``mesh`` when a block's kernels are split over ``"model"`` (the
+    column kernel ``first`` and the row kernel ``last`` together), else
+    None; a block split on one side only raises."""
+    if specs is None:
+        return None
+    col = model_split(specs[first]["kernel"], mesh)
+    if col != model_split(specs[last]["kernel"], mesh):
+        raise ValueError(f"{first} and {last} must be split over 'model' "
+                         f"together: {specs[first]} / {specs[last]}")
+    return mesh if col else None
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +283,20 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, *, a_model=None, a_ff=None,
-              act: str = "silu") -> torch.Tensor:
-    """Gated (SwiGLU) or plain FFN with elastic hidden and model dims."""
+              act: str = "silu", tp=None) -> torch.Tensor:
+    """Gated (SwiGLU) or plain FFN with elastic hidden and model dims.
+    ``tp`` (a mesh): wi/wg are this rank's column blocks and wo its row
+    block (the module note), at full width."""
+    if tp is not None:
+        if a_model is not None or a_ff is not None:
+            raise NotImplementedError("tensor-parallel FFN at full width "
+                                      "only")
+        h = dense_apply(p["wi"], x)
+        if "wg" in p:
+            h = _ACTS[act](dense_apply(p["wg"], x)) * h
+        else:
+            h = _ACTS[act](h)
+        return _row_parallel(p["wo"], h, tp)
     h = dense_apply(p["wi"], x, a_in=a_model, a_out=a_ff)
     fn = _ACTS[act]
     if "wg" in p:
@@ -323,7 +387,7 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     a_model=None, a_heads=None,
                     kv_cache: Optional[dict] = None,
                     return_kv: bool = False, decode_impl: str = "xla",
-                    mesh=None) -> tuple:
+                    mesh=None, tp=None) -> tuple:
     """Returns (out (B, S, d_model_active), new_kv_cache | None).
 
     The reference's prefill (``impl="ref"``; its blocked XLA variants
@@ -349,9 +413,22 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     :func:`repro_torch.distributed.decode_attn.sharded_decode_attention`),
     the sequence over ``"model"`` at B >= 16 and over every axis below,
     as the reference's rule; otherwise the one-process decode.
+    ``tp`` (a mesh): q/k/v are this rank's column blocks, its share of the
+    heads, and o the matching row block (the module note); full width,
+    no cache, MHA (a column block of GQA's (R, K) query heads would need
+    every kv head).
     """
     B, S, _ = x.shape
     H = n_heads
+    if tp is not None:
+        n = ctx.axes_size(tp, ("model",))
+        if (a_model, a_heads, kv_cache) != (None, None, None) or return_kv \
+                or n_kv != n_heads or n_heads % n:
+            raise NotImplementedError(
+                f"tensor-parallel attention: MHA at full width without a "
+                f"cache, heads dividing the model axis ({n_heads} / "
+                f"{n_kv} heads over {n})")
+        H = n_heads = n_kv = n_heads // n
     mha = n_kv == n_heads
     # MHA: kv heads shrink together with query heads.  GQA/MQA: kv heads stay
     # (they are cheap); query groups per kv head shrink.
@@ -424,6 +501,8 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     out = out.reshape(B, S, H * d_head)
     if masked_heads:    # flat head r*K + k is active iff it is < a_heads
         out = mask_dim(out, a_q, -1)
+    if tp is not None:
+        return _row_parallel(p["o"], out, tp), None
     y = dense_apply(p["o"], out, a_in=a_q, a_out=a_model)
     return y, new_cache
 

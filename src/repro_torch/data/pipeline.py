@@ -33,12 +33,32 @@ def host_shard(global_batch: int) -> slice:
     return slice(i * per, (i + 1) * per)
 
 
+def microbatch_rows(global_batch: int, accum: int, n_blocks: int,
+                    block: int) -> np.ndarray:
+    """The rows of a global batch that data block ``block`` of
+    ``n_blocks`` holds when a step runs as ``accum`` microbatches, in
+    order: its block of microbatch 0, then of microbatch 1, ...  The
+    reference's microbatch i is the global batch's contiguous chunk i
+    (its ``_accum_grads``), which GSPMD splits over the batch axes; a
+    rank's contiguous block of the whole batch, cut into microbatches,
+    would route other tokens together."""
+    if global_batch % (accum * n_blocks):
+        raise ValueError(f"batch {global_batch} does not split into "
+                         f"{accum} microbatches over {n_blocks} blocks")
+    mb, per = global_batch // accum, global_batch // (accum * n_blocks)
+    return np.concatenate([np.arange(i * mb + block * per,
+                                     i * mb + (block + 1) * per)
+                           for i in range(accum)])
+
+
 def synthetic_lm_batches(*, global_batch: int, seq_len: int, vocab: int,
-                         seed: int = 0, start_step: int = 0
-                         ) -> Iterator[dict]:
+                         seed: int = 0, start_step: int = 0,
+                         rows=None) -> Iterator[dict]:
     """Zipf-ish token stream with next-token labels (learnable structure:
-    token t+1 correlates with token t so loss visibly decreases)."""
-    sl = host_shard(global_batch)
+    token t+1 correlates with token t so loss visibly decreases).
+    ``rows`` (e.g. :func:`microbatch_rows`) picks a rank's rows of each
+    global batch, the same bytes; by default this process's slice."""
+    sl = host_shard(global_batch) if rows is None else rows
     step = start_step
     while True:
         rng = np.random.default_rng((seed, step))

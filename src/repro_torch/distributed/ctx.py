@@ -9,18 +9,33 @@ the reference's.
 
 Ranks: :func:`spawn_ranks` starts one process per rank (the ``spawn``
 start method: CUDA cannot fork), :func:`init_ranks` brings one up.  The
-backend is picked once, from the world size against the cards the host
-has: NCCL when each rank has a card of its own, gloo when ranks share one
-card or run on the CPU; the choice is printed, and a failed init raises.
-Rendezvous is by a file (``init_method="file://..."``), never a fixed TCP
-port.
+backend is picked once, from the ranks on THIS host (all of them for
+ranks this host spawns; ``LOCAL_WORLD_SIZE``, else one, for a rank of a
+multi-process job) against the cards the host has: NCCL when each rank
+has a card of its own, gloo when ranks share one card or run on the CPU;
+the choice is printed, and a failed init raises.
+Rendezvous is by a file (``init_method="file://..."``) for ranks this
+host spawns, or by the TCP address a multi-process job names
+(``--coordinator host:port``: :func:`init_method`).
 
-Collectives go through :func:`all_reduce`, :func:`all_gather` and
-:func:`all_to_all` over the group of one or all mesh axes
-(:func:`axes_group`), on the tensors where they lie: gloo takes CUDA
-tensors for all three (it stages them through host memory itself; probed
-on an H100 with two ranks sharing the card, torch 2.11: ``chip_smoke.py``
-phase 28 checks it every run).
+Collectives go through :func:`all_reduce`, :func:`all_gather`,
+:func:`all_to_all` and :func:`reduce_scatter` over the group of one or
+all mesh axes (:func:`axes_group`), on the tensors where they lie: gloo
+takes CUDA tensors for all four, reduce_scatter in fp32 and bf16 too (it
+stages them through host memory itself; probed on an H100 with ranks
+sharing the card, torch 2.11: ``chip_smoke.py`` phase 28 checks it every
+run), so no collective needs a second route.
+
+Training differentiates through :func:`all_to_all_grad`,
+:func:`all_gather_grad` and :func:`all_reduce_grad`.  Their backwards
+follow one convention: every rank's loss is its SHARE of the global loss
+(the shares sum to it), so the gradient a rank holds for a tensor it
+shares with other ranks is a partial one, and the partials summed over
+those ranks are the gradient.  Under it the adjoint of an all-to-all is
+the reverse all-to-all, that of an all-gather a reduce-scatter, and that
+of an all-reduce an all-reduce; a replicated tensor read by a rank's own
+work needs no collective at all (its partials are summed where a leaf's
+gradient is reduced: ``launch/steps.py``).
 """
 from __future__ import annotations
 
@@ -39,7 +54,7 @@ import torch.distributed as dist
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
-_RANK = {"device": None, "backend": None}
+_RANK = {"device": None, "backend": None, "shared": None}
 
 
 def current_mesh():
@@ -73,21 +88,39 @@ def wsc(x, *spec):
 # ranks
 # ---------------------------------------------------------------------------
 
-def choose_backend(world: int, device_type: str) -> str:
-    """NCCL when each of ``world`` ranks has a card of its own; gloo when
-    ranks share a card (NCCL refuses two ranks on one device) or run on
-    the CPU."""
-    if device_type == "cuda" and world <= torch.cuda.device_count():
-        return "nccl"
-    return "gloo"
+def shares_card(local_world: int, device_type: str) -> bool:
+    """Whether the ``local_world`` ranks on this host share a card (or run
+    on the CPU)."""
+    return device_type != "cuda" or local_world > torch.cuda.device_count()
+
+
+def choose_backend(local_world: int, device_type: str) -> str:
+    """NCCL when each of the ``local_world`` ranks on this host has a card
+    of its own; gloo when they share a card (NCCL refuses two ranks on one
+    device) or run on the CPU."""
+    return "gloo" if shares_card(local_world, device_type) else "nccl"
+
+
+def local_world_size(world: int, coordinator: bool) -> int:
+    """The ranks on this host: all ``world`` of a job this host spawns;
+    for a rank of a multi-process job (``coordinator``) the launcher's
+    ``LOCAL_WORLD_SIZE``, else one (a card a process)."""
+    if not coordinator:
+        return world
+    return int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
 
 
 def init_ranks(rank: int, world: int, init_file: str, device: str = "cuda",
-               *, timeout_s: float = 600.0) -> torch.device:
+               *, local_world: int | None = None,
+               timeout_s: float = 600.0) -> torch.device:
     """Join rank ``rank`` of ``world`` to the default process group,
-    rendezvous through ``init_file`` (a path no earlier group used).
+    rendezvous through ``init_file`` (a path no earlier group used, or a
+    coordinator's ``host:port``).  ``local_world``: the ranks on this
+    host (default all ``world``: :func:`local_world_size`), which decides
+    the backend and whether they share a card.
     ``device`` ``"cuda"`` puts rank r on card r mod the host's cards;
     ``"cpu"`` keeps it on the CPU.  Returns the rank's device."""
+    local_world = world if local_world is None else local_world
     kind = torch.device(device).type
     if kind == "cuda":
         if not torch.cuda.is_available():
@@ -98,20 +131,41 @@ def init_ranks(rank: int, world: int, init_file: str, device: str = "cuda",
     elif kind == "cpu":
         dev = torch.device("cpu")
         # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
     else:
         raise ValueError(f"unsupported device {device!r}")
-    backend = choose_backend(world, kind)
+    backend = choose_backend(local_world, kind)
     dist.init_process_group(
-        backend, init_method="file://" + os.path.abspath(init_file),
-        rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s))
-    _RANK.update(device=dev, backend=backend)
+        backend, init_method=init_method(init_file), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    _RANK.update(device=dev, backend=backend,
+                 shared=shares_card(local_world, kind))
     if rank == 0:
         where = ("the CPU" if kind == "cpu" else
-                 f"{min(world, torch.cuda.device_count())} card(s)")
+                 f"{min(local_world, torch.cuda.device_count())} card(s) "
+                 f"a host")
         print(f"ranks: {world} on {where}, backend {backend}", flush=True)
     return dev
+
+
+def init_method(where: str) -> str:
+    """A rendezvous address: ``host:port`` (a TCP store on that host: the
+    launcher's ``--coordinator``) or a file path (no fixed port)."""
+    host, _, port = where.rpartition(":")
+    if host and port.isdigit() and os.sep not in where:
+        return f"tcp://{where}"
+    return "file://" + os.path.abspath(where)
+
+
+def rank_backend() -> str:
+    return _RANK["backend"]
+
+
+def ranks_share_card() -> bool:
+    """Whether this host's ranks share a card, or run on the CPU."""
+    if _RANK["shared"] is None:
+        raise RuntimeError("init_ranks has not run in this process")
+    return _RANK["shared"]
 
 
 def rank_device() -> torch.device:
@@ -123,7 +177,7 @@ def rank_device() -> torch.device:
 def close_ranks() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
-    _RANK.update(device=None, backend=None)
+    _RANK.update(device=None, backend=None, shared=None)
 
 
 def _rank_main(fn, rank, world, args, results) -> None:
@@ -231,10 +285,12 @@ def axes_group(mesh, axes):
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
-# all_gather_into_tensor under its newer name where torch has it (the
-# older one warns there)
+# all_gather_into_tensor and reduce_scatter_tensor under their newer
+# names where torch has them (the older ones warn there)
 _gather_single = getattr(dist, "all_gather_single",
                          dist.all_gather_into_tensor)
+_scatter_single = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
 
 
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
@@ -263,6 +319,31 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def all_reduce_axes(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` summed over the mesh axes ``axes``, in place (none: as it
+    is): over their joint group where they are the whole mesh, else one
+    axis at a time."""
+    axes = _axes(mesh, axes)
+    if not axes:
+        return t
+    if set(axes) == set(mesh.mesh_dim_names):
+        return all_reduce(t, "sum", axes_group(mesh, axes))
+    for a in axes:
+        all_reduce(t, "sum", mesh.get_group(a))
+    return t
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """Rank i's chunk i (dim 0 in group-size equal chunks) of the sum of
+    every rank's ``t`` over ``group``."""
+    n = dist.get_world_size(group)
+    src = t.contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    _scatter_single(out, src, group=group)
+    return out
+
+
 def gather_axes(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """Concatenate every rank's ``t`` along ``dim`` over the mesh axes
     ``axes`` (each a block of the row-major flat index), one axis at a
@@ -271,4 +352,70 @@ def gather_axes(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         parts = all_gather(t, mesh.get_group(a))
         t = torch.cat(list(parts.unbind(0)), dim=dim)
     return t
+
+
+# ---------------------------------------------------------------------------
+# collectives that carry gradients (the module note's convention)
+# ---------------------------------------------------------------------------
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, group):
+        fctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_to_all(g, fctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, groups, dim, dtype):
+        fctx.groups, fctx.dim, fctx.in_dtype = groups, dim, t.dtype
+        t = t.to(dtype)
+        for group in groups:                 # innermost axis first
+            t = torch.cat(list(all_gather(t, group).unbind(0)), dim=dim)
+        return t
+
+    @staticmethod
+    def backward(fctx, g):
+        g = g.to(fctx.in_dtype)
+        for group in reversed(fctx.groups):
+            n = dist.get_world_size(group)
+            chunks = torch.stack(g.chunk(n, fctx.dim))
+            g = reduce_scatter(chunks, group).reshape(chunks.shape[1:])
+        return g, None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, group):
+        fctx.group = group
+        return all_reduce(t.clone(), "sum", group)
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_reduce(g.clone(), "sum", fctx.group), None
+
+
+def all_to_all_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` whose backward is the reverse all-to-all."""
+    return _AllToAll.apply(t, group)
+
+
+def all_gather_grad(t: torch.Tensor, mesh, axes, dim: int,
+                    dtype=None) -> torch.Tensor:
+    """:func:`gather_axes` of ``t`` (cast to ``dtype`` first, where given:
+    a block gathered in the compute dtype moves fewer bytes) whose
+    backward reduce-scatters the gradient in ``t``'s own dtype (an fp32
+    parameter block's: fp32) and hands each rank its block's part."""
+    groups = tuple(mesh.get_group(a) for a in reversed(_axes(mesh, axes)))
+    return _AllGather.apply(t, groups, dim, dtype or t.dtype)
+
+
+def all_reduce_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (a new tensor), whose
+    backward sums the ranks' gradients the same way."""
+    return _AllReduce.apply(t, group)
 

@@ -3,7 +3,11 @@
 Counterpart of the reference ``distributed/fault.py``.  Recovery is
 checkpoint/restart: :func:`run_with_restarts` runs the train function,
 catches a failure, restores the latest checkpoint and continues, up to
-``max_restarts``.
+``max_restarts``.  Across the ranks of a job (``group=``) every rank
+resumes from the same step: the latest that every rank sees complete.
+An injected failure hits every rank at the same step (the launcher's
+``--fail-at``); a fault on one rank alone fails the run (its peers' next
+collective times out, or the spawner stops them).
 
 Divergence from the reference: the reference retries on any
 ``RuntimeError``.  The port's kernel wrappers raise ``RuntimeError`` when a
@@ -96,19 +100,35 @@ class StragglerMonitor:
         return is_straggler
 
 
+def _agreed_step(manager, group) -> Optional[int]:
+    """The least of every rank's latest complete step (None: some rank
+    has none), the same on every rank of ``group``, read once every rank
+    has published its saves."""
+    import torch
+    import torch.distributed as dist
+    dist.barrier(group=group)
+    step = manager.latest_step()
+    t = torch.tensor([-1 if step is None else step], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return None if int(t) < 0 else int(t)
+
+
 def run_with_restarts(train_fn, *, manager, max_restarts: int = 3,
-                      logger=print):
+                      logger=print, group=None):
     """Supervisor: ``train_fn(start_step, restored_state|None) -> state``.
 
     On a :data:`RETRIED` failure, restores the latest checkpoint and
-    re-invokes train_fn.  Returns (final_state, n_restarts).
+    re-invokes train_fn.  Returns (final_state, n_restarts).  ``group``
+    (a ``torch.distributed`` group over CPU tensors: gloo) makes the
+    ranks agree on the step they resume from (the module note).
     """
     restarts = 0
     while True:
         start_step, state = 0, None
-        latest = manager.latest_step()
+        latest = manager.latest_step() if group is None \
+            else _agreed_step(manager, group)
         if latest is not None:
-            start_step, state = manager.restore_latest()
+            start_step, state = manager.restore(latest)
             start_step += 1
             logger(f"[fault] resuming from checkpoint step {start_step - 1}")
         try:

@@ -9,11 +9,15 @@ with a ``.shape`` or a tuple of ints; its path joins the dict keys and
 list indices with ``/``, as the reference's ``_path_str`` does.  Specs may
 name axes (``"pod"``) that a mesh lacks; :func:`clean_spec` drops them.
 
-What this slice applies (:func:`serving_spec`): only the routed experts'
-leading ``"model"`` axis, which the all-to-all dispatch needs (``wi``,
-``wg`` and ``wo``: ``P("model", fsdp, None)`` in the rules); every other
-leaf is replicated.  The rules' TP and FSDP placements of the other
-leaves come with training under a mesh (ROADMAP §3).
+Two placements are applied.  Serving (:func:`serving_spec`) splits only
+the routed experts' leading ``"model"`` axis, which the all-to-all
+dispatch needs, and replicates every other leaf.  Training
+(:func:`train_spec_fn`) applies the rules whole, TP over ``"model"`` and
+FSDP over the batch axes, as the reference's ``param_specs`` computes
+them (its 16/32 divisibility and 4M-element floor; or, for tests at a
+small size, the rules unfiltered), to the port's per-layer leaves; the
+optimizer state follows by :func:`opt_specs_like`.  A training rank owns
+contiguous copies of its blocks (:func:`shard_tree` with ``own=True``).
 """
 from __future__ import annotations
 
@@ -241,30 +245,133 @@ def layer_serving_spec(path_s: str, shape: Tuple[int, ...]) -> Spec:
     return serving_spec(ref, (1, *shape))[1:]
 
 
-def shard_leaf(x, spec: Spec, mesh, coords=None):
-    """The block of ``x`` the rank at mesh coordinate ``coords`` (default
-    this rank) holds under ``spec``: each split dim cut into equal blocks,
-    the block index row-major over a tuple entry's axes (a dim its shards
-    do not divide raises).  A view (or numpy view) of ``x``."""
+def entry_axes(e) -> Tuple[str, ...]:
+    """The mesh axes one entry of a spec names."""
+    return () if e is None else (tuple(e) if isinstance(e, (tuple, list))
+                                 else (e,))
+
+
+def block_index(shape, spec: Spec, sizes: dict, coords: dict) -> tuple:
+    """The slices of a ``shape`` leaf that the rank at ``coords`` ({axis:
+    index}) holds under ``spec`` on a mesh of ``sizes`` ({axis: ranks};
+    axes it lacks are dropped): each split dim cut into equal blocks, the
+    block index row-major over a tuple entry's axes (a dim its shards do
+    not divide raises)."""
+    index = []
+    for dim, e in enumerate(spec):
+        i, n = 0, 1
+        for a in entry_axes(e):
+            if a in sizes:
+                i, n = i * sizes[a] + coords[a], n * sizes[a]
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"into {n} blocks (spec {spec})")
+        b = shape[dim] // n
+        index.append(slice(i * b, (i + 1) * b))
+    return tuple(index)
+
+
+def mesh_layout(mesh, coords=None) -> tuple:
+    """({axis: ranks}, {axis: this rank's index}) of a ``DeviceMesh``, or
+    of the rank at mesh coordinate ``coords``."""
     names = tuple(mesh.mesh_dim_names)
     coords = mesh.get_coordinate() if coords is None else coords
-    index = []
-    for dim, e in enumerate(clean_spec(spec, mesh)):
-        i, n = 0, 1
-        for a in () if e is None else (e if isinstance(e, tuple) else (e,)):
-            d = names.index(a)
-            i, n = i * mesh.size(d) + coords[d], n * mesh.size(d)
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                             f"into {n} blocks (spec {spec})")
-        b = x.shape[dim] // n
-        index.append(slice(i * b, (i + 1) * b))
-    return x[tuple(index)]
+    return ({a: mesh.size(d) for d, a in enumerate(names)},
+            {a: int(coords[d]) for d, a in enumerate(names)})
 
 
-def shard_tree(tree, mesh, coords=None, spec_fn=serving_spec):
+def shard_leaf(x, spec: Spec, mesh, coords=None, own: bool = False):
+    """The block of ``x`` the rank at mesh coordinate ``coords`` (default
+    this rank) holds under ``spec`` (:func:`block_index`): a view (or
+    numpy view) of ``x``, or with ``own`` a contiguous copy of its own
+    (a training state must not keep the whole leaf alive behind a view)."""
+    sizes, at = mesh_layout(mesh, coords)
+    blk = x[block_index(x.shape, spec, sizes, at)]
+    if not own:
+        return blk
+    if isinstance(blk, np.ndarray):
+        return np.array(blk, copy=True, order="C")
+    # a strided view's contiguous() is already a copy of its own
+    return blk.clone() if blk.is_contiguous() else blk.contiguous()
+
+
+def shard_tree(tree, mesh, coords=None, spec_fn=serving_spec,
+               own: bool = False):
     """Every leaf of ``tree`` cut to the rank's block by
-    ``spec_fn(path, shape)``."""
+    ``spec_fn(path, shape)`` (:func:`shard_leaf`)."""
     return _map_with_path(
         lambda p, leaf: shard_leaf(leaf, spec_fn(p, _shape(leaf)), mesh,
-                                   coords), tree)
+                                   coords, own), tree)
+
+
+def is_spec(t) -> bool:
+    """A spec (a tuple of axis names, tuples of them and Nones), as a leaf
+    of a spec tree (``optim.api.named_leaves(..., is_leaf=is_spec)``)."""
+    return isinstance(t, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in t)
+
+
+def spec_tree(tree, spec_fn):
+    """The tree of ``spec_fn(path, shape)`` over ``tree``'s leaves."""
+    return _map_with_path(lambda p, leaf: spec_fn(p, _shape(leaf)), tree)
+
+
+# ---------------------------------------------------------------------------
+# the training placement
+# ---------------------------------------------------------------------------
+
+def train_spec_fn(cfg, *, filtered: bool = True):
+    """``spec_fn(path, shape)`` of the training placement for an LM config
+    ``cfg``'s port tree (per-layer paths such as
+    ``moe_layers/3/moe/wi``): the spec the reference's ``param_specs``
+    gives the stacked leaf (shape ``(L, *shape)`` for a stack of L
+    layers), without its leading L entry.  ``filtered=False`` applies the
+    rules without ``param_specs``'s divisibility filter and 4M-element
+    floor, so that at a small size every TP and FSDP split is made (a dim
+    the mesh does not divide then raises in :func:`shard_leaf`).  FSDP is
+    over ("pod", "data"), the production meshes' batch axes: a mesh
+    without "pod" drops it (:func:`clean_spec`)."""
+    stacks = {"dense_layers": cfg.n_dense_layers,
+              "moe_layers": cfg.n_moe_layers}
+    fsdp = ("pod", "data")
+
+    def fn(path_s: str, shape) -> Spec:
+        ref = layer_path(path_s)
+        stacked = ref != path_s
+        full = (stacks[path_s.split("/")[0]], *shape) if stacked \
+            else tuple(shape)
+        if filtered:
+            spec = leaf_spec(ref, full, "lm", fsdp_axes=fsdp)
+        else:
+            spec = lm_rules(ref, full, fsdp)
+            if len(spec) != len(full):
+                spec = _none(len(full))
+        return tuple(spec[1:]) if stacked else tuple(spec)
+    return fn
+
+
+def split_axes(spec: Spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes that split a leaf under ``spec``, in mesh order."""
+    named = {a for e in clean_spec(spec, mesh) for a in entry_axes(e)}
+    return tuple(a for a in mesh.mesh_dim_names if a in named)
+
+
+def replicated_axes(spec: Spec, mesh) -> Tuple[str, ...]:
+    """The mesh axes over which a leaf under ``spec`` is replicated."""
+    split = split_axes(spec, mesh)
+    return tuple(a for a in mesh.mesh_dim_names if a not in split)
+
+
+def fsdp_entry(spec: Spec, mesh):
+    """(dim, axes) of the entry of ``spec`` that splits a leaf over batch
+    axes alone (its FSDP dim), or None."""
+    for dim, e in enumerate(clean_spec(spec, mesh)):
+        axes = entry_axes(e)
+        if axes and "model" not in axes:
+            return dim, axes
+    return None
+
+
+def model_split(spec: Spec, mesh) -> bool:
+    """Whether ``spec`` splits a leaf over the ``"model"`` axis."""
+    return "model" in split_axes(spec, mesh)

@@ -39,18 +39,29 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
                             mesh_dim_names=axes)
 
 
+PRODUCTION = {"pod": ((16, 16), ("data", "model")),
+              "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     """The reference's production meshes: 16 x 16 (``data``, ``model``),
     or 2 x 16 x 16 with ``pod``.  Built only over a group of exactly 256
     or 512 ranks; any other world size raises."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = PRODUCTION["multipod" if multi_pod else "pod"]
     need = 512 if multi_pod else 256
     world = dist.get_world_size()
     if world != need:
         raise ValueError(f"the production mesh {shape} needs {need} ranks; "
                          f"this group has {world}")
     return make_mesh(shape, axes)
+
+
+def mesh_spec(text: str) -> tuple:
+    """A launcher's ``--mesh``: ``pod`` and ``multipod`` (the production
+    meshes) or ``DATAxMODEL`` -> (shape, axes)."""
+    if text in PRODUCTION:
+        return PRODUCTION[text]
+    return parse_mesh(text), ("data", "model")
 
 
 def make_host_mesh(n_devices: Optional[int] = None) -> DeviceMesh:

@@ -5,11 +5,13 @@ Counterparts of the ``train_step``, ``prefill`` and ``decode`` closures
 of the reference's ``launch/steps.py:_lm_cell``, the ``train_step`` of
 its ``_vis_cell``, the ``train_step`` and ``gen_step`` of its
 ``_diff_cell``, its ``_accum_grads`` and ``build_cell``'s
-``cfg_overrides``.  Training runs on one card; the LM's prefill and
-decode also run under a device mesh (``mesh=``: one rank of it, the
-experts split over ``"model"``, the decode cache over the sequence as
-the reference's ``_lm_cell`` rule has it: over every axis below a batch
-of 16), eagerly (gloo's collectives cannot be captured in a CUDA graph).
+``cfg_overrides``.  The LM also trains under a device mesh
+(:func:`make_lm_train_step` with ``mesh=``: one rank of it, the training
+placement's blocks of the parameters and AdamW state, the rank's rows of
+each microbatch), and its prefill and decode run under one (the experts
+split over ``"model"``, the decode cache over the sequence as the
+reference's ``_lm_cell`` rule has it: over every axis below a batch of
+16), eagerly (gloo's collectives cannot be captured in a CUDA graph).
 The functions run eagerly; :class:`LMGraphs` runs the one-card prefill
 and decode step as CUDA graphs on the card, the counterpart of the
 reference's jit-compiled closures.
@@ -23,8 +25,11 @@ import torch
 
 from repro_torch.configs.registry import vision_family
 from repro_torch.core.distill import ce_loss
+from repro_torch.distributed import ctx
 from repro_torch.distributed.decode_attn import (batch_block, is_sharded,
                                                  seq_start)
+from repro_torch.distributed.sharding import (is_spec, model_split,
+                                              replicated_axes)
 from repro_torch.graphs import Graph, new_pool, pool_bytes
 from repro_torch.models import diffusion as diff
 from repro_torch.models.dit import dit_apply
@@ -66,6 +71,18 @@ ONE_CARD_CUT = {
     ("deepseek-moe-16b", "train_4k"): {"n_layers": 4},
     ("qwen1.5-110b", "serve"): {"n_layers": 8},
     ("kimi-k2-1t-a32b", "serve"): {"n_layers": 2},
+}
+# Training under a mesh whose ranks share one card (or the host's CPU):
+# deepseek-moe-16b cut further to its dense layer and one MoE layer at
+# full width (1.09 B parameters, 17.5 GB of fp32 state over the ranks),
+# as ``chip_smoke.py`` phase 10 cuts it, and to a global batch of 4
+# sequences as 2 microbatches (a 2 x 2 mesh's data block holds one row
+# of each): every FSDP block crosses gloo, through host memory, twice a
+# microbatch.  ``n_layers`` cuts the config; ``global_batch`` and
+# ``accum`` (``--accum`` overrides it) the step
+SHARED_CARD_CUT = {
+    ("deepseek-moe-16b", "train_4k"): {"n_layers": 2, "global_batch": 4,
+                                       "accum": 2},
 }
 
 
@@ -186,23 +203,113 @@ def make_diff_train_step(arch_id: str, cfg, update_fn: Callable,
     return clipped_step(loss_fn, update_fn, accum)
 
 
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                       split: bool) -> torch.Tensor:
+    """Per-token negative log-likelihood (fp32) of logits whose last dim
+    is this rank's block of the vocabulary (``split``; else the whole
+    vocabulary): the max, the sum of exponentials and the target's logit
+    each summed or maxed over ``"model"`` in fp32, the sums through the
+    differentiable all-reduce.  The same function as ``ce_loss``'s
+    log-softmax; replicated over ``"model"``."""
+    z = logits.float()
+    if not split:
+        return -torch.gather(torch.log_softmax(z, -1), -1,
+                             labels.long()[..., None])[..., 0]
+    group = ctx.axes_group(mesh, ("model",))
+    V_loc = z.shape[-1]
+    with torch.no_grad():
+        m = ctx.all_reduce(z.max(-1).values, "max", group)
+    se = ctx.all_reduce_grad(torch.exp(z - m[..., None]).sum(-1), group)
+    local = labels.long() - ctx.axes_index(mesh, ("model",)) * V_loc
+    inside = (local >= 0) & (local < V_loc)
+    t = torch.gather(z, -1, local.clamp(0, V_loc - 1)[..., None])[..., 0]
+    t = ctx.all_reduce_grad(t * inside, group)
+    return m + torch.log(se) - t
+
+
+def reduce_replicated(grads, specs, mesh) -> None:
+    """Sum, in place, each gradient block over the mesh axes that
+    replicate its leaf (``specs`` mirrors ``grads``), one flat fp32
+    buffer per set of axes: each rank's share of the loss left it a
+    partial (``ctx``'s convention).  Blocks split over batch axes were
+    reduce-scattered in the backward."""
+    spec_of = dict(named_leaves(specs, is_leaf=is_spec))
+    groups: Dict[tuple, list] = {}
+    for path, g in named_leaves(grads):
+        axes = replicated_axes(spec_of[path], mesh)
+        if axes:
+            groups.setdefault(axes, []).append(g)
+    for axes, gs in sorted(groups.items()):
+        flat = ctx.all_reduce_axes(
+            torch.cat([g.reshape(-1).float() for g in gs]), mesh, axes)
+        for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+            g.copy_(part.view_as(g))
+
+
 def make_lm_train_step(cfg: LMConfig, update_fn: Callable, accum: int = 1,
-                       *, E=None, cfg_overrides: Optional[dict] = None
-                       ) -> Callable:
+                       *, E=None, cfg_overrides: Optional[dict] = None,
+                       mesh=None, specs=None) -> Callable:
     """The reference's ``_lm_cell`` train step: the cross entropy of the
     next-token logits on the labels plus the MoE aux loss (weighted by
     ``lm_apply``), through :func:`clipped_step`.  ``batch`` is {"tokens",
     "labels"} (B, S).  ``cfg_overrides`` replaces config fields first, as
     the reference's ``build_cell`` does (the launcher's one-card depth
     cut); the step's ``cfg`` attribute is the config it runs, for the
-    parameters' init."""
+    parameters' init.
+
+    ``mesh`` (with ``specs``, the training placement's spec of every
+    leaf, a tree beside ``params``, computed from the WHOLE leaves'
+    shapes: ``distributed.sharding.train_spec_fn``): the step of one
+    rank, whose ``params`` and optimizer state are its blocks and whose
+    ``batch`` holds its rows of
+    each microbatch, microbatch after microbatch (``data.
+    microbatch_rows``): its data block of the reference's microbatch i
+    is its chunk i.  Each rank differentiates its share of the
+    reference's loss (the cross entropy of its rows over the global
+    token count, over the ``"model"`` ranks that replicate it; the aux
+    loss over all ranks), so that the gradients summed over the ranks
+    that hold a leaf are the reference's: FSDP blocks reduce-scattered in
+    each microbatch's backward (fp32), the rest summed over the axes that
+    replicate them after the last microbatch (:func:`reduce_replicated`);
+    then the clip over blocks and the update on them.  The loss and
+    gradient norm returned are the global ones, on every rank."""
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
+    if mesh is None:
+        def loss_fn(params, mb):
+            logits, aux, _ = lm_apply(params, mb["tokens"], cfg, E=E)
+            return ce_loss(logits, mb["labels"]) + aux
+        step = clipped_step(loss_fn, update_fn, accum)
+        step.cfg = cfg
+        return step
+    if specs is None or E:
+        raise ValueError("a mesh step wants the training placement's "
+                         "specs, at full width")
+    n_model = ctx.axes_size(mesh, ("model",))
+    n_batch = mesh.size() // n_model
+    world = ctx.axes_group(mesh, mesh.mesh_dim_names)
 
     def loss_fn(params, mb):
-        logits, aux, _ = lm_apply(params, mb["tokens"], cfg, E=E)
-        return ce_loss(logits, mb["labels"]) + aux
-    step = clipped_step(loss_fn, update_fn, accum)
+        logits, aux, _ = lm_apply(params, mb["tokens"], cfg, mesh=mesh,
+                                  specs=specs)
+        nll = vocab_parallel_nll(logits, mb["labels"], mesh, model_split(
+            specs["lm_head"]["kernel"], mesh))
+        return nll.sum() / (nll.numel() * n_batch * n_model) \
+            + aux / mesh.size()
+
+    def step(params, opt, batch, step):
+        pop_grads(params)
+        share = accum_grads(loss_fn, params, batch, accum)
+        for _, p in named_leaves(params):
+            if p.grad is None:     # no loss reached it: every rank sums
+                p.grad = torch.zeros_like(p)      # the same buffers
+        grads = pop_grads(params)
+        reduce_replicated(grads, specs, mesh)
+        grads, gn = clip_by_global_norm(grads, 1.0, layout=(mesh, specs))
+        params, opt = update_fn(params, grads, opt, step,
+                                layout=(mesh, specs))
+        loss = ctx.all_reduce(share.reshape(1).clone(), "sum", world)[0]
+        return params, opt, {"loss": loss, "gnorm": gn}
     step.cfg = cfg
     return step
 

@@ -24,6 +24,24 @@ Parameters are fp32 and the compute dtype is the config's (bf16 at full
 size).  The run is on the card unless ``--device cpu``; with no card and
 no ``--device cpu`` it raises.
 
+``--mesh DATAxMODEL`` trains an LM across a (data, model) mesh: the
+ranks spawned on this host (the kernels built once, here, first), each
+holding its blocks of the parameters and AdamW state under the
+reference's TP and FSDP placement (``distributed.sharding.
+train_spec_fn``), its rows of each microbatch, and its checkpoint blocks
+(``rank<k>/``).  ``--coordinator host:port --num-processes N
+--process-id k`` runs one rank of a job of N processes instead (TCP
+rendezvous); ``--mesh pod`` and ``multipod`` (the production 16 x 16
+and 2 x 16 x 16 meshes) need them, with N the mesh's size, and raise
+before any allocation otherwise; such a rank takes a card of its own
+unless ``LOCAL_WORLD_SIZE`` says how many ranks share its host.  Where
+the ranks on a host share a card (or the CPU), ``steps.SHARED_CARD_CUT``
+cuts the depth, the global batch and its microbatches; where each rank
+has a card, the whole model trains at the reference's microbatches
+(:func:`step_cuts`); the launcher prints the cuts.
+The vision and diffusion families train on one card only (ROADMAP item
+11 (d)).
+
     python -m repro_torch.launch.train --arch dynamic-ofa-supernet \\
         --sandwich --smoke --device cpu --steps 12
     python -m repro_torch.launch.train --arch resnet-152 --smoke \\
@@ -32,13 +50,17 @@ no ``--device cpu`` it raises.
         --device cpu --steps 3
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \\
         --device cpu --steps 3
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \\
+        --device cpu --steps 3 --mesh 2x2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import statistics
+import sys
 import tempfile
 import time
 
@@ -49,14 +71,21 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.configs.registry import ShapeSpec, vision_family
 from repro_torch.core.supernet import make_sandwich_step
-from repro_torch.data import (Prefetcher, synthetic_image_batches,
+from repro_torch.data import (Prefetcher, microbatch_rows,
+                              synthetic_image_batches,
                               synthetic_label_batches, synthetic_lm_batches,
                               to_device)
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed import ctx
 from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
                                            Watchdog, run_with_restarts)
+from repro_torch.distributed.sharding import (is_spec, opt_specs_like,
+                                              shard_leaf, spec_tree,
+                                              train_spec_fn)
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import PRODUCTION, make_mesh, mesh_spec
 from repro_torch.launch.steps import (ACCUM_DEFAULTS, ONE_CARD_CUT,
-                                      make_diff_train_step,
+                                      SHARED_CARD_CUT, make_diff_train_step,
                                       make_lm_train_step, make_vis_train_step)
 from repro_torch.models.dit import dit_init
 from repro_torch.models.efficientnet import effnet_init
@@ -80,6 +109,7 @@ ONE_CARD_ACCUM = {("unet-sdxl", "train_256"): 8,
 # item 20: K2's backward at kimi-k2's head dim 112, their one-card cuts,
 # kimi's bf16 Adafactor step); their smoke configs train anywhere
 NOT_TRAINED_ON_CARD = ("qwen1.5-110b", "granite-20b", "kimi-k2-1t-a32b")
+MESH_TIMEOUT_S = 3600.0
 
 
 def parse_args(argv=None):
@@ -95,12 +125,14 @@ def parse_args(argv=None):
     ap.add_argument("--save-every", type=int, default=50,
                     help="checkpoint every N steps (step 0 too); 0: never "
                          "(a restart then starts again from step 0)")
-    ap.add_argument("--mesh", choices=("host", "pod", "multipod"),
-                    default="host")
+    ap.add_argument("--mesh", default="host",
+                    help="host (one process), pod, multipod, or DATAxMODEL "
+                         "(e.g. 2x2: the ranks spawned on this host)")
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a failure at this step (tests recovery)")
     ap.add_argument("--coordinator", default=None,
-                    help="host:port of a multi-process job (not ported)")
+                    help="host:port of a multi-process job's rendezvous: "
+                         "this process is one rank of --mesh")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--log-every", type=int, default=10)
@@ -190,20 +222,135 @@ def describe_cuts(arch_id: str, shape: ShapeSpec, cfg, cut: dict,
     return out
 
 
+def mesh_request(args):
+    """(shape, axes) of the mesh ``--mesh`` asks for, None for one
+    process.  Raises, before anything is allocated, for a production mesh
+    without a coordinator or a job whose processes do not make the
+    mesh."""
+    if args.mesh == "host":
+        if args.coordinator:
+            raise ValueError("--coordinator starts one rank of a mesh: give "
+                             "its --mesh (pod, multipod or DATAxMODEL)")
+        return None
+    shape, axes = mesh_spec(args.mesh)
+    world = math.prod(shape)
+    if args.coordinator is None:
+        if args.mesh in PRODUCTION:
+            raise ValueError(
+                f"--mesh {args.mesh} spans {world} processes: run each with "
+                f"--coordinator host:port --num-processes {world} "
+                f"--process-id k")
+        return shape, axes
+    if args.num_processes != world or args.process_id is None \
+            or not 0 <= args.process_id < world:
+        raise ValueError(
+            f"--mesh {args.mesh} is {world} ranks: --num-processes "
+            f"{args.num_processes} and --process-id {args.process_id} do "
+            f"not make it")
+    return shape, axes
+
+
 def main(argv=None):
     """Train; returns {"params", "opt", "restarts", "step_ms", "losses"}
-    (``step_ms`` and ``losses`` of every step run, restarts included)."""
+    (``step_ms`` and ``losses`` of every step run, restarts included), or
+    under ``--mesh`` one dict a rank (:func:`train_rank`)."""
     args = parse_args(argv)
-    if args.mesh != "host" or args.coordinator:
-        raise NotImplementedError(
-            "multi-device and multi-process training (--mesh pod/multipod, "
-            "--coordinator) come with ROADMAP item 11")
     arch = get_arch(args.arch)
+    if (args.mesh != "host" or args.coordinator) and arch.family != "lm":
+        raise NotImplementedError(
+            f"{arch.arch_id}: training under a mesh is ported for the LMs; "
+            f"the vision and diffusion families are ROADMAP item 11 (d)")
+    req = mesh_request(args)
     if arch.arch_id in NOT_TRAINED_ON_CARD and not args.smoke:
         raise NotImplementedError(
             f"{arch.arch_id}: training at full size is ROADMAP item 20 (K2's "
             f"backward at head dim 112, a one-card cut, kimi's bf16 "
             f"Adafactor); --smoke trains the reduced config")
+    if req is None:
+        return run(args, arch)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    world = math.prod(req[0])
+    if args.coordinator:
+        return [train_rank(args.process_id, world, args.coordinator, argv)]
+    if resolve_device(args.device).type == "cuda":
+        from repro_torch.kernels import build
+        build.build()           # once, before the ranks load it
+    with tempfile.TemporaryDirectory() as tmp:
+        return ctx.spawn_ranks(train_rank, world,
+                               (os.path.join(tmp, "rendezvous"), argv),
+                               timeout_s=MESH_TIMEOUT_S)
+
+
+def train_rank(rank: int, world: int, rendezvous: str, argv) -> dict:
+    """One rank of ``--mesh``: joins the job, builds the mesh and trains
+    its blocks.  Returns plain values: its losses, step times, restarts,
+    peak device memory and kernel launches (by variant)."""
+    args = parse_args(argv)
+    shape, axes = mesh_request(args)
+    ctx.init_ranks(rank, world, rendezvous, resolve_device(args.device).type,
+                   local_world=ctx.local_world_size(world,
+                                                    bool(args.coordinator)))
+    mesh = make_mesh(shape, axes)
+    ops.reset_launch_counts()
+    out = run(args, get_arch(args.arch), mesh=mesh)
+    dev = ctx.rank_device()
+    return {"rank": rank, "restarts": out["restarts"],
+            "step_ms": out["step_ms"], "losses": out["losses"],
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None),
+            "launches": ops.launch_counts(),
+            "variants": ops.variant_counts()}
+
+
+def step_cuts(key, global_batch: int, args, shared) -> tuple:
+    """(config cut, global batch, microbatches) of a run of ``key`` (arch,
+    shape): none at ``--smoke``; on one card ``ONE_CARD_CUT`` and
+    ``ONE_CARD_ACCUM``; under a mesh (``shared`` not None) whose ranks
+    share a card ``SHARED_CARD_CUT``'s depth, batch and microbatches (else
+    one card's); under a mesh of a card a rank, the whole model at the
+    reference's microbatches.  ``--accum`` overrides the microbatches."""
+    if args.smoke:
+        return {}, global_batch, args.accum or 1
+    if shared and key in SHARED_CARD_CUT:
+        cut = dict(SHARED_CARD_CUT[key])
+        B, accum = cut.pop("global_batch"), cut.pop("accum")
+        return cut, B, args.accum or accum
+    if shared is False:
+        return {}, global_batch, args.accum or ACCUM_DEFAULTS.get(key, 1)
+    return (ONE_CARD_CUT.get(key, {}), global_batch,
+            args.accum or ONE_CARD_ACCUM.get(key, ACCUM_DEFAULTS.get(key, 1)))
+
+
+def mesh_state(cfg, mesh, spec_fn, init_fn, device) -> tuple:
+    """(state, specs): this rank's blocks of the parameters (drawn leaf by
+    leaf from seed 0 as one process draws them, each whole leaf cut to a
+    contiguous copy of its block by ``spec_fn`` of its whole shape) and
+    their optimizer state, and the tree of the parameters' specs."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    placed = {}
+
+    def cut(path, t):
+        placed[path] = spec_fn(path, tuple(t.shape))
+        return shard_leaf(t, placed[path], mesh, own=True)
+    params = lm_init(gen, cfg, device=device, shard=cut)
+    return ({"params": params, "opt": init_fn(params)},
+            spec_tree(params, lambda path, _: placed[path]))
+
+
+def _state_specs(state, pspecs) -> dict:
+    """{path: spec} of a training state's leaves (``params/...`` by the
+    placement, ``opt/s/...`` by ``opt_specs_like``), for its
+    checkpoint."""
+    ospecs = opt_specs_like(pspecs, state["opt"], state["params"])
+    flat = {}
+    for prefix, tree in (("params", pspecs), ("opt", ospecs)):
+        for path, sp in named_leaves(tree, is_leaf=is_spec):
+            flat[f"{prefix}/{path}"] = sp
+    return flat
+
+
+def run(args, arch, mesh=None) -> dict:
+    """The training run of one process, or of one rank of ``mesh``."""
     lm = arch.family == "lm"
     diffusion = arch.family == "diffusion"
     fam = arch.family if lm or diffusion else vision_family(arch.arch_id)
@@ -211,7 +358,13 @@ def main(argv=None):
         raise NotImplementedError(f"{args.arch}: no ported training path")
     if args.sandwich and fam != "vit":
         raise SystemExit("--sandwich: vision-transformer archs only")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None \
+        else ctx.rank_device()
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+
+    def say(msg):
+        if rank0:
+            print(msg, flush=True)
 
     cfg = arch.make_smoke() if args.smoke else arch.make_config()
     shape = _shape(arch, args.shape, cfg, args.smoke)
@@ -220,13 +373,13 @@ def main(argv=None):
         raise ValueError(f"--shape {shape.name} is a {shape.kind} shape")
     if not lm and shape.img_res != cfg.img_res:
         cfg = dataclasses.replace(cfg, img_res=shape.img_res)
-    B = shape.global_batch
-    key = (arch.arch_id, shape.name)
-    accum = args.accum or (1 if args.smoke else ONE_CARD_ACCUM.get(
-        key, ACCUM_DEFAULTS.get(key, 1)))
-    cut = {} if args.smoke else ONE_CARD_CUT.get(key, {})
+    cut, B, accum = step_cuts(
+        (arch.arch_id, shape.name), shape.global_batch, args,
+        None if mesh is None else ctx.ranks_share_card())
     init_fn, update_fn = make_optimizer(arch.optimizer)
 
+    spec_fn = specs = None
+    drawn = []              # the blocks drawn for the specs, used first
     if args.sandwich:
         dims = {"d_model": cfg.d_model, "d_ff": cfg.d_ff,
                 "n_heads": cfg.n_heads, "n_layers": cfg.n_layers}
@@ -235,38 +388,75 @@ def main(argv=None):
             return vit_apply(p, b["images"], cfg, E=E)[0]
         s_step, s_sample = make_sandwich_step(apply_fn, update_fn, dims)
     elif lm:
-        step_fn = make_lm_train_step(cfg, update_fn, accum,
-                                     cfg_overrides=cut)
-        cfg = step_fn.cfg
+        if cut:
+            cfg = dataclasses.replace(cfg, **cut)
+        if mesh is not None:
+            # the experts' dispatch across the mesh is the all-to-all one
+            # (the reference's a2a; its einsum dispatch is GSPMD's)
+            if cfg.moe is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, dispatch="a2a"))
+            spec_fn = train_spec_fn(cfg)
+            state, specs = mesh_state(cfg, mesh, spec_fn, init_fn, device)
+            drawn.append(state)
+        step_fn = make_lm_train_step(cfg, update_fn, accum, mesh=mesh,
+                                     specs=specs)
     elif diffusion:
         step_fn = make_diff_train_step(arch.arch_id, cfg, update_fn, accum)
     else:
         step_fn = make_vis_train_step(arch.arch_id, cfg, update_fn, accum)
-    print(describe_cuts(arch.arch_id, shape, cfg, cut, accum), flush=True)
+    line = describe_cuts(arch.arch_id, dataclasses.replace(
+        shape, global_batch=B), cfg, cut, accum)
+    if mesh is not None:
+        per = B // accum // (mesh.size() // ctx.axes_size(mesh, ("model",)))
+        line += (f"; mesh {' x '.join(map(str, mesh.mesh.shape))} "
+                 f"({', '.join(mesh.mesh_dim_names)}), {per} "
+                 f"row{'s' if per != 1 else ''} of each microbatch a data "
+                 f"block"
+                 + (", a2a expert dispatch" if cfg.moe is not None else "")
+                 + (", ranks sharing one card" if ctx.ranks_share_card()
+                    and device.type == "cuda" else ""))
+    say(line)
+
+    rows = None
+    if mesh is not None:
+        b_axes = tuple(a for a in mesh.mesh_dim_names if a != "model")
+        rows = microbatch_rows(B, accum, ctx.axes_size(mesh, b_axes),
+                               ctx.axes_index(mesh, b_axes))
 
     def data_at(step):
         if lm:
             return Prefetcher(synthetic_lm_batches(
                 global_batch=B, seq_len=shape.seq_len, vocab=cfg.vocab_size,
-                start_step=step))
+                start_step=step, rows=rows))
         if diffusion:
             return Prefetcher(diffusion_batches(cfg, B, step))
         return Prefetcher(synthetic_image_batches(
             global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes,
             start_step=step))
 
+    def init_state():
+        if mesh is not None:
+            return mesh_state(cfg, mesh, spec_fn, init_fn, device)[0]
+        params = init_params(arch, cfg, device)
+        return {"params": params, "opt": init_fn(params)}
+
+    shard = group = None
+    if mesh is not None:
+        import torch.distributed as dist
+        # the restart agreement reads CPU tensors: a gloo group
+        group = (dist.group.WORLD if ctx.rank_backend() == "gloo"
+                 else dist.new_group(backend="gloo"))
+        shard = {"mesh": mesh, "specs": _state_specs(drawn[0], specs),
+                 "group": group}
     manager = CheckpointManager(args.ckpt_dir, save_every=args.save_every,
-                                device=device)
+                                device=device, shard=shard)
     straggler = StragglerMonitor()
     watchdog = Watchdog(timeout_s=600).start()
     step_ms, losses = [], []
 
-    def init_state():
-        params = init_params(arch, cfg, device)
-        return {"params": params, "opt": init_fn(params)}
-
     def train(start_step, state):
-        state = state or init_state()
+        state = state or (drawn.pop() if drawn else init_state())
         params, opt = state["params"], state["opt"]
         for _, p in named_leaves(params):
             p.requires_grad_(True)
@@ -292,19 +482,19 @@ def main(argv=None):
                 losses.append(loss)
                 watchdog.beat()
                 if straggler.record(step, dt):
-                    print(f"[straggler] step {step} took {dt:.2f}s")
+                    say(f"[straggler] step {step} took {dt:.2f}s")
                 manager.maybe_save(step, {"params": params, "opt": opt})
                 if step % args.log_every == 0:
-                    print(f"step {step:5d} loss {loss:.4f} gnorm "
-                          f"{float(metrics['gnorm']):.2f} {dt * 1e3:.0f}ms",
-                          flush=True)
+                    say(f"step {step:5d} loss {loss:.4f} gnorm "
+                        f"{float(metrics['gnorm']):.2f} {dt * 1e3:.0f}ms")
         finally:
             data.close()
         manager.wait()
         return {"params": params, "opt": opt}
 
     try:
-        state, restarts = run_with_restarts(train, manager=manager)
+        state, restarts = run_with_restarts(train, manager=manager,
+                                            group=group, logger=say)
     finally:
         watchdog.stop()
     steady = step_ms[1:] or step_ms
@@ -315,9 +505,9 @@ def main(argv=None):
     if device.type == "cuda":
         median += (f", peak device memory "
                    f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} "
-                   f"GiB")
-    print(f"done: {args.steps} steps, {restarts} restarts, straggler flags: "
-          f"{len(straggler.flags)}{median} on {device}", flush=True)
+                   f"GiB" + (" (rank 0)" if mesh is not None else ""))
+    say(f"done: {args.steps} steps, {restarts} restarts, straggler flags: "
+        f"{len(straggler.flags)}{median} on {device}")
     return dict(state, restarts=restarts, step_ms=step_ms, losses=losses)
 
 

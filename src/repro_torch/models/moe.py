@@ -20,11 +20,13 @@ and the shared experts run on the elastic matmul (K1).
 * ``a2a`` — the reference's expert-parallel dispatch over a device mesh
   (a ``DeviceMesh``; :func:`_moe_a2a`): each rank holds the routed
   experts of its block of the ``"model"`` axis, takes its (batch,
-  sequence) block of the tokens, routes and slots them (capacity per
+  sequence) block of the tokens (training: its rows are its own already,
+  and it takes its sequence block), routes and slots them (capacity per
   rank's token set, ``C = max(4, ceil(T_loc k cf / E))``), sends each
   expert's rows to the rank that holds it and gets them back with
   ``all_to_all``, runs K3 over its local experts' live rows and gathers
-  the outputs along the sequence; the aux loss is the mean over ranks.
+  the outputs along the sequence (serving: and the rows); the aux loss
+  is the mean over ranks.  Every exchange carries gradients.
   At decode shapes (S not divisible by the ``"model"`` size, where the
   reference falls back to the einsum dispatch over GSPMD-sharded
   experts) each rank runs the GShard dispatch for its own experts and
@@ -254,26 +256,50 @@ def _a2a_axes(mesh, cfg: MoEConfig) -> tuple:
     return ax, tuple(a for a in names if a != ax)
 
 
-def _local_experts(p: dict, cfg: MoEConfig, n: int) -> int:
-    E_loc = p["wi"].shape[0]
-    if E_loc * n != cfg.n_experts:
-        raise ValueError(f"a2a: {E_loc} local experts x {n} ranks != "
-                         f"{cfg.n_experts} experts (want this rank's block "
-                         f"of the expert axis: distributed.sharding)")
-    return E_loc
+def _local_experts(p: dict, cfg: MoEConfig, mesh) -> dict:
+    """This rank's block of the routed experts: ``p``'s own when it holds
+    a block of the expert axis, else its block cut from the whole
+    weights (a placement that replicates them: the reference's
+    shard_map reshards them the same way; the cut's backward leaves the
+    other blocks' gradient 0, summed over the axis with the replicated
+    leaf's)."""
+    ax = cfg.expert_axis
+    n, E = ctx.axes_size(mesh, (ax,)), cfg.n_experts
+    E_loc = E // n
+    have = p["wi"].shape[0]
+    if have == E_loc:
+        return p
+    if have == E and E % n == 0:
+        e0 = ctx.axes_index(mesh, (ax,)) * E_loc
+        return dict(p, **{k: p[k][e0:e0 + E_loc] for k in ("wi", "wg",
+                                                          "wo")})
+    raise ValueError(f"a2a: {have} local experts on {n} ranks of {E} "
+                     f"experts (want this rank's block of the expert axis, "
+                     f"or all of them: distributed.sharding)")
 
 
-def _moe_a2a(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, mesh):
-    """The reference's shard_map body on this rank (``p``'s routed experts
-    are its block of the expert axis; ``x`` (B, S, d) is replicated)."""
+def _moe_a2a(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, mesh,
+             data_local: bool = False):
+    """The reference's shard_map body on this rank, differentiable: every
+    exchange is a collective whose backward runs the reverse exchange
+    (``ctx``'s convention).  ``x`` (B, S, d) is replicated over the mesh,
+    or with ``data_local`` this rank's rows of the batch, replicated over
+    the expert axis (training: the batch axes split the rows already).
+    The rank takes its sequence slice (and, replicated, its rows), routes,
+    exchanges, runs K3 over its local experts' live rows, exchanges back
+    and gathers y along the sequence (and the rows).  The aux loss is the
+    mean over every rank's, on every rank."""
     B, S, d = x.shape
     ax, b_axes = _a2a_axes(mesh, cfg)
+    if data_local:
+        b_axes = ()
     n = ctx.axes_size(mesh, (ax,))
     n_b = ctx.axes_size(mesh, b_axes)
     if B % n_b:
         raise ValueError(f"a2a: batch {B} does not split over {n_b} ranks")
     E = cfg.n_experts
-    E_loc = _local_experts(p, cfg, n)
+    p = _local_experts(p, cfg, mesh)
+    E_loc = E // n
     bi, si = ctx.axes_index(mesh, b_axes), ctx.axes_index(mesh, (ax,))
     B_loc, S_loc = B // n_b, S // n
     xl = x[bi * B_loc:(bi + 1) * B_loc, si * S_loc:(si + 1) * S_loc]
@@ -287,12 +313,12 @@ def _moe_a2a(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, mesh):
     _tally(keep)
     tok = torch.div(torch.arange(T * top_k, device=x.device), top_k,
                     rounding_mode="floor")
-    send = x.new_zeros((E * C + 1, d))
-    send.index_copy_(0, dest, xf[tok])        # dropped: the scratch row
+    # index_copy (out of place): the dropped slots go to the scratch row
+    send = x.new_zeros((E * C + 1, d)).index_copy(0, dest, xf[tok])
     group = ctx.axes_group(mesh, (ax,))
     # rank r gets the (E_loc, C) slabs of its experts from every rank, and
     # how many rows of each are live
-    recv = ctx.all_to_all(send[:-1], group).view(n, E_loc, C, d)
+    recv = ctx.all_to_all_grad(send[:-1], group).view(n, E_loc, C, d)
     live = ctx.all_to_all(counts, group).view(n, E_loc)
     # pack each local expert's live rows, source after source, into one
     # slab for K3 (it skips the rows past each count)
@@ -302,22 +328,23 @@ def _moe_a2a(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, mesh):
     alive = pos[None, None, :] < live[:, :, None]        # (n, E_loc, C)
     slot = torch.where(alive, e_of * (n * C) + first[:, :, None] + pos,
                        E_loc * n * C).reshape(-1)
-    slabs = x.new_zeros((E_loc * n * C + 1, d))
-    slabs.index_copy_(0, slot, recv.reshape(-1, d))
+    slabs = x.new_zeros((E_loc * n * C + 1, d)).index_copy(
+        0, slot, recv.reshape(-1, d))
     out = _expert_ffn(p, slabs[:-1].view(E_loc, n * C, d),
                       live.sum(0, dtype=torch.int32), a_ff=a_ff)
     out = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))])
-    back = ctx.all_to_all(out.index_select(0, slot), group)   # (E*C, d)
+    back = ctx.all_to_all_grad(out.index_select(0, slot), group)  # (E*C, d)
     rows = back.index_select(0, torch.where(keep.reshape(-1), dest, 0))
     gates = (top_vals.reshape(-1) * keep.reshape(-1)).to(x.dtype)
     y = (rows.to(torch.float32) * gates.to(torch.float32)[:, None]) \
         .reshape(T, top_k, d).sum(1).to(x.dtype)
-    # put the (B_loc, S_loc) blocks back together: batch blocks over the
-    # batch axes, sequence blocks over the expert axis (row-major ranks)
-    y = ctx.gather_axes(y.reshape(B_loc, S_loc, d), mesh, (ax,), dim=1)
-    y = ctx.gather_axes(y, mesh, b_axes, dim=0)
-    aux = ctx.all_reduce(_aux_loss(probs, top_idx, cfg).reshape(1), "sum",
-                         ctx.axes_group(mesh, mesh.mesh_dim_names))
+    # put the (B_loc, S_loc) blocks back together: sequence blocks over
+    # the expert axis, batch blocks over the batch axes (row-major ranks)
+    y = ctx.all_gather_grad(y.reshape(B_loc, S_loc, d), mesh, (ax,), 1)
+    if b_axes:
+        y = ctx.all_gather_grad(y, mesh, b_axes, 0)
+    aux = ctx.all_reduce_grad(_aux_loss(probs, top_idx, cfg).reshape(1),
+                              ctx.axes_group(mesh, mesh.mesh_dim_names))
     return y, aux[0] / mesh.size()
 
 
@@ -327,11 +354,12 @@ def _moe_a2a_decode(p, x, cfg: MoEConfig, a_experts, top_k, a_ff, slice_e,
     each rank computing its own experts' slots; one ``all_reduce`` over
     the expert axis sums the partial combines."""
     ax, _ = _a2a_axes(mesh, cfg)
-    E_loc = _local_experts(p, cfg, ctx.axes_size(mesh, (ax,)))
+    p = _local_experts(p, cfg, mesh)
+    E_loc = p["wi"].shape[0]
     e0 = ctx.axes_index(mesh, (ax,)) * E_loc
     y, aux = _moe_einsum(p, x, cfg, a_experts, top_k, a_ff, slice_e,
                          own=(e0, e0 + E_loc))
-    y = ctx.all_reduce(y, "sum", ctx.axes_group(mesh, (ax,)))
+    y = ctx.all_reduce_grad(y, ctx.axes_group(mesh, (ax,)))
     return y.to(x.dtype), aux
 
 
@@ -367,18 +395,24 @@ class dispatch_tally:
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
               top_k: Optional[int] = None, a_ff=None, a_model=None,
-              mesh=None) -> tuple:
+              mesh=None, specs=None) -> tuple:
     """Returns (y (B, S, d), aux_loss).  Shared experts added on top.
 
     ``a_experts`` and ``a_ff`` are ints (sliced mode) or 0-d tensors
     (masked mode, read on the host: the module note); ``top_k`` is an int
     in both, as the reference's.  ``mesh`` (a ``DeviceMesh``) runs the
     ``a2a`` dispatch on this rank, whose ``p`` holds its block of the
-    routed experts; as the reference's, the a2a router masks the experts
-    past ``a_experts`` but never slices them.  The dispatch, the combine and the aux
-    loss carry gradients on both routes; on the card the routed experts'
-    gradients are K3's dgrad and wgrad kernels, through the casts of the
-    fp32 weights.
+    routed experts (or all of them); as the reference's, the a2a router
+    masks the experts past ``a_experts`` but never slices them.  ``x`` is
+    replicated over the mesh (serving), or, with ``specs`` (the layer's
+    leaves' specs under the training placement), this rank's rows of the
+    batch, the shared experts then tensor parallel where their kernels
+    are split over ``"model"``.  The dispatch, the combine and the aux
+    loss carry gradients on both routes and under a mesh (through
+    ``ctx``'s differentiable collectives); on the card the routed
+    experts' gradients are K3's dgrad and wgrad kernels, through the
+    casts of the fp32 weights.  Under a mesh the aux loss is the mean of
+    the ranks' own, as the reference's mean over its shards.
     """
     top_k = int(top_k or cfg.top_k)
     a_experts = None if a_experts is None else int(a_experts)
@@ -397,13 +431,20 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MoEConfig, *, a_experts=None,
                             f"torch.distributed DeviceMesh, got "
                             f"{type(mesh).__name__}")
         if x.shape[1] % ctx.axes_size(mesh, (cfg.expert_axis,)):
+            if specs is not None:
+                raise ValueError("the training placement splits the "
+                                 "sequence over the expert axis")
             y, aux = _moe_a2a_decode(p, x, cfg, a_experts, top_k, a_ff,
                                      slice_e, mesh)
         else:
-            y, aux = _moe_a2a(p, x, cfg, a_experts, top_k, a_ff, mesh)
+            y, aux = _moe_a2a(p, x, cfg, a_experts, top_k, a_ff, mesh,
+                              data_local=specs is not None)
     else:
         raise ValueError(cfg.dispatch)
 
     if "shared" in p:
-        y = y + L.mlp_apply(p["shared"], x, a_model=a_model, a_ff=None)
+        tp = None if specs is None else L.tp_mesh(specs["shared"], "wi",
+                                                  "wo", mesh)
+        y = y + L.mlp_apply(p["shared"], x, a_model=a_model, a_ff=None,
+                            tp=tp)
     return y, aux

@@ -18,12 +18,19 @@ flash attention (K2, head dim 128 for the LMs, 112 for kimi-k2) and every
 routed expert product on the expert-gated matmul (K3).
 
 Under a device ``mesh`` (``lm_apply(..., mesh=)``, one rank of it) the
-parameters are the rank's (:func:`lm_init`'s ``shard``; the routed
-experts split over ``"model"``, the rest replicated), the MoE layers take
-``cfg.moe.dispatch`` (``"a2a"``: expert parallelism) and decode takes
-``cfg.decode_impl`` (``"sharded"``: each rank holds a block of the cache's
-sequence, :func:`make_decode_caches`); everything else runs replicated
-on every rank (ROADMAP §3).
+parameters are the rank's (:func:`lm_init`'s ``shard``).  Serving: the
+routed experts split over ``"model"``, the rest replicated; the MoE
+layers take ``cfg.moe.dispatch`` (``"a2a"``: expert parallelism) and
+decode takes ``cfg.decode_impl`` (``"sharded"``: each rank holds a block
+of the cache's sequence, :func:`make_decode_caches`); everything else
+runs replicated on every rank.  Training (``specs=``: the training
+placement's spec of every leaf, ``distributed.sharding.train_spec_fn``):
+the tokens are the rank's rows of the batch; each layer gathers its FSDP
+blocks inside itself (under remat again in the recompute), attention and
+the dense FFN and shared experts run tensor parallel over ``"model"``,
+the embedding looks up the rank's vocabulary block and all-reduces, and
+the head gives the rank's block of the vocabulary's logits
+(``launch/steps.py:vocab_parallel_nll`` takes them).
 
 ``remat`` other than ``"none"`` runs each layer under
 ``torch.utils.checkpoint`` when a gradient is wanted: a full recompute of
@@ -43,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import layers as L
 from repro_torch.core.types import ElasticSpace
 from repro_torch.device import resolve_device
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import model_split
 from repro_torch.distributed.decode_attn import is_sharded, local_cache_shape
 from repro_torch.kernels import ops
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
@@ -196,54 +205,67 @@ def lm_init(gen: torch.Generator, cfg: LMConfig, *,
 # ---------------------------------------------------------------------------
 
 def _block(h, lp, cfg: LMConfig, E, *, is_moe: bool, kv_cache=None,
-           return_kv: bool, mesh=None):
-    """One transformer block.  Returns (h, aux_loss, new_cache)."""
+           return_kv: bool, mesh=None, specs=None):
+    """One transformer block.  Returns (h, aux_loss, new_cache).
+    ``specs``: the layer's leaves' specs under the training placement
+    (the module note)."""
     a_model = E.get("a_model")
     a_ff = E.get("a_ff")
+    tp = tp_ff = None
+    if specs is not None:
+        lp = L.gather_blocks(lp, specs, mesh, cfg.cdtype())
+        tp = L.tp_mesh(specs["attn"], "q", "o", mesh)
+        if not is_moe:
+            tp_ff = L.tp_mesh(specs["mlp"], "wi", "wo", mesh)
     hn = L.rmsnorm_apply(lp["ln1"], h, a=a_model, eps=cfg.norm_eps)
     attn_out, new_cache = L.attention_apply(
         lp["attn"], hn, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         d_head=cfg.d_head, causal=True, rope_theta=cfg.rope_theta,
         a_model=a_model, a_heads=E.get("a_heads"), kv_cache=kv_cache,
-        return_kv=return_kv, decode_impl=cfg.decode_impl, mesh=mesh)
+        return_kv=return_kv, decode_impl=cfg.decode_impl, mesh=mesh, tp=tp)
     h = h + attn_out
     hn = L.rmsnorm_apply(lp["ln2"], h, a=a_model, eps=cfg.norm_eps)
     if is_moe:
         ff, aux = moe_apply(lp["moe"], hn, cfg.moe,
                             a_experts=E.get("a_experts"),
                             top_k=E.get("top_k"), a_ff=a_ff, a_model=a_model,
-                            mesh=mesh)
+                            mesh=mesh,
+                            specs=None if specs is None else specs["moe"])
     else:
         ff = L.mlp_apply(lp["mlp"], hn, a_model=a_model,
-                         a_ff=E.get("a_ff_dense", a_ff), act=cfg.act)
+                         a_ff=E.get("a_ff_dense", a_ff), act=cfg.act,
+                         tp=tp_ff)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + ff, aux, new_cache
 
 
-def _remat_block(h, lp, cfg: LMConfig, E, is_moe: bool):
-    return _block(h, lp, cfg, E, is_moe=is_moe, return_kv=False)[:2]
+def _remat_block(h, lp, cfg: LMConfig, E, is_moe: bool, mesh, specs):
+    return _block(h, lp, cfg, E, is_moe=is_moe, return_kv=False, mesh=mesh,
+                  specs=specs)[:2]
 
 
 def _stack(h, stack, cfg: LMConfig, E, *, is_moe: bool, caches=None,
-           return_kv: bool, mesh=None):
+           return_kv: bool, mesh=None, specs=None):
     """The layers of one homogeneous stack in order (the reference's scan);
     each under ``checkpoint`` when ``cfg.remat`` asks for it and a
-    gradient is wanted (h requires one)."""
+    gradient is wanted (h requires one): one card, or a mesh under the
+    training placement (``specs``: one per layer)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
     remat = cfg.remat != "none" and torch.is_grad_enabled() \
         and h.requires_grad and caches is None and not return_kv \
-        and mesh is None
+        and (mesh is None or specs is not None)
     for i, lp in enumerate(stack):
+        sp = None if specs is None else specs[i]
         if remat:
-            h, a = checkpoint(_remat_block, h, lp, cfg, E, is_moe,
+            h, a = checkpoint(_remat_block, h, lp, cfg, E, is_moe, mesh, sp,
                               use_reentrant=False,
                               context_fn=ops.route_contexts)
             nc = None
         else:
             h, a, nc = _block(h, lp, cfg, E, is_moe=is_moe,
                               kv_cache=None if caches is None else caches[i],
-                              return_kv=return_kv, mesh=mesh)
+                              return_kv=return_kv, mesh=mesh, specs=sp)
         aux = aux + a
         new_caches.append(nc)
     return h, aux, (new_caches if new_caches[0] is not None else None)
@@ -262,8 +284,23 @@ def check_decodable(cfg: LMConfig, E) -> None:
             f"defined: the reference's decode raises there too (fault F4)")
 
 
+def _embed_vocab_parallel(p: dict, spec, tokens, mesh, dtype):
+    """The embedding under the training placement: the rows of the rank's
+    block of the vocabulary (its FSDP block gathered first), zeros for the
+    ids outside it, summed over ``"model"``."""
+    tbl = L.gather_blocks(p, {"embedding": spec}, mesh, dtype)["embedding"]
+    if not model_split(spec, mesh):
+        return L._cast(tbl[tokens], dtype)
+    V_loc = tbl.shape[0]
+    local = tokens - ctx.axes_index(mesh, ("model",)) * V_loc
+    inside = (local >= 0) & (local < V_loc)
+    rows = L._cast(tbl[local.clamp(0, V_loc - 1)], dtype) \
+        * inside[..., None].to(dtype)
+    return ctx.all_reduce_grad(rows, ctx.axes_group(mesh, ("model",)))
+
+
 def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
-             caches=None, return_kv: bool = False, mesh=None):
+             caches=None, return_kv: bool = False, mesh=None, specs=None):
     """tokens (B, S) int -> logits (B, S, V).
 
     Returns (logits, aux_loss, new_caches).  ``caches`` is a dict
@@ -276,7 +313,15 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
     sliced or masked depth or head count raises
     (:func:`check_decodable`).  ``mesh``: this rank's part of a mesh run
     (the module note); the logits come out whole on every rank.
+    ``specs`` (with ``mesh``): the training placement, a tree of specs
+    mirroring ``params`` (full width, no caches; the module note):
+    ``tokens`` are the rank's rows, the logits its rows by its block of
+    the vocabulary, the aux loss the reference's (the mean over shards)
+    on every rank.
     """
+    if specs is not None and (caches is not None or return_kv or E):
+        raise NotImplementedError("the training placement runs the full "
+                                  "width without caches")
     E = {k: v if L._masked(v) or v is None else int(v)
          for k, v in (E or {}).items()}
     a_model = E.get("a_model")
@@ -296,26 +341,40 @@ def lm_apply(params: dict, tokens: torch.Tensor, cfg: LMConfig, *, E=None,
         if moe_stack is not None:
             moe_stack = moe_stack[:nm]
 
-    h = L.embedding_apply(params["embed"], tokens, a=a_model,
-                          dtype=cfg.cdtype())
+    sp = specs or {}
+    if specs is not None:
+        h = _embed_vocab_parallel(params["embed"], sp["embed"]["embedding"],
+                                  tokens, mesh, cfg.cdtype())
+    else:
+        h = L.embedding_apply(params["embed"], tokens, a=a_model,
+                              dtype=cfg.cdtype())
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = {}
     if dense_stack:
         h, a, nc = _stack(h, dense_stack, cfg, E, is_moe=False,
                           caches=None if caches is None else caches["dense"],
-                          return_kv=return_kv, mesh=mesh)
+                          return_kv=return_kv, mesh=mesh,
+                          specs=sp.get("dense_layers"))
         aux = aux + a
         new_caches["dense"] = nc
     if moe_stack:
         h, a, nc = _stack(h, moe_stack, cfg, E, is_moe=True,
                           caches=None if caches is None else caches["moe"],
-                          return_kv=return_kv, mesh=mesh)
+                          return_kv=return_kv, mesh=mesh,
+                          specs=sp.get("moe_layers"))
         aux = aux + a
         new_caches["moe"] = nc
 
     h = L.rmsnorm_apply(params["final_norm"], h, a=a_model, eps=cfg.norm_eps)
     if cfg.tie_embeddings:
+        if specs is not None:
+            raise NotImplementedError("tied embeddings under the training "
+                                      "placement (no ported config ties)")
         logits = L.embedding_attend(params["embed"], h, a=a_model)
+    elif specs is not None:
+        head = L.gather_blocks(params["lm_head"], sp["lm_head"], mesh,
+                               cfg.cdtype())
+        logits = L.dense_apply(head, h)
     else:
         logits = L.dense_apply(params["lm_head"], h, a_in=a_model)
     weight = cfg.moe.router_aux_weight if cfg.moe else 0.0
