@@ -312,7 +312,7 @@ health-checked nodes sharing the card):
     events equal to the one-shot export's, a profile row per (subnet,
     bucket) of the DEVICE spans, no node health-failed, K1's and K2's
     counters rising in the traffic; (b) two nodes through the Cluster
-    API, both classes at 32 rps for 8 s through ``drive_live`` with a
+    API, both classes at 32 rps for 16 s through ``drive_live`` with a
     ``Reliability`` layer and a ``Watchtower``, node1 wedged at 1 s by a
     ``ChaosController``: the health check fails it within (K + 1)
     intervals of the wedge, no replica holds an unresolved future once
@@ -339,9 +339,9 @@ full width, each at the LM launcher's one-card cut: 8 of 80 layers, all
     fills 1, mid and capacity eagerly and inside one captured CUDA graph
     with the fill advanced between replays, q and k at 1.5 x randn so the
     scores spread by about 2 and a kernel that misread the scores or a
-    group's heads would miss the tolerance by far; every call on ``wgmma``
-    or ``decode``, none on ``fma``, and an fp32 call and unaligned bf16
-    rows at D = 112 raising; (b) each config through
+    group's heads would miss the tolerance by far; every other call on
+    ``wgmma`` or ``decode``, and an fp32 call and unaligned bf16 rows at
+    D = 112 on ``fma``; (b) each config through
     ``elastic_moe.run``: random bf16 weights drawn on the card from a
     seed, a prefill of 4 x 512 at each of its five operating points and
     16 teacher-forced decode steps at the decodable ones, all graph
@@ -436,7 +436,7 @@ one card over gloo, so its times are not a multi-card speed):
     weight 0; its gradients and routing kept), then four ranks: (a) the
     main path, each rank the training launcher's own rank entry
     (``--mesh 2x2``: the reference's TP and FSDP placement, the a2a
-    dispatch, remat) for 3 steps with a failure at step 1 and a restart
+    dispatch, remat) for 2 steps with a failure at step 1 and a restart
     from step 0, the launch counts reset before it and read after, every
     one of the eight kernels launched on every rank on its Hopper
     variant, finite losses, step 0 the same bits after the restart; (b)
@@ -449,6 +449,30 @@ one card over gloo, so its times are not a multi-card speed):
     tensors the same bits as on CPU copies, and fault F8's biased mean;
     (e) rank 0's recorded calls of K1-K3 and their backward kernels,
     timed beside the plain version, the library call and the bound.
+30. qwen1.5-110b, granite-20b and kimi-k2-1t-a32b trained on the card:
+    (a) K2's wgmma backward at kimi-k2's head dim 112 at its train_4k
+    microbatch (4 x 4096, causal, 64 query heads on 8 kv heads) from the
+    forward's logsumexp, against the plain version on fp32 copies, a
+    corrupted dK shown to fail that check, the backward and the forward
+    timed beside SDPA (``enable_gqa``) and the bound; (b) each config
+    through the training launcher at its one-card cut at full width
+    (``ONE_CARD_CUT``, ``ONE_CARD_ACCUM``'s microbatch), 2 steps with the
+    global batch cut for this phase to 2 microbatches (the launcher's
+    ``ONE_CARD_CUT`` entry given a ``global_batch``, its cut line
+    checked): finite losses, the first against the plain route's loss on
+    the same batch and parameters (within phase 29 (b)'s loss tolerance;
+    ln(vocab) plus half the logits' variance logged beside it), step
+    time, tokens/s, model FLOPs rate, peak memory and launches by
+    variant; one
+    microbatch's K1 calls held against the plain versions and timed; one
+    row of 1024 positions on the kernel route against the plain route
+    within phase 29 (b)'s tolerances; (c) K3's forward, dgrad and wgrad
+    at kimi-k2's MoE shapes (E 384, d 7168, F 2048) over the live counts
+    of one 4 x 4096 microbatch's routing through a kimi router, against
+    the plain versions and timed; (d) granite-20b (MQA) and kimi-k2 (GQA,
+    D 112, bf16 Adafactor on blocks) on a 1 x 2 mesh of two ranks sharing
+    the card over gloo (``SHARED_CARD_CUT``), one step each against the
+    one-process step within phase 29 (c)'s tolerances.
     Each phase's seconds end its log, and a ``phases_s`` line gathers
     them.
 
@@ -1160,13 +1184,33 @@ def repeatable(fn, want, tol: float, what: str) -> float:
     return err
 
 
+# elements a check reads at once in fp32 (a head's logits, 16384 x 163840,
+# would take four 10.7 GB temporaries whole)
+CHECK_CHUNK = 1 << 26
+
+
+def _chunks(a, b):
+    """fp32 copies of a's and b's flat elements, CHECK_CHUNK at a time
+    (whole, as they broadcast, where their shapes differ)."""
+    if a.shape != b.shape or a.numel() <= CHECK_CHUNK:
+        if a.numel():
+            yield a.float(), b.float()
+        return
+    a, b = a.reshape(-1), b.reshape(-1)
+    for i in range(0, a.numel(), CHECK_CHUNK):
+        yield a[i:i + CHECK_CHUNK].float(), b[i:i + CHECK_CHUNK].float()
+
+
 def close(a, b, tol: float) -> float:
     """Max |a - b|; raises unless |a - b| <= tol + tol*|b| everywhere."""
     import torch
-    a, b = a.float(), b.float()
-    err = float((a - b).abs().max()) if a.numel() else 0.0
-    if not torch.isfinite(a).all() or \
-            not bool(((a - b).abs() <= tol + tol * b.abs()).all()):
+    err, ok = 0.0, True
+    for x, y in _chunks(a, b):
+        d = (x - y).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool(torch.isfinite(x).all()) and bool(
+            (d <= tol + tol * y.abs()).all())
+    if not ok:
         raise AssertionError(f"max abs err {err} beyond tolerance {tol}")
     return err
 
@@ -3031,10 +3075,13 @@ def close_to_largest(a, b, tol: float) -> float:
     where an element near 0 carries the round-off of its large partial
     sums."""
     import torch
-    a, b = a.float(), b.float()
-    scale = max(float(b.abs().max()), 1e-30)
-    rel = float((a - b).abs().max()) / scale
-    if not torch.isfinite(a).all() or not rel <= tol:
+    scale, diff, finite = 1e-30, 0.0, True
+    for x, y in _chunks(a, b):
+        scale = max(scale, float(y.abs().max()))
+        diff = max(diff, float((x - y).abs().max()))
+        finite = finite and bool(torch.isfinite(x).all())
+    rel = diff / scale
+    if not finite or not rel <= tol:
         raise AssertionError(f"max abs err {rel:.3g} of the largest value "
                              f"{scale:.3g}, beyond tolerance {tol}")
     return rel
@@ -3366,8 +3413,8 @@ def conv_profile(arch_id: str, accum: int, step_ms: float, dev) -> dict:
     with recording([(layers_mod, "elastic_matmul_op", "k1"),
                     (em, "elastic_matmul_dgrad", "dgrad"),
                     (em, "elastic_matmul_wgrad", "wgrad")], sink):
-        loss = accum_grads(lambda p, b: ce_loss(forward(p, b["images"]),
-                                                b["labels"]), params, mb, 1)
+        loss, _ = accum_grads(lambda p, b: ce_loss(
+            forward(p, b["images"]), b["labels"]), params, mb, 1)
         torch.cuda.synchronize()
     pop_grads(params)
     if not math.isfinite(float(loss)):
@@ -4240,11 +4287,13 @@ def errs_of(got, want, tol: float) -> tuple:
     import torch
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
-    err = max(float((a.float() - b.float()).abs().max())
-              for a, b in zip(got, want))
-    scale = max(max(float(b.float().abs().max()) for b in want), 1e-30)
-    if not all(bool(torch.isfinite(a).all()) for a in got) or \
-            not err <= tol * scale:
+    err, scale, finite = 0.0, 1e-30, True
+    for a, b in zip(got, want):
+        for x, y in _chunks(a, b):
+            err = max(err, float((x - y).abs().max()))
+            scale = max(scale, float(y.abs().max()))
+            finite = finite and bool(torch.isfinite(x).all())
+    if not finite or not err <= tol * scale:
         raise AssertionError(f"max abs err {err:.3g}, {err / scale:.3g} of "
                              f"the largest value {scale:.3g}, beyond "
                              f"tolerance {tol}")
@@ -4870,14 +4919,16 @@ def lm_train_phases(dev, parent) -> dict:
 
 # ---------------------------------------------------------------- phase 25
 # the cluster, chaos and watchtower layers: (a) the serve launcher's cluster
-# trace mode at its --trace defaults over 2 nodes; (b) an 8 s stream through
+# trace mode at its --trace defaults over 2 nodes; (b) a 16 s stream through
 # drive_live over 2 nodes with node1 wedged 1 s in.  node0 joins (b) with one
 # modelled chip and gains its second at GROW_AT: the batch class starts on
 # node1 alone, so node1's failover orphans it and readmits it on node0 (a
 # replica built and captured beside node0's live replays).  The stream
-# outlasts the failover and the readmitted replica's build and warm (ready
-# about 5.6 s in, PR 25's runs), so that replica serves inside drive_live
-CHAOS_SECONDS, WEDGE_AT, GROW_AT = 8.0, 1.0, 0.5
+# outlasts the failover and the readmitted replica's build and warm, so that
+# replica serves inside drive_live.  That build is host-bound: the replica
+# was ready 5.2 to 7.6 s in on most H100 hosts and 8.8 s in on a slower one,
+# so the stream runs 16 s, twice the slowest reading
+CHAOS_SECONDS, WEDGE_AT, GROW_AT = 16.0, 1.0, 0.5
 # node1 alone takes the batch class until its failover: at 32 rps a request
 # reaches it within one health interval (>= 0.2 s) of the wedge but for a
 # chance of exp(-6.4), so the stall check has work to see
@@ -5074,8 +5125,8 @@ def cluster_trace(serve, arch, cfg, server, lut, x, base_ms: float,
 
 def cluster_chaos(serve, arch, cfg, server, lut, x, H: float, warm: list,
                   card: str) -> dict:
-    """Phase 25 (b): two nodes behind the Cluster API, both classes, an
-    8 s stream through drive_live with Reliability and a Watchtower; a
+    """Phase 25 (b): two nodes behind the Cluster API, both classes, a
+    CHAOS_SECONDS stream through drive_live with Reliability and a Watchtower; a
     ChaosController wedges node1 at WEDGE_AT; then the checks."""
     from repro_torch.chaos import (WEDGE, ChaosController, Injection,
                                    Reliability, RetryBudget, RetryPolicy,
@@ -5317,8 +5368,9 @@ def k2_config_cases(dev) -> dict:
     decode over the 528-slot cache at kimi's D = 112 and granite's 48
     query heads on one kv head, each decode at three fills inside one
     captured CUDA graph with the fill advanced between replays, against
-    the plain version; every bf16 call on wgmma or decode, none on fma; an
-    fp32 call and unaligned bf16 rows at D = 112 raise.  q and k are
+    the plain version; every aligned bf16 call on wgmma or decode, and
+    one fp32 call on fma_f32 and one of unaligned bf16 rows
+    on fma_bf16 at D = 112, held the same way.  q and k are
     ``QK_SCALE`` x randn: the scores q.k / sqrt(D) then spread by
     ``QK_SCALE``^2 ~ 2.25, so the softmax picks a few keys, and a kernel
     that ignored the scores (o near the mean of v, ~0.04 at fill 528) or
@@ -5370,17 +5422,14 @@ def k2_config_cases(dev) -> dict:
     one("kimi prefill, q k v in place of a fused buffer",
         fused[:, :, :H], fused[:, :, H:H + KH], fused[:, :, H + KH:], True,
         "wgmma")
+    # the fma kernel at D = 112: fp32, and bf16 rows TMA and
+    # 16-byte loads cannot read
     wide = randn(2, 64, H, D + 1)                # 226-byte rows
-    for label, args in (
-            ("an fp32 call", [randn(1, 4, 1, D).float() for _ in range(3)]),
-            ("bf16 rows not 16-byte aligned",
-             [wide[..., :D], randn(2, 64, KH, D), randn(2, 64, KH, D)])):
-        try:
-            ops.flash_attention_op(*args, causal=True)
-        except NotImplementedError as e:
-            log(f"  {label} at D = 112 raises NotImplementedError: {e}")
-        else:
-            raise AssertionError(f"K2 at D = 112 ran {label}")
+    one("an fp32 call at D = 112", *[randn(1, 4, 1, D).float()
+                                      for _ in range(3)], True, "fma_f32")
+    one("bf16 rows not 16-byte aligned at D = 112", wide[..., :D],
+        randn(2, 64, KH, D, scale=sc), randn(2, 64, KH, D), True,
+        "fma_bf16")
     # decode over the whole cache, the fill a device int32: eager and in
     # one captured graph, the fill copied in before each replay
     fills = (1, total // 2, total)
@@ -5453,7 +5502,7 @@ def k2_config_cases(dev) -> dict:
                     for f in fills))
             del graph, q, ck, cv
     ran = {v: fa.variant_launches[v] - before[v] for v in fa.VARIANTS}
-    if ran["fma_bf16"] or ran["fma_f32"] or not ran["wgmma"] \
+    if ran["fma_bf16"] != 1 or ran["fma_f32"] != 1 or not ran["wgmma"] \
             or not ran["decode"]:
         raise AssertionError(f"phase 26 (a) K2 variants {ran}")
     log(f"  K2 launches by variant in (a): {ran}")
@@ -6674,7 +6723,9 @@ def mesh_phases(dev, card: str) -> dict:
 # 1 row of each): every FSDP block crosses gloo, through host memory, in
 # each microbatch's forward, remat's recompute and backward
 MT_MESH = (2, 2)
-MT_BATCH, MT_ACCUM, MT_STEPS = 4, 2, 3
+# 2 steps (with the restart, 3 run), cut from 3 for the script's time:
+# each is a gloo-bound 10-15 s
+MT_BATCH, MT_ACCUM, MT_STEPS = 4, 2, 2
 MT_CUT = {"n_layers": 2}
 MT_NO_DROP_CF = 64 / 6     # C >= a shard's tokens: no slot drops (phase 28)
 # (b), kernel route against plain route on the plain route's routing, bf16:
@@ -6698,7 +6749,7 @@ def mesh_train_cfg(**moe):
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
 
 
-def grad_step(cfg, mesh=None, specs=None):
+def grad_step(cfg, mesh=None, specs=None, accum: int = MT_ACCUM):
     """The train step whose update keeps the (reduced, clipped) gradients
     instead of applying them: (step, kept list)."""
     from repro_torch.launch.steps import make_lm_train_step
@@ -6707,7 +6758,7 @@ def grad_step(cfg, mesh=None, specs=None):
     def keep(params, grads, opt, step, layout=None):
         kept.append(grads)
         return params, opt
-    return make_lm_train_step(cfg, keep, MT_ACCUM, mesh=mesh,
+    return make_lm_train_step(cfg, keep, accum, mesh=mesh,
                               specs=specs), kept
 
 
@@ -7016,7 +7067,7 @@ def mesh_train_phases(dev, card: str) -> dict:
     """Phase 29: deepseek-moe-16b trained across a 2 x 2 mesh, four ranks
     sharing the card over gloo: (c)'s one-process step in this process
     first, then four ranks (:func:`mesh_train_rank`) for (a), the
-    launcher's rank entry for 3 steps with a failure at step 1 and a
+    launcher's rank entry for 2 steps with a failure at step 1 and a
     restart (no checkpoint), and (b)-(e).  Returns what the kernels'
     record needs."""
     import tempfile
@@ -7185,6 +7236,736 @@ def mesh_train_phases(dev, card: str) -> dict:
                peak_gib=[r["peak_gib"] for r in res])
     out["seconds"] = time.perf_counter() - t_all
     log(f"  phase 29 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------- phase 30
+# qwen1.5-110b, granite-20b and kimi-k2-1t-a32b trained on the card: (a) K2's
+# wgmma backward at kimi-k2's head dim 112 at its train_4k microbatch, (b)
+# each config through the training launcher at its one-card cut
+# (``steps.ONE_CARD_CUT``, ``train.ONE_CARD_ACCUM``) at full width, the
+# global batch cut for this phase to TC_MICROBATCHES of the cut's
+# microbatches (printed), (c) K3 at kimi-k2's MoE training shapes, which no
+# one-card cut holds, (d) granite-20b (MQA) and kimi-k2 (GQA, D 112, bf16
+# Adafactor on blocks) on a 1 x 2 mesh whose two ranks share the card over
+# gloo (``steps.SHARED_CARD_CUT``)
+TC_ARCHS = ("qwen1.5-110b", "granite-20b", "kimi-k2-1t-a32b")
+TC_MESH_ARCHS = ("granite-20b", "kimi-k2-1t-a32b")
+TC_MESH = (1, 2)
+TC_STEPS = 2
+TC_MICROBATCHES = 2        # (b)'s global batch: 2 of the cut's microbatches
+TC_CHECK_LEN = 1024        # (b)'s kernel vs plain route: one row of 1024
+TC_KIMI_B = 4              # kimi's train_4k microbatch (256 / 64)
+# the dense configs' training kernels, every bf16 call on the Hopper
+# variants (no router, no expert)
+TC_KERNELS = ("elastic_matmul", "flash_attention", "elastic_matmul_dgrad",
+              "elastic_matmul_wgrad", "flash_attention_bwd")
+TC_VARIANTS = {("elastic_matmul", "tma"), ("flash_attention", "wgmma"),
+               ("elastic_matmul_dgrad", "tma"),
+               ("elastic_matmul_wgrad", "tma"),
+               ("flash_attention_bwd", "wgmma")}
+
+
+@contextlib.contextmanager
+def one_card_batch(key: tuple, B: int):
+    """The training launcher's one-card run of ``key`` (arch, shape) at a
+    global batch of ``B`` sequences inside the block: its
+    ``steps.ONE_CARD_CUT`` entry holds ``global_batch`` B, as
+    ``SHARED_CARD_CUT``'s entries do (phase 30 (b)'s cut).  Yields the
+    list of what the block prints, which still goes to stdout, so that
+    the caller can check the launcher's cut line."""
+    from repro_torch.launch import steps
+
+    class Tee:
+        def __init__(self, out):
+            self.out, self.text = out, []
+
+        def write(self, s):
+            self.text.append(s)
+            return self.out.write(s)
+
+        def flush(self):
+            self.out.flush()
+    orig = steps.ONE_CARD_CUT[key]
+    steps.ONE_CARD_CUT[key] = {**orig, "global_batch": B}
+    tee = Tee(sys.stdout)
+    try:
+        with contextlib.redirect_stdout(tee):
+            yield tee.text
+    finally:
+        steps.ONE_CARD_CUT[key] = orig
+
+
+@contextlib.contextmanager
+def launched(name: str):
+    """The launches of kernel ``name`` inside the block, by variant, read
+    from its wrapper's counters (``ops.variant_counts``) around it: the
+    dict yielded is filled on leaving the block."""
+    import torch
+
+    from repro_torch.kernels import ops
+    was = dict(ops.variant_counts()[name])
+    took = {}
+    yield took
+    torch.cuda.synchronize()
+    took.update({v: c - was[v] for v, c in ops.variant_counts()[name].items()
+                 if c != was[v]})
+
+
+def row_launches(name: str, calls: list, kern, variant: str) -> int:
+    """A timed row's launches: its calls run once more, eagerly and in
+    order, the launches of kernel ``name`` counted around them
+    (:func:`launched`), every one on ``variant``."""
+    import torch
+    with torch.no_grad(), launched(name) as took:
+        for args, kw in calls:
+            kern(*args, **kw)
+    if set(took) != {variant}:
+        raise AssertionError(f"{name}: a timed row's {len(calls)} calls "
+                             f"launched {took}, not {variant} alone")
+    return took[variant]
+
+
+def rowwise(fn):
+    """``fn`` over a call's batch rows one at a time, concatenated: the
+    plain K2 versions at B = 4 and 64 heads (a row's fp32 scores are
+    4.3 GB, and the backward keeps four such)."""
+    import torch
+
+    def call(*args, **kw):
+        outs = [fn(*(a[b:b + 1] if isinstance(a, torch.Tensor) else a
+                     for a in args), **kw)
+                for b in range(args[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*outs))
+        return torch.cat(outs)
+    return call
+
+
+def k2_d112_train(dev, card: str) -> dict:
+    """Phase 30 (a): K2 at kimi-k2's head dim 112 at its train_4k
+    microbatch (4 x 4096, causal, 64 query heads on 8 kv heads, bf16):
+    the wgmma backward from the forward's logsumexp against the plain
+    version on fp32 copies, row by row; a corrupted dK shown to fail that
+    check; both directions timed against SDPA (``enable_gqa``) and the
+    bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    t0 = phase(f"30. (a) K2 at kimi-k2's head dim 112, its train_4k "
+               f"microbatch ({TC_KIMI_B} x 4096, causal, H 64 on KH 8, "
+               f"bf16): the wgmma backward vs the plain version (fp32 "
+               f"copies), a corrupted dK, times vs SDPA")
+    B, S, H, KH, D = TC_KIMI_B, 4096, 64, 8, 112
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q, do = rnd(B, S, H, D), rnd(B, S, H, D)
+    k, v = rnd(B, S, KH, D), rnd(B, S, KH, D)
+    with launched("flash_attention") as took:
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    if took != {"wgmma": 1}:
+        raise AssertionError(f"(a) the D = 112 forward took {took}")
+    o_plain = rowwise(fa.flash_attention_plain)(q.float(), k.float(),
+                                                v.float(), causal=True)
+    fwd_err = close(o, o_plain, ATTN_TOL["bfloat16"])
+    del o_plain
+    with launched("flash_attention_bwd") as took:
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    if took != {"wgmma": 1}:
+        raise AssertionError(f"(a) the D = 112 backward took {took}")
+    tol = K2_BWD_TOL["bfloat16"]
+    want = rowwise(fa.flash_attention_bwd_plain)(
+        q.float(), k.float(), v.float(), o.float(), do.float(), causal=True)
+    err = errs_of(got, want, tol)
+    bad = got[1].clone()
+    scale = max(float(w.abs().max()) for w in want)
+    bad.view(-1)[::4099] += 0.1 * scale
+    try:
+        errs_of((got[0], bad, got[2]), want, tol)
+    except AssertionError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("(a) a corrupted dK passed the check")
+    del want, bad
+    repeatable(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=True), got, 0.0,
+               "K2 backward D 112")
+    log(f"  forward (on wgmma, with the logsumexp) within {fwd_err:.3g} of "
+        f"the plain version (tol {ATTN_TOL['bfloat16']}); backward on wgmma: "
+        f"{err[1]:.3g} of the largest gradient (tol {tol}), max abs err "
+        f"{err[0]:.3g}, the same bits twice and under 3 graph replays; dK "
+        f"with every 4099th element off by 0.1 of the largest fails: "
+        f"{caught}")
+    del got
+    nograd = torch.no_grad
+    calls = {"k2_bwd": [((q, k, v, o, lse, do), {"causal": True})],
+             "k2_fwd": [((q, k, v), {"causal": True, "return_lse": True})]}
+    rows = {"k2_bwd": time_rows(
+        "K2 backward D 112 (kimi-k2 train_4k microbatch)", calls["k2_bwd"],
+        k2_bwd_kernel, rowwise(k2_bwd_plain), SdpaBackward(),
+        "sdpa backward (enable_gqa)", k2_bwd_work, mode=nograd),
+        "k2_fwd": time_rows(
+        "K2 forward D 112 with the logsumexp (kimi-k2 train_4k "
+        "microbatch)", calls["k2_fwd"],
+        k2_fwd_lse, rowwise(k2_fwd_lse_plain), k2_fwd_lse_library,
+        "sdpa (enable_gqa)", k2_work, mode=nograd)}
+    for key, name, kern in (("k2_bwd", "flash_attention_bwd", k2_bwd_kernel),
+                            ("k2_fwd", "flash_attention", k2_fwd_lse)):
+        rows[key]["launches"] = row_launches(name, calls[key], kern, "wgmma")
+    log(f"  the rows' launches, counted: "
+        f"{ {k: r['launches'] for k, r in rows.items()} }")
+    out = {"fwd_err": fwd_err, "bwd_err": err, "rows": rows,
+           "seconds": time.perf_counter() - t0}
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    log(f"  ({out['seconds']:.1f} s) [{card}]")
+    return out
+
+
+def first_loss_plain(cfg, params, B: int, dev) -> dict:
+    """The launcher's first loss recomputed on its seed-0 parameters: its
+    step-0 batch (B x 4096) through the plain route
+    (``ops.plain_kernels``), a row at a time, without gradient, the mean
+    of the rows' losses.  Beside it ln(vocab) plus half the logits' mean
+    variance over the vocabulary, which the cross entropy of normal
+    logits approaches where they single out no target (the gap of an
+    untrained model's loss over ln(vocab))."""
+    import torch
+
+    from repro_torch.core.distill import ce_loss
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import lm_apply
+    batch = lm_train_batch(B, 4096, cfg.vocab_size, dev)
+    losses, half_var = [], []
+    with torch.no_grad(), ops.plain_kernels():
+        for r in range(B):
+            z, aux, _ = lm_apply(params, batch["tokens"][r:r + 1], cfg)
+            z = z[0].float()
+            losses.append(float(ce_loss(z, batch["labels"][r]) + aux))
+            half_var.append(float(z.var(-1, correction=0).mean()) / 2)
+            del z
+    torch.cuda.empty_cache()
+    return {"plain": statistics.fmean(losses),
+            "ln_vocab": math.log(cfg.vocab_size),
+            "half_var": statistics.fmean(half_var)}
+
+
+def grad_route_check(cfg, params, dev) -> dict:
+    """Phase 30 (b)'s check: one step's loss, gradient norm and clipped
+    gradients (no update) of one row of TC_CHECK_LEN positions on the
+    kernel route against the plain route (bf16), within phase 29 (b)'s
+    tolerances."""
+    import torch
+
+    from repro_torch.kernels import ops
+    step, kept = grad_step(cfg, accum=1)
+    mb = lm_train_batch(1, TC_CHECK_LEN, cfg.vocab_size, dev, step=1)
+    _, _, mk = step(params, None, mb, 0)
+    gk = flat_grads(kept.pop())
+    with ops.plain_kernels():
+        _, _, mp = step(params, None, mb, 0)
+    gp = flat_grads(kept.pop())
+    torch.cuda.synchronize()
+    lk, lp = float(mk["loss"]), float(mp["loss"])
+    nk, np_ = float(mk["gnorm"]), float(mp["gnorm"])
+    worst = {}
+    for key, g in gk.items():
+        ref = gp[key].float()
+        worst[key] = float((g.float() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+    out = {"loss": lk, "loss_plain": lp, "gnorm": nk, "gnorm_plain": np_,
+           "loss_rel": abs(lk - lp) / abs(lp),
+           "gnorm_rel": abs(nk - np_) / abs(np_),
+           "grad_err": max(worst.values()),
+           "worst_leaf": max(worst, key=worst.get)}
+    if not out["loss_rel"] <= MT_LOSS_TOL or \
+            not out["gnorm_rel"] <= MT_GNORM_TOL or \
+            not out["grad_err"] <= MT_GRAD_TOL:
+        raise AssertionError(f"(b) kernel vs plain route: {out}")
+    return out
+
+
+def train_config(arch_id: str, dev, card: str) -> dict:
+    """Phase 30 (b) for one config: ``python -m repro_torch.launch.train
+    --arch <id>`` at its one-card cut, TC_STEPS steps of TC_MICROBATCHES of
+    the cut's microbatches (the global batch cut for this phase); on
+    fresh seed-0 parameters the first loss against the plain route's on
+    its batch (:func:`first_loss_plain`), one microbatch recorded for
+    K1's rows and checks, and the kernel route against the plain route on
+    one row of TC_CHECK_LEN positions."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.flops import lm_model_flops
+    from repro_torch.launch.steps import ONE_CARD_CUT, make_lm_train_step
+    from repro_torch.optim.api import named_leaves, pop_grads
+    key = (arch_id, "train_4k")
+    arch = get_arch(arch_id)
+    cut = ONE_CARD_CUT[key]
+    cfg = dataclasses.replace(arch.make_config(), **cut)
+    mb = 256 // train_mod.ONE_CARD_ACCUM[key]
+    B = TC_MICROBATCHES * mb
+    argv = ["--arch", arch_id, "--steps", str(TC_STEPS), "--save-every",
+            "0", "--accum", str(TC_MICROBATCHES)]
+    title = (f"30. (b) {arch_id} train_4k at full width, cut to "
+             f"{cut['n_layers']} layer{'s' if cut['n_layers'] > 1 else ''} "
+             f"(ONE_CARD_CUT), microbatches of {mb} x 4096 (ONE_CARD_ACCUM "
+             f"{train_mod.ONE_CARD_ACCUM[key]}); for this phase the global "
+             f"batch cut to {B} x 4096 as {TC_MICROBATCHES} microbatches; "
+             f"{arch.optimizer}, {cfg.param_dtype} parameters")
+    with one_card_batch(key, B) as printed:
+        run = train_run(title, argv, 0, (0, 0), TC_KERNELS, TC_VARIANTS,
+                        B * 4096, "tokens", dev)
+    cut_line = (f"{arch_id} train_4k: batch {B} as {TC_MICROBATCHES} "
+                f"microbatches of {mb}")
+    if cut_line not in "".join(printed):
+        raise AssertionError(f"(b) the launcher did not print {cut_line!r}")
+    flops = lm_model_flops(cfg, "train", B, 4096)
+    run["model_tflops_per_s"] = flops / run["step_ms"] * 1e3 / 1e12
+    run["mfu"] = run["model_tflops_per_s"] * 1e12 / PEAK_BF16_FLOPS
+    log(f"  the launcher's cut line began {cut_line!r}; model FLOPs "
+        f"{flops / 1e12:.1f} TFLOP a step: {run['model_tflops_per_s']:.1f} "
+        f"TFLOP/s, {100 * run['mfu']:.1f}% of the bf16 peak [{card}]")
+    t0 = time.perf_counter()
+    params = train_mod.init_params(arch, cfg, dev)
+    first = {"loss": run["losses"][0],
+             **first_loss_plain(cfg, params, B, dev)}
+    first["rel"] = abs(first["loss"] - first["plain"]) / abs(first["plain"])
+    run["first_loss"] = first
+    if not first["rel"] <= MT_LOSS_TOL:
+        raise AssertionError(f"(b) {arch_id}: the first loss against the "
+                             f"plain route's on its batch: {first}")
+    log(f"  first loss {first['loss']:.6f}, the plain route's on its batch "
+        f"{first['plain']:.6f} ({first['rel']:.3g} relative, tol "
+        f"{MT_LOSS_TOL}): ln vocab {first['ln_vocab']:.4f} + "
+        f"{first['loss'] - first['ln_vocab']:.4f}, the logits' half "
+        f"variance {first['half_var']:.4f}")
+    for _, p in named_leaves(params):
+        p.requires_grad_(True)
+    rec = {"k1": {}, "dgrad": {}, "wgrad": {}}
+    step = make_lm_train_step(cfg, lambda p, g, o, s: (p, o), accum=1)
+    with recording([(layers_mod, "elastic_matmul_op", "k1"),
+                    (em, "elastic_matmul_dgrad", "dgrad"),
+                    (em, "elastic_matmul_wgrad", "wgrad")], keep_calls(rec)):
+        _, _, m = step(params, None, lm_train_batch(mb, 4096, cfg.vocab_size,
+                                                    dev), 0)
+        torch.cuda.synchronize()
+    pop_grads(params)
+    log(f"  one microbatch ({mb} x 4096) recorded: loss "
+        f"{float(m['loss']):.4f}; K1 calls "
+        f"{ {k: sum(n for *_, n in v.values()) for k, v in rec.items()} }, "
+        f"distinct { {k: len(v) for k, v in rec.items()} }")
+    checks = k1_recorded_checks(f"{arch_id} microbatch", rec)
+    nograd = torch.no_grad
+
+    def once(key):            # each distinct call of the microbatch once
+        return [(a, kw) for a, kw, _ in rec[key].values()]
+    rows = {
+        "k1_fwd": time_rows(f"K1 forward, {arch_id} train_4k microbatch, "
+                            f"each distinct call once", once("k1"),
+                            ops.elastic_matmul_op, k1_plain, k1_library,
+                            "torch.matmul", k1_work, mode=nograd),
+        "k1_dgrad": time_rows(f"K1 dgrad, {arch_id} train_4k microbatch, "
+                              f"each distinct call once", once("dgrad"),
+                              em.elastic_matmul_dgrad, k1_dgrad_plain,
+                              k1_dgrad_library, "torch.matmul",
+                              k1_dgrad_work, mode=nograd),
+        "k1_wgrad": time_rows(f"K1 wgrad, {arch_id} train_4k microbatch, "
+                              f"each distinct call once", once("wgrad"),
+                              em.elastic_matmul_wgrad, k1_wgrad_plain,
+                              k1_wgrad_library, "torch.matmul",
+                              k1_wgrad_work, mode=nograd)}
+    for name, key, group in (("k1_fwd", "k1", k1_group),
+                             ("k1_dgrad", "dgrad", bwd_group),
+                             ("k1_wgrad", "wgrad", bwd_group)):
+        rows[name]["shapes"] = [group(a, kw) for a, kw in once(key)]
+    for name, r in rows.items():
+        r["launches"] = sum(n for *_, n in rec[
+            {"k1_fwd": "k1", "k1_dgrad": "dgrad",
+             "k1_wgrad": "wgrad"}[name]].values())
+    del rec, m
+    torch.cuda.empty_cache()
+    route = grad_route_check(cfg, params, dev)
+    log(f"  kernel vs plain route (bf16, one row of {TC_CHECK_LEN}): loss "
+        f"{route['loss']:.6f} / {route['loss_plain']:.6f} "
+        f"({route['loss_rel']:.3g} relative, tol {MT_LOSS_TOL}), gradient "
+        f"norm {route['gnorm']:.5f} / {route['gnorm_plain']:.5f} "
+        f"({route['gnorm_rel']:.3g}, tol {MT_GNORM_TOL}), every leaf within "
+        f"{route['grad_err']:.3g} of its largest ({route['worst_leaf']}; tol "
+        f"{MT_GRAD_TOL})")
+    del params
+    torch.cuda.empty_cache()
+    out = {"cut": dict(cut), "global_batch": B, "microbatch": mb,
+           "accum": TC_MICROBATCHES, "optimizer": arch.optimizer,
+           "param_dtype": cfg.param_dtype, "route": route, "rows": rows,
+           "k1_checks": checks, "seconds_after_run":
+               time.perf_counter() - t0,
+           **{k: run[k] for k in ("params", "step_ms", "step_ms_all",
+                                  "losses", "tokens_per_s", "peak_gib",
+                                  "peak_run_gib", "launches", "variants",
+                                  "model_tflops_per_s", "mfu",
+                                  "first_loss")}}
+    log(f"  ({out['seconds_after_run']:.1f} s after the run)")
+    return out
+
+
+def k3_kimi_train(dev, card: str) -> dict:
+    """Phase 30 (c): K3 at kimi-k2's MoE training shapes (E 384, d 7168,
+    F 2048), which no one-card cut holds: one train_4k microbatch (4 x
+    4096 tokens) routed through a kimi router (top 8, groups of 256,
+    capacity factor 1.25: 7 slots a group an expert, 448 a slab) into the
+    einsum dispatch's slabs; the forward, dgrad and wgrad of the expert
+    FFN's products (up and gate share a weight here: one (E, d, F) and one
+    (E, F, d) weight, 11.3 GB each) at those live counts against the
+    plain versions, timed against ``torch.bmm`` and the bound."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import expert_matmul as xm
+    from repro_torch.models import moe as moe_mod
+    t0 = phase("30. (c) K3 at kimi-k2's MoE training shapes (E 384, d 7168, "
+               "F 2048) over the live counts of one 4 x 4096 microbatch "
+               "routed by a kimi router: forward, dgrad and wgrad vs the "
+               "plain versions, times vs torch.bmm")
+    mcfg = get_arch("kimi-k2-1t-a32b").make_config().moe
+    E, d, F_ = mcfg.n_experts, 7168, mcfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+    T, g = 4 * 4096, mcfg.group_size
+    G = T // g
+    C = max(4, math.ceil(g * mcfg.top_k * mcfg.capacity_factor / E))
+    x = rnd(G, g, d)
+    router = {"router": {"kernel": rnd(d, E, scale=d ** -0.5,
+                                       dtype=torch.float32)}}
+    with torch.no_grad():
+        _, _, top_idx = moe_mod._router(router, x, mcfg, None, mcfg.top_k)
+        dest, keep, counts = moe_mod.dispatch_plan(top_idx, E, C)
+        tok = torch.div(torch.arange(T * mcfg.top_k, device=dev),
+                        mcfg.top_k, rounding_mode="floor")
+        slabs = x.new_zeros((E * G * C + 1, d))
+        slabs.index_copy_(0, dest, x.reshape(T, d)[tok])
+        h = slabs[:-1].view(E, G * C, d)
+    del x, slabs, top_idx, dest, keep, tok
+    live = counts.clamp(max=G * C)
+    kept, dead = int(live.sum()), int((live == 0).sum())
+    w_in = rnd(E, d, F_, scale=d ** -0.5)
+    w_out = rnd(E, F_, d, scale=F_ ** -0.5)
+    hid, dy_f, dy_d = rnd(E, G * C, F_), rnd(E, G * C, F_), \
+        rnd(E, G * C, d)
+    calls = {
+        "fwd": [((h, w_in, counts), {}), ((h, w_in, counts), {}),
+                ((hid, w_out, counts), {})],
+        "dgrad": [((dy_f, w_in, counts), {}), ((dy_f, w_in, counts), {}),
+                  ((dy_d, w_out, counts), {})],
+        "wgrad": [((h, dy_f, counts), {}), ((h, dy_f, counts), {}),
+                  ((hid, dy_d, counts), {})]}
+    fns = {"fwd": ("expert_matmul", xm.expert_matmul,
+                   xm.expert_matmul_plain, "tma"),
+           "dgrad": ("expert_matmul_dgrad", xm.expert_matmul_dgrad,
+                     xm.expert_matmul_dgrad_plain, "persistent"),
+           "wgrad": ("expert_matmul_wgrad", xm.expert_matmul_wgrad,
+                     xm.expert_matmul_wgrad_plain, "persistent")}
+    errs = {}
+    rows_dead = torch.arange(G * C, device=dev)[None, :] >= counts[:, None]
+    for kind, (name, kern, plain, want_v) in fns.items():
+        worst = (0.0, 0.0)
+        for args, _ in calls[kind][1:]:          # the two distinct calls
+            with torch.no_grad(), launched(name) as took:
+                got = kern(*args)
+            with torch.no_grad():
+                want = plain(*args)
+            if took != {want_v: 1}:
+                raise AssertionError(f"(c) {name}: launches {took}")
+            tol = K3_BWD_TOL["bfloat16"] if kind != "fwd" \
+                else TOL["bfloat16"]
+            err = errs_of(got, want, tol)
+            if kind == "wgrad":
+                if not bool((got[counts == 0] == 0).all()):
+                    raise AssertionError("(c) K3 wgrad: a dead expert's dw "
+                                         "is not 0")
+            elif not bool((got[rows_dead] == 0).all()):
+                raise AssertionError(f"(c) K3 {kind}: non-zero past the "
+                                     f"counts")
+            worst = tuple(map(max, zip(worst, err)))
+            del got, want
+        errs[name] = worst
+        log(f"  {name}: {worst[1]:.3g} of the largest value (tol {tol}), "
+            f"max abs err {worst[0]:.3g}, on {want_v}; zeros past the "
+            f"counts exact")
+    nograd = torch.no_grad
+    rows = {
+        "k3_fwd": time_rows("K3 forward, kimi-k2 MoE layer (up, gate, "
+                            "down)", calls["fwd"], xm.expert_matmul,
+                            xm.expert_matmul_plain,
+                            lambda a, w, c: torch.bmm(a, w), "torch.bmm",
+                            k3_work, mode=nograd),
+        "k3_dgrad": time_rows("K3 dgrad, kimi-k2 MoE layer", calls["dgrad"],
+                              xm.expert_matmul_dgrad,
+                              xm.expert_matmul_dgrad_plain,
+                              k3_dgrad_library, "torch.bmm", k3_dgrad_work,
+                              mode=nograd),
+        "k3_wgrad": time_rows("K3 wgrad, kimi-k2 MoE layer", calls["wgrad"],
+                              xm.expert_matmul_wgrad,
+                              xm.expert_matmul_wgrad_plain,
+                              k3_wgrad_library, "torch.bmm", k3_wgrad_work,
+                              mode=nograd)}
+    for kind, (name, kern, _, want_v) in fns.items():
+        rows[f"k3_{kind}"]["launches"] = row_launches(name, calls[kind], kern,
+                                                      want_v)
+    log(f"  the rows' launches, counted: "
+        f"{ {k: r['launches'] for k, r in rows.items()} }")
+    out = {"E": E, "slab": G * C, "live_rows": kept, "dead_experts": dead,
+           "errs": errs, "rows": rows}
+    del calls, h, hid, dy_f, dy_d, w_in, w_out
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  {kept} live rows of {E * G * C} slots ({dead} experts dead); "
+        f"({out['seconds']:.1f} s) [{card}]")
+    return out
+
+
+def tc_mesh_cfg(arch_id: str):
+    """(config, global batch, microbatches) of a config's shared-card
+    mesh cut (``steps.SHARED_CARD_CUT``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import SHARED_CARD_CUT
+    cut = dict(SHARED_CARD_CUT[(arch_id, "train_4k")])
+    B, accum = cut.pop("global_batch"), cut.pop("accum")
+    return dataclasses.replace(get_arch(arch_id).make_config(), **cut), B, \
+        accum
+
+
+def tc_mesh_one(dev, path: str) -> dict:
+    """Phase 30 (d)'s one-process steps, in this process before the
+    ranks: each config at its shared-card cut, the launcher's seed-0
+    parameters and step-0 batch; loss, gradient norm and clipped
+    gradients saved to ``path``, in bf16 (11.4 GB of kimi's and
+    granite's fp32 gradients took ~35 s to write; bf16's rounding, 2^-9
+    of an element, is a tenth of (d)'s tolerances)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.api import named_leaves
+    out, saved = {}, {}
+    for arch_id in TC_MESH_ARCHS:
+        cfg, B, accum = tc_mesh_cfg(arch_id)
+        params = train_mod.init_params(get_arch(arch_id), cfg, dev)
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        step, kept = grad_step(cfg, accum=accum)
+        _, _, m = step(params, None, lm_train_batch(B, 4096, cfg.vocab_size,
+                                                    dev), 0)
+        out[arch_id] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"])}
+        saved[arch_id] = {k: g.to(torch.bfloat16).cpu()
+                          for k, g in flat_grads(kept.pop()).items()}
+        del params, m
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.save({"grads": saved, **out}, path)
+    out["save_s"] = time.perf_counter() - t0
+    return out
+
+
+def tc_mesh_rank(rank: int, world: int, init_file: str,
+                 one_file: str) -> dict:
+    """One rank of phase 30 (d), on cuda:0 beside the other: for each
+    config, its blocks of the launcher's seed-0 parameters under the
+    training placement (``mesh_state``: TP over "model", granite's one kv
+    head's columns split between the ranks), one step of its optimizer
+    on blocks (Adafactor's factored moments reduced over the ranks for
+    kimi), its clipped gradient blocks kept and held against the one
+    process's, the launches counted."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import (microbatch_rows, synthetic_lm_batches,
+                                  to_device)
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import (is_spec, shard_leaf,
+                                                  train_spec_fn)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.api import named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    ctx.init_ranks(rank, world, init_file, "cuda",
+                   local_world=ctx.local_world_size(world, False))
+    dev = ctx.rank_device()
+    mesh = make_mesh(TC_MESH, ("data", "model"))
+    one = torch.load(one_file, map_location="cpu", mmap=True,
+                     weights_only=True)
+    out = {"rank": rank}
+    for arch_id in TC_MESH_ARCHS:
+        cfg, B, accum = tc_mesh_cfg(arch_id)
+        arch = get_arch(arch_id)
+        init_fn, update_fn = make_optimizer(arch.optimizer)
+        state, pspecs = train_mod.mesh_state(cfg, mesh, train_spec_fn(cfg),
+                                             init_fn, dev)
+        params, opt = state["params"], state["opt"]
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        kept = []
+
+        def keep(params, grads, opt, step, layout=None):
+            kept.append({k: g.detach().clone()
+                         for k, g in named_leaves(grads)})
+            return update_fn(params, grads, opt, step, layout=layout)
+        step = make_lm_train_step(cfg, keep, accum, mesh=mesh, specs=pspecs)
+        rows = microbatch_rows(B, accum, TC_MESH[0],
+                               ctx.axes_index(mesh, ("data",)))
+        batch = to_device(next(synthetic_lm_batches(
+            global_batch=B, seq_len=4096, vocab=cfg.vocab_size, rows=rows)),
+            dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, 0)
+        loss, gn = float(m["loss"]), float(m["gnorm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, variants = ops.launch_counts(), ops.variant_counts()
+        specs = dict(named_leaves(pspecs, is_leaf=is_spec))
+        err = {}
+        for k, g in kept.pop().items():
+            ref = shard_leaf(one["grads"][arch_id][k], specs[k], mesh).to(dev)
+            err[k] = float((g.float() - ref).abs().max()) / max(
+                float(ref.abs().max()), 1e-30)
+        finite = all(bool(torch.isfinite(p).all())
+                     for _, p in named_leaves(params))
+        out[arch_id] = {"loss": loss, "gnorm": gn, "step_ms": ms,
+                        "grad_err": max(err.values()),
+                        "worst_leaf": max(err, key=err.get),
+                        "finite": finite,
+                        "peak_gib": torch.cuda.max_memory_allocated(dev)
+                        / 2 ** 30,
+                        "launches": launches, "variants": variants}
+        del state, params, opt, kept, batch
+        torch.cuda.empty_cache()
+    ctx.close_ranks()
+    return out
+
+
+def tc_mesh(dev, card: str, b_tols: dict) -> dict:
+    """Phase 30 (d): granite-20b and kimi-k2 on a 1 x 2 mesh of two ranks
+    sharing the card over gloo, one step each, against the one-process
+    step on the same parameters and batch, within phase 29 (c)'s
+    tolerances: MT_C_FACTOR x (b)'s kernel-vs-plain errors of the same
+    config (``b_tols``), with phase 29 (c)'s floors."""
+    import tempfile
+
+    from repro_torch.distributed import ctx
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        one_file = os.path.join(tmp, "one.pt")
+        t0 = phase("30. (d) one process: granite-20b (2 layers) and kimi-k2 "
+                   "(its dense layer) at steps.SHARED_CARD_CUT, 2 x 4096 as "
+                   "1 microbatch, their gradients kept")
+        one = tc_mesh_one(dev, one_file)
+        log("  " + ", ".join(f"{a}: loss {r['loss']:.6f}, gradient norm "
+                             f"{r['gnorm']:.5f}" for a, r in one.items()
+                             if a != "save_s")
+            + f" ({time.perf_counter() - t0:.1f} s, {one['save_s']:.1f} s of "
+            f"it writing the gradients)")
+        t0 = phase("30. (d) the same steps across a 1 x 2 (data, model) mesh, "
+                   "two ranks sharing the card over gloo (not a multi-card "
+                   "speed): TP attention with the k and v projections "
+                   "gathered over model (granite's MQA head split between "
+                   "the ranks, kimi's 8 kv heads 4 a rank), kimi's "
+                   "Adafactor on blocks")
+        res = ctx.spawn_ranks(tc_mesh_rank, 2, (os.path.join(
+            tmp, "rendezvous"), one_file), timeout_s=900)
+    out = {"one": one, "tol": {}, "launches": {}, "variants": {}}
+    for arch_id in TC_MESH_ARCHS:
+        b = b_tols[arch_id]
+        tol = {"loss": max(MT_C_FACTOR * b["loss_rel"], 1e-4),
+               "gnorm": max(MT_C_FACTOR * b["gnorm_rel"], 1e-3),
+               "grad": max(MT_C_FACTOR * b["grad_err"], 1e-3)}
+        out["tol"][arch_id] = tol
+        o = one[arch_id]
+        for r in res:
+            x = r[arch_id]
+            if not x["finite"] or \
+                    not abs(x["loss"] - o["loss"]) <= tol["loss"] * abs(
+                        o["loss"]) or \
+                    not abs(x["gnorm"] - o["gnorm"]) <= tol["gnorm"] * abs(
+                        o["gnorm"]) or x["grad_err"] > tol["grad"]:
+                raise AssertionError(f"(d) {arch_id} rank {r['rank']}: "
+                                     f"{ {k: v for k, v in x.items() if k not in ('launches', 'variants')} } "
+                                     f"against {o} (tolerances {tol})")
+            idle = [k for k in TC_KERNELS if x["launches"][k] <= 0]
+            if idle:
+                raise AssertionError(f"(d) {arch_id} rank {r['rank']}: "
+                                     f"kernels not launched {idle}")
+            main_path_variants(x["variants"], TC_VARIANTS)
+        out["launches"][arch_id] = {k: sum(r[arch_id]["launches"][k]
+                                           for r in res)
+                                    for k in res[0][arch_id]["launches"]}
+        out["variants"][arch_id] = {
+            k: {v: sum(r[arch_id]["variants"][k][v] for r in res)
+                for v in res[0][arch_id]["variants"][k]}
+            for k in res[0][arch_id]["variants"]}
+        out[arch_id] = [{k: v for k, v in r[arch_id].items()
+                         if k not in ("launches", "variants")} for r in res]
+        log(f"  {arch_id}: loss {res[0][arch_id]['loss']:.6f} / "
+            f"{o['loss']:.6f}, gradient norm {res[0][arch_id]['gnorm']:.5f} "
+            f"/ {o['gnorm']:.5f}; gradient blocks within "
+            + ", ".join(f"{r[arch_id]['grad_err']:.3g} "
+                        f"({r[arch_id]['worst_leaf']})" for r in res)
+            + f" of a leaf's largest; tolerances "
+            f"{ {k: float(f'{v:.3g}') for k, v in tol.items()} }; rank 0's "
+            f"step {res[0][arch_id]['step_ms']:.0f} ms (gloo-bound), peaks "
+            + ", ".join(f"{r[arch_id]['peak_gib']:.2f}" for r in res)
+            + " GiB; launches (2 ranks) "
+            + str({k: n for k, n in out['launches'][arch_id].items() if n}))
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  ({time.perf_counter() - t0:.1f} s with the ranks) [{card}]")
+    return out
+
+
+def train_configs_phases(dev, card: str) -> dict:
+    """Phase 30 (module constants above): (a), (b) for each config in
+    turn (its state freed before the next), (c), (d).  Returns what the
+    kernels' record needs."""
+    import torch
+    t_all = time.perf_counter()
+    out = {"a": k2_d112_train(dev, card), "b": {}}
+    for arch_id in TC_ARCHS:
+        out["b"][arch_id] = train_config(arch_id, dev, card)
+        torch.cuda.empty_cache()
+    out["c"] = k3_kimi_train(dev, card)
+    out["d"] = tc_mesh(dev, card, {a: out["b"][a]["route"]
+                                   for a in TC_MESH_ARCHS})
+    names = set(LM_TRAIN_KERNELS)
+    out["launches"] = {k: sum(r["launches"].get(k, 0)
+                              for r in out["b"].values()) for k in names}
+    out["variants"] = {k: {a: r["variants"][k] for a, r in out["b"].items()
+                           if k in r["variants"]} for k in names}
+    out["mesh_launches"] = {k: sum(r.get(k, 0) for r in
+                                   out["d"]["launches"].values())
+                            for k in names}
+    out["mesh_variants"] = {k: {a: r[k] for a, r in
+                                out["d"]["variants"].items() if k in r}
+                            for k in names}
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 30 {out['seconds']:.1f} s [{card}]")
     return out
 
 
@@ -7553,6 +8334,7 @@ def main() -> int:
     mh = mesh_phases(dev, card)
     mt = mesh_train_phases(dev, card)
     mt_n, mt_v = mt["launches"], mt["variants"]
+    tc = train_configs_phases(dev, card)
     lc_cfg = lc["configs"]
 
     def lc_rows(k: str) -> dict:
@@ -7854,6 +8636,50 @@ def main() -> int:
             lm_mesh_train=mt["rows"][f"k3_{kind}"],
             **({"lm_sliced": lt["rows"]["k3_dgrad_sliced"]}
                if kind == "dgrad" else {})))
+    # phase 30: the three configs' training (b) and their mesh steps (d),
+    # launches by path and variant; its rows beside each kernel's
+    tc_rows = {
+        "elastic_matmul": {f"{a}_train_step": r["rows"]["k1_fwd"]
+                           for a, r in tc["b"].items()},
+        "elastic_matmul_dgrad": {f"{a}_train_step": r["rows"]["k1_dgrad"]
+                                 for a, r in tc["b"].items()},
+        "elastic_matmul_wgrad": {f"{a}_train_step": r["rows"]["k1_wgrad"]
+                                 for a, r in tc["b"].items()},
+        "flash_attention": {"kimi_train_d112": tc["a"]["rows"]["k2_fwd"]},
+        "flash_attention_bwd": {"kimi_train_d112":
+                                tc["a"]["rows"]["k2_bwd"]},
+        "expert_matmul": {"kimi_moe_train": tc["c"]["rows"]["k3_fwd"]},
+        "expert_matmul_dgrad": {"kimi_moe_train":
+                                tc["c"]["rows"]["k3_dgrad"]},
+        "expert_matmul_wgrad": {"kimi_moe_train":
+                                tc["c"]["rows"]["k3_wgrad"]}}
+    tc_errs = {
+        "elastic_matmul": max(r["k1_checks"]["elastic_matmul"]["abs"]
+                              for r in tc["b"].values()),
+        "elastic_matmul_dgrad": max(
+            r["k1_checks"]["elastic_matmul_dgrad"]["abs"]
+            for r in tc["b"].values()),
+        "flash_attention": tc["a"]["fwd_err"],
+        "flash_attention_bwd": tc["a"]["bwd_err"][0],
+        "expert_matmul": tc["c"]["errs"]["expert_matmul"][0],
+        "expert_matmul_dgrad": tc["c"]["errs"]["expert_matmul_dgrad"][0],
+        "expert_matmul_wgrad": tc["c"]["errs"]["expert_matmul_wgrad"][0]}
+    for entry in record["kernels"]:
+        name = entry["name"]
+        n_b, n_d = tc["launches"][name], tc["mesh_launches"][name]
+        entry["launches"] += n_b + n_d
+        entry["launches_by_path"]["lm_configs_train"] = n_b
+        entry["launches_by_path"]["lm_configs_mesh_train"] = n_d
+        entry["launches_by_variant"]["lm_configs_train"] = \
+            tc["variants"][name]
+        entry["launches_by_variant"]["lm_configs_mesh_train"] = \
+            tc["mesh_variants"][name]
+        entry.update(tc_rows[name])
+        if name in tc_errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"], tc_errs[name])
+        if name == "elastic_matmul_wgrad":
+            entry["lm_configs_err_of_largest"] = max(
+                r["k1_checks"][name]["of_largest"] for r in tc["b"].values())
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
         "lut_spread_ms", "served_err", "seconds")}))
@@ -7922,6 +8748,20 @@ def main() -> int:
         | {"rows": {k: {kk: r.get(kk) for kk in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "launches")} for k, r in mt["rows"].items()}}))
+    log("train_configs: " + json.dumps({
+        "a": {k: tc["a"][k] for k in ("fwd_err", "bwd_err", "seconds")},
+        "b": {a: {k: v for k, v in r.items() if k not in ("rows",
+                                                          "k1_checks")}
+              for a, r in tc["b"].items()},
+        "c": {k: tc["c"][k] for k in ("E", "slab", "live_rows",
+                                      "dead_experts", "errs", "seconds")},
+        "d": {k: tc["d"][k] for k in ("one", "tol", *TC_MESH_ARCHS,
+                                      "seconds")},
+        "rows": {f"{n}/{k}": {kk: r.get(kk) for kk in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "launches")} for n, rows in tc_rows.items()
+            for k, r in rows.items()},
+        "seconds": tc["seconds"]}))
     end = time.perf_counter()
     log(f"\ncard: {card}; total {end - t_all:.1f} s")
     log("phases_s: " + json.dumps(phases_s(end)))

@@ -10,9 +10,8 @@ is not modelled by the reference, nor here).
 
 Precision/optimizer policy as the reference's: bf16 params + Adafactor
 (factored second moment).  The port serves it on one card cut to 2 of its
-61 layers, the dense first layer and one MoE layer
-(``launch/steps.py:ONE_CARD_CUT``); training it on the card is
-ROADMAP item 20.
+61 layers, the dense first layer and one MoE layer, and trains it there
+cut to the dense first layer (``launch/steps.py:ONE_CARD_CUT``).
 """
 from repro_torch.configs.registry import ArchDef, LM_SHAPES, register
 from repro_torch.core.types import ElasticSpace

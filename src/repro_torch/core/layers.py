@@ -415,20 +415,31 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     as the reference's rule; otherwise the one-process decode.
     ``tp`` (a mesh): q/k/v are this rank's column blocks, its share of the
     heads, and o the matching row block (the module note); full width,
-    no cache, MHA (a column block of GQA's (R, K) query heads would need
-    every kv head).
+    no cache.  MHA: the rank's q heads are its kv heads.  GQA and MQA: the
+    rank's contiguous block of the (R, K) query heads is R / n groups
+    against EVERY kv head, while its k and v columns hold K / n kv heads
+    (MQA's one head: a share of its columns), so the k and v projections'
+    outputs are gathered over ``"model"`` (:func:`ctx.all_gather_grad`,
+    whose adjoint reduce-scatters their gradient) and attention runs R / n
+    groups against all K kv heads; R must divide by the ``"model"`` ranks.
     """
     B, S, _ = x.shape
     H = n_heads
+    gather_kv = False
     if tp is not None:
         n = ctx.axes_size(tp, ("model",))
         if (a_model, a_heads, kv_cache) != (None, None, None) or return_kv \
-                or n_kv != n_heads or n_heads % n:
+                or n_heads % n or (n_kv != n_heads
+                                   and (n_heads // n_kv) % n):
             raise NotImplementedError(
-                f"tensor-parallel attention: MHA at full width without a "
-                f"cache, heads dividing the model axis ({n_heads} / "
-                f"{n_kv} heads over {n})")
-        H = n_heads = n_kv = n_heads // n
+                f"tensor-parallel attention: full width without a cache, "
+                f"the query groups per kv head dividing the model axis "
+                f"({n_heads} / {n_kv} heads over {n})")
+        if n_kv == n_heads:
+            n_kv = n_heads // n
+        else:         # k's columns split over "model" (not where too few)
+            gather_kv = p["k"]["kernel"].shape[-1] != n_kv * d_head
+        H = n_heads = n_heads // n
     mha = n_kv == n_heads
     # MHA: kv heads shrink together with query heads.  GQA/MQA: kv heads stay
     # (they are cheap); query groups per kv head shrink.
@@ -453,6 +464,9 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     a_kv = a_q if mha else None
     k = dense_apply(p["k"], x, a_in=a_model, a_out=a_kv)
     v = dense_apply(p["v"], x, a_in=a_model, a_out=a_kv)
+    if gather_kv:
+        k = ctx.all_gather_grad(k, tp, ("model",), k.ndim - 1)
+        v = ctx.all_gather_grad(v, tp, ("model",), v.ndim - 1)
     q = q.reshape(B, S, H, d_head)
     k = k.reshape(B, S, kv_active, d_head)
     v = v.reshape(B, S, kv_active, d_head)

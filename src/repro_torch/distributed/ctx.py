@@ -326,8 +326,8 @@ def all_reduce_axes(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     axes = _axes(mesh, axes)
     if not axes:
         return t
-    if set(axes) == set(mesh.mesh_dim_names):
-        return all_reduce(t, "sum", axes_group(mesh, axes))
+    if set(axes) == set(mesh.mesh_dim_names):      # in any order
+        return all_reduce(t, "sum", axes_group(mesh, mesh.mesh_dim_names))
     for a in axes:
         all_reduce(t, "sum", mesh.get_group(a))
     return t

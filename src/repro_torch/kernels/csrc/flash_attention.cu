@@ -97,10 +97,8 @@
 // asked, which is all the backward keeps of the forward's softmax.
 //
 // * fma (fp32 inputs, the smoke configs' head dims 8 and 16, and rows
-//   that are not 16-byte aligned; not at D = 112, where the wrapper
-//   refuses fp32 calls and unaligned bf16 rows): the first port's kernel,
-//   kept as the
-//   parity and smoke path.  128 threads, two per query row; each thread
+//   that are not 16-byte aligned; D = 8, 16, 64, 112 and 128): the first
+//   port's kernel, kept as the parity and smoke path.  128 threads, two per query row; each thread
 //   scores half of each 64-key tile and accumulates half of the output
 //   dims, with K and V staged in shared memory as fp32.  At D = 128 the q
 //   tile is staged in shared memory beside K and V (99 KB, dynamic), and
@@ -299,6 +297,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
     case 8: REPRO_FA_LAUNCH(8); break;
     case 16: REPRO_FA_LAUNCH(16); break;
     case 64: REPRO_FA_LAUNCH(64); break;
+    case 112: REPRO_FA_LAUNCH(112); break;
     case 128: REPRO_FA_LAUNCH(128); break;
     default: return -1;
   }
@@ -841,7 +840,8 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 
 // ------------------------------------------------------------ backward ----
 //
-// FlashAttention's backward, causal or not, D = 64 and (wgmma) 128.  With
+// FlashAttention's backward, causal or not, D = 64 and (wgmma) 112 and
+// 128.  With
 // P = exp(s * scale - lse) from the forward's logsumexp (fp32) and delta =
 // rowsum(dO o O):
 //     dV = P^T dO,  dS = P o (dO V^T - delta),  dK = scale dS^T Q,
@@ -887,8 +887,9 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 //   to 256 (wgmma's 64-row M).  An mma.sync version of the same pass
 //   (warps of 16 keys, chunks of 32) measured the same before that step
 //   was rewritten (PERF.md).
-// * wgmma (every other bf16 call: causal, D = 128, or S or T > 256; the
-//   LM's training at S = T = 4096, D = 128, causal among them).  What the
+// * wgmma (every other bf16 call: causal, D = 112 or 128, or S or T >
+//   256; the LMs' training at S = T = 4096, D = 128 and kimi-k2's 112,
+//   causal, among them).  What the
 //   two-pass mma.sync backward cost there (4.9 ms a call against a 0.70 ms
 //   bound):
 //   mma.sync at 4 warps, 7 products where 5 do, Q, dO, K and V re-read by
@@ -915,7 +916,14 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 //   are never visited) and the blocks of key tile 0 launch first; the
 //   diagonal is masked by selects.  Ragged S and T: TMA's zero fill and
 //   the masks, no copy.  No branch separates a warpgroup's threads around
-//   a wgmma (ptxas then serializes them).
+//   a wgmma (ptxas then serializes them).  D = 112 (kimi-k2) takes D =
+//   128's shared layout, as the forward does: a row is two 64-column
+//   boxes, the second 48 columns wide and zero-filled by TMA past them, so
+//   S^T and dP^T run 7 k-steps of 16 and dV and dK N = 112 (m64n112k16);
+//   dQ's product runs 64 columns a warpgroup and the second stores its
+//   first 48, into 448-byte fp32 rows that the bulk reductions add as
+//   they are (their 16-byte pieces swizzled within groups of 4: 28 a row);
+//   dK, dV and dq are stored at exactly 112 columns.
 //
 // fp32 (fma_f32) runs on FMAs in three passes: delta (one warp a row),
 // dK/dV (a thread a key, GQA's R heads summed in its registers) and dQ
@@ -1369,25 +1377,58 @@ __device__ __forceinline__ void wgmma_rs128_mn(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 112, fp32) += A (64 x 16, bf16 in registers, as wgmma_rs64_mn)
+// * B (16 x 112, shared, MN-major: a 64-column box and a 48-column share
+// of the next, LBO bytes apart)
+__device__ __forceinline__ void wgmma_rs112_mn(float (&d)[56],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %61, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x D) += A (registers) * B (16 x D, shared, MN-major)
 template <int D>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
   if constexpr (D == 64) wgmma_rs64_mn(d, a, db);
+  else if constexpr (D == 112) wgmma_rs112_mn(d, a, db);
   else wgmma_rs128_mn(d, a, db);
 }
 
 // Shared memory of the wgmma backward at head dim D (all bf16 tiles
-// swizzled, 128-byte rows, 1024-byte aligned; a D = 128 row is two
-// 64-column boxes, each box its own run of rows): K and V of the block's
-// 128 keys, two stages of a chunk's Q, dO and o (64 rows each), its
-// logsumexp and delta, the chunk's dS^T (128 keys x 64 queries), its dQ
-// share in fp32 (64 x D, 16-byte pieces swizzled within a row), and the
-// mbarriers.
+// swizzled, 128-byte rows, 1024-byte aligned; a row of D > 64 is two
+// 64-column boxes, each box its own run of rows, the second of D = 112
+// 48 columns wide and zero-filled by TMA past them, as the forward's):
+// K and V of the block's 128 keys, two stages of a chunk's Q, dO and o
+// (64 rows each), its logsumexp and delta, the chunk's dS^T (128 keys x
+// 64 queries), its dQ share in fp32 (64 x D, exactly D columns a row: the
+// workspace's rows; 16-byte pieces swizzled within a row, DQ_SWZ), and
+// the mbarriers.
 template <int D>
 struct WgmmaSmem {
-  static constexpr int NB = D / 64;                  // 64-column boxes
+  static constexpr int NB = (D + 63) / 64;           // 64-column boxes
   static constexpr int KV = NB * W_KEYS * 128;
   static constexpr int CH = NB * W_BQ * 128;
   static constexpr int K_OFF = 0, V_OFF = KV, ST_OFF = 2 * KV;
@@ -1400,6 +1441,14 @@ struct WgmmaSmem {
   static constexpr int BARS = 3 * W_STAGES + 3;
   static constexpr int BYTES = BAR_OFF + 8 * BARS + 1024;
 };
+
+// The swizzle of a dQ row's 16-byte pieces: piece p of row r at p ^ (r &
+// DQ_SWZ<D>), so that a warp's stores of 4 rows hit distinct banks.  Rows
+// of D = 64 and 128 hold 16 and 32 pieces (a multiple of 8); a 448-byte
+// row of D = 112 holds 28, so its pieces move within aligned groups of 4
+// (28 / 4 = 7), which stays inside the row.
+template <int D>
+constexpr int DQ_SWZ = D == 112 ? 3 : 7;
 
 __device__ __forceinline__ void bulk_copy_s2g(void* dst, const void* src,
                                               int bytes) {
@@ -1483,7 +1532,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   uint64_t* kv_bar = dl_ready + W_STAGES;
   uint64_t* dq_full = kv_bar + 1;
   uint64_t* dq_empty = dq_full + 1;
-  constexpr int DQ_WARPS = 4 * (D / 64);     // consumer warps that write dQ
+  constexpr int DQ_WARPS = D > 64 ? 8 : 4;   // consumer warps that write dQ
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
   const int bkh = blockIdx.x % (B * KH);
@@ -1717,7 +1766,7 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
     // (at D = 64 both warpgroups run the product, so that no branch
     // divides them around wgmma, and the first stores it)
     {
-      const int cb = D == 128 ? wg : 0;          // the column block
+      const int cb = D > 64 ? wg : 0;            // the column block
       float dqa[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
@@ -1736,7 +1785,9 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
       if (D == 64 && wg == 1) continue;
       // register 4j + 2i + e: query 16 warp + lane / 4 + 8i, column
       // 64 wg + 8j + 2 (lane % 4) + e; the 16-byte piece p of a row at
-      // p ^ (row & 7) (no bank conflicts; the cast undoes it)
+      // p ^ (row & DQ_SWZ) (no bank conflicts; the cast undoes it).  At
+      // D = 112 the second warpgroup's last 16 columns (the zero-filled
+      // keys' columns of its box) are not stored
       float* dqs = reinterpret_cast<float*>(sm + L::DQ_OFF);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -1744,7 +1795,8 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = 64 * wg + 8 * j + 2 * (lane % 4);
-          const int p = (col / 4) ^ (row & 7);
+          if (D == 112 && wg == 1 && j >= 6) continue;
+          const int p = (col / 4) ^ (row & DQ_SWZ<D>);
           *reinterpret_cast<float2*>(dqs + row * D + 4 * p + col % 4) =
               make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]);
         }
@@ -1772,8 +1824,8 @@ flash_attention_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 // dq[b, s, h, :] = scale ws[(b H + h) S + s, :] in bf16, undoing the
-// writer's swizzle of 16-byte pieces (piece p of row s at p ^ (s & 7));
-// a thread 8 values
+// writer's swizzle of 16-byte pieces (piece p of row s at p ^ (s &
+// DQ_SWZ)); a thread 8 values
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_attention_bwd_dq_cast(const float* __restrict__ ws,
@@ -1788,9 +1840,9 @@ flash_attention_bwd_dq_cast(const float* __restrict__ ws,
   const int b = (int)(bh / H), h = (int)(bh % H);
   const float* src = ws + row * D;
   const float4 a = __ldcs(reinterpret_cast<const float4*>(
-      src + 4 * ((2 * c) ^ (s_ & 7))));
+      src + 4 * ((2 * c) ^ (s_ & DQ_SWZ<D>))));
   const float4 e = __ldcs(reinterpret_cast<const float4*>(
-      src + 4 * ((2 * c + 1) ^ (s_ & 7))));
+      src + 4 * ((2 * c + 1) ^ (s_ & DQ_SWZ<D>))));
   uint4 out;
   out.x = pack_bf16(a.x * scale, a.y * scale);
   out.y = pack_bf16(a.z * scale, a.w * scale);
@@ -1991,8 +2043,11 @@ flash_attention_bwd_dkdv_f32(const float* __restrict__ q,
 }
 
 // The fp32 backward on FMAs: the delta pre-pass, then dK/dV and dQ.  Its
-// arrays are D floats a thread, so it is instantiated at every head dim
-// the fp32 forward takes but 128 (8 and 16: the smoke configs; 64).
+// arrays are D floats a thread (dK and dV 2 D), and its four staged tiles
+// of 32 rows static shared memory, so it is instantiated at every head dim
+// the fp32 forward takes but 112 and 128 (8 and 16: the smoke configs;
+// 64): at 112 the tiles take 57.9 KB, past the 48 KB of static shared
+// memory, and the 224 accumulators a thread of dK/dV would spill.
 template <int D>
 int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dO, const float* lse,
@@ -2125,36 +2180,6 @@ __device__ __forceinline__ void wgmma_ss128_kk(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 112, fp32) += A (64 x 16, bf16 in registers, as wgmma_rs64_mn)
-// * B (16 x 112, shared, MN-major: a 64-column box and a 48-column share
-// of the next, LBO bytes apart)
-__device__ __forceinline__ void wgmma_rs112_mn(float (&d)[56],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %61, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55"
-      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n\t}"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // S = Q K^T of one K tile: the warpgroup's 64 query rows (qa) against the
@@ -2712,7 +2737,8 @@ extern "C" int repro_flash_attention_bwd(
   return -1;
 }
 
-// The wgmma backward (bf16, D = 64 or 128, causal or not, S, T_len >= 1):
+// The wgmma backward (bf16, D = 64, 112 or 128, causal or not, S, T_len
+// >= 1):
 // one block per (key tile of 128, batch, kv head), one pass; q, k, v, o,
 // dO, dq, dk, dv through (batch, seq, head) strides as above (24 in all),
 // bases 16-byte aligned, strides of the dims of extent > 1 multiples of 8
@@ -2739,6 +2765,9 @@ extern "C" int repro_flash_attention_bwd_wgmma(
   if (D == 64)
     return launch_bwd_wgmma<64>(q, k, v, o, dO, l, w, tk, dq, dk, dv, B, H,
                                 KH, S, T_len, st, scale, causal, s);
+  if (D == 112)
+    return launch_bwd_wgmma<112>(q, k, v, o, dO, l, w, tk, dq, dk, dv, B,
+                                 H, KH, S, T_len, st, scale, causal, s);
   if (D == 128)
     return launch_bwd_wgmma<128>(q, k, v, o, dO, l, w, tk, dq, dk, dv, B, H,
                                  KH, S, T_len, st, scale, causal, s);

@@ -22,12 +22,9 @@ of valid keys read from a device int32: ``kv_len``, the decode cache's
 fill, so one CUDA graph of a decode step serves every step) and ``fma``
 (the first port's fp32
 FMA kernel, counted as ``fma_bf16`` or ``fma_f32``: fp32 inputs, the smoke
-configs' head dims 8 and 16, and rows that are not 16-byte aligned).  At
-kimi-k2's head dim 112 the fma kernel has no instance: an fp32 call, or a
-bf16 call whose rows are not 16-byte aligned (kimi's q, k and v rows,
-224 bytes, are), raises ``NotImplementedError`` on the card (training
-at D = 112 is ROADMAP item 20).  The source note says what bounds each
-on the H100 and what its design does about it.
+configs' head dims 8 and 16, and rows that are not 16-byte aligned; every
+head dim of ``HEAD_DIMS``).  The source note says what bounds each on the
+H100 and what its design does about it.
 
 Layout at this level: q (B, S, H, D), k/v (B, T, KH, D) -> o (B, S, H, D).
 ``kv_len`` (a 0-d int32 tensor on the device, >= 0) masks the keys at or
@@ -43,14 +40,14 @@ reads and which a sequence-sharded decode
 (``distributed/decode_attn.py``) merges across shards.
 
 The backward (the reference has none: JAX differentiates through XLA)
-is ``flash_attention_bwd``, causal or not, at D = 64 and 128 in bf16 and
-8, 16 and 64 in fp32 (D = 112 raises: ROADMAP item 20), in three variants
-chosen by
+is ``flash_attention_bwd``, causal or not, at D = 64, 112 (kimi-k2) and
+128 in bf16 and 8, 16 and 64 in fp32, in three variants chosen by
 :func:`choose_bwd_variant` from shapes and dtype: ``resident`` (bf16,
 non-causal, D = 64, S, T <= 256, the sandwich step's S = T = 197: one
 block per (batch, kv head) holds its keys and makes one pass on wgmma,
 each input read once, dQ from dS in the same block), ``wgmma`` (every
-other bf16 call, the LM's causal S = T = 4096 at D = 128 among them:
+other bf16 call, the LMs' causal S = T = 4096 at D = 128 and 112 among
+them:
 FlashAttention-3's backward, one block per 128-key tile fed by TMA, one
 pass of five products on wgmma, dQ added into an fp32 workspace in
 key-tile order behind per-chunk tickets, so deterministic, then cast
@@ -88,8 +85,10 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 bwd_launches = 0
 BWD_VARIANTS = ("wgmma", "resident", "fma_f32")
 bwd_variant_launches = dict.fromkeys(BWD_VARIANTS, 0)
-BWD_HEAD_DIMS = (64, 128)      # bf16: the ViTs' and the LM's
-BWD_F32_HEAD_DIMS = (8, 16, 64)  # fp32: the smoke configs' 8 and 16 too
+BWD_HEAD_DIMS = (64, 112, 128)  # bf16: the ViTs', kimi-k2's, the LMs'
+# fp32: the smoke configs' 8 and 16 too (the fp32 kernel's tiles and
+# registers cannot take 112 or 128: the source note)
+BWD_F32_HEAD_DIMS = (8, 16, 64)
 RESIDENT_MAX = 256      # queries and keys of a head the resident kernel takes
 WGMMA_KEYS = 128        # keys a block of the wgmma backward (its key tile)
 WGMMA_CHUNK = 64        # queries a chunk (one dQ ticket each)
@@ -109,7 +108,6 @@ WGMMA_FWD_MIN_S = 65
 # the K and V bytes of a group of (batch, head) pairs whose causal tiles the
 # wgmma forward takes together (of the H100's 50 MB of L2)
 WGMMA_FWD_L2_BYTES = 32 << 20
-FMA_HEAD_DIMS = (8, 16, 64, 128)
 SMS = 132                     # streaming multiprocessors of an H100 SXM
 DECODE_R_MAX = 8              # query heads a decode block takes (a group)
 DECODE_CHUNK_MAX = 256        # keys per decode block (its shared scores)
@@ -335,12 +333,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     T_seen = min(T, 1) if causal and S == 1 else T
     variant = choose_variant(S, T_seen, H, KH, D, q.dtype,
                              _aligned(q, k, v))
-    if D not in FMA_HEAD_DIMS and variant.startswith("fma"):
-        raise NotImplementedError(
-            f"flash_attention: no fma kernel at head dim {D}, so no fp32 "
-            f"call and no bf16 rows that are not 16-byte aligned there "
-            f"(aligned bf16 runs on mma and decode; training at D = {D} "
-            f"is ROADMAP item 20)")
     if kv_len is not None:
         check_kv_len(kv_len, k)
         if variant != "decode":
@@ -450,12 +442,12 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
     """The backward kernel a call goes to, from shapes and dtype (the
     wrapper copies rows the kernels cannot read with 16-byte loads or TMA
     first); raises ``NotImplementedError`` for what no kernel takes (D
-    other than 64 or 128 in bf16, other than 8, 16 or 64 in fp32; kimi-k2's
-    112 is ROADMAP item 20).
+    other than 64, 112 or 128 in bf16, other than 8, 16 or 64 in fp32).
     ``resident`` (non-causal, D = 64) holds a head's keys in shared memory
     (T <= 256) and walks its queries serially in one block per (batch, kv
     head); every other bf16 call -- causal, D = 128, or S or T past 256 --
-    takes ``wgmma``, whose grid also runs over 128-key tiles and which
+    takes ``wgmma`` (kimi-k2's D = 112 too), whose grid also runs over
+    128-key tiles and which
     skips the causal mask's dead chunks.  With few (batch, kv head) blocks
     the serial walk costs too: at B * KH = 22 on an H100 (132 SMs)
     ``resident`` took 34-35 us a call at S = T = 197 against 27.5 us for
@@ -466,8 +458,7 @@ def choose_bwd_variant(S: int, T: int, D: int, dtype: torch.dtype,
     if D not in dims:
         raise NotImplementedError(
             f"flash_attention backward: D={D}, {dtype}; the kernels take "
-            f"D in {BWD_HEAD_DIMS} in bf16 and {BWD_F32_HEAD_DIMS} in fp32 "
-            f"(training at kimi-k2's D = 112 is ROADMAP item 20)")
+            f"D in {BWD_HEAD_DIMS} in bf16 and {BWD_F32_HEAD_DIMS} in fp32")
     if dtype != torch.bfloat16:
         return "fma_f32"
     if not causal and D == 64 and 1 <= S <= RESIDENT_MAX \

@@ -40,7 +40,7 @@ from repro_torch.models.transformer import (LMConfig, check_decodable,
 from repro_torch.models.unet import unet_apply
 from repro_torch.models.vit import vit_apply
 from repro_torch.optim.api import (clip_by_global_norm, named_leaves,
-                                   pop_grads)
+                                   pop_grads, tree_map)
 
 
 # Grad-accumulation defaults of the reference's ``build_cell``:
@@ -59,16 +59,25 @@ ACCUM_DEFAULTS = {
 # Config fields replaced where one card cannot hold the model, by (arch,
 # shape name, or "serve" for the LM launcher's serving), printed by the
 # launcher that applies them.  Training: the reference's build_cell
-# cfg_overrides; deepseek-moe-16b at train_4k keeps its full width (d
-# 2048, 64 experts top-6, vocab 102400) and is cut to 4 layers, 1 dense +
-# 3 MoE: 2.27 B parameters, 36 GB of fp32 parameters, gradients and AdamW
-# moments (its 28 layers need 262 GB: ROADMAP item 11).  Serving in bf16
-# at full width, the first layers of the stack: qwen1.5-110b 8 x 1.36 B +
-# 2.49 B of embedding and head, 26.7 GB; kimi-k2-1t-a32b its dense layer
-# and one MoE layer of 384 experts, 19.9 B, 39.9 GB; the other LMs serve
-# whole.
+# cfg_overrides, the first layers of the stack at full width.  fp32
+# parameters, gradients and AdamW moments take 16 bytes a parameter, kimi's
+# bf16 parameters with Adafactor 8 (2 + a bf16 gradient 2 + its fp32 sum
+# 4; the factored moments are small): deepseek-moe-16b 4 layers, 1 dense +
+# 3 MoE, 2.27 B parameters, 36 GB (its 28 layers need 262 GB: ROADMAP item
+# 11); qwen1.5-110b 1 of 80 layers, 1.36 B + 2.49 B of embedding and head,
+# 61.6 GB (2 layers, 83 GB, do not fit); granite-20b 8 of 52, 3.64 B, 58.2
+# GB; kimi-k2-1t-a32b its dense first layer, 2.86 B, 22.9 GB (an MoE
+# layer is 17.1 B more).  Serving in bf16 at full width, the first layers
+# of the stack: qwen1.5-110b 8 x 1.36 B + 2.49 B, 26.7 GB; kimi-k2-1t-a32b
+# its dense layer and one MoE layer of 384 experts, 19.9 B, 39.9 GB; the
+# other LMs serve whole.  A training entry may also hold ``global_batch``,
+# as ``SHARED_CARD_CUT``'s do (none does here: the launcher keeps the
+# shape's batch, 256 x 4096 at train_4k).
 ONE_CARD_CUT = {
     ("deepseek-moe-16b", "train_4k"): {"n_layers": 4},
+    ("qwen1.5-110b", "train_4k"): {"n_layers": 1},
+    ("granite-20b", "train_4k"): {"n_layers": 8},
+    ("kimi-k2-1t-a32b", "train_4k"): {"n_layers": 1},
     ("qwen1.5-110b", "serve"): {"n_layers": 8},
     ("kimi-k2-1t-a32b", "serve"): {"n_layers": 2},
 }
@@ -78,11 +87,17 @@ ONE_CARD_CUT = {
 # as ``chip_smoke.py`` phase 10 cuts it, and to a global batch of 4
 # sequences as 2 microbatches (a 2 x 2 mesh's data block holds one row
 # of each): every FSDP block crosses gloo, through host memory, twice a
-# microbatch.  ``n_layers`` cuts the config; ``global_batch`` and
+# microbatch; granite-20b to 2 layers (1.36 B, 21.8 GB) and kimi-k2 to
+# its dense layer (2.86 B, 22.9 GB), each a global batch of 2 sequences
+# as 1 microbatch.  ``n_layers`` cuts the config; ``global_batch`` and
 # ``accum`` (``--accum`` overrides it) the step
 SHARED_CARD_CUT = {
     ("deepseek-moe-16b", "train_4k"): {"n_layers": 2, "global_batch": 4,
                                        "accum": 2},
+    ("granite-20b", "train_4k"): {"n_layers": 2, "global_batch": 2,
+                                  "accum": 1},
+    ("kimi-k2-1t-a32b", "train_4k"): {"n_layers": 1, "global_batch": 2,
+                                      "accum": 1},
 }
 
 
@@ -93,32 +108,60 @@ def _rows(tree, lo: int, hi: int):
     return tree[lo:hi]
 
 
-def accum_grads(loss_fn: Callable, params, batch: dict,
-                accum: int) -> torch.Tensor:
+def accum_grads(loss_fn: Callable, params, batch: dict, accum: int):
     """The reference's ``_accum_grads``: ``loss_fn(params, mb)`` and its
     backward over ``accum`` consecutive chunks of the batch (a dict of
     tensors or of such dicts: the diffusion batch's ``cond``), one chunk's
-    activations alive at a time.  The gradients sum on each leaf's
-    ``.grad`` (fp32 parameters: an fp32 sum, in chunk order) and are
-    divided by ``accum`` there; returns the mean loss (detached)."""
+    activations alive at a time.  Returns (the mean loss, detached; the
+    gradients, a tree of the parameters' structure, ``None`` where no loss
+    reached a leaf), every ``.grad`` cleared.  At ``accum`` <= 1 each
+    gradient is in its parameter's dtype; above, the chunks' gradients sum
+    in fp32 whatever the parameter's dtype (a bf16 leaf's each chunk cast
+    up, an fp32 leaf's accumulated by autograd on its ``.grad``), in chunk
+    order, and are divided by ``accum`` in place, as the reference's
+    ``jnp.zeros(p.shape, jnp.float32)`` sums are."""
     if accum <= 1:
         loss = loss_fn(params, batch)
         loss.backward()
-        return loss.detach()
+        return loss.detach(), pop_grads(params)
     B = next(iter(batch.values())).shape[0]
     if B % accum:
         raise ValueError(f"batch {B} does not split into {accum} chunks")
     n = B // accum
+    leaves = [p for _, p in named_leaves(params)]
+    sums: Dict[int, torch.Tensor] = {}
     lsum = None
     for i in range(accum):
         loss = loss_fn(params, _rows(batch, i * n, (i + 1) * n))
         loss.backward()
         lsum = loss.detach() if lsum is None else lsum + loss.detach()
+        # an fp32 leaf sums on its .grad (autograd adds in place, no
+        # second buffer); any other leaf's chunk gradient is cast up into
+        # its fp32 sum and its .grad cleared
+        with torch.no_grad():
+            for j, p in enumerate(leaves):
+                if p.dtype == torch.float32 or p.grad is None:
+                    continue
+                g, p.grad = p.grad, None
+                if j in sums:
+                    sums[j].add_(g)
+                else:
+                    sums[j] = g.float()
+    out = []
     with torch.no_grad():
-        for _, p in named_leaves(params):
-            if p.grad is not None:
-                p.grad.div_(accum)
-    return lsum / accum
+        for j, p in enumerate(leaves):
+            g, p.grad = sums.get(j, p.grad), None
+            out.append(None if g is None else g.div_(accum))
+    it = iter(out)
+    return lsum / accum, tree_map(lambda _: next(it), params)
+
+
+def _or_zeros(p: torch.Tensor, g, accum: int) -> torch.Tensor:
+    """``g``, or zeros for a leaf no loss reached, in the dtype
+    :func:`accum_grads` gives the others."""
+    if g is not None:
+        return g
+    return torch.zeros_like(p, dtype=torch.float32 if accum > 1 else None)
 
 
 def clipped_step(loss_fn: Callable, update_fn: Callable,
@@ -132,8 +175,8 @@ def clipped_step(loss_fn: Callable, update_fn: Callable,
     updated in place and the metrics as device scalars."""
     def step(params, opt, batch, step):
         pop_grads(params)
-        loss = accum_grads(loss_fn, params, batch, accum)
-        grads, gn = clip_by_global_norm(pop_grads(params), 1.0)
+        loss, grads = accum_grads(loss_fn, params, batch, accum)
+        grads, gn = clip_by_global_norm(grads, 1.0)
         params, opt = update_fn(params, grads, opt, step)
         return params, opt, {"loss": loss, "gnorm": gn}
     return step
@@ -299,11 +342,11 @@ def make_lm_train_step(cfg: LMConfig, update_fn: Callable, accum: int = 1,
 
     def step(params, opt, batch, step):
         pop_grads(params)
-        share = accum_grads(loss_fn, params, batch, accum)
-        for _, p in named_leaves(params):
-            if p.grad is None:     # no loss reached it: every rank sums
-                p.grad = torch.zeros_like(p)      # the same buffers
-        grads = pop_grads(params)
+        share, grads = accum_grads(loss_fn, params, batch, accum)
+        # a leaf no loss reached: zeros (fp32 where the sums are), so that
+        # every rank sums the same buffers
+        gs = iter([g for _, g in named_leaves(grads)])
+        grads = tree_map(lambda p: _or_zeros(p, next(gs), accum), params)
         reduce_replicated(grads, specs, mesh)
         grads, gn = clip_by_global_norm(grads, 1.0, layout=(mesh, specs))
         params, opt = update_fn(params, grads, opt, step,

@@ -1,7 +1,7 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Counterpart of the reference ``launch/train.py`` for the vision
-transformers, the conv nets, the diffusion nets and the MoE LM on one
+transformers, the conv nets, the diffusion nets and the LMs on one
 card: config registry -> train step -> data pipeline -> checkpoint
 manager -> watchdog/straggler monitor -> restart supervisor.  ``--smoke`` runs the
 reduced config; ``--sandwich`` is the paper's supernet training of a
@@ -11,18 +11,19 @@ in-place distillation, masked mode: one graph); without it, the plain
 batch-statistics BN and SGD with momentum) or, for DiT-L/2 and
 UNet-SDXL, the ``diff_train`` step (epsilon-prediction MSE of the
 denoiser on seeded latents, noise and timesteps: :func:`diffusionize`,
-AdamW) or, for ``deepseek-moe-16b``, the ``_lm_cell`` train step (next-
+AdamW) or, for an LM, the ``_lm_cell`` train step (next-
 token cross entropy plus the MoE aux loss on ``synthetic_lm_batches``,
-AdamW), over ``--accum`` microbatches (the reference's ``build_cell``
-default: 1 for the smoke configs, else ``ACCUM_DEFAULTS``, raised where
-one card cannot hold the step: ``ONE_CARD_ACCUM``).  Where one card
-cannot hold the model at all, ``steps.ONE_CARD_CUT`` cuts its depth at full
-width (the reference's ``cfg_overrides``); the launcher prints both cuts.
-qwen1.5-110b, granite-20b and kimi-k2-1t-a32b train at ``--smoke`` only:
-at full size they raise before any allocation (ROADMAP item 20).
-Parameters are fp32 and the compute dtype is the config's (bf16 at full
-size).  The run is on the card unless ``--device cpu``; with no card and
-no ``--device cpu`` it raises.
+with the arch's optimizer: AdamW, Adafactor for kimi-k2-1t-a32b), over
+``--accum`` microbatches (the reference's ``build_cell`` default: 1 for
+the smoke configs, else ``ACCUM_DEFAULTS``, raised where one card cannot
+hold the step: ``ONE_CARD_ACCUM``), the gradients summed in fp32.  Where
+one card cannot hold the model at all, ``steps.ONE_CARD_CUT`` cuts its
+depth at full width (the reference's ``cfg_overrides``: the LMs
+deepseek-moe-16b, qwen1.5-110b, granite-20b and kimi-k2-1t-a32b); the
+launcher prints both cuts.  Parameters take the config's ``param_dtype``
+(fp32, bf16 for kimi-k2-1t-a32b at full size) and the compute dtype is
+the config's (bf16 at full size).  The run is on the card unless
+``--device cpu``; with no card and no ``--device cpu`` it raises.
 
 ``--mesh DATAxMODEL`` trains an LM across a (data, model) mesh: the
 ranks spawned on this host (the kernels built once, here, first), each
@@ -52,6 +53,8 @@ The vision and diffusion families train on one card only (ROADMAP item
         --device cpu --steps 3
     python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \\
         --device cpu --steps 3 --mesh 2x2
+    python -m repro_torch.launch.train --arch kimi-k2-1t-a32b --steps 2
+    python -m repro_torch.launch.train --arch granite-20b --mesh 1x2
 """
 from __future__ import annotations
 
@@ -97,18 +100,21 @@ from repro_torch.optim import make_optimizer
 from repro_torch.optim.api import named_leaves
 
 # microbatches a step where the reference's default does not fit one 80 GB
-# card (its defaults are for a sharded mesh; here fp32 parameters,
-# gradients and AdamW moments are whole, 41 GB for UNet-SDXL): UNet-SDXL's
-# train_256 step runs out of memory at 2 x 128 and at 4 x 64 (PERF.md,
-# cells); deepseek-moe-16b's (cut below) holds 36 GB of state, its
-# reference 4 x 64 would need 54 GB for the bf16 logits alone, and 32 x 8
-# runs out of memory at the fp32 log-softmax's gradient (PERF.md, cells)
+# card (its defaults are for a sharded mesh; here the parameters,
+# gradients and optimizer state are whole, 41 GB for UNet-SDXL):
+# UNet-SDXL's train_256 step runs out of memory at 2 x 128 and at 4 x 64
+# (PERF.md, cells); deepseek-moe-16b's (cut by ONE_CARD_CUT) holds 36 GB of
+# state, its reference 4 x 64 would need 54 GB for the bf16 logits alone,
+# and 32 x 8 runs out of memory at the fp32 log-softmax's gradient; the
+# other LMs' cuts hold 23-62 GB of state, and one sequence's fp32
+# log-softmax and its gradient take 2 x 2.49 GB at qwen's vocabulary
+# (152064), 2 x 0.81 GB at granite's and 2 x 2.68 GB at kimi's (PERF.md,
+# cells)
 ONE_CARD_ACCUM = {("unet-sdxl", "train_256"): 8,
-                  ("deepseek-moe-16b", "train_4k"): 64}
-# LMs the port serves on the card but does not train there yet (ROADMAP
-# item 20: K2's backward at kimi-k2's head dim 112, their one-card cuts,
-# kimi's bf16 Adafactor step); their smoke configs train anywhere
-NOT_TRAINED_ON_CARD = ("qwen1.5-110b", "granite-20b", "kimi-k2-1t-a32b")
+                  ("deepseek-moe-16b", "train_4k"): 64,
+                  ("qwen1.5-110b", "train_4k"): 256,
+                  ("granite-20b", "train_4k"): 64,
+                  ("kimi-k2-1t-a32b", "train_4k"): 64}
 MESH_TIMEOUT_S = 3600.0
 
 
@@ -261,11 +267,6 @@ def main(argv=None):
             f"{arch.arch_id}: training under a mesh is ported for the LMs; "
             f"the vision and diffusion families are ROADMAP item 11 (d)")
     req = mesh_request(args)
-    if arch.arch_id in NOT_TRAINED_ON_CARD and not args.smoke:
-        raise NotImplementedError(
-            f"{arch.arch_id}: training at full size is ROADMAP item 20 (K2's "
-            f"backward at head dim 112, a one-card cut, kimi's bf16 "
-            f"Adafactor); --smoke trains the reduced config")
     if req is None:
         return run(args, arch)
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -304,11 +305,12 @@ def train_rank(rank: int, world: int, rendezvous: str, argv) -> dict:
 
 def step_cuts(key, global_batch: int, args, shared) -> tuple:
     """(config cut, global batch, microbatches) of a run of ``key`` (arch,
-    shape): none at ``--smoke``; on one card ``ONE_CARD_CUT`` and
-    ``ONE_CARD_ACCUM``; under a mesh (``shared`` not None) whose ranks
-    share a card ``SHARED_CARD_CUT``'s depth, batch and microbatches (else
-    one card's); under a mesh of a card a rank, the whole model at the
-    reference's microbatches.  ``--accum`` overrides the microbatches."""
+    shape): none at ``--smoke``; on one card ``ONE_CARD_CUT`` (and its
+    ``global_batch``, where an entry holds one) and ``ONE_CARD_ACCUM``;
+    under a mesh (``shared`` not None) whose ranks share a card
+    ``SHARED_CARD_CUT``'s depth, batch and microbatches (else one card's);
+    under a mesh of a card a rank, the whole model at the reference's
+    microbatches.  ``--accum`` overrides the microbatches."""
     if args.smoke:
         return {}, global_batch, args.accum or 1
     if shared and key in SHARED_CARD_CUT:
@@ -317,7 +319,8 @@ def step_cuts(key, global_batch: int, args, shared) -> tuple:
         return cut, B, args.accum or accum
     if shared is False:
         return {}, global_batch, args.accum or ACCUM_DEFAULTS.get(key, 1)
-    return (ONE_CARD_CUT.get(key, {}), global_batch,
+    cut = dict(ONE_CARD_CUT.get(key, {}))
+    return (cut, cut.pop("global_batch", global_batch),
             args.accum or ONE_CARD_ACCUM.get(key, ACCUM_DEFAULTS.get(key, 1)))
 
 

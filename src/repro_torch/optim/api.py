@@ -92,9 +92,13 @@ def _grad_list(params, grads) -> List[torch.Tensor]:
 def clip_by_global_norm(grads, max_norm: float, layout=None):
     """(grads scaled by min(1, max_norm / max(norm, 1e-6)), norm), the norm
     over every leaf in fp32 and the scale applied on the device (no host
-    sync).  ``None`` leaves stay ``None``.  With ``layout`` (mesh, specs)
-    the leaves are a rank's blocks: each leaf's sum of squares is summed
-    over the axes that split it, never over those that replicate it."""
+    sync), IN PLACE: each leaf is scaled in fp32 and written back in its
+    dtype (the reference's new tree, the same values; a copy of qwen's 15
+    GB of fp32 gradients would not fit beside its state on one card), and
+    the same tree returned.  ``None`` leaves stay ``None``.  With
+    ``layout`` (mesh, specs) the leaves are a rank's blocks: each leaf's
+    sum of squares is summed over the axes that split it, never over
+    those that replicate it."""
     named = [(p, g) for p, g in named_leaves(grads) if g is not None]
     if not named:
         return grads, torch.zeros(())
@@ -112,16 +116,13 @@ def clip_by_global_norm(grads, max_norm: float, layout=None):
         gn = torch.sqrt(sum(ctx.all_reduce_axes(sq.reshape(1), mesh, ax)[0]
                             for ax, sq in sorted(by_axes.items())))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-6), max=1.0)
-
-    def apply(t):
-        if isinstance(t, dict):
-            return {k: apply(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return [apply(v) for v in t]
-        if t is None:
-            return None
-        return (t.float() * scale).to(t.dtype)
-    return apply(grads), gn
+    with torch.no_grad():
+        for _, g in named:
+            if g.dtype == torch.float32:
+                g.mul_(scale)
+            else:
+                g.copy_(g.float() * scale)
+    return grads, gn
 
 
 def _write(p: torch.Tensor, new: torch.Tensor) -> None:
@@ -133,7 +134,7 @@ def _write(p: torch.Tensor, new: torch.Tensor) -> None:
 def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1):
     def init(params):
-        return {"s": _map(lambda p: {
+        return {"s": tree_map(lambda p: {
             "mu": torch.zeros_like(p, dtype=torch.float32),
             "nu": torch.zeros_like(p, dtype=torch.float32)}, params)}
 
@@ -149,10 +150,17 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
             mu, nu = s["mu"], s["nu"]
             mu.mul_(b1).add_(g, alpha=1 - b1)
             nu.mul_(b2).addcmul_(g, g, value=1 - b2)
-            u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+            # (mu / c1) / (sqrt(nu / c2) + eps), then p - lr u, with two
+            # leaf-sized temporaries (qwen's head: 4.6 GB each) where the
+            # plain expression takes five
+            u = (mu / c1).div_((nu / c2).sqrt_().add_(eps))
             if weight_decay and _wd_ok(path):
                 u.add_(p.float(), alpha=weight_decay)
-            _write(p, p.float() - lr * u)
+            u.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(u)
+            else:
+                _write(p, p.float() - u)
         return params, state
 
     return init, update
@@ -174,7 +182,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                                           dtype=torch.float32,
                                           device=p.device)}
             return {"v": torch.zeros_like(p, dtype=torch.float32)}
-        return {"s": _map(st, params)}
+        return {"s": tree_map(st, params)}
 
     @torch.no_grad()
     def update(params, grads, state, step, layout=None):
@@ -239,7 +247,7 @@ def _block_mean(layout, spec: Optional[tuple]) -> Callable:
 
 def sgdm(lr: float = 0.1, momentum: float = 0.9, weight_decay: float = 1e-4):
     def init(params):
-        return {"s": _map(lambda p: {
+        return {"s": tree_map(lambda p: {
             "m": torch.zeros_like(p, dtype=torch.float32)}, params)}
 
     @torch.no_grad()
@@ -262,11 +270,13 @@ def make_optimizer(name: str, **hp) -> Tuple[Callable, Callable]:
     return {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}[name](**hp)
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
+    """``tree``'s structure (dicts and lists) with ``fn(leaf)`` at each
+    leaf, in :func:`named_leaves` order."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

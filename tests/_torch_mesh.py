@@ -224,3 +224,44 @@ def mesh_rank(rank: int, world: int, init_dir: str, inputs: str,
                                 TO.named_leaves(st)}
         ctx.close_ranks()
     return out
+
+
+# --- the dense and GQA/MQA configs' mesh steps ----------------------------------
+# (tests/test_torch_lm_train_configs.py)
+
+CFG_BATCH = 4                  # the reference's smoke batch on the mesh
+
+
+def configs_rank(rank: int, world: int, init_dir: str, inputs: str,
+                 ref_params: str, cfgs: dict) -> dict:
+    """One rank of the three configs' mesh steps: for each ``arch_id:
+    (cfg, optimizer)`` of ``cfgs`` (the configs as the launcher trains
+    them under a mesh), one step of its optimizer at accum 1 from the
+    reference's parameters (prefix ``arch_id``) under the unfiltered
+    rules (every TP and FSDP split made: granite's MQA k and v columns
+    split inside their one head), on the rank's rows of the batch:
+    loss, gradient norm and the updated blocks."""
+    torch.manual_seed(0)
+    inp = dict(np.load(inputs))
+    ref = tree(dict(np.load(ref_params)))
+    ctx.init_ranks(rank, world, os.path.join(init_dir, "cfg22"), "cpu")
+    mesh = make_mesh(MESH, AXES)
+    rows = microbatch_rows(CFG_BATCH, 1, MESH[0],
+                           ctx.axes_index(mesh, ("data",)))
+    out = {}
+    for arch_id, (cfg, opt_name) in cfgs.items():
+        spec_fn = TS.train_spec_fn(cfg, filtered=False)
+        specs = TS.spec_tree(lm_params(ref[arch_id]), spec_fn)
+        params = lm_params_shard(ref[arch_id], mesh, spec_fn=spec_fn)
+        for _, p in TO.named_leaves(params):
+            p.requires_grad_(True)
+        init_fn, update_fn = TO.make_optimizer(opt_name)
+        step = make_lm_train_step(cfg, update_fn, 1, mesh=mesh, specs=specs)
+        batch = {k: torch.from_numpy(inp[f"{arch_id}/{k}"][rows]).long()
+                 for k in ("tokens", "labels")}
+        params, _, m = step(params, init_fn(params), batch, 0)
+        out[arch_id] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                        "params": {path: t.detach().numpy() for path, t in
+                                   TO.named_leaves(params)}}
+    ctx.close_ranks()
+    return out

@@ -1097,17 +1097,25 @@ def test_decode_head_groups_cover_each_head_once(H, KH, D):
 def test_head_dim_112_kernel_instances_in_the_source():
     """K2's mma and decode launchers instantiate D = 112 (the wrapper's
     MMA_HEAD_DIMS), the decode kernel takes any R (no D_R_MAX refusal),
-    and the backward's head dims stay as the wrapper says (no nvcc here:
-    read as text)."""
+    the wgmma backward and the fma forward instantiate every head dim the
+    wrapper sends them (kimi-k2's 112 among them), and the fp32 backward
+    stays refused at 112 (no nvcc here: read as text)."""
     k2 = (build.CSRC / "flash_attention.cu").read_text()
     for D in fa.MMA_HEAD_DIMS:
         assert f"launch_mma<{D}>(" in k2 and f"launch_decode<{D}>(" in k2
     assert f"D_R_MAX = {fa.DECODE_R_MAX};" in k2
     assert "H / KH > D_R_MAX" not in k2
-    assert "launch_bwd_wgmma<112>" not in k2
-    assert 112 not in fa.BWD_HEAD_DIMS and 112 not in fa.FMA_HEAD_DIMS
-    with pytest.raises(NotImplementedError, match="item 20"):
-        fa.choose_bwd_variant(512, 512, 112, torch.bfloat16, True)
+    for D in fa.BWD_HEAD_DIMS:
+        assert f"launch_bwd_wgmma<{D}>(" in k2
+    for D in fa.HEAD_DIMS:
+        assert f"case {D}: REPRO_FA_LAUNCH({D});" in k2
+    for D in fa.BWD_F32_HEAD_DIMS:
+        assert f"launch_bwd_f32<{D}>(" in k2
+    assert "launch_bwd_f32<112>" not in k2
+    assert fa.choose_bwd_variant(4096, 4096, 112, torch.bfloat16,
+                                 True) == "wgmma"
+    with pytest.raises(NotImplementedError, match="fp32"):
+        fa.choose_bwd_variant(512, 512, 112, torch.float32, True)
 
 
 
@@ -1186,7 +1194,8 @@ def test_cuda_flash_attention_head_dim_112(cuda, causal):
     the plain version on fp32 copies of the inputs (in bf16 it rounds the
     scores to bf16, an error of its own at this spread), q and k at 1.5 x
     randn (scores spread ~2, so wrong scores miss the tolerance); an fp32
-    call and bf16 rows that are not 16-byte aligned raise."""
+    call on fma_f32 and bf16 rows that are not 16-byte aligned on
+    fma_bf16, the same way."""
     g = torch.Generator().manual_seed(112)
     bf = torch.bfloat16
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=g) * scale).to(
@@ -1199,6 +1208,8 @@ def test_cuda_flash_attention_head_dim_112(cuda, causal):
     cases = [(q, k, v, causal, "wgmma")]
     cases += [(q[:, :1], ck[:, :T], cv[:, :T], False, "decode")
               for T in (1, 65, 300, 528)]
+    cases += [(q.float(), k.float(), v.float(), causal, "fma_f32"),
+              (wide[..., :112], k[:, :64], v[:, :64], causal, "fma_bf16")]
     for qq, kk, vv, c, want in cases:
         before = dict(fa.variant_launches)
         o = ops.flash_attention_op(qq, kk, vv, causal=c)
@@ -1210,11 +1221,6 @@ def test_cuda_flash_attention_head_dim_112(cuda, causal):
         assert ran == [want]
         torch.testing.assert_close(o.float(), o_plain.float(), rtol=3e-2,
                                    atol=3e-2)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ops.flash_attention_op(q.float(), k.float(), v.float(), causal=True)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ops.flash_attention_op(wide[..., :112], k[:, :64], v[:, :64],
-                               causal=causal)
 
 
 
@@ -1579,6 +1585,22 @@ def test_cuda_elastic_matmul_backward_matches_plain(cuda, dtype, M, K, N, ka,
 
 
 @pytest.mark.cuda
+def test_cuda_wgrad_tma_one_split_past_the_tile_counters(cuda):
+    """qwen1.5-110b's head (K 8192, N 152064: 76,032 tiles of 128 x 128,
+    more than the 65,536 tickets) at one split of M stores in place: no
+    ticket needed, no refusal; against the plain version."""
+    M, K, N = 256, 8192, 152064
+    w, dy, x = _bwd_operands(cuda, _BF, M, K, N, K, 0, 11)
+    assert em.wgrad_tma_plan(M, K, N)[0] == 1
+    dw = em.elastic_matmul_wgrad(x, dy, ops.widths_tensor(cuda, K, N), K, N,
+                                 (K, N))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        dw.float(), em.elastic_matmul_wgrad_plain(x, dy, K, N, (K, N)).float(),
+        rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K,N,ka,na", [(384, 384, 384, 384),
                                        (384, 1536, 288, 1152)])
 def test_cuda_wgrad_tma_is_deterministic_and_replays_in_a_graph(cuda, K, N,
@@ -1782,6 +1804,44 @@ def test_cuda_flash_attention_backward_wgmma_matches_plain(cuda, S, T, H,
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
     scale = max(float(b.float().abs().max()) for b in want)
     for a, b in zip(got, want):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-2 * scale
+    _graph_replays_equal(lambda: fa.flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,KH,causal", [
+    (512, 512, 64, 8, True),      # kimi-k2's heads, a prefill's length
+    (300, 300, 8, 1, True),       # MQA, ragged chunks and key tiles
+    (129, 77, 4, 2, False),       # fewer keys than queries
+    (65, 1, 2, 2, False)])        # one key
+def test_cuda_flash_attention_backward_wgmma_d112_matches_plain(
+        cuda, S, T, H, KH, causal):
+    """K2's wgmma backward at kimi-k2's head dim 112 (two 64-column boxes,
+    the second zero-filled past 48 columns; 448-byte dQ rows) against the
+    plain version: one launch on wgmma, within 1e-2 of the largest
+    gradient (a store past column 112 would overwrite the next row of the
+    contiguous dq, dk or dv), the same bits twice and under 3 graph
+    replays."""
+    g = torch.Generator().manual_seed(112 + S + T)
+    D = 112
+    q, do = (torch.randn(2, S, H, D, generator=g).to(cuda, _BF)
+             for _ in range(2))
+    k, v = (torch.randn(2, T, KH, D, generator=g).to(cuda, _BF)
+            for _ in range(2))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    o = o.to(_BF).contiguous()
+    before = fa.bwd_variant_launches["wgmma"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_variant_launches["wgmma"] - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    scale = max(float(b.float().abs().max()) for b in want)
+    for a, b in zip(got, want):
+        assert a.shape[-1] == D
         assert float((a.float() - b.float()).abs().max()) <= 1e-2 * scale
     _graph_replays_equal(lambda: fa.flash_attention_bwd(
         q, k, v, o, lse, do, causal=causal), got)

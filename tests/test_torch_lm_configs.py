@@ -41,7 +41,8 @@ from repro_torch.convert import lm_caches, lm_params, to_torch  # noqa: E402
 from repro_torch.core import layers as TL  # noqa: E402
 from repro_torch.launch import elastic_moe, flops as tflops  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
-from repro_torch.launch.steps import lm_decode, lm_prefill  # noqa: E402
+from repro_torch.launch.steps import (ONE_CARD_CUT, lm_decode,  # noqa
+                                      lm_prefill)
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
@@ -468,11 +469,43 @@ def test_elastic_moe_launcher_runs_each_config_on_cpu(arch_id, capsys):
 
 
 @pytest.mark.parametrize("arch_id", NEW)
-def test_train_launcher_refuses_full_size(arch_id, monkeypatch):
-    """Off --smoke the three configs raise before any allocation
-    (training them on the card is ROADMAP item 20)."""
+def test_train_launcher_plans_full_size(arch_id, monkeypatch, capsys,
+                                        tmp_path):
+    """Off ``--smoke`` on the CPU the launcher prints its one-card cut and
+    microbatches (``ONE_CARD_CUT``, ``ONE_CARD_ACCUM``), then reaches the
+    parameters' init (``lm_init`` raises here: nothing is allocated)."""
     def no_init(*a, **k):
         raise AssertionError("initialised parameters")
     monkeypatch.setattr(ttrain, "lm_init", no_init)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ttrain.main(["--arch", arch_id, "--device", "cpu", "--steps", "1"])
+    with pytest.raises(AssertionError, match="initialised parameters"):
+        ttrain.main(["--arch", arch_id, "--device", "cpu", "--steps", "1",
+                     "--save-every", "0", "--ckpt-dir", str(tmp_path)])
+    key = (arch_id, "train_4k")
+    accum = ttrain.ONE_CARD_ACCUM[key]
+    out = capsys.readouterr().out
+    assert (f"{arch_id} train_4k: batch 256 as {accum} microbatches of "
+            f"{256 // accum}, cut to n_layers "
+            f"{ONE_CARD_CUT[key]['n_layers']}") in out, out
+
+
+@pytest.mark.parametrize("arch_id", NEW)
+def test_train_launcher_takes_a_one_card_global_batch(arch_id, monkeypatch,
+                                                      capsys, tmp_path):
+    """A ``ONE_CARD_CUT`` entry that holds ``global_batch`` (as
+    ``SHARED_CARD_CUT``'s entries do) sets the one-card run's batch,
+    printed in the cut line; the depth cut stays, and ``--accum`` splits
+    the batch."""
+    def no_init(*a, **k):
+        raise AssertionError("initialised parameters")
+    monkeypatch.setattr(ttrain, "lm_init", no_init)
+    key = (arch_id, "train_4k")
+    cut = ONE_CARD_CUT[key]
+    monkeypatch.setitem(ONE_CARD_CUT, key, {**cut, "global_batch": 8})
+    with pytest.raises(AssertionError, match="initialised parameters"):
+        ttrain.main(["--arch", arch_id, "--device", "cpu", "--steps", "1",
+                     "--save-every", "0", "--accum", "2", "--ckpt-dir",
+                     str(tmp_path)])
+    out = capsys.readouterr().out
+    assert (f"{arch_id} train_4k: batch 8 as 2 microbatches of 4, cut to "
+            f"n_layers {cut['n_layers']}") in out, out
+    assert "global_batch" not in out, out

@@ -66,10 +66,16 @@ def _np_tree(tree):
                                              (64, 127, 4, 2, True),
                                              (64, 129, 4, 2, False),
                                              (128, 127, 2, 2, False),
-                                             (128, 129, 4, 2, True)])
+                                             (128, 129, 4, 2, True),
+                                             # kimi-k2's head dim, causal,
+                                             # GQA and MQA
+                                             (112, 65, 8, 2, True),
+                                             (112, 129, 8, 1, True),
+                                             (112, 40, 4, 4, False)])
 def test_flash_attention_bwd_plain_matches_jax_vjp(D, S, H, KH, causal):
     """The plain backward (the formulas the kernels compute, from P) at
-    the LM's head dim 128 and the smoke config's 16, causal, with GQA's
+    the LMs' head dims 128 and 112 and the smoke config's 16, causal, with
+    GQA's
     kv-head gradients summed over their query heads: ``jax.vjp`` of the
     reference's oracle on the kv heads repeated to H."""
     B, R = 2, H // KH
