@@ -202,7 +202,7 @@ their 1x1 convs and classifier on K1, the other convs on cuDNN):
     the plain path's bf16 logits are (plus the bf16 tolerance), bf16
     difference and top-1 agreement;
     (c) ``repro_torch.launch.train --arch resnet-152`` at cls_224, batch
-    256, bf16: 8 steps, a checkpoint every 4, a failure at step 6;
+    256, bf16: 4 steps, a checkpoint every 2, a failure at step 3;
     finite losses, exactly one restart, K1's forward, dgrad and wgrad
     counters rising, no other kernel launched, no launch on a variant
     (a) did not hold in bf16; median step, images/s, peak memory; (d) the
@@ -242,7 +242,7 @@ cuDNN):
     the largest value, bf16 no farther from fp32 than twice the plain
     path's bf16 output (plus the bf16 tolerance); (c)
     ``repro_torch.launch.train --arch dit-l2`` (6 steps, a checkpoint
-    every 3, a failure at step 5) and ``--arch unet-sdxl`` (3 steps as
+    every 3, a failure at step 5) and ``--arch unet-sdxl`` (2 steps as
     the launcher's 8 microbatches of 32, no checkpoint, a failure at step
     1): finite losses, one restart each, the step run again after the
     restart with the same loss as its first run, K1's and K2's five
@@ -287,10 +287,9 @@ their ``persistent`` kernels -- and K2's causal, D = 128 backward on
     (c) one AdamW step of the smoke config in fp32 on the card, kernel
     route against plain route: loss, gradient norm and every updated
     parameter; (d) ``repro_torch.launch.train --arch deepseek-moe-16b``:
-    train_4k (256 x 4096) as the launcher's 64 microbatches of 4, 3
-    steps, no checkpoint, a failure at step 1 and a restart from step 0:
-    finite losses, one restart, step 0's loss the same bits both times,
-    all eight training counters rising on the Hopper variants (no bf16
+    train_4k (256 x 4096) as the launcher's 64 microbatches of 4, 2
+    steps, no checkpoint and no failure (the LM's restart is phase 29
+    (a)'s): finite losses, all eight training counters rising on the Hopper variants (no bf16
     K3 backward on ``tile_bf16``); median step, tokens/s, peak memory; one
     profiled step (device time in K1, K2 and K3 forward and backward,
     norms and elementwise kernels, the MoE dispatch and the rest; the
@@ -473,6 +472,35 @@ one card over gloo, so its times are not a multi-card speed):
     D 112, bf16 Adafactor on blocks) on a 1 x 2 mesh of two ranks sharing
     the card over gloo (``SHARED_CARD_CUT``), one step each against the
     one-process step within phase 29 (c)'s tolerances.
+
+the vision family trained across a 2 x 2 (data, model) mesh (four ranks
+sharing the card over gloo):
+
+31. ResNet-152, the dynamic-ofa-supernet and EfficientNet-B7 at cls_224,
+    full width and depth, under the reference's ``vision_rules``
+    (attention and MLP tensor parallel, convs split on their output
+    channels and the classifier on its rows over ``model``, no FSDP; BN's
+    statistics summed over ``data``), the global batch cut to 8 images as
+    2 microbatches (``SHARED_CARD_CUT``): the one-process steps of
+    ResNet-152 (fp32) and the ViT (bf16) first, in this process (kept
+    for (c); the plain route (b'); each microbatch's rows reversed, the
+    same step in exact arithmetic (b'')); then four ranks: (a) each net
+    through the launcher's own rank entry (``--mesh 2x2``) for 2 steps
+    with a failure at step 1 and a restart from step 0 (EfficientNet-B7
+    without: ``VM_RESTART``), the launch counts
+    reset before each and read after, K1's forward, dgrad and wgrad (and
+    the ViT's K2 forward and backward) launched on every rank on their
+    Hopper variants, finite losses, step 0 the same bits after the
+    restart; (b) one bf16 step of ResNet-152 and the ViT on the kernel
+    route against the plain route (loss, gradient norm and gradient
+    blocks within phase 29 (b)'s tolerances), its launches counted; (c)
+    the mesh step in the one-process step's dtype against it (loss,
+    gradient norm, gradient blocks, each row's loss and, for ResNet-152,
+    both microbatches' BN statistics) within twice the step's noise
+    ((b), (b'), (b'')), at least phase 29 (b)'s tolerances (phase 29
+    (c)'s rule; ``VM_C_DTYPE`` says why ResNet-152 is held in fp32); (e)
+    rank 0's recorded K1 and K2 calls timed beside the plain version,
+    the library call and the bound.
     Each phase's seconds end its log, and a ``phases_s`` line gathers
     them.
 
@@ -3524,10 +3552,10 @@ def conv_phases(dev, randn) -> dict:
     out["logits"] = conv_logits(dev, randn)
     held = out["k1"]["held"]
     out["resnet"] = conv_train(
-        "(c) ResNet-152, full width and depth, cls_224 batch 256, bf16; 8 "
-        "steps, a checkpoint every 4, a failure injected at step 6",
-        ["--arch", "resnet-152", "--steps", "8", "--save-every", "4",
-         "--fail-at", "6"], held, 1, dev)
+        "(c) ResNet-152, full width and depth, cls_224 batch 256, bf16; 4 "
+        "steps, a checkpoint every 2, a failure injected at step 3",
+        ["--arch", "resnet-152", "--steps", "4", "--save-every", "2",
+         "--fail-at", "3"], held, 1, dev)
     out["effnet"] = conv_train(
         f"(d) EfficientNet-B7, full width and depth, cls_224 batch 256 as "
         f"{EFF_ACCUM} microbatches of {256 // EFF_ACCUM}, bf16; 3 steps",
@@ -3923,8 +3951,8 @@ def train_run(title: str, argv: list, restarts: int, repeat: tuple,
               repeat_tol: float = 0.0) -> dict:
     """A training launcher on the card (phases 23 (c) and 24 (d)): finite
     losses, ``restarts`` restarts, the step run again after the restart
-    (losses ``repeat``) within ``repeat_tol`` of its first run (relative;
-    0: the same bits), every counter of ``kernels`` rising, no other
+    (losses ``repeat``; None: no restart) within ``repeat_tol`` of its
+    first run (relative; 0: the same bits), every counter of ``kernels`` rising, no other
     kernel, every bf16 call on the Hopper variants (``need``); the median
     step, ``unit``/s at ``per_step`` a step, peak memory."""
     import shutil
@@ -3956,8 +3984,10 @@ def train_run(title: str, argv: list, restarts: int, repeat: tuple,
         raise AssertionError(f"{res['restarts']} restarts, want {restarts}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
-    first, again = losses[repeat[0]], losses[repeat[1]]
-    if not abs(first - again) <= repeat_tol * abs(first):
+    first, again = (None, None) if repeat is None else (
+        losses[repeat[0]], losses[repeat[1]])
+    if repeat is not None and not abs(first - again) <= repeat_tol * abs(
+            first):
         raise AssertionError(f"the step run again after the restart: loss "
                              f"{again!r}, its first run {first!r}")
     for _, p in named_leaves(res["params"]):
@@ -3974,15 +4004,16 @@ def train_run(title: str, argv: list, restarts: int, repeat: tuple,
     n_params = sum(p.numel() for _, p in named_leaves(res["params"]))
     out = {"step_ms": statistics.median(steady), "params": n_params,
            "step_ms_all": res["step_ms"], "losses": losses,
-           "resumed_loss_diff": again - first,
+           "resumed_loss_diff": None if repeat is None else again - first,
            f"{unit}_per_s": per_step / statistics.median(steady) * 1e3,
            "peak_gib": peak / 2**30, "peak_run_gib": (peak - base) / 2**30,
            "launches": {k: launches[k] for k in kernels},
            "variants": {k: variants[k] for k in kernels}}
     log(f"  {n_params / 1e6:.2f} M parameters; {len(res['step_ms'])} steps "
         f"run, {res['restarts']} restarts; losses "
-        f"{', '.join(f'{x:.4f}' for x in losses)}; the step run again "
-        f"after the restart: {again!r} against {first!r} first")
+        f"{', '.join(f'{x:.4f}' for x in losses)}"
+        + ("" if repeat is None else f"; the step run again after the "
+           f"restart: {again!r} against {first!r} first"))
     log(f"  step: median {out['step_ms']:.1f} ms after the first (all: "
         f"{', '.join(f'{x:.1f}' for x in res['step_ms'])} ms), "
         f"{out[f'{unit}_per_s']:.1f} {unit}/s; peak device memory "
@@ -4217,10 +4248,10 @@ def diffusion_phases(dev, parent) -> dict:
          "--fail-at", "5"], 1, (4, 5), dev)
     out["unet"] = diff_train(
         f"(c) UNet-SDXL, full width and depth, train_256 batch 256 as "
-        f"{UNET_ACCUM} microbatches of {256 // UNET_ACCUM}, bf16; 3 steps, "
+        f"{UNET_ACCUM} microbatches of {256 // UNET_ACCUM}, bf16; 2 steps, "
         f"no checkpoint (41 GB of state), a failure injected at step 1 and "
         f"a restart from step 0",
-        ["--arch", "unet-sdxl", "--steps", "3", "--save-every", "0",
+        ["--arch", "unet-sdxl", "--steps", "2", "--save-every", "0",
          "--fail-at", "1"], 1, (0, 1), dev)
     out["breakdown"] = {
         "dit-l2": diff_profile("dit-l2", 1, out["dit"]["step_ms"], dev),
@@ -4242,7 +4273,7 @@ def diffusion_phases(dev, parent) -> dict:
 LM_TRAIN_ARCH, LM_TRAIN_SHAPE = "deepseek-moe-16b", "train_4k"
 LM_TRAIN_ACCUM = 64           # 256 x 4096 as 64 microbatches of 4
 LM_TRAIN_CUT = {"n_layers": 4}     # 1 dense + 3 MoE layers, full width
-LM_TRAIN_STEPS = 2          # with the restart, 3 steps run
+LM_TRAIN_STEPS = 2          # no failure: the LM restarts in phase 29 (a)
 # K2's backward against its plain version, of the largest gradient (bf16:
 # the kernel rounds P and dS to bf16 for its products); K3's dgrad and
 # wgrad of the largest value (bf16 outputs; fp32 sums in both)
@@ -4734,15 +4765,15 @@ def lm_smoke_step(dev) -> dict:
 
 def lm_train_run(dev) -> dict:
     """Phase 24 (d): :func:`train_run` of the LM launcher at the cut
-    full-width config, all eight training counters, step 0's loss the
-    same bits after the restart (no checkpoint: 36 GB of state)."""
+    full-width config, all eight training counters, no checkpoint (36 GB
+    of state) and no failure (the LM's restart is phase 29 (a)'s)."""
     argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
-            "--save-every", "0", "--fail-at", "1"]
+            "--save-every", "0"]
     title = (f"24. (d) train_4k (256 x 4096) as {LM_TRAIN_ACCUM} "
              f"microbatches of {256 // LM_TRAIN_ACCUM}, full width, cut to 4 "
-             f"layers; no checkpoint (36 GB of state), a failure at step 1 "
-             f"and a restart from step 0")
-    return train_run(title, argv, 1, (0, 1), LM_TRAIN_KERNELS,
+             f"layers; {LM_TRAIN_STEPS} steps, no checkpoint (36 GB of "
+             f"state), no failure")
+    return train_run(title, argv, 0, None, LM_TRAIN_KERNELS,
                      LM_TRAIN_VARIANTS, 256 * 4096, "tokens", dev)
 
 
@@ -7969,6 +8000,621 @@ def train_configs_phases(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 31
+# the vision family trained across a 2 x 2 (data, model) mesh, four ranks
+# on cuda:0 over gloo (not a multi-card speed): the reference's
+# ``vision_rules`` placement (``vision_train_spec_fn``: attention and MLP
+# tensor parallel, convs split on their output channels and the classifier
+# on its rows over "model", no FSDP), BN over the whole microbatch (its
+# sums all-reduced over "data"), cls_224 at full width and depth, the
+# global batch cut from 256 to 8 images as 2 microbatches (a data block
+# holds 2 of each: ``steps.SHARED_CARD_CUT``)
+VM_MESH = (2, 2)
+VM_STEPS = 2
+VM_RUNS = ("resnet-152", "dynamic-ofa-supernet", "efficientnet-b7")   # (a)
+# (a)'s nets trained with a failure at step 1 and a restart from step 0;
+# EfficientNet-B7 trains its 2 steps without (cut for the script's time:
+# its restart's step is ~5.5 s of four ranks' gloo traffic)
+VM_RESTART = ("resnet-152", "dynamic-ofa-supernet")
+VM_CHECK = ("resnet-152", "dynamic-ofa-supernet")               # (b), (c)
+# (c)'s compute dtype.  ResNet-152's step at init is ill-conditioned (BN
+# over 2-4 images through 155 layers, var = E[x^2] - E[x]^2): in one
+# process, the same step on each microbatch's rows in another order moves
+# its bf16 loss by ~0.2% and a leaf's gradient by ~100%, its fp32 loss by
+# ~1e-5 and a leaf's gradient by ~10% (CPU, full depth at 64 x 64).  So
+# (c) holds it in fp32, on the same kernels, where the step's own noise
+# is small enough to show a fault; its bf16 main path is held by (b), and
+# its mesh step by tests/_torch_resnet152_witness.py (float64, against
+# the reference).  The ViT's (c) stays in bf16
+VM_C_DTYPE = {"resnet-152": "float32", "dynamic-ofa-supernet": "bfloat16"}
+VM_KERNELS = {"resnet-152": K1_KERNELS, "efficientnet-b7": K1_KERNELS,
+              "dynamic-ofa-supernet": K1_KERNELS + (
+                  "flash_attention", "flash_attention_bwd")}
+# every bf16 call of these paths on the Hopper variants (EfficientNet's
+# squeeze-excite widths 12 and 20 take K1's tile and wmma variants, as in
+# phase 22: its path is held by its launches alone)
+VM_VARIANTS = {
+    "resnet-152": {("elastic_matmul", "tma"), ("elastic_matmul_dgrad", "tma"),
+                   ("elastic_matmul_wgrad", "tma")},
+    "dynamic-ofa-supernet": {("elastic_matmul", "tma"),
+                             ("elastic_matmul_dgrad", "tma"),
+                             ("elastic_matmul_wgrad", "tma"),
+                             ("flash_attention", "wgmma"),
+                             ("flash_attention_bwd", "resident")}}
+VM_ROWS = ("k1_fwd", "k1_dgrad", "k1_wgrad", "k2_fwd", "k2_bwd")
+# (c)'s tolerances: MT_C_FACTOR x the step's noise measured in this run,
+# at least phase 29 (b)'s (what bf16 rounding may move the LM's mesh step
+# by); BN's statistics at least 1e-3.  The noise: (b) the kernel route
+# against the plain route on the mesh, (b') the same in one process, (b'')
+# one process on each microbatch's rows reversed (the same step in exact
+# arithmetic; BN's sums and the batched products in another order).  The
+# mesh sums in other orders by design (BN's sums over "data", the ViT's o
+# and wo partials over "model")
+VM_C_FLOORS = {"loss": MT_LOSS_TOL, "gnorm": MT_GNORM_TOL,
+               "grad": MT_GRAD_TOL, "stats": 1e-3}
+# a leaf's gradient error is a share of its largest entry, or of this
+# share of the whole tree's largest where it is larger: a leaf whose
+# gradient vanishes in exact arithmetic (the keys' bias, which a softmax
+# does not see) is round-off (tests/test_torch_vision_mesh.py's rule)
+VM_VANISHING = 1e-2
+
+
+def vm_cfg(arch_id: str, dtype=None) -> tuple:
+    """(arch, cls_224 config, global batch, microbatches) as the launcher
+    trains ``arch_id`` on ranks sharing the card; ``dtype``: the config's
+    compute dtype instead (its parameters are fp32 at any)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import SHARED_CARD_CUT
+    arch = get_arch(arch_id)
+    cut = SHARED_CARD_CUT[(arch_id, "cls_224")]
+    if set(cut) != {"global_batch", "accum"}:
+        raise AssertionError(f"{arch_id}: the shared-card cut {cut} cuts "
+                             f"more than the batch")
+    cfg = dataclasses.replace(arch.make_config(), img_res=224)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    return arch, cfg, cut["global_batch"], cut["accum"]
+
+
+def keeping(update_fn, kept: list):
+    """An update that keeps the clipped gradients (fp32 copies; zeros for
+    a leaf no loss reached) and then applies ``update_fn`` (None: no
+    update)."""
+    import torch
+
+    from repro_torch.optim.api import named_leaves
+
+    def update(params, grads, opt, step, layout=None):
+        kept.append({k: torch.zeros_like(p, dtype=torch.float32)
+                     if g is None else g.detach().float().clone()
+                     for (k, p), (_, g) in zip(named_leaves(params),
+                                               named_leaves(grads))})
+        if update_fn is None:
+            return params, opt
+        return update_fn(params, grads, opt, step, layout=layout)
+    return update
+
+
+def vm_probe(arch_id: str, params, batch: dict, cfg, accum: int,
+             mesh=None, specs=None) -> list:
+    """Each microbatch's forward of ``batch`` (a rank's rows of each under
+    ``mesh``) without gradient, as the train step runs it: [(ResNet-152's
+    BN statistics in order, else None; each row's cross entropy)], fp32
+    on the host."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.launch.steps import vis_forward
+    from repro_torch.models.resnet import resnet_apply
+    n = batch["images"].shape[0] // accum
+    out = []
+    with torch.no_grad():
+        for i in range(accum):
+            x = batch["images"][i * n:(i + 1) * n]
+            st = None
+            if arch_id == "resnet-152":
+                logits, st = resnet_apply(params, x, cfg, train=True,
+                                          collect_stats=True, mesh=mesh,
+                                          specs=specs)
+                st = [(name, m.float().cpu(), v.float().cpu())
+                      for name, (m, v) in st]
+            else:
+                logits = vis_forward(arch_id, cfg, mesh=mesh,
+                                     specs=specs)(params, x)
+            nll = F.cross_entropy(logits.float(),
+                                  batch["labels"][i * n:(i + 1) * n].long(),
+                                  reduction="none")
+            out.append((st, nll.cpu()))
+    return out
+
+
+def stats_err(got: list, want: list) -> float:
+    """The largest error of BN statistics, each against its largest entry
+    (a mean against the larger of its entries and its channels' spread)."""
+    worst = 0.0
+    for (n, m, v), (_, wm, wv) in zip(got, want, strict=True):
+        spread = max(float(wm.abs().max()), float(wv.abs().max()) ** 0.5)
+        worst = max(worst, float((m - wm).abs().max()) / max(spread, 1e-30),
+                    float((v - wv).abs().max()) / max(
+                        float(wv.abs().max()), 1e-30))
+    return worst
+
+
+def probe_err(got: list, want: list, rows=slice(None)) -> dict:
+    """A probe (:func:`vm_probe`) against another, microbatch by
+    microbatch: the largest BN statistics error (None without BN) and the
+    largest relative error of a row's cross entropy; ``rows``: the rows of
+    each of ``want``'s microbatches that ``got`` holds."""
+    st = [None if g[0] is None else stats_err(g[0], w[0])
+          for g, w in zip(got, want, strict=True)]
+    nll = max(float(((g[1] - w[1][rows]).abs() / w[1][rows].abs()).max())
+              for g, w in zip(got, want, strict=True))
+    return {"stats_err": None if st[0] is None else max(st),
+            "stats_err_by_mb": st, "nll_err": nll}
+
+
+def route_diffs(loss: float, loss_ref: float, gnorm: float,
+                gnorm_ref: float, grads: dict, refs: dict,
+                whole: dict) -> dict:
+    """A step's loss and gradient norm relative to a reference step's,
+    and its gradients' largest error, each against the larger of its
+    leaf's largest entry and ``VM_VANISHING`` of the largest entry of
+    ``whole`` (the whole tree), with the leaf where it is worst."""
+    floor = VM_VANISHING * max(float(g.abs().max()) for g in whole.values())
+    err = {k: float((g - refs[k]).abs().max()) / max(
+        float(refs[k].abs().max()), floor) for k, g in grads.items()}
+    return {"loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "gnorm_rel": abs(gnorm - gnorm_ref) / abs(gnorm_ref),
+            "grad_err": max(err.values()),
+            "worst_leaf": max(err, key=err.get)}
+
+
+def vm_one(dev, path: str) -> dict:
+    """Phase 31's one-process steps, in this process before the ranks:
+    each of ``VM_CHECK`` at the launcher's seed-0 parameters and step-0
+    batch (8 x 224 as 2 microbatches) in (c)'s dtype, on the kernel route
+    (its loss, gradient norm, clipped gradients and each microbatch's
+    probe saved to ``path`` for (c)), on the plain route (b') and on each
+    microbatch's rows reversed (b'')."""
+    import torch
+
+    from repro_torch.data import synthetic_image_batches, to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_vis_train_step
+    from repro_torch.optim.api import named_leaves
+    out, saved = {}, {}
+    for arch_id in VM_CHECK:
+        arch, cfg, B, accum = vm_cfg(arch_id, VM_C_DTYPE[arch_id])
+        params = train_mod.init_params(arch, cfg, dev)
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        kept = []
+        step = make_vis_train_step(arch_id, cfg, keeping(None, kept), accum)
+        batch = to_device(next(synthetic_image_batches(
+            global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes)),
+            dev)
+        n = B // accum
+        rev = torch.cat([torch.arange((i + 1) * n - 1, i * n - 1, -1)
+                         for i in range(accum)]).to(dev)
+        rbatch = {k: v[rev] for k, v in batch.items()}
+        _, _, m = step(params, None, batch, 0)
+        _, _, mr = step(params, None, rbatch, 0)
+        with ops.plain_kernels():
+            _, _, mp = step(params, None, batch, 0)
+        probe = vm_probe(arch_id, params, batch, cfg, accum)
+        # the reversed rows' probe, each microbatch's row losses put back
+        # in the batch's order
+        rprobe = [(st, nll.flip(0)) for st, nll in vm_probe(
+            arch_id, params, rbatch, cfg, accum)]
+        out[arch_id] = {
+            "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+            "dtype": cfg.compute_dtype,
+            "mb_loss": [float(nll.mean()) for _, nll in probe],
+            "b_one": route_diffs(float(m["loss"]), float(mp["loss"]),
+                                 float(m["gnorm"]), float(mp["gnorm"]),
+                                 kept[0], kept[2], kept[0]),
+            "b_rev": dict(route_diffs(float(mr["loss"]), float(m["loss"]),
+                                      float(mr["gnorm"]), float(m["gnorm"]),
+                                      kept[1], kept[0], kept[0]),
+                          **probe_err(rprobe, probe))}
+        saved[arch_id] = {"grads": {k: g.cpu() for k, g in kept[0].items()},
+                          "probe": probe}
+        del params, kept, m, mr, mp, batch, rbatch
+        torch.cuda.empty_cache()
+    torch.save({"saved": saved, **out}, path)
+    return out
+
+
+def vm_rank(rank: int, world: int, tmp: str, one_file: str,
+            argvs: list) -> dict:
+    """One rank of phase 31, on cuda:0 beside three others: (a) each
+    net of ``VM_RUNS`` through the launcher's own rank entry
+    (``launch.train.train_rank``, as ``--mesh 2x2`` spawns it: the launch
+    counts reset before its run and read after), the ranks brought down
+    and up between nets; then on one group (b) one step of each of
+    ``VM_CHECK`` on the kernel route against the plain route, the kernel
+    route's launches counted and its K1 and K2 calls recorded, (c) the
+    step in (c)'s dtype against the one-process step, with each
+    microbatch's probe, and (e) rank 0's recorded calls timed while the
+    others wait.  Plain values back."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import layers as layers_mod
+    from repro_torch.data import (microbatch_rows, synthetic_image_batches,
+                                  to_device)
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.sharding import (is_spec, shard_leaf,
+                                                  vision_train_spec_fn)
+    from repro_torch.kernels import elastic_matmul as em
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_vis_train_step
+    from repro_torch.optim.api import named_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out = {"rank": rank, "a": {}}
+    for i, (arch_id, argv) in enumerate(argvs):
+        torch.cuda.reset_peak_memory_stats()      # each net's own peak
+        t0 = time.perf_counter()
+        r = train_mod.train_rank(rank, world, os.path.join(tmp, f"a{i}"),
+                                 argv)
+        r["seconds"] = time.perf_counter() - t0
+        out["a"][arch_id] = r
+        ctx.close_ranks()
+        torch.cuda.empty_cache()
+    ctx.init_ranks(rank, world, os.path.join(tmp, "b"), "cuda",
+                   local_world=world)
+    dev = ctx.rank_device()
+    mesh = make_mesh(VM_MESH, ("data", "model"))
+    one = torch.load(one_file, map_location="cpu", mmap=True,
+                     weights_only=True)
+    rec = {k: {} for k in VM_ROWS}
+    targets = [(layers_mod, "elastic_matmul_op", "k1_fwd"),
+               (em, "elastic_matmul_dgrad", "k1_dgrad"),
+               (em, "elastic_matmul_wgrad", "k1_wgrad"),
+               (fa, "flash_attention", "k2_fwd"),
+               (fa, "flash_attention_bwd", "k2_bwd")]
+    out["b"], out["c"] = {}, {}
+    for arch_id in VM_CHECK:
+        arch, cfg, B, accum = vm_cfg(arch_id)
+        c_cfg = vm_cfg(arch_id, VM_C_DTYPE[arch_id])[1]
+        state, pspecs = train_mod.mesh_state(
+            cfg, mesh, vision_train_spec_fn(arch_id, cfg), lambda p: None,
+            dev, arch)
+        params = state["params"]
+        for _, p in named_leaves(params):
+            p.requires_grad_(True)
+        specs = dict(named_leaves(pspecs, is_leaf=is_spec))
+        d = ctx.axes_index(mesh, ("data",))
+        rows = microbatch_rows(B, accum, VM_MESH[0], d)
+        batch = to_device(next(synthetic_image_batches(
+            global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes,
+            rows=rows)), dev)
+        kept = []
+
+        def run(step_cfg):
+            step = make_vis_train_step(arch_id, step_cfg,
+                                       keeping(None, kept), accum,
+                                       mesh=mesh, specs=pspecs)
+            _, _, m = step(params, None, batch, 0)
+            torch.cuda.synchronize()
+            return float(m["loss"]), float(m["gnorm"]), kept.pop()
+        t0 = time.perf_counter()
+        with ops.plain_kernels():
+            lp, gp, grads_p = run(cfg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        with recording(targets, keep_calls(rec)):
+            lk, gk, grads_k = run(cfg)
+        ms = (time.perf_counter() - t1) * 1e3
+        launches, variants = ops.launch_counts(), ops.variant_counts()
+        whole = one["saved"][arch_id]["grads"]
+        out["b"][arch_id] = dict(
+            route_diffs(lk, lp, gk, gp, grads_k, grads_p, whole),
+            loss=lk, loss_plain=lp, gnorm=gk, gnorm_plain=gp, step_ms=ms,
+            launches=launches, variants=variants,
+            seconds=time.perf_counter() - t0)
+        del grads_p
+        # (c): the step in (c)'s dtype (the kernel route's, where that is
+        # the main path's) and each microbatch's probe
+        t0 = time.perf_counter()
+        if c_cfg.compute_dtype == cfg.compute_dtype:
+            lc, gc, grads_c = lk, gk, grads_k
+        else:
+            del grads_k
+            lc, gc, grads_c = run(c_cfg)
+        blocks = {k: shard_leaf(whole[k], specs[k], mesh).to(dev)
+                  for k in grads_c}
+        per = B // accum // VM_MESH[0]
+        probe = vm_probe(arch_id, params, batch, c_cfg, accum, mesh, pspecs)
+        o = one[arch_id]
+        out["c"][arch_id] = dict(
+            route_diffs(lc, o["loss"], gc, o["gnorm"], grads_c, blocks,
+                        whole),
+            **probe_err(probe, one["saved"][arch_id]["probe"],
+                        slice(d * per, (d + 1) * per)),
+            nll=[nll.tolist() for _, nll in probe],
+            seconds=time.perf_counter() - t0)
+        del state, params, grads_c, blocks, batch, probe, whole
+        torch.cuda.empty_cache()
+    del one
+    # (e) rank 0 times its recorded calls while the others wait
+    nograd = torch.no_grad
+    if rank == 0:
+        t0 = time.perf_counter()
+        rows = {
+            "k1_fwd": time_rows(
+                "K1 forward, vision mesh steps (ResNet-152's split convs, the "
+                "ViT's TP projections)", expand(rec["k1_fwd"]),
+                ops.elastic_matmul_op, k1_plain, k1_library, "torch.matmul",
+                k1_work, group=k1_group, mode=nograd),
+            "k1_dgrad": time_rows(
+                "K1 dgrad, vision mesh steps", expand(rec["k1_dgrad"]),
+                em.elastic_matmul_dgrad, k1_dgrad_plain, k1_dgrad_library,
+                "torch.matmul", k1_dgrad_work, group=bwd_group,
+                mode=nograd),
+            "k1_wgrad": time_rows(
+                "K1 wgrad, vision mesh steps", expand(rec["k1_wgrad"]),
+                em.elastic_matmul_wgrad, k1_wgrad_plain, k1_wgrad_library,
+                "torch.matmul", k1_wgrad_work, group=bwd_group,
+                mode=nograd),
+            "k2_fwd": time_rows(
+                "K2 forward (non-causal, 3 of 6 heads, with the "
+                "logsumexp), vision mesh step", expand(rec["k2_fwd"]),
+                k2_fwd_lse, k2_fwd_lse_plain, k2_fwd_lse_library, "sdpa",
+                k2_work, mode=nograd),
+            "k2_bwd": time_rows(
+                "K2 backward (non-causal, 3 of 6 heads), vision mesh step",
+                expand(rec["k2_bwd"]), k2_bwd_kernel, k2_bwd_plain,
+                SdpaBackward(), "sdpa backward", k2_bwd_work, mode=nograd)}
+        for k, r in rows.items():
+            r["launches"] = sum(n for *_, n in rec[k].values())
+        out["rows"] = rows
+        out["rows_s"] = time.perf_counter() - t0
+    del rec
+    dist.barrier()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ctx.close_ranks()
+    return out
+
+
+def vm_c_tol(arch_id: str, one: dict, b: list, c: list) -> dict:
+    """Phase 31 (c)'s tolerances for ``arch_id``: ``MT_C_FACTOR`` x the
+    step's noise in this run ((b) on every rank, (b') and (b'') in one
+    process), at least ``VM_C_FLOORS``; and each microbatch's loss on the
+    mesh (the row losses of the ``"model"``-rank-0 rank of each data
+    block) beside one process's."""
+    o = one[arch_id]
+    noise = b + [o["b_one"], o["b_rev"]]
+    worst = {k: max(x.get(k) or 0.0 for x in noise)
+             for k in ("loss_rel", "gnorm_rel", "grad_err", "stats_err",
+                       "nll_err")}
+    tol = {k: max(MT_C_FACTOR * worst[w], VM_C_FLOORS[f])
+           for k, w, f in (("loss", "loss_rel", "loss"),
+                           ("gnorm", "gnorm_rel", "gnorm"),
+                           ("grad", "grad_err", "grad"),
+                           ("stats", "stats_err", "stats"),
+                           ("nll", "nll_err", "loss"))}
+    heads = range(0, len(c), VM_MESH[1])
+    mb_loss = [sum(sum(c[r]["nll"][i]) for r in heads)
+               / sum(len(c[r]["nll"][i]) for r in heads)
+               for i in range(len(c[0]["nll"]))]
+    return {"tol": tol, "mb_loss": mb_loss, "mb_loss_one": o["mb_loss"]}
+
+
+def vision_mesh_phases(dev, card: str) -> dict:
+    """Phase 31: the vision family trained across a 2 x 2 mesh, four ranks
+    sharing the card over gloo: the one-process steps in this process
+    first, then four ranks (:func:`vm_rank`) for (a) the launcher's rank
+    entry, 2 steps of each net, a failure at step 1 and a restart (no
+    checkpoint; ``VM_RESTART``'s nets), (b) the kernel route against the
+    plain route, (c) the mesh step against the one-process step in (c)'s
+    dtype, within twice the step's noise, (e) rank 0's kernel rows.  Returns what the
+    kernels' record needs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import ctx
+    t_all = time.perf_counter()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    mesh = "x".join(map(str, VM_MESH))
+    argvs = [(a, ["--arch", a, "--mesh", mesh, "--steps", str(VM_STEPS)]
+              + (["--fail-at", "1"] if a in VM_RESTART else [])
+              + ["--save-every", "0", "--log-every", "1", "--device",
+                 "cuda"]) for a in VM_RUNS]
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        one_file = os.path.join(tmp, "one.pt")
+        t0 = phase("31. one process: ResNet-152 (fp32) and the "
+                   "dynamic-ofa-supernet (bf16) at cls_224, full width and "
+                   "depth, 8 x 224 as 2 microbatches (steps.SHARED_CARD_CUT): "
+                   "the kernel route kept for (c), the plain route (b') and "
+                   "each microbatch's rows reversed (b'')")
+        one = vm_one(dev, one_file)
+        for a, r in one.items():
+            log(f"  {a} ({r['dtype']}): loss {r['loss']:.6f} (microbatches "
+                + ", ".join(f"{x:.6f}" for x in r["mb_loss"])
+                + f"), gradient norm {r['gnorm']:.5f}; (b') plain route: "
+                f"loss {r['b_one']['loss_rel']:.3g}, gradient norm "
+                f"{r['b_one']['gnorm_rel']:.3g} relative, gradients within "
+                f"{r['b_one']['grad_err']:.3g} ({r['b_one']['worst_leaf']}); "
+                f"(b'') rows reversed: loss {r['b_rev']['loss_rel']:.3g}, "
+                f"gradient norm {r['b_rev']['gnorm_rel']:.3g}, gradients "
+                f"within {r['b_rev']['grad_err']:.3g} "
+                f"({r['b_rev']['worst_leaf']}), a row's loss "
+                f"{r['b_rev']['nll_err']:.3g}"
+                + (f", BN statistics {r['b_rev']['stats_err']:.3g}"
+                   if r["b_rev"]["stats_err"] is not None else ""))
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+        for a, argv in argvs:
+            argv += ["--ckpt-dir", os.path.join(tmp, f"ckpt-{a}")]
+        t0 = phase(
+            f"31. (a), (b), (c), (e) the vision family trained across a "
+            f"{mesh} (data, model) mesh, four ranks sharing the card over "
+            f"gloo (not a multi-card speed): the reference's vision_rules "
+            f"(attention and MLP TP, convs on their output channels and "
+            f"the classifier on its rows over model, no FSDP), BN over "
+            f"the whole microbatch, cls_224 at full width and depth, 8 "
+            f"images as 2 microbatches (2 of each a data block); (a) "
+            + "; ".join(f"python -m repro_torch.launch.train "
+                        f"{' '.join(v[:-4])}" for _, v in argvs)
+            + f": {VM_STEPS} steps, a failure at step 1 and a restart from "
+            f"step 0 (no checkpoint; EfficientNet-B7 without); then on the "
+            f"same ranks (b) the kernel "
+            f"route vs the plain route, (c) the mesh step vs the "
+            f"one-process step, (e) rank 0's kernel rows")
+        res = ctx.spawn_ranks(vm_rank, 4, (tmp, one_file, argvs),
+                              timeout_s=900)
+    out = {"ranks_s": time.perf_counter() - t0, "one": one, "a": {},
+           "b": {}, "c": {}, "tol": {}, "launches": {}, "variants": {}}
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    for arch_id in VM_RUNS:
+        ranks = [r["a"][arch_id] for r in res]
+        restarts = int(arch_id in VM_RESTART)
+        for r in ranks:
+            ls = r["losses"]
+            if r["restarts"] != restarts or len(ls) != VM_STEPS + restarts:
+                raise AssertionError(f"(a) {arch_id} rank {r['rank']}: "
+                                     f"{r['restarts']} restarts, losses {ls}")
+            if not all(math.isfinite(x) for x in ls):
+                raise AssertionError(f"(a) {arch_id} rank {r['rank']}: "
+                                     f"losses {ls}")
+            if restarts and ls[0] != ls[1]:
+                raise AssertionError(f"(a) {arch_id} rank {r['rank']}: step "
+                                     f"0 after the restart {ls[1]!r}, first "
+                                     f"{ls[0]!r}")
+            if ls != ranks[0]["losses"]:
+                raise AssertionError(f"(a) {arch_id}: the ranks' global "
+                                     f"losses differ")
+            idle = [k for k in VM_KERNELS[arch_id] if r["launches"][k] <= 0]
+            other = {k: n for k, n in r["launches"].items()
+                     if n and k not in VM_KERNELS[arch_id]}
+            if idle or other:
+                raise AssertionError(f"(a) {arch_id} rank {r['rank']}: "
+                                     f"kernels not launched {idle}, others "
+                                     f"launched {other}")
+            if arch_id in VM_VARIANTS:
+                main_path_variants(r["variants"], VM_VARIANTS[arch_id])
+        steady = ranks[0]["step_ms"][1:]
+        out["a"][arch_id] = {
+            "losses": ranks[0]["losses"], "step_ms": ranks[0]["step_ms"],
+            "step_median_ms": statistics.median(steady),
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "seconds": ranks[0]["seconds"]}
+        out["launches"][arch_id] = {k: sum(r["launches"][k] for r in ranks)
+                                    for k in ranks[0]["launches"]}
+        out["variants"][arch_id] = {
+            k: {v: sum(r["variants"][k][v] for r in ranks)
+                for v in ranks[0]["variants"][k]}
+            for k in ranks[0]["variants"]}
+        a = out["a"][arch_id]
+        log(f"  (a) {arch_id}: losses "
+            f"{', '.join(f'{x:.6f}' for x in a['losses'])} (the same on "
+            f"every rank"
+            + ("; step 0 again after the restart: the same bits"
+               if arch_id in VM_RESTART else "; no failure") + "); "
+            f"rank 0's steps {', '.join(f'{x:.0f}' for x in a['step_ms'])} "
+            f"ms, median after the first {a['step_median_ms']:.1f} ms "
+            f"(ranks sharing the card over gloo); peaks "
+            f"{', '.join(f'{x:.2f}' for x in a['peak_gib'])} GiB of the "
+            f"card's {total:.2f}; {a['seconds']:.1f} s with the init "
+            f"[{card}]")
+        log(f"  (a) {arch_id} launches (4 ranks) "
+            + str({k: n for k, n in out['launches'][arch_id].items() if n})
+            + "; by variant "
+            + str({k: {v: n for v, n in per.items() if n}
+                   for k, per in out["variants"][arch_id].items()
+                   if any(per.values())}))
+    for arch_id in VM_CHECK:
+        b = [r["b"][arch_id] for r in res]
+        c = [r["c"][arch_id] for r in res]
+        log(f"  (b) {arch_id}: kernel route vs plain route (bf16, one "
+            f"step) on the mesh: loss {b[0]['loss']:.6f} / "
+            f"{b[0]['loss_plain']:.6f} ("
+            + ", ".join(f"{x['loss_rel']:.3g}" for x in b)
+            + f" relative, tol {MT_LOSS_TOL}), gradient norm "
+            f"{b[0]['gnorm']:.5f} / {b[0]['gnorm_plain']:.5f} ("
+            + ", ".join(f"{x['gnorm_rel']:.3g}" for x in b)
+            + f", tol {MT_GNORM_TOL}); gradient blocks within "
+            + ", ".join(f"{x['grad_err']:.3g} ({x['worst_leaf']})" for x in b)
+            + f" of a leaf's largest (tol {MT_GRAD_TOL}); rank 0's "
+            f"kernel-route step {b[0]['step_ms']:.0f} ms")
+        for x in b:
+            if not x["loss_rel"] <= MT_LOSS_TOL \
+                    or not x["gnorm_rel"] <= MT_GNORM_TOL \
+                    or x["grad_err"] > MT_GRAD_TOL:
+                shown = {k: v for k, v in x.items()
+                         if k not in ("launches", "variants")}
+                raise AssertionError(f"(b) {arch_id}: {shown}")
+            idle = [k for k in VM_KERNELS[arch_id] if x["launches"][k] <= 0]
+            if idle:
+                raise AssertionError(f"(b) {arch_id}: kernels not launched "
+                                     f"{idle}")
+            main_path_variants(x["variants"], VM_VARIANTS[arch_id])
+        cc = vm_c_tol(arch_id, one, b, c)
+        out["tol"][arch_id] = cc["tol"]
+        log(f"  (c) {arch_id}: the mesh step vs the one-process step "
+            f"({one[arch_id]['dtype']}): loss "
+            + ", ".join(f"{x['loss_rel']:.3g}" for x in c) + ", gradient "
+            "norm " + ", ".join(f"{x['gnorm_rel']:.3g}" for x in c)
+            + " relative; gradient blocks within "
+            + ", ".join(f"{x['grad_err']:.3g} ({x['worst_leaf']})" for x in c)
+            + " of a leaf's largest; a row's loss within "
+            + ", ".join(f"{x['nll_err']:.3g}" for x in c)
+            + (" relative; BN statistics (the whole microbatch's) by "
+               "microbatch " + ", ".join(
+                   "/".join(f"{e:.3g}" for e in x["stats_err_by_mb"])
+                   for x in c)
+               if c[0]["stats_err"] is not None else " relative")
+            + "; microbatch losses " + ", ".join(
+                f"{m:.6f} / {w:.6f}" for m, w in zip(cc["mb_loss"],
+                                                     cc["mb_loss_one"]))
+            + f" (mesh / one process); tolerances {MT_C_FACTOR:g} x the "
+            f"largest of (b), (b'), (b''), at least phase 29's: "
+            f"{ {k: float(f'{v:.3g}') for k, v in cc['tol'].items()} }")
+        tol = cc["tol"]
+        for rank, x in enumerate(c):
+            if x["loss_rel"] > tol["loss"] or x["gnorm_rel"] > tol["gnorm"] \
+                    or x["grad_err"] > tol["grad"] \
+                    or (x["stats_err"] or 0.0) > tol["stats"] \
+                    or x["nll_err"] > tol["nll"]:
+                shown = {k: v for k, v in x.items() if k != "nll"}
+                raise AssertionError(f"(c) {arch_id} rank {rank}: {shown} "
+                                     f"(tolerances {tol})")
+        for k in VM_KERNELS[arch_id]:
+            out["launches"][arch_id][k] += sum(x["launches"][k] for x in b)
+            for v in out["variants"][arch_id][k]:
+                out["variants"][arch_id][k][v] += sum(
+                    x["variants"][k][v] for x in b)
+        out["b"][arch_id] = [{k: v for k, v in x.items()
+                              if k not in ("launches", "variants")}
+                             for x in b]
+        out["c"][arch_id] = [{k: v for k, v in x.items() if k != "nll"}
+                             for x in c]
+    for r in res:
+        log(f"  rank {r['rank']}: (a) "
+            + ", ".join(f"{a} {r['a'][a]['seconds']:.1f} s" for a in VM_RUNS)
+            + ", (b) " + ", ".join(f"{a} {r['b'][a]['seconds']:.1f} s"
+                                   for a in VM_CHECK)
+            + ", (c) " + ", ".join(f"{a} {r['c'][a]['seconds']:.1f} s"
+                                   for a in VM_CHECK)
+            + (f", (e) {r['rows_s']:.1f} s" if "rows" in r else "")
+            + f"; peak {r['peak_gib']:.2f} GiB")
+    out["rows"] = res[0]["rows"]
+    out["peak_gib"] = [r["peak_gib"] for r in res]
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"  phase 31 {out['seconds']:.1f} s [{card}]")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -8335,6 +8981,7 @@ def main() -> int:
     mt = mesh_train_phases(dev, card)
     mt_n, mt_v = mt["launches"], mt["variants"]
     tc = train_configs_phases(dev, card)
+    vm = vision_mesh_phases(dev, card)
     lc_cfg = lc["configs"]
 
     def lc_rows(k: str) -> dict:
@@ -8680,6 +9327,20 @@ def main() -> int:
         if name == "elastic_matmul_wgrad":
             entry["lm_configs_err_of_largest"] = max(
                 r["k1_checks"][name]["of_largest"] for r in tc["b"].values())
+    # phase 31: the vision mesh steps' launches by net and variant, and
+    # rank 0's rows at their calls
+    vm_rows = {"elastic_matmul": "k1_fwd", "elastic_matmul_dgrad": "k1_dgrad",
+               "elastic_matmul_wgrad": "k1_wgrad", "flash_attention": "k2_fwd",
+               "flash_attention_bwd": "k2_bwd"}
+    for entry in record["kernels"]:
+        name = entry["name"]
+        n = sum(per.get(name, 0) for per in vm["launches"].values())
+        entry["launches"] += n
+        entry["launches_by_path"]["vision_mesh_train"] = n
+        entry["launches_by_variant"]["vision_mesh_train"] = {
+            a: per[name] for a, per in vm["variants"].items() if name in per}
+        if name in vm_rows:
+            entry["vision_mesh_train"] = vm["rows"][vm_rows[name]]
     log("trace: " + json.dumps({k: tp[k] for k in (
         "classes", "trace_variants", "decomposition", "replay",
         "lut_spread_ms", "served_err", "seconds")}))
@@ -8762,6 +9423,12 @@ def main() -> int:
             "launches")} for n, rows in tc_rows.items()
             for k, r in rows.items()},
         "seconds": tc["seconds"]}))
+    log("vision_mesh: " + json.dumps({
+        k: vm[k] for k in ("a", "b", "c", "tol", "one", "peak_gib",
+                           "ranks_s", "seconds")}
+        | {"rows": {k: {kk: r.get(kk) for kk in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "launches")} for k, r in vm["rows"].items()}}))
     end = time.perf_counter()
     log(f"\ncard: {card}; total {end - t_all:.1f} s")
     log("phases_s: " + json.dumps(phases_s(end)))

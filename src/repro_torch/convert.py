@@ -4,7 +4,8 @@ port's parameters.
 The tests hold the port against the reference on the same weights, so they
 initialise with the reference's ``vit_init``, ``lm_init``, ``resnet_init``,
 ``effnet_init``, ``dit_init`` or ``unet_init``, map its leaves to numpy and
-convert here.  Layouts are
+convert here (under a mesh, to one rank's blocks: :func:`lm_params_shard`,
+:func:`vision_params_shard`).  Layouts are
 kept (dense kernels ``(d_in, d_out)``, conv kernels HWIO, switchable BN
 arrays ``(n_settings, C)``, expert weights ``(E, d, f)``); each layer
 stack that ``jax.vmap`` builds along a leading axis becomes the port's list
@@ -82,6 +83,21 @@ def lm_params_shard(jax_params: dict, mesh, coords=None,
                                                   shard_tree)
     return shard_tree(lm_params(jax_params, device), mesh, coords,
                       spec_fn or layer_serving_spec, own=True)
+
+
+def vision_params_shard(jax_params: dict, mesh, spec_fn, coords=None,
+                        device: Optional[torch.device] = None) -> dict:
+    """Reference ``vit_init``, ``resnet_init`` or ``effnet_init`` params
+    (numpy leaves) -> one rank's port params under ``mesh``: converted
+    (the ViT's ``layers`` stack unstacked, :func:`vit_params`), each leaf
+    then cut to the block the rank at mesh coordinate ``coords`` (default
+    this rank) holds by ``spec_fn(path, shape)`` on the port's paths (the
+    training placement, ``distributed.sharding.vision_train_spec_fn``),
+    as a contiguous copy of its own."""
+    from repro_torch.distributed.sharding import shard_tree
+    params = vit_params(jax_params, device) if "layers" in jax_params \
+        else to_torch(jax_params, device)
+    return shard_tree(params, mesh, coords, spec_fn, own=True)
 
 
 def lm_caches(jax_caches: dict, device: Optional[torch.device] = None

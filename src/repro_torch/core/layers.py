@@ -24,7 +24,12 @@ parallel where their kernels are split over ``"model"`` (``tp=mesh``):
 q/k/v and wi/wg on the rank's column block (its heads, its hidden
 units), o and wo on the matching row block, whose partial products one
 all-reduce sums (``ctx.all_reduce_grad``; a replicated bias is added
-after it).
+after it).  The vision family's placement (``sharding.
+vision_train_spec_fn``) adds convs split on their output channels
+(``conv_apply(..., tp=mesh)``: the rank's channels, then gathered over
+``"model"``), a row-split classifier (:func:`_row_parallel` on the
+rank's block of its input, :func:`model_cols`) and batch norm whose
+statistics are summed over the batch axes (``sbn_apply(..., mesh=)``).
 """
 from __future__ import annotations
 
@@ -111,6 +116,21 @@ def _row_parallel(p: dict, x: torch.Tensor, mesh, **kw) -> torch.Tensor:
     if p.get("bias") is not None:
         y = y + _cast(p["bias"], y.dtype)
     return y
+
+
+def model_cols(x: torch.Tensor, k: int, mesh) -> torch.Tensor:
+    """This rank's block of ``k`` columns of ``x``, whose last dim is
+    split in blocks over ``"model"``."""
+    m = ctx.axes_index(mesh, ("model",))
+    return x[..., m * k:(m + 1) * k]
+
+
+def model_tp(specs, mesh):
+    """``mesh`` when a leaf's ``kernel`` spec in ``specs`` (a layer's
+    specs, or None) splits it over ``"model"``, else None."""
+    if specs is None or not model_split(specs["kernel"], mesh):
+        return None
+    return mesh
 
 
 def tp_mesh(specs: dict, first: str, last: str, mesh):
@@ -433,8 +453,9 @@ def attention_apply(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                                    and (n_heads // n_kv) % n):
             raise NotImplementedError(
                 f"tensor-parallel attention: full width without a cache, "
-                f"the query groups per kv head dividing the model axis "
-                f"({n_heads} / {n_kv} heads over {n})")
+                f"whole heads a rank, the query groups per kv head "
+                f"dividing the model axis ({n_heads} / {n_kv} heads over "
+                f"{n}; ROADMAP §3)")
         if n_kv == n_heads:
             n_kv = n_heads // n
         else:         # k's columns split over "model" (not where too few)
@@ -614,7 +635,7 @@ class Conv2dFp32(torch.autograd.Function):
 def conv_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
                groups: int = 1, a_in=None, a_out=None,
                a_kernel: Optional[int] = None,
-               padding: str = "SAME") -> torch.Tensor:
+               padding: str = "SAME", tp=None) -> torch.Tensor:
     """NHWC conv with elastic channels and (static) elastic kernel size.
 
     The reference's function: the kernel centre-cropped to ``a_kernel``
@@ -624,7 +645,17 @@ def conv_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
     takes ``a_out`` as its group count, so a depthwise kernel wider than
     x (the reference's F5) convolves 2 output channels per group.
     Widths are static (sliced mode); the conv nets train at static widths.
+
+    ``tp`` (a mesh): the kernel is this rank's block of the output
+    channels (the training placement), at full width: the rank computes
+    its channels from the whole x (a depthwise conv from x's matching
+    channel block), and the output is gathered over ``"model"``
+    (``ctx.all_gather_grad``, whose backward reduce-scatters); a bias
+    the whole width long is added after the gather.
     """
+    if tp is not None:
+        return _conv_tp(p, x, tp, stride=stride, groups=groups, a_in=a_in,
+                        a_out=a_out, a_kernel=a_kernel, padding=padding)
     w, b = p["kernel"], p.get("bias")
     a_in, a_out = _static(a_in, "conv_apply"), _static(a_out, "conv_apply")
     kh = w.shape[0]
@@ -663,6 +694,34 @@ def conv_apply(p: dict, x: torch.Tensor, *, stride: int = 1,
         y = y.permute(0, 2, 3, 1)
     if b is not None:
         y = y + _cast(b, x.dtype)
+    return y
+
+
+def _conv_tp(p: dict, x: torch.Tensor, mesh, *, stride, groups, a_in,
+             a_out, a_kernel, padding) -> torch.Tensor:
+    """:func:`conv_apply` of a kernel split on its output channels over
+    ``"model"`` (its module note)."""
+    w, b = p["kernel"], p.get("bias")
+    n = ctx.axes_size(mesh, ("model",))
+    c_blk = w.shape[3]
+    depthwise = groups > 1
+    whole_in = x.shape[-1] if depthwise else w.shape[2]
+    if a_kernel is not None and a_kernel < w.shape[0] \
+            or _static(a_out, "conv_apply") not in (None, c_blk * n) \
+            or _static(a_in, "conv_apply") not in (None, whole_in) \
+            or depthwise and groups != c_blk * n:
+        raise NotImplementedError(
+            f"a conv split over 'model' runs at full width (kernel block "
+            f"{tuple(w.shape)} of {n}, groups {groups}, a_in {a_in}, a_out "
+            f"{a_out}, a_kernel {a_kernel})")
+    if depthwise:
+        x, groups = model_cols(x, c_blk, mesh), c_blk
+    whole_bias = b is not None and b.shape[0] != c_blk
+    y = conv_apply({"kernel": w} if whole_bias else p, x, stride=stride,
+                   groups=groups, padding=padding)
+    y = ctx.all_gather_grad(y, mesh, ("model",), y.ndim - 1)
+    if whole_bias:
+        y = y + _cast(b, y.dtype)
     return y
 
 
@@ -733,16 +792,37 @@ def sbn_init(c: int, n_settings: int = 1, dtype=torch.float32,
 
 
 def sbn_apply(p: dict, x: torch.Tensor, *, setting: int = 0,
-              train: bool = False, a=None, eps: float = 1e-5):
+              train: bool = False, a=None, eps: float = 1e-5, mesh=None):
     """Returns (y, new_stats | None).  ``setting`` indexes the width
     option.  In train mode the statistics are the batch's (``var =
     mean(x^2) - mean^2``, in x's dtype as the reference computes them) and
-    are returned, never written into the running ones."""
+    are returned, never written into the running ones.
+
+    ``mesh`` (train mode): x holds this rank's rows of a batch split over
+    the mesh's batch axes, and the statistics are the whole batch's, as
+    GSPMD computes the reference's mean over its split batch: the sums of
+    x and x^2 (accumulated in fp32 at least) summed over the batch axes
+    by the differentiable all-reduce (``ctx``'s convention: its adjoint
+    is an all-reduce), over the whole batch's count."""
     a = _static(a, "sbn_apply")
     scale, bias = p["scale"][setting], p["bias"][setting]
     if a is not None:
         scale, bias = take_dim(scale, a, 0), take_dim(bias, a, 0)
-    if train:
+    b_axes = () if mesh is None else tuple(
+        ax for ax in mesh.mesh_dim_names
+        if ax != "model" and ctx.axes_size(mesh, (ax,)) > 1)
+    if train and b_axes:
+        axes = tuple(range(x.ndim - 1))
+        acc = torch.promote_types(x.dtype, torch.float32)
+        sums = torch.stack([torch.sum(x, axes, dtype=acc),
+                            torch.sum(torch.square(x), axes, dtype=acc)])
+        for ax in b_axes:
+            sums = ctx.all_reduce_grad(sums, ctx.axes_group(mesh, (ax,)))
+        count = math.prod(x.shape[:-1]) * ctx.axes_size(mesh, b_axes)
+        mean, msq = (sums / count).to(x.dtype).unbind(0)
+        var = msq - torch.square(mean)
+        new_stats = (mean, var)
+    elif train:
         axes = tuple(range(x.ndim - 1))
         mean = torch.mean(x, axes)
         var = torch.mean(torch.square(x), axes) - torch.square(mean)

@@ -72,10 +72,13 @@ def synthetic_lm_batches(*, global_batch: int, seq_len: int, vocab: int,
 
 def synthetic_image_batches(*, global_batch: int, img_res: int,
                             n_classes: int, seed: int = 0,
-                            start_step: int = 0) -> Iterator[dict]:
+                            start_step: int = 0,
+                            rows=None) -> Iterator[dict]:
     """Class-conditional blob images -- a small model can actually fit
-    them, so supernet-training examples show real accuracy orderings."""
-    sl = host_shard(global_batch)
+    them, so supernet-training examples show real accuracy orderings.
+    ``rows`` (e.g. :func:`microbatch_rows`) picks a rank's images of each
+    global batch, the same bytes; by default this process's slice."""
+    sl = host_shard(global_batch) if rows is None else rows
     step = start_step
     while True:
         rng = np.random.default_rng((seed, step))

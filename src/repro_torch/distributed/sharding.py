@@ -12,12 +12,14 @@ name axes (``"pod"``) that a mesh lacks; :func:`clean_spec` drops them.
 Two placements are applied.  Serving (:func:`serving_spec`) splits only
 the routed experts' leading ``"model"`` axis, which the all-to-all
 dispatch needs, and replicates every other leaf.  Training
-(:func:`train_spec_fn`) applies the rules whole, TP over ``"model"`` and
-FSDP over the batch axes, as the reference's ``param_specs`` computes
-them (its 16/32 divisibility and 4M-element floor; or, for tests at a
-small size, the rules unfiltered), to the port's per-layer leaves; the
-optimizer state follows by :func:`opt_specs_like`.  A training rank owns
-contiguous copies of its blocks (:func:`shard_tree` with ``own=True``).
+(:func:`train_spec_fn` for the LMs, :func:`vision_train_spec_fn` for the
+vision family) applies the rules whole, TP over ``"model"`` and (the
+LMs) FSDP over the batch axes, as the reference's ``param_specs``
+computes them (its 16/32 divisibility and 4M-element floor; or, for
+tests at a small size, the rules unfiltered), to the port's per-layer
+leaves; the optimizer state follows by :func:`opt_specs_like`.  A
+training rank owns contiguous copies of its blocks (:func:`shard_tree`
+with ``own=True``).
 """
 from __future__ import annotations
 
@@ -320,6 +322,29 @@ def spec_tree(tree, spec_fn):
 # the training placement
 # ---------------------------------------------------------------------------
 
+def _stack_spec_fn(family: str, stacks: dict, fsdp, filtered: bool):
+    """``spec_fn(path, shape)`` of a port tree whose layer stacks are
+    per-layer lists (``stacks``: {stack name: its layer count}): the spec
+    ``param_specs(..., family, fsdp_axes=fsdp)`` gives the reference's
+    leaf (a stacked one of shape ``(L, *shape)``), without the stack's
+    leading L entry; ``filtered=False``: the rules alone."""
+    def fn(path_s: str, shape) -> Spec:
+        parts = path_s.split("/")
+        stacked = len(parts) > 1 and parts[0] in stacks \
+            and parts[1].isdigit()
+        ref = "/".join(parts[:1] + parts[2:]) if stacked else path_s
+        full = (stacks[parts[0]], *shape) if stacked else tuple(shape)
+        if filtered:
+            spec = leaf_spec(ref, full, family, fsdp_axes=fsdp)
+        else:
+            rules = lm_rules if family == "lm" else vision_rules
+            spec = rules(ref, full, tuple(fsdp) if fsdp else None)
+            if len(spec) != len(full):
+                spec = _none(len(full))
+        return tuple(spec[1:]) if stacked else tuple(spec)
+    return fn
+
+
 def train_spec_fn(cfg, *, filtered: bool = True):
     """``spec_fn(path, shape)`` of the training placement for an LM config
     ``cfg``'s port tree (per-layer paths such as
@@ -331,23 +356,25 @@ def train_spec_fn(cfg, *, filtered: bool = True):
     the mesh does not divide then raises in :func:`shard_leaf`).  FSDP is
     over ("pod", "data"), the production meshes' batch axes: a mesh
     without "pod" drops it (:func:`clean_spec`)."""
-    stacks = {"dense_layers": cfg.n_dense_layers,
-              "moe_layers": cfg.n_moe_layers}
-    fsdp = ("pod", "data")
+    return _stack_spec_fn("lm", {"dense_layers": cfg.n_dense_layers,
+                                 "moe_layers": cfg.n_moe_layers},
+                          ("pod", "data"), filtered)
 
-    def fn(path_s: str, shape) -> Spec:
-        ref = layer_path(path_s)
-        stacked = ref != path_s
-        full = (stacks[path_s.split("/")[0]], *shape) if stacked \
-            else tuple(shape)
-        if filtered:
-            spec = leaf_spec(ref, full, "lm", fsdp_axes=fsdp)
-        else:
-            spec = lm_rules(ref, full, fsdp)
-            if len(spec) != len(full):
-                spec = _none(len(full))
-        return tuple(spec[1:]) if stacked else tuple(spec)
-    return fn
+
+def vision_train_spec_fn(arch_id: str, cfg, *, filtered: bool = True):
+    """``spec_fn(path, shape)`` of the vision family's training placement:
+    what the reference's ``_vis_cell`` gives each leaf,
+    ``param_specs(..., "vision", fsdp_axes=())`` (no FSDP; ``"model"``
+    splits that only a dim's 16 shards can make kept), for the port's
+    paths.  The ViTs' per-layer leaves (``layers/3/attn/q/kernel``) take
+    the spec of the reference's stacked leaf without its leading L entry;
+    the conv nets' stages are lists in both trees.  ``filtered=False``
+    applies ``vision_rules`` without the divisibility filter, so that at
+    a small size every split the rules name is made."""
+    from repro_torch.configs.registry import vision_family
+    stacks = {"layers": cfg.n_layers} if vision_family(arch_id) == "vit" \
+        else {}
+    return _stack_spec_fn("vision", stacks, (), filtered)
 
 
 def split_axes(spec: Spec, mesh) -> Tuple[str, ...]:

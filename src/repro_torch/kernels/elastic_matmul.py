@@ -191,13 +191,17 @@ def _row_stride(t: torch.Tensor) -> int:
 
 
 def check_args(x: torch.Tensor, w: torch.Tensor, k_act: int, n_act: int,
-               n_out: int) -> None:
+               n_out: int, plain: bool = False) -> None:
+    """The kernel takes fp32 and bf16; its ``plain`` version float64 too
+    (the CPU parity tests of the conv nets, held in float64)."""
     if x.ndim != 2 or w.ndim != 2:
         raise ValueError(f"x and w must be 2-D, got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
-    if x.dtype != w.dtype or x.dtype not in DTYPE_CODES:
-        raise TypeError(f"x and w must share a dtype in float32/bfloat16, "
-                        f"got {x.dtype} and {w.dtype}")
+    if x.dtype != w.dtype or not (x.dtype in DTYPE_CODES or plain
+                                  and x.dtype == torch.float64):
+        raise TypeError(f"x and w must share a dtype in float32/bfloat16"
+                        f"{'/float64' if plain else ''}, got {x.dtype} and "
+                        f"{w.dtype}")
     if not (0 <= k_act <= min(x.shape[1], w.shape[0])):
         raise ValueError(f"k_act={k_act} outside x {tuple(x.shape)} / "
                          f"w {tuple(w.shape)}")
@@ -276,7 +280,7 @@ def elastic_matmul(x: torch.Tensor, w: torch.Tensor, widths: torch.Tensor,
 def elastic_matmul_plain(x: torch.Tensor, w: torch.Tensor, k_act: int,
                          n_act: int, n_out: int) -> torch.Tensor:
     """The same function in plain PyTorch (slice, matmul, zero-pad)."""
-    check_args(x, w, k_act, n_act, n_out)
+    check_args(x, w, k_act, n_act, n_out, plain=True)
     y = x[:, :k_act] @ w[:k_act, :n_act]
     if n_out > n_act:
         y = torch.nn.functional.pad(y, (0, n_out - n_act))

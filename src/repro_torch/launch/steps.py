@@ -12,6 +12,9 @@ each microbatch), and its prefill and decode run under one (the experts
 split over ``"model"``, the decode cache over the sequence as the
 reference's ``_lm_cell`` rule has it: over every axis below a batch of
 16), eagerly (gloo's collectives cannot be captured in a CUDA graph).
+The vision family trains under a mesh too (:func:`make_vis_train_step`
+with ``mesh=``: the reference's ``vision_rules`` placement, the rank's
+rows of each microbatch, batch norm over the whole microbatch).
 The functions run eagerly; :class:`LMGraphs` runs the one-card prefill
 and decode step as CUDA graphs on the card, the counterpart of the
 reference's jit-compiled closures.
@@ -98,6 +101,14 @@ SHARED_CARD_CUT = {
                                   "accum": 1},
     ("kimi-k2-1t-a32b", "train_4k"): {"n_layers": 1, "global_batch": 2,
                                       "accum": 1},
+    # the vision family whole (no depth cut: 22-304 M parameters, at most
+    # 4.9 GB of fp32 state over the ranks), cls_224's global batch cut
+    # from 256 to 8 images as 2 microbatches (a 2 x 2 mesh's data block
+    # holds 2 of each): every split conv's output crosses gloo, through
+    # host memory, twice a microbatch
+    **{(a, "cls_224"): {"global_batch": 8, "accum": 2}
+       for a in ("dynamic-ofa-supernet", "deit-b", "vit-l16", "resnet-152",
+                 "efficientnet-b7")},
 }
 
 
@@ -182,29 +193,47 @@ def clipped_step(loss_fn: Callable, update_fn: Callable,
     return step
 
 
-def vis_forward(arch_id: str, cfg) -> Callable:
+def vis_forward(arch_id: str, cfg, *, mesh=None, specs=None) -> Callable:
     """``forward(params, images) -> logits`` of the reference's
     ``vis_train`` step: the ViTs as they serve, the conv nets with
-    batch-statistics BN (``train=True``)."""
+    batch-statistics BN (``train=True``); with ``mesh`` and ``specs``
+    one rank's forward under the training placement."""
     fam = vision_family(arch_id)
+    kw = dict(mesh=mesh, specs=specs)
     if fam == "vit":
-        return lambda p, x: vit_apply(p, x, cfg)[0]
+        return lambda p, x: vit_apply(p, x, cfg, **kw)[0]
     if fam == "resnet":
-        return lambda p, x: resnet_apply(p, x, cfg, train=True)[0]
+        return lambda p, x: resnet_apply(p, x, cfg, train=True, **kw)[0]
     if fam == "effnet":
-        return lambda p, x: effnet_apply(p, x, cfg, train=True)[0]
+        return lambda p, x: effnet_apply(p, x, cfg, train=True, **kw)[0]
     raise NotImplementedError(f"{arch_id}: no ported vis_train forward")
 
 
 def make_vis_train_step(arch_id: str, cfg, update_fn: Callable,
-                        accum: int = 1) -> Callable:
+                        accum: int = 1, *, mesh=None,
+                        specs=None) -> Callable:
     """The reference's ``vis_train`` step: cross entropy of the full net
-    on the labels through :func:`clipped_step`."""
-    forward = vis_forward(arch_id, cfg)
+    on the labels through :func:`clipped_step`.
 
-    def loss_fn(params, mb):
-        return ce_loss(forward(params, mb["images"]), mb["labels"])
-    return clipped_step(loss_fn, update_fn, accum)
+    ``mesh`` (with ``specs``, the vision placement's spec of every leaf,
+    from the whole leaves' shapes: ``distributed.sharding.
+    vision_train_spec_fn``): one rank's step, as :func:`mesh_step`
+    describes it, on its blocks and its rows of each microbatch; each
+    rank differentiates the cross entropy of its rows over the global
+    image count and the ``"model"`` ranks that replicate the logits."""
+    forward = vis_forward(arch_id, cfg, mesh=mesh, specs=specs)
+    if mesh is None:
+        def loss_fn(params, mb):
+            return ce_loss(forward(params, mb["images"]), mb["labels"])
+        return clipped_step(loss_fn, update_fn, accum)
+    if specs is None:
+        raise ValueError("a mesh step wants the training placement's specs")
+
+    def share_fn(params, mb):
+        nll = vocab_parallel_nll(forward(params, mb["images"]),
+                                 mb["labels"], mesh, False)
+        return nll.sum() / (nll.numel() * mesh.size())
+    return mesh_step(share_fn, update_fn, accum, mesh, specs)
 
 
 def diff_denoise(arch_id: str, cfg, E=None) -> Callable:
@@ -289,6 +318,36 @@ def reduce_replicated(grads, specs, mesh) -> None:
             g.copy_(part.view_as(g))
 
 
+def mesh_step(share_fn: Callable, update_fn: Callable, accum: int, mesh,
+              specs) -> Callable:
+    """One rank's train step under the training placement ``specs`` (a
+    tree beside the parameters): ``share_fn(params, mb)`` is the rank's
+    share of the reference's loss on its rows of a microbatch (the shares
+    of every rank sum to it), so that the gradients summed over the ranks
+    that hold a leaf are the reference's (``ctx``'s convention).  Blocks
+    split over batch axes are reduce-scattered in each microbatch's
+    backward; after the last microbatch the rest are summed over the
+    axes that replicate them (:func:`reduce_replicated`); then the clip
+    over blocks and the update on them.  The loss and gradient norm
+    returned are the global ones, on every rank."""
+    world = ctx.axes_group(mesh, mesh.mesh_dim_names)
+
+    def step(params, opt, batch, step):
+        pop_grads(params)
+        share, grads = accum_grads(share_fn, params, batch, accum)
+        # a leaf no loss reached: zeros (fp32 where the sums are), so that
+        # every rank sums the same buffers
+        gs = iter([g for _, g in named_leaves(grads)])
+        grads = tree_map(lambda p: _or_zeros(p, next(gs), accum), params)
+        reduce_replicated(grads, specs, mesh)
+        grads, gn = clip_by_global_norm(grads, 1.0, layout=(mesh, specs))
+        params, opt = update_fn(params, grads, opt, step,
+                                layout=(mesh, specs))
+        loss = ctx.all_reduce(share.reshape(1).clone(), "sum", world)[0]
+        return params, opt, {"loss": loss, "gnorm": gn}
+    return step
+
+
 def make_lm_train_step(cfg: LMConfig, update_fn: Callable, accum: int = 1,
                        *, E=None, cfg_overrides: Optional[dict] = None,
                        mesh=None, specs=None) -> Callable:
@@ -328,31 +387,14 @@ def make_lm_train_step(cfg: LMConfig, update_fn: Callable, accum: int = 1,
     if specs is None or E:
         raise ValueError("a mesh step wants the training placement's "
                          "specs, at full width")
-    n_model = ctx.axes_size(mesh, ("model",))
-    n_batch = mesh.size() // n_model
-    world = ctx.axes_group(mesh, mesh.mesh_dim_names)
 
-    def loss_fn(params, mb):
+    def share_fn(params, mb):
         logits, aux, _ = lm_apply(params, mb["tokens"], cfg, mesh=mesh,
                                   specs=specs)
         nll = vocab_parallel_nll(logits, mb["labels"], mesh, model_split(
             specs["lm_head"]["kernel"], mesh))
-        return nll.sum() / (nll.numel() * n_batch * n_model) \
-            + aux / mesh.size()
-
-    def step(params, opt, batch, step):
-        pop_grads(params)
-        share, grads = accum_grads(loss_fn, params, batch, accum)
-        # a leaf no loss reached: zeros (fp32 where the sums are), so that
-        # every rank sums the same buffers
-        gs = iter([g for _, g in named_leaves(grads)])
-        grads = tree_map(lambda p: _or_zeros(p, next(gs), accum), params)
-        reduce_replicated(grads, specs, mesh)
-        grads, gn = clip_by_global_norm(grads, 1.0, layout=(mesh, specs))
-        params, opt = update_fn(params, grads, opt, step,
-                                layout=(mesh, specs))
-        loss = ctx.all_reduce(share.reshape(1).clone(), "sum", world)[0]
-        return params, opt, {"loss": loss, "gnorm": gn}
+        return nll.sum() / (nll.numel() * mesh.size()) + aux / mesh.size()
+    step = mesh_step(share_fn, update_fn, accum, mesh, specs)
     step.cfg = cfg
     return step
 

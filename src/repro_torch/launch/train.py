@@ -25,12 +25,15 @@ launcher prints both cuts.  Parameters take the config's ``param_dtype``
 the config's (bf16 at full size).  The run is on the card unless
 ``--device cpu``; with no card and no ``--device cpu`` it raises.
 
-``--mesh DATAxMODEL`` trains an LM across a (data, model) mesh: the
-ranks spawned on this host (the kernels built once, here, first), each
-holding its blocks of the parameters and AdamW state under the
-reference's TP and FSDP placement (``distributed.sharding.
-train_spec_fn``), its rows of each microbatch, and its checkpoint blocks
-(``rank<k>/``).  ``--coordinator host:port --num-processes N
+``--mesh DATAxMODEL`` trains an LM or a vision net across a (data,
+model) mesh: the ranks spawned on this host (the kernels built once,
+here, first), each holding its blocks of the parameters and optimizer
+state under the reference's placement (the LMs: TP and FSDP,
+``distributed.sharding.train_spec_fn``; the vision family: its
+``vision_rules``, TP and conv channels over ``"model"`` with no FSDP,
+``vision_train_spec_fn``, batch norm over the whole microbatch), its rows
+of each microbatch, and its checkpoint blocks (``rank<k>/``).
+``--coordinator host:port --num-processes N
 --process-id k`` runs one rank of a job of N processes instead (TCP
 rendezvous); ``--mesh pod`` and ``multipod`` (the production 16 x 16
 and 2 x 16 x 16 meshes) need them, with N the mesh's size, and raise
@@ -39,9 +42,10 @@ unless ``LOCAL_WORLD_SIZE`` says how many ranks share its host.  Where
 the ranks on a host share a card (or the CPU), ``steps.SHARED_CARD_CUT``
 cuts the depth, the global batch and its microbatches; where each rank
 has a card, the whole model trains at the reference's microbatches
-(:func:`step_cuts`); the launcher prints the cuts.
-The vision and diffusion families train on one card only (ROADMAP item
-11 (d)).
+(:func:`step_cuts`); the launcher prints the cuts.  A batch that the
+batch shards do not divide raises (the reference would split the image
+height instead); the diffusion family (ROADMAP item 11 (d)) and
+``--sandwich`` train on one card only.
 
     python -m repro_torch.launch.train --arch dynamic-ofa-supernet \\
         --sandwich --smoke --device cpu --steps 12
@@ -55,6 +59,7 @@ The vision and diffusion families train on one card only (ROADMAP item
         --device cpu --steps 3 --mesh 2x2
     python -m repro_torch.launch.train --arch kimi-k2-1t-a32b --steps 2
     python -m repro_torch.launch.train --arch granite-20b --mesh 1x2
+    python -m repro_torch.launch.train --arch resnet-152 --mesh 2x2
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ import statistics
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -83,8 +89,9 @@ from repro_torch.distributed import ctx
 from repro_torch.distributed.fault import (SimulatedFailure, StragglerMonitor,
                                            Watchdog, run_with_restarts)
 from repro_torch.distributed.sharding import (is_spec, opt_specs_like,
-                                              shard_leaf, spec_tree,
-                                              train_spec_fn)
+                                              shard_leaf, shard_tree,
+                                              spec_tree, train_spec_fn,
+                                              vision_train_spec_fn)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import PRODUCTION, make_mesh, mesh_spec
 from repro_torch.launch.steps import (ACCUM_DEFAULTS, ONE_CARD_CUT,
@@ -215,8 +222,9 @@ def _shape(arch, name, cfg, smoke: bool) -> ShapeSpec:
 
 
 def describe_cuts(arch_id: str, shape: ShapeSpec, cfg, cut: dict,
-                  accum: int) -> str:
-    """The launcher's line on how the run is cut to one card."""
+                  accum: int, full_batch: Optional[int] = None) -> str:
+    """The launcher's line on how the run is cut to one card (or to ranks
+    sharing one: ``full_batch``, the shape's batch before the cut)."""
     B = shape.global_batch
     out = f"{arch_id} {shape.name}: batch {B} as {accum} microbatch" \
           f"{'es' if accum > 1 else ''} of {B // accum}"
@@ -225,6 +233,8 @@ def describe_cuts(arch_id: str, shape: ShapeSpec, cfg, cut: dict,
         if getattr(cfg, "moe", None) is not None:
             out += (f" ({cfg.n_dense_layers} dense + {cfg.n_moe_layers} "
                     f"MoE)")
+    if full_batch not in (None, B):
+        out += f"; the global batch cut from {full_batch}"
     return out
 
 
@@ -262,10 +272,16 @@ def main(argv=None):
     under ``--mesh`` one dict a rank (:func:`train_rank`)."""
     args = parse_args(argv)
     arch = get_arch(args.arch)
-    if (args.mesh != "host" or args.coordinator) and arch.family != "lm":
-        raise NotImplementedError(
-            f"{arch.arch_id}: training under a mesh is ported for the LMs; "
-            f"the vision and diffusion families are ROADMAP item 11 (d)")
+    if args.mesh != "host" or args.coordinator:
+        if arch.family == "diffusion":
+            raise NotImplementedError(
+                f"{arch.arch_id}: training under a mesh is ported for the "
+                f"LMs and the vision family; the diffusion family is the "
+                f"second half of ROADMAP item 11 (d)")
+        if args.sandwich:
+            raise NotImplementedError(
+                "--sandwich under a mesh: the reference jits its sandwich "
+                "step with no shardings (ROADMAP §3); train it on one card")
     req = mesh_request(args)
     if req is None:
         return run(args, arch)
@@ -324,11 +340,31 @@ def step_cuts(key, global_batch: int, args, shared) -> tuple:
             args.accum or ONE_CARD_ACCUM.get(key, ACCUM_DEFAULTS.get(key, 1)))
 
 
-def mesh_state(cfg, mesh, spec_fn, init_fn, device) -> tuple:
-    """(state, specs): this rank's blocks of the parameters (drawn leaf by
-    leaf from seed 0 as one process draws them, each whole leaf cut to a
-    contiguous copy of its block by ``spec_fn`` of its whole shape) and
-    their optimizer state, and the tree of the parameters' specs."""
+def check_batch_split(arch_id: str, B: int, accum: int,
+                      n_batch: int) -> None:
+    """Raise where a vision batch of ``B`` images as ``accum``
+    microbatches does not split over ``n_batch`` batch shards: the
+    reference's ``_image_spec`` would split the image height instead
+    (GSPMD halo-exchanges the convs), which the port does not."""
+    if B % (accum * n_batch):
+        raise ValueError(
+            f"{arch_id}: a batch of {B} as {accum} microbatches does not "
+            f"split over {n_batch} batch shards (the reference would split "
+            f"the image height instead: ROADMAP §3)")
+
+
+def mesh_state(cfg, mesh, spec_fn, init_fn, device, arch=None) -> tuple:
+    """(state, specs): this rank's blocks of the parameters (drawn from
+    seed 0 as one process draws them, each whole leaf cut to a contiguous
+    copy of its block by ``spec_fn`` of its whole shape: an LM's leaf by
+    leaf, a vision net's, ``arch``, whole first) and their optimizer
+    state, and the tree of the parameters' specs."""
+    if arch is not None and arch.family != "lm":
+        whole = init_params(arch, cfg, device)
+        specs = spec_tree(whole, spec_fn)
+        params = shard_tree(whole, mesh, spec_fn=spec_fn, own=True)
+        del whole
+        return {"params": params, "opt": init_fn(params)}, specs
     gen = torch.Generator(device=device).manual_seed(0)
     placed = {}
 
@@ -407,16 +443,25 @@ def run(args, arch, mesh=None) -> dict:
     elif diffusion:
         step_fn = make_diff_train_step(arch.arch_id, cfg, update_fn, accum)
     else:
-        step_fn = make_vis_train_step(arch.arch_id, cfg, update_fn, accum)
+        if mesh is not None:
+            check_batch_split(arch.arch_id, B, accum, mesh.size()
+                              // ctx.axes_size(mesh, ("model",)))
+            spec_fn = vision_train_spec_fn(arch.arch_id, cfg)
+            state, specs = mesh_state(cfg, mesh, spec_fn, init_fn, device,
+                                      arch)
+            drawn.append(state)
+        step_fn = make_vis_train_step(arch.arch_id, cfg, update_fn, accum,
+                                      mesh=mesh, specs=specs)
     line = describe_cuts(arch.arch_id, dataclasses.replace(
-        shape, global_batch=B), cfg, cut, accum)
+        shape, global_batch=B), cfg, cut, accum, shape.global_batch)
     if mesh is not None:
         per = B // accum // (mesh.size() // ctx.axes_size(mesh, ("model",)))
+        moe = getattr(cfg, "moe", None)
         line += (f"; mesh {' x '.join(map(str, mesh.mesh.shape))} "
                  f"({', '.join(mesh.mesh_dim_names)}), {per} "
                  f"row{'s' if per != 1 else ''} of each microbatch a data "
                  f"block"
-                 + (", a2a expert dispatch" if cfg.moe is not None else "")
+                 + (", a2a expert dispatch" if moe is not None else "")
                  + (", ranks sharing one card" if ctx.ranks_share_card()
                     and device.type == "cuda" else ""))
     say(line)
@@ -436,11 +481,11 @@ def run(args, arch, mesh=None) -> dict:
             return Prefetcher(diffusion_batches(cfg, B, step))
         return Prefetcher(synthetic_image_batches(
             global_batch=B, img_res=cfg.img_res, n_classes=cfg.n_classes,
-            start_step=step))
+            start_step=step, rows=rows))
 
     def init_state():
         if mesh is not None:
-            return mesh_state(cfg, mesh, spec_fn, init_fn, device)[0]
+            return mesh_state(cfg, mesh, spec_fn, init_fn, device, arch)[0]
         params = init_params(arch, cfg, device)
         return {"params": params, "opt": init_fn(params)}
 

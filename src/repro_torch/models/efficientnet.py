@@ -7,7 +7,13 @@ runtime width settings (slimmable, switchable BN) and depth and kernel
 settings on top of the compound-scaled B7 supernet.  The 1x1 convs
 (expand, project, head, the squeeze-excite pair at M = batch) and the
 classifier run on K1; the stem and the depthwise convs on cuDNN
-(``core/layers.py:conv_apply``).
+(``core/layers.py:conv_apply``).  Under a device mesh
+(``effnet_apply(..., mesh=, specs=)``, one rank of the training
+placement) each conv whose kernel is split over ``"model"`` computes the
+rank's output channels (a depthwise conv from the input's matching
+channels) and gathers them, the classifier is row-split, and batch norm
+takes the statistics of the whole batch.  The active widths are read
+from the BN parameters, which are never split.
 """
 from __future__ import annotations
 
@@ -112,34 +118,48 @@ def effnet_init(gen: torch.Generator, cfg: EffNetConfig, *,
     return params
 
 
+def _width(bn: dict) -> int:
+    """A BN's channel count: the whole width of the conv before it (BN
+    parameters are never split, a conv kernel may be)."""
+    return bn["scale"].shape[-1]
+
+
 def _mbconv_apply(p, x, *, stride, setting, train, wm, stats,
-                  a_kernel=None):
+                  a_kernel=None, mesh=None, specs=None):
     def bn(name, h, a):
-        y, st = L.sbn_apply(p[name], h, setting=setting, train=train, a=a)
+        y, st = L.sbn_apply(p[name], h, setting=setting, train=train, a=a,
+                            mesh=mesh)
         if stats is not None:
             stats.append((name, st))
         return y
 
+    def tp(name):
+        return L.model_tp(None if specs is None else specs[name], mesh)
+
     h = x
     expand = "expand" in p
     if expand:
-        a_mid = round_channels(p["expand"]["kernel"].shape[-1], wm, 8)
-        h = L.conv_apply(p["expand"], h, a_out=a_mid)
+        a_mid = round_channels(_width(p["bn0"]), wm, 8)
+        h = L.conv_apply(p["expand"], h, a_out=a_mid, tp=tp("expand"))
         h = F.silu(bn("bn0", h, a_mid))
     # without an expand conv the depthwise conv takes x's width as its
     # groups and keeps its full kernel: at a sliced width its groups see
     # 2+ output channels each and the block runs at full width (F5)
     h = L.conv_apply(p["dw"], h, stride=stride, groups=h.shape[-1],
                      a_in=a_mid if expand else None,
-                     a_out=a_mid if expand else None, a_kernel=a_kernel)
+                     a_out=a_mid if expand else None, a_kernel=a_kernel,
+                     tp=tp("dw"))
     h = F.silu(bn("bn1", h, a_mid if expand else None))
     # squeeze-excite (kernel dims sliced to match the active mid width)
     se = torch.mean(h, (1, 2), keepdim=True)
-    se = F.silu(L.conv_apply(p["se_reduce"], se, a_in=se.shape[-1]))
-    se = torch.sigmoid(L.conv_apply(p["se_expand"], se, a_out=h.shape[-1]))
+    se = F.silu(L.conv_apply(p["se_reduce"], se, a_in=se.shape[-1],
+                             tp=tp("se_reduce")))
+    se = torch.sigmoid(L.conv_apply(p["se_expand"], se, a_out=h.shape[-1],
+                                    tp=tp("se_expand")))
     h = h * se
-    a_out = round_channels(p["project"]["kernel"].shape[-1], wm, 8)
-    h = L.conv_apply(p["project"], h, a_in=h.shape[-1], a_out=a_out)
+    a_out = round_channels(_width(p["bn2"]), wm, 8)
+    h = L.conv_apply(p["project"], h, a_in=h.shape[-1], a_out=a_out,
+                     tp=tp("project"))
     h = bn("bn2", h, a_out)
     if stride == 1 and h.shape[-1] == x.shape[-1]:
         h = h + x
@@ -148,15 +168,24 @@ def _mbconv_apply(p, x, *, stride, setting, train, wm, stats,
 
 def effnet_apply(params, images, cfg: EffNetConfig, *, setting: int = 0,
                  depth_mult: float = 1.0, kernel_size=None,
-                 train: bool = False, collect_stats: bool = False):
-    """images (B,H,W,3) -> (logits, stats|None)."""
+                 train: bool = False, collect_stats: bool = False,
+                 mesh=None, specs=None):
+    """images (B,H,W,3) -> (logits, stats|None).  ``mesh`` with ``specs``
+    (the training placement, a tree beside ``params``): one rank's
+    forward of its blocks on its rows of the batch, at full width and
+    kernel size (module note)."""
     wm = cfg.width_settings[setting]
+    sp = specs or {}
+    if specs is not None and (wm != 1.0 or kernel_size is not None):
+        raise NotImplementedError("an EfficientNet under the training "
+                                  "placement runs at full width")
     stats = [] if (train and collect_stats) else None
     x = images.to(cfg.cdtype())
-    a_stem = round_channels(params["stem"]["kernel"].shape[-1], wm, 8)
-    h = L.conv_apply(params["stem"], x, stride=2, a_out=a_stem)
+    a_stem = round_channels(_width(params["bn_stem"]), wm, 8)
+    h = L.conv_apply(params["stem"], x, stride=2, a_out=a_stem,
+                     tp=L.model_tp(sp.get("stem"), mesh))
     hb, st = L.sbn_apply(params["bn_stem"], h, setting=setting, train=train,
-                         a=a_stem)
+                         a=a_stem, mesh=mesh)
     if stats is not None:
         stats.append(("bn_stem", st))
     h = F.silu(hb)
@@ -171,14 +200,20 @@ def effnet_apply(params, images, cfg: EffNetConfig, *, setting: int = 0,
                 ak = kernel_size
             h = _mbconv_apply(blk, h, stride=stride if b == 0 else 1,
                               setting=setting, train=train, wm=wm,
-                              stats=stats, a_kernel=ak)
-    a_head = round_channels(params["head"]["kernel"].shape[-1], wm, 8)
-    h = L.conv_apply(params["head"], h, a_in=h.shape[-1], a_out=a_head)
+                              stats=stats, a_kernel=ak, mesh=mesh,
+                              specs=sp[f"stage{s}"][b] if sp else None)
+    a_head = round_channels(_width(params["bn_head"]), wm, 8)
+    h = L.conv_apply(params["head"], h, a_in=h.shape[-1], a_out=a_head,
+                     tp=L.model_tp(sp.get("head"), mesh))
     hb, st = L.sbn_apply(params["bn_head"], h, setting=setting, train=train,
-                         a=a_head)
+                         a=a_head, mesh=mesh)
     if stats is not None:
         stats.append(("bn_head", st))
     h = F.silu(hb)
     pooled = torch.mean(h, (1, 2))
+    if L.model_tp(sp.get("fc"), mesh) is not None:
+        fc = params["fc"]
+        return L._row_parallel(fc, L.model_cols(
+            pooled, fc["kernel"].shape[0], mesh), mesh), stats
     logits = L.dense_apply(params["fc"], pooled, a_in=a_head)
     return logits, stats

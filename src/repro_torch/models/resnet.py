@@ -6,7 +6,11 @@ its own BN statistics (calibrated post-training).  Depth scaling drops
 trailing blocks per stage.  Parameters are a dict in the reference layout
 (HWIO conv kernels, ``(n_settings, C)`` BN arrays, each stage a list of
 block dicts).  The 1x1 convs and the classifier run on K1, the stem and
-the 3x3 convs on cuDNN (``core/layers.py:conv_apply``).
+the 3x3 convs on cuDNN (``core/layers.py:conv_apply``).  Under a device
+mesh (``resnet_apply(..., mesh=, specs=)``, one rank of the training
+placement) each conv whose kernel is split over ``"model"`` computes the
+rank's output channels and gathers them, the classifier is row-split,
+and batch norm takes the statistics of the whole batch.
 """
 from __future__ import annotations
 
@@ -87,24 +91,32 @@ def resnet_init(gen: torch.Generator, cfg: ResNetConfig, *,
     return params
 
 
-def _bottleneck_apply(p, x, *, stride, setting, train, widths, stats):
-    """widths = (a_mid, a_out) active channels (static, from width setting)."""
+def _bottleneck_apply(p, x, *, stride, setting, train, widths, stats,
+                      mesh=None, specs=None):
+    """widths = (a_mid, a_out) active channels (static, from width setting);
+    ``specs``: the block's training placement under ``mesh``."""
     a_mid, a_out = widths
 
     def bn(name, h, a):
-        y, st = L.sbn_apply(p[name], h, setting=setting, train=train, a=a)
+        y, st = L.sbn_apply(p[name], h, setting=setting, train=train, a=a,
+                            mesh=mesh)
         if train and stats is not None:
             stats.append((name, st))
         return y
 
-    h = L.conv_apply(p["conv1"], x, a_out=a_mid)
+    def tp(name):
+        return L.model_tp(None if specs is None else specs[name], mesh)
+
+    h = L.conv_apply(p["conv1"], x, a_out=a_mid, tp=tp("conv1"))
     h = F.relu(bn("bn1", h, a_mid))
-    h = L.conv_apply(p["conv2"], h, stride=stride, a_in=a_mid, a_out=a_mid)
+    h = L.conv_apply(p["conv2"], h, stride=stride, a_in=a_mid, a_out=a_mid,
+                     tp=tp("conv2"))
     h = F.relu(bn("bn2", h, a_mid))
-    h = L.conv_apply(p["conv3"], h, a_in=a_mid, a_out=a_out)
+    h = L.conv_apply(p["conv3"], h, a_in=a_mid, a_out=a_out, tp=tp("conv3"))
     h = bn("bn3", h, a_out)
     if "proj" in p:
-        sc = L.conv_apply(p["proj"], x, stride=stride, a_out=a_out)
+        sc = L.conv_apply(p["proj"], x, stride=stride, a_out=a_out,
+                          tp=tp("proj"))
         sc = bn("bn_proj", sc, a_out)
     else:
         sc = x if stride == 1 else x[:, ::stride, ::stride]
@@ -113,19 +125,27 @@ def _bottleneck_apply(p, x, *, stride, setting, train, widths, stats):
 
 def resnet_apply(params, images, cfg: ResNetConfig, *, setting: int = 0,
                  depth_mult: float = 1.0, train: bool = False,
-                 collect_stats: bool = False):
+                 collect_stats: bool = False, mesh=None, specs=None):
     """images (B,H,W,3) -> (logits, stats|None).
 
     ``setting`` indexes cfg.width_settings (slimmable width + its BN set);
     ``depth_mult`` drops trailing non-transition blocks per stage.
+    ``mesh`` with ``specs`` (the training placement, a tree beside
+    ``params``): one rank's forward of its blocks on its rows of the
+    batch, at full width (module note).
     """
     wm = cfg.width_settings[setting]
+    sp = specs or {}
+    if specs is not None and wm != 1.0:
+        raise NotImplementedError("a ResNet under the training placement "
+                                  "runs at full width")
     stats = [] if (train and collect_stats) else None
     x = images.to(cfg.cdtype())
     a_stem = round_channels(cfg.width, wm, 8)
-    h = L.conv_apply(params["stem"], x, stride=2, a_out=a_stem)
+    h = L.conv_apply(params["stem"], x, stride=2, a_out=a_stem,
+                     tp=L.model_tp(sp.get("stem"), mesh))
     hbn, st = L.sbn_apply(params["bn_stem"], h, setting=setting, train=train,
-                          a=a_stem)
+                          a=a_stem, mesh=mesh)
     if stats is not None:
         stats.append(("bn_stem", st))
     h = L.max_pool_apply(F.relu(hbn), window=3, stride=2)
@@ -141,8 +161,14 @@ def resnet_apply(params, images, cfg: ResNetConfig, *, setting: int = 0,
             stride = 2 if (b == 0 and s > 0) else 1
             h = _bottleneck_apply(params[f"stage{s}"][b], h, stride=stride,
                                   setting=setting, train=train,
-                                  widths=(a_mid, a_out), stats=stats)
+                                  widths=(a_mid, a_out), stats=stats,
+                                  mesh=mesh,
+                                  specs=sp[f"stage{s}"][b] if sp else None)
         prev_a = a_out
     pooled = torch.mean(h, (1, 2))
+    if L.model_tp(sp.get("fc"), mesh) is not None:
+        fc = params["fc"]
+        return L._row_parallel(fc, L.model_cols(
+            pooled, fc["kernel"].shape[0], mesh), mesh), stats
     logits = L.dense_apply(params["fc"], pooled, a_in=prev_a)
     return logits, stats

@@ -9,6 +9,12 @@ dict in the reference layout, except that the layer stack is a list of
 per-layer dicts (the reference stacks them on a leading axis for
 ``jax.lax.scan``; here the scan is a Python loop).
 
+Under a device mesh (``vit_apply(..., mesh=, specs=)``: one rank of the
+training placement, ``distributed.sharding.vision_train_spec_fn``) the
+attention and the MLP run tensor parallel where their kernels are split
+over ``"model"`` (whole heads a rank); the patch embed, the class and
+position tokens, the norms and the heads are replicated.
+
 The depth gate: the reference computes every layer and adds
 ``gate * f(x)`` with ``gate = (idx < a_layers)``, so a gated layer adds
 exact zeros and its parameters get zero gradients.  The port skips the
@@ -104,8 +110,9 @@ def vit_init(gen: torch.Generator, cfg: ViTConfig, *,
     return params
 
 
-def _encode(params, x, cfg: ViTConfig, E) -> tuple:
-    """images (B,H,W,3) -> (tokens (B,N,a_model), per-layer hiddens|None)."""
+def _encode(params, x, cfg: ViTConfig, E, mesh=None, specs=None) -> tuple:
+    """images (B,H,W,3) -> (tokens (B,N,a_model), per-layer hiddens|None);
+    ``specs`` (with ``mesh``): the training placement of ``params``."""
     a_model = E.get("a_model")
     a_layers = E.get("a_layers")
     B = x.shape[0]
@@ -132,16 +139,20 @@ def _encode(params, x, cfg: ViTConfig, E) -> tuple:
         stack = stack[:n_run]
     d_head = cfg.d_model // cfg.n_heads
     hiddens = [] if cfg.exit_layers else None
-    for lp in stack:
+    for i, lp in enumerate(stack):
+        tp_attn = tp_mlp = None
+        if specs is not None:
+            tp_attn = L.tp_mesh(specs["layers"][i]["attn"], "q", "o", mesh)
+            tp_mlp = L.tp_mesh(specs["layers"][i]["mlp"], "wi", "wo", mesh)
         hn = L.layernorm_apply(lp["ln1"], h, a=a_model)
         att, _ = L.attention_apply(lp["attn"], hn, n_heads=cfg.n_heads,
                                    n_kv=cfg.n_heads, d_head=d_head,
                                    causal=False, a_model=a_model,
-                                   a_heads=E.get("a_heads"))
+                                   a_heads=E.get("a_heads"), tp=tp_attn)
         h = h + att
         hn = L.layernorm_apply(lp["ln2"], h, a=a_model)
         h = h + L.mlp_apply(lp["mlp"], hn, a_model=a_model,
-                            a_ff=E.get("a_ff"), act="gelu")
+                            a_ff=E.get("a_ff"), act="gelu", tp=tp_mlp)
         if hiddens is not None:
             hiddens.append(h)
     if hiddens is not None:
@@ -150,11 +161,17 @@ def _encode(params, x, cfg: ViTConfig, E) -> tuple:
 
 
 def vit_apply(params: dict, images: torch.Tensor, cfg: ViTConfig, *, E=None,
-              return_exits: bool = False):
-    """Returns (logits (B,n_classes), aux) — aux carries exit logits/distill."""
+              return_exits: bool = False, mesh=None, specs=None):
+    """Returns (logits (B,n_classes), aux) — aux carries exit logits/distill.
+    ``mesh`` with ``specs`` (the training placement's spec of every leaf,
+    a tree beside ``params``): one rank's forward of its blocks, at full
+    width (module note)."""
     E = dict(E or {})
+    if specs is not None and E:
+        raise NotImplementedError("the ViT under the training placement "
+                                  "runs at full width")
     a_model = E.get("a_model")
-    h, hiddens = _encode(params, images, cfg, E)
+    h, hiddens = _encode(params, images, cfg, E, mesh, specs)
     h = L.layernorm_apply(params["final_ln"], h, a=a_model)
     logits = L.dense_apply(params["head"], h[:, 0], a_in=a_model)
     aux = {}

@@ -515,5 +515,5 @@ def test_launcher_mesh_requests_raise_before_allocating():
                  "localhost:1", "--num-processes", "3", "--process-id", "0",
                  "--device", "cpu"])
     with pytest.raises(NotImplementedError, match=r"11 \(d\)"):
-        TT.main(["--arch", "vit-l16", "--smoke", "--mesh", "2x2",
+        TT.main(["--arch", "dit-l2", "--smoke", "--mesh", "2x2",
                  "--device", "cpu"])

@@ -532,9 +532,10 @@ def test_train_cli_plain_vis_train(tmp_path):
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     from repro_torch.launch import train as T
     base = ["--smoke", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    # deepseek-moe-16b trains since LM training came (test_torch_lm_train)
-    for argv in (["--arch", "deit-b", "--mesh", "pod"],
-                 ["--arch", "deit-b", "--coordinator", "h:1"]):
+    # deepseek-moe-16b trains since LM training came (test_torch_lm_train),
+    # and under a mesh, as the vision family does (test_torch_vision_mesh)
+    for argv in (["--arch", "dit-l2", "--mesh", "pod"],
+                 ["--arch", "dit-l2", "--coordinator", "h:1"]):
         with pytest.raises(NotImplementedError):
             T.main(argv + base)
 
